@@ -1,0 +1,237 @@
+"""The port's hand-written CUDA kernels against their plain PyTorch versions,
+on the card, at small shapes. Every test here needs a CUDA GPU and skips
+without one; on a GPU machine run them with
+``python -m pytest tests/test_torch_cuda.py -q``. This file imports no JAX,
+so it runs where only the port is installed."""
+
+import numpy as np
+import pytest
+import torch
+
+from vidsum_tpu_torch.config import ModelConfig
+from vidsum_tpu_torch.models.simnet import SimNet
+from vidsum_tpu_torch.ops import attention as attn_mod
+from vidsum_tpu_torch.ops import block_kernel as bk
+
+pytestmark = pytest.mark.cuda
+
+# Per kernel and dtype: elementwise |got - want| <= atol + rtol |want| and
+# relative RMS error <= rel. f32: summation order differs between the
+# kernels and the plain versions, nothing else (TF32 is off). bf16 block:
+# the JAX tests' bound (tests/test_block_kernel.py) on outputs of size 1;
+# bf16 products and attention: one bf16 step (rtol 2**-7) plus an absolute
+# bound far below the attention outputs' typical size (means over many keys)
+TOL = {
+    ("gemm", torch.float32): dict(atol=1e-4, rtol=1e-4, rel=1e-5),
+    ("gemm", torch.bfloat16): dict(atol=1e-2, rtol=8e-3, rel=1e-2),
+    ("block", torch.float32): dict(atol=1e-4, rtol=1e-4, rel=1e-5),
+    ("block", torch.bfloat16): dict(atol=5e-2, rtol=5e-2, rel=1e-2),
+    ("attention", torch.float32): dict(atol=1e-5, rtol=1e-5, rel=1e-5),
+    ("attention", torch.bfloat16): dict(atol=2e-3, rtol=8e-3, rel=1e-2),
+}
+DTYPES = [torch.float32, torch.bfloat16]
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU: the hand-written kernels have no "
+                    "CPU or interpret mode")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _rel(got, want):
+    g, w = got.float(), want.float()
+    return float((g - w).norm() / w.norm())
+
+
+def _within(got, want, kind, dtype):
+    tol = TOL[(kind, dtype)]
+    g, w = got.float(), want.float()
+    return (bool(((g - w).abs() <= tol["atol"] + tol["rtol"] * w.abs()).all())
+            and _rel(got, want) <= tol["rel"])
+
+
+def _close(got, want, kind, dtype):
+    tol = TOL[(kind, dtype)]
+    torch.testing.assert_close(got.float(), want.float(), atol=tol["atol"],
+                               rtol=tol["rtol"])
+    assert _rel(got, want) <= tol["rel"]
+
+
+def _mask(B, N, dev, seed=0):
+    rng = np.random.default_rng(seed)
+    m = np.zeros((B, N), bool)
+    for b in range(B):
+        m[b, int(rng.integers(1, N + 1)):] = True   # >= 1 real key per row
+    return torch.from_numpy(m).to(dev)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("epilogue,N,K", [("none", 320, 96),
+                                          ("relu", 96, 100),
+                                          ("residual_ln", 64, 96),
+                                          ("residual_ln", 200, 40)])
+def test_gemm_bias_epilogue_matches_plain(cuda, dtype, epilogue, N, K):
+    """Ragged M, N and K tiles; K = 100 takes the unvectorised loads."""
+    g = torch.Generator(device="cpu").manual_seed(1)
+    M = 200
+    x = torch.randn(M, K, generator=g).to(cuda, dtype)
+    w = (torch.randn(N, K, generator=g) / K ** 0.5).to(cuda, dtype)
+    b = torch.randn(N, generator=g).to(cuda)
+    kw = {}
+    if epilogue == "residual_ln":
+        kw = dict(residual=torch.randn(M, N, generator=g).to(cuda),
+                  ln_g=torch.rand(N, generator=g).to(cuda) + 0.5,
+                  ln_b=torch.randn(N, generator=g).to(cuda))
+    before = bk.gemm_bias_epilogue.launches
+    got_t, got_f = bk.gemm_bias_epilogue(x, w, b, epilogue, want_f32=True,
+                                         **kw)
+    torch.cuda.synchronize()
+    assert bk.gemm_bias_epilogue.launches == before + 1
+    want_t, want_f = bk.gemm_bias_epilogue_reference(x, w, b, epilogue,
+                                                     want_f32=True, **kw)
+    _close(got_f, want_f, "gemm", torch.float32)   # exact products
+    _close(got_t, want_t, "gemm", dtype)
+
+
+def test_kernels_refuse_shapes_no_configuration_has(cuda):
+    """The LayerNorm epilogue takes rows of up to 256 (every d_model in the
+    repo), the attention kernel head_dim 16 and 64."""
+    x = torch.zeros(8, 32, device=cuda)
+    w = torch.zeros(320, 32, device=cuda)
+    b = torch.zeros(320, device=cuda)
+    with pytest.raises(ValueError, match="N <= 256"):
+        bk.gemm_bias_epilogue(x, w, b, "residual_ln",
+                              residual=torch.zeros(8, 320, device=cuda),
+                              ln_g=b, ln_b=b)
+    q = torch.zeros(1, 1, 64, 32, device=cuda)
+    with pytest.raises(ValueError, match="head_dim"):
+        attn_mod.masked_attention(q, q, q, None, 0.1)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("norm_first", [True, False])
+@pytest.mark.parametrize("Dh,aligned", [(16, True), (64, True), (64, False)])
+def test_masked_attention_matches_plain(cuda, dtype, norm_first, Dh,
+                                        aligned):
+    """Strided views of one QKV buffer and a ragged last tile; an odd row
+    stride takes the unvectorised loads. Each order of rounding P against
+    its plain version (the CPU path of the same wrapper)."""
+    g = torch.Generator(device="cpu").manual_seed(2)
+    B, H, N = 2, 3, 200
+    width = 3 * H * Dh + (0 if aligned else 1)
+    buf = torch.randn(B, N, width, generator=g).to(cuda, dtype)
+    qkv = buf[..., width - 3 * H * Dh:].view(B, N, 3, H, Dh) if aligned \
+        else buf[..., 1:].unflatten(-1, (3, H, Dh))
+    q, k, v = (qkv[:, :, i].transpose(1, 2) for i in range(3))
+    mask = _mask(B, N, cuda)
+    got = attn_mod.masked_attention(q, k, v, mask, 0.125,
+                                    norm_first=norm_first)
+    torch.cuda.synchronize()
+    want = attn_mod.masked_attention(q.cpu(), k.cpu(), v.cpu(), mask.cpu(),
+                                     0.125, norm_first=norm_first)
+    _close(got, want.to(cuda), "attention", dtype)
+
+
+@pytest.mark.parametrize("norm_first", [True, False])
+def test_bf16_attention_rounds_p_in_its_tpu_kernels_order(cuda, norm_first):
+    """normalised P (single-pass and block TPU kernels) or unnormalised P
+    of the online fold (folded TPU kernel): the kernel lies at least twice
+    as close to its own order's plain version as to the other's, and a
+    kernel that drops a key tile fails the tolerance."""
+    g = torch.Generator(device="cpu").manual_seed(7)
+    B, H, N, Dh = 2, 2, 1024, 64
+    q, k, v = (torch.randn(B, H, N, Dh, generator=g).to(cuda, torch.bfloat16)
+               for _ in range(3))
+    mask = _mask(B, N, cuda, seed=7)
+    mask[:, :N // 2] = False   # >= 8 unpadded key tiles per row
+    got = attn_mod.masked_attention(q, k, v, mask, 0.5, norm_first=norm_first)
+    normalised = attn_mod.attention_reference(q, k, v, mask, 0.5)
+    online = attn_mod.attention_folded_reference(q, k, v, mask, 0.5,
+                                                 attn_mod.KEY_TILE)
+    own, other = (normalised, online) if norm_first else (online, normalised)
+    _close(got, own, "attention", torch.bfloat16)
+    assert _rel(got, own) < _rel(got, other) / 2
+    dropped = mask.clone()
+    dropped[:, :attn_mod.KEY_TILE] = True
+    bad = attn_mod.masked_attention(q, k, v, dropped, 0.5,
+                                    norm_first=norm_first)
+    assert not _within(bad, own, "attention", torch.bfloat16)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("B,N,route", [(2, 128, "_fused_block_grouped"),
+                                       (1, 512, "_fused_block")])
+def test_fused_encoder_block_routes_match_plain(cuda, dtype, B, N, route):
+    cfg = ModelConfig(d_model=64, num_heads=4, num_layers=1)
+    block = SimNet(cfg, device=cuda).encoder.module_list[0]
+    g = torch.Generator(device="cpu").manual_seed(3)
+    x = torch.randn(B, N, 64, generator=g).to(cuda, dtype)
+    mask = _mask(B, N, cuda, seed=3)
+    before = getattr(bk, route).launches
+    got = bk.fused_encoder_block(block, x, mask, 4, cfg.attn_scale)
+    torch.cuda.synchronize()
+    assert getattr(bk, route).launches == before + 1
+    want = bk.encoder_block_reference(bk.block_weights(block, dtype), x,
+                                      mask, 4, cfg.attn_scale)
+    _close(got, want, "block", dtype)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("folded", [False, True])
+def test_flash_routes_match_plain(cuda, dtype, folded):
+    g = torch.Generator(device="cpu").manual_seed(4)
+    B, H, N, Dh = 2, 2, 256, 64
+    q, k, v = (torch.randn(B, H, N, Dh, generator=g).to(cuda, dtype)
+               for _ in range(3))
+    mask = _mask(B, N, cuda, seed=4)
+    if folded:
+        got = attn_mod._flash_attention_folded(q, k, v, mask, 0.1, 128)
+        want = attn_mod.attention_folded_reference(q, k, v, mask, 0.1,
+                                                   attn_mod.KEY_TILE)
+    else:
+        got = attn_mod._flash_attention(q, k, v, mask, 0.1)
+        want = attn_mod.attention_reference(q, k, v, mask, 0.1)
+    torch.cuda.synchronize()
+    _close(got, want, "attention", dtype)
+
+
+def test_model_fused_block_matches_dense_on_card(cuda):
+    cfg = ModelConfig(in_features=64, d_model=64, num_heads=4, num_layers=2)
+    model = SimNet(cfg, device=cuda)
+    g = torch.Generator(device="cpu").manual_seed(5)
+    x = torch.randn(2, 384, 64, generator=g).to(cuda)
+    mask = _mask(2, 384, cuda, seed=5)
+    with torch.inference_mode():
+        got, _ = model(x, mask, attn_impl="fused_block")
+        want, _ = model(x, mask, attn_impl="dense")
+    _close(got, want, "block", torch.float32)
+
+
+def test_served_scores_equal_solo_on_card(cuda):
+    from vidsum_tpu_torch.data.collate import bucket_length
+    from vidsum_tpu_torch.serve import ScoringService
+    from vidsum_tpu_torch.train.steps import make_eval_forward
+
+    cfg = ModelConfig(in_features=64, d_model=64, num_heads=4, num_layers=2,
+                      compute_dtype="bfloat16")
+    model = SimNet(cfg, device=cuda)
+    rng = np.random.default_rng(6)
+    videos = [rng.normal(size=(n, 64)).astype(np.float32)
+              for n in (37, 100, 250, 300, 520)]
+    with ScoringService(model, cfg, max_batch=8, max_delay_ms=200.0) as svc:
+        results = [f.result(timeout=300) for f in
+                   [svc.submit(v, want_summary=False) for v in videos]]
+    fwd = make_eval_forward(cfg)
+    for v, r in zip(videos, results):
+        n = v.shape[0]
+        nb = bucket_length(n)
+        x = np.full((1, nb, 64), 1000.0, np.float32)
+        x[0, :n] = v
+        mask = np.ones((1, nb), bool)
+        mask[0, :n] = False
+        solo = fwd(model, x, mask)[0, :n].float().cpu().numpy()
+        np.testing.assert_array_equal(r.scores, solo)

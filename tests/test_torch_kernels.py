@@ -1,0 +1,192 @@
+"""The port's kernel modules (ops/block_kernel.py, ops/attention.py) against
+the JAX package's Pallas kernels, on the CPU: the port's plain PyTorch
+versions (what its wrappers run on CPU tensors) against the Pallas kernels in
+interpret mode, as tests/test_block_kernel.py and tests/test_attention.py run
+them, plus the routing arithmetic request for request."""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from vidsum_tpu.config import ModelConfig as JaxModelConfig
+from vidsum_tpu.models.simnet import init_simnet
+from vidsum_tpu.ops import attention as jax_attention
+from vidsum_tpu.ops import block_kernel as jax_block
+from vidsum_tpu_torch.config import ModelConfig
+from vidsum_tpu_torch.models.convert import params_from_jax
+from vidsum_tpu_torch.models.simnet import SimNet
+from vidsum_tpu_torch.ops import attention as attn_mod
+from vidsum_tpu_torch.ops import block_kernel as bk
+
+D, H = 64, 4
+
+
+def _block_pair(seed):
+    """One block's weights in both packages, from one JAX init."""
+    jcfg = JaxModelConfig(in_features=32, d_model=D, num_heads=H,
+                          num_layers=1, dropout=0.0)
+    params = init_simnet(jax.random.PRNGKey(seed), jcfg)
+    model = SimNet(ModelConfig(in_features=32, d_model=D, num_heads=H,
+                               num_layers=1), device="cpu")
+    model.load_state_dict(params_from_jax(
+        jax.tree_util.tree_map(np.asarray, params)))
+    return params["blocks"][0], model.encoder.module_list[0]
+
+
+def _mask(B, N, seed):
+    rng = np.random.default_rng(seed)
+    m = np.zeros((B, N), bool)
+    for b in range(B):
+        m[b, int(rng.integers(N // 2, N)):] = True
+    return m
+
+
+@pytest.mark.parametrize("dtype,tol", [("float32", 2e-5), ("bfloat16", 5e-2)])
+@pytest.mark.parametrize("B,N", [(2, 128), (1, 512)])
+def test_encoder_block_reference_matches_pallas_kernel(dtype, tol, B, N):
+    """(2, 128) takes the grouped TPU kernel, (1, 512) the per-element one;
+    tolerances are the JAX tests' own (test_block_kernel.py)."""
+    jblock, tblock = _block_pair(B * N)
+    rng = np.random.default_rng(N)
+    x = rng.normal(size=(B, N, D)).astype(np.float32)
+    mask = _mask(B, N, N)
+    assert jax_block._pick_group(B, N) == bk._pick_group(B, N)
+    want = jax_block.fused_encoder_block(
+        jblock, jnp.asarray(x, dtype), jnp.asarray(mask), H, D ** -0.5)
+    tdt = getattr(torch, dtype)
+    got = bk.fused_encoder_block(tblock, torch.from_numpy(x).to(tdt),
+                                 torch.from_numpy(mask), H, D ** -0.5)
+    assert got.dtype == tdt
+    np.testing.assert_allclose(got.float().numpy(),
+                               np.asarray(want, np.float32),
+                               rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("folded", [False, True])
+def test_attention_references_match_pallas_kernels(folded):
+    rng = np.random.default_rng(7)
+    B, Hh, N, Dh = 2, 2, 256, 16
+    q, k, v = (rng.normal(size=(B, Hh, N, Dh)).astype(np.float32)
+               for _ in range(3))
+    mask = _mask(B, N, 8)
+    jq, jk, jv, jm = map(jnp.asarray, (q, k, v, mask))
+    tq, tk, tv, tm = map(torch.from_numpy, (q, k, v, mask))
+    if folded:
+        want = jax_attention._flash_attention_folded(
+            jq, jk, jv, jm, 0.125, interpret=True, kb=128)
+        got = attn_mod._flash_attention_folded(tq, tk, tv, tm, 0.125, 128)
+    else:
+        want = jax_attention._flash_attention(jq, jk, jv, jm, 0.125,
+                                              interpret=True)
+        got = attn_mod._flash_attention(tq, tk, tv, tm, 0.125)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want),
+                               rtol=1e-5, atol=1e-5)
+    # the dense plain version agrees with both
+    np.testing.assert_allclose(
+        attn_mod.attention_reference(tq, tk, tv, tm, 0.125).numpy(),
+        np.asarray(want), rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("folded", [False, True])
+def test_bf16_attention_references_round_p_as_pallas_kernels(folded):
+    """In bf16 the plain versions round P where the Pallas kernels do: the
+    single pass after normalising, the fold before. At scale 1 each agrees
+    with its kernel to 1e-3, while the other order is further off."""
+    rng = np.random.default_rng(7)
+    B, Hh, N, Dh = 2, 2, 256, 16
+    q, k, v = (rng.normal(size=(B, Hh, N, Dh)).astype(np.float32)
+               for _ in range(3))
+    mask = _mask(B, N, 8)
+    jq, jk, jv = (jnp.asarray(a, jnp.bfloat16) for a in (q, k, v))
+    tq, tk, tv = (torch.from_numpy(a).to(torch.bfloat16) for a in (q, k, v))
+    tm = torch.from_numpy(mask)
+    normalised = attn_mod.attention_reference(tq, tk, tv, tm, 1.0)
+    online = attn_mod.attention_folded_reference(tq, tk, tv, tm, 1.0, 128)
+    if folded:
+        want = jax_attention._flash_attention_folded(
+            jq, jk, jv, jnp.asarray(mask), 1.0, interpret=True, kb=128)
+        own, other = online, normalised
+    else:
+        want = jax_attention._flash_attention(jq, jk, jv, jnp.asarray(mask),
+                                              1.0, interpret=True)
+        own, other = normalised, online
+    want = np.asarray(want, np.float32)
+    np.testing.assert_allclose(own.float().numpy(), want, rtol=0, atol=1e-3)
+    assert np.abs(other.float().numpy() - want).max() > 5e-3
+
+
+def test_routing_arithmetic_matches_jax():
+    """Every routing predicate gives the JAX package's answer, so a request
+    takes the same route in both packages."""
+    for B in (1, 2, 3, 8, 32):
+        for N in (128, 256, 384, 512, 640, 1280, 4096, 6016, 8192):
+            assert bk._pick_group(B, N) == jax_block._pick_group(B, N)
+            for d, itm in ((64, 4), (256, 2), (256, 4), (512, 2)):
+                assert (bk.fused_block_supported(B, N, d, itm)
+                        == jax_block.fused_block_supported(B, N, d, itm))
+                t = bk._pick_tile(N)
+                assert t == jax_block._pick_tile(N)
+                assert (bk._working_set_bytes(B, N, d, itm, t)
+                        == jax_block._working_set_bytes(B, N, d, itm, t))
+    for N in list(range(128, 40960, 1152)) + [16384, 131072, 262144]:
+        assert attn_mod._pick_key_block(N) == jax_attention._pick_key_block(N)
+        for Dh, itm in ((64, 2), (64, 4), (16, 4)):
+            assert (attn_mod.flash_forward_supported(N, Dh, itm)
+                    == jax_attention.flash_forward_supported(N, Dh, itm))
+
+
+def test_flash_attention_picks_the_tpu_route(monkeypatch):
+    """flash_attention's ladder: single pass while its budget holds, the
+    key-folded route past it, and a ValueError past the folded envelope."""
+    taken = []
+    monkeypatch.setattr(attn_mod, "_flash_attention",
+                        lambda *a: taken.append("single"))
+    monkeypatch.setattr(attn_mod, "_flash_attention_folded",
+                        lambda *a: taken.append(("folded", a[-1])))
+    for N in (6016, 12288, 16384):
+        q = torch.zeros((1, 1, N, 64), dtype=torch.bfloat16)
+        attn_mod.flash_attention(q, q, q, None, 0.1)
+    assert taken == ["single", "single", ("folded", 4096)]
+    q = torch.zeros((1, 1, 262144, 64), dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="envelope"):
+        attn_mod.flash_attention(q, q, q, None, 0.1)
+
+
+def test_cpu_tensors_take_the_plain_versions():
+    """On CPU tensors the wrappers run their plain versions and count no
+    kernel launch."""
+    _, tblock = _block_pair(0)
+    x = torch.randn(2, 128, D)
+    counters = (bk.gemm_bias_epilogue, bk._fused_block,
+                bk._fused_block_grouped, attn_mod.masked_attention,
+                attn_mod._flash_attention, attn_mod._flash_attention_folded)
+    before = [c.launches for c in counters]
+    got = bk.fused_encoder_block(tblock, x, None, H, D ** -0.5)
+    want = bk.encoder_block_reference(bk.block_weights(tblock, x.dtype), x,
+                                      None, H, D ** -0.5)
+    assert torch.equal(got, want)
+    w = torch.randn(96, D)
+    b = torch.randn(96)
+    y, _ = bk.gemm_bias_epilogue(x.reshape(-1, D), w, b, "relu")
+    assert torch.equal(y, torch.relu(x.reshape(-1, D) @ w.t() + b))
+    q = torch.randn(1, 2, 128, 16)
+    assert torch.equal(attn_mod.masked_attention(q, q, q, None, 0.2),
+                       attn_mod.attention_reference(q, q, q, None, 0.2))
+    assert torch.equal(
+        attn_mod.masked_attention(q, q, q, None, 0.2, norm_first=False),
+        attn_mod.attention_folded_reference(q, q, q, None, 0.2,
+                                            attn_mod.KEY_TILE))
+    assert [c.launches for c in counters] == before
+
+
+def test_block_weights_repack_after_a_weight_change():
+    _, tblock = _block_pair(1)
+    w1 = bk.block_weights(tblock, torch.float32)
+    assert bk.block_weights(tblock, torch.float32) is w1
+    with torch.no_grad():
+        tblock.sa.q.weight.add_(1.0)
+    w2 = bk.block_weights(tblock, torch.float32)
+    assert w2 is not w1
+    assert torch.equal(w2.wqkv[:D], tblock.sa.q.weight)

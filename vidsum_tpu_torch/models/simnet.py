@@ -1,0 +1,249 @@
+# ported from vidsum_tpu/models/simnet.py
+"""SimNet, the transformer frame-importance scorer, as a PyTorch module
+(inference only in this slice).
+
+Behaviour (reference: ``src/model/simnet.py``): Linear embed 1024 -> d_model
+plus a sinusoidal positional encoding (and an optional CLS token), then
+``num_layers`` post-LN encoder blocks, then a Linear head d_model ->
+num_classes. Attention is scaled by ``d_model**-0.5``; the pad mask is a key
+mask broadcast over heads and queries; blocks are ``LN(sub(x) + x)`` with
+LayerNorm eps 1e-5 and biased variance. ``forward`` returns
+``(scores, hidden)``.
+
+Module names follow the reference's state-dict keys
+(``embedding_layer.feature_transform``, ``encoder.module_list.{i}.sa.q``,
+``.mlp.fc1``, ``.norm1``, ``final_layer``), so a reference ``model_mae.pth``
+(without its PE buffer, which is recomputed here in closed form) and weights
+converted from the JAX package (``models/convert.py``) load as they are.
+
+``attn_impl`` names and their JAX counterparts:
+
+    ``"dense"``        <-> ``"xla"``            plain PyTorch attention
+    ``"flash"``        <-> ``"pallas"``         ops/attention.flash_attention
+    ``"fused_block"``  <-> ``"pallas_block"``   ops/block_kernel.fused_encoder_block
+
+The default is ``"fused_block"`` on CUDA and ``"dense"`` on the CPU. The
+ladder is the JAX package's: ``"fused_block"`` demotes to ``"flash"`` when
+``fused_block_supported`` is False, and ``"flash"`` picks its single-pass or
+key-folded route by ``flash_attention``'s arithmetic. Embed, PE, head and
+sigmoid are plain PyTorch, as are the projections, MLP and LayerNorms around
+the attention kernel on the ``"flash"`` route; on CUDA the embed and head
+run through ``gemm_bias_epilogue`` so that a row's scores do not depend on
+the batch it was served in (cuBLAS picks its algorithm by shape).
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from vidsum_tpu_torch.config import ModelConfig
+from vidsum_tpu_torch.device import dtype_of, resolve_device
+from vidsum_tpu_torch.ops.attention import attention_reference, flash_attention
+from vidsum_tpu_torch.ops.block_kernel import (
+    fused_block_supported, fused_encoder_block, gemm_bias_epilogue,
+)
+
+ATTN_IMPLS = ("dense", "flash", "fused_block")
+_LATER = {
+    "training": "the training slice (slice 2: finetune step + kernels 5-12)",
+    "int8": "the int8 slice",
+    "attn_fn": "the multi-GPU slice",
+}
+
+
+class Embedding(nn.Module):
+    def __init__(self, cfg: ModelConfig):
+        super().__init__()
+        self.feature_transform = nn.Linear(cfg.in_features, cfg.d_model)
+        if cfg.use_cls:
+            self.cls_token = nn.Parameter(torch.zeros(1, 1, cfg.d_model))
+
+
+class Attention(nn.Module):
+    def __init__(self, d: int):
+        super().__init__()
+        self.q = nn.Linear(d, d)
+        self.k = nn.Linear(d, d)
+        self.v = nn.Linear(d, d)
+        self.feature_projection = nn.Linear(d, d)
+
+
+class MLP(nn.Module):
+    def __init__(self, d: int, hidden: int):
+        super().__init__()
+        self.fc1 = nn.Linear(d, hidden)
+        self.fc2 = nn.Linear(hidden, d)
+
+
+class EncoderBlock(nn.Module):
+    def __init__(self, cfg: ModelConfig):
+        super().__init__()
+        d = cfg.d_model
+        self.sa = Attention(d)
+        self.mlp = MLP(d, cfg.mlp_scale * d)
+        self.norm1 = nn.LayerNorm(d)
+        self.norm2 = nn.LayerNorm(d)
+
+
+class Encoder(nn.Module):
+    def __init__(self, cfg: ModelConfig):
+        super().__init__()
+        self.module_list = nn.ModuleList(
+            [EncoderBlock(cfg) for _ in range(cfg.num_layers)])
+
+
+def positional_encoding_table(max_len: int, d_model: int,
+                              device=None) -> torch.Tensor:
+    """Classic sin/cos table (reference: simnet.py:220-234), f32."""
+    # the JAX package's f32 operation order, so the angles round alike
+    angle = torch.exp(-torch.arange(0, d_model, 2, dtype=torch.float32,
+                                    device=device)
+                      * math.log(10000.0) / d_model)
+    pos = torch.arange(0, max_len, dtype=torch.float32, device=device)[:, None]
+    pe = torch.zeros((max_len, d_model), device=device)
+    pe[:, 0::2] = torch.sin(pos * angle)
+    pe[:, 1::2] = torch.cos(pos * angle)
+    return pe
+
+
+def _linear(lin: nn.Linear, x: torch.Tensor) -> torch.Tensor:
+    """``x @ W^T + b`` in x's dtype, one product per batch element so a row's
+    result does not depend on the rest of the batch (the JAX ``_linear``)."""
+    w = lin.weight.to(x.dtype).t()
+    b = lin.bias.to(x.dtype)
+    return torch.stack([torch.matmul(xi, w) for xi in x.unbind(0)]) + b
+
+
+def _kernel_linear(lin: nn.Linear, x: torch.Tensor) -> torch.Tensor:
+    """The embed/head product through ``gemm_bias_epilogue`` on CUDA."""
+    B, N, K = x.shape
+    out, _ = gemm_bias_epilogue(x.reshape(B * N, K).contiguous(),
+                                lin.weight.to(x.dtype).contiguous(),
+                                lin.bias.float().contiguous(), "none")
+    return out.view(B, N, -1)
+
+
+def _layernorm(ln: nn.LayerNorm, x: torch.Tensor) -> torch.Tensor:
+    return F.layer_norm(x.float(), ln.normalized_shape, ln.weight, ln.bias,
+                        ln.eps).to(x.dtype)
+
+
+class SimNet(nn.Module):
+    """The scorer. Parameters are f32 and are initialised as
+    ``torch.nn.Linear``'s U(+-1/sqrt(fan_in)) for weights and biases (the
+    JAX package's init) from ``generator`` (default: seed 0); LayerNorms
+    start at ones/zeros and the CLS token at zeros."""
+
+    def __init__(self, cfg: ModelConfig, *, device=None,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        if cfg.norm_first:
+            raise NotImplementedError(
+                "norm_first (pre-LN) blocks arrive with "
+                + _LATER["training"])
+        self.cfg = cfg
+        dev = resolve_device(device)
+        self.embedding_layer = Embedding(cfg)
+        self.encoder = Encoder(cfg)
+        self.final_layer = nn.Linear(cfg.d_model, cfg.num_classes)
+        if generator is None:
+            generator = torch.Generator().manual_seed(0)
+        with torch.no_grad():
+            for mod in self.modules():
+                if isinstance(mod, nn.Linear):
+                    bound = 1.0 / math.sqrt(mod.in_features)
+                    mod.weight.uniform_(-bound, bound, generator=generator)
+                    mod.bias.uniform_(-bound, bound, generator=generator)
+        self.to(dev)
+        self._pe_cache = {}
+
+    def _pe(self, length: int, device) -> torch.Tensor:
+        """The PE table of ``length`` rows. Only the ``max_len`` table, which
+        every request up to ``max_len`` frames uses, is cached; longer ones
+        are recomputed, so serving many long lengths holds no extra memory."""
+        if length != self.cfg.max_len:
+            return positional_encoding_table(length, self.cfg.d_model, device)
+        pe = self._pe_cache.get(str(device))
+        if pe is None:
+            pe = positional_encoding_table(length, self.cfg.d_model, device)
+            self._pe_cache[str(device)] = pe
+        return pe
+
+    def forward(self, x: torch.Tensor, pad_mask: Optional[torch.Tensor] = None,
+                *, attn_impl: Optional[str] = None, deterministic: bool = True,
+                return_attn: bool = False, attn_fn=None,
+                pe_len: Optional[int] = None, dropout_masks=None):
+        """Run the scorer on x (B, N, in_features) with pad_mask (B, N) bool,
+        True at padded frames. Returns ``(scores (B, N(+1), num_classes) f32,
+        hidden)``."""
+        cfg = self.cfg
+        if not deterministic or dropout_masks is not None:
+            raise NotImplementedError("dropout arrives with "
+                                      + _LATER["training"])
+        if return_attn:
+            raise NotImplementedError("return_attn (attention export) "
+                                      "arrives with " + _LATER["training"])
+        if attn_fn is not None:
+            raise NotImplementedError("attn_fn arrives with "
+                                      + _LATER["attn_fn"])
+        if attn_impl is None:
+            attn_impl = "fused_block" if x.device.type == "cuda" else "dense"
+        if attn_impl.startswith("int8"):
+            raise NotImplementedError(f"{attn_impl!r} arrives with "
+                                      + _LATER["int8"])
+        if attn_impl not in ATTN_IMPLS:
+            raise ValueError(f"attn_impl must be one of {ATTN_IMPLS}, got "
+                             f"{attn_impl!r}")
+
+        dt = dtype_of(cfg.compute_dtype)
+        x = x.to(dt)
+        B, N, _ = x.shape
+        on_cuda = x.device.type == "cuda"
+        emb = self.embedding_layer
+        h = (_kernel_linear if on_cuda else _linear)(emb.feature_transform, x)
+        if cfg.use_pos:
+            pe = self._pe(max(cfg.max_len, pe_len or 0, N), x.device)
+            h = h + pe[None, :N].to(dt)
+        if cfg.use_cls:
+            h = torch.cat([emb.cls_token.to(dt).expand(B, 1, cfg.d_model), h],
+                          dim=1)
+            if pad_mask is not None:
+                pad_mask = torch.cat(
+                    [torch.zeros((B, 1), dtype=torch.bool,
+                                 device=pad_mask.device), pad_mask], dim=1)
+
+        n_eff = h.shape[1]
+        if attn_impl == "fused_block" and not fused_block_supported(
+                B, n_eff, cfg.d_model, h.element_size()):
+            attn_impl = "flash"
+        for block in self.encoder.module_list:
+            if attn_impl == "fused_block":
+                h = fused_encoder_block(block, h, pad_mask, cfg.num_heads,
+                                        cfg.attn_scale)
+                continue
+            sa = self._attention(block.sa, h, pad_mask, attn_impl)
+            h = _layernorm(block.norm1, sa + h)
+            ff = _linear(block.mlp.fc2, torch.relu(_linear(block.mlp.fc1, h)))
+            h = _layernorm(block.norm2, ff + h)
+
+        head = _kernel_linear if on_cuda else _linear
+        scores = head(self.final_layer, h).float()
+        return scores, h
+
+    def _attention(self, sa: Attention, x, pad_mask, attn_impl: str):
+        cfg = self.cfg
+        B, N, _ = x.shape
+        H, Dh = cfg.num_heads, cfg.head_dim
+        q, k, v = (_linear(lin, x).view(B, N, H, Dh).transpose(1, 2)
+                   for lin in (sa.q, sa.k, sa.v))
+        if attn_impl == "flash":
+            out = flash_attention(q, k, v, pad_mask, cfg.attn_scale)
+        else:
+            out = attention_reference(q, k, v, pad_mask, cfg.attn_scale)
+        out = out.transpose(1, 2).reshape(B, N, H * Dh)
+        return _linear(sa.feature_projection, out)
