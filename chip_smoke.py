@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's serving path on one NVIDIA GPU.
+"""Drive the PyTorch/CUDA port's serving and finetune paths on one NVIDIA
+GPU.
 
     python3 chip_smoke.py [--seed 0]
 
@@ -25,7 +26,21 @@ caught and passed over):
    timed as a yardstick only; the port never calls them), and the bound:
    the larger of the bytes the function must move over the card's memory
    rate and its operations over the card's peak rate for the input type.
-4. serve: ``ScoringService`` with seeded flagship weights (d 256, 4 heads,
+4. train kernels: the four training routes of the fused block
+   (``ops/block_train.py``, TPU kernels 9-12) at (B, N) = (32, 512)
+   (per-element) and (8, 256) (grouped), dropout 0.3, f32 and bf16 inputs:
+   the forward, dx and all packed parameter grads against autograd of the
+   plain version with the same dropout bits, each by an elementwise and a
+   relative RMS bound at f32 summation-order level (rows with an fc1 input
+   within rounding of 0 get a zero cotangent, so no ReLU branch flip enters
+   the grads); the kernels run at seed + 1 (a planted fault) must
+   fail them, and two backward runs must give identical bits. Prints the
+   median CUDA-event ms of each route, its plain version and
+   ``nn.TransformerEncoderLayer(dropout=0.3)`` in train mode (forward, and
+   forward + backward; timed only), the bound against the f32 peak (the
+   products are f32) and the memory rate, and a ``torch.profiler``
+   breakdown of the (32, 512) f32 routes by kernel.
+5. serve: ``ScoringService`` with seeded flagship weights (d 256, 4 heads,
    4 layers, bf16) takes 13 requests: 320/480/512 frames with auto-KTS,
    1,200 frames, 6,000 frames (past the block envelope: flash) and 16,384
    frames (key-folded), the last two with given shots. Checks: every future
@@ -33,7 +48,20 @@ caught and passed over):
    counter moved during this phase (counters are zeroed just before it),
    and each request's served scores equal its solo ``make_eval_forward``
    scores bit for bit.
-5. the ``kernels`` line, the card's name and power limit, and last
+6. train: the finetune recipe (d 256, 4 heads, 4 layers, dropout 0.3, Adam
+   lr 1e-3 / wd 1e-4, batch 4, f32) with seeded weights on in-memory videos
+   in the DSNet schema made with numpy from ``--seed``: first one step on
+   the first long batch on the card and on the CPU's plain path with the
+   same dropout seeds (loss and each parameter's gradient must agree), then,
+   with the counters zeroed, 10 epochs of ``_train_epoch`` over 8 short
+   videos (100-380 frames: grouped routes) and over 8 long ones (520-1,100
+   frames: per-element routes), 20 steps each, and ``_val_epoch`` over 4
+   videos. Checks: finite losses, all four training counters moved, val F in
+   [0, 100] and finite tau/rho. Prints the CUDA-event ms per step (median,
+   quartiles, range) at the recipe's shapes and at (32, 512), and a
+   ``torch.profiler`` breakdown of both steps (device busy share, kernels by
+   device time).
+7. the ``kernels`` line, the card's name and power limit, and last
    ``{"ok": true, "device": {...}}``.
 """
 
@@ -68,7 +96,39 @@ TOL = {
     ("block", "float32"): dict(atol=1e-4, rtol=1e-4, rel=1e-5),
     ("attention", "bfloat16"): dict(atol=2e-3, rtol=8e-3, rel=1e-2),
     ("attention", "float32"): dict(atol=1e-5, rtol=1e-5, rel=1e-5),
+    # training block: forward outputs are LayerNorm outputs of size 1 (the
+    # block bounds); gradients are sums over up to B*N rows whose size
+    # varies by parameter, so their atol is relative to the tensor's largest
+    # entry. In f32 kernel and plain version differ by summation order
+    # (measured relative RMS 1e-7 to 7e-7 on every tensor), and the check
+    # keeps it so: rows whose fc1 input lies within NEAR_ZERO of 0 get a zero
+    # cotangent (see phase_train_kernels), since there the ReLU may take the
+    # other branch in the two versions and move the row's grads by a real
+    # amount. The kernels run at seed + 1 are off by ~0.3. With bf16 inputs
+    # the output and dx are also rounded to bf16 (one step)
+    ("train_fwd", "float32"): dict(atol=1e-4, rtol=1e-4, rel=1e-5),
+    ("train_fwd", "bfloat16"): dict(atol=5e-2, rtol=5e-2, rel=1e-2),
+    ("train_grad", "float32"): dict(atol=1e-4, rtol=1e-4, rel=1e-5),
+    ("train_dx", "float32"): dict(atol=1e-4, rtol=1e-4, rel=1e-5),
+    ("train_dx", "bfloat16"): dict(atol=1e-2, rtol=1e-2, rel=1e-2),
+    # a whole 4-layer finetune step, card against CPU, each parameter's grad
+    # on its own: atol relative to the largest grad of the step, relative
+    # RMS per tensor. Here no row can be spared a ReLU flip (attention mixes
+    # rows between layers), and a flip in a later layer moves every grad
+    # upstream of it by a relative RMS of up to ~1e-3 (measured 3e-5 to
+    # 9e-4, the embed weight's the largest: its grad is a sum of rank-one
+    # terms that mostly cancel). This check is for the wiring (the autograd
+    # Function, the packing of Q/K/V, a grad reaching the wrong parameter:
+    # errors of order 1); the kernels' precision is held by the f32 bounds
+    # above. A grad whose reference norm is at rounding level (below
+    # ROUNDING_NORM of the largest: the key bias's, which softmax's shift
+    # invariance makes 0) is held by the elementwise bound only
+    ("step_grad", "float32"): dict(atol=1e-4, rtol=1e-3, rel=2e-3),
 }
+# fc1 inputs nearer 0 than this share of their RMS may take the other ReLU
+# branch in kernel and plain version (their difference is < 2e-5 of the RMS)
+NEAR_ZERO = 2e-4
+ROUNDING_NORM = 1e-6
 
 
 def emit(phase: str, **kw) -> None:
@@ -84,6 +144,11 @@ def peaks_for(name: str) -> dict:
 
 def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
     """Median CUDA-event time of ``fn`` in milliseconds."""
+    return statistics.median(cuda_times(fn, reps, warmup))
+
+
+def cuda_times(fn, reps: int, warmup: int = 2) -> list:
+    """CUDA-event times of ``reps`` runs of ``fn`` in milliseconds."""
     import torch
 
     for _ in range(warmup):
@@ -98,7 +163,46 @@ def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
         end.record()
         end.synchronize()
         times.append(start.elapsed_time(end))
-    return statistics.median(times)
+    return times
+
+
+def spread(times: list) -> dict:
+    """Median, quartiles and range of a list of times."""
+    q1, _, q3 = statistics.quantiles(times, n=4)
+    return {"n": len(times), "median": statistics.median(times), "q1": q1,
+            "q3": q3, "min": min(times), "max": max(times)}
+
+
+def device_profile(fn, reps: int, top: int = 8) -> dict:
+    """``fn`` run ``reps`` times under ``torch.profiler``: host wall ms per
+    run (ending in a synchronise), device kernel ms per run, the device's
+    busy share of the wall, and the ``top`` kernels by device time (ms per
+    run, launches per run)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3 / reps
+    kernels = {}
+    for e in prof.events():
+        # kernels only: a range annotation (Optimizer.step) spans others
+        if (e.device_type == torch.autograd.DeviceType.CUDA
+                and not getattr(e, "is_user_annotation", False)):
+            ms, n = kernels.get(e.name, (0.0, 0))
+            kernels[e.name] = (ms + e.time_range.elapsed_us() / 1e3, n + 1)
+    device = sum(ms for ms, _ in kernels.values()) / reps
+    ranked = sorted(kernels.items(), key=lambda kv: -kv[1][0])[:top]
+    return {"wall_ms": wall, "device_ms": device,
+            "busy_share": device / wall if wall else None,
+            "top": [[name[:60], ms / reps, n / reps]
+                    for name, (ms, n) in ranked]}
 
 
 def pad_mask(B: int, N: int, rng, device):
@@ -116,7 +220,7 @@ def errors(got, want) -> tuple:
     """(max abs error, relative RMS error); inf if got is not finite."""
     import torch
 
-    g, w = got.float(), want.float()
+    g, w = got.detach().float(), want.detach().float()
     if not bool(torch.isfinite(g).all()):
         return float("inf"), float("inf")
     diff = g - w
@@ -131,13 +235,18 @@ def within(got, want, tol: dict) -> bool:
                 ) and rel <= tol["rel"]
 
 
-def check_close(got, want, tol: dict) -> tuple:
+def check_close(got, want, tol: dict, what: str = "") -> tuple:
     err, rel = errors(got, want)
     if not within(got, want, tol):
-        raise AssertionError(f"kernel disagrees with its plain version: "
+        raise AssertionError(f"kernel disagrees with its plain version{what}: "
                              f"max abs err {err}, relative RMS {rel} "
                              f"(tolerance {tol})")
     return err, rel
+
+
+def scaled(tol: dict, want) -> dict:
+    """``tol`` with its atol relative to the largest entry of ``want``."""
+    return {**tol, "atol": tol["atol"] * float(want.float().abs().max())}
 
 
 def phase_device() -> dict:
@@ -176,14 +285,15 @@ def phase_build() -> None:
                           for n in _cuda.KERNELS))
 
 
-def library_block(block, d: int, H: int, dtype):
+def library_block(block, d: int, H: int, dtype, dropout: float = 0.0):
     """nn.TransformerEncoderLayer computing the same function as the block:
     its Q weights are scaled by sqrt(head_dim / d_model), so its
-    head_dim**-0.5 scale becomes the reference's d_model**-0.5."""
+    head_dim**-0.5 scale becomes the reference's d_model**-0.5. With
+    ``dropout`` it is in train mode, else in eval mode."""
     import torch
     from torch import nn
 
-    layer = nn.TransformerEncoderLayer(d, H, 4 * d, dropout=0.0,
+    layer = nn.TransformerEncoderLayer(d, H, 4 * d, dropout=dropout,
                                        batch_first=True)
     sa = block.sa
     with torch.no_grad():
@@ -202,7 +312,8 @@ def library_block(block, d: int, H: int, dtype):
                          (layer.norm2, block.norm2)):
             dst.weight.copy_(src.weight)
             dst.bias.copy_(src.bias)
-    return layer.to(device=block.norm1.weight.device, dtype=dtype).eval()
+    layer = layer.to(device=block.norm1.weight.device, dtype=dtype)
+    return layer.train() if dropout else layer.eval()
 
 
 def phase_kernels(dev: dict, seed: int) -> dict:
@@ -348,26 +459,351 @@ def phase_kernels(dev: dict, seed: int) -> dict:
     return out
 
 
+def phase_train_kernels(dev: dict, seed: int) -> dict:
+    """The four training routes against autograd of their plain version;
+    returns the f32 numbers per route (the recipe trains in f32)."""
+    import numpy as np
+    import torch
+
+    from vidsum_tpu_torch.config import ModelConfig
+    from vidsum_tpu_torch.models.simnet import SimNet
+    from vidsum_tpu_torch.ops import block_train as bt
+
+    peaks = peaks_for(dev["name"])
+    cfg = ModelConfig()
+    d, H, rate, scale = cfg.d_model, cfg.num_heads, 0.3, cfg.attn_scale
+    cuda = torch.device("cuda")
+    block = SimNet(ModelConfig(num_layers=1), device=cuda,
+                   generator=torch.Generator().manual_seed(seed + 2)
+                   ).encoder.module_list[0]
+    with torch.no_grad():
+        w = bt.train_weights(block)
+    rng = np.random.default_rng(seed + 3)
+    dseed = int(rng.integers(0, 2**31 - 1))
+    out = {}
+
+    def bound(flops, nbytes):
+        t_ops = flops / peaks["float32"] * 1e3
+        t_bytes = nbytes / peaks["bytes"] * 1e3
+        return (max(t_ops, t_bytes),
+                "operations" if t_ops >= t_bytes else "bytes")
+
+    for B, N, grouped in ((32, 512, False), (8, 256, True)):
+        mask = pad_mask(B, N, rng, cuda)
+        valid = int((~mask).sum())
+        fwd = bt._fwd_kernel_grouped if grouped else bt._fwd_kernel
+        bwd = bt._bwd_kernel_grouped if grouped else bt._bwd_kernel
+        if (bt._pick_train_group(B, N) > 1) != grouped:
+            raise AssertionError(f"({B}, {N}) does not route as expected")
+        for dtype in (torch.bfloat16, torch.float32):
+            dn = str(dtype).split(".")[1]
+            x = torch.from_numpy(rng.normal(size=(B, N, d)).astype(
+                np.float32)).to(cuda, dtype)
+            do = torch.from_numpy(rng.normal(size=(B, N, d)).astype(
+                np.float32)).to(cuda, dtype)
+            # a zero cotangent for each row with an fc1 input near 0 (see
+            # TOL): nothing of that row reaches its ReLU's derivative
+            _, kept = bt._forward_chain(x, mask, dseed, w, H, scale, rate,
+                                        keep=True)
+            a1 = kept["a1"]
+            near = (a1.abs() < NEAR_ZERO * a1.pow(2).mean().sqrt()).any(-1)
+            do = do.masked_fill(near.view(B, N, 1), 0.0)
+            del kept, a1
+            f0, b0 = fwd.launches, bwd.launches
+            got = fwd(x, mask, dseed, w, H, scale, rate)
+            dx, grads = bwd(x, mask, dseed, w, do, H, scale, rate)
+            torch.cuda.synchronize()
+            if (fwd.launches, bwd.launches) != (f0 + 1, b0 + 1):
+                raise AssertionError(f"({B}, {N}) did not launch its routes")
+            want = bt.block_reference_with_masks(x, w, mask, dseed, H, scale,
+                                                 rate)
+            wdx, wgrads = bt.block_reference_backward(x, w, mask, dseed, do,
+                                                      H, scale, rate)
+            ftol = TOL[("train_fwd", dn)]
+            gtol = TOL[("train_grad", "float32")]
+            dxtol = TOL[("train_dx", dn)]
+            fwd_err = check_close(got, want, ftol)
+            dx_err = check_close(dx, wdx, scaled(dxtol, wdx), " (dx)")
+            grad_err = {n: check_close(a, b, scaled(gtol, b), f" (d{n})")
+                        for n, a, b in zip(bt.TrainWeights._fields, grads,
+                                           wgrads)}
+            # a planted fault: the kernels at seed + 1 fail the bounds
+            bad = fwd(x, mask, dseed + 1, w, H, scale, rate)
+            bad_dx, bad_grads = bwd(x, mask, dseed + 1, w, do, H, scale,
+                                    rate)
+            if (within(bad, want, ftol)
+                    or within(bad_dx, wdx, scaled(dxtol, wdx))
+                    or within(bad_grads.wqkv, wgrads.wqkv,
+                              scaled(gtol, wgrads.wqkv))):
+                raise AssertionError(f"({B}, {N}) {dn}: the kernels at seed "
+                                     f"+ 1 pass the bounds")
+            fault = (errors(bad, want)[1], errors(bad_dx, wdx)[1])
+            dx2, grads2 = bwd(x, mask, dseed, w, do, H, scale, rate)
+            if not (torch.equal(dx, dx2) and all(
+                    torch.equal(a, b) for a, b in zip(grads, grads2))):
+                raise AssertionError(f"({B}, {N}) {dn}: two backward runs "
+                                     f"differ")
+            ms_f = cuda_ms(lambda: fwd(x, mask, dseed, w, H, scale, rate),
+                           reps=10)
+            ms_b = cuda_ms(lambda: bwd(x, mask, dseed, w, do, H, scale,
+                                       rate), reps=10)
+            plain_f = cuda_ms(lambda: bt.block_reference_with_masks(
+                x, w, mask, dseed, H, scale, rate), reps=3, warmup=1)
+            plain_b = cuda_ms(lambda: bt.block_reference_backward(
+                x, w, mask, dseed, do, H, scale, rate), reps=3, warmup=1)
+            layer = library_block(block, d, H, dtype, dropout=rate)
+            xl = x.detach().requires_grad_()
+
+            def lib_fwd_bwd():
+                layer(xl, src_key_padding_mask=mask).backward(do)
+
+            with torch.no_grad():
+                lib_f = cuda_ms(lambda: layer(x, src_key_padding_mask=mask),
+                                reps=10)
+            lib_b = cuda_ms(lib_fwd_bwd, reps=10)
+            prof = None
+            if dtype == torch.float32 and not grouped:
+                prof = {"fwd": device_profile(lambda: fwd(
+                    x, mask, dseed, w, H, scale, rate), reps=3),
+                        "bwd": device_profile(lambda: bwd(
+                            x, mask, dseed, w, do, H, scale, rate), reps=3)}
+            itm = x.element_size()
+            w_bytes = 12 * d * d * 4 + 13 * d * 4
+            flops_f = 24 * B * N * d * d + 4 * d * N * valid
+            bytes_f = 2 * B * N * d * itm + w_bytes + B * N
+            flops_b = 48 * B * N * d * d + 8 * d * N * valid
+            bytes_b = 3 * B * N * d * itm + 2 * w_bytes + B * N
+            bf_ms, bf_by = bound(flops_f, bytes_f)
+            bb_ms, bb_by = bound(flops_b, bytes_b)
+            name_f = fwd.__name__
+            name_b = bwd.__name__
+            worst = max(grad_err, key=lambda n: grad_err[n][1])
+            emit("train_kernel", route=name_f, B=B, N=N, dtype=dn,
+                 max_abs_err=fwd_err[0], rel_rms_err=fwd_err[1],
+                 tolerance=ftol, seed_plus_one_rel_rms=fault[0], ms=ms_f,
+                 plain_ms=plain_f, library_ms=lib_f, bound_ms=bf_ms,
+                 bound_by=bf_by, flops=flops_f, bytes=bytes_f)
+            emit("train_kernel", route=name_b, B=B, N=N, dtype=dn,
+                 dx_err=dx_err, rows_zero_cotangent=int(near.sum()),
+                 worst_grad=[worst, *grad_err[worst]],
+                 grad_rel_rms={n: e[1] for n, e in grad_err.items()},
+                 tolerance_dx=dxtol, tolerance_grad=gtol,
+                 seed_plus_one_dx_rel_rms=fault[1], deterministic=True,
+                 ms=ms_b, plain_ms=plain_b, library_ms=lib_b,
+                 bound_ms=bb_ms, bound_by=bb_by, flops=flops_b,
+                 bytes=bytes_b, profile=prof)
+            if dtype == torch.float32:
+                out[name_f] = dict(max_abs_err=fwd_err[0], ms=ms_f,
+                                   plain_ms=plain_f, bound_ms=bf_ms,
+                                   bound_by=bf_by, library_ms=lib_f)
+                out[name_b] = dict(max_abs_err=max(
+                    [dx_err[0]] + [e[0] for e in grad_err.values()]),
+                    ms=ms_b, plain_ms=plain_b, bound_ms=bb_ms,
+                    bound_by=bb_by, library_ms=lib_b)
+    return out
+
+
+def synthetic_videos(rng, lengths, in_features: int) -> list:
+    """In-memory items in the schema of ``vidsum_tpu/data/synthetic.py``:
+    (features, gtscore, UserSummaries), gtscore a linear probe of the
+    features through a sigmoid, 15 frames per pick, 4-8 shots, 5 users."""
+    import numpy as np
+
+    from vidsum_tpu_torch.data.datasets import UserSummaries
+
+    probe = (rng.normal(size=(in_features,)) / np.sqrt(in_features)
+             ).astype(np.float32)
+    items = []
+    for vi, n in enumerate(lengths):
+        picks = np.arange(n) * 15
+        n_frames = int(picks[-1] + rng.integers(1, 16))
+        feats = rng.normal(size=(n, in_features)).astype(np.float32)
+        gt = (1 / (1 + np.exp(-(feats @ probe)))).astype(np.float32)
+        n_shots = int(rng.integers(4, 9))
+        cuts = np.sort(rng.choice(np.arange(1, n_frames), size=n_shots - 1,
+                                  replace=False))
+        bounds = np.concatenate([[0], cuts, [n_frames]])
+        cps = np.stack([bounds[:-1], bounds[1:] - 1], axis=1)
+        frame = np.repeat(gt, 15)[:n_frames]
+        user_scores = np.clip(frame[None] + 0.1 * rng.normal(
+            size=(5, n_frames)), 0, None).astype(np.float32)
+        base = (frame >= np.quantile(frame, 0.85)).astype(np.int8)
+        user_summary = np.stack([base ^ (rng.random(n_frames) < 0.05)
+                                 .astype(np.int8) for _ in range(5)])
+        items.append((feats, gt, UserSummaries(
+            user_summary=user_summary, user_scores=user_scores,
+            change_points=cps, n_frames=n_frames, picks=picks,
+            name=f"video_{vi}")))
+    return items
+
+
+TRAIN_ROUTES = ("_fwd_kernel", "_bwd_kernel", "_fwd_kernel_grouped",
+                "_bwd_kernel_grouped")
+# recipe epochs over each of the short and long sets: 2 steps each, so the
+# step times are medians of 20
+TRAIN_EPOCHS = 10
+
+
+def phase_train(seed: int) -> dict:
+    import copy
+    import math
+
+    import numpy as np
+    import torch
+
+    from vidsum_tpu_torch.config import finetune_recipe
+    from vidsum_tpu_torch.data.collate import make_batches, pad_batch
+    from vidsum_tpu_torch.models.simnet import SimNet
+    from vidsum_tpu_torch.train import finetune as ft
+    from vidsum_tpu_torch.train.steps import (
+        make_eval_forward, make_finetune_step, make_optimizer,
+    )
+
+    conf = finetune_recipe()
+    cfg, tc = conf.model, conf.train
+    rng = np.random.default_rng(seed + 4)
+    short = synthetic_videos(rng, rng.integers(100, 381, 8), cfg.in_features)
+    long_ = synthetic_videos(rng, rng.integers(520, 1101, 8),
+                             cfg.in_features)
+    val = synthetic_videos(rng, rng.integers(100, 1101, 4), cfg.in_features)
+    model = SimNet(cfg, generator=torch.Generator().manual_seed(seed))
+    step = make_finetune_step(cfg, tc.attn_impl)
+    if step.attn_impl != "fused_block":
+        raise AssertionError(f"the recipe trains on {step.attn_impl!r}")
+
+    # one step on the first long batch, on the card and on the CPU's plain
+    # path with the same per-layer dropout seeds
+    first = next(make_batches(len(long_), tc.batch_size, shuffle=True,
+                              rng=np.random.default_rng((tc.seed, 0, 1))))
+    xb, tb, mb = pad_batch([long_[i][0] for i in first],
+                           [long_[i][1] for i in first])
+    seeds = [int(s) for s in rng.integers(0, 2**31 - 1, cfg.num_layers)]
+    results = []
+    for dev in ("cuda", "cpu"):
+        m = copy.deepcopy(model).to(dev)
+        loss = make_finetune_step(cfg, "fused_block", device=dev)(
+            m, make_optimizer(m, tc.lr, tc.weight_decay), xb, tb, mb, None,
+            block_seeds=seeds)
+        results.append((float(loss), {k: p.grad.detach().float().cpu()
+                                      for k, p in m.named_parameters()}))
+    (loss_card, g_card), (loss_cpu, g_cpu) = results
+    if not abs(loss_card - loss_cpu) <= 1e-4 * abs(loss_cpu):
+        raise AssertionError(f"step loss on the card {loss_card} != CPU "
+                             f"{loss_cpu}")
+    gtol = TOL[("step_grad", "float32")]
+    gmax = max(float(g.abs().max()) for g in g_cpu.values())
+    nmax = max(float(g.norm()) for g in g_cpu.values())
+    per_tensor, rounding_level = {}, []
+    for k, want in g_cpu.items():
+        tol = {**gtol, "atol": gtol["atol"] * gmax}
+        if float(want.norm()) < ROUNDING_NORM * nmax:
+            rounding_level.append(k)
+            tol["rel"] = float("inf")
+        per_tensor[k] = check_close(g_card[k], want, tol, f" (d {k})")
+    step_err = [max(e[0] for e in per_tensor.values()),
+                max(e[1] for k, e in per_tensor.items()
+                    if k not in rounding_level)]
+
+    optimizer = make_optimizer(model, tc.lr, tc.weight_decay)
+    times = {"short": [], "long": []}
+    losses = []
+    epoch_losses = {"short": [], "long": []}
+
+    def timed(kind):
+        def run(*args):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            loss = step(*args)
+            end.record()
+            times[kind].append((start, end))
+            losses.append(loss)
+            return loss
+        return run
+
+    fwd = make_eval_forward(cfg)
+    reset_counters()
+    t0 = time.monotonic()
+    # epoch e trains on the short set with the streams of (split 0, epoch
+    # 2e), then on the long set with those of (0, 2e + 1): 2 steps each
+    for epoch in range(TRAIN_EPOCHS):
+        for i, (kind, items) in enumerate((("short", short),
+                                           ("long", long_))):
+            rng_np, gen = ft.epoch_streams(tc.seed, 0, 2 * epoch + i)
+            epoch_losses[kind].append(ft._train_epoch(
+                timed(kind), model, optimizer, items, conf, rng_np, gen))
+    val_loss, f, tau, rho = ft._val_epoch(fwd, model, val, conf)
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    counts = read_counters()
+    missing = [r for r in TRAIN_ROUTES if counts[r] == 0]
+    if missing:
+        raise AssertionError(f"training routes never launched: {missing} "
+                             f"(counters {counts})")
+    step_losses = [float(x) for x in losses]
+    if not all(math.isfinite(v) for v in step_losses + [val_loss]):
+        raise AssertionError(f"non-finite losses: {step_losses}, {val_loss}")
+    if not (0.0 <= f <= 100.0 and math.isfinite(tau)
+            and math.isfinite(rho)):
+        raise AssertionError(f"val metrics F {f}, tau {tau}, rho {rho}")
+    step_ms = {k: spread([s.elapsed_time(e) for s, e in v])
+               for k, v in times.items()}
+
+    # a step at the flagship batch shape (32, 512), and profiles of it and
+    # of a step on the first long batch
+    x32 = rng.normal(size=(32, 512, cfg.in_features)).astype(np.float32)
+    t32 = rng.random((32, 512)).astype(np.float32)
+    m32 = np.zeros((32, 512), bool)
+    xt, tt, mt = (torch.from_numpy(a).cuda() for a in (x32, t32, m32))
+    step_ms["flagship_32x512"] = spread(cuda_times(
+        lambda: step(model, optimizer, xt, tt, mt, gen), reps=20))
+    xl, tl, ml = (torch.from_numpy(a).cuda() for a in (xb, tb, mb))
+    step_profile = {
+        "recipe_long_batch": device_profile(
+            lambda: step(model, optimizer, xl, tl, ml, gen), reps=3),
+        "flagship_32x512": device_profile(
+            lambda: step(model, optimizer, xt, tt, mt, gen), reps=3)}
+    emit("train", lengths_short=[int(it[0].shape[0]) for it in short],
+         lengths_long=[int(it[0].shape[0]) for it in long_],
+         card_vs_cpu=dict(loss=[loss_card, loss_cpu], grads=step_err,
+                          largest_grad=gmax, tolerance=gtol,
+                          grad_rel_rms={k: e[1]
+                                        for k, e in per_tensor.items()},
+                          rounding_level=rounding_level),
+         epoch_loss_short=epoch_losses["short"],
+         epoch_loss_long=epoch_losses["long"],
+         step_losses=step_losses, val_loss=val_loss, fscore=f,
+         kendall_tau=tau, spearman_rho=rho, wall_s=wall, step_ms=step_ms,
+         step_profile=step_profile,
+         launches=counts,
+         launches_per_step={r: counts[r] / len(step_losses)
+                            for r in TRAIN_ROUTES})
+    return counts
+
+
 def reset_counters() -> None:
     from vidsum_tpu_torch.ops import attention as at
     from vidsum_tpu_torch.ops import block_kernel as bk
+    from vidsum_tpu_torch.ops import block_train as bt
 
     for fn in (bk._fused_block, bk._fused_block_grouped, at._flash_attention,
                at._flash_attention_folded, bk.gemm_bias_epilogue,
-               at.masked_attention):
+               at.masked_attention, *(getattr(bt, r) for r in TRAIN_ROUTES)):
         fn.launches = 0
 
 
 def read_counters() -> dict:
     from vidsum_tpu_torch.ops import attention as at
     from vidsum_tpu_torch.ops import block_kernel as bk
+    from vidsum_tpu_torch.ops import block_train as bt
 
     return {"_fused_block": bk._fused_block.launches,
             "_fused_block_grouped": bk._fused_block_grouped.launches,
             "_flash_attention": at._flash_attention.launches,
             "_flash_attention_folded": at._flash_attention_folded.launches,
             "gemm_bias_epilogue": bk.gemm_bias_epilogue.launches,
-            "masked_attention": at.masked_attention.launches}
+            "masked_attention": at.masked_attention.launches,
+            **{r: getattr(bt, r).launches for r in TRAIN_ROUTES}}
 
 
 def phase_serve(seed: int) -> dict:
@@ -477,20 +913,29 @@ def main() -> int:
     dev = phase_device()
     phase_build()
     timings = phase_kernels(dev, args.seed)
+    timings.update(phase_train_kernels(dev, args.seed))
     counts = phase_serve(args.seed)
+    counts.update({r: n for r, n in phase_train(args.seed).items()
+                   if r in TRAIN_ROUTES})
 
     replaces = {
         "_fused_block": "vidsum_tpu/ops/block_kernel.py:39",
         "_fused_block_grouped": "vidsum_tpu/ops/block_kernel.py:98",
         "_flash_attention": "vidsum_tpu/ops/attention.py:40",
         "_flash_attention_folded": "vidsum_tpu/ops/attention.py:76",
+        "_fwd_kernel": "vidsum_tpu/ops/block_train.py:198",
+        "_bwd_kernel": "vidsum_tpu/ops/block_train.py:221",
+        "_fwd_kernel_grouped": "vidsum_tpu/ops/block_train.py:410",
+        "_bwd_kernel_grouped": "vidsum_tpu/ops/block_train.py:421",
     }
     block_src = ["vidsum_tpu_torch/csrc/gemm_bias_epilogue.cu",
                  "vidsum_tpu_torch/csrc/masked_attention.cu"]
     attn_src = ["vidsum_tpu_torch/csrc/masked_attention.cu"]
+    train_src = ["vidsum_tpu_torch/csrc/block_train.cu"]
     kernels = []
     for route, rep in replaces.items():
-        srcs = block_src if "block" in route else attn_src
+        srcs = (train_src if route in TRAIN_ROUTES
+                else block_src if "block" in route else attn_src)
         kernels.append({"name": route.lstrip("_"), "route": "cuda",
                         "source": srcs[0], "sources": srcs, "replaces": rep,
                         "launches": counts[route], **timings[route]})

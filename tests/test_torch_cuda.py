@@ -235,3 +235,126 @@ def test_served_scores_equal_solo_on_card(cuda):
         mask[0, :n] = False
         solo = fwd(model, x, mask)[0, :n].float().cpu().numpy()
         np.testing.assert_array_equal(r.scores, solo)
+
+
+# ------------------------------------------------ the training block chain
+# Forward outputs are LayerNorm outputs of size 1 (the block bounds above).
+# Gradients are sums over up to B*N rows whose size varies by parameter, so
+# their absolute bound is relative to the largest entry: f32 differs from
+# the plain version by summation order only (rows with an fc1 input within
+# rounding of 0, whose ReLU may branch differently, get a zero cotangent);
+# with bf16 inputs dx is rounded to bf16 (one step, 2**-8 relative) while
+# the parameter grads stay f32. A whole step, card against CPU, cannot spare
+# rows a ReLU flip: "step" holds each grad to the relative RMS such a flip
+# leaves upstream (up to ~1e-3), with atol relative to the step's largest
+# grad, which also holds a grad that is 0 up to rounding (the key bias's).
+TRAIN_TOL = {
+    ("fwd", torch.float32): dict(atol=1e-4, rtol=1e-4, rel=1e-5),
+    ("fwd", torch.bfloat16): dict(atol=5e-2, rtol=5e-2, rel=1e-2),
+    ("grad", torch.float32): dict(atol=1e-4, rtol=1e-4, rel=1e-5),
+    ("dx", torch.bfloat16): dict(atol=1e-2, rtol=1e-2, rel=1e-2),
+    ("step", torch.float32): dict(atol=1e-4, rtol=1e-3, rel=2e-3),
+}
+NEAR_ZERO = 2e-4    # of the fc1 inputs' RMS
+
+
+def _train_within(got, want, kind, dtype):
+    tol = TRAIN_TOL[(kind, dtype)]
+    g, w = got.float(), want.float()
+    atol = tol["atol"] * (float(w.abs().max()) if kind != "fwd" else 1.0)
+    return (bool(((g - w).abs() <= atol + tol["rtol"] * w.abs()).all())
+            and _rel(got, want) <= tol["rel"])
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("d,B,N,grouped", [(64, 2, 128, True),
+                                           (64, 1, 512, False),
+                                           (256, 4, 256, True),
+                                           (256, 1, 640, False)])
+def test_block_train_routes_match_plain(cuda, dtype, d, B, N, grouped):
+    """Forward, dx and the packed parameter grads of each training route
+    against the plain version on the card with the same dropout bits; the
+    backward gives identical bits twice; the kernels run at seed + 1 fail
+    the bounds."""
+    from vidsum_tpu_torch.ops import block_train as bt
+
+    H, rate, seed = 4, 0.3, 1234
+    cfg = ModelConfig(d_model=d, num_heads=H, num_layers=1)
+    block = SimNet(cfg, device=cuda).encoder.module_list[0]
+    g = torch.Generator(device="cpu").manual_seed(8)
+    x = torch.randn(B, N, d, generator=g).to(cuda, dtype)
+    do = torch.randn(B, N, d, generator=g).to(cuda, dtype)
+    mask = _mask(B, N, cuda, seed=8)
+    with torch.no_grad():
+        w = bt.train_weights(block)
+    _, kept = bt._forward_chain(x, mask, seed, w, H, cfg.attn_scale, rate,
+                                keep=True)
+    a1 = kept["a1"]
+    near = (a1.abs() < NEAR_ZERO * a1.pow(2).mean().sqrt()).any(-1)
+    do = do.masked_fill(near.view(B, N, 1), 0.0)
+    assert bt._pick_train_group(B, N) > 1 if grouped else True
+    fwd = bt._fwd_kernel_grouped if grouped else bt._fwd_kernel
+    bwd = bt._bwd_kernel_grouped if grouped else bt._bwd_kernel
+    f0, b0 = fwd.launches, bwd.launches
+    got = fwd(x, mask, seed, w, H, cfg.attn_scale, rate)
+    dx, grads = bwd(x, mask, seed, w, do, H, cfg.attn_scale, rate)
+    torch.cuda.synchronize()
+    assert (fwd.launches, bwd.launches) == (f0 + 1, b0 + 1)
+    want = bt.block_reference_with_masks(x, w, mask, seed, H,
+                                         cfg.attn_scale, rate)
+    wdx, wgrads = bt.block_reference_backward(x, w, mask, seed, do, H,
+                                              cfg.attn_scale, rate)
+    assert got.dtype == dx.dtype == dtype
+    assert _train_within(got, want, "fwd", dtype)
+    dx_kind = ("dx", dtype) if dtype == torch.bfloat16 else ("grad", dtype)
+    assert _train_within(dx, wdx, *dx_kind)
+    for name, a, b in zip(bt.TrainWeights._fields, grads, wgrads):
+        assert _train_within(a, b, "grad", torch.float32), name
+    dx2, grads2 = bwd(x, mask, seed, w, do, H, cfg.attn_scale, rate)
+    assert torch.equal(dx, dx2)
+    assert all(torch.equal(a, b) for a, b in zip(grads, grads2))
+    bad = fwd(x, mask, seed + 1, w, H, cfg.attn_scale, rate)
+    assert not _train_within(bad, want, "fwd", dtype)
+    _, bad_grads = bwd(x, mask, seed + 1, w, do, H, cfg.attn_scale, rate)
+    assert not _train_within(bad_grads.wqkv, wgrads.wqkv, "grad",
+                             torch.float32)
+
+
+def test_train_step_on_card_matches_cpu(cuda):
+    """One finetune step through the fused-block training route on the card
+    equals the same step (same seeds) on the CPU's plain path."""
+    import copy
+
+    from vidsum_tpu_torch.ops import block_train as bt
+    from vidsum_tpu_torch.train.steps import make_finetune_step, make_optimizer
+
+    cfg = ModelConfig(in_features=64, d_model=64, num_heads=4, num_layers=2)
+    model = SimNet(cfg, device="cpu")
+    card = copy.deepcopy(model).to(cuda)
+    rng = np.random.default_rng(9)
+    x = rng.normal(size=(2, 256, 64)).astype(np.float32)
+    t = rng.random((2, 256)).astype(np.float32)
+    mask = np.zeros((2, 256), bool)
+    mask[1, 200:] = True
+    seeds = [11, 22]
+    losses, grads = [], []
+    for m, dev in ((card, "cuda"), (model, "cpu")):
+        step = make_finetune_step(cfg, "fused_block", device=dev)
+        opt = make_optimizer(m, 1e-3, 1e-4)
+        before = bt._bwd_kernel_grouped.launches
+        losses.append(float(step(m, opt, x, t, mask, None,
+                                 block_seeds=seeds)))
+        if dev == "cuda":
+            assert bt._bwd_kernel_grouped.launches == before + 2
+        grads.append({k: p.grad.detach().cpu()
+                      for k, p in m.named_parameters()})
+    assert abs(losses[0] - losses[1]) <= 1e-5 * abs(losses[1])
+    tol = TRAIN_TOL[("step", torch.float32)]
+    gmax = max(float(g.abs().max()) for g in grads[1].values())
+    nmax = max(float(g.norm()) for g in grads[1].values())
+    for k, want in grads[1].items():
+        got = grads[0][k]
+        assert bool(((got - want).abs()
+                     <= tol["atol"] * gmax + tol["rtol"] * want.abs()).all()), k
+        if float(want.norm()) >= 1e-6 * nmax:   # not at rounding level
+            assert _rel(got, want) <= tol["rel"], k

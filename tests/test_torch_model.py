@@ -157,18 +157,54 @@ def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch):
     assert make_eval_forward(cfg, device="cpu").attn_impl == "dense"
 
 
+def _long_training_input():
+    """Past the block-train envelope (N = 20,480 at d 64, H 4): the JAX
+    package demotes to the flash-attention training kernels (TPU kernels
+    5-8)."""
+    return torch.zeros(1, 20480, 48)
+
+
 @pytest.mark.parametrize("kwargs,match", [
-    (dict(deterministic=False), "training slice"),
-    (dict(return_attn=True), "training slice"),
+    (dict(deterministic=False, attn_impl="flash"), "training slice"),
+    (dict(deterministic=False, attn_impl="fused_block", long=True),
+     "training slice"),
     (dict(attn_fn=lambda *a: None), "multi-GPU slice"),
     (dict(attn_impl="int8_block"), "int8 slice"),
 ])
 def test_later_slices_raise_not_implemented(kwargs, match):
+    """Training on the flash route, and on the fused-block route past its
+    envelope, needs TPU kernels 5-8 (the long-video training slice)."""
+    kwargs = dict(kwargs)
+    x = _long_training_input() if kwargs.pop("long", False) \
+        else torch.zeros(1, 128, 48)
     model = SimNet(ModelConfig(**KW), device="cpu")
     with pytest.raises(NotImplementedError, match=match):
-        model(torch.zeros(1, 128, 48), **kwargs)
+        model(x, generator=torch.Generator().manual_seed(0), **kwargs)
 
 
 def test_norm_first_raises_not_implemented():
+    """Pre-LN blocks run on the dense route, and so does their training,
+    except on the flash route, which needs the flash-attention training
+    kernels of the long-video training slice."""
+    model = SimNet(ModelConfig(norm_first=True, **KW), device="cpu")
+    x = torch.zeros(1, 128, 48)
+    with torch.no_grad():
+        a, _ = model(x, attn_impl="fused_block")
+        b, _ = model(x, attn_impl="dense")
+    torch.testing.assert_close(a, b, rtol=0, atol=0)
     with pytest.raises(NotImplementedError, match="training slice"):
-        SimNet(ModelConfig(norm_first=True, **KW), device="cpu")
+        model(x, deterministic=False, attn_impl="flash",
+              generator=torch.Generator().manual_seed(0))
+
+
+def test_training_needs_a_generator_and_draws_seeded_dropout():
+    model = SimNet(ModelConfig(**KW), device="cpu")
+    x = torch.randn(1, 128, 48, generator=torch.Generator().manual_seed(1))
+    with pytest.raises(ValueError, match="generator is required"):
+        model(x, deterministic=False)
+    for impl in ("dense", "fused_block"):
+        runs = [model(x, deterministic=False, attn_impl=impl,
+                      generator=torch.Generator().manual_seed(s))[0]
+                for s in (3, 3, 4)]
+        assert torch.equal(runs[0], runs[1])
+        assert not torch.equal(runs[0], runs[2])

@@ -1,7 +1,7 @@
 # ported from vidsum_tpu/config.py
-"""Configuration of the serving path: the SimNet architecture and the data
-layout fields serving reads. Defaults are the JAX package's, so one config
-describes the same model in both packages."""
+"""Configuration: the SimNet architecture, the data layout fields serving
+and training read, the eval protocol and the finetune protocol. Defaults are
+the JAX package's, so one config describes the same run in both packages."""
 
 from __future__ import annotations
 
@@ -18,7 +18,7 @@ class ModelConfig:
     num_heads: int = 4
     num_layers: int = 4
     mlp_scale: int = 4               # MLP hidden = scale*d_model
-    dropout: float = 0.3             # training only (a later slice)
+    dropout: float = 0.3             # block/attn/mlp dropout (training)
     pos_dropout: float = 0.0
     num_classes: int = 1
     use_pos: bool = True
@@ -26,7 +26,7 @@ class ModelConfig:
     max_len: int = 2000              # PE table length floor (reference quirk)
     # The reference scales attention by d_model**-0.5, not head_dim**-0.5.
     scale_by_d_model: bool = True
-    norm_first: bool = False         # pre-LN blocks: a later slice
+    norm_first: bool = False         # pre-LN blocks (dense route only)
     compute_dtype: str = "float32"   # or "bfloat16"
 
     @property
@@ -42,7 +42,49 @@ class ModelConfig:
 
 @dataclasses.dataclass(frozen=True)
 class DataConfig:
-    """The data-layout fields serving reads."""
+    """The data-layout fields serving and training read."""
 
     pad_value: float = 1000.0        # padding sentinel (dataset.py:141)
     length_bucket: int = 128         # pad lengths to multiples of this
+
+
+@dataclasses.dataclass(frozen=True)
+class EvalConfig:
+    """Summary/metric protocol (reference: ``src/evaluation/``). Only the
+    host pipeline is ported; the device eval is a later slice."""
+
+    budget_ratio: float = 0.15       # generate_summary.py:46
+    eval_method: str = "avg"         # hardcoded even for SumMe
+    impl: str = "host"
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainConfig:
+    """Finetune protocol (reference: ``src/train.py``, ``run_finetune.sh``).
+    ``attn_impl="auto"`` means ``"fused_block"`` on CUDA and ``"dense"`` on
+    the CPU (``make_finetune_step`` resolves it). The JAX package's
+    ``rng_impl`` (a JAX PRNG knob) has no counterpart; ``max_epoch`` and the
+    checkpoint and warm-start fields arrive with ``finetune()`` in the data
+    slice."""
+
+    lr: float = 1e-3
+    weight_decay: float = 1e-4
+    batch_size: int = 4
+    seed: int = 1234                 # train.py:29
+    attn_impl: str = "auto"
+
+
+@dataclasses.dataclass(frozen=True)
+class Config:
+    model: ModelConfig = dataclasses.field(default_factory=ModelConfig)
+    data: DataConfig = dataclasses.field(default_factory=DataConfig)
+    eval: EvalConfig = dataclasses.field(default_factory=EvalConfig)
+    train: TrainConfig = dataclasses.field(default_factory=TrainConfig)
+
+
+def finetune_recipe() -> Config:
+    """The ``run_finetune.sh`` recipe: d256/h4/L4, dropout 0.3, lr 1e-3,
+    wd 1e-4, batch 4."""
+    return Config(
+        model=ModelConfig(d_model=256, num_heads=4, num_layers=4, dropout=0.3),
+        train=TrainConfig(lr=1e-3, weight_decay=1e-4, batch_size=4))

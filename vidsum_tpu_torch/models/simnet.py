@@ -1,6 +1,5 @@
 # ported from vidsum_tpu/models/simnet.py
-"""SimNet, the transformer frame-importance scorer, as a PyTorch module
-(inference only in this slice).
+"""SimNet, the transformer frame-importance scorer, as a PyTorch module.
 
 Behaviour (reference: ``src/model/simnet.py``): Linear embed 1024 -> d_model
 plus a sinusoidal positional encoding (and an optional CLS token), then
@@ -30,12 +29,23 @@ sigmoid are plain PyTorch, as are the projections, MLP and LayerNorms around
 the attention kernel on the ``"flash"`` route; on CUDA the embed and head
 run through ``gemm_bias_epilogue`` so that a row's scores do not depend on
 the batch it was served in (cuBLAS picks its algorithm by shape).
+
+Training (``deterministic=False``) follows the JAX package's routes: on
+``"fused_block"`` every block runs ``ops/block_train.fused_block_train``
+(TPU kernels 9-12) with one dropout seed per layer; a shape past
+``fused_block_train_supported`` and the ``"flash"`` route need the
+flash-attention training kernels (TPU kernels 5-8), which arrive with the
+long-video training slice; ``"dense"``, ``return_attn``, ``norm_first``
+and injected ``dropout_masks`` run plain PyTorch with dropout on the
+attention weights, after the MLP's ReLU and on both residual branches. Embed,
+PE and head are plain autograd in training (the JAX package computes them
+outside Pallas too).
 """
 
 from __future__ import annotations
 
 import math
-from typing import Optional
+from typing import Optional, Sequence
 
 import torch
 import torch.nn.functional as F
@@ -47,10 +57,14 @@ from vidsum_tpu_torch.ops.attention import attention_reference, flash_attention
 from vidsum_tpu_torch.ops.block_kernel import (
     fused_block_supported, fused_encoder_block, gemm_bias_epilogue,
 )
+from vidsum_tpu_torch.ops.block_train import (
+    fused_block_train, fused_block_train_supported,
+)
 
 ATTN_IMPLS = ("dense", "flash", "fused_block")
 _LATER = {
-    "training": "the training slice (slice 2: finetune step + kernels 5-12)",
+    "long_training": "the long-video training slice (slice 3: TPU kernels "
+                     "5-8, flash_attention_dropout)",
     "int8": "the int8 slice",
     "attn_fn": "the multi-GPU slice",
 }
@@ -133,6 +147,26 @@ def _layernorm(ln: nn.LayerNorm, x: torch.Tensor) -> torch.Tensor:
                         ln.eps).to(x.dtype)
 
 
+def _dropout(x: torch.Tensor, rate: float,
+             generator: Optional[torch.Generator]) -> torch.Tensor:
+    """Inverted dropout with a Bernoulli(1 - rate) keep mask drawn from
+    ``generator`` (on the generator's device, then moved to x's)."""
+    if rate == 0.0:
+        return x
+    keep = 1.0 - rate
+    mask = torch.rand(x.shape, generator=generator,
+                      device=generator.device) < keep
+    return torch.where(mask.to(x.device), x / keep, 0.0).to(x.dtype)
+
+
+def _apply_keep(x: torch.Tensor, keep_mask, rate: float) -> torch.Tensor:
+    """Dropout with a given boolean keep mask (the JAX ``_apply_keep``)."""
+    if rate == 0.0:
+        return x
+    keep_mask = torch.as_tensor(keep_mask, device=x.device)
+    return torch.where(keep_mask, x / (1.0 - rate), 0.0).to(x.dtype)
+
+
 class SimNet(nn.Module):
     """The scorer. Parameters are f32 and are initialised as
     ``torch.nn.Linear``'s U(+-1/sqrt(fan_in)) for weights and biases (the
@@ -142,10 +176,6 @@ class SimNet(nn.Module):
     def __init__(self, cfg: ModelConfig, *, device=None,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
-        if cfg.norm_first:
-            raise NotImplementedError(
-                "norm_first (pre-LN) blocks arrive with "
-                + _LATER["training"])
         self.cfg = cfg
         dev = resolve_device(device)
         self.embedding_layer = Embedding(cfg)
@@ -176,21 +206,30 @@ class SimNet(nn.Module):
 
     def forward(self, x: torch.Tensor, pad_mask: Optional[torch.Tensor] = None,
                 *, attn_impl: Optional[str] = None, deterministic: bool = True,
+                generator: Optional[torch.Generator] = None,
+                block_seeds: Optional[Sequence[int]] = None,
                 return_attn: bool = False, attn_fn=None,
                 pe_len: Optional[int] = None, dropout_masks=None):
         """Run the scorer on x (B, N, in_features) with pad_mask (B, N) bool,
         True at padded frames. Returns ``(scores (B, N(+1), num_classes) f32,
-        hidden)``."""
+        hidden)``, and with ``return_attn`` also the per-layer attention
+        weights (B, H, N, N) (which always takes the dense route).
+
+        Training (``deterministic=False``) draws its dropout from
+        ``generator``. On the ``"fused_block"`` route each layer's dropout
+        seed is ``torch.randint(0, 2**31 - 1)`` from it (the layer index when
+        ``cfg.dropout`` is 0, as in the JAX package); ``block_seeds`` gives
+        the per-layer seeds instead, which is how the tests hand both
+        packages the same seeds. ``dropout_masks`` (per layer, boolean keep
+        masks ``{"attn": (B,H,N,N), "res1": (B,N,d), "mlp": (B,N,4d),
+        "res2": (B,N,d)}``) replaces the draws and takes the dense route."""
         cfg = self.cfg
-        if not deterministic or dropout_masks is not None:
-            raise NotImplementedError("dropout arrives with "
-                                      + _LATER["training"])
-        if return_attn:
-            raise NotImplementedError("return_attn (attention export) "
-                                      "arrives with " + _LATER["training"])
         if attn_fn is not None:
             raise NotImplementedError("attn_fn arrives with "
                                       + _LATER["attn_fn"])
+        if (not deterministic and generator is None and dropout_masks is None
+                and block_seeds is None):
+            raise ValueError("generator is required when deterministic=False")
         if attn_impl is None:
             attn_impl = "fused_block" if x.device.type == "cuda" else "dense"
         if attn_impl.startswith("int8"):
@@ -203,12 +242,16 @@ class SimNet(nn.Module):
         dt = dtype_of(cfg.compute_dtype)
         x = x.to(dt)
         B, N, _ = x.shape
-        on_cuda = x.device.type == "cuda"
+        # the embed/head kernel has no backward: training takes autograd's
+        linear = (_kernel_linear if x.device.type == "cuda" and deterministic
+                  else _linear)
         emb = self.embedding_layer
-        h = (_kernel_linear if on_cuda else _linear)(emb.feature_transform, x)
+        h = linear(emb.feature_transform, x)
         if cfg.use_pos:
             pe = self._pe(max(cfg.max_len, pe_len or 0, N), x.device)
             h = h + pe[None, :N].to(dt)
+            if not deterministic and cfg.pos_dropout > 0.0:
+                h = _dropout(h, cfg.pos_dropout, generator)
         if cfg.use_cls:
             h = torch.cat([emb.cls_token.to(dt).expand(B, 1, cfg.d_model), h],
                           dim=1)
@@ -218,32 +261,99 @@ class SimNet(nn.Module):
                                  device=pad_mask.device), pad_mask], dim=1)
 
         n_eff = h.shape[1]
-        if attn_impl == "fused_block" and not fused_block_supported(
-                B, n_eff, cfg.d_model, h.element_size()):
-            attn_impl = "flash"
-        for block in self.encoder.module_list:
-            if attn_impl == "fused_block":
+        if attn_impl == "fused_block" and (deterministic
+                                           or dropout_masks is None):
+            ok = (fused_block_supported(B, n_eff, cfg.d_model,
+                                        h.element_size())
+                  if deterministic else
+                  fused_block_train_supported(B, n_eff, cfg.d_model,
+                                              cfg.num_heads))
+            if not ok:
+                attn_impl = "flash"
+        use_block = (attn_impl == "fused_block" and not return_attn
+                     and not cfg.norm_first
+                     and (deterministic or dropout_masks is None))
+        if (not deterministic and attn_impl == "flash" and not return_attn
+                and n_eff % 128 == 0):
+            raise NotImplementedError(
+                f"training at N={n_eff} on the flash-attention route arrives "
+                f"with " + _LATER["long_training"])
+        attn_maps = []
+        for layer_idx, block in enumerate(self.encoder.module_list):
+            if use_block and deterministic:
                 h = fused_encoder_block(block, h, pad_mask, cfg.num_heads,
                                         cfg.attn_scale)
                 continue
-            sa = self._attention(block.sa, h, pad_mask, attn_impl)
-            h = _layernorm(block.norm1, sa + h)
-            ff = _linear(block.mlp.fc2, torch.relu(_linear(block.mlp.fc1, h)))
-            h = _layernorm(block.norm2, ff + h)
+            if use_block:
+                if block_seeds is not None:
+                    seed = int(block_seeds[layer_idx])
+                elif generator is not None and cfg.dropout > 0.0:
+                    seed = int(torch.randint(0, 2**31 - 1, (1,),
+                                             generator=generator,
+                                             device=generator.device))
+                else:
+                    seed = layer_idx
+                h = fused_block_train(h, block, pad_mask, seed,
+                                      cfg.num_heads, cfg.attn_scale,
+                                      cfg.dropout)
+                continue
+            lm = dropout_masks[layer_idx] if dropout_masks is not None \
+                else None
 
-        head = _kernel_linear if on_cuda else _linear
-        scores = head(self.final_layer, h).float()
+            def drop(t, key):
+                if deterministic:
+                    return t
+                if lm is not None:
+                    return _apply_keep(t, lm[key], cfg.dropout)
+                return _dropout(t, cfg.dropout, generator)
+
+            if cfg.norm_first:
+                sa, w = self._attention(block.sa, _layernorm(block.norm1, h),
+                                        pad_mask, attn_impl, deterministic,
+                                        drop, return_attn)
+                h = h + drop(sa, "res1")
+                ff = self._mlp(block.mlp, _layernorm(block.norm2, h), drop)
+                h = h + drop(ff, "res2")
+            else:
+                sa, w = self._attention(block.sa, h, pad_mask, attn_impl,
+                                        deterministic, drop, return_attn)
+                h = _layernorm(block.norm1, drop(sa, "res1") + h)
+                ff = self._mlp(block.mlp, h, drop)
+                h = _layernorm(block.norm2, drop(ff, "res2") + h)
+            if return_attn:
+                attn_maps.append(w)
+
+        scores = linear(self.final_layer, h).float()
+        if return_attn:
+            return scores, h, attn_maps
         return scores, h
 
-    def _attention(self, sa: Attention, x, pad_mask, attn_impl: str):
+    @staticmethod
+    def _mlp(mlp: MLP, x, drop):
+        """2-layer FFN, dropout after the ReLU only."""
+        return _linear(mlp.fc2, drop(torch.relu(_linear(mlp.fc1, x)), "mlp"))
+
+    def _attention(self, sa: Attention, x, pad_mask, attn_impl: str,
+                   deterministic: bool, drop, return_weights: bool):
+        """Multi-head self-attention; returns (projected output, the softmax
+        weights in x's dtype when asked for)."""
         cfg = self.cfg
         B, N, _ = x.shape
         H, Dh = cfg.num_heads, cfg.head_dim
         q, k, v = (_linear(lin, x).view(B, N, H, Dh).transpose(1, 2)
                    for lin in (sa.q, sa.k, sa.v))
-        if attn_impl == "flash":
+        weights = None
+        if attn_impl == "flash" and deterministic and not return_weights:
             out = flash_attention(q, k, v, pad_mask, cfg.attn_scale)
-        else:
+        elif deterministic and not return_weights:
             out = attention_reference(q, k, v, pad_mask, cfg.attn_scale)
+        else:
+            s = torch.matmul(q.float(), k.float().transpose(-1, -2)) \
+                * cfg.attn_scale
+            if pad_mask is not None:
+                s = s.masked_fill(pad_mask[:, None, None, :], float("-inf"))
+            weights = torch.softmax(s, dim=-1).to(x.dtype)
+            out = torch.matmul(drop(weights, "attn").float(),
+                               v.float()).to(x.dtype)
         out = out.transpose(1, 2).reshape(B, N, H * Dh)
-        return _linear(sa.feature_projection, out)
+        return _linear(sa.feature_projection, out), weights

@@ -25,19 +25,32 @@ from typing import Dict, Iterable, Optional
 PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(PKG_DIR, "_build")
-KERNELS = ("gemm_bias_epilogue", "masked_attention")
+KERNELS = ("gemm_bias_epilogue", "masked_attention", "block_train")
 HEADERS = ("common.cuh",)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 
-_vp, _int, _ll, _f32 = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
-                        ctypes.c_float)
+_vp, _int, _uint, _ll, _f32 = (ctypes.c_void_p, ctypes.c_int, ctypes.c_uint,
+                               ctypes.c_longlong, ctypes.c_float)
+# library -> the C functions it exports, with their argument types
 _SIGNATURES = {
-    "gemm_bias_epilogue": ("vs_gemm_bias_epilogue",
-                           [_vp] * 9 + [_int] * 5 + [_f32, _vp]),
-    "masked_attention": ("vs_masked_attention",
-                         [_vp] * 5 + [_int] * 4 + [_ll] * 6
-                         + [_f32, _int, _int, _vp]),
+    "gemm_bias_epilogue": {
+        "vs_gemm_bias_epilogue": [_vp] * 9 + [_int] * 5 + [_f32, _vp]},
+    "masked_attention": {
+        "vs_masked_attention": [_vp] * 5 + [_int] * 4 + [_ll] * 6
+        + [_f32, _int, _int, _vp]},
+    "block_train": {
+        "vs_bt_gemm": [_vp] * 8 + [_int] * 3 + [_ll] * 4 + [_int] * 2
+        + [_uint, _int, _int, _uint, _f32, _vp],
+        "vs_bt_drop_res_ln": [_vp] * 7 + [_int] * 3
+        + [_uint, _int, _uint, _f32, _f32, _vp],
+        "vs_bt_ln_bwd_drop": [_vp] * 6 + [_int] * 3
+        + [_uint, _int, _uint, _f32, _vp],
+        "vs_bt_colsum": [_vp] * 5 + [_int] * 2 + [_vp],
+        "vs_bt_attention_fwd": [_vp] * 5 + [_int] * 4
+        + [_f32, _uint, _uint, _f32, _int, _vp],
+        "vs_bt_attention_bwd": [_vp] * 8 + [_int] * 4
+        + [_f32, _uint, _uint, _f32, _vp]},
 }
 
 _lock = threading.Lock()
@@ -112,10 +125,10 @@ def load(name: str) -> ctypes.CDLL:
             if not os.path.exists(path):
                 build([name])
             lib = ctypes.CDLL(path)
-            fn_name, argtypes = _SIGNATURES[name]
-            fn = getattr(lib, fn_name)
-            fn.argtypes = argtypes
-            fn.restype = ctypes.c_int
+            for fn_name, argtypes in _SIGNATURES[name].items():
+                fn = getattr(lib, fn_name)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
             lib.vs_error_string.argtypes = [ctypes.c_int]
             lib.vs_error_string.restype = ctypes.c_char_p
             _libs[name] = lib
