@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's serving and finetune paths on one NVIDIA
-GPU.
+"""Drive the PyTorch/CUDA port's serving, finetune and long-video finetune
+paths on one NVIDIA GPU.
 
     python3 chip_smoke.py [--seed 0]
 
@@ -40,7 +40,19 @@ caught and passed over):
    forward + backward; timed only), the bound against the f32 peak (the
    products are f32) and the memory rate, and a ``torch.profiler``
    breakdown of the (32, 512) f32 routes by kernel.
-5. serve: ``ScoringService`` with seeded flagship weights (d 256, 4 heads,
+5. train attention kernels: the four routes of ``flash_attention_dropout``
+   (``ops/attention_train.py``, TPU kernels 5-8) called directly at
+   (B, H, N, Dh) = (2, 4, 8192, 64), valid lengths (8100, 5000), dropout
+   0.3, f32 and bf16: o, lse, dq, dk and dv against the plain versions on
+   the card (the folded one over the kernel's 64-key tiles) by an
+   elementwise and a relative RMS bound; the kernels at seed + 1 must fail
+   them, two backward runs must give identical bits, and in bf16 each
+   forward route must lie at least twice as close to its own plain version
+   as to the other route's. Prints the median CUDA-event ms of each route,
+   its plain version and ``F.scaled_dot_product_attention(dropout_p=0.3)``
+   (forward, and forward + backward; timed only), and the bound (products
+   at the input type's peak, the backward's dp and dV at the f32 peak).
+6. serve: ``ScoringService`` with seeded flagship weights (d 256, 4 heads,
    4 layers, bf16) takes 13 requests: 320/480/512 frames with auto-KTS,
    1,200 frames, 6,000 frames (past the block envelope: flash) and 16,384
    frames (key-folded), the last two with given shots. Checks: every future
@@ -48,20 +60,33 @@ caught and passed over):
    counter moved during this phase (counters are zeroed just before it),
    and each request's served scores equal its solo ``make_eval_forward``
    scores bit for bit.
-6. train: the finetune recipe (d 256, 4 heads, 4 layers, dropout 0.3, Adam
+7. train: the finetune recipe (d 256, 4 heads, 4 layers, dropout 0.3, Adam
    lr 1e-3 / wd 1e-4, batch 4, f32) with seeded weights on in-memory videos
    in the DSNet schema made with numpy from ``--seed``: first one step on
    the first long batch on the card and on the CPU's plain path with the
-   same dropout seeds (loss and each parameter's gradient must agree), then,
-   with the counters zeroed, 10 epochs of ``_train_epoch`` over 8 short
-   videos (100-380 frames: grouped routes) and over 8 long ones (520-1,100
-   frames: per-element routes), 20 steps each, and ``_val_epoch`` over 4
-   videos. Checks: finite losses, all four training counters moved, val F in
-   [0, 100] and finite tau/rho. Prints the CUDA-event ms per step (median,
-   quartiles, range) at the recipe's shapes and at (32, 512), and a
-   ``torch.profiler`` breakdown of both steps (device busy share, kernels by
-   device time).
-7. the ``kernels`` line, the card's name and power limit, and last
+   same dropout seeds (loss and each parameter's gradient must agree), and
+   (a) the same on the ``"flash"`` route (N = 1,152: TPU kernels 5/6) with
+   the same residual and MLP keep masks and attention seeds on both sides;
+   then, with the counters zeroed, 10 epochs of ``_train_epoch`` over 8
+   short videos (100-380 frames: grouped routes) and over 8 long ones
+   (520-1,100 frames: per-element routes), 20 steps each, and ``_val_epoch``
+   over 4 videos. Checks: finite losses, all four block training counters
+   moved, val F in [0, 100] and finite tau/rho. Prints the CUDA-event ms per
+   step (median, quartiles, range) at the recipe's shapes and at (32, 512),
+   and a ``torch.profiler`` breakdown of both steps (device busy share,
+   kernels by device time).
+8. long train: (b) the ``"flash"`` route on one 8,100-frame video (bucket
+   8,192, f32: the folded route, TPU kernels 7/8), card against CPU as in
+   (a); (c) with the counters zeroed before each, 5 recipe epochs on the
+   auto route over 8 videos of 7,950-9,000 frames (10 steps at batch 4),
+   once in f32 (demoted to the folded route) and once in bf16 (the
+   single-pass route). Checks: finite losses, each step launched its
+   route's kernels once per layer, all four training attention counters
+   moved and the block training counters did not (the demotion). Prints
+   the step ms (median, quartiles, range) and a ``torch.profiler``
+   breakdown of one long step per dtype.
+9. the ``kernels`` line (12 routes, the training attention ones named
+   ``attention_train.<route>``), the card's name and power limit, and last
    ``{"ok": true, "device": {...}}``.
 """
 
@@ -124,6 +149,17 @@ TOL = {
     # ROUNDING_NORM of the largest: the key bias's, which softmax's shift
     # invariance makes 0) is held by the elementwise bound only
     ("step_grad", "float32"): dict(atol=1e-4, rtol=1e-3, rel=2e-3),
+    # training attention (TPU kernels 5-8): o at the slice-1 attention
+    # bounds; lse at f32 summation-order level in both dtypes; grads with
+    # atol relative to the tensor's largest entry, f32 at summation-order
+    # level, bf16 one bf16 step (ds is rounded to bf16 before dq and dk, and
+    # the outputs are bf16). The kernels run at seed + 1 are off by ~0.5
+    ("attn_train_o", "float32"): dict(atol=1e-5, rtol=1e-5, rel=1e-5),
+    ("attn_train_o", "bfloat16"): dict(atol=2e-3, rtol=8e-3, rel=1e-2),
+    ("attn_train_lse", "float32"): dict(atol=1e-5, rtol=1e-5, rel=1e-6),
+    ("attn_train_lse", "bfloat16"): dict(atol=1e-5, rtol=1e-5, rel=1e-6),
+    ("attn_train_grad", "float32"): dict(atol=1e-4, rtol=1e-4, rel=1e-5),
+    ("attn_train_grad", "bfloat16"): dict(atol=1e-2, rtol=1e-2, rel=1e-2),
 }
 # fc1 inputs nearer 0 than this share of their RMS may take the other ReLU
 # branch in kernel and plain version (their difference is < 2e-5 of the RMS)
@@ -603,6 +639,251 @@ def phase_train_kernels(dev: dict, seed: int) -> dict:
     return out
 
 
+def compare_steps(results, what: str) -> dict:
+    """A training forward + backward on the card against the CPU's plain
+    path: the loss within 1e-4 relative and each parameter's grad by the
+    step bound (a grad whose reference norm is at rounding level by the
+    elementwise bound only). ``results`` is [(loss, grads)] for card, CPU."""
+    (loss_card, g_card), (loss_cpu, g_cpu) = results
+    if not abs(loss_card - loss_cpu) <= 1e-4 * abs(loss_cpu):
+        raise AssertionError(f"{what}: loss on the card {loss_card} != CPU "
+                             f"{loss_cpu}")
+    gtol = TOL[("step_grad", "float32")]
+    gmax = max(float(g.abs().max()) for g in g_cpu.values())
+    nmax = max(float(g.norm()) for g in g_cpu.values())
+    per_tensor, rounding_level = {}, []
+    for k, want in g_cpu.items():
+        tol = {**gtol, "atol": gtol["atol"] * gmax}
+        if float(want.norm()) < ROUNDING_NORM * nmax:
+            rounding_level.append(k)
+            tol["rel"] = float("inf")
+        per_tensor[k] = check_close(g_card[k], want, tol, f" ({what}: d {k})")
+    return dict(loss=[loss_card, loss_cpu],
+                grads=[max(e[0] for e in per_tensor.values()),
+                       max(e[1] for k, e in per_tensor.items()
+                           if k not in rounding_level)],
+                largest_grad=gmax, tolerance=gtol,
+                grad_rel_rms={k: e[1] for k, e in per_tensor.items()},
+                rounding_level=rounding_level)
+
+
+def flash_card_vs_cpu(model, cfg, xb, tb, mb, rng, what: str,
+                      routes) -> dict:
+    """The flash training route's forward, masked-MSE loss and backward on
+    the card and on the CPU, with the same numpy-made residual and MLP keep
+    masks (``dropout_masks``) and per-layer attention seeds
+    (``block_seeds``): the card draws other dropout bits than the CPU from
+    a generator, and ``make_finetune_step`` takes no masks. ``routes`` are
+    the training attention routes the card's run must launch."""
+    import copy
+
+    import torch
+
+    from vidsum_tpu_torch.ops import attention_train as at
+    from vidsum_tpu_torch.ops.losses import mse_with_mask_loss
+
+    B, N = mb.shape
+    d, L, keep = cfg.d_model, cfg.num_layers, 1.0 - cfg.dropout
+    masks = [{"res1": rng.random((B, N, d)) < keep,
+              "mlp": rng.random((B, N, cfg.mlp_scale * d)) < keep,
+              "res2": rng.random((B, N, d)) < keep} for _ in range(L)]
+    seeds = [int(s) for s in rng.integers(0, 2**31 - 1, L)]
+    results, t_s = [], {}
+    for dev in ("cuda", "cpu"):
+        before = [getattr(at, r).launches for r in routes]
+        t0 = time.monotonic()
+        m = copy.deepcopy(model).to(dev)
+        x, t, mk = (torch.as_tensor(a).to(dev) for a in (xb, tb, mb))
+        scores, _ = m(x, mk, attn_impl="flash", deterministic=False,
+                      dropout_masks=masks, block_seeds=seeds)
+        loss = mse_with_mask_loss(scores, t, mk)
+        loss.backward()
+        results.append((float(loss.detach()),
+                        {k: p.grad.detach().float().cpu()
+                         for k, p in m.named_parameters()}))
+        t_s[dev] = time.monotonic() - t0
+        moved = [getattr(at, r).launches - b for r, b in zip(routes, before)]
+        if dev == "cuda" and moved != [L] * len(routes):
+            raise AssertionError(f"{what}: launches {moved} of {routes}, "
+                                 f"expected {L} each")
+    return dict(B=B, N=N, layers=L, routes=[attn_train_name(r)
+                                            for r in routes],
+                wall_s=t_s, **compare_steps(results, what))
+
+
+ATTN_TRAIN_ROUTES = ("_fwd_kernel", "_bwd_kernel", "_fwd_kernel_folded",
+                     "_bwd_kernel_folded")
+
+
+def attn_train_name(route: str) -> str:
+    """The counter and kernels-line name of a training attention route,
+    qualified by its module (``block_train`` has routes of the same names)."""
+    return f"attention_train.{route}"
+
+
+def phase_train_attention(dev: dict, seed: int) -> dict:
+    """The four training attention routes (``ops/attention_train.py``, TPU
+    kernels 5-8) against their plain versions at (B, H, N, Dh) =
+    (2, 4, 8192, 64), valid lengths (8100, 5000), dropout 0.3, f32 and bf16;
+    returns the f32 numbers per route (the recipe trains in f32)."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    from vidsum_tpu_torch.config import ModelConfig
+    from vidsum_tpu_torch.ops import attention_train as at
+
+    peaks = peaks_for(dev["name"])
+    cfg = ModelConfig()
+    B, H, N, Dh = 2, cfg.num_heads, 8192, cfg.head_dim
+    rate, scale = 0.3, cfg.attn_scale
+    cuda = torch.device("cuda")
+    rng = np.random.default_rng(seed + 5)
+    dseed = int(rng.integers(0, 2**31 - 2))
+    valid = (8100, 5000)
+    mask = torch.ones((B, N), dtype=torch.bool, device=cuda)
+    for b, n in enumerate(valid):
+        mask[b, :n] = False
+    keep_sdpa = ~mask[:, None, None, :]
+    kb = at._pick_key_block(N)
+    # the plain versions run 1,024 query rows at a time (the single pass)
+    # or all rows over the kernel's 64-key tiles (the fold: in bf16 the
+    # unnormalised e is rounded per tile)
+    plain = {
+        False: (lambda q, k, v, s: at.attention_train_fwd_reference(
+                    q, k, v, mask, s, rate, scale, rows=1024),
+                lambda q, k, v, s, lse, do, o: at.attention_train_bwd_reference(
+                    q, k, v, mask, s, lse, do, rate, scale, rows=1024)),
+        True: (lambda q, k, v, s: at.attention_train_fwd_folded_reference(
+                   q, k, v, mask, s, rate, scale, at.KEY_TILE, rows=N),
+               lambda q, k, v, s, lse, do, o: (
+                   at.attention_train_bwd_folded_reference(
+                       q, k, v, mask, s, lse, do, o, rate, scale,
+                       at.KEY_TILE, rows=N))),
+    }
+    sum_valid = sum(valid)
+    out = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        dn = str(dtype).split(".")[1]
+        itm = torch.finfo(dtype).bits // 8
+        q, k, v, do = (torch.from_numpy(rng.normal(size=(B, H, N, Dh)).astype(
+            np.float32)).to(cuda, dtype) for _ in range(4))
+        own = {}
+        for folded in (False, True):
+            fwd = at._fwd_kernel_folded if folded else at._fwd_kernel
+            bwd = at._bwd_kernel_folded if folded else at._bwd_kernel
+            run_f = ((lambda s: fwd(q, k, v, mask, s, rate, scale, kb))
+                     if folded else
+                     (lambda s: fwd(q, k, v, mask, s, rate, scale)))
+
+            def run_b(s, lse, o, bwd=bwd, folded=folded):
+                if folded:
+                    return bwd(q, k, v, mask, s, lse, do, o, rate, scale, kb)
+                return bwd(q, k, v, mask, s, lse, do, rate, scale)
+
+            pf, pb = plain[folded]
+            f0, b0 = fwd.launches, bwd.launches
+            o, lse = run_f(dseed)
+            want_o, want_lse = pf(q, k, v, dseed)
+            # both backward versions take the plain forward's lse and o
+            grads = run_b(dseed, want_lse, want_o)
+            torch.cuda.synchronize()
+            if (fwd.launches, bwd.launches) != (f0 + 1, b0 + 1):
+                raise AssertionError(f"{fwd.__name__} did not launch")
+            want = pb(q, k, v, dseed, want_lse, do, want_o)
+            otol = TOL[("attn_train_o", dn)]
+            ltol = TOL[("attn_train_lse", dn)]
+            gtol = TOL[("attn_train_grad", dn)]
+            o_err = check_close(o, want_o, otol, " (o)")
+            lse_err = check_close(lse, want_lse, ltol, " (lse)")
+            grad_err = {n: check_close(a, b, scaled(gtol, b), f" (d{n})")
+                        for n, a, b in zip("qkv", grads, want)}
+            own[folded] = (o, want_o)
+            # a planted fault: the kernels at seed + 1 fail the bounds
+            bad_o, _ = run_f(dseed + 1)
+            bad = run_b(dseed + 1, want_lse, want_o)
+            if within(bad_o, want_o, otol) or any(
+                    within(a, b, scaled(gtol, b)) for a, b in zip(bad, want)):
+                raise AssertionError(f"{fwd.__name__} {dn}: the kernels at "
+                                     f"seed + 1 pass the bounds")
+            fault = (errors(bad_o, want_o)[1], errors(bad[0], want[0])[1])
+            again = run_b(dseed, want_lse, want_o)
+            if not all(torch.equal(a, b) for a, b in zip(grads, again)):
+                raise AssertionError(f"{bwd.__name__} {dn}: two backward runs "
+                                     f"differ")
+            del bad, again
+            ms_f = cuda_ms(lambda: run_f(dseed), reps=10)
+            ms_b = cuda_ms(lambda: run_b(dseed, want_lse, want_o), reps=10)
+            plain_f = cuda_ms(lambda: pf(q, k, v, dseed), reps=3, warmup=1)
+            plain_b = cuda_ms(lambda: pb(q, k, v, dseed, want_lse, do,
+                                         want_o), reps=3, warmup=1)
+            # library yardstick: SDPA with its own dropout, timed only
+            lib_f = cuda_ms(lambda: F.scaled_dot_product_attention(
+                q, k, v, attn_mask=keep_sdpa, dropout_p=rate, scale=scale),
+                reps=10)
+            ql, kl, vl = (t.detach().requires_grad_() for t in (q, k, v))
+            lib_b = cuda_ms(lambda: F.scaled_dot_product_attention(
+                ql, kl, vl, attn_mask=keep_sdpa, dropout_p=rate,
+                scale=scale).backward(do), reps=10)
+            del ql, kl, vl
+            # bounds: the forward's two products at the input type's peak;
+            # the backward's dp and dV are f32 x f32, dQ and dK at the
+            # input type's peak (the recompute not counted)
+            flops = 4 * H * Dh * N * sum_valid
+            t_f = flops / peaks[dn]
+            t_b = flops / peaks["float32"] + flops / peaks[dn]
+            qkv_bytes = B * H * N * Dh * itm
+            bytes_f = 4 * qkv_bytes + B * N + B * H * N * 4
+            bytes_b = ((7 + int(folded)) * qkv_bytes + B * N + B * H * N * 4)
+            bf_ms = max(t_f, bytes_f / peaks["bytes"]) * 1e3
+            bb_ms = max(t_b, bytes_b / peaks["bytes"]) * 1e3
+            bf_by = "operations" if t_f >= bytes_f / peaks["bytes"] \
+                else "bytes"
+            bb_by = "operations" if t_b >= bytes_b / peaks["bytes"] \
+                else "bytes"
+            name_f, name_b = (attn_train_name(fwd.__name__),
+                              attn_train_name(bwd.__name__))
+            emit("train_attention_kernel", route=name_f, B=B, H=H, N=N,
+                 Dh=Dh, valid=list(valid), dtype=dn, o_err=o_err,
+                 lse_err=lse_err, tolerance=otol,
+                 seed_plus_one_rel_rms=fault[0], ms=ms_f, plain_ms=plain_f,
+                 library_ms=lib_f, bound_ms=bf_ms, bound_by=bf_by,
+                 flops=flops, bytes=bytes_f)
+            emit("train_attention_kernel", route=name_b, B=B, H=H, N=N,
+                 Dh=Dh, valid=list(valid), dtype=dn,
+                 grad_err={n: list(e) for n, e in grad_err.items()},
+                 tolerance=gtol, seed_plus_one_dq_rel_rms=fault[1],
+                 deterministic=True, ms=ms_b, plain_ms=plain_b,
+                 library_ms=lib_b, bound_ms=bb_ms, bound_by=bb_by,
+                 flops=2 * flops, bytes=bytes_b)
+            if dtype == torch.float32:
+                out[name_f] = dict(max_abs_err=max(o_err[0], lse_err[0]),
+                                   ms=ms_f, plain_ms=plain_f, bound_ms=bf_ms,
+                                   bound_by=bf_by, library_ms=lib_f)
+                out[name_b] = dict(
+                    max_abs_err=max(e[0] for e in grad_err.values()),
+                    ms=ms_b, plain_ms=plain_b, bound_ms=bb_ms,
+                    bound_by=bb_by, library_ms=lib_b)
+        if dtype == torch.bfloat16:
+            # each bf16 forward route rounds where its TPU kernel does: it
+            # lies at least twice as close to its own plain version as to
+            # the other route's
+            for folded in (False, True):
+                got, mine = own[folded]
+                _, other = own[not folded]
+                r_own, r_other = errors(got, mine)[1], errors(got, other)[1]
+                if not r_own < r_other / 2:
+                    raise AssertionError(
+                        f"bf16 forward (folded={folded}): relative RMS "
+                        f"{r_own} against its own plain version, {r_other} "
+                        f"against the other route's")
+                emit("train_attention_rounding", folded=folded,
+                     rel_rms_own=r_own, rel_rms_other_route=r_other)
+        del q, k, v, do, own
+        torch.cuda.empty_cache()
+    return out
+
+
 def synthetic_videos(rng, lengths, in_features: int) -> list:
     """In-memory items in the schema of ``vidsum_tpu/data/synthetic.py``:
     (features, gtscore, UserSummaries), gtscore a linear probe of the
@@ -686,23 +967,12 @@ def phase_train(seed: int) -> dict:
             block_seeds=seeds)
         results.append((float(loss), {k: p.grad.detach().float().cpu()
                                       for k, p in m.named_parameters()}))
-    (loss_card, g_card), (loss_cpu, g_cpu) = results
-    if not abs(loss_card - loss_cpu) <= 1e-4 * abs(loss_cpu):
-        raise AssertionError(f"step loss on the card {loss_card} != CPU "
-                             f"{loss_cpu}")
-    gtol = TOL[("step_grad", "float32")]
-    gmax = max(float(g.abs().max()) for g in g_cpu.values())
-    nmax = max(float(g.norm()) for g in g_cpu.values())
-    per_tensor, rounding_level = {}, []
-    for k, want in g_cpu.items():
-        tol = {**gtol, "atol": gtol["atol"] * gmax}
-        if float(want.norm()) < ROUNDING_NORM * nmax:
-            rounding_level.append(k)
-            tol["rel"] = float("inf")
-        per_tensor[k] = check_close(g_card[k], want, tol, f" (d {k})")
-    step_err = [max(e[0] for e in per_tensor.values()),
-                max(e[1] for k, e in per_tensor.items()
-                    if k not in rounding_level)]
+    card_vs_cpu = compare_steps(results, "fused_block step")
+    # (a) the flash route on the same batch (N = 1,152: the single-pass
+    # training attention, TPU kernels 5/6), card against CPU
+    flash_vs_cpu = flash_card_vs_cpu(model, cfg, xb, tb, mb, rng, "flash "
+                                     "route, first long batch",
+                                     ("_fwd_kernel", "_bwd_kernel"))
 
     optimizer = make_optimizer(model, tc.lr, tc.weight_decay)
     times = {"short": [], "long": []}
@@ -765,11 +1035,7 @@ def phase_train(seed: int) -> dict:
             lambda: step(model, optimizer, xt, tt, mt, gen), reps=3)}
     emit("train", lengths_short=[int(it[0].shape[0]) for it in short],
          lengths_long=[int(it[0].shape[0]) for it in long_],
-         card_vs_cpu=dict(loss=[loss_card, loss_cpu], grads=step_err,
-                          largest_grad=gmax, tolerance=gtol,
-                          grad_rel_rms={k: e[1]
-                                        for k, e in per_tensor.items()},
-                          rounding_level=rounding_level),
+         card_vs_cpu=card_vs_cpu, flash_card_vs_cpu=flash_vs_cpu,
          epoch_loss_short=epoch_losses["short"],
          epoch_loss_long=epoch_losses["long"],
          step_losses=step_losses, val_loss=val_loss, fscore=f,
@@ -781,19 +1047,142 @@ def phase_train(seed: int) -> dict:
     return counts
 
 
+# recipe epochs over the long-video set per dtype: 8 videos at batch 4, 2
+# steps each, so the step times are medians of 10
+LONG_EPOCHS = 5
+
+
+def phase_long_train(seed: int) -> dict:
+    """Finetuning on videos past the block-train envelope (N > 7,936 at
+    d 256): (b) the flash route on one 8,100-frame video (bucket 8,192; f32
+    takes the folded route, TPU kernels 7/8), card against CPU; (c) recipe
+    epochs on the auto route over 8 videos of 7,950-9,000 frames, in f32
+    (demoted to the folded route) and bf16 (the single-pass route, kernels
+    5/6). Returns the training attention routes' launches in (c)."""
+    import dataclasses
+    import math
+
+    import numpy as np
+    import torch
+
+    from vidsum_tpu_torch.config import finetune_recipe
+    from vidsum_tpu_torch.data.collate import pad_batch
+    from vidsum_tpu_torch.models.simnet import SimNet
+    from vidsum_tpu_torch.ops import attention_train as at
+    from vidsum_tpu_torch.train import finetune as ft
+    from vidsum_tpu_torch.train.steps import (
+        make_finetune_step, make_optimizer,
+    )
+
+    conf = finetune_recipe()
+    cfg, tc = conf.model, conf.train
+    rng = np.random.default_rng(seed + 6)
+    model = SimNet(cfg, generator=torch.Generator().manual_seed(seed + 1))
+
+    # (b)
+    [item] = synthetic_videos(rng, [8100], cfg.in_features)
+    xb, tb, mb = pad_batch([item[0]], [item[1]])
+    if xb.shape[1] != 8192 or at._single_pass_ok(8192, cfg.head_dim, 4):
+        raise AssertionError(f"an 8,100-frame video buckets to "
+                             f"{xb.shape[1]} frames")
+    folded_vs_cpu = flash_card_vs_cpu(
+        model, cfg, xb, tb, mb, rng, "flash route, one 8,100-frame video",
+        ("_fwd_kernel_folded", "_bwd_kernel_folded"))
+    del model
+
+    # (c)
+    videos = synthetic_videos(rng, rng.integers(7950, 9001, 8),
+                              cfg.in_features)
+    block_routes = TRAIN_ROUTES
+    report, launches = {}, {}
+    for dtype, routes in (("float32", ("_fwd_kernel_folded",
+                                       "_bwd_kernel_folded")),
+                          ("bfloat16", ("_fwd_kernel", "_bwd_kernel"))):
+        dcfg = dataclasses.replace(cfg, compute_dtype=dtype)
+        dconf = dataclasses.replace(conf, model=dcfg)
+        model = SimNet(dcfg, generator=torch.Generator().manual_seed(seed))
+        step = make_finetune_step(dcfg, tc.attn_impl)
+        optimizer = make_optimizer(model, tc.lr, tc.weight_decay)
+        times, losses, shapes = [], [], []
+
+        def timed(*args):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            loss = step(*args)
+            end.record()
+            times.append((start, end))
+            losses.append(loss)
+            shapes.append(tuple(args[2].shape[:2]))
+            return loss
+
+        reset_counters()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.monotonic()
+        epoch_losses = [ft._train_epoch(timed, model, optimizer, videos,
+                                        dconf, *ft.epoch_streams(tc.seed, 1,
+                                                                 epoch))
+                        for epoch in range(LONG_EPOCHS)]
+        torch.cuda.synchronize()
+        wall = time.monotonic() - t0
+        peak_gb = torch.cuda.max_memory_allocated() / 2**30
+        counts = read_counters()
+        names = [attn_train_name(r) for r in routes]
+        n_steps = len(losses)
+        if [counts[n] for n in names] != [cfg.num_layers * n_steps] * 2:
+            raise AssertionError(f"{dtype} long-video epochs: launches "
+                                 f"{counts}, expected {cfg.num_layers} of "
+                                 f"{names} per step")
+        moved = [r for r in block_routes if counts[r]]
+        if moved:
+            raise AssertionError(f"{dtype} long-video epochs launched the "
+                                 f"block-train routes {moved}: no demotion")
+        step_losses = [float(x) for x in losses]
+        if not all(math.isfinite(v) for v in step_losses):
+            raise AssertionError(f"non-finite losses: {step_losses}")
+        for n in names:
+            launches[n] = counts[n]
+        xl, tl, ml = (torch.from_numpy(a).cuda() for a in pad_batch(
+            [it[0] for it in videos[:tc.batch_size]],
+            [it[1] for it in videos[:tc.batch_size]]))
+        gen = torch.Generator().manual_seed(seed)
+        report[dtype] = dict(
+            routes=names, steps=n_steps, batch_shapes=shapes,
+            step_ms=spread([s.elapsed_time(e) for s, e in times]),
+            wall_s=wall, peak_memory_gib=peak_gb, epoch_loss=epoch_losses,
+            step_losses=step_losses,
+            launches={n: counts[n] for n in names},
+            block_train_launches={r: counts[r] for r in block_routes},
+            step_profile=device_profile(
+                lambda: step(model, optimizer, xl, tl, ml, gen), reps=2))
+        del model, optimizer
+        torch.cuda.empty_cache()
+    missing = [n for n in map(attn_train_name, ATTN_TRAIN_ROUTES)
+               if not launches.get(n)]
+    if missing:
+        raise AssertionError(f"training attention routes never launched: "
+                             f"{missing}")
+    emit("long_train", lengths=[int(it[0].shape[0]) for it in videos],
+         flash_folded_card_vs_cpu=folded_vs_cpu, **report)
+    return launches
+
+
 def reset_counters() -> None:
     from vidsum_tpu_torch.ops import attention as at
+    from vidsum_tpu_torch.ops import attention_train as att
     from vidsum_tpu_torch.ops import block_kernel as bk
     from vidsum_tpu_torch.ops import block_train as bt
 
     for fn in (bk._fused_block, bk._fused_block_grouped, at._flash_attention,
                at._flash_attention_folded, bk.gemm_bias_epilogue,
-               at.masked_attention, *(getattr(bt, r) for r in TRAIN_ROUTES)):
+               at.masked_attention, *(getattr(bt, r) for r in TRAIN_ROUTES),
+               *(getattr(att, r) for r in ATTN_TRAIN_ROUTES)):
         fn.launches = 0
 
 
 def read_counters() -> dict:
     from vidsum_tpu_torch.ops import attention as at
+    from vidsum_tpu_torch.ops import attention_train as att
     from vidsum_tpu_torch.ops import block_kernel as bk
     from vidsum_tpu_torch.ops import block_train as bt
 
@@ -803,7 +1192,9 @@ def read_counters() -> dict:
             "_flash_attention_folded": at._flash_attention_folded.launches,
             "gemm_bias_epilogue": bk.gemm_bias_epilogue.launches,
             "masked_attention": at.masked_attention.launches,
-            **{r: getattr(bt, r).launches for r in TRAIN_ROUTES}}
+            **{r: getattr(bt, r).launches for r in TRAIN_ROUTES},
+            **{attn_train_name(r): getattr(att, r).launches
+               for r in ATTN_TRAIN_ROUTES}}
 
 
 def phase_serve(seed: int) -> dict:
@@ -914,9 +1305,11 @@ def main() -> int:
     phase_build()
     timings = phase_kernels(dev, args.seed)
     timings.update(phase_train_kernels(dev, args.seed))
+    timings.update(phase_train_attention(dev, args.seed))
     counts = phase_serve(args.seed)
     counts.update({r: n for r, n in phase_train(args.seed).items()
                    if r in TRAIN_ROUTES})
+    counts.update(phase_long_train(args.seed))
 
     replaces = {
         "_fused_block": "vidsum_tpu/ops/block_kernel.py:39",
@@ -927,14 +1320,18 @@ def main() -> int:
         "_bwd_kernel": "vidsum_tpu/ops/block_train.py:221",
         "_fwd_kernel_grouped": "vidsum_tpu/ops/block_train.py:410",
         "_bwd_kernel_grouped": "vidsum_tpu/ops/block_train.py:421",
+        **{attn_train_name(r): f"vidsum_tpu/ops/attention_train.py:{line}"
+           for r, line in zip(ATTN_TRAIN_ROUTES, (83, 112, 175, 228))},
     }
     block_src = ["vidsum_tpu_torch/csrc/gemm_bias_epilogue.cu",
                  "vidsum_tpu_torch/csrc/masked_attention.cu"]
     attn_src = ["vidsum_tpu_torch/csrc/masked_attention.cu"]
     train_src = ["vidsum_tpu_torch/csrc/block_train.cu"]
+    attn_train_src = ["vidsum_tpu_torch/csrc/attention_train.cu"]
     kernels = []
     for route, rep in replaces.items():
-        srcs = (train_src if route in TRAIN_ROUTES
+        srcs = (attn_train_src if route.startswith("attention_train.")
+                else train_src if route in TRAIN_ROUTES
                 else block_src if "block" in route else attn_src)
         kernels.append({"name": route.lstrip("_"), "route": "cuda",
                         "source": srcs[0], "sources": srcs, "replaces": rep,

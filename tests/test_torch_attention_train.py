@@ -1,0 +1,240 @@
+"""The port's flash-attention training route
+(``vidsum_tpu_torch/ops/attention_train.py``) against the JAX package's on
+the CPU: the dropout hash bit for bit, the four plain versions (o, lse, dq,
+dk, dv) against the Pallas kernels in interpret mode on the single-pass and
+the forced key-folded route (as ``tests/test_attention_train.py`` forces
+it), the autograd Function against ``jax.vjp``, and the routing
+predicates."""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import vidsum_tpu.ops.attention_train as jat
+from vidsum_tpu_torch.ops import attention_train as at
+
+SEED = 9
+# the JAX tests' own bounds (tests/test_attention_train.py): forward f32
+# 2e-5; grads rtol 1e-3 / atol 1e-4 on the single-pass route, 2e-4 / 2e-4
+# on the folded one (measured: under 1e-6). bf16 (measured): o and the
+# grads differ from the interpret-mode kernels by at most one bf16 step
+# where a value rounds the other way (their f32 sums run in another order),
+# up to 2.0e-3 absolute on values of size 1-2, so one step (rtol 2**-7)
+# plus atol 4e-3; lse is f32 in both dtypes
+TOL = {
+    ("fwd", "float32"): (2e-5, 2e-5),
+    ("lse", "float32"): (2e-5, 2e-5),
+    ("grad", "float32", False): (1e-3, 1e-4),
+    ("grad", "float32", True): (2e-4, 2e-4),
+    ("fwd", "bfloat16"): (8e-3, 4e-3),
+    ("lse", "bfloat16"): (2e-5, 2e-5),
+    ("grad", "bfloat16", False): (8e-3, 4e-3),
+    ("grad", "bfloat16", True): (8e-3, 4e-3),
+}
+# (B, H, N, Dh): single pass at (2, 2, 256, 16); folded, forced with
+# kb = 128, at (2, 2, 512, 64); valid lengths (200, 100) of 256 and
+# (400, 200) of 512
+SHAPES = {False: (2, 2, 256, 16), True: (2, 2, 512, 64)}
+CASES = [(False, 0.3, "float32"), (False, 0.0, "float32"),
+         (False, 0.3, "bfloat16"), (True, 0.3, "float32"),
+         (True, 0.0, "float32"), (True, 0.3, "bfloat16")]
+
+
+def _inputs(folded: bool):
+    B, H, N, Dh = SHAPES[folded]
+    rng = np.random.default_rng(N + Dh)
+    q, k, v, co = (rng.normal(size=(B, H, N, Dh)).astype(np.float32)
+                   for _ in range(4))
+    mask = np.zeros((B, N), bool)
+    mask[0, N * 25 // 32:] = True
+    mask[1, N * 25 // 64:] = True
+    return q, k, v, co, mask, Dh ** -0.5
+
+
+@pytest.fixture(scope="module")
+def jax_results():
+    """Per case: the Pallas forward (o, lse) and ``jax.vjp``'s dq, dk, dv,
+    interpret mode. The folded route is forced as the JAX tests force it,
+    with the jit caches cleared before and after."""
+    cache = {}
+
+    def get(folded, rate, dtype):
+        key = (folded, rate, dtype)
+        if key in cache:
+            return cache[key]
+        q, k, v, co, mask, scale = _inputs(folded)
+        jq, jk, jv, jco = (jnp.asarray(a).astype(dtype)
+                           for a in (q, k, v, co))
+        m8 = jnp.asarray(mask.astype(np.int8))[:, None, :]
+        seed = jnp.asarray([[SEED]], jnp.int32)
+        saved = jat._single_pass_ok, jat._pick_key_block
+        jax.clear_caches()
+        try:
+            if folded:
+                jat._single_pass_ok = lambda *a: False
+                jat._pick_key_block = lambda n: 128
+
+            # one jitted program: run eagerly, JAX dispatches further ops
+            # while the interpret mode's callbacks dispatch their own, and
+            # under load the two can block each other
+            @jax.jit
+            def run(a, b, c, g):
+                o, lse = jat._fwd_impl(a, b, c, m8, seed, rate, scale)
+                _, vjp = jax.vjp(lambda *t: jat.flash_attention_dropout(
+                    *t, m8, seed, rate, scale), a, b, c)
+                return o, lse, vjp(g)
+
+            o, lse, grads = jax.block_until_ready(run(jq, jk, jv, jco))
+        finally:
+            jat._single_pass_ok, jat._pick_key_block = saved
+            jax.clear_caches()
+        cache[key] = dict(
+            o=np.asarray(o, np.float32), lse=np.asarray(lse)[:, :, 0],
+            grads=[np.asarray(g, np.float32) for g in grads])
+        return cache[key]
+
+    return get
+
+
+def _torch(a, dtype):
+    return torch.from_numpy(a).to(getattr(torch, dtype))
+
+
+@pytest.mark.parametrize("rate", [0.3, 0.0, 1.0 - 2.0 ** -20])
+def test_keep_mask_block_equals_jax_bit_for_bit(rate):
+    """A different hash family from the block's ``_hash_keep``: equal to
+    JAX's for several seeds, (b, h) and tile corners; a (T, kb) block is the
+    slice of the full-width mask at its corner."""
+    for seed in (0, SEED, 2 ** 31 - 2):
+        js = jnp.asarray(seed, jnp.int32)
+        for b, h in ((0, 0), (1, 3), (5, 2)):
+            for row0, col0 in ((0, 0), (384, 0), (128, 256)):
+                want = np.asarray(jat._keep_mask_block(js, b, h, row0, col0,
+                                                       (128, 96), rate))
+                got = at._keep_mask_block(seed, b, h, row0, col0, (128, 96),
+                                          rate)
+                np.testing.assert_array_equal(got.numpy(), want)
+    full = at._keep_mask(77, 3, 2, 5, (at.TILE, 512), 0.3)
+    np.testing.assert_array_equal(
+        full.numpy(), np.asarray(jat._keep_mask(jnp.asarray(77, jnp.int32),
+                                                3, 2, 5, (at.TILE, 512),
+                                                0.3)))
+    for j, kb in ((0, 128), (3, 128), (1, 256)):
+        blk = at._keep_mask_block(77, 3, 2, 5 * at.TILE, j * kb,
+                                  (at.TILE, kb), 0.3)
+        assert torch.equal(blk, full[:, j * kb:(j + 1) * kb])
+
+
+def test_reference_keep_mask_matches_jax():
+    want = np.asarray(jat.reference_keep_mask(SEED, 2, 2, 256, 0.3))
+    np.testing.assert_array_equal(
+        at.reference_keep_mask(SEED, 2, 2, 256, 0.3).numpy(), want)
+
+
+@pytest.mark.parametrize("folded,rate,dtype", CASES)
+def test_plain_versions_match_jax_kernels(jax_results, folded, rate, dtype):
+    """Each route's plain forward (o, lse) and backward (dq, dk, dv) against
+    the Pallas kernels in interpret mode, padded tails included."""
+    want = jax_results(folded, rate, dtype)
+    q, k, v, co, mask, scale = _inputs(folded)
+    tq, tk, tv, tco = (_torch(a, dtype) for a in (q, k, v, co))
+    tm = torch.from_numpy(mask)
+    if folded:
+        o, lse = at._fwd_kernel_folded(tq, tk, tv, tm, SEED, rate, scale,
+                                       128)
+        grads = at._bwd_kernel_folded(tq, tk, tv, tm, SEED, lse, tco, o,
+                                      rate, scale, 128)
+    else:
+        o, lse = at._fwd_kernel(tq, tk, tv, tm, SEED, rate, scale)
+        grads = at._bwd_kernel(tq, tk, tv, tm, SEED, lse, tco, rate, scale)
+    assert o.dtype == tq.dtype and lse.dtype == torch.float32
+    rtol, atol = TOL[("fwd", dtype)]
+    np.testing.assert_allclose(o.float().numpy(), want["o"], rtol=rtol,
+                               atol=atol)
+    rtol, atol = TOL[("lse", dtype)]
+    np.testing.assert_allclose(lse.numpy(), want["lse"], rtol=rtol,
+                               atol=atol)
+    rtol, atol = TOL[("grad", dtype, folded)]
+    for name, g, w in zip("qkv", grads, want["grads"]):
+        assert g.dtype == tq.dtype
+        np.testing.assert_allclose(g.float().numpy(), w, rtol=rtol,
+                                   atol=atol, err_msg=f"d{name}")
+
+
+@pytest.mark.parametrize("folded", [False, True])
+def test_autograd_function_matches_jax_vjp(jax_results, monkeypatch, folded):
+    """``flash_attention_dropout`` routes by the copied predicates and its
+    grads equal ``jax.vjp`` of the Pallas kernels; the folded route is
+    forced in the port as in JAX."""
+    want = jax_results(folded, 0.3, "float32")
+    if folded:
+        monkeypatch.setattr(at, "_single_pass_ok", lambda *a: False)
+        monkeypatch.setattr(at, "_pick_key_block", lambda n: 128)
+    q, k, v, co, mask, scale = _inputs(folded)
+    tq, tk, tv = (torch.from_numpy(a).requires_grad_() for a in (q, k, v))
+    spy = at._fwd_kernel_folded if folded else at._fwd_kernel
+    calls = []
+    monkeypatch.setattr(at, spy.__name__,
+                        lambda *a: calls.append(1) or spy(*a))
+    o = at.flash_attention_dropout(tq, tk, tv, torch.from_numpy(mask), SEED,
+                                   0.3, scale)
+    assert calls == [1]
+    o.backward(torch.from_numpy(co))
+    np.testing.assert_allclose(o.detach().numpy(), want["o"], rtol=2e-5,
+                               atol=2e-5)
+    rtol, atol = TOL[("grad", "float32", folded)]
+    for name, t, w in zip("qkv", (tq, tk, tv), want["grads"]):
+        np.testing.assert_allclose(t.grad.numpy(), w, rtol=rtol, atol=atol,
+                                   err_msg=f"d{name}")
+
+
+def test_plain_versions_match_the_masked_dense_reference():
+    """At rate 0.3 the single-pass plain version equals dense attention
+    applying ``reference_keep_mask``; the folded one too, up to rounding."""
+    q, k, v, _, mask, scale = _inputs(False)
+    tq, tk, tv = (torch.from_numpy(a) for a in (q, k, v))
+    tm = torch.from_numpy(mask)
+    keep = at.reference_keep_mask(SEED, *q.shape[:3], 0.3)
+    want = at.dropout_attention_reference(tq, tk, tv, tm, keep, 0.3, scale)
+    got, _ = at._fwd_kernel(tq, tk, tv, tm, SEED, 0.3, scale)
+    folded, _ = at._fwd_kernel_folded(tq, tk, tv, tm, SEED, 0.3, scale, 128)
+    torch.testing.assert_close(got, want, rtol=2e-5, atol=2e-5)
+    torch.testing.assert_close(folded, want, rtol=2e-5, atol=2e-5)
+    other, _ = at._fwd_kernel(tq, tk, tv, tm, SEED + 1, 0.3, scale)
+    assert float((other - want).abs().max()) > 0.1
+
+
+def test_routing_predicates_match_jax():
+    for N in (128, 1152, 7552, 7680, 8064, 8192, 9088, 10880, 11008, 11520,
+              11648, 16384, 20480, 22528, 36864, 200):
+        for Dh in (16, 64):
+            for itemsize in (2, 4):
+                args = (N, Dh, itemsize)
+                assert at._single_pass_ok(*args) == jat._single_pass_ok(*args)
+                assert (at._folded_train_ok(*args)
+                        == jat._folded_train_ok(*args))
+                assert (at.flash_train_supported(*args)
+                        == jat.flash_train_supported(*args)), args
+    # the edges of the flagship's routes (head_dim 64)
+    assert at._single_pass_ok(7552, 64, 4) and not at._single_pass_ok(
+        7680, 64, 4)
+    assert at._single_pass_ok(10880, 64, 2) and not at._single_pass_ok(
+        11008, 64, 2)
+    assert at.flash_train_supported(11520, 64, 4)
+    assert not at.flash_train_supported(11648, 64, 4)
+    assert at.flash_train_supported(20480, 64, 2)
+    assert not at.flash_train_supported(22528, 64, 2)
+
+
+def test_past_the_envelope_raises():
+    q = torch.zeros(1, 1, 11648, 64)
+    with pytest.raises(ValueError, match="multi-GPU slice"):
+        at.flash_attention_dropout(q, q, q, None, 0, 0.3, 0.125)
+    q = torch.zeros(1, 1, 200, 64)
+    with pytest.raises(ValueError, match="multiple of 128"):
+        at.flash_attention_dropout(q, q, q, None, 0, 0.3, 0.125)
+    q = torch.zeros(1, 1, 128, 64)
+    with pytest.raises(ValueError, match="rate"):
+        at.flash_attention_dropout(q, q, q, None, 0, 1.0, 0.125)

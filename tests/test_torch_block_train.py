@@ -88,10 +88,18 @@ def jax_results():
             jx = jnp.asarray(x).astype(dtype)
             m8 = jnp.asarray(mask.astype(np.int8))[:, None, :]
             seed = jnp.asarray([[SEED]], jnp.int32)
-            fwd, vjp = jax.vjp(
-                lambda x_, b_: jbt.fused_block_train(x_, b_, m8, seed, H,
-                                                     SCALE, rate), jx, jb)
-            dx, dparams = vjp(jnp.asarray(co).astype(dtype))
+
+            # one jitted program: run eagerly, JAX dispatches further ops
+            # while the interpret mode's callbacks dispatch their own, and
+            # under load the two can block each other
+            @jax.jit
+            def run(x_, b_, g):
+                out, vjp = jax.vjp(
+                    lambda a, b: jbt.fused_block_train(a, b, m8, seed, H,
+                                                       SCALE, rate), x_, b_)
+                return out, vjp(g)
+
+            fwd, (dx, dparams) = run(jx, jb, jnp.asarray(co).astype(dtype))
             ref = jbt.block_reference_with_masks(jx, jb, jnp.asarray(mask),
                                                  SEED, H, SCALE, rate)
             cache[key] = dict(

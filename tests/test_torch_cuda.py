@@ -358,3 +358,161 @@ def test_train_step_on_card_matches_cpu(cuda):
                      <= tol["atol"] * gmax + tol["rtol"] * want.abs()).all()), k
         if float(want.norm()) >= 1e-6 * nmax:   # not at rounding level
             assert _rel(got, want) <= tol["rel"], k
+
+
+# --------------------------------------- the flash-attention training route
+# o at the attention bounds above; lse at f32 summation-order level; grads
+# atol relative to the tensor's largest entry: f32 at summation-order level,
+# bf16 one bf16 step (dq and dk round ds to bf16, the outputs are bf16)
+AT_TOL = {
+    ("grad", torch.float32): dict(atol=1e-4, rtol=1e-4, rel=1e-5),
+    ("grad", torch.bfloat16): dict(atol=1e-2, rtol=1e-2, rel=1e-2),
+}
+
+
+def _at_within(got, want, tol, relative_atol=True):
+    g, w = got.float(), want.float()
+    atol = tol["atol"] * (float(w.abs().max()) if relative_atol else 1.0)
+    return (bool(((g - w).abs() <= atol + tol["rtol"] * w.abs()).all())
+            and _rel(got, want) <= tol["rel"])
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("folded", [False, True])
+@pytest.mark.parametrize("Dh", [16, 64])
+def test_attention_train_routes_match_plain(cuda, dtype, folded, Dh):
+    """Each training attention route's o, lse, dq, dk and dv against its
+    plain version on the card with the same dropout bits (the folded one
+    over the kernel's 64-key tiles, where it rounds e); two backward runs
+    give identical bits; the kernels run at seed + 1 fail the bounds."""
+    from vidsum_tpu_torch.ops import attention_train as at
+
+    g = torch.Generator(device="cpu").manual_seed(10)
+    B, H, N, rate, seed, scale = 2, 3, 384, 0.3, 4321, 0.125
+    q, k, v, do = (torch.randn(B, H, N, Dh, generator=g).to(cuda, dtype)
+                   for _ in range(4))
+    mask = _mask(B, N, cuda, seed=10)
+    kb = at.KEY_TILE
+    if folded:
+        fwd, bwd = at._fwd_kernel_folded, at._bwd_kernel_folded
+        run_f = lambda s: fwd(q, k, v, mask, s, rate, scale, kb)  # noqa
+        run_b = lambda s, lse, o: bwd(q, k, v, mask, s, lse, do, o,  # noqa
+                                      rate, scale, kb)
+        plain_f = at.attention_train_fwd_folded_reference
+        plain_b = at.attention_train_bwd_folded_reference
+        want_o, want_lse = plain_f(q, k, v, mask, seed, rate, scale, kb)
+        want = plain_b(q, k, v, mask, seed, want_lse, do, want_o, rate,
+                       scale, kb)
+    else:
+        fwd, bwd = at._fwd_kernel, at._bwd_kernel
+        run_f = lambda s: fwd(q, k, v, mask, s, rate, scale)  # noqa
+        run_b = lambda s, lse, o: bwd(q, k, v, mask, s, lse, do, rate,  # noqa
+                                      scale)
+        want_o, want_lse = at.attention_train_fwd_reference(
+            q, k, v, mask, seed, rate, scale)
+        want = at.attention_train_bwd_reference(q, k, v, mask, seed,
+                                                want_lse, do, rate, scale)
+    f0, b0 = fwd.launches, bwd.launches
+    o, lse = run_f(seed)
+    grads = run_b(seed, want_lse, want_o)
+    torch.cuda.synchronize()
+    assert (fwd.launches, bwd.launches) == (f0 + 1, b0 + 1)
+    assert o.dtype == dtype and all(t.dtype == dtype for t in grads)
+    _close(o, want_o, "attention", dtype)
+    torch.testing.assert_close(lse, want_lse, rtol=1e-5, atol=1e-5)
+    gtol = AT_TOL[("grad", dtype)]
+    for name, a, b in zip("qkv", grads, want):
+        assert _at_within(a, b, gtol), f"d{name}: {_rel(a, b)}"
+    again = run_b(seed, want_lse, want_o)
+    assert all(torch.equal(a, b) for a, b in zip(grads, again))
+    bad_o, _ = run_f(seed + 1)
+    assert not _within(bad_o, want_o, "attention", dtype)
+    bad = run_b(seed + 1, want_lse, want_o)
+    assert not _at_within(bad[2], want[2], gtol)
+
+
+@pytest.mark.parametrize("folded", [False, True])
+def test_flash_attention_dropout_on_card_matches_cpu(cuda, folded,
+                                                     monkeypatch):
+    """The autograd Function on the card against the same call on the CPU
+    (plain versions), f32: output and the grads of q, k and v."""
+    from vidsum_tpu_torch.ops import attention_train as at
+
+    if folded:
+        monkeypatch.setattr(at, "_single_pass_ok", lambda *a: False)
+        monkeypatch.setattr(at, "_pick_key_block", lambda n: at.KEY_TILE)
+    g = torch.Generator(device="cpu").manual_seed(11)
+    q, k, v, co = (torch.randn(2, 2, 256, 64, generator=g) for _ in range(4))
+    mask = _mask(2, 256, "cpu", seed=11)
+    results = []
+    for dev in (cuda, torch.device("cpu")):
+        leaves = [t.to(dev).requires_grad_() for t in (q, k, v)]
+        out = at.flash_attention_dropout(*leaves, mask.to(dev), 77, 0.3,
+                                         0.125)
+        out.backward(co.to(dev))
+        results.append([out.detach().cpu()]
+                       + [t.grad.cpu() for t in leaves])
+    _close(results[0][0], results[1][0], "attention", torch.float32)
+    for a, b in zip(results[0][1:], results[1][1:]):
+        assert _at_within(a, b, AT_TOL[("grad", torch.float32)])
+
+
+def test_flash_training_step_on_card_matches_cpu(cuda):
+    """Loss and every parameter grad of a flash-route training forward +
+    backward, card against CPU, with the same residual and MLP keep masks
+    and attention seeds (the bounds of the fused-block step above)."""
+    import copy
+
+    from vidsum_tpu_torch.ops import attention_train as at
+    from vidsum_tpu_torch.ops.losses import mse_with_mask_loss
+
+    cfg = ModelConfig(in_features=64, d_model=64, num_heads=4, num_layers=2)
+    model = SimNet(cfg, device="cpu")
+    card = copy.deepcopy(model).to(cuda)
+    rng = np.random.default_rng(12)
+    B, N, d = 2, 256, 64
+    x = torch.from_numpy(rng.normal(size=(B, N, 64)).astype(np.float32))
+    t = torch.from_numpy(rng.random((B, N)).astype(np.float32))
+    mask = torch.zeros((B, N), dtype=torch.bool)
+    mask[1, 200:] = True
+    masks = [{"res1": rng.random((B, N, d)) < 0.7,
+              "mlp": rng.random((B, N, 4 * d)) < 0.7,
+              "res2": rng.random((B, N, d)) < 0.7} for _ in range(2)]
+    losses, grads = [], []
+    for m, dev in ((card, cuda), (model, torch.device("cpu"))):
+        before = at._bwd_kernel.launches
+        scores, _ = m(x.to(dev), mask.to(dev), attn_impl="flash",
+                      deterministic=False, dropout_masks=masks,
+                      block_seeds=[5, 6])
+        loss = mse_with_mask_loss(scores, t.to(dev), mask.to(dev))
+        loss.backward()
+        if dev.type == "cuda":
+            assert at._bwd_kernel.launches == before + 2
+        losses.append(float(loss.detach()))
+        grads.append({k: p.grad.detach().cpu()
+                      for k, p in m.named_parameters()})
+    assert abs(losses[0] - losses[1]) <= 1e-5 * abs(losses[1])
+    tol = TRAIN_TOL[("step", torch.float32)]
+    gmax = max(float(g.abs().max()) for g in grads[1].values())
+    nmax = max(float(g.norm()) for g in grads[1].values())
+    for k, want in grads[1].items():
+        got = grads[0][k]
+        assert bool(((got - want).abs()
+                     <= tol["atol"] * gmax + tol["rtol"] * want.abs()).all()), k
+        if float(want.norm()) >= 1e-6 * nmax:   # not at rounding level
+            assert _rel(got, want) <= tol["rel"], k
+
+
+def test_plain_dropout_is_drawn_on_the_card(cuda):
+    """On CUDA inputs the residual and MLP dropout of the plain blocks is
+    drawn on the card from a generator seeded by one draw of the given CPU
+    generator: reproducible from it, and different for another seed."""
+    cfg = ModelConfig(in_features=64, d_model=64, num_heads=4, num_layers=1)
+    model = SimNet(cfg, device=cuda)
+    x = torch.randn(1, 256, 64, generator=torch.Generator().manual_seed(13))
+    x = x.to(cuda)
+    runs = [model(x, deterministic=False, attn_impl="flash",
+                  generator=torch.Generator().manual_seed(s))[0]
+            for s in (3, 3, 4)]
+    assert torch.equal(runs[0], runs[1])
+    assert not torch.equal(runs[0], runs[2])

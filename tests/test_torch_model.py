@@ -158,43 +158,55 @@ def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch):
 
 
 def _long_training_input():
-    """Past the block-train envelope (N = 20,480 at d 64, H 4): the JAX
-    package demotes to the flash-attention training kernels (TPU kernels
-    5-8)."""
+    """Past the block-train envelope (N = 20,480 at d 64, H 4), and past the
+    key-folded training route's too (head_dim 16, f32)."""
     return torch.zeros(1, 20480, 48)
 
 
 @pytest.mark.parametrize("kwargs,match", [
-    (dict(deterministic=False, attn_impl="flash"), "training slice"),
-    (dict(deterministic=False, attn_impl="fused_block", long=True),
-     "training slice"),
     (dict(attn_fn=lambda *a: None), "multi-GPU slice"),
     (dict(attn_impl="int8_block"), "int8 slice"),
 ])
 def test_later_slices_raise_not_implemented(kwargs, match):
-    """Training on the flash route, and on the fused-block route past its
-    envelope, needs TPU kernels 5-8 (the long-video training slice)."""
-    kwargs = dict(kwargs)
-    x = _long_training_input() if kwargs.pop("long", False) \
-        else torch.zeros(1, 128, 48)
+    """A caller-supplied attention (the sequence-parallel ring) and the int8
+    routes arrive with later slices."""
+    x = torch.zeros(1, 128, 48)
     model = SimNet(ModelConfig(**KW), device="cpu")
     with pytest.raises(NotImplementedError, match=match):
         model(x, generator=torch.Generator().manual_seed(0), **kwargs)
 
 
+@pytest.mark.parametrize("attn_impl", ["flash", "fused_block"])
+def test_training_past_the_folded_envelope_raises(attn_impl):
+    """The fused block demotes to the flash route past its envelope; past
+    the key-folded training route's envelope too there is no single-GPU
+    route, and both raise ``ValueError`` naming the multi-GPU slice (the
+    JAX package raises there too)."""
+    model = SimNet(ModelConfig(**KW), device="cpu")
+    with pytest.raises(ValueError, match="multi-GPU slice"):
+        model(_long_training_input(), deterministic=False,
+              attn_impl=attn_impl, generator=torch.Generator().manual_seed(0))
+
+
 def test_norm_first_raises_not_implemented():
     """Pre-LN blocks run on the dense route, and so does their training,
-    except on the flash route, which needs the flash-attention training
-    kernels of the long-video training slice."""
+    except on the flash route, where they train through
+    ``flash_attention_dropout``: at dropout 0 that gives the eval scores."""
     model = SimNet(ModelConfig(norm_first=True, **KW), device="cpu")
     x = torch.zeros(1, 128, 48)
     with torch.no_grad():
         a, _ = model(x, attn_impl="fused_block")
         b, _ = model(x, attn_impl="dense")
     torch.testing.assert_close(a, b, rtol=0, atol=0)
-    with pytest.raises(NotImplementedError, match="training slice"):
-        model(x, deterministic=False, attn_impl="flash",
-              generator=torch.Generator().manual_seed(0))
+    x = torch.randn(1, 128, 48, generator=torch.Generator().manual_seed(2))
+    plain = SimNet(ModelConfig(norm_first=True, **{**KW, "dropout": 0.0}),
+                   device="cpu")
+    plain.load_state_dict(model.state_dict())
+    with torch.no_grad():
+        want, _ = plain(x, attn_impl="dense")
+        got, _ = plain(x, deterministic=False, attn_impl="flash",
+                       generator=torch.Generator().manual_seed(0))
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
 
 
 def test_training_needs_a_generator_and_draws_seeded_dropout():
@@ -202,7 +214,7 @@ def test_training_needs_a_generator_and_draws_seeded_dropout():
     x = torch.randn(1, 128, 48, generator=torch.Generator().manual_seed(1))
     with pytest.raises(ValueError, match="generator is required"):
         model(x, deterministic=False)
-    for impl in ("dense", "fused_block"):
+    for impl in ("dense", "fused_block", "flash"):
         runs = [model(x, deterministic=False, attn_impl=impl,
                       generator=torch.Generator().manual_seed(s))[0]
                 for s in (3, 3, 4)]

@@ -1,8 +1,10 @@
 """The port's finetune step, loss, collate, metrics and epoch loop against
 the JAX package's, on the CPU: one step on the fused-block route against the
 Pallas kernels in interpret mode (dropout 0, and 0.3 with the JAX per-layer
-seeds), the dense route with injected dropout masks, Adam against the optax
-chain, and two epochs of train + val."""
+seeds), the dense route with injected dropout masks, the flash training
+route (injected residual and MLP masks with the JAX attention seeds, a step,
+and the fused block's demotion to it), Adam against the optax chain, and two
+epochs of train + val."""
 
 import importlib
 
@@ -13,6 +15,8 @@ import optax
 import pytest
 import torch
 
+import vidsum_tpu.ops.block_train as jbt
+import vidsum_tpu_torch.models.simnet as simnet_mod
 from vidsum_tpu.config import Config as JaxConfig
 from vidsum_tpu.config import ModelConfig as JaxModelConfig
 from vidsum_tpu.config import TrainConfig as JaxTrainConfig
@@ -96,6 +100,10 @@ def test_collate_matches_jax():
     for got, want in zip(collate.pad_batch(feats, tgts),
                          jcollate.pad_batch(feats, tgts)):
         np.testing.assert_array_equal(got, want)
+    # a long video lands in the bucket the flash training route expects
+    x, _, mask = collate.pad_batch([np.zeros((8100, 1), np.float32)],
+                                   [np.zeros(8100, np.float32)])
+    assert x.shape[1] == 8192 and int((~mask).sum()) == 8100
     for shuffle in (False, True):
         got = list(collate.make_batches(11, 4, shuffle=shuffle,
                                         rng=np.random.default_rng((1, 2, 3))))
@@ -178,6 +186,103 @@ def test_dense_route_with_injected_masks_matches_jax():
     _assert_trees_close(_grads_jax_layout(model),
                         jax.tree_util.tree_map(np.asarray, jgrads),
                         rtol=1e-3, atol=1e-6)
+
+
+def _jax_flash_seeds(key, n_layers):
+    """The per-layer attention seeds ``simnet_apply`` draws on the pallas
+    training route: ``r_attn`` of each layer's five-way split
+    (``simnet.py:360``), then ``randint`` (``simnet.py:154-155``)."""
+    seeds = []
+    for _ in range(n_layers):
+        key, r_attn, _, _, _ = jax.random.split(key, 5)
+        seeds.append(int(jax.random.randint(r_attn, (1, 1), 0, 2**31 - 1,
+                                            jnp.int32)[0, 0]))
+    return seeds
+
+
+@pytest.mark.parametrize("norm_first", [False, True])
+def test_flash_route_with_injected_masks_matches_jax(norm_first):
+    """Dropout 0.3 on the port's ``"flash"`` route against JAX's
+    ``"pallas"`` route (the Pallas training kernels in interpret mode): the
+    same residual and MLP keep masks in both, the JAX per-layer attention
+    seeds handed to the port as ``block_seeds``; loss and every gradient.
+    The ``"attn"`` masks are not read on this route in either package."""
+    jcfg, params, cfg, model = _pair(0.3, norm_first=norm_first)
+    B, N, d = 2, 256, KW["d_model"]
+    x, t, mask = _batch(B, N, 13)
+    rng = np.random.default_rng(14)
+    masks = [{"attn": rng.random((B, KW["num_heads"], N, N)) < 0.7,
+              "res1": rng.random((B, N, d)) < 0.7,
+              "mlp": rng.random((B, N, 4 * d)) < 0.7,
+              "res2": rng.random((B, N, d)) < 0.7}
+             for _ in range(KW["num_layers"])]
+    key = jax.random.PRNGKey(21)
+
+    def jloss_fn(p):
+        s, _ = simnet_apply(p, jcfg, jnp.asarray(x), jnp.asarray(mask),
+                            rng=key, deterministic=False, attn_impl="pallas",
+                            dropout_masks=[{k: jnp.asarray(v)
+                                            for k, v in m.items()}
+                                           for m in masks])
+        return jax_mse(s, jnp.asarray(t), jnp.asarray(mask))
+
+    # jitted: run eagerly, JAX dispatches further ops while the interpret
+    # mode's callbacks dispatch their own, and under load the two can block
+    # each other
+    jloss, jgrads = jax.jit(jax.value_and_grad(jloss_fn))(
+        jax.tree_util.tree_map(jnp.asarray, params))
+    scores, _ = model(torch.from_numpy(x), torch.from_numpy(mask),
+                      attn_impl="flash", deterministic=False,
+                      dropout_masks=masks,
+                      block_seeds=_jax_flash_seeds(key, KW["num_layers"]))
+    loss = mse_with_mask_loss(scores, torch.from_numpy(t),
+                              torch.from_numpy(mask))
+    loss.backward()
+    np.testing.assert_allclose(loss.item(), float(jloss), rtol=1e-5)
+    _assert_trees_close(_grads_jax_layout(model),
+                        jax.tree_util.tree_map(np.asarray, jgrads),
+                        rtol=1e-3, atol=1e-6)
+
+
+@pytest.mark.parametrize("route", ["flash", "demoted"])
+def test_flash_route_step_matches_jax(route, monkeypatch, request):
+    """One step at dropout 0 on ``"flash"`` against JAX's ``"pallas"``, and
+    on ``"fused_block"`` against ``"pallas_block"`` with
+    ``fused_block_train_supported`` patched to False in both packages (the
+    demotion past the block envelope): loss and parameters after Adam
+    (bounds as in the fused-block step). A spy shows that every layer's
+    attention went through the port's ``flash_attention_dropout``."""
+    jcfg, params, cfg, model = _pair(0.0)
+    x, t, mask = _batch(2, 128, 15)
+    jimpl, impl = (("pallas", "flash") if route == "flash"
+                   else ("pallas_block", "fused_block"))
+    if route == "demoted":
+        # read at trace time inside the jitted JAX step
+        jax.clear_caches()
+        request.addfinalizer(jax.clear_caches)
+        monkeypatch.setattr(jbt, "fused_block_train_supported",
+                            lambda *a: False)
+        monkeypatch.setattr(simnet_mod, "fused_block_train_supported",
+                            lambda *a: False)
+    calls = []
+    spied = simnet_mod.flash_attention_dropout
+    monkeypatch.setattr(simnet_mod, "flash_attention_dropout",
+                        lambda *a: calls.append(1) or spied(*a))
+    opt = jsteps.make_optimizer(LR, WD)
+    jstep = jsteps.make_finetune_step(jcfg, opt, attn_impl=jimpl)
+    new_params, _, jloss = jstep(
+        jax.tree_util.tree_map(jnp.asarray, params),
+        opt.init(jax.tree_util.tree_map(jnp.asarray, params)),
+        jnp.asarray(x), jnp.asarray(t), jnp.asarray(mask),
+        jax.random.PRNGKey(5))
+    step = make_finetune_step(cfg, impl, device="cpu")
+    loss = step(model, make_optimizer(model, LR, WD), x, t, mask,
+                torch.Generator().manual_seed(0))
+    assert len(calls) == cfg.num_layers
+    np.testing.assert_allclose(float(loss), float(jloss), rtol=1e-5)
+    _assert_trees_close(params_to_jax(model.state_dict()),
+                        jax.tree_util.tree_map(np.asarray, new_params),
+                        rtol=1e-5, atol=0.1 * LR)
 
 
 def test_norm_first_and_return_attn_match_jax():

@@ -26,7 +26,7 @@ class ModelConfig:
     max_len: int = 2000              # PE table length floor (reference quirk)
     # The reference scales attention by d_model**-0.5, not head_dim**-0.5.
     scale_by_d_model: bool = True
-    norm_first: bool = False         # pre-LN blocks (dense route only)
+    norm_first: bool = False         # pre-LN blocks (dense and flash routes)
     compute_dtype: str = "float32"   # or "bfloat16"
 
     @property

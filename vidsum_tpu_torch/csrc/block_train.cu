@@ -22,12 +22,13 @@
 //   bt_ln_bwd_drop     LayerNorm backward (_ln_bwd) and the dropped copy
 //   bt_colsum          deterministic column sums (bias and LN grads): row
 //                      chunks in a fixed partition, then chunks in order
-//   bt_attn_fwd        masked attention with hash dropout on P (site = head),
-//                      two passes over 64-key tiles: row max/sum, then P.V;
-//                      optionally keeps the row max and sum
-//   bt_attn_dq /       the attention backward: D = rowsum(dO o O) and dQ per
-//   bt_attn_dkdv       query tile, dK/dV per key tile looping over the query
-//                      tiles; P is recomputed from the kept row max and sum
+//   attention          attention_core.cuh's family (shared with
+//                      attention_train.cu) on the fused QKV buffer, with the
+//                      block's hash (site = head): the normalise-first
+//                      forward, optionally keeping lse, and the backward
+//                      (D = rowsum(dO o O) and dQ per query tile, dK/dV per
+//                      key tile looping over the query tiles; P recomputed
+//                      from lse)
 // No kernel uses atomics, so two runs of the backward give identical bits.
 //
 // Bound on the card: at (B, N) = (32, 512), d = 256, H = 4 the forward's
@@ -37,35 +38,24 @@
 // card's 67 TFLOP/s f32 peak outside the tensor cores. Design against it: the
 // GEMM is register-blocked (8 x 8 per thread, 128 x 128 CTA tiles, 16-deep
 // k-tiles in shared memory) and splits K for the dW products so that the
-// d x d outputs still fill the card; the attention kernels keep each N x N
+// d x d outputs still fill the card; the attention kernels keep each 64 x 64
 // score tile on chip (nothing of size N x N reaches device memory) with 4 x 4
 // register blocks over transposed, padded shared-memory tiles. The recompute
 // costs one forward more than the bound counts (the TPU kernel's memory
 // footprint); no load is overlapped with compute yet.
-#include "common.cuh"
+#include "attention_core.cuh"
 
 namespace {
 
 constexpr int kThreads = 256;
 
 // ----------------------------------------------------------- dropout bits
-// block_train.py::_hash_keep, bit for bit: uint32 arithmetic that wraps.
+// block_train.py::_hash_keep, bit for bit (attention_core.cuh's block family)
 __device__ __forceinline__ unsigned hash_base(unsigned seed, int site, int b) {
-  return seed * 0x9E3779B1u + (unsigned)(site * 131071 + 17) * 0x85EBCA77u +
-         (unsigned)(b + 1) * 0x27220A95u;
+  return vs::attn::hash_base(vs::attn::kHashBlock, seed, b, site);
 }
 
-__device__ __forceinline__ bool keep_bit(unsigned base, int row, int col,
-                                         unsigned thr) {
-  unsigned x = base ^ ((unsigned)row * 0xC2B2AE3Du) ^
-               ((unsigned)col * 0x27D4EB2Fu);
-  x ^= x >> 16;
-  x *= 0x85EBCA6Bu;
-  x ^= x >> 13;
-  x *= 0xC2B2AE35u;
-  x ^= x >> 16;
-  return x >= thr;
-}
+using vs::attn::keep_bit;
 
 // The dropout of one site over (B*N, cols) rows: row m is element m / rows,
 // sequence row m % rows.
@@ -329,493 +319,6 @@ __global__ void bt_colsum_final_kernel(const float* __restrict__ part_sum,
   if (out_prod != nullptr) out_prod[c] = b;
 }
 
-// -------------------------------------------------------------- attention
-// qkv is the (B*N, 3d) output of the QKV product: head h's q at column
-// h*DH, k at d + h*DH, v at 2d + h*DH. The attention output o and its
-// cotangent dO are (B*N, d) with head h at column h*DH. Row statistics
-// (max, sum, D) are (B, H, N). A CTA of 256 threads takes a 64 x 64 tile of
-// scores; thread (rg, cg) = (tid / 16, tid % 16) holds rows 4 rg + i and
-// columns cg + 16 j. Tiles of Q/K/V/dO are stored transposed ([DH][kPad]) so
-// every read in the inner loops is a broadcast or conflict-free.
-constexpr int kT = 64;
-constexpr int kPad = 65;
-
-// stage rows r0.. of a (rows, ld) matrix's columns col..col+DH into a
-// transposed tile dst[c * kPad + r]
-template <int DH>
-__device__ __forceinline__ void stage_t(float* dst, const float* src,
-                                        long long ld, int r0, int col) {
-  for (int e = threadIdx.x; e < kT * DH; e += kThreads) {
-    const int r = e / DH, c = e % DH;
-    dst[c * kPad + r] = src[(long long)(r0 + r) * ld + col + c];
-  }
-}
-
-template <int DH>
-constexpr int fwd_smem_floats() {
-  return 2 * DH * kPad + kT * DH + kT * kPad + kT;
-}
-
-template <int DH>
-__global__ void __launch_bounds__(kThreads)
-bt_attn_fwd_kernel(const float* __restrict__ qkv,
-                   const unsigned char* __restrict__ mask,
-                   float* __restrict__ o, float* __restrict__ m_out,
-                   float* __restrict__ l_out, int N, int H, float scale,
-                   unsigned seed, unsigned thr, float kscale, int full) {
-  constexpr int DPT = DH / 16;
-  extern __shared__ float smem[];
-  float* Qt = smem;                // [DH][kPad]
-  float* Kt = Qt + DH * kPad;      // [DH][kPad]
-  float* Vs = Kt + DH * kPad;      // [kT][DH]
-  float* Pt = Vs + kT * DH;        // [key][query], kPad
-  float* Km = Pt + kT * kPad;      // key mask as 0/1
-
-  const int tid = threadIdx.x, rg = tid >> 4, cg = tid & 15;
-  const int q0 = blockIdx.x * kT, h = blockIdx.y, b = blockIdx.z;
-  const int d = H * DH;
-  const long long ld = 3LL * d;
-  const float* rows = qkv + (long long)b * N * ld;
-  const unsigned char* mrow = mask + (long long)b * N;
-  const unsigned base = hash_base(seed, h, b);
-
-  stage_t<DH>(Qt, rows, ld, q0, h * DH);
-
-  auto stage_keys = [&](int k0, bool with_v) {
-    __syncthreads();  // the previous tile's readers are done
-    stage_t<DH>(Kt, rows, ld, k0, d + h * DH);
-    if (with_v)
-      for (int e = tid; e < kT * DH; e += kThreads) {
-        const int r = e / DH, c = e % DH;
-        Vs[r * DH + c] = rows[(long long)(k0 + r) * ld + 2 * d + h * DH + c];
-      }
-    if (tid < kT) Km[tid] = mrow[k0 + tid] != 0 ? 1.f : 0.f;
-    __syncthreads();
-  };
-  auto scores = [&](float (&s)[4][4]) {
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
-#pragma unroll 8
-    for (int c = 0; c < DH; ++c) {
-      float qa[4], kb[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) qa[i] = Qt[c * kPad + rg * 4 + i];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) kb[j] = Kt[c * kPad + cg + 16 * j];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) s[i][j] = fmaf(qa[i], kb[j], s[i][j]);
-    }
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-        s[i][j] = Km[cg + 16 * j] != 0.f ? -INFINITY : s[i][j] * scale;
-  };
-
-  // pass 1: the row max and the sum of exp(s - max), online over key tiles
-  float m[4], l[4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    m[i] = -INFINITY;
-    l[i] = 0.f;
-  }
-  for (int k0 = 0; k0 < N; k0 += kT) {
-    stage_keys(k0, false);
-    float s[4][4];
-    scores(s);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      float mx = -INFINITY;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) mx = fmaxf(mx, s[i][j]);
-      const float m_new = fmaxf(m[i], vs::group_max<16>(mx));
-      const bool none = m_new == -INFINITY;  // no unpadded key seen yet
-      float rs = 0.f;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) rs += none ? 0.f : expf(s[i][j] - m_new);
-      rs = vs::group_sum<16>(rs);
-      const float corr = m[i] == -INFINITY ? 0.f : expf(m[i] - m_new);
-      l[i] = l[i] * corr + rs;
-      m[i] = m_new;
-    }
-  }
-  float linv[4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) linv[i] = 1.f / l[i];
-
-  // pass 2: P = exp(s - max) / sum with the head's dropout, then P.V. The
-  // forward kernel's order (full == 0) folds the keep scale into 1/sum
-  // (block_train.py:154-156); the backward's recompute drops the
-  // normalised p (block_train.py:148-149)
-  float acc[4][DPT];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int t = 0; t < DPT; ++t) acc[i][t] = 0.f;
-  for (int k0 = 0; k0 < N; k0 += kT) {
-    stage_keys(k0, true);
-    float s[4][4];
-    scores(s);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int q = q0 + rg * 4 + i;
-      const float factor = linv[i] * kscale;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int key = k0 + cg + 16 * j;
-        const float e = expf(s[i][j] - m[i]);
-        const bool keep = keep_bit(base, q, key, thr);
-        const float pd = !keep ? 0.f : (full ? (e * linv[i]) * kscale
-                                             : e * factor);
-        Pt[(cg + 16 * j) * kPad + rg * 4 + i] = pd;
-      }
-    }
-    __syncthreads();
-#pragma unroll 8
-    for (int kk = 0; kk < kT; ++kk) {
-      float pa[4], vb[DPT];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) pa[i] = Pt[kk * kPad + rg * 4 + i];
-#pragma unroll
-      for (int t = 0; t < DPT; ++t) vb[t] = Vs[kk * DH + cg + 16 * t];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int t = 0; t < DPT; ++t)
-          acc[i][t] = fmaf(pa[i], vb[t], acc[i][t]);
-    }
-  }
-
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int q = q0 + rg * 4 + i;
-    const long long orow = ((long long)b * N + q) * d + h * DH;
-#pragma unroll
-    for (int t = 0; t < DPT; ++t) o[orow + cg + 16 * t] = acc[i][t];
-    if (cg == 0 && m_out != nullptr) {
-      const long long si = ((long long)b * H + h) * N + q;
-      m_out[si] = m[i];
-      l_out[si] = l[i];
-    }
-  }
-}
-
-// dQ for one query tile, looping over the key tiles; first D = rowsum(dO o O)
-// for its rows, which bt_attn_dkdv reads after it.
-template <int DH>
-constexpr int dq_smem_floats() {
-  return 4 * DH * kPad + kT * kPad + kT;
-}
-
-template <int DH>
-__global__ void __launch_bounds__(kThreads)
-bt_attn_dq_kernel(const float* __restrict__ qkv, const float* __restrict__ o,
-                  const float* __restrict__ dO,
-                  const float* __restrict__ mstat,
-                  const float* __restrict__ lstat,
-                  const unsigned char* __restrict__ mask,
-                  float* __restrict__ Dstat, float* __restrict__ dqkv, int N,
-                  int H, float scale, unsigned seed, unsigned thr,
-                  float kscale) {
-  constexpr int DPT = DH / 16;
-  extern __shared__ float smem[];
-  float* Qt = smem;
-  float* dOt = Qt + DH * kPad;
-  float* Kt = dOt + DH * kPad;
-  float* Vt = Kt + DH * kPad;
-  float* dSs = Vt + DH * kPad;  // [query][key], kPad
-  float* Km = dSs + kT * kPad;
-
-  const int tid = threadIdx.x, rg = tid >> 4, cg = tid & 15;
-  const int q0 = blockIdx.x * kT, h = blockIdx.y, b = blockIdx.z;
-  const int d = H * DH;
-  const long long ld = 3LL * d;
-  const float* rows = qkv + (long long)b * N * ld;
-  const float* drows = dO + (long long)b * N * d;
-  const float* orows = o + (long long)b * N * d;
-  const unsigned char* mrow = mask + (long long)b * N;
-  const unsigned base = hash_base(seed, h, b);
-
-  stage_t<DH>(Qt, rows, ld, q0, h * DH);
-  stage_t<DH>(dOt, drows, d, q0, h * DH);
-
-  float Dr[4], mr[4], linv[4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int q = q0 + rg * 4 + i;
-    float part = 0.f;
-#pragma unroll
-    for (int t = 0; t < DPT; ++t) {
-      const long long idx = (long long)q * d + h * DH + cg + 16 * t;
-      part += drows[idx] * orows[idx];
-    }
-    Dr[i] = vs::group_sum<16>(part);
-    const long long si = ((long long)b * H + h) * N + q;
-    mr[i] = mstat[si];
-    linv[i] = 1.f / lstat[si];
-    if (cg == 0) Dstat[si] = Dr[i];
-  }
-
-  float dq[4][DPT];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int t = 0; t < DPT; ++t) dq[i][t] = 0.f;
-
-  for (int k0 = 0; k0 < N; k0 += kT) {
-    __syncthreads();
-    stage_t<DH>(Kt, rows, ld, k0, d + h * DH);
-    stage_t<DH>(Vt, rows, ld, k0, 2 * d + h * DH);
-    if (tid < kT) Km[tid] = mrow[k0 + tid] != 0 ? 1.f : 0.f;
-    __syncthreads();
-    float s[4][4], dp[4][4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = dp[i][j] = 0.f;
-#pragma unroll 4
-    for (int c = 0; c < DH; ++c) {
-      float qa[4], ga[4], kb[4], vb[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        qa[i] = Qt[c * kPad + rg * 4 + i];
-        ga[i] = dOt[c * kPad + rg * 4 + i];
-      }
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        kb[j] = Kt[c * kPad + cg + 16 * j];
-        vb[j] = Vt[c * kPad + cg + 16 * j];
-      }
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          s[i][j] = fmaf(qa[i], kb[j], s[i][j]);
-          dp[i][j] = fmaf(ga[i], vb[j], dp[i][j]);
-        }
-    }
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int q = q0 + rg * 4 + i;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int kj = cg + 16 * j;
-        const float sv = Km[kj] != 0.f ? -INFINITY : s[i][j] * scale;
-        const float p = expf(sv - mr[i]) * linv[i];
-        const float g =
-            keep_bit(base, q, k0 + kj, thr) ? dp[i][j] * kscale : 0.f;
-        dSs[(rg * 4 + i) * kPad + kj] = p * (g - Dr[i]);
-      }
-    }
-    __syncthreads();
-#pragma unroll 8
-    for (int kk = 0; kk < kT; ++kk) {
-      float sa[4], kb[DPT];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) sa[i] = dSs[(rg * 4 + i) * kPad + kk];
-#pragma unroll
-      for (int t = 0; t < DPT; ++t) kb[t] = Kt[(cg + 16 * t) * kPad + kk];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int t = 0; t < DPT; ++t) dq[i][t] = fmaf(sa[i], kb[t], dq[i][t]);
-    }
-  }
-
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const long long r = ((long long)b * N + q0 + rg * 4 + i) * ld + h * DH;
-#pragma unroll
-    for (int t = 0; t < DPT; ++t) dqkv[r + cg + 16 * t] = dq[i][t] * scale;
-  }
-}
-
-// dK and dV for one key tile, looping over the query tiles: thread (rg, cg)
-// holds keys 4 rg + i and queries cg + 16 j of each transposed score tile.
-template <int DH>
-constexpr int dkdv_smem_floats() {
-  return 4 * DH * kPad + 2 * kT * kPad + 3 * kT;
-}
-
-template <int DH>
-__global__ void __launch_bounds__(kThreads)
-bt_attn_dkdv_kernel(const float* __restrict__ qkv,
-                    const float* __restrict__ dO,
-                    const float* __restrict__ mstat,
-                    const float* __restrict__ lstat,
-                    const float* __restrict__ Dstat,
-                    const unsigned char* __restrict__ mask,
-                    float* __restrict__ dqkv, int N, int H, float scale,
-                    unsigned seed, unsigned thr, float kscale) {
-  constexpr int DPT = DH / 16;
-  extern __shared__ float smem[];
-  float* Kt = smem;
-  float* Vt = Kt + DH * kPad;
-  float* Qt = Vt + DH * kPad;
-  float* dOt = Qt + DH * kPad;
-  float* PdT = dOt + DH * kPad;  // [key][query], kPad
-  float* dST = PdT + kT * kPad;  // [key][query], kPad
-  float* Mq = dST + kT * kPad;
-  float* Lq = Mq + kT;
-  float* Dq = Lq + kT;
-
-  const int tid = threadIdx.x, rg = tid >> 4, cg = tid & 15;
-  const int k0 = blockIdx.x * kT, h = blockIdx.y, b = blockIdx.z;
-  const int d = H * DH;
-  const long long ld = 3LL * d;
-  const float* rows = qkv + (long long)b * N * ld;
-  const float* drows = dO + (long long)b * N * d;
-  const unsigned base = hash_base(seed, h, b);
-  const long long s0 = ((long long)b * H + h) * N;
-
-  stage_t<DH>(Kt, rows, ld, k0, d + h * DH);
-  stage_t<DH>(Vt, rows, ld, k0, 2 * d + h * DH);
-  bool km[4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-    km[i] = mask[(long long)b * N + k0 + rg * 4 + i] != 0;
-
-  float dk[4][DPT], dv[4][DPT];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int t = 0; t < DPT; ++t) dk[i][t] = dv[i][t] = 0.f;
-
-  for (int q0 = 0; q0 < N; q0 += kT) {
-    __syncthreads();
-    stage_t<DH>(Qt, rows, ld, q0, h * DH);
-    stage_t<DH>(dOt, drows, d, q0, h * DH);
-    if (tid < kT) {
-      Mq[tid] = mstat[s0 + q0 + tid];
-      Lq[tid] = 1.f / lstat[s0 + q0 + tid];
-      Dq[tid] = Dstat[s0 + q0 + tid];
-    }
-    __syncthreads();
-    float s[4][4], dp[4][4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = dp[i][j] = 0.f;
-#pragma unroll 4
-    for (int c = 0; c < DH; ++c) {
-      float ka[4], va[4], qb[4], gb[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        ka[i] = Kt[c * kPad + rg * 4 + i];
-        va[i] = Vt[c * kPad + rg * 4 + i];
-      }
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        qb[j] = Qt[c * kPad + cg + 16 * j];
-        gb[j] = dOt[c * kPad + cg + 16 * j];
-      }
-      // q . k with the same operand order as the other two kernels
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          s[i][j] = fmaf(qb[j], ka[i], s[i][j]);
-          dp[i][j] = fmaf(gb[j], va[i], dp[i][j]);
-        }
-    }
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int key = k0 + rg * 4 + i;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int qj = cg + 16 * j;
-        const float sv = km[i] ? -INFINITY : s[i][j] * scale;
-        const float p = expf(sv - Mq[qj]) * Lq[qj];
-        const bool keep = keep_bit(base, q0 + qj, key, thr);
-        const float g = keep ? dp[i][j] * kscale : 0.f;
-        PdT[(rg * 4 + i) * kPad + qj] = keep ? p * kscale : 0.f;
-        dST[(rg * 4 + i) * kPad + qj] = p * (g - Dq[qj]);
-      }
-    }
-    __syncthreads();
-#pragma unroll 4
-    for (int qq = 0; qq < kT; ++qq) {
-      float pa[4], sa[4], gb[DPT], qb[DPT];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        pa[i] = PdT[(rg * 4 + i) * kPad + qq];
-        sa[i] = dST[(rg * 4 + i) * kPad + qq];
-      }
-#pragma unroll
-      for (int t = 0; t < DPT; ++t) {
-        gb[t] = dOt[(cg + 16 * t) * kPad + qq];
-        qb[t] = Qt[(cg + 16 * t) * kPad + qq];
-      }
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int t = 0; t < DPT; ++t) {
-          dv[i][t] = fmaf(pa[i], gb[t], dv[i][t]);
-          dk[i][t] = fmaf(sa[i], qb[t], dk[i][t]);
-        }
-    }
-  }
-
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const long long r = ((long long)b * N + k0 + rg * 4 + i) * ld + h * DH;
-#pragma unroll
-    for (int t = 0; t < DPT; ++t) {
-      dqkv[r + d + cg + 16 * t] = dk[i][t] * scale;
-      dqkv[r + 2 * d + cg + 16 * t] = dv[i][t];
-    }
-  }
-}
-
-template <typename Kernel>
-cudaError_t allow_smem(Kernel k, int bytes) {
-  return cudaFuncSetAttribute(k, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              bytes);
-}
-
-template <int DH>
-cudaError_t launch_attn_fwd(const float* qkv, const unsigned char* mask,
-                            float* o, float* m, float* l, int B, int H, int N,
-                            float scale, unsigned seed, unsigned thr,
-                            float kscale, int full, cudaStream_t s) {
-  const int bytes = fwd_smem_floats<DH>() * (int)sizeof(float);
-  cudaError_t err = allow_smem(bt_attn_fwd_kernel<DH>, bytes);
-  if (err != cudaSuccess) return err;
-  bt_attn_fwd_kernel<DH><<<dim3(N / kT, H, B), kThreads, bytes, s>>>(
-      qkv, mask, o, m, l, N, H, scale, seed, thr, kscale, full);
-  return cudaGetLastError();
-}
-
-template <int DH>
-cudaError_t launch_attn_bwd(const float* qkv, const float* o,
-                            const float* dO, const float* m, const float* l,
-                            const unsigned char* mask, float* D, float* dqkv,
-                            int B, int H, int N, float scale, unsigned seed,
-                            unsigned thr, float kscale, cudaStream_t s) {
-  const int dq_bytes = dq_smem_floats<DH>() * (int)sizeof(float);
-  const int kv_bytes = dkdv_smem_floats<DH>() * (int)sizeof(float);
-  cudaError_t err = allow_smem(bt_attn_dq_kernel<DH>, dq_bytes);
-  if (err == cudaSuccess) err = allow_smem(bt_attn_dkdv_kernel<DH>, kv_bytes);
-  if (err != cudaSuccess) return err;
-  const dim3 grid(N / kT, H, B);
-  bt_attn_dq_kernel<DH><<<grid, kThreads, dq_bytes, s>>>(
-      qkv, o, dO, m, l, mask, D, dqkv, N, H, scale, seed, thr, kscale);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  bt_attn_dkdv_kernel<DH><<<grid, kThreads, kv_bytes, s>>>(
-      qkv, dO, m, l, D, mask, dqkv, N, H, scale, seed, thr, kscale);
-  return cudaGetLastError();
-}
-
-bool attn_shape_ok(int B, int H, int N, int Dh) {
-  return B > 0 && H > 0 && N > 0 && N % kT == 0 && B <= 65535 &&
-         H <= 65535 && (Dh == 16 || Dh == 64);
-}
-
 }  // namespace
 
 extern "C" int vs_bt_gemm(const float* A, const float* B, const float* bias,
@@ -898,35 +401,70 @@ extern "C" int vs_bt_colsum(const float* A, const float* B, float* partial,
   return (int)cudaGetLastError();
 }
 
-extern "C" int vs_bt_attention_fwd(const float* qkv,
-                                   const unsigned char* mask, float* o,
-                                   float* m, float* l, int B, int H, int N,
-                                   int Dh, float scale, unsigned seed,
-                                   unsigned thr, float kscale, int full,
-                                   void* stream) {
-  if (!attn_shape_ok(B, H, N, Dh) || ((m == nullptr) != (l == nullptr)))
-    return (int)cudaErrorInvalidValue;
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const cudaError_t err =
-      Dh == 16 ? launch_attn_fwd<16>(qkv, mask, o, m, l, B, H, N, scale, seed,
-                                     thr, kscale, full, s)
-               : launch_attn_fwd<64>(qkv, mask, o, m, l, B, H, N, scale, seed,
-                                     thr, kscale, full, s);
-  return (int)err;
+// qkv is the (B*N, 3d) output of the QKV product: head h's q at column
+// h*Dh, k at d + h*Dh, v at 2d + h*Dh; o and dO are (B*N, d) with head h at
+// column h*Dh; lse and D are (B, H, N).
+namespace {
+
+vs::attn::Args qkv_args(const float* qkv, int H, int N, int Dh, float scale,
+                        unsigned seed, unsigned thr, float kscale) {
+  const int d = H * Dh;
+  vs::attn::Args a{};
+  a.q = qkv;
+  a.k = qkv + d;
+  a.v = qkv + 2 * d;
+  a.isb = (long long)N * 3 * d;
+  a.ish = Dh;
+  a.isn = 3 * d;
+  a.osb = (long long)N * d;
+  a.osh = Dh;
+  a.osn = d;
+  a.N = N;
+  a.H = H;
+  a.scale = scale;
+  a.seed = seed;
+  a.thr = thr;
+  a.kscale = kscale;
+  a.hash = vs::attn::kHashBlock;
+  return a;
 }
 
+}  // namespace
+
+// lse may be nullptr (the forward route keeps nothing)
+extern "C" int vs_bt_attention_fwd(const float* qkv,
+                                   const unsigned char* mask, float* o,
+                                   float* lse, int B, int H, int N, int Dh,
+                                   float scale, unsigned seed, unsigned thr,
+                                   float kscale, void* stream) {
+  if (!vs::attn::shape_ok(B, H, N, Dh)) return (int)cudaErrorInvalidValue;
+  vs::attn::Args a = qkv_args(qkv, H, N, Dh, scale, seed, thr, kscale);
+  a.mask = mask;
+  a.out = o;
+  a.lse = lse;
+  return (int)vs::attn::launch_fwd_dh<float>(
+      a, B, Dh, static_cast<cudaStream_t>(stream));
+}
+
+// D is (B, H, N) scratch; dqkv is (B*N, 3d) like qkv
 extern "C" int vs_bt_attention_bwd(const float* qkv, const float* o,
-                                   const float* dO, const float* m,
-                                   const float* l, const unsigned char* mask,
-                                   float* D, float* dqkv, int B, int H, int N,
-                                   int Dh, float scale, unsigned seed,
-                                   unsigned thr, float kscale, void* stream) {
-  if (!attn_shape_ok(B, H, N, Dh)) return (int)cudaErrorInvalidValue;
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const cudaError_t err =
-      Dh == 16 ? launch_attn_bwd<16>(qkv, o, dO, m, l, mask, D, dqkv, B, H, N,
-                                     scale, seed, thr, kscale, s)
-               : launch_attn_bwd<64>(qkv, o, dO, m, l, mask, D, dqkv, B, H, N,
-                                     scale, seed, thr, kscale, s);
-  return (int)err;
+                                   const float* dO, const float* lse,
+                                   const unsigned char* mask, float* D,
+                                   float* dqkv, int B, int H, int N, int Dh,
+                                   float scale, unsigned seed, unsigned thr,
+                                   float kscale, void* stream) {
+  if (!vs::attn::shape_ok(B, H, N, Dh)) return (int)cudaErrorInvalidValue;
+  const int d = H * Dh;
+  vs::attn::Args a = qkv_args(qkv, H, N, Dh, scale, seed, thr, kscale);
+  a.o = o;
+  a.dO = dO;
+  a.mask = mask;
+  a.lse = const_cast<float*>(lse);  // read only by the backward
+  a.D = D;
+  a.dq = dqkv;
+  a.dk = dqkv + d;
+  a.dv = dqkv + 2 * d;
+  a.d_from_o = 1;
+  return (int)vs::attn::launch_bwd_dh<float>(
+      a, B, Dh, static_cast<cudaStream_t>(stream));
 }

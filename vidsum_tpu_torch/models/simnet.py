@@ -32,14 +32,20 @@ the batch it was served in (cuBLAS picks its algorithm by shape).
 
 Training (``deterministic=False``) follows the JAX package's routes: on
 ``"fused_block"`` every block runs ``ops/block_train.fused_block_train``
-(TPU kernels 9-12) with one dropout seed per layer; a shape past
-``fused_block_train_supported`` and the ``"flash"`` route need the
-flash-attention training kernels (TPU kernels 5-8), which arrive with the
-long-video training slice; ``"dense"``, ``return_attn``, ``norm_first``
-and injected ``dropout_masks`` run plain PyTorch with dropout on the
-attention weights, after the MLP's ReLU and on both residual branches. Embed,
-PE and head are plain autograd in training (the JAX package computes them
-outside Pallas too).
+(TPU kernels 9-12) with one dropout seed per layer. Past
+``fused_block_train_supported`` (N > 7,936 at d 256) it demotes to
+``"flash"``, where each block runs plain projections, LayerNorms and MLP
+(with autograd) around ``ops/attention_train.flash_attention_dropout``
+(TPU kernels 5-8: dropout on the attention weights inside the kernels, one
+seed per layer), post-LN or ``norm_first``. ``"dense"`` and ``return_attn``
+run plain PyTorch with dropout on the attention weights. Dropout after the
+MLP's ReLU and on both residual branches of those routes is drawn from the
+generator: for CUDA inputs on the card, from a card generator seeded by one
+draw of it. Injected ``dropout_masks`` replace those draws (on ``"flash"``
+the attention keeps its in-kernel dropout and the ``"attn"`` masks are
+ignored, as in the JAX package; ``"fused_block"`` with masks runs the dense
+route). Embed, PE and head are plain autograd in training (the JAX package
+computes them outside Pallas too).
 """
 
 from __future__ import annotations
@@ -54,6 +60,7 @@ from torch import nn
 from vidsum_tpu_torch.config import ModelConfig
 from vidsum_tpu_torch.device import dtype_of, resolve_device
 from vidsum_tpu_torch.ops.attention import attention_reference, flash_attention
+from vidsum_tpu_torch.ops.attention_train import flash_attention_dropout
 from vidsum_tpu_torch.ops.block_kernel import (
     fused_block_supported, fused_encoder_block, gemm_bias_epilogue,
 )
@@ -63,8 +70,6 @@ from vidsum_tpu_torch.ops.block_train import (
 
 ATTN_IMPLS = ("dense", "flash", "fused_block")
 _LATER = {
-    "long_training": "the long-video training slice (slice 3: TPU kernels "
-                     "5-8, flash_attention_dropout)",
     "int8": "the int8 slice",
     "attn_fn": "the multi-GPU slice",
 }
@@ -159,6 +164,21 @@ def _dropout(x: torch.Tensor, rate: float,
     return torch.where(mask.to(x.device), x / keep, 0.0).to(x.dtype)
 
 
+def _device_generator(generator: Optional[torch.Generator],
+                      device: torch.device) -> Optional[torch.Generator]:
+    """The generator plain dropout draws from for inputs on ``device``:
+    ``generator`` itself on its own device; for CUDA inputs and a generator
+    elsewhere (``train.finetune.epoch_streams`` hands out CPU ones), a card
+    generator seeded by one draw of it, so that the masks are drawn on the
+    card and the run stays reproducible from ``generator``."""
+    if (generator is None or device.type != "cuda"
+            or generator.device.type == "cuda"):
+        return generator
+    seed = int(torch.randint(0, 2**63 - 1, (1,), generator=generator,
+                             device=generator.device))
+    return torch.Generator(device=device).manual_seed(seed)
+
+
 def _apply_keep(x: torch.Tensor, keep_mask, rate: float) -> torch.Tensor:
     """Dropout with a given boolean keep mask (the JAX ``_apply_keep``)."""
     if rate == 0.0:
@@ -216,13 +236,17 @@ class SimNet(nn.Module):
         weights (B, H, N, N) (which always takes the dense route).
 
         Training (``deterministic=False``) draws its dropout from
-        ``generator``. On the ``"fused_block"`` route each layer's dropout
-        seed is ``torch.randint(0, 2**31 - 1)`` from it (the layer index when
-        ``cfg.dropout`` is 0, as in the JAX package); ``block_seeds`` gives
-        the per-layer seeds instead, which is how the tests hand both
-        packages the same seeds. ``dropout_masks`` (per layer, boolean keep
-        masks ``{"attn": (B,H,N,N), "res1": (B,N,d), "mlp": (B,N,4d),
-        "res2": (B,N,d)}``) replaces the draws and takes the dense route."""
+        ``generator``. On both kernel routes (the ``"fused_block"`` block and
+        the ``"flash"`` route's attention) each layer's dropout seed is
+        ``torch.randint(0, 2**31 - 1)`` from it; without a generator or at
+        ``cfg.dropout`` 0 it is the layer index on ``"fused_block"`` and 0 on
+        ``"flash"``, as in the JAX package. ``block_seeds`` gives the
+        per-layer seeds of either route instead, which is how the tests hand
+        both packages the same seeds. ``dropout_masks`` (per layer, boolean
+        keep masks ``{"attn": (B,H,N,N), "res1": (B,N,d), "mlp": (B,N,4d),
+        "res2": (B,N,d)}``) replace the draws; they take the dense route,
+        except on ``"flash"``, whose attention keeps its in-kernel dropout
+        (the ``"attn"`` masks are not read there)."""
         cfg = self.cfg
         if attn_fn is not None:
             raise NotImplementedError("attn_fn arrives with "
@@ -245,13 +269,21 @@ class SimNet(nn.Module):
         # the embed/head kernel has no backward: training takes autograd's
         linear = (_kernel_linear if x.device.type == "cuda" and deterministic
                   else _linear)
+        made = []
+
+        def drop_generator():
+            """The generator of the plain dropout sites, made at first use."""
+            if not made:
+                made.append(_device_generator(generator, x.device))
+            return made[0]
+
         emb = self.embedding_layer
         h = linear(emb.feature_transform, x)
         if cfg.use_pos:
             pe = self._pe(max(cfg.max_len, pe_len or 0, N), x.device)
             h = h + pe[None, :N].to(dt)
             if not deterministic and cfg.pos_dropout > 0.0:
-                h = _dropout(h, cfg.pos_dropout, generator)
+                h = _dropout(h, cfg.pos_dropout, drop_generator())
         if cfg.use_cls:
             h = torch.cat([emb.cls_token.to(dt).expand(B, 1, cfg.d_model), h],
                           dim=1)
@@ -273,11 +305,19 @@ class SimNet(nn.Module):
         use_block = (attn_impl == "fused_block" and not return_attn
                      and not cfg.norm_first
                      and (deterministic or dropout_masks is None))
-        if (not deterministic and attn_impl == "flash" and not return_attn
-                and n_eff % 128 == 0):
-            raise NotImplementedError(
-                f"training at N={n_eff} on the flash-attention route arrives "
-                f"with " + _LATER["long_training"])
+        # the flash route's training attention: flash_attention_dropout
+        flash_train = (attn_impl == "flash" and not deterministic
+                       and not return_attn and n_eff % 128 == 0)
+
+        def layer_seed(layer_idx: int) -> int:
+            if block_seeds is not None:
+                return int(block_seeds[layer_idx])
+            if generator is not None and cfg.dropout > 0.0:
+                return int(torch.randint(0, 2**31 - 1, (1,),
+                                         generator=generator,
+                                         device=generator.device))
+            return 0 if flash_train else layer_idx
+
         attn_maps = []
         for layer_idx, block in enumerate(self.encoder.module_list):
             if use_block and deterministic:
@@ -285,18 +325,11 @@ class SimNet(nn.Module):
                                         cfg.attn_scale)
                 continue
             if use_block:
-                if block_seeds is not None:
-                    seed = int(block_seeds[layer_idx])
-                elif generator is not None and cfg.dropout > 0.0:
-                    seed = int(torch.randint(0, 2**31 - 1, (1,),
-                                             generator=generator,
-                                             device=generator.device))
-                else:
-                    seed = layer_idx
-                h = fused_block_train(h, block, pad_mask, seed,
-                                      cfg.num_heads, cfg.attn_scale,
-                                      cfg.dropout)
+                h = fused_block_train(h, block, pad_mask,
+                                      layer_seed(layer_idx), cfg.num_heads,
+                                      cfg.attn_scale, cfg.dropout)
                 continue
+            seed = layer_seed(layer_idx) if flash_train else None
             lm = dropout_masks[layer_idx] if dropout_masks is not None \
                 else None
 
@@ -305,18 +338,19 @@ class SimNet(nn.Module):
                     return t
                 if lm is not None:
                     return _apply_keep(t, lm[key], cfg.dropout)
-                return _dropout(t, cfg.dropout, generator)
+                return _dropout(t, cfg.dropout, drop_generator())
 
             if cfg.norm_first:
                 sa, w = self._attention(block.sa, _layernorm(block.norm1, h),
                                         pad_mask, attn_impl, deterministic,
-                                        drop, return_attn)
+                                        drop, return_attn, seed)
                 h = h + drop(sa, "res1")
                 ff = self._mlp(block.mlp, _layernorm(block.norm2, h), drop)
                 h = h + drop(ff, "res2")
             else:
                 sa, w = self._attention(block.sa, h, pad_mask, attn_impl,
-                                        deterministic, drop, return_attn)
+                                        deterministic, drop, return_attn,
+                                        seed)
                 h = _layernorm(block.norm1, drop(sa, "res1") + h)
                 ff = self._mlp(block.mlp, h, drop)
                 h = _layernorm(block.norm2, drop(ff, "res2") + h)
@@ -334,16 +368,21 @@ class SimNet(nn.Module):
         return _linear(mlp.fc2, drop(torch.relu(_linear(mlp.fc1, x)), "mlp"))
 
     def _attention(self, sa: Attention, x, pad_mask, attn_impl: str,
-                   deterministic: bool, drop, return_weights: bool):
+                   deterministic: bool, drop, return_weights: bool,
+                   seed: Optional[int] = None):
         """Multi-head self-attention; returns (projected output, the softmax
-        weights in x's dtype when asked for)."""
+        weights in x's dtype when asked for). ``seed`` is the layer's
+        attention dropout seed on the flash training route."""
         cfg = self.cfg
         B, N, _ = x.shape
         H, Dh = cfg.num_heads, cfg.head_dim
         q, k, v = (_linear(lin, x).view(B, N, H, Dh).transpose(1, 2)
                    for lin in (sa.q, sa.k, sa.v))
         weights = None
-        if attn_impl == "flash" and deterministic and not return_weights:
+        if seed is not None:
+            out = flash_attention_dropout(q, k, v, pad_mask, seed,
+                                          cfg.dropout, cfg.attn_scale)
+        elif attn_impl == "flash" and deterministic and not return_weights:
             out = flash_attention(q, k, v, pad_mask, cfg.attn_scale)
         elif deterministic and not return_weights:
             out = attention_reference(q, k, v, pad_mask, cfg.attn_scale)

@@ -25,8 +25,9 @@ from typing import Dict, Iterable, Optional
 PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(PKG_DIR, "_build")
-KERNELS = ("gemm_bias_epilogue", "masked_attention", "block_train")
-HEADERS = ("common.cuh",)
+KERNELS = ("gemm_bias_epilogue", "masked_attention", "block_train",
+           "attention_train")
+HEADERS = ("common.cuh", "attention_core.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 
@@ -47,10 +48,15 @@ _SIGNATURES = {
         "vs_bt_ln_bwd_drop": [_vp] * 6 + [_int] * 3
         + [_uint, _int, _uint, _f32, _vp],
         "vs_bt_colsum": [_vp] * 5 + [_int] * 2 + [_vp],
-        "vs_bt_attention_fwd": [_vp] * 5 + [_int] * 4
-        + [_f32, _uint, _uint, _f32, _int, _vp],
-        "vs_bt_attention_bwd": [_vp] * 8 + [_int] * 4
+        "vs_bt_attention_fwd": [_vp] * 4 + [_int] * 4
+        + [_f32, _uint, _uint, _f32, _vp],
+        "vs_bt_attention_bwd": [_vp] * 7 + [_int] * 4
         + [_f32, _uint, _uint, _f32, _vp]},
+    "attention_train": {
+        "vs_at_fwd": [_vp] * 6 + [_int] * 4
+        + [_f32, _uint, _uint, _f32, _int, _int, _vp],
+        "vs_at_bwd": [_vp] * 11 + [_int] * 4
+        + [_f32, _uint, _uint, _f32, _int, _int, _vp]},
 }
 
 _lock = threading.Lock()

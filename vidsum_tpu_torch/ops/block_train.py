@@ -8,9 +8,11 @@ The JAX package runs the whole block in one Pallas program per batch element
 elements (``_fwd_kernel_grouped`` / ``_bwd_kernel_grouped``, N < 512); the
 backward recomputes the forward from x (no activation is stored) and
 accumulates the 16 parameter grads across its sequential grid. Here both
-pairs map onto one chain of f32 kernels in ``csrc/block_train.cu``, because
-the dropout bits (:func:`_hash_keep`) depend only on absolute coordinates
-(seed, site, batch index, row, column), not on how elements are grouped:
+pairs map onto one chain of f32 kernels in ``csrc/block_train.cu`` (its
+attention from ``csrc/attention_core.cuh``, shared with
+``ops/attention_train.py``), because the dropout bits (:func:`_hash_keep`)
+depend only on absolute coordinates (seed, site, batch index, row, column),
+not on how elements are grouped:
 
     forward   QKV GEMM -> attention (hash dropout on P, site = head) ->
               proj GEMM -> drop(32) + x, LN1 -> fc1 GEMM, ReLU, drop(33) ->
@@ -293,30 +295,29 @@ def _colsum(a, b=None):
 
 
 def _attention_fwd(qkv, mask8, B, H, N, scale, dr: _Drop, keep: bool):
+    """(o, lse, kept only with ``keep``) of the attention over the fused QKV
+    buffer."""
     d = qkv.shape[1] // 3
     o = torch.empty((B * N, d), dtype=torch.float32, device=qkv.device)
-    m = l = None
-    if keep:
-        m = torch.empty((B, H, N), dtype=torch.float32, device=qkv.device)
-        l = torch.empty_like(m)
+    lse = (torch.empty((B, H, N), dtype=torch.float32, device=qkv.device)
+           if keep else None)
     lib = _cuda.load("block_train")
     err = lib.vs_bt_attention_fwd(
-        _cuda.ptr(qkv), _cuda.ptr(mask8), _cuda.ptr(o), _cuda.ptr(m),
-        _cuda.ptr(l), B, H, N, d // H, scale, dr.seed, dr.thr, dr.kscale,
-        int(keep), _cuda.stream_of(qkv))
+        _cuda.ptr(qkv), _cuda.ptr(mask8), _cuda.ptr(o), _cuda.ptr(lse), B,
+        H, N, d // H, scale, dr.seed, dr.thr, dr.kscale, _cuda.stream_of(qkv))
     _cuda.check(lib, err, "block_train attention_fwd")
-    return o, m, l
+    return o, lse
 
 
-def _attention_bwd(qkv, o, do, m, l, mask8, B, H, N, scale, dr: _Drop):
+def _attention_bwd(qkv, o, do, lse, mask8, B, H, N, scale, dr: _Drop):
     d = o.shape[1]
-    D = torch.empty_like(m)
+    D = torch.empty_like(lse)
     dqkv = torch.empty_like(qkv)
     lib = _cuda.load("block_train")
     err = lib.vs_bt_attention_bwd(
-        _cuda.ptr(qkv), _cuda.ptr(o), _cuda.ptr(do), _cuda.ptr(m),
-        _cuda.ptr(l), _cuda.ptr(mask8), _cuda.ptr(D), _cuda.ptr(dqkv), B, H,
-        N, d // H, scale, dr.seed, dr.thr, dr.kscale, _cuda.stream_of(qkv))
+        _cuda.ptr(qkv), _cuda.ptr(o), _cuda.ptr(do), _cuda.ptr(lse),
+        _cuda.ptr(mask8), _cuda.ptr(D), _cuda.ptr(dqkv), B, H, N, d // H,
+        scale, dr.seed, dr.thr, dr.kscale, _cuda.stream_of(qkv))
     _cuda.check(lib, err, "block_train attention_bwd")
     return dqkv
 
@@ -341,8 +342,7 @@ def _check_cuda_inputs(x, w: TrainWeights, num_heads: int) -> None:
 def _forward_chain(x, mask, seed: int, w: TrainWeights, num_heads: int,
                    scale: float, rate: float, keep: bool = False):
     """The forward launches on CUDA tensors. With ``keep`` (the backward's
-    recompute) the softmax drops the normalised p and the f32 intermediates
-    the backward needs are returned too."""
+    recompute) the f32 intermediates the backward needs are returned too."""
     _check_cuda_inputs(x, w, num_heads)
     B, N, d = x.shape
     H = num_heads
@@ -350,7 +350,7 @@ def _forward_chain(x, mask, seed: int, w: TrainWeights, num_heads: int,
     mask8 = mask.to(device=x.device, dtype=torch.uint8).contiguous()
     dr = _Drop(int(seed), N, _threshold(rate), _keep_scale(rate))
     qkv = _gemm(x32, w.wqkv, tb=True, bias=w.bqkv)
-    o, m, l = _attention_fwd(qkv, mask8, B, H, N, scale, dr, keep)
+    o, lse = _attention_fwd(qkv, mask8, B, H, N, scale, dr, keep)
     proj = _gemm(o, w.wp, tb=True, bias=w.bp)
     h1, xhat1, inv1 = _drop_res_ln(proj, x32, w.ln1s, w.ln1b, S_RES1, dr,
                                    keep)
@@ -361,7 +361,7 @@ def _forward_chain(x, mask, seed: int, w: TrainWeights, num_heads: int,
     out = out.view(B, N, d).to(x.dtype)
     if not keep:
         return out
-    saved = dict(x32=x32, mask8=mask8, dr=dr, qkv=qkv, o=o, m=m, l=l,
+    saved = dict(x32=x32, mask8=mask8, dr=dr, qkv=qkv, o=o, lse=lse,
                  h1=h1, xhat1=xhat1, inv1=inv1, a1=a1, m1d=m1d, xhat2=xhat2,
                  inv2=inv2)
     return out, saved
@@ -393,8 +393,8 @@ def _backward_chain(x, mask, seed: int, w: TrainWeights, do,
     dwp = _gemm(dproj, t["o"], ta=True)
     dattn = _gemm(dproj, w.wp)
 
-    dqkv = _attention_bwd(t["qkv"], t["o"], dattn, t["m"], t["l"],
-                          t["mask8"], B, H, N, scale, dr)
+    dqkv = _attention_bwd(t["qkv"], t["o"], dattn, t["lse"], t["mask8"], B,
+                          H, N, scale, dr)
     dwqkv = _gemm(dqkv, t["x32"], ta=True)
     dbqkv, _ = _colsum(dqkv)
     dx = _gemm(dqkv, w.wqkv, addend=dz1)

@@ -36,9 +36,13 @@ def make_finetune_step(cfg: ModelConfig, attn_impl: Optional[str] = None, *,
     synchronised). Inputs may be numpy arrays or tensors and move to
     ``device`` (default: the CUDA card, which must exist). ``attn_impl``
     ``None`` or ``"auto"`` (``TrainConfig.attn_impl``) means
-    ``"fused_block"`` on CUDA and ``"dense"`` on the CPU; ``generator`` draws
-    the dropout (see ``SimNet.forward`` for ``block_seeds``). The step leaves
-    the gradients in ``.grad``."""
+    ``"fused_block"`` on CUDA and ``"dense"`` on the CPU. ``"fused_block"``
+    demotes to ``"flash"`` past ``fused_block_train_supported`` (long
+    videos), and ``"flash"`` trains through
+    ``ops/attention_train.flash_attention_dropout`` at every length up to
+    that route's envelope (``flash_train_supported``), past which it raises
+    ``ValueError``. ``generator`` draws the dropout (see ``SimNet.forward``
+    for ``block_seeds``). The step leaves the gradients in ``.grad``."""
     dev = resolve_device(device)
     if attn_impl in (None, "auto"):
         attn_impl = "fused_block" if dev.type == "cuda" else "dense"
