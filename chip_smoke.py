@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's serving, finetune and long-video finetune
-paths on one NVIDIA GPU.
+"""Drive the PyTorch/CUDA port's serving (bf16 and int8, direct and over
+HTTP), finetune and long-video finetune paths on one NVIDIA GPU.
 
     python3 chip_smoke.py [--seed 0]
 
@@ -26,6 +26,24 @@ caught and passed over):
    timed as a yardstick only; the port never calls them), and the bound:
    the larger of the bytes the function must move over the card's memory
    rate and its operations over the card's peak rate for the input type.
+   int8 kernels: TPU kernels 13/14 (``ops/block_kernel_int8.py``: the
+   int8 GEMM and quantizer of ``csrc/int8_gemm.cu`` with
+   ``csrc/masked_attention.cu``) at (32, 512) and (8, 256), bf16 and f32,
+   ``qk_int8`` off and on, against their plain version: |diff| at the median
+   <= 5e-3 and at the max <= 5e-2 (``INT8_BOUND``), the share of bit-equal
+   outputs, and the kernel run with one layer's QKV scales rolled by one
+   channel (a planted fault; the check block's output channels are scaled
+   log-uniformly in [1/2, 2] so that channels differ in absmax) must fail
+   that bound; the median CUDA-event ms
+   of the kernel, its plain version and the lossless bf16 (f32) block at
+   the same shape (timed only), and the bound (the int8 products at the
+   int8 peak, Q.K^T and P.V at the input type's peak, Q.K^T at the int8
+   peak with ``qk_int8``, or the bytes).
+   int8 probe: TPU kernel 18 (``tools/probe_int8_mma.py``) at 2048^3, the
+   probe's own measurement (ms, TOPS, ``torch.matmul`` / ``torch._int_mm``
+   yardsticks; again at 8192^3, timed only), then 18b bit for bit and 18a
+   within one bf16 step (plus an f32 summation-order bound) of their plain
+   versions.
 4. train kernels: the four training routes of the fused block
    (``ops/block_train.py``, TPU kernels 9-12) at (B, N) = (32, 512)
    (per-element) and (8, 256) (grouped), dropout 0.3, f32 and bf16 inputs:
@@ -60,6 +78,16 @@ caught and passed over):
    counter moved during this phase (counters are zeroed just before it),
    and each request's served scores equal its solo ``make_eval_forward``
    scores bit for bit.
+   serve int8: the same 13 requests through ``ScoringService(attn_impl=
+   "int8_block", wire_dtype="int8")``: both int8 counters and both flash
+   counters must move (384-frame bucket at batch 4: kernel 14; 512 and
+   1,280: kernel 13; 6,016 and 16,384 leave quantisation for flash), each
+   request's scores equal its solo scores on the same dequantised input bit
+   for bit and lie within the lossy budget (median < 2e-2, max < 1.5e-1) of
+   the lossless bf16 route's solo scores; summaries binary, within budget.
+   serve http: ``serve_http.make_server`` on 127.0.0.1 over an int8 service:
+   three ``.npz`` requests answered 200 with the service's own scores, then
+   a 413 (body past the cap) and a 404.
 7. train: the finetune recipe (d 256, 4 heads, 4 layers, dropout 0.3, Adam
    lr 1e-3 / wd 1e-4, batch 4, f32) with seeded weights on in-memory videos
    in the DSNet schema made with numpy from ``--seed``: first one step on
@@ -85,9 +113,10 @@ caught and passed over):
    moved and the block training counters did not (the demotion). Prints
    the step ms (median, quartiles, range) and a ``torch.profiler``
    breakdown of one long step per dtype.
-9. the ``kernels`` line (12 routes, the training attention ones named
-   ``attention_train.<route>``), the card's name and power limit, and last
-   ``{"ok": true, "device": {...}}``.
+9. the ``kernels`` line (16 routes, the training attention ones named
+   ``attention_train.<route>``, the int8 ones ``block_int8``,
+   ``block_int8_grouped``, ``probe_mm_bf16`` and ``probe_mm_int8``), the
+   card's name and power limit, and last ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -104,10 +133,11 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 
 # Dense peaks of the card the runs measured (NVIDIA H100 SXM data sheet):
 # bf16 tensor cores, f32 outside the tensor cores (the kernels' f32 path does
-# exact f32 FMA), memory rate. Another card needs its own entry.
+# exact f32 FMA), int8 tensor cores (TOP/s), memory rate. Another card needs
+# its own entry.
 PEAKS = {
     "NVIDIA H100 80GB HBM3": {"bfloat16": 989e12, "float32": 67e12,
-                              "bytes": 3.35e12},
+                              "int8": 1979e12, "bytes": 3.35e12},
 }
 # Per kernel and dtype: elementwise |got - want| <= atol + rtol |want|, and
 # the relative RMS error ||got - want|| / ||want|| <= rel. The attention
@@ -161,6 +191,16 @@ TOL = {
     ("attn_train_grad", "float32"): dict(atol=1e-4, rtol=1e-4, rel=1e-5),
     ("attn_train_grad", "bfloat16"): dict(atol=1e-2, rtol=1e-2, rel=1e-2),
 }
+# The int8 block (TPU kernels 13/14) against its plain version: |got - want|
+# at the median and at the max, the JAX tests' own limits
+# (tests/test_quant.py:94-107) on LayerNorm outputs of size 1. Kernel and
+# plain version share their int8 codes except where an f32 summation order
+# moves a value across a rounding boundary; one flipped code moves its row
+# by about one quantisation step. The int8 route against the lossless bf16
+# one on the same requests: |dp| of the sigmoid scores, the lossy budget of
+# tests/test_quant.py:65-79.
+INT8_BOUND = dict(median=5e-3, max=5e-2)
+INT8_VS_BF16 = dict(median=2e-2, max=1.5e-1)
 # fc1 inputs nearer 0 than this share of their RMS may take the other ReLU
 # branch in kernel and plain version (their difference is < 2e-5 of the RMS)
 NEAR_ZERO = 2e-4
@@ -493,6 +533,186 @@ def phase_kernels(dev: dict, seed: int) -> dict:
                                   bound_ms=b_ms, bound_by=b_by,
                                   library_ms=lib_ms)
     return out
+
+
+def diff_stats(got, want) -> dict:
+    """|got - want| at the median and the max, and the share of bit-equal
+    elements."""
+    g, w = got.detach().float(), want.detach().float()
+    d = (g - w).abs()
+    return {"median": float(d.median()), "max": float(d.max()),
+            "bit_equal_share": float((got == want).float().mean())}
+
+
+def int8_within(st: dict) -> bool:
+    return (st["median"] <= INT8_BOUND["median"]
+            and st["max"] <= INT8_BOUND["max"])
+
+
+def phase_int8_kernels(dev: dict, seed: int) -> dict:
+    """TPU kernels 13/14 (``ops/block_kernel_int8.py``) against their plain
+    version at (B, N) = (32, 512) (per-element) and (8, 256) (grouped), bf16
+    and f32, ``qk_int8`` off and on; returns the bf16, ``qk_int8``-off
+    numbers per route (the serving default) for the kernels line."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from vidsum_tpu_torch.config import ModelConfig
+    from vidsum_tpu_torch.models.simnet import SimNet
+    from vidsum_tpu_torch.ops import block_kernel as bk
+    from vidsum_tpu_torch.ops import block_kernel_int8 as bk8
+    from vidsum_tpu_torch.ops.quant import quantize_block
+
+    peaks = peaks_for(dev["name"])
+    cfg = ModelConfig()
+    d, H, scale = cfg.d_model, cfg.num_heads, cfg.attn_scale
+    cuda = torch.device("cuda")
+    block = SimNet(ModelConfig(num_layers=1), device=cuda,
+                   generator=torch.Generator().manual_seed(seed + 7)
+                   ).encoder.module_list[0]
+    # output channels of different sizes (log-uniform in [1/2, 2]), as a
+    # trained layer's are: the uniform init gives every channel nearly the
+    # same absmax, so a scale read from the wrong channel would go unseen
+    g = torch.Generator().manual_seed(seed + 8)
+    with torch.no_grad():
+        for lin in (block.sa.q, block.sa.k, block.sa.v,
+                    block.sa.feature_projection, block.mlp.fc1,
+                    block.mlp.fc2):
+            f = 2.0 ** (2 * torch.rand(lin.out_features, generator=g) - 1)
+            lin.weight.mul_(f.to(cuda)[:, None])
+    qb = quantize_block(block)
+    # a planted fault: one layer's QKV scales rolled by one channel
+    bad_qb = dataclasses.replace(qb, sqkv=torch.roll(qb.sqkv, 1))
+    rng = np.random.default_rng(seed + 7)
+    out = {}
+    for B, N, route in ((32, 512, "_fused_block_int8"),
+                        (8, 256, "_fused_block_int8_grouped")):
+        mask = pad_mask(B, N, rng, cuda)
+        valid = int((~mask).sum())
+        counter = getattr(bk8, route)
+        for dtype in (torch.bfloat16, torch.float32):
+            dn = str(dtype).split(".")[1]
+            x = torch.from_numpy(rng.normal(size=(B, N, d)).astype(
+                np.float32)).to(cuda, dtype)
+            with torch.inference_mode():
+                lossless_ms = cuda_ms(lambda: bk.fused_encoder_block(
+                    block, x, mask, H, scale), reps=20)
+            for qk in (False, True):
+                def run(q=qb):
+                    return bk8.fused_encoder_block_int8(q, x, mask, H, scale,
+                                                        qk_int8=qk)
+
+                def plain():
+                    return bk8.int8_block_reference(qb, x, mask, H, scale,
+                                                    qk)
+
+                before = counter.launches
+                got = run()
+                torch.cuda.synchronize()
+                if counter.launches != before + 1:
+                    raise AssertionError(f"({B}, {N}) did not take {route}")
+                want = plain()
+                st = diff_stats(got, want)
+                if not int8_within(st):
+                    raise AssertionError(
+                        f"{route} {dn} qk_int8={qk}: kernel disagrees with "
+                        f"its plain version: {st} (bound {INT8_BOUND})")
+                fault = diff_stats(run(bad_qb), want)
+                if int8_within(fault):
+                    raise AssertionError(
+                        f"{route} {dn} qk_int8={qk}: a kernel with rolled "
+                        f"QKV scales passes the bound: {fault}")
+                ms = cuda_ms(run, reps=20)
+                plain_ms = cuda_ms(plain, reps=5)
+                itm = x.element_size()
+                t_i8 = 24 * B * N * d * d / peaks["int8"]
+                attn_half = 2 * d * N * valid
+                t_att = (attn_half / peaks["int8" if qk else dn]
+                         + attn_half / peaks[dn])
+                t_ops = t_i8 + t_att
+                nbytes = (2 * B * N * d * itm + 12 * d * d + 22 * d * 4
+                          + B * N)
+                t_bytes = nbytes / peaks["bytes"]
+                b_ms = max(t_ops, t_bytes) * 1e3
+                b_by = "operations" if t_ops >= t_bytes else "bytes"
+                emit("int8_kernel", route=route, B=B, N=N, dtype=dn,
+                     qk_int8=qk, diff=st, bound=INT8_BOUND,
+                     rolled_scales_diff=fault, ms=ms, plain_ms=plain_ms,
+                     lossless_block_ms=lossless_ms, library_ms=None,
+                     bound_ms=b_ms, bound_by=b_by,
+                     int8_ops=24 * B * N * d * d, attn_flops=2 * attn_half,
+                     bytes=nbytes)
+                if dtype == torch.bfloat16 and not qk:
+                    out[route] = dict(max_abs_err=st["max"], ms=ms,
+                                      plain_ms=plain_ms, bound_ms=b_ms,
+                                      bound_by=b_by, library_ms=None)
+    return out
+
+
+PROBE_ROUTES = ("mm_bf16", "mm_int8")
+
+
+def phase_int8_probe(dev: dict) -> tuple:
+    """TPU kernel 18 (``tools/probe_int8_mma.py``) at 2048^3: the probe's
+    own measurement (its launches counted), then each kernel against its
+    plain version: 18b bit for bit, 18a within one bf16 step of the plain
+    value plus the rounding bound of an f32 sum in another order (K 2^-24
+    sum |x||w|, which a result near 0 from cancellation can exceed a step
+    by). Returns (the kernels-line numbers per route, the launches)."""
+    import torch
+
+    from vidsum_tpu_torch.tools import probe_int8_mma as probe
+
+    peaks = peaks_for(dev["name"])
+    M = N = K = 2048
+    for fn in (probe.mm_bf16, probe.mm_int8):
+        fn.launches = 0
+    meas = probe.measure(M, N, K, reps=50)
+    launches = {r: getattr(probe, r).launches for r in PROBE_ROUTES}
+    if not all(launches.values()):
+        raise AssertionError(f"probe kernels never launched: {launches}")
+    # the same question at a size that fills the card for longer
+    meas_8192 = probe.measure(8192, 8192, 8192, reps=10)
+    xb, wb, xi, wi = probe.inputs(M, N, K)
+    got8 = probe.mm_int8(xi, wi)
+    want8 = probe.mm_int8_reference(xi, wi)
+    if not torch.equal(got8, want8):
+        raise AssertionError("probe mm_int8 differs from its plain version")
+    got = probe.mm_bf16(xb, wb).float()
+    want = probe.mm_bf16_reference(xb, wb).float()
+    tol = want.abs() * 2.0 ** -7 + K * 2.0 ** -24 * torch.matmul(
+        xb.float().abs(), wb.float().abs().t())
+    err = (got - want).abs()
+    if not bool((err <= tol).all()):
+        raise AssertionError(f"probe mm_bf16 off its plain version by "
+                             f"{float(err.max())}")
+    plain_ms = {"mm_bf16": cuda_ms(lambda: probe.mm_bf16_reference(xb, wb),
+                                   reps=10),
+                "mm_int8": cuda_ms(lambda: probe.mm_int8_reference(xi, wi),
+                                   reps=10)}
+    ops = 2 * M * N * K
+    out = {}
+    for route, key, lib, peak, itm, out_itm in (
+            ("mm_bf16", "bf16_kernel", "bf16_torch_matmul", "bfloat16", 2,
+             2),
+            ("mm_int8", "int8_kernel", "int8_torch_int_mm", "int8", 1, 1)):
+        t_ops = ops / peaks[peak]
+        t_bytes = ((M * K + N * K) * itm + M * N * out_itm) / peaks["bytes"]
+        out[route] = dict(
+            max_abs_err=float(err.max()) if route == "mm_bf16" else 0.0,
+            ms=meas[key]["ms"], plain_ms=plain_ms[route],
+            bound_ms=max(t_ops, t_bytes) * 1e3,
+            bound_by="operations" if t_ops >= t_bytes else "bytes",
+            library_ms=meas[lib]["ms"])
+    emit("int8_probe", measure=meas, measure_8192=meas_8192,
+         launches=launches,
+         mm_int8_bit_equal=True, mm_bf16_bit_equal_share=float(
+             (got == want).float().mean()), mm_bf16_max_abs_err=float(
+                 err.max()), plain_ms=plain_ms,
+         bound_ms={r: out[r]["bound_ms"] for r in PROBE_ROUTES})
+    return out, launches
 
 
 def phase_train_kernels(dev: dict, seed: int) -> dict:
@@ -1167,65 +1387,58 @@ def phase_long_train(seed: int) -> dict:
     return launches
 
 
-def reset_counters() -> None:
+def _counted():
+    """(name, function) of every launch counter on the paths."""
     from vidsum_tpu_torch.ops import attention as at
     from vidsum_tpu_torch.ops import attention_train as att
     from vidsum_tpu_torch.ops import block_kernel as bk
+    from vidsum_tpu_torch.ops import block_kernel_int8 as bk8
     from vidsum_tpu_torch.ops import block_train as bt
+    from vidsum_tpu_torch.ops import quant
+    from vidsum_tpu_torch.tools import probe_int8_mma as probe
 
-    for fn in (bk._fused_block, bk._fused_block_grouped, at._flash_attention,
-               at._flash_attention_folded, bk.gemm_bias_epilogue,
-               at.masked_attention, *(getattr(bt, r) for r in TRAIN_ROUTES),
-               *(getattr(att, r) for r in ATTN_TRAIN_ROUTES)):
+    return [("_fused_block", bk._fused_block),
+            ("_fused_block_grouped", bk._fused_block_grouped),
+            ("_flash_attention", at._flash_attention),
+            ("_flash_attention_folded", at._flash_attention_folded),
+            ("gemm_bias_epilogue", bk.gemm_bias_epilogue),
+            ("masked_attention", at.masked_attention),
+            *((r, getattr(bt, r)) for r in TRAIN_ROUTES),
+            *((attn_train_name(r), getattr(att, r))
+              for r in ATTN_TRAIN_ROUTES),
+            *((r, getattr(bk8, r)) for r in INT8_ROUTES),
+            ("quantize_rows", quant.quantize_rows),
+            ("int8_gemm", quant.int8_gemm),
+            *((r, getattr(probe, r)) for r in PROBE_ROUTES)]
+
+
+def reset_counters() -> None:
+    for _, fn in _counted():
         fn.launches = 0
 
 
 def read_counters() -> dict:
-    from vidsum_tpu_torch.ops import attention as at
-    from vidsum_tpu_torch.ops import attention_train as att
-    from vidsum_tpu_torch.ops import block_kernel as bk
-    from vidsum_tpu_torch.ops import block_train as bt
-
-    return {"_fused_block": bk._fused_block.launches,
-            "_fused_block_grouped": bk._fused_block_grouped.launches,
-            "_flash_attention": at._flash_attention.launches,
-            "_flash_attention_folded": at._flash_attention_folded.launches,
-            "gemm_bias_epilogue": bk.gemm_bias_epilogue.launches,
-            "masked_attention": at.masked_attention.launches,
-            **{r: getattr(bt, r).launches for r in TRAIN_ROUTES},
-            **{attn_train_name(r): getattr(att, r).launches
-               for r in ATTN_TRAIN_ROUTES}}
+    return {name: fn.launches for name, fn in _counted()}
 
 
 def phase_serve(seed: int) -> dict:
     import numpy as np
-    import torch
 
-    from vidsum_tpu_torch.config import ModelConfig
-    from vidsum_tpu_torch.data.collate import bucket_length
-    from vidsum_tpu_torch.models.simnet import SimNet
     from vidsum_tpu_torch.ops import knapsack as kn
     from vidsum_tpu_torch.ops.summary import generate_summary
     from vidsum_tpu_torch.serve import ScoringService
     from vidsum_tpu_torch.train.steps import make_eval_forward
 
-    cfg = ModelConfig(compute_dtype="bfloat16")
-    model = SimNet(cfg, generator=torch.Generator().manual_seed(seed))
+    cfg, model = serve_model(seed)
     rng = np.random.default_rng(seed + 1)
-    lengths = [320, 320, 320, 320, 480, 480, 480, 512, 512, 512, 1200,
-               6000, 16384]
+    lengths = SERVE_LENGTHS
     videos = [rng.random((n, cfg.in_features), dtype=np.float32)
               for n in lengths]
-
-    def shots(n):   # given shot bounds for the long requests: 60-frame shots
-        starts = np.arange(0, n, 60, dtype=np.int64)
-        return np.stack([starts, np.minimum(starts + 59, n - 1)], axis=1)
-
     with ScoringService(model, cfg, max_batch=8,
                         max_delay_ms=50.0) as svc:
         reset_counters()
         t0 = time.monotonic()
-        futs = [svc.submit(v, change_points=(shots(v.shape[0])
+        futs = [svc.submit(v, change_points=(shot_bounds(v.shape[0])
                                              if v.shape[0] >= 6000 else None))
                 for v in videos]
         results = [f.result(timeout=600) for f in futs]
@@ -1244,19 +1457,8 @@ def phase_serve(seed: int) -> dict:
     fwd = make_eval_forward(cfg)
     for v, r in zip(videos, results):
         n = v.shape[0]
-        if r.scores.shape != (n,) or not np.all(
-                (r.scores > 0) & (r.scores < 1)):
-            raise AssertionError(f"bad scores for a {n}-frame request")
-        s = r.summary
-        budget = int(r.n_frames * 0.15)
-        if s is None or s.shape != (r.n_frames,) or not set(
-                np.unique(s)) <= {0, 1} or int(s.sum()) > budget:
-            raise AssertionError(f"bad summary for a {n}-frame request")
-        nb = bucket_length(n)
-        x = np.full((1, nb, cfg.in_features), 1000.0, np.float32)
-        x[0, :n] = v
-        mask = np.ones((1, nb), bool)
-        mask[0, :n] = False
+        check_summary(r, n)
+        x, mask = padded(cfg, v)
         solo = fwd(model, x, mask)[0, :n].float().cpu().numpy()
         if not np.array_equal(solo, r.scores):
             raise AssertionError(
@@ -1284,6 +1486,198 @@ def phase_serve(seed: int) -> dict:
     return counts
 
 
+INT8_ROUTES = ("_fused_block_int8", "_fused_block_int8_grouped")
+SERVE_LENGTHS = [320, 320, 320, 320, 480, 480, 480, 512, 512, 512, 1200,
+                 6000, 16384]
+
+
+def serve_model(seed: int):
+    import torch
+
+    from vidsum_tpu_torch.config import ModelConfig
+    from vidsum_tpu_torch.models.simnet import SimNet
+
+    cfg = ModelConfig(compute_dtype="bfloat16")
+    return cfg, SimNet(cfg, generator=torch.Generator().manual_seed(seed))
+
+
+def shot_bounds(n: int):
+    """Given shot bounds for the long requests: 60-frame shots."""
+    import numpy as np
+
+    starts = np.arange(0, n, 60, dtype=np.int64)
+    return np.stack([starts, np.minimum(starts + 59, n - 1)], axis=1)
+
+
+def check_summary(r, n: int) -> None:
+    import numpy as np
+
+    if r.scores.shape != (n,) or not np.all((r.scores > 0)
+                                            & (r.scores < 1)):
+        raise AssertionError(f"bad scores for a {n}-frame request")
+    s = r.summary
+    budget = int(r.n_frames * 0.15)
+    if s is None or s.shape != (r.n_frames,) or not set(
+            np.unique(s)) <= {0, 1} or int(s.sum()) > budget:
+        raise AssertionError(f"bad summary for a {n}-frame request")
+
+
+def padded(cfg, v):
+    """A request's row padded to its bucket with the serving pad value, and
+    its mask, batch 1."""
+    import numpy as np
+
+    from vidsum_tpu_torch.data.collate import bucket_length
+
+    n = v.shape[0]
+    nb = bucket_length(n)
+    x = np.full((1, nb, cfg.in_features), 1000.0, np.float32)
+    x[0, :n] = v
+    mask = np.ones((1, nb), bool)
+    mask[0, :n] = False
+    return x, mask
+
+
+def phase_serve_int8(seed: int) -> dict:
+    """The 13 requests of the serve phase through ``ScoringService(
+    attn_impl="int8_block", wire_dtype="int8")``: the 384-frame bucket at
+    batch 4 takes TPU kernel 14, the 512- and 1,280-frame buckets kernel
+    13, the 6,016- and 16,384-frame ones leave quantisation for the flash
+    routes. Each request's scores equal its solo ``make_eval_forward``
+    scores on the same dequantised input bit for bit, and lie within the
+    lossy budget of the lossless bf16 route's solo scores."""
+    import numpy as np
+    import torch
+
+    from vidsum_tpu_torch.serve import ScoringService
+    from vidsum_tpu_torch.serve.transport import quantize_frames
+    from vidsum_tpu_torch.train.steps import make_eval_forward
+
+    cfg, model = serve_model(seed)
+    rng = np.random.default_rng(seed + 1)
+    videos = [rng.random((n, cfg.in_features), dtype=np.float32)
+              for n in SERVE_LENGTHS]
+    with ScoringService(model, cfg, attn_impl="int8_block",
+                        wire_dtype="int8", max_batch=8,
+                        max_delay_ms=50.0) as svc:
+        reset_counters()
+        t0 = time.monotonic()
+        futs = [svc.submit(v, change_points=(shot_bounds(v.shape[0])
+                                             if v.shape[0] >= 6000 else None))
+                for v in videos]
+        results = [f.result(timeout=600) for f in futs]
+        wall = time.monotonic() - t0
+        counts = read_counters()
+        st = svc.stats()
+    routes = INT8_ROUTES + ("_flash_attention", "_flash_attention_folded")
+    missing = [r for r in routes if counts[r] == 0]
+    if missing:
+        raise AssertionError(f"routes never launched on the int8 serving "
+                             f"pass: {missing} (counters {counts})")
+    if st.completed != len(videos) or st.failed:
+        raise AssertionError(f"serving stats: {st}")
+    fwd8 = make_eval_forward(cfg, "int8_block")
+    fwd = make_eval_forward(cfg)
+    deltas = []
+    for v, r in zip(videos, results):
+        n = v.shape[0]
+        check_summary(r, n)
+        x, mask = padded(cfg, v)
+        q, sc = quantize_frames(x[0])
+        xd = (torch.from_numpy(q).cuda().float()
+              * torch.from_numpy(sc).cuda()[:, None])[None]
+        solo = fwd8(model, xd, mask)[0, :n].float().cpu().numpy()
+        if not np.array_equal(solo, r.scores):
+            raise AssertionError(
+                f"int8 served != solo for a {n}-frame request (max diff "
+                f"{float(np.abs(solo - r.scores).max())})")
+        lossless = fwd(model, x, mask)[0, :n].float().cpu().numpy()
+        deltas.append(np.abs(r.scores - lossless))
+    d = np.concatenate(deltas)
+    vs_bf16 = {"median": float(np.median(d)), "max": float(d.max())}
+    if not (vs_bf16["median"] < INT8_VS_BF16["median"]
+            and vs_bf16["max"] < INT8_VS_BF16["max"]):
+        raise AssertionError(f"int8 scores off the lossless bf16 route by "
+                             f"{vs_bf16} (budget {INT8_VS_BF16})")
+    emit("serve_int8", requests=len(videos), lengths=SERVE_LENGTHS,
+         wall_s=wall, latency_p50_s=st.latency_p50_s,
+         latency_p95_s=st.latency_p95_s, batches=st.batches,
+         batch_hist=st.batch_hist, frames_per_s=sum(SERVE_LENGTHS) / wall,
+         launches=counts, served_equals_solo=True,
+         vs_lossless_bf16=vs_bf16, budget=INT8_VS_BF16,
+         per_request_max_dp=[float(x.max()) for x in deltas])
+    return counts
+
+
+def phase_serve_http(seed: int) -> None:
+    """``serve_http.make_server`` on 127.0.0.1, port 0, over an int8
+    service: three ``.npz`` requests answered 200 with the service's own
+    scores, then a 413 (a body past the cap) and a 404."""
+    import io
+    import urllib.error
+    import urllib.request
+
+    import numpy as np
+
+    from vidsum_tpu_torch.serve import ScoringService
+    from vidsum_tpu_torch.serve_http import make_server, run_in_thread
+
+    cfg, model = serve_model(seed)
+    rng = np.random.default_rng(seed + 2)
+    cap = 16 * 1024 * 1024
+    with ScoringService(model, cfg, attn_impl="int8_block",
+                        wire_dtype="int8", max_delay_ms=5.0) as svc:
+        server = make_server(svc, host="127.0.0.1", port=0,
+                             max_body_bytes=cap)
+        thread = run_in_thread(server)
+        host, port = server.server_address
+        url = f"http://{host}:{port}"
+
+        def post(path, feats):
+            buf = io.BytesIO()
+            np.savez(buf, features=feats)
+            req = urllib.request.Request(url + path, data=buf.getvalue(),
+                                         method="POST")
+            return urllib.request.urlopen(req, timeout=300)
+
+        def status(fn) -> int:
+            try:
+                with fn() as r:
+                    return r.status
+            except urllib.error.HTTPError as e:
+                return e.code
+
+        codes, t_s = [], []
+        try:
+            for n in (320, 512, 1200):
+                feats = rng.random((n, cfg.in_features), dtype=np.float32)
+                t0 = time.monotonic()
+                with post("/summarize", feats) as r:
+                    codes.append(r.status)
+                    out = json.loads(r.read())
+                t_s.append(time.monotonic() - t0)
+                want = svc.summarize(feats)
+                if not np.array_equal(np.asarray(out["scores"], np.float32),
+                                      want.scores):
+                    raise AssertionError(f"HTTP scores != the service's for "
+                                         f"a {n}-frame request")
+                if out["summary_frames"] != np.nonzero(
+                        want.summary)[0].tolist():
+                    raise AssertionError("HTTP summary != the service's")
+            big = np.zeros((cap // (4 * cfg.in_features) + 1,
+                            cfg.in_features), np.float32)
+            codes.append(status(lambda: post("/summarize", big)))
+            codes.append(status(lambda: urllib.request.urlopen(
+                url + "/nope", timeout=60)))
+        finally:
+            server.shutdown()
+            server.server_close()
+            thread.join(timeout=60)
+    if codes != [200, 200, 200, 413, 404]:
+        raise AssertionError(f"HTTP status codes {codes}")
+    emit("serve_http", statuses=codes, request_s=t_s, max_body_bytes=cap)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1304,9 +1698,16 @@ def main() -> int:
     dev = phase_device()
     phase_build()
     timings = phase_kernels(dev, args.seed)
+    timings.update(phase_int8_kernels(dev, args.seed))
+    probe_timings, probe_launches = phase_int8_probe(dev)
+    timings.update(probe_timings)
     timings.update(phase_train_kernels(dev, args.seed))
     timings.update(phase_train_attention(dev, args.seed))
     counts = phase_serve(args.seed)
+    counts.update({r: n for r, n in phase_serve_int8(args.seed).items()
+                   if r in INT8_ROUTES})
+    phase_serve_http(args.seed)
+    counts.update(probe_launches)
     counts.update({r: n for r, n in phase_train(args.seed).items()
                    if r in TRAIN_ROUTES})
     counts.update(phase_long_train(args.seed))
@@ -1322,20 +1723,32 @@ def main() -> int:
         "_bwd_kernel_grouped": "vidsum_tpu/ops/block_train.py:421",
         **{attn_train_name(r): f"vidsum_tpu/ops/attention_train.py:{line}"
            for r, line in zip(ATTN_TRAIN_ROUTES, (83, 112, 175, 228))},
+        "_fused_block_int8": "vidsum_tpu/ops/block_kernel_int8.py:63",
+        "_fused_block_int8_grouped": "vidsum_tpu/ops/block_kernel_int8.py:143",
+        "mm_bf16": "scripts/probe_int8_mxu.py:63",
+        "mm_int8": "scripts/probe_int8_mxu.py:69",
     }
-    block_src = ["vidsum_tpu_torch/csrc/gemm_bias_epilogue.cu",
-                 "vidsum_tpu_torch/csrc/masked_attention.cu"]
-    attn_src = ["vidsum_tpu_torch/csrc/masked_attention.cu"]
-    train_src = ["vidsum_tpu_torch/csrc/block_train.cu"]
-    attn_train_src = ["vidsum_tpu_torch/csrc/attention_train.cu"]
+    csrc = "vidsum_tpu_torch/csrc/"
+    block_src = [csrc + "gemm_bias_epilogue.cu", csrc + "masked_attention.cu"]
+    attn_src = [csrc + "masked_attention.cu"]
+    train_src = [csrc + "block_train.cu"]
+    attn_train_src = [csrc + "attention_train.cu"]
+    int8_src = [csrc + "int8_gemm.cu", csrc + "masked_attention.cu"]
+    names = {"_fused_block_int8": "block_int8",
+             "_fused_block_int8_grouped": "block_int8_grouped",
+             "mm_bf16": "probe_mm_bf16", "mm_int8": "probe_mm_int8"}
     kernels = []
     for route, rep in replaces.items():
         srcs = (attn_train_src if route.startswith("attention_train.")
                 else train_src if route in TRAIN_ROUTES
+                else int8_src if route in INT8_ROUTES
+                else [csrc + "gemm_bias_epilogue.cu"] if route == "mm_bf16"
+                else [csrc + "int8_gemm.cu"] if route == "mm_int8"
                 else block_src if "block" in route else attn_src)
-        kernels.append({"name": route.lstrip("_"), "route": "cuda",
-                        "source": srcs[0], "sources": srcs, "replaces": rep,
-                        "launches": counts[route], **timings[route]})
+        kernels.append({"name": names.get(route, route.lstrip("_")),
+                        "route": "cuda", "source": srcs[0], "sources": srcs,
+                        "replaces": rep, "launches": counts[route],
+                        **timings[route]})
     print(dev["smi"], flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

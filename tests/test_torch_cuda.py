@@ -516,3 +516,139 @@ def test_plain_dropout_is_drawn_on_the_card(cuda):
             for s in (3, 3, 4)]
     assert torch.equal(runs[0], runs[1])
     assert not torch.equal(runs[0], runs[2])
+
+
+# ------------------------------------------------------------ int8 slice
+
+def _int8_inputs(M, N, K, seed=0):
+    g = torch.Generator().manual_seed(seed)
+    x8 = torch.randint(-127, 128, (M, K), generator=g, dtype=torch.int8)
+    w8 = torch.randint(-127, 128, (N, K), generator=g, dtype=torch.int8)
+    sx = torch.rand(M, generator=g) * 0.1 + 1e-3
+    sw = torch.rand(N, generator=g) * 0.01 + 1e-4
+    b = torch.randn(N, generator=g)
+    return x8, sx, w8, sw, b
+
+
+@pytest.mark.parametrize("M,N,K", [(200, 320, 96), (64, 256, 1024),
+                                   (33, 1024, 256)])
+def test_int8_gemm_matches_plain_bit_for_bit(cuda, M, N, K):
+    """The integer sums are exact and the dequantising epilogue rounds as
+    the plain version's tensor ops do: bit for bit at ragged M and N, and
+    the probe's shift epilogue too."""
+    from vidsum_tpu_torch.ops import quant
+
+    host = _int8_inputs(M, N, K, seed=M)
+    x8, sx, w8, sw, b = (t.to(cuda) for t in host)
+    before = quant.int8_gemm.launches
+    for epi in ("none", "relu"):
+        got_t, got_f, _, _ = quant.int8_gemm(x8, sx, w8, sw, b, epi,
+                                             out_dtype=torch.bfloat16,
+                                             want_f32=True)
+        want_t, want_f, _, _ = quant.int8_gemm_reference(
+            *host, epi, out_dtype=torch.bfloat16, want_f32=True)
+        assert torch.equal(got_f.cpu(), want_f)
+        assert torch.equal(got_t.cpu(), want_t)
+    got = quant.int8_gemm(x8, None, w8, None, None, "shift")
+    assert torch.equal(got.cpu(), quant.int8_gemm_reference(
+        host[0], None, host[2], None, None, "shift"))
+    torch.cuda.synchronize()
+    assert quant.int8_gemm.launches == before + 3
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_quantize_rows_kernel_matches_plain_bit_for_bit(cuda, dtype):
+    from vidsum_tpu_torch.ops import quant
+
+    g = torch.Generator().manual_seed(3)
+    x = torch.randn(300, 1024, generator=g) * 10.0
+    x[3] = 0.0
+    x[5, :6] = torch.tensor([127.0, 0.5, 1.5, 2.5, -0.5, -2.5])
+    x[5, 6:] = 0.0
+    x = x.to(dtype)
+    q, s = quant.quantize_rows(x.to(cuda))
+    wq, ws = quant.quantize_rows_reference(x)
+    assert torch.equal(q.cpu(), wq) and torch.equal(s.cpu(), ws)
+
+
+def test_int8_residual_ln_epilogue_and_its_codes(cuda):
+    """The LayerNorm moments are summed in another order than the plain
+    version's: f32 outputs within summation-order error, and the row codes
+    it emits for the next product equal the plain quantizer's codes of the
+    kernel's own output."""
+    from vidsum_tpu_torch.ops import quant
+
+    M, N, K = 200, 256, 256
+    x8, sx, w8, sw, b = (t.to(cuda) for t in _int8_inputs(M, N, K, seed=4))
+    g = torch.Generator().manual_seed(4)
+    res = torch.randn(M, N, generator=g).to(cuda, torch.bfloat16)
+    ln_g = (torch.rand(N, generator=g) + 0.5).to(cuda)
+    ln_b = torch.randn(N, generator=g).to(cuda)
+    _, y, q, s = quant.int8_gemm(x8, sx, w8, sw, b, "residual_ln",
+                                 residual=res, ln_g=ln_g, ln_b=ln_b,
+                                 want_f32=True, want_q=True)
+    _, want, _, _ = quant.int8_gemm_reference(
+        x8, sx, w8, sw, b, "residual_ln", residual=res, ln_g=ln_g,
+        ln_b=ln_b, want_f32=True)
+    torch.testing.assert_close(y, want, atol=1e-5, rtol=1e-5)
+    wq, ws = quant.quantize_rows_reference(y)
+    assert torch.equal(q, wq) and torch.equal(s, ws[:, 0])
+
+
+# the chip-smoke bound of the int8 block (tests/test_quant.py's limits)
+INT8_BOUND = dict(median=5e-3, max=5e-2)
+
+
+@pytest.mark.parametrize("qk_int8", [False, True])
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("d,B,N,route", [
+    (256, 2, 256, "_fused_block_int8_grouped"),
+    (256, 1, 512, "_fused_block_int8"),
+    (64, 2, 128, "_fused_block_int8_grouped")])
+def test_int8_block_routes_match_plain(cuda, qk_int8, dtype, d, B, N, route):
+    from vidsum_tpu_torch.ops import block_kernel_int8 as bk8
+    from vidsum_tpu_torch.ops.quant import quantize_block
+
+    cfg = ModelConfig(d_model=d, num_heads=4, num_layers=1)
+    block = SimNet(cfg, device=cuda,
+                   generator=torch.Generator().manual_seed(d + N)
+                   ).encoder.module_list[0]
+    qb = quantize_block(block)
+    x = torch.randn(B, N, d, generator=torch.Generator().manual_seed(N))
+    x = x.to(cuda, dtype)
+    mask = _mask(B, N, cuda, seed=N)
+    counter = getattr(bk8, route)
+    before = counter.launches
+    got = bk8.fused_encoder_block_int8(qb, x, mask, 4, d ** -0.5,
+                                       qk_int8=qk_int8)
+    torch.cuda.synchronize()
+    assert counter.launches == before + 1
+    want = bk8.int8_block_reference(qb, x, mask, 4, d ** -0.5, qk_int8)
+    diff = (got.float() - want.float()).abs()
+    assert float(diff.median()) <= INT8_BOUND["median"]
+    assert float(diff.max()) <= INT8_BOUND["max"]
+
+
+def test_int8_route_scores_do_not_depend_on_the_batch(cuda):
+    cfg = ModelConfig(compute_dtype="bfloat16", num_layers=2)
+    model = SimNet(cfg, device=cuda)
+    x = torch.randn(4, 384, 1024, generator=torch.Generator().manual_seed(5))
+    x = x.to(cuda)
+    mask = _mask(4, 384, cuda, seed=5)
+    with torch.inference_mode():
+        both, _ = model(x, mask, attn_impl="int8_block")
+        solo, _ = model(x[1:2], mask[1:2], attn_impl="int8_block")
+    assert torch.equal(both[1:2], solo)
+
+
+def test_probe_kernels_match_plain(cuda):
+    from vidsum_tpu_torch.tools import probe_int8_mma as probe
+
+    xb, wb, xi, wi = probe.inputs(256, 512, 320, seed=1)
+    assert torch.equal(probe.mm_int8(xi, wi),
+                       probe.mm_int8_reference(xi, wi))
+    got = probe.mm_bf16(xb, wb).float()
+    want = probe.mm_bf16_reference(xb, wb).float()
+    tol = want.abs() * 2.0 ** -7 + 320 * 2.0 ** -24 * torch.matmul(
+        xb.float().abs(), wb.float().abs().t())
+    assert bool(((got - want).abs() <= tol).all())

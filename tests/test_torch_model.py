@@ -165,11 +165,12 @@ def _long_training_input():
 
 @pytest.mark.parametrize("kwargs,match", [
     (dict(attn_fn=lambda *a: None), "multi-GPU slice"),
-    (dict(attn_impl="int8_block"), "int8 slice"),
+    (dict(attn_fn=lambda *a: None, attn_impl="flash"), "multi-GPU slice"),
 ])
 def test_later_slices_raise_not_implemented(kwargs, match):
-    """A caller-supplied attention (the sequence-parallel ring) and the int8
-    routes arrive with later slices."""
+    """A caller-supplied attention (the sequence-parallel ring) arrives with
+    the multi-GPU slice on every route that takes one (the int8 routes
+    refuse it with the JAX package's ValueError, tests/test_torch_int8.py)."""
     x = torch.zeros(1, 128, 48)
     model = SimNet(ModelConfig(**KW), device="cpu")
     with pytest.raises(NotImplementedError, match=match):

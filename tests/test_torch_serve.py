@@ -185,14 +185,17 @@ def test_submit_validation_and_later_slices(pair):
         svc.submit(np.zeros((4, CFG.in_features), np.float32))
     with pytest.raises(NotImplementedError, match="multi-GPU slice"):
         _service(model, mesh=object())
-    with pytest.raises(NotImplementedError, match="int8 slice"):
-        _service(model, wire_dtype="int8")
+    with pytest.raises(NotImplementedError, match="multi-GPU slice"):
+        _service(model, wire_dtype="int8", long_threshold=1024)
+    with pytest.raises(ValueError, match="wire_dtype must be"):
+        _service(model, wire_dtype="int4")
 
 
 def test_port_imports_neither_jax_nor_the_jax_package():
     """Importing every module of the port in a fresh interpreter leaves jax
     and vidsum_tpu out of sys.modules, and the packages the card's machine
-    does not have (h5py, flax, optax, msgpack) too."""
+    does not have (h5py, flax, optax, msgpack) too. The int8 slice's
+    modules are among those imported."""
     code = (
         "import pkgutil, importlib, sys\n"
         "import vidsum_tpu_torch as p\n"
@@ -201,8 +204,12 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "roots = ('jax', 'vidsum_tpu', 'h5py', 'flax', 'optax', 'msgpack')\n"
         "bad = sorted(k for k in sys.modules if k.split('.')[0] in roots)\n"
         "n = sum(k.startswith('vidsum_tpu_torch') for k in sys.modules)\n"
-        "print(n, bad)\n"
-        "sys.exit(1 if bad or n < 20 else 0)\n")
+        "new = ['ops.quant', 'ops.block_kernel_int8', 'serve_http',\n"
+        "       'cli.serve', 'tools.probe_int8_mma']\n"
+        "missing = [m for m in new if 'vidsum_tpu_torch.' + m\n"
+        "           not in sys.modules]\n"
+        "print(n, bad, missing)\n"
+        "sys.exit(1 if bad or missing or n < 20 else 0)\n")
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, timeout=120)
     assert out.returncode == 0, out.stdout + out.stderr

@@ -103,6 +103,52 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<const uint32_t*>(&v);
 }
 
+// D += A.B on the int8 tensor cores, one m16n8k32 tile per warp, exact s32
+// accumulate. The byte layout of the fragments is the bf16 m16n8k16 one with
+// four int8 per register in place of two bf16 (PTX ISA, mma.m16n8k32 .s8):
+//   A (16 x 32, row-major):  a0 = A[g][4t..4t+3]     a1 = A[g+8][4t..4t+3]
+//                            a2 = A[g][4t+16..+19]   a3 = A[g+8][4t+16..+19]
+//   B (32 x 8, k x n):       b0 = B[4t..4t+3][g]     b1 = B[4t+16..+19][g]
+//   C/D (16 x 8, s32):       d0,d1 = D[g][2t..2t+1]  d2,d3 = D[g+8][2t..2t+1]
+// so a K-contiguous row of A or of B^T (nn.Linear's (out, in) weight) gives
+// every register as one aligned 32-bit load.
+__device__ __forceinline__ void mma_s8_16832(int (&d)[4], uint32_t a0,
+                                             uint32_t a1, uint32_t a2,
+                                             uint32_t a3, uint32_t b0,
+                                             uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
+      "{%0, %1, %2, %3};\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ uint32_t ld_u32(const int8_t* p) {
+  return *reinterpret_cast<const uint32_t*>(p);
+}
+
+// The int8 scheme of vidsum_tpu/ops/quant.py::quantize_rows, step for step:
+// scale = absmax / 127 where absmax > 0, else 1; codes = clip(round(x *
+// (1 / scale)), -127, 127) with round half to even. Every operation is
+// IEEE-rounded on its own (__fdiv_rn, __fmul_rn; no FMA contraction, no fast
+// math), so the codes equal the plain PyTorch version's bit for bit.
+__device__ __forceinline__ float quant_scale(float absmax) {
+  return absmax > 0.f ? __fdiv_rn(absmax, 127.f) : 1.f;
+}
+
+__device__ __forceinline__ int8_t quant_code(float x, float inv_scale) {
+  const float r = rintf(__fmul_rn(x, inv_scale));
+  return static_cast<int8_t>(fminf(fmaxf(r, -127.f), 127.f));
+}
+
+// The dequantised product of the int8 path: acc * (sx * sw) + b, rounded
+// after each operation as the plain version's separate tensor ops round.
+__device__ __forceinline__ float dequant(int acc, float sx, float sw,
+                                         float b) {
+  return __fadd_rn(__fmul_rn(__int2float_rn(acc), __fmul_rn(sx, sw)), b);
+}
+
 }  // namespace vs
 
 // Each library exports the runtime's message for the error codes its launch

@@ -42,6 +42,17 @@
 // transposed and padded so every read is conflict-free or a broadcast.
 // Neither overlaps its K/V loads with its products yet (cp.async / TMA are
 // later work).
+//
+// The int8 block (vidsum_tpu/ops/block_kernel_int8.py::_block_kernel_int8,
+// ::_block_kernel_int8_grouped) runs this attention with two differences
+// (block_kernel_int8.py:93-123): its output attn stays f32, to be quantised
+// straight from f32 for the projection, so the normalise-first bf16 kernel
+// also writes f32 (OutT); and with qk_int8 the scores are
+// i8dot(q8, k8) * (qs * ks) * scale from int8 Q and K with per-row f32
+// scales (QK8): the bf16 kernel takes them on the int8 tensor cores
+// (mma.sync m16n8k32; head_dim 16 is zero-padded to one k32 step), the f32
+// kernel on its FMA loop, where the dot of int8 values is an exact integer
+// (Dh * 127^2 < 2^24). V, P and P.V are as above.
 #include "common.cuh"
 
 namespace {
@@ -58,17 +69,24 @@ constexpr int smem_floats() {
          + DH * kPad    // Kt  [DH][kPad]
          + kBKey * DH   // Vs  [kBKey][DH]
          + kBKey * kPad // Pt  [kBKey][kPad]
-         + kBKey;       // key mask as 0/1 floats
+         + kBKey        // key mask as 0/1 floats
+         + kBKey;       // QK8: the keys' int8 scales
 }
 
-template <typename T, int DH>
+// Q and K are T, or int8 codes with per-row scales qsc / ksc (QK8), given by
+// the element strides c_b, c_h, c_n.
+template <typename T, int DH, bool QK8>
 __global__ void __launch_bounds__(kThreads)
-masked_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
+masked_attention_kernel(const void* __restrict__ q_,
+                        const void* __restrict__ k_,
                         const T* __restrict__ v,
                         const unsigned char* __restrict__ mask,
+                        const float* __restrict__ qsc,
+                        const float* __restrict__ ksc,
                         T* __restrict__ o, int N, long long s_b,
                         long long s_h, long long s_n, long long o_s_b,
-                        long long o_s_h, long long o_s_n, float scale) {
+                        long long o_s_h, long long o_s_n, long long c_b,
+                        long long c_h, long long c_n, float scale) {
   constexpr int DPT = DH / 16;  // output columns per thread
   extern __shared__ float smem[];
   float* Qt = smem;
@@ -76,6 +94,11 @@ masked_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   float* Vs = Kt + DH * kPad;
   float* Pt = Vs + kBKey * DH;
   float* Km = Pt + kBKey * kPad;
+  float* Ksc = Km + kBKey;
+  const T* q = static_cast<const T*>(q_);
+  const T* k = static_cast<const T*>(k_);
+  const int8_t* q8 = static_cast<const int8_t*>(q_);
+  const int8_t* k8 = static_cast<const int8_t*>(k_);
 
   const int tid = threadIdx.x;
   const int rg = tid >> 4;  // row group: rows 4*rg .. 4*rg+3 of the tile
@@ -84,12 +107,25 @@ masked_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int h = blockIdx.y;
   const int b = blockIdx.z;
   const long long base = (long long)b * s_b + (long long)h * s_h;
+  const long long cbase = (long long)b * c_b + (long long)h * c_h;
   const unsigned char* mrow = mask + (long long)b * N;
 
   for (int idx = tid; idx < kBQ * DH; idx += kThreads) {
     const int r = idx / DH, c = idx % DH;
     const int n = q0 + r;
-    Qt[c * kPad + r] = n < N ? vs::to_f32<T>(q[base + n * s_n + c]) : 0.f;
+    float val = 0.f;
+    if (n < N)
+      val = QK8 ? (float)q8[base + n * s_n + c]
+                : vs::to_f32<T>(q[base + n * s_n + c]);
+    Qt[c * kPad + r] = val;
+  }
+  float qs[4] = {1.f, 1.f, 1.f, 1.f};
+  if (QK8) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int n = q0 + rg * 4 + i;
+      if (n < N) qs[i] = qsc[cbase + n * c_n];
+    }
   }
 
   float m[4], l[4], acc[4][DPT];
@@ -107,12 +143,17 @@ masked_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
       const int r = idx / DH, c = idx % DH;
       const int n = k0 + r;
       const bool ok = n < N;
-      Kt[c * kPad + r] = ok ? vs::to_f32<T>(k[base + n * s_n + c]) : 0.f;
+      float kv = 0.f;
+      if (ok)
+        kv = QK8 ? (float)k8[base + n * s_n + c]
+                 : vs::to_f32<T>(k[base + n * s_n + c]);
+      Kt[c * kPad + r] = kv;
       Vs[r * DH + c] = ok ? vs::to_f32<T>(v[base + n * s_n + c]) : 0.f;
     }
     if (tid < kBKey) {
       const int n = k0 + tid;
       Km[tid] = (n >= N || mrow[n] != 0) ? 1.f : 0.f;
+      if (QK8) Ksc[tid] = n < N ? ksc[cbase + n * c_n] : 0.f;
     }
     __syncthreads();
 
@@ -139,7 +180,13 @@ masked_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
       float mx = -INFINITY;
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
-        s[i][j] = Km[cg + 16 * j] != 0.f ? -INFINITY : s[i][j] * scale;
+        // QK8: s is the exact integer dot; (dot * (qs * ks)) * scale
+        const float sj =
+            QK8 ? __fmul_rn(__fmul_rn(s[i][j],
+                                      __fmul_rn(qs[i], Ksc[cg + 16 * j])),
+                            scale)
+                : s[i][j] * scale;
+        s[i][j] = Km[cg + 16 * j] != 0.f ? -INFINITY : sj;
         mx = fmaxf(mx, s[i][j]);
       }
       mx = vs::group_max<16>(mx);
@@ -211,32 +258,52 @@ masked_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
 // and the output is divided by l at the end.
 constexpr int kMmaThreads = 128;
 constexpr int kLdsPad = 8;
+constexpr int kLds8Pad = 16;  // int8 rows: DH + 16 bytes (20 words at DH 64)
 
-template <int DH>
+template <int DH, bool QK8>
 constexpr int mma_smem_bytes() {
-  return (kBQ + 2 * kBKey) * (DH + kLdsPad) * 2  // Qs, Ks, Vs [rows][DH+8]
-         + kBKey * 4;                             // key mask as 0/1 floats
+  return QK8 ? (kBQ + kBKey) * (DH + kLds8Pad)      // Q8s, K8s [rows][DH+16]
+                   + kBKey * (DH + kLdsPad) * 2     // Vs [rows][DH+8] bf16
+                   + 2 * kBKey * 4                  // key mask, key scales
+             : (kBQ + 2 * kBKey) * (DH + kLdsPad) * 2  // Qs, Ks, Vs
+                   + kBKey * 4;                        // key mask
 }
 
-template <int DH, bool NORM_FIRST>
+// OutT: bf16, or f32 for the int8 block's attn. QK8: q and k are int8 codes
+// with per-row scales qsc / ksc (element strides c_b, c_h, c_n); vec says
+// the bf16 rows allow 16-byte loads, vec8 the int8 rows.
+template <int DH, bool NORM_FIRST, typename OutT, bool QK8>
 __global__ void __launch_bounds__(kMmaThreads)
-masked_attention_mma_kernel(const __nv_bfloat16* __restrict__ q,
-                            const __nv_bfloat16* __restrict__ k,
+masked_attention_mma_kernel(const void* __restrict__ q_,
+                            const void* __restrict__ k_,
                             const __nv_bfloat16* __restrict__ v,
                             const unsigned char* __restrict__ mask,
-                            __nv_bfloat16* __restrict__ o, int N,
+                            const float* __restrict__ qsc,
+                            const float* __restrict__ ksc,
+                            OutT* __restrict__ o, int N,
                             long long s_b, long long s_h, long long s_n,
                             long long o_s_b, long long o_s_h,
-                            long long o_s_n, float scale, bool vec) {
+                            long long o_s_n, long long c_b, long long c_h,
+                            long long c_n, float scale, bool vec,
+                            bool vec8) {
   using bf = __nv_bfloat16;
   constexpr int LQ = DH + kLdsPad;     // row length of Qs, Ks and Vs
+  constexpr int LQ8 = DH + kLds8Pad;   // row length of Q8s and K8s (bytes)
   constexpr int KS = DH / 16;          // k16 steps of Q.K^T
+  constexpr int KS8 = (DH + 31) / 32;  // k32 steps of the int8 Q.K^T
   constexpr int ND = DH / 8;           // n8 tiles of the output
   extern __shared__ __align__(16) unsigned char smem_raw[];
   bf* Qs = reinterpret_cast<bf*>(smem_raw);
   bf* Ks = Qs + kBQ * LQ;
-  bf* Vs = Ks + kBKey * LQ;
+  int8_t* Q8s = reinterpret_cast<int8_t*>(smem_raw);
+  int8_t* K8s = Q8s + kBQ * LQ8;
+  bf* Vs = QK8 ? reinterpret_cast<bf*>(K8s + kBKey * LQ8) : Ks + kBKey * LQ;
   float* Km = reinterpret_cast<float*>(Vs + kBKey * LQ);
+  float* Ksc = Km + kBKey;
+  const bf* q = static_cast<const bf*>(q_);
+  const bf* k = static_cast<const bf*>(k_);
+  const int8_t* q8 = static_cast<const int8_t*>(q_);
+  const int8_t* k8 = static_cast<const int8_t*>(k_);
 
   const int tid = threadIdx.x;
   const int warp = tid >> 5, lane = tid & 31;
@@ -244,6 +311,8 @@ masked_attention_mma_kernel(const __nv_bfloat16* __restrict__ q,
   const int q0 = blockIdx.x * kBQ;
   const long long base = (long long)blockIdx.z * s_b +
                          (long long)blockIdx.y * s_h;
+  const long long cbase = (long long)blockIdx.z * c_b +
+                          (long long)blockIdx.y * c_h;
   const unsigned char* mrow = mask + (long long)blockIdx.z * N;
   const bf zero = __float2bfloat16(0.f);
 
@@ -264,18 +333,56 @@ masked_attention_mma_kernel(const __nv_bfloat16* __restrict__ q,
       *reinterpret_cast<uint4*>(&dst[r * LQ + cc]) = raw;
     }
   };
+  // 64 rows of DH int8 codes in 16-byte chunks, zeros past N
+  auto stage8 = [&](const int8_t* src, int n0, int8_t* dst) {
+    for (int c = tid; c < 64 * (DH / 16); c += kMmaThreads) {
+      const int r = c / (DH / 16), cc = (c % (DH / 16)) * 16;
+      const int n = n0 + r;
+      const int8_t* p = src + base + (long long)n * s_n + cc;
+      uint4 raw;
+      if (vec8 && n < N) {
+        raw = *reinterpret_cast<const uint4*>(p);
+      } else {
+        int8_t* vals = reinterpret_cast<int8_t*>(&raw);
+#pragma unroll
+        for (int j = 0; j < 16; ++j) vals[j] = n < N ? p[j] : int8_t(0);
+      }
+      *reinterpret_cast<uint4*>(&dst[r * LQ8 + cc]) = raw;
+    }
+  };
 
-  stage(q, q0, Qs);
-  __syncthreads();
-  uint32_t qa[KS][4];
+  uint32_t qa[QK8 ? 1 : KS][4];
+  uint32_t qa8[QK8 ? KS8 : 1][4];
+  float qs_row[2] = {1.f, 1.f};  // QK8: the scales of rows g and g + 8
   {
     const int r = warp * 16 + g;
+    if constexpr (QK8) {
+      stage8(q8, q0, Q8s);
+      __syncthreads();
 #pragma unroll
-    for (int ks = 0; ks < KS; ++ks) {
-      qa[ks][0] = vs::ld_pair(&Qs[r * LQ + ks * 16 + 2 * t]);
-      qa[ks][1] = vs::ld_pair(&Qs[(r + 8) * LQ + ks * 16 + 2 * t]);
-      qa[ks][2] = vs::ld_pair(&Qs[r * LQ + ks * 16 + 8 + 2 * t]);
-      qa[ks][3] = vs::ld_pair(&Qs[(r + 8) * LQ + ks * 16 + 8 + 2 * t]);
+      for (int ks = 0; ks < KS8; ++ks) {
+        const int c = ks * 32 + 4 * t;
+        qa8[ks][0] = vs::ld_u32(&Q8s[r * LQ8 + c]);
+        qa8[ks][1] = vs::ld_u32(&Q8s[(r + 8) * LQ8 + c]);
+        qa8[ks][2] = c + 16 < DH ? vs::ld_u32(&Q8s[r * LQ8 + c + 16]) : 0u;
+        qa8[ks][3] =
+            c + 16 < DH ? vs::ld_u32(&Q8s[(r + 8) * LQ8 + c + 16]) : 0u;
+      }
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int n = q0 + r + 8 * h;
+        if (n < N) qs_row[h] = qsc[cbase + (long long)n * c_n];
+      }
+    } else {
+      stage(q, q0, Qs);
+      __syncthreads();
+#pragma unroll
+      for (int ks = 0; ks < KS; ++ks) {
+        qa[ks][0] = vs::ld_pair(&Qs[r * LQ + ks * 16 + 2 * t]);
+        qa[ks][1] = vs::ld_pair(&Qs[(r + 8) * LQ + ks * 16 + 2 * t]);
+        qa[ks][2] = vs::ld_pair(&Qs[r * LQ + ks * 16 + 8 + 2 * t]);
+        qa[ks][3] = vs::ld_pair(&Qs[(r + 8) * LQ + ks * 16 + 8 + 2 * t]);
+      }
     }
   }
 
@@ -289,11 +396,15 @@ masked_attention_mma_kernel(const __nv_bfloat16* __restrict__ q,
   // the key tile at k0 (and its V rows if with_v) into shared memory
   auto stage_keys = [&](int k0, bool with_v) {
     __syncthreads();  // the previous tile's readers are done
-    stage(k, k0, Ks);
+    if constexpr (QK8)
+      stage8(k8, k0, K8s);
+    else
+      stage(k, k0, Ks);
     if (with_v) stage(v, k0, Vs);
     if (tid < kBKey) {
       const int n = k0 + tid;
       Km[tid] = (n >= N || mrow[n] != 0) ? 1.f : 0.f;
+      if (QK8) Ksc[tid] = n < N ? ksc[cbase + (long long)n * c_n] : 0.f;
     }
     __syncthreads();
   };
@@ -302,18 +413,41 @@ masked_attention_mma_kernel(const __nv_bfloat16* __restrict__ q,
   auto scores = [&](float (&s)[8][4]) {
 #pragma unroll
     for (int ni = 0; ni < 8; ++ni) {
+      if constexpr (QK8) {
+        int d8[4] = {0, 0, 0, 0};
+        const int8_t* krow = &K8s[(ni * 8 + g) * LQ8];
 #pragma unroll
-      for (int e = 0; e < 4; ++e) s[ni][e] = 0.f;
-      const bf* krow = &Ks[(ni * 8 + g) * LQ];
+        for (int ks = 0; ks < KS8; ++ks) {
+          const int c = ks * 32 + 4 * t;
+          vs::mma_s8_16832(d8, qa8[ks][0], qa8[ks][1], qa8[ks][2],
+                           qa8[ks][3], vs::ld_u32(krow + c),
+                           c + 16 < DH ? vs::ld_u32(krow + c + 16) : 0u);
+        }
+        // (i8dot * (qs * ks)) * scale, block_kernel_int8.py:105-108
 #pragma unroll
-      for (int ks = 0; ks < KS; ++ks)
-        vs::mma_bf16_16816(s[ni], qa[ks][0], qa[ks][1], qa[ks][2], qa[ks][3],
-                           vs::ld_pair(krow + ks * 16 + 2 * t),
-                           vs::ld_pair(krow + ks * 16 + 8 + 2 * t));
+        for (int e = 0; e < 4; ++e) {
+          const int key = ni * 8 + 2 * t + (e & 1);
+          s[ni][e] = Km[key] != 0.f
+                         ? -INFINITY
+                         : __fmul_rn(__fmul_rn(__int2float_rn(d8[e]),
+                                               __fmul_rn(qs_row[e >> 1],
+                                                         Ksc[key])),
+                                     scale);
+        }
+      } else {
 #pragma unroll
-      for (int e = 0; e < 4; ++e)
-        s[ni][e] = Km[ni * 8 + 2 * t + (e & 1)] != 0.f ? -INFINITY
-                                                       : s[ni][e] * scale;
+        for (int e = 0; e < 4; ++e) s[ni][e] = 0.f;
+        const bf* krow = &Ks[(ni * 8 + g) * LQ];
+#pragma unroll
+        for (int ks = 0; ks < KS; ++ks)
+          vs::mma_bf16_16816(s[ni], qa[ks][0], qa[ks][1], qa[ks][2],
+                             qa[ks][3], vs::ld_pair(krow + ks * 16 + 2 * t),
+                             vs::ld_pair(krow + ks * 16 + 8 + 2 * t));
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          s[ni][e] = Km[ni * 8 + 2 * t + (e & 1)] != 0.f ? -INFINITY
+                                                         : s[ni][e] * scale;
+      }
     }
   };
   // fold row half h of the tile into (m, l) with the folded kernel's _DEAD
@@ -415,96 +549,95 @@ masked_attention_mma_kernel(const __nv_bfloat16* __restrict__ q,
     if (n >= N) continue;
     const float inv = NORM_FIRST ? 1.f : (l[h] == 0.f ? 0.f : 1.f / l[h]);
 #pragma unroll
-    for (int nd = 0; nd < ND; ++nd)
-      *reinterpret_cast<__nv_bfloat162*>(&o[obase + n * o_s_n + nd * 8 +
-                                            2 * t]) =
-          __floats2bfloat162_rn(acc[nd][2 * h] * inv,
-                                acc[nd][2 * h + 1] * inv);
+    for (int nd = 0; nd < ND; ++nd) {
+      OutT* dst = &o[obase + n * o_s_n + nd * 8 + 2 * t];
+      if constexpr (sizeof(OutT) == 4)
+        *reinterpret_cast<float2*>(dst) =
+            make_float2(acc[nd][2 * h] * inv, acc[nd][2 * h + 1] * inv);
+      else
+        *reinterpret_cast<__nv_bfloat162*>(dst) = __floats2bfloat162_rn(
+            acc[nd][2 * h] * inv, acc[nd][2 * h + 1] * inv);
+    }
   }
 }
 
-template <int DH, bool NORM_FIRST>
-cudaError_t launch_mma(const void* q, const void* k, const void* v,
-                       const unsigned char* mask, void* o, int B, int H,
-                       int N, long long s_b, long long s_h, long long s_n,
-                       long long o_s_b, long long o_s_h, long long o_s_n,
-                       float scale, cudaStream_t stream) {
-  constexpr int bytes = mma_smem_bytes<DH>();
+// The arguments every launch passes through.
+struct Args {
+  const void* q;
+  const void* k;
+  const void* v;
+  const unsigned char* mask;
+  void* o;
+  const float* qsc;
+  const float* ksc;
+  int B, H, N;
+  long long s_b, s_h, s_n, o_s_b, o_s_h, o_s_n, c_b, c_h, c_n;
+  float scale;
+};
+
+template <int DH, bool NORM_FIRST, typename OutT, bool QK8>
+cudaError_t launch_mma(const Args& a, cudaStream_t stream) {
+  constexpr int bytes = mma_smem_bytes<DH, QK8>();
+  auto kernel = masked_attention_mma_kernel<DH, NORM_FIRST, OutT, QK8>;
   cudaError_t err = cudaFuncSetAttribute(
-      masked_attention_mma_kernel<DH, NORM_FIRST>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err != cudaSuccess) return err;
   // 16-byte staging loads need 16-byte aligned rows
-  const bool vec = s_b % 8 == 0 && s_h % 8 == 0 && s_n % 8 == 0 &&
-                   reinterpret_cast<uintptr_t>(q) % 16 == 0 &&
-                   reinterpret_cast<uintptr_t>(k) % 16 == 0 &&
-                   reinterpret_cast<uintptr_t>(v) % 16 == 0;
-  const dim3 grid((N + kBQ - 1) / kBQ, H, B);
-  using bf = __nv_bfloat16;
-  masked_attention_mma_kernel<DH, NORM_FIRST>
-      <<<grid, kMmaThreads, bytes, stream>>>(
-          static_cast<const bf*>(q), static_cast<const bf*>(k),
-          static_cast<const bf*>(v), mask, static_cast<bf*>(o), N, s_b, s_h,
-          s_n, o_s_b, o_s_h, o_s_n, scale, vec);
+  const bool strided8 = a.s_b % 8 == 0 && a.s_h % 8 == 0 && a.s_n % 8 == 0;
+  const bool strided16 =
+      a.s_b % 16 == 0 && a.s_h % 16 == 0 && a.s_n % 16 == 0;
+  auto al16 = [](const void* p) {
+    return reinterpret_cast<uintptr_t>(p) % 16 == 0;
+  };
+  const bool vec = strided8 && al16(a.v) && (QK8 || (al16(a.q) && al16(a.k)));
+  const bool vec8 = QK8 && strided16 && al16(a.q) && al16(a.k);
+  const dim3 grid((a.N + kBQ - 1) / kBQ, a.H, a.B);
+  kernel<<<grid, kMmaThreads, bytes, stream>>>(
+      a.q, a.k, static_cast<const __nv_bfloat16*>(a.v), a.mask, a.qsc, a.ksc,
+      static_cast<OutT*>(a.o), a.N, a.s_b, a.s_h, a.s_n, a.o_s_b, a.o_s_h,
+      a.o_s_n, a.c_b, a.c_h, a.c_n, a.scale, vec, vec8);
   return cudaGetLastError();
 }
 
-template <typename T, int DH>
-cudaError_t launch(const void* q, const void* k, const void* v,
-                   const unsigned char* mask, void* o, int B, int H, int N,
-                   long long s_b, long long s_h, long long s_n,
-                   long long o_s_b, long long o_s_h, long long o_s_n,
-                   float scale, cudaStream_t stream) {
+template <typename T, int DH, bool QK8>
+cudaError_t launch(const Args& a, cudaStream_t stream) {
   constexpr int bytes = smem_floats<DH>() * (int)sizeof(float);
+  auto kernel = masked_attention_kernel<T, DH, QK8>;
   cudaError_t err = cudaFuncSetAttribute(
-      masked_attention_kernel<T, DH>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err != cudaSuccess) return err;
-  const dim3 grid((N + kBQ - 1) / kBQ, H, B);
-  masked_attention_kernel<T, DH><<<grid, kThreads, bytes, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), mask, static_cast<T*>(o), N, s_b, s_h, s_n,
-      o_s_b, o_s_h, o_s_n, scale);
+  const dim3 grid((a.N + kBQ - 1) / kBQ, a.H, a.B);
+  kernel<<<grid, kThreads, bytes, stream>>>(
+      a.q, a.k, static_cast<const T*>(a.v), a.mask, a.qsc, a.ksc,
+      static_cast<T*>(a.o), a.N, a.s_b, a.s_h, a.s_n, a.o_s_b, a.o_s_h,
+      a.o_s_n, a.c_b, a.c_h, a.c_n, a.scale);
   return cudaGetLastError();
 }
 
 // head_dim 64 is the flagship's, 16 that of the d 64 test configurations
-template <typename T>
-cudaError_t launch_dh(const void* q, const void* k, const void* v,
-                      const unsigned char* mask, void* o, int B, int H, int N,
-                      int Dh, long long s_b, long long s_h, long long s_n,
-                      long long o_s_b, long long o_s_h, long long o_s_n,
-                      float scale, cudaStream_t stream) {
+template <typename T, bool QK8>
+cudaError_t launch_dh(const Args& a, int Dh, cudaStream_t stream) {
   switch (Dh) {
     case 16:
-      return launch<T, 16>(q, k, v, mask, o, B, H, N, s_b, s_h, s_n, o_s_b,
-                           o_s_h, o_s_n, scale, stream);
+      return launch<T, 16, QK8>(a, stream);
     case 64:
-      return launch<T, 64>(q, k, v, mask, o, B, H, N, s_b, s_h, s_n, o_s_b,
-                           o_s_h, o_s_n, scale, stream);
+      return launch<T, 64, QK8>(a, stream);
     default:
       return cudaErrorInvalidValue;
   }
 }
 
-template <bool NORM_FIRST>
-cudaError_t launch_mma_dh(const void* q, const void* k, const void* v,
-                          const unsigned char* mask, void* o, int B, int H,
-                          int N, int Dh, long long s_b, long long s_h,
-                          long long s_n, long long o_s_b, long long o_s_h,
-                          long long o_s_n, float scale, cudaStream_t stream) {
-  // the output is written as bf16 pairs
-  if ((o_s_b | o_s_h | o_s_n) & 1 || reinterpret_cast<uintptr_t>(o) % 4)
+template <bool NORM_FIRST, typename OutT, bool QK8>
+cudaError_t launch_mma_dh(const Args& a, int Dh, cudaStream_t stream) {
+  // the output is written as pairs
+  if ((a.o_s_b | a.o_s_h | a.o_s_n) & 1 ||
+      reinterpret_cast<uintptr_t>(a.o) % (2 * sizeof(OutT)))
     return cudaErrorMisalignedAddress;
   switch (Dh) {
     case 16:
-      return launch_mma<16, NORM_FIRST>(q, k, v, mask, o, B, H, N, s_b, s_h,
-                                        s_n, o_s_b, o_s_h, o_s_n, scale,
-                                        stream);
+      return launch_mma<16, NORM_FIRST, OutT, QK8>(a, stream);
     case 64:
-      return launch_mma<64, NORM_FIRST>(q, k, v, mask, o, B, H, N, s_b, s_h,
-                                        s_n, o_s_b, o_s_h, o_s_n, scale,
-                                        stream);
+      return launch_mma<64, NORM_FIRST, OutT, QK8>(a, stream);
     default:
       return cudaErrorInvalidValue;
   }
@@ -512,28 +645,39 @@ cudaError_t launch_mma_dh(const void* q, const void* k, const void* v,
 
 }  // namespace
 
+// q, k, v: (B, H, N, Dh) views with element strides s_b, s_h, s_n in dtype,
+// or, with qsc / ksc given, q and k int8 codes at the same strides and
+// qsc / ksc their per-row f32 scales at strides c_b, c_h, c_n (qk_int8). o in
+// out_dtype: dtype, or f32 for bf16 inputs with norm_first (the int8 block).
 extern "C" int vs_masked_attention(const void* q, const void* k,
                                    const void* v, const unsigned char* mask,
-                                   void* o, int B, int H, int N, int Dh,
-                                   long long s_b, long long s_h,
+                                   void* o, const float* qsc,
+                                   const float* ksc, int B, int H, int N,
+                                   int Dh, long long s_b, long long s_h,
                                    long long s_n, long long o_s_b,
                                    long long o_s_h, long long o_s_n,
-                                   float scale, int dtype, int norm_first,
+                                   long long c_b, long long c_h,
+                                   long long c_n, float scale, int dtype,
+                                   int out_dtype, int norm_first,
                                    void* stream) {
   if (B <= 0 || H <= 0 || N <= 0 || B > 65535 || H > 65535)
     return (int)cudaErrorInvalidValue;
+  const bool qk8 = qsc != nullptr;
+  if (qk8 != (ksc != nullptr)) return (int)cudaErrorInvalidValue;
+  const Args a{q, k, v, mask, o, qsc, ksc, B, H, N, s_b, s_h, s_n,
+               o_s_b, o_s_h, o_s_n, c_b, c_h, c_n, scale};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t err;
-  if (dtype == vs::kF32)  // rounding P to f32 is the identity: one pass
-    err = launch_dh<float>(q, k, v, mask, o, B, H, N, Dh, s_b, s_h, s_n,
-                           o_s_b, o_s_h, o_s_n, scale, s);
-  else if (dtype == vs::kBF16 && norm_first)
-    err = launch_mma_dh<true>(q, k, v, mask, o, B, H, N, Dh, s_b, s_h, s_n,
-                              o_s_b, o_s_h, o_s_n, scale, s);
-  else if (dtype == vs::kBF16)
-    err = launch_mma_dh<false>(q, k, v, mask, o, B, H, N, Dh, s_b, s_h, s_n,
-                               o_s_b, o_s_h, o_s_n, scale, s);
-  else
-    err = cudaErrorInvalidValue;
+  cudaError_t err = cudaErrorInvalidValue;
+  if (dtype == vs::kF32 && out_dtype == vs::kF32) {
+    // rounding P to f32 is the identity: one pass
+    err = qk8 ? launch_dh<float, true>(a, Dh, s)
+              : launch_dh<float, false>(a, Dh, s);
+  } else if (dtype == vs::kBF16 && out_dtype == vs::kBF16 && !qk8) {
+    err = norm_first ? launch_mma_dh<true, __nv_bfloat16, false>(a, Dh, s)
+                     : launch_mma_dh<false, __nv_bfloat16, false>(a, Dh, s);
+  } else if (dtype == vs::kBF16 && out_dtype == vs::kF32 && norm_first) {
+    err = qk8 ? launch_mma_dh<true, float, true>(a, Dh, s)
+              : launch_mma_dh<true, float, false>(a, Dh, s);
+  }
   return (int)err;
 }

@@ -7,6 +7,7 @@ SimNet`, keyed like the reference's checkpoints
 (``embedding_layer.feature_transform.*``, ``encoder.module_list.{i}.*``,
 ``final_layer.*``). Linear weights transpose from the JAX (in, out) layout to
 nn.Linear's (out, in). :func:`params_to_jax` is its inverse, for tests.
+:func:`load_torch_checkpoint` reads a reference-trained ``.pth``.
 """
 
 from __future__ import annotations
@@ -84,3 +85,12 @@ def params_to_jax(state: Dict[str, torch.Tensor]) -> Params:
     if "embedding_layer.cls_token" in state:
         params["cls"] = arr("embedding_layer.cls_token")
     return params
+
+
+def load_torch_checkpoint(path: str) -> Dict[str, torch.Tensor]:
+    """A reference-trained SimNet ``.pth`` (``model_mae.pth``) as a state
+    dict for :class:`~vidsum_tpu_torch.models.simnet.SimNet`: its keys are
+    the port's module names already; the positional-encoding buffer (a key
+    ending in ``pe``, recomputed in closed form here) is dropped."""
+    state = torch.load(path, map_location="cpu", weights_only=True)
+    return {k: v for k, v in state.items() if k.split(".")[-1] != "pe"}

@@ -20,6 +20,8 @@ converted from the JAX package (``models/convert.py``) load as they are.
     ``"dense"``        <-> ``"xla"``            plain PyTorch attention
     ``"flash"``        <-> ``"pallas"``         ops/attention.flash_attention
     ``"fused_block"``  <-> ``"pallas_block"``   ops/block_kernel.fused_encoder_block
+    ``"int8_dense"``   <-> ``"int8_xla"``       ops/quant.int8_encoder_block_dense
+    ``"int8_block"``   <-> ``"int8_block"``     ops/block_kernel_int8.fused_encoder_block_int8
 
 The default is ``"fused_block"`` on CUDA and ``"dense"`` on the CPU. The
 ladder is the JAX package's: ``"fused_block"`` demotes to ``"flash"`` when
@@ -29,6 +31,18 @@ sigmoid are plain PyTorch, as are the projections, MLP and LayerNorms around
 the attention kernel on the ``"flash"`` route; on CUDA the embed and head
 run through ``gemm_bias_epilogue`` so that a row's scores do not depend on
 the batch it was served in (cuBLAS picks its algorithm by shape).
+
+The int8 routes are the JAX package's opt-in lossy W8A8 scorer
+(``simnet.py:235-311``): inference only, post-LN only, no ``return_attn``,
+no ``attn_fn`` (each a ``ValueError`` with the JAX message). Before the
+embed, ``"int8_block"`` demotes to ``"int8_dense"`` when the sequence
+(with the CLS token) is not a multiple of 128, and past
+``fused_block_int8_supported`` leaves quantisation for ``"flash"``
+(lossless). The embed runs through ``ops/quant.int8_linear``, rounded to the
+compute dtype, each block on its ``quantize_block`` codes (cached per
+parameter version), the head as on the other routes. On CUDA every int8
+product (embed, dense route, kernels) runs on ``csrc/int8_gemm.cu``, whose
+integer sums are exact, so a row's scores do not depend on its batch.
 
 Training (``deterministic=False``) follows the JAX package's routes: on
 ``"fused_block"`` every block runs ``ops/block_train.fused_block_train``
@@ -62,17 +76,40 @@ from vidsum_tpu_torch.device import dtype_of, resolve_device
 from vidsum_tpu_torch.ops.attention import attention_reference, flash_attention
 from vidsum_tpu_torch.ops.attention_train import flash_attention_dropout
 from vidsum_tpu_torch.ops.block_kernel import (
-    fused_block_supported, fused_encoder_block, gemm_bias_epilogue,
+    cached, fused_block_supported, fused_encoder_block, gemm_bias_epilogue,
+)
+from vidsum_tpu_torch.ops.block_kernel_int8 import (
+    fused_block_int8_supported, fused_encoder_block_int8,
 )
 from vidsum_tpu_torch.ops.block_train import (
     fused_block_train, fused_block_train_supported,
 )
+from vidsum_tpu_torch.ops.quant import (
+    int8_encoder_block_dense, int8_linear, quantize_block, quantize_weight,
+)
 
-ATTN_IMPLS = ("dense", "flash", "fused_block")
+ATTN_IMPLS = ("dense", "flash", "fused_block", "int8_dense", "int8_block")
 _LATER = {
-    "int8": "the int8 slice",
     "attn_fn": "the multi-GPU slice",
 }
+
+
+def _int8_checks(deterministic: bool, return_attn: bool, cfg: ModelConfig,
+                 attn_fn) -> None:
+    """The int8 route's preconditions, with the JAX package's messages."""
+    if not deterministic:
+        raise ValueError("int8 scoring path is inference-only; use the "
+                         "bf16 kernels for training")
+    if return_attn:
+        raise ValueError("int8 scoring path does not return attention "
+                         "maps; use attn_impl='xla' for export")
+    if cfg.norm_first:
+        raise ValueError("int8 scoring path implements the reference's "
+                         "post-LN block only")
+    if attn_fn is not None:
+        raise ValueError("int8 scoring path does not compose with a "
+                         "caller-supplied attention (ring); use the "
+                         "bf16 ladder for sequence-parallel scoring")
 
 
 class Embedding(nn.Module):
@@ -248,24 +285,33 @@ class SimNet(nn.Module):
         except on ``"flash"``, whose attention keeps its in-kernel dropout
         (the ``"attn"`` masks are not read there)."""
         cfg = self.cfg
-        if attn_fn is not None:
-            raise NotImplementedError("attn_fn arrives with "
-                                      + _LATER["attn_fn"])
-        if (not deterministic and generator is None and dropout_masks is None
-                and block_seeds is None):
-            raise ValueError("generator is required when deterministic=False")
         if attn_impl is None:
             attn_impl = "fused_block" if x.device.type == "cuda" else "dense"
-        if attn_impl.startswith("int8"):
-            raise NotImplementedError(f"{attn_impl!r} arrives with "
-                                      + _LATER["int8"])
         if attn_impl not in ATTN_IMPLS:
             raise ValueError(f"attn_impl must be one of {ATTN_IMPLS}, got "
                              f"{attn_impl!r}")
+        if (not deterministic and generator is None and dropout_masks is None
+                and block_seeds is None):
+            raise ValueError("generator is required when deterministic=False")
+        use_int8 = attn_impl.startswith("int8")
+        if use_int8:
+            _int8_checks(deterministic, return_attn, cfg, attn_fn)
+        if attn_fn is not None:
+            raise NotImplementedError("attn_fn arrives with "
+                                      + _LATER["attn_fn"])
 
         dt = dtype_of(cfg.compute_dtype)
         x = x.to(dt)
         B, N, _ = x.shape
+        if attn_impl == "int8_block":
+            # decided before the embed, so a demoted forward is lossless
+            # throughout (simnet.py:253-267)
+            n_eff = N + (1 if cfg.use_cls else 0)
+            if n_eff % 128 != 0:
+                attn_impl = "int8_dense"
+            elif not fused_block_int8_supported(B, n_eff, cfg.d_model,
+                                                x.element_size()):
+                attn_impl, use_int8 = "flash", False
         # the embed/head kernel has no backward: training takes autograd's
         linear = (_kernel_linear if x.device.type == "cuda" and deterministic
                   else _linear)
@@ -278,7 +324,12 @@ class SimNet(nn.Module):
             return made[0]
 
         emb = self.embedding_layer
-        h = linear(emb.feature_transform, x)
+        if use_int8:
+            ew, es = cached(emb.feature_transform, "int8",
+                            lambda m: quantize_weight(m.weight))
+            h = int8_linear(x, ew, es, emb.feature_transform.bias).to(dt)
+        else:
+            h = linear(emb.feature_transform, x)
         if cfg.use_pos:
             pe = self._pe(max(cfg.max_len, pe_len or 0, N), x.device)
             h = h + pe[None, :N].to(dt)
@@ -291,6 +342,14 @@ class SimNet(nn.Module):
                 pad_mask = torch.cat(
                     [torch.zeros((B, 1), dtype=torch.bool,
                                  device=pad_mask.device), pad_mask], dim=1)
+
+        if use_int8:
+            for block in self.encoder.module_list:
+                qb = cached(block, "int8", quantize_block)
+                run = (fused_encoder_block_int8 if attn_impl == "int8_block"
+                       else int8_encoder_block_dense)
+                h = run(qb, h, pad_mask, cfg.num_heads, cfg.attn_scale)
+            return linear(self.final_layer, h).float(), h
 
         n_eff = h.shape[1]
         if attn_impl == "fused_block" and (deterministic

@@ -26,7 +26,7 @@ PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(PKG_DIR, "_build")
 KERNELS = ("gemm_bias_epilogue", "masked_attention", "block_train",
-           "attention_train")
+           "attention_train", "int8_gemm")
 HEADERS = ("common.cuh", "attention_core.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
@@ -38,8 +38,8 @@ _SIGNATURES = {
     "gemm_bias_epilogue": {
         "vs_gemm_bias_epilogue": [_vp] * 9 + [_int] * 5 + [_f32, _vp]},
     "masked_attention": {
-        "vs_masked_attention": [_vp] * 5 + [_int] * 4 + [_ll] * 6
-        + [_f32, _int, _int, _vp]},
+        "vs_masked_attention": [_vp] * 7 + [_int] * 4 + [_ll] * 9
+        + [_f32, _int, _int, _int, _vp]},
     "block_train": {
         "vs_bt_gemm": [_vp] * 8 + [_int] * 3 + [_ll] * 4 + [_int] * 2
         + [_uint, _int, _int, _uint, _f32, _vp],
@@ -57,6 +57,9 @@ _SIGNATURES = {
         + [_f32, _uint, _uint, _f32, _int, _int, _vp],
         "vs_at_bwd": [_vp] * 11 + [_int] * 4
         + [_f32, _uint, _uint, _f32, _int, _int, _vp]},
+    "int8_gemm": {
+        "vs_int8_gemm": [_vp] * 13 + [_int] * 5 + [_f32, _vp],
+        "vs_quantize_rows": [_vp] * 3 + [_int] * 3 + [_vp]},
 }
 
 _lock = threading.Lock()

@@ -77,55 +77,101 @@ def attention_folded_reference(q, k, v, pad_mask, scale: float,
 
 # -------------------------------------------------------------- the kernel
 
+def attention_q8_reference(q8, k8, v, qs, ks, pad_mask, scale: float,
+                           out_dtype) -> torch.Tensor:
+    """The int8 block's attention with ``qk_int8``
+    (``block_kernel_int8.py::_block_kernel_int8``, lines 105-120): scores
+    ``i8dot(q8, k8) * (qs * ks) * scale`` (the integer dot exact, in f64),
+    the softmax normalised by a reciprocal multiply, P rounded to v's dtype,
+    P.V in f32; the output in ``out_dtype``."""
+    dot = torch.matmul(q8.double(), k8.double().transpose(-1, -2)).float()
+    s = dot * (qs[..., :, None] * ks[..., None, :]) * scale
+    if pad_mask is not None:
+        s = s.masked_fill(pad_mask[:, None, None, :], float("-inf"))
+    e = torch.exp(s - s.amax(dim=-1, keepdim=True))
+    p = e * (1.0 / e.sum(dim=-1, keepdim=True))
+    return torch.matmul(p.to(v.dtype).float(), v.float()).to(out_dtype)
+
+
 def masked_attention(q, k, v, pad_mask, scale: float,
                      out: Optional[torch.Tensor] = None,
-                     norm_first: bool = True) -> torch.Tensor:
+                     norm_first: bool = True, qk_scales=None) -> torch.Tensor:
     """Launch ``csrc/masked_attention.cu`` on CUDA tensors.
 
     ``q``/``k``/``v`` are (B, H, N, Dh) views with equal strides and a
     contiguous last dim (they may be slices of one fused QKV buffer), Dh 16
     or 64; ``pad_mask`` is (B, N) bool, True at padded keys; ``out``, if
-    given, is a (B, H, N, Dh) view to write into. ``norm_first`` rounds the
-    normalised probabilities to the input dtype, as the single-pass and block
-    TPU kernels do; without it the unnormalised ones of an online softmax
-    over the kernel's 64-key tiles are rounded, as the folded TPU kernel
-    does. On CPU tensors this is :func:`attention_reference` or
-    :func:`attention_folded_reference` over 64-key blocks."""
-    if q.device.type == "cpu":
-        ref = (attention_reference(q, k, v, pad_mask, scale) if norm_first
-               else attention_folded_reference(q, k, v, pad_mask, scale,
-                                               KEY_TILE))
+    given, is a (B, H, N, Dh) view to write into, in v's dtype or, for bf16
+    inputs with ``norm_first``, in f32 (the int8 block's attn). ``norm_first``
+    rounds the normalised probabilities to the input dtype, as the
+    single-pass and block TPU kernels do; without it the unnormalised ones of
+    an online softmax over the kernel's 64-key tiles are rounded, as the
+    folded TPU kernel does. ``qk_scales=(qs, ks)``, (B, H, N) f32 views, make
+    ``q`` and ``k`` int8 codes with those per-row scales (the int8 block's
+    ``qk_int8``). On CPU tensors this is :func:`attention_reference`,
+    :func:`attention_folded_reference` over 64-key blocks or
+    :func:`attention_q8_reference`."""
+    if v.device.type == "cpu":
+        if qk_scales is not None:
+            ref = attention_q8_reference(
+                q, k, v, *qk_scales, pad_mask, scale,
+                v.dtype if out is None else out.dtype)
+        elif norm_first:
+            ref = attention_reference(q, k, v, pad_mask, scale)
+        else:
+            ref = attention_folded_reference(q, k, v, pad_mask, scale,
+                                             KEY_TILE)
         if out is None:
             return ref
         out.copy_(ref)
         return out
-    B, H, N, Dh = q.shape
+    B, H, N, Dh = v.shape
     if k.shape != q.shape or v.shape != q.shape:
         raise ValueError("q, k and v must have one shape")
     if k.stride() != q.stride() or v.stride() != q.stride():
         raise ValueError("q, k and v must have equal strides")
-    if q.stride(-1) != 1 or not (q.dtype == k.dtype == v.dtype):
-        raise ValueError("q, k, v need a contiguous last dim and one dtype")
+    if q.stride(-1) != 1:
+        raise ValueError("q, k, v need a contiguous last dim")
+    qsc = ksc = None
+    if qk_scales is None:
+        if not (q.dtype == k.dtype == v.dtype):
+            raise ValueError("q, k and v must have one dtype")
+    else:
+        qsc, ksc = qk_scales
+        if q.dtype != torch.int8 or k.dtype != torch.int8:
+            raise ValueError("with qk_scales, q and k are int8 codes")
+        if (qsc.shape != (B, H, N) or ksc.shape != qsc.shape
+                or qsc.stride() != ksc.stride()
+                or qsc.dtype != torch.float32 or ksc.dtype != torch.float32):
+            raise ValueError("qk_scales must be two (B, H, N) float32 views "
+                             "with equal strides")
     if Dh not in (16, 64):
         raise ValueError(f"masked_attention takes head_dim 16 or 64 (those "
                          f"of the repo's configurations), got {Dh}")
     if pad_mask is None:
-        pad_mask = torch.zeros((B, N), dtype=torch.bool, device=q.device)
-    mask = pad_mask.to(device=q.device, dtype=torch.bool).contiguous()
+        pad_mask = torch.zeros((B, N), dtype=torch.bool, device=v.device)
+    mask = pad_mask.to(device=v.device, dtype=torch.bool).contiguous()
     if mask.shape != (B, N):
         raise ValueError(f"pad_mask must be {(B, N)}, got {tuple(mask.shape)}")
     if out is None:
-        out = torch.empty_like(q)
-    if out.shape != q.shape or out.stride(-1) != 1 or out.dtype != q.dtype:
-        raise ValueError("out must be a (B, H, N, Dh) view of q's dtype "
-                         "with a contiguous last dim")
+        out = torch.empty_like(v)
+    f32_out = out.dtype == torch.float32 and v.dtype == torch.bfloat16
+    if (out.shape != v.shape or out.stride(-1) != 1
+            or not (out.dtype == v.dtype or (f32_out and norm_first))):
+        raise ValueError("out must be a (B, H, N, Dh) view with a contiguous "
+                         "last dim, in v's dtype (or float32 for bfloat16 "
+                         "inputs with norm_first)")
+    if qk_scales is not None and v.dtype == torch.bfloat16 and not f32_out:
+        raise ValueError("int8 Q.K^T with bfloat16 v writes a float32 out")
     lib = _cuda.load("masked_attention")
-    sb, sh, sn, _ = q.stride()
+    sb, sh, sn, _ = v.stride()
     ob, oh, on, _ = out.stride()
+    cb, ch, cn = qsc.stride() if qsc is not None else (0, 0, 0)
     err = lib.vs_masked_attention(
         _cuda.ptr(q), _cuda.ptr(k), _cuda.ptr(v), _cuda.ptr(mask),
-        _cuda.ptr(out), B, H, N, Dh, sb, sh, sn, ob, oh, on, float(scale),
-        _cuda.dtype_code(q), int(norm_first), _cuda.stream_of(q))
+        _cuda.ptr(out), _cuda.ptr(qsc), _cuda.ptr(ksc), B, H, N, Dh, sb, sh,
+        sn, ob, oh, on, cb, ch, cn, float(scale), _cuda.dtype_code(v),
+        _cuda.dtype_code(out), int(norm_first), _cuda.stream_of(v))
     _cuda.check(lib, err, "masked_attention")
     masked_attention.launches += 1
     return out

@@ -29,7 +29,7 @@ counts its launches.
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Tuple
+from typing import Callable, Optional, Tuple
 
 import torch
 
@@ -62,31 +62,39 @@ class BlockWeights:
     ln2_b: torch.Tensor
 
 
-def block_weights(block, dtype: torch.dtype) -> BlockWeights:
-    """Pack a :class:`~vidsum_tpu_torch.models.simnet.EncoderBlock` for the
-    kernels. Cached on the block per dtype and per parameter version, so a
-    forward re-packs only after the weights change."""
-    params = tuple(block.parameters())
-    key = (dtype, tuple((p.data_ptr(), p._version) for p in params))
-    cache = block.__dict__.setdefault("_packed_weights", {})
-    hit = cache.get(dtype)
+def cached(module: torch.nn.Module, name, make: Callable):
+    """``make(module)``, cached on the module under ``name`` per parameter
+    version, so a forward re-packs (or re-quantises) only after the weights
+    change."""
+    key = tuple((p.data_ptr(), p._version) for p in module.parameters())
+    cache = module.__dict__.setdefault("_packed_weights", {})
+    hit = cache.get(name)
     if hit is not None and hit[0] == key:
         return hit[1]
-    sa, mlp = block.sa, block.mlp
-    with torch.no_grad():
+    value = make(module)
+    cache[name] = (key, value)
+    return value
+
+
+def block_weights(block, dtype: torch.dtype) -> BlockWeights:
+    """Pack a :class:`~vidsum_tpu_torch.models.simnet.EncoderBlock` for the
+    kernels, cached per dtype (:func:`cached`)."""
+    def pack(block):
+        sa, mlp = block.sa, block.mlp
         mat = lambda t: t.detach().to(dtype).contiguous()  # noqa: E731
         vec = lambda t: t.detach().float().contiguous()    # noqa: E731
-        w = BlockWeights(
-            wqkv=mat(torch.cat([sa.q.weight, sa.k.weight, sa.v.weight])),
-            bqkv=vec(torch.cat([sa.q.bias, sa.k.bias, sa.v.bias])),
-            wp=mat(sa.feature_projection.weight),
-            bp=vec(sa.feature_projection.bias),
-            ln1_g=vec(block.norm1.weight), ln1_b=vec(block.norm1.bias),
-            w1=mat(mlp.fc1.weight), b1=vec(mlp.fc1.bias),
-            w2=mat(mlp.fc2.weight), b2=vec(mlp.fc2.bias),
-            ln2_g=vec(block.norm2.weight), ln2_b=vec(block.norm2.bias))
-    cache[dtype] = (key, w)
-    return w
+        with torch.no_grad():
+            return BlockWeights(
+                wqkv=mat(torch.cat([sa.q.weight, sa.k.weight, sa.v.weight])),
+                bqkv=vec(torch.cat([sa.q.bias, sa.k.bias, sa.v.bias])),
+                wp=mat(sa.feature_projection.weight),
+                bp=vec(sa.feature_projection.bias),
+                ln1_g=vec(block.norm1.weight), ln1_b=vec(block.norm1.bias),
+                w1=mat(mlp.fc1.weight), b1=vec(mlp.fc1.bias),
+                w2=mat(mlp.fc2.weight), b2=vec(mlp.fc2.bias),
+                ln2_g=vec(block.norm2.weight), ln2_b=vec(block.norm2.bias))
+
+    return cached(block, dtype, pack)
 
 
 # ------------------------------------------------------------ plain versions

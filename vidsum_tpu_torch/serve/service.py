@@ -49,9 +49,11 @@ class ScoringService:
     :param max_delay_ms: batching window — how long the dispatcher waits
         for more requests after the first one arrives.
     :param attn_impl: scorer attention impl; default ``"fused_block"`` on
-        CUDA and ``"dense"`` on the CPU.
-    :param wire_dtype: ``"auto"`` (the compute dtype), ``"float32"`` or
-        ``"bfloat16"``; ``"int8"`` arrives with the int8 slice.
+        CUDA and ``"dense"`` on the CPU; ``"int8_block"`` / ``"int8_dense"``
+        score on the lossy int8 route (``SimNet``).
+    :param wire_dtype: ``"auto"`` (the compute dtype), ``"float32"``,
+        ``"bfloat16"``, or ``"int8"`` (lossy: per-frame int8 rows and f32
+        scales, quantised on the host and dequantised on the device).
     :param wire_mode: ``"rows"`` (submit-time copies) or ``"coalesced"``
         (one copy per micro-batch); bit-identical scores.
     :param max_queue_depth: maximum admitted-but-unresolved requests; past
@@ -103,7 +105,8 @@ class ScoringService:
                                  else float(rss_watermark_mb))
         # submit-time length cap from the kernel ladder's envelope
         # arithmetic (flash_forward_supported); the dense impl has no kernel
-        # envelope, so only max_request_len caps it
+        # envelope, so only max_request_len caps it (int8_dense is capped, as
+        # in the JAX package)
         self._short_cap: Optional[int] = (
             None if attn_impl == "dense"
             else _single_chip_max_len(cfg, bucket))
@@ -166,7 +169,8 @@ class ScoringService:
                          want_summary, budget_ratio, deadline_s) -> Future:
         fut: Future = Future()
         # pad to the length bucket on the host and start the copy NOW, so
-        # it runs under earlier batches' compute
+        # it runs under earlier batches' compute (an (int8 rows, scales) pair
+        # on the int8 wire)
         n_bucket = bucket_length(n, self.bucket)
         row = transport.build_short_row(self._wire, feats, n_bucket,
                                         self._cfg.in_features, self.pad_value)

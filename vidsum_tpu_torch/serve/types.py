@@ -97,7 +97,8 @@ class _Request:
     feats: np.ndarray
     row_dev: object            # (n_bucket, D) tensor on the device, its
                                # host-to-device copy possibly in flight
-                               # (coalesced wire: the host tensor)
+                               # (coalesced wire: the host tensor; int8
+                               # wire: an (int8 rows, f32 scales) pair)
     n_bucket: int
     picks: Optional[np.ndarray]
     n_frames: int

@@ -71,7 +71,8 @@ def make_eval_forward(cfg: ModelConfig, attn_impl: Optional[str] = None, *,
     (train.py:144). ``x`` and ``pad_mask`` may be numpy arrays or tensors;
     they move to ``device`` (default: the CUDA card, which must exist).
     ``attn_impl`` defaults to ``"fused_block"`` on CUDA and ``"dense"`` on
-    the CPU."""
+    the CPU; ``"int8_block"`` and ``"int8_dense"`` score on ``SimNet``'s
+    lossy int8 route."""
     dev = resolve_device(device)
     if attn_impl is None:
         attn_impl = "fused_block" if dev.type == "cuda" else "dense"
