@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's serving (bf16 and int8, direct and over
-HTTP), finetune and long-video finetune paths on one NVIDIA GPU.
+"""Drive the PyTorch/CUDA port's serving (bf16 and int8, direct, over HTTP
+and on a device mesh), finetune, long-video finetune and sequence-parallel
+finetune paths on one NVIDIA GPU.
 
     python3 chip_smoke.py [--seed 0]
 
@@ -70,6 +71,20 @@ caught and passed over):
    its plain version and ``F.scaled_dot_product_attention(dropout_p=0.3)``
    (forward, and forward + backward; timed only), and the bound (products
    at the input type's peak, the backward's dp and dV at the f32 peak).
+   ring kernels: TPU kernels 15-17 (``parallel/ring_attention.py``,
+   ``csrc/ring_attention.cu``) against their plain steps: kernel 15 at
+   (B, H, Nl, Dh) = (1, 4, 4,096, 64) (a 16,384-frame request over 4
+   shards, bf16 K/V), kernels 16/17 at (4, 4, 2,048, 64) (batch 4 x 8,192
+   frames, dropout 0.3), one shard partly padded: the o, m, l carries and
+   dq, dk, dv within their bounds, an all-padded block leaving the carry
+   bit for bit; planted faults fail them (a dropped key tile for 15, seed +
+   1 and the neighbouring shard's k0 for 16/17); two backward runs give
+   identical bits. Prints each kernel's median CUDA-event ms, its plain
+   step's and its bound (4 (17: 10) B H Nq Nk Dh at the f32 peak), and the
+   whole ring (16 launches each way) beside SDPA over the unsharded f32
+   sequence (timed only). Then the same checks of one step past the TPU
+   kernels' VMEM envelope, where the CUDA routes take the kernels all the
+   same: kernel 15 at Nl 8,192, kernels 16/17 at Nl 4,096.
 6. serve: ``ScoringService`` with seeded flagship weights (d 256, 4 heads,
    4 layers, bf16) takes 13 requests: 320/480/512 frames with auto-KTS,
    1,200 frames, 6,000 frames (past the block envelope: flash) and 16,384
@@ -88,6 +103,19 @@ caught and passed over):
    serve http: ``serve_http.make_server`` on 127.0.0.1 over an int8 service:
    three ``.npz`` requests answered 200 with the service's own scores, then
    a 413 (body past the cap) and a 404.
+   serve mesh: ``ScoringService(mesh=<(1, 4) mesh of cuda:0>,
+   long_threshold=8,192)``, bf16: 8 short requests (320/480/512 frames) on
+   the single-device batch path (the entries repeat one card), 16,384 and
+   20,000 frames over the ring; kernel 15 and the short routes' kernels
+   must launch; served scores equal the direct solo /
+   ``make_seq_sharded_forward`` scores bit for bit; an f32 16,384-frame
+   long request lies within 2e-4 of the single-device f32 route; prints the
+   bf16 |dp| against the single-device route. Then a service with the
+   default threshold (139,136 frames in bf16) serves a 140,000-frame
+   request over the ring (Nl 35,072): kernel 15 launches 64 times, served
+   == direct.
+   ring multi card: with two or more cards, the 16,384-frame ring over two
+   cards bit-equal to one card; with one, a stated skip.
 7. train: the finetune recipe (d 256, 4 heads, 4 layers, dropout 0.3, Adam
    lr 1e-3 / wd 1e-4, batch 4, f32) with seeded weights on in-memory videos
    in the DSNet schema made with numpy from ``--seed``: first one step on
@@ -113,9 +141,18 @@ caught and passed over):
    moved and the block training counters did not (the demotion). Prints
    the step ms (median, quartiles, range) and a ``torch.profiler``
    breakdown of one long step per dtype.
-9. the ``kernels`` line (16 routes, the training attention ones named
+   seq train: ``make_seq_sharded_finetune_step`` on a (1, 4) mesh of
+   cuda:0: one step on one 8,100-frame video (f32, dropout 0.3, the
+   flagship cut to 2 layers for the CPU's sake) against the CPU's plain
+   path with the same seeds (per parameter, the step bound),
+   then 5 recipe epochs over phase 8's videos in buckets of 512 (10 steps,
+   Nl <= 2,304): kernels 16 and 17 launch 16 times per layer per step, the
+   flash and block training kernels never; finite losses; step ms, peak
+   memory and a ``torch.profiler`` breakdown of one step.
+9. the ``kernels`` line (19 routes, the training attention ones named
    ``attention_train.<route>``, the int8 ones ``block_int8``,
-   ``block_int8_grouped``, ``probe_mm_bf16`` and ``probe_mm_int8``), the
+   ``block_int8_grouped``, ``probe_mm_bf16`` and ``probe_mm_int8``, the
+   ring ones ``ring_block``, ``ring_train_fwd``, ``ring_train_bwd``), the
    card's name and power limit, and last ``{"ok": true, "device": {...}}``.
 """
 
@@ -191,6 +228,11 @@ TOL = {
     ("attn_train_grad", "float32"): dict(atol=1e-4, rtol=1e-4, rel=1e-5),
     ("attn_train_grad", "bfloat16"): dict(atol=1e-2, rtol=1e-2, rel=1e-2),
 }
+# The ring kernels (TPU kernels 15-17) against their plain steps: the carries
+# m and l at the f32 attention bound; o is unnormalised (a sum over thousands
+# of keys, size ~10-50), so its atol is relative to its largest entry, as for
+# the grads, which take the training attention's grad bound
+RING_GRAD = ("attn_train_grad", "float32")
 # The int8 block (TPU kernels 13/14) against its plain version: |got - want|
 # at the median and at the max, the JAX tests' own limits
 # (tests/test_quant.py:94-107) on LayerNorm outputs of size 1. Kernel and
@@ -1278,7 +1320,8 @@ def phase_long_train(seed: int) -> dict:
     takes the folded route, TPU kernels 7/8), card against CPU; (c) recipe
     epochs on the auto route over 8 videos of 7,950-9,000 frames, in f32
     (demoted to the folded route) and bf16 (the single-pass route, kernels
-    5/6). Returns the training attention routes' launches in (c)."""
+    5/6). Returns the training attention routes' launches in (c) and the
+    videos."""
     import dataclasses
     import math
 
@@ -1384,7 +1427,659 @@ def phase_long_train(seed: int) -> dict:
                              f"{missing}")
     emit("long_train", lengths=[int(it[0].shape[0]) for it in videos],
          flash_folded_card_vs_cpu=folded_vs_cpu, **report)
-    return launches
+    return launches, videos
+
+
+RING_ROUTES = ("_ring_block_step", "_ring_train_step", "_ring_train_step_bwd")
+RING_NAMES = {"_ring_block_step": "ring_block",
+              "_ring_train_step": "ring_train_fwd",
+              "_ring_train_step_bwd": "ring_train_bwd"}
+RING_SHARDS = 4
+
+
+def ring_module():
+    """``parallel/ring_attention.py`` (the package re-exports a function of
+    the same name over it)."""
+    import importlib
+
+    return importlib.import_module("vidsum_tpu_torch.parallel.ring_attention")
+
+
+def check_carries(got, want, what: str) -> dict:
+    """o (atol relative to its largest entry), m and l (the f32 attention
+    bound) of a ring step against the plain step's; raises past them."""
+    tol = TOL[("attention", "float32")]
+    return {"o": check_close(got[0], want[0], scaled(tol, want[0]),
+                             f" ({what}: o)"),
+            "m": check_close(got[1], want[1], tol, f" ({what}: m)"),
+            "l": check_close(got[2], want[2], tol, f" ({what}: l)")}
+
+
+def carries_within(got, want) -> bool:
+    tol = TOL[("attention", "float32")]
+    return (within(got[0], want[0], scaled(tol, want[0]))
+            and within(got[1], want[1], tol) and within(got[2], want[2], tol))
+
+
+def phase_ring_kernels(dev: dict, seed: int) -> dict:
+    """TPU kernels 15-17 (``parallel/ring_attention.py``,
+    ``csrc/ring_attention.cu``) against their plain steps on the card, at
+    the shapes the main paths give them; returns the numbers per route for
+    the kernels line."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    from vidsum_tpu_torch.config import ModelConfig
+    from vidsum_tpu_torch.parallel.mesh import make_mesh
+
+    ra = ring_module()
+    peaks = peaks_for(dev["name"])
+    cfg = ModelConfig()
+    H, Dh, scale, P = cfg.num_heads, cfg.head_dim, cfg.attn_scale, RING_SHARDS
+    cuda = torch.device("cuda")
+    rng = np.random.default_rng(seed + 7)
+    mesh = make_mesh((1, P), "cuda:0")
+    out = {}
+
+    def rand(B, N, dtype=torch.float32):
+        return torch.from_numpy(rng.normal(size=(B, H, N, Dh)).astype(
+            np.float32)).to(cuda, dtype)
+
+    def bound(flops, nbytes):
+        t_ops = flops / peaks["float32"] * 1e3
+        t_bytes = nbytes / peaks["bytes"] * 1e3
+        return (max(t_ops, t_bytes),
+                "operations" if t_ops >= t_bytes else "bytes")
+
+    def shard(t, s, dim=2):
+        n = t.shape[dim] // P
+        return t.narrow(dim, s * n, n).contiguous()
+
+    # -- kernel 15: a 16,384-frame request (15,000 valid: shard 3 partly
+    # padded) over 4 shards of 4,096, K/V in bf16 (the serving dtype).
+    # Checked: shard 1 folding its own block into a fresh carry (t = 0),
+    # then the fully valid block of shard 0 (t = 1; timed), and shard 3's
+    # partly padded block
+    B, N = 1, 16384
+    Nl = N // P
+    mask = torch.zeros(B, N, dtype=torch.bool, device=cuda)
+    mask[:, 15000:] = True
+    q, k, v = (rand(B, N, torch.bfloat16) for _ in range(3))
+    q32 = [shard(q, s).float() * scale for s in range(P)]
+    ks, vs = ([shard(t, s) for s in range(P)] for t in (k, v))
+    ms = [shard(mask, s, 1) for s in range(P)]
+    t0 = ra.ring_block_step_reference(q32[1], ks[1], vs[1], ms[1],
+                                      *ra._init_carries(q32[1]))
+    cases = {"t0_own_block": (q32[1], ks[1], vs[1], ms[1],
+                              *ra._init_carries(q32[1])),
+             "t1_block_0": (q32[1], ks[0], vs[0], ms[0], *t0),
+             "t2_padded_block_3": (q32[1], ks[3], vs[3], ms[3], *t0)}
+    errs = {}
+    before = ra._ring_block_step.launches
+    for name, args in cases.items():
+        got = ra._ring_block_step(*args)
+        errs[name] = check_carries(got, ra.ring_block_step_reference(*args),
+                                   f"kernel 15 {name}")
+    torch.cuda.synchronize()
+    if ra._ring_block_step.launches != before + len(cases):
+        raise AssertionError("kernel 15 did not launch")
+    # a block whose keys are all padded leaves the carry bit for bit
+    kept = ra._ring_block_step(q32[1], ks[0], vs[0],
+                               torch.ones_like(ms[0]), *t0)
+    if not all(torch.equal(a, b) for a, b in zip(kept, t0)):
+        raise AssertionError("kernel 15: an all-padded block moved the carry")
+    # planted fault: one key tile dropped
+    args = cases["t1_block_0"]
+    want = ra.ring_block_step_reference(*args)
+    dropped = args[3].clone()
+    dropped[:, :ra.KEY_TILE] = True
+    bad = ra._ring_block_step(*args[:3], dropped, *args[4:])
+    if carries_within(bad, want):
+        raise AssertionError("kernel 15: a dropped key tile passes the bound")
+    fault = errors(bad[0], want[0])
+    ms15 = cuda_ms(lambda: ra._ring_block_step(*args), reps=20)
+    plain15 = cuda_ms(lambda: ra.ring_block_step_reference(*args), reps=5)
+    # the whole ring (P x P = 16 launches) against SDPA over the unsharded
+    # f32 sequence (timed only), and against the plain ring (checked)
+    fwd = ra.make_ring_forward(mesh, scale)
+    ring = fwd(q, k, v, mask)
+    ring_plain = ra.make_ring_forward(mesh, scale, block_impl="plain")(
+        q, k, v, mask)
+    ring_err = check_close(ring, ring_plain, TOL[("attention", "bfloat16")],
+                           " (kernel 15 ring against the plain ring)")
+    ring_ms = cuda_ms(lambda: fwd(q, k, v, mask), reps=5)
+    qf, kf, vf = q.float(), k.float(), v.float()
+    keep = ~mask[:, None, None, :]
+    sdpa_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
+        qf, kf, vf, attn_mask=keep, scale=scale), reps=5)
+    flops = 4 * B * H * Nl * Nl * Dh
+    nbytes = B * H * Nl * Dh * (4 + 2 + 2 + 4 + 4) + B * H * Nl * 16 + B * Nl
+    b_ms, b_by = bound(flops, nbytes)
+    emit("ring_kernel", route="ring_block", B=B, H=H, Nl=Nl, Dh=Dh,
+         shards=P, kv_dtype="bfloat16", valid=15000, errors=errs,
+         dropped_tile_o_err=list(fault), ring_vs_plain_err=list(ring_err),
+         ms=ms15, plain_ms=plain15, bound_ms=b_ms, bound_by=b_by,
+         flops=flops, bytes=nbytes, ring_ms=ring_ms,
+         sdpa_f32_unsharded_ms=sdpa_ms)
+    out["_ring_block_step"] = dict(
+        max_abs_err=max(e[0] for c in errs.values() for e in c.values()),
+        ms=ms15, plain_ms=plain15, bound_ms=b_ms, bound_by=b_by,
+        library_ms=None, yardstick={"ring_16_launches_ms": ring_ms,
+                                    "sdpa_f32_unsharded_ms": sdpa_ms})
+    del q, k, v, qf, kf, vf, ring, ring_plain, cases, args
+    torch.cuda.empty_cache()
+
+    # -- kernels 16/17: batch 4 x 8,192 frames (valid 8,192, 8,100, 7,950,
+    # 7,000: shard 3 partly padded) over 4 shards of 2,048, f32, dropout
+    # 0.3. Checked and timed: shard 1 at t = 1 folding shard 0's (fully
+    # valid) block, k0 = 0; the backward of the same step from the final
+    # forward carries
+    B, N, rate = 4, 8192, 0.3
+    Nl = N // P
+    dseed = int(rng.integers(0, 2**31 - 2))
+    mask = torch.ones(B, N, dtype=torch.bool, device=cuda)
+    for b, n in enumerate((8192, 8100, 7950, 7000)):
+        mask[b, :n] = False
+    q, k, v, g = (rand(B, N) for _ in range(4))
+    q32 = [shard(q, s) * scale for s in range(P)]
+    ks, vs = ([shard(t, s) for s in range(P)] for t in (k, v))
+    ms = [shard(mask, s, 1) for s in range(P)]
+    info = lambda t, s=1, sd=dseed: (sd, 0, s * Nl,  # noqa: E731
+                                     ((s - t) % P) * Nl)
+    carry = ra.ring_train_step_reference(q32[1], ks[1], vs[1], ms[1],
+                                         info(0), *ra._init_carries(q32[1]),
+                                         rate)
+    fargs = (q32[1], ks[0], vs[0], ms[0])
+    before = ra._ring_train_step.launches
+    got = ra._ring_train_step(*fargs, info(1), *carry, rate)
+    want = ra.ring_train_step_reference(*fargs, info(1), *carry, rate)
+    torch.cuda.synchronize()
+    if ra._ring_train_step.launches != before + 1:
+        raise AssertionError("kernel 16 did not launch")
+    err16 = check_carries(got, want, "kernel 16")
+    faults16 = {}
+    for fname, finfo in (("seed_plus_one", info(1, sd=dseed + 1)),
+                         ("k0_neighbour", info(0))):
+        bad = ra._ring_train_step(*fargs, finfo, *carry, rate)
+        if carries_within(bad, want):
+            raise AssertionError(f"kernel 16: the {fname} fault passes")
+        faults16[fname] = errors(bad[0], want[0])[1]
+    ms16 = cuda_ms(lambda: ra._ring_train_step(*fargs, info(1), *carry,
+                                               rate), reps=20)
+    plain16 = cuda_ms(lambda: ra.ring_train_step_reference(
+        *fargs, info(1), *carry, rate), reps=5)
+    # the backward step: final (m, l) of shard 1 from the whole plain ring
+    c = ra._init_carries(q32[1])
+    for t in range(P):
+        blk = (1 - t) % P
+        c = ra.ring_train_step_reference(q32[1], ks[blk], vs[blk], ms[blk],
+                                         info(t), *c, rate)
+    o1 = ra._normalize(c[0], c[2], torch.float32)
+    g1 = shard(g, 1)
+    d1 = (g1 * o1).sum(-1, keepdim=True)
+    partial = tuple(0.01 * torch.randn_like(t)
+                    for t in (q32[1], ks[0], vs[0]))
+    bargs = lambda i: (q32[1], ks[0], vs[0], g1, d1, c[1], c[2],  # noqa
+                       ms[0], i, *partial, rate)
+    before = ra._ring_train_step_bwd.launches
+    grads = ra._ring_train_step_bwd(*bargs(info(1)))
+    again = ra._ring_train_step_bwd(*bargs(info(1)))
+    torch.cuda.synchronize()
+    if ra._ring_train_step_bwd.launches != before + 2:
+        raise AssertionError("kernel 17 did not launch")
+    if not all(torch.equal(a, b) for a, b in zip(grads, again)):
+        raise AssertionError("kernel 17: two backward runs differ")
+    want_g = ra.ring_train_step_bwd_reference(*bargs(info(1)))
+    gtol = TOL[RING_GRAD]
+    err17 = {n: check_close(a, b, scaled(gtol, b), f" (kernel 17: d{n})")
+             for n, a, b in zip("qkv", grads, want_g)}
+    faults17 = {}
+    for fname, finfo in (("seed_plus_one", info(1, sd=dseed + 1)),
+                         ("k0_neighbour", info(0))):
+        bad = ra._ring_train_step_bwd(*bargs(finfo))
+        if any(within(a, b, scaled(gtol, b)) for a, b in zip(bad, want_g)):
+            raise AssertionError(f"kernel 17: the {fname} fault passes")
+        faults17[fname] = errors(bad[0], want_g[0])[1]
+    ms17 = cuda_ms(lambda: ra._ring_train_step_bwd(*bargs(info(1))),
+                   reps=20)
+    plain17 = cuda_ms(lambda: ra.ring_train_step_bwd_reference(
+        *bargs(info(1))), reps=3, warmup=1)
+    # the whole training ring (16 + 16 launches) against SDPA(dropout 0.3)
+    # over the unsharded f32 sequence, forward and forward + backward
+    split = lambda t, d=2: [shard(t, s, d) for s in range(P)]  # noqa: E731
+    ring_f = lambda qq, kk, vv: ra.ring_attention_train(  # noqa: E731
+        split(qq), split(kk), split(vv), split(mask, 1), scale, dseed, rate)
+    gs = split(g)
+    ql, kl, vl = (t.detach().requires_grad_() for t in (q, k, v))
+
+    def ring_fb():
+        outs = ring_f(ql, kl, vl)
+        torch.autograd.backward(outs, gs)
+
+    with torch.no_grad():
+        train_ring_ms = cuda_ms(lambda: ring_f(q, k, v), reps=3)
+    train_ring_fb_ms = cuda_ms(ring_fb, reps=3)
+    keep = ~mask[:, None, None, :]
+    sdpa_f = cuda_ms(lambda: F.scaled_dot_product_attention(
+        q, k, v, attn_mask=keep, dropout_p=rate, scale=scale), reps=5)
+    sdpa_fb = cuda_ms(lambda: F.scaled_dot_product_attention(
+        ql, kl, vl, attn_mask=keep, dropout_p=rate,
+        scale=scale).backward(g), reps=5)
+    del ql, kl, vl
+    row = B * H * Nl
+    for route, ms_, plain_, flops, nbytes, errs_, faults_, ring_ms_, sd_ms in (
+            ("_ring_train_step", ms16, plain16, 4 * row * Nl * Dh,
+             row * Dh * 20 + row * 16 + B * Nl, err16, faults16,
+             train_ring_ms, sdpa_f),
+            ("_ring_train_step_bwd", ms17, plain17, 10 * row * Nl * Dh,
+             row * Dh * 40 + row * 12 + B * Nl, err17, faults17,
+             train_ring_fb_ms, sdpa_fb)):
+        b_ms, b_by = bound(flops, nbytes)
+        emit("ring_kernel", route=RING_NAMES[route], B=B, H=H, Nl=Nl, Dh=Dh,
+             shards=P, rate=rate, valid=[8192, 8100, 7950, 7000],
+             errors=errs_, faults_rel_rms=faults_,
+             deterministic=route.endswith("bwd") or None, ms=ms_,
+             plain_ms=plain_, bound_ms=b_ms, bound_by=b_by, flops=flops,
+             bytes=nbytes, ring_ms=ring_ms_, sdpa_f32_unsharded_ms=sd_ms)
+        out[route] = dict(
+            max_abs_err=max(e[0] for e in errs_.values()),
+            ms=ms_, plain_ms=plain_, bound_ms=b_ms, bound_by=b_by,
+            library_ms=None,
+            yardstick={("ring_fwd_bwd_32_launches_ms" if route.endswith(
+                "bwd") else "ring_fwd_16_launches_ms"): ring_ms_,
+                "sdpa_f32_unsharded_ms": sd_ms})
+    del q, k, v, g
+    torch.cuda.empty_cache()
+    emit("ring_past_tpu_envelope",
+         **ring_past_envelope(ra, rand, shard, scale))
+    torch.cuda.empty_cache()
+    return out
+
+
+def ring_past_envelope(ra, rand, shard, scale: float) -> dict:
+    """Kernels 15-17 at lengths past the TPU kernels' VMEM envelope, where
+    the CUDA routes take them all the same: kernel 15 at Nl 8,192 (> 6,912;
+    a 32,768-frame request over 4 shards, bf16 K/V), kernels 16/17 at Nl
+    4,096 (> 2,944; a 16,384-frame video, f32, dropout 0.3), one ring step
+    each against its plain step. Returns the errors."""
+    import torch
+
+    P = RING_SHARDS
+    cuda = torch.device("cuda")
+    B, N = 1, 32768
+    Nl = N // P
+    if ra._ring_block_supported(Nl, Nl, 64, 4):
+        raise AssertionError(f"Nl {Nl} lies inside kernel 15's TPU envelope")
+    mask = torch.zeros(B, N, dtype=torch.bool, device=cuda)
+    mask[:, N - 3000:] = True
+    q, k, v = (rand(B, N, torch.bfloat16) for _ in range(3))
+    q32 = shard(q, 1).float() * scale
+    own = (shard(k, 1), shard(v, 1), shard(mask, 1, 1))
+    carry = ra.ring_block_step_reference(q32, *own, *ra._init_carries(q32))
+    args = (q32, shard(k, 3), shard(v, 3), shard(mask, 3, 1), *carry)
+    before = ra._ring_block_step.launches
+    got = ra._ring_block_step(*args)
+    if ra._ring_block_step.launches != before + 1:
+        raise AssertionError("kernel 15 did not launch past the envelope")
+    err15 = check_carries(got, ra.ring_block_step_reference(*args),
+                          f"kernel 15 at Nl {Nl}")
+    del q, k, v, q32, own, carry, args, got
+    torch.cuda.empty_cache()
+
+    B, N, rate = 1, 16384, 0.3
+    Nl = N // P
+    if ra._ring_train_supported(Nl, Nl, 64):
+        raise AssertionError(f"Nl {Nl} lies inside kernels 16/17's TPU "
+                             f"envelope")
+    mask = torch.zeros(B, N, dtype=torch.bool, device=cuda)
+    mask[:, 16000:] = True
+    q, k, v, g = (rand(B, N) for _ in range(4))
+    q32 = shard(q, 3) * scale
+    kb, vb, mb = shard(k, 2), shard(v, 2), shard(mask, 2, 1)
+    info = (12345, 0, 3 * Nl, 2 * Nl)
+    carry = ra.ring_train_step_reference(q32, shard(k, 3), shard(v, 3),
+                                         shard(mask, 3, 1),
+                                         (12345, 0, 3 * Nl, 3 * Nl),
+                                         *ra._init_carries(q32), rate)
+    before = (ra._ring_train_step.launches, ra._ring_train_step_bwd.launches)
+    got = ra._ring_train_step(q32, kb, vb, mb, info, *carry, rate)
+    want = ra.ring_train_step_reference(q32, kb, vb, mb, info, *carry, rate)
+    err16 = check_carries(got, want, f"kernel 16 at Nl {Nl}")
+    o = ra._normalize(want[0], want[2], torch.float32)
+    g3 = shard(g, 3)
+    d = (g3 * o).sum(-1, keepdim=True)
+    partial = tuple(0.01 * torch.randn_like(t) for t in (q32, kb, vb))
+    bargs = (q32, kb, vb, g3, d, want[1], want[2], mb, info, *partial, rate)
+    grads = ra._ring_train_step_bwd(*bargs)
+    torch.cuda.synchronize()
+    if (ra._ring_train_step.launches, ra._ring_train_step_bwd.launches) != (
+            before[0] + 1, before[1] + 1):
+        raise AssertionError("kernels 16/17 did not launch past the envelope")
+    gtol = TOL[RING_GRAD]
+    err17 = {n: check_close(a, b, scaled(gtol, b),
+                            f" (kernel 17 at Nl {Nl}: d{n})")
+             for n, a, b in zip("qkv", grads,
+                                ra.ring_train_step_bwd_reference(*bargs))}
+    return {"ring_block": {"Nl": 8192, "errors": err15},
+            "ring_train_fwd": {"Nl": Nl, "errors": err16},
+            "ring_train_bwd": {"Nl": Nl, "errors": err17}}
+
+
+MESH_SHORT = [320, 320, 320, 480, 480, 480, 512, 512]
+MESH_LONG = [16384, 20000]
+
+
+def phase_serve_mesh(seed: int) -> dict:
+    """``ScoringService(mesh=<(1, 4) mesh of cuda:0>, long_threshold=8,192)``
+    with the flagship bf16 weights: the short mix on the single-device batch
+    path (the mesh's entries repeat one card, so they only shard the ring),
+    a 16,384-frame (Nl 4,096) and a 20,000-frame (padded to 20,480, Nl
+    5,120) request over the ring (kernel 15). Served scores equal the direct
+    solo and ``make_seq_sharded_forward`` scores bit for bit; an f32
+    16,384-frame long request lies within 2e-4 of the single-device f32
+    route; the bf16 long requests' |dp| against the single-device route is
+    reported. Then the default threshold (the single-device ladder's
+    envelope, 139,136 frames in bf16): a 140,000-frame request (Nl 35,072)
+    takes the ring and kernel 15, served == direct. Returns the launch
+    counts of the first service."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from vidsum_tpu_torch.models.simnet import SimNet
+    from vidsum_tpu_torch.parallel import make_mesh, make_seq_sharded_forward
+    from vidsum_tpu_torch.serve import ScoringService
+    from vidsum_tpu_torch.train.steps import make_eval_forward
+
+    cfg, model = serve_model(seed)
+    mesh = make_mesh((1, RING_SHARDS), "cuda:0")
+    rng = np.random.default_rng(seed + 3)
+    lengths = MESH_SHORT + MESH_LONG
+    videos = [rng.random((n, cfg.in_features), dtype=np.float32)
+              for n in lengths]
+    with ScoringService(model, cfg, mesh=mesh, long_threshold=8192,
+                        max_batch=8, max_delay_ms=50.0) as svc:
+        reset_counters()
+        t0 = time.monotonic()
+        futs = [svc.submit(v, change_points=(shot_bounds(v.shape[0])
+                                             if v.shape[0] >= 6000 else None))
+                for v in videos]
+        results = [f.result(timeout=600) for f in futs]
+        wall = time.monotonic() - t0
+        counts = read_counters()
+        st = svc.stats()
+    if svc._rep_fwd is not None or st.rows_moved:
+        raise AssertionError("a mesh of one card took the replica route")
+    short = counts["_fused_block"] + counts["_fused_block_grouped"]
+    if not (counts["_ring_block_step"] and short
+            and counts["gemm_bias_epilogue"]):
+        raise AssertionError(f"mesh serving did not launch kernel 15 and the "
+                             f"short routes' kernels: {counts}")
+    if (st.completed != len(videos) or st.failed
+            or st.long_requests != len(MESH_LONG)):
+        raise AssertionError(f"mesh serving stats: {st}")
+
+    fwd = make_eval_forward(cfg)
+    seq = make_seq_sharded_forward(cfg, mesh)
+    granule = svc.bucket * RING_SHARDS
+    dp = []
+    for v, r in zip(videos, results):
+        n = v.shape[0]
+        check_summary(r, n)
+        x, mask = padded(cfg, v)
+        single = fwd(model, x, mask)[0, :n].float().cpu().numpy()
+        if n <= 8192:
+            direct = single
+        else:
+            xl, ml = padded(cfg, v, granule)
+            direct = torch.sigmoid(seq(model, xl, ml)[0][0, :n, 0]).float(
+            ).cpu().numpy()
+            dp.append(np.abs(r.scores - single))
+        if not np.array_equal(direct, r.scores):
+            raise AssertionError(
+                f"mesh served != direct for a {n}-frame request (max diff "
+                f"{float(np.abs(direct - r.scores).max())})")
+    d = np.concatenate(dp)
+    bf16_vs_single = {"median": float(np.median(d)), "max": float(d.max())}
+
+    # f32: the long route against the single-device f32 route
+    cfg32 = dataclasses.replace(cfg, compute_dtype="float32")
+    model32 = SimNet(cfg32, generator=torch.Generator().manual_seed(seed))
+    v = videos[len(MESH_SHORT)]
+    n = v.shape[0]
+    with ScoringService(model32, cfg32, mesh=mesh, long_threshold=8192,
+                        max_delay_ms=5.0) as svc32:
+        r32 = svc32.submit(v, want_summary=False).result(timeout=600)
+        if svc32.stats().long_requests != 1:
+            raise AssertionError("the f32 long request did not take the ring")
+    x, mask = padded(cfg32, v)
+    single32 = make_eval_forward(cfg32)(model32, x, mask)[0, :n].float(
+    ).cpu().numpy()
+    f32_err = float(np.abs(r32.scores - single32).max())
+    if not f32_err <= 2e-4:
+        raise AssertionError(f"f32 long route off the single-device route by "
+                             f"{f32_err} (bound 2e-4)")
+    del model32, svc32
+    default = serve_default_threshold(cfg, model, mesh, seq, granule, rng)
+    emit("serve_mesh", mesh=[1, RING_SHARDS], devices=["cuda:0"] * 4,
+         lengths=lengths, long_threshold=8192, wall_s=wall,
+         long_requests=st.long_requests, batches=st.batches,
+         batch_hist=st.batch_hist, rows_moved=st.rows_moved,
+         latency_s=[round(r.latency_s, 6) for r in results],
+         launches=counts, served_equals_direct=True,
+         bf16_long_vs_single_device_dp=bf16_vs_single,
+         f32_long_vs_single_device_max_abs=f32_err, f32_bound=2e-4,
+         default_threshold=default)
+    return counts
+
+
+def serve_default_threshold(cfg, model, mesh, seq, granule, rng) -> dict:
+    """A request just past the default long_threshold through a service
+    built without one: it takes the ring, each of the model's layers
+    launches kernel 15 P x P times, and the served scores equal the direct
+    ``make_seq_sharded_forward`` scores bit for bit."""
+    import numpy as np
+    import torch
+
+    from vidsum_tpu_torch.serve import ScoringService
+
+    n = 140000
+    v = rng.random((n, cfg.in_features), dtype=np.float32)
+    with ScoringService(model, cfg, mesh=mesh, max_delay_ms=5.0) as svc:
+        threshold = svc._long_threshold
+        if not threshold < n:
+            raise AssertionError(f"default long_threshold {threshold} is not "
+                                 f"below {n}")
+        reset_counters()
+        t0 = time.monotonic()
+        r = svc.submit(v, want_summary=False).result(timeout=600)
+        wall = time.monotonic() - t0
+        counts = read_counters()
+        st = svc.stats()
+    want = RING_SHARDS ** 2 * cfg.num_layers
+    if st.long_requests != 1 or counts["_ring_block_step"] != want:
+        raise AssertionError(
+            f"a {n}-frame request at the default threshold: long_requests "
+            f"{st.long_requests}, kernel 15 launches "
+            f"{counts['_ring_block_step']} (expected {want})")
+    if r.scores.shape != (n,) or not np.all((r.scores > 0)
+                                            & (r.scores < 1)):
+        raise AssertionError(f"bad scores for the {n}-frame request")
+    xl, ml = padded(cfg, v, granule)
+    direct = torch.sigmoid(seq(model, xl, ml)[0][0, :n, 0]).float().cpu(
+    ).numpy()
+    if not np.array_equal(direct, r.scores):
+        raise AssertionError(
+            f"mesh served != direct for the {n}-frame request (max diff "
+            f"{float(np.abs(direct - r.scores).max())})")
+    return {"long_threshold": threshold, "frames": n,
+            "Nl": int(ml.shape[1]) // RING_SHARDS, "wall_s": wall,
+            "ring_block_launches": counts["_ring_block_step"],
+            "served_equals_direct": True}
+
+
+def phase_ring_multi_card(seed: int) -> None:
+    """With two or more cards, the 16,384-frame ring on a (1, 4) mesh that
+    alternates two cards (the rotation is a peer copy) against the same ring
+    on one card, bit for bit; with one card, a stated skip."""
+    import numpy as np
+    import torch
+
+    from vidsum_tpu_torch.config import ModelConfig
+    from vidsum_tpu_torch.parallel.mesh import make_mesh
+
+    n_cards = torch.cuda.device_count()
+    if n_cards < 2:
+        emit("ring_multi_card", skipped=f"{n_cards} card(s)")
+        return
+    ra = ring_module()
+    cfg = ModelConfig()
+    rng = np.random.default_rng(seed + 9)
+    q, k, v = (torch.from_numpy(rng.normal(size=(1, cfg.num_heads, 16384,
+                                                 cfg.head_dim)).astype(
+        np.float32)).to("cuda:0", torch.bfloat16) for _ in range(3))
+    mask = torch.zeros(1, 16384, dtype=torch.bool, device="cuda:0")
+    mask[:, 15000:] = True
+    one = ra.make_ring_forward(make_mesh((1, RING_SHARDS), "cuda:0"),
+                               cfg.attn_scale)
+    two = ra.make_ring_forward(make_mesh((1, RING_SHARDS),
+                                         ["cuda:0", "cuda:1"]),
+                               cfg.attn_scale)
+    a, b = one(q, k, v, mask), two(q, k, v, mask)
+    torch.cuda.synchronize()
+    if not torch.equal(a, b):
+        raise AssertionError("the ring over two cards differs from one card")
+    emit("ring_multi_card", cards=n_cards, devices=["cuda:0", "cuda:1"] * 2,
+         bit_equal=True, one_card_ms=cuda_ms(lambda: one(q, k, v, mask), 3),
+         two_cards_ms=cuda_ms(lambda: two(q, k, v, mask), 3))
+
+
+# layers of the seq-train step's card-against-CPU check: the CPU's plain
+# ring at 8,192 frames (the hash masks and the recompute over (1, 4, 2,048,
+# 2,048) blocks) takes 55-60 s for the 2-layer step on an H100 host's 8
+# cores, so it runs 2 of the flagship's 4 (the line says so in "layers",
+# and its time in "wall_s")
+SEQ_CPU_LAYERS = 2
+
+
+def phase_seq_train(seed: int, long_videos: list) -> dict:
+    """``make_seq_sharded_finetune_step`` on a (1, 4) mesh of cuda:0: one
+    step on one 8,100-frame video (bucket 8,192, f32, dropout 0.3) against
+    the same step on the CPU's plain path with the same seeds (per
+    parameter, the step bound), then 5 recipe epochs (10 steps, batch 4)
+    over phase_long_train's videos in buckets of 512 (Nl <= 2,304). Kernels
+    16 and 17 must launch P x P times per layer per step, the flash and
+    block training kernels never. Returns the launch counts."""
+    import copy
+    import dataclasses
+    import math
+
+    import numpy as np
+    import torch
+
+    from vidsum_tpu_torch.config import finetune_recipe
+    from vidsum_tpu_torch.data.collate import pad_batch
+    from vidsum_tpu_torch.models.simnet import SimNet
+    from vidsum_tpu_torch.parallel import (
+        make_mesh, make_seq_sharded_finetune_step,
+    )
+    from vidsum_tpu_torch.train import finetune as ft
+    from vidsum_tpu_torch.train.steps import make_optimizer
+
+    conf = finetune_recipe()
+    cfg, tc = conf.model, conf.train
+    P = RING_SHARDS
+    rng = np.random.default_rng(seed + 10)
+    mesh = make_mesh((1, P), "cuda:0")
+    routes = ("_ring_train_step", "_ring_train_step_bwd")
+    others = TRAIN_ROUTES + tuple(attn_train_name(r)
+                                  for r in ATTN_TRAIN_ROUTES)
+
+    # one step, card against CPU
+    ccfg = dataclasses.replace(cfg, num_layers=SEQ_CPU_LAYERS)
+    model = SimNet(ccfg, generator=torch.Generator().manual_seed(seed + 2))
+    [item] = synthetic_videos(rng, [8100], cfg.in_features)
+    xb, tb, mb = pad_batch([item[0]], [item[1]])
+    seeds = [int(s) for s in rng.integers(0, 2**31 - 1, ccfg.num_layers)]
+    results, t_s = [], {}
+    for dev in ("cuda", "cpu"):
+        m = copy.deepcopy(model).to(dev)
+        step = make_seq_sharded_finetune_step(
+            ccfg, make_mesh((1, P), "cuda:0" if dev == "cuda" else "cpu"))
+        reset_counters()
+        t0 = time.monotonic()
+        loss = step(m, make_optimizer(m, tc.lr, tc.weight_decay), xb, tb,
+                    mb, seeds=seeds)
+        results.append((float(loss), {k: p.grad.detach().float().cpu()
+                                      for k, p in m.named_parameters()}))
+        t_s[dev] = time.monotonic() - t0
+        counts = read_counters()
+        want = [P * P * ccfg.num_layers if dev == "cuda" else 0] * 2
+        if [counts[r] for r in routes] != want:
+            raise AssertionError(f"seq step on {dev}: launches "
+                                 f"{[counts[r] for r in routes]}, expected "
+                                 f"{want}")
+    card_vs_cpu = dict(B=1, N=int(mb.shape[1]), layers=ccfg.num_layers,
+                       wall_s=t_s, **compare_steps(results, "seq step"))
+    del model, results
+
+    # recipe epochs over the long-video set, buckets of 512
+    dconf = dataclasses.replace(conf, data=dataclasses.replace(
+        conf.data, length_bucket=512))
+    model = SimNet(cfg, generator=torch.Generator().manual_seed(seed))
+    step = make_seq_sharded_finetune_step(cfg, mesh)
+    optimizer = make_optimizer(model, tc.lr, tc.weight_decay)
+    times, losses, shapes = [], [], []
+
+    def timed(*args):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        loss = step(*args)
+        end.record()
+        times.append((start, end))
+        losses.append(loss)
+        shapes.append(tuple(np.shape(args[2])[:2]))
+        return loss
+
+    reset_counters()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.monotonic()
+    epoch_losses = [ft._train_epoch(timed, model, optimizer, long_videos,
+                                    dconf, *ft.epoch_streams(tc.seed, 2,
+                                                             epoch))
+                    for epoch in range(LONG_EPOCHS)]
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    peak_gb = torch.cuda.max_memory_allocated() / 2**30
+    counts = read_counters()
+    n_steps = len(losses)
+    expected = P * P * cfg.num_layers * n_steps
+    if [counts[r] for r in routes] != [expected] * 2:
+        raise AssertionError(f"seq-train epochs: launches "
+                             f"{[counts[r] for r in routes]}, expected "
+                             f"{expected} each")
+    moved = [r for r in others if counts[r]]
+    if moved:
+        raise AssertionError(f"seq-train epochs launched {moved}")
+    step_losses = [float(x) for x in losses]
+    if not all(math.isfinite(v) for v in step_losses):
+        raise AssertionError(f"non-finite losses: {step_losses}")
+    xl, tl, ml = (torch.from_numpy(a).cuda() for a in pad_batch(
+        [it[0] for it in long_videos[:tc.batch_size]],
+        [it[1] for it in long_videos[:tc.batch_size]], bucket=512))
+    gen = torch.Generator().manual_seed(seed)
+    emit("seq_train", mesh=[1, P], devices=["cuda:0"] * P,
+         card_vs_cpu=card_vs_cpu, steps=n_steps, batch_shapes=shapes,
+         step_ms=spread([s.elapsed_time(e) for s, e in times]),
+         wall_s=wall, peak_memory_gib=peak_gb, epoch_loss=epoch_losses,
+         step_losses=step_losses, launches={r: counts[r] for r in routes},
+         launches_per_step={r: counts[r] / n_steps for r in routes},
+         step_profile=device_profile(
+             lambda: step(model, optimizer, xl, tl, ml, gen), reps=2))
+    return {r: counts[r] for r in routes}
 
 
 def _counted():
@@ -1396,6 +2091,8 @@ def _counted():
     from vidsum_tpu_torch.ops import block_train as bt
     from vidsum_tpu_torch.ops import quant
     from vidsum_tpu_torch.tools import probe_int8_mma as probe
+
+    ra = ring_module()
 
     return [("_fused_block", bk._fused_block),
             ("_fused_block_grouped", bk._fused_block_grouped),
@@ -1409,7 +2106,8 @@ def _counted():
             *((r, getattr(bk8, r)) for r in INT8_ROUTES),
             ("quantize_rows", quant.quantize_rows),
             ("int8_gemm", quant.int8_gemm),
-            *((r, getattr(probe, r)) for r in PROBE_ROUTES)]
+            *((r, getattr(probe, r)) for r in PROBE_ROUTES),
+            *((r, getattr(ra, r)) for r in RING_ROUTES)]
 
 
 def reset_counters() -> None:
@@ -1522,7 +2220,7 @@ def check_summary(r, n: int) -> None:
         raise AssertionError(f"bad summary for a {n}-frame request")
 
 
-def padded(cfg, v):
+def padded(cfg, v, bucket: int = 128):
     """A request's row padded to its bucket with the serving pad value, and
     its mask, batch 1."""
     import numpy as np
@@ -1530,7 +2228,7 @@ def padded(cfg, v):
     from vidsum_tpu_torch.data.collate import bucket_length
 
     n = v.shape[0]
-    nb = bucket_length(n)
+    nb = bucket_length(n, bucket)
     x = np.full((1, nb, cfg.in_features), 1000.0, np.float32)
     x[0, :n] = v
     mask = np.ones((1, nb), bool)
@@ -1703,14 +2401,20 @@ def main() -> int:
     timings.update(probe_timings)
     timings.update(phase_train_kernels(dev, args.seed))
     timings.update(phase_train_attention(dev, args.seed))
+    timings.update(phase_ring_kernels(dev, args.seed))
     counts = phase_serve(args.seed)
     counts.update({r: n for r, n in phase_serve_int8(args.seed).items()
                    if r in INT8_ROUTES})
     phase_serve_http(args.seed)
+    counts["_ring_block_step"] = phase_serve_mesh(args.seed)[
+        "_ring_block_step"]
+    phase_ring_multi_card(args.seed)
     counts.update(probe_launches)
     counts.update({r: n for r, n in phase_train(args.seed).items()
                    if r in TRAIN_ROUTES})
-    counts.update(phase_long_train(args.seed))
+    long_launches, long_videos = phase_long_train(args.seed)
+    counts.update(long_launches)
+    counts.update(phase_seq_train(args.seed, long_videos))
 
     replaces = {
         "_fused_block": "vidsum_tpu/ops/block_kernel.py:39",
@@ -1727,6 +2431,9 @@ def main() -> int:
         "_fused_block_int8_grouped": "vidsum_tpu/ops/block_kernel_int8.py:143",
         "mm_bf16": "scripts/probe_int8_mxu.py:63",
         "mm_int8": "scripts/probe_int8_mxu.py:69",
+        "_ring_block_step": "vidsum_tpu/parallel/ring_attention.py:134",
+        "_ring_train_step": "vidsum_tpu/parallel/ring_attention.py:422",
+        "_ring_train_step_bwd": "vidsum_tpu/parallel/ring_attention.py:478",
     }
     csrc = "vidsum_tpu_torch/csrc/"
     block_src = [csrc + "gemm_bias_epilogue.cu", csrc + "masked_attention.cu"]
@@ -1734,12 +2441,15 @@ def main() -> int:
     train_src = [csrc + "block_train.cu"]
     attn_train_src = [csrc + "attention_train.cu"]
     int8_src = [csrc + "int8_gemm.cu", csrc + "masked_attention.cu"]
+    ring_src = [csrc + "ring_attention.cu", csrc + "attention_core.cuh"]
     names = {"_fused_block_int8": "block_int8",
              "_fused_block_int8_grouped": "block_int8_grouped",
-             "mm_bf16": "probe_mm_bf16", "mm_int8": "probe_mm_int8"}
+             "mm_bf16": "probe_mm_bf16", "mm_int8": "probe_mm_int8",
+             **RING_NAMES}
     kernels = []
     for route, rep in replaces.items():
-        srcs = (attn_train_src if route.startswith("attention_train.")
+        srcs = (ring_src if route in RING_ROUTES
+                else attn_train_src if route.startswith("attention_train.")
                 else train_src if route in TRAIN_ROUTES
                 else int8_src if route in INT8_ROUTES
                 else [csrc + "gemm_bias_epilogue.cu"] if route == "mm_bf16"

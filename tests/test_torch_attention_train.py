@@ -230,7 +230,7 @@ def test_routing_predicates_match_jax():
 
 def test_past_the_envelope_raises():
     q = torch.zeros(1, 1, 11648, 64)
-    with pytest.raises(ValueError, match="multi-GPU slice"):
+    with pytest.raises(ValueError, match="sequence-parallel ring"):
         at.flash_attention_dropout(q, q, q, None, 0, 0.3, 0.125)
     q = torch.zeros(1, 1, 200, 64)
     with pytest.raises(ValueError, match="multiple of 128"):

@@ -652,3 +652,165 @@ def test_probe_kernels_match_plain(cuda):
     tol = want.abs() * 2.0 ** -7 + 320 * 2.0 ** -24 * torch.matmul(
         xb.float().abs(), wb.float().abs().t())
     assert bool(((got - want).abs() <= tol).all())
+
+
+# ------------------------------------- ring attention (TPU kernels 15-17)
+
+def _ring_inputs(dev, B=2, H=2, Nl=256, Dh=64, seed=0):
+    g = torch.Generator().manual_seed(seed)
+    q32, k, v, go = (torch.randn(B, H, Nl, Dh, generator=g).to(dev)
+                     for _ in range(4))
+    mask = torch.zeros(B, Nl, dtype=torch.bool)
+    mask[0, 200:] = True
+    mask[1] = True  # a fully padded block
+    return q32 * 0.125, k, v, go, mask.to(dev)
+
+
+def _ring_carry(ra, q32, k, v, mask):
+    """A carry one plain fold left (row 1's keys all padded: m -inf)."""
+    return ra.ring_block_step_reference(q32, k.roll(1, 2), v.roll(1, 2),
+                                        mask, *ra._init_carries(q32))
+
+
+def _ring_carries_close(got, want):
+    o, m, l = got
+    wo, wm, wl = want
+    assert torch.equal(torch.isneginf(m), torch.isneginf(wm))
+    live = ~torch.isneginf(wm)
+    torch.testing.assert_close(m[live], wm[live], atol=1e-5, rtol=1e-5)
+    torch.testing.assert_close(l, wl, atol=1e-5, rtol=1e-5)
+    scale = float(wo.abs().max())
+    torch.testing.assert_close(o, wo, atol=1e-5 * scale, rtol=1e-5)
+
+
+@pytest.mark.parametrize("kv_dtype", DTYPES)
+@pytest.mark.parametrize("Dh", [16, 64])
+def test_ring_block_step_matches_plain(cuda, kv_dtype, Dh):
+    import importlib
+
+    ra = importlib.import_module("vidsum_tpu_torch.parallel.ring_attention")
+    q32, k, v, _, mask = _ring_inputs(cuda, Dh=Dh)
+    k, v = k.to(kv_dtype), v.to(kv_dtype)
+    carry = _ring_carry(ra, q32, k, v, mask)
+    before = ra._ring_block_step.launches
+    got = ra._ring_block_step(q32, k, v, mask, *carry)
+    torch.cuda.synchronize()
+    assert ra._ring_block_step.launches == before + 1
+    want = ra.ring_block_step_reference(q32, k, v, mask, *carry)
+    _ring_carries_close(got, want)
+    # a block whose keys are all padded leaves the carry bit for bit (row
+    # 1's m = -inf and l = 0 included)
+    padded = torch.ones_like(mask)
+    kept = ra._ring_block_step(q32, k, v, padded, *carry)
+    assert all(torch.equal(a, b) for a, b in zip(kept, carry))
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.3])
+def test_ring_train_steps_match_plain(cuda, rate):
+    import importlib
+
+    ra = importlib.import_module("vidsum_tpu_torch.parallel.ring_attention")
+    q32, k, v, go, mask = _ring_inputs(cuda, seed=1)
+    info = (4321, 2, 512, 256)
+    carry = _ring_carry(ra, q32, k, v, mask)
+    got = ra._ring_train_step(q32, k, v, mask, info, *carry, rate)
+    want = ra.ring_train_step_reference(q32, k, v, mask, info, *carry, rate)
+    _ring_carries_close(got, want)
+    o, m, l = want
+    d = (go * torch.randn_like(o)).sum(-1, keepdim=True)
+    acc = tuple(torch.randn_like(t) for t in (q32, k, v))
+    args = (q32, k, v, go, d, m, l, mask, info, *acc, rate)
+    grads = ra._ring_train_step_bwd(*args)
+    again = ra._ring_train_step_bwd(*args)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(grads, again))
+    ref = ra.ring_train_step_bwd_reference(*args)
+    for a, b in zip(grads, ref):
+        torch.testing.assert_close(a, b, atol=1e-4 * float(b.abs().max()),
+                                   rtol=1e-4)
+    if rate:
+        # the planted fault: k0 of the neighbouring shard moves the bits
+        bad = ra._ring_train_step(q32, k, v, mask, info[:3] + (512,), *carry,
+                                  rate)
+        assert not torch.allclose(bad[0], want[0], atol=1e-3, rtol=1e-3)
+
+
+def test_ring_forward_on_one_card_mesh(cuda):
+    """make_ring_forward on a 4-entry mesh of one card launches kernel 15
+    P x P times and matches the plain ring and dense attention."""
+    import importlib
+
+    from vidsum_tpu_torch.parallel.mesh import make_mesh
+
+    ra = importlib.import_module("vidsum_tpu_torch.parallel.ring_attention")
+    g = torch.Generator().manual_seed(3)
+    q, k, v = (torch.randn(2, 4, 1024, 64, generator=g).to(cuda)
+               for _ in range(3))
+    mask = torch.zeros(2, 1024, dtype=torch.bool, device=cuda)
+    mask[:, 700:] = True  # the last shard entirely padding
+    mesh = make_mesh((1, 4), "cuda:0")
+    before = ra._ring_block_step.launches
+    got = ra.make_ring_forward(mesh, 0.125)(q, k, v, mask)
+    torch.cuda.synchronize()
+    assert ra._ring_block_step.launches == before + 16
+    want = ra.make_ring_forward(mesh, 0.125, block_impl="plain")(
+        q, k, v, mask)
+    _close(got, want, "attention", torch.float32)
+    _close(got, attn_mod.attention_reference(q, k, v, mask, 0.125),
+           "attention", torch.float32)
+
+
+def test_ring_past_the_tpu_envelope_takes_the_kernels(cuda):
+    """On the card ``"auto"`` takes kernels 15-17 at lengths past the TPU
+    kernels' VMEM envelope (Nl 7,040 > 6,912 forward, 3,072 > 2,944 in
+    training), where the JAX package would take its XLA step, and matches
+    the plain rings there; a head_dim the kernels lack raises."""
+    import importlib
+
+    ra = importlib.import_module("vidsum_tpu_torch.parallel.ring_attention")
+    g = torch.Generator().manual_seed(4)
+    P = 4
+
+    def split(t, d=2):
+        return list(torch.chunk(t, P, dim=d))
+
+    N = 7040 * P
+    assert not ra._ring_block_supported(N // P, N // P, 64, 4)
+    q, k, v = (torch.randn(1, 1, N, 64, generator=g).to(cuda)
+               for _ in range(3))
+    mask = torch.zeros(1, N, dtype=torch.bool, device=cuda)
+    mask[:, N - 1000:] = True
+    before = ra._ring_block_step.launches
+    got = ra.ring_attention(split(q), split(k), split(v), split(mask, 1),
+                            0.125)
+    torch.cuda.synchronize()
+    assert ra._ring_block_step.launches == before + P * P
+    want = ra.ring_attention(split(q), split(k), split(v), split(mask, 1),
+                             0.125, block_impl="plain")
+    _close(torch.cat(got, 2), torch.cat(want, 2), "attention", torch.float32)
+
+    N = 3072 * P
+    assert not ra._ring_train_supported(N // P, N // P, 64)
+    q, k, v, w = (torch.randn(1, 1, N, 64, generator=g).to(cuda)
+                  for _ in range(4))
+    mask = torch.zeros(1, N, dtype=torch.bool, device=cuda)
+    mask[:, N - 1000:] = True
+    counts = (ra._ring_train_step.launches, ra._ring_train_step_bwd.launches)
+    results = []
+    for impl in ("auto", "plain"):
+        leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+        out = torch.cat(ra.ring_attention_train(
+            *(split(t) for t in leaves), split(mask, 1), 0.125, 77, 0.3,
+            block_impl=impl), 2)
+        (out * w).sum().backward()
+        results.append((out.detach(), *(t.grad for t in leaves)))
+    torch.cuda.synchronize()
+    assert (ra._ring_train_step.launches - counts[0],
+            ra._ring_train_step_bwd.launches - counts[1]) == (P * P, P * P)
+    for a, b in zip(*results):
+        torch.testing.assert_close(a, b, atol=1e-4 * float(b.abs().max()),
+                                   rtol=1e-4)
+
+    q32 = torch.randn(1, 1, 128, 32, generator=g).to(cuda)
+    with pytest.raises(ValueError, match="head_dim"):
+        ra.ring_attention(split(q32), split(q32), split(q32), None, 0.1)

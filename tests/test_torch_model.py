@@ -164,27 +164,51 @@ def _long_training_input():
 
 
 @pytest.mark.parametrize("kwargs,match", [
-    (dict(attn_fn=lambda *a: None), "multi-GPU slice"),
-    (dict(attn_fn=lambda *a: None, attn_impl="flash"), "multi-GPU slice"),
+    (dict(), "dense"),
+    (dict(attn_impl="flash"), "dense"),
 ])
-def test_later_slices_raise_not_implemented(kwargs, match):
-    """A caller-supplied attention (the sequence-parallel ring) arrives with
-    the multi-GPU slice on every route that takes one (the int8 routes
-    refuse it with the JAX package's ValueError, tests/test_torch_int8.py)."""
-    x = torch.zeros(1, 128, 48)
-    model = SimNet(ModelConfig(**KW), device="cpu")
-    with pytest.raises(NotImplementedError, match=match):
-        model(x, generator=torch.Generator().manual_seed(0), **kwargs)
+def test_attn_fn_replaces_attention(kwargs, match):
+    """A caller-supplied attention (the sequence-parallel ring) replaces
+    the attention on every route that takes one, around the plain layers:
+    the reference attention passed as ``attn_fn`` gives the ``"dense"``
+    route's scores, and ``pos_offset`` indexes the PE table (the int8
+    routes refuse ``attn_fn`` with the JAX package's ValueError,
+    tests/test_torch_int8.py)."""
+    from vidsum_tpu_torch.ops.attention import attention_reference
+
+    cfg = ModelConfig(**KW)
+    model = SimNet(cfg, device="cpu")
+    x = torch.from_numpy(np.random.default_rng(0).normal(
+        size=(1, 256, 48)).astype(np.float32))
+    calls = []
+
+    def attn(q, k, v, pad_mask):
+        calls.append(q.shape)
+        return attention_reference(q, k, v, pad_mask, cfg.attn_scale)
+
+    with torch.no_grad():
+        got, _ = model(x, attn_fn=attn, **kwargs)
+        want, _ = model(x, attn_impl=match)
+        assert len(calls) == cfg.num_layers
+        np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=1e-6,
+                                   atol=1e-6)
+        # the second half at its global offset: the PE rows 128-255
+        half, _ = model(x[:, 128:], attn_fn=attn, pos_offset=128, pe_len=256,
+                        **kwargs)
+        solo, _ = model(x[:, 128:], attn_fn=attn, **kwargs)
+        assert not torch.equal(half, solo)
+        with pytest.raises(ValueError, match="pe_len"):
+            model(x, attn_fn=attn, pos_offset=3000, **kwargs)
 
 
 @pytest.mark.parametrize("attn_impl", ["flash", "fused_block"])
 def test_training_past_the_folded_envelope_raises(attn_impl):
     """The fused block demotes to the flash route past its envelope; past
     the key-folded training route's envelope too there is no single-GPU
-    route, and both raise ``ValueError`` naming the multi-GPU slice (the
-    JAX package raises there too)."""
+    route, and both raise ``ValueError`` naming the sequence-parallel ring
+    (the JAX package raises there too)."""
     model = SimNet(ModelConfig(**KW), device="cpu")
-    with pytest.raises(ValueError, match="multi-GPU slice"):
+    with pytest.raises(ValueError, match="sequence-parallel ring"):
         model(_long_training_input(), deterministic=False,
               attn_impl=attn_impl, generator=torch.Generator().manual_seed(0))
 

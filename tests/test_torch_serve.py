@@ -183,10 +183,14 @@ def test_submit_validation_and_later_slices(pair):
                        n_frames=100)
     with pytest.raises(RuntimeError, match="closed"):
         svc.submit(np.zeros((4, CFG.in_features), np.float32))
+    # mesh serving came with the sequence-parallel slice; the int8 wire on
+    # a mesh is still the multi-GPU slice's
+    from vidsum_tpu_torch.parallel import make_mesh
+
     with pytest.raises(NotImplementedError, match="multi-GPU slice"):
-        _service(model, mesh=object())
-    with pytest.raises(NotImplementedError, match="multi-GPU slice"):
-        _service(model, wire_dtype="int8", long_threshold=1024)
+        _service(model, mesh=make_mesh((1, 2), "cpu"), wire_dtype="int8")
+    with pytest.raises(ValueError, match="single-chip only"):
+        _service(model, mesh=make_mesh((2, 1), "cpu"), wire_mode="coalesced")
     with pytest.raises(ValueError, match="wire_dtype must be"):
         _service(model, wire_dtype="int4")
 
@@ -195,7 +199,7 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     """Importing every module of the port in a fresh interpreter leaves jax
     and vidsum_tpu out of sys.modules, and the packages the card's machine
     does not have (h5py, flax, optax, msgpack) too. The int8 slice's
-    modules are among those imported."""
+    modules and the sequence-parallel ones are among those imported."""
     code = (
         "import pkgutil, importlib, sys\n"
         "import vidsum_tpu_torch as p\n"
@@ -205,7 +209,8 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "bad = sorted(k for k in sys.modules if k.split('.')[0] in roots)\n"
         "n = sum(k.startswith('vidsum_tpu_torch') for k in sys.modules)\n"
         "new = ['ops.quant', 'ops.block_kernel_int8', 'serve_http',\n"
-        "       'cli.serve', 'tools.probe_int8_mma']\n"
+        "       'cli.serve', 'tools.probe_int8_mma', 'parallel.mesh',\n"
+        "       'parallel.ring_attention', 'parallel.seq_forward']\n"
         "missing = [m for m in new if 'vidsum_tpu_torch.' + m\n"
         "           not in sys.modules]\n"
         "print(n, bad, missing)\n"

@@ -60,6 +60,12 @@ the attention keeps its in-kernel dropout and the ``"attn"`` masks are
 ignored, as in the JAX package; ``"fused_block"`` with masks runs the dense
 route). Embed, PE and head are plain autograd in training (the JAX package
 computes them outside Pallas too).
+
+A caller-supplied attention (``attn_fn``: the sequence-parallel ring of
+``parallel/``, one shard per call at its global ``pos_offset``) replaces the
+attention of every layer, which then runs the plain route around it; with
+``dropout_masks`` whose ``"attn"`` entries are None the ring draws the
+attention dropout itself, as in the JAX package's seq-sharded step.
 """
 
 from __future__ import annotations
@@ -89,13 +95,10 @@ from vidsum_tpu_torch.ops.quant import (
 )
 
 ATTN_IMPLS = ("dense", "flash", "fused_block", "int8_dense", "int8_block")
-_LATER = {
-    "attn_fn": "the multi-GPU slice",
-}
 
 
 def _int8_checks(deterministic: bool, return_attn: bool, cfg: ModelConfig,
-                 attn_fn) -> None:
+                 caller_attention: bool) -> None:
     """The int8 route's preconditions, with the JAX package's messages."""
     if not deterministic:
         raise ValueError("int8 scoring path is inference-only; use the "
@@ -106,7 +109,7 @@ def _int8_checks(deterministic: bool, return_attn: bool, cfg: ModelConfig,
     if cfg.norm_first:
         raise ValueError("int8 scoring path implements the reference's "
                          "post-LN block only")
-    if attn_fn is not None:
+    if caller_attention:
         raise ValueError("int8 scoring path does not compose with a "
                          "caller-supplied attention (ring); use the "
                          "bf16 ladder for sequence-parallel scoring")
@@ -266,11 +269,50 @@ class SimNet(nn.Module):
                 generator: Optional[torch.Generator] = None,
                 block_seeds: Optional[Sequence[int]] = None,
                 return_attn: bool = False, attn_fn=None,
+                pos_offset: Optional[int] = None,
                 pe_len: Optional[int] = None, dropout_masks=None):
         """Run the scorer on x (B, N, in_features) with pad_mask (B, N) bool,
         True at padded frames. Returns ``(scores (B, N(+1), num_classes) f32,
         hidden)``, and with ``return_attn`` also the per-layer attention
         weights (B, H, N, N) (which always takes the dense route).
+
+        ``attn_fn(q, k, v, pad_mask) -> out`` (q/k/v/out (B, H, N, Dh) in the
+        compute dtype) replaces every layer's attention; the layers then take
+        the plain route around it (the int8 routes refuse it). ``pos_offset``
+        is the global position of ``x[:, 0]`` in the PE table, whose length
+        must then be the global sequence length ``pe_len``: the sequence-
+        parallel forward runs one shard per call (see :meth:`forward_steps`).
+        Everything else is :meth:`forward_steps`'s."""
+        steps = self.forward_steps(
+            x, pad_mask, attn_impl=attn_impl, deterministic=deterministic,
+            generator=generator, block_seeds=block_seeds,
+            return_attn=return_attn, yield_attention=attn_fn is not None,
+            pos_offset=pos_offset, pe_len=pe_len,
+            dropout_masks=dropout_masks)
+        try:
+            request = next(steps)
+            while True:
+                request = steps.send(attn_fn(*request))
+        except StopIteration as done:
+            return done.value
+
+    def forward_steps(self, x: torch.Tensor,
+                      pad_mask: Optional[torch.Tensor] = None, *,
+                      attn_impl: Optional[str] = None,
+                      deterministic: bool = True,
+                      generator: Optional[torch.Generator] = None,
+                      block_seeds: Optional[Sequence[int]] = None,
+                      return_attn: bool = False,
+                      yield_attention: bool = False,
+                      pos_offset: Optional[int] = None,
+                      pe_len: Optional[int] = None, dropout_masks=None):
+        """The forward as a generator; its return value (``StopIteration.
+        value``) is :meth:`forward`'s. With ``yield_attention`` it yields
+        ``(q, k, v, pad_mask)`` at every layer's attention and takes the
+        attention output back through ``send``: the single-process
+        counterpart of running the forward under ``shard_map``, where
+        ``parallel/seq_forward.py`` advances one generator per shard in
+        lockstep and runs the ring over all of them at each yield.
 
         Training (``deterministic=False``) draws its dropout from
         ``generator``. On both kernel routes (the ``"fused_block"`` block and
@@ -295,10 +337,12 @@ class SimNet(nn.Module):
             raise ValueError("generator is required when deterministic=False")
         use_int8 = attn_impl.startswith("int8")
         if use_int8:
-            _int8_checks(deterministic, return_attn, cfg, attn_fn)
-        if attn_fn is not None:
-            raise NotImplementedError("attn_fn arrives with "
-                                      + _LATER["attn_fn"])
+            _int8_checks(deterministic, return_attn, cfg, yield_attention)
+        if yield_attention:
+            if return_attn:
+                raise ValueError("return_attn does not compose with a "
+                                 "caller-supplied attention")
+            attn_impl = "dense"
 
         dt = dtype_of(cfg.compute_dtype)
         x = x.to(dt)
@@ -332,7 +376,12 @@ class SimNet(nn.Module):
             h = linear(emb.feature_transform, x)
         if cfg.use_pos:
             pe = self._pe(max(cfg.max_len, pe_len or 0, N), x.device)
-            h = h + pe[None, :N].to(dt)
+            off = int(pos_offset or 0)
+            if off + N > pe.shape[0]:
+                raise ValueError(f"positions {off}..{off + N} past the PE "
+                                 f"table's {pe.shape[0]} rows: pass the "
+                                 f"global length as pe_len")
+            h = h + pe[None, off:off + N].to(dt)
             if not deterministic and cfg.pos_dropout > 0.0:
                 h = _dropout(h, cfg.pos_dropout, drop_generator())
         if cfg.use_cls:
@@ -399,17 +448,19 @@ class SimNet(nn.Module):
                     return _apply_keep(t, lm[key], cfg.dropout)
                 return _dropout(t, cfg.dropout, drop_generator())
 
+            x_in = _layernorm(block.norm1, h) if cfg.norm_first else h
+            if yield_attention:
+                out = yield (*self._qkv(block.sa, x_in), pad_mask)
+                sa, w = self._project(block.sa, out), None
+            else:
+                sa, w = self._attention(block.sa, x_in, pad_mask, attn_impl,
+                                        deterministic, drop, return_attn,
+                                        seed)
             if cfg.norm_first:
-                sa, w = self._attention(block.sa, _layernorm(block.norm1, h),
-                                        pad_mask, attn_impl, deterministic,
-                                        drop, return_attn, seed)
                 h = h + drop(sa, "res1")
                 ff = self._mlp(block.mlp, _layernorm(block.norm2, h), drop)
                 h = h + drop(ff, "res2")
             else:
-                sa, w = self._attention(block.sa, h, pad_mask, attn_impl,
-                                        deterministic, drop, return_attn,
-                                        seed)
                 h = _layernorm(block.norm1, drop(sa, "res1") + h)
                 ff = self._mlp(block.mlp, h, drop)
                 h = _layernorm(block.norm2, drop(ff, "res2") + h)
@@ -433,10 +484,7 @@ class SimNet(nn.Module):
         weights in x's dtype when asked for). ``seed`` is the layer's
         attention dropout seed on the flash training route."""
         cfg = self.cfg
-        B, N, _ = x.shape
-        H, Dh = cfg.num_heads, cfg.head_dim
-        q, k, v = (_linear(lin, x).view(B, N, H, Dh).transpose(1, 2)
-                   for lin in (sa.q, sa.k, sa.v))
+        q, k, v = self._qkv(sa, x)
         weights = None
         if seed is not None:
             out = flash_attention_dropout(q, k, v, pad_mask, seed,
@@ -453,5 +501,18 @@ class SimNet(nn.Module):
             weights = torch.softmax(s, dim=-1).to(x.dtype)
             out = torch.matmul(drop(weights, "attn").float(),
                                v.float()).to(x.dtype)
-        out = out.transpose(1, 2).reshape(B, N, H * Dh)
-        return _linear(sa.feature_projection, out), weights
+        return self._project(sa, out), weights
+
+    def _qkv(self, sa: Attention, x):
+        """The per-head projections q, k, v (B, H, N, Dh)."""
+        B, N, _ = x.shape
+        H, Dh = self.cfg.num_heads, self.cfg.head_dim
+        return tuple(_linear(lin, x).view(B, N, H, Dh).transpose(1, 2)
+                     for lin in (sa.q, sa.k, sa.v))
+
+    @staticmethod
+    def _project(sa: Attention, out):
+        """Heads (B, H, N, Dh) merged and through the output projection."""
+        B, H, N, Dh = out.shape
+        return _linear(sa.feature_projection,
+                       out.transpose(1, 2).reshape(B, N, H * Dh))

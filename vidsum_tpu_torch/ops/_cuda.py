@@ -26,7 +26,7 @@ PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(PKG_DIR, "_build")
 KERNELS = ("gemm_bias_epilogue", "masked_attention", "block_train",
-           "attention_train", "int8_gemm")
+           "attention_train", "int8_gemm", "ring_attention")
 HEADERS = ("common.cuh", "attention_core.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
@@ -60,6 +60,11 @@ _SIGNATURES = {
     "int8_gemm": {
         "vs_int8_gemm": [_vp] * 13 + [_int] * 5 + [_f32, _vp],
         "vs_quantize_rows": [_vp] * 3 + [_int] * 3 + [_vp]},
+    "ring_attention": {
+        "vs_ring_fwd": [_vp] * 10 + [_int] * 7 + [_uint] + [_int] * 3
+        + [_uint, _f32, _vp],
+        "vs_ring_bwd": [_vp] * 14 + [_int] * 5 + [_uint] + [_int] * 3
+        + [_uint, _f32, _vp]},
 }
 
 _lock = threading.Lock()

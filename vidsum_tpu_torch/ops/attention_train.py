@@ -45,7 +45,7 @@ import torch
 from vidsum_tpu_torch.ops import _cuda
 from vidsum_tpu_torch.ops.attention import _DEAD, _pick_key_block
 from vidsum_tpu_torch.ops.block_train import (
-    _M32, _keep_scale, _mul32, _threshold,
+    _M32, _fmix_keep, _keep_scale, _mul32, _threshold,
 )
 
 TILE = 128
@@ -62,13 +62,8 @@ def _keep_hash(seed: int, b, h, rows, cols, rate: float) -> torch.Tensor:
     does for the block's hash family)."""
     base = (((int(seed) * 0x9E3779B1) & _M32)
             + _mul32(b * 1024 + h + 1, 0x85EBCA77)) & _M32
-    x = base ^ _mul32(rows, 0xC2B2AE3D) ^ _mul32(cols, 0x27D4EB2F)
-    x = x ^ (x >> 16)
-    x = _mul32(x, 0x85EBCA6B)
-    x = x ^ (x >> 13)
-    x = _mul32(x, 0xC2B2AE35)
-    x = x ^ (x >> 16)
-    return x >= _threshold(rate)
+    return _fmix_keep(base ^ _mul32(rows, 0xC2B2AE3D)
+                      ^ _mul32(cols, 0x27D4EB2F), rate)
 
 
 def _keep_mask_block(seed: int, b: int, h: int, row0: int, col0: int, shape,
@@ -476,9 +471,9 @@ def flash_attention_dropout(q: torch.Tensor, k: torch.Tensor,
             f"past the key-folded training route's envelope (the TPU "
             f"kernels' VMEM budget, copied so that routes match), and a "
             f"dense fallback would need the (B, H, N, N) attention tensor in "
-            f"memory. Train such lengths with the sequence-parallel ring, "
-            f"which arrives with the multi-GPU slice, or a shorter length "
-            f"bucket.")
+            f"memory. Train such lengths with the sequence-parallel ring "
+            f"(parallel/seq_forward.make_seq_sharded_finetune_step) or a "
+            f"shorter length bucket.")
     if pad_mask is None:
         pad_mask = torch.zeros((B, N), dtype=torch.bool, device=q.device)
     return _FlashAttentionDropout.apply(q, k, v, pad_mask.to(torch.bool),

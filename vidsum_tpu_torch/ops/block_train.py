@@ -113,7 +113,14 @@ def _keep_bits(seed: int, site, b, rows, cols, rate: float) -> torch.Tensor:
     base = (((int(seed) * 0x9E3779B1) & _M32)
             + _mul32(site * 131071 + 17, 0x85EBCA77)
             + _mul32(b + 1, 0x27220A95)) & _M32
-    x = base ^ _mul32(rows, 0xC2B2AE3D) ^ _mul32(cols, 0x27D4EB2F)
+    return _fmix_keep(base ^ _mul32(rows, 0xC2B2AE3D)
+                      ^ _mul32(cols, 0x27D4EB2F), rate)
+
+
+def _fmix_keep(x: torch.Tensor, rate: float) -> torch.Tensor:
+    """The murmur-style finalizer and threshold every hash family of the
+    JAX package shares (``parallel/ring_attention.py::_fmix_keep``), on
+    int64 tensors holding uint32 values."""
     x = x ^ (x >> 16)
     x = _mul32(x, 0x85EBCA6B)
     x = x ^ (x >> 13)

@@ -73,20 +73,21 @@ def _check_rss_watermark(svc) -> None:
         f"recycled or RSS falls")
 
 
-def admit(svc, n: int) -> None:
+def admit(svc, n: int, long: bool = False) -> None:
     """Gate one request: reject on length caps / overload, else reserve an
     admission slot (released by :func:`complete`/:func:`fail`, or by the
     caller if the submit-time transfer fails)."""
-    cap = svc._short_cap
+    cap = svc._long_cap if long else svc._short_cap
     if svc.max_request_len is not None and (
             cap is None or svc.max_request_len < cap):
         cap = svc.max_request_len
     if cap is not None and n > cap:
         with svc._lock:
             svc._stats["rejected"] += 1
+        route = ("sequence-parallel ring" if long
+                 else "single-chip kernel ladder")
         raise RequestTooLong(
-            f"request has {n} feature rows but the single-chip kernel "
-            f"ladder on this "
+            f"request has {n} feature rows but the {route} on this "
             f"service carries at most {cap}"
             + ("" if svc.max_request_len is None
                else f" (max_request_len={svc.max_request_len})"))

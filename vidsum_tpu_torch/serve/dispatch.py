@@ -1,11 +1,12 @@
-# ported from vidsum_tpu/serve/dispatch.py (single-device batches; the mesh
-# routes arrive with the multi-GPU slice)
-"""The dispatcher side of the scoring service: windowing, batch runs and
-host-side shot selection.
+# ported from vidsum_tpu/serve/dispatch.py
+"""The dispatcher side of the scoring service: windowing, batch runs,
+long-route launches and host-side shot selection.
 
 One dispatcher thread per service runs :func:`dispatcher_loop`: it pulls
 admitted requests off the queue, collects a bounded batching window, groups
-by length bucket and runs each group on the device. Results fan out to the
+by length bucket and runs each group on the device (one device through
+``serve/transport.py``, a mesh through ``serve/mesh.py``); a long request
+takes the ring on its own. Results fan out to the
 service's selection pool so the dispatcher is back on the device while the
 CPU picks shots. All functions take the service as first argument and read
 its attributes live."""
@@ -20,6 +21,7 @@ import numpy as np
 
 from vidsum_tpu_torch.ops.kts import change_points_from_cps, kts_segmentation
 from vidsum_tpu_torch.ops.summary import generate_summary
+from vidsum_tpu_torch.serve import mesh as mesh_mod
 from vidsum_tpu_torch.serve import transport
 from vidsum_tpu_torch.serve.types import (
     _CLOSE, ServeResult, _next_pow2, _Request,
@@ -65,7 +67,10 @@ def dispatcher_loop(svc) -> None:
 def _dispatch_window(svc, window: list) -> None:
     groups = defaultdict(list)
     for r in window:
-        groups[r.n_bucket].append(r)
+        if r.long:
+            _run_long(svc, r)
+        else:
+            groups[r.n_bucket].append(r)
     for n_bucket in sorted(groups):
         for start in range(0, len(groups[n_bucket]), svc.max_batch):
             _run_batch(svc, n_bucket,
@@ -73,6 +78,8 @@ def _dispatch_window(svc, window: list) -> None:
 
 
 def _run_batch(svc, n_bucket: int, items: list) -> None:
+    if svc._rep_fwd is not None:
+        return _run_batch_replica(svc, n_bucket, items)
     b_real = len(items)
     b = _next_pow2(b_real)
     mask = np.ones((b, n_bucket), dtype=bool)
@@ -93,6 +100,61 @@ def _run_batch(svc, n_bucket: int, items: list) -> None:
     for i, r in enumerate(items):
         svc._pool.submit(finish_request, svc, r,
                          out[i, : r.feats.shape[0]].copy())
+
+
+def _run_batch_replica(svc, n_bucket: int, items: list) -> None:
+    """Mesh-mode batch: ``k`` rows per replica, k the next power of two of
+    ceil(b_real / R) (``serve/mesh.py`` owns the balanced assembly and the
+    straggler re-commits), each replica on the single-device forward."""
+    R = len(svc._mesh_devices)
+    b_real = len(items)
+    k = _next_pow2(-(-b_real // R))
+    try:
+        xs, mask, real_slots, moved = mesh_mod.assemble_replica_batch(
+            items, svc._mesh_devices, k, n_bucket)
+        out = svc._rep_fwd(xs, mask)
+    except Exception as e:  # noqa: BLE001 — fail every rider, keep serving
+        for r in items:
+            svc._fail(r, e)
+        return
+    for r in items:
+        r.row_host = None
+    svc._account_batch(b_real, R * k, moved)
+    for i, r in real_slots:
+        svc._pool.submit(finish_request, svc, r,
+                         out[i, : r.feats.shape[0]].copy())
+
+
+def _run_long(svc, r: _Request) -> None:
+    """Mesh-mode long request: one ring pass over all entries, one request
+    per call (a long video fills the mesh by itself). The dispatcher only
+    launches the ring; the host fetch, which waits for the device, runs on
+    the selection pool, so a long pass never holds up the short batches
+    behind it on a card (on the CPU the launch computes)."""
+    n = r.feats.shape[0]
+    mask = np.ones((1, r.n_bucket), dtype=bool)
+    mask[0, :n] = False
+    try:
+        outs = svc._long_fwd(r.row_dev, mask)
+    except Exception as e:  # noqa: BLE001 — keep serving
+        svc._fail(r, e)
+        return
+    with svc._lock:
+        svc._stats["batches"] += 1
+        svc._stats["rows_scored"] += 1
+        svc._stats["long_requests"] += 1
+
+    def fetch_and_finish():
+        try:
+            out = np.concatenate([o.float().cpu().numpy() for o in outs],
+                                 axis=1)
+        except Exception as e:  # noqa: BLE001 — device-side failure
+            svc._fail(r, e)
+            return
+        r.row_host = None
+        finish_request(svc, r, out[0, :n].copy())
+
+    svc._pool.submit(fetch_and_finish)
 
 
 # ------------------------------------------------------- shot selection

@@ -1,5 +1,5 @@
-# ported from vidsum_tpu/serve/service.py (single device; mesh serving
-# arrives with the multi-GPU slice)
+# ported from vidsum_tpu/serve/service.py (the int8 wire on a mesh arrives
+# with the multi-GPU slice)
 """The micro-batching scoring service: admission, dispatch, selection.
 
 Requests enter through :meth:`ScoringService.submit` (admission control +
@@ -12,6 +12,8 @@ back on the device while the CPU picks shots.
 Requests are padded to 128-multiple length buckets and each bucket's batch
 dim to a power of two by repeating request rows; no op of the scorer mixes
 batch rows, so a request's served scores equal its solo scores bit for bit.
+With a ``mesh``, short requests run as replica batches and long ones over
+the sequence-parallel ring (``serve/mesh.py``).
 """
 
 from __future__ import annotations
@@ -29,6 +31,7 @@ from vidsum_tpu_torch.config import ModelConfig
 from vidsum_tpu_torch.data.collate import bucket_length
 from vidsum_tpu_torch.device import resolve_device
 from vidsum_tpu_torch.serve import admission, dispatch, transport
+from vidsum_tpu_torch.serve import mesh as mesh_mod
 from vidsum_tpu_torch.serve.mesh import _single_chip_max_len
 from vidsum_tpu_torch.serve.types import (
     _CLOSE, ServeResult, ServeStats, _Request, normalize_request,
@@ -42,8 +45,9 @@ class ScoringService:
 
     :param model: a :class:`~vidsum_tpu_torch.models.simnet.SimNet`; it is
         moved to ``device`` and put in eval mode.
-    :param device: ``None`` (default) = the CUDA card, which must exist;
-        pass ``"cpu"`` to serve on the plain PyTorch path.
+    :param device: ``None`` (default) = the CUDA card, which must exist
+        (with a ``mesh``: its first entry); pass ``"cpu"`` to serve on the
+        plain PyTorch path.
     :param max_batch: upper bound on real rows per device batch (the batch
         dim is padded up to the next power of two).
     :param max_delay_ms: batching window — how long the dispatcher waits
@@ -62,7 +66,16 @@ class ScoringService:
     :param max_request_len: optional operator cap on feature rows per
         request, on top of the kernel-envelope cap.
     :param rss_watermark_mb: optional host-RSS shed threshold.
-    :param mesh: multi-device serving arrives with the multi-GPU slice.
+    :param mesh: a :class:`~vidsum_tpu_torch.parallel.mesh.DeviceMesh`
+        with more than one entry turns on mesh mode: requests past
+        ``long_threshold`` run over the sequence-parallel ring, one shard
+        per entry; where the entries name more than one device, short
+        requests are committed round-robin to them and run as replica
+        batches. Entries may repeat a device. The int8 wire on a mesh
+        arrives with the multi-GPU slice.
+    :param long_threshold: feature-row count above which a request takes
+        the ring (mesh mode only); default the largest length the single-
+        device kernel ladder carries.
     """
 
     def __init__(self, model, cfg: ModelConfig, *, device=None,
@@ -80,19 +93,38 @@ class ScoringService:
                  mesh=None, long_threshold: Optional[int] = None) -> None:
         from vidsum_tpu_torch.train.steps import make_eval_forward
 
-        if mesh is not None or long_threshold is not None:
-            raise NotImplementedError(
-                "mesh serving (replica batches and the sequence-parallel "
-                "long route) arrives with the multi-GPU slice")
+        if mesh is not None and mesh.size > 1:
+            if wire_dtype == "int8":
+                raise NotImplementedError(
+                    "the int8 wire on a mesh (make_replica_forward_int8) "
+                    "arrives with the multi-GPU slice")
+            if device is not None and mesh.devices[0] != resolve_device(
+                    device):
+                raise ValueError(f"device {device} is not the mesh's first "
+                                 f"entry {mesh.devices[0]}")
+            device = mesh.devices[0]
         self.device = resolve_device(device)
         if attn_impl is None:
             attn_impl = "fused_block" if self.device.type == "cuda" else "dense"
         self._cfg = cfg
         self._model = model.to(self.device).eval()
-        self._fwd = make_eval_forward(cfg, attn_impl=attn_impl,
-                                      device=self.device)
+        routing = mesh_mod.build_mesh_routing(cfg, mesh, self._model,
+                                              attn_impl, bucket,
+                                              long_threshold)
+        # flattened onto the service so tests and tools can reach the routes
+        # (None everywhere: a single-device service; _rep_fwd None: short
+        # requests take the single-device batch path)
+        self._mesh_devices = routing.devices if routing else None
+        self._rep_fwd = routing.rep_fwd if routing else None
+        self._fwd = (None if self._rep_fwd is not None else
+                     make_eval_forward(cfg, attn_impl=attn_impl,
+                                       device=self.device))
+        self._long_fwd = routing.long_fwd if routing else None
+        self._long_threshold = routing.long_threshold if routing else None
+        self._rr = 0
         self._wire = transport.resolve_wire(cfg, wire_dtype, wire_mode,
-                                            self.device, self._fwd)
+                                            self.device, self._fwd,
+                                            mesh_active=routing is not None)
         self.max_batch = int(max_batch)
         self.max_delay_s = float(max_delay_ms) / 1e3
         self.bucket = int(bucket)
@@ -103,13 +135,18 @@ class ScoringService:
                                 else int(max_request_len))
         self.rss_watermark_mb = (None if rss_watermark_mb is None
                                  else float(rss_watermark_mb))
-        # submit-time length cap from the kernel ladder's envelope
+        # submit-time length caps from the kernel ladder's envelope
         # arithmetic (flash_forward_supported); the dense impl has no kernel
         # envelope, so only max_request_len caps it (int8_dense is capped, as
-        # in the JAX package)
+        # in the JAX package). The ring's shards are N / P long, so its
+        # envelope scales by the entry count.
         self._short_cap: Optional[int] = (
             None if attn_impl == "dense"
             else _single_chip_max_len(cfg, bucket))
+        self._long_cap: Optional[int] = (
+            self._short_cap * len(self._mesh_devices)
+            if self._long_fwd is not None and self._short_cap is not None
+            else None)
 
         self._q: "queue.Queue" = queue.Queue()
         self._closed = False
@@ -156,28 +193,49 @@ class ScoringService:
         """
         feats, n, picks, n_frames, change_points = normalize_request(
             features, picks, n_frames, change_points, self._cfg.in_features)
-        admission.admit(self, n)
+        long = self._long_fwd is not None and n > self._long_threshold
+        admission.admit(self, n, long)
         try:
             return self._submit_admitted(
                 feats, n, picks, n_frames, change_points, want_summary,
-                budget_ratio, deadline_s)
+                budget_ratio, deadline_s, long)
         except BaseException:
             admission.release_failed_submit(self)
             raise
 
     def _submit_admitted(self, feats, n, picks, n_frames, change_points,
-                         want_summary, budget_ratio, deadline_s) -> Future:
+                         want_summary, budget_ratio, deadline_s,
+                         long) -> Future:
         fut: Future = Future()
         # pad to the length bucket on the host and start the copy NOW, so
         # it runs under earlier batches' compute (an (int8 rows, scales) pair
         # on the int8 wire)
-        n_bucket = bucket_length(n, self.bucket)
-        row = transport.build_short_row(self._wire, feats, n_bucket,
-                                        self._cfg.in_features, self.pad_value)
-        if self._wire.coalesced:
-            row_dev, row_host = row, None   # ships with its batch
+        dev_idx = -1
+        if long:
+            # the ring needs equal shards: pad to bucket x entries and ship
+            # seq-sharded, on the lossless wire
+            n_bucket = bucket_length(n, self.bucket * len(self._mesh_devices))
+            row_dev, row_host = mesh_mod.build_long_row(
+                feats, n_bucket, self._cfg.in_features, self.pad_value,
+                self._wire.dtype, self._mesh_devices)
         else:
-            row_dev, row_host = transport.ship_row(self._wire, row), row
+            n_bucket = bucket_length(n, self.bucket)
+            row = transport.build_short_row(self._wire, feats, n_bucket,
+                                            self._cfg.in_features,
+                                            self.pad_value)
+            if self._wire.coalesced:
+                row_dev, row_host = row, None   # ships with its batch
+            elif self._rep_fwd is None:
+                row_dev, row_host = transport.ship_row(self._wire, row), row
+            else:
+                # commit rows round-robin over the replicas, so a batch
+                # assembles from rows already in place
+                with self._lock:
+                    dev_idx = self._rr % len(self._mesh_devices)
+                    self._rr += 1
+                row_dev = row.to(self._mesh_devices[dev_idx],
+                                 non_blocking=True)
+                row_host = row
         now = time.monotonic()
         req = _Request(feats=feats, row_dev=row_dev, row_host=row_host,
                        n_bucket=n_bucket, picks=picks, n_frames=n_frames,
@@ -187,7 +245,8 @@ class ScoringService:
                                      else float(budget_ratio)),
                        future=fut, t_enq=now,
                        deadline=(None if deadline_s is None
-                                 else now + float(deadline_s)))
+                                 else now + float(deadline_s)),
+                       dev_idx=dev_idx, long=long)
         # check-and-enqueue under the same lock close() uses, so a request
         # is either enqueued ahead of the sentinel or rejected
         with self._lock:
@@ -275,9 +334,10 @@ class ScoringService:
     def _expire_if_late(self, r: _Request) -> bool:
         return admission.expire_if_late(self, r)
 
-    def _account_batch(self, b_real: int, b: int) -> None:
+    def _account_batch(self, b_real: int, b: int, moved: int = 0) -> None:
         with self._lock:
             self._stats["batches"] += 1
             self._stats["rows_scored"] += b_real
             self._stats["rows_padded"] += b - b_real
+            self._stats["rows_moved"] += moved
             self._batch_hist[b_real] += 1

@@ -1,15 +1,16 @@
-# ported from vidsum_tpu/serve/transport.py (single-device wires; the mesh
-# placements arrive with the multi-GPU slice)
+# ported from vidsum_tpu/serve/transport.py (the mesh placements live in
+# serve/mesh.py)
 """Serving wire transports: how request bytes reach the device.
 
 - ``rows`` (default): each request's padded feature row is built in pinned
   host memory and its host-to-device copy starts at submit time
   (``non_blocking``), so transfers overlap earlier batches' compute; the
   batch is assembled on the device with ``torch.stack`` and batch-dim
-  padding costs zero wire bytes.
-- ``coalesced``: rows stay on the host and one stacked tensor moves per
-  micro-batch (one transfer per batch instead of one per request). Scores
-  are bit-identical to ``rows``.
+  padding costs zero wire bytes. On a mesh, ``serve/mesh.py`` commits rows
+  to their replica or seq shards instead.
+- ``coalesced`` (single device only): rows stay on the host and one
+  stacked tensor moves per micro-batch (one transfer per batch instead of
+  one per request). Scores are bit-identical to ``rows``.
 
 Wire dtypes: ``"auto"`` (the model's compute dtype, lossless for the
 scorer, which casts to it first), ``"float32"``, ``"bfloat16"``, or
@@ -59,12 +60,17 @@ def quantize_frames(row: np.ndarray):
 
 
 def resolve_wire(cfg: ModelConfig, wire_dtype: str, wire_mode: str,
-                 device: torch.device, fwd) -> Wire:
-    """Validate the (wire_dtype, wire_mode) combination and build the
+                 device: torch.device, fwd, mesh_active: bool = False) -> Wire:
+    """Validate the (wire_dtype, wire_mode, mesh) combination and build the
     transport policy. Raises ``ValueError`` on unsupported combinations."""
     if wire_mode not in ("rows", "coalesced"):
         raise ValueError(f"wire_mode must be 'rows' or 'coalesced', "
                          f"got {wire_mode!r}")
+    if wire_mode == "coalesced" and mesh_active:
+        raise ValueError(
+            "wire_mode='coalesced' is single-chip only (the mesh "
+            "transports commit rows to their replica / seq shards at "
+            "submit time); use wire_mode='rows'")
     if wire_dtype not in ("auto", "float32", "bfloat16", "int8"):
         raise ValueError(f"wire_dtype must be 'auto', 'float32', "
                          f"'bfloat16' or 'int8', got {wire_dtype!r}")

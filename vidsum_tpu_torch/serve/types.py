@@ -110,6 +110,9 @@ class _Request:
     deadline: Optional[float]  # absolute monotonic; None = no deadline
     row_host: object = None    # pinned host source of an in-flight copy,
                                # kept alive until the batch has run
+    dev_idx: int = -1          # mesh mode: the replica holding row_dev
+    long: bool = False         # mesh mode: takes the ring (row_dev is then
+                               # the list of seq shards)
 
 
 _CLOSE = object()
