@@ -67,10 +67,14 @@ caught and passed over):
    elementwise and a relative RMS bound; the kernels at seed + 1 must fail
    them, two backward runs must give identical bits, and in bf16 each
    forward route must lie at least twice as close to its own plain version
-   as to the other route's. Prints the median CUDA-event ms of each route,
-   its plain version and ``F.scaled_dot_product_attention(dropout_p=0.3)``
-   (forward, and forward + backward; timed only), and the bound (products
-   at the input type's peak, the backward's dp and dV at the f32 peak).
+   as to the other route's (which shows that the tensor-core forward of the
+   bf16 single pass still rounds normalised P). Prints the median
+   CUDA-event ms of each route, its plain version and
+   ``F.scaled_dot_product_attention(dropout_p=0.3)`` (forward, and forward +
+   backward; timed only), and the bound (products at the input type's
+   peak; in the FMA family the backward's dp and dV at the f32 peak, in the
+   bf16 single pass's tensor-core kernels dp at the bf16 peak and dV as
+   three bf16 products, with the FMA family's bound beside it).
    ring kernels: TPU kernels 15-17 (``parallel/ring_attention.py``,
    ``csrc/ring_attention.cu``) against their plain steps: kernel 15 at
    (B, H, Nl, Dh) = (1, 4, 4,096, 64) (a 16,384-frame request over 4
@@ -85,6 +89,12 @@ caught and passed over):
    sequence (timed only). Then the same checks of one step past the TPU
    kernels' VMEM envelope, where the CUDA routes take the kernels all the
    same: kernel 15 at Nl 8,192, kernels 16/17 at Nl 4,096.
+   d 512: d_model 512 with 4 heads (head_dim 128) through every family
+   against its plain version at small shapes (the block routes, the int8
+   block routes, the training block routes, the four training attention
+   routes in bf16 and f32, the ring steps), then a 2-layer d 512 model:
+   bf16 scores card against CPU, int8 scores within the lossy budget of
+   the bf16 ones, one fused-block finetune step card against CPU.
 6. serve: ``ScoringService`` with seeded flagship weights (d 256, 4 heads,
    4 layers, bf16) takes 13 requests: 320/480/512 frames with auto-KTS,
    1,200 frames, 6,000 frames (past the block envelope: flash) and 16,384
@@ -144,7 +154,9 @@ caught and passed over):
    seq train: ``make_seq_sharded_finetune_step`` on a (1, 4) mesh of
    cuda:0: one step on one 8,100-frame video (f32, dropout 0.3, the
    flagship cut to 2 layers for the CPU's sake) against the CPU's plain
-   path with the same seeds (per parameter, the step bound),
+   path with the same seeds (per parameter, the step bound), one step at
+   N 8,320 (an odd multiple of 128: shards of 2,080 frames, padded to
+   2,112 for the kernels' 64-key tiles) against the plain ring on the card,
    then 5 recipe epochs over phase 8's videos in buckets of 512 (10 steps,
    Nl <= 2,304): kernels 16 and 17 launch 16 times per layer per step, the
    flash and block training kernels never; finite losses; step ms, peak
@@ -987,7 +999,9 @@ def phase_train_attention(dev: dict, seed: int) -> dict:
     """The four training attention routes (``ops/attention_train.py``, TPU
     kernels 5-8) against their plain versions at (B, H, N, Dh) =
     (2, 4, 8192, 64), valid lengths (8100, 5000), dropout 0.3, f32 and bf16;
-    returns the f32 numbers per route (the recipe trains in f32)."""
+    returns per route the numbers of the dtype its long-video step runs it
+    in: bf16 for the single-pass routes (the tensor-core kernels), f32 for
+    the folded ones."""
     import numpy as np
     import torch
     import torch.nn.functional as F
@@ -1089,11 +1103,17 @@ def phase_train_attention(dev: dict, seed: int) -> dict:
                 scale=scale).backward(do), reps=10)
             del ql, kl, vl
             # bounds: the forward's two products at the input type's peak;
-            # the backward's dp and dV are f32 x f32, dQ and dK at the
-            # input type's peak (the recompute not counted)
+            # in the FMA family the backward's dp and dV are f32 x f32, dQ
+            # and dK at the input type's peak; the bf16 single pass's
+            # tensor-core kernels take dp, dQ and dK at the bf16 peak and
+            # dV's f32 pd as three bf16 products (the recompute not
+            # counted). The FMA family's backward bound is printed beside
+            # (bound_ms_fma)
             flops = 4 * H * Dh * N * sum_valid
+            mma = dtype == torch.bfloat16 and not folded
             t_f = flops / peaks[dn]
-            t_b = flops / peaks["float32"] + flops / peaks[dn]
+            t_b_fma = flops / peaks["float32"] + flops / peaks[dn]
+            t_b = 3 * flops / peaks[dn] if mma else t_b_fma
             qkv_bytes = B * H * N * Dh * itm
             bytes_f = 4 * qkv_bytes + B * N + B * H * N * 4
             bytes_b = ((7 + int(folded)) * qkv_bytes + B * N + B * H * N * 4)
@@ -1117,12 +1137,19 @@ def phase_train_attention(dev: dict, seed: int) -> dict:
                  tolerance=gtol, seed_plus_one_dq_rel_rms=fault[1],
                  deterministic=True, ms=ms_b, plain_ms=plain_b,
                  library_ms=lib_b, bound_ms=bb_ms, bound_by=bb_by,
-                 flops=2 * flops, bytes=bytes_b)
-            if dtype == torch.float32:
-                out[name_f] = dict(max_abs_err=max(o_err[0], lse_err[0]),
+                 bound_ms_fma=max(t_b_fma, bytes_b / peaks["bytes"]) * 1e3,
+                 tensor_cores=mma, flops=(3 if mma else 2) * flops,
+                 bytes=bytes_b)
+            # the kernels line: the single-pass routes in bf16 (their
+            # tensor-core kernels; the bf16 long-video step), the folded
+            # ones in f32 (the f32 long-video step)
+            if (dtype == torch.bfloat16) != folded:
+                out[name_f] = dict(dtype=dn,
+                                   max_abs_err=max(o_err[0], lse_err[0]),
                                    ms=ms_f, plain_ms=plain_f, bound_ms=bf_ms,
                                    bound_by=bf_by, library_ms=lib_f)
                 out[name_b] = dict(
+                    dtype=dn,
                     max_abs_err=max(e[0] for e in grad_err.values()),
                     ms=ms_b, plain_ms=plain_b, bound_ms=bb_ms,
                     bound_by=bb_by, library_ms=lib_b)
@@ -1144,6 +1171,244 @@ def phase_train_attention(dev: dict, seed: int) -> dict:
         del q, k, v, do, own
         torch.cuda.empty_cache()
     return out
+
+
+# d_model 512 with 4 heads (head_dim 128): the JAX package's wide scorer
+# (tests/test_block_kernel.py:101, ckpts/soak_d512v200)
+D512 = dict(d_model=512, num_heads=4)
+# a d 512 model's bf16 scores on the card against the CPU's plain bf16 path
+# (sigmoid scores, two layers): the int8 block's limits, a wiring check; each
+# kernel family's precision is held by its own bound above
+D512_SCORES = dict(median=5e-3, max=5e-2)
+
+
+def phase_d512(seed: int) -> dict:
+    """d_model 512 with 4 heads (head_dim 128) through every kernel family
+    against its plain version at small shapes: the serving block (1-2; its
+    LayerNorm rows past the GEMM's 256-column tile), the int8 block
+    (13-14), the training block (9-12, forward, dx and grads), the training
+    attention (5-8, bf16 and f32) and the ring steps (15-17). Then a
+    2-layer d 512 model scores in bf16 (card against the CPU's plain path),
+    int8-scores (within the lossy budget of its bf16 scores) and takes one
+    fused-block finetune step (card against CPU, the step bound). The
+    launches here are checks, not the main path's."""
+    import copy
+
+    import numpy as np
+    import torch
+
+    from vidsum_tpu_torch.config import ModelConfig
+    from vidsum_tpu_torch.models.simnet import SimNet
+    from vidsum_tpu_torch.ops import attention_train as at
+    from vidsum_tpu_torch.ops import block_kernel as bk
+    from vidsum_tpu_torch.ops import block_kernel_int8 as bk8
+    from vidsum_tpu_torch.ops import block_train as bt
+    from vidsum_tpu_torch.ops.quant import quantize_block
+    from vidsum_tpu_torch.train.steps import make_finetune_step, make_optimizer
+
+    cuda = torch.device("cuda")
+    cfg = ModelConfig(num_layers=1, **D512)
+    d, H, Dh, scale, rate = cfg.d_model, cfg.num_heads, cfg.head_dim, \
+        cfg.attn_scale, 0.3
+    block = SimNet(cfg, device=cuda,
+                   generator=torch.Generator().manual_seed(seed + 20)
+                   ).encoder.module_list[0]
+    rng = np.random.default_rng(seed + 20)
+    dseed = int(rng.integers(0, 2**31 - 2))
+    rep = {}
+
+    def randn(*shape, dtype=torch.float32):
+        return torch.from_numpy(rng.normal(size=shape).astype(
+            np.float32)).to(cuda, dtype)
+
+    def launched(fn, counter, what):
+        before = counter.launches
+        out = fn()
+        torch.cuda.synchronize()
+        if counter.launches != before + 1:
+            raise AssertionError(f"d 512: {what} did not launch")
+        return out
+
+    for dtype in (torch.bfloat16, torch.float32):
+        dn = str(dtype).split(".")[1]
+        # 1-2, each entry point (in f32 past the copied TPU envelope)
+        w = bk.block_weights(block, dtype)
+        for B, N, route in ((1, 512, "_fused_block"),
+                            (2, 128, "_fused_block_grouped")):
+            x, mask = randn(B, N, d, dtype=dtype), pad_mask(B, N, rng, cuda)
+            fn = getattr(bk, route)
+            with torch.inference_mode():
+                got = launched(lambda: fn(w, x, mask, H, scale), fn, route)
+                want = bk.encoder_block_reference(w, x, mask, H, scale)
+            rep[f"{route}.{dn}"] = check_close(got, want, TOL[("block", dn)],
+                                               f" (d 512 {route})")
+        # 13-14
+        qb = quantize_block(block)
+        for B, N, route in ((1, 512, "_fused_block_int8"),
+                            (2, 256, "_fused_block_int8_grouped")):
+            x, mask = randn(B, N, d, dtype=dtype), pad_mask(B, N, rng, cuda)
+            with torch.inference_mode():
+                got = launched(lambda: bk8.fused_encoder_block_int8(
+                    qb, x, mask, H, scale, qk_int8=False),
+                    getattr(bk8, route), route)
+                want = bk8.int8_block_reference(qb, x, mask, H, scale, False)
+            st = diff_stats(got, want)
+            if not int8_within(st):
+                raise AssertionError(f"d 512 {route} {dn}: {st} past "
+                                     f"{INT8_BOUND}")
+            rep[f"{route}.{dn}"] = st
+        # 5-8 at head_dim 128, valid lengths 2,000 and 1,100 of 2,048
+        B, N = 2, 2048
+        mask = torch.ones(B, N, dtype=torch.bool, device=cuda)
+        mask[0, :2000] = False
+        mask[1, :1100] = False
+        q, k, v, do = (randn(B, H, N, Dh, dtype=dtype) for _ in range(4))
+        for folded in (False, True):
+            fwd = at._fwd_kernel_folded if folded else at._fwd_kernel
+            bwd = at._bwd_kernel_folded if folded else at._bwd_kernel
+            kb = at.KEY_TILE
+            if folded:
+                o, lse = launched(lambda: fwd(q, k, v, mask, dseed, rate,
+                                              scale, kb), fwd, fwd.__name__)
+                wo, wl = at.attention_train_fwd_folded_reference(
+                    q, k, v, mask, dseed, rate, scale, kb, rows=N)
+                grads = launched(lambda: bwd(q, k, v, mask, dseed, wl, do, wo,
+                                             rate, scale, kb), bwd,
+                                 bwd.__name__)
+                want = at.attention_train_bwd_folded_reference(
+                    q, k, v, mask, dseed, wl, do, wo, rate, scale, kb,
+                    rows=N)
+            else:
+                o, lse = launched(lambda: fwd(q, k, v, mask, dseed, rate,
+                                              scale), fwd, fwd.__name__)
+                wo, wl = at.attention_train_fwd_reference(
+                    q, k, v, mask, dseed, rate, scale, rows=512)
+                grads = launched(lambda: bwd(q, k, v, mask, dseed, wl, do,
+                                             rate, scale), bwd, bwd.__name__)
+                want = at.attention_train_bwd_reference(
+                    q, k, v, mask, dseed, wl, do, rate, scale, rows=512)
+            name = f"{attn_train_name(fwd.__name__)}.{dn}"
+            rep[name] = {
+                "o": check_close(o, wo, TOL[("attn_train_o", dn)],
+                                 f" (d 512 {name} o)"),
+                "lse": check_close(lse, wl, TOL[("attn_train_lse", dn)],
+                                   f" (d 512 {name} lse)"),
+                **{f"d{n}": check_close(
+                    a, b, scaled(TOL[("attn_train_grad", dn)], b),
+                    f" (d 512 {name} d{n})")
+                   for n, a, b in zip("qkv", grads, want)}}
+        del q, k, v, do
+
+    # 9-12 (f32 products in both dtypes; f32 here)
+    with torch.no_grad():
+        tw = bt.train_weights(block)
+    for B, N, grouped in ((1, 512, False), (4, 256, True)):
+        fwd = bt._fwd_kernel_grouped if grouped else bt._fwd_kernel
+        bwd = bt._bwd_kernel_grouped if grouped else bt._bwd_kernel
+        if (bt._pick_train_group(B, N) > 1) != grouped:
+            raise AssertionError(f"d 512 ({B}, {N}) does not route as "
+                                 f"expected")
+        x, do, mask = randn(B, N, d), randn(B, N, d), pad_mask(B, N, rng,
+                                                                cuda)
+        _, kept = bt._forward_chain(x, mask, dseed, tw, H, scale, rate,
+                                    keep=True)
+        a1 = kept["a1"]
+        near = (a1.abs() < NEAR_ZERO * a1.pow(2).mean().sqrt()).any(-1)
+        do = do.masked_fill(near.view(B, N, 1), 0.0)
+        del kept, a1
+        got = launched(lambda: fwd(x, mask, dseed, tw, H, scale, rate), fwd,
+                       fwd.__name__)
+        dx, grads = launched(lambda: bwd(x, mask, dseed, tw, do, H, scale,
+                                         rate), bwd, bwd.__name__)
+        want = bt.block_reference_with_masks(x, tw, mask, dseed, H, scale,
+                                             rate)
+        wdx, wgrads = bt.block_reference_backward(x, tw, mask, dseed, do, H,
+                                                  scale, rate)
+        gtol = TOL[("train_grad", "float32")]
+        rep[f"{fwd.__name__}.block_train"] = {
+            "fwd": check_close(got, want, TOL[("train_fwd", "float32")],
+                               " (d 512 block train)"),
+            "dx": check_close(dx, wdx, scaled(gtol, wdx),
+                              " (d 512 block train dx)"),
+            "worst_grad_rel_rms": max(
+                check_close(a, b, scaled(gtol, b), f" (d 512 d{n})")[1]
+                for n, a, b in zip(bt.TrainWeights._fields, grads,
+                                   wgrads))}
+
+    # 15-17 at head_dim 128: one shard of 1,024 of a 4,096-frame sequence
+    ra = ring_module()
+    B, Nl = 2, 1024
+    q32 = randn(B, H, Nl, Dh) * scale
+    k, v, g = (randn(B, H, Nl, Dh) for _ in range(3))
+    mask = torch.zeros(B, Nl, dtype=torch.bool, device=cuda)
+    mask[1, 700:] = True
+    carry = ra._init_carries(q32)
+    for kv_dtype in (torch.bfloat16, torch.float32):
+        kd, vd = k.to(kv_dtype), v.to(kv_dtype)
+        got = launched(lambda: ra._ring_block_step(q32, kd, vd, mask,
+                                                   *carry),
+                       ra._ring_block_step, "ring block step")
+        want = ra.ring_block_step_reference(q32, kd, vd, mask, *carry)
+        rep[f"ring_block.{str(kv_dtype).split('.')[1]}"] = check_carries(
+            got, want, "d 512 ring block step")
+    info = (dseed, 2, 1024, 2048)
+    got = launched(lambda: ra._ring_train_step(q32, k, v, mask, info,
+                                               *carry, rate),
+                   ra._ring_train_step, "ring train step")
+    want = ra.ring_train_step_reference(q32, k, v, mask, info, *carry, rate)
+    rep["ring_train_fwd"] = check_carries(got, want, "d 512 ring train step")
+    o, m, l = want
+    dr = (g * o / l).sum(-1, keepdim=True)
+    acc = tuple(torch.zeros_like(t) for t in (q32, k, v))
+    args = (q32, k, v, g, dr, m, l, mask, info, *acc, rate)
+    grads = launched(lambda: ra._ring_train_step_bwd(*args),
+                     ra._ring_train_step_bwd, "ring train backward")
+    ref = ra.ring_train_step_bwd_reference(*args)
+    rep["ring_train_bwd"] = {
+        f"d{n}": check_close(a, b, scaled(TOL[RING_GRAD], b),
+                             f" (d 512 ring d{n})")
+        for n, a, b in zip("qkv", grads, ref)}
+    del q32, k, v, g
+
+    # a 2-layer d 512 model: bf16 and int8 scores, one finetune step
+    mcfg = ModelConfig(num_layers=2, compute_dtype="bfloat16", **D512)
+    model = SimNet(mcfg, generator=torch.Generator().manual_seed(seed + 21))
+    x = torch.from_numpy(rng.normal(size=(2, 512, mcfg.in_features)).astype(
+        np.float32))
+    mask = pad_mask(2, 512, rng, "cpu")
+    with torch.inference_mode():
+        card, _ = model.to(cuda)(x.to(cuda), mask.to(cuda))
+        card8, _ = model(x.to(cuda), mask.to(cuda), attn_impl="int8_block")
+        cpu, _ = copy.deepcopy(model).to("cpu")(x, mask)
+    live = ~mask.to(cuda)
+    p16, p8 = torch.sigmoid(card.float()[..., 0]), torch.sigmoid(
+        card8.float()[..., 0])
+    vs_cpu = diff_stats(p16[live], torch.sigmoid(cpu.float()[..., 0])
+                        .to(cuda)[live])
+    vs_bf16 = diff_stats(p8[live], p16[live])
+    if not (vs_cpu["median"] <= D512_SCORES["median"]
+            and vs_cpu["max"] <= D512_SCORES["max"]):
+        raise AssertionError(f"d 512 bf16 scores, card against CPU: {vs_cpu}")
+    if not (vs_bf16["median"] < INT8_VS_BF16["median"]
+            and vs_bf16["max"] < INT8_VS_BF16["max"]):
+        raise AssertionError(f"d 512 int8 scores against bf16: {vs_bf16}")
+    tcfg = ModelConfig(num_layers=2, **D512)
+    model = SimNet(tcfg, generator=torch.Generator().manual_seed(seed + 22))
+    t = torch.from_numpy(rng.random((2, 512)).astype(np.float32))
+    seeds = [int(s) for s in rng.integers(0, 2**31 - 1, tcfg.num_layers)]
+    results = []
+    for dev in ("cuda", "cpu"):
+        m = copy.deepcopy(model).to(dev)
+        loss = make_finetune_step(tcfg, "fused_block", device=dev)(
+            m, make_optimizer(m, 1e-3, 1e-4), x, t, mask, None,
+            block_seeds=seeds)
+        results.append((float(loss), {k: p.grad.detach().float().cpu()
+                                      for k, p in m.named_parameters()}))
+    step = compare_steps(results, "d 512 fused_block step")
+    emit("d512", d_model=d, num_heads=H, head_dim=Dh, kernels=rep,
+         scores_bf16_card_vs_cpu=vs_cpu, scores_int8_vs_bf16=vs_bf16,
+         step_card_vs_cpu=step)
+    return rep
 
 
 def synthetic_videos(rng, lengths, in_features: int) -> list:
@@ -1968,7 +2233,9 @@ def phase_seq_train(seed: int, long_videos: list) -> dict:
     """``make_seq_sharded_finetune_step`` on a (1, 4) mesh of cuda:0: one
     step on one 8,100-frame video (bucket 8,192, f32, dropout 0.3) against
     the same step on the CPU's plain path with the same seeds (per
-    parameter, the step bound), then 5 recipe epochs (10 steps, batch 4)
+    parameter, the step bound), one step at N 8,320 (shards of 2,080
+    frames, padded to 2,112) against the plain ring on the card, then 5
+    recipe epochs (10 steps, batch 4)
     over phase_long_train's videos in buckets of 512 (Nl <= 2,304). Kernels
     16 and 17 must launch P x P times per layer per step, the flash and
     block training kernels never. Returns the launch counts."""
@@ -2023,6 +2290,37 @@ def phase_seq_train(seed: int, long_videos: list) -> dict:
                                  f"{want}")
     card_vs_cpu = dict(B=1, N=int(mb.shape[1]), layers=ccfg.num_layers,
                        wall_s=t_s, **compare_steps(results, "seq step"))
+
+    # a bucket that is an odd multiple of 128: N 8,320 gives shards of
+    # 2,080 frames, not a multiple of the ring kernels' 64-key tile; the
+    # step pads them to 2,112. The kernels against the plain ring on the
+    # card, same seeds (the step bound)
+    [item] = synthetic_videos(rng, [8200], cfg.in_features)
+    xo, to_, mo = pad_batch([item[0]], [item[1]])
+    if xo.shape[1] != 8320:
+        raise AssertionError(f"an 8,200-frame video buckets to "
+                             f"{xo.shape[1]} frames")
+    results = []
+    for impl in ("auto", "plain"):
+        m = copy.deepcopy(model).to("cuda")
+        step = make_seq_sharded_finetune_step(ccfg, mesh, block_impl=impl)
+        reset_counters()
+        loss = step(m, make_optimizer(m, tc.lr, tc.weight_decay), xo, to_,
+                    mo, seeds=seeds)
+        results.append((float(loss), {k: p.grad.detach().float().cpu()
+                                      for k, p in m.named_parameters()}))
+        counts = read_counters()
+        want = [P * P * ccfg.num_layers if impl == "auto" else 0] * 2
+        if [counts[r] for r in routes] != want:
+            raise AssertionError(f"seq step at N 8,320 ({impl}): launches "
+                                 f"{[counts[r] for r in routes]}, expected "
+                                 f"{want}")
+    odd_bucket = dict(B=1, N=int(mo.shape[1]), Nl=int(mo.shape[1]) // P,
+                      Nl_padded=-(-int(mo.shape[1]) // (64 * P)) * 64,
+                      layers=ccfg.num_layers,
+                      **compare_steps(results, "seq step at N 8,320, "
+                                               "kernels against the plain "
+                                               "ring"))
     del model, results
 
     # recipe epochs over the long-video set, buckets of 512
@@ -2072,7 +2370,8 @@ def phase_seq_train(seed: int, long_videos: list) -> dict:
         [it[1] for it in long_videos[:tc.batch_size]], bucket=512))
     gen = torch.Generator().manual_seed(seed)
     emit("seq_train", mesh=[1, P], devices=["cuda:0"] * P,
-         card_vs_cpu=card_vs_cpu, steps=n_steps, batch_shapes=shapes,
+         card_vs_cpu=card_vs_cpu, odd_bucket=odd_bucket, steps=n_steps,
+         batch_shapes=shapes,
          step_ms=spread([s.elapsed_time(e) for s, e in times]),
          wall_s=wall, peak_memory_gib=peak_gb, epoch_loss=epoch_losses,
          step_losses=step_losses, launches={r: counts[r] for r in routes},
@@ -2402,6 +2701,7 @@ def main() -> int:
     timings.update(phase_train_kernels(dev, args.seed))
     timings.update(phase_train_attention(dev, args.seed))
     timings.update(phase_ring_kernels(dev, args.seed))
+    phase_d512(args.seed)
     counts = phase_serve(args.seed)
     counts.update({r: n for r, n in phase_serve_int8(args.seed).items()
                    if r in INT8_ROUTES})
@@ -2439,7 +2739,11 @@ def main() -> int:
     block_src = [csrc + "gemm_bias_epilogue.cu", csrc + "masked_attention.cu"]
     attn_src = [csrc + "masked_attention.cu"]
     train_src = [csrc + "block_train.cu"]
-    attn_train_src = [csrc + "attention_train.cu"]
+    attn_train_src = [csrc + "attention_train.cu",
+                      csrc + "attention_core.cuh"]
+    attn_mma_src = [csrc + "attention_train_mma.cuh",
+                    csrc + "attention_train.cu"]
+    mma_routes = {attn_train_name(r) for r in ("_fwd_kernel", "_bwd_kernel")}
     int8_src = [csrc + "int8_gemm.cu", csrc + "masked_attention.cu"]
     ring_src = [csrc + "ring_attention.cu", csrc + "attention_core.cuh"]
     names = {"_fused_block_int8": "block_int8",
@@ -2449,6 +2753,7 @@ def main() -> int:
     kernels = []
     for route, rep in replaces.items():
         srcs = (ring_src if route in RING_ROUTES
+                else attn_mma_src if route in mma_routes
                 else attn_train_src if route.startswith("attention_train.")
                 else train_src if route in TRAIN_ROUTES
                 else int8_src if route in INT8_ROUTES

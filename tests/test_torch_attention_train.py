@@ -3,8 +3,8 @@
 the CPU: the dropout hash bit for bit, the four plain versions (o, lse, dq,
 dk, dv) against the Pallas kernels in interpret mode on the single-pass and
 the forced key-folded route (as ``tests/test_attention_train.py`` forces
-it), the autograd Function against ``jax.vjp``, and the routing
-predicates."""
+it) and at head_dims 32 and 128, the autograd Function against
+``jax.vjp``, and the routing predicates."""
 
 import jax
 import jax.numpy as jnp
@@ -40,16 +40,19 @@ SHAPES = {False: (2, 2, 256, 16), True: (2, 2, 512, 64)}
 CASES = [(False, 0.3, "float32"), (False, 0.0, "float32"),
          (False, 0.3, "bfloat16"), (True, 0.3, "float32"),
          (True, 0.0, "float32"), (True, 0.3, "bfloat16")]
+# the other head_dims the kernels take (d 512 with 4 heads: 128), single
+# pass, valid length 200 of 256
+HEAD_DIM_SHAPES = [(1, 2, 256, 128), (1, 2, 256, 32)]
 
 
-def _inputs(folded: bool):
-    B, H, N, Dh = SHAPES[folded]
+def _inputs(folded: bool, shape=None):
+    B, H, N, Dh = shape or SHAPES[folded]
     rng = np.random.default_rng(N + Dh)
     q, k, v, co = (rng.normal(size=(B, H, N, Dh)).astype(np.float32)
                    for _ in range(4))
     mask = np.zeros((B, N), bool)
-    mask[0, N * 25 // 32:] = True
-    mask[1, N * 25 // 64:] = True
+    for b in range(B):
+        mask[b, N * 25 // (32 << b):] = True
     return q, k, v, co, mask, Dh ** -0.5
 
 
@@ -60,11 +63,11 @@ def jax_results():
     with the jit caches cleared before and after."""
     cache = {}
 
-    def get(folded, rate, dtype):
-        key = (folded, rate, dtype)
+    def get(folded, rate, dtype, shape=None):
+        key = (folded, rate, dtype, shape)
         if key in cache:
             return cache[key]
-        q, k, v, co, mask, scale = _inputs(folded)
+        q, k, v, co, mask, scale = _inputs(folded, shape)
         jq, jk, jv, jco = (jnp.asarray(a).astype(dtype)
                            for a in (q, k, v, co))
         m8 = jnp.asarray(mask.astype(np.int8))[:, None, :]
@@ -159,6 +162,31 @@ def test_plain_versions_match_jax_kernels(jax_results, folded, rate, dtype):
     rtol, atol = TOL[("grad", dtype, folded)]
     for name, g, w in zip("qkv", grads, want["grads"]):
         assert g.dtype == tq.dtype
+        np.testing.assert_allclose(g.float().numpy(), w, rtol=rtol,
+                                   atol=atol, err_msg=f"d{name}")
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", HEAD_DIM_SHAPES)
+def test_plain_versions_match_jax_kernels_at_head_dims(jax_results, shape,
+                                                       dtype):
+    """head_dim 128 (d 512, 4 heads) and 32 on the single-pass route at
+    rate 0.3: the plain forward and backward against the Pallas kernels in
+    interpret mode, at the bounds of the head_dim 16 cases."""
+    want = jax_results(False, 0.3, dtype, shape)
+    q, k, v, co, mask, scale = _inputs(False, shape)
+    tq, tk, tv, tco = (_torch(a, dtype) for a in (q, k, v, co))
+    tm = torch.from_numpy(mask)
+    o, lse = at._fwd_kernel(tq, tk, tv, tm, SEED, 0.3, scale)
+    grads = at._bwd_kernel(tq, tk, tv, tm, SEED, lse, tco, 0.3, scale)
+    rtol, atol = TOL[("fwd", dtype)]
+    np.testing.assert_allclose(o.float().numpy(), want["o"], rtol=rtol,
+                               atol=atol)
+    rtol, atol = TOL[("lse", dtype)]
+    np.testing.assert_allclose(lse.numpy(), want["lse"], rtol=rtol,
+                               atol=atol)
+    rtol, atol = TOL[("grad", dtype, False)]
+    for name, g, w in zip("qkv", grads, want["grads"]):
         np.testing.assert_allclose(g.float().numpy(), w, rtol=rtol,
                                    atol=atol, err_msg=f"d{name}")
 

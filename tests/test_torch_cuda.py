@@ -73,9 +73,11 @@ def _mask(B, N, dev, seed=0):
 @pytest.mark.parametrize("epilogue,N,K", [("none", 320, 96),
                                           ("relu", 96, 100),
                                           ("residual_ln", 64, 96),
-                                          ("residual_ln", 200, 40)])
+                                          ("residual_ln", 200, 40),
+                                          ("residual_ln", 512, 96)])
 def test_gemm_bias_epilogue_matches_plain(cuda, dtype, epilogue, N, K):
-    """Ragged M, N and K tiles; K = 100 takes the unvectorised loads."""
+    """Ragged M, N and K tiles; K = 100 takes the unvectorised loads; rows
+    of N = 512 (d_model 512) take the LayerNorm row kernel."""
     g = torch.Generator(device="cpu").manual_seed(1)
     M = 200
     x = torch.randn(M, K, generator=g).to(cuda, dtype)
@@ -98,23 +100,24 @@ def test_gemm_bias_epilogue_matches_plain(cuda, dtype, epilogue, N, K):
 
 
 def test_kernels_refuse_shapes_no_configuration_has(cuda):
-    """The LayerNorm epilogue takes rows of up to 256 (every d_model in the
-    repo), the attention kernel head_dim 16 and 64."""
+    """The LayerNorm epilogue takes rows of up to 512 (d_model 512), the
+    attention kernel head_dim 16, 32, 64 and 128."""
     x = torch.zeros(8, 32, device=cuda)
-    w = torch.zeros(320, 32, device=cuda)
-    b = torch.zeros(320, device=cuda)
-    with pytest.raises(ValueError, match="N <= 256"):
+    w = torch.zeros(544, 32, device=cuda)
+    b = torch.zeros(544, device=cuda)
+    with pytest.raises(ValueError, match="N <= 512"):
         bk.gemm_bias_epilogue(x, w, b, "residual_ln",
-                              residual=torch.zeros(8, 320, device=cuda),
+                              residual=torch.zeros(8, 544, device=cuda),
                               ln_g=b, ln_b=b)
-    q = torch.zeros(1, 1, 64, 32, device=cuda)
+    q = torch.zeros(1, 1, 64, 48, device=cuda)
     with pytest.raises(ValueError, match="head_dim"):
         attn_mod.masked_attention(q, q, q, None, 0.1)
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("norm_first", [True, False])
-@pytest.mark.parametrize("Dh,aligned", [(16, True), (64, True), (64, False)])
+@pytest.mark.parametrize("Dh,aligned", [(16, True), (32, True), (64, True),
+                                        (64, False), (128, True)])
 def test_masked_attention_matches_plain(cuda, dtype, norm_first, Dh,
                                         aligned):
     """Strided views of one QKV buffer and a ragged last tile; an odd row
@@ -163,16 +166,23 @@ def test_bf16_attention_rounds_p_in_its_tpu_kernels_order(cuda, norm_first):
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("d", [64, 512])
 @pytest.mark.parametrize("B,N,route", [(2, 128, "_fused_block_grouped"),
                                        (1, 512, "_fused_block")])
-def test_fused_encoder_block_routes_match_plain(cuda, dtype, B, N, route):
-    cfg = ModelConfig(d_model=64, num_heads=4, num_layers=1)
+def test_fused_encoder_block_routes_match_plain(cuda, dtype, d, B, N, route):
+    """d 64 (head_dim 16) and d 512 (head_dim 128, LayerNorm rows past the
+    GEMM's CTA tile), 4 heads."""
+    cfg = ModelConfig(d_model=d, num_heads=4, num_layers=1)
     block = SimNet(cfg, device=cuda).encoder.module_list[0]
     g = torch.Generator(device="cpu").manual_seed(3)
-    x = torch.randn(B, N, 64, generator=g).to(cuda, dtype)
+    x = torch.randn(B, N, d, generator=g).to(cuda, dtype)
     mask = _mask(B, N, cuda, seed=3)
     before = getattr(bk, route).launches
-    got = bk.fused_encoder_block(block, x, mask, 4, cfg.attn_scale)
+    if bk.fused_block_supported(B, N, d, x.element_size()):
+        got = bk.fused_encoder_block(block, x, mask, 4, cfg.attn_scale)
+    else:  # past the copied TPU envelope (d 512): the entry point itself
+        got = getattr(bk, route)(bk.block_weights(block, dtype), x, mask, 4,
+                                 cfg.attn_scale)
     torch.cuda.synchronize()
     assert getattr(bk, route).launches == before + 1
     want = bk.encoder_block_reference(bk.block_weights(block, dtype), x,
@@ -270,7 +280,9 @@ def _train_within(got, want, kind, dtype):
 @pytest.mark.parametrize("d,B,N,grouped", [(64, 2, 128, True),
                                            (64, 1, 512, False),
                                            (256, 4, 256, True),
-                                           (256, 1, 640, False)])
+                                           (256, 1, 640, False),
+                                           (512, 4, 256, True),
+                                           (512, 1, 512, False)])
 def test_block_train_routes_match_plain(cuda, dtype, d, B, N, grouped):
     """Forward, dx and the packed parameter grads of each training route
     against the plain version on the card with the same dropout bits; the
@@ -379,7 +391,7 @@ def _at_within(got, want, tol, relative_atol=True):
 
 @pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("folded", [False, True])
-@pytest.mark.parametrize("Dh", [16, 64])
+@pytest.mark.parametrize("Dh", [16, 32, 64, 128])
 def test_attention_train_routes_match_plain(cuda, dtype, folded, Dh):
     """Each training attention route's o, lse, dq, dk and dv against its
     plain version on the card with the same dropout bits (the folded one
@@ -429,6 +441,96 @@ def test_attention_train_routes_match_plain(cuda, dtype, folded, Dh):
     assert not _within(bad_o, want_o, "attention", dtype)
     bad = run_b(seed + 1, want_lse, want_o)
     assert not _at_within(bad[2], want[2], gtol)
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.3])
+@pytest.mark.parametrize("B,H,N,Dh", [(2, 2, 512, 64), (1, 2, 256, 128),
+                                     (2, 2, 320, 64)])
+def test_bf16_single_pass_tensor_core_kernels_match_plain(cuda, rate, B, H,
+                                                          N, Dh):
+    """The bf16 single-pass route's tensor-core kernels
+    (``csrc/attention_train_mma.cuh``, TPU kernels 5/6) against their plain
+    versions at the bf16 bounds (N = 320 leaves a ragged last CTA of 128
+    rows): element 0 has wholly padded key tiles
+    (which the kernels skip); at B = 2 element 1 has no unpadded key, and
+    there the kernels give what the FMA family gives (the f32 route on the
+    same values: NaN o and grads, lse -inf). Two backward runs give equal
+    bits. Prints the measured errors."""
+    from vidsum_tpu_torch.ops import attention_train as at
+
+    g = torch.Generator(device="cpu").manual_seed(12)
+    seed, scale = 2468, Dh ** -0.5
+    q, k, v, do = (torch.randn(B, H, N, Dh, generator=g).to(cuda,
+                                                            torch.bfloat16)
+                   for _ in range(4))
+    mask = torch.zeros(B, N, dtype=torch.bool, device=cuda)
+    mask[0, N * 5 // 8 - 20:] = True  # keys past tile 4 (of 8) all padded
+    mask[1:] = True
+    f0, b0 = at._fwd_kernel.launches, at._bwd_kernel.launches
+    o, lse = at._fwd_kernel(q, k, v, mask, seed, rate, scale)
+    # the plain versions in 64-row steps (rows are independent; N = 320 is
+    # no multiple of the TPU's 128)
+    want_o, want_lse = at.attention_train_fwd_reference(q, k, v, mask, seed,
+                                                        rate, scale, rows=64)
+    grads = at._bwd_kernel(q, k, v, mask, seed, want_lse, do, rate, scale)
+    again = at._bwd_kernel(q, k, v, mask, seed, want_lse, do, rate, scale)
+    want = at.attention_train_bwd_reference(q, k, v, mask, seed, want_lse,
+                                            do, rate, scale, rows=64)
+    torch.cuda.synchronize()
+    assert (at._fwd_kernel.launches, at._bwd_kernel.launches) == (f0 + 1,
+                                                                  b0 + 2)
+    # equal bits (NaN payloads included: element 1's grads are NaN)
+    assert all(torch.equal(a.view(torch.int16), b.view(torch.int16))
+               for a, b in zip(grads, again))
+    _close(o[:1], want_o[:1], "attention", torch.bfloat16)
+    torch.testing.assert_close(lse[:1], want_lse[:1], rtol=1e-5, atol=1e-5)
+    gtol = AT_TOL[("grad", torch.bfloat16)]
+    errs = {"o": _rel(o[:1], want_o[:1])}
+    for name, a, b in zip("qkv", grads, want):
+        errs[f"d{name}"] = _rel(a[:1], b[:1])
+        assert _at_within(a[:1], b[:1], gtol), f"d{name}: {errs[f'd{name}']}"
+    print(f"bf16 tensor-core attention {(B, H, N, Dh)} rate {rate}: "
+          f"relative RMS {errs}")
+    if B > 1:
+        # the element with no unpadded key, against the FMA family (f32)
+        f = [t.float() for t in (q, k, v, do)]
+        o32, lse32 = at._fwd_kernel(*f[:3], mask, seed, rate, scale)
+        g32 = at._bwd_kernel(*f[:3], mask, seed, lse32, f[3], rate, scale)
+        torch.cuda.synchronize()
+        assert torch.isnan(o[1]).all() and torch.isnan(o32[1]).all()
+        assert torch.equal(lse[1], lse32[1]) and bool(
+            torch.isneginf(lse[1]).all())
+        grads = at._bwd_kernel(q, k, v, mask, seed, lse, do, rate, scale)
+        for a, b in zip(grads, g32):
+            assert torch.equal(torch.isnan(a[1]), torch.isnan(b[1]))
+
+
+def test_seq_forward_on_card_pads_shards_to_the_key_tile(cuda):
+    """A seq-sharded forward at N = 8,320 on a (1, 4) mesh of one card
+    (Nl 2,080, not a multiple of the ring kernels' 64-key tile, padded to
+    2,112) takes kernel 15 and matches the plain ring's forward."""
+    import importlib
+
+    from vidsum_tpu_torch.parallel import make_mesh, make_seq_sharded_forward
+
+    ra = importlib.import_module("vidsum_tpu_torch.parallel.ring_attention")
+    cfg = ModelConfig(in_features=64, d_model=64, num_heads=4, num_layers=2)
+    model = SimNet(cfg, device=cuda).eval()
+    g = torch.Generator().manual_seed(6)
+    N = 8320
+    x = torch.randn(1, N, 64, generator=g).to(cuda)
+    mask = torch.zeros(1, N, dtype=torch.bool, device=cuda)
+    mask[:, 8100:] = True
+    mesh = make_mesh((1, 4), "cuda:0")
+    before = ra._ring_block_step.launches
+    got_s, got_h = make_seq_sharded_forward(cfg, mesh)(model, x, mask)
+    torch.cuda.synchronize()
+    assert ra._ring_block_step.launches == before + 16 * cfg.num_layers
+    want_s, want_h = make_seq_sharded_forward(cfg, mesh, block_impl="plain")(
+        model, x, mask)
+    assert got_s.shape == (1, N, 1) and got_h.shape == (1, N, 64)
+    torch.testing.assert_close(got_s, want_s, atol=1e-4, rtol=1e-4)
+    torch.testing.assert_close(got_h, want_h, atol=1e-4, rtol=1e-4)
 
 
 @pytest.mark.parametrize("folded", [False, True])
@@ -571,14 +673,15 @@ def test_quantize_rows_kernel_matches_plain_bit_for_bit(cuda, dtype):
     assert torch.equal(q.cpu(), wq) and torch.equal(s.cpu(), ws)
 
 
-def test_int8_residual_ln_epilogue_and_its_codes(cuda):
+@pytest.mark.parametrize("N", [256, 512])
+def test_int8_residual_ln_epilogue_and_its_codes(cuda, N):
     """The LayerNorm moments are summed in another order than the plain
     version's: f32 outputs within summation-order error, and the row codes
     it emits for the next product equal the plain quantizer's codes of the
-    kernel's own output."""
+    kernel's own output; rows of 512 take the LayerNorm row kernel."""
     from vidsum_tpu_torch.ops import quant
 
-    M, N, K = 200, 256, 256
+    M, K = 200, 256
     x8, sx, w8, sw, b = (t.to(cuda) for t in _int8_inputs(M, N, K, seed=4))
     g = torch.Generator().manual_seed(4)
     res = torch.randn(M, N, generator=g).to(cuda, torch.bfloat16)
@@ -604,7 +707,9 @@ INT8_BOUND = dict(median=5e-3, max=5e-2)
 @pytest.mark.parametrize("d,B,N,route", [
     (256, 2, 256, "_fused_block_int8_grouped"),
     (256, 1, 512, "_fused_block_int8"),
-    (64, 2, 128, "_fused_block_int8_grouped")])
+    (64, 2, 128, "_fused_block_int8_grouped"),
+    (512, 2, 256, "_fused_block_int8_grouped"),
+    (512, 1, 512, "_fused_block_int8")])
 def test_int8_block_routes_match_plain(cuda, qk_int8, dtype, d, B, N, route):
     from vidsum_tpu_torch.ops import block_kernel_int8 as bk8
     from vidsum_tpu_torch.ops.quant import quantize_block
@@ -684,7 +789,7 @@ def _ring_carries_close(got, want):
 
 
 @pytest.mark.parametrize("kv_dtype", DTYPES)
-@pytest.mark.parametrize("Dh", [16, 64])
+@pytest.mark.parametrize("Dh", [16, 32, 64, 128])
 def test_ring_block_step_matches_plain(cuda, kv_dtype, Dh):
     import importlib
 
@@ -706,11 +811,12 @@ def test_ring_block_step_matches_plain(cuda, kv_dtype, Dh):
 
 
 @pytest.mark.parametrize("rate", [0.0, 0.3])
-def test_ring_train_steps_match_plain(cuda, rate):
+@pytest.mark.parametrize("Dh", [64, 128])
+def test_ring_train_steps_match_plain(cuda, rate, Dh):
     import importlib
 
     ra = importlib.import_module("vidsum_tpu_torch.parallel.ring_attention")
-    q32, k, v, go, mask = _ring_inputs(cuda, seed=1)
+    q32, k, v, go, mask = _ring_inputs(cuda, Dh=Dh, seed=1)
     info = (4321, 2, 512, 256)
     carry = _ring_carry(ra, q32, k, v, mask)
     got = ra._ring_train_step(q32, k, v, mask, info, *carry, rate)
@@ -811,6 +917,6 @@ def test_ring_past_the_tpu_envelope_takes_the_kernels(cuda):
         torch.testing.assert_close(a, b, atol=1e-4 * float(b.abs().max()),
                                    rtol=1e-4)
 
-    q32 = torch.randn(1, 1, 128, 32, generator=g).to(cuda)
+    q32 = torch.randn(1, 1, 128, 48, generator=g).to(cuda)
     with pytest.raises(ValueError, match="head_dim"):
         ra.ring_attention(split(q32), split(q32), split(q32), None, 0.1)

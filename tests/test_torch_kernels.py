@@ -190,3 +190,59 @@ def test_block_weights_repack_after_a_weight_change():
     w2 = bk.block_weights(tblock, torch.float32)
     assert w2 is not w1
     assert torch.equal(w2.wqkv[:D], tblock.sa.q.weight)
+
+
+# ---------------------------------------------------------- the shape guards
+
+def _guards():
+    """Every CUDA wrapper's shape guard, called on CPU tensors, by the
+    shape it reads: the training attention's and the ring's (head_dim), the
+    serving attention's head_dim check, the training block's (d_model, and
+    head_dim at 4 heads) and the LayerNorm epilogue's rows (both GEMMs)."""
+    import importlib
+
+    from vidsum_tpu_torch.ops import _cuda
+    from vidsum_tpu_torch.ops import attention_train as att
+    from vidsum_tpu_torch.ops import block_train as bt
+
+    # the package exports a function of the module's name
+    ra = importlib.import_module("vidsum_tpu_torch.parallel.ring_attention")
+    mask = torch.zeros(1, 128, dtype=torch.bool)
+
+    def qkv(Dh):
+        q = torch.zeros(1, 2, 128, Dh)
+        return q, q, q, mask
+
+    return {
+        "attention_train": lambda Dh, d: att._cuda_inputs(*qkv(Dh), 0),
+        "ring": lambda Dh, d: ra._cuda_inputs(*qkv(Dh), (torch.float32,)),
+        "masked_attention": lambda Dh, d: _cuda.check_head_dim(Dh, "kernels"),
+        "block_train": lambda Dh, d: bt._check_cuda_inputs(
+            torch.zeros(1, 128, d), (), d // Dh),
+        "ln_rows": lambda Dh, d: _cuda.check_ln_rows(d),
+    }
+
+
+GUARDS = ("attention_train", "ring", "masked_attention", "block_train",
+          "ln_rows")
+
+
+@pytest.mark.parametrize("guard", GUARDS)
+def test_guards_accept_the_repos_shapes(guard):
+    """head_dim 16, 32, 64 and 128 (d_model 512 with 4 heads), d_model up
+    to 512."""
+    for Dh in (16, 32, 64, 128):
+        _guards()[guard](Dh, 4 * Dh)
+
+
+@pytest.mark.parametrize("guard", GUARDS)
+def test_guards_refuse_other_shapes(guard):
+    """head_dim 48 and d_model 544 (past the row kernels' 512) raise; the
+    LayerNorm rows read d only, the attention guards head_dim only."""
+    fn = _guards()[guard]
+    if guard != "ln_rows":
+        with pytest.raises(ValueError, match="head_dim"):
+            fn(48, 192)
+    if guard in ("block_train", "ln_rows"):
+        with pytest.raises(ValueError, match="512"):
+            fn(136, 544)

@@ -77,6 +77,29 @@ def test_simnet_matches_jax_dense(jax_scores, attn_impl, N, use_cls):
 
 
 @pytest.mark.parametrize("attn_impl", ["dense", "flash", "fused_block"])
+def test_simnet_d512_matches_jax(attn_impl):
+    """d_model 512 with 4 heads (head_dim 128), the width the JAX package
+    runs on its fused block (tests/test_block_kernel.py:101): one layer at
+    N = 128 against ``simnet_apply(attn_impl="xla")``."""
+    kw = dict(KW, d_model=512, num_layers=1)
+    jcfg = JaxModelConfig(dropout=0.0, **kw)
+    params = init_simnet(jax.random.PRNGKey(3), jcfg)
+    model = SimNet(ModelConfig(**kw), device="cpu")
+    model.load_state_dict(params_from_jax(
+        jax.tree_util.tree_map(np.asarray, params)))
+    x, mask = _inputs(128, 5)
+    want, _ = simnet_apply(params, jcfg, jnp.asarray(x), jnp.asarray(mask),
+                           attn_impl="xla")
+    with torch.inference_mode():
+        got, hidden = model.eval()(torch.from_numpy(x),
+                                   torch.from_numpy(mask),
+                                   attn_impl=attn_impl)
+    assert hidden.shape == (2, 128, 512)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5,
+                               atol=1e-5)
+
+
+@pytest.mark.parametrize("attn_impl", ["dense", "flash", "fused_block"])
 def test_make_eval_forward_matches_jax(attn_impl):
     jcfg, params, cfg, model = _pair(False, seed=3)
     x, mask = _inputs(256, 5)

@@ -144,6 +144,57 @@ def test_seq_step_matches_jax(impl, shape):
                                    err_msg=jax.tree_util.keystr(path))
 
 
+def test_seq_step_pads_shards_to_the_key_tile(monkeypatch):
+    """N = 448 on a (1, 4) mesh gives shards of 112 frames, not a multiple
+    of the ring kernels' 64-key tile: the step pads the global length to 512
+    (a spy on the ring sees Nl = 128) and still matches the JAX step at
+    N = 448 within the bounds of ``test_seq_step_matches_jax``."""
+    from vidsum_tpu_torch.parallel import seq_forward
+
+    seen = []
+    ring = seq_forward.ring_attention_train
+
+    def spy(q, *args, **kwargs):
+        seen.append(q[0].shape[2])
+        return ring(q, *args, **kwargs)
+
+    monkeypatch.setattr(seq_forward, "ring_attention_train", spy)
+    jcfg, params, cfg, model = _pair(seed=5, **STEP_KW)
+    x, t, mask = _batch(2, 448, 1024, 400, 8)
+    key = jax.random.PRNGKey(23)
+    seeds = np.asarray(jax.random.randint(key, (cfg.num_layers,), 0,
+                                          2**31 - 1, jnp.int32)).tolist()
+    want_p, want_loss = _jax_step(jcfg, params, (1, 4), x, t, mask, key)
+    m, loss = _port_step(cfg, model, (1, 4), x, t, mask, seeds, "kernel")
+    assert seen == [128] * cfg.num_layers
+    np.testing.assert_allclose(loss, want_loss, rtol=2e-5)
+    got_p = params_to_jax(m.state_dict())
+    flat = dict(jax.tree_util.tree_leaves_with_path(want_p))
+    for path, leaf in jax.tree_util.tree_leaves_with_path(got_p):
+        np.testing.assert_allclose(leaf, np.asarray(flat[path]), rtol=2e-3,
+                                   atol=5e-6,
+                                   err_msg=jax.tree_util.keystr(path))
+
+
+def test_seq_forward_pads_shards_to_the_key_tile():
+    """The seq-sharded forward at N = 448 on a (1, 4) mesh (Nl 112, padded
+    to 128) against the JAX forward at N = 448, at
+    ``test_seq_forward_matches_jax``'s bound; the outputs keep N."""
+    kw = dict(in_features=48, d_model=64, num_heads=4, num_layers=2,
+              dropout=0.0, max_len=128)
+    jcfg, params, cfg, model = _pair(**kw)
+    x, _, mask = _batch(2, 448, 48, 430, 1)
+    got_s, got_h = make_seq_sharded_forward(cfg, make_mesh((1, 4), "cpu"))(
+        model, x, mask)
+    want_s, want_h = jax_seq_forward(jcfg, _jmesh(1, 4))(
+        params, jnp.asarray(x), jnp.asarray(mask))
+    assert got_s.shape == (2, 448, 1) and got_h.shape == (2, 448, 64)
+    np.testing.assert_allclose(got_s.numpy(), np.asarray(want_s), rtol=2e-4,
+                               atol=2e-4)
+    np.testing.assert_allclose(got_h.numpy(), np.asarray(want_h), rtol=2e-4,
+                               atol=2e-4)
+
+
 def test_seq_step_mesh_shape_invariant():
     """Coordinate-absolute masks: the loss is the same on (1, 4), (2, 2) and
     (4, 1) meshes."""

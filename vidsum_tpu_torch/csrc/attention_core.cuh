@@ -584,9 +584,14 @@ cudaError_t allow_smem(Kernel kern, int bytes) {
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
 }
 
+// head_dim 16, 32, 64 or 128 (ops/_cuda.HEAD_DIMS)
+inline bool head_dim_ok(int Dh) {
+  return Dh == 16 || Dh == 32 || Dh == 64 || Dh == 128;
+}
+
 inline bool shape_ok(int B, int H, int N, int Dh) {
   return B > 0 && H > 0 && N > 0 && N % kT == 0 && B <= 65535 &&
-         H <= 65535 && (Dh == 16 || Dh == 64);
+         H <= 65535 && head_dim_ok(Dh);
 }
 
 template <typename T, int DH>
@@ -614,15 +619,28 @@ cudaError_t launch_bwd(const Args& a, int B, cudaStream_t s) {
   return cudaGetLastError();
 }
 
-// Dispatch on head_dim (16 or 64, those of the repo's configurations)
+// Dispatch on head_dim (shape_ok's). At 128 the dK/dV kernel takes 167 KB
+// of shared memory and the dQ kernel 150 KB: one CTA per SM.
 template <typename T>
 cudaError_t launch_fwd_dh(const Args& a, int B, int Dh, cudaStream_t s) {
-  return Dh == 16 ? launch_fwd<T, 16>(a, B, s) : launch_fwd<T, 64>(a, B, s);
+  switch (Dh) {
+    case 16: return launch_fwd<T, 16>(a, B, s);
+    case 32: return launch_fwd<T, 32>(a, B, s);
+    case 64: return launch_fwd<T, 64>(a, B, s);
+    case 128: return launch_fwd<T, 128>(a, B, s);
+    default: return cudaErrorInvalidValue;
+  }
 }
 
 template <typename T>
 cudaError_t launch_bwd_dh(const Args& a, int B, int Dh, cudaStream_t s) {
-  return Dh == 16 ? launch_bwd<T, 16>(a, B, s) : launch_bwd<T, 64>(a, B, s);
+  switch (Dh) {
+    case 16: return launch_bwd<T, 16>(a, B, s);
+    case 32: return launch_bwd<T, 32>(a, B, s);
+    case 64: return launch_bwd<T, 64>(a, B, s);
+    case 128: return launch_bwd<T, 128>(a, B, s);
+    default: return cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace attn

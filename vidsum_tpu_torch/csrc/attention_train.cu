@@ -6,40 +6,36 @@
 // ::_fwd_kernel_folded and ::_bwd_kernel_folded (an online softmax over
 // kb-key blocks, for long N). Inputs q, k, v (and the cotangent dO and the
 // forward output o) are contiguous (B, H, N, DH) tensors in float or bf16,
-// the key mask (B, N) bytes (nonzero = padded), lse and D (B, H, N) f32.
-//
-// The kernels are attention_core.cuh's family, which the training block
-// (block_train.cu) launches too; ops/attention_train.py launches them here
-// through two entry points (nothing here allocates):
-//   vs_at_fwd  fwd_kernel, normalise-first for _fwd_kernel (pass 1 the row
-//              max and sum, pass 2 p = e / l, dropped, rounded to the input
-//              type, then P.V), online for _fwd_kernel_folded (the
-//              denominator sums the raw e while the dropped, unnormalised e
-//              is rounded and accumulated, with the _DEAD guards); writes o
-//              and lse = max + log(sum).
-//   vs_at_bwd  dq_kernel then dkdv_kernel. D = rowsum(dp * p) over the full
-//              row for _bwd_kernel (a first pass over the keys), rowsum(dO *
-//              o) with the lse guard for _bwd_kernel_folded.
+// DH 16, 32, 64 or 128, the key mask (B, N) bytes (nonzero = padded), lse
+// and D (B, H, N) f32. Two entry points (nothing here allocates):
+//   vs_at_fwd  normalise-first for _fwd_kernel (pass 1 the row max and sum,
+//              pass 2 p = e / l, dropped, rounded to the input type, then
+//              P.V), online for _fwd_kernel_folded (the denominator sums the
+//              raw e while the dropped, unnormalised e is rounded and
+//              accumulated, with the _DEAD guards); writes o and
+//              lse = max + log(sum).
+//   vs_at_bwd  a dQ kernel then a dK/dV kernel. D = rowsum(dp * p) over the
+//              full row for _bwd_kernel (a first pass over the keys),
+//              rowsum(dO * o) with the lse guard for _bwd_kernel_folded.
+// Two kernel families serve them, chosen by route and dtype with no
+// fallback between them:
+//   - bf16 on the single-pass route (_fwd_kernel, _bwd_kernel):
+//     attention_train_mma.cuh, every product on the tensor cores (mma.sync
+//     m16n8k16, f32 accumulate), cp.async double-buffered tiles, wholly
+//     padded key tiles skipped; its note gives its bound and design.
+//   - f32, and the folded route in both types: attention_core.cuh's FMA
+//     family, which the training block (block_train.cu) launches too. Its
+//     products are exact f32 FMA from transposed shared-memory tiles, a bf16
+//     input widened exactly and rounded where the TPU kernels round it; dp =
+//     dO . V^T and dV = Pd^T . dO stay f32 x f32. Bound: the forward's
+//     products are 4*d*N*sum(valid keys), the backward's 8*d*N*sum(valid),
+//     d = H*DH: at (4, 4, 8192, 64) 0.27 TFLOP forward, ~4 ms at the card's
+//     67 TFLOP/s f32 peak; the folded bf16 route runs the same FMA path, far
+//     from its tensor-core bound, and no load overlaps compute there yet.
 // The dropout bits are attention_train.py::_keep_mask_block, a pure function
 // of (seed, element, head, absolute query row, absolute key column), so the
-// tiling is free and both routes draw identical bits. bf16 values are
-// widened exactly and rounded where the TPU kernels round them; dp = dO . V^T
-// and dV = Pd^T . dO stay f32 x f32 in both types, as on the TPU.
-//
-// Bound on the card: the forward's products are 4*d*N*sum(valid keys) and the
-// backward's 8*d*N*sum(valid) (without the recompute), d = H*DH; against
-// them the kernels read and write a few (B, H, N, DH) tensors, so they are
-// bound by operations: at (B, H, N, DH) = (4, 4, 8192, 64), 0.27 TFLOP
-// forward, ~4 ms at the card's 67 TFLOP/s f32 peak outside the tensor cores
-// (bf16 inputs: ~0.3 ms at 989 TFLOP/s, the backward's dp and dV counted at
-// the f32 peak). Design against it: nothing of size N x N reaches device
-// memory; each CTA keeps a 64 x 64 score tile on chip with 4 x 4 register
-// blocks over transposed, padded shared-memory tiles (conflict-free reads).
-// The normalise-first forward pays one Q.K^T pass more, the single-pass dQ
-// kernel two products more (its D pass), the backward one recompute of the
-// scores in each kernel. bf16 runs the same FMA path as f32, so it is far
-// from its tensor-core bound; no load overlaps compute yet.
-#include "attention_core.cuh"
+// tiling is free and both routes and families draw identical bits.
+#include "attention_train_mma.cuh"
 
 namespace {
 
@@ -82,6 +78,8 @@ extern "C" int vs_at_fwd(const void* q, const void* k, const void* v,
   a.lse = lse;
   a.online = online;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == vs::kBF16 && !online)
+    return (int)vs::attn_mma::launch_fwd_dh(a, B, Dh, s);
   return (int)(dtype == vs::kF32
                    ? vs::attn::launch_fwd_dh<float>(a, B, Dh, s)
                    : vs::attn::launch_fwd_dh<__nv_bfloat16>(a, B, Dh, s));
@@ -114,6 +112,8 @@ extern "C" int vs_at_bwd(const void* q, const void* k, const void* v,
   a.d_from_o = folded;
   a.guard = folded;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == vs::kBF16 && !folded)
+    return (int)vs::attn_mma::launch_bwd_dh(a, B, Dh, s);
   return (int)(dtype == vs::kF32
                    ? vs::attn::launch_bwd_dh<float>(a, B, Dh, s)
                    : vs::attn::launch_bwd_dh<__nv_bfloat16>(a, B, Dh, s));

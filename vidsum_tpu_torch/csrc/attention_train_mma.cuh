@@ -1,0 +1,829 @@
+// attention_train_mma: the bf16 single-pass training attention on the tensor
+// cores, for sm_90a.
+//
+// Replaces, for bf16 inputs, the TPU kernels
+// vidsum_tpu/ops/attention_train.py:83 _fwd_kernel (normalise-first forward)
+// and :112 _bwd_kernel (its backward, D = rowsum(dp * p) over the full row).
+// f32 and the folded route (_fwd_kernel_folded, _bwd_kernel_folded) keep
+// attention_core.cuh's FMA family. What is computed is the TPU kernels'
+// function, rounded where they round:
+//   forward   s = q . k^T (bf16 operands, f32 accumulate), scaled, -inf at
+//             padded keys; pass 1 folds the row max m and sum l over the key
+//             tiles; pass 2 p = exp(s - m) / l in f32, dropped and scaled by
+//             1 / (1 - rate), rounded to bf16, then P.V (f32 accumulate);
+//             lse = m + log(l).
+//   backward  p = exp(s - lse); dp = dO . V^T (bf16 values, whose products
+//             are exact in f32: the TPU's f32 x f32 product up to summation
+//             order), dropped; D = rowsum(dp * p); ds = p (dp - D) rounded to
+//             bf16 for dQ = ds . K and dK = ds^T . Q; dV = pd^T . dO with the
+//             dropped pd kept in f32, unrounded, as on the TPU: pd is split
+//             into three bf16 terms (hi = bf16(pd), mid = bf16(pd - hi),
+//             lo = bf16(pd - hi - mid): 3 x 8 significand bits, f32's 24),
+//             each multiplied on the tensor cores.
+// The dropout bits are attention_core.cuh's kHashAttention family
+// (_keep_mask_block), computed in the accumulator layout: each thread knows
+// the (row, column) of every element it holds, with the row term
+// base ^ row * 0xC2B2AE3D kept per row and the column term col * 0x27D4EB2F
+// built from one product per tile.
+//
+// Layout. A CTA of W warps takes 16 W query rows (forward, dQ) or keys
+// (dK/dV); each warp owns 16 of them as mma.sync m16n8k16 tiles (bf16 in,
+// f32 accumulate). Operand tiles of 64 rows sit in shared memory row-major,
+// each row padded by 8 bf16, so that every 32-bit fragment load and every
+// ldmatrix phase of a warp hits distinct banks. A-fragments of P and dS are
+// packed straight from the score accumulators (FlashAttention-2); the
+// B-fragments of V, K, Q and dO where the product contracts over rows come
+// from ldmatrix.trans. The streamed tiles (K/V in the forward and dQ, Q/dO
+// with their lse and D in dK/dV) are double-buffered with 16-byte cp.async
+// copies, so tile i + 1 loads while tile i computes. Key tiles whose 64 keys
+// are all padded add exact zeros to every sum and nothing to any max, so the
+// forward and dQ walk only the live tiles of their element and a dK/dV CTA
+// whose keys are all padded writes zeros; an element with no unpadded key
+// at all walks every tile and gives what the FMA family gives it. The
+// backward is deterministic: dQ per query tile, dK/dV per key tile over the
+// query tiles, no atomics.
+//
+// Bound on the card (B, H, N, Dh) = (2, 4, 8192, 64), valid (8100, 5000):
+// the forward's products are 4 Dh H N sum(valid) = 0.11 TFLOP, 0.11 ms at the
+// bf16 peak; the backward's q.k^T, dp, dQ, dK at the bf16 peak and dV's three
+// split products: 0.22 + 0.17 TFLOP, 0.39 ms. Below that lies the work per
+// score element (H N sum(valid) = 0.43 G elements a pass): an exp in every
+// pass (2 forward, 3 backward) at 16 MUFU ops per clock and SM, and the
+// ~11-op hash in every dropout pass (1 forward, 3 backward), so the per
+// element floor is ~0.5 ms forward and ~1.2 ms backward: mma.sync is enough
+// to reach it (wgmma and TMA would speed the part already under it).
+#pragma once
+
+#include "attention_core.cuh"
+
+namespace vs {
+namespace attn_mma {
+
+using bf = __nv_bfloat16;
+using attn::Args;
+
+// Warps per CTA (W) of each kernel; a warp owns 16 rows (queries, or keys
+// in dK/dV), so a CTA owns 16 W rows and every streamed tile is shared by W
+// warps. The forward and dQ take 8 at head_dim <= 64, so a K/V tile read
+// from L2 feeds 128 query rows, and 4 at 128, where their registers bound
+// the warps an SM holds; dK/dV takes 4. The backward's launch bounds cap
+// its registers at head_dim <= 64 so that more warps share an SM (dQ 16,
+// at <= 128 registers; dK/dV 12, at <= 168). Each choice won a comparison
+// of variants on the card; at 128 the accumulators need the registers, and
+// the kernels take no cap.
+template <int DH>
+constexpr int kFwdWarps = DH >= 128 ? 4 : 8;
+template <int DH>
+constexpr int kDqWarps = DH >= 128 ? 4 : 8;
+constexpr int kDkdvWarps = 4;
+constexpr int kT = 64;         // rows of a streamed tile
+constexpr int kLdsPad = 8;     // bf16 of padding per shared-memory row
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr unsigned kRowMul = 0xC2B2AE3Du;  // _keep_mask_block's row term
+constexpr unsigned kColMul = 0x27D4EB2Fu;  // and its column term
+
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
+  const uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
+               "l"(gmem));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// 2^x on the MUFU unit (-inf -> 0, NaN stays NaN)
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// keep_bit's mixing of x = base ^ row term ^ column term against thr
+__device__ __forceinline__ bool keep_mix(unsigned x, unsigned thr) {
+  x ^= x >> 16;
+  x *= 0x85EBCA6Bu;
+  x ^= x >> 13;
+  x *= 0xC2B2AE35u;
+  x ^= x >> 16;
+  return x >= thr;
+}
+
+__device__ __forceinline__ bool has_zero_byte(unsigned w) {
+  return ((w - 0x01010101u) & ~w & 0x80808080u) != 0u;
+}
+
+// true when one of the 16 mask bytes at p (16-byte aligned) is 0: a key
+// that is not padded
+__device__ __forceinline__ bool any_live16(const unsigned char* p) {
+  const uint4 w = *reinterpret_cast<const uint4*>(p);
+  return has_zero_byte(w.x) || has_zero_byte(w.y) || has_zero_byte(w.z) ||
+         has_zero_byte(w.w);
+}
+
+// rows r0 .. r0 + rows - 1 of a head's (N, DH) matrix at row stride sn
+// into dst, rows padded to DH + kLdsPad, by 16-byte cp.async copies (not
+// committed) from THREADS threads; rows at or past N are zeros
+template <int DH, int THREADS>
+__device__ __forceinline__ void stage_async(bf* dst, const bf* head,
+                                            long long sn, int r0, int rows,
+                                            int N) {
+  constexpr int kChunks = DH / 8;  // 16-byte chunks per row
+  for (int c = threadIdx.x; c < rows * kChunks; c += THREADS) {
+    const int r = c / kChunks, cc = (c % kChunks) * 8;
+    bf* d = dst + r * (DH + kLdsPad) + cc;
+    if (r0 + r < N)
+      cp_async16(d, head + (long long)(r0 + r) * sn + cc);
+    else
+      *reinterpret_cast<uint4*>(d) = make_uint4(0u, 0u, 0u, 0u);
+  }
+}
+
+// Warp 0 writes the key tiles of mask row mrow that hold an unpadded key,
+// in order, to tiles[] and their count to *count; a row with no unpadded
+// key keeps every tile. The caller synchronises before reading them.
+__device__ __forceinline__ void live_tiles(const unsigned char* mrow,
+                                           int ntiles, int* tiles,
+                                           int* count) {
+  if (threadIdx.x >= 32) return;
+  const int lane = threadIdx.x;
+  int n = 0;
+  for (int c0 = 0; c0 < ntiles; c0 += 32) {
+    const int tile = c0 + lane;
+    bool live = false;
+    if (tile < ntiles) {
+#pragma unroll
+      for (int i = 0; i < kT / 16; ++i)
+        live |= any_live16(mrow + tile * kT + 16 * i);
+    }
+    const unsigned bal = __ballot_sync(0xffffffffu, live);
+    if (live) tiles[n + __popc(bal & ((1u << lane) - 1u))] = tile;
+    n += __popc(bal);
+  }
+  if (n == 0) {
+    for (int t = lane; t < ntiles; t += 32) tiles[t] = t;
+    n = ntiles;
+  }
+  if (lane == 0) *count = n;
+}
+
+// The A fragment (16 x 16, rows r and r + 8 of a padded row-major tile) of
+// the k16 step ks
+template <int LD>
+__device__ __forceinline__ void load_a(uint32_t (&a)[4], const bf* tile,
+                                       int r, int ks, int t) {
+  a[0] = vs::ld_pair(tile + r * LD + ks * 16 + 2 * t);
+  a[1] = vs::ld_pair(tile + (r + 8) * LD + ks * 16 + 2 * t);
+  a[2] = vs::ld_pair(tile + r * LD + ks * 16 + 8 + 2 * t);
+  a[3] = vs::ld_pair(tile + (r + 8) * LD + ks * 16 + 8 + 2 * t);
+}
+
+// acc[ni] += A . X^T over the k16 steps, X the rows ni*8 + g of a padded
+// row-major tile: the B fragment of an n8 tile is one row's pairs
+__device__ __forceinline__ void mma_rows(float (&acc)[4],
+                                         const uint32_t (&a)[4],
+                                         const bf* xrow, int ks, int t) {
+  vs::mma_bf16_16816(acc, a[0], a[1], a[2], a[3],
+                     vs::ld_pair(xrow + ks * 16 + 2 * t),
+                     vs::ld_pair(xrow + ks * 16 + 8 + 2 * t));
+}
+
+// acc[nd] += A . Y for a 16-row k chunk of a padded row-major tile Y (rows
+// k, columns n): the transposing ldmatrix gives each n8 tile's B fragment
+template <int DH>
+__device__ __forceinline__ void mma_cols(float (&acc)[DH / 8][4],
+                                         const uint32_t (&a)[4],
+                                         const bf* ychunk, int lane) {
+  const bf* row = ychunk + (lane & 15) * (DH + kLdsPad);
+#pragma unroll
+  for (int nd = 0; nd < DH / 8; ++nd) {
+    uint32_t b0, b1;
+    vs::ldmatrix_x2_trans(b0, b1, row + nd * 8);
+    vs::mma_bf16_16816(acc[nd], a[0], a[1], a[2], a[3], b0, b1);
+  }
+}
+
+// A fragment of the 16-column chunk kc from accumulator-layout values
+// v[ni][e] (row g + 8 (e >> 1), column ni*8 + 2t + (e & 1)), rounded to bf16
+template <int NI>
+__device__ __forceinline__ void pack_a(uint32_t (&a)[4],
+                                       const float (&v)[NI][4], int kc) {
+  a[0] = vs::pack_bf16(v[2 * kc][0], v[2 * kc][1]);
+  a[1] = vs::pack_bf16(v[2 * kc][2], v[2 * kc][3]);
+  a[2] = vs::pack_bf16(v[2 * kc + 1][0], v[2 * kc + 1][1]);
+  a[3] = vs::pack_bf16(v[2 * kc + 1][2], v[2 * kc + 1][3]);
+}
+
+// ------------------------------------------------------------------ forward
+template <int DH, int W>
+constexpr int fwd_smem_fixed() {
+  // Q, K x2, V x2, masks x2
+  return (16 * W + 4 * kT) * (DH + kLdsPad) * 2 + 2 * kT;
+}
+
+template <int DH, int W>
+__global__ void __launch_bounds__(32 * W) fwd_mma_kernel(const Args a) {
+  constexpr int LD = DH + kLdsPad, KS = DH / 16, ND = DH / 8;
+  constexpr int TILE = kT * LD, THREADS = 32 * W, ROWS = 16 * W;
+  extern __shared__ __align__(16) unsigned char smem[];
+  bf* Qs = reinterpret_cast<bf*>(smem);  // [ROWS][LD]
+  bf* Ks = Qs + ROWS * LD;  // [2][kT][LD]
+  bf* Vs = Ks + 2 * TILE;  // [2][kT][LD]
+  unsigned char* Ms = reinterpret_cast<unsigned char*>(Vs + 2 * TILE);
+  int* tiles = reinterpret_cast<int*>(Ms + 2 * kT);
+  const int N = a.N, ntiles = N / kT;
+  int* count = tiles + ntiles;
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int q0 = blockIdx.x * ROWS, h = blockIdx.y, b = blockIdx.z;
+  const long long ih = b * a.isb + h * a.ish;
+  const bf* kh = static_cast<const bf*>(a.k) + ih;
+  const bf* vh = static_cast<const bf*>(a.v) + ih;
+  const unsigned char* mrow = a.mask + (long long)b * N;
+  const unsigned base = attn::hash_base(a.hash, a.seed, b, h);
+  const bool drop = a.thr != 0u;
+  const int r = warp * 16 + g;  // the warp's rows r and r + 8 of the tile
+
+  stage_async<DH, THREADS>(Qs, static_cast<const bf*>(a.q) + ih, a.isn, q0,
+                           ROWS, N);
+  cp_async_commit();
+  live_tiles(mrow, ntiles, tiles, count);
+  cp_async_wait<0>();
+  __syncthreads();
+  const int nlive = *count;
+  uint32_t qa[KS][4];
+#pragma unroll
+  for (int ks = 0; ks < KS; ++ks) load_a<LD>(qa[ks], Qs, r, ks, t);
+
+  unsigned rowx[2], tcol[2];
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    rowx[hh] = base ^ ((unsigned)(q0 + r + 8 * hh) * kRowMul);
+    tcol[hh] = (unsigned)(2 * t + hh) * kColMul;
+  }
+
+  // the i-th live tile (and its V rows) into buffer i & 1
+  auto load_tile = [&](int i, bool with_v) {
+    const int k0 = tiles[i] * kT, buf = i & 1;
+    stage_async<DH, THREADS>(Ks + buf * TILE, kh, a.isn, k0, kT, N);
+    if (with_v)
+      stage_async<DH, THREADS>(Vs + buf * TILE, vh, a.isn, k0, kT, N);
+    if (tid < kT / 16)
+      cp_async16(Ms + buf * kT + 16 * tid, mrow + k0 + 16 * tid);
+    cp_async_commit();
+  };
+  // wait for tile i, with tile i + 1 in flight
+  auto next_tile = [&](int i, bool with_v) {
+    if (i + 1 < nlive) {
+      load_tile(i + 1, with_v);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+  };
+  // S of the tile in buffer buf, scaled, -inf at padded keys
+  auto scores = [&](int buf, float (&s)[8][4]) {
+    const bf* Kt = Ks + buf * TILE;
+    const unsigned char* Mt = Ms + buf * kT;
+#pragma unroll
+    for (int ni = 0; ni < 8; ++ni) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[ni][e] = 0.f;
+#pragma unroll
+      for (int ks = 0; ks < KS; ++ks)
+        mma_rows(s[ni], qa[ks], Kt + (ni * 8 + g) * LD, ks, t);
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        s[ni][e] = Mt[ni * 8 + 2 * t + (e & 1)] != 0 ? -INFINITY
+                                                      : s[ni][e] * a.scale;
+    }
+  };
+
+  // pass 1: the row max and the sum of exp(s - max), online over the tiles
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+  load_tile(0, false);
+  for (int i = 0; i < nlive; ++i) {
+    next_tile(i, false);
+    float s[8][4];
+    scores(i & 1, s);
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      float mx = -INFINITY;
+#pragma unroll
+      for (int ni = 0; ni < 8; ++ni)
+        mx = fmaxf(mx, fmaxf(s[ni][2 * hh], s[ni][2 * hh + 1]));
+      const float m_new = fmaxf(m[hh], vs::group_max<4>(mx));
+      const bool none = m_new == -INFINITY;  // no unpadded key yet
+      const float ml = m_new * kLog2e;
+      float rs = 0.f;
+#pragma unroll
+      for (int ni = 0; ni < 8; ++ni)
+#pragma unroll
+        for (int c = 0; c < 2; ++c)
+          rs += none ? 0.f : ex2(fmaf(s[ni][2 * hh + c], kLog2e, -ml));
+      const float corr =
+          m[hh] == -INFINITY ? 0.f : ex2((m[hh] - m_new) * kLog2e);
+      l[hh] = l[hh] * corr + vs::group_sum<4>(rs);
+      m[hh] = m_new;
+    }
+    __syncthreads();  // buffer i & 1 is free for tile i + 2
+  }
+
+  // pass 2: p = e / l, dropped, rounded to bf16, then P.V
+  float ml[2], inv_l[2];
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    ml[hh] = m[hh] * kLog2e;
+    inv_l[hh] = 1.f / l[hh];
+  }
+  float acc[ND][4];
+#pragma unroll
+  for (int nd = 0; nd < ND; ++nd)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[nd][e] = 0.f;
+  load_tile(0, true);
+  for (int i = 0; i < nlive; ++i) {
+    next_tile(i, true);
+    float s[8][4];
+    scores(i & 1, s);
+    const unsigned cbase = (unsigned)(tiles[i] * kT) * kColMul;
+#pragma unroll
+    for (int ni = 0; ni < 8; ++ni)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int hh = e >> 1;
+        float p = ex2(fmaf(s[ni][e], kLog2e, -ml[hh])) * inv_l[hh];
+        if (drop) {
+          const unsigned col = cbase + (unsigned)(ni * 8) * kColMul +
+                               tcol[e & 1];
+          p = keep_mix(rowx[hh] ^ col, a.thr) ? p * a.kscale : 0.f;
+        }
+        s[ni][e] = p;
+      }
+    const bf* Vt = Vs + (i & 1) * TILE;
+#pragma unroll
+    for (int kc = 0; kc < 4; ++kc) {
+      uint32_t pa[4];
+      pack_a<8>(pa, s, kc);
+      mma_cols<DH>(acc, pa, Vt + kc * 16 * LD, lane);
+    }
+    __syncthreads();
+  }
+
+  const long long oh = b * a.osb + h * a.osh;
+  const long long sh = ((long long)b * a.H + h) * N;
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    const int n = q0 + r + 8 * hh;
+    if (n >= N) continue;
+    bf* orow = static_cast<bf*>(a.out) + oh + (long long)n * a.osn;
+#pragma unroll
+    for (int nd = 0; nd < ND; ++nd)
+      *reinterpret_cast<__nv_bfloat162*>(orow + nd * 8 + 2 * t) =
+          __floats2bfloat162_rn(acc[nd][2 * hh], acc[nd][2 * hh + 1]);
+    if (t == 0 && a.lse != nullptr) a.lse[sh + n] = m[hh] + logf(l[hh]);
+  }
+}
+
+// ----------------------------------------------------------- backward: dQ
+template <int DH, int W>
+constexpr int dq_smem_fixed() {
+  // Q, dO, K x2, V x2, masks x2
+  return (32 * W + 4 * kT) * (DH + kLdsPad) * 2 + 2 * kT;
+}
+
+template <int DH, int W>
+__global__ void __launch_bounds__(32 * W, DH >= 128 ? 1 : 16 / W)
+    dq_mma_kernel(const Args a) {
+  constexpr int LD = DH + kLdsPad, KS = DH / 16, ND = DH / 8;
+  constexpr int TILE = kT * LD, THREADS = 32 * W, ROWS = 16 * W;
+  extern __shared__ __align__(16) unsigned char smem[];
+  bf* Qs = reinterpret_cast<bf*>(smem);  // [ROWS][LD]
+  bf* dOs = Qs + ROWS * LD;
+  bf* Ks = dOs + ROWS * LD;  // [2][kT][LD]
+  bf* Vs = Ks + 2 * TILE;  // [2][kT][LD]
+  unsigned char* Ms = reinterpret_cast<unsigned char*>(Vs + 2 * TILE);
+  int* tiles = reinterpret_cast<int*>(Ms + 2 * kT);
+  const int N = a.N, ntiles = N / kT;
+  int* count = tiles + ntiles;
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int q0 = blockIdx.x * ROWS, h = blockIdx.y, b = blockIdx.z;
+  const long long ih = b * a.isb + h * a.ish;
+  const long long oh = b * a.osb + h * a.osh;
+  const long long sh = ((long long)b * a.H + h) * N;
+  const bf* kh = static_cast<const bf*>(a.k) + ih;
+  const bf* vh = static_cast<const bf*>(a.v) + ih;
+  const unsigned char* mrow = a.mask + (long long)b * N;
+  const unsigned base = attn::hash_base(a.hash, a.seed, b, h);
+  const bool drop = a.thr != 0u;
+  const int r = warp * 16 + g;
+
+  stage_async<DH, THREADS>(Qs, static_cast<const bf*>(a.q) + ih, a.isn, q0,
+                           ROWS, N);
+  stage_async<DH, THREADS>(dOs, static_cast<const bf*>(a.dO) + oh, a.osn,
+                           q0, ROWS, N);
+  cp_async_commit();
+  live_tiles(mrow, ntiles, tiles, count);
+  float ll[2];  // lse * log2(e) of rows r and r + 8 (0 past N)
+  unsigned rowx[2], tcol[2];
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    const int n = q0 + r + 8 * hh;
+    ll[hh] = n < N ? a.lse[sh + n] * kLog2e : 0.f;
+    rowx[hh] = base ^ ((unsigned)(q0 + r + 8 * hh) * kRowMul);
+    tcol[hh] = (unsigned)(2 * t + hh) * kColMul;
+  }
+  cp_async_wait<0>();
+  __syncthreads();
+  const int nlive = *count;
+
+  auto load_tile = [&](int i) {
+    const int k0 = tiles[i] * kT, buf = i & 1;
+    stage_async<DH, THREADS>(Ks + buf * TILE, kh, a.isn, k0, kT, N);
+    stage_async<DH, THREADS>(Vs + buf * TILE, vh, a.isn, k0, kT, N);
+    if (tid < kT / 16)
+      cp_async16(Ms + buf * kT + 16 * tid, mrow + k0 + 16 * tid);
+    cp_async_commit();
+  };
+  auto next_tile = [&](int i) {
+    if (i + 1 < nlive) {
+      load_tile(i + 1);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+  };
+  // p = exp(s - lse) into s and the dropped dp into dp, for the tile of
+  // live index i
+  auto probs = [&](int i, float (&s)[8][4], float (&dp)[8][4]) {
+    const int buf = i & 1;
+    const bf* Kt = Ks + buf * TILE;
+    const bf* Vt = Vs + buf * TILE;
+    const unsigned char* Mt = Ms + buf * kT;
+#pragma unroll
+    for (int ni = 0; ni < 8; ++ni)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[ni][e] = dp[ni][e] = 0.f;
+#pragma unroll
+    for (int ks = 0; ks < KS; ++ks) {
+      uint32_t qa[4], da[4];
+      load_a<LD>(qa, Qs, r, ks, t);
+      load_a<LD>(da, dOs, r, ks, t);
+#pragma unroll
+      for (int ni = 0; ni < 8; ++ni) {
+        mma_rows(s[ni], qa, Kt + (ni * 8 + g) * LD, ks, t);
+        mma_rows(dp[ni], da, Vt + (ni * 8 + g) * LD, ks, t);
+      }
+    }
+    const unsigned cbase = (unsigned)(tiles[i] * kT) * kColMul;
+#pragma unroll
+    for (int ni = 0; ni < 8; ++ni)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int hh = e >> 1;
+        const float sv = Mt[ni * 8 + 2 * t + (e & 1)] != 0
+                             ? -INFINITY
+                             : s[ni][e] * a.scale;
+        s[ni][e] = ex2(fmaf(sv, kLog2e, -ll[hh]));
+        if (drop) {
+          const unsigned col = cbase + (unsigned)(ni * 8) * kColMul +
+                               tcol[e & 1];
+          dp[ni][e] =
+              keep_mix(rowx[hh] ^ col, a.thr) ? dp[ni][e] * a.kscale : 0.f;
+        }
+      }
+  };
+
+  // D = rowsum(dp * p) over the full row
+  float part[2] = {0.f, 0.f};
+  load_tile(0);
+  for (int i = 0; i < nlive; ++i) {
+    next_tile(i);
+    float p[8][4], dp[8][4];
+    probs(i, p, dp);
+#pragma unroll
+    for (int ni = 0; ni < 8; ++ni)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) part[e >> 1] += dp[ni][e] * p[ni][e];
+    __syncthreads();
+  }
+  float Dr[2];
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    Dr[hh] = vs::group_sum<4>(part[hh]);
+    if (t == 0 && q0 + r + 8 * hh < N) a.D[sh + q0 + r + 8 * hh] = Dr[hh];
+  }
+
+  // dQ = bf16(p (dp - D)) . K
+  float acc[ND][4];
+#pragma unroll
+  for (int nd = 0; nd < ND; ++nd)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[nd][e] = 0.f;
+  load_tile(0);
+  for (int i = 0; i < nlive; ++i) {
+    next_tile(i);
+    float p[8][4], dp[8][4];
+    probs(i, p, dp);
+#pragma unroll
+    for (int ni = 0; ni < 8; ++ni)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        p[ni][e] = p[ni][e] * (dp[ni][e] - Dr[e >> 1]);
+    const bf* Kt = Ks + (i & 1) * TILE;
+#pragma unroll
+    for (int kc = 0; kc < 4; ++kc) {
+      uint32_t sa[4];
+      pack_a<8>(sa, p, kc);
+      mma_cols<DH>(acc, sa, Kt + kc * 16 * LD, lane);
+    }
+    __syncthreads();
+  }
+
+  bf* dqh = static_cast<bf*>(a.dq) + ih;
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    if (q0 + r + 8 * hh >= N) continue;
+    bf* row = dqh + (long long)(q0 + r + 8 * hh) * a.isn;
+#pragma unroll
+    for (int nd = 0; nd < ND; ++nd)
+      *reinterpret_cast<__nv_bfloat162*>(row + nd * 8 + 2 * t) =
+          __floats2bfloat162_rn(acc[nd][2 * hh] * a.scale,
+                                acc[nd][2 * hh + 1] * a.scale);
+  }
+}
+
+// -------------------------------------------------------- backward: dK, dV
+// Each warp owns 16 keys of the CTA's 16 W; the transposed score tiles
+// (keys x queries) are taken QC queries at a time (32 at DH 128, where the
+// dK and dV accumulators take 128 registers).
+template <int DH, int W>
+constexpr int dkdv_smem_bytes() {
+  // K, V; Q x2, dO x2; lse x2, D x2
+  return (32 * W + 4 * kT) * (DH + kLdsPad) * 2 + 4 * kT * 4;
+}
+
+template <int DH, int W>
+__global__ void __launch_bounds__(32 * W, DH >= 128 ? 1 : 12 / W)
+    dkdv_mma_kernel(const Args a) {
+  constexpr int LD = DH + kLdsPad, KS = DH / 16, ND = DH / 8;
+  constexpr int TILE = kT * LD, QC = DH >= 128 ? 32 : 64, NI = QC / 8;
+  constexpr int THREADS = 32 * W, ROWS = 16 * W;
+  extern __shared__ __align__(16) unsigned char smem[];
+  bf* Ks = reinterpret_cast<bf*>(smem);  // [ROWS][LD]
+  bf* Vs = Ks + ROWS * LD;
+  bf* Qs = Vs + ROWS * LD;  // [2][kT][LD]
+  bf* dOs = Qs + 2 * TILE;  // [2][kT][LD]
+  float* Ls = reinterpret_cast<float*>(dOs + 2 * TILE);  // [2][kT] lse
+  float* Dq = Ls + 2 * kT;                               // [2][kT] D
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int k0 = blockIdx.x * ROWS, h = blockIdx.y, b = blockIdx.z;
+  const int N = a.N, ntiles = N / kT;
+  const long long ih = b * a.isb + h * a.ish;
+  const long long oh = b * a.osb + h * a.osh;
+  const long long sh = ((long long)b * a.H + h) * N;
+  const unsigned char* mrow = a.mask + (long long)b * N;
+  const int r = warp * 16 + g;  // the warp's keys r and r + 8 of the tile
+  bf* dkh = static_cast<bf*>(a.dk) + ih;
+  bf* dvh = static_cast<bf*>(a.dv) + ih;
+
+  // keys whose 16 W are all padded get exact zeros, unless no key of the
+  // element is unpadded (then every tile runs, as in dQ)
+  bool mine = false, any = false;
+  for (int c = tid * 16; c < N; c += THREADS * 16) {
+    const bool live = any_live16(mrow + c);
+    any |= live;
+    mine |= live && c >= k0 && c < k0 + ROWS;
+  }
+  any = __syncthreads_or(any);
+  mine = __syncthreads_or(mine);
+  if (any && !mine) {
+    const __nv_bfloat162 z = __floats2bfloat162_rn(0.f, 0.f);
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      if (k0 + r + 8 * hh >= N) continue;
+      const long long row = (long long)(k0 + r + 8 * hh) * a.isn;
+#pragma unroll
+      for (int nd = 0; nd < ND; ++nd) {
+        *reinterpret_cast<__nv_bfloat162*>(dkh + row + nd * 8 + 2 * t) = z;
+        *reinterpret_cast<__nv_bfloat162*>(dvh + row + nd * 8 + 2 * t) = z;
+      }
+    }
+    return;
+  }
+
+  stage_async<DH, THREADS>(Ks, static_cast<const bf*>(a.k) + ih, a.isn, k0,
+                           ROWS, N);
+  stage_async<DH, THREADS>(Vs, static_cast<const bf*>(a.v) + ih, a.isn, k0,
+                           ROWS, N);
+  const bf* qh = static_cast<const bf*>(a.q) + ih;
+  const bf* dOh = static_cast<const bf*>(a.dO) + oh;
+  auto load_tile = [&](int qt) {
+    const int q0 = qt * kT, buf = qt & 1;
+    stage_async<DH, THREADS>(Qs + buf * TILE, qh, a.isn, q0, kT, N);
+    stage_async<DH, THREADS>(dOs + buf * TILE, dOh, a.osn, q0, kT, N);
+    if (tid < kT / 4)
+      cp_async16(Ls + buf * kT + 4 * tid, a.lse + sh + q0 + 4 * tid);
+    else if (tid < kT / 2)
+      cp_async16(Dq + buf * kT + 4 * (tid - kT / 4),
+                 a.D + sh + q0 + 4 * (tid - kT / 4));
+    cp_async_commit();
+  };
+  load_tile(0);  // one group with K and V
+
+  const unsigned base = attn::hash_base(a.hash, a.seed, b, h);
+  const bool drop = a.thr != 0u;
+  bool km[2];
+  unsigned keyx[2], tq[2];
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    const int key = k0 + r + 8 * hh;
+    km[hh] = key >= N || mrow[key] != 0;
+    keyx[hh] = base ^ ((unsigned)(k0 + r + 8 * hh) * kColMul);
+    tq[hh] = (unsigned)(2 * t + hh) * kRowMul;
+  }
+  float dka[ND][4], dva[ND][4];
+#pragma unroll
+  for (int nd = 0; nd < ND; ++nd)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dka[nd][e] = dva[nd][e] = 0.f;
+
+  for (int qt = 0; qt < ntiles; ++qt) {
+    if (qt + 1 < ntiles) {
+      load_tile(qt + 1);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    const int buf = qt & 1;
+    const bf* Qt = Qs + buf * TILE;
+    const bf* dOt = dOs + buf * TILE;
+    const float* Lt = Ls + buf * kT;
+    const float* Dt = Dq + buf * kT;
+    const unsigned qbase = (unsigned)(qt * kT) * kRowMul;
+#pragma unroll
+    for (int qc0 = 0; qc0 < kT; qc0 += QC) {
+      // s^T = K . Q^T and dp^T = V . dO^T: element (ni, e) is key
+      // r + 8 (e >> 1), query qc0 + ni*8 + 2t + (e & 1)
+      float s[NI][4], dp[NI][4];
+#pragma unroll
+      for (int ni = 0; ni < NI; ++ni)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[ni][e] = dp[ni][e] = 0.f;
+#pragma unroll
+      for (int ks = 0; ks < KS; ++ks) {
+        uint32_t ka[4], va[4];
+        load_a<LD>(ka, Ks, r, ks, t);
+        load_a<LD>(va, Vs, r, ks, t);
+#pragma unroll
+        for (int ni = 0; ni < NI; ++ni) {
+          mma_rows(s[ni], ka, Qt + (qc0 + ni * 8 + g) * LD, ks, t);
+          mma_rows(dp[ni], va, dOt + (qc0 + ni * 8 + g) * LD, ks, t);
+        }
+      }
+      // p into s, the dropped pd into dp's place after ds is formed
+      float ds[NI][4];
+#pragma unroll
+      for (int ni = 0; ni < NI; ++ni)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int hh = e >> 1, qj = qc0 + ni * 8 + 2 * t + (e & 1);
+          const float sv = km[hh] ? -INFINITY : s[ni][e] * a.scale;
+          const float p = ex2(fmaf(sv, kLog2e, -Lt[qj] * kLog2e));
+          bool keep = true;
+          if (drop) {
+            const unsigned row = qbase + (unsigned)(qc0 + ni * 8) * kRowMul +
+                                 tq[e & 1];
+            keep = keep_mix(keyx[hh] ^ row, a.thr);
+          }
+          const float gd = keep ? dp[ni][e] * a.kscale : 0.f;
+          ds[ni][e] = p * (gd - Dt[qj]);
+          dp[ni][e] = keep ? p * a.kscale : 0.f;  // pd
+        }
+#pragma unroll
+      for (int kc = 0; kc < QC / 16; ++kc) {
+        const bf* qrows = Qt + (qc0 + kc * 16) * LD;
+        const bf* drows = dOt + (qc0 + kc * 16) * LD;
+        uint32_t fa[4];
+        pack_a<NI>(fa, ds, kc);
+        mma_cols<DH>(dka, fa, qrows, lane);
+        // pd = hi + mid + lo, each a bf16 operand
+#pragma unroll
+        for (int term = 0; term < 3; ++term) {
+          pack_a<NI>(fa, dp, kc);
+#pragma unroll
+          for (int j = 0; j < 2; ++j)
+#pragma unroll
+            for (int e = 0; e < 4; ++e)
+              dp[2 * kc + j][e] -=
+                  __bfloat162float(__float2bfloat16(dp[2 * kc + j][e]));
+          mma_cols<DH>(dva, fa, drows, lane);
+        }
+      }
+    }
+    __syncthreads();  // buffer qt & 1 is free for tile qt + 2
+  }
+
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    if (k0 + r + 8 * hh >= N) continue;
+    const long long row = (long long)(k0 + r + 8 * hh) * a.isn;
+#pragma unroll
+    for (int nd = 0; nd < ND; ++nd) {
+      *reinterpret_cast<__nv_bfloat162*>(dkh + row + nd * 8 + 2 * t) =
+          __floats2bfloat162_rn(dka[nd][2 * hh] * a.scale,
+                                dka[nd][2 * hh + 1] * a.scale);
+      *reinterpret_cast<__nv_bfloat162*>(dvh + row + nd * 8 + 2 * t) =
+          __floats2bfloat162_rn(dva[nd][2 * hh], dva[nd][2 * hh + 1]);
+    }
+  }
+}
+
+// ------------------------------------------------------------------ launches
+// The mma route reads 16-byte chunks of q, k, v, dO, the mask, lse and D
+inline bool aligned16(const void* p) {
+  return reinterpret_cast<uintptr_t>(p) % 16 == 0;
+}
+
+inline bool layout_ok(const Args& a) {
+  return a.isn % 8 == 0 && a.isb % 8 == 0 && a.ish % 8 == 0 &&
+         a.osn % 8 == 0 && a.osb % 8 == 0 && a.osh % 8 == 0 &&
+         aligned16(a.q) && aligned16(a.k) && aligned16(a.v) &&
+         aligned16(a.mask);
+}
+
+// CTAs along N for W warps (16 W rows each; the last may be ragged)
+inline unsigned ctas(int N, int W) { return (N + 16 * W - 1) / (16 * W); }
+
+template <int DH>
+cudaError_t launch_fwd(const Args& a, int B, cudaStream_t s) {
+  constexpr int W = kFwdWarps<DH>;
+  if (!layout_ok(a)) return cudaErrorMisalignedAddress;
+  const int bytes = fwd_smem_fixed<DH, W>() + (a.N / kT + 1) * 4;
+  cudaError_t err = attn::allow_smem(fwd_mma_kernel<DH, W>, bytes);
+  if (err != cudaSuccess) return err;
+  fwd_mma_kernel<DH, W>
+      <<<dim3(ctas(a.N, W), a.H, B), 32 * W, bytes, s>>>(a);
+  return cudaGetLastError();
+}
+
+// dq_mma_kernel writes D, which dkdv_mma_kernel reads after it on the same
+// stream
+template <int DH>
+cudaError_t launch_bwd(const Args& a, int B, cudaStream_t s) {
+  if (!layout_ok(a) || !aligned16(a.dO) || !aligned16(a.lse) ||
+      !aligned16(a.D))
+    return cudaErrorMisalignedAddress;
+  constexpr int WQ = kDqWarps<DH>, WK = kDkdvWarps;
+  const int dq_bytes = dq_smem_fixed<DH, WQ>() + (a.N / kT + 1) * 4;
+  const int kv_bytes = dkdv_smem_bytes<DH, WK>();
+  cudaError_t err = attn::allow_smem(dq_mma_kernel<DH, WQ>, dq_bytes);
+  if (err == cudaSuccess)
+    err = attn::allow_smem(dkdv_mma_kernel<DH, WK>, kv_bytes);
+  if (err != cudaSuccess) return err;
+  dq_mma_kernel<DH, WQ>
+      <<<dim3(ctas(a.N, WQ), a.H, B), 32 * WQ, dq_bytes, s>>>(a);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  dkdv_mma_kernel<DH, WK>
+      <<<dim3(ctas(a.N, WK), a.H, B), 32 * WK, kv_bytes, s>>>(a);
+  return cudaGetLastError();
+}
+
+inline cudaError_t launch_fwd_dh(const Args& a, int B, int Dh,
+                                 cudaStream_t s) {
+  switch (Dh) {
+    case 16: return launch_fwd<16>(a, B, s);
+    case 32: return launch_fwd<32>(a, B, s);
+    case 64: return launch_fwd<64>(a, B, s);
+    case 128: return launch_fwd<128>(a, B, s);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+inline cudaError_t launch_bwd_dh(const Args& a, int B, int Dh,
+                                 cudaStream_t s) {
+  switch (Dh) {
+    case 16: return launch_bwd<16>(a, B, s);
+    case 32: return launch_bwd<32>(a, B, s);
+    case 64: return launch_bwd<64>(a, B, s);
+    case 128: return launch_bwd<128>(a, B, s);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+}  // namespace attn_mma
+}  // namespace vs

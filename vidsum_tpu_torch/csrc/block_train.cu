@@ -176,10 +176,10 @@ __global__ void bt_splitk_reduce_kernel(const float* __restrict__ partial,
 }
 
 // ------------------------------------------------------------ row kernels
-// One warp per row of d <= 256 columns (d % 32 == 0): lane l holds columns
-// l + 32 t.
+// One warp per row of d <= 512 columns (d % 32 == 0): lane l holds columns
+// l + 32 t, t < d / 32.
 constexpr int kRowsPerBlock = kThreads / 32;
-constexpr int kMaxPerLane = 8;
+constexpr int kMaxPerLane = 16;
 
 __global__ void __launch_bounds__(kThreads)
 bt_drop_res_ln_kernel(const float* __restrict__ p,

@@ -11,9 +11,11 @@
 //   EPI_RELU    y = max(acc + b, 0)               (fc1)
 //   EPI_RES_LN  y = LN(acc + b + residual)        (proj + LN1, fc2 + LN2)
 // The LayerNorm runs in f32 with eps and biased variance, as
-// block_kernel.py::_layernorm_f32 does; a whole output row (d <= 256, every
-// configuration in the repo) lies in one CTA tile, so the row statistics
-// never leave the CTA.
+// block_kernel.py::_layernorm_f32 does. A row of d <= 256 lies in one CTA
+// tile, so its statistics never leave the CTA; a wider row (d 512) is
+// written pre-LN in f32 by the GEMM (EPI_RES, y = acc + b + residual, into
+// out_f) and normalised in place by common.cuh's layernorm_rows_kernel, the
+// same f32 math in a second launch.
 //
 // Layouts: X (M, K) row-major in T; W (N, K) row-major in T (nn.Linear's
 // weight layout); bias, LN scale/shift and an f32 residual in f32; a T
@@ -42,7 +44,8 @@ constexpr int kBK = 16;
 // the repo
 constexpr int TM = 8, TN = 8;
 
-enum Epilogue : int { EPI_NONE = 0, EPI_RELU = 1, EPI_RES_LN = 2 };
+enum Epilogue : int { EPI_NONE = 0, EPI_RELU = 1, EPI_RES_LN = 2,
+                      EPI_RES = 3 /* internal: the pre-LN row */ };
 
 template <typename T, int EPI>
 __global__ void __launch_bounds__(kThreads)
@@ -113,8 +116,7 @@ gemm_bias_epilogue_kernel(const T* __restrict__ X, const T* __restrict__ W,
       y[j] = col < N ? acc[i][j] + bias[col] : 0.f;
       if (EPI == EPI_RELU) y[j] = fmaxf(y[j], 0.f);
     }
-    if (EPI == EPI_RES_LN) {
-      float s = 0.f;
+    if (EPI == EPI_RES_LN || EPI == EPI_RES) {
 #pragma unroll
       for (int j = 0; j < TN; ++j) {
         const int col = n0 + lane + 32 * j;
@@ -122,8 +124,12 @@ gemm_bias_epilogue_kernel(const T* __restrict__ X, const T* __restrict__ W,
           const size_t o = (size_t)row * N + col;
           y[j] += resid_f != nullptr ? resid_f[o] : vs::to_f32<T>(resid_t[o]);
         }
-        s += col < N ? y[j] : 0.f;
       }
+    }
+    if (EPI == EPI_RES_LN) {
+      float s = 0.f;
+#pragma unroll
+      for (int j = 0; j < TN; ++j) s += n0 + lane + 32 * j < N ? y[j] : 0.f;
       const float mean = vs::group_sum<32>(s) / (float)N;
       float v = 0.f;
 #pragma unroll
@@ -276,7 +282,7 @@ gemm_bf16_mma_kernel(const __nv_bfloat16* __restrict__ X,
         const int col = n0 + wn * 64 + ni * 8 + 2 * t + (e & 1);
         float y = col < N ? acc[mi][ni][e] + bias[col] : 0.f;
         if (EPI == EPI_RELU) y = fmaxf(y, 0.f);
-        if (EPI == EPI_RES_LN) {
+        if (EPI == EPI_RES_LN || EPI == EPI_RES) {
           const int row = m0 + wm * 32 + mi * 16 + g + 8 * (e >> 1);
           if (col < N && row < M) {
             const size_t o = (size_t)row * N + col;
@@ -383,6 +389,11 @@ cudaError_t launch_mma(const void* x, const void* w, const float* bias,
           <<<grid, kThreads, 0, stream>>>(X, Wt, bias, R, resid_f, ln_g, ln_b,
                                           O, out_f, M, N, K, eps, vec);
       break;
+    case EPI_RES:
+      gemm_bf16_mma_kernel<EPI_RES>
+          <<<grid, kThreads, 0, stream>>>(X, Wt, bias, R, resid_f, ln_g, ln_b,
+                                          O, out_f, M, N, K, eps, vec);
+      break;
     default:
       return cudaErrorInvalidValue;
   }
@@ -414,6 +425,10 @@ cudaError_t launch_tiles(const void* x, const void* w, const float* bias,
       gemm_bias_epilogue_kernel<T, EPI_RES_LN><<<grid, kThreads, 0, stream>>>(
           X, Wt, bias, R, resid_f, ln_g, ln_b, O, out_f, M, N, K, eps);
       break;
+    case EPI_RES:
+      gemm_bias_epilogue_kernel<T, EPI_RES><<<grid, kThreads, 0, stream>>>(
+          X, Wt, bias, R, resid_f, ln_g, ln_b, O, out_f, M, N, K, eps);
+      break;
     default:
       return cudaErrorInvalidValue;
   }
@@ -429,20 +444,34 @@ extern "C" int vs_gemm_bias_epilogue(const void* x, const void* w,
                                      float* out_f, int M, int N, int K,
                                      int epilogue, int dtype, float eps,
                                      void* stream) {
-  if (M <= 0 || N <= 0 || K <= 0) return (int)cudaErrorInvalidValue;
+  if (M <= 0 || N <= 0 || K <= 0 || epilogue < EPI_NONE ||
+      epilogue > EPI_RES_LN)
+    return (int)cudaErrorInvalidValue;
   if (epilogue == EPI_RES_LN && resid_t == nullptr && resid_f == nullptr)
     return (int)cudaErrorInvalidValue;
-  // the LayerNorm needs the whole row in one 256-column CTA tile
-  if (epilogue == EPI_RES_LN && N > 256) return (int)cudaErrorInvalidValue;
+  // a LayerNorm row wider than the 256-column CTA tile goes through out_f
+  // (required) and a row kernel
+  const bool wide = epilogue == EPI_RES_LN && N > 256;
+  if (wide && (N > 32 * vs::kLnMaxPerLane || out_f == nullptr))
+    return (int)cudaErrorInvalidValue;
+  const int epi = wide ? EPI_RES : epilogue;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   if (dtype == vs::kF32)
-    err = launch_tiles<float>(x, w, bias, resid_t, resid_f, ln_g, ln_b, out_t,
-                              out_f, M, N, K, epilogue, eps, s);
+    err = launch_tiles<float>(x, w, bias, resid_t, resid_f, ln_g, ln_b,
+                              wide ? nullptr : out_t, out_f, M, N, K, epi,
+                              eps, s);
   else if (dtype == vs::kBF16)
-    err = launch_mma(x, w, bias, resid_t, resid_f, ln_g, ln_b, out_t, out_f,
-                     M, N, K, epilogue, eps, s);
+    err = launch_mma(x, w, bias, resid_t, resid_f, ln_g, ln_b,
+                     wide ? nullptr : out_t, out_f, M, N, K, epi, eps, s);
   else
-    err = cudaErrorInvalidValue;
-  return (int)err;
+    return (int)cudaErrorInvalidValue;
+  if (err != cudaSuccess || !wide) return (int)err;
+  return (int)(dtype == vs::kF32
+                   ? vs::launch_layernorm_rows<float>(out_f, ln_g, ln_b, out_t,
+                                                      nullptr, nullptr, M, N,
+                                                      eps, s)
+                   : vs::launch_layernorm_rows<__nv_bfloat16>(
+                         out_f, ln_g, ln_b, out_t, nullptr, nullptr, M, N,
+                         eps, s));
 }

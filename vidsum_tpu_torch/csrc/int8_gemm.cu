@@ -11,7 +11,11 @@
 //   EPI_DEQ     y = acc * (sx[m] * sw[n]) + b[n]      (QKV, embed, dense route)
 //   EPI_RELU    y = max(acc * (sx sw) + b, 0)         (fc1)
 //   EPI_RES_LN  y = LN(acc * (sx sw) + b + residual)  (proj + LN1, fc2 + LN2),
-//               optionally also the row's int8 codes and scale (LN1 -> fc1)
+//               optionally also the row's int8 codes and scale (LN1 -> fc1);
+//               a row wider than the CTA tile (d 512) is written pre-LN in
+//               f32 (EPI_RES, into out_f) and normalised, quantised and
+//               rounded by common.cuh's layernorm_rows_kernel, with the same
+//               IEEE-rounded operations
 //   EPI_SHIFT   y = int8(acc >> 8)                    (the probe, kernel 18b)
 // X (M, K) and W (N, K) are int8 codes, both K-contiguous (W in nn.Linear's
 // (out, in) layout), sx (M,) and sw (N,) their f32 scales; K % 32 == 0.
@@ -45,7 +49,7 @@ constexpr int kLds = kBK + 16; // padded shared-memory row: 20 words
 constexpr int WARPS_M = 2, WARPS_N = 4;  // a 64 x 256 CTA tile
 
 enum Epilogue : int { EPI_DEQ = 0, EPI_RELU = 1, EPI_RES_LN = 2,
-                      EPI_SHIFT = 3 };
+                      EPI_SHIFT = 3, EPI_RES = 4 /* internal: pre-LN row */ };
 
 template <typename T, int EPI>
 __global__ void __launch_bounds__(kThreads)
@@ -182,7 +186,7 @@ int8_gemm_kernel(const int8_t* __restrict__ X, const float* __restrict__ sx,
           v = vs::dequant(acc[mi][ni][e], rsx[mi][e >> 1], sw[col],
                           bias[col]);
           if (EPI == EPI_RELU) v = fmaxf(v, 0.f);
-          if (EPI == EPI_RES_LN) {
+          if (EPI == EPI_RES_LN || EPI == EPI_RES) {
             const int row = m0 + wm * 32 + mi * 16 + g + 8 * (e >> 1);
             if (row < M) {
               const size_t o = (size_t)row * N + col;
@@ -342,6 +346,11 @@ cudaError_t launch_gemm(const int8_t* x, const float* sx, const int8_t* w,
           x, sx, w, sw, bias, R, resid_f, ln_g, ln_b, O, out_f, out_q, out_s,
           M, N, K, eps, vec);
       break;
+    case EPI_RES:
+      int8_gemm_kernel<T, EPI_RES><<<grid, kThreads, 0, stream>>>(
+          x, sx, w, sw, bias, R, resid_f, ln_g, ln_b, O, out_f, out_q, out_s,
+          M, N, K, eps, vec);
+      break;
     default:
       return cudaErrorInvalidValue;
   }
@@ -373,7 +382,8 @@ quantize_rows_kernel(const T* __restrict__ x, int M, int K,
 
 // X (M, K) int8, sx (M,), W (N, K) int8, sw (N,), bias (N,) f32 (null for
 // EPI_SHIFT). resid_t (dtype) or resid_f (f32) (M, N) and ln_g / ln_b (N,)
-// for EPI_RES_LN (N <= 256). Outputs, each optional: out_t (M, N) in dtype,
+// for EPI_RES_LN (N <= 512; past 256 out_f is required). Outputs, each
+// optional: out_t (M, N) in dtype,
 // out_f (M, N) f32, out_q (M, N) int8 + out_s (M,) f32 (the codes of the
 // LayerNorm output, EPI_RES_LN; the shifted result, EPI_SHIFT).
 extern "C" int vs_int8_gemm(const int8_t* x, const float* sx,
@@ -386,8 +396,14 @@ extern "C" int vs_int8_gemm(const int8_t* x, const float* sx,
                             void* stream) {
   if (M <= 0 || N <= 0 || K <= 0 || K % 32 != 0)
     return (int)cudaErrorInvalidValue;
-  if (epilogue == EPI_RES_LN &&
-      ((resid_t == nullptr && resid_f == nullptr) || N > 256))
+  if (epilogue < EPI_DEQ || epilogue > EPI_SHIFT)
+    return (int)cudaErrorInvalidValue;
+  if (epilogue == EPI_RES_LN && resid_t == nullptr && resid_f == nullptr)
+    return (int)cudaErrorInvalidValue;
+  // a LayerNorm row wider than the 256-column CTA tile goes through out_f
+  // (required) and a row kernel
+  const bool wide = epilogue == EPI_RES_LN && N > 256;
+  if (wide && (N > 32 * vs::kLnMaxPerLane || out_f == nullptr))
     return (int)cudaErrorInvalidValue;
   if (epilogue == EPI_SHIFT && out_q == nullptr)
     return (int)cudaErrorInvalidValue;
@@ -397,18 +413,29 @@ extern "C" int vs_int8_gemm(const int8_t* x, const float* sx,
   if ((out_q == nullptr) != (out_s == nullptr) && epilogue != EPI_SHIFT)
     return (int)cudaErrorInvalidValue;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int epi = wide ? EPI_RES : epilogue;
+  void* gemm_t = wide ? nullptr : out_t;
+  int8_t* gemm_q = wide ? nullptr : out_q;
+  float* gemm_s = wide ? nullptr : out_s;
   cudaError_t err;
   if (dtype == vs::kF32)
     err = launch_gemm<float>(x, sx, w, sw, bias, resid_t, resid_f, ln_g,
-                             ln_b, out_t, out_f, out_q, out_s, M, N, K,
-                             epilogue, eps, s);
+                             ln_b, gemm_t, out_f, gemm_q, gemm_s, M, N, K,
+                             epi, eps, s);
   else if (dtype == vs::kBF16)
     err = launch_gemm<__nv_bfloat16>(x, sx, w, sw, bias, resid_t, resid_f,
-                                     ln_g, ln_b, out_t, out_f, out_q, out_s,
-                                     M, N, K, epilogue, eps, s);
+                                     ln_g, ln_b, gemm_t, out_f, gemm_q,
+                                     gemm_s, M, N, K, epi, eps, s);
   else
-    err = cudaErrorInvalidValue;
-  return (int)err;
+    return (int)cudaErrorInvalidValue;
+  if (err != cudaSuccess || !wide) return (int)err;
+  return (int)(dtype == vs::kF32
+                   ? vs::launch_layernorm_rows<float>(out_f, ln_g, ln_b, out_t,
+                                                      out_q, out_s, M, N, eps,
+                                                      s)
+                   : vs::launch_layernorm_rows<__nv_bfloat16>(
+                         out_f, ln_g, ln_b, out_t, out_q, out_s, M, N, eps,
+                         s));
 }
 
 // x (M, K) in dtype -> q (M, K) int8 codes and s (M,) f32 scales.

@@ -614,14 +614,20 @@ cudaError_t launch(const Args& a, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
-// head_dim 64 is the flagship's, 16 that of the d 64 test configurations
+// head_dim 64 is the flagship's, 16 that of the d 64 test configurations,
+// 128 that of d 512 with 4 heads (ops/_cuda.HEAD_DIMS); at 128 the FMA kernel
+// takes 116 KB of shared memory and the mma kernel 52 KB
 template <typename T, bool QK8>
 cudaError_t launch_dh(const Args& a, int Dh, cudaStream_t stream) {
   switch (Dh) {
     case 16:
       return launch<T, 16, QK8>(a, stream);
+    case 32:
+      return launch<T, 32, QK8>(a, stream);
     case 64:
       return launch<T, 64, QK8>(a, stream);
+    case 128:
+      return launch<T, 128, QK8>(a, stream);
     default:
       return cudaErrorInvalidValue;
   }
@@ -636,8 +642,12 @@ cudaError_t launch_mma_dh(const Args& a, int Dh, cudaStream_t stream) {
   switch (Dh) {
     case 16:
       return launch_mma<16, NORM_FIRST, OutT, QK8>(a, stream);
+    case 32:
+      return launch_mma<32, NORM_FIRST, OutT, QK8>(a, stream);
     case 64:
       return launch_mma<64, NORM_FIRST, OutT, QK8>(a, stream);
+    case 128:
+      return launch_mma<128, NORM_FIRST, OutT, QK8>(a, stream);
     default:
       return cudaErrorInvalidValue;
   }

@@ -420,8 +420,11 @@ __global__ void __launch_bounds__(kThreads) ring_dkdv_kernel(const RingArgs a) {
 // ------------------------------------------------------------------ launches
 bool shape_ok(int B, int H, int Nq, int Nk, int Dh) {
   return B > 0 && H > 0 && Nq > 0 && Nk > 0 && Nq % kT == 0 &&
-         Nk % kT == 0 && B <= 65535 && H <= 65535 && (Dh == 16 || Dh == 64);
+         Nk % kT == 0 && B <= 65535 && H <= 65535 &&
+         vs::attn::head_dim_ok(Dh);
 }
+
+
 
 template <typename KV, int DH, bool DROP>
 cudaError_t launch_fwd(const RingArgs& a, int B, cudaStream_t s) {
@@ -447,6 +450,28 @@ cudaError_t launch_bwd(const RingArgs& a, int B, cudaStream_t s) {
   if (err != cudaSuccess) return err;
   ring_dkdv_kernel<DH><<<dim3(a.Nk / kT, a.H, B), kThreads, kv_bytes, s>>>(a);
   return cudaGetLastError();
+}
+
+// Dispatch on head_dim (16, 32, 64 or 128)
+template <typename KV, bool DROP>
+cudaError_t launch_fwd_dh(const RingArgs& a, int B, int Dh, cudaStream_t s) {
+  switch (Dh) {
+    case 16: return launch_fwd<KV, 16, DROP>(a, B, s);
+    case 32: return launch_fwd<KV, 32, DROP>(a, B, s);
+    case 64: return launch_fwd<KV, 64, DROP>(a, B, s);
+    case 128: return launch_fwd<KV, 128, DROP>(a, B, s);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+cudaError_t launch_bwd_dh(const RingArgs& a, int B, int Dh, cudaStream_t s) {
+  switch (Dh) {
+    case 16: return launch_bwd<16>(a, B, s);
+    case 32: return launch_bwd<32>(a, B, s);
+    case 64: return launch_bwd<64>(a, B, s);
+    case 128: return launch_bwd<128>(a, B, s);
+    default: return cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
@@ -487,14 +512,11 @@ extern "C" int vs_ring_fwd(const float* q, const void* k, const void* v,
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   if (dropout)
-    err = Dh == 16 ? launch_fwd<float, 16, true>(a, B, s)
-                   : launch_fwd<float, 64, true>(a, B, s);
+    err = launch_fwd_dh<float, true>(a, B, Dh, s);
   else if (kv_dtype == vs::kF32)
-    err = Dh == 16 ? launch_fwd<float, 16, false>(a, B, s)
-                   : launch_fwd<float, 64, false>(a, B, s);
+    err = launch_fwd_dh<float, false>(a, B, Dh, s);
   else
-    err = Dh == 16 ? launch_fwd<__nv_bfloat16, 16, false>(a, B, s)
-                   : launch_fwd<__nv_bfloat16, 64, false>(a, B, s);
+    err = launch_fwd_dh<__nv_bfloat16, false>(a, B, Dh, s);
   return (int)err;
 }
 
@@ -534,5 +556,5 @@ extern "C" int vs_ring_bwd(const float* q, const float* k, const float* v,
   a.q0 = q0;
   a.k0 = k0;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return (int)(Dh == 16 ? launch_bwd<16>(a, B, s) : launch_bwd<64>(a, B, s));
+  return (int)launch_bwd_dh(a, B, Dh, s);
 }

@@ -27,9 +27,15 @@ CSRC_DIR = os.path.join(PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(PKG_DIR, "_build")
 KERNELS = ("gemm_bias_epilogue", "masked_attention", "block_train",
            "attention_train", "int8_gemm", "ring_attention")
-HEADERS = ("common.cuh", "attention_core.cuh")
+HEADERS = ("common.cuh", "attention_core.cuh", "attention_train_mma.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
+
+# The shapes every kernel family takes: head_dim (the attention kernels are
+# instantiated for these) and d_model (d % 32 == 0; the row kernels hold a
+# row of up to 512 in a warp). Every wrapper's guard reads these.
+HEAD_DIMS = (16, 32, 64, 128)
+MAX_D_MODEL = 512
 
 _vp, _int, _uint, _ll, _f32 = (ctypes.c_void_p, ctypes.c_int, ctypes.c_uint,
                                ctypes.c_longlong, ctypes.c_float)
@@ -159,6 +165,35 @@ def check(lib: ctypes.CDLL, err: int, what: str) -> None:
 def ptr(t) -> Optional[int]:
     """Device pointer of a tensor for a ``c_void_p`` argument (None -> NULL)."""
     return None if t is None else t.data_ptr()
+
+
+def check_head_dim(Dh: int, what: str) -> None:
+    if Dh not in HEAD_DIMS:
+        raise ValueError(f"{what} take head_dim in {HEAD_DIMS}, got {Dh}")
+
+
+def check_d_model(d: int, what: str) -> None:
+    if d % 32 or not 0 < d <= MAX_D_MODEL:
+        raise ValueError(f"{what} take d_model a multiple of 32 up to "
+                         f"{MAX_D_MODEL}, got {d}")
+
+
+# The GEMMs' residual+LayerNorm epilogue holds a row of up to LN_TILE
+# columns in one CTA tile; wider rows, up to MAX_D_MODEL, go through an f32
+# buffer and a row kernel.
+LN_TILE = 256
+
+
+def check_ln_rows(N: int) -> None:
+    if N > MAX_D_MODEL:
+        raise ValueError(f"the residual+LayerNorm epilogue takes rows of "
+                         f"N <= {MAX_D_MODEL}, got N={N}")
+
+
+def aligned16(t):
+    """``t`` (contiguous) itself, or a copy where its data does not start on
+    a 16-byte boundary: kernels that stage 16-byte chunks take it so."""
+    return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
 def stream_of(t) -> int:

@@ -99,18 +99,18 @@ def masked_attention(q, k, v, pad_mask, scale: float,
     """Launch ``csrc/masked_attention.cu`` on CUDA tensors.
 
     ``q``/``k``/``v`` are (B, H, N, Dh) views with equal strides and a
-    contiguous last dim (they may be slices of one fused QKV buffer), Dh 16
-    or 64; ``pad_mask`` is (B, N) bool, True at padded keys; ``out``, if
-    given, is a (B, H, N, Dh) view to write into, in v's dtype or, for bf16
-    inputs with ``norm_first``, in f32 (the int8 block's attn). ``norm_first``
-    rounds the normalised probabilities to the input dtype, as the
-    single-pass and block TPU kernels do; without it the unnormalised ones of
-    an online softmax over the kernel's 64-key tiles are rounded, as the
-    folded TPU kernel does. ``qk_scales=(qs, ks)``, (B, H, N) f32 views, make
-    ``q`` and ``k`` int8 codes with those per-row scales (the int8 block's
-    ``qk_int8``). On CPU tensors this is :func:`attention_reference`,
-    :func:`attention_folded_reference` over 64-key blocks or
-    :func:`attention_q8_reference`."""
+    contiguous last dim (they may be slices of one fused QKV buffer), Dh in
+    ``_cuda.HEAD_DIMS``; ``pad_mask`` is (B, N) bool, True at padded keys;
+    ``out``, if given, is a (B, H, N, Dh) view to write into, in v's dtype
+    or, for bf16 inputs with ``norm_first``, in f32 (the int8 block's attn).
+    ``norm_first`` rounds the normalised probabilities to the input dtype,
+    as the single-pass and block TPU kernels do; without it the
+    unnormalised ones of an online softmax over the kernel's 64-key tiles
+    are rounded, as the folded TPU kernel does. ``qk_scales=(qs, ks)``,
+    (B, H, N) f32 views, make ``q`` and ``k`` int8 codes with those per-row
+    scales (the int8 block's ``qk_int8``). On CPU tensors this is
+    :func:`attention_reference`, :func:`attention_folded_reference` over
+    64-key blocks or :func:`attention_q8_reference`."""
     if v.device.type == "cpu":
         if qk_scales is not None:
             ref = attention_q8_reference(
@@ -145,9 +145,7 @@ def masked_attention(q, k, v, pad_mask, scale: float,
                 or qsc.dtype != torch.float32 or ksc.dtype != torch.float32):
             raise ValueError("qk_scales must be two (B, H, N) float32 views "
                              "with equal strides")
-    if Dh not in (16, 64):
-        raise ValueError(f"masked_attention takes head_dim 16 or 64 (those "
-                         f"of the repo's configurations), got {Dh}")
+    _cuda.check_head_dim(Dh, "masked_attention's kernels")
     if pad_mask is None:
         pad_mask = torch.zeros((B, N), dtype=torch.bool, device=v.device)
     mask = pad_mask.to(device=v.device, dtype=torch.bool).contiguous()

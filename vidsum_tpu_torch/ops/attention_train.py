@@ -24,10 +24,18 @@ both dtypes (the cotangent is rounded to q's dtype and widened), and ds is
 rounded to q's dtype before dq = ds . k and dk = ds^T . q.
 
 Here the four entry points map onto ``csrc/attention_train.cu``, which
-launches the attention family of ``csrc/attention_core.cuh`` (the training
-block's chain runs it too): one forward kernel with a normalise-first (two
-passes) and an online mode, and one backward pair, dQ per query tile and
-dK/dV per key tile, with a D mode.
+launches one of two kernel families, by route and dtype:
+
+- bf16 on the single-pass route (``_fwd_kernel``, ``_bwd_kernel``):
+  ``csrc/attention_train_mma.cuh``, every product on the tensor cores
+  (``mma.sync``, f32 accumulate; dv's f32 pd as three bf16 terms),
+  double-buffered ``cp.async`` tiles, wholly padded key tiles skipped;
+- f32, and the folded route in both dtypes: the FMA family of
+  ``csrc/attention_core.cuh`` (the training block's chain runs it too).
+
+Each has one forward kernel (normalise-first: two passes; the FMA family
+also an online mode) and one backward pair, dQ per query tile and dK/dV per
+key tile, with a D mode.
 Blocks stream 64-key tiles through shared memory, so the TPU's ``kb`` is a
 VMEM tactic: the plain folded versions fold over it, the kernel over its own
 tiles (in f32 the two differ by summation order; in bf16 by where the
@@ -269,10 +277,7 @@ def _cuda_inputs(q, k, v, pad_mask, seed: int):
         raise ValueError("q, k and v must have one shape")
     if not q.dtype == k.dtype == v.dtype:
         raise ValueError("q, k and v must have one dtype")
-    if Dh not in (16, 64):
-        raise ValueError(f"the training attention kernels take head_dim 16 "
-                         f"or 64 (those of the repo's configurations), got "
-                         f"{Dh}")
+    _cuda.check_head_dim(Dh, "the training attention kernels")
     if N % KEY_TILE:
         raise ValueError(f"N={N} must be a multiple of {KEY_TILE}")
     if not 0 <= int(seed) < 2**31:
@@ -281,7 +286,7 @@ def _cuda_inputs(q, k, v, pad_mask, seed: int):
     if mask8.shape != (B, N):
         raise ValueError(f"pad_mask must be {(B, N)}, got "
                          f"{tuple(mask8.shape)}")
-    return (q.contiguous(), k.contiguous(), v.contiguous(), mask8,
+    return (*(_cuda.aligned16(t.contiguous()) for t in (q, k, v, mask8)),
             _cuda.dtype_code(q))
 
 
@@ -307,8 +312,8 @@ def _launch_bwd(q, k, v, pad_mask, seed: int, lse, do, o, rate: float,
     None: the single-pass one (D = rowsum(dp * p))."""
     q, k, v, mask8, code = _cuda_inputs(q, k, v, pad_mask, seed)
     B, H, N, Dh = q.shape
-    do = do.to(q.dtype).contiguous()
-    lse = lse.float().contiguous()
+    do = _cuda.aligned16(do.to(q.dtype).contiguous())
+    lse = _cuda.aligned16(lse.float().contiguous())
     if o is not None:
         o = o.to(q.dtype).contiguous()
     if do.shape != q.shape or lse.shape != (B, H, N) or (

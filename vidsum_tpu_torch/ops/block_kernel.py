@@ -168,9 +168,10 @@ def gemm_bias_epilogue(x, w, bias, epilogue: str = "none", residual=None,
 
     x (M, K) and w (N, K) in one dtype, bias (N,) f32; ``residual`` (M, N)
     in x's dtype or f32, with ``ln_g``/``ln_b`` (N,) f32, for
-    ``"residual_ln"`` (N <= 256). Returns ``(y in x's dtype or None,
-    y in f32 or None)`` as ``want_t`` / ``want_f32`` ask. On CPU tensors
-    this is :func:`gemm_bias_epilogue_reference`."""
+    ``"residual_ln"`` (N <= 512; past 256 the kernel normalises an f32
+    buffer in a second launch). Returns ``(y in x's dtype or None, y in f32
+    or None)`` as ``want_t`` / ``want_f32`` ask. On CPU tensors this is
+    :func:`gemm_bias_epilogue_reference`."""
     if x.device.type == "cpu":
         return gemm_bias_epilogue_reference(x, w, bias, epilogue, residual,
                                             ln_g, ln_b, want_t, want_f32)
@@ -186,9 +187,7 @@ def gemm_bias_epilogue(x, w, bias, epilogue: str = "none", residual=None,
         raise ValueError(f"unknown epilogue {epilogue!r}")
     res_t = res_f = None
     if epilogue == "residual_ln":
-        if N > 256:
-            raise ValueError("the residual+LayerNorm epilogue takes N <= 256 "
-                             "(d_model of the repo's configurations)")
+        _cuda.check_ln_rows(N)
         if residual.shape != (M, N) or not residual.is_contiguous():
             raise ValueError("residual must be a contiguous (M, N) tensor")
         if residual.dtype == torch.float32:
@@ -200,15 +199,14 @@ def gemm_bias_epilogue(x, w, bias, epilogue: str = "none", residual=None,
         for t in (ln_g, ln_b):
             if t.shape != (N,) or t.dtype != torch.float32:
                 raise ValueError("ln_g and ln_b must be (N,) float32")
-    if x.dtype == torch.float32 and want_t and want_f32:
-        want_t = False   # the same tensor twice; returned in both slots
-        both = True
-    else:
-        both = False
+    # a wide LayerNorm row needs the f32 buffer, asked for or not
+    need_f = want_f32 or (epilogue == "residual_ln" and N > _cuda.LN_TILE)
+    # in f32 the two outputs are one tensor, returned in both slots
+    both = x.dtype == torch.float32 and want_t and need_f
     out_t = torch.empty((M, N), dtype=x.dtype, device=x.device) \
-        if want_t else None
+        if want_t and not both else None
     out_f = torch.empty((M, N), dtype=torch.float32, device=x.device) \
-        if want_f32 else None
+        if need_f else None
     lib = _cuda.load("gemm_bias_epilogue")
     err = lib.vs_gemm_bias_epilogue(
         _cuda.ptr(x), _cuda.ptr(w), _cuda.ptr(bias), _cuda.ptr(res_t),
@@ -217,7 +215,7 @@ def gemm_bias_epilogue(x, w, bias, epilogue: str = "none", residual=None,
         LN_EPS, _cuda.stream_of(x))
     _cuda.check(lib, err, "gemm_bias_epilogue")
     gemm_bias_epilogue.launches += 1
-    return (out_f if both else out_t), out_f
+    return (out_f if both else out_t), (out_f if want_f32 else None)
 
 
 gemm_bias_epilogue.launches = 0

@@ -333,12 +333,10 @@ def _check_cuda_inputs(x, w: TrainWeights, num_heads: int) -> None:
     B, N, d = x.shape
     if N % TILE:
         raise ValueError(f"N={N} must be a multiple of {TILE}")
-    if d % 32 or d > 256 or d // num_heads not in (16, 64) \
-            or d % num_heads:
-        raise ValueError(f"the training kernels take d_model a multiple of "
-                         f"32 up to 256 and head_dim 16 or 64 (those of the "
-                         f"repo's configurations), got d={d}, "
-                         f"H={num_heads}")
+    if d % num_heads:
+        raise ValueError(f"d_model {d} does not split over {num_heads} heads")
+    _cuda.check_d_model(d, "the training kernels")
+    _cuda.check_head_dim(d // num_heads, "the training kernels")
     for t in w:
         if t.dtype != torch.float32 or not t.is_contiguous() \
                 or t.device != x.device:

@@ -133,7 +133,7 @@ def int8_gemm(xq, sx, wq, sw, bias, epilogue: str = "none", residual=None,
     xq (M, K) and wq (N, K) int8, K % 32 == 0; sx (M,) or (M, 1) and sw (N,)
     f32 scales; bias (N,) f32. ``epilogue``: ``"none"``, ``"relu"``,
     ``"residual_ln"`` (``residual`` (M, N) in f32 or ``out_dtype``, with
-    ``ln_g``/``ln_b`` (N,) f32; N <= 256) or ``"shift"`` (returns the int8
+    ``ln_g``/``ln_b`` (N,) f32; N <= 512) or ``"shift"`` (returns the int8
     ``(acc >> 8)``, the probe's epilogue; the scales and bias are not read).
     Returns ``(y in out_dtype or None, y f32 or None, codes or None,
     scales (M,) or None)``: ``want_q`` asks for the int8 codes of the
@@ -174,9 +174,7 @@ def int8_gemm(xq, sx, wq, sw, bias, epilogue: str = "none", residual=None,
                           else torch.float32)
     res_t = res_f = None
     if epilogue == "residual_ln":
-        if N > 256:
-            raise ValueError("the residual+LayerNorm epilogue takes N <= 256 "
-                             "(d_model of the repo's configurations)")
+        _cuda.check_ln_rows(N)
         if residual.shape != (M, N) or not residual.is_contiguous():
             raise ValueError("residual must be a contiguous (M, N) tensor")
         if residual.dtype == torch.float32:
@@ -191,11 +189,13 @@ def int8_gemm(xq, sx, wq, sw, bias, epilogue: str = "none", residual=None,
                 raise ValueError("ln_g and ln_b must be (N,) float32")
     elif want_q:
         raise ValueError("want_q needs the residual_ln epilogue")
-    both = out_dtype == torch.float32 and want_f32
+    # a wide LayerNorm row needs the f32 buffer, asked for or not
+    need_f = want_f32 or (epilogue == "residual_ln" and N > _cuda.LN_TILE)
+    both = out_dtype == torch.float32 and need_f
     out_t = (torch.empty((M, N), dtype=dtype, device=dev)
              if out_dtype is not None and not both else None)
     out_f = (torch.empty((M, N), dtype=torch.float32, device=dev)
-             if want_f32 else None)
+             if need_f else None)
     out_q = torch.empty((M, N), dtype=torch.int8, device=dev) \
         if want_q else None
     out_s = torch.empty((M,), dtype=torch.float32, device=dev) \
@@ -210,7 +210,8 @@ def int8_gemm(xq, sx, wq, sw, bias, epilogue: str = "none", residual=None,
         _cuda.stream_of(xq))
     _cuda.check(lib, err, "int8_gemm")
     int8_gemm.launches += 1
-    return (out_f if both else out_t), out_f, out_q, out_s
+    return ((out_f if both else out_t), (out_f if want_f32 else None),
+            out_q, out_s)
 
 
 int8_gemm.launches = 0

@@ -29,14 +29,15 @@ CUDA tensors (no fallback), and counts its launches in ``launches``.
 ``block_impl``: ``"plain"`` (JAX ``"xla"``) takes the plain steps, with
 autograd in training. On CUDA tensors ``"auto"`` and ``"kernel"`` take the
 kernels at every length: they stream K/V in 64-key tiles, so their only
-constraints are Nl a multiple of 64 and head_dim 16 or 64, outside which the
-wrappers raise. On CPU tensors ``"kernel"`` (JAX ``"pallas"``) takes the
-wrappers' plain versions inside the TPU kernels' VMEM envelope (copied, so
-that a shape takes the same route as in the JAX package, which the parity
-tests hold) and ``"auto"`` the plain steps, as JAX's ``auto`` takes the XLA
-step off the TPU. The JAX XLA step guards with ``isneginf`` where the
-kernels test ``< _DEAD``: the same arithmetic for every score that is not
--inf, so one plain step serves both.
+constraints are Nl a multiple of 64 (the sequence-parallel forward and step
+pad the global length to make it one) and head_dim in ``_cuda.HEAD_DIMS``,
+outside which the wrappers raise. On CPU tensors ``"kernel"`` (JAX
+``"pallas"``) takes the wrappers' plain versions inside the TPU kernels'
+VMEM envelope (copied, so that a shape takes the same route as in the JAX
+package, which the parity tests hold) and ``"auto"`` the plain steps, as
+JAX's ``auto`` takes the XLA step off the TPU. The JAX XLA step guards
+with ``isneginf`` where the kernels test ``< _DEAD``: the same arithmetic
+for every score that is not -inf, so one plain step serves both.
 
 The dropout bits are ``ops/block_train._hash_keep``'s family (site = head)
 at global coordinates (b0 + b, h, q0 + row, k0 + col): a pure function of
@@ -178,9 +179,7 @@ def _cuda_inputs(q32, kb, vb, mb, kv_dtypes):
     if kb.dtype != vb.dtype or kb.dtype not in kv_dtypes:
         raise ValueError(f"k and v must share one of {kv_dtypes}, got "
                          f"{kb.dtype}, {vb.dtype}")
-    if Dh not in (16, 64):
-        raise ValueError(f"the ring kernels take head_dim 16 or 64 (those "
-                         f"of the repo's configurations), got {Dh}")
+    _cuda.check_head_dim(Dh, "the ring kernels")
     if Nq % KEY_TILE or Nk % KEY_TILE:
         raise ValueError(f"Nq={Nq} and Nk={Nk} must be multiples of "
                          f"{KEY_TILE}")

@@ -30,7 +30,7 @@ from vidsum_tpu_torch.ops.block_train import (
 from vidsum_tpu_torch.ops.losses import mse_with_mask_loss, reference_pad_len
 from vidsum_tpu_torch.parallel.mesh import DeviceMesh, on, place
 from vidsum_tpu_torch.parallel.ring_attention import (
-    hash_keep3d, ring_attention, ring_attention_train,
+    KEY_TILE, hash_keep3d, ring_attention, ring_attention_train,
 )
 
 __all__ = ["hash_keep3d", "make_seq_sharded_finetune_step",
@@ -53,6 +53,25 @@ def _replicas(model, devices: Sequence[torch.device], detach: bool) -> dict:
                                              detach=detach)
         models.update(zip(others, copies[1:]))
     return models
+
+
+def _pad_shards(P: int, pad_mask, *tensors):
+    """``(pad_mask, *tensors)`` with the global length padded at its end to a
+    multiple of ``KEY_TILE * P`` where a shard of N / P frames is not a
+    multiple of the ring kernels' 64-key tile (and unchanged where it is).
+    Padded frames are masked keys with zero inputs; real frames keep their
+    global positions and dropout coordinates (both follow ``s * Nl``), so
+    outputs on them are unchanged up to f32 summation order."""
+    B, N = pad_mask.shape
+    if (N // P) % KEY_TILE == 0:
+        return (pad_mask, *tensors)
+    extra = -(-N // (KEY_TILE * P)) * KEY_TILE * P - N
+
+    def grow(t, fill):
+        tail = t.new_full((B, extra, *t.shape[2:]), fill)
+        return torch.cat([t, tail], dim=1)
+
+    return (grow(pad_mask, True), *(grow(t, 0) for t in tensors))
 
 
 def _lockstep(mesh: DeviceMesh, gens: list, attend) -> list:
@@ -114,10 +133,15 @@ def make_seq_sharded_forward(cfg: ModelConfig, mesh: DeviceMesh,
         with torch.inference_mode():
             x = torch.as_tensor(x)
             pad_mask = torch.as_tensor(pad_mask, dtype=torch.bool)
+            N = pad_mask.shape[1]
+            if N % P:
+                raise ValueError(f"length {N} must split over {P} shards")
+            pad_mask, x = _pad_shards(P, pad_mask, x)
             out = sharded(model, place(mesh, x), place(mesh, pad_mask))
             home = mesh.grid[0][0]
             return tuple(torch.cat([torch.cat([o[j].to(home) for o in row],
-                                              dim=1) for row in out], dim=0)
+                                              dim=1) for row in out],
+                                   dim=0)[:, :N]
                          for j in range(2))
 
     fwd.sharded = sharded
@@ -147,6 +171,10 @@ def make_seq_sharded_finetune_step(cfg: ModelConfig, mesh: DeviceMesh,
       (``L`` the longest video of the batch), summed over the shards: the
       global batch-mean loss; autograd over the shards sums every gradient
       into the model's parameters.
+    - Where N / P is not a multiple of the ring kernels' 64-key tile, the
+      global length is padded at its end to a multiple of 64 P
+      (:func:`_pad_shards`): the padded frames are masked, so the loss and
+      every gradient are those of the unpadded batch.
     """
     if cfg.use_cls:
         raise ValueError("sequence-parallel training does not support CLS "
@@ -179,9 +207,11 @@ def make_seq_sharded_finetune_step(cfg: ModelConfig, mesh: DeviceMesh,
         if B % D or N % P:
             raise ValueError(f"batch {B} and length {N} must split over the "
                              f"({D}, {P}) mesh")
-        Bl, Nl = B // D, N // P
         home = mesh.grid[0][0]
         denom = B * reference_pad_len(pad_mask).to(home)
+        pad_mask, x, target = _pad_shards(P, pad_mask, x, target)
+        N = pad_mask.shape[1]
+        Bl, Nl = B // D, N // P
         optimizer.zero_grad(set_to_none=True)
         models = _replicas(model, mesh.devices, detach=False)
         xs, ts, ms = (place(mesh, t) for t in (x, target, pad_mask))
