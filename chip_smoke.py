@@ -67,14 +67,15 @@ caught and passed over):
    elementwise and a relative RMS bound; the kernels at seed + 1 must fail
    them, two backward runs must give identical bits, and in bf16 each
    forward route must lie at least twice as close to its own plain version
-   as to the other route's (which shows that the tensor-core forward of the
-   bf16 single pass still rounds normalised P). Prints the median
+   as to the other route's (which shows that the tensor-core forwards still
+   round where their TPU kernels round: normalised P in the single pass,
+   the unnormalised e per 64-key tile in the fold). Prints the median
    CUDA-event ms of each route, its plain version and
    ``F.scaled_dot_product_attention(dropout_p=0.3)`` (forward, and forward +
    backward; timed only), and the bound (products at the input type's
-   peak; in the FMA family the backward's dp and dV at the f32 peak, in the
-   bf16 single pass's tensor-core kernels dp at the bf16 peak and dV as
-   three bf16 products, with the FMA family's bound beside it).
+   peak; in the f32 FMA family the backward's dp and dV at the f32 peak, in
+   the bf16 tensor-core kernels of both routes dp at the bf16 peak and dV
+   as three bf16 products, with the FMA family's bound beside it).
    ring kernels: TPU kernels 15-17 (``parallel/ring_attention.py``,
    ``csrc/ring_attention.cu``) against their plain steps: kernel 15 at
    (B, H, Nl, Dh) = (1, 4, 4,096, 64) (a 16,384-frame request over 4
@@ -146,11 +147,17 @@ caught and passed over):
    (a); (c) with the counters zeroed before each, 5 recipe epochs on the
    auto route over 8 videos of 7,950-9,000 frames (10 steps at batch 4),
    once in f32 (demoted to the folded route) and once in bf16 (the
-   single-pass route). Checks: finite losses, each step launched its
-   route's kernels once per layer, all four training attention counters
-   moved and the block training counters did not (the demotion). Prints
-   the step ms (median, quartiles, range) and a ``torch.profiler``
-   breakdown of one long step per dtype.
+   single-pass route), then 5 in bf16 over 8 videos of 11,000-14,000
+   frames (buckets 11,008-14,080, past the single pass's 10,880: the
+   folded route's tensor-core kernels). Checks: finite losses, each step
+   launched its route's kernels once per layer and the other training
+   attention route and the block training kernels not at all (the
+   demotion), all four training attention counters moved; after the bf16
+   folded run its two kernels are held against the plain fold at the
+   largest bucket it gave them (batch 4, the 4 longest videos' valid
+   lengths) as in phase 5 (bounds, seed + 1 fault, identical backward
+   bits). Prints the step ms (median, quartiles, range), wall time, peak
+   memory and a ``torch.profiler`` breakdown of one step per run.
    seq train: ``make_seq_sharded_finetune_step`` on a (1, 4) mesh of
    cuda:0: one step on one 8,100-frame video (f32, dropout 0.3, the
    flagship cut to 2 layers for the CPU's sake) against the CPU's plain
@@ -161,8 +168,9 @@ caught and passed over):
    Nl <= 2,304): kernels 16 and 17 launch 16 times per layer per step, the
    flash and block training kernels never; finite losses; step ms, peak
    memory and a ``torch.profiler`` breakdown of one step.
-9. the ``kernels`` line (19 routes, the training attention ones named
-   ``attention_train.<route>``, the int8 ones ``block_int8``,
+9. the ``kernels`` line (21 routes, the training attention ones named
+   ``attention_train.<route>``, the folded ones also in bf16 as
+   ``attention_train.<route>.bf16``, the int8 ones ``block_int8``,
    ``block_int8_grouped``, ``probe_mm_bf16`` and ``probe_mm_int8``, the
    ring ones ``ring_block``, ``ring_train_fwd``, ``ring_train_bwd``), the
    card's name and power limit, and last ``{"ok": true, "device": {...}}``.
@@ -995,13 +1003,95 @@ def attn_train_name(route: str) -> str:
     return f"attention_train.{route}"
 
 
+def hold_attn_train(folded: bool, q, k, v, do, mask, dseed: int,
+                    rate: float, scale: float, kb: int) -> dict:
+    """Hold one training attention route's kernels (the fold if ``folded``,
+    else the single pass) against their plain versions on the card: o, lse
+    and the grads within the ``attn_train_*`` bounds of q's dtype, the
+    kernels at dseed + 1 (a planted fault) outside them, and two backward
+    runs equal bit for bit. Returns the errors, the fault's relative RMS
+    (o, dq), the kernel's and the plain version's outputs, and the four
+    calls at a given seed (kernel and plain, forward and backward)."""
+    import torch
+
+    from vidsum_tpu_torch.ops import attention_train as at
+
+    N, dn = q.shape[2], str(q.dtype).split(".")[1]
+    fwd = at._fwd_kernel_folded if folded else at._fwd_kernel
+    bwd = at._bwd_kernel_folded if folded else at._bwd_kernel
+    if folded:
+        # all rows over the kernel's 64-key tiles: in bf16 the unnormalised
+        # e is rounded per tile
+        def run_f(s):
+            return fwd(q, k, v, mask, s, rate, scale, kb)
+
+        def run_b(s, lse, o):
+            return bwd(q, k, v, mask, s, lse, do, o, rate, scale, kb)
+
+        def pf(s):
+            return at.attention_train_fwd_folded_reference(
+                q, k, v, mask, s, rate, scale, at.KEY_TILE, rows=N)
+
+        def pb(s, lse, o):
+            return at.attention_train_bwd_folded_reference(
+                q, k, v, mask, s, lse, do, o, rate, scale, at.KEY_TILE,
+                rows=N)
+    else:
+        # 1,024 query rows at a time
+        def run_f(s):
+            return fwd(q, k, v, mask, s, rate, scale)
+
+        def run_b(s, lse, o):
+            return bwd(q, k, v, mask, s, lse, do, rate, scale)
+
+        def pf(s):
+            return at.attention_train_fwd_reference(
+                q, k, v, mask, s, rate, scale, rows=1024)
+
+        def pb(s, lse, o):
+            return at.attention_train_bwd_reference(
+                q, k, v, mask, s, lse, do, rate, scale, rows=1024)
+
+    f0, b0 = fwd.launches, bwd.launches
+    o, lse = run_f(dseed)
+    want_o, want_lse = pf(dseed)
+    # both backward versions take the plain forward's lse and o
+    grads = run_b(dseed, want_lse, want_o)
+    torch.cuda.synchronize()
+    if (fwd.launches, bwd.launches) != (f0 + 1, b0 + 1):
+        raise AssertionError(f"{fwd.__name__} did not launch")
+    want = pb(dseed, want_lse, want_o)
+    otol = TOL[("attn_train_o", dn)]
+    ltol = TOL[("attn_train_lse", dn)]
+    gtol = TOL[("attn_train_grad", dn)]
+    o_err = check_close(o, want_o, otol, " (o)")
+    lse_err = check_close(lse, want_lse, ltol, " (lse)")
+    grad_err = {n: check_close(a, b, scaled(gtol, b), f" (d{n})")
+                for n, a, b in zip("qkv", grads, want)}
+    # a planted fault: the kernels at seed + 1 fail the bounds
+    bad_o, _ = run_f(dseed + 1)
+    bad = run_b(dseed + 1, want_lse, want_o)
+    if within(bad_o, want_o, otol) or any(
+            within(a, b, scaled(gtol, b)) for a, b in zip(bad, want)):
+        raise AssertionError(f"{fwd.__name__} {dn}: the kernels at "
+                             f"seed + 1 pass the bounds")
+    fault = (errors(bad_o, want_o)[1], errors(bad[0], want[0])[1])
+    again = run_b(dseed, want_lse, want_o)
+    if not all(torch.equal(a, b) for a, b in zip(grads, again)):
+        raise AssertionError(f"{bwd.__name__} {dn}: two backward runs "
+                             f"differ")
+    return dict(o=o, want_o=want_o, want_lse=want_lse, o_err=o_err,
+                lse_err=lse_err, grad_err=grad_err, fault=fault,
+                o_tol=otol, grad_tol=gtol, calls=(run_f, run_b, pf, pb))
+
+
 def phase_train_attention(dev: dict, seed: int) -> dict:
     """The four training attention routes (``ops/attention_train.py``, TPU
     kernels 5-8) against their plain versions at (B, H, N, Dh) =
     (2, 4, 8192, 64), valid lengths (8100, 5000), dropout 0.3, f32 and bf16;
-    returns per route the numbers of the dtype its long-video step runs it
-    in: bf16 for the single-pass routes (the tensor-core kernels), f32 for
-    the folded ones."""
+    returns per route the numbers of each dtype a long-video step runs it
+    in: bf16 for the single-pass routes, f32 and bf16 for the folded ones
+    (the bf16 entries named ``<route>.bf16``)."""
     import numpy as np
     import torch
     import torch.nn.functional as F
@@ -1022,21 +1112,6 @@ def phase_train_attention(dev: dict, seed: int) -> dict:
         mask[b, :n] = False
     keep_sdpa = ~mask[:, None, None, :]
     kb = at._pick_key_block(N)
-    # the plain versions run 1,024 query rows at a time (the single pass)
-    # or all rows over the kernel's 64-key tiles (the fold: in bf16 the
-    # unnormalised e is rounded per tile)
-    plain = {
-        False: (lambda q, k, v, s: at.attention_train_fwd_reference(
-                    q, k, v, mask, s, rate, scale, rows=1024),
-                lambda q, k, v, s, lse, do, o: at.attention_train_bwd_reference(
-                    q, k, v, mask, s, lse, do, rate, scale, rows=1024)),
-        True: (lambda q, k, v, s: at.attention_train_fwd_folded_reference(
-                   q, k, v, mask, s, rate, scale, at.KEY_TILE, rows=N),
-               lambda q, k, v, s, lse, do, o: (
-                   at.attention_train_bwd_folded_reference(
-                       q, k, v, mask, s, lse, do, o, rate, scale,
-                       at.KEY_TILE, rows=N))),
-    }
     sum_valid = sum(valid)
     out = {}
     for dtype in (torch.bfloat16, torch.float32):
@@ -1048,51 +1123,19 @@ def phase_train_attention(dev: dict, seed: int) -> dict:
         for folded in (False, True):
             fwd = at._fwd_kernel_folded if folded else at._fwd_kernel
             bwd = at._bwd_kernel_folded if folded else at._bwd_kernel
-            run_f = ((lambda s: fwd(q, k, v, mask, s, rate, scale, kb))
-                     if folded else
-                     (lambda s: fwd(q, k, v, mask, s, rate, scale)))
-
-            def run_b(s, lse, o, bwd=bwd, folded=folded):
-                if folded:
-                    return bwd(q, k, v, mask, s, lse, do, o, rate, scale, kb)
-                return bwd(q, k, v, mask, s, lse, do, rate, scale)
-
-            pf, pb = plain[folded]
-            f0, b0 = fwd.launches, bwd.launches
-            o, lse = run_f(dseed)
-            want_o, want_lse = pf(q, k, v, dseed)
-            # both backward versions take the plain forward's lse and o
-            grads = run_b(dseed, want_lse, want_o)
-            torch.cuda.synchronize()
-            if (fwd.launches, bwd.launches) != (f0 + 1, b0 + 1):
-                raise AssertionError(f"{fwd.__name__} did not launch")
-            want = pb(q, k, v, dseed, want_lse, do, want_o)
-            otol = TOL[("attn_train_o", dn)]
-            ltol = TOL[("attn_train_lse", dn)]
-            gtol = TOL[("attn_train_grad", dn)]
-            o_err = check_close(o, want_o, otol, " (o)")
-            lse_err = check_close(lse, want_lse, ltol, " (lse)")
-            grad_err = {n: check_close(a, b, scaled(gtol, b), f" (d{n})")
-                        for n, a, b in zip("qkv", grads, want)}
-            own[folded] = (o, want_o)
-            # a planted fault: the kernels at seed + 1 fail the bounds
-            bad_o, _ = run_f(dseed + 1)
-            bad = run_b(dseed + 1, want_lse, want_o)
-            if within(bad_o, want_o, otol) or any(
-                    within(a, b, scaled(gtol, b)) for a, b in zip(bad, want)):
-                raise AssertionError(f"{fwd.__name__} {dn}: the kernels at "
-                                     f"seed + 1 pass the bounds")
-            fault = (errors(bad_o, want_o)[1], errors(bad[0], want[0])[1])
-            again = run_b(dseed, want_lse, want_o)
-            if not all(torch.equal(a, b) for a, b in zip(grads, again)):
-                raise AssertionError(f"{bwd.__name__} {dn}: two backward runs "
-                                     f"differ")
-            del bad, again
+            held = hold_attn_train(folded, q, k, v, do, mask, dseed, rate,
+                                   scale, kb)
+            run_f, run_b, pf, pb = held["calls"]
+            o_err, lse_err, grad_err, fault = (
+                held[e] for e in ("o_err", "lse_err", "grad_err", "fault"))
+            want_o, want_lse = held["want_o"], held["want_lse"]
+            otol, gtol = held["o_tol"], held["grad_tol"]
+            own[folded] = (held["o"], want_o)
             ms_f = cuda_ms(lambda: run_f(dseed), reps=10)
             ms_b = cuda_ms(lambda: run_b(dseed, want_lse, want_o), reps=10)
-            plain_f = cuda_ms(lambda: pf(q, k, v, dseed), reps=3, warmup=1)
-            plain_b = cuda_ms(lambda: pb(q, k, v, dseed, want_lse, do,
-                                         want_o), reps=3, warmup=1)
+            plain_f = cuda_ms(lambda: pf(dseed), reps=3, warmup=1)
+            plain_b = cuda_ms(lambda: pb(dseed, want_lse, want_o), reps=3,
+                              warmup=1)
             # library yardstick: SDPA with its own dropout, timed only
             lib_f = cuda_ms(lambda: F.scaled_dot_product_attention(
                 q, k, v, attn_mask=keep_sdpa, dropout_p=rate, scale=scale),
@@ -1103,14 +1146,14 @@ def phase_train_attention(dev: dict, seed: int) -> dict:
                 scale=scale).backward(do), reps=10)
             del ql, kl, vl
             # bounds: the forward's two products at the input type's peak;
-            # in the FMA family the backward's dp and dV are f32 x f32, dQ
-            # and dK at the input type's peak; the bf16 single pass's
-            # tensor-core kernels take dp, dQ and dK at the bf16 peak and
+            # in the FMA family (f32) the backward's dp and dV are f32 x
+            # f32, dQ and dK at the input type's peak; the bf16 tensor-core
+            # kernels (both routes) take dp, dQ and dK at the bf16 peak and
             # dV's f32 pd as three bf16 products (the recompute not
             # counted). The FMA family's backward bound is printed beside
             # (bound_ms_fma)
             flops = 4 * H * Dh * N * sum_valid
-            mma = dtype == torch.bfloat16 and not folded
+            mma = dtype == torch.bfloat16
             t_f = flops / peaks[dn]
             t_b_fma = flops / peaks["float32"] + flops / peaks[dn]
             t_b = 3 * flops / peaks[dn] if mma else t_b_fma
@@ -1130,7 +1173,7 @@ def phase_train_attention(dev: dict, seed: int) -> dict:
                  lse_err=lse_err, tolerance=otol,
                  seed_plus_one_rel_rms=fault[0], ms=ms_f, plain_ms=plain_f,
                  library_ms=lib_f, bound_ms=bf_ms, bound_by=bf_by,
-                 flops=flops, bytes=bytes_f)
+                 tensor_cores=mma, flops=flops, bytes=bytes_f)
             emit("train_attention_kernel", route=name_b, B=B, H=H, N=N,
                  Dh=Dh, valid=list(valid), dtype=dn,
                  grad_err={n: list(e) for n, e in grad_err.items()},
@@ -1140,10 +1183,12 @@ def phase_train_attention(dev: dict, seed: int) -> dict:
                  bound_ms_fma=max(t_b_fma, bytes_b / peaks["bytes"]) * 1e3,
                  tensor_cores=mma, flops=(3 if mma else 2) * flops,
                  bytes=bytes_b)
-            # the kernels line: the single-pass routes in bf16 (their
-            # tensor-core kernels; the bf16 long-video step), the folded
-            # ones in f32 (the f32 long-video step)
-            if (dtype == torch.bfloat16) != folded:
+            # the kernels line: the single-pass routes in bf16 (the bf16
+            # long-video step up to 10,880 frames), the folded ones in f32
+            # (the f32 long-video step) and in bf16 (past 10,880 frames)
+            if dtype == torch.bfloat16 or folded:
+                tag = ".bf16" if dtype == torch.bfloat16 and folded else ""
+                name_f, name_b = name_f + tag, name_b + tag
                 out[name_f] = dict(dtype=dn,
                                    max_abs_err=max(o_err[0], lse_err[0]),
                                    ms=ms_f, plain_ms=plain_f, bound_ms=bf_ms,
@@ -1579,14 +1624,55 @@ def phase_train(seed: int) -> dict:
 LONG_EPOCHS = 5
 
 
+def hold_folded_at_bucket(cfg, batch_shapes, lengths, rng) -> dict:
+    """The bf16 fold's kernels (TPU kernels 7/8) at the largest bucket a
+    long-video run gave them: (B, H, N, Dh) of that batch, valid lengths
+    the B longest videos', the recipe's dropout; held against the plain
+    fold over ``KEY_TILE`` by ``hold_attn_train``."""
+    import numpy as np
+    import torch
+
+    from vidsum_tpu_torch.data.collate import bucket_length
+    from vidsum_tpu_torch.ops import attention_train as at
+
+    B, N = max(batch_shapes, key=lambda s: s[1])
+    valid = sorted(int(n) for n in lengths)[-B:]
+    if bucket_length(valid[-1]) != N:
+        raise AssertionError(f"the longest video ({valid[-1]} frames) does "
+                             f"not bucket to the largest batch's N {N}")
+    H, Dh = cfg.num_heads, cfg.head_dim
+    cuda = torch.device("cuda")
+    mask = torch.ones((B, N), dtype=torch.bool, device=cuda)
+    for b, n in enumerate(valid):
+        mask[b, :n] = False
+    q, k, v, do = (torch.from_numpy(rng.normal(size=(B, H, N, Dh)).astype(
+        np.float32)).to(cuda, torch.bfloat16) for _ in range(4))
+    dseed = int(rng.integers(0, 2**31 - 2))
+    held = hold_attn_train(True, q, k, v, do, mask, dseed, cfg.dropout,
+                           cfg.attn_scale, at._pick_key_block(N))
+    out = dict(B=B, H=H, N=N, Dh=Dh, valid=valid, rate=cfg.dropout,
+               o_err=held["o_err"], lse_err=held["lse_err"],
+               grad_err={n: list(e) for n, e in held["grad_err"].items()},
+               o_tolerance=held["o_tol"], grad_tolerance=held["grad_tol"],
+               seed_plus_one_rel_rms=list(held["fault"]), deterministic=True)
+    del held, q, k, v, do
+    torch.cuda.empty_cache()
+    return out
+
+
 def phase_long_train(seed: int) -> dict:
     """Finetuning on videos past the block-train envelope (N > 7,936 at
     d 256): (b) the flash route on one 8,100-frame video (bucket 8,192; f32
     takes the folded route, TPU kernels 7/8), card against CPU; (c) recipe
     epochs on the auto route over 8 videos of 7,950-9,000 frames, in f32
     (demoted to the folded route) and bf16 (the single-pass route, kernels
-    5/6). Returns the training attention routes' launches in (c) and the
-    videos."""
+    5/6), and over 8 videos of 11,000-14,000 frames in bf16 (buckets past
+    the single pass's 10,880: the folded route's tensor-core kernels).
+    After (c) the bf16 fold's kernels are held against the plain fold at
+    the largest bucket of the 11,000-14,000-frame run. Returns the training
+    attention routes' launches in (c), the bf16 folded run's under
+    ``<route>.bf16``, the 7,950-9,000-frame videos, and the bf16 fold's max
+    abs errors at that bucket by ``<route>.bf16``."""
     import dataclasses
     import math
 
@@ -1621,11 +1707,18 @@ def phase_long_train(seed: int) -> dict:
     # (c)
     videos = synthetic_videos(rng, rng.integers(7950, 9001, 8),
                               cfg.in_features)
+    longer = synthetic_videos(rng, rng.integers(11000, 14001, 8),
+                              cfg.in_features)
     block_routes = TRAIN_ROUTES
+    folded_routes = ("_fwd_kernel_folded", "_bwd_kernel_folded")
+    single_routes = ("_fwd_kernel", "_bwd_kernel")
     report, launches = {}, {}
-    for dtype, routes in (("float32", ("_fwd_kernel_folded",
-                                       "_bwd_kernel_folded")),
-                          ("bfloat16", ("_fwd_kernel", "_bwd_kernel"))):
+    # (report key, dtype, routes, videos, launch key suffix, bucket range)
+    runs = (("float32", "float32", folded_routes, videos, "", None),
+            ("bfloat16", "bfloat16", single_routes, videos, "", None),
+            ("bfloat16_folded", "bfloat16", folded_routes, longer, ".bf16",
+             (10880, 20480)))
+    for key, dtype, routes, items, suffix, buckets in runs:
         dcfg = dataclasses.replace(cfg, compute_dtype=dtype)
         dconf = dataclasses.replace(conf, model=dcfg)
         model = SimNet(dcfg, generator=torch.Generator().manual_seed(seed))
@@ -1647,7 +1740,7 @@ def phase_long_train(seed: int) -> dict:
         reset_counters()
         torch.cuda.reset_peak_memory_stats()
         t0 = time.monotonic()
-        epoch_losses = [ft._train_epoch(timed, model, optimizer, videos,
+        epoch_losses = [ft._train_epoch(timed, model, optimizer, items,
                                         dconf, *ft.epoch_streams(tc.seed, 1,
                                                                  epoch))
                         for epoch in range(LONG_EPOCHS)]
@@ -1656,26 +1749,33 @@ def phase_long_train(seed: int) -> dict:
         peak_gb = torch.cuda.max_memory_allocated() / 2**30
         counts = read_counters()
         names = [attn_train_name(r) for r in routes]
+        others = [attn_train_name(r) for r in ATTN_TRAIN_ROUTES
+                  if r not in routes]
         n_steps = len(losses)
         if [counts[n] for n in names] != [cfg.num_layers * n_steps] * 2:
-            raise AssertionError(f"{dtype} long-video epochs: launches "
+            raise AssertionError(f"{key} long-video epochs: launches "
                                  f"{counts}, expected {cfg.num_layers} of "
                                  f"{names} per step")
-        moved = [r for r in block_routes if counts[r]]
+        moved = [r for r in block_routes if counts[r]] + [
+            n for n in others if counts[n]]
         if moved:
-            raise AssertionError(f"{dtype} long-video epochs launched the "
-                                 f"block-train routes {moved}: no demotion")
+            raise AssertionError(f"{key} long-video epochs launched "
+                                 f"{moved}: another route than {names}")
+        if buckets and not all(buckets[0] < n <= buckets[1]
+                               for _, n in shapes):
+            raise AssertionError(f"{key} long-video epochs: buckets "
+                                 f"{shapes} outside {buckets}")
         step_losses = [float(x) for x in losses]
         if not all(math.isfinite(v) for v in step_losses):
             raise AssertionError(f"non-finite losses: {step_losses}")
         for n in names:
-            launches[n] = counts[n]
+            launches[n + suffix] = counts[n]
         xl, tl, ml = (torch.from_numpy(a).cuda() for a in pad_batch(
-            [it[0] for it in videos[:tc.batch_size]],
-            [it[1] for it in videos[:tc.batch_size]]))
+            [it[0] for it in items[:tc.batch_size]],
+            [it[1] for it in items[:tc.batch_size]]))
         gen = torch.Generator().manual_seed(seed)
-        report[dtype] = dict(
-            routes=names, steps=n_steps, batch_shapes=shapes,
+        report[key] = dict(
+            dtype=dtype, routes=names, steps=n_steps, batch_shapes=shapes,
             step_ms=spread([s.elapsed_time(e) for s, e in times]),
             wall_s=wall, peak_memory_gib=peak_gb, epoch_loss=epoch_losses,
             step_losses=step_losses,
@@ -1685,14 +1785,26 @@ def phase_long_train(seed: int) -> dict:
                 lambda: step(model, optimizer, xl, tl, ml, gen), reps=2))
         del model, optimizer
         torch.cuda.empty_cache()
+    # the bf16 fold's kernels against the plain fold at the largest bucket
+    # the run gave them (after the run: these launches are not its count)
+    at_bucket = hold_folded_at_bucket(
+        cfg, report["bfloat16_folded"]["batch_shapes"],
+        [it[0].shape[0] for it in longer], rng)
+    report["bfloat16_folded"]["kernels_at_largest_bucket"] = at_bucket
+    bucket_err = {
+        attn_train_name("_fwd_kernel_folded") + ".bf16": max(
+            at_bucket["o_err"][0], at_bucket["lse_err"][0]),
+        attn_train_name("_bwd_kernel_folded") + ".bf16": max(
+            e[0] for e in at_bucket["grad_err"].values())}
     missing = [n for n in map(attn_train_name, ATTN_TRAIN_ROUTES)
                if not launches.get(n)]
     if missing:
         raise AssertionError(f"training attention routes never launched: "
                              f"{missing}")
     emit("long_train", lengths=[int(it[0].shape[0]) for it in videos],
+         lengths_bfloat16_folded=[int(it[0].shape[0]) for it in longer],
          flash_folded_card_vs_cpu=folded_vs_cpu, **report)
-    return launches, videos
+    return launches, videos, bucket_err
 
 
 RING_ROUTES = ("_ring_block_step", "_ring_train_step", "_ring_train_step_bwd")
@@ -2712,8 +2824,12 @@ def main() -> int:
     counts.update(probe_launches)
     counts.update({r: n for r, n in phase_train(args.seed).items()
                    if r in TRAIN_ROUTES})
-    long_launches, long_videos = phase_long_train(args.seed)
+    long_launches, long_videos, bucket_err = phase_long_train(args.seed)
     counts.update(long_launches)
+    # the bf16 fold's max_abs_err: the larger of its two checks, at
+    # (2, 4, 8192, 64) and at the long-video run's largest bucket
+    for name, err in bucket_err.items():
+        timings[name]["max_abs_err"] = max(timings[name]["max_abs_err"], err)
     counts.update(phase_seq_train(args.seed, long_videos))
 
     replaces = {
@@ -2727,6 +2843,10 @@ def main() -> int:
         "_bwd_kernel_grouped": "vidsum_tpu/ops/block_train.py:421",
         **{attn_train_name(r): f"vidsum_tpu/ops/attention_train.py:{line}"
            for r, line in zip(ATTN_TRAIN_ROUTES, (83, 112, 175, 228))},
+        **{attn_train_name(r) + ".bf16":
+           f"vidsum_tpu/ops/attention_train.py:{line}"
+           for r, line in (("_fwd_kernel_folded", 175),
+                           ("_bwd_kernel_folded", 228))},
         "_fused_block_int8": "vidsum_tpu/ops/block_kernel_int8.py:63",
         "_fused_block_int8_grouped": "vidsum_tpu/ops/block_kernel_int8.py:143",
         "mm_bf16": "scripts/probe_int8_mxu.py:63",
@@ -2743,7 +2863,9 @@ def main() -> int:
                       csrc + "attention_core.cuh"]
     attn_mma_src = [csrc + "attention_train_mma.cuh",
                     csrc + "attention_train.cu"]
-    mma_routes = {attn_train_name(r) for r in ("_fwd_kernel", "_bwd_kernel")}
+    mma_routes = {attn_train_name(r) for r in ("_fwd_kernel", "_bwd_kernel")
+                  } | {attn_train_name(r) + ".bf16"
+                       for r in ("_fwd_kernel_folded", "_bwd_kernel_folded")}
     int8_src = [csrc + "int8_gemm.cu", csrc + "masked_attention.cu"]
     ring_src = [csrc + "ring_attention.cu", csrc + "attention_core.cuh"]
     names = {"_fused_block_int8": "block_int8",

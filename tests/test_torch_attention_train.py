@@ -3,7 +3,8 @@
 the CPU: the dropout hash bit for bit, the four plain versions (o, lse, dq,
 dk, dv) against the Pallas kernels in interpret mode on the single-pass and
 the forced key-folded route (as ``tests/test_attention_train.py`` forces
-it) and at head_dims 32 and 128, the autograd Function against
+it), at head_dims 32 and 128 on both routes, and on the folded route with
+an element whose keys are all padded, the autograd Function against
 ``jax.vjp``, and the routing predicates."""
 
 import jax
@@ -39,13 +40,17 @@ TOL = {
 SHAPES = {False: (2, 2, 256, 16), True: (2, 2, 512, 64)}
 CASES = [(False, 0.3, "float32"), (False, 0.0, "float32"),
          (False, 0.3, "bfloat16"), (True, 0.3, "float32"),
-         (True, 0.0, "float32"), (True, 0.3, "bfloat16")]
-# the other head_dims the kernels take (d 512 with 4 heads: 128), single
-# pass, valid length 200 of 256
+         (True, 0.0, "float32"), (True, 0.3, "bfloat16"),
+         (True, 0.0, "bfloat16")]
+# the other head_dims the kernels take (d 512 with 4 heads: 128), valid
+# length 200 of 256 (on the folded route two 128-key blocks)
 HEAD_DIM_SHAPES = [(1, 2, 256, 128), (1, 2, 256, 32)]
 
 
-def _inputs(folded: bool, shape=None):
+def _inputs(folded: bool, shape=None, dead=False):
+    """Seeded q, k, v, the cotangent and the (B, N) pad mask (element b
+    valid up to N * 25 / (32 * 2**b)); ``dead`` pads every key of the
+    elements past the first."""
     B, H, N, Dh = shape or SHAPES[folded]
     rng = np.random.default_rng(N + Dh)
     q, k, v, co = (rng.normal(size=(B, H, N, Dh)).astype(np.float32)
@@ -53,6 +58,8 @@ def _inputs(folded: bool, shape=None):
     mask = np.zeros((B, N), bool)
     for b in range(B):
         mask[b, N * 25 // (32 << b):] = True
+    if dead:
+        mask[1:] = True
     return q, k, v, co, mask, Dh ** -0.5
 
 
@@ -63,11 +70,11 @@ def jax_results():
     with the jit caches cleared before and after."""
     cache = {}
 
-    def get(folded, rate, dtype, shape=None):
-        key = (folded, rate, dtype, shape)
+    def get(folded, rate, dtype, shape=None, dead=False):
+        key = (folded, rate, dtype, shape, dead)
         if key in cache:
             return cache[key]
-        q, k, v, co, mask, scale = _inputs(folded, shape)
+        q, k, v, co, mask, scale = _inputs(folded, shape, dead)
         jq, jk, jv, jco = (jnp.asarray(a).astype(dtype)
                            for a in (q, k, v, co))
         m8 = jnp.asarray(mask.astype(np.int8))[:, None, :]
@@ -188,6 +195,66 @@ def test_plain_versions_match_jax_kernels_at_head_dims(jax_results, shape,
     rtol, atol = TOL[("grad", dtype, False)]
     for name, g, w in zip("qkv", grads, want["grads"]):
         np.testing.assert_allclose(g.float().numpy(), w, rtol=rtol,
+                                   atol=atol, err_msg=f"d{name}")
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", HEAD_DIM_SHAPES)
+def test_folded_plain_versions_match_jax_kernels_at_head_dims(
+        jax_results, shape, dtype):
+    """head_dim 128 and 32 on the forced key-folded route (kb = 128) at rate
+    0.3: the plain folded forward and backward against the Pallas kernels
+    in interpret mode, at the folded bounds of the head_dim 64 cases."""
+    want = jax_results(True, 0.3, dtype, shape)
+    q, k, v, co, mask, scale = _inputs(True, shape)
+    tq, tk, tv, tco = (_torch(a, dtype) for a in (q, k, v, co))
+    tm = torch.from_numpy(mask)
+    o, lse = at._fwd_kernel_folded(tq, tk, tv, tm, SEED, 0.3, scale, 128)
+    grads = at._bwd_kernel_folded(tq, tk, tv, tm, SEED, lse, tco, o, 0.3,
+                                  scale, 128)
+    rtol, atol = TOL[("fwd", dtype)]
+    np.testing.assert_allclose(o.float().numpy(), want["o"], rtol=rtol,
+                               atol=atol)
+    rtol, atol = TOL[("lse", dtype)]
+    np.testing.assert_allclose(lse.numpy(), want["lse"], rtol=rtol,
+                               atol=atol)
+    rtol, atol = TOL[("grad", dtype, True)]
+    for name, g, w in zip("qkv", grads, want["grads"]):
+        np.testing.assert_allclose(g.float().numpy(), w, rtol=rtol,
+                                   atol=atol, err_msg=f"d{name}")
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_folded_element_with_no_unpadded_key(jax_results, dtype):
+    """On the forced key-folded route an element whose keys are all padded
+    gets o = 0, lse = -inf and zero dq, dk, dv from the Pallas kernels in
+    interpret mode and from the plain versions alike (the ``_DEAD`` guards
+    and the lse guard; the single pass gives NaN there); the other element
+    agrees at the folded bounds."""
+    want = jax_results(True, 0.3, dtype, dead=True)
+    q, k, v, co, mask, scale = _inputs(True, dead=True)
+    assert mask[1].all() and not mask[0].all()
+    tq, tk, tv, tco = (_torch(a, dtype) for a in (q, k, v, co))
+    tm = torch.from_numpy(mask)
+    o, lse = at._fwd_kernel_folded(tq, tk, tv, tm, SEED, 0.3, scale, 128)
+    grads = at._bwd_kernel_folded(tq, tk, tv, tm, SEED, lse, tco, o, 0.3,
+                                  scale, 128)
+    for got in (o.float().numpy(), want["o"]):
+        np.testing.assert_array_equal(got[1], 0.0)
+    for got in (lse.numpy(), want["lse"]):
+        assert np.isneginf(got[1]).all()
+    for g, w in zip(grads, want["grads"]):
+        np.testing.assert_array_equal(g[1].float().numpy(), 0.0)
+        np.testing.assert_array_equal(w[1], 0.0)
+    rtol, atol = TOL[("fwd", dtype)]
+    np.testing.assert_allclose(o[0].float().numpy(), want["o"][0],
+                               rtol=rtol, atol=atol)
+    rtol, atol = TOL[("lse", dtype)]
+    np.testing.assert_allclose(lse[0].numpy(), want["lse"][0], rtol=rtol,
+                               atol=atol)
+    rtol, atol = TOL[("grad", dtype, True)]
+    for name, g, w in zip("qkv", grads, want["grads"]):
+        np.testing.assert_allclose(g[0].float().numpy(), w[0], rtol=rtol,
                                    atol=atol, err_msg=f"d{name}")
 
 

@@ -443,43 +443,72 @@ def test_attention_train_routes_match_plain(cuda, dtype, folded, Dh):
     assert not _at_within(bad[2], want[2], gtol)
 
 
-@pytest.mark.parametrize("rate", [0.0, 0.3])
-@pytest.mark.parametrize("B,H,N,Dh", [(2, 2, 512, 64), (1, 2, 256, 128),
-                                     (2, 2, 320, 64)])
-def test_bf16_single_pass_tensor_core_kernels_match_plain(cuda, rate, B, H,
-                                                          N, Dh):
-    """The bf16 single-pass route's tensor-core kernels
-    (``csrc/attention_train_mma.cuh``, TPU kernels 5/6) against their plain
-    versions at the bf16 bounds (N = 320 leaves a ragged last CTA of 128
-    rows): element 0 has wholly padded key tiles
+def _bf16_tensor_core_kernels_match_plain(cuda, folded, rate, B, H, N, Dh):
+    """One bf16 training attention route's tensor-core kernels
+    (``csrc/attention_train_mma.cuh``: the single pass, TPU kernels 5/6, or
+    its online / folded mode, kernels 7/8) against their plain versions (the
+    fold over the kernels' 64-key tiles) at the bf16 bounds (N = 320 leaves
+    a ragged last CTA of 128 rows): element 0 has wholly padded key tiles
     (which the kernels skip); at B = 2 element 1 has no unpadded key, and
     there the kernels give what the FMA family gives (the f32 route on the
-    same values: NaN o and grads, lse -inf). Two backward runs give equal
-    bits. Prints the measured errors."""
+    same values: the single pass NaN o and grads and lse -inf, the fold
+    o = 0, lse = -inf and zero grads, bit for bit). Two backward runs give
+    equal bits; in the fold at rate 0.3 the kernels at seed + 1 fail the
+    bounds. Prints the measured errors."""
     from vidsum_tpu_torch.ops import attention_train as at
 
-    g = torch.Generator(device="cpu").manual_seed(12)
-    seed, scale = 2468, Dh ** -0.5
+    g = torch.Generator(device="cpu").manual_seed(13 if folded else 12)
+    seed, scale, kb = (1357 if folded else 2468), Dh ** -0.5, at.KEY_TILE
     q, k, v, do = (torch.randn(B, H, N, Dh, generator=g).to(cuda,
                                                             torch.bfloat16)
                    for _ in range(4))
     mask = torch.zeros(B, N, dtype=torch.bool, device=cuda)
     mask[0, N * 5 // 8 - 20:] = True  # keys past tile 4 (of 8) all padded
     mask[1:] = True
-    f0, b0 = at._fwd_kernel.launches, at._bwd_kernel.launches
-    o, lse = at._fwd_kernel(q, k, v, mask, seed, rate, scale)
     # the plain versions in 64-row steps (rows are independent; N = 320 is
     # no multiple of the TPU's 128)
-    want_o, want_lse = at.attention_train_fwd_reference(q, k, v, mask, seed,
-                                                        rate, scale, rows=64)
-    grads = at._bwd_kernel(q, k, v, mask, seed, want_lse, do, rate, scale)
-    again = at._bwd_kernel(q, k, v, mask, seed, want_lse, do, rate, scale)
-    want = at.attention_train_bwd_reference(q, k, v, mask, seed, want_lse,
-                                            do, rate, scale, rows=64)
+    if folded:
+        fwd, bwd = at._fwd_kernel_folded, at._bwd_kernel_folded
+
+        def run_f(q, k, v, s):
+            return fwd(q, k, v, mask, s, rate, scale, kb)
+
+        def run_b(q, k, v, s, lse, do, o):
+            return bwd(q, k, v, mask, s, lse, do, o, rate, scale, kb)
+
+        def plain_f(s):
+            return at.attention_train_fwd_folded_reference(
+                q, k, v, mask, s, rate, scale, kb, rows=64)
+
+        def plain_b(s, lse, o):
+            return at.attention_train_bwd_folded_reference(
+                q, k, v, mask, s, lse, do, o, rate, scale, kb, rows=64)
+    else:
+        fwd, bwd = at._fwd_kernel, at._bwd_kernel
+
+        def run_f(q, k, v, s):
+            return fwd(q, k, v, mask, s, rate, scale)
+
+        def run_b(q, k, v, s, lse, do, o):
+            return bwd(q, k, v, mask, s, lse, do, rate, scale)
+
+        def plain_f(s):
+            return at.attention_train_fwd_reference(q, k, v, mask, s, rate,
+                                                    scale, rows=64)
+
+        def plain_b(s, lse, o):
+            return at.attention_train_bwd_reference(q, k, v, mask, s, lse,
+                                                    do, rate, scale, rows=64)
+
+    f0, b0 = fwd.launches, bwd.launches
+    o, lse = run_f(q, k, v, seed)
+    want_o, want_lse = plain_f(seed)
+    grads = run_b(q, k, v, seed, want_lse, do, want_o)
+    again = run_b(q, k, v, seed, want_lse, do, want_o)
+    want = plain_b(seed, want_lse, want_o)
     torch.cuda.synchronize()
-    assert (at._fwd_kernel.launches, at._bwd_kernel.launches) == (f0 + 1,
-                                                                  b0 + 2)
-    # equal bits (NaN payloads included: element 1's grads are NaN)
+    assert (fwd.launches, bwd.launches) == (f0 + 1, b0 + 2)
+    # equal bits (NaN payloads included: the single pass's element 1)
     assert all(torch.equal(a.view(torch.int16), b.view(torch.int16))
                for a, b in zip(grads, again))
     _close(o[:1], want_o[:1], "attention", torch.bfloat16)
@@ -489,20 +518,51 @@ def test_bf16_single_pass_tensor_core_kernels_match_plain(cuda, rate, B, H,
     for name, a, b in zip("qkv", grads, want):
         errs[f"d{name}"] = _rel(a[:1], b[:1])
         assert _at_within(a[:1], b[:1], gtol), f"d{name}: {errs[f'd{name}']}"
-    print(f"bf16 tensor-core attention {(B, H, N, Dh)} rate {rate}: "
-          f"relative RMS {errs}")
+    print(f"bf16 tensor-core attention (folded={folded}) {(B, H, N, Dh)} "
+          f"rate {rate}: relative RMS {errs}")
+    if folded and rate > 0.0:
+        bad_o, _ = run_f(q, k, v, seed + 1)
+        assert not _within(bad_o, want_o, "attention", torch.bfloat16)
+        bad = run_b(q, k, v, seed + 1, want_lse, do, want_o)
+        assert not _at_within(bad[2], want[2], gtol)
     if B > 1:
         # the element with no unpadded key, against the FMA family (f32)
         f = [t.float() for t in (q, k, v, do)]
-        o32, lse32 = at._fwd_kernel(*f[:3], mask, seed, rate, scale)
-        g32 = at._bwd_kernel(*f[:3], mask, seed, lse32, f[3], rate, scale)
+        o32, lse32 = run_f(*f[:3], seed)
+        g32 = run_b(*f[:3], seed, lse32, f[3], o32)
+        grads = run_b(q, k, v, seed, lse, do, o)
         torch.cuda.synchronize()
-        assert torch.isnan(o[1]).all() and torch.isnan(o32[1]).all()
         assert torch.equal(lse[1], lse32[1]) and bool(
             torch.isneginf(lse[1]).all())
-        grads = at._bwd_kernel(q, k, v, mask, seed, lse, do, rate, scale)
-        for a, b in zip(grads, g32):
-            assert torch.equal(torch.isnan(a[1]), torch.isnan(b[1]))
+        if folded:
+            assert torch.equal(o[1].float(), o32[1]) and not o32[1].any()
+            for a, b in zip(grads, g32):
+                assert torch.equal(a[1].float(), b[1]) and not b[1].any()
+        else:
+            assert torch.isnan(o[1]).all() and torch.isnan(o32[1]).all()
+            for a, b in zip(grads, g32):
+                assert torch.equal(torch.isnan(a[1]), torch.isnan(b[1]))
+
+
+TENSOR_CORE_SHAPES = [(2, 2, 512, 64), (1, 2, 256, 128), (2, 2, 320, 64)]
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.3])
+@pytest.mark.parametrize("B,H,N,Dh", TENSOR_CORE_SHAPES)
+def test_bf16_single_pass_tensor_core_kernels_match_plain(cuda, rate, B, H,
+                                                          N, Dh):
+    """The single pass's tensor-core kernels (TPU kernels 5/6); see
+    ``_bf16_tensor_core_kernels_match_plain``."""
+    _bf16_tensor_core_kernels_match_plain(cuda, False, rate, B, H, N, Dh)
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.3])
+@pytest.mark.parametrize("B,H,N,Dh", TENSOR_CORE_SHAPES)
+def test_bf16_folded_tensor_core_kernels_match_plain(cuda, rate, B, H, N,
+                                                     Dh):
+    """The fold's tensor-core kernels (TPU kernels 7/8); see
+    ``_bf16_tensor_core_kernels_match_plain``."""
+    _bf16_tensor_core_kernels_match_plain(cuda, True, rate, B, H, N, Dh)
 
 
 def test_seq_forward_on_card_pads_shards_to_the_key_tile(cuda):

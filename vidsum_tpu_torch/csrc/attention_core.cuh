@@ -1,24 +1,24 @@
 // Masked attention with counter-hash dropout on the softmax weights, forward
-// and backward: the kernel family that block_train.cu (inside the training
-// block, TPU kernels 9-12) and attention_train.cu (the flash-attention
-// training route, TPU kernels 5-8) both launch.
+// and backward, in f32: the kernel family that block_train.cu (inside the
+// training block, TPU kernels 9-12) and attention_train.cu (the
+// flash-attention training route, TPU kernels 5-8 in f32; bf16 takes the
+// tensor-core kernels of attention_train_mma.cuh on both routes) launch.
+// ring_attention.cu reuses its tile staging (stage_t, also with bf16 K/V).
 //
 // One CTA of 256 threads takes a 64 x 64 tile of scores; thread (rg, cg) =
 // (tid / 16, tid % 16) holds rows 4 rg + i and columns cg + 16 j of it, and
 // output columns cg + 16 t. K/V (or Q/dO) stream through shared memory in
 // 64-row tiles stored transposed ([DH][kPad]), so every read in the inner
 // loops is a broadcast or conflict-free. Nothing of size N x N reaches device
-// memory. Products are exact f32 FMA (no TF32); a bf16 input is widened
-// exactly and rounded where the TPU kernels round it: P (or the unnormalised
-// e) before P.V, dS before dQ and dK, and the outputs. dp = dO . V^T and
-// dV = Pd^T . dO stay f32 x f32 in both types. No kernel uses atomics, so two
-// runs of the backward give identical bits.
+// memory. Products are exact f32 FMA (no TF32: it would not compute what the
+// TPU's f32 kernels compute). No kernel uses atomics, so two runs of the
+// backward give identical bits.
 //
 //   fwd_kernel   per 64-query tile. normalise-first (online == 0): pass 1 the
-//                row max and sum, pass 2 p = e / l, dropped, rounded, then
-//                P.V. online: one pass whose denominator sums the raw e while
-//                the dropped unnormalised e is rounded and accumulated, with
-//                the _DEAD guards; o = acc / l at the end. Writes o and, if
+//                row max and sum, pass 2 p = e / l, dropped, then P.V.
+//                online: one pass whose denominator sums the raw e while the
+//                dropped unnormalised e is accumulated, with the _DEAD
+//                guards; o = acc / l at the end. Writes o and, if
 //                asked, lse = max + log(sum).
 //   dq_kernel    per query tile: D (rowsum(dO * o), or rowsum(dp * p) over
 //                the full row, one pass over the keys more), then dQ.
@@ -145,7 +145,7 @@ constexpr int fwd_smem_floats() {
   return 2 * DH * kPad + kT * DH + kT * kPad + kT;
 }
 
-template <typename T, int DH>
+template <int DH>
 __global__ void __launch_bounds__(kThreads) fwd_kernel(const Args a) {
   constexpr int DPT = DH / 16;
   extern __shared__ float smem[];
@@ -159,17 +159,17 @@ __global__ void __launch_bounds__(kThreads) fwd_kernel(const Args a) {
   const int q0 = blockIdx.x * kT, h = blockIdx.y, b = blockIdx.z;
   const int N = a.N;
   const long long ih = b * a.isb + h * a.ish;
-  const T* qh = static_cast<const T*>(a.q) + ih;
-  const T* kh = static_cast<const T*>(a.k) + ih;
-  const T* vh = static_cast<const T*>(a.v) + ih;
+  const float* qh = static_cast<const float*>(a.q) + ih;
+  const float* kh = static_cast<const float*>(a.k) + ih;
+  const float* vh = static_cast<const float*>(a.v) + ih;
   const unsigned char* mrow = a.mask + (long long)b * N;
   const unsigned base = hash_base(a.hash, a.seed, b, h);
 
-  stage_t<T, DH>(Qt, qh, a.isn, q0);
+  stage_t<float, DH>(Qt, qh, a.isn, q0);
   auto stage_keys = [&](int k0, bool with_v) {
     __syncthreads();  // the previous tile's readers are done
-    stage_t<T, DH>(Kt, kh, a.isn, k0);
-    if (with_v) stage_rows<T, DH>(Vs, vh, a.isn, k0);
+    stage_t<float, DH>(Kt, kh, a.isn, k0);
+    if (with_v) stage_rows<float, DH>(Vs, vh, a.isn, k0);
     if (tid < kT) Km[tid] = mrow[k0 + tid] != 0 ? 1.f : 0.f;
     __syncthreads();
   };
@@ -231,7 +231,7 @@ __global__ void __launch_bounds__(kThreads) fwd_kernel(const Args a) {
         m[i] = m_new;
       }
     }
-    // pass 2: p = e / l, dropped, rounded to the input type, then P.V
+    // pass 2: p = e / l, dropped, then P.V
     for (int k0 = 0; k0 < N; k0 += kT) {
       stage_keys(k0, true);
       float s[4][4];
@@ -245,14 +245,14 @@ __global__ void __launch_bounds__(kThreads) fwd_kernel(const Args a) {
           const float p = expf(s[i][j] - m[i]) / l[i];
           const float pd =
               keep_bit(base, qi, k0 + kj, a.thr) ? p * a.kscale : 0.f;
-          Pt[kj * kPad + rg * 4 + i] = round_to<T>(pd);
+          Pt[kj * kPad + rg * 4 + i] = pd;
         }
       }
       accumulate();
     }
   } else {
     // one pass: the denominator sums the raw e, the dropped unnormalised e
-    // is rounded and accumulated
+    // is accumulated
     for (int k0 = 0; k0 < N; k0 += kT) {
       stage_keys(k0, true);
       float s[4][4];
@@ -275,7 +275,7 @@ __global__ void __launch_bounds__(kThreads) fwd_kernel(const Args a) {
           rs += e;
           const float eu =
               keep_bit(base, qi, k0 + kj, a.thr) ? e * a.kscale : 0.f;
-          Pt[kj * kPad + rg * 4 + i] = round_to<T>(eu);
+          Pt[kj * kPad + rg * 4 + i] = eu;
         }
         l[i] = l[i] * corr + group_sum<16>(rs);
         m[i] = m_new;
@@ -297,10 +297,10 @@ __global__ void __launch_bounds__(kThreads) fwd_kernel(const Args a) {
       f = empty ? 0.f : 1.f / l[i];
       ls = empty ? -INFINITY : ls;
     }
-    T* orow = static_cast<T*>(a.out) + oh + (long long)qi * a.osn;
+    float* orow = static_cast<float*>(a.out) + oh + (long long)qi * a.osn;
 #pragma unroll
     for (int t = 0; t < DPT; ++t)
-      orow[cg + 16 * t] = from_f32<T>(a.online ? acc[i][t] * f : acc[i][t]);
+      orow[cg + 16 * t] = a.online ? acc[i][t] * f : acc[i][t];
     if (cg == 0 && a.lse != nullptr) a.lse[sh + qi] = ls;
   }
 }
@@ -311,7 +311,7 @@ constexpr int dq_smem_floats() {
   return 4 * DH * kPad + kT * kPad + kT;
 }
 
-template <typename T, int DH>
+template <int DH>
 __global__ void __launch_bounds__(kThreads) dq_kernel(const Args a) {
   constexpr int DPT = DH / 16;
   extern __shared__ float smem[];
@@ -328,14 +328,14 @@ __global__ void __launch_bounds__(kThreads) dq_kernel(const Args a) {
   const long long ih = b * a.isb + h * a.ish;
   const long long oh = b * a.osb + h * a.osh;
   const long long sh = ((long long)b * a.H + h) * N;
-  const T* kh = static_cast<const T*>(a.k) + ih;
-  const T* vh = static_cast<const T*>(a.v) + ih;
-  const T* dOh = static_cast<const T*>(a.dO) + oh;
+  const float* kh = static_cast<const float*>(a.k) + ih;
+  const float* vh = static_cast<const float*>(a.v) + ih;
+  const float* dOh = static_cast<const float*>(a.dO) + oh;
   const unsigned char* mrow = a.mask + (long long)b * N;
   const unsigned base = hash_base(a.hash, a.seed, b, h);
 
-  stage_t<T, DH>(Qt, static_cast<const T*>(a.q) + ih, a.isn, q0);
-  stage_t<T, DH>(dOt, dOh, a.osn, q0);
+  stage_t<float, DH>(Qt, static_cast<const float*>(a.q) + ih, a.isn, q0);
+  stage_t<float, DH>(dOt, dOh, a.osn, q0);
 
   float lr[4];
   bool live[4];
@@ -347,8 +347,8 @@ __global__ void __launch_bounds__(kThreads) dq_kernel(const Args a) {
   }
   auto stage_keys = [&](int k0) {
     __syncthreads();
-    stage_t<T, DH>(Kt, kh, a.isn, k0);
-    stage_t<T, DH>(Vt, vh, a.isn, k0);
+    stage_t<float, DH>(Kt, kh, a.isn, k0);
+    stage_t<float, DH>(Vt, vh, a.isn, k0);
     if (tid < kT) Km[tid] = mrow[k0 + tid] != 0 ? 1.f : 0.f;
     __syncthreads();
   };
@@ -373,15 +373,14 @@ __global__ void __launch_bounds__(kThreads) dq_kernel(const Args a) {
 
   float Dr[4];
   if (a.d_from_o) {
-    const T* o = static_cast<const T*>(a.o) + oh;
+    const float* o = static_cast<const float*>(a.o) + oh;
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
       const long long row = (long long)(q0 + rg * 4 + i) * a.osn;
       float part = 0.f;
 #pragma unroll
       for (int t = 0; t < DPT; ++t)
-        part += to_f32<T>(dOh[row + cg + 16 * t]) *
-                to_f32<T>(o[row + cg + 16 * t]);
+        part += dOh[row + cg + 16 * t] * o[row + cg + 16 * t];
       Dr[i] = group_sum<16>(part);
     }
   } else {
@@ -416,8 +415,7 @@ __global__ void __launch_bounds__(kThreads) dq_kernel(const Args a) {
     for (int i = 0; i < 4; ++i)
 #pragma unroll
       for (int j = 0; j < 4; ++j)
-        dSs[(rg * 4 + i) * kPad + cg + 16 * j] =
-            round_to<T>(p[i][j] * (g[i][j] - Dr[i]));
+        dSs[(rg * 4 + i) * kPad + cg + 16 * j] = p[i][j] * (g[i][j] - Dr[i]);
     __syncthreads();
 #pragma unroll 8
     for (int kk = 0; kk < kT; ++kk) {
@@ -433,13 +431,13 @@ __global__ void __launch_bounds__(kThreads) dq_kernel(const Args a) {
     }
   }
 
-  T* dqh = static_cast<T*>(a.dq) + ih;
+  float* dqh = static_cast<float*>(a.dq) + ih;
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
-    T* row = dqh + (long long)(q0 + rg * 4 + i) * a.isn;
+    float* row = dqh + (long long)(q0 + rg * 4 + i) * a.isn;
 #pragma unroll
     for (int t = 0; t < DPT; ++t)
-      row[cg + 16 * t] = from_f32<T>(acc[i][t] * a.scale);
+      row[cg + 16 * t] = acc[i][t] * a.scale;
   }
 }
 
@@ -450,7 +448,7 @@ constexpr int dkdv_smem_floats() {
   return 4 * DH * kPad + 2 * kT * kPad + 3 * kT;
 }
 
-template <typename T, int DH>
+template <int DH>
 __global__ void __launch_bounds__(kThreads) dkdv_kernel(const Args a) {
   constexpr int DPT = DH / 16;
   extern __shared__ float smem[];
@@ -470,12 +468,12 @@ __global__ void __launch_bounds__(kThreads) dkdv_kernel(const Args a) {
   const long long ih = b * a.isb + h * a.ish;
   const long long oh = b * a.osb + h * a.osh;
   const long long sh = ((long long)b * a.H + h) * N;
-  const T* qh = static_cast<const T*>(a.q) + ih;
-  const T* dOh = static_cast<const T*>(a.dO) + oh;
+  const float* qh = static_cast<const float*>(a.q) + ih;
+  const float* dOh = static_cast<const float*>(a.dO) + oh;
   const unsigned base = hash_base(a.hash, a.seed, b, h);
 
-  stage_t<T, DH>(Kt, static_cast<const T*>(a.k) + ih, a.isn, k0);
-  stage_t<T, DH>(Vt, static_cast<const T*>(a.v) + ih, a.isn, k0);
+  stage_t<float, DH>(Kt, static_cast<const float*>(a.k) + ih, a.isn, k0);
+  stage_t<float, DH>(Vt, static_cast<const float*>(a.v) + ih, a.isn, k0);
   bool km[4];
 #pragma unroll
   for (int i = 0; i < 4; ++i)
@@ -489,8 +487,8 @@ __global__ void __launch_bounds__(kThreads) dkdv_kernel(const Args a) {
 
   for (int q0 = 0; q0 < N; q0 += kT) {
     __syncthreads();
-    stage_t<T, DH>(Qt, qh, a.isn, q0);
-    stage_t<T, DH>(dOt, dOh, a.osn, q0);
+    stage_t<float, DH>(Qt, qh, a.isn, q0);
+    stage_t<float, DH>(dOt, dOh, a.osn, q0);
     if (tid < kT) {
       const float x = a.lse[sh + q0 + tid];
       const bool live = !a.guard || x >= kDead;
@@ -537,7 +535,7 @@ __global__ void __launch_bounds__(kThreads) dkdv_kernel(const Args a) {
         const bool keep = keep_bit(base, q0 + qj, key, a.thr);
         const float g = keep ? dp[i][j] * a.kscale : 0.f;
         PdT[(rg * 4 + i) * kPad + qj] = keep ? p * a.kscale : 0.f;
-        dST[(rg * 4 + i) * kPad + qj] = round_to<T>(p * (g - Dq[qj]));
+        dST[(rg * 4 + i) * kPad + qj] = p * (g - Dq[qj]);
       }
     }
     __syncthreads();
@@ -564,15 +562,15 @@ __global__ void __launch_bounds__(kThreads) dkdv_kernel(const Args a) {
     }
   }
 
-  T* dkh = static_cast<T*>(a.dk) + ih;
-  T* dvh = static_cast<T*>(a.dv) + ih;
+  float* dkh = static_cast<float*>(a.dk) + ih;
+  float* dvh = static_cast<float*>(a.dv) + ih;
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const long long row = (long long)(k0 + rg * 4 + i) * a.isn;
 #pragma unroll
     for (int t = 0; t < DPT; ++t) {
-      dkh[row + cg + 16 * t] = from_f32<T>(dka[i][t] * a.scale);
-      dvh[row + cg + 16 * t] = from_f32<T>(dva[i][t]);
+      dkh[row + cg + 16 * t] = dka[i][t] * a.scale;
+      dvh[row + cg + 16 * t] = dva[i][t];
     }
   }
 }
@@ -594,51 +592,51 @@ inline bool shape_ok(int B, int H, int N, int Dh) {
          H <= 65535 && head_dim_ok(Dh);
 }
 
-template <typename T, int DH>
+template <int DH>
 cudaError_t launch_fwd(const Args& a, int B, cudaStream_t s) {
   const int bytes = fwd_smem_floats<DH>() * (int)sizeof(float);
-  cudaError_t err = allow_smem(fwd_kernel<T, DH>, bytes);
+  cudaError_t err = allow_smem(fwd_kernel<DH>, bytes);
   if (err != cudaSuccess) return err;
-  fwd_kernel<T, DH><<<dim3(a.N / kT, a.H, B), kThreads, bytes, s>>>(a);
+  fwd_kernel<DH><<<dim3(a.N / kT, a.H, B), kThreads, bytes, s>>>(a);
   return cudaGetLastError();
 }
 
 // dq_kernel writes D, which dkdv_kernel reads after it on the same stream
-template <typename T, int DH>
+template <int DH>
 cudaError_t launch_bwd(const Args& a, int B, cudaStream_t s) {
   const int dq_bytes = dq_smem_floats<DH>() * (int)sizeof(float);
   const int kv_bytes = dkdv_smem_floats<DH>() * (int)sizeof(float);
-  cudaError_t err = allow_smem(dq_kernel<T, DH>, dq_bytes);
-  if (err == cudaSuccess) err = allow_smem(dkdv_kernel<T, DH>, kv_bytes);
+  cudaError_t err = allow_smem(dq_kernel<DH>, dq_bytes);
+  if (err == cudaSuccess) err = allow_smem(dkdv_kernel<DH>, kv_bytes);
   if (err != cudaSuccess) return err;
   const dim3 grid(a.N / kT, a.H, B);
-  dq_kernel<T, DH><<<grid, kThreads, dq_bytes, s>>>(a);
+  dq_kernel<DH><<<grid, kThreads, dq_bytes, s>>>(a);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  dkdv_kernel<T, DH><<<grid, kThreads, kv_bytes, s>>>(a);
+  dkdv_kernel<DH><<<grid, kThreads, kv_bytes, s>>>(a);
   return cudaGetLastError();
 }
 
 // Dispatch on head_dim (shape_ok's). At 128 the dK/dV kernel takes 167 KB
 // of shared memory and the dQ kernel 150 KB: one CTA per SM.
-template <typename T>
-cudaError_t launch_fwd_dh(const Args& a, int B, int Dh, cudaStream_t s) {
+inline cudaError_t launch_fwd_dh(const Args& a, int B, int Dh,
+                                 cudaStream_t s) {
   switch (Dh) {
-    case 16: return launch_fwd<T, 16>(a, B, s);
-    case 32: return launch_fwd<T, 32>(a, B, s);
-    case 64: return launch_fwd<T, 64>(a, B, s);
-    case 128: return launch_fwd<T, 128>(a, B, s);
+    case 16: return launch_fwd<16>(a, B, s);
+    case 32: return launch_fwd<32>(a, B, s);
+    case 64: return launch_fwd<64>(a, B, s);
+    case 128: return launch_fwd<128>(a, B, s);
     default: return cudaErrorInvalidValue;
   }
 }
 
-template <typename T>
-cudaError_t launch_bwd_dh(const Args& a, int B, int Dh, cudaStream_t s) {
+inline cudaError_t launch_bwd_dh(const Args& a, int B, int Dh,
+                                 cudaStream_t s) {
   switch (Dh) {
-    case 16: return launch_bwd<T, 16>(a, B, s);
-    case 32: return launch_bwd<T, 32>(a, B, s);
-    case 64: return launch_bwd<T, 64>(a, B, s);
-    case 128: return launch_bwd<T, 128>(a, B, s);
+    case 16: return launch_bwd<16>(a, B, s);
+    case 32: return launch_bwd<32>(a, B, s);
+    case 64: return launch_bwd<64>(a, B, s);
+    case 128: return launch_bwd<128>(a, B, s);
     default: return cudaErrorInvalidValue;
   }
 }

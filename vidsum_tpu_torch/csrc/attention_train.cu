@@ -17,21 +17,22 @@
 //   vs_at_bwd  a dQ kernel then a dK/dV kernel. D = rowsum(dp * p) over the
 //              full row for _bwd_kernel (a first pass over the keys),
 //              rowsum(dO * o) with the lse guard for _bwd_kernel_folded.
-// Two kernel families serve them, chosen by route and dtype with no
-// fallback between them:
-//   - bf16 on the single-pass route (_fwd_kernel, _bwd_kernel):
-//     attention_train_mma.cuh, every product on the tensor cores (mma.sync
-//     m16n8k16, f32 accumulate), cp.async double-buffered tiles, wholly
-//     padded key tiles skipped; its note gives its bound and design.
-//   - f32, and the folded route in both types: attention_core.cuh's FMA
-//     family, which the training block (block_train.cu) launches too. Its
-//     products are exact f32 FMA from transposed shared-memory tiles, a bf16
-//     input widened exactly and rounded where the TPU kernels round it; dp =
-//     dO . V^T and dV = Pd^T . dO stay f32 x f32. Bound: the forward's
-//     products are 4*d*N*sum(valid keys), the backward's 8*d*N*sum(valid),
-//     d = H*DH: at (4, 4, 8192, 64) 0.27 TFLOP forward, ~4 ms at the card's
-//     67 TFLOP/s f32 peak; the folded bf16 route runs the same FMA path, far
-//     from its tensor-core bound, and no load overlaps compute there yet.
+// Two kernel families serve them, chosen by dtype with no fallback between
+// them:
+//   - bf16, on both routes: attention_train_mma.cuh, every product on the
+//     tensor cores (mma.sync m16n8k16, f32 accumulate), cp.async
+//     double-buffered tiles, wholly padded key tiles skipped; the folded
+//     route is its kernels' online / folded mode (one fused forward pass, D
+//     from the o rows). Its note gives its bound and design.
+//   - f32, on both routes: attention_core.cuh's FMA family, which the
+//     training block (block_train.cu) launches too. Its products are exact
+//     f32 FMA from transposed shared-memory tiles (a TF32 product would not
+//     compute what the TPU's f32 kernels compute), dp = dO . V^T and dV =
+//     Pd^T . dO f32 x f32. Bound: the forward's products are
+//     4*d*N*sum(valid keys), the backward's 8*d*N*sum(valid), d = H*DH: at
+//     (2, 4, 8192, 64) with valid (8100, 5000) 0.11 TFLOP forward, 1.6 ms
+//     at the card's 67 TFLOP/s f32 peak; its loads do not overlap compute
+//     yet.
 // The dropout bits are attention_train.py::_keep_mask_block, a pure function
 // of (seed, element, head, absolute query row, absolute key column), so the
 // tiling is free and both routes and families draw identical bits.
@@ -78,11 +79,9 @@ extern "C" int vs_at_fwd(const void* q, const void* k, const void* v,
   a.lse = lse;
   a.online = online;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == vs::kBF16 && !online)
-    return (int)vs::attn_mma::launch_fwd_dh(a, B, Dh, s);
-  return (int)(dtype == vs::kF32
-                   ? vs::attn::launch_fwd_dh<float>(a, B, Dh, s)
-                   : vs::attn::launch_fwd_dh<__nv_bfloat16>(a, B, Dh, s));
+  return (int)(dtype == vs::kBF16
+                   ? vs::attn_mma::launch_fwd_dh(a, B, Dh, s)
+                   : vs::attn::launch_fwd_dh(a, B, Dh, s));
 }
 
 // folded: 1 for the folded route's backward (D = rowsum(dO * o), o required,
@@ -112,9 +111,7 @@ extern "C" int vs_at_bwd(const void* q, const void* k, const void* v,
   a.d_from_o = folded;
   a.guard = folded;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == vs::kBF16 && !folded)
-    return (int)vs::attn_mma::launch_bwd_dh(a, B, Dh, s);
-  return (int)(dtype == vs::kF32
-                   ? vs::attn::launch_bwd_dh<float>(a, B, Dh, s)
-                   : vs::attn::launch_bwd_dh<__nv_bfloat16>(a, B, Dh, s));
+  return (int)(dtype == vs::kBF16
+                   ? vs::attn_mma::launch_bwd_dh(a, B, Dh, s)
+                   : vs::attn::launch_bwd_dh(a, B, Dh, s));
 }

@@ -1,25 +1,37 @@
-// attention_train_mma: the bf16 single-pass training attention on the tensor
-// cores, for sm_90a.
+// attention_train_mma: the bf16 training attention on the tensor cores, both
+// routes, for sm_90a.
 //
 // Replaces, for bf16 inputs, the TPU kernels
-// vidsum_tpu/ops/attention_train.py:83 _fwd_kernel (normalise-first forward)
-// and :112 _bwd_kernel (its backward, D = rowsum(dp * p) over the full row).
-// f32 and the folded route (_fwd_kernel_folded, _bwd_kernel_folded) keep
-// attention_core.cuh's FMA family. What is computed is the TPU kernels'
-// function, rounded where they round:
+// vidsum_tpu/ops/attention_train.py:83 _fwd_kernel (normalise-first forward),
+// :112 _bwd_kernel (its backward, D = rowsum(dp * p) over the full row),
+// :175 _fwd_kernel_folded (the online forward over key blocks) and
+// :228 _bwd_kernel_folded (its backward, D = rowsum(dO * o), the lse guard).
+// f32 keeps attention_core.cuh's FMA family on both routes: a TF32 product
+// would not compute what the TPU's f32 kernels compute. What is computed is
+// the TPU kernels' function, rounded where they round:
 //   forward   s = q . k^T (bf16 operands, f32 accumulate), scaled, -inf at
-//             padded keys; pass 1 folds the row max m and sum l over the key
-//             tiles; pass 2 p = exp(s - m) / l in f32, dropped and scaled by
-//             1 / (1 - rate), rounded to bf16, then P.V (f32 accumulate);
-//             lse = m + log(l).
-//   backward  p = exp(s - lse); dp = dO . V^T (bf16 values, whose products
-//             are exact in f32: the TPU's f32 x f32 product up to summation
-//             order), dropped; D = rowsum(dp * p); ds = p (dp - D) rounded to
-//             bf16 for dQ = ds . K and dK = ds^T . Q; dV = pd^T . dO with the
-//             dropped pd kept in f32, unrounded, as on the TPU: pd is split
-//             into three bf16 terms (hi = bf16(pd), mid = bf16(pd - hi),
-//             lo = bf16(pd - hi - mid): 3 x 8 significand bits, f32's 24),
-//             each multiplied on the tensor cores.
+//             padded keys.
+//             normalise-first: pass 1 folds the row max m and sum l over the
+//             key tiles; pass 2 p = exp(s - m) / l in f32, dropped and
+//             scaled by 1 / (1 - rate), rounded to bf16, then P.V (f32
+//             accumulate); lse = m + log(l).
+//             online (the folded route): one pass folds m and l with the
+//             _DEAD guards (e = 0 on a row whose max is below _DEAD, the
+//             correction exp(m_old - m) = 0 while m_old is), l sums the raw
+//             e, the dropped e is rounded to bf16 unnormalised against the
+//             tile's running max and o = o * corr + e . V; at the end
+//             o = o / l and lse = m + log(l), or o = 0 and lse = -inf on a
+//             row with l = 0.
+//   backward  p = exp(s - lse) (folded: 0 on a row whose lse is below
+//             _DEAD); dp = dO . V^T (bf16 values, whose products are exact
+//             in f32: the TPU's f32 x f32 product up to summation order),
+//             dropped; D = rowsum(dp * p) over the full row, or (folded)
+//             rowsum(dO * o) from the forward's bf16 o; ds = p (dp - D)
+//             rounded to bf16 for dQ = ds . K and dK = ds^T . Q; dV = pd^T .
+//             dO with the dropped pd kept in f32, unrounded, as on the TPU:
+//             pd is split into three bf16 terms (hi = bf16(pd), mid =
+//             bf16(pd - hi), lo = bf16(pd - hi - mid): 3 x 8 significand
+//             bits, f32's 24), each multiplied on the tensor cores.
 // The dropout bits are attention_core.cuh's kHashAttention family
 // (_keep_mask_block), computed in the accumulator layout: each thread knows
 // the (row, column) of every element it holds, with the row term
@@ -36,22 +48,30 @@
 // from ldmatrix.trans. The streamed tiles (K/V in the forward and dQ, Q/dO
 // with their lse and D in dK/dV) are double-buffered with 16-byte cp.async
 // copies, so tile i + 1 loads while tile i computes. Key tiles whose 64 keys
-// are all padded add exact zeros to every sum and nothing to any max, so the
+// are all padded add exact zeros to every sum and nothing to any max (in the
+// online fold they leave m, l and o bit for bit: corr = exp(0) = 1), so the
 // forward and dQ walk only the live tiles of their element and a dK/dV CTA
-// whose keys are all padded writes zeros; an element with no unpadded key
-// at all walks every tile and gives what the FMA family gives it. The
-// backward is deterministic: dQ per query tile, dK/dV per key tile over the
-// query tiles, no atomics.
+// whose keys are all padded writes zeros. An element with no unpadded key at
+// all walks every tile on the single-pass route and gives what the FMA
+// family gives it (NaN o); on the folded route it walks none and gives
+// o = 0, lse = -inf and zero grads, the FMA family's bits. The folded mode
+// is the single-pass kernels with a template flag: the forward fuses the
+// two passes into one, and dQ takes D from the o and dO rows of its own
+// warp in place of its first pass over the keys. The backward is
+// deterministic: dQ per query tile, dK/dV per key tile over the query
+// tiles, no atomics.
 //
 // Bound on the card (B, H, N, Dh) = (2, 4, 8192, 64), valid (8100, 5000):
-// the forward's products are 4 Dh H N sum(valid) = 0.11 TFLOP, 0.11 ms at the
-// bf16 peak; the backward's q.k^T, dp, dQ, dK at the bf16 peak and dV's three
-// split products: 0.22 + 0.17 TFLOP, 0.39 ms. Below that lies the work per
-// score element (H N sum(valid) = 0.43 G elements a pass): an exp in every
-// pass (2 forward, 3 backward) at 16 MUFU ops per clock and SM, and the
-// ~11-op hash in every dropout pass (1 forward, 3 backward), so the per
-// element floor is ~0.5 ms forward and ~1.2 ms backward: mma.sync is enough
-// to reach it (wgmma and TMA would speed the part already under it).
+// the forward's products are 4 Dh H N sum(valid) = 0.11 TFLOP, 0.11 ms at
+// the bf16 peak on either route; the backward's dp, dQ, dK and dV's three
+// split products 0.33 TFLOP, 0.33 ms (the recompute of s not counted).
+// Below that lies the work per score element (H N sum(valid) = 0.43 G
+// elements a pass): an exp in every pass at 16 MUFU ops per clock and SM,
+// and the ~11-op hash in every dropout pass. The single pass makes 2
+// forward and 3 backward passes (1 and 3 of them hashed), so its floor is
+// ~0.5 ms forward and ~1.2 ms backward; the fold makes 1 and 2 (all
+// hashed), ~0.4 ms and ~0.9 ms. mma.sync is enough to reach that floor
+// (wgmma and TMA would speed the part already under it).
 #pragma once
 
 #include "attention_core.cuh"
@@ -146,10 +166,11 @@ __device__ __forceinline__ void stage_async(bf* dst, const bf* head,
 
 // Warp 0 writes the key tiles of mask row mrow that hold an unpadded key,
 // in order, to tiles[] and their count to *count; a row with no unpadded
-// key keeps every tile. The caller synchronises before reading them.
+// key keeps every tile if all_if_none, else none. The caller synchronises
+// before reading them.
 __device__ __forceinline__ void live_tiles(const unsigned char* mrow,
                                            int ntiles, int* tiles,
-                                           int* count) {
+                                           int* count, bool all_if_none) {
   if (threadIdx.x >= 32) return;
   const int lane = threadIdx.x;
   int n = 0;
@@ -165,7 +186,7 @@ __device__ __forceinline__ void live_tiles(const unsigned char* mrow,
     if (live) tiles[n + __popc(bal & ((1u << lane) - 1u))] = tile;
     n += __popc(bal);
   }
-  if (n == 0) {
+  if (n == 0 && all_if_none) {
     for (int t = lane; t < ntiles; t += 32) tiles[t] = t;
     n = ntiles;
   }
@@ -226,8 +247,15 @@ constexpr int fwd_smem_fixed() {
   return (16 * W + 4 * kT) * (DH + kLdsPad) * 2 + 2 * kT;
 }
 
-template <int DH, int W>
-__global__ void __launch_bounds__(32 * W) fwd_mma_kernel(const Args a) {
+// ONLINE: the folded route's one-pass forward (_fwd_kernel_folded); else
+// the single-pass route's normalise-first one (_fwd_kernel). Both modes ask
+// for two CTAs per SM: at head_dim <= 64 (8 warps) that caps a thread at
+// 128 registers, which both fit without a spill; at 128 (4 warps) it caps
+// nothing. Without it the online mode took 141 registers, one CTA per SM,
+// and an explicit minimum of one CTA slowed the normalise-first mode by a
+// third, in comparisons on the card.
+template <int DH, int W, bool ONLINE>
+__global__ void __launch_bounds__(32 * W, 2) fwd_mma_kernel(const Args a) {
   constexpr int LD = DH + kLdsPad, KS = DH / 16, ND = DH / 8;
   constexpr int TILE = kT * LD, THREADS = 32 * W, ROWS = 16 * W;
   extern __shared__ __align__(16) unsigned char smem[];
@@ -253,7 +281,7 @@ __global__ void __launch_bounds__(32 * W) fwd_mma_kernel(const Args a) {
   stage_async<DH, THREADS>(Qs, static_cast<const bf*>(a.q) + ih, a.isn, q0,
                            ROWS, N);
   cp_async_commit();
-  live_tiles(mrow, ntiles, tiles, count);
+  live_tiles(mrow, ntiles, tiles, count, !ONLINE);
   cp_async_wait<0>();
   __syncthreads();
   const int nlive = *count;
@@ -305,76 +333,127 @@ __global__ void __launch_bounds__(32 * W) fwd_mma_kernel(const Args a) {
                                                       : s[ni][e] * a.scale;
     }
   };
-
-  // pass 1: the row max and the sum of exp(s - max), online over the tiles
-  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
-  load_tile(0, false);
-  for (int i = 0; i < nlive; ++i) {
-    next_tile(i, false);
-    float s[8][4];
-    scores(i & 1, s);
+  // the weights in s, dropped and scaled, into the bf16 A-fragments of P.V
+  auto accumulate = [&](int i, const float (&w)[8][4], float (&o)[ND][4]) {
+    const bf* Vt = Vs + (i & 1) * TILE;
 #pragma unroll
-    for (int hh = 0; hh < 2; ++hh) {
-      float mx = -INFINITY;
-#pragma unroll
-      for (int ni = 0; ni < 8; ++ni)
-        mx = fmaxf(mx, fmaxf(s[ni][2 * hh], s[ni][2 * hh + 1]));
-      const float m_new = fmaxf(m[hh], vs::group_max<4>(mx));
-      const bool none = m_new == -INFINITY;  // no unpadded key yet
-      const float ml = m_new * kLog2e;
-      float rs = 0.f;
-#pragma unroll
-      for (int ni = 0; ni < 8; ++ni)
-#pragma unroll
-        for (int c = 0; c < 2; ++c)
-          rs += none ? 0.f : ex2(fmaf(s[ni][2 * hh + c], kLog2e, -ml));
-      const float corr =
-          m[hh] == -INFINITY ? 0.f : ex2((m[hh] - m_new) * kLog2e);
-      l[hh] = l[hh] * corr + vs::group_sum<4>(rs);
-      m[hh] = m_new;
+    for (int kc = 0; kc < 4; ++kc) {
+      uint32_t pa[4];
+      pack_a<8>(pa, w, kc);
+      mma_cols<DH>(o, pa, Vt + kc * 16 * LD, lane);
     }
-    __syncthreads();  // buffer i & 1 is free for tile i + 2
-  }
+  };
+  // keep bit of element (ni, e) of the tile whose column term is cbase
+  auto keep = [&](unsigned cbase, int ni, int e) {
+    const unsigned col = cbase + (unsigned)(ni * 8) * kColMul + tcol[e & 1];
+    return keep_mix(rowx[e >> 1] ^ col, a.thr);
+  };
 
-  // pass 2: p = e / l, dropped, rounded to bf16, then P.V
-  float ml[2], inv_l[2];
-#pragma unroll
-  for (int hh = 0; hh < 2; ++hh) {
-    ml[hh] = m[hh] * kLog2e;
-    inv_l[hh] = 1.f / l[hh];
-  }
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
   float acc[ND][4];
 #pragma unroll
   for (int nd = 0; nd < ND; ++nd)
 #pragma unroll
     for (int e = 0; e < 4; ++e) acc[nd][e] = 0.f;
-  load_tile(0, true);
-  for (int i = 0; i < nlive; ++i) {
-    next_tile(i, true);
-    float s[8][4];
-    scores(i & 1, s);
-    const unsigned cbase = (unsigned)(tiles[i] * kT) * kColMul;
+
+  if constexpr (ONLINE) {
+    // one pass: the denominator sums the raw e, the dropped unnormalised e
+    // is rounded and accumulated, with the _DEAD guards
+    if (nlive > 0) load_tile(0, true);
+    for (int i = 0; i < nlive; ++i) {
+      next_tile(i, true);
+      float s[8][4];
+      scores(i & 1, s);
+      const unsigned cbase = (unsigned)(tiles[i] * kT) * kColMul;
 #pragma unroll
-    for (int ni = 0; ni < 8; ++ni)
+      for (int hh = 0; hh < 2; ++hh) {
+        float mx = -INFINITY;
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int hh = e >> 1;
-        float p = ex2(fmaf(s[ni][e], kLog2e, -ml[hh])) * inv_l[hh];
-        if (drop) {
-          const unsigned col = cbase + (unsigned)(ni * 8) * kColMul +
-                               tcol[e & 1];
-          p = keep_mix(rowx[hh] ^ col, a.thr) ? p * a.kscale : 0.f;
+        for (int ni = 0; ni < 8; ++ni)
+          mx = fmaxf(mx, fmaxf(s[ni][2 * hh], s[ni][2 * hh + 1]));
+        const float m_new = fmaxf(m[hh], vs::group_max<4>(mx));
+        const bool dead = m_new < attn::kDead;
+        const float m_safe = dead ? 0.f : m_new;
+        const float ml = m_safe * kLog2e;
+        const float corr =
+            m[hh] < attn::kDead ? 0.f : ex2((m[hh] - m_safe) * kLog2e);
+        float rs = 0.f;
+#pragma unroll
+        for (int ni = 0; ni < 8; ++ni)
+#pragma unroll
+          for (int c = 0; c < 2; ++c) {
+            const int e = 2 * hh + c;
+            float ev = dead ? 0.f : ex2(fmaf(s[ni][e], kLog2e, -ml));
+            rs += ev;
+            if (drop) ev = keep(cbase, ni, e) ? ev * a.kscale : 0.f;
+            s[ni][e] = ev;
+          }
+        l[hh] = l[hh] * corr + vs::group_sum<4>(rs);
+        m[hh] = m_new;
+#pragma unroll
+        for (int nd = 0; nd < ND; ++nd) {
+          acc[nd][2 * hh] *= corr;
+          acc[nd][2 * hh + 1] *= corr;
         }
-        s[ni][e] = p;
       }
-    const bf* Vt = Vs + (i & 1) * TILE;
-#pragma unroll
-    for (int kc = 0; kc < 4; ++kc) {
-      uint32_t pa[4];
-      pack_a<8>(pa, s, kc);
-      mma_cols<DH>(acc, pa, Vt + kc * 16 * LD, lane);
+      accumulate(i, s, acc);
+      __syncthreads();  // buffer i & 1 is free for tile i + 2
     }
-    __syncthreads();
+  } else {
+    // pass 1: the row max and the sum of exp(s - max), online over the tiles
+    load_tile(0, false);
+    for (int i = 0; i < nlive; ++i) {
+      next_tile(i, false);
+      float s[8][4];
+      scores(i & 1, s);
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        float mx = -INFINITY;
+#pragma unroll
+        for (int ni = 0; ni < 8; ++ni)
+          mx = fmaxf(mx, fmaxf(s[ni][2 * hh], s[ni][2 * hh + 1]));
+        const float m_new = fmaxf(m[hh], vs::group_max<4>(mx));
+        const bool none = m_new == -INFINITY;  // no unpadded key yet
+        const float ml = m_new * kLog2e;
+        float rs = 0.f;
+#pragma unroll
+        for (int ni = 0; ni < 8; ++ni)
+#pragma unroll
+          for (int c = 0; c < 2; ++c)
+            rs += none ? 0.f : ex2(fmaf(s[ni][2 * hh + c], kLog2e, -ml));
+        const float corr =
+            m[hh] == -INFINITY ? 0.f : ex2((m[hh] - m_new) * kLog2e);
+        l[hh] = l[hh] * corr + vs::group_sum<4>(rs);
+        m[hh] = m_new;
+      }
+      __syncthreads();  // buffer i & 1 is free for tile i + 2
+    }
+
+    // pass 2: p = e / l, dropped, rounded to bf16, then P.V
+    float ml[2], inv_l[2];
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      ml[hh] = m[hh] * kLog2e;
+      inv_l[hh] = 1.f / l[hh];
+    }
+    load_tile(0, true);
+    for (int i = 0; i < nlive; ++i) {
+      next_tile(i, true);
+      float s[8][4];
+      scores(i & 1, s);
+      const unsigned cbase = (unsigned)(tiles[i] * kT) * kColMul;
+#pragma unroll
+      for (int ni = 0; ni < 8; ++ni)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int hh = e >> 1;
+          float p = ex2(fmaf(s[ni][e], kLog2e, -ml[hh])) * inv_l[hh];
+          if (drop) p = keep(cbase, ni, e) ? p * a.kscale : 0.f;
+          s[ni][e] = p;
+        }
+      accumulate(i, s, acc);
+      __syncthreads();
+    }
   }
 
   const long long oh = b * a.osb + h * a.osh;
@@ -383,12 +462,19 @@ __global__ void __launch_bounds__(32 * W) fwd_mma_kernel(const Args a) {
   for (int hh = 0; hh < 2; ++hh) {
     const int n = q0 + r + 8 * hh;
     if (n >= N) continue;
+    float f = 1.f, ls = m[hh] + logf(l[hh]);
+    if (ONLINE) {  // a row with no unpadded key: o = 0, lse = -inf
+      const bool empty = l[hh] == 0.f;
+      f = empty ? 0.f : 1.f / l[hh];
+      ls = empty ? -INFINITY : ls;
+    }
     bf* orow = static_cast<bf*>(a.out) + oh + (long long)n * a.osn;
 #pragma unroll
     for (int nd = 0; nd < ND; ++nd)
       *reinterpret_cast<__nv_bfloat162*>(orow + nd * 8 + 2 * t) =
-          __floats2bfloat162_rn(acc[nd][2 * hh], acc[nd][2 * hh + 1]);
-    if (t == 0 && a.lse != nullptr) a.lse[sh + n] = m[hh] + logf(l[hh]);
+          __floats2bfloat162_rn(acc[nd][2 * hh] * f,
+                                acc[nd][2 * hh + 1] * f);
+    if (t == 0 && a.lse != nullptr) a.lse[sh + n] = ls;
   }
 }
 
@@ -399,7 +485,9 @@ constexpr int dq_smem_fixed() {
   return (32 * W + 4 * kT) * (DH + kLdsPad) * 2 + 2 * kT;
 }
 
-template <int DH, int W>
+// FOLDED: the folded route's backward (_bwd_kernel_folded: D = rowsum(dO *
+// o), p = 0 on rows whose lse is below _DEAD); else the single-pass one
+template <int DH, int W, bool FOLDED>
 __global__ void __launch_bounds__(32 * W, DH >= 128 ? 1 : 16 / W)
     dq_mma_kernel(const Args a) {
   constexpr int LD = DH + kLdsPad, KS = DH / 16, ND = DH / 8;
@@ -432,13 +520,16 @@ __global__ void __launch_bounds__(32 * W, DH >= 128 ? 1 : 16 / W)
   stage_async<DH, THREADS>(dOs, static_cast<const bf*>(a.dO) + oh, a.osn,
                            q0, ROWS, N);
   cp_async_commit();
-  live_tiles(mrow, ntiles, tiles, count);
-  float ll[2];  // lse * log2(e) of rows r and r + 8 (0 past N)
+  live_tiles(mrow, ntiles, tiles, count, !FOLDED);
+  // lse * log2(e) of rows r and r + 8 (0 past N); folded, +inf on a row
+  // whose lse is below _DEAD, so that its p = exp2(s log2(e) - inf) = 0
+  float ll[2];
   unsigned rowx[2], tcol[2];
 #pragma unroll
   for (int hh = 0; hh < 2; ++hh) {
     const int n = q0 + r + 8 * hh;
-    ll[hh] = n < N ? a.lse[sh + n] * kLog2e : 0.f;
+    const float x = n < N ? a.lse[sh + n] : 0.f;
+    ll[hh] = FOLDED && !(x >= attn::kDead) ? INFINITY : x * kLog2e;
     rowx[hh] = base ^ ((unsigned)(q0 + r + 8 * hh) * kRowMul);
     tcol[hh] = (unsigned)(2 * t + hh) * kColMul;
   }
@@ -504,24 +595,49 @@ __global__ void __launch_bounds__(32 * W, DH >= 128 ? 1 : 16 / W)
       }
   };
 
-  // D = rowsum(dp * p) over the full row
-  float part[2] = {0.f, 0.f};
-  load_tile(0);
-  for (int i = 0; i < nlive; ++i) {
-    next_tile(i);
-    float p[8][4], dp[8][4];
-    probs(i, p, dp);
-#pragma unroll
-    for (int ni = 0; ni < 8; ++ni)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) part[e >> 1] += dp[ni][e] * p[ni][e];
-    __syncthreads();
-  }
   float Dr[2];
+  if constexpr (FOLDED) {
+    // D = rowsum(dO * o) over the warp's own rows: dO from shared memory,
+    // the forward's o from device memory, pairs at columns 8 j + 2 t
+    const bf* o_h = static_cast<const bf*>(a.o) + oh;
 #pragma unroll
-  for (int hh = 0; hh < 2; ++hh) {
-    Dr[hh] = vs::group_sum<4>(part[hh]);
-    if (t == 0 && q0 + r + 8 * hh < N) a.D[sh + q0 + r + 8 * hh] = Dr[hh];
+    for (int hh = 0; hh < 2; ++hh) {
+      const int n = q0 + r + 8 * hh;
+      float part = 0.f;
+      if (n < N) {
+        const bf* orow = o_h + (long long)n * a.osn;
+        const bf* drow = dOs + (r + 8 * hh) * LD;
+#pragma unroll
+        for (int c = 2 * t; c < DH; c += 8) {
+          const float2 ov = __bfloat1622float2(
+              *reinterpret_cast<const __nv_bfloat162*>(orow + c));
+          const float2 dv = __bfloat1622float2(
+              *reinterpret_cast<const __nv_bfloat162*>(drow + c));
+          part += dv.x * ov.x + dv.y * ov.y;
+        }
+      }
+      Dr[hh] = vs::group_sum<4>(part);
+      if (t == 0 && n < N) a.D[sh + n] = Dr[hh];
+    }
+  } else {
+    // D = rowsum(dp * p) over the full row
+    float part[2] = {0.f, 0.f};
+    load_tile(0);
+    for (int i = 0; i < nlive; ++i) {
+      next_tile(i);
+      float p[8][4], dp[8][4];
+      probs(i, p, dp);
+#pragma unroll
+      for (int ni = 0; ni < 8; ++ni)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) part[e >> 1] += dp[ni][e] * p[ni][e];
+      __syncthreads();
+    }
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      Dr[hh] = vs::group_sum<4>(part[hh]);
+      if (t == 0 && q0 + r + 8 * hh < N) a.D[sh + q0 + r + 8 * hh] = Dr[hh];
+    }
   }
 
   // dQ = bf16(p (dp - D)) . K
@@ -530,7 +646,7 @@ __global__ void __launch_bounds__(32 * W, DH >= 128 ? 1 : 16 / W)
   for (int nd = 0; nd < ND; ++nd)
 #pragma unroll
     for (int e = 0; e < 4; ++e) acc[nd][e] = 0.f;
-  load_tile(0);
+  if (nlive > 0) load_tile(0);
   for (int i = 0; i < nlive; ++i) {
     next_tile(i);
     float p[8][4], dp[8][4];
@@ -573,7 +689,8 @@ constexpr int dkdv_smem_bytes() {
   return (32 * W + 4 * kT) * (DH + kLdsPad) * 2 + 4 * kT * 4;
 }
 
-template <int DH, int W>
+// FOLDED: p = 0 on query rows whose lse is below _DEAD (_bwd_kernel_folded)
+template <int DH, int W, bool FOLDED>
 __global__ void __launch_bounds__(32 * W, DH >= 128 ? 1 : 12 / W)
     dkdv_mma_kernel(const Args a) {
   constexpr int LD = DH + kLdsPad, KS = DH / 16, ND = DH / 8;
@@ -600,7 +717,8 @@ __global__ void __launch_bounds__(32 * W, DH >= 128 ? 1 : 12 / W)
   bf* dvh = static_cast<bf*>(a.dv) + ih;
 
   // keys whose 16 W are all padded get exact zeros, unless no key of the
-  // element is unpadded (then every tile runs, as in dQ)
+  // element is unpadded on the single-pass route (then every tile runs, as
+  // in dQ; on the folded route every row of such an element is dead)
   bool mine = false, any = false;
   for (int c = tid * 16; c < N; c += THREADS * 16) {
     const bool live = any_live16(mrow + c);
@@ -609,7 +727,7 @@ __global__ void __launch_bounds__(32 * W, DH >= 128 ? 1 : 12 / W)
   }
   any = __syncthreads_or(any);
   mine = __syncthreads_or(mine);
-  if (any && !mine) {
+  if ((any || FOLDED) && !mine) {
     const __nv_bfloat162 z = __floats2bfloat162_rn(0.f, 0.f);
 #pragma unroll
     for (int hh = 0; hh < 2; ++hh) {
@@ -666,6 +784,14 @@ __global__ void __launch_bounds__(32 * W, DH >= 128 ? 1 : 12 / W)
       cp_async_wait<1>();
     } else {
       cp_async_wait<0>();
+    }
+    if (FOLDED && tid < kT / 4) {
+      // the lse guard, by the thread whose copy just landed: +inf on a
+      // dead row, so that its p = exp2(s log2(e) - inf) = 0 below
+      float* x = Ls + (qt & 1) * kT + 4 * tid;
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        if (!(x[j] >= attn::kDead)) x[j] = INFINITY;
     }
     __syncthreads();
     const int buf = qt & 1;
@@ -754,6 +880,7 @@ __global__ void __launch_bounds__(32 * W, DH >= 128 ? 1 : 12 / W)
 
 // ------------------------------------------------------------------ launches
 // The mma route reads 16-byte chunks of q, k, v, dO, the mask, lse and D
+// (and, folded, o by pairs: the wrapper gives it aligned too)
 inline bool aligned16(const void* p) {
   return reinterpret_cast<uintptr_t>(p) % 16 == 0;
 }
@@ -768,48 +895,65 @@ inline bool layout_ok(const Args& a) {
 // CTAs along N for W warps (16 W rows each; the last may be ragged)
 inline unsigned ctas(int N, int W) { return (N + 16 * W - 1) / (16 * W); }
 
-template <int DH>
+template <int DH, bool ONLINE>
 cudaError_t launch_fwd(const Args& a, int B, cudaStream_t s) {
   constexpr int W = kFwdWarps<DH>;
   if (!layout_ok(a)) return cudaErrorMisalignedAddress;
   const int bytes = fwd_smem_fixed<DH, W>() + (a.N / kT + 1) * 4;
-  cudaError_t err = attn::allow_smem(fwd_mma_kernel<DH, W>, bytes);
+  cudaError_t err = attn::allow_smem(fwd_mma_kernel<DH, W, ONLINE>, bytes);
   if (err != cudaSuccess) return err;
-  fwd_mma_kernel<DH, W>
+  fwd_mma_kernel<DH, W, ONLINE>
       <<<dim3(ctas(a.N, W), a.H, B), 32 * W, bytes, s>>>(a);
   return cudaGetLastError();
 }
 
 // dq_mma_kernel writes D, which dkdv_mma_kernel reads after it on the same
 // stream
-template <int DH>
+template <int DH, bool FOLDED>
 cudaError_t launch_bwd(const Args& a, int B, cudaStream_t s) {
   if (!layout_ok(a) || !aligned16(a.dO) || !aligned16(a.lse) ||
-      !aligned16(a.D))
+      !aligned16(a.D) || (FOLDED && !aligned16(a.o)))
     return cudaErrorMisalignedAddress;
   constexpr int WQ = kDqWarps<DH>, WK = kDkdvWarps;
   const int dq_bytes = dq_smem_fixed<DH, WQ>() + (a.N / kT + 1) * 4;
   const int kv_bytes = dkdv_smem_bytes<DH, WK>();
-  cudaError_t err = attn::allow_smem(dq_mma_kernel<DH, WQ>, dq_bytes);
+  cudaError_t err =
+      attn::allow_smem(dq_mma_kernel<DH, WQ, FOLDED>, dq_bytes);
   if (err == cudaSuccess)
-    err = attn::allow_smem(dkdv_mma_kernel<DH, WK>, kv_bytes);
+    err = attn::allow_smem(dkdv_mma_kernel<DH, WK, FOLDED>, kv_bytes);
   if (err != cudaSuccess) return err;
-  dq_mma_kernel<DH, WQ>
+  dq_mma_kernel<DH, WQ, FOLDED>
       <<<dim3(ctas(a.N, WQ), a.H, B), 32 * WQ, dq_bytes, s>>>(a);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  dkdv_mma_kernel<DH, WK>
+  dkdv_mma_kernel<DH, WK, FOLDED>
       <<<dim3(ctas(a.N, WK), a.H, B), 32 * WK, kv_bytes, s>>>(a);
   return cudaGetLastError();
 }
 
+template <int DH>
+cudaError_t launch_fwd_route(const Args& a, int B, cudaStream_t s) {
+  return a.online ? launch_fwd<DH, true>(a, B, s)
+                  : launch_fwd<DH, false>(a, B, s);
+}
+
+// the folded backward takes both D = rowsum(dO * o) and the lse guard
+template <int DH>
+cudaError_t launch_bwd_route(const Args& a, int B, cudaStream_t s) {
+  if (a.d_from_o != a.guard) return cudaErrorInvalidValue;
+  return a.d_from_o ? launch_bwd<DH, true>(a, B, s)
+                    : launch_bwd<DH, false>(a, B, s);
+}
+
+// Dispatch on head_dim (attn::shape_ok's) and, through a.online and
+// a.d_from_o, on the route
 inline cudaError_t launch_fwd_dh(const Args& a, int B, int Dh,
                                  cudaStream_t s) {
   switch (Dh) {
-    case 16: return launch_fwd<16>(a, B, s);
-    case 32: return launch_fwd<32>(a, B, s);
-    case 64: return launch_fwd<64>(a, B, s);
-    case 128: return launch_fwd<128>(a, B, s);
+    case 16: return launch_fwd_route<16>(a, B, s);
+    case 32: return launch_fwd_route<32>(a, B, s);
+    case 64: return launch_fwd_route<64>(a, B, s);
+    case 128: return launch_fwd_route<128>(a, B, s);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -817,10 +961,10 @@ inline cudaError_t launch_fwd_dh(const Args& a, int B, int Dh,
 inline cudaError_t launch_bwd_dh(const Args& a, int B, int Dh,
                                  cudaStream_t s) {
   switch (Dh) {
-    case 16: return launch_bwd<16>(a, B, s);
-    case 32: return launch_bwd<32>(a, B, s);
-    case 64: return launch_bwd<64>(a, B, s);
-    case 128: return launch_bwd<128>(a, B, s);
+    case 16: return launch_bwd_route<16>(a, B, s);
+    case 32: return launch_bwd_route<32>(a, B, s);
+    case 64: return launch_bwd_route<64>(a, B, s);
+    case 128: return launch_bwd_route<128>(a, B, s);
     default: return cudaErrorInvalidValue;
   }
 }

@@ -442,7 +442,7 @@ extern "C" int vs_bt_attention_fwd(const float* qkv,
   a.mask = mask;
   a.out = o;
   a.lse = lse;
-  return (int)vs::attn::launch_fwd_dh<float>(
+  return (int)vs::attn::launch_fwd_dh(
       a, B, Dh, static_cast<cudaStream_t>(stream));
 }
 
@@ -465,6 +465,6 @@ extern "C" int vs_bt_attention_bwd(const float* qkv, const float* o,
   a.dk = dqkv + d;
   a.dv = dqkv + 2 * d;
   a.d_from_o = 1;
-  return (int)vs::attn::launch_bwd_dh<float>(
+  return (int)vs::attn::launch_bwd_dh(
       a, B, Dh, static_cast<cudaStream_t>(stream));
 }

@@ -24,22 +24,27 @@ both dtypes (the cotangent is rounded to q's dtype and widened), and ds is
 rounded to q's dtype before dq = ds . k and dk = ds^T . q.
 
 Here the four entry points map onto ``csrc/attention_train.cu``, which
-launches one of two kernel families, by route and dtype:
+launches one of two kernel families, by dtype, on both routes:
 
-- bf16 on the single-pass route (``_fwd_kernel``, ``_bwd_kernel``):
-  ``csrc/attention_train_mma.cuh``, every product on the tensor cores
+- bf16: ``csrc/attention_train_mma.cuh``, every product on the tensor cores
   (``mma.sync``, f32 accumulate; dv's f32 pd as three bf16 terms),
-  double-buffered ``cp.async`` tiles, wholly padded key tiles skipped;
-- f32, and the folded route in both dtypes: the FMA family of
-  ``csrc/attention_core.cuh`` (the training block's chain runs it too).
+  double-buffered ``cp.async`` tiles, wholly padded key tiles skipped. The
+  folded route is a mode of the same kernels: its forward fuses the two
+  passes into one online pass, its dQ kernel takes D from the o rows in
+  place of a pass over the keys. Bound at (2, 4, 8,192, 64): the products
+  at the bf16 peak, 0.11 ms forward and 0.33 ms backward; below that, an
+  exp and a hash per score element in every pass.
+- f32: the FMA family of ``csrc/attention_core.cuh`` (the training block's
+  chain runs it too), exact f32 products, since TF32 would not compute
+  what the TPU's f32 kernels compute.
 
-Each has one forward kernel (normalise-first: two passes; the FMA family
-also an online mode) and one backward pair, dQ per query tile and dK/dV per
-key tile, with a D mode.
+Each has one forward kernel (normalise-first: two passes; online: one) and
+one backward pair, dQ per query tile and dK/dV per key tile, with a D mode.
 Blocks stream 64-key tiles through shared memory, so the TPU's ``kb`` is a
-VMEM tactic: the plain folded versions fold over it, the kernel over its own
-tiles (in f32 the two differ by summation order; in bf16 by where the
-unnormalised e is rounded, as for ``ops/attention._flash_attention_folded``).
+VMEM tactic: the plain folded versions fold over it, the kernels over their
+own tiles (in f32 the two differ by summation order; in bf16 by where the
+unnormalised e is rounded, as for ``ops/attention._flash_attention_folded``:
+the card's checks fold the plain version over ``KEY_TILE``).
 Each wrapper runs its plain version on CPU tensors and its kernel on CUDA
 tensors, never a fallback, and counts its launches in ``launches``.
 """
@@ -315,7 +320,7 @@ def _launch_bwd(q, k, v, pad_mask, seed: int, lse, do, o, rate: float,
     do = _cuda.aligned16(do.to(q.dtype).contiguous())
     lse = _cuda.aligned16(lse.float().contiguous())
     if o is not None:
-        o = o.to(q.dtype).contiguous()
+        o = _cuda.aligned16(o.to(q.dtype).contiguous())
     if do.shape != q.shape or lse.shape != (B, H, N) or (
             o is not None and o.shape != q.shape):
         raise ValueError("do (and o) must be (B, H, N, Dh), lse (B, H, N)")
