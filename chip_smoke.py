@@ -12,12 +12,17 @@ caught and passed over):
 2. build: every CUDA kernel of the path (``nvcc``, one process per source,
    started together) and the host C++ eval runtime (``g++``), from this
    checkout's sources; the compilers' register/shared-memory report goes to
-   stderr.
+   stderr, and the registers and spill bytes of every instantiation of the
+   bf16 serving attention (``masked_attention_mma_kernel``) to the build
+   line.
 3. kernels: each route of the two hand-written kernels against its plain
    PyTorch version on the card, in bf16 and f32 (TF32 off), at the shapes
    the serving path gives it: the fused block at (B, N) = (32, 512) (the
    per-element route) and (8, 256) (the grouped route), flash attention at
-   N = 6,016 (single pass) and 16,384 (key-folded). Each prints its max abs
+   N = 6,016 and 1,280 (single pass; 1,280 is the bucket of the serve
+   phase's 1,200-frame request, whose fused blocks run this attention at
+   that shape in the same order) and 16,384 (key-folded). Each prints its
+   max abs
    and relative RMS error and its tolerance (for attention also the error
    of a planted fault, one key tile dropped, which must fail that
    tolerance, and in bf16 the error against the other order of rounding P,
@@ -27,6 +32,10 @@ caught and passed over):
    timed as a yardstick only; the port never calls them), and the bound:
    the larger of the bytes the function must move over the card's memory
    rate and its operations over the card's peak rate for the input type.
+   Then the bf16 serving attention alone at the shapes the serving path
+   gives it, in both CTA shapes (64 and 128 query rows, timed in turns;
+   both must give the same bits): the comparison behind
+   ``ops/attention.mma_cta_rows``.
    int8 kernels: TPU kernels 13/14 (``ops/block_kernel_int8.py``: the
    int8 GEMM and quantizer of ``csrc/int8_gemm.cu`` with
    ``csrc/masked_attention.cu``) at (32, 512) and (8, 256), bf16 and f32,
@@ -267,6 +276,13 @@ INT8_VS_BF16 = dict(median=2e-2, max=1.5e-1)
 # branch in kernel and plain version (their difference is < 2e-5 of the RMS)
 NEAR_ZERO = 2e-4
 ROUNDING_NORM = 1e-6
+# what the kernels line says of TPU kernels 3 and 4's bf16 kernel
+SERVING_ATTENTION_DESIGN = (
+    "bf16: masked_attention_mma_kernel, mma.sync m16n8k16 on K/V tiles "
+    "double-buffered by 16-byte cp.async, only the 64-key tiles that hold an "
+    "unpadded key walked, 128-query CTAs (8 warps) where the grid fills the "
+    "card else 64 (ops/attention.mma_cta_rows), exp as ex2.approx, at most "
+    "128 registers a thread at 8 warps; f32: the exact FMA kernel")
 
 
 def emit(phase: str, **kw) -> None:
@@ -402,7 +418,41 @@ def phase_device() -> dict:
     return {"smi": smi, "name": name}
 
 
-def phase_build() -> None:
+def ptxas_report(log: str, kernel: str) -> list:
+    """Registers and spill bytes (stores, loads) that ``ptxas -v`` reports
+    for each instantiation of ``kernel`` in an nvcc log, by demangled name
+    (``c++filt``) where the toolkit's host has it."""
+    import re
+
+    out, cur = [], None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            cur = {"kernel": m.group(1)}
+            out.append(cur)
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m and cur is not None:
+            cur["spill"] = [int(m.group(1)), int(m.group(2))]
+        m = re.search(r"Used (\d+) registers", line)
+        if m and cur is not None:
+            cur["registers"] = int(m.group(1))
+    try:
+        names = subprocess.run(["c++filt"], input="\n".join(
+            o["kernel"] for o in out), capture_output=True, text=True,
+            timeout=60).stdout.splitlines()
+    except OSError:
+        names = []
+    for o, name in zip(out, names):
+        o["kernel"] = name.replace("(anonymous namespace)::",
+                                   "").split("(")[0].removeprefix("void ")
+    return [o for o in out if kernel in o["kernel"]]
+
+
+def phase_build() -> list:
+    """Builds every kernel; returns ptxas's registers and spills of the
+    bf16 serving attention's instantiations."""
     from vidsum_tpu_torch import native
     from vidsum_tpu_torch.native import build as native_build
     from vidsum_tpu_torch.ops import _cuda
@@ -417,10 +467,16 @@ def phase_build() -> None:
     if not native.available():
         raise RuntimeError(f"native eval runtime did not load: "
                            f"{native.load_error()}")
+    regs = ptxas_report(logs["masked_attention"],
+                        "masked_attention_mma_kernel")
+    if not regs:
+        raise RuntimeError("ptxas reported no masked_attention_mma_kernel")
     emit("build", cuda_s=round(t_cuda, 3),
          native_s=round(time.monotonic() - t1, 3),
          libraries=sorted(os.path.basename(_cuda.lib_path(n))
-                          for n in _cuda.KERNELS))
+                          for n in _cuda.KERNELS),
+         masked_attention_mma_ptxas=regs)
+    return regs
 
 
 def library_block(block, d: int, H: int, dtype, dropout: float = 0.0):
@@ -524,8 +580,13 @@ def phase_kernels(dev: dict, seed: int) -> dict:
                                   bound_ms=b_ms, bound_by=b_by,
                                   library_ms=lib_ms)
 
+    # kernel 3 at N 6,016 (its row in the kernels line) and at 1,280 (the
+    # bucket of the serve phase's 1,200-frame request, whose fused blocks
+    # run this attention at that shape: a grid of 40 128-row CTAs), kernel
+    # 4 at 16,384
     for N, route in ((6016, "_flash_attention"),
-                     (16384, "_flash_attention_folded")):
+                     (16384, "_flash_attention_folded"),
+                     (1280, "_flash_attention")):
         B = 1
         mask = pad_mask(B, N, rng, cuda)
         valid = int((~mask).sum())
@@ -579,8 +640,15 @@ def phase_kernels(dev: dict, seed: int) -> dict:
                     q, k, v, mask, cfg.attn_scale), reps=10)
                 plain_ms = cuda_ms(plain, reps=3, warmup=1)
                 keep = ~mask[:, None, None, :]
-                lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
-                    q, k, v, attn_mask=keep, scale=cfg.attn_scale), reps=10)
+                sdpa = lambda: F.scaled_dot_product_attention(  # noqa: E731
+                    q, k, v, attn_mask=keep, scale=cfg.attn_scale)
+                lib_ms = cuda_ms(sdpa, reps=10)
+                # the kernels' own device time (torch.profiler), without
+                # the host time that a single call's CUDA events take in
+                device = {
+                    "kernel": device_profile(lambda: at.flash_attention(
+                        q, k, v, mask, cfg.attn_scale), reps=10)["device_ms"],
+                    "library": device_profile(sdpa, reps=10)["device_ms"]}
             itm = q.element_size()
             flops = 4 * H * Dh * N * valid
             nbytes = 4 * B * H * N * Dh * itm + B * N
@@ -588,13 +656,66 @@ def phase_kernels(dev: dict, seed: int) -> dict:
             emit("kernel", route=route, B=B, N=N, dtype=dn, max_abs_err=err,
                  rel_rms_err=rel, rel_rms_err_other_order=rel_other,
                  tolerance=tol, dropped_tile_err=[fault_err, fault_rel],
-                 ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms,
+                 ms=ms, device_ms=device, plain_ms=plain_ms,
+                 library_ms=lib_ms, bound_ms=b_ms,
                  bound_by=b_by, flops=flops, bytes=nbytes)
             if dtype == torch.bfloat16:
-                out[route] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                                  bound_ms=b_ms, bound_by=b_by,
-                                  library_ms=lib_ms)
+                point = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                             bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms,
+                             device_ms=device)
+                if route in out:  # kernel 3's second point
+                    out[route]["at_n1280"] = point
+                else:
+                    out[route] = point
+    attention_cta_variants(rng)
     return out
+
+
+def attention_cta_variants(rng) -> None:
+    """The bf16 serving attention alone at the shapes the serving path
+    gives it (the blocks' (32, 512) and (8, 256), kernel 3 at N 1,280 and
+    6,016, kernel 4 at 16,384; H 4, head_dim 64, ragged masks), in both CTA
+    shapes, each shape's device time (torch.profiler, 10 calls) taken in
+    turns (64, 128, 128, 64 query rows): the comparison
+    behind ``ops/attention.mma_cta_rows``. Both shapes must give the same
+    bits."""
+    import numpy as np
+    import torch
+
+    from vidsum_tpu_torch.ops import attention as at
+
+    cuda = torch.device("cuda")
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    H, Dh = 4, 64
+    rows = []
+    for B, N, norm_first in ((32, 512, True), (8, 256, True),
+                             (1, 1280, True), (1, 6016, True),
+                             (1, 16384, False)):
+        mask = pad_mask(B, N, rng, cuda)
+        q, k, v = (torch.from_numpy(rng.normal(size=(B, H, N, Dh)).astype(
+            np.float32)).to(cuda, torch.bfloat16) for _ in range(3))
+
+        def run(r):
+            pick = at.mma_cta_rows
+            at.mma_cta_rows = lambda *a: r  # the shape under test
+            try:
+                return at.masked_attention(q, k, v, mask, 0.125,
+                                           norm_first=norm_first)
+            finally:
+                at.mma_cta_rows = pick
+
+        with torch.inference_mode():
+            if not torch.equal(run(64), run(128)):
+                raise AssertionError(f"({B}, {N}): the two CTA shapes give "
+                                     f"different bits")
+            times = {64: [], 128: []}
+            for r in (64, 128, 128, 64):
+                times[r].append(device_profile(lambda: run(r),
+                                               reps=10)["device_ms"])
+        rows.append({"B": B, "N": N, "norm_first": norm_first,
+                     "picked": at.mma_cta_rows(B, H, N, Dh, sms),
+                     "device_ms_64": times[64], "device_ms_128": times[128]})
+    emit("attention_cta_variants", sms=sms, shapes=rows)
 
 
 def diff_stats(got, want) -> dict:
@@ -2805,7 +2926,7 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
 
     dev = phase_device()
-    phase_build()
+    mma_regs = phase_build()
     timings = phase_kernels(dev, args.seed)
     timings.update(phase_int8_kernels(dev, args.seed))
     probe_timings, probe_launches = phase_int8_probe(dev)
@@ -2856,17 +2977,19 @@ def main() -> int:
         "_ring_train_step_bwd": "vidsum_tpu/parallel/ring_attention.py:478",
     }
     csrc = "vidsum_tpu_torch/csrc/"
-    block_src = [csrc + "gemm_bias_epilogue.cu", csrc + "masked_attention.cu"]
-    attn_src = [csrc + "masked_attention.cu"]
+    block_src = [csrc + "gemm_bias_epilogue.cu", csrc + "masked_attention.cu",
+                 csrc + "mma_tiles.cuh"]
+    attn_src = [csrc + "masked_attention.cu", csrc + "mma_tiles.cuh"]
     train_src = [csrc + "block_train.cu"]
     attn_train_src = [csrc + "attention_train.cu",
                       csrc + "attention_core.cuh"]
     attn_mma_src = [csrc + "attention_train_mma.cuh",
-                    csrc + "attention_train.cu"]
+                    csrc + "attention_train.cu", csrc + "mma_tiles.cuh"]
     mma_routes = {attn_train_name(r) for r in ("_fwd_kernel", "_bwd_kernel")
                   } | {attn_train_name(r) + ".bf16"
                        for r in ("_fwd_kernel_folded", "_bwd_kernel_folded")}
-    int8_src = [csrc + "int8_gemm.cu", csrc + "masked_attention.cu"]
+    int8_src = [csrc + "int8_gemm.cu", csrc + "masked_attention.cu",
+                csrc + "mma_tiles.cuh"]
     ring_src = [csrc + "ring_attention.cu", csrc + "attention_core.cuh"]
     names = {"_fused_block_int8": "block_int8",
              "_fused_block_int8_grouped": "block_int8_grouped",
@@ -2882,10 +3005,14 @@ def main() -> int:
                 else [csrc + "gemm_bias_epilogue.cu"] if route == "mm_bf16"
                 else [csrc + "int8_gemm.cu"] if route == "mm_int8"
                 else block_src if "block" in route else attn_src)
-        kernels.append({"name": names.get(route, route.lstrip("_")),
-                        "route": "cuda", "source": srcs[0], "sources": srcs,
-                        "replaces": rep, "launches": counts[route],
-                        **timings[route]})
+        entry = {"name": names.get(route, route.lstrip("_")),
+                 "route": "cuda", "source": srcs[0], "sources": srcs,
+                 "replaces": rep, "launches": counts[route],
+                 **timings[route]}
+        if route in ("_flash_attention", "_flash_attention_folded"):
+            entry["design"] = SERVING_ATTENTION_DESIGN
+            entry["ptxas"] = [r for r in mma_regs if "<64," in r["kernel"]]
+        kernels.append(entry)
     print(dev["smi"], flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

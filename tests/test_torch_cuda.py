@@ -118,25 +118,88 @@ def test_kernels_refuse_shapes_no_configuration_has(cuda):
 @pytest.mark.parametrize("norm_first", [True, False])
 @pytest.mark.parametrize("Dh,aligned", [(16, True), (32, True), (64, True),
                                         (64, False), (128, True)])
+@pytest.mark.parametrize("N,valid", [(200, None), (520, (70, 455))])
 def test_masked_attention_matches_plain(cuda, dtype, norm_first, Dh,
-                                        aligned):
+                                        aligned, N, valid):
     """Strided views of one QKV buffer and a ragged last tile; an odd row
     stride takes the unvectorised loads. Each order of rounding P against
-    its plain version (the CPU path of the same wrapper)."""
+    its plain version (the CPU path of the same wrapper). N 520 with valid
+    lengths (70, 455): element 0's padded tail spans six wholly padded
+    64-key tiles and a ragged one, element 1's the ragged one (the tiles
+    the bf16 kernel skips), and the mask rows lie off 16-byte
+    boundaries."""
     g = torch.Generator(device="cpu").manual_seed(2)
-    B, H, N = 2, 3, 200
+    B, H = 2, 3
     width = 3 * H * Dh + (0 if aligned else 1)
     buf = torch.randn(B, N, width, generator=g).to(cuda, dtype)
     qkv = buf[..., width - 3 * H * Dh:].view(B, N, 3, H, Dh) if aligned \
         else buf[..., 1:].unflatten(-1, (3, H, Dh))
     q, k, v = (qkv[:, :, i].transpose(1, 2) for i in range(3))
-    mask = _mask(B, N, cuda)
+    if valid is None:
+        mask = _mask(B, N, cuda)
+    else:
+        mask = torch.zeros(B, N, dtype=torch.bool, device=cuda)
+        for b, n in enumerate(valid):
+            mask[b, n:] = True
     got = attn_mod.masked_attention(q, k, v, mask, 0.125,
                                     norm_first=norm_first)
     torch.cuda.synchronize()
     want = attn_mod.masked_attention(q.cpu(), k.cpu(), v.cpu(), mask.cpu(),
                                      0.125, norm_first=norm_first)
     _close(got, want.to(cuda), "attention", dtype)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("norm_first", [True, False])
+def test_masked_attention_element_with_no_unpadded_key_gives_zeros(
+        cuda, dtype, norm_first):
+    """An element whose keys are all padded walks no key tile and is
+    written as 0 in both orders (the folded TPU kernel's behaviour; the
+    single pass would give NaN there, and the serving path never sends such
+    an element); the other element matches its plain version."""
+    g = torch.Generator(device="cpu").manual_seed(5)
+    B, H, N, Dh = 2, 4, 384, 64
+    q, k, v = (torch.randn(B, H, N, Dh, generator=g).to(cuda, dtype)
+               for _ in range(3))
+    mask = torch.zeros(B, N, dtype=torch.bool, device=cuda)
+    mask[0] = True
+    mask[1, 300:] = True
+    got = attn_mod.masked_attention(q, k, v, mask, 0.125,
+                                    norm_first=norm_first)
+    torch.cuda.synchronize()
+    assert torch.equal(got[0], torch.zeros_like(got[0]))
+    want = attn_mod.masked_attention(q[1:].cpu(), k[1:].cpu(), v[1:].cpu(),
+                                     mask[1:].cpu(), 0.125,
+                                     norm_first=norm_first)
+    _close(got[1:], want.to(cuda), "attention", dtype)
+
+
+@pytest.mark.parametrize("norm_first", [True, False])
+def test_bf16_attention_cta_shapes_agree_at_a_small_grid(cuda, norm_first,
+                                                         monkeypatch):
+    """(1, 4, 1,280, 64), the attention of a 1,200-frame request's blocks:
+    40 CTAs of 128 rows would not fill the card, so the wrapper takes
+    64-row CTAs.
+    Both shapes give the plain version's result and the same bits: a row's
+    arithmetic does not depend on the CTA that holds it."""
+    g = torch.Generator(device="cpu").manual_seed(6)
+    B, H, N, Dh = 1, 4, 1280, 64
+    q, k, v = (torch.randn(B, H, N, Dh, generator=g).to(cuda, torch.bfloat16)
+               for _ in range(3))
+    mask = torch.zeros(B, N, dtype=torch.bool, device=cuda)
+    mask[:, 1200:] = True
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    assert attn_mod.mma_cta_rows(B, H, N, Dh, sms) == 64
+    got = attn_mod.masked_attention(q, k, v, mask, 0.125,
+                                    norm_first=norm_first)
+    for rows in (64, 128):
+        monkeypatch.setattr(attn_mod, "mma_cta_rows", lambda *a: rows)
+        other = attn_mod.masked_attention(q, k, v, mask, 0.125,
+                                          norm_first=norm_first)
+        assert torch.equal(other, got)
+    want = attn_mod.masked_attention(q.cpu(), k.cpu(), v.cpu(), mask.cpu(),
+                                     0.125, norm_first=norm_first)
+    _close(got, want.to(cuda), "attention", torch.bfloat16)
 
 
 @pytest.mark.parametrize("norm_first", [True, False])

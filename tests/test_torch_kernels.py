@@ -64,13 +64,31 @@ def test_encoder_block_reference_matches_pallas_kernel(dtype, tol, B, N):
                                rtol=tol, atol=tol)
 
 
+def _attention_mask(B, N, shape_seed):
+    """The first shape's ragged mask, or, at (2, 2, 512, 64), element 0
+    valid for 300 keys (its last three 64-key tiles wholly padded, the
+    tiles the CUDA kernel skips) and element 1 for 480 (no padded tile)."""
+    if N != 512:
+        return _mask(B, N, shape_seed)
+    m = np.zeros((B, N), bool)
+    m[0, 300:] = True
+    m[1, 480:] = True
+    return m
+
+
+# (B, H, N, Dh) of the two attention shapes: the first small, the second at
+# the flagship's head_dim with wholly padded key tiles in element 0
+ATTN_SHAPES = [(2, 2, 256, 16), (2, 2, 512, 64)]
+
+
+@pytest.mark.parametrize("shape", ATTN_SHAPES)
 @pytest.mark.parametrize("folded", [False, True])
-def test_attention_references_match_pallas_kernels(folded):
+def test_attention_references_match_pallas_kernels(folded, shape):
     rng = np.random.default_rng(7)
-    B, Hh, N, Dh = 2, 2, 256, 16
+    B, Hh, N, Dh = shape
     q, k, v = (rng.normal(size=(B, Hh, N, Dh)).astype(np.float32)
                for _ in range(3))
-    mask = _mask(B, N, 8)
+    mask = _attention_mask(B, N, 8)
     jq, jk, jv, jm = map(jnp.asarray, (q, k, v, mask))
     tq, tk, tv, tm = map(torch.from_numpy, (q, k, v, mask))
     if folded:
@@ -83,22 +101,38 @@ def test_attention_references_match_pallas_kernels(folded):
         got = attn_mod._flash_attention(tq, tk, tv, tm, 0.125)
     np.testing.assert_allclose(got.numpy(), np.asarray(want),
                                rtol=1e-5, atol=1e-5)
-    # the dense plain version agrees with both
+    # the dense plain version and the fold over the CUDA kernel's 64-key
+    # tiles (the plain versions the card holds the kernel to) agree with
+    # both
     np.testing.assert_allclose(
         attn_mod.attention_reference(tq, tk, tv, tm, 0.125).numpy(),
         np.asarray(want), rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(
+        attn_mod.attention_folded_reference(tq, tk, tv, tm, 0.125,
+                                            attn_mod.KEY_TILE).numpy(),
+        np.asarray(want), rtol=1e-5, atol=1e-5)
 
 
+# rtol of the bf16 check per shape: 0 at the first; at the second one bf16
+# step of the output (2**-7): at head_dim 64 and scale 1 the softmax is
+# nearly one-hot, the outputs are single keys' v (|o| up to 4), and an f32
+# summation order moves their final bf16 rounding by one step (11 and 22 of
+# 131,072 elements in the two orders)
+BF16_RTOL = {(2, 2, 256, 16): 0.0, (2, 2, 512, 64): 2.0 ** -7}
+
+
+@pytest.mark.parametrize("shape", ATTN_SHAPES)
 @pytest.mark.parametrize("folded", [False, True])
-def test_bf16_attention_references_round_p_as_pallas_kernels(folded):
+def test_bf16_attention_references_round_p_as_pallas_kernels(folded, shape):
     """In bf16 the plain versions round P where the Pallas kernels do: the
     single pass after normalising, the fold before. At scale 1 each agrees
-    with its kernel to 1e-3, while the other order is further off."""
+    with its kernel to 1e-3 (plus one step of the bf16 output at the second
+    shape), while the other order is further off."""
     rng = np.random.default_rng(7)
-    B, Hh, N, Dh = 2, 2, 256, 16
+    B, Hh, N, Dh = shape
     q, k, v = (rng.normal(size=(B, Hh, N, Dh)).astype(np.float32)
                for _ in range(3))
-    mask = _mask(B, N, 8)
+    mask = _attention_mask(B, N, 8)
     jq, jk, jv = (jnp.asarray(a, jnp.bfloat16) for a in (q, k, v))
     tq, tk, tv = (torch.from_numpy(a).to(torch.bfloat16) for a in (q, k, v))
     tm = torch.from_numpy(mask)
@@ -113,8 +147,27 @@ def test_bf16_attention_references_round_p_as_pallas_kernels(folded):
                                               1.0, interpret=True)
         own, other = normalised, online
     want = np.asarray(want, np.float32)
-    np.testing.assert_allclose(own.float().numpy(), want, rtol=0, atol=1e-3)
+    rtol = BF16_RTOL[shape]
+    np.testing.assert_allclose(own.float().numpy(), want, rtol=rtol,
+                               atol=1e-3)
     assert np.abs(other.float().numpy() - want).max() > 5e-3
+    assert not np.allclose(other.float().numpy(), want, rtol=rtol, atol=1e-3)
+
+
+def test_mma_cta_rows_follow_the_grid():
+    """128-query CTAs where a grid of them fills both CTA slots of every SM
+    once, 64 on smaller grids and at head_dim 128, at the shapes the
+    serving path gives the bf16 kernel (132 SMs: an H100 SXM)."""
+    rows = attn_mod.mma_cta_rows
+    assert rows(1, 4, 16384, 64, 132) == 128   # kernel 4: 512 CTAs
+    assert rows(32, 4, 512, 64, 132) == 128    # kernels 1, 13: 512
+    assert rows(1, 4, 6016, 64, 132) == 64     # kernel 3: 188 < 264
+    assert rows(1, 4, 1280, 64, 132) == 64     # a 1,200-frame request: 40
+    assert rows(8, 4, 256, 64, 132) == 64      # kernels 2, 14: 64
+    assert rows(1, 4, 8448, 64, 132) == 128    # 66 x 4 = 264: fills once
+    assert rows(1, 4, 8320, 64, 132) == 64     # 65 x 4 = 260
+    assert rows(32, 4, 512, 128, 132) == 64    # head_dim 128: 4 warps
+    assert rows(32, 4, 512, 16, 132) == 128
 
 
 def test_routing_arithmetic_matches_jax():

@@ -59,7 +59,8 @@
 // two passes into one, and dQ takes D from the o and dO rows of its own
 // warp in place of its first pass over the keys. The backward is
 // deterministic: dQ per query tile, dK/dV per key tile over the query
-// tiles, no atomics.
+// tiles, no atomics. The staging, the live-tile scan and the fragment
+// helpers are mma_tiles.cuh's, shared with the bf16 serving attention.
 //
 // Bound on the card (B, H, N, Dh) = (2, 4, 8192, 64), valid (8100, 5000):
 // the forward's products are 4 Dh H N sum(valid) = 0.11 TFLOP, 0.11 ms at
@@ -75,6 +76,7 @@
 #pragma once
 
 #include "attention_core.cuh"
+#include "mma_tiles.cuh"
 
 namespace vs {
 namespace attn_mma {
@@ -96,33 +98,9 @@ constexpr int kFwdWarps = DH >= 128 ? 4 : 8;
 template <int DH>
 constexpr int kDqWarps = DH >= 128 ? 4 : 8;
 constexpr int kDkdvWarps = 4;
-constexpr int kT = 64;         // rows of a streamed tile
-constexpr int kLdsPad = 8;     // bf16 of padding per shared-memory row
-constexpr float kLog2e = 1.4426950408889634f;
+constexpr int kT = kKeyTile;  // rows of a streamed tile
 constexpr unsigned kRowMul = 0xC2B2AE3Du;  // _keep_mask_block's row term
 constexpr unsigned kColMul = 0x27D4EB2Fu;  // and its column term
-
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
-  const uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
-               "l"(gmem));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-// 2^x on the MUFU unit (-inf -> 0, NaN stays NaN)
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
-  return y;
-}
 
 // keep_bit's mixing of x = base ^ row term ^ column term against thr
 __device__ __forceinline__ bool keep_mix(unsigned x, unsigned thr) {
@@ -132,112 +110,6 @@ __device__ __forceinline__ bool keep_mix(unsigned x, unsigned thr) {
   x *= 0xC2B2AE35u;
   x ^= x >> 16;
   return x >= thr;
-}
-
-__device__ __forceinline__ bool has_zero_byte(unsigned w) {
-  return ((w - 0x01010101u) & ~w & 0x80808080u) != 0u;
-}
-
-// true when one of the 16 mask bytes at p (16-byte aligned) is 0: a key
-// that is not padded
-__device__ __forceinline__ bool any_live16(const unsigned char* p) {
-  const uint4 w = *reinterpret_cast<const uint4*>(p);
-  return has_zero_byte(w.x) || has_zero_byte(w.y) || has_zero_byte(w.z) ||
-         has_zero_byte(w.w);
-}
-
-// rows r0 .. r0 + rows - 1 of a head's (N, DH) matrix at row stride sn
-// into dst, rows padded to DH + kLdsPad, by 16-byte cp.async copies (not
-// committed) from THREADS threads; rows at or past N are zeros
-template <int DH, int THREADS>
-__device__ __forceinline__ void stage_async(bf* dst, const bf* head,
-                                            long long sn, int r0, int rows,
-                                            int N) {
-  constexpr int kChunks = DH / 8;  // 16-byte chunks per row
-  for (int c = threadIdx.x; c < rows * kChunks; c += THREADS) {
-    const int r = c / kChunks, cc = (c % kChunks) * 8;
-    bf* d = dst + r * (DH + kLdsPad) + cc;
-    if (r0 + r < N)
-      cp_async16(d, head + (long long)(r0 + r) * sn + cc);
-    else
-      *reinterpret_cast<uint4*>(d) = make_uint4(0u, 0u, 0u, 0u);
-  }
-}
-
-// Warp 0 writes the key tiles of mask row mrow that hold an unpadded key,
-// in order, to tiles[] and their count to *count; a row with no unpadded
-// key keeps every tile if all_if_none, else none. The caller synchronises
-// before reading them.
-__device__ __forceinline__ void live_tiles(const unsigned char* mrow,
-                                           int ntiles, int* tiles,
-                                           int* count, bool all_if_none) {
-  if (threadIdx.x >= 32) return;
-  const int lane = threadIdx.x;
-  int n = 0;
-  for (int c0 = 0; c0 < ntiles; c0 += 32) {
-    const int tile = c0 + lane;
-    bool live = false;
-    if (tile < ntiles) {
-#pragma unroll
-      for (int i = 0; i < kT / 16; ++i)
-        live |= any_live16(mrow + tile * kT + 16 * i);
-    }
-    const unsigned bal = __ballot_sync(0xffffffffu, live);
-    if (live) tiles[n + __popc(bal & ((1u << lane) - 1u))] = tile;
-    n += __popc(bal);
-  }
-  if (n == 0 && all_if_none) {
-    for (int t = lane; t < ntiles; t += 32) tiles[t] = t;
-    n = ntiles;
-  }
-  if (lane == 0) *count = n;
-}
-
-// The A fragment (16 x 16, rows r and r + 8 of a padded row-major tile) of
-// the k16 step ks
-template <int LD>
-__device__ __forceinline__ void load_a(uint32_t (&a)[4], const bf* tile,
-                                       int r, int ks, int t) {
-  a[0] = vs::ld_pair(tile + r * LD + ks * 16 + 2 * t);
-  a[1] = vs::ld_pair(tile + (r + 8) * LD + ks * 16 + 2 * t);
-  a[2] = vs::ld_pair(tile + r * LD + ks * 16 + 8 + 2 * t);
-  a[3] = vs::ld_pair(tile + (r + 8) * LD + ks * 16 + 8 + 2 * t);
-}
-
-// acc[ni] += A . X^T over the k16 steps, X the rows ni*8 + g of a padded
-// row-major tile: the B fragment of an n8 tile is one row's pairs
-__device__ __forceinline__ void mma_rows(float (&acc)[4],
-                                         const uint32_t (&a)[4],
-                                         const bf* xrow, int ks, int t) {
-  vs::mma_bf16_16816(acc, a[0], a[1], a[2], a[3],
-                     vs::ld_pair(xrow + ks * 16 + 2 * t),
-                     vs::ld_pair(xrow + ks * 16 + 8 + 2 * t));
-}
-
-// acc[nd] += A . Y for a 16-row k chunk of a padded row-major tile Y (rows
-// k, columns n): the transposing ldmatrix gives each n8 tile's B fragment
-template <int DH>
-__device__ __forceinline__ void mma_cols(float (&acc)[DH / 8][4],
-                                         const uint32_t (&a)[4],
-                                         const bf* ychunk, int lane) {
-  const bf* row = ychunk + (lane & 15) * (DH + kLdsPad);
-#pragma unroll
-  for (int nd = 0; nd < DH / 8; ++nd) {
-    uint32_t b0, b1;
-    vs::ldmatrix_x2_trans(b0, b1, row + nd * 8);
-    vs::mma_bf16_16816(acc[nd], a[0], a[1], a[2], a[3], b0, b1);
-  }
-}
-
-// A fragment of the 16-column chunk kc from accumulator-layout values
-// v[ni][e] (row g + 8 (e >> 1), column ni*8 + 2t + (e & 1)), rounded to bf16
-template <int NI>
-__device__ __forceinline__ void pack_a(uint32_t (&a)[4],
-                                       const float (&v)[NI][4], int kc) {
-  a[0] = vs::pack_bf16(v[2 * kc][0], v[2 * kc][1]);
-  a[1] = vs::pack_bf16(v[2 * kc][2], v[2 * kc][3]);
-  a[2] = vs::pack_bf16(v[2 * kc + 1][0], v[2 * kc + 1][1]);
-  a[3] = vs::pack_bf16(v[2 * kc + 1][2], v[2 * kc + 1][3]);
 }
 
 // ------------------------------------------------------------------ forward
@@ -278,10 +150,10 @@ __global__ void __launch_bounds__(32 * W, 2) fwd_mma_kernel(const Args a) {
   const bool drop = a.thr != 0u;
   const int r = warp * 16 + g;  // the warp's rows r and r + 8 of the tile
 
-  stage_async<DH, THREADS>(Qs, static_cast<const bf*>(a.q) + ih, a.isn, q0,
+  stage_rows<DH, THREADS>(Qs, static_cast<const bf*>(a.q) + ih, a.isn, q0,
                            ROWS, N);
   cp_async_commit();
-  live_tiles(mrow, ntiles, tiles, count, !ONLINE);
+  live_tiles(mrow, N, tiles, count, !ONLINE);
   cp_async_wait<0>();
   __syncthreads();
   const int nlive = *count;
@@ -299,9 +171,9 @@ __global__ void __launch_bounds__(32 * W, 2) fwd_mma_kernel(const Args a) {
   // the i-th live tile (and its V rows) into buffer i & 1
   auto load_tile = [&](int i, bool with_v) {
     const int k0 = tiles[i] * kT, buf = i & 1;
-    stage_async<DH, THREADS>(Ks + buf * TILE, kh, a.isn, k0, kT, N);
+    stage_rows<DH, THREADS>(Ks + buf * TILE, kh, a.isn, k0, kT, N);
     if (with_v)
-      stage_async<DH, THREADS>(Vs + buf * TILE, vh, a.isn, k0, kT, N);
+      stage_rows<DH, THREADS>(Vs + buf * TILE, vh, a.isn, k0, kT, N);
     if (tid < kT / 16)
       cp_async16(Ms + buf * kT + 16 * tid, mrow + k0 + 16 * tid);
     cp_async_commit();
@@ -515,12 +387,12 @@ __global__ void __launch_bounds__(32 * W, DH >= 128 ? 1 : 16 / W)
   const bool drop = a.thr != 0u;
   const int r = warp * 16 + g;
 
-  stage_async<DH, THREADS>(Qs, static_cast<const bf*>(a.q) + ih, a.isn, q0,
+  stage_rows<DH, THREADS>(Qs, static_cast<const bf*>(a.q) + ih, a.isn, q0,
                            ROWS, N);
-  stage_async<DH, THREADS>(dOs, static_cast<const bf*>(a.dO) + oh, a.osn,
+  stage_rows<DH, THREADS>(dOs, static_cast<const bf*>(a.dO) + oh, a.osn,
                            q0, ROWS, N);
   cp_async_commit();
-  live_tiles(mrow, ntiles, tiles, count, !FOLDED);
+  live_tiles(mrow, N, tiles, count, !FOLDED);
   // lse * log2(e) of rows r and r + 8 (0 past N); folded, +inf on a row
   // whose lse is below _DEAD, so that its p = exp2(s log2(e) - inf) = 0
   float ll[2];
@@ -539,8 +411,8 @@ __global__ void __launch_bounds__(32 * W, DH >= 128 ? 1 : 16 / W)
 
   auto load_tile = [&](int i) {
     const int k0 = tiles[i] * kT, buf = i & 1;
-    stage_async<DH, THREADS>(Ks + buf * TILE, kh, a.isn, k0, kT, N);
-    stage_async<DH, THREADS>(Vs + buf * TILE, vh, a.isn, k0, kT, N);
+    stage_rows<DH, THREADS>(Ks + buf * TILE, kh, a.isn, k0, kT, N);
+    stage_rows<DH, THREADS>(Vs + buf * TILE, vh, a.isn, k0, kT, N);
     if (tid < kT / 16)
       cp_async16(Ms + buf * kT + 16 * tid, mrow + k0 + 16 * tid);
     cp_async_commit();
@@ -742,16 +614,16 @@ __global__ void __launch_bounds__(32 * W, DH >= 128 ? 1 : 12 / W)
     return;
   }
 
-  stage_async<DH, THREADS>(Ks, static_cast<const bf*>(a.k) + ih, a.isn, k0,
+  stage_rows<DH, THREADS>(Ks, static_cast<const bf*>(a.k) + ih, a.isn, k0,
                            ROWS, N);
-  stage_async<DH, THREADS>(Vs, static_cast<const bf*>(a.v) + ih, a.isn, k0,
+  stage_rows<DH, THREADS>(Vs, static_cast<const bf*>(a.v) + ih, a.isn, k0,
                            ROWS, N);
   const bf* qh = static_cast<const bf*>(a.q) + ih;
   const bf* dOh = static_cast<const bf*>(a.dO) + oh;
   auto load_tile = [&](int qt) {
     const int q0 = qt * kT, buf = qt & 1;
-    stage_async<DH, THREADS>(Qs + buf * TILE, qh, a.isn, q0, kT, N);
-    stage_async<DH, THREADS>(dOs + buf * TILE, dOh, a.osn, q0, kT, N);
+    stage_rows<DH, THREADS>(Qs + buf * TILE, qh, a.isn, q0, kT, N);
+    stage_rows<DH, THREADS>(dOs + buf * TILE, dOh, a.osn, q0, kT, N);
     if (tid < kT / 4)
       cp_async16(Ls + buf * kT + 4 * tid, a.lse + sh + q0 + 4 * tid);
     else if (tid < kT / 2)
@@ -881,10 +753,6 @@ __global__ void __launch_bounds__(32 * W, DH >= 128 ? 1 : 12 / W)
 // ------------------------------------------------------------------ launches
 // The mma route reads 16-byte chunks of q, k, v, dO, the mask, lse and D
 // (and, folded, o by pairs: the wrapper gives it aligned too)
-inline bool aligned16(const void* p) {
-  return reinterpret_cast<uintptr_t>(p) % 16 == 0;
-}
-
 inline bool layout_ok(const Args& a) {
   return a.isn % 8 == 0 && a.isb % 8 == 0 && a.ish % 8 == 0 &&
          a.osn % 8 == 0 && a.osb % 8 == 0 && a.osh % 8 == 0 &&

@@ -35,13 +35,14 @@
 // just under the H100's ridge: ~10 us at either peak. At N=16,384 (B=1) it
 // is 275 GFLOP on 8.4 MB: operations-bound. Design against it: the N x N
 // scores never leave the SM. bf16 runs both products on the tensor cores
-// (mma.sync m16n8k16, f32 accumulate) with S, P and O in registers (the
-// normalise-first order computes Q.K^T twice: 1.5x the bound's work); f32
-// stays exact (no TF32) on the FMA units, each thread holding a 4 x 4 score
-// block and a 4 x (Dh/16) output block, with the shared-memory tiles stored
-// transposed and padded so every read is conflict-free or a broadcast.
-// Neither overlaps its K/V loads with its products yet (cp.async / TMA are
-// later work).
+// (mma.sync m16n8k16, f32 accumulate) with S, P and O in registers, K/V
+// double-buffered by cp.async, only the key tiles that hold an unpadded key
+// walked, 128-query CTAs where the grid fills the card and exp on the MUFU
+// unit (the normalise-first order computes Q.K^T twice: 1.5x the bound's
+// work); f32 stays exact (no TF32) on the FMA units, each thread holding a
+// 4 x 4 score block and a 4 x (Dh/16) output block, with the shared-memory
+// tiles stored transposed and padded so every read is conflict-free or a
+// broadcast, and its K/V loads not overlapped with its products.
 //
 // The int8 block (vidsum_tpu/ops/block_kernel_int8.py::_block_kernel_int8,
 // ::_block_kernel_int8_grouped) runs this attention with two differences
@@ -53,7 +54,7 @@
 // (mma.sync m16n8k32; head_dim 16 is zero-padded to one k32 step), the f32
 // kernel on its FMA loop, where the dot of int8 values is an exact integer
 // (Dh * 127^2 < 2^24). V, P and P.V are as above.
-#include "common.cuh"
+#include "mma_tiles.cuh"
 
 namespace {
 
@@ -235,332 +236,6 @@ masked_attention_kernel(const void* __restrict__ q_,
   }
 }
 
-// ---------------------------------------------------------------------------
-// bf16 on the tensor cores (the FlashAttention-2 register layout). A CTA of
-// 4 warps takes 64 query rows, each warp 16 of them, and streams 64-key
-// tiles: S = Q.K^T as m16n8k16 products (Q fragments loaded once, K tile
-// row-major in shared memory), the softmax on S's accumulator registers (a
-// row's 64 keys sit in one thread and its 3 neighbours), then P.V with P
-// re-packed from S's accumulators straight into A fragments (rounded to bf16
-// there) and V's fragments read row-major with a transposing ldmatrix. Rows
-// are padded by 8 bf16, so every fragment load of a warp hits 32 distinct
-// banks.
-//
-// NORM_FIRST rounds P where the single-pass and block TPU kernels round it
-// (attention.py:61-65, block_kernel.py:71-77): after normalising, p =
-// exp(s - m) * (1/l) against the row's global max m and sum l. A first pass
-// over the key tiles computes S alone and folds each row's max and sum; a
-// second recomputes S, normalises, rounds and runs P.V: 1.5x the products
-// of one pass. (l is summed tile by tile with the online rescaling, so it
-// equals the TPU kernel's sum up to f32 summation order.) Without
-// NORM_FIRST this is the folded TPU kernel's one-pass online softmax
-// (attention.py:98-115): the unnormalised exp(s - running max) is rounded,
-// and the output is divided by l at the end.
-constexpr int kMmaThreads = 128;
-constexpr int kLdsPad = 8;
-constexpr int kLds8Pad = 16;  // int8 rows: DH + 16 bytes (20 words at DH 64)
-
-template <int DH, bool QK8>
-constexpr int mma_smem_bytes() {
-  return QK8 ? (kBQ + kBKey) * (DH + kLds8Pad)      // Q8s, K8s [rows][DH+16]
-                   + kBKey * (DH + kLdsPad) * 2     // Vs [rows][DH+8] bf16
-                   + 2 * kBKey * 4                  // key mask, key scales
-             : (kBQ + 2 * kBKey) * (DH + kLdsPad) * 2  // Qs, Ks, Vs
-                   + kBKey * 4;                        // key mask
-}
-
-// OutT: bf16, or f32 for the int8 block's attn. QK8: q and k are int8 codes
-// with per-row scales qsc / ksc (element strides c_b, c_h, c_n); vec says
-// the bf16 rows allow 16-byte loads, vec8 the int8 rows.
-template <int DH, bool NORM_FIRST, typename OutT, bool QK8>
-__global__ void __launch_bounds__(kMmaThreads)
-masked_attention_mma_kernel(const void* __restrict__ q_,
-                            const void* __restrict__ k_,
-                            const __nv_bfloat16* __restrict__ v,
-                            const unsigned char* __restrict__ mask,
-                            const float* __restrict__ qsc,
-                            const float* __restrict__ ksc,
-                            OutT* __restrict__ o, int N,
-                            long long s_b, long long s_h, long long s_n,
-                            long long o_s_b, long long o_s_h,
-                            long long o_s_n, long long c_b, long long c_h,
-                            long long c_n, float scale, bool vec,
-                            bool vec8) {
-  using bf = __nv_bfloat16;
-  constexpr int LQ = DH + kLdsPad;     // row length of Qs, Ks and Vs
-  constexpr int LQ8 = DH + kLds8Pad;   // row length of Q8s and K8s (bytes)
-  constexpr int KS = DH / 16;          // k16 steps of Q.K^T
-  constexpr int KS8 = (DH + 31) / 32;  // k32 steps of the int8 Q.K^T
-  constexpr int ND = DH / 8;           // n8 tiles of the output
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf* Qs = reinterpret_cast<bf*>(smem_raw);
-  bf* Ks = Qs + kBQ * LQ;
-  int8_t* Q8s = reinterpret_cast<int8_t*>(smem_raw);
-  int8_t* K8s = Q8s + kBQ * LQ8;
-  bf* Vs = QK8 ? reinterpret_cast<bf*>(K8s + kBKey * LQ8) : Ks + kBKey * LQ;
-  float* Km = reinterpret_cast<float*>(Vs + kBKey * LQ);
-  float* Ksc = Km + kBKey;
-  const bf* q = static_cast<const bf*>(q_);
-  const bf* k = static_cast<const bf*>(k_);
-  const int8_t* q8 = static_cast<const int8_t*>(q_);
-  const int8_t* k8 = static_cast<const int8_t*>(k_);
-
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const int q0 = blockIdx.x * kBQ;
-  const long long base = (long long)blockIdx.z * s_b +
-                         (long long)blockIdx.y * s_h;
-  const long long cbase = (long long)blockIdx.z * c_b +
-                          (long long)blockIdx.y * c_h;
-  const unsigned char* mrow = mask + (long long)blockIdx.z * N;
-  const bf zero = __float2bfloat16(0.f);
-
-  // 64 rows of DH bf16 in 16-byte chunks, zeros past N
-  auto stage = [&](const bf* src, int n0, bf* dst) {
-    for (int c = tid; c < 64 * (DH / 8); c += kMmaThreads) {
-      const int r = c / (DH / 8), cc = (c % (DH / 8)) * 8;
-      const int n = n0 + r;
-      const bf* p = src + base + (long long)n * s_n + cc;
-      uint4 raw;
-      if (vec && n < N) {
-        raw = *reinterpret_cast<const uint4*>(p);
-      } else {
-        bf* vals = reinterpret_cast<bf*>(&raw);
-#pragma unroll
-        for (int j = 0; j < 8; ++j) vals[j] = n < N ? p[j] : zero;
-      }
-      *reinterpret_cast<uint4*>(&dst[r * LQ + cc]) = raw;
-    }
-  };
-  // 64 rows of DH int8 codes in 16-byte chunks, zeros past N
-  auto stage8 = [&](const int8_t* src, int n0, int8_t* dst) {
-    for (int c = tid; c < 64 * (DH / 16); c += kMmaThreads) {
-      const int r = c / (DH / 16), cc = (c % (DH / 16)) * 16;
-      const int n = n0 + r;
-      const int8_t* p = src + base + (long long)n * s_n + cc;
-      uint4 raw;
-      if (vec8 && n < N) {
-        raw = *reinterpret_cast<const uint4*>(p);
-      } else {
-        int8_t* vals = reinterpret_cast<int8_t*>(&raw);
-#pragma unroll
-        for (int j = 0; j < 16; ++j) vals[j] = n < N ? p[j] : int8_t(0);
-      }
-      *reinterpret_cast<uint4*>(&dst[r * LQ8 + cc]) = raw;
-    }
-  };
-
-  uint32_t qa[QK8 ? 1 : KS][4];
-  uint32_t qa8[QK8 ? KS8 : 1][4];
-  float qs_row[2] = {1.f, 1.f};  // QK8: the scales of rows g and g + 8
-  {
-    const int r = warp * 16 + g;
-    if constexpr (QK8) {
-      stage8(q8, q0, Q8s);
-      __syncthreads();
-#pragma unroll
-      for (int ks = 0; ks < KS8; ++ks) {
-        const int c = ks * 32 + 4 * t;
-        qa8[ks][0] = vs::ld_u32(&Q8s[r * LQ8 + c]);
-        qa8[ks][1] = vs::ld_u32(&Q8s[(r + 8) * LQ8 + c]);
-        qa8[ks][2] = c + 16 < DH ? vs::ld_u32(&Q8s[r * LQ8 + c + 16]) : 0u;
-        qa8[ks][3] =
-            c + 16 < DH ? vs::ld_u32(&Q8s[(r + 8) * LQ8 + c + 16]) : 0u;
-      }
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int n = q0 + r + 8 * h;
-        if (n < N) qs_row[h] = qsc[cbase + (long long)n * c_n];
-      }
-    } else {
-      stage(q, q0, Qs);
-      __syncthreads();
-#pragma unroll
-      for (int ks = 0; ks < KS; ++ks) {
-        qa[ks][0] = vs::ld_pair(&Qs[r * LQ + ks * 16 + 2 * t]);
-        qa[ks][1] = vs::ld_pair(&Qs[(r + 8) * LQ + ks * 16 + 2 * t]);
-        qa[ks][2] = vs::ld_pair(&Qs[r * LQ + ks * 16 + 8 + 2 * t]);
-        qa[ks][3] = vs::ld_pair(&Qs[(r + 8) * LQ + ks * 16 + 8 + 2 * t]);
-      }
-    }
-  }
-
-  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
-  float acc[ND][4];
-#pragma unroll
-  for (int nd = 0; nd < ND; ++nd)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[nd][e] = 0.f;
-
-  // the key tile at k0 (and its V rows if with_v) into shared memory
-  auto stage_keys = [&](int k0, bool with_v) {
-    __syncthreads();  // the previous tile's readers are done
-    if constexpr (QK8)
-      stage8(k8, k0, K8s);
-    else
-      stage(k, k0, Ks);
-    if (with_v) stage(v, k0, Vs);
-    if (tid < kBKey) {
-      const int n = k0 + tid;
-      Km[tid] = (n >= N || mrow[n] != 0) ? 1.f : 0.f;
-      if (QK8) Ksc[tid] = n < N ? ksc[cbase + (long long)n * c_n] : 0.f;
-    }
-    __syncthreads();
-  };
-  // S = Q.K^T of the staged tile, scaled, -inf at padded keys; element
-  // (ni, e) is row g + 8*(e >> 1) of the warp, key ni*8 + 2t + (e & 1)
-  auto scores = [&](float (&s)[8][4]) {
-#pragma unroll
-    for (int ni = 0; ni < 8; ++ni) {
-      if constexpr (QK8) {
-        int d8[4] = {0, 0, 0, 0};
-        const int8_t* krow = &K8s[(ni * 8 + g) * LQ8];
-#pragma unroll
-        for (int ks = 0; ks < KS8; ++ks) {
-          const int c = ks * 32 + 4 * t;
-          vs::mma_s8_16832(d8, qa8[ks][0], qa8[ks][1], qa8[ks][2],
-                           qa8[ks][3], vs::ld_u32(krow + c),
-                           c + 16 < DH ? vs::ld_u32(krow + c + 16) : 0u);
-        }
-        // (i8dot * (qs * ks)) * scale, block_kernel_int8.py:105-108
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int key = ni * 8 + 2 * t + (e & 1);
-          s[ni][e] = Km[key] != 0.f
-                         ? -INFINITY
-                         : __fmul_rn(__fmul_rn(__int2float_rn(d8[e]),
-                                               __fmul_rn(qs_row[e >> 1],
-                                                         Ksc[key])),
-                                     scale);
-        }
-      } else {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) s[ni][e] = 0.f;
-        const bf* krow = &Ks[(ni * 8 + g) * LQ];
-#pragma unroll
-        for (int ks = 0; ks < KS; ++ks)
-          vs::mma_bf16_16816(s[ni], qa[ks][0], qa[ks][1], qa[ks][2],
-                             qa[ks][3], vs::ld_pair(krow + ks * 16 + 2 * t),
-                             vs::ld_pair(krow + ks * 16 + 8 + 2 * t));
-#pragma unroll
-        for (int e = 0; e < 4; ++e)
-          s[ni][e] = Km[ni * 8 + 2 * t + (e & 1)] != 0.f ? -INFINITY
-                                                         : s[ni][e] * scale;
-      }
-    }
-  };
-  // fold row half h of the tile into (m, l) with the folded kernel's _DEAD
-  // guards; leaves e = exp(s - new max) in s and returns the factor that
-  // rescales what was summed before
-  auto fold = [&](float (&s)[8][4], int h) -> float {
-    float mx = -INFINITY;
-#pragma unroll
-    for (int ni = 0; ni < 8; ++ni)
-#pragma unroll
-      for (int c = 0; c < 2; ++c) mx = fmaxf(mx, s[ni][2 * h + c]);
-    mx = vs::group_max<4>(mx);
-    const float m_new = fmaxf(m[h], mx);
-    const bool dead = m_new < kDead;
-    const float m_safe = dead ? 0.f : m_new;
-    const float corr = m[h] < kDead ? 0.f : expf(m[h] - m_safe);
-    float rs = 0.f;
-#pragma unroll
-    for (int ni = 0; ni < 8; ++ni)
-#pragma unroll
-      for (int c = 0; c < 2; ++c) {
-        const float e = dead ? 0.f : expf(s[ni][2 * h + c] - m_safe);
-        s[ni][2 * h + c] = e;
-        rs += e;
-      }
-    rs = vs::group_sum<4>(rs);
-    l[h] = l[h] * corr + rs;
-    m[h] = m_new;
-    return corr;
-  };
-
-  // NORM_FIRST: the final max (0 for a row with no unpadded key, whose
-  // scores are all -inf, so its p are 0) and 1/l
-  float m_fin[2] = {0.f, 0.f}, inv_l[2] = {1.f, 1.f};
-  if constexpr (NORM_FIRST) {
-    for (int k0 = 0; k0 < N; k0 += kBKey) {
-      stage_keys(k0, false);
-      float s[8][4];
-      scores(s);
-      fold(s, 0);
-      fold(s, 1);
-    }
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      m_fin[h] = m[h] < kDead ? 0.f : m[h];
-      inv_l[h] = l[h] == 0.f ? 0.f : 1.f / l[h];
-    }
-  }
-
-  for (int k0 = 0; k0 < N; k0 += kBKey) {
-    stage_keys(k0, true);
-    float s[8][4];
-    scores(s);
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      if constexpr (NORM_FIRST) {
-#pragma unroll
-        for (int ni = 0; ni < 8; ++ni)
-#pragma unroll
-          for (int c = 0; c < 2; ++c)
-            s[ni][2 * h + c] =
-                expf(s[ni][2 * h + c] - m_fin[h]) * inv_l[h];
-      } else {
-        const float corr = fold(s, h);
-#pragma unroll
-        for (int nd = 0; nd < ND; ++nd) {
-          acc[nd][2 * h] *= corr;
-          acc[nd][2 * h + 1] *= corr;
-        }
-      }
-    }
-    uint32_t pa[4][4];
-#pragma unroll
-    for (int kc = 0; kc < 4; ++kc) {
-      pa[kc][0] = vs::pack_bf16(s[2 * kc][0], s[2 * kc][1]);
-      pa[kc][1] = vs::pack_bf16(s[2 * kc][2], s[2 * kc][3]);
-      pa[kc][2] = vs::pack_bf16(s[2 * kc + 1][0], s[2 * kc + 1][1]);
-      pa[kc][3] = vs::pack_bf16(s[2 * kc + 1][2], s[2 * kc + 1][3]);
-    }
-    // lane l addresses key row (l & 15) of each 16-key chunk
-    const bf* vrow = &Vs[(lane & 15) * LQ];
-#pragma unroll
-    for (int nd = 0; nd < ND; ++nd) {
-#pragma unroll
-      for (int kc = 0; kc < 4; ++kc) {
-        uint32_t b0, b1;
-        vs::ldmatrix_x2_trans(b0, b1, vrow + kc * 16 * LQ + nd * 8);
-        vs::mma_bf16_16816(acc[nd], pa[kc][0], pa[kc][1], pa[kc][2],
-                           pa[kc][3], b0, b1);
-      }
-    }
-  }
-
-  const long long obase = (long long)blockIdx.z * o_s_b +
-                          (long long)blockIdx.y * o_s_h;
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    const int n = q0 + warp * 16 + g + 8 * h;
-    if (n >= N) continue;
-    const float inv = NORM_FIRST ? 1.f : (l[h] == 0.f ? 0.f : 1.f / l[h]);
-#pragma unroll
-    for (int nd = 0; nd < ND; ++nd) {
-      OutT* dst = &o[obase + n * o_s_n + nd * 8 + 2 * t];
-      if constexpr (sizeof(OutT) == 4)
-        *reinterpret_cast<float2*>(dst) =
-            make_float2(acc[nd][2 * h] * inv, acc[nd][2 * h + 1] * inv);
-      else
-        *reinterpret_cast<__nv_bfloat162*>(dst) = __floats2bfloat162_rn(
-            acc[nd][2 * h] * inv, acc[nd][2 * h + 1] * inv);
-    }
-  }
-}
-
 // The arguments every launch passes through.
 struct Args {
   const void* q;
@@ -575,27 +250,360 @@ struct Args {
   float scale;
 };
 
-template <int DH, bool NORM_FIRST, typename OutT, bool QK8>
+// ---------------------------------------------------------------------------
+// bf16 on the tensor cores (the FlashAttention-2 register layout, built from
+// mma_tiles.cuh's tiles and fragments as the bf16 training forward is). A
+// CTA of W warps takes 16 W query rows, each warp 16 of them, and walks the
+// live 64-key tiles of its element: S = Q.K^T as m16n8k16 products (Q
+// fragments loaded once, K tile row-major in shared memory), the softmax on
+// S's accumulator registers (a row's 64 keys sit in one thread and its 3
+// neighbours), then P.V with P re-packed from S's accumulators straight
+// into A fragments (rounded to bf16 there) and V's fragments read row-major
+// with a transposing ldmatrix. Rows are padded by 16 bytes, so every
+// fragment load of a warp hits 32 distinct banks.
+//
+// What the design does about what bounds it:
+// - K/V tiles, their mask bytes and (QK8) key scales stream through two
+//   shared-memory buffers by cp.async: tile i + 1 is in flight while tile i
+//   computes, one __syncthreads a tile. Views whose rows the 16-byte copies
+//   cannot take (an odd row stride, a misaligned base: vec / vec8 false)
+//   stage the same buffers by plain loads; a mask row off a 16-byte
+//   boundary (mvec false), or the ragged last tile, by bytes.
+// - Only the live tiles: warp 0 lists the 64-key tiles of the element that
+//   hold an unpadded key (live_tiles) and both passes walk that list. A
+//   wholly padded tile is exact to skip: its e are 0 and, in the fold,
+//   corr = exp2(0) = 1, so m, l and o keep their bits. An element with no
+//   unpadded key walks none and writes o = 0 in both modes.
+// - 128 query rows a CTA (8 warps) where a grid of them fills both CTA
+//   slots of every SM, so each K/V tile read from L2 feeds twice the rows
+//   of a 64-row CTA; 64 rows (4 warps) on smaller grids, which balance
+//   better over the SMs, and at head_dim 128, as the caller picks
+//   (ops/attention.mma_cta_rows). __launch_bounds__(..., 2) asks for two
+//   CTAs an SM: at most 128 registers a thread at 8 warps.
+// - exp as ex2.approx of s * (scale * log2 e) against a max kept in the
+//   units of s: one FFMA and one MUFU op a score. (QK8 rounds s itself to
+//   f32 as the TPU kernel does, so there the factor is log2 e.)
+//
+// NORM_FIRST rounds P where the single-pass and block TPU kernels round it
+// (attention.py:61-65, block_kernel.py:71-77): after normalising, p =
+// exp(s - m) * (1/l) against the row's global max m and sum l. A first pass
+// over the live tiles computes S alone (only K streams) and folds each
+// row's max and sum; a second recomputes S, normalises, rounds and runs
+// P.V: 1.5x the products of one pass. (l is summed tile by tile with the
+// online rescaling, so it equals the TPU kernel's sum up to f32 summation
+// order.) Without NORM_FIRST this is the folded TPU kernel's one-pass
+// online softmax (attention.py:98-115) with its _DEAD guards: the
+// unnormalised exp(s - running max) is rounded against the max of the
+// tiles walked so far, and the output is divided by l at the end.
+template <int DH, int W, bool QK8>
+constexpr int mma_smem_fixed() {
+  constexpr int LQ = DH + vs::kLdsPad, LQ8 = DH + 16, T = vs::kKeyTile;
+  return (QK8 ? (16 * W + 2 * T) * LQ8      // Q8s, K8s[2] (int8)
+              : (16 * W + 2 * T) * LQ * 2)  // Qs, Ks[2]
+         + 2 * T * LQ * 2                   // Vs[2]
+         + (QK8 ? 2 * T * 4 : 0)            // the keys' scales [2]
+         + 2 * T;                           // the keys' mask bytes [2]
+}
+
+// OutT: bf16, or f32 for the int8 block's attn. QK8: q and k are int8 codes
+// with per-row scales qsc / ksc (element strides c_b, c_h, c_n); vec says
+// the bf16 rows allow 16-byte copies, vec8 the int8 rows, mvec the mask
+// rows.
+template <int DH, int W, bool NORM_FIRST, typename OutT, bool QK8>
+__global__ void __launch_bounds__(32 * W, 2)
+masked_attention_mma_kernel(const Args a, bool vec, bool vec8, bool mvec) {
+  using bf = __nv_bfloat16;
+  constexpr int T = vs::kKeyTile;
+  constexpr int LQ = DH + vs::kLdsPad;  // row length of Qs, Ks and Vs
+  constexpr int LQ8 = DH + 16;          // row length of Q8s and K8s (bytes)
+  constexpr int KS = DH / 16;           // k16 steps of Q.K^T
+  constexpr int KS8 = (DH + 31) / 32;   // k32 steps of the int8 Q.K^T
+  constexpr int ND = DH / 8;            // n8 tiles of the output
+  constexpr int THREADS = 32 * W, ROWS = 16 * W;
+  constexpr int KTILE = QK8 ? T * LQ8 : T * LQ * 2;  // bytes of a K tile
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf* Qs = reinterpret_cast<bf*>(smem_raw);
+  int8_t* Q8s = reinterpret_cast<int8_t*>(smem_raw);
+  unsigned char* Kraw = smem_raw + (QK8 ? ROWS * LQ8 : ROWS * LQ * 2);
+  bf* Vs = reinterpret_cast<bf*>(Kraw + 2 * KTILE);         // [2][T][LQ]
+  float* Ksc = reinterpret_cast<float*>(Vs + 2 * T * LQ);   // [2][T]
+  unsigned char* Ms =
+      reinterpret_cast<unsigned char*>(Ksc + (QK8 ? 2 * T : 0));  // [2][T]
+  int* tiles = reinterpret_cast<int*>(Ms + 2 * T);
+  const int N = a.N;
+  int* count = tiles + (N + T - 1) / T;
+
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int q0 = blockIdx.x * ROWS;
+  const int r = warp * 16 + g;  // the warp's rows r and r + 8 of the tile
+  const long long base = (long long)blockIdx.z * a.s_b +
+                         (long long)blockIdx.y * a.s_h;
+  const long long cbase = (long long)blockIdx.z * a.c_b +
+                          (long long)blockIdx.y * a.c_h;
+  const unsigned char* mrow = a.mask + (long long)blockIdx.z * N;
+  const bf* kh = static_cast<const bf*>(a.k) + base;
+  const int8_t* k8h = static_cast<const int8_t*>(a.k) + base;
+  const bf* vh = static_cast<const bf*>(a.v) + base;
+  // exp(x) = exp2(x * f) on s in its own units: the raw dot (scaled by f)
+  // or, QK8, the score rounded as the TPU kernel rounds it
+  const float f = QK8 ? vs::kLog2e : a.scale * vs::kLog2e;
+
+  if constexpr (QK8)
+    vs::stage_rows<DH, THREADS, int8_t>(
+        Q8s, static_cast<const int8_t*>(a.q) + base, a.s_n, q0, ROWS, N,
+        vec8);
+  else
+    vs::stage_rows<DH, THREADS>(Qs, static_cast<const bf*>(a.q) + base,
+                                a.s_n, q0, ROWS, N, vec);
+  vs::cp_async_commit();
+  vs::live_tiles(mrow, N, tiles, count, false, mvec);
+  float qs_row[2] = {1.f, 1.f};  // QK8: the scales of rows r and r + 8
+  if constexpr (QK8) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int n = q0 + r + 8 * h;
+      if (n < N) qs_row[h] = a.qsc[cbase + (long long)n * a.c_n];
+    }
+  }
+  vs::cp_async_wait<0>();
+  __syncthreads();
+  const int nlive = *count;
+
+  uint32_t qa[QK8 ? 1 : KS][4];
+  uint32_t qa8[QK8 ? KS8 : 1][4];
+  if constexpr (QK8) {
+#pragma unroll
+    for (int ks = 0; ks < KS8; ++ks) {
+      const int c = ks * 32 + 4 * t;
+      qa8[ks][0] = vs::ld_u32(&Q8s[r * LQ8 + c]);
+      qa8[ks][1] = vs::ld_u32(&Q8s[(r + 8) * LQ8 + c]);
+      qa8[ks][2] = c + 16 < DH ? vs::ld_u32(&Q8s[r * LQ8 + c + 16]) : 0u;
+      qa8[ks][3] =
+          c + 16 < DH ? vs::ld_u32(&Q8s[(r + 8) * LQ8 + c + 16]) : 0u;
+    }
+  } else {
+#pragma unroll
+    for (int ks = 0; ks < KS; ++ks) vs::load_a<LQ>(qa[ks], Qs, r, ks, t);
+  }
+
+  // the i-th live tile (its V rows if with_v) into buffer i & 1, committed
+  auto load_tile = [&](int i, bool with_v) {
+    const int k0 = tiles[i] * T, buf = i & 1;
+    if constexpr (QK8)
+      vs::stage_rows<DH, THREADS, int8_t>(
+          reinterpret_cast<int8_t*>(Kraw + buf * KTILE), k8h, a.s_n, k0, T,
+          N, vec8);
+    else
+      vs::stage_rows<DH, THREADS>(reinterpret_cast<bf*>(Kraw + buf * KTILE),
+                                  kh, a.s_n, k0, T, N, vec);
+    if (with_v)
+      vs::stage_rows<DH, THREADS>(Vs + buf * T * LQ, vh, a.s_n, k0, T, N,
+                                  vec);
+    unsigned char* mt = Ms + buf * T;
+    if (mvec && k0 + T <= N) {
+      if (tid < T / 16) vs::cp_async16(mt + 16 * tid, mrow + k0 + 16 * tid);
+    } else if (tid < T) {
+      mt[tid] = k0 + tid < N ? mrow[k0 + tid] : 1;  // past N: padded
+    }
+    if (QK8 && tid < T) {
+      if (k0 + tid < N)
+        vs::cp_async4(Ksc + buf * T + tid,
+                      a.ksc + cbase + (long long)(k0 + tid) * a.c_n);
+      else
+        Ksc[buf * T + tid] = 0.f;
+    }
+    vs::cp_async_commit();
+  };
+  // body(buf) on each live tile in turn, tile i + 1 in flight while tile i
+  // computes; the __syncthreads that makes tile i visible also frees the
+  // buffer of tile i - 1 for tile i + 1
+  auto walk = [&](bool with_v, auto&& body) {
+    if (nlive == 0) return;
+    load_tile(0, with_v);
+    for (int i = 0; i < nlive; ++i) {
+      vs::cp_async_wait<0>();
+      __syncthreads();
+      if (i + 1 < nlive) load_tile(i + 1, with_v);
+      body(i & 1);
+    }
+  };
+  // S = Q.K^T of the tile in buffer buf in the units of f (the raw dot, or
+  // QK8's rounded score), -inf at padded keys; element (ni, e) is row
+  // g + 8*(e >> 1) of the warp, key ni*8 + 2t + (e & 1)
+  auto scores = [&](int buf, float (&s)[8][4]) {
+    const unsigned char* Mt = Ms + buf * T;
+#pragma unroll
+    for (int ni = 0; ni < 8; ++ni) {
+      if constexpr (QK8) {
+        const int8_t* krow =
+            reinterpret_cast<const int8_t*>(Kraw + buf * KTILE) +
+            (ni * 8 + g) * LQ8;
+        const float* Kst = Ksc + buf * T;
+        int d8[4] = {0, 0, 0, 0};
+#pragma unroll
+        for (int ks = 0; ks < KS8; ++ks) {
+          const int c = ks * 32 + 4 * t;
+          vs::mma_s8_16832(d8, qa8[ks][0], qa8[ks][1], qa8[ks][2],
+                           qa8[ks][3], vs::ld_u32(krow + c),
+                           c + 16 < DH ? vs::ld_u32(krow + c + 16) : 0u);
+        }
+        // (i8dot * (qs * ks)) * scale, block_kernel_int8.py:105-108
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int key = ni * 8 + 2 * t + (e & 1);
+          s[ni][e] = Mt[key] != 0
+                         ? -INFINITY
+                         : __fmul_rn(__fmul_rn(__int2float_rn(d8[e]),
+                                               __fmul_rn(qs_row[e >> 1],
+                                                         Kst[key])),
+                                     a.scale);
+        }
+      } else {
+        const bf* krow = reinterpret_cast<const bf*>(Kraw + buf * KTILE) +
+                         (ni * 8 + g) * LQ;
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[ni][e] = 0.f;
+#pragma unroll
+        for (int ks = 0; ks < KS; ++ks)
+          vs::mma_rows(s[ni], qa[ks], krow, ks, t);
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          if (Mt[ni * 8 + 2 * t + (e & 1)] != 0) s[ni][e] = -INFINITY;
+      }
+    }
+  };
+
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+  float acc[ND][4];
+#pragma unroll
+  for (int nd = 0; nd < ND; ++nd)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[nd][e] = 0.f;
+
+  // fold row half h of the tile into (m, l) with the folded kernel's _DEAD
+  // guards; leaves e = exp(s - new max) in s and returns the factor that
+  // rescales what was summed before
+  auto fold = [&](float (&s)[8][4], int h) -> float {
+    float mx = -INFINITY;
+#pragma unroll
+    for (int ni = 0; ni < 8; ++ni)
+      mx = fmaxf(mx, fmaxf(s[ni][2 * h], s[ni][2 * h + 1]));
+    const float m_new = fmaxf(m[h], vs::group_max<4>(mx));
+    const bool dead = m_new < kDead;
+    const float m_safe = dead ? 0.f : m_new;
+    const float ml = m_safe * f;
+    const float corr = m[h] < kDead ? 0.f : vs::ex2((m[h] - m_safe) * f);
+    float rs = 0.f;
+#pragma unroll
+    for (int ni = 0; ni < 8; ++ni)
+#pragma unroll
+      for (int c = 0; c < 2; ++c) {
+        const float e =
+            dead ? 0.f : vs::ex2(fmaf(s[ni][2 * h + c], f, -ml));
+        s[ni][2 * h + c] = e;
+        rs += e;
+      }
+    l[h] = l[h] * corr + vs::group_sum<4>(rs);
+    m[h] = m_new;
+    return corr;
+  };
+  // the weights in s, rounded to bf16 A-fragments, times the V tile
+  auto accumulate = [&](int buf, const float (&w)[8][4]) {
+    const bf* Vt = Vs + buf * T * LQ;
+#pragma unroll
+    for (int kc = 0; kc < 4; ++kc) {
+      uint32_t pa[4];
+      vs::pack_a<8>(pa, w, kc);
+      vs::mma_cols<DH>(acc, pa, Vt + kc * 16 * LQ, lane);
+    }
+  };
+
+  if constexpr (NORM_FIRST) {
+    walk(false, [&](int buf) {
+      float s[8][4];
+      scores(buf, s);
+      fold(s, 0);
+      fold(s, 1);
+    });
+    __syncthreads();  // the last tile's readers are done before pass 2
+    // the final max (0 for a row with no unpadded key) times f, and 1/l
+    float ml[2], inv_l[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      ml[h] = (m[h] < kDead ? 0.f : m[h]) * f;
+      inv_l[h] = l[h] == 0.f ? 0.f : 1.f / l[h];
+    }
+    walk(true, [&](int buf) {
+      float s[8][4];
+      scores(buf, s);
+#pragma unroll
+      for (int ni = 0; ni < 8; ++ni)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          s[ni][e] =
+              vs::ex2(fmaf(s[ni][e], f, -ml[e >> 1])) * inv_l[e >> 1];
+      accumulate(buf, s);
+    });
+  } else {
+    walk(true, [&](int buf) {
+      float s[8][4];
+      scores(buf, s);
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const float corr = fold(s, h);
+#pragma unroll
+        for (int nd = 0; nd < ND; ++nd) {
+          acc[nd][2 * h] *= corr;
+          acc[nd][2 * h + 1] *= corr;
+        }
+      }
+      accumulate(buf, s);
+    });
+  }
+
+  const long long obase = (long long)blockIdx.z * a.o_s_b +
+                          (long long)blockIdx.y * a.o_s_h;
+  OutT* o = static_cast<OutT*>(a.o);
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int n = q0 + r + 8 * h;
+    if (n >= N) continue;
+    const float inv = NORM_FIRST ? 1.f : (l[h] == 0.f ? 0.f : 1.f / l[h]);
+#pragma unroll
+    for (int nd = 0; nd < ND; ++nd) {
+      OutT* dst = &o[obase + n * a.o_s_n + nd * 8 + 2 * t];
+      if constexpr (sizeof(OutT) == 4)
+        *reinterpret_cast<float2*>(dst) =
+            make_float2(acc[nd][2 * h] * inv, acc[nd][2 * h + 1] * inv);
+      else
+        *reinterpret_cast<__nv_bfloat162*>(dst) = __floats2bfloat162_rn(
+            acc[nd][2 * h] * inv, acc[nd][2 * h + 1] * inv);
+    }
+  }
+}
+
+template <int DH, int W, bool NORM_FIRST, typename OutT, bool QK8>
 cudaError_t launch_mma(const Args& a, cudaStream_t stream) {
-  constexpr int bytes = mma_smem_bytes<DH, QK8>();
-  auto kernel = masked_attention_mma_kernel<DH, NORM_FIRST, OutT, QK8>;
+  // the fixed tiles, then the list of live key tiles and its count
+  const int bytes = mma_smem_fixed<DH, W, QK8>() +
+                    ((a.N + vs::kKeyTile - 1) / vs::kKeyTile + 1) * 4;
+  auto kernel = masked_attention_mma_kernel<DH, W, NORM_FIRST, OutT, QK8>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err != cudaSuccess) return err;
-  // 16-byte staging loads need 16-byte aligned rows
+  // 16-byte copies need 16-byte aligned rows
   const bool strided8 = a.s_b % 8 == 0 && a.s_h % 8 == 0 && a.s_n % 8 == 0;
   const bool strided16 =
       a.s_b % 16 == 0 && a.s_h % 16 == 0 && a.s_n % 16 == 0;
-  auto al16 = [](const void* p) {
-    return reinterpret_cast<uintptr_t>(p) % 16 == 0;
-  };
-  const bool vec = strided8 && al16(a.v) && (QK8 || (al16(a.q) && al16(a.k)));
-  const bool vec8 = QK8 && strided16 && al16(a.q) && al16(a.k);
-  const dim3 grid((a.N + kBQ - 1) / kBQ, a.H, a.B);
-  kernel<<<grid, kMmaThreads, bytes, stream>>>(
-      a.q, a.k, static_cast<const __nv_bfloat16*>(a.v), a.mask, a.qsc, a.ksc,
-      static_cast<OutT*>(a.o), a.N, a.s_b, a.s_h, a.s_n, a.o_s_b, a.o_s_h,
-      a.o_s_n, a.c_b, a.c_h, a.c_n, a.scale, vec, vec8);
+  const bool vec = strided8 && vs::aligned16(a.v) &&
+                   (QK8 || (vs::aligned16(a.q) && vs::aligned16(a.k)));
+  const bool vec8 =
+      QK8 && strided16 && vs::aligned16(a.q) && vs::aligned16(a.k);
+  const bool mvec = a.N % 16 == 0 && vs::aligned16(a.mask);
+  const dim3 grid((a.N + 16 * W - 1) / (16 * W), a.H, a.B);
+  kernel<<<grid, 32 * W, bytes, stream>>>(a, vec, vec8, mvec);
   return cudaGetLastError();
 }
 
@@ -616,7 +624,8 @@ cudaError_t launch(const Args& a, cudaStream_t stream) {
 
 // head_dim 64 is the flagship's, 16 that of the d 64 test configurations,
 // 128 that of d 512 with 4 heads (ops/_cuda.HEAD_DIMS); at 128 the FMA kernel
-// takes 116 KB of shared memory and the mma kernel 52 KB
+// takes 116 KB of shared memory and the mma kernel 85 KB and the live-tile
+// list
 template <typename T, bool QK8>
 cudaError_t launch_dh(const Args& a, int Dh, cudaStream_t stream) {
   switch (Dh) {
@@ -633,21 +642,29 @@ cudaError_t launch_dh(const Args& a, int Dh, cudaStream_t stream) {
   }
 }
 
+// rows: the CTA's query rows, 16 per warp (ops/attention.mma_cta_rows):
+// 128 (8 warps) or 64 (4 warps) at head_dim <= 64, 64 at 128
 template <bool NORM_FIRST, typename OutT, bool QK8>
-cudaError_t launch_mma_dh(const Args& a, int Dh, cudaStream_t stream) {
+cudaError_t launch_mma_dh(const Args& a, int Dh, int rows,
+                          cudaStream_t stream) {
   // the output is written as pairs
   if ((a.o_s_b | a.o_s_h | a.o_s_n) & 1 ||
       reinterpret_cast<uintptr_t>(a.o) % (2 * sizeof(OutT)))
     return cudaErrorMisalignedAddress;
+  if (rows != 64 && !(rows == 128 && Dh <= 64)) return cudaErrorInvalidValue;
+  const bool w8 = rows == 128;
   switch (Dh) {
     case 16:
-      return launch_mma<16, NORM_FIRST, OutT, QK8>(a, stream);
+      return w8 ? launch_mma<16, 8, NORM_FIRST, OutT, QK8>(a, stream)
+                : launch_mma<16, 4, NORM_FIRST, OutT, QK8>(a, stream);
     case 32:
-      return launch_mma<32, NORM_FIRST, OutT, QK8>(a, stream);
+      return w8 ? launch_mma<32, 8, NORM_FIRST, OutT, QK8>(a, stream)
+                : launch_mma<32, 4, NORM_FIRST, OutT, QK8>(a, stream);
     case 64:
-      return launch_mma<64, NORM_FIRST, OutT, QK8>(a, stream);
+      return w8 ? launch_mma<64, 8, NORM_FIRST, OutT, QK8>(a, stream)
+                : launch_mma<64, 4, NORM_FIRST, OutT, QK8>(a, stream);
     case 128:
-      return launch_mma<128, NORM_FIRST, OutT, QK8>(a, stream);
+      return launch_mma<128, 4, NORM_FIRST, OutT, QK8>(a, stream);
     default:
       return cudaErrorInvalidValue;
   }
@@ -659,6 +676,7 @@ cudaError_t launch_mma_dh(const Args& a, int Dh, cudaStream_t stream) {
 // or, with qsc / ksc given, q and k int8 codes at the same strides and
 // qsc / ksc their per-row f32 scales at strides c_b, c_h, c_n (qk_int8). o in
 // out_dtype: dtype, or f32 for bf16 inputs with norm_first (the int8 block).
+// cta_rows: the query rows of a bf16 CTA (the f32 kernel's are 64).
 extern "C" int vs_masked_attention(const void* q, const void* k,
                                    const void* v, const unsigned char* mask,
                                    void* o, const float* qsc,
@@ -669,7 +687,7 @@ extern "C" int vs_masked_attention(const void* q, const void* k,
                                    long long c_b, long long c_h,
                                    long long c_n, float scale, int dtype,
                                    int out_dtype, int norm_first,
-                                   void* stream) {
+                                   int cta_rows, void* stream) {
   if (B <= 0 || H <= 0 || N <= 0 || B > 65535 || H > 65535)
     return (int)cudaErrorInvalidValue;
   const bool qk8 = qsc != nullptr;
@@ -683,11 +701,13 @@ extern "C" int vs_masked_attention(const void* q, const void* k,
     err = qk8 ? launch_dh<float, true>(a, Dh, s)
               : launch_dh<float, false>(a, Dh, s);
   } else if (dtype == vs::kBF16 && out_dtype == vs::kBF16 && !qk8) {
-    err = norm_first ? launch_mma_dh<true, __nv_bfloat16, false>(a, Dh, s)
-                     : launch_mma_dh<false, __nv_bfloat16, false>(a, Dh, s);
+    err = norm_first
+              ? launch_mma_dh<true, __nv_bfloat16, false>(a, Dh, cta_rows, s)
+              : launch_mma_dh<false, __nv_bfloat16, false>(a, Dh, cta_rows,
+                                                           s);
   } else if (dtype == vs::kBF16 && out_dtype == vs::kF32 && norm_first) {
-    err = qk8 ? launch_mma_dh<true, float, true>(a, Dh, s)
-              : launch_mma_dh<true, float, false>(a, Dh, s);
+    err = qk8 ? launch_mma_dh<true, float, true>(a, Dh, cta_rows, s)
+              : launch_mma_dh<true, float, false>(a, Dh, cta_rows, s);
   }
   return (int)err;
 }

@@ -27,7 +27,8 @@ CSRC_DIR = os.path.join(PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(PKG_DIR, "_build")
 KERNELS = ("gemm_bias_epilogue", "masked_attention", "block_train",
            "attention_train", "int8_gemm", "ring_attention")
-HEADERS = ("common.cuh", "attention_core.cuh", "attention_train_mma.cuh")
+HEADERS = ("common.cuh", "attention_core.cuh", "attention_train_mma.cuh",
+           "mma_tiles.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 
@@ -45,7 +46,7 @@ _SIGNATURES = {
         "vs_gemm_bias_epilogue": [_vp] * 9 + [_int] * 5 + [_f32, _vp]},
     "masked_attention": {
         "vs_masked_attention": [_vp] * 7 + [_int] * 4 + [_ll] * 9
-        + [_f32, _int, _int, _int, _vp]},
+        + [_f32, _int, _int, _int, _int, _vp]},
     "block_train": {
         "vs_bt_gemm": [_vp] * 8 + [_int] * 3 + [_ll] * 4 + [_int] * 2
         + [_uint, _int, _int, _uint, _f32, _vp],
@@ -194,6 +195,20 @@ def aligned16(t):
     """``t`` (contiguous) itself, or a copy where its data does not start on
     a 16-byte boundary: kernels that stage 16-byte chunks take it so."""
     return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
+_sms: Dict[int, int] = {}
+
+
+def sm_count(device) -> int:
+    """The number of SMs of a CUDA device (cached)."""
+    import torch
+
+    idx = device.index if device.index is not None else \
+        torch.cuda.current_device()
+    if idx not in _sms:
+        _sms[idx] = torch.cuda.get_device_properties(idx).multi_processor_count
+    return _sms[idx]
 
 
 def stream_of(t) -> int:

@@ -93,6 +93,20 @@ def attention_q8_reference(q8, k8, v, qs, ks, pad_mask, scale: float,
     return torch.matmul(p.to(v.dtype).float(), v.float()).to(out_dtype)
 
 
+def mma_cta_rows(B: int, H: int, N: int, Dh: int, sms: int) -> int:
+    """Query rows of a CTA of the bf16 kernel: 128 (8 warps, each K/V tile
+    read from L2 feeding twice the rows) where a grid of 128-row CTAs fills
+    the card once, that is both CTA slots of each of its ``sms`` SMs (the
+    kernel's launch bounds hold two), else 64 (4 warps: twice the CTAs on
+    a smaller grid); 64 at head_dim 128, whose accumulators take the
+    registers of 8 warps. The rule follows the two shapes' device times at
+    the serving path's shapes (``chip_smoke.py``'s
+    ``attention_cta_variants`` line)."""
+    if Dh > 64:
+        return 64
+    return 128 if -(-N // 128) * H * B >= 2 * sms else 64
+
+
 def masked_attention(q, k, v, pad_mask, scale: float,
                      out: Optional[torch.Tensor] = None,
                      norm_first: bool = True, qk_scales=None) -> torch.Tensor:
@@ -108,7 +122,9 @@ def masked_attention(q, k, v, pad_mask, scale: float,
     unnormalised ones of an online softmax over the kernel's 64-key tiles
     are rounded, as the folded TPU kernel does. ``qk_scales=(qs, ks)``,
     (B, H, N) f32 views, make ``q`` and ``k`` int8 codes with those per-row
-    scales (the int8 block's ``qk_int8``). On CPU tensors this is
+    scales (the int8 block's ``qk_int8``). :func:`mma_cta_rows` picks the
+    query rows of a bf16 CTA; every row's arithmetic is the same in both
+    shapes. On CPU tensors this is
     :func:`attention_reference`, :func:`attention_folded_reference` over
     64-key blocks or :func:`attention_q8_reference`."""
     if v.device.type == "cpu":
@@ -165,11 +181,13 @@ def masked_attention(q, k, v, pad_mask, scale: float,
     sb, sh, sn, _ = v.stride()
     ob, oh, on, _ = out.stride()
     cb, ch, cn = qsc.stride() if qsc is not None else (0, 0, 0)
+    cta_rows = mma_cta_rows(B, H, N, Dh, _cuda.sm_count(v.device))
     err = lib.vs_masked_attention(
         _cuda.ptr(q), _cuda.ptr(k), _cuda.ptr(v), _cuda.ptr(mask),
         _cuda.ptr(out), _cuda.ptr(qsc), _cuda.ptr(ksc), B, H, N, Dh, sb, sh,
         sn, ob, oh, on, cb, ch, cn, float(scale), _cuda.dtype_code(v),
-        _cuda.dtype_code(out), int(norm_first), _cuda.stream_of(v))
+        _cuda.dtype_code(out), int(norm_first), cta_rows,
+        _cuda.stream_of(v))
     _cuda.check(lib, err, "masked_attention")
     masked_attention.launches += 1
     return out
