@@ -13,8 +13,12 @@ caught and passed over):
    started together) and the host C++ eval runtime (``g++``), from this
    checkout's sources; the compilers' register/shared-memory report goes to
    stderr, and the registers and spill bytes of every instantiation of the
-   bf16 serving attention (``masked_attention_mma_kernel``) to the build
-   line.
+   bf16 serving attention (``masked_attention_mma_kernel``), the serving
+   GEMM (``gemm_bf16_wgmma_kernel``, with its dynamic shared memory) and
+   the training GEMM (``bt_gemm_kernel``) to the build line, with the
+   count of ``HGMMA`` instructions in the serving GEMM's SASS
+   (``cuobjdump``). A GEMM instantiation that spills, or no ``HGMMA``,
+   fails the run.
 3. kernels: each route of the two hand-written kernels against its plain
    PyTorch version on the card, in bf16 and f32 (TF32 off), at the shapes
    the serving path gives it: the fused block at (B, N) = (32, 512) (the
@@ -31,7 +35,19 @@ caught and passed over):
    (``nn.TransformerEncoderLayer`` / ``F.scaled_dot_product_attention``,
    timed as a yardstick only; the port never calls them), and the bound:
    the larger of the bytes the function must move over the card's memory
-   rate and its operations over the card's peak rate for the input type.
+   rate and its operations over the card's peak rate for the input type;
+   the blocks and flash attention also give their own and the library
+   call's device time (``torch.profiler``).
+   gemm: each product of the serving block's chain (kernel 1's GEMMs) at
+   (32, 512) and (8, 256) in bf16, and of the training block's (kernel 9:
+   the forward's four, the backward's dX and split-K dW products) at
+   (32, 512) in f32, alone: the path it took by its counter (a serving
+   product on the ``mma.sync`` fallback fails the run), device ms,
+   TFLOP/s, bound, its error (bf16 against the plain version; f32 against
+   ``torch.matmul`` in f64 at the summation-order bound, two runs
+   bit-equal), ``torch.matmul`` on the same operands (timed only), the
+   two CTA shapes of the bf16 kernel in turns (bit-equal), and the dW
+   products at half and twice their split.
    Then the bf16 serving attention alone at the shapes the serving path
    gives it, in both CTA shapes (64 and 128 query rows, timed in turns;
    both must give the same bits): the comparison behind
@@ -181,8 +197,17 @@ caught and passed over):
    ``attention_train.<route>``, the folded ones also in bf16 as
    ``attention_train.<route>.bf16``, the int8 ones ``block_int8``,
    ``block_int8_grouped``, ``probe_mm_bf16`` and ``probe_mm_int8``, the
-   ring ones ``ring_block``, ``ring_train_fwd``, ``ring_train_bwd``), the
-   card's name and power limit, and last ``{"ok": true, "device": {...}}``.
+   ring ones ``ring_block``, ``ring_train_fwd``, ``ring_train_bwd``; the
+   GEMM routes with their design and ``ptxas`` report), the card's name
+   and power limit, and last ``{"ok": true, "device": {...}}``. No bf16
+   product of any phase may take the serving GEMM's fallback.
+
+    python3 chip_smoke.py --compare PARENT_DIR
+
+runs the kernel phases (kernels, int8 kernels, int8 probe, train kernels)
+and the train phase of the checkout at PARENT_DIR and of this one in
+turns (parent, change, change, parent), each from its own tree and build,
+and prints their lines after a ``compare_turn`` line per turn.
 """
 
 from __future__ import annotations
@@ -213,6 +238,12 @@ PEAKS = {
 # every run). The bf16 block bound is the JAX tests' own
 # (tests/test_block_kernel.py) on outputs of size 1.
 TOL = {
+    # one GEMM of the serving chain: its products are exact in f32 (bf16
+    # operands), so the f32 output differs from the plain version by
+    # summation order and the bf16 output by one bf16 step (the card tests'
+    # bounds, tests/test_torch_cuda.py)
+    ("gemm", "bfloat16"): dict(atol=1e-2, rtol=8e-3, rel=1e-2),
+    ("gemm", "float32"): dict(atol=1e-4, rtol=1e-4, rel=1e-5),
     ("block", "bfloat16"): dict(atol=5e-2, rtol=5e-2, rel=1e-2),
     ("block", "float32"): dict(atol=1e-4, rtol=1e-4, rel=1e-5),
     ("attention", "bfloat16"): dict(atol=2e-3, rtol=8e-3, rel=1e-2),
@@ -283,6 +314,23 @@ SERVING_ATTENTION_DESIGN = (
     "unpadded key walked, 128-query CTAs (8 warps) where the grid fills the "
     "card else 64 (ops/attention.mma_cta_rows), exp as ex2.approx, at most "
     "128 registers a thread at 8 warps; f32: the exact FMA kernel")
+
+
+# what the kernels line says of the serving block's bf16 GEMM (TPU kernels
+# 1, 2 and the probe's 18a) and of the training block's f32 GEMM (9-12)
+SERVING_GEMM_DESIGN = (
+    "bf16: gemm_bf16_wgmma_kernel, wgmma.mma_async m64nNk16 (N 128 or 256) "
+    "from a 4-stage ring of 64-deep 128-byte-swizzled tiles filled by TMA "
+    "(one producer warp, mbarriers), 128-row CTAs (two consumer "
+    "warpgroups) or 64 where the grid is small (ops/block_kernel."
+    "gemm_cta_rows), LayerNorm rows reduced by quad shuffles; the mma.sync "
+    "kernel only for operands TMA cannot take (gemm_bias_epilogue."
+    "fallback_launches); f32: the exact FMA kernel")
+TRAIN_GEMM_DESIGN = (
+    "bt_gemm_kernel: exact f32 FMAs, 128 x 128 CTAs, 8 x 8 a thread read "
+    "as float4 from k-major shared tiles 16 deep, double buffered by 16-byte "
+    "cp.async (row-contiguous operands) or 16-byte register staging "
+    "(k-contiguous ones), two CTAs an SM; split-K partials summed in order")
 
 
 def emit(phase: str, **kw) -> None:
@@ -438,6 +486,9 @@ def ptxas_report(log: str, kernel: str) -> list:
         m = re.search(r"Used (\d+) registers", line)
         if m and cur is not None:
             cur["registers"] = int(m.group(1))
+        m = re.search(r"(\d+) bytes smem", line)
+        if m and cur is not None:
+            cur["static_smem"] = int(m.group(1))
     try:
         names = subprocess.run(["c++filt"], input="\n".join(
             o["kernel"] for o in out), capture_output=True, text=True,
@@ -450,9 +501,23 @@ def ptxas_report(log: str, kernel: str) -> list:
     return [o for o in out if kernel in o["kernel"]]
 
 
-def phase_build() -> list:
+def sass_count(lib: str, op: str) -> int:
+    """How many ``op`` instructions ``cuobjdump -sass`` lists in a built
+    library (the toolkit's cuobjdump, beside nvcc)."""
+    from vidsum_tpu_torch.ops import _cuda
+
+    tool = os.path.join(os.path.dirname(_cuda.nvcc_path()), "cuobjdump")
+    sass = subprocess.run([tool, "-sass", lib], capture_output=True,
+                          text=True, check=True, timeout=300).stdout
+    return sum(1 for line in sass.splitlines() if op in line)
+
+
+def phase_build() -> tuple:
     """Builds every kernel; returns ptxas's registers and spills of the
-    bf16 serving attention's instantiations."""
+    bf16 serving attention's instantiations and of the two GEMMs' (the
+    wgmma kernel with its dynamic shared memory). Fails if a GEMM
+    instantiation spills or the serving GEMM's library holds no
+    ``HGMMA``."""
     from vidsum_tpu_torch import native
     from vidsum_tpu_torch.native import build as native_build
     from vidsum_tpu_torch.ops import _cuda
@@ -471,12 +536,31 @@ def phase_build() -> list:
                         "masked_attention_mma_kernel")
     if not regs:
         raise RuntimeError("ptxas reported no masked_attention_mma_kernel")
+    lib = _cuda.load("gemm_bias_epilogue")
+    gemm = ptxas_report(logs["gemm_bias_epilogue"], "gemm_bf16_wgmma_kernel")
+    for r in gemm:
+        import re
+
+        m = re.search(r"<(\d+), (\d+)|ILi(\d+)ELi(\d+)", r["kernel"])
+        rows, cols = (int(v) for v in m.groups() if v is not None)
+        r["dynamic_smem"] = lib.vs_gemm_wgmma_smem(rows, cols)
+    bt_gemm = ptxas_report(logs["block_train"], "bt_gemm_kernel")
+    if len(gemm) != 16 or len(bt_gemm) != 4:
+        raise RuntimeError(f"ptxas reported {len(gemm)} wgmma and "
+                           f"{len(bt_gemm)} bt_gemm instantiations")
+    spilled = [r["kernel"] for r in gemm + bt_gemm if any(r.get("spill", []))]
+    if spilled:
+        raise RuntimeError(f"GEMM instantiations spill: {spilled}")
+    hgmma = sass_count(_cuda.lib_path("gemm_bias_epilogue"), "HGMMA")
+    if hgmma == 0:
+        raise RuntimeError("no HGMMA in the serving GEMM's SASS")
     emit("build", cuda_s=round(t_cuda, 3),
          native_s=round(time.monotonic() - t1, 3),
          libraries=sorted(os.path.basename(_cuda.lib_path(n))
                           for n in _cuda.KERNELS),
-         masked_attention_mma_ptxas=regs)
-    return regs
+         masked_attention_mma_ptxas=regs, gemm_wgmma_ptxas=gemm,
+         bt_gemm_ptxas=bt_gemm, gemm_sass_hgmma=hgmma)
+    return regs, gemm, bt_gemm
 
 
 def library_block(block, d: int, H: int, dtype, dropout: float = 0.0):
@@ -566,19 +650,27 @@ def phase_kernels(dev: dict, seed: int) -> dict:
                     w, x, mask, H, cfg.attn_scale), reps=5)
                 lib_ms = cuda_ms(lambda: layer(x, src_key_padding_mask=mask),
                                  reps=20)
+                # the chain's own device time (torch.profiler), without the
+                # host time of its five launches that CUDA events take in
+                device = {
+                    "kernel": device_profile(lambda: bk.fused_encoder_block(
+                        block, x, mask, H, cfg.attn_scale),
+                        reps=10)["device_ms"],
+                    "library": device_profile(lambda: layer(
+                        x, src_key_padding_mask=mask), reps=10)["device_ms"]}
             itm = x.element_size()
             flops = B * N * 24 * d * d + 4 * N * valid * d
             nbytes = (2 * B * N * d * itm + 12 * d * d * itm
                       + 13 * d * 4 + B * N)
             b_ms, b_by = bound(flops, nbytes, dn)
             emit("kernel", route=route, B=B, N=N, dtype=dn, max_abs_err=err,
-                 rel_rms_err=rel, tolerance=tol, ms=ms, plain_ms=plain_ms,
-                 library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by,
-                 flops=flops, bytes=nbytes)
+                 rel_rms_err=rel, tolerance=tol, ms=ms, device_ms=device,
+                 plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms,
+                 bound_by=b_by, flops=flops, bytes=nbytes)
             if dtype == torch.bfloat16:
                 out[route] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
                                   bound_ms=b_ms, bound_by=b_by,
-                                  library_ms=lib_ms)
+                                  library_ms=lib_ms, device_ms=device)
 
     # kernel 3 at N 6,016 (its row in the kernels line) and at 1,280 (the
     # bucket of the serve phase's 1,200-frame request, whose fused blocks
@@ -716,6 +808,227 @@ def attention_cta_variants(rng) -> None:
                      "picked": at.mma_cta_rows(B, H, N, Dh, sms),
                      "device_ms_64": times[64], "device_ms_128": times[128]})
     emit("attention_cta_variants", sms=sms, shapes=rows)
+
+
+def gemm_f64_bound(a, b, K: int, extra=None, scale: float = 1.0):
+    """(want, tol) of an f32 product ``a . b`` held against f64: any f32
+    summation order of K products stays within (K + 2) 2^-24 sum |a||b|
+    (plus ``extra``'s magnitudes, the epilogue's addends), times the
+    dropout's ``scale``."""
+    want = a.double() @ b.double()
+    size = a.double().abs() @ b.double().abs()
+    if extra is not None:
+        want = want + extra.double()
+        size = size + extra.double().abs()
+    return want, scale * (K + 2) * 2.0 ** -24 * size
+
+
+def phase_gemm(dev: dict, seed: int) -> None:
+    """Each product of kernel 1's chain at (32, 512) and (8, 256) in bf16,
+    and of kernel 9's (forward, dX and split-K dW) at (32, 512) in f32, on
+    its own: the path it took (by the wrapper's counters: every serving
+    product must take the wgmma kernel, never the fallback), its device
+    time (torch.profiler, 10 calls), TFLOP/s and bound, its error against
+    the plain version (bf16: ``gemm_bias_epilogue_reference`` at the card
+    tests' GEMM bounds; f32: torch.matmul in f64 at the summation-order
+    bound, two runs bit-equal), and torch.matmul on the same operands
+    (timed only, never called by the port). bf16: both CTA shapes in turns
+    (64, 128, 128, 64 rows), bit-equal; f32 dW: the split rule's split
+    against half and twice it."""
+    import numpy as np
+    import torch
+
+    from vidsum_tpu_torch.config import ModelConfig
+    from vidsum_tpu_torch.models.simnet import SimNet
+    from vidsum_tpu_torch.ops import block_kernel as bk
+    from vidsum_tpu_torch.ops import block_train as bt
+
+    peaks = peaks_for(dev["name"])
+    cuda = torch.device("cuda")
+    d = ModelConfig().d_model
+    block = SimNet(ModelConfig(num_layers=1), device=cuda,
+                   generator=torch.Generator().manual_seed(seed + 30)
+                   ).encoder.module_list[0]
+    rng = np.random.default_rng(seed + 31)
+
+    def rand(*shape, dtype=torch.float32):
+        return torch.from_numpy(rng.normal(size=shape).astype(
+            np.float32)).to(cuda, dtype)
+
+    def bound(flops, nbytes, dtype_name):
+        t_ops = flops / peaks[dtype_name] * 1e3
+        t_bytes = nbytes / peaks["bytes"] * 1e3
+        return (max(t_ops, t_bytes),
+                "operations" if t_ops >= t_bytes else "bytes")
+
+    def device_ms(fn):
+        return device_profile(fn, reps=10)["device_ms"]
+
+    def library(fn):
+        """torch.matmul's device ms, or its CUDA-event ms where the
+        profiler lists none of its kernels (seen for f32), and which."""
+        ms = device_ms(fn)
+        return (ms, "device") if ms > 0 else (cuda_ms(fn, reps=20),
+                                              "cuda_events")
+
+    # kernel 1: the four products of the serving chain, bf16
+    w = bk.block_weights(block, torch.bfloat16)
+    for B, N in ((32, 512), (8, 256)):
+        M = B * N
+        x = rand(M, d, dtype=torch.bfloat16)
+        h1_f = rand(M, d)
+        products = (
+            ("qkv", x, w.wqkv, w.bqkv, "none", {}),
+            ("proj_ln1", rand(M, d, dtype=torch.bfloat16), w.wp, w.bp,
+             "residual_ln", dict(residual=x, ln_g=w.ln1_g, ln_b=w.ln1_b,
+                                 want_f32=True)),
+            ("fc1", h1_f.to(torch.bfloat16), w.w1, w.b1, "relu", {}),
+            ("fc2_ln2", rand(M, 4 * d, dtype=torch.bfloat16).relu(), w.w2,
+             w.b2, "residual_ln", dict(residual=h1_f, ln_g=w.ln2_g,
+                                       ln_b=w.ln2_b)))
+        for name, a, wt, b, epi, kw in products:
+            Nn, K = wt.shape
+            fn = bk.gemm_bias_epilogue
+            before = (fn.launches, fn.fallback_launches)
+            got_t, got_f = fn(a, wt, b, epi, **kw)
+            torch.cuda.synchronize()
+            if (fn.launches, fn.fallback_launches) != (before[0] + 1,
+                                                       before[1]):
+                raise AssertionError(f"({B}, {N}) {name} did not take the "
+                                     f"wgmma kernel")
+            want_t, want_f = bk.gemm_bias_epilogue_reference(a, wt, b, epi,
+                                                             **kw)
+            err, rel = check_close(got_t, want_t, TOL[("gemm", "bfloat16")],
+                                   f" ({name})")
+            if got_f is not None:
+                check_close(got_f, want_f, TOL[("gemm", "float32")],
+                            f" ({name}, f32)")
+            rows = bk.gemm_cta_rows(M, Nn, torch.cuda.get_device_properties(
+                0).multi_processor_count)
+            call = lambda: fn(a, wt, b, epi, **kw)  # noqa: E731
+            ms = device_ms(call)
+            pick = bk.gemm_cta_rows
+            variants, bits = {64: [], 128: []}, {}
+            try:
+                for r in (64, 128, 128, 64):
+                    bk.gemm_cta_rows = lambda *_, r=r: r  # the shape tested
+                    variants[r].append(device_ms(call))
+                    bits[r] = call()[0]
+            finally:
+                bk.gemm_cta_rows = pick
+            if not torch.equal(bits[64], bits[128]):
+                raise AssertionError(f"({B}, {N}) {name}: the two CTA "
+                                     f"shapes give different bits")
+            lib, lib_clock = library(lambda: torch.matmul(a, wt.t()))
+            flops = 2 * M * Nn * K
+            nbytes = ((M * K + Nn * K) * 2 + M * Nn * 2 + Nn * 4
+                      + (M * Nn * (4 if kw.get("want_f32") else 0))
+                      + (M * Nn * kw["residual"].element_size()
+                         + 8 * Nn if epi == "residual_ln" else 0))
+            b_ms, b_by = bound(flops, nbytes, "bfloat16")
+            emit("gemm", kernel=1, B=B, N=N, product=name, dtype="bfloat16",
+                 M=M, N_out=Nn, K=K, epilogue=epi, path="wgmma",
+                 cta_rows=rows, tile_n=bk.gemm_tile_n(Nn),
+                 device_ms=ms, tflops=flops / ms / 1e9, bound_ms=b_ms,
+                 bound_by=b_by, max_abs_err=err, rel_rms_err=rel,
+                 tolerance=TOL[("gemm", "bfloat16")],
+                 cta_variants_device_ms={str(r): v
+                                         for r, v in variants.items()},
+                 library_ms=lib, library_clock=lib_clock,
+                 library_tflops=flops / lib / 1e9)
+
+    # kernel 9: bt_gemm's products at (32, 512), f32
+    tw = bt.train_weights(block)
+    tw = bt.TrainWeights(*(t.detach() for t in tw))
+    M = 32 * 512
+    rate = 0.3
+    dr = bt._Drop(int(rng.integers(0, 2**31 - 1)), 512, bt._threshold(rate),
+                  bt._keep_scale(rate))
+    x32, o, h1 = rand(M, d), rand(M, d), rand(M, d)
+    m1d, a1 = rand(M, 4 * d), rand(M, 4 * d)
+    dm2, dproj, dqkv = rand(M, d), rand(M, d), rand(M, 3 * d)
+    da1, addend = rand(M, 4 * d), rand(M, d)
+    keep_idx = torch.arange(M, device=cuda)
+
+    def keep_mask(cols):
+        return bt._keep_bits(dr.seed, torch.tensor(bt.S_MLP, device=cuda),
+                             (keep_idx // 512)[:, None],
+                             (keep_idx % 512)[:, None],
+                             torch.arange(cols, device=cuda)[None, :], rate)
+
+    # (name, a, b, _gemm options, the plain product's operands)
+    products = (
+        ("fwd_qkv", x32, tw.wqkv, dict(tb=True, bias=tw.bqkv),
+         (x32, tw.wqkv.t())),
+        ("fwd_proj", o, tw.wp, dict(tb=True, bias=tw.bp), (o, tw.wp.t())),
+        ("fwd_fc1", h1, tw.wf1, dict(tb=True, bias=tw.bf1,
+                                     epilogue="relu_drop", dr=dr,
+                                     site=bt.S_MLP, keep_pre=True),
+         (h1, tw.wf1.t())),
+        ("fwd_fc2", m1d, tw.wf2, dict(tb=True, bias=tw.bf2),
+         (m1d, tw.wf2.t())),
+        ("dx_da1", dm2, tw.wf2, dict(epilogue="drop_relu_bwd", dr=dr,
+                                     site=bt.S_MLP, aux=a1), (dm2, tw.wf2)),
+        ("dx_dh1", da1, tw.wf1, dict(addend=addend), (da1, tw.wf1)),
+        ("dx_dattn", dproj, tw.wp, {}, (dproj, tw.wp)),
+        ("dx_dx", dqkv, tw.wqkv, dict(addend=addend), (dqkv, tw.wqkv)),
+        ("dw_wf2", dm2, m1d, dict(ta=True), (dm2.t(), m1d)),
+        ("dw_wf1", da1, h1, dict(ta=True), (da1.t(), h1)),
+        ("dw_wp", dproj, o, dict(ta=True), (dproj.t(), o)),
+        ("dw_wqkv", dqkv, x32, dict(ta=True), (dqkv.t(), x32)))
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for name, a, b, kw, (pa, pb) in products:
+        Mo, K = pa.shape
+        No = pb.shape[1]
+        epi = kw.get("epilogue", "bias")
+        splits = bt.gemm_splits(Mo, No, K, sms) if epi == "bias" else 1
+        before = bt._gemm.launches
+        runs = [bt._gemm(a, b, **kw) for _ in range(2)]
+        torch.cuda.synchronize()
+        if bt._gemm.launches != before + 2:
+            raise AssertionError(f"{name}: bt_gemm did not launch")
+        got, again = ((r[0] if kw.get("keep_pre") else r) for r in runs)
+        if not torch.equal(got, again):
+            raise AssertionError(f"{name}: two runs differ")
+        extra = kw.get("bias")
+        if kw.get("addend") is not None:
+            extra = kw["addend"] + (0.0 if extra is None else extra)
+        want, tol = gemm_f64_bound(pa, pb, K, extra)
+        if epi == "relu_drop":
+            pre = runs[0][1].double()
+            if not bool(((pre - want).abs() <= tol).all()):
+                raise AssertionError(f"{name}: pre-ReLU off f64")
+            want = torch.where(keep_mask(No), want.clamp_min(0) * dr.kscale,
+                               0.0)
+            tol = tol * dr.kscale + 2.0 ** -23 * want.abs()
+        elif epi == "drop_relu_bwd":
+            want = torch.where(keep_mask(No) & (a1 > 0), want * dr.kscale,
+                               0.0)
+            tol = tol * dr.kscale + 2.0 ** -23 * want.abs()
+        diff = (got.double() - want).abs()
+        if not bool((diff <= tol).all()):
+            raise AssertionError(f"{name}: off torch.matmul in f64 past the "
+                                 f"summation-order bound by "
+                                 f"{float((diff - tol).max())}")
+        ms = device_ms(lambda: bt._gemm(a, b, **kw))
+        variants = None
+        if name.startswith("dw_"):
+            variants = {str(s): device_ms(lambda s=s: bt._gemm(
+                a, b, splits=s, **kw)) for s in sorted(
+                    {max(1, splits // 2), splits, 2 * splits})}
+        lib, lib_clock = library(lambda: torch.matmul(pa, pb))
+        flops = 2 * Mo * No * K
+        nbytes = (Mo * K + K * No + Mo * No) * 4
+        b_ms, b_by = bound(flops, nbytes, "float32")
+        emit("gemm", kernel=9, B=32, N=512, product=name, dtype="float32",
+             M=Mo, N_out=No, K=K, epilogue=epi,
+             path="bt_gemm" + (f", split-K {splits}" if splits > 1 else ""),
+             device_ms=ms, tflops=flops / ms / 1e9, bound_ms=b_ms,
+             bound_by=b_by, max_abs_err=float(diff.max()),
+             worst_share_of_bound=float((diff / tol.clamp_min(1e-30)).max()),
+             bit_equal_repeat=True, split_variants_device_ms=variants,
+             library_ms=lib, library_clock=lib_clock,
+             library_tflops=flops / lib / 1e9)
 
 
 def diff_stats(got, want) -> dict:
@@ -2642,6 +2955,17 @@ def _counted():
             *((r, getattr(ra, r)) for r in RING_ROUTES)]
 
 
+def check_no_gemm_fallback(what: str) -> None:
+    """Fails if any bf16 product so far took the serving GEMM's mma.sync
+    fallback: every path's shapes must take the wgmma kernel."""
+    from vidsum_tpu_torch.ops import block_kernel as bk
+
+    n = bk.gemm_bias_epilogue.fallback_launches
+    if n:
+        raise AssertionError(f"{what}: {n} bf16 products took the GEMM "
+                             f"fallback")
+
+
 def reset_counters() -> None:
     for _, fn in _counted():
         fn.launches = 0
@@ -2681,6 +3005,7 @@ def phase_serve(seed: int) -> dict:
     if missing:
         raise AssertionError(f"routes never launched while serving: "
                              f"{missing} (counters {counts})")
+    check_no_gemm_fallback("serving")
     if st.completed != len(videos) or st.failed:
         raise AssertionError(f"serving stats: {st}")
 
@@ -2908,9 +3233,55 @@ def phase_serve_http(seed: int) -> None:
     emit("serve_http", statuses=codes, request_s=t_s, max_body_bytes=cap)
 
 
+# the phases --compare runs from each tree (a parent checkout's
+# chip_smoke.py must have them, with these signatures)
+COMPARE_CODE = """
+import os, sys
+sys.path.insert(0, os.getcwd())
+import torch
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+import chip_smoke as cs
+from vidsum_tpu_torch.native import build as native_build
+from vidsum_tpu_torch.ops import _cuda
+dev = cs.phase_device()
+_cuda.build()
+native_build.build(verbose=False)
+cs.phase_kernels(dev, {seed})
+cs.phase_int8_kernels(dev, {seed})
+cs.phase_int8_probe(dev)
+cs.phase_train_kernels(dev, {seed})
+cs.phase_train({seed})
+"""
+
+
+def compare_trees(parent: str, seed: int) -> int:
+    """The kernel phases (kernels, int8 kernels, int8 probe, train kernels)
+    and the train phase of the checkout at ``parent`` and of this one, each
+    in its own process from its own tree (its own build), in turns: parent,
+    change, change, parent. Each turn's lines follow a ``compare_turn``
+    line naming its tree."""
+    trees = (("parent", os.path.abspath(parent)), ("change", HERE),
+             ("change", HERE), ("parent", os.path.abspath(parent)))
+    for turn, (label, tree) in enumerate(trees):
+        emit("compare_turn", turn=turn, tree=label, dir=tree)
+        rc = subprocess.run([sys.executable, "-c",
+                             COMPARE_CODE.format(seed=seed)],
+                            cwd=tree).returncode
+        if rc:
+            print(f"chip_smoke.py: the {label} tree's phases failed "
+                  f"(exit {rc})", file=sys.stderr)
+            return rc
+    return 0
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--compare", metavar="PARENT_DIR",
+                    help="run the kernel and train phases of the checkout "
+                         "at PARENT_DIR and of this one in turns (parent, "
+                         "change, change, parent) instead of the full run")
     args = ap.parse_args()
     if not os.path.isdir(os.path.join(HERE, "vidsum_tpu_torch")):
         print("chip_smoke.py: the vidsum_tpu_torch package is not beside "
@@ -2922,12 +3293,15 @@ def main() -> int:
         print("chip_smoke.py: CUDA is not available", file=sys.stderr)
         return 2
     sys.path.insert(0, HERE)
+    if args.compare:
+        return compare_trees(args.compare, args.seed)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
     dev = phase_device()
-    mma_regs = phase_build()
+    mma_regs, gemm_regs, bt_regs = phase_build()
     timings = phase_kernels(dev, args.seed)
+    phase_gemm(dev, args.seed)
     timings.update(phase_int8_kernels(dev, args.seed))
     probe_timings, probe_launches = phase_int8_probe(dev)
     timings.update(probe_timings)
@@ -2952,6 +3326,7 @@ def main() -> int:
     for name, err in bucket_err.items():
         timings[name]["max_abs_err"] = max(timings[name]["max_abs_err"], err)
     counts.update(phase_seq_train(args.seed, long_videos))
+    check_no_gemm_fallback("the run")
 
     replaces = {
         "_fused_block": "vidsum_tpu/ops/block_kernel.py:39",
@@ -3012,6 +3387,12 @@ def main() -> int:
         if route in ("_flash_attention", "_flash_attention_folded"):
             entry["design"] = SERVING_ATTENTION_DESIGN
             entry["ptxas"] = [r for r in mma_regs if "<64," in r["kernel"]]
+        elif route in ("_fused_block", "_fused_block_grouped", "mm_bf16"):
+            entry["design"] = SERVING_GEMM_DESIGN
+            entry["ptxas"] = gemm_regs
+        elif route in TRAIN_ROUTES:
+            entry["design"] = TRAIN_GEMM_DESIGN
+            entry["ptxas"] = bt_regs
         kernels.append(entry)
     print(dev["smi"], flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

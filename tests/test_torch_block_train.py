@@ -196,6 +196,22 @@ def test_routing_predicates_match_jax():
     assert not bt.fused_block_train_supported(4, 200, 256, 4)
 
 
+@pytest.mark.parametrize("M,N,K,want", [
+    # (32, 512), d 256: the forward's and the dX products fill the card
+    (16384, 768, 256, 1), (16384, 256, 1024, 1), (16384, 256, 768, 1),
+    # its dW products over all 16,384 rows: dWf2, dWf1, dWp, dWqkv
+    (256, 1024, 16384, 16), (1024, 256, 16384, 16), (256, 256, 16384, 64),
+    (768, 256, 16384, 22),
+    # (8, 256): fc2 / dh1, dx and the dW products over 2,048 rows
+    (2048, 256, 1024, 4), (2048, 256, 768, 3), (256, 256, 2048, 8),
+])
+def test_gemm_splits_at_the_main_path_shapes(M, N, K, want):
+    """``bt_gemm`` splits K where its 128 x 128 tiles leave SMs idle, as far
+    as one wave of 2 CTAs an SM holds and no split under 256 deep (132 SMs:
+    an H100 SXM)."""
+    assert bt.gemm_splits(M, N, K, 132) == want
+
+
 def test_rejects_rates_and_heads_the_hash_cannot_take():
     _, blk = _block_pair()
     x = torch.zeros(1, 128, D)

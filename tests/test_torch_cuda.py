@@ -114,6 +114,117 @@ def test_kernels_refuse_shapes_no_configuration_has(cuda):
         attn_mod.masked_attention(q, q, q, None, 0.1)
 
 
+# ------------------------------- the serving block's bf16 GEMM on wgmma
+
+def _gemm_case(dev, M, N, K, epilogue, res_dtype=torch.float32, seed=1):
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    x = torch.randn(M, K, generator=g).to(dev, torch.bfloat16)
+    w = (torch.randn(N, K, generator=g) / K ** 0.5).to(dev, torch.bfloat16)
+    b = torch.randn(N, generator=g).to(dev)
+    kw = {}
+    if epilogue == "residual_ln":
+        kw = dict(residual=torch.randn(M, N, generator=g).to(dev, res_dtype),
+                  ln_g=torch.rand(N, generator=g).to(dev) + 0.5,
+                  ln_b=torch.randn(N, generator=g).to(dev))
+    return x, w, b, kw
+
+
+def _gemm_shape(monkeypatch, rows):
+    """Forces the wgmma kernel's CTA rows (None: the wrapper's rule)."""
+    monkeypatch.undo()
+    if rows is not None:
+        monkeypatch.setattr(bk, "gemm_cta_rows", lambda *a: rows)
+
+
+@pytest.mark.parametrize("epilogue,M,N,K,res_dtype", [
+    ("none", 200, 320, 96, None),          # ragged M, N and K tiles
+    ("none", 130, 1, 256, None),           # the score head: N 1
+    ("relu", 333, 1000, 264, None),
+    ("residual_ln", 200, 64, 96, torch.bfloat16),     # d 64
+    ("residual_ln", 257, 128, 512, torch.float32),    # d 128, K 4d
+    ("residual_ln", 300, 256, 1024, torch.float32),   # d 256, K 4d
+    ("residual_ln", 300, 256, 256, torch.bfloat16),   # d 256, x's residual
+    ("residual_ln", 200, 200, 40, torch.float32),     # N 200, K < 64
+    ("residual_ln", 200, 512, 96, torch.bfloat16),    # d 512: the row kernel
+])
+def test_wgmma_gemm_matches_plain(cuda, monkeypatch, epilogue, M, N, K,
+                                  res_dtype):
+    """The wgmma kernel (never the fallback, by its counter) against the
+    plain version in both CTA shapes, which give the same bits."""
+    x, w, b, kw = _gemm_case(cuda, M, N, K, epilogue, res_dtype)
+    want_t, want_f = bk.gemm_bias_epilogue_reference(x, w, b, epilogue,
+                                                     want_f32=True, **kw)
+    outs = []
+    for rows in (64, 128):
+        _gemm_shape(monkeypatch, rows)
+        before = (bk.gemm_bias_epilogue.launches,
+                  bk.gemm_bias_epilogue.fallback_launches)
+        got_t, got_f = bk.gemm_bias_epilogue(x, w, b, epilogue,
+                                             want_f32=True, **kw)
+        torch.cuda.synchronize()
+        assert (bk.gemm_bias_epilogue.launches,
+                bk.gemm_bias_epilogue.fallback_launches) == (
+                    before[0] + 1, before[1])
+        _close(got_f, want_f, "gemm", torch.float32)   # exact products
+        _close(got_t, want_t, "gemm", torch.bfloat16)
+        outs.append((got_t, got_f))
+    assert torch.equal(outs[0][0], outs[1][0])
+    assert torch.equal(outs[0][1], outs[1][1])
+
+
+@pytest.mark.parametrize("case", ["k100", "row_stride_100", "odd_base"])
+def test_gemm_fallback_takes_what_tma_cannot(cuda, case):
+    """K = 100, a view with a row stride of 100 and a base off 16 bytes take
+    the mma.sync fallback (its counter moves) and match the plain version;
+    a view with a row stride of 104 takes the wgmma kernel."""
+    M, N, K = 200, 256, 100 if case == "k100" else 96
+    x, w, b, kw = _gemm_case(cuda, M, N, K, "residual_ln")
+    if case == "row_stride_100":
+        x = torch.zeros(M, 100, device=cuda, dtype=x.dtype).copy_(
+            torch.nn.functional.pad(x, (0, 4)))[:, :K]
+    elif case == "odd_base":
+        flat = torch.zeros(M * K + 1, device=cuda, dtype=x.dtype)
+        x = flat[1:].view(M, K).copy_(x)
+    assert not bk.gemm_takes_wgmma(x, w)
+    before = bk.gemm_bias_epilogue.fallback_launches
+    got_t, got_f = bk.gemm_bias_epilogue(x, w, b, "residual_ln",
+                                         want_f32=True, **kw)
+    torch.cuda.synchronize()
+    assert bk.gemm_bias_epilogue.fallback_launches == before + 1
+    want_t, want_f = bk.gemm_bias_epilogue_reference(x, w, b, "residual_ln",
+                                                     want_f32=True, **kw)
+    _close(got_f, want_f, "gemm", torch.float32)
+    _close(got_t, want_t, "gemm", torch.bfloat16)
+    wide = torch.zeros(M, 104, device=cuda, dtype=x.dtype)[:, :96]
+    wide.copy_(torch.randn(M, 96, device=cuda).to(x.dtype))
+    before = bk.gemm_bias_epilogue.fallback_launches
+    got = bk.gemm_bias_epilogue(wide, w[:, :96].contiguous(), b)[0]
+    torch.cuda.synchronize()
+    assert bk.gemm_bias_epilogue.fallback_launches == before
+    _close(got, bk.gemm_bias_epilogue_reference(
+        wide, w[:, :96].contiguous(), b)[0], "gemm", torch.bfloat16)
+
+
+@pytest.mark.parametrize("epilogue,N,K", [("none", 768, 256),
+                                          ("relu", 1024, 256),
+                                          ("residual_ln", 256, 1024)])
+def test_gemm_row_bits_do_not_depend_on_m_or_the_cta_shape(
+        cuda, monkeypatch, epilogue, N, K):
+    """A row's output is bit-equal at M 200 and M 16,384 and in both CTA
+    shapes (served scores equal solo scores)."""
+    x, w, b, kw = _gemm_case(cuda, 16384, N, K, epilogue, torch.float32)
+    runs = []
+    for rows in (None, 64, 128):
+        _gemm_shape(monkeypatch, rows)
+        for M in (16384, 200):
+            sub = {k: (v[:M] if k == "residual" else v)
+                   for k, v in kw.items()}
+            y, _ = bk.gemm_bias_epilogue(x[:M], w, b, epilogue, **sub)
+            runs.append(y[:200])
+    torch.cuda.synchronize()
+    assert all(torch.equal(runs[0], r) for r in runs[1:])
+
+
 @pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("norm_first", [True, False])
 @pytest.mark.parametrize("Dh,aligned", [(16, True), (32, True), (64, True),
@@ -393,6 +504,69 @@ def test_block_train_routes_match_plain(cuda, dtype, d, B, N, grouped):
     _, bad_grads = bwd(x, mask, seed + 1, w, do, H, cfg.attn_scale, rate)
     assert not _train_within(bad_grads.wqkv, wgrads.wqkv, "grad",
                              torch.float32)
+
+
+@pytest.mark.parametrize("layout", ["tb", "plain", "ta"])
+@pytest.mark.parametrize("epilogue,splits", [("bias", 1), ("bias", 3),
+                                             ("relu_drop", 1),
+                                             ("drop_relu_bwd", 1)])
+@pytest.mark.parametrize("K", [1000, 1001])
+def test_bt_gemm_matches_f64_at_summation_order(cuda, layout, epilogue,
+                                                splits, K):
+    """``bt_gemm`` in the forward's layout (``tb``: A . W^T), the dX
+    products' (A . W) and the dW products' (``ta``: X^T . dY), with every
+    epilogue and split-K, against torch.matmul in f64: within the bound of
+    an f32 sum of K products in any order, (K + 2) 2^-24 sum |a||b| (the
+    dropout's kscale times that, plus one rounding of the scaled value).
+    K 1001 takes the scalar loads (row strides not a multiple of 4). Two
+    runs give identical bits."""
+    from vidsum_tpu_torch.ops import block_train as bt
+
+    M, N, R, rate, seed, site = 300, 200, 100, 0.3, 77, bt.S_MLP
+    g = torch.Generator().manual_seed(K)
+    a = torch.randn(M, K, generator=g)
+    w = torch.randn(N, K, generator=g)
+    bias = torch.randn(N, generator=g)
+    addend = torch.randn(M, N, generator=g)
+    aux = torch.randn(M, N, generator=g)
+    a_op = a.t().contiguous() if layout == "ta" else a
+    b_op = w if layout == "tb" else w.t().contiguous()
+    dr = bt._Drop(seed, R, bt._threshold(rate), bt._keep_scale(rate))
+    kw = dict(ta=layout == "ta", tb=layout == "tb", epilogue=epilogue,
+              splits=splits)
+    if epilogue == "bias":
+        kw.update(bias=bias.to(cuda), addend=addend.to(cuda))
+    elif epilogue == "relu_drop":
+        kw.update(bias=bias.to(cuda), dr=dr, site=site, keep_pre=True)
+    else:
+        kw.update(dr=dr, site=site, aux=aux.to(cuda))
+    runs = [bt._gemm(a_op.to(cuda), b_op.to(cuda), **kw) for _ in range(2)]
+    torch.cuda.synchronize()
+    got = runs[0][0] if epilogue == "relu_drop" else runs[0]
+    again = runs[1][0] if epilogue == "relu_drop" else runs[1]
+    assert torch.equal(got, again)
+    prod = a.double() @ w.double().t()
+    size = a.double().abs() @ w.double().abs().t()
+    m = torch.arange(M)
+    keep = bt._keep_bits(seed, torch.tensor(site), (m // R)[:, None],
+                         (m % R)[:, None], torch.arange(N)[None, :], rate)
+    ks = dr.kscale
+    if epilogue == "bias":
+        want = prod + bias.double() + addend.double()
+        size = size + bias.double().abs() + addend.double().abs()
+    elif epilogue == "relu_drop":
+        pre = prod + bias.double()
+        size = size + bias.double().abs()
+        tol_pre = (K + 2) * 2.0 ** -24 * size
+        assert bool(((runs[0][1].cpu().double() - pre).abs()
+                     <= tol_pre).all())
+        want = torch.where(keep, pre.clamp_min(0) * ks, 0.0)
+    else:
+        want = torch.where(keep & (aux > 0), prod * ks, 0.0)
+    scale = ks if epilogue != "bias" else 1.0
+    tol = scale * (K + 2) * 2.0 ** -24 * size + 2.0 ** -23 * want.abs()
+    err = (got.cpu().double() - want).abs()
+    assert bool((err <= tol).all()), float((err - tol).max())
 
 
 def test_train_step_on_card_matches_cpu(cuda):

@@ -170,6 +170,57 @@ def test_mma_cta_rows_follow_the_grid():
     assert rows(32, 4, 512, 16, 132) == 128
 
 
+# the serving block's four products at d_model d: (name, N, K)
+def _block_products(d):
+    return (("qkv", 3 * d, d), ("proj", d, d), ("fc1", 4 * d, d),
+            ("fc2", d, 4 * d))
+
+
+@pytest.mark.parametrize("B,N,d,want", [
+    (32, 512, 256, (128, 128, 128, 128)),   # the flagship: 128-384 CTAs
+    (32, 512, 64, (128, 128, 128, 128)),
+    (8, 256, 256, (64, 64, 64, 64)),        # 16-64 CTAs of 128 rows
+    (8, 256, 512, (128, 64, 128, 64)),      # qkv: 96 x 6 fills 2 waves
+    (16, 512, 256, (64, 64, 128, 64)),      # proj: 64 CTAs of 128 rows
+])
+def test_gemm_cta_rows_follow_the_grid(B, N, d, want):
+    """The wgmma GEMM's CTA rows at the serving path's products (132 SMs:
+    an H100 SXM): 64 where a grid of 64-row CTAs takes fewer waves than
+    twice the 128-row grid's."""
+    got = tuple(bk.gemm_cta_rows(B * N, n, 132)
+                for _, n, _ in _block_products(d))
+    assert got == want
+
+
+def test_gemm_cta_rows_and_tile_n_at_edges():
+    assert bk.gemm_cta_rows(2048, 2048, 132) == 128    # probe 18a: 128 CTAs
+    assert bk.gemm_cta_rows(132 * 128, 256, 132) == 128    # one full wave
+    assert bk.gemm_cta_rows(133 * 128, 256, 132) == 64     # a 1-CTA tail
+    assert bk.gemm_cta_rows(66 * 128, 256, 132) == 64      # half a wave
+    assert bk.gemm_cta_rows(67 * 128, 256, 132) == 128
+    assert [bk.gemm_tile_n(n) for n in (1, 64, 128, 129, 256, 768)] == [
+        128, 128, 128, 256, 256, 256]
+
+
+def test_gemm_takes_wgmma_where_tma_can_load():
+    """TMA needs K and both row strides a multiple of 8 bf16 and 16-byte
+    aligned bases; everything else takes the mma.sync fallback."""
+    bf = torch.bfloat16
+    x = torch.zeros(200, 96, dtype=bf)
+    w = torch.zeros(64, 96, dtype=bf)
+    assert bk.gemm_takes_wgmma(x, w)
+    assert not bk.gemm_takes_wgmma(x.float(), w.float())   # f32: FMA kernel
+    assert not bk.gemm_takes_wgmma(torch.zeros(200, 100, dtype=bf),
+                                   torch.zeros(64, 100, dtype=bf))  # K 100
+    assert bk.gemm_takes_wgmma(torch.zeros(200, 104, dtype=bf)[:, :96], w)
+    assert not bk.gemm_takes_wgmma(
+        torch.zeros(200, 100, dtype=bf)[:, :96], w)         # row stride 100
+    assert not bk.gemm_takes_wgmma(x, torch.zeros(64, 100, dtype=bf)[:, :96])
+    flat = torch.zeros(200 * 96 + 8, dtype=bf)
+    assert bk.gemm_takes_wgmma(flat[8:].view(200, 96), w)
+    assert not bk.gemm_takes_wgmma(flat[1:1 + 200 * 96].view(200, 96), w)
+
+
 def test_routing_arithmetic_matches_jax():
     """Every routing predicate gives the JAX package's answer, so a request
     takes the same route in both packages."""

@@ -12,7 +12,9 @@
 // and per-element routes draw identical bits and one chain serves both.
 //
 // Kernels (ops/block_train.py chains them; nothing here allocates):
-//   bt_gemm            C = op(A) . op(B) over arbitrary strides, with the
+//   bt_gemm            C = op(A) . op(B) over arbitrary strides, exact f32
+//                      FMAs (no TF32), each output summed by one thread
+//                      in increasing k order, with the
 //                      epilogues bias(+addend), bias -> a1 and dropped ReLU
 //                      (site 33), dropout-then-ReLU' (the fc1 backward), and
 //                      split-K partials summed in a fixed order by a second
@@ -35,14 +37,24 @@
 // products are 24*B*N*d^2 + 4*d*N*sum(valid keys) ~ 34 GFLOP and the
 // backward's 48*B*N*d^2 + 8*d*N*sum(valid) ~ 69 GFLOP (without the recompute)
 // against tens of MB of activations: operations-bound, ~0.5 / ~1.0 ms at the
-// card's 67 TFLOP/s f32 peak outside the tensor cores. Design against it: the
-// GEMM is register-blocked (8 x 8 per thread, 128 x 128 CTA tiles, 16-deep
-// k-tiles in shared memory) and splits K for the dW products so that the
-// d x d outputs still fill the card; the attention kernels keep each 64 x 64
-// score tile on chip (nothing of size N x N reaches device memory) with 4 x 4
-// register blocks over transposed, padded shared-memory tiles. The recompute
-// costs one forward more than the bound counts (the TPU kernel's memory
-// footprint); no load is overlapped with compute yet.
+// card's 67 TFLOP/s f32 peak outside the tensor cores, and the four bt_gemm
+// products are ~3/4 of it. Design against it: bt_gemm_kernel runs 128 x 128
+// CTA tiles, 8 x 8 outputs a thread read from shared memory as four float4
+// a k step (16 FMAs a 16-byte load; a warp's reads hit distinct banks or
+// broadcast), over k-major tiles 16 deep, double buffered: an operand whose
+// rows are contiguous (the dW products' X^T and dY, the dX products' W)
+// arrives by 16-byte cp.async, one contiguous along k (the forward's A and
+// W^T) by 16-byte loads into registers that are stored transposed after the
+// current tile's FMAs, so every tile's loads overlap the previous tile's
+// FMAs with one __syncthreads a tile. Launch bounds hold two CTAs an SM
+// (128 registers a thread). Other strides or alignments take scalar loads
+// through the same pipeline. The dW products split K so that the d x d
+// outputs still fill the card (ops/block_train.gemm_splits), with partials
+// summed in a fixed order. The attention kernels keep each 64 x 64 score
+// tile on chip (nothing of size N x N reaches device memory) with 4 x 4
+// register blocks over transposed, padded shared-memory tiles. The
+// recompute costs one forward more than the bound counts (the TPU kernel's
+// memory footprint).
 #include "attention_core.cuh"
 
 namespace {
@@ -68,14 +80,113 @@ struct Drop {
 };
 
 // ------------------------------------------------------------------ GEMM
+// 16-deep k tiles: half the barriers of 8 deep, still 128 registers with no
+// spill
 constexpr int GBM = 128, GBN = 128, GBK = 16, GPAD = 4;
+static_assert(GBK % 8 == 0, "whole 16-byte chunks per thread");
+constexpr int kPer = GBK / 2;  // tile elements a thread loads
+constexpr int GLD = GBM + GPAD;  // a padded k row: 528 bytes, 16-byte aligned
 
 enum Epilogue : int { EPI_BIAS = 0, EPI_RELU_DROP = 1, EPI_DROP_RELU_BWD = 2 };
 
+// How an operand's GBK x 128 tile reaches its k-major shared-memory tile
+// S[k][r] (r the m index of A, the n index of B):
+//   kVecR  rows contiguous (unit stride along r): 16-byte cp.async, the
+//          ragged edge zero-filled by the copy's source size
+//   kVecK  k contiguous: 16-byte loads into registers, stored transposed
+//          once the current tile's products are issued
+//   kAny   any strides or alignment: scalar loads into registers
+enum Load : int { kVecR = 0, kVecK = 1, kAny = 2 };
+
+__device__ __forceinline__ void cp_async16(float* dst, const float* src,
+                                           int bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;" ::"r"(
+                   static_cast<uint32_t>(__cvta_generic_to_shared(dst))),
+               "l"(src), "r"(bytes)
+               : "memory");
+}
+
+// One operand X[r * sr + k * sk] over rows [r0, r0 + 128) of `rows`; the
+// registers hold the next tile between issue() and store().
+template <int MODE>
+struct Operand {
+  const float* __restrict__ p;
+  long long sr, sk;
+  int rows, r0;
+  float v[kPer];
+
+  // thread tid's q-th 16-byte chunk (kVecK): row f / kq, k 4 (f % kq)
+  static constexpr int kq = GBK / 4;
+
+  __device__ __forceinline__ void issue(float (*S)[GLD], int k0, int ke) {
+    const int tid = threadIdx.x;
+#pragma unroll
+    for (int q = 0; q < kPer / 4; ++q) {
+      const int f = tid + kThreads * q;
+      if (MODE == kVecR) {
+        const int k = f >> 5, r = (f & 31) * 4;
+        const int gr = r0 + r, gk = k0 + k;
+        const int n = gk < ke ? max(0, min(4, rows - gr)) : 0;
+        cp_async16(&S[k][r], n > 0 ? p + gr + (long long)gk * sk : p, 4 * n);
+      } else if (MODE == kVecK) {
+        const int r = f / kq, k = (f % kq) * 4;
+        const int gr = r0 + r, gk = k0 + k;
+        const float* src = p + (long long)gr * sr + gk;
+        if (gr < rows && gk + 4 <= ke) {
+          const float4 t = __ldg(reinterpret_cast<const float4*>(src));
+          v[4 * q] = t.x;
+          v[4 * q + 1] = t.y;
+          v[4 * q + 2] = t.z;
+          v[4 * q + 3] = t.w;
+        } else {
+#pragma unroll
+          for (int c = 0; c < 4; ++c)
+            v[4 * q + c] = gr < rows && gk + c < ke ? src[c] : 0.f;
+        }
+      }
+    }
+    if (MODE == kAny) {
+#pragma unroll
+      for (int i = 0; i < kPer; ++i) {
+        const int f = tid + kThreads * i;
+        const int gr = r0 + (f & 127), gk = k0 + (f >> 7);
+        v[i] = gr < rows && gk < ke ? p[gr * sr + gk * sk] : 0.f;
+      }
+    }
+  }
+
+  __device__ __forceinline__ void store(float (*S)[GLD]) {
+    const int tid = threadIdx.x;
+    if (MODE == kVecK) {
+      // (16 deep: a warp's 8 rows x 4 k groups, at most 2 to a bank)
+#pragma unroll
+      for (int q = 0; q < kPer / 4; ++q) {
+        const int f = tid + kThreads * q;
+#pragma unroll
+        for (int c = 0; c < 4; ++c) S[(f % kq) * 4 + c][f / kq] = v[4 * q + c];
+      }
+    } else if (MODE == kAny) {
+#pragma unroll
+      for (int i = 0; i < kPer; ++i) {
+        const int f = tid + kThreads * i;
+        S[f >> 7][f & 127] = v[i];
+      }
+    }
+  }
+};
+
 // C[m, n] = sum_k A[m*sam + k*sak] * B[k*sbk + n*sbn], k over this CTA's
-// split [z*kchunk, (z+1)*kchunk); a thread holds rows 8*rg..8*rg+7 and
-// columns cg + 16*j of the tile.
-__global__ void __launch_bounds__(kThreads)
+// split [z*kchunk, (z+1)*kchunk) in increasing order. Thread (ty, tx) =
+// (tid / 16, tid % 16) holds rows {4ty + i, 64 + 4ty + i} and columns
+// {4tx + j, 64 + 4tx + j} (i, j < 4) of the 128 x 128 tile, so each k step
+// reads its 8 + 8 operands as four float4 from shared memory (a warp's
+// float4 reads hit distinct banks or broadcast). The k tiles are double
+// buffered: the next tile's loads are in flight during the current tile's
+// FMAs, with one __syncthreads a tile.
+// (the scalar-load variant holds one CTA an SM: its address arithmetic
+// spills under two)
+template <int AMODE, int BMODE>
+__global__ void __launch_bounds__(kThreads, AMODE == kAny ? 1 : 2)
 bt_gemm_kernel(const float* __restrict__ A, const float* __restrict__ Bm,
                const float* __restrict__ bias,
                const float* __restrict__ addend,
@@ -83,14 +194,15 @@ bt_gemm_kernel(const float* __restrict__ A, const float* __restrict__ Bm,
                float* __restrict__ C2, float* __restrict__ partial, int M,
                int N, int K, long long sam, long long sak, long long sbk,
                long long sbn, int epi, int kchunk, Drop dr) {
-  __shared__ float As[GBK][GBM + GPAD];
-  __shared__ float Bs[GBK][GBN + GPAD];
-  const int tid = threadIdx.x, rg = tid >> 4, cg = tid & 15;
+  __shared__ __align__(16) float As[2][GBK][GLD];
+  __shared__ __align__(16) float Bs[2][GBK][GLD];
+  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
   const int m0 = blockIdx.x * GBM, n0 = blockIdx.y * GBN;
   const int kb = blockIdx.z * kchunk;
   const int ke = min(K, kb + kchunk);
-  const bool a_k_contig = sak == 1;
-  const bool b_n_contig = sbn == 1;
+  const int tiles = (ke - kb + GBK - 1) / GBK;
+  Operand<AMODE> a{A, sam, sak, M, m0};
+  Operand<BMODE> b{Bm, sbn, sbk, N, n0};
 
   float acc[8][8];
 #pragma unroll
@@ -98,65 +210,122 @@ bt_gemm_kernel(const float* __restrict__ A, const float* __restrict__ Bm,
 #pragma unroll
     for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
 
-  for (int k0 = kb; k0 < ke; k0 += GBK) {
-    // neighbouring threads read neighbouring addresses of each operand
-    for (int e = tid; e < GBM * GBK; e += kThreads) {
-      const int r = a_k_contig ? e / GBK : e % GBM;
-      const int c = a_k_contig ? e % GBK : e / GBM;
-      const int gm = m0 + r, gk = k0 + c;
-      As[c][r] = (gm < M && gk < ke) ? A[gm * sam + gk * sak] : 0.f;
+  a.issue(As[0], kb, ke);
+  b.issue(Bs[0], kb, ke);
+  asm volatile("cp.async.commit_group;" ::: "memory");
+  a.store(As[0]);
+  b.store(Bs[0]);
+  asm volatile("cp.async.wait_all;" ::: "memory");
+  __syncthreads();
+  for (int t = 0; t < tiles; ++t) {
+    const int cur = t & 1;
+    const bool more = t + 1 < tiles;
+    if (more) {
+      a.issue(As[cur ^ 1], kb + (t + 1) * GBK, ke);
+      b.issue(Bs[cur ^ 1], kb + (t + 1) * GBK, ke);
     }
-    for (int e = tid; e < GBN * GBK; e += kThreads) {
-      const int n = b_n_contig ? e % GBN : e / GBK;
-      const int c = b_n_contig ? e / GBN : e % GBK;
-      const int gn = n0 + n, gk = k0 + c;
-      Bs[c][n] = (gn < N && gk < ke) ? Bm[gk * sbk + gn * sbn] : 0.f;
-    }
-    __syncthreads();
+    asm volatile("cp.async.commit_group;" ::: "memory");
 #pragma unroll
     for (int kk = 0; kk < GBK; ++kk) {
-      float a[8], b[8];
-#pragma unroll
-      for (int i = 0; i < 8; ++i) a[i] = As[kk][rg * 8 + i];
-#pragma unroll
-      for (int j = 0; j < 8; ++j) b[j] = Bs[kk][cg + 16 * j];
+      const float4 a0 = *reinterpret_cast<const float4*>(&As[cur][kk][4 * ty]);
+      const float4 a1 =
+          *reinterpret_cast<const float4*>(&As[cur][kk][64 + 4 * ty]);
+      const float4 b0 = *reinterpret_cast<const float4*>(&Bs[cur][kk][4 * tx]);
+      const float4 b1 =
+          *reinterpret_cast<const float4*>(&Bs[cur][kk][64 + 4 * tx]);
+      const float av[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
+      const float bv[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
 #pragma unroll
       for (int i = 0; i < 8; ++i)
 #pragma unroll
-        for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
+        for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
     }
+    if (more) {
+      a.store(As[cur ^ 1]);
+      b.store(Bs[cur ^ 1]);
+    }
+    asm volatile("cp.async.wait_all;" ::: "memory");
     __syncthreads();
   }
 
+  // four contiguous columns at a time: one float4 store where they are
+  // whole and aligned
+  const bool vec4 = (N & 3) == 0;
 #pragma unroll
   for (int i = 0; i < 8; ++i) {
-    const int m = m0 + rg * 8 + i;
+    const int m = m0 + (i >> 2) * 64 + 4 * ty + (i & 3);
     if (m >= M) continue;
     const unsigned base = hash_base(dr.seed, dr.site, m / dr.rows);
     const int row = m % dr.rows;
 #pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const int n = n0 + cg + 16 * j;
-      if (n >= N) continue;
-      const size_t o = (size_t)m * N + n;
-      float v = acc[i][j];
-      if (partial != nullptr) {
-        partial[(size_t)blockIdx.z * M * N + o] = v;
-      } else if (epi == EPI_BIAS) {
-        if (bias != nullptr) v += bias[n];
-        if (addend != nullptr) v += addend[o];
-        C[o] = v;
-      } else if (epi == EPI_RELU_DROP) {
-        v += bias[n];
-        if (C2 != nullptr) C2[o] = v;
-        const float r = fmaxf(v, 0.f);
-        C[o] = keep_bit(base, row, n, dr.thr) ? r * dr.kscale : 0.f;
-      } else {  // EPI_DROP_RELU_BWD
-        const float g = keep_bit(base, row, n, dr.thr) ? v * dr.kscale : 0.f;
-        C[o] = aux[o] > 0.f ? g : 0.f;
+    for (int jq = 0; jq < 2; ++jq) {
+      const int nq = n0 + jq * 64 + 4 * tx;
+      if (nq >= N) continue;
+      const size_t o = (size_t)m * N + nq;
+      float v[4], pre[4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int n = nq + j;
+        float x = acc[i][jq * 4 + j];
+        if (n < N && partial == nullptr) {
+          if (epi == EPI_BIAS) {
+            if (bias != nullptr) x += bias[n];
+            if (addend != nullptr) x += addend[o + j];
+          } else if (epi == EPI_RELU_DROP) {
+            x += bias[n];
+            pre[j] = x;
+            const float r = fmaxf(x, 0.f);
+            x = keep_bit(base, row, n, dr.thr) ? r * dr.kscale : 0.f;
+          } else {  // EPI_DROP_RELU_BWD
+            const float g = keep_bit(base, row, n, dr.thr) ? x * dr.kscale
+                                                           : 0.f;
+            x = aux[o + j] > 0.f ? g : 0.f;
+          }
+        }
+        v[j] = x;
+      }
+      float* dst = partial != nullptr
+                       ? partial + (size_t)blockIdx.z * M * N + o
+                       : C + o;
+      const bool keep_pre = partial == nullptr && epi == EPI_RELU_DROP &&
+                            C2 != nullptr;
+      if (vec4 && nq + 4 <= N) {
+        *reinterpret_cast<float4*>(dst) = make_float4(v[0], v[1], v[2], v[3]);
+        if (keep_pre)
+          *reinterpret_cast<float4*>(C2 + o) =
+              make_float4(pre[0], pre[1], pre[2], pre[3]);
+      } else {
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          if (nq + j >= N) continue;
+          dst[j] = v[j];
+          if (keep_pre) C2[o + j] = pre[j];
+        }
       }
     }
   }
+}
+
+template <int AMODE, int BMODE>
+void launch_bt_gemm(dim3 grid, cudaStream_t s, const float* A,
+                    const float* B, const float* bias, const float* addend,
+                    const float* aux, float* C, float* C2, float* partial,
+                    int M, int N, int K, long long sam, long long sak,
+                    long long sbk, long long sbn, int epi, int kchunk,
+                    Drop dr) {
+  bt_gemm_kernel<AMODE, BMODE><<<grid, kThreads, 0, s>>>(
+      A, B, bias, addend, aux, C, C2, partial, M, N, K, sam, sak, sbk, sbn,
+      epi, kchunk, dr);
+}
+
+// The load mode of an operand with strides sr (along its m / n rows) and
+// sk (along k): 16-byte loads need the contiguous dimension's unit stride,
+// the other stride a multiple of 4 and a 16-byte aligned base.
+int load_mode(const float* p, long long sr, long long sk) {
+  if (reinterpret_cast<uintptr_t>(p) % 16) return kAny;
+  if (sr == 1 && sk % 4 == 0) return kVecR;
+  if (sk == 1 && sr % 4 == 0) return kVecK;
+  return kAny;
 }
 
 // Sums the split-K partials in split order, then bias and addend.
@@ -342,9 +511,21 @@ extern "C" int vs_bt_gemm(const float* A, const float* B, const float* bias,
   const int z = (K + kchunk - 1) / kchunk;
   const Drop dr{seed, site, rows, thr, kscale};
   const dim3 grid((M + GBM - 1) / GBM, (N + GBN - 1) / GBN, z);
-  bt_gemm_kernel<<<grid, kThreads, 0, s>>>(
-      A, B, bias, addend, aux, C, C2, splits > 1 ? partial : nullptr, M, N, K,
-      sam, sak, sbk, sbn, epilogue, kchunk, dr);
+  float* part = splits > 1 ? partial : nullptr;
+  const int am = load_mode(A, sam, sak), bm = load_mode(B, sbn, sbk);
+#define VS_BT_GEMM(AM, BM)                                                  \
+  launch_bt_gemm<AM, BM>(grid, s, A, B, bias, addend, aux, C, C2, part, M, \
+                         N, K, sam, sak, sbk, sbn, epilogue, kchunk, dr)
+  // the three layouts the chain uses; any other takes the scalar loads
+  if (am == kVecK && bm == kVecK)
+    VS_BT_GEMM(kVecK, kVecK);  // the forward: A . W^T
+  else if (am == kVecK && bm == kVecR)
+    VS_BT_GEMM(kVecK, kVecR);  // dX-type: dY . W
+  else if (am == kVecR && bm == kVecR)
+    VS_BT_GEMM(kVecR, kVecR);  // dW-type: X^T . dY
+  else
+    VS_BT_GEMM(kAny, kAny);
+#undef VS_BT_GEMM
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess || splits == 1) return (int)err;
   const size_t mn = (size_t)M * N;

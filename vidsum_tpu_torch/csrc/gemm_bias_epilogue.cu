@@ -17,22 +17,46 @@
 // out_f) and normalised in place by common.cuh's layernorm_rows_kernel, the
 // same f32 math in a second launch.
 //
-// Layouts: X (M, K) row-major in T; W (N, K) row-major in T (nn.Linear's
-// weight layout); bias, LN scale/shift and an f32 residual in f32; a T
-// residual in T. Outputs: out_t (M, N) in T and/or out_f (M, N) in f32,
-// either may be null. Every output element is summed in a fixed k order by
-// one thread (f32) or one mma lane (bf16), so a row's result does not depend
-// on M or on the other rows (served scores equal solo scores bit for bit).
+// Layouts: X (M, K) with row stride ldx and W (N, K) with row stride ldw
+// (nn.Linear's weight layout), both K-contiguous, in T; bias, LN scale/shift
+// and an f32 residual in f32; a T residual in T; residual and outputs (M, N)
+// contiguous. Outputs: out_t in T and/or out_f in f32, either may be null.
+// Every output element is summed in a fixed k order, the same in every tile
+// shape, so a row's result does not depend on M, on the CTA shape or on the
+// other rows (served scores equal solo scores bit for bit).
 //
 // Bound on the card: at the flagship block (B=32, N=512, d=256) the four
 // products are 24*d^2*B*N = 25.8 GFLOP against ~18 MB of operands, far above
 // the H100's ~295 FLOP/byte ridge, so the bound is operations: ~26 us at the
-// bf16 tensor-core peak. Design against it: bf16 runs on the tensor cores
-// (mma.sync m16n8k16, f32 accumulate) from padded shared-memory tiles whose
-// fragment loads are bank-conflict-free; f32 stays exact (no TF32) on the
-// FMA units (67 TFLOP/s peak) with a register-blocked tiled kernel. The bf16
-// kernel prefetches the next K tile into registers; multi-stage cp.async /
-// TMA pipelines and wgmma are later work.
+// bf16 tensor-core peak. Design against it (bf16, gemm_bf16_wgmma_kernel):
+// Hopper's warpgroup products (wgmma.mma_async m64nNk16, N = 128 or 256, f32
+// accumulate) read both operands from a 4-stage ring of 64-deep shared-memory
+// tiles in the 128-byte swizzle; one thread of a producer warpgroup fills
+// the ring by TMA (cp.async.bulk.tensor, completion on an mbarrier per stage)
+// while one or two consumer warpgroups run the products, each releasing a
+// stage through a second mbarrier once its products are done; the producer
+// warpgroup hands its registers to the consumers (setmaxnreg). TMA rather than cp.async: one
+// thread moves a whole 16-32 KB tile with no address arithmetic, and the
+// tensor maps are encoded on the host (cuTensorMapEncodeTiled, fetched
+// through cudaGetDriverEntryPoint so the library needs no -lcuda) and cached
+// by pointer and shape, so a call costs no more host time than a launch. A
+// CTA is 128 x BN (two consumer warpgroups of 64 rows) or, where that grid
+// leaves SMs idle, 64 x BN (one): ops/block_kernel.gemm_cta_rows picks it,
+// and each warpgroup's 64 rows run the same products either way. The
+// epilogue passes the tile through shared memory so that bias, residual,
+// LayerNorm and stores run along whole rows (coalesced; a row of up to 256
+// columns reduces within one warp).
+// The fallback, gemm_bf16_mma_kernel (mma.sync m16n8k16, a 32-deep shared
+// tile, the next tile prefetched into registers), takes what TMA cannot:
+// K or a row stride not a multiple of 8 elements, or X / W not on a 16-byte
+// boundary; ops/block_kernel.gemm_takes_wgmma is the predicate and
+// gemm_bias_epilogue.fallback_launches counts those calls. f32 stays exact
+// (no TF32) on the FMA units (67 TFLOP/s peak) with a register-blocked tiled
+// kernel.
+#include <cuda.h>  // CUtensorMap and its encoder's types only: nothing links libcuda
+
+#include <mutex>
+
 #include "common.cuh"
 
 namespace {
@@ -56,7 +80,7 @@ gemm_bias_epilogue_kernel(const T* __restrict__ X, const T* __restrict__ W,
                           const float* __restrict__ ln_g,
                           const float* __restrict__ ln_b,
                           T* __restrict__ out_t, float* __restrict__ out_f,
-                          int M, int N, int K, float eps) {
+                          int M, int N, int K, int ldx, int ldw, float eps) {
   constexpr int BM = 8 * TM;
   constexpr int BN = 32 * TN;
   // k-major tiles, padded by one column so the transposing stores spread
@@ -79,13 +103,13 @@ gemm_bias_epilogue_kernel(const T* __restrict__ X, const T* __restrict__ W,
     for (int idx = threadIdx.x; idx < BM * kBK; idx += kThreads) {
       const int r = idx / kBK, c = idx % kBK;
       const int gm = m0 + r, gk = k0 + c;
-      Xs[c][r] = (gm < M && gk < K) ? vs::to_f32<T>(X[(size_t)gm * K + gk])
+      Xs[c][r] = (gm < M && gk < K) ? vs::to_f32<T>(X[(size_t)gm * ldx + gk])
                                     : 0.f;
     }
     for (int idx = threadIdx.x; idx < BN * kBK; idx += kThreads) {
       const int r = idx / kBK, c = idx % kBK;
       const int gn = n0 + r, gk = k0 + c;
-      Ws[c][r] = (gn < N && gk < K) ? vs::to_f32<T>(W[(size_t)gn * K + gk])
+      Ws[c][r] = (gn < N && gk < K) ? vs::to_f32<T>(W[(size_t)gn * ldw + gk])
                                     : 0.f;
     }
     __syncthreads();
@@ -159,15 +183,14 @@ gemm_bias_epilogue_kernel(const T* __restrict__ X, const T* __restrict__ W,
 }
 
 // ---------------------------------------------------------------------------
-// bf16 on the tensor cores. A CTA of 8 warps (WARPS_M x WARPS_N) computes a
-// (32*WARPS_M) x (64*WARPS_N) tile; each warp a 32 x 64 block as 2 x 8
-// m16n8k16 products per 16-deep k step. X and W tiles are staged in shared
-// memory 32 deep, K contiguous, rows padded by 8 bf16 (20 words), so every
-// fragment load of a warp hits 32 distinct banks; the next tile's global
-// loads are issued into registers before the current tile's products, so
-// they are in flight while the tensor cores work. The epilogue is the FMA
-// kernel's; the LayerNorm's row sums add within a thread, across the four
-// lanes of a row (shuffles), then across the WARPS_N warps of the row
+// bf16 fallback on mma.sync, for operands TMA cannot take. A CTA of 8 warps
+// (WARPS_M x WARPS_N) computes a (32*WARPS_M) x (64*WARPS_N) tile; each warp
+// a 32 x 64 block as 2 x 8 m16n8k16 products per 16-deep k step. X and W
+// tiles are staged in shared memory 32 deep, K contiguous, rows padded by 8
+// bf16 (20 words), so every fragment load of a warp hits 32 distinct banks;
+// the next tile's global loads are issued into registers before the current
+// tile's products. The LayerNorm's row sums add within a thread, across the
+// four lanes of a row (shuffles), then across the WARPS_N warps of the row
 // (shared memory), in a fixed order, so a row's result does not depend on M.
 constexpr int kMmaBK = 32;
 constexpr int kMmaLds = kMmaBK + 8;
@@ -183,8 +206,8 @@ gemm_bf16_mma_kernel(const __nv_bfloat16* __restrict__ X,
                      const float* __restrict__ ln_g,
                      const float* __restrict__ ln_b,
                      __nv_bfloat16* __restrict__ out_t,
-                     float* __restrict__ out_f, int M, int N, int K,
-                     float eps, bool vec) {
+                     float* __restrict__ out_f, int M, int N, int K, int ldx,
+                     int ldw, float eps, bool vec) {
   static_assert(WARPS_M * WARPS_N == 8, "8 warps");
   constexpr int BM = 32 * WARPS_M;
   constexpr int BN = 64 * WARPS_N;
@@ -220,7 +243,8 @@ gemm_bf16_mma_kernel(const __nv_bfloat16* __restrict__ X,
       const int kc = (c & 3) * 8;
       const int grow = (is_x ? m0 : n0) + r;
       const int rows = is_x ? M : N;
-      const __nv_bfloat16* src = (is_x ? X : W) + (size_t)grow * K + k0 + kc;
+      const __nv_bfloat16* src =
+          (is_x ? X : W) + (size_t)grow * (is_x ? ldx : ldw) + k0 + kc;
       if (vec && grow < rows && k0 + kc + 8 <= K) {
         staged[i] = *reinterpret_cast<const uint4*>(src);
       } else {
@@ -358,112 +382,604 @@ gemm_bf16_mma_kernel(const __nv_bfloat16* __restrict__ X,
       }
 }
 
-cudaError_t launch_mma(const void* x, const void* w, const float* bias,
-                       const void* resid_t, const float* resid_f,
-                       const float* ln_g, const float* ln_b, void* out_t,
-                       float* out_f, int M, int N, int K, int epilogue,
-                       float eps, cudaStream_t stream) {
-  constexpr int BM = 32 * WARPS_M, BN = 64 * WARPS_N;
-  const dim3 grid((M + BM - 1) / BM, (N + BN - 1) / BN);
+// ---------------------------------------------------------------------------
+// bf16 on Hopper's warpgroup products. Shared memory per stage: the X tile
+// (BM rows) then the W tile (BN rows), each row 64 bf16 = one 128-byte
+// swizzle row, as TMA's SWIZZLE_128B writes it and a wgmma descriptor of
+// that layout reads it: 8-row groups of 1024 bytes (the stride byte offset),
+// the 16-deep k slice kk at +32 kk bytes, tiles on 1024-byte boundaries.
+constexpr int kStages = 4;
+constexpr int kWgBK = 64;
+
+template <int BM, int BN>
+struct WgTiles {
+  static constexpr int kA = BM * kWgBK * 2;
+  static constexpr int kStage = kA + BN * kWgBK * 2;
+  // the ring, 2 kStages mbarriers, and the slack that aligns the ring to
+  // 1024 bytes
+  static constexpr int kSmem = kStages * kStage + 2 * kStages * 8 + 1024;
+};
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(bar),
+               "r"(count));
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(bar)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(
+                   bar),
+               "r"(bytes)
+               : "memory");
+}
+
+// Waits for the completion of the barrier's phase of the given parity. A
+// phase that never completes (a load that never lands) traps after 2^28
+// polls (seconds), so that the launch fails instead of holding the card.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done = 0;
+  for (uint32_t polls = 0;; ++polls) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+    if (done) return;
+    if (polls == (1u << 28)) __trap();
+  }
+}
+
+// One box of a 2-D tensor map (coordinates: column c0, row c1) into shared
+// memory; its bytes complete on the barrier's transaction count.
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
+                                         int c0, int c1, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::"
+      "bytes [%0], [%1, {%2, %3}], [%4];" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(bar)
+      : "memory");
+}
+
+// wgmma shared-memory descriptor of a K-major tile in the 128-byte swizzle:
+// start address >> 4, leading byte offset unused (1), stride byte offset
+// 1024 >> 4 between 8-row groups, layout type 1 (SWIZZLE_128B)
+__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr) {
+  return (uint64_t)((addr >> 4) & 0x3FFF) | ((uint64_t)1 << 16) |
+         ((uint64_t)64 << 32) | ((uint64_t)1 << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;" ::"n"(N) : "memory");
+}
+// keeps the compiler from moving accesses of an accumulator register across
+// the asynchronous products that write it
+__device__ __forceinline__ void reg_fence(float& r) {
+  asm volatile("" : "+f"(r)::"memory");
+}
+
+// D (64 x 256, f32) += A (64 x 16) . B (256 x 16)^T, A and B bf16, both
+// K-major in 128-byte-swizzled shared memory (descriptors da, db)
+__device__ __forceinline__ void wgmma_n256(float (&d)[128], uint64_t da,
+                                           uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7,"
+      "%8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23,"
+      "%24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39,"
+      "%40, %41, %42, %43, %44, %45, %46, %47,"
+      "%48, %49, %50, %51, %52, %53, %54, %55,"
+      "%56, %57, %58, %59, %60, %61, %62, %63,"
+      "%64, %65, %66, %67, %68, %69, %70, %71,"
+      "%72, %73, %74, %75, %76, %77, %78, %79,"
+      "%80, %81, %82, %83, %84, %85, %86, %87,"
+      "%88, %89, %90, %91, %92, %93, %94, %95,"
+      "%96, %97, %98, %99, %100, %101, %102, %103,"
+      "%104, %105, %106, %107, %108, %109, %110, %111,"
+      "%112, %113, %114, %115, %116, %117, %118, %119,"
+      "%120, %121, %122, %123, %124, %125, %126, %127"
+      "}, %128, %129, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
+        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]),
+        "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]),
+        "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]),
+        "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
+        "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]),
+        "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
+        "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]),
+        "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]),
+        "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]),
+        "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),
+        "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]),
+        "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]),
+        "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+      : "l"(da), "l"(db), "r"(1));
+}
+
+// the same with B 128 x 16
+__device__ __forceinline__ void wgmma_n128(float (&d)[64], uint64_t da,
+                                           uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7,"
+      "%8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23,"
+      "%24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39,"
+      "%40, %41, %42, %43, %44, %45, %46, %47,"
+      "%48, %49, %50, %51, %52, %53, %54, %55,"
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(1));
+}
+
+template <int BN>
+__device__ __forceinline__ void wgmma_tile(float (&d)[BN / 2], uint64_t da,
+                                           uint64_t db) {
+  if constexpr (BN == 256)
+    wgmma_n256(d, da, db);
+  else
+    wgmma_n128(d, da, db);
+}
+
+__device__ __forceinline__ void named_bar_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;" ::"r"(id), "r"(threads) : "memory");
+}
+
+// A CTA of BM / 64 consumer warpgroups (warps 0 .. BM/16 - 1; warpgroup c
+// takes rows 64c .. 64c + 63 of the tile) and one producer warpgroup (the
+// last; one of its threads issues the loads), over a BM x BN tile of Y:
+// grid (ceil(N / BN), ceil(M / BM)). At BM 128 the producer warpgroup hands
+// its registers to the consumers (setmaxnreg 40 / 232), whose 128
+// accumulators a thread would spill under the 168 registers of 384 threads.
+// The epilogue stages the tile through the (by then idle) ring as f32 rows
+// of BN + 8 floats, and each warp finishes the 16 rows it wrote: lane l
+// holds columns 2l + 64i and 2l + 64i + 1, so bias, residual and outputs
+// move as coalesced rows, and a LayerNorm row reduces in lane order and
+// then across the warp (the same order in every tile shape).
+template <int BM, int BN, int EPI>
+__global__ void __launch_bounds__(2 * BM + 128, 1)
+gemm_bf16_wgmma_kernel(const __grid_constant__ CUtensorMap tmx,
+                       const __grid_constant__ CUtensorMap tmw,
+                       const float* __restrict__ bias,
+                       const __nv_bfloat16* __restrict__ resid_t,
+                       const float* __restrict__ resid_f,
+                       const float* __restrict__ ln_g,
+                       const float* __restrict__ ln_b,
+                       __nv_bfloat16* __restrict__ out_t,
+                       float* __restrict__ out_f, int M, int N, int K,
+                       float eps) {
+  using Tiles = WgTiles<BM, BN>;
+  constexpr int kConsumers = BM / 64;
+  constexpr int kLd = BN + 8;  // epilogue row stride (floats)
+  static_assert(BM * kLd * 4 <= kStages * Tiles::kStage,
+                "the epilogue tile fits in the ring");
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t ring = (smem_u32(smem_raw) + 1023u) & ~1023u;
+  const uint32_t full = ring + kStages * Tiles::kStage;  // + 8 s
+  const uint32_t empty = full + 8 * kStages;             // + 8 s
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int n0 = blockIdx.x * BN, m0 = blockIdx.y * BM;
+  const int kt_end = (K + kWgBK - 1) / kWgBK;
+
+  if (threadIdx.x == 0) {
+#pragma unroll
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(full + 8 * s, 1);
+      mbar_init(empty + 8 * s, kConsumers * 128);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warp >= kConsumers * 4) {
+    // producer: one thread keeps up to kStages tiles in flight
+    if constexpr (BM == 128)
+      asm volatile("setmaxnreg.dec.sync.aligned.u32 40;" ::: "memory");
+    if (threadIdx.x == kConsumers * 128) {
+      for (int kt = 0; kt < kt_end; ++kt) {
+        const int s = kt % kStages;
+        mbar_wait(empty + 8 * s, ((kt / kStages) & 1) ^ 1);
+        const uint32_t a = ring + s * Tiles::kStage;
+        mbar_arrive_tx(full + 8 * s, Tiles::kStage);
+        tma_load(a, &tmx, kt * kWgBK, m0, full + 8 * s);
+        tma_load(a + Tiles::kA, &tmw, kt * kWgBK, n0, full + 8 * s);
+      }
+    }
+  } else {
+    if constexpr (BM == 128)
+      asm volatile("setmaxnreg.inc.sync.aligned.u32 232;" ::: "memory");
+    const int wg = warp >> 2;
+    float acc[BN / 2];
+#pragma unroll
+    for (int i = 0; i < BN / 2; ++i) acc[i] = 0.f;
+    for (int kt = 0; kt < kt_end; ++kt) {
+      const int s = kt % kStages;
+      mbar_wait(full + 8 * s, (kt / kStages) & 1);
+      const uint32_t a = ring + s * Tiles::kStage + wg * 64 * 128;
+      const uint32_t b = ring + s * Tiles::kStage + Tiles::kA;
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < kWgBK / 16; ++kk)
+        wgmma_tile<BN>(acc, sw128_desc(a + 32 * kk), sw128_desc(b + 32 * kk));
+      wgmma_commit();
+      // the previous stage's products are done: hand its tiles back
+      wgmma_wait<1>();
+      if (kt > 0) mbar_arrive(empty + 8 * ((kt - 1) % kStages));
+    }
+    wgmma_wait<0>();
+#pragma unroll
+    for (int i = 0; i < BN / 2; ++i) reg_fence(acc[i]);
+
+    // every consumer warpgroup is done reading the ring: it takes the tile.
+    // acc[4j + 2h + c] sits at tile row 64 wg + 16 (warp % 4) + g + 8h and
+    // column 8j + 2t + c (the m64nNk16 accumulator layout)
+    named_bar_sync(1, kConsumers * 128);
+    float* tile = reinterpret_cast<float*>(smem_raw + (ring - smem_u32(smem_raw)));
+    const int r0 = wg * 64 + (warp & 3) * 16;
+    {
+      const int g = lane >> 2, t = lane & 3;
+#pragma unroll
+      for (int j = 0; j < BN / 8; ++j)
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+          *reinterpret_cast<float2*>(tile + (r0 + g + 8 * h) * kLd + 8 * j +
+                                     2 * t) =
+              make_float2(acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1]);
+    }
+    __syncwarp();
+
+    const bool pairs = (N & 1) == 0;  // aligned 4 / 8-byte column pairs
+    for (int r = 0; r < 16; ++r) {
+      const int row = m0 + r0 + r;
+      if (row >= M) break;  // warp-uniform
+      const float* src = tile + (r0 + r) * kLd;
+      const size_t o = (size_t)row * N;
+      float y[BN / 32];
+#pragma unroll
+      for (int i = 0; i < BN / 64; ++i) {
+        const float2 v = *reinterpret_cast<const float2*>(src + 2 * lane +
+                                                          64 * i);
+#pragma unroll
+        for (int c = 0; c < 2; ++c) {
+          const int col = n0 + 2 * lane + 64 * i + c;
+          float x = col < N ? (c ? v.y : v.x) + bias[col] : 0.f;
+          if (EPI == EPI_RELU) x = fmaxf(x, 0.f);
+          if ((EPI == EPI_RES_LN || EPI == EPI_RES) && col < N)
+            x += resid_f != nullptr ? resid_f[o + col]
+                                    : __bfloat162float(resid_t[o + col]);
+          y[2 * i + c] = x;
+        }
+      }
+      if (EPI == EPI_RES_LN) {
+        // the whole row lies in this tile (n0 = 0, N <= BN)
+        float sum = 0.f;
+#pragma unroll
+        for (int i = 0; i < BN / 32; ++i) sum += y[i];
+        const float mean = vs::group_sum<32>(sum) / (float)N;
+        float var = 0.f;
+#pragma unroll
+        for (int i = 0; i < BN / 32; ++i) {
+          const float dv = y[i] - mean;
+          var += 2 * lane + 64 * (i >> 1) + (i & 1) < N ? dv * dv : 0.f;
+        }
+        const float inv = 1.f / sqrtf(vs::group_sum<32>(var) / (float)N + eps);
+#pragma unroll
+        for (int i = 0; i < BN / 32; ++i) {
+          const int col = 2 * lane + 64 * (i >> 1) + (i & 1);
+          if (col < N) y[i] = (y[i] - mean) * inv * ln_g[col] + ln_b[col];
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < BN / 64; ++i) {
+        const int col = n0 + 2 * lane + 64 * i;
+        if (col >= N) continue;
+        if (pairs) {
+          if (out_f != nullptr)
+            *reinterpret_cast<float2*>(out_f + o + col) =
+                make_float2(y[2 * i], y[2 * i + 1]);
+          if (out_t != nullptr)
+            *reinterpret_cast<__nv_bfloat162*>(out_t + o + col) =
+                __floats2bfloat162_rn(y[2 * i], y[2 * i + 1]);
+        } else {
+#pragma unroll
+          for (int c = 0; c < 2; ++c) {
+            if (col + c >= N) continue;
+            if (out_f != nullptr) out_f[o + col + c] = y[2 * i + c];
+            if (out_t != nullptr)
+              out_t[o + col + c] = __float2bfloat16(y[2 * i + c]);
+          }
+        }
+      }
+    }
+  }
+}
+
+// ------------------------------------------------------- host: tensor maps
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
+                                 cuuint32_t, void*, const cuuint64_t*,
+                                 const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave,
+                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+EncodeTiled encoder() {
+  static const EncodeTiled fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q;
+#if CUDART_VERSION >= 12050
+    const cudaError_t e = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &q);
+#else
+    const cudaError_t e = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q);
+#endif
+    return e == cudaSuccess && q == cudaDriverEntryPointSuccess
+               ? reinterpret_cast<EncodeTiled>(p)
+               : nullptr;
+  }();
+  return fn;
+}
+
+// The map of a (rows, cols) bf16 matrix with row stride ld (elements), in
+// boxes of box_rows x 64 in the 128-byte swizzle; out-of-range elements load
+// as 0. Encoded into `out` (64-byte aligned, as the encoder requires) and
+// cached process-wide by (pointer, shape, stride, box) in statically aligned
+// storage under a mutex: serving threads launch too, and thread-local storage
+// of a dlopen'ed library need not keep a map's 64-byte alignment.
+struct MapEntry {
+  CUtensorMap map;
+  const void* p;
+  int rows, cols, ld, box_rows;
+};
+constexpr int kMapCache = 16;
+alignas(64) MapEntry g_maps[kMapCache];
+int g_next_map = 0;
+std::mutex g_maps_mu;
+
+bool tensor_map(CUtensorMap* out, const void* p, int rows, int cols, int ld,
+                int box_rows) {
+  if (reinterpret_cast<uintptr_t>(out) % 64) return false;
+  std::lock_guard<std::mutex> lock(g_maps_mu);
+  for (const MapEntry& e : g_maps)
+    if (e.p == p && e.rows == rows && e.cols == cols && e.ld == ld &&
+        e.box_rows == box_rows) {
+      *out = e.map;
+      return true;
+    }
+  const EncodeTiled encode = encoder();
+  if (encode == nullptr) return false;
+  const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
+  const cuuint64_t strides[1] = {(cuuint64_t)ld * 2};
+  const cuuint32_t box[2] = {(cuuint32_t)kWgBK, (cuuint32_t)box_rows};
+  const cuuint32_t elem[2] = {1, 1};
+  if (encode(out, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(p),
+             dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+             CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
+    return false;
+  MapEntry& e = g_maps[g_next_map];
+  g_next_map = (g_next_map + 1) % kMapCache;
+  e.map = *out;
+  e.p = p;
+  e.rows = rows;
+  e.cols = cols;
+  e.ld = ld;
+  e.box_rows = box_rows;
+  return true;
+}
+
+// ------------------------------------------------------------------ launch
+struct GemmArgs {
+  const void* x;
+  const void* w;
+  const float* bias;
+  const void* resid_t;
+  const float* resid_f;
+  const float* ln_g;
+  const float* ln_b;
+  void* out_t;
+  float* out_f;
+  int M, N, K, ldx, ldw, epi;
+  float eps;
+};
+
+template <int BM, int BN, int EPI>
+cudaError_t launch_wgmma_tile(const GemmArgs& g, const CUtensorMap& tx,
+                              const CUtensorMap& tw, cudaStream_t stream) {
   using bf = __nv_bfloat16;
-  const bf* X = static_cast<const bf*>(x);
-  const bf* Wt = static_cast<const bf*>(w);
-  const bf* R = static_cast<const bf*>(resid_t);
-  bf* O = static_cast<bf*>(out_t);
-  // 16-byte staging loads need 16-byte aligned rows
-  const bool vec = K % 8 == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0 &&
-                   reinterpret_cast<uintptr_t>(w) % 16 == 0;
-  switch (epilogue) {
+  constexpr int smem = WgTiles<BM, BN>::kSmem;
+  auto kernel = gemm_bf16_wgmma_kernel<BM, BN, EPI>;
+  const cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((g.N + BN - 1) / BN, (g.M + BM - 1) / BM);
+  kernel<<<grid, 2 * BM + 128, smem, stream>>>(
+      tx, tw, g.bias, static_cast<const bf*>(g.resid_t), g.resid_f, g.ln_g,
+      g.ln_b, static_cast<bf*>(g.out_t), g.out_f, g.M, g.N, g.K, g.eps);
+  return cudaGetLastError();
+}
+
+template <int BM, int BN>
+cudaError_t launch_wgmma_epi(const GemmArgs& g, const CUtensorMap& tx,
+                             const CUtensorMap& tw, cudaStream_t stream) {
+  switch (g.epi) {
     case EPI_NONE:
-      gemm_bf16_mma_kernel<EPI_NONE>
-          <<<grid, kThreads, 0, stream>>>(X, Wt, bias, R, resid_f, ln_g, ln_b,
-                                          O, out_f, M, N, K, eps, vec);
-      break;
+      return launch_wgmma_tile<BM, BN, EPI_NONE>(g, tx, tw, stream);
     case EPI_RELU:
-      gemm_bf16_mma_kernel<EPI_RELU>
-          <<<grid, kThreads, 0, stream>>>(X, Wt, bias, R, resid_f, ln_g, ln_b,
-                                          O, out_f, M, N, K, eps, vec);
-      break;
+      return launch_wgmma_tile<BM, BN, EPI_RELU>(g, tx, tw, stream);
     case EPI_RES_LN:
-      gemm_bf16_mma_kernel<EPI_RES_LN>
-          <<<grid, kThreads, 0, stream>>>(X, Wt, bias, R, resid_f, ln_g, ln_b,
-                                          O, out_f, M, N, K, eps, vec);
-      break;
+      return launch_wgmma_tile<BM, BN, EPI_RES_LN>(g, tx, tw, stream);
     case EPI_RES:
-      gemm_bf16_mma_kernel<EPI_RES>
-          <<<grid, kThreads, 0, stream>>>(X, Wt, bias, R, resid_f, ln_g, ln_b,
-                                          O, out_f, M, N, K, eps, vec);
-      break;
+      return launch_wgmma_tile<BM, BN, EPI_RES>(g, tx, tw, stream);
     default:
       return cudaErrorInvalidValue;
   }
+}
+
+cudaError_t launch_wgmma(const GemmArgs& g, int bm, int bn,
+                         cudaStream_t stream) {
+  // TMA: 16-byte aligned bases and row strides
+  if (g.K % 8 || g.ldx % 8 || g.ldw % 8 ||
+      reinterpret_cast<uintptr_t>(g.x) % 16 ||
+      reinterpret_cast<uintptr_t>(g.w) % 16)
+    return cudaErrorInvalidValue;
+  alignas(64) CUtensorMap tx, tw;
+  if (!tensor_map(&tx, g.x, g.M, g.K, g.ldx, bm) ||
+      !tensor_map(&tw, g.w, g.N, g.K, g.ldw, bn))
+    return cudaErrorInvalidValue;
+  if (bm == 128 && bn == 256)
+    return launch_wgmma_epi<128, 256>(g, tx, tw, stream);
+  if (bm == 128 && bn == 128)
+    return launch_wgmma_epi<128, 128>(g, tx, tw, stream);
+  if (bm == 64 && bn == 256)
+    return launch_wgmma_epi<64, 256>(g, tx, tw, stream);
+  if (bm == 64 && bn == 128)
+    return launch_wgmma_epi<64, 128>(g, tx, tw, stream);
+  return cudaErrorInvalidValue;
+}
+
+cudaError_t launch_mma(const GemmArgs& g, cudaStream_t stream) {
+  constexpr int BM = 32 * WARPS_M, BN = 64 * WARPS_N;
+  const dim3 grid((g.M + BM - 1) / BM, (g.N + BN - 1) / BN);
+  using bf = __nv_bfloat16;
+  const bf* X = static_cast<const bf*>(g.x);
+  const bf* Wt = static_cast<const bf*>(g.w);
+  const bf* R = static_cast<const bf*>(g.resid_t);
+  bf* O = static_cast<bf*>(g.out_t);
+  // 16-byte staging loads need 16-byte aligned rows
+  const bool vec = g.K % 8 == 0 && g.ldx % 8 == 0 && g.ldw % 8 == 0 &&
+                   reinterpret_cast<uintptr_t>(g.x) % 16 == 0 &&
+                   reinterpret_cast<uintptr_t>(g.w) % 16 == 0;
+#define VS_MMA(E)                                                            \
+  gemm_bf16_mma_kernel<E><<<grid, kThreads, 0, stream>>>(                    \
+      X, Wt, g.bias, R, g.resid_f, g.ln_g, g.ln_b, O, g.out_f, g.M, g.N, g.K, \
+      g.ldx, g.ldw, g.eps, vec)
+  switch (g.epi) {
+    case EPI_NONE: VS_MMA(EPI_NONE); break;
+    case EPI_RELU: VS_MMA(EPI_RELU); break;
+    case EPI_RES_LN: VS_MMA(EPI_RES_LN); break;
+    case EPI_RES: VS_MMA(EPI_RES); break;
+    default: return cudaErrorInvalidValue;
+  }
+#undef VS_MMA
   return cudaGetLastError();
 }
 
 template <typename T>
-cudaError_t launch_tiles(const void* x, const void* w, const float* bias,
-                         const void* resid_t, const float* resid_f,
-                         const float* ln_g, const float* ln_b, void* out_t,
-                         float* out_f, int M, int N, int K, int epilogue,
-                         float eps, cudaStream_t stream) {
+cudaError_t launch_tiles(const GemmArgs& g, cudaStream_t stream) {
   constexpr int BM = 8 * TM, BN = 32 * TN;
-  const dim3 grid((M + BM - 1) / BM, (N + BN - 1) / BN);
-  const T* X = static_cast<const T*>(x);
-  const T* Wt = static_cast<const T*>(w);
-  const T* R = static_cast<const T*>(resid_t);
-  T* O = static_cast<T*>(out_t);
-  switch (epilogue) {
-    case EPI_NONE:
-      gemm_bias_epilogue_kernel<T, EPI_NONE><<<grid, kThreads, 0, stream>>>(
-          X, Wt, bias, R, resid_f, ln_g, ln_b, O, out_f, M, N, K, eps);
-      break;
-    case EPI_RELU:
-      gemm_bias_epilogue_kernel<T, EPI_RELU><<<grid, kThreads, 0, stream>>>(
-          X, Wt, bias, R, resid_f, ln_g, ln_b, O, out_f, M, N, K, eps);
-      break;
-    case EPI_RES_LN:
-      gemm_bias_epilogue_kernel<T, EPI_RES_LN><<<grid, kThreads, 0, stream>>>(
-          X, Wt, bias, R, resid_f, ln_g, ln_b, O, out_f, M, N, K, eps);
-      break;
-    case EPI_RES:
-      gemm_bias_epilogue_kernel<T, EPI_RES><<<grid, kThreads, 0, stream>>>(
-          X, Wt, bias, R, resid_f, ln_g, ln_b, O, out_f, M, N, K, eps);
-      break;
-    default:
-      return cudaErrorInvalidValue;
+  const dim3 grid((g.M + BM - 1) / BM, (g.N + BN - 1) / BN);
+  const T* X = static_cast<const T*>(g.x);
+  const T* Wt = static_cast<const T*>(g.w);
+  const T* R = static_cast<const T*>(g.resid_t);
+  T* O = static_cast<T*>(g.out_t);
+#define VS_FMA(E)                                                           \
+  gemm_bias_epilogue_kernel<T, E><<<grid, kThreads, 0, stream>>>(           \
+      X, Wt, g.bias, R, g.resid_f, g.ln_g, g.ln_b, O, g.out_f, g.M, g.N, g.K, \
+      g.ldx, g.ldw, g.eps)
+  switch (g.epi) {
+    case EPI_NONE: VS_FMA(EPI_NONE); break;
+    case EPI_RELU: VS_FMA(EPI_RELU); break;
+    case EPI_RES_LN: VS_FMA(EPI_RES_LN); break;
+    case EPI_RES: VS_FMA(EPI_RES); break;
+    default: return cudaErrorInvalidValue;
   }
+#undef VS_FMA
   return cudaGetLastError();
 }
 
 }  // namespace
 
+// cta_rows: 128 or 64 takes the wgmma kernel (bf16) with tile_n (128 or
+// 256) columns a CTA; 0 takes the FMA kernel (f32) or the mma.sync fallback
+// (bf16). ldx / ldw: the row strides of x and w in elements.
 extern "C" int vs_gemm_bias_epilogue(const void* x, const void* w,
                                      const float* bias, const void* resid_t,
                                      const float* resid_f, const float* ln_g,
                                      const float* ln_b, void* out_t,
                                      float* out_f, int M, int N, int K,
-                                     int epilogue, int dtype, float eps,
-                                     void* stream) {
-  if (M <= 0 || N <= 0 || K <= 0 || epilogue < EPI_NONE ||
-      epilogue > EPI_RES_LN)
+                                     int ldx, int ldw, int epilogue,
+                                     int dtype, int cta_rows, int tile_n,
+                                     float eps, void* stream) {
+  if (M <= 0 || N <= 0 || K <= 0 || ldx < K || ldw < K ||
+      epilogue < EPI_NONE || epilogue > EPI_RES_LN)
     return (int)cudaErrorInvalidValue;
   if (epilogue == EPI_RES_LN && resid_t == nullptr && resid_f == nullptr)
     return (int)cudaErrorInvalidValue;
-  // a LayerNorm row wider than the 256-column CTA tile goes through out_f
-  // (required) and a row kernel
-  const bool wide = epilogue == EPI_RES_LN && N > 256;
+  const bool wgmma = cta_rows != 0;
+  if (wgmma && (dtype != vs::kBF16 || (cta_rows != 64 && cta_rows != 128) ||
+                (tile_n != 128 && tile_n != 256)))
+    return (int)cudaErrorInvalidValue;
+  // a LayerNorm row wider than one CTA tile (256 columns; the wgmma
+  // kernel's tile_n) goes through out_f (required) and a row kernel
+  const bool wide =
+      epilogue == EPI_RES_LN && N > (wgmma ? tile_n : 256);
   if (wide && (N > 32 * vs::kLnMaxPerLane || out_f == nullptr))
     return (int)cudaErrorInvalidValue;
-  const int epi = wide ? EPI_RES : epilogue;
+  const GemmArgs g{x, w, bias, resid_t, resid_f, ln_g, ln_b,
+                   wide ? nullptr : out_t, out_f, M, N, K, ldx, ldw,
+                   wide ? (int)EPI_RES : epilogue, eps};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err;
-  if (dtype == vs::kF32)
-    err = launch_tiles<float>(x, w, bias, resid_t, resid_f, ln_g, ln_b,
-                              wide ? nullptr : out_t, out_f, M, N, K, epi,
-                              eps, s);
+  if (dtype == vs::kF32 && !wgmma)
+    err = launch_tiles<float>(g, s);
   else if (dtype == vs::kBF16)
-    err = launch_mma(x, w, bias, resid_t, resid_f, ln_g, ln_b,
-                     wide ? nullptr : out_t, out_f, M, N, K, epi, eps, s);
+    err = wgmma ? launch_wgmma(g, cta_rows, tile_n, s) : launch_mma(g, s);
   else
     return (int)cudaErrorInvalidValue;
   if (err != cudaSuccess || !wide) return (int)err;
@@ -474,4 +990,14 @@ extern "C" int vs_gemm_bias_epilogue(const void* x, const void* w,
                    : vs::launch_layernorm_rows<__nv_bfloat16>(
                          out_f, ln_g, ln_b, out_t, nullptr, nullptr, M, N,
                          eps, s));
+}
+
+// Dynamic shared memory of the wgmma kernel's (cta_rows, tile_n) shape, in
+// bytes (for the build report).
+extern "C" int vs_gemm_wgmma_smem(int cta_rows, int tile_n) {
+  if (cta_rows == 128 && tile_n == 256) return WgTiles<128, 256>::kSmem;
+  if (cta_rows == 128 && tile_n == 128) return WgTiles<128, 128>::kSmem;
+  if (cta_rows == 64 && tile_n == 256) return WgTiles<64, 256>::kSmem;
+  if (cta_rows == 64 && tile_n == 128) return WgTiles<64, 128>::kSmem;
+  return 0;
 }

@@ -43,7 +43,8 @@ _vp, _int, _uint, _ll, _f32 = (ctypes.c_void_p, ctypes.c_int, ctypes.c_uint,
 # library -> the C functions it exports, with their argument types
 _SIGNATURES = {
     "gemm_bias_epilogue": {
-        "vs_gemm_bias_epilogue": [_vp] * 9 + [_int] * 5 + [_f32, _vp]},
+        "vs_gemm_bias_epilogue": [_vp] * 9 + [_int] * 9 + [_f32, _vp],
+        "vs_gemm_wgmma_smem": [_int, _int]},
     "masked_attention": {
         "vs_masked_attention": [_vp] * 7 + [_int] * 4 + [_ll] * 9
         + [_f32, _int, _int, _int, _int, _vp]},

@@ -157,6 +157,37 @@ def encoder_block_reference(w: BlockWeights, x: torch.Tensor, pad_mask,
 
 
 # -------------------------------------------------------------- the kernel
+# The bf16 products run csrc/gemm_bias_epilogue.cu's wgmma kernel, whose
+# operand ring TMA fills; what TMA cannot take goes to its mma.sync fallback.
+
+def gemm_takes_wgmma(x: torch.Tensor, w: torch.Tensor) -> bool:
+    """True when the bf16 product ``x . w^T`` can take the wgmma kernel:
+    TMA needs 16-byte aligned bases and row strides, so K and both row
+    strides a multiple of 8 elements and both data pointers on a 16-byte
+    boundary. Else it takes the ``mma.sync`` fallback."""
+    return (x.dtype == torch.bfloat16 and x.shape[1] % 8 == 0
+            and x.stride(0) % 8 == 0 and w.stride(0) % 8 == 0
+            and x.data_ptr() % 16 == 0 and w.data_ptr() % 16 == 0)
+
+
+def gemm_tile_n(N: int) -> int:
+    """Columns of a wgmma CTA tile: 128 for N <= 128, else 256, so that a
+    LayerNorm row of up to 256 columns lies in one tile."""
+    return 128 if N <= 128 else 256
+
+
+def gemm_cta_rows(M: int, N: int, sms: int) -> int:
+    """Rows of a wgmma CTA: 128 (two consumer warpgroups), or 64 (one) where
+    the grid of 64-row CTAs needs fewer waves over the ``sms`` SMs than the
+    128-row grid takes twice over (each SM holds one CTA of either shape,
+    and a 128-row CTA does twice a 64-row one's work): small grids, such as
+    (8, 256)'s products, and the tail of a wave. Both shapes run the same
+    products per 64 rows, so a row's bits do not depend on the choice."""
+    cols = -(-N // gemm_tile_n(N))
+    waves128 = -(-(-(-M // 128) * cols) // sms)
+    waves64 = -(-(-(-M // 64) * cols) // sms)
+    return 64 if waves64 < 2 * waves128 else 128
+
 
 def gemm_bias_epilogue(x, w, bias, epilogue: str = "none", residual=None,
                        ln_g=None, ln_b=None, want_t: bool = True,
@@ -166,12 +197,16 @@ def gemm_bias_epilogue(x, w, bias, epilogue: str = "none", residual=None,
     """``Y = X . W^T + b`` with an epilogue (``"none"``, ``"relu"`` or
     ``"residual_ln"``), launched as ``csrc/gemm_bias_epilogue.cu``.
 
-    x (M, K) and w (N, K) in one dtype, bias (N,) f32; ``residual`` (M, N)
-    in x's dtype or f32, with ``ln_g``/``ln_b`` (N,) f32, for
-    ``"residual_ln"`` (N <= 512; past 256 the kernel normalises an f32
-    buffer in a second launch). Returns ``(y in x's dtype or None, y in f32
-    or None)`` as ``want_t`` / ``want_f32`` ask. On CPU tensors this is
-    :func:`gemm_bias_epilogue_reference`."""
+    x (M, K) and w (N, K) in one dtype, each with a unit column stride (rows
+    may be strided); bias (N,) f32; ``residual`` (M, N) in x's dtype or f32,
+    with ``ln_g``/``ln_b`` (N,) f32, for ``"residual_ln"`` (N <= 512; past
+    256 the kernel normalises an f32 buffer in a second launch). Returns
+    ``(y in x's dtype or None, y in f32 or None)`` as ``want_t`` /
+    ``want_f32`` ask. bf16 takes the wgmma kernel where
+    :func:`gemm_takes_wgmma` holds, in :func:`gemm_cta_rows` x
+    :func:`gemm_tile_n` CTAs, else the ``mma.sync`` fallback, counted by
+    ``gemm_bias_epilogue.fallback_launches`` (``launches`` counts every
+    call). On CPU tensors this is :func:`gemm_bias_epilogue_reference`."""
     if x.device.type == "cpu":
         return gemm_bias_epilogue_reference(x, w, bias, epilogue, residual,
                                             ln_g, ln_b, want_t, want_f32)
@@ -179,8 +214,9 @@ def gemm_bias_epilogue(x, w, bias, epilogue: str = "none", residual=None,
     N = w.shape[0]
     if w.shape != (N, K) or w.dtype != x.dtype:
         raise ValueError(f"w must be ({N}, {K}) in {x.dtype}")
-    if not (x.is_contiguous() and w.is_contiguous()):
-        raise ValueError("x and w must be contiguous")
+    if x.stride(1) != 1 or w.stride(1) != 1 or x.stride(0) < K \
+            or w.stride(0) < K:
+        raise ValueError("x and w must have contiguous rows")
     if bias.shape != (N,) or bias.dtype != torch.float32:
         raise ValueError("bias must be (N,) float32")
     if epilogue not in EPILOGUES:
@@ -207,18 +243,24 @@ def gemm_bias_epilogue(x, w, bias, epilogue: str = "none", residual=None,
         if want_t and not both else None
     out_f = torch.empty((M, N), dtype=torch.float32, device=x.device) \
         if need_f else None
+    wgmma = gemm_takes_wgmma(x, w)
+    cta_rows = gemm_cta_rows(M, N, _cuda.sm_count(x.device)) if wgmma else 0
     lib = _cuda.load("gemm_bias_epilogue")
     err = lib.vs_gemm_bias_epilogue(
         _cuda.ptr(x), _cuda.ptr(w), _cuda.ptr(bias), _cuda.ptr(res_t),
         _cuda.ptr(res_f), _cuda.ptr(ln_g), _cuda.ptr(ln_b), _cuda.ptr(out_t),
-        _cuda.ptr(out_f), M, N, K, EPILOGUES[epilogue], _cuda.dtype_code(x),
+        _cuda.ptr(out_f), M, N, K, x.stride(0), w.stride(0),
+        EPILOGUES[epilogue], _cuda.dtype_code(x), cta_rows, gemm_tile_n(N),
         LN_EPS, _cuda.stream_of(x))
     _cuda.check(lib, err, "gemm_bias_epilogue")
     gemm_bias_epilogue.launches += 1
+    if x.dtype == torch.bfloat16 and not wgmma:
+        gemm_bias_epilogue.fallback_launches += 1
     return (out_f if both else out_t), (out_f if want_f32 else None)
 
 
 gemm_bias_epilogue.launches = 0
+gemm_bias_epilogue.fallback_launches = 0
 
 
 def _block_chain(w: BlockWeights, x: torch.Tensor, pad_mask,

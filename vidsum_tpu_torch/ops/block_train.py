@@ -221,15 +221,33 @@ class _Drop(NamedTuple):
     kscale: float
 
 
+GEMM_TILE = 128   # bt_gemm's CTA tile is GEMM_TILE x GEMM_TILE
+
+
+def gemm_splits(M: int, N: int, K: int, sms: int) -> int:
+    """K splits of a plain-epilogue ``bt_gemm``: a grid of fewer tiles than
+    ``sms`` is split as far as one wave of 2 CTAs an SM holds (the kernel's
+    launch bounds keep two on each; a split that spills into a second wave
+    measured slower than both half and twice it), each split at least 256
+    deep. At (32, 512), d 256 the forward's and the dX products' grids fill
+    the card unsplit; the dW products over K = 16,384 rows split 16 (d x 4d,
+    4d x d), 64 (d x d) and 22 (3d x d) ways."""
+    tiles = -(-M // GEMM_TILE) * -(-N // GEMM_TILE)
+    if tiles >= sms:
+        return 1
+    return max(1, min(2 * sms // tiles, K // 256))
+
+
 def _gemm(a, b, *, ta=False, tb=False, bias=None, addend=None,
           epilogue="bias", dr: Optional[_Drop] = None, site: int = 0,
-          aux=None, keep_pre=False):
+          aux=None, keep_pre=False, splits: Optional[int] = None):
     """``op(a) . op(b)`` (op = transpose where ``ta``/``tb``) for contiguous
     2-D f32 tensors, with an epilogue: ``"bias"`` (+ bias, + addend),
     ``"relu_drop"`` (+ bias, ReLU, the site's dropout; with ``keep_pre`` also
     returns the pre-ReLU values) or ``"drop_relu_bwd"`` (the site's dropout,
     then zero where ``aux`` <= 0). Products with few output tiles and a long
-    k split it, with partials summed in a fixed order."""
+    k split it (:func:`gemm_splits`, or ``splits`` where given), with
+    partials summed in a fixed order."""
     M, K = (a.shape[1], a.shape[0]) if ta else a.shape
     N = b.shape[0] if tb else b.shape[1]
     if (b.shape[1] if tb else b.shape[0]) != K:
@@ -238,11 +256,9 @@ def _gemm(a, b, *, ta=False, tb=False, bias=None, addend=None,
     sam, sak = (1, M) if ta else (K, 1)
     sbk, sbn = (1, K) if tb else (N, 1)
     code = {"bias": 0, "relu_drop": 1, "drop_relu_bwd": 2}[epilogue]
-    splits = 1
-    if code == 0:
-        tiles = -(-M // 128) * -(-N // 128)
-        if tiles < 132:
-            splits = max(1, min(-(-264 // tiles), K // 256))
+    if splits is None:
+        splits = (gemm_splits(M, N, K, _cuda.sm_count(a.device))
+                  if code == 0 else 1)
     c = torch.empty((M, N), dtype=torch.float32, device=a.device)
     pre = torch.empty_like(c) if keep_pre else None
     partial = (torch.empty((splits, M, N), dtype=torch.float32,
@@ -255,7 +271,11 @@ def _gemm(a, b, *, ta=False, tb=False, bias=None, addend=None,
         M, N, K, sam, sak, sbk, sbn, code, splits, dr.seed, site, dr.rows,
         dr.thr, dr.kscale, _cuda.stream_of(a))
     _cuda.check(lib, err, "block_train gemm")
+    _gemm.launches += 1
     return (c, pre) if keep_pre else c
+
+
+_gemm.launches = 0
 
 
 def _drop_res_ln(p, resid, g, beta, site: int, dr: _Drop, keep: bool):

@@ -9,8 +9,8 @@ The JAX probe times a tiled Pallas matmul in bf16 and in int8 on the TPU
 points here run the port's own hand-written kernels on the card:
 
 - :func:`mm_bf16` (18a): ``dot(x, w)`` with f32 accumulation, rounded to
-  bf16: ``ops/block_kernel.gemm_bias_epilogue`` (``mma.sync`` m16n8k16) with
-  a zero f32 bias, which adds nothing;
+  bf16: ``ops/block_kernel.gemm_bias_epilogue`` (``wgmma`` from a TMA-filled
+  ring) with a zero f32 bias, which adds nothing;
 - :func:`mm_int8` (18b): ``dot(x, w)`` with s32 accumulation, then
   ``(acc >> 8)`` truncated to int8 (arithmetic shift, then the low 8 bits):
   ``ops/quant.int8_gemm`` with its shift epilogue (``mma.sync`` m16n8k32).
@@ -19,9 +19,10 @@ W is passed as (N, K), K-contiguous, the layout both kernels take. Each
 entry point counts its launches and runs its plain PyTorch version on CPU
 tensors. :func:`main` prints one JSON line: ms, TOPS and the speed-up over
 ``torch.matmul`` in bf16 for both, with ``torch.matmul`` and
-``torch._int_mm`` timed as yardsticks only. The answer (int8 against bf16
-on the same hand-written GEMM design) says whether making the int8 scoring
-path fast is worth a later PR on this card.
+``torch._int_mm`` timed as yardsticks only. The answer (int8 on
+``mma.sync`` against bf16 on ``wgmma``, since the bf16 GEMM's redesign)
+says whether making the int8 scoring path fast is worth a later PR on this
+card.
 """
 
 from __future__ import annotations
