@@ -15,10 +15,12 @@ caught and passed over):
    stderr, and the registers and spill bytes of every instantiation of the
    bf16 serving attention (``masked_attention_mma_kernel``), the serving
    GEMM (``gemm_bf16_wgmma_kernel``, with its dynamic shared memory) and
-   the training GEMM (``bt_gemm_kernel``) to the build line, with the
-   count of ``HGMMA`` instructions in the serving GEMM's SASS
-   (``cuobjdump``). A GEMM instantiation that spills, or no ``HGMMA``,
-   fails the run.
+   the training GEMM (``bt_gemm_kernel``) and the f32 training attention
+   (``fma_fwd_kernel``, ``fma_dq_kernel``, ``fma_dkdv_kernel``) to the
+   build line, with the count of ``HGMMA`` instructions in the serving
+   GEMM's SASS and of ``LDGSTS`` (cp.async) in the FMA attention kernels'
+   (``cuobjdump``). A GEMM or FMA attention instantiation that spills, no
+   ``HGMMA`` or no ``LDGSTS`` fails the run.
 3. kernels: each route of the two hand-written kernels against its plain
    PyTorch version on the card, in bf16 and f32 (TF32 off), at the shapes
    the serving path gives it: the fused block at (B, N) = (32, 512) (the
@@ -100,7 +102,9 @@ caught and passed over):
    backward; timed only), and the bound (products at the input type's
    peak; in the f32 FMA family the backward's dp and dV at the f32 peak, in
    the bf16 tensor-core kernels of both routes dp at the bf16 peak and dV
-   as three bf16 products, with the FMA family's bound beside it).
+   as three bf16 products, with the FMA family's bound beside it); the f32
+   lines also the FMA rate on the valid keys' products, the share of live
+   64-key tiles and the FMA kernels' ``ptxas`` registers and spills.
    ring kernels: TPU kernels 15-17 (``parallel/ring_attention.py``,
    ``csrc/ring_attention.cu``) against their plain steps: kernel 15 at
    (B, H, Nl, Dh) = (1, 4, 4,096, 64) (a 16,384-frame request over 4
@@ -166,7 +170,12 @@ caught and passed over):
    moved, val F in [0, 100] and finite tau/rho. Prints the CUDA-event ms per
    step (median, quartiles, range) at the recipe's shapes and at (32, 512),
    and a ``torch.profiler`` breakdown of both steps (device busy share,
-   kernels by device time).
+   the attention kernels' share, kernels by device time). (d) With the
+   counters zeroed, 3 epochs in f32 on the ``"flash"`` route over the long
+   set (buckets up to 1,152: the f32 single-pass kernels, TPU kernels
+   5/6): each step launches both once per layer, with D from the
+   forward's o (no first pass), and nothing else of the training
+   kernels; step ms and a profile of one step.
 8. long train: (b) the ``"flash"`` route on one 8,100-frame video (bucket
    8,192, f32: the folded route, TPU kernels 7/8), card against CPU as in
    (a); (c) with the counters zeroed before each, 5 recipe epochs on the
@@ -193,9 +202,10 @@ caught and passed over):
    Nl <= 2,304): kernels 16 and 17 launch 16 times per layer per step, the
    flash and block training kernels never; finite losses; step ms, peak
    memory and a ``torch.profiler`` breakdown of one step.
-9. the ``kernels`` line (21 routes, the training attention ones named
+9. the ``kernels`` line (23 routes, the training attention ones named
    ``attention_train.<route>``, the folded ones also in bf16 as
-   ``attention_train.<route>.bf16``, the int8 ones ``block_int8``,
+   ``attention_train.<route>.bf16``, the single-pass ones also in f32 as
+   ``attention_train.<route>.f32``, the int8 ones ``block_int8``,
    ``block_int8_grouped``, ``probe_mm_bf16`` and ``probe_mm_int8``, the
    ring ones ``ring_block``, ``ring_train_fwd``, ``ring_train_bwd``; the
    GEMM routes with their design and ``ptxas`` report), the card's name
@@ -204,10 +214,11 @@ caught and passed over):
 
     python3 chip_smoke.py --compare PARENT_DIR
 
-runs the kernel phases (kernels, int8 kernels, int8 probe, train kernels)
-and the train phase of the checkout at PARENT_DIR and of this one in
-turns (parent, change, change, parent), each from its own tree and build,
-and prints their lines after a ``compare_turn`` line per turn.
+runs the kernel phases (kernels, int8 kernels, int8 probe, train kernels,
+train attention kernels) and the train phase of the checkout at
+PARENT_DIR and of this one in turns (parent, change, change, parent), each
+from its own tree and build, and prints their lines after a
+``compare_turn`` line per turn.
 """
 
 from __future__ import annotations
@@ -326,6 +337,16 @@ SERVING_GEMM_DESIGN = (
     "gemm_cta_rows), LayerNorm rows reduced by quad shuffles; the mma.sync "
     "kernel only for operands TMA cannot take (gemm_bias_epilogue."
     "fallback_launches); f32: the exact FMA kernel")
+# what the kernels line says of the f32 training attention (TPU kernels 5-8
+# in f32; the training block's attention launches the same kernels)
+FMA_ATTENTION_DESIGN = (
+    "f32: fma_fwd_kernel / fma_dq_kernel / fma_dkdv_kernel, exact f32 FMAs, "
+    "8 x 8 a thread (4 x 8 at head_dim 128) read as float4 from row-major "
+    "shared tiles that 16-byte cp.async streams in (dQ, dK/dV double "
+    "buffered), only the 64-key tiles that hold an unpadded key walked, one "
+    "online forward pass on both routes, D = rowsum(dO o) given o, two "
+    "thread groups a backward CTA, 128-row CTAs where the grid fills the "
+    "card else 64")
 TRAIN_GEMM_DESIGN = (
     "bt_gemm_kernel: exact f32 FMAs, 128 x 128 CTAs, 8 x 8 a thread read "
     "as float4 from k-major shared tiles 16 deep, double buffered by 16-byte "
@@ -400,11 +421,20 @@ def device_profile(fn, reps: int, top: int = 8) -> dict:
             ms, n = kernels.get(e.name, (0.0, 0))
             kernels[e.name] = (ms + e.time_range.elapsed_us() / 1e3, n + 1)
     device = sum(ms for ms, _ in kernels.values()) / reps
+    attention = sum(ms for name, (ms, _) in kernels.items()
+                    if any(t in name for t in ATTENTION_KERNELS)) / reps
     ranked = sorted(kernels.items(), key=lambda kv: -kv[1][0])[:top]
     return {"wall_ms": wall, "device_ms": device,
             "busy_share": device / wall if wall else None,
+            "attention_ms": attention,
+            "attention_share": attention / device if device else None,
             "top": [[name[:60], ms / reps, n / reps]
                     for name, (ms, n) in ranked]}
+
+
+# what names the attention kernels in a profile: the training attention
+# families (vs::attn, vs::attn_mma), the serving attention and the ring's
+ATTENTION_KERNELS = ("attn::", "attention", "ring_")
 
 
 def pad_mask(B: int, N: int, rng, device):
@@ -501,23 +531,31 @@ def ptxas_report(log: str, kernel: str) -> list:
     return [o for o in out if kernel in o["kernel"]]
 
 
-def sass_count(lib: str, op: str) -> int:
+def sass_count(lib: str, op: str, function: str = "") -> int:
     """How many ``op`` instructions ``cuobjdump -sass`` lists in a built
-    library (the toolkit's cuobjdump, beside nvcc)."""
+    library (the toolkit's cuobjdump, beside nvcc), in the functions whose
+    (mangled) name holds ``function``."""
     from vidsum_tpu_torch.ops import _cuda
 
     tool = os.path.join(os.path.dirname(_cuda.nvcc_path()), "cuobjdump")
     sass = subprocess.run([tool, "-sass", lib], capture_output=True,
                           text=True, check=True, timeout=300).stdout
-    return sum(1 for line in sass.splitlines() if op in line)
+    n, inside = 0, not function
+    for line in sass.splitlines():
+        if "Function : " in line:
+            inside = function in line
+        elif inside and op in line:
+            n += 1
+    return n
 
 
 def phase_build() -> tuple:
     """Builds every kernel; returns ptxas's registers and spills of the
-    bf16 serving attention's instantiations and of the two GEMMs' (the
-    wgmma kernel with its dynamic shared memory). Fails if a GEMM
-    instantiation spills or the serving GEMM's library holds no
-    ``HGMMA``."""
+    bf16 serving attention's instantiations, of the two GEMMs' (the wgmma
+    kernel with its dynamic shared memory) and of the f32 training
+    attention's FMA kernels. Fails if a GEMM or FMA attention instantiation
+    spills, if the serving GEMM's library holds no ``HGMMA``, or if the FMA
+    attention kernels' SASS holds no ``LDGSTS`` (cp.async)."""
     from vidsum_tpu_torch import native
     from vidsum_tpu_torch.native import build as native_build
     from vidsum_tpu_torch.ops import _cuda
@@ -554,13 +592,30 @@ def phase_build() -> tuple:
     hgmma = sass_count(_cuda.lib_path("gemm_bias_epilogue"), "HGMMA")
     if hgmma == 0:
         raise RuntimeError("no HGMMA in the serving GEMM's SASS")
+    # the f32 FMA attention (csrc/attention_core.cuh): 8 forwards, 8 dQ and
+    # 7 dK/dV instantiations (head_dim x the two CTA depths; dK/dV keeps
+    # the 8-deep one at 128), the same in both libraries that launch it
+    fma = ptxas_report(logs["attention_train"], "fma_")
+    fma_bt = ptxas_report(logs["block_train"], "fma_")
+    if len(fma) != 23 or len(fma_bt) != 23:
+        raise RuntimeError(f"ptxas reported {len(fma)} and {len(fma_bt)} "
+                           f"FMA attention instantiations, expected 23")
+    spilled = [r["kernel"] for r in fma + fma_bt if any(r.get("spill", []))]
+    if spilled:
+        raise RuntimeError(f"FMA attention instantiations spill: {spilled}")
+    ldgsts = {n: sass_count(_cuda.lib_path(n), "LDGSTS", "fma_")
+              for n in ("attention_train", "block_train")}
+    if not all(ldgsts.values()):
+        raise RuntimeError(f"no LDGSTS (cp.async) in the FMA attention "
+                           f"kernels' SASS: {ldgsts}")
     emit("build", cuda_s=round(t_cuda, 3),
          native_s=round(time.monotonic() - t1, 3),
          libraries=sorted(os.path.basename(_cuda.lib_path(n))
                           for n in _cuda.KERNELS),
          masked_attention_mma_ptxas=regs, gemm_wgmma_ptxas=gemm,
-         bt_gemm_ptxas=bt_gemm, gemm_sass_hgmma=hgmma)
-    return regs, gemm, bt_gemm
+         bt_gemm_ptxas=bt_gemm, gemm_sass_hgmma=hgmma,
+         fma_attention_ptxas=fma, fma_attention_sass_ldgsts=ldgsts)
+    return regs, gemm, bt_gemm, fma
 
 
 def library_block(block, d: int, H: int, dtype, dropout: float = 0.0):
@@ -1471,12 +1526,13 @@ def hold_attn_train(folded: bool, q, k, v, do, mask, dseed: int,
                 q, k, v, mask, s, lse, do, o, rate, scale, at.KEY_TILE,
                 rows=N)
     else:
-        # 1,024 query rows at a time
+        # 1,024 query rows at a time; the backward given o, as the Function
+        # gives it (f32 kernels take D = rowsum(do * o) from it)
         def run_f(s):
             return fwd(q, k, v, mask, s, rate, scale)
 
         def run_b(s, lse, o):
-            return bwd(q, k, v, mask, s, lse, do, rate, scale)
+            return bwd(q, k, v, mask, s, lse, do, rate, scale, o=o)
 
         def pf(s):
             return at.attention_train_fwd_reference(
@@ -1519,13 +1575,15 @@ def hold_attn_train(folded: bool, q, k, v, do, mask, dseed: int,
                 o_tol=otol, grad_tol=gtol, calls=(run_f, run_b, pf, pb))
 
 
-def phase_train_attention(dev: dict, seed: int) -> dict:
+def phase_train_attention(dev: dict, seed: int, fma_ptxas=()) -> dict:
     """The four training attention routes (``ops/attention_train.py``, TPU
     kernels 5-8) against their plain versions at (B, H, N, Dh) =
     (2, 4, 8192, 64), valid lengths (8100, 5000), dropout 0.3, f32 and bf16;
-    returns per route the numbers of each dtype a long-video step runs it
-    in: bf16 for the single-pass routes, f32 and bf16 for the folded ones
-    (the bf16 entries named ``<route>.bf16``)."""
+    returns per route the numbers of each dtype: the single-pass routes in
+    bf16 (``<route>``) and f32 (``<route>.f32``), the folded ones in f32
+    (``<route>``) and bf16 (``<route>.bf16``). Each f32 line also gives the
+    FMA rate on valid keys, the share of live key tiles and the FMA
+    kernels' ``ptxas`` report at head_dim 64 (``fma_ptxas``)."""
     import numpy as np
     import torch
     import torch.nn.functional as F
@@ -1547,6 +1605,11 @@ def phase_train_attention(dev: dict, seed: int) -> dict:
     keep_sdpa = ~mask[:, None, None, :]
     kb = at._pick_key_block(N)
     sum_valid = sum(valid)
+    # the 64-key tiles holding an unpadded key: what the kernels walk
+    live_share = float((~mask).view(B, N // at.KEY_TILE, at.KEY_TILE)
+                       .any(-1).float().mean())
+    fma_64 = [r for r in fma_ptxas if "<64," in r["kernel"]
+              or "ILi64E" in r["kernel"]]
     out = {}
     for dtype in (torch.bfloat16, torch.float32):
         dn = str(dtype).split(".")[1]
@@ -1602,12 +1665,23 @@ def phase_train_attention(dev: dict, seed: int) -> dict:
                 else "bytes"
             name_f, name_b = (attn_train_name(fwd.__name__),
                               attn_train_name(bwd.__name__))
+            # the f32 FMA family: its rate on the valid keys' products
+            # (the bound's operations over the time), the live tiles, ptxas;
+            # the single pass also without o (D summed in a first pass)
+            fma = {} if mma else dict(
+                fma_tflops_valid=[flops / ms_f * 1e-9,
+                                  2 * flops / ms_b * 1e-9],
+                live_tile_share=live_share, ptxas=fma_64)
+            if not mma and not folded:
+                fma["ms_without_o"] = cuda_ms(lambda: bwd(
+                    q, k, v, mask, dseed, want_lse, do, rate, scale),
+                    reps=10)
             emit("train_attention_kernel", route=name_f, B=B, H=H, N=N,
                  Dh=Dh, valid=list(valid), dtype=dn, o_err=o_err,
                  lse_err=lse_err, tolerance=otol,
                  seed_plus_one_rel_rms=fault[0], ms=ms_f, plain_ms=plain_f,
                  library_ms=lib_f, bound_ms=bf_ms, bound_by=bf_by,
-                 tensor_cores=mma, flops=flops, bytes=bytes_f)
+                 tensor_cores=mma, flops=flops, bytes=bytes_f, **fma)
             emit("train_attention_kernel", route=name_b, B=B, H=H, N=N,
                  Dh=Dh, valid=list(valid), dtype=dn,
                  grad_err={n: list(e) for n, e in grad_err.items()},
@@ -1616,22 +1690,23 @@ def phase_train_attention(dev: dict, seed: int) -> dict:
                  library_ms=lib_b, bound_ms=bb_ms, bound_by=bb_by,
                  bound_ms_fma=max(t_b_fma, bytes_b / peaks["bytes"]) * 1e3,
                  tensor_cores=mma, flops=(3 if mma else 2) * flops,
-                 bytes=bytes_b)
-            # the kernels line: the single-pass routes in bf16 (the bf16
-            # long-video step up to 10,880 frames), the folded ones in f32
-            # (the f32 long-video step) and in bf16 (past 10,880 frames)
-            if dtype == torch.bfloat16 or folded:
-                tag = ".bf16" if dtype == torch.bfloat16 and folded else ""
-                name_f, name_b = name_f + tag, name_b + tag
-                out[name_f] = dict(dtype=dn,
-                                   max_abs_err=max(o_err[0], lse_err[0]),
-                                   ms=ms_f, plain_ms=plain_f, bound_ms=bf_ms,
-                                   bound_by=bf_by, library_ms=lib_f)
-                out[name_b] = dict(
-                    dtype=dn,
-                    max_abs_err=max(e[0] for e in grad_err.values()),
-                    ms=ms_b, plain_ms=plain_b, bound_ms=bb_ms,
-                    bound_by=bb_by, library_ms=lib_b)
+                 bytes=bytes_b, **fma)
+            # the kernels line, every route in both dtypes: the single-pass
+            # routes in bf16 (the bf16 long-video step up to 10,880 frames)
+            # and f32 (".f32": the flash route's f32 step, phase 7), the
+            # folded ones in f32 (the f32 long-video step) and bf16
+            # (".bf16": past 10,880 frames)
+            tag = ((".bf16" if folded else "") if mma
+                   else ("" if folded else ".f32"))
+            name_f, name_b = name_f + tag, name_b + tag
+            out[name_f] = dict(dtype=dn,
+                               max_abs_err=max(o_err[0], lse_err[0]),
+                               ms=ms_f, plain_ms=plain_f, bound_ms=bf_ms,
+                               bound_by=bf_by, library_ms=lib_f)
+            out[name_b] = dict(
+                dtype=dn, max_abs_err=max(e[0] for e in grad_err.values()),
+                ms=ms_b, plain_ms=plain_b, bound_ms=bb_ms, bound_by=bb_by,
+                library_ms=lib_b)
         if dtype == torch.bfloat16:
             # each bf16 forward route rounds where its TPU kernel does: it
             # lies at least twice as close to its own plain version as to
@@ -2039,6 +2114,8 @@ def phase_train(seed: int) -> dict:
             lambda: step(model, optimizer, xl, tl, ml, gen), reps=3),
         "flagship_32x512": device_profile(
             lambda: step(model, optimizer, xt, tt, mt, gen), reps=3)}
+    flash_f32 = train_flash_f32(model, conf, long_, (xl, tl, ml), gen)
+    counts.update(flash_f32.pop("launches_f32"))
     emit("train", lengths_short=[int(it[0].shape[0]) for it in short],
          lengths_long=[int(it[0].shape[0]) for it in long_],
          card_vs_cpu=card_vs_cpu, flash_card_vs_cpu=flash_vs_cpu,
@@ -2046,11 +2123,80 @@ def phase_train(seed: int) -> dict:
          epoch_loss_long=epoch_losses["long"],
          step_losses=step_losses, val_loss=val_loss, fscore=f,
          kendall_tau=tau, spearman_rho=rho, wall_s=wall, step_ms=step_ms,
-         step_profile=step_profile,
+         step_profile=step_profile, flash_f32=flash_f32,
          launches=counts,
          launches_per_step={r: counts[r] / len(step_losses)
                             for r in TRAIN_ROUTES})
     return counts
+
+
+# recipe epochs of the f32 flash run over the long set (8 videos at batch
+# 4: 2 steps each)
+FLASH_EPOCHS = 3
+
+
+def train_flash_f32(model, conf, items, batch, gen) -> dict:
+    """(d) The f32 single-pass training attention (TPU kernels 5/6, the FMA
+    family) on a main path: recipe epochs on the ``"flash"`` route (what
+    ``attn_impl="flash"`` trains through) over the long set, buckets up to
+    1,152, with the counters zeroed just before. Each step launches both
+    single-pass kernels once per layer, with D from the forward's o (no
+    first pass), and no block or folded kernel. Returns the step ms, a
+    profile of one step on ``batch`` and the launches under
+    ``<route>.f32``."""
+    import copy
+    import math
+
+    import torch
+
+    from vidsum_tpu_torch.ops import attention_train as at
+    from vidsum_tpu_torch.train import finetune as ft
+    from vidsum_tpu_torch.train.steps import (
+        make_finetune_step, make_optimizer,
+    )
+
+    cfg, tc = conf.model, conf.train
+    model = copy.deepcopy(model)
+    optimizer = make_optimizer(model, tc.lr, tc.weight_decay)
+    step = make_finetune_step(cfg, "flash")
+    times, losses = [], []
+
+    def timed(*args):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        loss = step(*args)
+        end.record()
+        times.append((start, end))
+        losses.append(loss)
+        return loss
+
+    reset_counters()
+    passes = at._bwd_kernel.d_pass_launches
+    for epoch in range(FLASH_EPOCHS):
+        ft._train_epoch(timed, model, optimizer, items, conf,
+                        *ft.epoch_streams(tc.seed, 0, epoch))
+    torch.cuda.synchronize()
+    counts = read_counters()
+    single = [attn_train_name(r) for r in ("_fwd_kernel", "_bwd_kernel")]
+    others = [r for r in TRAIN_ROUTES if counts[r]] + [
+        attn_train_name(r) for r in ("_fwd_kernel_folded",
+                                     "_bwd_kernel_folded")
+        if counts[attn_train_name(r)]]
+    if [counts[n] for n in single] != [cfg.num_layers * len(losses)] * 2 \
+            or others or at._bwd_kernel.d_pass_launches != passes:
+        n_pass = at._bwd_kernel.d_pass_launches - passes
+        raise AssertionError(f"f32 flash epochs: launches {counts}, D "
+                             f"passes {n_pass}")
+    step_losses = [float(x) for x in losses]
+    if not all(math.isfinite(v) for v in step_losses):
+        raise AssertionError(f"non-finite losses: {step_losses}")
+    return dict(
+        steps=len(losses), step_losses=step_losses,
+        step_ms=spread([s.elapsed_time(e) for s, e in times]),
+        step_profile=device_profile(
+            lambda: step(model, optimizer, *batch, gen), reps=3),
+        launches_f32={n + ".f32": counts[n] for n in single})
 
 
 # recipe epochs over the long-video set per dtype: 8 videos at batch 4, 2
@@ -3251,13 +3397,14 @@ cs.phase_kernels(dev, {seed})
 cs.phase_int8_kernels(dev, {seed})
 cs.phase_int8_probe(dev)
 cs.phase_train_kernels(dev, {seed})
+cs.phase_train_attention(dev, {seed})
 cs.phase_train({seed})
 """
 
 
 def compare_trees(parent: str, seed: int) -> int:
-    """The kernel phases (kernels, int8 kernels, int8 probe, train kernels)
-    and the train phase of the checkout at ``parent`` and of this one, each
+    """The kernel phases (kernels, int8 kernels, int8 probe, train kernels,
+    train attention kernels) and the train phase of the checkout at ``parent`` and of this one, each
     in its own process from its own tree (its own build), in turns: parent,
     change, change, parent. Each turn's lines follow a ``compare_turn``
     line naming its tree."""
@@ -3299,14 +3446,14 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
 
     dev = phase_device()
-    mma_regs, gemm_regs, bt_regs = phase_build()
+    mma_regs, gemm_regs, bt_regs, fma_regs = phase_build()
     timings = phase_kernels(dev, args.seed)
     phase_gemm(dev, args.seed)
     timings.update(phase_int8_kernels(dev, args.seed))
     probe_timings, probe_launches = phase_int8_probe(dev)
     timings.update(probe_timings)
     timings.update(phase_train_kernels(dev, args.seed))
-    timings.update(phase_train_attention(dev, args.seed))
+    timings.update(phase_train_attention(dev, args.seed, fma_regs))
     timings.update(phase_ring_kernels(dev, args.seed))
     phase_d512(args.seed)
     counts = phase_serve(args.seed)
@@ -3318,7 +3465,7 @@ def main() -> int:
     phase_ring_multi_card(args.seed)
     counts.update(probe_launches)
     counts.update({r: n for r, n in phase_train(args.seed).items()
-                   if r in TRAIN_ROUTES})
+                   if r in TRAIN_ROUTES or r.endswith(".f32")})
     long_launches, long_videos, bucket_err = phase_long_train(args.seed)
     counts.update(long_launches)
     # the bf16 fold's max_abs_err: the larger of its two checks, at
@@ -3343,6 +3490,9 @@ def main() -> int:
            f"vidsum_tpu/ops/attention_train.py:{line}"
            for r, line in (("_fwd_kernel_folded", 175),
                            ("_bwd_kernel_folded", 228))},
+        **{attn_train_name(r) + ".f32":
+           f"vidsum_tpu/ops/attention_train.py:{line}"
+           for r, line in (("_fwd_kernel", 83), ("_bwd_kernel", 112))},
         "_fused_block_int8": "vidsum_tpu/ops/block_kernel_int8.py:63",
         "_fused_block_int8_grouped": "vidsum_tpu/ops/block_kernel_int8.py:143",
         "mm_bf16": "scripts/probe_int8_mxu.py:63",
@@ -3393,6 +3543,10 @@ def main() -> int:
         elif route in TRAIN_ROUTES:
             entry["design"] = TRAIN_GEMM_DESIGN
             entry["ptxas"] = bt_regs
+        elif (route.startswith("attention_train.")
+              and route not in mma_routes):
+            entry["design"] = FMA_ATTENTION_DESIGN
+            entry["ptxas"] = [r for r in fma_regs if "<64," in r["kernel"]]
         kernels.append(entry)
     print(dev["smi"], flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -3,9 +3,11 @@
 the CPU: the dropout hash bit for bit, the four plain versions (o, lse, dq,
 dk, dv) against the Pallas kernels in interpret mode on the single-pass and
 the forced key-folded route (as ``tests/test_attention_train.py`` forces
-it), at head_dims 32 and 128 on both routes, and on the folded route with
-an element whose keys are all padded, the autograd Function against
-``jax.vjp``, and the routing predicates."""
+it), at head_dims 32 and 128 on both routes, on the folded route with an
+element whose keys are all padded, in f32 with whole key tiles padded in
+the middle and at the end of rows (the tiles the f32 kernels skip), the
+autograd Function against ``jax.vjp`` (the forward's o reaching the
+backward on both routes), and the routing predicates."""
 
 import jax
 import jax.numpy as jnp
@@ -47,10 +49,13 @@ CASES = [(False, 0.3, "float32"), (False, 0.0, "float32"),
 HEAD_DIM_SHAPES = [(1, 2, 256, 128), (1, 2, 256, 32)]
 
 
-def _inputs(folded: bool, shape=None, dead=False):
+def _inputs(folded: bool, shape=None, dead=False, holes=False):
     """Seeded q, k, v, the cotangent and the (B, N) pad mask (element b
     valid up to N * 25 / (32 * 2**b)); ``dead`` pads every key of the
-    elements past the first."""
+    elements past the first; ``holes`` (B = 2, N = 256) pads whole 64-key
+    tiles in the middle of element 0's row (keys 64-191, and 200-255) and
+    at the end of element 1's (128-255), whose first tile keeps exactly one
+    unpadded key (key 5)."""
     B, H, N, Dh = shape or SHAPES[folded]
     rng = np.random.default_rng(N + Dh)
     q, k, v, co = (rng.normal(size=(B, H, N, Dh)).astype(np.float32)
@@ -60,6 +65,12 @@ def _inputs(folded: bool, shape=None, dead=False):
         mask[b, N * 25 // (32 << b):] = True
     if dead:
         mask[1:] = True
+    if holes:
+        assert (B, N) == (2, 256)
+        mask[:] = False
+        mask[0, 64:192] = mask[0, 200:] = True
+        mask[1, :64] = mask[1, 128:] = True
+        mask[1, 5] = False
     return q, k, v, co, mask, Dh ** -0.5
 
 
@@ -70,11 +81,11 @@ def jax_results():
     with the jit caches cleared before and after."""
     cache = {}
 
-    def get(folded, rate, dtype, shape=None, dead=False):
-        key = (folded, rate, dtype, shape, dead)
+    def get(folded, rate, dtype, shape=None, dead=False, holes=False):
+        key = (folded, rate, dtype, shape, dead, holes)
         if key in cache:
             return cache[key]
-        q, k, v, co, mask, scale = _inputs(folded, shape, dead)
+        q, k, v, co, mask, scale = _inputs(folded, shape, dead, holes)
         jq, jk, jv, jco = (jnp.asarray(a).astype(dtype)
                            for a in (q, k, v, co))
         m8 = jnp.asarray(mask.astype(np.int8))[:, None, :]
@@ -259,6 +270,44 @@ def test_folded_element_with_no_unpadded_key(jax_results, dtype):
 
 
 @pytest.mark.parametrize("folded", [False, True])
+def test_f32_plain_versions_match_jax_kernels_with_padded_key_tiles(
+        jax_results, folded):
+    """Whole 64-key tiles padded in the middle of one element's row and at
+    the end of the other's, beside a tile with exactly one unpadded key
+    (the tiles the f32 kernels skip or keep): the f32 plain versions the
+    card holds the kernels to (the fold over the kernels' 64-key tiles)
+    against the Pallas kernels in interpret mode (the fold forced with
+    kb = 128), at head_dim 32, rate 0.3."""
+    shape = (2, 2, 256, 32)
+    want = jax_results(folded, 0.3, "float32", shape, holes=True)
+    q, k, v, co, mask, scale = _inputs(folded, shape, holes=True)
+    assert mask[0, 64:192].all() and mask[1, 128:].all()
+    assert (~mask[1, :64]).sum() == 1
+    tq, tk, tv, tco = (torch.from_numpy(a) for a in (q, k, v, co))
+    tm = torch.from_numpy(mask)
+    if folded:
+        kb = at.KEY_TILE
+        o, lse = at.attention_train_fwd_folded_reference(
+            tq, tk, tv, tm, SEED, 0.3, scale, kb, rows=64)
+        grads = at.attention_train_bwd_folded_reference(
+            tq, tk, tv, tm, SEED, lse, tco, o, 0.3, scale, kb, rows=64)
+    else:
+        o, lse = at.attention_train_fwd_reference(tq, tk, tv, tm, SEED, 0.3,
+                                                   scale, rows=64)
+        grads = at.attention_train_bwd_reference(tq, tk, tv, tm, SEED, lse,
+                                                 tco, 0.3, scale, rows=64)
+    rtol, atol = TOL[("fwd", "float32")]
+    np.testing.assert_allclose(o.numpy(), want["o"], rtol=rtol, atol=atol)
+    rtol, atol = TOL[("lse", "float32")]
+    np.testing.assert_allclose(lse.numpy(), want["lse"], rtol=rtol,
+                               atol=atol)
+    rtol, atol = TOL[("grad", "float32", folded)]
+    for name, g, w in zip("qkv", grads, want["grads"]):
+        np.testing.assert_allclose(g.numpy(), w, rtol=rtol, atol=atol,
+                                   err_msg=f"d{name}")
+
+
+@pytest.mark.parametrize("folded", [False, True])
 def test_autograd_function_matches_jax_vjp(jax_results, monkeypatch, folded):
     """``flash_attention_dropout`` routes by the copied predicates and its
     grads equal ``jax.vjp`` of the Pallas kernels; the folded route is
@@ -270,13 +319,23 @@ def test_autograd_function_matches_jax_vjp(jax_results, monkeypatch, folded):
     q, k, v, co, mask, scale = _inputs(folded)
     tq, tk, tv = (torch.from_numpy(a).requires_grad_() for a in (q, k, v))
     spy = at._fwd_kernel_folded if folded else at._fwd_kernel
-    calls = []
+    bwd = at._bwd_kernel_folded if folded else at._bwd_kernel
+    calls, got_o = [], []
     monkeypatch.setattr(at, spy.__name__,
                         lambda *a: calls.append(1) or spy(*a))
+
+    def bwd_spy(*a, **kw):
+        # the forward's o reaches the backward on both routes (in f32 the
+        # single pass's kernels take D = rowsum(do * o) from it)
+        got_o.append(a[7] if folded else kw.get("o"))
+        return bwd(*a, **kw)
+
+    monkeypatch.setattr(at, bwd.__name__, bwd_spy)
     o = at.flash_attention_dropout(tq, tk, tv, torch.from_numpy(mask), SEED,
                                    0.3, scale)
     assert calls == [1]
     o.backward(torch.from_numpy(co))
+    assert len(got_o) == 1 and torch.equal(got_o[0], o.detach())
     np.testing.assert_allclose(o.detach().numpy(), want["o"], rtol=2e-5,
                                atol=2e-5)
     rtol, atol = TOL[("grad", "float32", folded)]

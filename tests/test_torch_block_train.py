@@ -219,3 +219,48 @@ def test_rejects_rates_and_heads_the_hash_cannot_take():
         bt.fused_block_train(x, blk, None, 0, H, SCALE, 1.0)
     with pytest.raises(ValueError, match="heads"):
         bt.fused_block_train(x, blk, None, 0, 64, SCALE, 0.3)
+
+
+def _strided(rows, width, offset=0, row_stride=None):
+    """A (rows, width) f32 view into a flat buffer at element ``offset``
+    with row stride ``row_stride`` (default ``width``)."""
+    rs = row_stride or width
+    buf = torch.zeros(offset + rows * rs + width, dtype=torch.float32)
+    return buf.as_strided((rows, width), (rs, 1), offset)
+
+
+@pytest.mark.parametrize("case,want", [
+    ("contiguous", True), ("none", True), ("offset_4", True),
+    ("offset_1", False), ("row_stride_770", False), ("row_stride_772", True),
+    ("column_stride_2", False)])
+def test_attention_layout_predicate(case, want):
+    """``attention_layout_ok`` (what the f32 attention kernels' 16-byte
+    copies and stores need) on CPU views of each layout: data on a 16-byte
+    boundary, unit last stride, the other strides multiples of 4."""
+    t = {"contiguous": lambda: torch.zeros(128, 768),
+         "none": lambda: None,
+         "offset_4": lambda: _strided(128, 768, offset=4),
+         "offset_1": lambda: _strided(128, 768, offset=1),
+         "row_stride_770": lambda: _strided(128, 768, row_stride=770),
+         "row_stride_772": lambda: _strided(128, 768, row_stride=772),
+         "column_stride_2": lambda: torch.zeros(128, 1536)[:, ::2]}[case]()
+    assert t is None or t.data_ptr() % 16 == 0 or case == "offset_1"
+    assert bt.attention_layout_ok(torch.zeros(4, 8), t) is want
+
+
+def test_attention_wrappers_refuse_misaligned_operands():
+    """The block's attention wrappers raise on a fused QKV buffer off its
+    16-byte boundary or with another row stride before any launch (no
+    scalar fallback), here on CPU tensors, which never reach a kernel."""
+    B, H, N, Dh = 2, 4, 128, 16
+    d = H * Dh
+    dr = bt._Drop(7, N, bt._threshold(0.3), bt._keep_scale(0.3))
+    mask8 = torch.zeros(B, N, dtype=torch.uint8)
+    for qkv in (_strided(B * N, 3 * d, offset=1),
+                _strided(B * N, 3 * d, row_stride=3 * d + 4)):
+        with pytest.raises(ValueError):
+            bt._attention_fwd(qkv, mask8, B, H, N, 0.25, dr, keep=True)
+        o, do = torch.zeros(B * N, d), _strided(B * N, d, offset=2)
+        with pytest.raises(ValueError):
+            bt._attention_bwd(qkv, o, do, torch.zeros(B, H, N), mask8, B, H,
+                              N, 0.25, dr)

@@ -781,6 +781,197 @@ def _bf16_tensor_core_kernels_match_plain(cuda, folded, rate, B, H, N, Dh):
                 assert torch.equal(torch.isnan(a[1]), torch.isnan(b[1]))
 
 
+def _holes(B, N, dev):
+    """(B, N) pad mask with whole 64-key tiles padded in the middle of
+    element 0's row (keys 64-191) and at its end (the last tile), and in
+    element 1 a first tile with exactly one unpadded key (key 5) and
+    padded keys from N / 2 on (whole tiles at the end)."""
+    m = torch.zeros(B, N, dtype=torch.bool)
+    m[0, 64:192] = True
+    m[0, N - 64:] = True
+    m[1, :64] = True
+    m[1, 5] = False
+    m[1, N // 2:] = True
+    for b in range(2, B):
+        m[b, N * 3 // 4 + 1:] = True
+    return m.to(dev)
+
+
+def _block_attention_plain(qkv, mask, seed, H, scale, rate):
+    """The training block's attention over the fused (B*N, 3d) QKV buffer
+    in plain PyTorch (``block_reference_with_masks``'s, with the block's
+    hash, site = head): (o as (B*N, d), lse as (B, H, N))."""
+    from vidsum_tpu_torch.ops import block_train as bt
+
+    B, N = mask.shape
+    d = qkv.shape[1] // 3
+    q, k, v = (qkv[:, i * d:(i + 1) * d].reshape(B, N, H, d // H)
+               .transpose(1, 2) for i in range(3))
+    s = torch.matmul(q, k.transpose(-1, -2)) * scale
+    s = s.masked_fill(mask[:, None, None, :], float("-inf"))
+    lse = torch.logsumexp(s, dim=-1)
+    ar = lambda n: torch.arange(n, dtype=torch.int64,  # noqa: E731
+                                device=qkv.device)
+    keep = bt._keep_bits(seed, ar(H)[None, :, None, None],
+                         ar(B)[:, None, None, None],
+                         ar(N)[None, None, :, None],
+                         ar(N)[None, None, None, :], rate)
+    o = torch.matmul(bt._drop(torch.softmax(s, dim=-1), keep, rate), v)
+    return o.transpose(1, 2).reshape(B * N, d), lse
+
+
+# (B, H, N, Dh): every head_dim at small grids (8-deep thread tiles, a
+# ragged last CTA), and at head_dim 64 a grid that takes the 16-deep tiles
+# (128-row CTAs, ragged: N = 4,288) in every kernel
+F32_HOLE_SHAPES = [(2, 2, 320, 16), (2, 2, 320, 32), (2, 2, 320, 64),
+                   (2, 2, 320, 128), (2, 4, 4288, 64)]
+
+
+@pytest.mark.parametrize("route", ["single", "single_d_pass", "folded",
+                                   "block"])
+@pytest.mark.parametrize("B,H,N,Dh", F32_HOLE_SHAPES)
+def test_f32_attention_with_padded_key_tiles_matches_plain(cuda, route, B,
+                                                           H, N, Dh):
+    """The f32 FMA family (``csrc/attention_core.cuh``) on each route that
+    launches it: the single pass (TPU kernels 5/6; its backward given the
+    forward's o, as the Function gives it, or without o, summing D in a
+    first pass), the fold (7/8) and the training block's attention (9-12,
+    on the fused QKV buffer), with whole key tiles padded at the end and in
+    the middle of a row and a tile with exactly one unpadded key: o, lse
+    and dq/dk/dv within the f32 bounds of their plain versions; two
+    backward runs give identical bits; seed + 1 and a dropped live key tile
+    (the kernels given a mask that pads it) fail the bounds."""
+    from vidsum_tpu_torch.ops import attention_train as at
+    from vidsum_tpu_torch.ops import block_train as bt
+
+    g = torch.Generator(device="cpu").manual_seed(Dh + N)
+    rate, seed, scale = 0.3, 97531, Dh ** -0.5
+    mask = _holes(B, N, cuda)
+    dropped = mask.clone()
+    dropped[0, :64] = True  # a live tile, padded
+    d = H * Dh
+    if route == "block":
+        qkv = torch.randn(B * N, 3 * d, generator=g).to(cuda)
+        do = torch.randn(B * N, d, generator=g).to(cuda)
+        dr = lambda s: bt._Drop(s, N, bt._threshold(rate),  # noqa: E731
+                                bt._keep_scale(rate))
+
+        def run_f(s, m=mask):
+            m8 = m.to(torch.uint8).contiguous()
+            return bt._attention_fwd(qkv, m8, B, H, N, scale, dr(s), True)
+
+        def run_b(s, lse, o, m=mask):
+            m8 = m.to(torch.uint8).contiguous()
+            dqkv = bt._attention_bwd(qkv, o, do, lse, m8, B, H, N, scale,
+                                     dr(s))
+            return tuple(dqkv[:, i * d:(i + 1) * d] for i in range(3))
+
+        with torch.enable_grad():
+            qs = qkv.detach().requires_grad_()
+            want_o, want_lse = _block_attention_plain(qs, mask, seed, H,
+                                                      scale, rate)
+            (dw,) = torch.autograd.grad(want_o, qs, do)
+        want_o, want_lse = want_o.detach(), want_lse.detach()
+        want = tuple(dw[:, i * d:(i + 1) * d] for i in range(3))
+        counters = ()
+    else:
+        q, k, v, do = (torch.randn(B, H, N, Dh, generator=g).to(cuda)
+                       for _ in range(4))
+        kb = at.KEY_TILE
+        if route == "folded":
+            fwd, bwd = at._fwd_kernel_folded, at._bwd_kernel_folded
+
+            def run_f(s, m=mask):
+                return fwd(q, k, v, m, s, rate, scale, kb)
+
+            def run_b(s, lse, o, m=mask):
+                return bwd(q, k, v, m, s, lse, do, o, rate, scale, kb)
+
+            want_o, want_lse = at.attention_train_fwd_folded_reference(
+                q, k, v, mask, seed, rate, scale, kb, rows=N)
+            want = at.attention_train_bwd_folded_reference(
+                q, k, v, mask, seed, want_lse, do, want_o, rate, scale, kb,
+                rows=N)
+        else:
+            fwd, bwd = at._fwd_kernel, at._bwd_kernel
+            given_o = route == "single"
+
+            def run_f(s, m=mask):
+                return fwd(q, k, v, m, s, rate, scale)
+
+            def run_b(s, lse, o, m=mask):
+                return bwd(q, k, v, m, s, lse, do, rate, scale,
+                           o=o if given_o else None)
+
+            want_o, want_lse = at.attention_train_fwd_reference(
+                q, k, v, mask, seed, rate, scale, rows=64)
+            want = at.attention_train_bwd_reference(
+                q, k, v, mask, seed, want_lse, do, rate, scale, rows=64)
+        counters = (fwd, bwd)
+    before = [c.launches for c in counters]
+    passes = at._bwd_kernel.d_pass_launches
+    o, lse = run_f(seed)
+    grads = run_b(seed, want_lse, want_o)
+    again = run_b(seed, want_lse, want_o)
+    torch.cuda.synchronize()
+    assert [c.launches for c in counters] == [n + k for n, k in
+                                              zip(before, (1, 2))]
+    assert at._bwd_kernel.d_pass_launches - passes == (
+        2 if route == "single_d_pass" else 0)
+    _close(o, want_o, "attention", torch.float32)
+    torch.testing.assert_close(lse, want_lse, rtol=1e-5, atol=1e-5)
+    gtol = AT_TOL[("grad", torch.float32)]
+    for name, a, b in zip("qkv", grads, want):
+        assert _at_within(a, b, gtol), f"d{name}: {_rel(a, b)}"
+    assert all(torch.equal(a, b) for a, b in zip(grads, again))
+    bad_o, _ = run_f(seed + 1)
+    assert not _within(bad_o, want_o, "attention", torch.float32)
+    bad = run_b(seed + 1, want_lse, want_o)
+    assert not _at_within(bad[2], want[2], gtol)
+    holed_o, _ = run_f(seed, dropped)
+    assert not _within(holed_o, want_o, "attention", torch.float32)
+    holed = run_b(seed, want_lse, want_o, dropped)
+    assert not _at_within(holed[1], want[1], gtol)
+
+
+def test_f32_attention_refuses_misaligned_operands(cuda):
+    """A fused QKV view off its 16-byte boundary (or with another row
+    stride) raises in the block's attention wrappers, and the kernels'
+    entry points refuse a misaligned pointer themselves (no scalar
+    fallback); the flash route copies its operands to aligned contiguous
+    buffers, so any view it is given works."""
+    from vidsum_tpu_torch.ops import _cuda
+    from vidsum_tpu_torch.ops import attention_train as at
+    from vidsum_tpu_torch.ops import block_train as bt
+
+    B, H, N, Dh = 2, 4, 128, 16
+    d = H * Dh
+    dr = bt._Drop(7, N, bt._threshold(0.3), bt._keep_scale(0.3))
+    mask8 = torch.zeros(B, N, dtype=torch.uint8, device=cuda)
+    buf = torch.randn(B * N * 3 * d + 4, device=cuda)
+    view = buf[1:1 + B * N * 3 * d].view(B * N, 3 * d)
+    with pytest.raises(ValueError):
+        bt._attention_fwd(view, mask8, B, H, N, 0.25, dr, keep=True)
+    with pytest.raises(ValueError):
+        bt._attention_bwd(view, torch.zeros(B * N, d, device=cuda),
+                          torch.zeros(B * N, d, device=cuda),
+                          torch.zeros(B, H, N, device=cuda), mask8, B, H, N,
+                          0.25, dr)
+    lib = _cuda.load("block_train")
+    o = torch.empty(B * N, d, device=cuda)
+    err = lib.vs_bt_attention_fwd(
+        view.data_ptr(), mask8.data_ptr(), o.data_ptr(), None, B, H, N, Dh,
+        0.25, 7, dr.thr, dr.kscale, _cuda.stream_of(o))
+    assert err != 0
+    q = torch.randn(1, 2, 256, 32, device=cuda)
+    strided = torch.randn(1, 2, 256, 33, device=cuda)[..., 1:]
+    mask = torch.zeros(1, 256, dtype=torch.bool, device=cuda)
+    got, _ = at._fwd_kernel(q, strided, q, mask, 3, 0.0, 0.2)
+    want, _ = at.attention_train_fwd_reference(q, strided, q, mask, 3, 0.0,
+                                               0.2)
+    _close(got, want, "attention", torch.float32)
+
+
 TENSOR_CORE_SHAPES = [(2, 2, 512, 64), (1, 2, 256, 128), (2, 2, 320, 64)]
 
 

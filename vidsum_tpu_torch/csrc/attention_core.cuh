@@ -1,38 +1,83 @@
 // Masked attention with counter-hash dropout on the softmax weights, forward
-// and backward, in f32: the kernel family that block_train.cu (inside the
-// training block, TPU kernels 9-12) and attention_train.cu (the
-// flash-attention training route, TPU kernels 5-8 in f32; bf16 takes the
-// tensor-core kernels of attention_train_mma.cuh on both routes) launch.
-// ring_attention.cu reuses its tile staging (stage_t, also with bf16 K/V).
+// and backward, in exact f32 on the FMA units (no TF32: it would not compute
+// what the TPU's f32 kernels compute), for sm_90a.
 //
-// One CTA of 256 threads takes a 64 x 64 tile of scores; thread (rg, cg) =
-// (tid / 16, tid % 16) holds rows 4 rg + i and columns cg + 16 j of it, and
-// output columns cg + 16 t. K/V (or Q/dO) stream through shared memory in
-// 64-row tiles stored transposed ([DH][kPad]), so every read in the inner
-// loops is a broadcast or conflict-free. Nothing of size N x N reaches device
-// memory. Products are exact f32 FMA (no TF32: it would not compute what the
-// TPU's f32 kernels compute). No kernel uses atomics, so two runs of the
-// backward give identical bits.
+// Replaces, for f32 inputs, the TPU kernels
+// vidsum_tpu/ops/attention_train.py:83 _fwd_kernel, :112 _bwd_kernel, :175
+// _fwd_kernel_folded and :228 _bwd_kernel_folded (attention_train.cu; bf16
+// takes attention_train_mma.cuh's tensor-core kernels on both routes), and
+// the attention inside vidsum_tpu/ops/block_train.py:198 _fwd_kernel, :221
+// _bwd_kernel, :410 _fwd_kernel_grouped and :421 _bwd_kernel_grouped
+// (block_train.cu, on its fused (B*N, 3d) QKV buffer). ring_attention.cu
+// keeps the first family's tile helpers (stage_t, stage_rows, tile_dot).
 //
-//   fwd_kernel   per 64-query tile. normalise-first (online == 0): pass 1 the
-//                row max and sum, pass 2 p = e / l, dropped, then P.V.
-//                online: one pass whose denominator sums the raw e while the
-//                dropped unnormalised e is accumulated, with the _DEAD
-//                guards; o = acc / l at the end. Writes o and, if
-//                asked, lse = max + log(sum).
-//   dq_kernel    per query tile: D (rowsum(dO * o), or rowsum(dp * p) over
-//                the full row, one pass over the keys more), then dQ.
-//   dkdv_kernel  per key tile, looping over the query tiles: dV and dK.
-// p = exp(s - lse) in the backward, 0 where lse < _DEAD when guarded.
+// Bound on the card: the products, 4 d N sum(valid keys) operations forward
+// and 8 d N sum(valid) backward (d = H Dh), at the f32 FMA peak of 67
+// TFLOP/s: at (B, H, N, Dh) = (2, 4, 8192, 64), valid (8100, 5000), 1.64 ms
+// forward and 3.28 ms backward; moving its tensors (~70 MB) takes ~0.02 ms
+// at 3.35 TB/s. The backward recomputes s in both kernels and dp in both,
+// 7 Dh FMAs a (query, key) pair against the bound's 4. On an H100 80GB
+// HBM3 (700 W) the forward ran at ~47 % of the FMA peak and the backward
+// at ~40 % on its own FMAs (PERF.md, chip_smoke.py's attention lines).
+//
+//   fma_fwd_kernel   per RI TY query rows: one pass over the live key tiles,
+//                    the online fold; writes o and, if asked, lse.
+//   fma_dq_kernel    per RI TY query rows: D (rowsum(dO * o), or a first
+//                    pass summing rowsum(g * p) when no o is given), then
+//                    dQ over the live key tiles; writes D.
+//   fma_dkdv_kernel  per RI TY keys, looping over the query tiles: dV, dK.
+//
+// What the design does about what held the first family (4 x 4 blocks over
+// transposed tiles) back:
+// 1. Shared-memory issue. A thread holds RI x 8 scores (8 x 8; 4 x 8 at head
+//    dim 128) and RI rows of each product's output, and reads row-major
+//    tiles as float4: per 4 steps of a score product, 8 + RI vector reads
+//    feed 32 RI FMAs (256 per 16 at RI 8, against 16 per 8 scalar reads), and
+//    the products P.V, dS.K, pd^T.dO and dS^T.Q likewise. Rows of DH + 4 and
+//    72 floats keep every warp's reads free of bank conflicts (fma_scores,
+//    fma_rows_mul).
+// 2. Loads overlapped with products. Row-major tiles arrive by 16-byte
+//    cp.async: the forward's K tile loads during the fold and P.V, its V
+//    tile during the next scores (one buffer each); dQ double-buffers K/V,
+//    dK/dV Q/dO with their lse and D.
+// 3. Live key tiles only. A key tile with no unpadded key adds exact zeros
+//    to every sum and nothing to any max (the fold leaves m, l and o bit for
+//    bit), so the forward and dQ walk the live tiles of their element
+//    (mma_tiles.cuh's live_tiles) and a dK/dV CTA whose keys are all padded
+//    writes zeros. Padded query rows are computed as before.
+// 4. One forward pass. In f32 nothing is rounded between the two passes of
+//    the normalise-first order, so both routes fold online (scores in log2
+//    units, the _DEAD guards, one reciprocal of l per row, lse = (m +
+//    log2 l) ln 2); the route only decides what an element with no
+//    unpadded key gives: the fold walks no tile (o = 0, lse = -inf), the
+//    single pass and the block every tile (NaN o, lse = -inf, as before).
+// 5. D = rowsum(dO * o). The single-pass route takes it from o like the
+//    folded route and the block (the same quantity: o = sum_j pd_j v_j, so
+//    dO . o = sum_j p_j g_j); a first pass over the keys for rowsum(g * p)
+//    runs only when the caller gives no o.
+// 6. Per score: 2^x of pre-scaled scores on the MUFU unit (mma_tiles.cuh's
+//    ex2: exp2f less its fix-up of denormal results, which a softmax
+//    weight below 2^-126 does not need), the hash only where rate > 0
+//    (keep_bit's early return; its bits unchanged, both families).
+// Two groups of 8 TY threads share each backward CTA (256 threads at TY 16):
+// dQ's group 0 computes s and p, group 1 dp, g and ds, both half of dQ; dK/
+// dV's group 0 p, pd and dV, group 1 dp, ds and dK, so that each thread
+// keeps one set of accumulators. The CTA takes 16-deep thread tiles (128
+// rows; 64 at head dim 128) on large grids and 8-deep ones below
+// (fma_wide). Nothing of size N x N reaches device memory; no
+// kernel uses atomics, so two runs of the backward give identical bits.
 //
 // Layouts are strided so that one family reads the training block's fused
 // (B*N, 3d) QKV buffer (head h at column h*DH) and (B, H, N, DH) tensors
 // alike: element (b, h, row, c) of a tensor lies at b*sb + h*sh + row*sn + c,
 // with one stride set for q/k/v/dq/dk/dv ("in") and one for o/dO ("out");
-// lse and D are (B, H, N) f32.
+// lse and D are (B, H, N) f32. Every pointer the kernels copy from or store
+// to lies on 16 bytes and every stride is a multiple of 4 floats
+// (fma_layout_ok; the wrappers check it first and raise).
 #pragma once
 
 #include "common.cuh"
+#include "mma_tiles.cuh"
 
 namespace vs {
 namespace attn {
@@ -90,11 +135,12 @@ struct Args {
   unsigned seed, thr;
   float kscale;     // 1 / (1 - rate) rounded to f32
   int hash;         // Hash
-  int online;       // forward: one-pass fold (1) or normalise-first (0)
+  int online;       // forward: the folded route (1) or the single pass (0)
   int d_from_o;     // backward: D = rowsum(dO * o) (1) or rowsum(dp * p)
   int guard;        // backward: p = 0 where lse < kDead
 };
 
+// The first family's tile helpers, which ring_attention.cu's kernels use:
 // rows r0..r0+63 of one head's (rows, DH) matrix with row stride sn,
 // widened to f32, into a transposed tile dst[c * kPad + r]
 template <typename T, int DH>
@@ -139,438 +185,633 @@ __device__ __forceinline__ void tile_dot(float (&s)[4][4], const float* A,
   }
 }
 
-// ------------------------------------------------------------------ forward
+// ------------------------------------------------------------- FMA tiles
+// What the f32 family (fma_fwd_kernel, fma_dq_kernel, fma_dkdv_kernel) is
+// built from. A group of 8 TY threads holds a tile of RI TY rows (queries,
+// or keys in dK/dV) by 64 columns: thread (ty, tx) = (g / 8, g % 8) holds
+// rows ty + TY i (i < RI) and columns tx + 8 j (j < 8), and of a product's
+// output the same rows and the columns fma_col(tx, n). Operand tiles sit
+// row-major in shared memory, DH + 4 floats a row (16-byte aligned, rows 4
+// banks apart), score tiles kSLd = 72 floats a row (rows 8 banks apart), so
+// that every float4 read of a warp (4 rows x 8 columns of threads) and every
+// scalar store of a score hits distinct banks or broadcasts.
+
+constexpr int kTx = 8;         // threads across a score tile's 64 columns
+constexpr int kSj = kT / kTx;  // score columns a thread holds
+constexpr int kSLd = kT + 8;   // floats a row of a score tile
+constexpr float kLn2 = 0.69314718055994531f;
+
 template <int DH>
-constexpr int fwd_smem_floats() {
-  return 2 * DH * kPad + kT * DH + kT * kPad + kT;
+constexpr int kFmaLd = DH + 4;
+// rows a thread holds: 8, or 4 at head_dim 128 (its accumulators are twice
+// as wide)
+template <int DH>
+constexpr int kFmaRi = DH >= 128 ? 4 : 8;
+
+template <int W>
+__device__ __forceinline__ void ld_vec(float* d, const float* s) {
+  if constexpr (W == 4) {
+    const float4 v = *reinterpret_cast<const float4*>(s);
+    d[0] = v.x, d[1] = v.y, d[2] = v.z, d[3] = v.w;
+  } else if constexpr (W == 2) {
+    const float2 v = *reinterpret_cast<const float2*>(s);
+    d[0] = v.x, d[1] = v.y;
+  } else {
+    d[0] = s[0];
+  }
 }
 
-template <int DH>
-__global__ void __launch_bounds__(kThreads) fwd_kernel(const Args a) {
-  constexpr int DPT = DH / 16;
-  extern __shared__ float smem[];
-  float* Qt = smem;               // [DH][kPad]
-  float* Kt = Qt + DH * kPad;     // [DH][kPad]
-  float* Vs = Kt + DH * kPad;     // [kT][DH]
-  float* Pt = Vs + kT * DH;       // [key][query], kPad
-  float* Km = Pt + kT * kPad;     // key mask as 0/1
+template <int W>
+__device__ __forceinline__ void st_vec(float* d, const float* s) {
+  if constexpr (W == 4) {
+    *reinterpret_cast<float4*>(d) = make_float4(s[0], s[1], s[2], s[3]);
+  } else if constexpr (W == 2) {
+    *reinterpret_cast<float2*>(d) = make_float2(s[0], s[1]);
+  } else {
+    d[0] = s[0];
+  }
+}
 
-  const int tid = threadIdx.x, rg = tid >> 4, cg = tid & 15;
-  const int q0 = blockIdx.x * kT, h = blockIdx.y, b = blockIdx.z;
-  const int N = a.N;
+// Output column n (< COLS) of thread tx: chunks of CW = min(COLS, 4)
+// columns, 8 CW apart, so that a warp's 8 tx read 8 CW contiguous floats
+template <int COLS>
+constexpr int kFmaCw = COLS >= 4 ? 4 : COLS;
+template <int COLS>
+__device__ __forceinline__ int fma_col(int tx, int n) {
+  constexpr int CW = kFmaCw<COLS>;
+  return tx * CW + 8 * CW * (n / CW) + n % CW;
+}
+
+// rows r0 .. r0 + rows - 1 of a head's (N, DH) f32 matrix at row stride sn
+// into dst (kFmaLd<DH> floats a row) by 16-byte cp.async copies from
+// THREADS threads, not committed; rows at or past N are zeros
+template <int DH, int THREADS>
+__device__ __forceinline__ void fma_stage(float* dst, const float* head,
+                                          long long sn, int r0, int rows,
+                                          int N) {
+  constexpr int LD = kFmaLd<DH>, CH = DH / 4;
+  for (int c = threadIdx.x; c < rows * CH; c += THREADS) {
+    const int r = c / CH, cc = (c % CH) * 4;
+    float* d = dst + r * LD + cc;
+    if (r0 + r < N)
+      cp_async16(d, head + (long long)(r0 + r) * sn + cc);
+    else
+      *reinterpret_cast<float4*>(d) = make_float4(0.f, 0.f, 0.f, 0.f);
+  }
+}
+
+// s[i][j] = sum_c A[ty + TY i][c] B[tx + 8 j][c] over c in increasing order,
+// A and B staged tiles: per 4 c, 8 + RI float4 reads feed 32 RI FMAs
+template <int DH, int RI, int TY>
+__device__ __forceinline__ void fma_scores(float (&s)[RI][kSj],
+                                           const float* A, const float* B,
+                                           int ty, int tx) {
+  constexpr int LD = kFmaLd<DH>;
+#pragma unroll
+  for (int i = 0; i < RI; ++i)
+#pragma unroll
+    for (int j = 0; j < kSj; ++j) s[i][j] = 0.f;
+  const float* a0 = A + ty * LD;
+  const float* b0 = B + tx * LD;
+  // two steps of 4 at a time (one at head_dim 16, where a whole unrolled
+  // product let ptxas hoist every load and spill); deeper unrolling was
+  // slower on the card
+  constexpr int U = DH > 16 ? 2 : 1;
+#pragma unroll U
+  for (int c = 0; c < DH; c += 4) {
+    float4 y[kSj];
+#pragma unroll
+    for (int j = 0; j < kSj; ++j)
+      y[j] = *reinterpret_cast<const float4*>(b0 + j * kTx * LD + c);
+#pragma unroll
+    for (int i = 0; i < RI; ++i) {
+      const float4 x = *reinterpret_cast<const float4*>(a0 + i * TY * LD + c);
+#pragma unroll
+      for (int j = 0; j < kSj; ++j) {
+        s[i][j] = fmaf(x.x, y[j].x, s[i][j]);
+        s[i][j] = fmaf(x.y, y[j].y, s[i][j]);
+        s[i][j] = fmaf(x.z, y[j].z, s[i][j]);
+        s[i][j] = fmaf(x.w, y[j].w, s[i][j]);
+      }
+    }
+  }
+}
+
+// acc[i][n] += sum_k P[ty + TY i][k] X[k][c0 + fma_col(tx, n)] over the 64
+// k in increasing order, P a score tile, X a staged tile: per 4 k, RI + 4
+// NC vector reads feed 4 RI COLS FMAs
+template <int DH, int RI, int TY, int COLS>
+__device__ __forceinline__ void fma_rows_mul(float (&acc)[RI][COLS],
+                                             const float* P, const float* X,
+                                             int c0, int ty, int tx) {
+  constexpr int LD = kFmaLd<DH>, CW = kFmaCw<COLS>, NC = COLS / CW;
+  const float* p0 = P + ty * kSLd;
+  const float* x0 = X + c0 + tx * CW;
+#pragma unroll 1
+  for (int k = 0; k < kT; k += 4) {
+    float x[4][COLS];
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+      for (int nc = 0; nc < NC; ++nc)
+        ld_vec<CW>(&x[kk][nc * CW], x0 + (k + kk) * LD + nc * kTx * CW);
+#pragma unroll
+    for (int i = 0; i < RI; ++i) {
+      const float4 p = *reinterpret_cast<const float4*>(p0 + i * TY * kSLd + k);
+#pragma unroll
+      for (int n = 0; n < COLS; ++n) {
+        acc[i][n] = fmaf(p.x, x[0][n], acc[i][n]);
+        acc[i][n] = fmaf(p.y, x[1][n], acc[i][n]);
+        acc[i][n] = fmaf(p.z, x[2][n], acc[i][n]);
+        acc[i][n] = fmaf(p.w, x[3][n], acc[i][n]);
+      }
+    }
+  }
+}
+
+// ------------------------------------------------------------------ forward
+template <int DH, int TY>
+constexpr int fma_fwd_floats() {
+  constexpr int ROWS = kFmaRi<DH> * TY;
+  // Q; K and V (one tile each, staggered); P; the K tile's mask bytes
+  return ROWS * kFmaLd<DH> + 2 * kT * kFmaLd<DH> + ROWS * kSLd + kT / 4;
+}
+
+// One pass over the live key tiles of RI TY query rows in both modes (f32
+// rounds nothing between the passes of a normalise-first order, so the fold
+// computes the same function): scores in log2 units, the online fold with
+// the _DEAD guards, o = acc / l and lse = (m + log2 l) ln 2 at the end.
+// online (the folded route): an element with no unpadded key walks no tile
+// and gives o = 0, lse = -inf; else (the single pass and the block) it
+// walks every tile and gives NaN o and lse = -inf, as the normalise-first
+// order does. K and V tiles stream through one buffer each: the next K
+// tile loads during the fold and P.V, the next V tile during the next
+// scores.
+template <int DH, int TY>
+__global__ void __launch_bounds__(kTx * TY, 2) fma_fwd_kernel(const Args a) {
+  constexpr int RI = kFmaRi<DH>, ROWS = RI * TY, THREADS = kTx * TY;
+  constexpr int LD = kFmaLd<DH>, COLS = DH / kTx, CW = kFmaCw<COLS>;
+  extern __shared__ __align__(16) float smem[];
+  float* Qs = smem;              // [ROWS][LD]
+  float* Ks = Qs + ROWS * LD;    // [kT][LD]
+  float* Vs = Ks + kT * LD;      // [kT][LD]
+  float* Ps = Vs + kT * LD;      // [ROWS][kSLd], dropped e
+  unsigned char* Ms = reinterpret_cast<unsigned char*>(Ps + ROWS * kSLd);
+  int* tiles = reinterpret_cast<int*>(Ms + kT);
+  const int N = a.N, ntiles = N / kT;
+  int* count = tiles + ntiles;
+
+  const int tid = threadIdx.x, ty = tid / kTx, tx = tid % kTx;
+  const int q0 = blockIdx.x * ROWS, h = blockIdx.y, b = blockIdx.z;
   const long long ih = b * a.isb + h * a.ish;
-  const float* qh = static_cast<const float*>(a.q) + ih;
   const float* kh = static_cast<const float*>(a.k) + ih;
   const float* vh = static_cast<const float*>(a.v) + ih;
   const unsigned char* mrow = a.mask + (long long)b * N;
   const unsigned base = hash_base(a.hash, a.seed, b, h);
+  const float sc2 = a.scale * kLog2e;
 
-  stage_t<float, DH>(Qt, qh, a.isn, q0);
-  auto stage_keys = [&](int k0, bool with_v) {
-    __syncthreads();  // the previous tile's readers are done
-    stage_t<float, DH>(Kt, kh, a.isn, k0);
-    if (with_v) stage_rows<float, DH>(Vs, vh, a.isn, k0);
-    if (tid < kT) Km[tid] = mrow[k0 + tid] != 0 ? 1.f : 0.f;
-    __syncthreads();
-  };
-  auto scores = [&](float (&s)[4][4]) {
-    tile_dot<DH>(s, Qt, Kt, rg, cg);
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-        s[i][j] = Km[cg + 16 * j] != 0.f ? -INFINITY : s[i][j] * a.scale;
-  };
-  float acc[4][DPT];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int t = 0; t < DPT; ++t) acc[i][t] = 0.f;
-  auto accumulate = [&]() {  // acc += Pt . V
-    __syncthreads();
-#pragma unroll 8
-    for (int kk = 0; kk < kT; ++kk) {
-      float pa[4], vb[DPT];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) pa[i] = Pt[kk * kPad + rg * 4 + i];
-#pragma unroll
-      for (int t = 0; t < DPT; ++t) vb[t] = Vs[kk * DH + cg + 16 * t];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int t = 0; t < DPT; ++t)
-          acc[i][t] = fmaf(pa[i], vb[t], acc[i][t]);
+  live_tiles(mrow, N, tiles, count, !a.online);
+  fma_stage<DH, THREADS>(Qs, static_cast<const float*>(a.q) + ih, a.isn, q0,
+                         ROWS, N);
+  cp_async_commit();
+  __syncthreads();  // the tile list
+  const int nlive = *count;
+  auto load_k = [&](int it) {
+    if (it < nlive) {
+      const int k0 = tiles[it] * kT;
+      fma_stage<DH, THREADS>(Ks, kh, a.isn, k0, kT, N);
+      if (tid < kT / 16) cp_async16(Ms + 16 * tid, mrow + k0 + 16 * tid);
     }
+    cp_async_commit();
   };
+  auto load_v = [&](int it) {
+    if (it < nlive) fma_stage<DH, THREADS>(Vs, vh, a.isn, tiles[it] * kT,
+                                           kT, N);
+    cp_async_commit();
+  };
+  load_k(0);
+  load_v(0);
 
-  float m[4], l[4];
+  float m[RI], l[RI], acc[RI][COLS];
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
+  for (int i = 0; i < RI; ++i) {
     m[i] = -INFINITY;
     l[i] = 0.f;
+#pragma unroll
+    for (int n = 0; n < COLS; ++n) acc[i][n] = 0.f;
   }
-  if (!a.online) {
-    // pass 1: the row max and the sum of exp(s - max), online over tiles
-    for (int k0 = 0; k0 < N; k0 += kT) {
-      stage_keys(k0, false);
-      float s[4][4];
-      scores(s);
+  for (int it = 0; it < nlive; ++it) {
+    cp_async_wait<1>();  // Q and this K tile; this V tile may be in flight
+    __syncthreads();
+    float s[RI][kSj];
+    fma_scores<DH, RI, TY>(s, Qs, Ks, ty, tx);
+    bool km[kSj];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        float mx = -INFINITY;
+    for (int j = 0; j < kSj; ++j) km[j] = Ms[tx + kTx * j] != 0;
+    __syncthreads();  // Ks and Ms are free
+    load_k(it + 1);
+    const int k0 = tiles[it] * kT;
 #pragma unroll
-        for (int j = 0; j < 4; ++j) mx = fmaxf(mx, s[i][j]);
-        const float m_new = fmaxf(m[i], group_max<16>(mx));
-        const bool none = m_new == -INFINITY;  // no unpadded key yet
-        float rs = 0.f;
+    for (int i = 0; i < RI; ++i) {
+      const int qi = q0 + ty + TY * i;
+      float mx = -INFINITY;
 #pragma unroll
-        for (int j = 0; j < 4; ++j) rs += none ? 0.f : expf(s[i][j] - m_new);
-        rs = group_sum<16>(rs);
-        const float corr = m[i] == -INFINITY ? 0.f : expf(m[i] - m_new);
-        l[i] = l[i] * corr + rs;
-        m[i] = m_new;
+      for (int j = 0; j < kSj; ++j) {
+        s[i][j] = km[j] ? -INFINITY : s[i][j] * sc2;
+        mx = fmaxf(mx, s[i][j]);
       }
-    }
-    // pass 2: p = e / l, dropped, then P.V
-    for (int k0 = 0; k0 < N; k0 += kT) {
-      stage_keys(k0, true);
-      float s[4][4];
-      scores(s);
+      const float m_new = fmaxf(m[i], group_max<kTx>(mx));
+      const bool dead = m_new < kDead;
+      const float m_safe = dead ? 0.f : m_new;
+      const float corr = m[i] < kDead ? 0.f : ex2(m[i] - m_safe);
+      float rs = 0.f;
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int qi = q0 + rg * 4 + i;
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const int kj = cg + 16 * j;
-          const float p = expf(s[i][j] - m[i]) / l[i];
-          const float pd =
-              keep_bit(base, qi, k0 + kj, a.thr) ? p * a.kscale : 0.f;
-          Pt[kj * kPad + rg * 4 + i] = pd;
-        }
+      for (int j = 0; j < kSj; ++j) {
+        const int kj = tx + kTx * j;
+        const float e = dead ? 0.f : ex2(s[i][j] - m_safe);
+        rs += e;
+        Ps[(ty + TY * i) * kSLd + kj] =
+            keep_bit(base, qi, k0 + kj, a.thr) ? e * a.kscale : 0.f;
       }
-      accumulate();
+      l[i] = l[i] * corr + group_sum<kTx>(rs);
+      m[i] = m_new;
+#pragma unroll
+      for (int n = 0; n < COLS; ++n) acc[i][n] *= corr;
     }
-  } else {
-    // one pass: the denominator sums the raw e, the dropped unnormalised e
-    // is accumulated
-    for (int k0 = 0; k0 < N; k0 += kT) {
-      stage_keys(k0, true);
-      float s[4][4];
-      scores(s);
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int qi = q0 + rg * 4 + i;
-        float mx = -INFINITY;
-#pragma unroll
-        for (int j = 0; j < 4; ++j) mx = fmaxf(mx, s[i][j]);
-        const float m_new = fmaxf(m[i], group_max<16>(mx));
-        const bool dead = m_new < kDead;
-        const float m_safe = dead ? 0.f : m_new;
-        const float corr = m[i] < kDead ? 0.f : expf(m[i] - m_safe);
-        float rs = 0.f;
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const int kj = cg + 16 * j;
-          const float e = dead ? 0.f : expf(s[i][j] - m_safe);
-          rs += e;
-          const float eu =
-              keep_bit(base, qi, k0 + kj, a.thr) ? e * a.kscale : 0.f;
-          Pt[kj * kPad + rg * 4 + i] = eu;
-        }
-        l[i] = l[i] * corr + group_sum<16>(rs);
-        m[i] = m_new;
-#pragma unroll
-        for (int t = 0; t < DPT; ++t) acc[i][t] *= corr;
-      }
-      accumulate();
-    }
+    cp_async_wait<1>();  // this V tile; the next K tile may be in flight
+    __syncthreads();     // P written, V landed
+    fma_rows_mul<DH, RI, TY, COLS>(acc, Ps, Vs, 0, ty, tx);
+    __syncthreads();     // Vs and Ps are free
+    load_v(it + 1);
   }
+  cp_async_wait<0>();
 
   const long long oh = b * a.osb + h * a.osh;
   const long long sh = ((long long)b * a.H + h) * N;
+  float* out = static_cast<float*>(a.out) + oh;
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int qi = q0 + rg * 4 + i;
-    float f = 1.f, ls = m[i] + logf(l[i]);
-    if (a.online) {
-      const bool empty = l[i] == 0.f;
-      f = empty ? 0.f : 1.f / l[i];
-      ls = empty ? -INFINITY : ls;
+  for (int i = 0; i < RI; ++i) {
+    const int qi = q0 + ty + TY * i;
+    if (qi >= N) continue;
+    const bool empty = a.online && l[i] == 0.f;
+    const float f = empty ? 0.f : 1.f / l[i];
+    float* orow = out + (long long)qi * a.osn;
+#pragma unroll
+    for (int n = 0; n < COLS; n += CW) {
+      float v[CW];
+#pragma unroll
+      for (int e = 0; e < CW; ++e) v[e] = acc[i][n + e] * f;
+      st_vec<CW>(orow + fma_col<COLS>(tx, n), v);
     }
-    float* orow = static_cast<float*>(a.out) + oh + (long long)qi * a.osn;
-#pragma unroll
-    for (int t = 0; t < DPT; ++t)
-      orow[cg + 16 * t] = a.online ? acc[i][t] * f : acc[i][t];
-    if (cg == 0 && a.lse != nullptr) a.lse[sh + qi] = ls;
+    if (tx == 0 && a.lse != nullptr)
+      a.lse[sh + qi] = empty ? -INFINITY : (m[i] + log2f(l[i])) * kLn2;
   }
 }
 
 // ----------------------------------------------------------------- backward
-template <int DH>
-constexpr int dq_smem_floats() {
-  return 4 * DH * kPad + kT * kPad + kT;
+// Two groups of 8 TY threads share a tile of RI TY rows: in dQ, group 0
+// computes s and p, group 1 dp and the dropped g = keep dp / (1 - rate) and
+// then ds = p (g - D) (p through shared memory), and both take half of dQ's
+// columns; in dK/dV, group 0 computes p and the dropped pd and accumulates
+// dV, group 1 dp, ds and dK. p = exp2(s log2(e) scale - lse log2(e)).
+template <int DH, int TY>
+constexpr int fma_dq_floats() {
+  constexpr int ROWS = kFmaRi<DH> * TY;
+  // Q, dO; K and V double-buffered; P then dS; the K tiles' mask bytes
+  return 2 * ROWS * kFmaLd<DH> + 4 * kT * kFmaLd<DH> + ROWS * kSLd +
+         2 * kT / 4;
 }
 
-template <int DH>
-__global__ void __launch_bounds__(kThreads) dq_kernel(const Args a) {
-  constexpr int DPT = DH / 16;
-  extern __shared__ float smem[];
-  float* Qt = smem;
-  float* dOt = Qt + DH * kPad;
-  float* Kt = dOt + DH * kPad;
-  float* Vt = Kt + DH * kPad;
-  float* dSs = Vt + DH * kPad;  // [query][key], kPad
-  float* Km = dSs + kT * kPad;
+// Per RI TY query rows over their element's live key tiles (every tile of
+// an element with no unpadded key unless guarded): with d_from_o, D =
+// rowsum(dO * o) from the staged dO rows; without, a first pass over the
+// live tiles sums D = rowsum(g * p). Writes D for dK/dV.
+template <int DH, int TY>
+__global__ void __launch_bounds__(2 * kTx * TY, 1) fma_dq_kernel(const Args a) {
+  constexpr int RI = kFmaRi<DH>, ROWS = RI * TY, GROUP = kTx * TY;
+  constexpr int THREADS = 2 * GROUP, LD = kFmaLd<DH>;
+  constexpr int COLS = DH / (2 * kTx), CW = kFmaCw<COLS>;
+  extern __shared__ __align__(16) float smem[];
+  float* Qs = smem;                // [ROWS][LD]
+  float* dOs = Qs + ROWS * LD;     // [ROWS][LD]
+  float* Ks = dOs + ROWS * LD;     // [2][kT][LD]
+  float* Vs = Ks + 2 * kT * LD;    // [2][kT][LD]
+  float* Ss = Vs + 2 * kT * LD;    // [ROWS][kSLd]: p, then ds
+  unsigned char* Ms = reinterpret_cast<unsigned char*>(Ss + ROWS * kSLd);
+  int* tiles = reinterpret_cast<int*>(Ms + 2 * kT);
+  const int N = a.N, ntiles = N / kT;
+  int* count = tiles + ntiles;
 
-  const int tid = threadIdx.x, rg = tid >> 4, cg = tid & 15;
-  const int q0 = blockIdx.x * kT, h = blockIdx.y, b = blockIdx.z;
-  const int N = a.N;
+  const int tid = threadIdx.x, grp = tid / GROUP, gt = tid % GROUP;
+  const int ty = gt / kTx, tx = gt % kTx;
+  const int q0 = blockIdx.x * ROWS, h = blockIdx.y, b = blockIdx.z;
   const long long ih = b * a.isb + h * a.ish;
   const long long oh = b * a.osb + h * a.osh;
   const long long sh = ((long long)b * a.H + h) * N;
   const float* kh = static_cast<const float*>(a.k) + ih;
   const float* vh = static_cast<const float*>(a.v) + ih;
-  const float* dOh = static_cast<const float*>(a.dO) + oh;
   const unsigned char* mrow = a.mask + (long long)b * N;
   const unsigned base = hash_base(a.hash, a.seed, b, h);
+  const float sc2 = a.scale * kLog2e;
 
-  stage_t<float, DH>(Qt, static_cast<const float*>(a.q) + ih, a.isn, q0);
-  stage_t<float, DH>(dOt, dOh, a.osn, q0);
-
-  float lr[4];
-  bool live[4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const float x = a.lse[sh + q0 + rg * 4 + i];
-    live[i] = !a.guard || x >= kDead;
-    lr[i] = live[i] ? x : 0.f;
-  }
-  auto stage_keys = [&](int k0) {
-    __syncthreads();
-    stage_t<float, DH>(Kt, kh, a.isn, k0);
-    stage_t<float, DH>(Vt, vh, a.isn, k0);
-    if (tid < kT) Km[tid] = mrow[k0 + tid] != 0 ? 1.f : 0.f;
-    __syncthreads();
-  };
-  // p and the dropped dp = keep * (dO . v) * kscale of one key tile
-  auto probs = [&](int k0, float (&p)[4][4], float (&g)[4][4]) {
-    float s[4][4], dp[4][4];
-    tile_dot<DH>(s, Qt, Kt, rg, cg);
-    tile_dot<DH>(dp, dOt, Vt, rg, cg);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int qi = q0 + rg * 4 + i;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int kj = cg + 16 * j;
-        const float sv = Km[kj] != 0.f ? -INFINITY : s[i][j] * a.scale;
-        p[i][j] = live[i] ? expf(sv - lr[i]) : 0.f;
-        g[i][j] =
-            keep_bit(base, qi, k0 + kj, a.thr) ? dp[i][j] * a.kscale : 0.f;
-      }
+  live_tiles(mrow, N, tiles, count, !a.guard);
+  fma_stage<DH, THREADS>(Qs, static_cast<const float*>(a.q) + ih, a.isn, q0,
+                         ROWS, N);
+  fma_stage<DH, THREADS>(dOs, static_cast<const float*>(a.dO) + oh, a.osn,
+                         q0, ROWS, N);
+  cp_async_commit();
+  __syncthreads();  // the tile list
+  const int nlive = *count;
+  const int total = (a.d_from_o ? 1 : 2) * nlive;  // the D pass first
+  auto tile_of = [&](int v) { return tiles[v < nlive ? v : v - nlive]; };
+  auto load_kv = [&](int v) {
+    if (v < total) {
+      const int buf = v & 1, k0 = tile_of(v) * kT;
+      fma_stage<DH, THREADS>(Ks + buf * kT * LD, kh, a.isn, k0, kT, N);
+      fma_stage<DH, THREADS>(Vs + buf * kT * LD, vh, a.isn, k0, kT, N);
+      if (tid < kT / 16)
+        cp_async16(Ms + buf * kT + 16 * tid, mrow + k0 + 16 * tid);
     }
+    cp_async_commit();
   };
+  load_kv(0);
 
-  float Dr[4];
-  if (a.d_from_o) {
+  float lr[RI], Dr[RI], part[RI];
+  bool live[RI];
+#pragma unroll
+  for (int i = 0; i < RI; ++i) {
+    const int row = q0 + ty + TY * i;
+    const float x = row < N ? a.lse[sh + row] : 0.f;
+    live[i] = !a.guard || x >= kDead;
+    lr[i] = live[i] ? x * kLog2e : 0.f;
+    Dr[i] = part[i] = 0.f;
+  }
+  cp_async_wait<1>();  // Q and dO
+  __syncthreads();
+  if (grp == 1 && (a.d_from_o || nlive == 0)) {
     const float* o = static_cast<const float*>(a.o) + oh;
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const long long row = (long long)(q0 + rg * 4 + i) * a.osn;
-      float part = 0.f;
+    for (int i = 0; i < RI; ++i) {
+      const int r = ty + TY * i;
+      float p = 0.f;
+      if (a.d_from_o && q0 + r < N) {
 #pragma unroll
-      for (int t = 0; t < DPT; ++t)
-        part += dOh[row + cg + 16 * t] * o[row + cg + 16 * t];
-      Dr[i] = group_sum<16>(part);
-    }
-  } else {
-    float part[4] = {0.f, 0.f, 0.f, 0.f};
-    for (int k0 = 0; k0 < N; k0 += kT) {
-      stage_keys(k0);
-      float p[4][4], g[4][4];
-      probs(k0, p, g);
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) part[i] += g[i][j] * p[i][j];
-    }
-#pragma unroll
-    for (int i = 0; i < 4; ++i) Dr[i] = group_sum<16>(part[i]);
-  }
-  if (cg == 0) {
-#pragma unroll
-    for (int i = 0; i < 4; ++i) a.D[sh + q0 + rg * 4 + i] = Dr[i];
-  }
-
-  float acc[4][DPT];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int t = 0; t < DPT; ++t) acc[i][t] = 0.f;
-  for (int k0 = 0; k0 < N; k0 += kT) {
-    stage_keys(k0);
-    float p[4][4], g[4][4];
-    probs(k0, p, g);
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-        dSs[(rg * 4 + i) * kPad + cg + 16 * j] = p[i][j] * (g[i][j] - Dr[i]);
-    __syncthreads();
-#pragma unroll 8
-    for (int kk = 0; kk < kT; ++kk) {
-      float sa[4], kb[DPT];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) sa[i] = dSs[(rg * 4 + i) * kPad + kk];
-#pragma unroll
-      for (int t = 0; t < DPT; ++t) kb[t] = Kt[(cg + 16 * t) * kPad + kk];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int t = 0; t < DPT; ++t) acc[i][t] = fmaf(sa[i], kb[t], acc[i][t]);
+        for (int u = 0; u < DH / kTx; ++u)
+          p += dOs[r * LD + tx + kTx * u] *
+               o[(long long)(q0 + r) * a.osn + tx + kTx * u];
+      }
+      Dr[i] = group_sum<kTx>(p);
+      if (tx == 0 && q0 + r < N) a.D[sh + q0 + r] = Dr[i];
     }
   }
 
-  float* dqh = static_cast<float*>(a.dq) + ih;
+  float acc[RI][COLS];
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    float* row = dqh + (long long)(q0 + rg * 4 + i) * a.isn;
+  for (int i = 0; i < RI; ++i)
 #pragma unroll
-    for (int t = 0; t < DPT; ++t)
-      row[cg + 16 * t] = acc[i][t] * a.scale;
+    for (int n = 0; n < COLS; ++n) acc[i][n] = 0.f;
+  for (int v = 0; v < total; ++v) {
+    const int buf = v & 1;
+    if (v + 1 < total) {
+      load_kv(v + 1);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();  // this K/V tile
+    const bool dpass = v < total - nlive;
+    const int k0 = tile_of(v) * kT;
+    const float* Kt = Ks + buf * kT * LD;
+    const unsigned char* Mb = Ms + buf * kT;
+    float s[RI][kSj];
+    if (grp == 0) {
+      fma_scores<DH, RI, TY>(s, Qs, Kt, ty, tx);
+#pragma unroll
+      for (int i = 0; i < RI; ++i)
+#pragma unroll
+        for (int j = 0; j < kSj; ++j) {
+          const float sv =
+              Mb[tx + kTx * j] != 0 ? -INFINITY : s[i][j] * sc2;
+          Ss[(ty + TY * i) * kSLd + tx + kTx * j] =
+              live[i] ? ex2(sv - lr[i]) : 0.f;
+        }
+    } else {
+      fma_scores<DH, RI, TY>(s, dOs, Vs + buf * kT * LD, ty, tx);
+#pragma unroll
+      for (int i = 0; i < RI; ++i)
+#pragma unroll
+        for (int j = 0; j < kSj; ++j)
+          s[i][j] = keep_bit(base, q0 + ty + TY * i, k0 + tx + kTx * j,
+                             a.thr) ? s[i][j] * a.kscale : 0.f;
+    }
+    __syncthreads();  // p
+    if (grp == 1) {
+#pragma unroll
+      for (int i = 0; i < RI; ++i) {
+#pragma unroll
+        for (int j = 0; j < kSj; ++j) {
+          float* sp = Ss + (ty + TY * i) * kSLd + tx + kTx * j;
+          if (dpass)
+            part[i] += s[i][j] * *sp;
+          else
+            *sp = *sp * (s[i][j] - Dr[i]);
+        }
+        if (dpass && v == nlive - 1) {
+          const int r = q0 + ty + TY * i;
+          Dr[i] = group_sum<kTx>(part[i]);
+          if (tx == 0 && r < N) a.D[sh + r] = Dr[i];
+        }
+      }
+    }
+    __syncthreads();  // ds
+    if (!dpass) fma_rows_mul<DH, RI, TY, COLS>(acc, Ss, Kt, grp * (DH / 2),
+                                               ty, tx);
+    __syncthreads();  // this buffer and Ss are free
+  }
+
+  float* dqh = static_cast<float*>(a.dq) + ih + grp * (DH / 2);
+#pragma unroll
+  for (int i = 0; i < RI; ++i) {
+    const int row = q0 + ty + TY * i;
+    if (row >= N) continue;
+#pragma unroll
+    for (int n = 0; n < COLS; n += CW) {
+      float v[CW];
+#pragma unroll
+      for (int e = 0; e < CW; ++e) v[e] = acc[i][n + e] * a.scale;
+      st_vec<CW>(dqh + (long long)row * a.isn + fma_col<COLS>(tx, n), v);
+    }
   }
 }
 
-// thread (rg, cg) holds keys 4 rg + i and queries cg + 16 j of each
-// transposed score tile
-template <int DH>
-constexpr int dkdv_smem_floats() {
-  return 4 * DH * kPad + 2 * kT * kPad + 3 * kT;
+template <int DH, int TY>
+constexpr int fma_dkdv_floats() {
+  constexpr int ROWS = kFmaRi<DH> * TY;
+  // K, V; Q and dO double-buffered; pd; p then ds; lse and D double-buffered
+  return 2 * ROWS * kFmaLd<DH> + 4 * kT * kFmaLd<DH> + 2 * ROWS * kSLd +
+         4 * kT;
 }
 
-template <int DH>
-__global__ void __launch_bounds__(kThreads) dkdv_kernel(const Args a) {
-  constexpr int DPT = DH / 16;
-  extern __shared__ float smem[];
-  float* Kt = smem;
-  float* Vt = Kt + DH * kPad;
-  float* Qt = Vt + DH * kPad;
-  float* dOt = Qt + DH * kPad;
-  float* PdT = dOt + DH * kPad;  // [key][query], kPad
-  float* dST = PdT + kT * kPad;  // [key][query], kPad
-  float* Lq = dST + kT * kPad;   // lse, 0 where the row is dead
-  float* Lv = Lq + kT;           // 1 where the row is live
-  float* Dq = Lv + kT;
+// Per RI TY keys, looping over every 64-query tile: s^T and dp^T, then
+// dV += pd^T . dO (group 0) and dK += ds^T . Q (group 1). A CTA whose keys
+// are all padded writes zeros and returns, unless no key of the element is
+// unpadded and the route is unguarded (then it runs, as dQ walks every
+// tile).
+template <int DH, int TY>
+__global__ void __launch_bounds__(2 * kTx * TY, 1)
+    fma_dkdv_kernel(const Args a) {
+  constexpr int RI = kFmaRi<DH>, ROWS = RI * TY, GROUP = kTx * TY;
+  constexpr int THREADS = 2 * GROUP, LD = kFmaLd<DH>;
+  constexpr int COLS = DH / kTx, CW = kFmaCw<COLS>, TILE = kT * LD;
+  extern __shared__ __align__(16) float smem[];
+  float* Ks = smem;                // [ROWS][LD]
+  float* Vs = Ks + ROWS * LD;      // [ROWS][LD]
+  float* Qs = Vs + ROWS * LD;      // [2][kT][LD]
+  float* dOs = Qs + 2 * TILE;      // [2][kT][LD]
+  float* Pd = dOs + 2 * TILE;      // [ROWS][kSLd], keys x queries
+  float* Ss = Pd + ROWS * kSLd;    // [ROWS][kSLd]: p, then ds
+  float* Ls = Ss + ROWS * kSLd;    // [2][kT] lse in log2 units
+  float* Dq = Ls + 2 * kT;         // [2][kT] D
 
-  const int tid = threadIdx.x, rg = tid >> 4, cg = tid & 15;
-  const int k0 = blockIdx.x * kT, h = blockIdx.y, b = blockIdx.z;
+  const int tid = threadIdx.x, grp = tid / GROUP, gt = tid % GROUP;
+  const int ty = gt / kTx, tx = gt % kTx;
+  const int k0 = blockIdx.x * ROWS, h = blockIdx.y, b = blockIdx.z;
   const int N = a.N;
   const long long ih = b * a.isb + h * a.ish;
   const long long oh = b * a.osb + h * a.osh;
   const long long sh = ((long long)b * a.H + h) * N;
-  const float* qh = static_cast<const float*>(a.q) + ih;
-  const float* dOh = static_cast<const float*>(a.dO) + oh;
-  const unsigned base = hash_base(a.hash, a.seed, b, h);
-
-  stage_t<float, DH>(Kt, static_cast<const float*>(a.k) + ih, a.isn, k0);
-  stage_t<float, DH>(Vt, static_cast<const float*>(a.v) + ih, a.isn, k0);
-  bool km[4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-    km[i] = a.mask[(long long)b * N + k0 + rg * 4 + i] != 0;
-
-  float dka[4][DPT], dva[4][DPT];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int t = 0; t < DPT; ++t) dka[i][t] = dva[i][t] = 0.f;
-
-  for (int q0 = 0; q0 < N; q0 += kT) {
-    __syncthreads();
-    stage_t<float, DH>(Qt, qh, a.isn, q0);
-    stage_t<float, DH>(dOt, dOh, a.osn, q0);
-    if (tid < kT) {
-      const float x = a.lse[sh + q0 + tid];
-      const bool live = !a.guard || x >= kDead;
-      Lq[tid] = live ? x : 0.f;
-      Lv[tid] = live ? 1.f : 0.f;
-      Dq[tid] = a.D[sh + q0 + tid];
-    }
-    __syncthreads();
-    float s[4][4], dp[4][4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = dp[i][j] = 0.f;
-#pragma unroll 8
-    for (int c = 0; c < DH; ++c) {
-      float ka[4], va[4], qb[4], gb[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        ka[i] = Kt[c * kPad + rg * 4 + i];
-        va[i] = Vt[c * kPad + rg * 4 + i];
-      }
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        qb[j] = Qt[c * kPad + cg + 16 * j];
-        gb[j] = dOt[c * kPad + cg + 16 * j];
-      }
-      // q . k and dO . v in the operand order of the other kernels
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          s[i][j] = fmaf(qb[j], ka[i], s[i][j]);
-          dp[i][j] = fmaf(gb[j], va[i], dp[i][j]);
-        }
-    }
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int key = k0 + rg * 4 + i;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int qj = cg + 16 * j;
-        const float sv = km[i] ? -INFINITY : s[i][j] * a.scale;
-        const float p = Lv[qj] != 0.f ? expf(sv - Lq[qj]) : 0.f;
-        const bool keep = keep_bit(base, q0 + qj, key, a.thr);
-        const float g = keep ? dp[i][j] * a.kscale : 0.f;
-        PdT[(rg * 4 + i) * kPad + qj] = keep ? p * a.kscale : 0.f;
-        dST[(rg * 4 + i) * kPad + qj] = p * (g - Dq[qj]);
-      }
-    }
-    __syncthreads();
-#pragma unroll 4
-    for (int qq = 0; qq < kT; ++qq) {
-      float pa[4], sa[4], gb[DPT], qb[DPT];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        pa[i] = PdT[(rg * 4 + i) * kPad + qq];
-        sa[i] = dST[(rg * 4 + i) * kPad + qq];
-      }
-#pragma unroll
-      for (int t = 0; t < DPT; ++t) {
-        gb[t] = dOt[(cg + 16 * t) * kPad + qq];
-        qb[t] = Qt[(cg + 16 * t) * kPad + qq];
-      }
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int t = 0; t < DPT; ++t) {
-          dva[i][t] = fmaf(pa[i], gb[t], dva[i][t]);
-          dka[i][t] = fmaf(sa[i], qb[t], dka[i][t]);
-        }
-    }
-  }
-
+  const unsigned char* mrow = a.mask + (long long)b * N;
   float* dkh = static_cast<float*>(a.dk) + ih;
   float* dvh = static_cast<float*>(a.dv) + ih;
+
+  bool mine = false, any = false;
+  for (int c = tid * 16; c < N; c += THREADS * 16) {
+    const bool live = any_live16(mrow + c);
+    any |= live;
+    mine |= live && c >= k0 && c < k0 + ROWS;
+  }
+  any = __syncthreads_or(any);
+  mine = __syncthreads_or(mine);
+  if ((any || a.guard) && !mine) {
+    const float4 z = make_float4(0.f, 0.f, 0.f, 0.f);
+    for (int e = tid; e < ROWS * (DH / 4); e += THREADS) {
+      const int r = e / (DH / 4), c = (e % (DH / 4)) * 4;
+      if (k0 + r >= N) continue;
+      *reinterpret_cast<float4*>(dkh + (long long)(k0 + r) * a.isn + c) = z;
+      *reinterpret_cast<float4*>(dvh + (long long)(k0 + r) * a.isn + c) = z;
+    }
+    return;
+  }
+
+  fma_stage<DH, THREADS>(Ks, static_cast<const float*>(a.k) + ih, a.isn, k0,
+                         ROWS, N);
+  fma_stage<DH, THREADS>(Vs, static_cast<const float*>(a.v) + ih, a.isn, k0,
+                         ROWS, N);
+  const float* qh = static_cast<const float*>(a.q) + ih;
+  const float* dOh = static_cast<const float*>(a.dO) + oh;
+  auto load_q = [&](int qt) {
+    const int q0 = qt * kT, buf = qt & 1;
+    fma_stage<DH, THREADS>(Qs + buf * TILE, qh, a.isn, q0, kT, N);
+    fma_stage<DH, THREADS>(dOs + buf * TILE, dOh, a.osn, q0, kT, N);
+    if (tid < kT / 4)
+      cp_async16(Ls + buf * kT + 4 * tid, a.lse + sh + q0 + 4 * tid);
+    else if (tid < kT / 2)
+      cp_async16(Dq + buf * kT + 4 * (tid - kT / 4),
+                 a.D + sh + q0 + 4 * (tid - kT / 4));
+    cp_async_commit();
+  };
+  load_q(0);  // one group with K and V
+
+  const unsigned base = hash_base(a.hash, a.seed, b, h);
+  const float sc2 = a.scale * kLog2e;
+  bool km[RI];
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const long long row = (long long)(k0 + rg * 4 + i) * a.isn;
+  for (int i = 0; i < RI; ++i) {
+    const int key = k0 + ty + TY * i;
+    km[i] = key >= N || mrow[key] != 0;
+  }
+  float acc[RI][COLS];  // dV in group 0, dK in group 1
 #pragma unroll
-    for (int t = 0; t < DPT; ++t) {
-      dkh[row + cg + 16 * t] = dka[i][t] * a.scale;
-      dvh[row + cg + 16 * t] = dva[i][t];
+  for (int i = 0; i < RI; ++i)
+#pragma unroll
+    for (int n = 0; n < COLS; ++n) acc[i][n] = 0.f;
+
+  const int ntq = N / kT;
+  for (int qt = 0; qt < ntq; ++qt) {
+    const int buf = qt & 1, q0 = qt * kT;
+    if (qt + 1 < ntq) {
+      load_q(qt + 1);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    if (tid < kT / 4) {
+      // the lse whose copy this thread issued, in log2 units; +inf on a row
+      // below _DEAD when guarded, so that its p = exp2(s - inf) = 0
+      float* x = Ls + buf * kT + 4 * tid;
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        x[j] = a.guard && !(x[j] >= kDead) ? INFINITY : x[j] * kLog2e;
+    }
+    __syncthreads();  // this Q/dO tile, its lse and D
+    const float* Qt = Qs + buf * TILE;
+    const float* dOt = dOs + buf * TILE;
+    const float* Lt = Ls + buf * kT;
+    const float* Dt = Dq + buf * kT;
+    float s[RI][kSj];
+    if (grp == 0) {
+      fma_scores<DH, RI, TY>(s, Ks, Qt, ty, tx);  // s^T
+#pragma unroll
+      for (int i = 0; i < RI; ++i)
+#pragma unroll
+        for (int j = 0; j < kSj; ++j) {
+          const int qj = tx + kTx * j, o = (ty + TY * i) * kSLd + qj;
+          const float sv = km[i] ? -INFINITY : s[i][j] * sc2;
+          const float p = ex2(sv - Lt[qj]);
+          Ss[o] = p;
+          Pd[o] = keep_bit(base, q0 + qj, k0 + ty + TY * i, a.thr)
+                      ? p * a.kscale : 0.f;
+        }
+    } else {
+      fma_scores<DH, RI, TY>(s, Vs, dOt, ty, tx);  // dp^T
+#pragma unroll
+      for (int i = 0; i < RI; ++i)
+#pragma unroll
+        for (int j = 0; j < kSj; ++j)
+          s[i][j] = keep_bit(base, q0 + tx + kTx * j, k0 + ty + TY * i,
+                             a.thr) ? s[i][j] * a.kscale : 0.f;
+    }
+    __syncthreads();  // p
+    if (grp == 1) {
+#pragma unroll
+      for (int i = 0; i < RI; ++i)
+#pragma unroll
+        for (int j = 0; j < kSj; ++j) {
+          const int qj = tx + kTx * j;
+          float* sp = Ss + (ty + TY * i) * kSLd + qj;
+          *sp = *sp * (s[i][j] - Dt[qj]);
+        }
+    }
+    __syncthreads();  // ds
+    if (grp == 0)
+      fma_rows_mul<DH, RI, TY, COLS>(acc, Pd, dOt, 0, ty, tx);
+    else
+      fma_rows_mul<DH, RI, TY, COLS>(acc, Ss, Qt, 0, ty, tx);
+    __syncthreads();  // this buffer, Pd and Ss are free
+  }
+
+  float* dst = grp == 0 ? dvh : dkh;
+  const float f = grp == 0 ? 1.f : a.scale;
+#pragma unroll
+  for (int i = 0; i < RI; ++i) {
+    const int key = k0 + ty + TY * i;
+    if (key >= N) continue;
+#pragma unroll
+    for (int n = 0; n < COLS; n += CW) {
+      float v[CW];
+#pragma unroll
+      for (int e = 0; e < CW; ++e) v[e] = acc[i][n + e] * f;
+      st_vec<CW>(dst + (long long)key * a.isn + fma_col<COLS>(tx, n), v);
     }
   }
 }
@@ -592,33 +833,91 @@ inline bool shape_ok(int B, int H, int N, int Dh) {
          H <= 65535 && head_dim_ok(Dh);
 }
 
-template <int DH>
-cudaError_t launch_fwd(const Args& a, int B, cudaStream_t s) {
-  const int bytes = fwd_smem_floats<DH>() * (int)sizeof(float);
-  cudaError_t err = allow_smem(fwd_kernel<DH>, bytes);
+// The FMA family stages its operands by 16-byte cp.async copies and writes
+// its outputs by 16-byte stores: every base pointer it copies from or
+// stores to on a 16-byte boundary and every stride a multiple of 4 floats
+// (ops/block_train.attention_layout_ok checks the same before a launch).
+// The backward's o is read by scalar loads.
+inline bool fma_layout_ok(const Args& a, bool bwd) {
+  const bool strides = a.isb % 4 == 0 && a.ish % 4 == 0 && a.isn % 4 == 0 &&
+                       a.osb % 4 == 0 && a.osh % 4 == 0 && a.osn % 4 == 0;
+  const bool ins = aligned16(a.q) && aligned16(a.k) && aligned16(a.v) &&
+                   aligned16(a.mask);
+  if (!bwd) return strides && ins && aligned16(a.out);
+  return strides && ins && aligned16(a.dO) && aligned16(a.lse) &&
+         aligned16(a.D) && aligned16(a.dq) && aligned16(a.dk) &&
+         aligned16(a.dv);
+}
+
+inline int sm_count() {
+  int dev = 0, n = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev);
+  return n;
+}
+
+// True when a grid of CTAs of `rows` rows holds at least `per_sm` CTAs an
+// SM: the forward takes 16-deep thread tiles (128 rows, or 64 at head_dim
+// 128) where they fill both of every SM's CTA slots, the backward kernels
+// (one CTA an SM) where they fill half the SMs, else the 8-deep ones (half
+// the rows, twice the CTAs): at one CTA an SM, 16-deep CTAs on most SMs
+// beat twice as many 8-deep ones, which hold half the warps each.
+inline bool fma_wide(int B, int H, int N, int rows, float per_sm) {
+  return (float)((N + rows - 1) / rows) * H * B >= per_sm * sm_count();
+}
+
+template <int DH, int TY>
+cudaError_t launch_fma_fwd(const Args& a, int B, cudaStream_t s) {
+  constexpr int ROWS = kFmaRi<DH> * TY;
+  const int bytes = (fma_fwd_floats<DH, TY>() + a.N / kT + 1) * 4;
+  cudaError_t err = allow_smem(fma_fwd_kernel<DH, TY>, bytes);
   if (err != cudaSuccess) return err;
-  fwd_kernel<DH><<<dim3(a.N / kT, a.H, B), kThreads, bytes, s>>>(a);
+  fma_fwd_kernel<DH, TY>
+      <<<dim3((a.N + ROWS - 1) / ROWS, a.H, B), kTx * TY, bytes, s>>>(a);
   return cudaGetLastError();
 }
 
-// dq_kernel writes D, which dkdv_kernel reads after it on the same stream
-template <int DH>
-cudaError_t launch_bwd(const Args& a, int B, cudaStream_t s) {
-  const int dq_bytes = dq_smem_floats<DH>() * (int)sizeof(float);
-  const int kv_bytes = dkdv_smem_floats<DH>() * (int)sizeof(float);
-  cudaError_t err = allow_smem(dq_kernel<DH>, dq_bytes);
-  if (err == cudaSuccess) err = allow_smem(dkdv_kernel<DH>, kv_bytes);
+// fma_dq_kernel writes D, which fma_dkdv_kernel reads after it on the same
+// stream
+template <int DH, int TYQ, int TYK>
+cudaError_t launch_fma_bwd(const Args& a, int B, cudaStream_t s) {
+  constexpr int RQ = kFmaRi<DH> * TYQ, RK = kFmaRi<DH> * TYK;
+  const int dq_bytes = (fma_dq_floats<DH, TYQ>() + a.N / kT + 1) * 4;
+  const int kv_bytes = fma_dkdv_floats<DH, TYK>() * 4;
+  cudaError_t err = allow_smem(fma_dq_kernel<DH, TYQ>, dq_bytes);
+  if (err == cudaSuccess)
+    err = allow_smem(fma_dkdv_kernel<DH, TYK>, kv_bytes);
   if (err != cudaSuccess) return err;
-  const dim3 grid(a.N / kT, a.H, B);
-  dq_kernel<DH><<<grid, kThreads, dq_bytes, s>>>(a);
+  fma_dq_kernel<DH, TYQ><<<dim3((a.N + RQ - 1) / RQ, a.H, B),
+                           2 * kTx * TYQ, dq_bytes, s>>>(a);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  dkdv_kernel<DH><<<grid, kThreads, kv_bytes, s>>>(a);
+  fma_dkdv_kernel<DH, TYK><<<dim3((a.N + RK - 1) / RK, a.H, B),
+                             2 * kTx * TYK, kv_bytes, s>>>(a);
   return cudaGetLastError();
 }
 
-// Dispatch on head_dim (shape_ok's). At 128 the dK/dV kernel takes 167 KB
-// of shared memory and the dQ kernel 150 KB: one CTA per SM.
+template <int DH>
+cudaError_t launch_fwd(const Args& a, int B, cudaStream_t s) {
+  if (!fma_layout_ok(a, false)) return cudaErrorMisalignedAddress;
+  return fma_wide(B, a.H, a.N, kFmaRi<DH> * 16, 2.f)
+             ? launch_fma_fwd<DH, 16>(a, B, s)
+             : launch_fma_fwd<DH, 8>(a, B, s);
+}
+
+// At head_dim 128 a 16-deep dK/dV CTA would need 240 KB of shared memory:
+// it keeps 8-deep ones
+template <int DH>
+cudaError_t launch_bwd(const Args& a, int B, cudaStream_t s) {
+  if (a.d_from_o && a.o == nullptr) return cudaErrorInvalidValue;
+  if (!fma_layout_ok(a, true)) return cudaErrorMisalignedAddress;
+  constexpr int TYK = DH >= 128 ? 8 : 16;
+  return fma_wide(B, a.H, a.N, kFmaRi<DH> * 16, 0.5f)
+             ? launch_fma_bwd<DH, 16, TYK>(a, B, s)
+             : launch_fma_bwd<DH, 8, 8>(a, B, s);
+}
+
+// Dispatch on head_dim (shape_ok's)
 inline cudaError_t launch_fwd_dh(const Args& a, int B, int Dh,
                                  cudaStream_t s) {
   switch (Dh) {

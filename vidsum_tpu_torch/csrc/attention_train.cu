@@ -13,10 +13,13 @@
 //              P.V), online for _fwd_kernel_folded (the denominator sums the
 //              raw e while the dropped, unnormalised e is rounded and
 //              accumulated, with the _DEAD guards); writes o and
-//              lse = max + log(sum).
+//              lse = max + log(sum). In f32 nothing is rounded between the
+//              two orders' passes, and both routes fold online in one pass.
 //   vs_at_bwd  a dQ kernel then a dK/dV kernel. D = rowsum(dp * p) over the
 //              full row for _bwd_kernel (a first pass over the keys),
-//              rowsum(dO * o) with the lse guard for _bwd_kernel_folded.
+//              rowsum(dO * o) with the lse guard for _bwd_kernel_folded; in
+//              f32 the single pass takes rowsum(dO * o) too when given o (the
+//              same quantity, without the first pass).
 // Two kernel families serve them, chosen by dtype with no fallback between
 // them:
 //   - bf16, on both routes: attention_train_mma.cuh, every product on the
@@ -25,14 +28,12 @@
 //     route is its kernels' online / folded mode (one fused forward pass, D
 //     from the o rows). Its note gives its bound and design.
 //   - f32, on both routes: attention_core.cuh's FMA family, which the
-//     training block (block_train.cu) launches too. Its products are exact
-//     f32 FMA from transposed shared-memory tiles (a TF32 product would not
-//     compute what the TPU's f32 kernels compute), dp = dO . V^T and dV =
-//     Pd^T . dO f32 x f32. Bound: the forward's products are
-//     4*d*N*sum(valid keys), the backward's 8*d*N*sum(valid), d = H*DH: at
-//     (2, 4, 8192, 64) with valid (8100, 5000) 0.11 TFLOP forward, 1.6 ms
-//     at the card's 67 TFLOP/s f32 peak; its loads do not overlap compute
-//     yet.
+//     training block (block_train.cu) launches too: exact f32 FMA (a TF32
+//     product would not compute what the TPU's f32 kernels compute) in
+//     8 x 8 register tiles read as float4 from row-major tiles that arrive
+//     by cp.async, live key tiles only, one forward pass. Its note gives its
+//     bound (at (2, 4, 8192, 64) with valid (8100, 5000) 1.64 ms forward,
+//     3.28 ms backward at the card's 67 TFLOP/s f32 peak) and design.
 // The dropout bits are attention_train.py::_keep_mask_block, a pure function
 // of (seed, element, head, absolute query row, absolute key column), so the
 // tiling is free and both routes and families draw identical bits.
@@ -85,8 +86,8 @@ extern "C" int vs_at_fwd(const void* q, const void* k, const void* v,
 }
 
 // folded: 1 for the folded route's backward (D = rowsum(dO * o), o required,
-// the lse guard), 0 for the single-pass one (D = rowsum(dp * p)); D is
-// (B, H, N) f32 scratch
+// the lse guard), 0 for the single-pass one (D = rowsum(dp * p); in f32
+// rowsum(dO * o) where o is given); D is (B, H, N) f32 scratch
 extern "C" int vs_at_bwd(const void* q, const void* k, const void* v,
                          const void* dO, const void* o, const float* lse,
                          const unsigned char* mask, float* D, void* dq,
@@ -108,7 +109,7 @@ extern "C" int vs_at_bwd(const void* q, const void* k, const void* v,
   a.dq = dq;
   a.dk = dk;
   a.dv = dv;
-  a.d_from_o = folded;
+  a.d_from_o = folded || (dtype == vs::kF32 && o != nullptr);
   a.guard = folded;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   return (int)(dtype == vs::kBF16

@@ -24,13 +24,13 @@
 //   bt_ln_bwd_drop     LayerNorm backward (_ln_bwd) and the dropped copy
 //   bt_colsum          deterministic column sums (bias and LN grads): row
 //                      chunks in a fixed partition, then chunks in order
-//   attention          attention_core.cuh's family (shared with
+//   attention          attention_core.cuh's FMA family (shared with
 //                      attention_train.cu) on the fused QKV buffer, with the
-//                      block's hash (site = head): the normalise-first
-//                      forward, optionally keeping lse, and the backward
-//                      (D = rowsum(dO o O) and dQ per query tile, dK/dV per
-//                      key tile looping over the query tiles; P recomputed
-//                      from lse)
+//                      block's hash (site = head): one online pass over the
+//                      live key tiles, optionally keeping lse, and the
+//                      backward (D = rowsum(dO o O) and dQ per query tile,
+//                      dK/dV per key tile looping over the query tiles; P
+//                      recomputed from lse)
 // No kernel uses atomics, so two runs of the backward give identical bits.
 //
 // Bound on the card: at (B, N) = (32, 512), d = 256, H = 4 the forward's
@@ -50,9 +50,10 @@
 // (128 registers a thread). Other strides or alignments take scalar loads
 // through the same pipeline. The dW products split K so that the d x d
 // outputs still fill the card (ops/block_train.gemm_splits), with partials
-// summed in a fixed order. The attention kernels keep each 64 x 64 score
-// tile on chip (nothing of size N x N reaches device memory) with 4 x 4
-// register blocks over transposed, padded shared-memory tiles. The
+// summed in a fixed order. The attention kernels keep each 64-key score
+// tile on chip (nothing of size N x N reaches device memory) in 8 x 8
+// register blocks read as float4 from row-major tiles that cp.async streams
+// in, over the live key tiles only (attention_core.cuh's note). The
 // recompute costs one forward more than the bound counts (the TPU kernel's
 // memory footprint).
 #include "attention_core.cuh"

@@ -36,10 +36,18 @@ launches one of two kernel families, by dtype, on both routes:
   exp and a hash per score element in every pass.
 - f32: the FMA family of ``csrc/attention_core.cuh`` (the training block's
   chain runs it too), exact f32 products, since TF32 would not compute
-  what the TPU's f32 kernels compute.
+  what the TPU's f32 kernels compute: 8 x 8 register tiles read as float4
+  from row-major tiles that ``cp.async`` streams in, wholly padded key
+  tiles skipped, one online forward pass on both routes (f32 rounds nothing
+  between the normalise-first order's passes), and D = rowsum(do * o) on
+  both routes (the single pass's Function saves o in f32; given no o, the
+  kernel sums D = rowsum(dp * p) in a first pass, counted in
+  ``_bwd_kernel.d_pass_launches``). Bound at (2, 4, 8,192, 64): 1.64 ms
+  forward and 3.28 ms backward at the f32 peak.
 
-Each has one forward kernel (normalise-first: two passes; online: one) and
-one backward pair, dQ per query tile and dK/dV per key tile, with a D mode.
+Each has one forward kernel (bf16 normalise-first: two passes; online and
+f32: one) and one backward pair, dQ per query tile and dK/dV per key tile,
+with a D mode.
 Blocks stream 64-key tiles through shared memory, so the TPU's ``kb`` is a
 VMEM tactic: the plain folded versions fold over it, the kernels over their
 own tiles (in f32 the two differ by summation order; in bf16 by where the
@@ -312,9 +320,10 @@ def _launch_fwd(q, k, v, pad_mask, seed: int, rate: float, scale: float,
 
 
 def _launch_bwd(q, k, v, pad_mask, seed: int, lse, do, o, rate: float,
-                scale: float):
-    """``o`` given: the folded backward (D = rowsum(do * o), lse guard);
-    None: the single-pass one (D = rowsum(dp * p))."""
+                scale: float, folded: bool):
+    """``folded``: the folded backward (D = rowsum(do * o), lse guard; ``o``
+    required); else the single-pass one (D = rowsum(dp * p), or in f32
+    rowsum(do * o) where ``o`` is given)."""
     q, k, v, mask8, code = _cuda_inputs(q, k, v, pad_mask, seed)
     B, H, N, Dh = q.shape
     do = _cuda.aligned16(do.to(q.dtype).contiguous())
@@ -332,7 +341,7 @@ def _launch_bwd(q, k, v, pad_mask, seed: int, lse, do, o, rate: float,
         _cuda.ptr(o), _cuda.ptr(lse), _cuda.ptr(mask8), _cuda.ptr(d_row),
         _cuda.ptr(dq), _cuda.ptr(dk), _cuda.ptr(dv), B, H, N, Dh,
         float(scale), int(seed), _threshold(rate), _keep_scale(rate), code,
-        int(o is not None), _cuda.stream_of(q))
+        int(folded), _cuda.stream_of(q))
     _cuda.check(lib, err, "attention_train backward")
     return dq, dk, dv
 
@@ -354,18 +363,27 @@ _fwd_kernel.launches = 0
 
 
 def _bwd_kernel(q, k, v, pad_mask, seed: int, lse, do, rate: float,
-                scale: float):
+                scale: float, o=None):
     """Counterpart of ``vidsum_tpu/ops/attention_train.py::_bwd_kernel``:
-    (dq, dk, dv)."""
+    (dq, dk, dv). The plain version takes D = rowsum(dp * p), as the TPU
+    kernel does; the f32 kernels take D = rowsum(do * o) from the forward's
+    ``o`` where it is given (the same quantity), else they sum it in a
+    first pass over the keys, as the bf16 kernels always do (counted in
+    ``d_pass_launches``)."""
     if q.device.type == "cpu":
         return attention_train_bwd_reference(q, k, v, pad_mask, seed, lse,
                                              do, rate, scale)
-    out = _launch_bwd(q, k, v, pad_mask, seed, lse, do, None, rate, scale)
+    if q.dtype != torch.float32:
+        o = None
+    out = _launch_bwd(q, k, v, pad_mask, seed, lse, do, o, rate, scale,
+                      folded=False)
     _bwd_kernel.launches += 1
+    _bwd_kernel.d_pass_launches += o is None
     return out
 
 
 _bwd_kernel.launches = 0
+_bwd_kernel.d_pass_launches = 0
 
 
 def _fwd_kernel_folded(q, k, v, pad_mask, seed: int, rate: float,
@@ -392,7 +410,8 @@ def _bwd_kernel_folded(q, k, v, pad_mask, seed: int, lse, do, o,
     if q.device.type == "cpu":
         return attention_train_bwd_folded_reference(
             q, k, v, pad_mask, seed, lse, do, o, rate, scale, kb)
-    out = _launch_bwd(q, k, v, pad_mask, seed, lse, do, o, rate, scale)
+    out = _launch_bwd(q, k, v, pad_mask, seed, lse, do, o, rate, scale,
+                      folded=True)
     _bwd_kernel_folded.launches += 1
     return out
 
@@ -438,11 +457,14 @@ class _FlashAttentionDropout(torch.autograd.Function):
         if folded:
             o, lse = _fwd_kernel_folded(q, k, v, pad_mask, seed, rate, scale,
                                         kb)
-            # o is a residual of the folded backward only (its D)
+            # o is a residual of the folded backward (its D)
             ctx.save_for_backward(q, k, v, pad_mask, lse, o)
         else:
             o, lse = _fwd_kernel(q, k, v, pad_mask, seed, rate, scale)
-            ctx.save_for_backward(q, k, v, pad_mask, lse)
+            # in f32 the single pass's D comes from o too (no pass over the
+            # keys for rowsum(dp * p)); bf16 keeps its TPU kernel's D
+            ctx.save_for_backward(q, k, v, pad_mask, lse,
+                                  *((o,) if q.dtype == torch.float32 else ()))
         ctx.cfg = (seed, rate, scale, folded, kb)
         return o
 
@@ -456,7 +478,7 @@ class _FlashAttentionDropout(torch.autograd.Function):
                                             o[0], rate, scale, kb)
         else:
             dq, dk, dv = _bwd_kernel(q, k, v, pad_mask, seed, lse, do, rate,
-                                     scale)
+                                     scale, o=o[0] if o else None)
         return dq, dk, dv, None, None, None, None
 
 

@@ -321,6 +321,35 @@ def _colsum(a, b=None):
     return s, sp
 
 
+def attention_layout_ok(*tensors) -> bool:
+    """True when every given tensor (None skipped) can be an operand of the
+    f32 attention kernels (``csrc/attention_core.cuh``), which copy and
+    store 16-byte chunks: data on a 16-byte boundary, a unit last stride
+    and every other stride a multiple of 4 elements. The kernels refuse the
+    rest (no scalar fallback)."""
+    return all(t is None or (
+        t.data_ptr() % 16 == 0 and t.stride(-1) == 1
+        and all(st % 4 == 0 for st in t.stride()[:-1])) for t in tensors)
+
+
+def _check_attention_operands(rows: dict, *others) -> None:
+    """The attention kernels read each ``rows`` tensor as (B*N, width) rows
+    at row stride ``width`` (the fused QKV buffer, o and its cotangent) and
+    the others (mask, lse) as contiguous: raise on any other layout or on
+    one that fails :func:`attention_layout_ok`; the kernels' outputs are
+    allocated here in that layout."""
+    for name, (t, width) in rows.items():
+        if t.dim() != 2 or t.shape[1] != width or t.stride() != (width, 1):
+            raise ValueError(f"{name} must be a ({t.shape[0]}, {width}) "
+                             f"row-major buffer, got shape "
+                             f"{tuple(t.shape)} strides {t.stride()}")
+    if not all(t.is_contiguous() for t in others) or not attention_layout_ok(
+            *(t for t, _ in rows.values()), *others):
+        raise ValueError("the f32 attention kernels stage 16-byte chunks: "
+                         "every operand must start on a 16-byte boundary "
+                         "with strides a multiple of 4 elements")
+
+
 def _attention_fwd(qkv, mask8, B, H, N, scale, dr: _Drop, keep: bool):
     """(o, lse, kept only with ``keep``) of the attention over the fused QKV
     buffer."""
@@ -328,6 +357,7 @@ def _attention_fwd(qkv, mask8, B, H, N, scale, dr: _Drop, keep: bool):
     o = torch.empty((B * N, d), dtype=torch.float32, device=qkv.device)
     lse = (torch.empty((B, H, N), dtype=torch.float32, device=qkv.device)
            if keep else None)
+    _check_attention_operands({"qkv": (qkv, 3 * d)}, mask8)
     lib = _cuda.load("block_train")
     err = lib.vs_bt_attention_fwd(
         _cuda.ptr(qkv), _cuda.ptr(mask8), _cuda.ptr(o), _cuda.ptr(lse), B,
@@ -340,6 +370,8 @@ def _attention_bwd(qkv, o, do, lse, mask8, B, H, N, scale, dr: _Drop):
     d = o.shape[1]
     D = torch.empty_like(lse)
     dqkv = torch.empty_like(qkv)
+    _check_attention_operands({"qkv": (qkv, 3 * d), "o": (o, d),
+                               "do": (do, d)}, mask8, lse)
     lib = _cuda.load("block_train")
     err = lib.vs_bt_attention_bwd(
         _cuda.ptr(qkv), _cuda.ptr(o), _cuda.ptr(do), _cuda.ptr(lse),
@@ -372,7 +404,8 @@ def _forward_chain(x, mask, seed: int, w: TrainWeights, num_heads: int,
     B, N, d = x.shape
     H = num_heads
     x32 = x.reshape(B * N, d).float().contiguous()
-    mask8 = mask.to(device=x.device, dtype=torch.uint8).contiguous()
+    mask8 = _cuda.aligned16(
+        mask.to(device=x.device, dtype=torch.uint8).contiguous())
     dr = _Drop(int(seed), N, _threshold(rate), _keep_scale(rate))
     qkv = _gemm(x32, w.wqkv, tb=True, bias=w.bqkv)
     o, lse = _attention_fwd(qkv, mask8, B, H, N, scale, dr, keep)
