@@ -14,13 +14,15 @@ caught and passed over):
    checkout's sources; the compilers' register/shared-memory report goes to
    stderr, and the registers and spill bytes of every instantiation of the
    bf16 serving attention (``masked_attention_mma_kernel``), the serving
-   GEMM (``gemm_bf16_wgmma_kernel``, with its dynamic shared memory) and
-   the training GEMM (``bt_gemm_kernel``) and the f32 training attention
-   (``fma_fwd_kernel``, ``fma_dq_kernel``, ``fma_dkdv_kernel``) to the
-   build line, with the count of ``HGMMA`` instructions in the serving
-   GEMM's SASS and of ``LDGSTS`` (cp.async) in the FMA attention kernels'
-   (``cuobjdump``). A GEMM or FMA attention instantiation that spills, no
-   ``HGMMA`` or no ``LDGSTS`` fails the run.
+   GEMMs (``gemm_bf16_wgmma_kernel``, with its dynamic shared memory, and
+   the f32 ``gemm_f32_kernel``) and the training GEMM (``bt_gemm_kernel``)
+   and the f32 FMA attention (``fma_fwd_kernel``, ``fma_dq_kernel``,
+   ``fma_dkdv_kernel`` in both training libraries, the forward in the
+   serving one) to the build line, with the count of ``HGMMA``
+   instructions in the serving GEMM's SASS and of ``LDGSTS`` (cp.async) in
+   the FMA attention kernels' (``cuobjdump``). A GEMM or FMA attention
+   instantiation that spills, no ``HGMMA`` or no ``LDGSTS`` fails the
+   run.
 3. kernels: each route of the two hand-written kernels against its plain
    PyTorch version on the card, in bf16 and f32 (TF32 off), at the shapes
    the serving path gives it: the fused block at (B, N) = (32, 512) (the
@@ -39,9 +41,13 @@ caught and passed over):
    the larger of the bytes the function must move over the card's memory
    rate and its operations over the card's peak rate for the input type;
    the blocks and flash attention also give their own and the library
-   call's device time (``torch.profiler``).
+   call's device time (``torch.profiler``) and TFLOP/s; the f32 blocks
+   three profiles in a row, each with its kernels by device time (the
+   ``block_profile`` lines).
    gemm: each product of the serving block's chain (kernel 1's GEMMs) at
-   (32, 512) and (8, 256) in bf16, and of the training block's (kernel 9:
+   (32, 512) and (8, 256) in bf16 and f32 (f32 in both tiles in turns, a
+   request's rows alone bit-equal to the same rows in the batch, a skipped
+   k tile failing the bound), and of the training block's (kernel 9:
    the forward's four, the backward's dX and split-K dW products) at
    (32, 512) in f32, alone: the path it took by its counter (a serving
    product on the ``mma.sync`` fallback fails the run), device ms,
@@ -50,9 +56,9 @@ caught and passed over):
    bit-equal), ``torch.matmul`` on the same operands (timed only), the
    two CTA shapes of the bf16 kernel in turns (bit-equal), and the dW
    products at half and twice their split.
-   Then the bf16 serving attention alone at the shapes the serving path
-   gives it, in both CTA shapes (64 and 128 query rows, timed in turns;
-   both must give the same bits): the comparison behind
+   Then the serving attention alone at the shapes the serving path gives
+   it, bf16 and f32, in both CTA shapes (64 and 128 query rows, timed in
+   turns; both must give the same bits): the comparison behind
    ``ops/attention.mma_cta_rows``.
    int8 kernels: TPU kernels 13/14 (``ops/block_kernel_int8.py``: the
    int8 GEMM and quantizer of ``csrc/int8_gemm.cu`` with
@@ -119,12 +125,13 @@ caught and passed over):
    sequence (timed only). Then the same checks of one step past the TPU
    kernels' VMEM envelope, where the CUDA routes take the kernels all the
    same: kernel 15 at Nl 8,192, kernels 16/17 at Nl 4,096.
-   d 512: d_model 512 with 4 heads (head_dim 128) through every family
-   against its plain version at small shapes (the block routes, the int8
-   block routes, the training block routes, the four training attention
-   routes in bf16 and f32, the ring steps), then a 2-layer d 512 model:
-   bf16 scores card against CPU, int8 scores within the lossy budget of
-   the bf16 ones, one fused-block finetune step card against CPU.
+   d 512, d 384, d 768: d_model 512 with 4 heads (head_dim 128), 384 with
+   4 and 768 with 8 (head_dim 96) through every family against its plain
+   version at small shapes (the block routes, the int8 block routes, the
+   training block routes, the four training attention routes in bf16 and
+   f32, the ring steps), then a 2-layer model of that shape: bf16 and f32
+   scores card against CPU, int8 scores within the lossy budget of the
+   bf16 ones, one fused-block finetune step card against CPU.
 6. serve: ``ScoringService`` with seeded flagship weights (d 256, 4 heads,
    4 layers, bf16) takes 13 requests: 320/480/512 frames with auto-KTS,
    1,200 frames, 6,000 frames (past the block envelope: flash) and 16,384
@@ -133,6 +140,10 @@ caught and passed over):
    counter moved during this phase (counters are zeroed just before it),
    and each request's served scores equal its solo ``make_eval_forward``
    scores bit for bit.
+   serve f32: the same 13 requests at ``ModelConfig()``'s default dtype,
+   f32 (the ``cli.serve`` model): the same checks on the f32 chain (the
+   FMA GEMM and attention), no product on a fallback, no attention
+   staged; wall, p50/p95 and launches on the ``serve_f32`` line.
    serve int8: the same 13 requests through ``ScoringService(attn_impl=
    "int8_block", wire_dtype="int8")``: both int8 counters and both flash
    counters must move (384-frame bucket at batch 4: kernel 14; 512 and
@@ -202,20 +213,23 @@ caught and passed over):
    Nl <= 2,304): kernels 16 and 17 launch 16 times per layer per step, the
    flash and block training kernels never; finite losses; step ms, peak
    memory and a ``torch.profiler`` breakdown of one step.
-9. the ``kernels`` line (23 routes, the training attention ones named
+9. the ``kernels`` line (27 routes, the f32 serving ones named
+   ``<route>.f32`` with their launches from the f32 serve pass, the
+   training attention ones named
    ``attention_train.<route>``, the folded ones also in bf16 as
    ``attention_train.<route>.bf16``, the single-pass ones also in f32 as
    ``attention_train.<route>.f32``, the int8 ones ``block_int8``,
    ``block_int8_grouped``, ``probe_mm_bf16`` and ``probe_mm_int8``, the
    ring ones ``ring_block``, ``ring_train_fwd``, ``ring_train_bwd``; the
    GEMM routes with their design and ``ptxas`` report), the card's name
-   and power limit, and last ``{"ok": true, "device": {...}}``. No bf16
-   product of any phase may take the serving GEMM's fallback.
+   and power limit, and last ``{"ok": true, "device": {...}}``. No
+   product of any phase may take a serving GEMM fallback, and no f32
+   attention may stage its operands.
 
     python3 chip_smoke.py --compare PARENT_DIR
 
-runs the kernel phases (kernels, int8 kernels, int8 probe, train kernels,
-train attention kernels) and the train phase of the checkout at
+runs the kernel phases (kernels, gemm, int8 kernels, int8 probe, train
+kernels, train attention kernels) and the train phase of the checkout at
 PARENT_DIR and of this one in turns (parent, change, change, parent), each
 from its own tree and build, and prints their lines after a
 ``compare_turn`` line per turn.
@@ -324,7 +338,8 @@ SERVING_ATTENTION_DESIGN = (
     "double-buffered by 16-byte cp.async, only the 64-key tiles that hold an "
     "unpadded key walked, 128-query CTAs (8 warps) where the grid fills the "
     "card else 64 (ops/attention.mma_cta_rows), exp as ex2.approx, at most "
-    "128 registers a thread at 8 warps; f32: the exact FMA kernel")
+    "128 registers a thread at 8 warps; f32: attention_core.cuh's "
+    "fma_fwd_kernel (SERVING_F32_DESIGN)")
 
 
 # what the kernels line says of the serving block's bf16 GEMM (TPU kernels
@@ -336,7 +351,20 @@ SERVING_GEMM_DESIGN = (
     "warpgroups) or 64 where the grid is small (ops/block_kernel."
     "gemm_cta_rows), LayerNorm rows reduced by quad shuffles; the mma.sync "
     "kernel only for operands TMA cannot take (gemm_bias_epilogue."
-    "fallback_launches); f32: the exact FMA kernel")
+    "fallback_launches); f32: gemm_f32_kernel (SERVING_F32_DESIGN)")
+# what the kernels line says of the f32 serving chain (TPU kernels 1-4 in
+# f32, the default ModelConfig's service)
+SERVING_F32_DESIGN = (
+    "products: gemm_f32_kernel, exact f32 FMAs on fma_gemm.cuh's mainloop "
+    "(bt_gemm's: 8 x 8 a thread read as float4 from k-major shared tiles "
+    "16 deep, 16-byte loads double buffered under the FMAs), 128 x 128 "
+    "CTAs, or 64 x 64 of 4 x 4 a thread where the grid is small "
+    "(ops/block_kernel.gemm_f32_tile), no split-k, LayerNorm rows by the "
+    "row kernel; attention: attention_core.cuh's fma_fwd_kernel (the f32 "
+    "training forward: 8 x 8 a thread, 4 x 8 at head_dim 96 and 128, from "
+    "cp.async-filled row-major tiles, live 64-key tiles only, one online "
+    "pass, any N), no dropout, no lse; a row's bits independent of the "
+    "batch")
 # what the kernels line says of the f32 training attention (TPU kernels 5-8
 # in f32; the training block's attention launches the same kernels)
 FMA_ATTENTION_DESIGN = (
@@ -348,7 +376,8 @@ FMA_ATTENTION_DESIGN = (
     "thread groups a backward CTA, 128-row CTAs where the grid fills the "
     "card else 64")
 TRAIN_GEMM_DESIGN = (
-    "bt_gemm_kernel: exact f32 FMAs, 128 x 128 CTAs, 8 x 8 a thread read "
+    "bt_gemm_kernel on fma_gemm.cuh's mainloop (shared with the f32 serving "
+    "GEMM): exact f32 FMAs, 128 x 128 CTAs, 8 x 8 a thread read "
     "as float4 from k-major shared tiles 16 deep, double buffered by 16-byte "
     "cp.async (row-contiguous operands) or 16-byte register staging "
     "(k-contiguous ones), two CTAs an SM; split-K partials summed in order")
@@ -406,20 +435,29 @@ def device_profile(fn, reps: int, top: int = 8) -> dict:
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-        wall = (time.perf_counter() - t0) * 1e3 / reps
-    kernels = {}
-    for e in prof.events():
-        # kernels only: a range annotation (Optimizer.step) spans others
-        if (e.device_type == torch.autograd.DeviceType.CUDA
-                and not getattr(e, "is_user_annotation", False)):
-            ms, n = kernels.get(e.name, (0.0, 0))
-            kernels[e.name] = (ms + e.time_range.elapsed_us() / 1e3, n + 1)
+    # the profiler now and then lists no kernel, or a part of the launches,
+    # for a window (seen on the card: a chain's device time read at half
+    # its value in one window of several): every call launches the same
+    # kernels, so take the window again until each kernel's launches are a
+    # multiple of the calls
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3 / reps
+        kernels = {}
+        for e in prof.events():
+            # kernels only: a range annotation (Optimizer.step) spans others
+            if (e.device_type == torch.autograd.DeviceType.CUDA
+                    and not getattr(e, "is_user_annotation", False)):
+                ms, n = kernels.get(e.name, (0.0, 0))
+                kernels[e.name] = (ms + e.time_range.elapsed_us() / 1e3,
+                                   n + 1)
+        if kernels and not any(n % reps for _, n in kernels.values()):
+            break
     device = sum(ms for ms, _ in kernels.values()) / reps
     attention = sum(ms for name, (ms, _) in kernels.items()
                     if any(t in name for t in ATTENTION_KERNELS)) / reps
@@ -551,11 +589,13 @@ def sass_count(lib: str, op: str, function: str = "") -> int:
 
 def phase_build() -> tuple:
     """Builds every kernel; returns ptxas's registers and spills of the
-    bf16 serving attention's instantiations, of the two GEMMs' (the wgmma
-    kernel with its dynamic shared memory) and of the f32 training
-    attention's FMA kernels. Fails if a GEMM or FMA attention instantiation
+    bf16 serving attention's instantiations, of the GEMMs' (the wgmma
+    kernel with its dynamic shared memory, the training block's bt_gemm,
+    the f32 serving GEMM) and of the FMA attention kernels (training, and
+    the serving forward). Fails if a GEMM or FMA attention instantiation
     spills, if the serving GEMM's library holds no ``HGMMA``, or if the FMA
-    attention kernels' SASS holds no ``LDGSTS`` (cp.async)."""
+    attention kernels' SASS holds no ``LDGSTS`` (cp.async) in a library
+    that launches them."""
     from vidsum_tpu_torch import native
     from vidsum_tpu_torch.native import build as native_build
     from vidsum_tpu_torch.ops import _cuda
@@ -583,28 +623,46 @@ def phase_build() -> tuple:
         rows, cols = (int(v) for v in m.groups() if v is not None)
         r["dynamic_smem"] = lib.vs_gemm_wgmma_smem(rows, cols)
     bt_gemm = ptxas_report(logs["block_train"], "bt_gemm_kernel")
-    if len(gemm) != 16 or len(bt_gemm) != 4:
-        raise RuntimeError(f"ptxas reported {len(gemm)} wgmma and "
-                           f"{len(bt_gemm)} bt_gemm instantiations")
-    spilled = [r["kernel"] for r in gemm + bt_gemm if any(r.get("spill", []))]
+    # the f32 serving GEMM on csrc/fma_gemm.cuh's mainloop: two tiles x two
+    # load modes x three epilogues
+    f32_gemm = ptxas_report(logs["gemm_bias_epilogue"], "gemm_f32_kernel")
+    if len(gemm) != 16 or len(bt_gemm) != 4 or len(f32_gemm) != 12:
+        raise RuntimeError(f"ptxas reported {len(gemm)} wgmma, "
+                           f"{len(bt_gemm)} bt_gemm and {len(f32_gemm)} "
+                           f"gemm_f32 instantiations")
+    spilled = [r["kernel"] for r in gemm + bt_gemm + f32_gemm
+               if any(r.get("spill", []))]
     if spilled:
         raise RuntimeError(f"GEMM instantiations spill: {spilled}")
     hgmma = sass_count(_cuda.lib_path("gemm_bias_epilogue"), "HGMMA")
     if hgmma == 0:
         raise RuntimeError("no HGMMA in the serving GEMM's SASS")
-    # the f32 FMA attention (csrc/attention_core.cuh): 8 forwards, 8 dQ and
-    # 7 dK/dV instantiations (head_dim x the two CTA depths; dK/dV keeps
-    # the 8-deep one at 128), the same in both libraries that launch it
+    # the f32 FMA attention (csrc/attention_core.cuh): per head_dim two
+    # forwards, two dQ and two dK/dV (the CTA depths; dK/dV keeps the
+    # 8-deep one at 128), the same in both training libraries; the serving
+    # library launches its forwards only (the header's dispatchers compile
+    # the rest there too)
+    n_dh = len(_cuda.HEAD_DIMS)
     fma = ptxas_report(logs["attention_train"], "fma_")
     fma_bt = ptxas_report(logs["block_train"], "fma_")
-    if len(fma) != 23 or len(fma_bt) != 23:
-        raise RuntimeError(f"ptxas reported {len(fma)} and {len(fma_bt)} "
-                           f"FMA attention instantiations, expected 23")
-    spilled = [r["kernel"] for r in fma + fma_bt if any(r.get("spill", []))]
+    fma_serve = ptxas_report(logs["masked_attention"], "fma_fwd_kernel")
+    # (and there its own, at any N: 64-row CTAs of 4 rows a thread, and
+    # 128-row ones of 8 at head_dim <= 64)
+    n_serve = 3 * n_dh + sum(dh <= 64 for dh in _cuda.HEAD_DIMS)
+    if (len(fma), len(fma_bt), len(fma_serve)) != (6 * n_dh - 1,
+                                                   6 * n_dh - 1, n_serve):
+        raise RuntimeError(f"ptxas reported {len(fma)}, {len(fma_bt)} and "
+                           f"{len(fma_serve)} FMA attention instantiations, "
+                           f"expected {6 * n_dh - 1}, {6 * n_dh - 1} and "
+                           f"{n_serve}")
+    spilled = [r["kernel"] for r in fma + fma_bt + fma_serve
+               if any(r.get("spill", []))]
     if spilled:
         raise RuntimeError(f"FMA attention instantiations spill: {spilled}")
-    ldgsts = {n: sass_count(_cuda.lib_path(n), "LDGSTS", "fma_")
-              for n in ("attention_train", "block_train")}
+    ldgsts = {n: sass_count(_cuda.lib_path(n), "LDGSTS", f)
+              for n, f in (("attention_train", "fma_"),
+                           ("block_train", "fma_"),
+                           ("masked_attention", "fma_fwd"))}
     if not all(ldgsts.values()):
         raise RuntimeError(f"no LDGSTS (cp.async) in the FMA attention "
                            f"kernels' SASS: {ldgsts}")
@@ -613,9 +671,11 @@ def phase_build() -> tuple:
          libraries=sorted(os.path.basename(_cuda.lib_path(n))
                           for n in _cuda.KERNELS),
          masked_attention_mma_ptxas=regs, gemm_wgmma_ptxas=gemm,
-         bt_gemm_ptxas=bt_gemm, gemm_sass_hgmma=hgmma,
-         fma_attention_ptxas=fma, fma_attention_sass_ldgsts=ldgsts)
-    return regs, gemm, bt_gemm, fma
+         bt_gemm_ptxas=bt_gemm, gemm_f32_ptxas=f32_gemm,
+         gemm_sass_hgmma=hgmma, fma_attention_ptxas=fma,
+         serving_fma_attention_ptxas=fma_serve,
+         fma_attention_sass_ldgsts=ldgsts)
+    return regs, gemm, bt_gemm, fma, f32_gemm, fma_serve
 
 
 def library_block(block, d: int, H: int, dtype, dropout: float = 0.0):
@@ -651,7 +711,8 @@ def library_block(block, d: int, H: int, dtype, dropout: float = 0.0):
 
 def phase_kernels(dev: dict, seed: int) -> dict:
     """Every route against its plain version in bf16 and f32; returns the
-    bf16 numbers per route for the kernels line."""
+    numbers per route for the kernels line (bf16 under the route's name,
+    f32 under ``<route>.f32``)."""
     import numpy as np
     import torch
     import torch.nn.functional as F
@@ -706,13 +767,22 @@ def phase_kernels(dev: dict, seed: int) -> dict:
                 lib_ms = cuda_ms(lambda: layer(x, src_key_padding_mask=mask),
                                  reps=20)
                 # the chain's own device time (torch.profiler), without the
-                # host time of its five launches that CUDA events take in
+                # host time of its five launches that CUDA events take in;
+                # in f32 three profiles in a row, each with its kernels by
+                # device time (the spread of one run, and where it goes)
+                runs = [device_profile(lambda: bk.fused_encoder_block(
+                    block, x, mask, H, cfg.attn_scale), reps=10, top=12)
+                    for _ in range(3 if dtype == torch.float32 else 1)]
                 device = {
-                    "kernel": device_profile(lambda: bk.fused_encoder_block(
-                        block, x, mask, H, cfg.attn_scale),
-                        reps=10)["device_ms"],
+                    "kernel": statistics.median(r["device_ms"]
+                                                for r in runs),
                     "library": device_profile(lambda: layer(
                         x, src_key_padding_mask=mask), reps=10)["device_ms"]}
+                if len(runs) > 1:
+                    emit("block_profile", route=route, B=B, N=N, dtype=dn,
+                         device_ms=[r["device_ms"] for r in runs],
+                         wall_ms=[r["wall_ms"] for r in runs],
+                         kernels=[r["top"] for r in runs])
             itm = x.element_size()
             flops = B * N * 24 * d * d + 4 * N * valid * d
             nbytes = (2 * B * N * d * itm + 12 * d * d * itm
@@ -720,12 +790,13 @@ def phase_kernels(dev: dict, seed: int) -> dict:
             b_ms, b_by = bound(flops, nbytes, dn)
             emit("kernel", route=route, B=B, N=N, dtype=dn, max_abs_err=err,
                  rel_rms_err=rel, tolerance=tol, ms=ms, device_ms=device,
+                 tflops=flops / device["kernel"] / 1e9,
                  plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms,
                  bound_by=b_by, flops=flops, bytes=nbytes)
-            if dtype == torch.bfloat16:
-                out[route] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                                  bound_ms=b_ms, bound_by=b_by,
-                                  library_ms=lib_ms, device_ms=device)
+            key = route if dtype == torch.bfloat16 else route + ".f32"
+            out[key] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                            bound_ms=b_ms, bound_by=b_by,
+                            library_ms=lib_ms, device_ms=device)
 
     # kernel 3 at N 6,016 (its row in the kernels line) and at 1,280 (the
     # bucket of the serve phase's 1,200-frame request, whose fused blocks
@@ -803,29 +874,29 @@ def phase_kernels(dev: dict, seed: int) -> dict:
             emit("kernel", route=route, B=B, N=N, dtype=dn, max_abs_err=err,
                  rel_rms_err=rel, rel_rms_err_other_order=rel_other,
                  tolerance=tol, dropped_tile_err=[fault_err, fault_rel],
-                 ms=ms, device_ms=device, plain_ms=plain_ms,
+                 ms=ms, device_ms=device,
+                 tflops=flops / device["kernel"] / 1e9, plain_ms=plain_ms,
                  library_ms=lib_ms, bound_ms=b_ms,
                  bound_by=b_by, flops=flops, bytes=nbytes)
-            if dtype == torch.bfloat16:
-                point = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                             bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms,
-                             device_ms=device)
-                if route in out:  # kernel 3's second point
-                    out[route]["at_n1280"] = point
-                else:
-                    out[route] = point
+            point = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                         bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms,
+                         device_ms=device)
+            key = route if dtype == torch.bfloat16 else route + ".f32"
+            if key in out:  # kernel 3's second point
+                out[key]["at_n1280"] = point
+            else:
+                out[key] = point
     attention_cta_variants(rng)
     return out
 
 
 def attention_cta_variants(rng) -> None:
-    """The bf16 serving attention alone at the shapes the serving path
-    gives it (the blocks' (32, 512) and (8, 256), kernel 3 at N 1,280 and
-    6,016, kernel 4 at 16,384; H 4, head_dim 64, ragged masks), in both CTA
-    shapes, each shape's device time (torch.profiler, 10 calls) taken in
-    turns (64, 128, 128, 64 query rows): the comparison
-    behind ``ops/attention.mma_cta_rows``. Both shapes must give the same
-    bits."""
+    """The serving attention alone at the shapes the serving path gives it
+    (the blocks' (32, 512) and (8, 256), kernel 3 at N 1,280 and 6,016,
+    kernel 4 at 16,384; H 4, head_dim 64, ragged masks), bf16 and f32, in
+    both CTA shapes, each shape's device time (torch.profiler, 10 calls)
+    taken in turns (64, 128, 128, 64 query rows): the comparison behind
+    ``ops/attention.mma_cta_rows``. Both shapes must give the same bits."""
     import numpy as np
     import torch
 
@@ -835,33 +906,37 @@ def attention_cta_variants(rng) -> None:
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     H, Dh = 4, 64
     rows = []
-    for B, N, norm_first in ((32, 512, True), (8, 256, True),
-                             (1, 1280, True), (1, 6016, True),
-                             (1, 16384, False)):
-        mask = pad_mask(B, N, rng, cuda)
-        q, k, v = (torch.from_numpy(rng.normal(size=(B, H, N, Dh)).astype(
-            np.float32)).to(cuda, torch.bfloat16) for _ in range(3))
+    for dtype in (torch.bfloat16, torch.float32):
+        for B, N, norm_first in ((32, 512, True), (8, 256, True),
+                                 (1, 1280, True), (1, 6016, True),
+                                 (1, 16384, False)):
+            mask = pad_mask(B, N, rng, cuda)
+            q, k, v = (torch.from_numpy(rng.normal(
+                size=(B, H, N, Dh)).astype(np.float32)).to(cuda, dtype)
+                for _ in range(3))
 
-        def run(r):
-            pick = at.mma_cta_rows
-            at.mma_cta_rows = lambda *a: r  # the shape under test
-            try:
-                return at.masked_attention(q, k, v, mask, 0.125,
-                                           norm_first=norm_first)
-            finally:
-                at.mma_cta_rows = pick
+            def run(r):
+                pick = at.mma_cta_rows
+                at.mma_cta_rows = lambda *a: r  # the shape under test
+                try:
+                    return at.masked_attention(q, k, v, mask, 0.125,
+                                               norm_first=norm_first)
+                finally:
+                    at.mma_cta_rows = pick
 
-        with torch.inference_mode():
-            if not torch.equal(run(64), run(128)):
-                raise AssertionError(f"({B}, {N}): the two CTA shapes give "
-                                     f"different bits")
-            times = {64: [], 128: []}
-            for r in (64, 128, 128, 64):
-                times[r].append(device_profile(lambda: run(r),
-                                               reps=10)["device_ms"])
-        rows.append({"B": B, "N": N, "norm_first": norm_first,
-                     "picked": at.mma_cta_rows(B, H, N, Dh, sms),
-                     "device_ms_64": times[64], "device_ms_128": times[128]})
+            with torch.inference_mode():
+                if not torch.equal(run(64), run(128)):
+                    raise AssertionError(f"({B}, {N}) {dtype}: the two CTA "
+                                         f"shapes give different bits")
+                times = {64: [], 128: []}
+                for r in (64, 128, 128, 64):
+                    times[r].append(device_profile(lambda: run(r),
+                                                   reps=10)["device_ms"])
+            rows.append({"dtype": str(dtype).split(".")[1], "B": B, "N": N,
+                         "norm_first": norm_first,
+                         "picked": at.mma_cta_rows(B, H, N, Dh, sms),
+                         "device_ms_64": times[64],
+                         "device_ms_128": times[128]})
     emit("attention_cta_variants", sms=sms, shapes=rows)
 
 
@@ -879,17 +954,21 @@ def gemm_f64_bound(a, b, K: int, extra=None, scale: float = 1.0):
 
 
 def phase_gemm(dev: dict, seed: int) -> None:
-    """Each product of kernel 1's chain at (32, 512) and (8, 256) in bf16,
-    and of kernel 9's (forward, dX and split-K dW) at (32, 512) in f32, on
-    its own: the path it took (by the wrapper's counters: every serving
-    product must take the wgmma kernel, never the fallback), its device
-    time (torch.profiler, 10 calls), TFLOP/s and bound, its error against
-    the plain version (bf16: ``gemm_bias_epilogue_reference`` at the card
-    tests' GEMM bounds; f32: torch.matmul in f64 at the summation-order
-    bound, two runs bit-equal), and torch.matmul on the same operands
-    (timed only, never called by the port). bf16: both CTA shapes in turns
-    (64, 128, 128, 64 rows), bit-equal; f32 dW: the split rule's split
-    against half and twice it."""
+    """Each product of kernel 1's chain at (32, 512) and (8, 256) in bf16
+    and in f32, and of kernel 9's (forward, dX and split-K dW) at (32, 512)
+    in f32, on its own: the path it took (by the wrapper's counters: every
+    serving product must take the wgmma kernel or, in f32, the FMA kernel's
+    16-byte loads, never a fallback), its device time (torch.profiler, 10
+    calls), TFLOP/s and bound, its error against the plain version (kernel
+    1: ``gemm_bias_epilogue_reference`` at the card tests' GEMM bounds;
+    kernel 9: torch.matmul in f64 at the summation-order bound), two runs
+    bit-equal, and torch.matmul on the same operands (timed only, never
+    called by the port). bf16: both CTA shapes in turns (64, 128, 128, 64
+    rows), bit-equal; f32 kernel 1: both tiles in turns (64, 128, 128, 64),
+    bit-equal, a request's 256 rows alone bit-equal to the same rows in the
+    batch, and the product with one k tile of x zeroed (a planted fault)
+    failing the bound; kernel 9 dW: the split rule's split against half and
+    twice it."""
     import numpy as np
     import torch
 
@@ -989,6 +1068,87 @@ def phase_gemm(dev: dict, seed: int) -> None:
                  tolerance=TOL[("gemm", "bfloat16")],
                  cta_variants_device_ms={str(r): v
                                          for r, v in variants.items()},
+                 library_ms=lib, library_clock=lib_clock,
+                 library_tflops=flops / lib / 1e9)
+
+    # kernel 1 in f32: the same four products on the FMA kernel (fma_gemm.
+    # cuh's mainloop), in both tile shapes in turns (64, 128, 128, 64: the
+    # comparison behind ops/block_kernel.gemm_f32_tile), bit-equal
+    w = bk.block_weights(block, torch.float32)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for B, N in ((32, 512), (8, 256)):
+        M = B * N
+        x, h1 = rand(M, d), rand(M, d)
+        products = (
+            ("qkv", x, w.wqkv, w.bqkv, "none", {}),
+            ("proj_ln1", rand(M, d), w.wp, w.bp, "residual_ln",
+             dict(residual=x, ln_g=w.ln1_g, ln_b=w.ln1_b, want_f32=True)),
+            ("fc1", h1, w.w1, w.b1, "relu", {}),
+            ("fc2_ln2", rand(M, 4 * d).relu(), w.w2, w.b2, "residual_ln",
+             dict(residual=h1, ln_g=w.ln2_g, ln_b=w.ln2_b)))
+        for name, a, wt, b, epi, kw in products:
+            Nn, K = wt.shape
+            fn = bk.gemm_bias_epilogue
+            before = (fn.launches, fn.fallback_launches)
+            got = fn(a, wt, b, epi, **kw)[0]
+            again = fn(a, wt, b, epi, **kw)[0]
+            torch.cuda.synchronize()
+            if (fn.launches, fn.fallback_launches) != (before[0] + 2,
+                                                       before[1]):
+                raise AssertionError(f"f32 ({B}, {N}) {name} took the "
+                                     f"scalar-load fallback")
+            if not torch.equal(got, again):
+                raise AssertionError(f"f32 ({B}, {N}) {name}: two runs "
+                                     f"differ")
+            want = bk.gemm_bias_epilogue_reference(a, wt, b, epi, **kw)[0]
+            err, rel = check_close(got, want, TOL[("gemm", "float32")],
+                                   f" (f32 {name})")
+            # the bound sees a planted fault: the product with one 16-deep
+            # k tile of x zeroed (a skipped k tile) must fail it
+            skipped = a.clone()
+            skipped[:, 16:32] = 0.0
+            bad = fn(skipped, wt, b, epi, **kw)[0]
+            fault = errors(bad, want)
+            if within(bad, want, TOL[("gemm", "float32")]):
+                raise AssertionError(f"f32 ({B}, {N}) {name}: a skipped k "
+                                     f"tile passes the bound ({fault})")
+            # a request's 256 rows alone (another tile, at a small grid)
+            # equal the same rows in the batch
+            sub = {k: (v[:256] if k == "residual" else v)
+                   for k, v in kw.items()}
+            if not torch.equal(fn(a[:256], wt, b, epi, **sub)[0],
+                               got[:256]):
+                raise AssertionError(f"f32 ({B}, {N}) {name}: rows differ "
+                                     f"alone and in the batch")
+            call = lambda: fn(a, wt, b, epi, **kw)  # noqa: E731
+            ms = device_ms(call)
+            pick = bk.gemm_f32_tile
+            variants, bits = {64: [], 128: []}, {}
+            try:
+                for t in (64, 128, 128, 64):
+                    bk.gemm_f32_tile = lambda *_, t=t: t  # the tile tested
+                    variants[t].append(device_ms(call))
+                    bits[t] = call()[0]
+            finally:
+                bk.gemm_f32_tile = pick
+            if not torch.equal(bits[64], bits[128]):
+                raise AssertionError(f"f32 ({B}, {N}) {name}: the two tiles "
+                                     f"give different bits")
+            lib, lib_clock = library(lambda: torch.matmul(a, wt.t()))
+            flops = 2 * M * Nn * K
+            nbytes = ((M * K + Nn * K + M * Nn) * 4 + Nn * 4
+                      + (M * Nn * 4 + 8 * Nn if epi == "residual_ln" else 0))
+            b_ms, b_by = bound(flops, nbytes, "float32")
+            emit("gemm", kernel=1, B=B, N=N, product=name, dtype="float32",
+                 M=M, N_out=Nn, K=K, epilogue=epi, path="fma_vec4",
+                 tile=bk.gemm_f32_tile(M, Nn, sms), device_ms=ms,
+                 tflops=flops / ms / 1e9, bound_ms=b_ms, bound_by=b_by,
+                 max_abs_err=err, rel_rms_err=rel,
+                 tolerance=TOL[("gemm", "float32")],
+                 skipped_k_tile_err=list(fault), bit_equal_repeat=True,
+                 rows_alone_equal=True,
+                 tile_variants_device_ms={str(t): v
+                                          for t, v in variants.items()},
                  library_ms=lib, library_clock=lib_clock,
                  library_tflops=flops / lib / 1e9)
 
@@ -1730,22 +1890,28 @@ def phase_train_attention(dev: dict, seed: int, fma_ptxas=()) -> dict:
 # d_model 512 with 4 heads (head_dim 128): the JAX package's wide scorer
 # (tests/test_block_kernel.py:101, ckpts/soak_d512v200)
 D512 = dict(d_model=512, num_heads=4)
-# a d 512 model's bf16 scores on the card against the CPU's plain bf16 path
+# head_dim 96: ModelConfig(d_model=384, num_heads=4) and d_model 768 with 8
+# heads, the widest row the row kernels take
+D384 = dict(d_model=384, num_heads=4)
+D768 = dict(d_model=768, num_heads=8)
+# a wide model's bf16 scores on the card against the CPU's plain bf16 path
 # (sigmoid scores, two layers): the int8 block's limits, a wiring check; each
 # kernel family's precision is held by its own bound above
-D512_SCORES = dict(median=5e-3, max=5e-2)
+WIDE_SCORES = dict(median=5e-3, max=5e-2)
 
 
-def phase_d512(seed: int) -> dict:
-    """d_model 512 with 4 heads (head_dim 128) through every kernel family
-    against its plain version at small shapes: the serving block (1-2; its
-    LayerNorm rows past the GEMM's 256-column tile), the int8 block
-    (13-14), the training block (9-12, forward, dx and grads), the training
-    attention (5-8, bf16 and f32) and the ring steps (15-17). Then a
-    2-layer d 512 model scores in bf16 (card against the CPU's plain path),
-    int8-scores (within the lossy budget of its bf16 scores) and takes one
-    fused-block finetune step (card against CPU, the step bound). The
-    launches here are checks, not the main path's."""
+def phase_wide(seed: int, shape: dict) -> dict:
+    """A model shape past the flagship's (``shape``: d_model 512 with 4
+    heads, head_dim 128; d_model 384 with 4 heads and 768 with 8, head_dim
+    96) through every kernel family against its plain version at small
+    shapes: the serving block (1-2; its LayerNorm rows past the GEMM's
+    256-column tile), the int8 block (13-14), the training block (9-12,
+    forward, dx and grads), the training attention (5-8, bf16 and f32) and
+    the ring steps (15-17). Then a 2-layer model of that shape scores in
+    bf16 and in f32 (card against the CPU's plain path), int8-scores
+    (within the lossy budget of its bf16 scores) and takes one fused-block
+    finetune step (card against CPU, the step bound). The launches here are
+    checks, not the main path's."""
     import copy
 
     import numpy as np
@@ -1761,7 +1927,7 @@ def phase_d512(seed: int) -> dict:
     from vidsum_tpu_torch.train.steps import make_finetune_step, make_optimizer
 
     cuda = torch.device("cuda")
-    cfg = ModelConfig(num_layers=1, **D512)
+    cfg = ModelConfig(num_layers=1, **shape)
     d, H, Dh, scale, rate = cfg.d_model, cfg.num_heads, cfg.head_dim, \
         cfg.attn_scale, 0.3
     block = SimNet(cfg, device=cuda,
@@ -1780,7 +1946,7 @@ def phase_d512(seed: int) -> dict:
         out = fn()
         torch.cuda.synchronize()
         if counter.launches != before + 1:
-            raise AssertionError(f"d 512: {what} did not launch")
+            raise AssertionError(f"d {d}: {what} did not launch")
         return out
 
     for dtype in (torch.bfloat16, torch.float32):
@@ -1795,20 +1961,20 @@ def phase_d512(seed: int) -> dict:
                 got = launched(lambda: fn(w, x, mask, H, scale), fn, route)
                 want = bk.encoder_block_reference(w, x, mask, H, scale)
             rep[f"{route}.{dn}"] = check_close(got, want, TOL[("block", dn)],
-                                               f" (d 512 {route})")
-        # 13-14
+                                               f" (d {d} {route})")
+        # 13-14, each entry point (d 768 is past the copied TPU envelope)
         qb = quantize_block(block)
         for B, N, route in ((1, 512, "_fused_block_int8"),
                             (2, 256, "_fused_block_int8_grouped")):
             x, mask = randn(B, N, d, dtype=dtype), pad_mask(B, N, rng, cuda)
             with torch.inference_mode():
-                got = launched(lambda: bk8.fused_encoder_block_int8(
-                    qb, x, mask, H, scale, qk_int8=False),
-                    getattr(bk8, route), route)
+                fn = getattr(bk8, route)
+                got = launched(lambda: fn(qb, x, mask, H, scale, False), fn,
+                               route)
                 want = bk8.int8_block_reference(qb, x, mask, H, scale, False)
             st = diff_stats(got, want)
             if not int8_within(st):
-                raise AssertionError(f"d 512 {route} {dn}: {st} past "
+                raise AssertionError(f"d {d} {route} {dn}: {st} past "
                                      f"{INT8_BOUND}")
             rep[f"{route}.{dn}"] = st
         # 5-8 at head_dim 128, valid lengths 2,000 and 1,100 of 2,048
@@ -1844,12 +2010,12 @@ def phase_d512(seed: int) -> dict:
             name = f"{attn_train_name(fwd.__name__)}.{dn}"
             rep[name] = {
                 "o": check_close(o, wo, TOL[("attn_train_o", dn)],
-                                 f" (d 512 {name} o)"),
+                                 f" (d {d} {name} o)"),
                 "lse": check_close(lse, wl, TOL[("attn_train_lse", dn)],
-                                   f" (d 512 {name} lse)"),
+                                   f" (d {d} {name} lse)"),
                 **{f"d{n}": check_close(
                     a, b, scaled(TOL[("attn_train_grad", dn)], b),
-                    f" (d 512 {name} d{n})")
+                    f" (d {d} {name} d{n})")
                    for n, a, b in zip("qkv", grads, want)}}
         del q, k, v, do
 
@@ -1860,7 +2026,7 @@ def phase_d512(seed: int) -> dict:
         fwd = bt._fwd_kernel_grouped if grouped else bt._fwd_kernel
         bwd = bt._bwd_kernel_grouped if grouped else bt._bwd_kernel
         if (bt._pick_train_group(B, N) > 1) != grouped:
-            raise AssertionError(f"d 512 ({B}, {N}) does not route as "
+            raise AssertionError(f"d {d} ({B}, {N}) does not route as "
                                  f"expected")
         x, do, mask = randn(B, N, d), randn(B, N, d), pad_mask(B, N, rng,
                                                                 cuda)
@@ -1881,11 +2047,11 @@ def phase_d512(seed: int) -> dict:
         gtol = TOL[("train_grad", "float32")]
         rep[f"{fwd.__name__}.block_train"] = {
             "fwd": check_close(got, want, TOL[("train_fwd", "float32")],
-                               " (d 512 block train)"),
+                               f" (d {d} block train)"),
             "dx": check_close(dx, wdx, scaled(gtol, wdx),
-                              " (d 512 block train dx)"),
+                              f" (d {d} block train dx)"),
             "worst_grad_rel_rms": max(
-                check_close(a, b, scaled(gtol, b), f" (d 512 d{n})")[1]
+                check_close(a, b, scaled(gtol, b), f" (d {d} d{n})")[1]
                 for n, a, b in zip(bt.TrainWeights._fields, grads,
                                    wgrads))}
 
@@ -1904,13 +2070,13 @@ def phase_d512(seed: int) -> dict:
                        ra._ring_block_step, "ring block step")
         want = ra.ring_block_step_reference(q32, kd, vd, mask, *carry)
         rep[f"ring_block.{str(kv_dtype).split('.')[1]}"] = check_carries(
-            got, want, "d 512 ring block step")
+            got, want, f"d {d} ring block step")
     info = (dseed, 2, 1024, 2048)
     got = launched(lambda: ra._ring_train_step(q32, k, v, mask, info,
                                                *carry, rate),
                    ra._ring_train_step, "ring train step")
     want = ra.ring_train_step_reference(q32, k, v, mask, info, *carry, rate)
-    rep["ring_train_fwd"] = check_carries(got, want, "d 512 ring train step")
+    rep["ring_train_fwd"] = check_carries(got, want, f"d {d} ring train step")
     o, m, l = want
     dr = (g * o / l).sum(-1, keepdim=True)
     acc = tuple(torch.zeros_like(t) for t in (q32, k, v))
@@ -1920,12 +2086,12 @@ def phase_d512(seed: int) -> dict:
     ref = ra.ring_train_step_bwd_reference(*args)
     rep["ring_train_bwd"] = {
         f"d{n}": check_close(a, b, scaled(TOL[RING_GRAD], b),
-                             f" (d 512 ring d{n})")
+                             f" (d {d} ring d{n})")
         for n, a, b in zip("qkv", grads, ref)}
     del q32, k, v, g
 
-    # a 2-layer d 512 model: bf16 and int8 scores, one finetune step
-    mcfg = ModelConfig(num_layers=2, compute_dtype="bfloat16", **D512)
+    # a 2-layer model: bf16 and int8 scores, f32 scores, one finetune step
+    mcfg = ModelConfig(num_layers=2, compute_dtype="bfloat16", **shape)
     model = SimNet(mcfg, generator=torch.Generator().manual_seed(seed + 21))
     x = torch.from_numpy(rng.normal(size=(2, 512, mcfg.in_features)).astype(
         np.float32))
@@ -1940,13 +2106,21 @@ def phase_d512(seed: int) -> dict:
     vs_cpu = diff_stats(p16[live], torch.sigmoid(cpu.float()[..., 0])
                         .to(cuda)[live])
     vs_bf16 = diff_stats(p8[live], p16[live])
-    if not (vs_cpu["median"] <= D512_SCORES["median"]
-            and vs_cpu["max"] <= D512_SCORES["max"]):
-        raise AssertionError(f"d 512 bf16 scores, card against CPU: {vs_cpu}")
+    if not (vs_cpu["median"] <= WIDE_SCORES["median"]
+            and vs_cpu["max"] <= WIDE_SCORES["max"]):
+        raise AssertionError(f"d {d} bf16 scores, card against CPU: {vs_cpu}")
     if not (vs_bf16["median"] < INT8_VS_BF16["median"]
             and vs_bf16["max"] < INT8_VS_BF16["max"]):
-        raise AssertionError(f"d 512 int8 scores against bf16: {vs_bf16}")
-    tcfg = ModelConfig(num_layers=2, **D512)
+        raise AssertionError(f"d {d} int8 scores against bf16: {vs_bf16}")
+    # f32 scores (the default dtype's service), card against CPU
+    fcfg = ModelConfig(num_layers=2, **shape)
+    model = SimNet(fcfg, generator=torch.Generator().manual_seed(seed + 23))
+    with torch.inference_mode():
+        card, _ = model.to(cuda)(x.to(cuda), mask.to(cuda))
+        cpu, _ = copy.deepcopy(model).to("cpu")(x, mask)
+    vs_cpu32 = check_close(card.cpu(), cpu, TOL[("block", "float32")],
+                           f" (d {d} f32 scores, card against CPU)")
+    tcfg = ModelConfig(num_layers=2, **shape)
     model = SimNet(tcfg, generator=torch.Generator().manual_seed(seed + 22))
     t = torch.from_numpy(rng.random((2, 512)).astype(np.float32))
     seeds = [int(s) for s in rng.integers(0, 2**31 - 1, tcfg.num_layers)]
@@ -1958,10 +2132,10 @@ def phase_d512(seed: int) -> dict:
             block_seeds=seeds)
         results.append((float(loss), {k: p.grad.detach().float().cpu()
                                       for k, p in m.named_parameters()}))
-    step = compare_steps(results, "d 512 fused_block step")
-    emit("d512", d_model=d, num_heads=H, head_dim=Dh, kernels=rep,
+    step = compare_steps(results, f"d {d} fused_block step")
+    emit(f"d{d}", d_model=d, num_heads=H, head_dim=Dh, kernels=rep,
          scores_bf16_card_vs_cpu=vs_cpu, scores_int8_vs_bf16=vs_bf16,
-         step_card_vs_cpu=step)
+         scores_f32_card_vs_cpu=vs_cpu32, step_card_vs_cpu=step)
     return rep
 
 
@@ -3102,14 +3276,18 @@ def _counted():
 
 
 def check_no_gemm_fallback(what: str) -> None:
-    """Fails if any bf16 product so far took the serving GEMM's mma.sync
-    fallback: every path's shapes must take the wgmma kernel."""
+    """Fails if any product so far took a serving GEMM fallback (bf16: the
+    mma.sync kernel; f32: the FMA kernel's scalar loads) or any f32
+    attention staged its operands: every path's shapes must take the wgmma
+    kernel, the 16-byte loads and the FMA attention's 16-byte copies."""
+    from vidsum_tpu_torch.ops import attention as at
     from vidsum_tpu_torch.ops import block_kernel as bk
 
     n = bk.gemm_bias_epilogue.fallback_launches
-    if n:
-        raise AssertionError(f"{what}: {n} bf16 products took the GEMM "
-                             f"fallback")
+    na = at.masked_attention.fallback_launches
+    if n or na:
+        raise AssertionError(f"{what}: {n} products took the GEMM fallback, "
+                             f"{na} attention calls staged their operands")
 
 
 def reset_counters() -> None:
@@ -3121,7 +3299,10 @@ def read_counters() -> dict:
     return {name: fn.launches for name, fn in _counted()}
 
 
-def phase_serve(seed: int) -> dict:
+def phase_serve(seed: int, compute_dtype: str = "bfloat16") -> dict:
+    """The 13 requests through ``ScoringService`` in ``compute_dtype``: bf16
+    (the ``serve`` line) or float32, ``ModelConfig()``'s default and so the
+    ``cli.serve`` model (the ``serve_f32`` line)."""
     import numpy as np
 
     from vidsum_tpu_torch.ops import knapsack as kn
@@ -3129,7 +3310,7 @@ def phase_serve(seed: int) -> dict:
     from vidsum_tpu_torch.serve import ScoringService
     from vidsum_tpu_torch.train.steps import make_eval_forward
 
-    cfg, model = serve_model(seed)
+    cfg, model = serve_model(seed, compute_dtype)
     rng = np.random.default_rng(seed + 1)
     lengths = SERVE_LENGTHS
     videos = [rng.random((n, cfg.in_features), dtype=np.float32)
@@ -3145,13 +3326,11 @@ def phase_serve(seed: int) -> dict:
         wall = time.monotonic() - t0
         counts = read_counters()
         st = svc.stats()
-    routes = ("_fused_block", "_fused_block_grouped", "_flash_attention",
-              "_flash_attention_folded")
-    missing = [r for r in routes if counts[r] == 0]
+    missing = [r for r in SERVE_ROUTES if counts[r] == 0]
     if missing:
         raise AssertionError(f"routes never launched while serving: "
                              f"{missing} (counters {counts})")
-    check_no_gemm_fallback("serving")
+    check_no_gemm_fallback(f"serving in {compute_dtype}")
     if st.completed != len(videos) or st.failed:
         raise AssertionError(f"serving stats: {st}")
 
@@ -3178,7 +3357,9 @@ def phase_serve(seed: int) -> dict:
     if not np.array_equal(native_pick, numpy_pick):
         raise AssertionError("native and NumPy knapsack disagree")
 
-    emit("serve", requests=len(videos), lengths=lengths, wall_s=wall,
+    emit("serve" if compute_dtype == "bfloat16" else "serve_f32",
+         compute_dtype=compute_dtype, requests=len(videos), lengths=lengths,
+         wall_s=wall,
          latency_s=[round(r.latency_s, 6) for r in results],
          latency_p50_s=st.latency_p50_s, latency_p95_s=st.latency_p95_s,
          batches=st.batches, batch_hist=st.batch_hist,
@@ -3188,17 +3369,19 @@ def phase_serve(seed: int) -> dict:
 
 
 INT8_ROUTES = ("_fused_block_int8", "_fused_block_int8_grouped")
+SERVE_ROUTES = ("_fused_block", "_fused_block_grouped", "_flash_attention",
+                "_flash_attention_folded")
 SERVE_LENGTHS = [320, 320, 320, 320, 480, 480, 480, 512, 512, 512, 1200,
                  6000, 16384]
 
 
-def serve_model(seed: int):
+def serve_model(seed: int, compute_dtype: str = "bfloat16"):
     import torch
 
     from vidsum_tpu_torch.config import ModelConfig
     from vidsum_tpu_torch.models.simnet import SimNet
 
-    cfg = ModelConfig(compute_dtype="bfloat16")
+    cfg = ModelConfig(compute_dtype=compute_dtype)
     return cfg, SimNet(cfg, generator=torch.Generator().manual_seed(seed))
 
 
@@ -3394,6 +3577,7 @@ dev = cs.phase_device()
 _cuda.build()
 native_build.build(verbose=False)
 cs.phase_kernels(dev, {seed})
+cs.phase_gemm(dev, {seed})
 cs.phase_int8_kernels(dev, {seed})
 cs.phase_int8_probe(dev)
 cs.phase_train_kernels(dev, {seed})
@@ -3403,8 +3587,9 @@ cs.phase_train({seed})
 
 
 def compare_trees(parent: str, seed: int) -> int:
-    """The kernel phases (kernels, int8 kernels, int8 probe, train kernels,
-    train attention kernels) and the train phase of the checkout at ``parent`` and of this one, each
+    """The kernel phases (kernels, gemm, int8 kernels, int8 probe, train
+    kernels, train attention kernels) and the train phase of the checkout
+    at ``parent`` and of this one, each
     in its own process from its own tree (its own build), in turns: parent,
     change, change, parent. Each turn's lines follow a ``compare_turn``
     line naming its tree."""
@@ -3446,7 +3631,8 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
 
     dev = phase_device()
-    mma_regs, gemm_regs, bt_regs, fma_regs = phase_build()
+    (mma_regs, gemm_regs, bt_regs, fma_regs, f32_gemm_regs,
+     fma_serve_regs) = phase_build()
     timings = phase_kernels(dev, args.seed)
     phase_gemm(dev, args.seed)
     timings.update(phase_int8_kernels(dev, args.seed))
@@ -3455,8 +3641,11 @@ def main() -> int:
     timings.update(phase_train_kernels(dev, args.seed))
     timings.update(phase_train_attention(dev, args.seed, fma_regs))
     timings.update(phase_ring_kernels(dev, args.seed))
-    phase_d512(args.seed)
+    for shape in (D512, D384, D768):
+        phase_wide(args.seed, shape)
     counts = phase_serve(args.seed)
+    counts.update({r + ".f32": n for r, n in phase_serve(
+        args.seed, "float32").items() if r in SERVE_ROUTES})
     counts.update({r: n for r, n in phase_serve_int8(args.seed).items()
                    if r in INT8_ROUTES})
     phase_serve_http(args.seed)
@@ -3480,6 +3669,11 @@ def main() -> int:
         "_fused_block_grouped": "vidsum_tpu/ops/block_kernel.py:98",
         "_flash_attention": "vidsum_tpu/ops/attention.py:40",
         "_flash_attention_folded": "vidsum_tpu/ops/attention.py:76",
+        **{r + ".f32": rep for r, rep in (
+            ("_fused_block", "vidsum_tpu/ops/block_kernel.py:39"),
+            ("_fused_block_grouped", "vidsum_tpu/ops/block_kernel.py:98"),
+            ("_flash_attention", "vidsum_tpu/ops/attention.py:40"),
+            ("_flash_attention_folded", "vidsum_tpu/ops/attention.py:76"))},
         "_fwd_kernel": "vidsum_tpu/ops/block_train.py:198",
         "_bwd_kernel": "vidsum_tpu/ops/block_train.py:221",
         "_fwd_kernel_grouped": "vidsum_tpu/ops/block_train.py:410",
@@ -3516,13 +3710,20 @@ def main() -> int:
     int8_src = [csrc + "int8_gemm.cu", csrc + "masked_attention.cu",
                 csrc + "mma_tiles.cuh"]
     ring_src = [csrc + "ring_attention.cu", csrc + "attention_core.cuh"]
+    f32_block_src = [csrc + "gemm_bias_epilogue.cu", csrc + "fma_gemm.cuh",
+                     csrc + "masked_attention.cu", csrc + "attention_core.cuh"]
+    f32_attn_src = [csrc + "masked_attention.cu", csrc + "attention_core.cuh"]
     names = {"_fused_block_int8": "block_int8",
              "_fused_block_int8_grouped": "block_int8_grouped",
              "mm_bf16": "probe_mm_bf16", "mm_int8": "probe_mm_int8",
              **RING_NAMES}
     kernels = []
     for route, rep in replaces.items():
-        srcs = (ring_src if route in RING_ROUTES
+        srcs = (f32_block_src if route in ("_fused_block.f32",
+                                           "_fused_block_grouped.f32")
+                else f32_attn_src if route.endswith(".f32")
+                and route.startswith("_flash")
+                else ring_src if route in RING_ROUTES
                 else attn_mma_src if route in mma_routes
                 else attn_train_src if route.startswith("attention_train.")
                 else train_src if route in TRAIN_ROUTES
@@ -3534,7 +3735,16 @@ def main() -> int:
                  "route": "cuda", "source": srcs[0], "sources": srcs,
                  "replaces": rep, "launches": counts[route],
                  **timings[route]}
-        if route in ("_flash_attention", "_flash_attention_folded"):
+        if route in ("_fused_block.f32", "_fused_block_grouped.f32"):
+            entry["design"] = SERVING_F32_DESIGN
+            entry["ptxas"] = f32_gemm_regs + [
+                r for r in fma_serve_regs if "<64," in r["kernel"]]
+        elif route in ("_flash_attention.f32",
+                       "_flash_attention_folded.f32"):
+            entry["design"] = SERVING_F32_DESIGN
+            entry["ptxas"] = [r for r in fma_serve_regs
+                              if "<64," in r["kernel"]]
+        elif route in ("_flash_attention", "_flash_attention_folded"):
             entry["design"] = SERVING_ATTENTION_DESIGN
             entry["ptxas"] = [r for r in mma_regs if "<64," in r["kernel"]]
         elif route in ("_fused_block", "_fused_block_grouped", "mm_bf16"):

@@ -100,14 +100,14 @@ def test_gemm_bias_epilogue_matches_plain(cuda, dtype, epilogue, N, K):
 
 
 def test_kernels_refuse_shapes_no_configuration_has(cuda):
-    """The LayerNorm epilogue takes rows of up to 512 (d_model 512), the
-    attention kernel head_dim 16, 32, 64 and 128."""
+    """The LayerNorm epilogue takes rows of up to 768 (d_model 768), the
+    attention kernel head_dim 16, 32, 64, 96 and 128."""
     x = torch.zeros(8, 32, device=cuda)
-    w = torch.zeros(544, 32, device=cuda)
-    b = torch.zeros(544, device=cuda)
-    with pytest.raises(ValueError, match="N <= 512"):
+    w = torch.zeros(800, 32, device=cuda)
+    b = torch.zeros(800, device=cuda)
+    with pytest.raises(ValueError, match="N <= 768"):
         bk.gemm_bias_epilogue(x, w, b, "residual_ln",
-                              residual=torch.zeros(8, 544, device=cuda),
+                              residual=torch.zeros(8, 800, device=cuda),
                               ln_g=b, ln_b=b)
     q = torch.zeros(1, 1, 64, 48, device=cuda)
     with pytest.raises(ValueError, match="head_dim"):
@@ -228,7 +228,7 @@ def test_gemm_row_bits_do_not_depend_on_m_or_the_cta_shape(
 @pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("norm_first", [True, False])
 @pytest.mark.parametrize("Dh,aligned", [(16, True), (32, True), (64, True),
-                                        (64, False), (128, True)])
+                                        (64, False), (96, True), (128, True)])
 @pytest.mark.parametrize("N,valid", [(200, None), (520, (70, 455))])
 def test_masked_attention_matches_plain(cuda, dtype, norm_first, Dh,
                                         aligned, N, valid):
@@ -340,12 +340,12 @@ def test_bf16_attention_rounds_p_in_its_tpu_kernels_order(cuda, norm_first):
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
-@pytest.mark.parametrize("d", [64, 512])
+@pytest.mark.parametrize("d", [64, 384, 512])
 @pytest.mark.parametrize("B,N,route", [(2, 128, "_fused_block_grouped"),
                                        (1, 512, "_fused_block")])
 def test_fused_encoder_block_routes_match_plain(cuda, dtype, d, B, N, route):
-    """d 64 (head_dim 16) and d 512 (head_dim 128, LayerNorm rows past the
-    GEMM's CTA tile), 4 heads."""
+    """d 64 (head_dim 16), d 384 (head_dim 96) and d 512 (head_dim 128;
+    both with LayerNorm rows past the GEMM's CTA tile), 4 heads."""
     cfg = ModelConfig(d_model=d, num_heads=4, num_layers=1)
     block = SimNet(cfg, device=cuda).encoder.module_list[0]
     g = torch.Generator(device="cpu").manual_seed(3)
@@ -421,6 +421,235 @@ def test_served_scores_equal_solo_on_card(cuda):
         np.testing.assert_array_equal(r.scores, solo)
 
 
+# ------------------------------------------- the f32 serving chain (FMA)
+# The block's four products at d 256 (K -> N), at the flagship's (32, 512)
+# and (8, 256) rows; d 512 and 768 (the wide LayerNorm route); an M that is
+# no multiple of any tile, with a K and N off the tiles too.
+F32_PRODUCTS = [
+    ("none", 256, 768), ("residual_ln", 256, 256), ("relu", 256, 1024),
+    ("residual_ln", 1024, 256)]
+
+
+def _f32_gemm_case(dev, M, N, K, epilogue, seed=1):
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    x = torch.randn(M, K, generator=g).to(dev)
+    w = (torch.randn(N, K, generator=g) / K ** 0.5).to(dev)
+    b = torch.randn(N, generator=g).to(dev)
+    kw = {}
+    if epilogue == "residual_ln":
+        kw = dict(residual=torch.randn(M, N, generator=g).to(dev),
+                  ln_g=torch.rand(N, generator=g).to(dev) + 0.5,
+                  ln_b=torch.randn(N, generator=g).to(dev))
+    return x, w, b, kw
+
+
+@pytest.mark.parametrize("tile", [64, 128])
+@pytest.mark.parametrize("epilogue,K,N,M", [
+    *((e, K, N, M) for e, K, N in F32_PRODUCTS for M in (32 * 512,
+                                                         8 * 256)),
+    ("residual_ln", 512, 512, 1000), ("residual_ln", 768, 768, 1000),
+    ("residual_ln", 3072, 768, 1000), ("none", 100, 320, 1001),
+    ("none", 1024, 1, 777)])
+def test_f32_gemm_matches_plain(cuda, monkeypatch, tile, epilogue, K, N, M):
+    """The FMA kernel (its 16-byte loads: no fallback counted) in both tiles
+    against the plain version at the f32 bound; a product with one 16-deep
+    k tile zeroed (a skipped k tile) fails the bound."""
+    monkeypatch.setattr(bk, "gemm_f32_tile", lambda *a: tile)
+    x, w, b, kw = _f32_gemm_case(cuda, M, N, K, epilogue)
+    assert bk.gemm_takes_vec4(x, w)
+    before = (bk.gemm_bias_epilogue.launches,
+              bk.gemm_bias_epilogue.fallback_launches)
+    got, _ = bk.gemm_bias_epilogue(x, w, b, epilogue, **kw)
+    torch.cuda.synchronize()
+    assert (bk.gemm_bias_epilogue.launches,
+            bk.gemm_bias_epilogue.fallback_launches) == (before[0] + 1,
+                                                         before[1])
+    want, _ = bk.gemm_bias_epilogue_reference(x, w, b, epilogue, **kw)
+    _close(got, want, "gemm", torch.float32)
+    skipped = x.clone()
+    skipped[:, 16:32] = 0.0
+    bad, _ = bk.gemm_bias_epilogue(skipped, w, b, epilogue, **kw)
+    assert not _within(bad, want, "gemm", torch.float32)
+
+
+@pytest.mark.parametrize("case", ["k98", "row_stride_98", "odd_base"])
+def test_f32_gemm_scalar_loads_are_counted_and_give_the_same_bits(cuda,
+                                                                   case):
+    """K 98, a row stride of 98 and a base off 16 bytes take the FMA
+    kernel's scalar loads (the fallback counter moves); every output is the
+    same FMAs in the same k order, so where the operands also fit the
+    16-byte loads (a contiguous copy) the bits are equal."""
+    M, N, K = 300, 256, 98 if case == "k98" else 96
+    x, w, b, kw = _f32_gemm_case(cuda, M, N, K, "residual_ln")
+    xs = x
+    if case == "row_stride_98":
+        xs = torch.zeros(M, 98, device=cuda)[:, :K]
+        xs.copy_(x)
+    elif case == "odd_base":
+        xs = torch.zeros(M * K + 1, device=cuda)[1:].view(M, K)
+        xs.copy_(x)
+    assert not bk.gemm_takes_vec4(xs, w)
+    before = bk.gemm_bias_epilogue.fallback_launches
+    got, _ = bk.gemm_bias_epilogue(xs, w, b, "residual_ln", **kw)
+    torch.cuda.synchronize()
+    assert bk.gemm_bias_epilogue.fallback_launches == before + 1
+    want, _ = bk.gemm_bias_epilogue_reference(x, w, b, "residual_ln", **kw)
+    _close(got, want, "gemm", torch.float32)
+    if case != "k98":
+        assert torch.equal(got, bk.gemm_bias_epilogue(
+            x, w, b, "residual_ln", **kw)[0])
+
+
+@pytest.mark.parametrize("epilogue,K,N", F32_PRODUCTS)
+def test_f32_gemm_row_bits_do_not_depend_on_the_batch(cuda, monkeypatch,
+                                                      epilogue, K, N):
+    """The rows of one request (256) computed alone and inside a batch of 8
+    (2,048 rows) and of 32 x 512, by the tile rule and in each tile:
+    bit-equal (served == solo)."""
+    x, w, b, kw = _f32_gemm_case(cuda, 32 * 512, N, K, epilogue, seed=4)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    assert bk.gemm_f32_tile(32 * 512, N, sms) == 128
+    assert bk.gemm_f32_tile(256, N, sms) == 64
+    pick = bk.gemm_f32_tile
+    runs = []
+    for tile in (None, 64, 128):
+        monkeypatch.setattr(bk, "gemm_f32_tile",
+                            pick if tile is None else lambda *a: tile)
+        for M in (32 * 512, 8 * 256, 256):
+            sub = {k: (v[:M] if k == "residual" else v)
+                   for k, v in kw.items()}
+            runs.append(bk.gemm_bias_epilogue(x[:M], w, b, epilogue,
+                                              **sub)[0][:256])
+    torch.cuda.synchronize()
+    assert all(torch.equal(runs[0], r) for r in runs[1:])
+
+
+@pytest.mark.parametrize("norm_first", [True, False])
+@pytest.mark.parametrize("Dh", [16, 32, 64, 96, 128])
+@pytest.mark.parametrize("B,H,N", [(1, 4, 1280), (1, 4, 6016),
+                                   (1, 4, 16384), (2, 3, 1000), (3, 2, 77)])
+def test_f32_attention_matches_plain(cuda, norm_first, Dh, B, H, N):
+    """The FMA forward on the serving path (no fallback counted) against
+    each route's plain version at the attention bound: N 1,280, 6,016 and
+    16,384 (the serve phase's shapes) and N 1,000 and 77, off the 64-key
+    tile (a ragged last tile, mask rows off 16 bytes); views of one fused
+    QKV buffer written into a (B, N, d) buffer, as the block does. A kernel
+    that drops the first key tile fails the bound."""
+    g = torch.Generator(device="cpu").manual_seed(N + Dh)
+    d = H * Dh
+    qkv = (torch.randn(B, N, 3 * d, generator=g).to(cuda)
+           .view(B, N, 3, H, Dh))
+    q, k, v = (qkv[:, :, i].transpose(1, 2) for i in range(3))
+    out = torch.empty(B, N, d, device=cuda).view(B, N, H, Dh).transpose(1, 2)
+    mask = _mask(B, N, cuda, seed=N)
+    mask[:, :min(N, 70)] = False   # the first key tile is live
+    scale = Dh ** -0.5
+    before = (attn_mod.masked_attention.launches,
+              attn_mod.masked_attention.fallback_launches)
+    got = attn_mod.masked_attention(q, k, v, mask, scale, out=out,
+                                    norm_first=norm_first)
+    torch.cuda.synchronize()
+    assert (attn_mod.masked_attention.launches,
+            attn_mod.masked_attention.fallback_launches) == (before[0] + 1,
+                                                             before[1])
+    want = (attn_mod.attention_reference(q, k, v, mask, scale) if norm_first
+            else attn_mod.attention_folded_reference(q, k, v, mask, scale,
+                                                     attn_mod.KEY_TILE))
+    _close(got, want, "attention", torch.float32)
+    if N > attn_mod.KEY_TILE:
+        dropped = mask.clone()
+        dropped[:, :attn_mod.KEY_TILE] = True
+        bad = attn_mod.masked_attention(q, k, v, dropped, scale,
+                                        norm_first=norm_first)
+        assert not _within(bad, want, "attention", torch.float32)
+
+
+def test_f32_attention_row_bits_do_not_depend_on_the_batch(cuda):
+    """(8, 4, 2,048, 64) takes 16-deep CTAs (the grid fills the card), one
+    element alone 8-deep ones: its rows are bit-equal either way (served ==
+    solo)."""
+    g = torch.Generator(device="cpu").manual_seed(12)
+    B, H, N, Dh = 8, 4, 2048, 64
+    q, k, v = (torch.randn(B, H, N, Dh, generator=g).to(cuda)
+               for _ in range(3))
+    mask = _mask(B, N, cuda, seed=12)
+    both = attn_mod.masked_attention(q, k, v, mask, 0.125)
+    for i in (0, 5):
+        solo = attn_mod.masked_attention(q[i:i + 1], k[i:i + 1], v[i:i + 1],
+                                         mask[i:i + 1], 0.125)
+        assert torch.equal(both[i:i + 1], solo)
+
+
+def test_f32_attention_stages_views_off_16_bytes(cuda):
+    """A view with an odd row stride fails ``attention_layout_ok``: the
+    wrapper stages aligned copies (the fallback counter moves) and writes
+    the same bits as the aligned route."""
+    g = torch.Generator(device="cpu").manual_seed(13)
+    B, H, N, Dh = 2, 2, 300, 64
+    buf = torch.randn(B, N, 3 * H * Dh + 1, generator=g).to(cuda)
+    qkv = buf[..., 1:].unflatten(-1, (3, H, Dh))
+    q, k, v = (qkv[:, :, i].transpose(1, 2) for i in range(3))
+    mask = _mask(B, N, cuda, seed=13)
+    assert not attn_mod.attention_layout_ok(q, k, v)
+    before = attn_mod.masked_attention.fallback_launches
+    got = attn_mod.masked_attention(q, k, v, mask, 0.125)
+    torch.cuda.synchronize()
+    assert attn_mod.masked_attention.fallback_launches == before + 1
+    same = attn_mod.masked_attention(*(t.contiguous() for t in (q, k, v)),
+                                     mask, 0.125)
+    assert torch.equal(got, same)
+
+
+@pytest.mark.parametrize("Dh", [64, 96])
+def test_f32_int8_attention_with_qk8_matches_plain(cuda, Dh):
+    """The f32 int8 block's attention with qk_int8 (int8 Q/K codes, per-row
+    scales): the QK8 kernel against its plain version."""
+    g = torch.Generator(device="cpu").manual_seed(14)
+    B, H, N = 2, 2, 320
+    q8, k8 = (torch.randint(-127, 128, (B, H, N, Dh), generator=g,
+                            dtype=torch.int8).to(cuda) for _ in range(2))
+    qs, ks = (torch.rand(B, H, N, generator=g).to(cuda) * 0.01
+              for _ in range(2))
+    v = torch.randn(B, H, N, Dh, generator=g).to(cuda)
+    mask = _mask(B, N, cuda, seed=14)
+    got = attn_mod.masked_attention(q8, k8, v, mask, Dh ** -0.5,
+                                    qk_scales=(qs, ks))
+    want = attn_mod.attention_q8_reference(q8, k8, v, qs, ks, mask,
+                                           Dh ** -0.5, torch.float32)
+    _close(got, want, "attention", torch.float32)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("d,heads", [(384, 4), (768, 8)])
+def test_head96_models_take_the_kernel_routes(cuda, dtype, d, heads):
+    """``ModelConfig(d_model=384, num_heads=4)`` and d 768 with 8 heads
+    (head_dim 96, the C1 shapes): the fused-block and flash routes on the
+    card against the same routes' plain versions on the CPU (f32 at the
+    block bound; bf16 sigmoid scores at the int8 block's limits, as
+    chip_smoke.py's d 512 check holds them)."""
+    import copy
+
+    cfg = ModelConfig(in_features=64, d_model=d, num_heads=heads,
+                      num_layers=1, compute_dtype=str(dtype).split(".")[1])
+    model = SimNet(cfg, generator=torch.Generator().manual_seed(d))
+    g = torch.Generator(device="cpu").manual_seed(d)
+    x = torch.randn(2, 256, 64, generator=g)
+    mask = _mask(2, 256, "cpu", seed=d)
+    cpu = copy.deepcopy(model).to("cpu")
+    model = model.to(cuda)
+    with torch.inference_mode():
+        for impl in ("fused_block", "flash"):
+            got, _ = model(x.to(cuda), mask.to(cuda), attn_impl=impl)
+            want, _ = cpu(x, mask, attn_impl=impl)
+            if dtype == torch.float32:
+                _close(got.cpu(), want, "block", dtype)
+            else:
+                diff = (torch.sigmoid(got.float().cpu())
+                        - torch.sigmoid(want.float())).abs()
+                assert float(diff.median()) <= INT8_BOUND["median"]
+                assert float(diff.max()) <= INT8_BOUND["max"]
+
+
 # ------------------------------------------------ the training block chain
 # Forward outputs are LayerNorm outputs of size 1 (the block bounds above).
 # Gradients are sums over up to B*N rows whose size varies by parameter, so
@@ -455,6 +684,7 @@ def _train_within(got, want, kind, dtype):
                                            (64, 1, 512, False),
                                            (256, 4, 256, True),
                                            (256, 1, 640, False),
+                                           (384, 2, 256, True),
                                            (512, 4, 256, True),
                                            (512, 1, 512, False)])
 def test_block_train_routes_match_plain(cuda, dtype, d, B, N, grouped):
@@ -628,7 +858,7 @@ def _at_within(got, want, tol, relative_atol=True):
 
 @pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("folded", [False, True])
-@pytest.mark.parametrize("Dh", [16, 32, 64, 128])
+@pytest.mark.parametrize("Dh", [16, 32, 64, 96, 128])
 def test_attention_train_routes_match_plain(cuda, dtype, folded, Dh):
     """Each training attention route's o, lse, dq, dk and dv against its
     plain version on the card with the same dropout bits (the folded one
@@ -1196,6 +1426,7 @@ INT8_BOUND = dict(median=5e-3, max=5e-2)
     (256, 2, 256, "_fused_block_int8_grouped"),
     (256, 1, 512, "_fused_block_int8"),
     (64, 2, 128, "_fused_block_int8_grouped"),
+    (384, 2, 256, "_fused_block_int8_grouped"),
     (512, 2, 256, "_fused_block_int8_grouped"),
     (512, 1, 512, "_fused_block_int8")])
 def test_int8_block_routes_match_plain(cuda, qk_int8, dtype, d, B, N, route):
@@ -1277,7 +1508,7 @@ def _ring_carries_close(got, want):
 
 
 @pytest.mark.parametrize("kv_dtype", DTYPES)
-@pytest.mark.parametrize("Dh", [16, 32, 64, 128])
+@pytest.mark.parametrize("Dh", [16, 32, 64, 96, 128])
 def test_ring_block_step_matches_plain(cuda, kv_dtype, Dh):
     import importlib
 
@@ -1299,7 +1530,7 @@ def test_ring_block_step_matches_plain(cuda, kv_dtype, Dh):
 
 
 @pytest.mark.parametrize("rate", [0.0, 0.3])
-@pytest.mark.parametrize("Dh", [64, 128])
+@pytest.mark.parametrize("Dh", [64, 96, 128])
 def test_ring_train_steps_match_plain(cuda, rate, Dh):
     import importlib
 

@@ -23,12 +23,12 @@ from vidsum_tpu_torch.ops import block_kernel as bk
 D, H = 64, 4
 
 
-def _block_pair(seed):
+def _block_pair(seed, d=D, heads=H):
     """One block's weights in both packages, from one JAX init."""
-    jcfg = JaxModelConfig(in_features=32, d_model=D, num_heads=H,
+    jcfg = JaxModelConfig(in_features=32, d_model=d, num_heads=heads,
                           num_layers=1, dropout=0.0)
     params = init_simnet(jax.random.PRNGKey(seed), jcfg)
-    model = SimNet(ModelConfig(in_features=32, d_model=D, num_heads=H,
+    model = SimNet(ModelConfig(in_features=32, d_model=d, num_heads=heads,
                                num_layers=1), device="cpu")
     model.load_state_dict(params_from_jax(
         jax.tree_util.tree_map(np.asarray, params)))
@@ -58,6 +58,57 @@ def test_encoder_block_reference_matches_pallas_kernel(dtype, tol, B, N):
     tdt = getattr(torch, dtype)
     got = bk.fused_encoder_block(tblock, torch.from_numpy(x).to(tdt),
                                  torch.from_numpy(mask), H, D ** -0.5)
+    assert got.dtype == tdt
+    np.testing.assert_allclose(got.float().numpy(),
+                               np.asarray(want, np.float32),
+                               rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("dtype,tol", [("float32", 2e-5), ("bfloat16", 5e-2)])
+def test_head96_block_reference_matches_pallas_kernel(dtype, tol):
+    """head_dim 96 (d_model 192 with 2 heads, the head width of d 384 with
+    4 heads and d 768 with 8): the plain block against the grouped Pallas
+    kernel in interpret mode at (2, 128), at the JAX tests' bounds."""
+    d, heads = 192, 2
+    jblock, tblock = _block_pair(96, d, heads)
+    rng = np.random.default_rng(96)
+    x = rng.normal(size=(2, 128, d)).astype(np.float32)
+    mask = _mask(2, 128, 96)
+    want = jax_block.fused_encoder_block(
+        jblock, jnp.asarray(x, dtype), jnp.asarray(mask), heads, d ** -0.5)
+    tdt = getattr(torch, dtype)
+    got = bk.fused_encoder_block(tblock, torch.from_numpy(x).to(tdt),
+                                 torch.from_numpy(mask), heads, d ** -0.5)
+    assert got.dtype == tdt
+    np.testing.assert_allclose(got.float().numpy(),
+                               np.asarray(want, np.float32),
+                               rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("dtype,tol", [("float32", 2e-5), ("bfloat16", 5e-2)])
+@pytest.mark.parametrize("folded", [False, True])
+def test_head96_attention_references_match_pallas_kernels(folded, dtype,
+                                                           tol):
+    """head_dim 96: each route's plain version against its Pallas kernel in
+    interpret mode, f32 and bf16, at (2, 2, 256, 96) with a ragged mask."""
+    rng = np.random.default_rng(9)
+    B, Hh, N, Dh = 2, 2, 256, 96
+    q, k, v = (rng.normal(size=(B, Hh, N, Dh)).astype(np.float32)
+               for _ in range(3))
+    mask = _mask(B, N, 10)
+    tdt = getattr(torch, dtype)
+    jq, jk, jv = (jnp.asarray(t, dtype) for t in (q, k, v))
+    tq, tk, tv = (torch.from_numpy(t).to(tdt) for t in (q, k, v))
+    jm, tm = jnp.asarray(mask), torch.from_numpy(mask)
+    if folded:
+        want = jax_attention._flash_attention_folded(
+            jq, jk, jv, jm, Dh ** -0.5, interpret=True, kb=128)
+        got = attn_mod._flash_attention_folded(tq, tk, tv, tm, Dh ** -0.5,
+                                               128)
+    else:
+        want = jax_attention._flash_attention(jq, jk, jv, jm, Dh ** -0.5,
+                                              interpret=True)
+        got = attn_mod._flash_attention(tq, tk, tv, tm, Dh ** -0.5)
     assert got.dtype == tdt
     np.testing.assert_allclose(got.float().numpy(),
                                np.asarray(want, np.float32),
@@ -221,6 +272,52 @@ def test_gemm_takes_wgmma_where_tma_can_load():
     assert not bk.gemm_takes_wgmma(flat[1:1 + 200 * 96].view(200, 96), w)
 
 
+def test_gemm_takes_vec4_where_16_byte_loads_can():
+    """The f32 FMA GEMM's 16-byte loads need K and both row strides a
+    multiple of 4 floats and 16-byte aligned bases; everything else takes
+    the same kernel's scalar loads (a counted fallback)."""
+    x, w = torch.zeros(200, 96), torch.zeros(64, 96)
+    assert bk.gemm_takes_vec4(x, w)
+    assert not bk.gemm_takes_vec4(x.bfloat16(), w.bfloat16())  # bf16: wgmma
+    assert not bk.gemm_takes_vec4(torch.zeros(200, 98),
+                                  torch.zeros(64, 98))         # K 98
+    assert bk.gemm_takes_vec4(torch.zeros(200, 100)[:, :96], w)
+    assert not bk.gemm_takes_vec4(torch.zeros(200, 98)[:, :96], w)
+    assert not bk.gemm_takes_vec4(x, torch.zeros(64, 98)[:, :96])
+    flat = torch.zeros(200 * 96 + 4)
+    assert bk.gemm_takes_vec4(flat[4:].view(200, 96), w)
+    assert not bk.gemm_takes_vec4(flat[1:1 + 200 * 96].view(200, 96), w)
+    # 128 x 128 tiles where their grid gives 3/4 of the SMs a CTA, else
+    # 64 x 64: (32, 512)'s products, then (8, 256)'s and a 256-frame
+    # request's
+    assert [bk.gemm_f32_tile(16384, n, 132) for n in (768, 256, 1024)] == [
+        128, 128, 128]
+    assert [bk.gemm_f32_tile(2048, n, 132) for n in (768, 256, 1024)] == [
+        64, 64, 128]
+    assert bk.gemm_f32_tile(256, 1, 132) == 64
+    assert [bk.gemm_f32_tile(128 * m, 1, 132) for m in (98, 99)] == [64, 128]
+
+
+def test_attention_layout_ok_routes_the_f32_attention():
+    """The f32 serving attention's 16-byte route: q/k/v views of the fused
+    (B, N, 3d) QKV buffer and the (B, N, d) output view qualify at every
+    head_dim; a row stride off 4 floats or a base off 16 bytes does not
+    (masked_attention stages such views into aligned copies, counted)."""
+    for d, heads in ((256, 4), (384, 4), (192, 2), (768, 8), (512, 4)):
+        Dh = d // heads
+        qkv = torch.zeros(2, 100, 3 * d).view(2, 100, 3, heads, Dh)
+        q, k, v = (qkv[:, :, i].transpose(1, 2) for i in range(3))
+        out = torch.zeros(2, 100, d).view(2, 100, heads, Dh).transpose(1, 2)
+        assert attn_mod.attention_layout_ok(q, k, v, out)
+    assert not attn_mod.attention_layout_ok(
+        torch.zeros(1, 1, 64, 18)[..., :16])                 # row stride 18
+    flat = torch.zeros(64 * 16 + 4)
+    assert attn_mod.attention_layout_ok(flat[4:].view(1, 1, 64, 16))
+    assert not attn_mod.attention_layout_ok(
+        flat[1:1 + 64 * 16].view(1, 1, 64, 16))              # base off 16 B
+    assert attn_mod.attention_layout_ok(None, flat[:1024].view(1, 64, 16))
+
+
 def test_routing_arithmetic_matches_jax():
     """Every routing predicate gives the JAX package's answer, so a request
     takes the same route in both packages."""
@@ -333,20 +430,21 @@ GUARDS = ("attention_train", "ring", "masked_attention", "block_train",
 
 @pytest.mark.parametrize("guard", GUARDS)
 def test_guards_accept_the_repos_shapes(guard):
-    """head_dim 16, 32, 64 and 128 (d_model 512 with 4 heads), d_model up
-    to 512."""
-    for Dh in (16, 32, 64, 128):
+    """head_dim 16, 32, 64, 96 (d_model 384 with 4 heads, 768 with 8) and
+    128 (d_model 512 with 4 heads), d_model up to 768."""
+    for Dh in (16, 32, 64, 96, 128):
         _guards()[guard](Dh, 4 * Dh)
+    _guards()[guard](96, 768)
 
 
 @pytest.mark.parametrize("guard", GUARDS)
 def test_guards_refuse_other_shapes(guard):
-    """head_dim 48 and d_model 544 (past the row kernels' 512) raise; the
+    """head_dim 48 and d_model 800 (past the row kernels' 768) raise; the
     LayerNorm rows read d only, the attention guards head_dim only."""
     fn = _guards()[guard]
     if guard != "ln_rows":
         with pytest.raises(ValueError, match="head_dim"):
             fn(48, 192)
     if guard in ("block_train", "ln_rows"):
-        with pytest.raises(ValueError, match="512"):
-            fn(136, 544)
+        with pytest.raises(ValueError, match="768"):
+            fn(200, 800)

@@ -100,6 +100,31 @@ def test_simnet_d512_matches_jax(attn_impl):
 
 
 @pytest.mark.parametrize("attn_impl", ["dense", "flash", "fused_block"])
+@pytest.mark.parametrize("d,heads,layers", [(192, 2, 2), (768, 8, 1)])
+def test_simnet_head96_matches_jax(attn_impl, d, heads, layers):
+    """head_dim 96: d_model 192 with 2 heads (two layers) and 768 with 8
+    (one layer), the head width of ``ModelConfig(d_model=384,
+    num_heads=4)``, at N = 128 against ``simnet_apply(attn_impl="xla")``
+    on every route."""
+    kw = dict(KW, d_model=d, num_heads=heads, num_layers=layers)
+    jcfg = JaxModelConfig(dropout=0.0, **kw)
+    params = init_simnet(jax.random.PRNGKey(d), jcfg)
+    model = SimNet(ModelConfig(**kw), device="cpu")
+    model.load_state_dict(params_from_jax(
+        jax.tree_util.tree_map(np.asarray, params)))
+    x, mask = _inputs(128, d)
+    want, _ = simnet_apply(params, jcfg, jnp.asarray(x), jnp.asarray(mask),
+                           attn_impl="xla")
+    with torch.inference_mode():
+        got, hidden = model.eval()(torch.from_numpy(x),
+                                   torch.from_numpy(mask),
+                                   attn_impl=attn_impl)
+    assert hidden.shape == (2, 128, d)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5,
+                               atol=1e-5)
+
+
+@pytest.mark.parametrize("attn_impl", ["dense", "flash", "fused_block"])
 def test_make_eval_forward_matches_jax(attn_impl):
     jcfg, params, cfg, model = _pair(False, seed=3)
     x, mask = _inputs(256, 5)

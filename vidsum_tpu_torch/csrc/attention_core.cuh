@@ -8,8 +8,13 @@
 // takes attention_train_mma.cuh's tensor-core kernels on both routes), and
 // the attention inside vidsum_tpu/ops/block_train.py:198 _fwd_kernel, :221
 // _bwd_kernel, :410 _fwd_kernel_grouped and :421 _bwd_kernel_grouped
-// (block_train.cu, on its fused (B*N, 3d) QKV buffer). ring_attention.cu
-// keeps the first family's tile helpers (stage_t, stage_rows, tile_dot).
+// (block_train.cu, on its fused (B*N, 3d) QKV buffer), and, forward only,
+// the f32 serving attention: vidsum_tpu/ops/
+// attention.py:40 _attention_kernel, :76 _attention_kernel_folded and the
+// attention inside ops/block_kernel.py:39 _block_kernel and :98
+// _block_kernel_grouped (masked_attention.cu's launch_fma).
+// ring_attention.cu keeps the first family's tile helpers (stage_t,
+// stage_rows, tile_dot).
 //
 // Bound on the card: the products, 4 d N sum(valid keys) operations forward
 // and 8 d N sum(valid) backward (d = H Dh), at the f32 FMA peak of 67
@@ -30,7 +35,7 @@
 // What the design does about what held the first family (4 x 4 blocks over
 // transposed tiles) back:
 // 1. Shared-memory issue. A thread holds RI x 8 scores (8 x 8; 4 x 8 at head
-//    dim 128) and RI rows of each product's output, and reads row-major
+//    dim 96 and 128) and RI rows of each product's output, and reads row-major
 //    tiles as float4: per 4 steps of a score product, 8 + RI vector reads
 //    feed 32 RI FMAs (256 per 16 at RI 8, against 16 per 8 scalar reads), and
 //    the products P.V, dS.K, pd^T.dO and dS^T.Q likewise. Rows of DH + 4 and
@@ -63,7 +68,7 @@
 // dQ's group 0 computes s and p, group 1 dp, g and ds, both half of dQ; dK/
 // dV's group 0 p, pd and dV, group 1 dp, ds and dK, so that each thread
 // keeps one set of accumulators. The CTA takes 16-deep thread tiles (128
-// rows; 64 at head dim 128) on large grids and 8-deep ones below
+// rows; 64 at head dim 96 and 128) on large grids and 8-deep ones below
 // (fma_wide). Nothing of size N x N reaches device memory; no
 // kernel uses atomics, so two runs of the backward give identical bits.
 //
@@ -203,10 +208,10 @@ constexpr float kLn2 = 0.69314718055994531f;
 
 template <int DH>
 constexpr int kFmaLd = DH + 4;
-// rows a thread holds: 8, or 4 at head_dim 128 (its accumulators are twice
-// as wide)
+// rows a thread holds: 8, or 4 at head_dim 96 and 128 (their accumulators
+// are 1.5 and 2 times as wide)
 template <int DH>
-constexpr int kFmaRi = DH >= 128 ? 4 : 8;
+constexpr int kFmaRi = DH > 64 ? 4 : 8;
 
 template <int W>
 __device__ __forceinline__ void ld_vec(float* d, const float* s) {
@@ -232,10 +237,11 @@ __device__ __forceinline__ void st_vec(float* d, const float* s) {
   }
 }
 
-// Output column n (< COLS) of thread tx: chunks of CW = min(COLS, 4)
-// columns, 8 CW apart, so that a warp's 8 tx read 8 CW contiguous floats
+// Output column n (< COLS) of thread tx: chunks of CW columns (4, or 2 or 1
+// where COLS is no multiple of 4: 6 in dQ at head_dim 96), 8 CW apart, so
+// that a warp's 8 tx read 8 CW contiguous floats
 template <int COLS>
-constexpr int kFmaCw = COLS >= 4 ? 4 : COLS;
+constexpr int kFmaCw = COLS % 4 == 0 ? 4 : COLS % 2 == 0 ? 2 : 1;
 template <int COLS>
 __device__ __forceinline__ int fma_col(int tx, int n) {
   constexpr int CW = kFmaCw<COLS>;
@@ -330,9 +336,9 @@ __device__ __forceinline__ void fma_rows_mul(float (&acc)[RI][COLS],
 }
 
 // ------------------------------------------------------------------ forward
-template <int DH, int TY>
+template <int DH, int TY, int RI = kFmaRi<DH>>
 constexpr int fma_fwd_floats() {
-  constexpr int ROWS = kFmaRi<DH> * TY;
+  constexpr int ROWS = RI * TY;
   // Q; K and V (one tile each, staggered); P; the K tile's mask bytes
   return ROWS * kFmaLd<DH> + 2 * kT * kFmaLd<DH> + ROWS * kSLd + kT / 4;
 }
@@ -346,10 +352,15 @@ constexpr int fma_fwd_floats() {
 // walks every tile and gives NaN o and lse = -inf, as the normalise-first
 // order does. K and V tiles stream through one buffer each: the next K
 // tile loads during the fold and P.V, the next V tile during the next
-// scores.
-template <int DH, int TY>
+// scores. With ANY_N (the serving entries) N need not be a multiple of the
+// 64-row tile: rows past N stage as zeros, keys past N as padded, and a
+// mask row off 16 bytes is read byte by byte; without, the training
+// shapes' N % 64 == 0 and a 16-byte aligned mask are taken as given. RI,
+// the rows a thread holds, is 4 in the serving entries' 64-row CTAs of 16
+// TY at every head_dim.
+template <int DH, int TY, int RI = kFmaRi<DH>, bool ANY_N = false>
 __global__ void __launch_bounds__(kTx * TY, 2) fma_fwd_kernel(const Args a) {
-  constexpr int RI = kFmaRi<DH>, ROWS = RI * TY, THREADS = kTx * TY;
+  constexpr int ROWS = RI * TY, THREADS = kTx * TY;
   constexpr int LD = kFmaLd<DH>, COLS = DH / kTx, CW = kFmaCw<COLS>;
   extern __shared__ __align__(16) float smem[];
   float* Qs = smem;              // [ROWS][LD]
@@ -358,7 +369,7 @@ __global__ void __launch_bounds__(kTx * TY, 2) fma_fwd_kernel(const Args a) {
   float* Ps = Vs + kT * LD;      // [ROWS][kSLd], dropped e
   unsigned char* Ms = reinterpret_cast<unsigned char*>(Ps + ROWS * kSLd);
   int* tiles = reinterpret_cast<int*>(Ms + kT);
-  const int N = a.N, ntiles = N / kT;
+  const int N = a.N, ntiles = ANY_N ? (N + kT - 1) / kT : N / kT;
   int* count = tiles + ntiles;
 
   const int tid = threadIdx.x, ty = tid / kTx, tx = tid % kTx;
@@ -369,8 +380,12 @@ __global__ void __launch_bounds__(kTx * TY, 2) fma_fwd_kernel(const Args a) {
   const unsigned char* mrow = a.mask + (long long)b * N;
   const unsigned base = hash_base(a.hash, a.seed, b, h);
   const float sc2 = a.scale * kLog2e;
+  // mask rows on 16-byte boundaries take 16-byte copies
+  const bool mvec =
+      !ANY_N ||
+      (N % 16 == 0 && reinterpret_cast<uintptr_t>(a.mask) % 16 == 0);
 
-  live_tiles(mrow, N, tiles, count, !a.online);
+  live_tiles(mrow, N, tiles, count, !a.online, mvec);
   fma_stage<DH, THREADS>(Qs, static_cast<const float*>(a.q) + ih, a.isn, q0,
                          ROWS, N);
   cp_async_commit();
@@ -380,7 +395,11 @@ __global__ void __launch_bounds__(kTx * TY, 2) fma_fwd_kernel(const Args a) {
     if (it < nlive) {
       const int k0 = tiles[it] * kT;
       fma_stage<DH, THREADS>(Ks, kh, a.isn, k0, kT, N);
-      if (tid < kT / 16) cp_async16(Ms + 16 * tid, mrow + k0 + 16 * tid);
+      if (!ANY_N || (mvec && k0 + kT <= N)) {
+        if (tid < kT / 16) cp_async16(Ms + 16 * tid, mrow + k0 + 16 * tid);
+      } else if (tid < kT) {
+        Ms[tid] = k0 + tid < N ? mrow[k0 + tid] : 1;  // past N: padded
+      }
     }
     cp_async_commit();
   };
@@ -823,30 +842,36 @@ cudaError_t allow_smem(Kernel kern, int bytes) {
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
 }
 
-// head_dim 16, 32, 64 or 128 (ops/_cuda.HEAD_DIMS)
+// head_dim 16, 32, 64, 96 or 128 (ops/_cuda.HEAD_DIMS)
 inline bool head_dim_ok(int Dh) {
-  return Dh == 16 || Dh == 32 || Dh == 64 || Dh == 128;
+  return Dh == 16 || Dh == 32 || Dh == 64 || Dh == 96 || Dh == 128;
 }
 
+// the serving forward's shapes (masked_attention.cu, f32): any N
+inline bool serve_shape_ok(int B, int H, int N, int Dh) {
+  return B > 0 && H > 0 && N > 0 && B <= 65535 && H <= 65535 &&
+         head_dim_ok(Dh);
+}
+
+// the training shapes: N a multiple of the 64-row tile
 inline bool shape_ok(int B, int H, int N, int Dh) {
-  return B > 0 && H > 0 && N > 0 && N % kT == 0 && B <= 65535 &&
-         H <= 65535 && head_dim_ok(Dh);
+  return serve_shape_ok(B, H, N, Dh) && N % kT == 0;
 }
 
 // The FMA family stages its operands by 16-byte cp.async copies and writes
 // its outputs by 16-byte stores: every base pointer it copies from or
 // stores to on a 16-byte boundary and every stride a multiple of 4 floats
-// (ops/block_train.attention_layout_ok checks the same before a launch).
-// The backward's o is read by scalar loads.
+// (ops/block_train.attention_layout_ok and ops/attention.attention_takes_fma
+// check the same before a launch). The backward's o is read by scalar
+// loads; the forward reads a mask row off 16 bytes byte by byte.
 inline bool fma_layout_ok(const Args& a, bool bwd) {
   const bool strides = a.isb % 4 == 0 && a.ish % 4 == 0 && a.isn % 4 == 0 &&
                        a.osb % 4 == 0 && a.osh % 4 == 0 && a.osn % 4 == 0;
-  const bool ins = aligned16(a.q) && aligned16(a.k) && aligned16(a.v) &&
-                   aligned16(a.mask);
+  const bool ins = aligned16(a.q) && aligned16(a.k) && aligned16(a.v);
   if (!bwd) return strides && ins && aligned16(a.out);
-  return strides && ins && aligned16(a.dO) && aligned16(a.lse) &&
-         aligned16(a.D) && aligned16(a.dq) && aligned16(a.dk) &&
-         aligned16(a.dv);
+  return strides && ins && aligned16(a.mask) && aligned16(a.dO) &&
+         aligned16(a.lse) && aligned16(a.D) && aligned16(a.dq) &&
+         aligned16(a.dk) && aligned16(a.dv);
 }
 
 inline int sm_count() {
@@ -866,14 +891,15 @@ inline bool fma_wide(int B, int H, int N, int rows, float per_sm) {
   return (float)((N + rows - 1) / rows) * H * B >= per_sm * sm_count();
 }
 
-template <int DH, int TY>
+template <int DH, int TY, int RI = kFmaRi<DH>, bool ANY_N = false>
 cudaError_t launch_fma_fwd(const Args& a, int B, cudaStream_t s) {
-  constexpr int ROWS = kFmaRi<DH> * TY;
-  const int bytes = (fma_fwd_floats<DH, TY>() + a.N / kT + 1) * 4;
-  cudaError_t err = allow_smem(fma_fwd_kernel<DH, TY>, bytes);
+  constexpr int ROWS = RI * TY;
+  const int bytes =
+      (fma_fwd_floats<DH, TY, RI>() + (a.N + kT - 1) / kT + 1) * 4;
+  auto kernel = fma_fwd_kernel<DH, TY, RI, ANY_N>;
+  cudaError_t err = allow_smem(kernel, bytes);
   if (err != cudaSuccess) return err;
-  fma_fwd_kernel<DH, TY>
-      <<<dim3((a.N + ROWS - 1) / ROWS, a.H, B), kTx * TY, bytes, s>>>(a);
+  kernel<<<dim3((a.N + ROWS - 1) / ROWS, a.H, B), kTx * TY, bytes, s>>>(a);
   return cudaGetLastError();
 }
 
@@ -906,7 +932,7 @@ cudaError_t launch_fwd(const Args& a, int B, cudaStream_t s) {
 }
 
 // At head_dim 128 a 16-deep dK/dV CTA would need 240 KB of shared memory:
-// it keeps 8-deep ones
+// it keeps 8-deep ones (at 96, 4 rows a thread, it needs 191 KB)
 template <int DH>
 cudaError_t launch_bwd(const Args& a, int B, cudaStream_t s) {
   if (a.d_from_o && a.o == nullptr) return cudaErrorInvalidValue;
@@ -924,6 +950,7 @@ inline cudaError_t launch_fwd_dh(const Args& a, int B, int Dh,
     case 16: return launch_fwd<16>(a, B, s);
     case 32: return launch_fwd<32>(a, B, s);
     case 64: return launch_fwd<64>(a, B, s);
+    case 96: return launch_fwd<96>(a, B, s);
     case 128: return launch_fwd<128>(a, B, s);
     default: return cudaErrorInvalidValue;
   }
@@ -935,6 +962,7 @@ inline cudaError_t launch_bwd_dh(const Args& a, int B, int Dh,
     case 16: return launch_bwd<16>(a, B, s);
     case 32: return launch_bwd<32>(a, B, s);
     case 64: return launch_bwd<64>(a, B, s);
+    case 96: return launch_bwd<96>(a, B, s);
     case 128: return launch_bwd<128>(a, B, s);
     default: return cudaErrorInvalidValue;
   }

@@ -87,16 +87,16 @@ using attn::Args;
 // Warps per CTA (W) of each kernel; a warp owns 16 rows (queries, or keys
 // in dK/dV), so a CTA owns 16 W rows and every streamed tile is shared by W
 // warps. The forward and dQ take 8 at head_dim <= 64, so a K/V tile read
-// from L2 feeds 128 query rows, and 4 at 128, where their registers bound
-// the warps an SM holds; dK/dV takes 4. The backward's launch bounds cap
-// its registers at head_dim <= 64 so that more warps share an SM (dQ 16,
-// at <= 128 registers; dK/dV 12, at <= 168). Each choice won a comparison
-// of variants on the card; at 128 the accumulators need the registers, and
-// the kernels take no cap.
+// from L2 feeds 128 query rows, and 4 at 96 and 128, where their registers
+// bound the warps an SM holds; dK/dV takes 4. The backward's launch bounds
+// cap its registers at head_dim <= 64 so that more warps share an SM (dQ
+// 16, at <= 128 registers; dK/dV 12, at <= 168). Each choice won a
+// comparison of variants on the card; at 96 and 128 the accumulators need
+// the registers, and the kernels take no cap.
 template <int DH>
-constexpr int kFwdWarps = DH >= 128 ? 4 : 8;
+constexpr int kFwdWarps = DH > 64 ? 4 : 8;
 template <int DH>
-constexpr int kDqWarps = DH >= 128 ? 4 : 8;
+constexpr int kDqWarps = DH > 64 ? 4 : 8;
 constexpr int kDkdvWarps = 4;
 constexpr int kT = kKeyTile;  // rows of a streamed tile
 constexpr unsigned kRowMul = 0xC2B2AE3Du;  // _keep_mask_block's row term
@@ -122,10 +122,10 @@ constexpr int fwd_smem_fixed() {
 // ONLINE: the folded route's one-pass forward (_fwd_kernel_folded); else
 // the single-pass route's normalise-first one (_fwd_kernel). Both modes ask
 // for two CTAs per SM: at head_dim <= 64 (8 warps) that caps a thread at
-// 128 registers, which both fit without a spill; at 128 (4 warps) it caps
-// nothing. Without it the online mode took 141 registers, one CTA per SM,
-// and an explicit minimum of one CTA slowed the normalise-first mode by a
-// third, in comparisons on the card.
+// 128 registers, which both fit without a spill; at 96 and 128 (4 warps)
+// it caps nothing. Without it the online mode took 141 registers, one CTA
+// per SM, and an explicit minimum of one CTA slowed the normalise-first
+// mode by a third, in comparisons on the card.
 template <int DH, int W, bool ONLINE>
 __global__ void __launch_bounds__(32 * W, 2) fwd_mma_kernel(const Args a) {
   constexpr int LD = DH + kLdsPad, KS = DH / 16, ND = DH / 8;
@@ -360,7 +360,7 @@ constexpr int dq_smem_fixed() {
 // FOLDED: the folded route's backward (_bwd_kernel_folded: D = rowsum(dO *
 // o), p = 0 on rows whose lse is below _DEAD); else the single-pass one
 template <int DH, int W, bool FOLDED>
-__global__ void __launch_bounds__(32 * W, DH >= 128 ? 1 : 16 / W)
+__global__ void __launch_bounds__(32 * W, DH > 64 ? 1 : 16 / W)
     dq_mma_kernel(const Args a) {
   constexpr int LD = DH + kLdsPad, KS = DH / 16, ND = DH / 8;
   constexpr int TILE = kT * LD, THREADS = 32 * W, ROWS = 16 * W;
@@ -553,8 +553,8 @@ __global__ void __launch_bounds__(32 * W, DH >= 128 ? 1 : 16 / W)
 
 // -------------------------------------------------------- backward: dK, dV
 // Each warp owns 16 keys of the CTA's 16 W; the transposed score tiles
-// (keys x queries) are taken QC queries at a time (32 at DH 128, where the
-// dK and dV accumulators take 128 registers).
+// (keys x queries) are taken QC queries at a time (32 at DH 96 and 128,
+// where the dK and dV accumulators take 96 and 128 registers).
 template <int DH, int W>
 constexpr int dkdv_smem_bytes() {
   // K, V; Q x2, dO x2; lse x2, D x2
@@ -563,10 +563,10 @@ constexpr int dkdv_smem_bytes() {
 
 // FOLDED: p = 0 on query rows whose lse is below _DEAD (_bwd_kernel_folded)
 template <int DH, int W, bool FOLDED>
-__global__ void __launch_bounds__(32 * W, DH >= 128 ? 1 : 12 / W)
+__global__ void __launch_bounds__(32 * W, DH > 64 ? 1 : 12 / W)
     dkdv_mma_kernel(const Args a) {
   constexpr int LD = DH + kLdsPad, KS = DH / 16, ND = DH / 8;
-  constexpr int TILE = kT * LD, QC = DH >= 128 ? 32 : 64, NI = QC / 8;
+  constexpr int TILE = kT * LD, QC = DH > 64 ? 32 : 64, NI = QC / 8;
   constexpr int THREADS = 32 * W, ROWS = 16 * W;
   extern __shared__ __align__(16) unsigned char smem[];
   bf* Ks = reinterpret_cast<bf*>(smem);  // [ROWS][LD]
@@ -821,6 +821,7 @@ inline cudaError_t launch_fwd_dh(const Args& a, int B, int Dh,
     case 16: return launch_fwd_route<16>(a, B, s);
     case 32: return launch_fwd_route<32>(a, B, s);
     case 64: return launch_fwd_route<64>(a, B, s);
+    case 96: return launch_fwd_route<96>(a, B, s);
     case 128: return launch_fwd_route<128>(a, B, s);
     default: return cudaErrorInvalidValue;
   }
@@ -832,6 +833,7 @@ inline cudaError_t launch_bwd_dh(const Args& a, int B, int Dh,
     case 16: return launch_bwd_route<16>(a, B, s);
     case 32: return launch_bwd_route<32>(a, B, s);
     case 64: return launch_bwd_route<64>(a, B, s);
+    case 96: return launch_bwd_route<96>(a, B, s);
     case 128: return launch_bwd_route<128>(a, B, s);
     default: return cudaErrorInvalidValue;
   }

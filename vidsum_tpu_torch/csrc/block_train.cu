@@ -38,16 +38,17 @@
 // backward's 48*B*N*d^2 + 8*d*N*sum(valid) ~ 69 GFLOP (without the recompute)
 // against tens of MB of activations: operations-bound, ~0.5 / ~1.0 ms at the
 // card's 67 TFLOP/s f32 peak outside the tensor cores, and the four bt_gemm
-// products are ~3/4 of it. Design against it: bt_gemm_kernel runs 128 x 128
-// CTA tiles, 8 x 8 outputs a thread read from shared memory as four float4
-// a k step (16 FMAs a 16-byte load; a warp's reads hit distinct banks or
+// products are ~3/4 of it. Design against it: bt_gemm_kernel runs
+// fma_gemm.cuh's mainloop (shared with the serving block's f32 products) on 128
+// x 128 CTA tiles, 8 x 8 outputs a thread read from shared memory as four
+// float4 a k step (16 FMAs a 16-byte load; a warp's reads hit distinct banks or
 // broadcast), over k-major tiles 16 deep, double buffered: an operand whose
-// rows are contiguous (the dW products' X^T and dY, the dX products' W)
-// arrives by 16-byte cp.async, one contiguous along k (the forward's A and
-// W^T) by 16-byte loads into registers that are stored transposed after the
-// current tile's FMAs, so every tile's loads overlap the previous tile's
-// FMAs with one __syncthreads a tile. Launch bounds hold two CTAs an SM
-// (128 registers a thread). Other strides or alignments take scalar loads
+// rows are contiguous (the dW products' X^T and dY, the dX products' W) arrives
+// by 16-byte cp.async, one contiguous along k (the forward's A and W^T) by
+// 16-byte loads into registers that are stored transposed after the current
+// tile's FMAs, so every tile's loads overlap the previous tile's FMAs with one
+// __syncthreads a tile. Launch bounds hold two CTAs an SM (128 registers a
+// thread). Other strides or alignments take scalar loads
 // through the same pipeline. The dW products split K so that the d x d
 // outputs still fill the card (ops/block_train.gemm_splits), with partials
 // summed in a fixed order. The attention kernels keep each 64-key score
@@ -57,6 +58,7 @@
 // recompute costs one forward more than the bound counts (the TPU kernel's
 // memory footprint).
 #include "attention_core.cuh"
+#include "fma_gemm.cuh"
 
 namespace {
 
@@ -81,109 +83,20 @@ struct Drop {
 };
 
 // ------------------------------------------------------------------ GEMM
-// 16-deep k tiles: half the barriers of 8 deep, still 128 registers with no
-// spill
-constexpr int GBM = 128, GBN = 128, GBK = 16, GPAD = 4;
-static_assert(GBK % 8 == 0, "whole 16-byte chunks per thread");
-constexpr int kPer = GBK / 2;  // tile elements a thread loads
-constexpr int GLD = GBM + GPAD;  // a padded k row: 528 bytes, 16-byte aligned
+// fma_gemm.cuh's mainloop on 128 x 128 tiles (shared with the serving
+// block's f32 products)
+namespace fg = vs::fma_gemm;
+constexpr int GBM = 128, GBN = 128, GBK = fg::GBK;
+using fg::kAny;
+using fg::kVecK;
+using fg::kVecR;
 
 enum Epilogue : int { EPI_BIAS = 0, EPI_RELU_DROP = 1, EPI_DROP_RELU_BWD = 2 };
 
-// How an operand's GBK x 128 tile reaches its k-major shared-memory tile
-// S[k][r] (r the m index of A, the n index of B):
-//   kVecR  rows contiguous (unit stride along r): 16-byte cp.async, the
-//          ragged edge zero-filled by the copy's source size
-//   kVecK  k contiguous: 16-byte loads into registers, stored transposed
-//          once the current tile's products are issued
-//   kAny   any strides or alignment: scalar loads into registers
-enum Load : int { kVecR = 0, kVecK = 1, kAny = 2 };
-
-__device__ __forceinline__ void cp_async16(float* dst, const float* src,
-                                           int bytes) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;" ::"r"(
-                   static_cast<uint32_t>(__cvta_generic_to_shared(dst))),
-               "l"(src), "r"(bytes)
-               : "memory");
-}
-
-// One operand X[r * sr + k * sk] over rows [r0, r0 + 128) of `rows`; the
-// registers hold the next tile between issue() and store().
-template <int MODE>
-struct Operand {
-  const float* __restrict__ p;
-  long long sr, sk;
-  int rows, r0;
-  float v[kPer];
-
-  // thread tid's q-th 16-byte chunk (kVecK): row f / kq, k 4 (f % kq)
-  static constexpr int kq = GBK / 4;
-
-  __device__ __forceinline__ void issue(float (*S)[GLD], int k0, int ke) {
-    const int tid = threadIdx.x;
-#pragma unroll
-    for (int q = 0; q < kPer / 4; ++q) {
-      const int f = tid + kThreads * q;
-      if (MODE == kVecR) {
-        const int k = f >> 5, r = (f & 31) * 4;
-        const int gr = r0 + r, gk = k0 + k;
-        const int n = gk < ke ? max(0, min(4, rows - gr)) : 0;
-        cp_async16(&S[k][r], n > 0 ? p + gr + (long long)gk * sk : p, 4 * n);
-      } else if (MODE == kVecK) {
-        const int r = f / kq, k = (f % kq) * 4;
-        const int gr = r0 + r, gk = k0 + k;
-        const float* src = p + (long long)gr * sr + gk;
-        if (gr < rows && gk + 4 <= ke) {
-          const float4 t = __ldg(reinterpret_cast<const float4*>(src));
-          v[4 * q] = t.x;
-          v[4 * q + 1] = t.y;
-          v[4 * q + 2] = t.z;
-          v[4 * q + 3] = t.w;
-        } else {
-#pragma unroll
-          for (int c = 0; c < 4; ++c)
-            v[4 * q + c] = gr < rows && gk + c < ke ? src[c] : 0.f;
-        }
-      }
-    }
-    if (MODE == kAny) {
-#pragma unroll
-      for (int i = 0; i < kPer; ++i) {
-        const int f = tid + kThreads * i;
-        const int gr = r0 + (f & 127), gk = k0 + (f >> 7);
-        v[i] = gr < rows && gk < ke ? p[gr * sr + gk * sk] : 0.f;
-      }
-    }
-  }
-
-  __device__ __forceinline__ void store(float (*S)[GLD]) {
-    const int tid = threadIdx.x;
-    if (MODE == kVecK) {
-      // (16 deep: a warp's 8 rows x 4 k groups, at most 2 to a bank)
-#pragma unroll
-      for (int q = 0; q < kPer / 4; ++q) {
-        const int f = tid + kThreads * q;
-#pragma unroll
-        for (int c = 0; c < 4; ++c) S[(f % kq) * 4 + c][f / kq] = v[4 * q + c];
-      }
-    } else if (MODE == kAny) {
-#pragma unroll
-      for (int i = 0; i < kPer; ++i) {
-        const int f = tid + kThreads * i;
-        S[f >> 7][f & 127] = v[i];
-      }
-    }
-  }
-};
-
 // C[m, n] = sum_k A[m*sam + k*sak] * B[k*sbk + n*sbn], k over this CTA's
-// split [z*kchunk, (z+1)*kchunk) in increasing order. Thread (ty, tx) =
-// (tid / 16, tid % 16) holds rows {4ty + i, 64 + 4ty + i} and columns
-// {4tx + j, 64 + 4tx + j} (i, j < 4) of the 128 x 128 tile, so each k step
-// reads its 8 + 8 operands as four float4 from shared memory (a warp's
-// float4 reads hit distinct banks or broadcast). The k tiles are double
-// buffered: the next tile's loads are in flight during the current tile's
-// FMAs, with one __syncthreads a tile.
+// split [z*kchunk, (z+1)*kchunk) in increasing order (fma_gemm.cuh's
+// mainloop: thread (ty, tx) = (tid / 16, tid % 16) holds rows
+// {4ty + i, 64 + 4ty + i} and columns {4tx + j, 64 + 4tx + j}, i, j < 4).
 // (the scalar-load variant holds one CTA an SM: its address arithmetic
 // spills under two)
 template <int AMODE, int BMODE>
@@ -195,59 +108,15 @@ bt_gemm_kernel(const float* __restrict__ A, const float* __restrict__ Bm,
                float* __restrict__ C2, float* __restrict__ partial, int M,
                int N, int K, long long sam, long long sak, long long sbk,
                long long sbn, int epi, int kchunk, Drop dr) {
-  __shared__ __align__(16) float As[2][GBK][GLD];
-  __shared__ __align__(16) float Bs[2][GBK][GLD];
+  __shared__ __align__(16) float As[2][GBK][GBM + fg::GPAD];
+  __shared__ __align__(16) float Bs[2][GBK][GBN + fg::GPAD];
   const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
   const int m0 = blockIdx.x * GBM, n0 = blockIdx.y * GBN;
   const int kb = blockIdx.z * kchunk;
   const int ke = min(K, kb + kchunk);
-  const int tiles = (ke - kb + GBK - 1) / GBK;
-  Operand<AMODE> a{A, sam, sak, M, m0};
-  Operand<BMODE> b{Bm, sbn, sbk, N, n0};
-
   float acc[8][8];
-#pragma unroll
-  for (int i = 0; i < 8; ++i)
-#pragma unroll
-    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
-
-  a.issue(As[0], kb, ke);
-  b.issue(Bs[0], kb, ke);
-  asm volatile("cp.async.commit_group;" ::: "memory");
-  a.store(As[0]);
-  b.store(Bs[0]);
-  asm volatile("cp.async.wait_all;" ::: "memory");
-  __syncthreads();
-  for (int t = 0; t < tiles; ++t) {
-    const int cur = t & 1;
-    const bool more = t + 1 < tiles;
-    if (more) {
-      a.issue(As[cur ^ 1], kb + (t + 1) * GBK, ke);
-      b.issue(Bs[cur ^ 1], kb + (t + 1) * GBK, ke);
-    }
-    asm volatile("cp.async.commit_group;" ::: "memory");
-#pragma unroll
-    for (int kk = 0; kk < GBK; ++kk) {
-      const float4 a0 = *reinterpret_cast<const float4*>(&As[cur][kk][4 * ty]);
-      const float4 a1 =
-          *reinterpret_cast<const float4*>(&As[cur][kk][64 + 4 * ty]);
-      const float4 b0 = *reinterpret_cast<const float4*>(&Bs[cur][kk][4 * tx]);
-      const float4 b1 =
-          *reinterpret_cast<const float4*>(&Bs[cur][kk][64 + 4 * tx]);
-      const float av[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
-      const float bv[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
-#pragma unroll
-      for (int i = 0; i < 8; ++i)
-#pragma unroll
-        for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
-    }
-    if (more) {
-      a.store(As[cur ^ 1]);
-      b.store(Bs[cur ^ 1]);
-    }
-    asm volatile("cp.async.wait_all;" ::: "memory");
-    __syncthreads();
-  }
+  fg::mainloop<GBM, GBN, 8, AMODE, BMODE>(acc, As, Bs, A, sam, sak, M, m0,
+                                          Bm, sbn, sbk, N, n0, kb, ke);
 
   // four contiguous columns at a time: one float4 store where they are
   // whole and aligned
@@ -319,16 +188,6 @@ void launch_bt_gemm(dim3 grid, cudaStream_t s, const float* A,
       epi, kchunk, dr);
 }
 
-// The load mode of an operand with strides sr (along its m / n rows) and
-// sk (along k): 16-byte loads need the contiguous dimension's unit stride,
-// the other stride a multiple of 4 and a 16-byte aligned base.
-int load_mode(const float* p, long long sr, long long sk) {
-  if (reinterpret_cast<uintptr_t>(p) % 16) return kAny;
-  if (sr == 1 && sk % 4 == 0) return kVecR;
-  if (sk == 1 && sr % 4 == 0) return kVecK;
-  return kAny;
-}
-
 // Sums the split-K partials in split order, then bias and addend.
 __global__ void bt_splitk_reduce_kernel(const float* __restrict__ partial,
                                         const float* __restrict__ bias,
@@ -346,11 +205,13 @@ __global__ void bt_splitk_reduce_kernel(const float* __restrict__ partial,
 }
 
 // ------------------------------------------------------------ row kernels
-// One warp per row of d <= 512 columns (d % 32 == 0): lane l holds columns
-// l + 32 t, t < d / 32.
+// One warp per row of d <= 768 columns (d % 32 == 0): lane l holds columns
+// l + 32 t, t < d / 32 <= PER (16 up to d 512, else 24: a row's registers
+// sized to the widths in use; the wider arrays slowed d 256's rows).
 constexpr int kRowsPerBlock = kThreads / 32;
-constexpr int kMaxPerLane = 16;
+constexpr int kMaxPerLane = 24;
 
+template <int PER>
 __global__ void __launch_bounds__(kThreads)
 bt_drop_res_ln_kernel(const float* __restrict__ p,
                       const float* __restrict__ resid,
@@ -365,10 +226,10 @@ bt_drop_res_ln_kernel(const float* __restrict__ p,
   const int row = m % dr.rows;
   const int per = d / 32;
   const size_t r0 = (size_t)m * d;
-  float z[kMaxPerLane];
+  float z[PER];
   float s = 0.f;
 #pragma unroll
-  for (int t = 0; t < kMaxPerLane; ++t) {
+  for (int t = 0; t < PER; ++t) {
     if (t >= per) break;
     const int c = lane + 32 * t;
     const float v = p[r0 + c];
@@ -379,14 +240,14 @@ bt_drop_res_ln_kernel(const float* __restrict__ p,
   const float mean = vs::group_sum<32>(s) / (float)d;
   float q = 0.f;
 #pragma unroll
-  for (int t = 0; t < kMaxPerLane; ++t) {
+  for (int t = 0; t < PER; ++t) {
     if (t >= per) break;
     const float dv = z[t] - mean;
     q += dv * dv;
   }
   const float inv = rsqrtf(vs::group_sum<32>(q) / (float)d + eps);
 #pragma unroll
-  for (int t = 0; t < kMaxPerLane; ++t) {
+  for (int t = 0; t < PER; ++t) {
     if (t >= per) break;
     const int c = lane + 32 * t;
     const float xh = (z[t] - mean) * inv;
@@ -398,6 +259,7 @@ bt_drop_res_ln_kernel(const float* __restrict__ p,
 
 // dz = inv * (gg - mean(gg) - xhat * mean(gg * xhat)), gg = dy * g; dmask =
 // the site's dropout of dz.
+template <int PER>
 __global__ void __launch_bounds__(kThreads)
 bt_ln_bwd_drop_kernel(const float* __restrict__ dy,
                       const float* __restrict__ xhat,
@@ -411,10 +273,10 @@ bt_ln_bwd_drop_kernel(const float* __restrict__ dy,
   const int row = m % dr.rows;
   const int per = d / 32;
   const size_t r0 = (size_t)m * d;
-  float gg[kMaxPerLane], xh[kMaxPerLane];
+  float gg[PER], xh[PER];
   float s = 0.f, sx = 0.f;
 #pragma unroll
-  for (int t = 0; t < kMaxPerLane; ++t) {
+  for (int t = 0; t < PER; ++t) {
     if (t >= per) break;
     const int c = lane + 32 * t;
     gg[t] = dy[r0 + c] * g[c];
@@ -426,7 +288,7 @@ bt_ln_bwd_drop_kernel(const float* __restrict__ dy,
   const float mean_gx = vs::group_sum<32>(sx) / (float)d;
   const float iv = inv[m];
 #pragma unroll
-  for (int t = 0; t < kMaxPerLane; ++t) {
+  for (int t = 0; t < PER; ++t) {
     if (t >= per) break;
     const int c = lane + 32 * t;
     const float v = iv * (gg[t] - mean_g - xh[t] * mean_gx);
@@ -513,7 +375,8 @@ extern "C" int vs_bt_gemm(const float* A, const float* B, const float* bias,
   const Drop dr{seed, site, rows, thr, kscale};
   const dim3 grid((M + GBM - 1) / GBM, (N + GBN - 1) / GBN, z);
   float* part = splits > 1 ? partial : nullptr;
-  const int am = load_mode(A, sam, sak), bm = load_mode(B, sbn, sbk);
+  const int am = fg::load_mode(A, sam, sak);
+  const int bm = fg::load_mode(B, sbn, sbk);
 #define VS_BT_GEMM(AM, BM)                                                  \
   launch_bt_gemm<AM, BM>(grid, s, A, B, bias, addend, aux, C, C2, part, M, \
                          N, K, sam, sak, sbk, sbn, epilogue, kchunk, dr)
@@ -545,9 +408,14 @@ extern "C" int vs_bt_drop_res_ln(const float* p, const float* resid,
   if (M <= 0 || rows <= 0 || d <= 0 || d % 32 || d > 32 * kMaxPerLane)
     return (int)cudaErrorInvalidValue;
   const Drop dr{seed, site, rows, thr, kscale};
-  bt_drop_res_ln_kernel<<<(M + kRowsPerBlock - 1) / kRowsPerBlock, kThreads,
-                          0, static_cast<cudaStream_t>(stream)>>>(
-      p, resid, g, beta, out, xhat, inv, M, d, eps, dr);
+  const dim3 grid((M + kRowsPerBlock - 1) / kRowsPerBlock);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (d <= 512)
+    bt_drop_res_ln_kernel<16><<<grid, kThreads, 0, s>>>(
+        p, resid, g, beta, out, xhat, inv, M, d, eps, dr);
+  else
+    bt_drop_res_ln_kernel<kMaxPerLane><<<grid, kThreads, 0, s>>>(
+        p, resid, g, beta, out, xhat, inv, M, d, eps, dr);
   return (int)cudaGetLastError();
 }
 
@@ -559,9 +427,14 @@ extern "C" int vs_bt_ln_bwd_drop(const float* dy, const float* xhat,
   if (M <= 0 || rows <= 0 || d <= 0 || d % 32 || d > 32 * kMaxPerLane)
     return (int)cudaErrorInvalidValue;
   const Drop dr{seed, site, rows, thr, kscale};
-  bt_ln_bwd_drop_kernel<<<(M + kRowsPerBlock - 1) / kRowsPerBlock, kThreads,
-                          0, static_cast<cudaStream_t>(stream)>>>(
-      dy, xhat, inv, g, dz, dmask, M, d, dr);
+  const dim3 grid((M + kRowsPerBlock - 1) / kRowsPerBlock);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (d <= 512)
+    bt_ln_bwd_drop_kernel<16><<<grid, kThreads, 0, s>>>(
+        dy, xhat, inv, g, dz, dmask, M, d, dr);
+  else
+    bt_ln_bwd_drop_kernel<kMaxPerLane><<<grid, kThreads, 0, s>>>(
+        dy, xhat, inv, g, dz, dmask, M, d, dr);
   return (int)cudaGetLastError();
 }
 

@@ -150,18 +150,20 @@ __device__ __forceinline__ float dequant(int acc, float sx, float sw,
 }
 
 
-// The residual + LayerNorm epilogue of rows wider than one GEMM CTA tile
-// (256 < d <= 512, d_model 512): the GEMM writes the f32 pre-LN rows z =
-// acc (+ dequantised) + bias + residual into y, then one warp per row takes
-// the f32 LayerNorm (mean, biased variance, eps; block_kernel.py::
-// _layernorm_f32) in place, each operation IEEE-rounded on its own, and
-// writes the row in T (out_t, optional) and its int8 codes and scale (out_q,
-// out_s, optional; quantize_rows' scheme). A row's sums run in a fixed
-// order, so its result does not depend on M.
+// The residual + LayerNorm epilogue of rows that do not lie in one GEMM CTA
+// tile (256 < d <= 768: d_model 384, 512 and 768; any d in the f32 GEMM): the
+// GEMM writes the f32 pre-LN rows z = acc (+ dequantised) + bias + residual
+// into y, then one warp per row takes the f32 LayerNorm (mean, biased variance,
+// eps; block_kernel.py::_layernorm_f32) in place, each operation IEEE-rounded
+// on its own, and writes the row in T (out_t, optional) and its int8 codes and
+// scale (out_q, out_s, optional; quantize_rows' scheme). A row's sums run in a
+// fixed order, so its result does not depend on M.
 constexpr int kLnRowsPerBlock = 8;
-constexpr int kLnMaxPerLane = 16;  // d <= 512
+constexpr int kLnMaxPerLane = 24;  // d <= 768
 
-template <typename T>
+// PER values a lane: 16 up to d 512, else 24 (a row's registers sized to
+// the widths in use)
+template <typename T, int PER>
 __global__ void __launch_bounds__(32 * kLnRowsPerBlock)
 layernorm_rows_kernel(float* __restrict__ y, const float* __restrict__ g,
                       const float* __restrict__ beta, T* __restrict__ out_t,
@@ -171,10 +173,10 @@ layernorm_rows_kernel(float* __restrict__ y, const float* __restrict__ g,
   const int lane = threadIdx.x & 31;
   if (row >= M) return;  // whole warps leave together
   float* yr = y + (size_t)row * N;
-  float z[kLnMaxPerLane];
+  float z[PER];
   float s = 0.f;
 #pragma unroll
-  for (int j = 0; j < kLnMaxPerLane; ++j) {
+  for (int j = 0; j < PER; ++j) {
     const int c = lane + 32 * j;
     z[j] = c < N ? yr[c] : 0.f;
     s = __fadd_rn(s, z[j]);
@@ -182,7 +184,7 @@ layernorm_rows_kernel(float* __restrict__ y, const float* __restrict__ g,
   const float mean = __fdiv_rn(group_sum<32>(s), (float)N);
   float v = 0.f;
 #pragma unroll
-  for (int j = 0; j < kLnMaxPerLane; ++j) {
+  for (int j = 0; j < PER; ++j) {
     const float d = __fsub_rn(z[j], mean);
     if (lane + 32 * j < N) v = __fadd_rn(v, __fmul_rn(d, d));
   }
@@ -190,7 +192,7 @@ layernorm_rows_kernel(float* __restrict__ y, const float* __restrict__ g,
       1.f, __fsqrt_rn(__fadd_rn(__fdiv_rn(group_sum<32>(v), (float)N), eps)));
   float mx = 0.f;
 #pragma unroll
-  for (int j = 0; j < kLnMaxPerLane; ++j) {
+  for (int j = 0; j < PER; ++j) {
     const int c = lane + 32 * j;
     if (c >= N) continue;
     z[j] = __fadd_rn(__fmul_rn(__fmul_rn(__fsub_rn(z[j], mean), inv), g[c]),
@@ -203,7 +205,7 @@ layernorm_rows_kernel(float* __restrict__ y, const float* __restrict__ g,
   const float scale = quant_scale(group_max<32>(mx));
   const float qinv = __fdiv_rn(1.f, scale);
 #pragma unroll
-  for (int j = 0; j < kLnMaxPerLane; ++j) {
+  for (int j = 0; j < PER; ++j) {
     const int c = lane + 32 * j;
     if (c < N) out_q[(size_t)row * N + c] = quant_code(z[j], qinv);
   }
@@ -216,10 +218,14 @@ cudaError_t launch_layernorm_rows(float* y, const float* g, const float* beta,
                                   int M, int N, float eps,
                                   cudaStream_t stream) {
   if (N > 32 * kLnMaxPerLane) return cudaErrorInvalidValue;
-  layernorm_rows_kernel<T>
-      <<<(M + kLnRowsPerBlock - 1) / kLnRowsPerBlock, 32 * kLnRowsPerBlock, 0,
-         stream>>>(y, g, beta, static_cast<T*>(out_t), out_q, out_s, M, N,
-                   eps);
+  const dim3 grid((M + kLnRowsPerBlock - 1) / kLnRowsPerBlock);
+  if (N <= 512)
+    layernorm_rows_kernel<T, 16><<<grid, 32 * kLnRowsPerBlock, 0, stream>>>(
+        y, g, beta, static_cast<T*>(out_t), out_q, out_s, M, N, eps);
+  else
+    layernorm_rows_kernel<T, kLnMaxPerLane>
+        <<<grid, 32 * kLnRowsPerBlock, 0, stream>>>(
+            y, g, beta, static_cast<T*>(out_t), out_q, out_s, M, N, eps);
   return cudaGetLastError();
 }
 

@@ -11,11 +11,11 @@
 //   EPI_RELU    y = max(acc + b, 0)               (fc1)
 //   EPI_RES_LN  y = LN(acc + b + residual)        (proj + LN1, fc2 + LN2)
 // The LayerNorm runs in f32 with eps and biased variance, as
-// block_kernel.py::_layernorm_f32 does. A row of d <= 256 lies in one CTA
-// tile, so its statistics never leave the CTA; a wider row (d 512) is
-// written pre-LN in f32 by the GEMM (EPI_RES, y = acc + b + residual, into
-// out_f) and normalised in place by common.cuh's layernorm_rows_kernel, the
-// same f32 math in a second launch.
+// block_kernel.py::_layernorm_f32 does. In bf16 a row of d <= 256 lies in
+// one CTA tile, so its statistics never leave the CTA; a wider row (d
+// 384-768), and in f32 every row, is written pre-LN in f32 by the GEMM
+// (EPI_RES, y = acc + b + residual, into out_f) and normalised in place by
+// common.cuh's layernorm_rows_kernel, the same f32 math in a second launch.
 //
 // Layouts: X (M, K) with row stride ldx and W (N, K) with row stride ldw
 // (nn.Linear's weight layout), both K-contiguous, in T; bias, LN scale/shift
@@ -51,133 +51,95 @@
 // K or a row stride not a multiple of 8 elements, or X / W not on a 16-byte
 // boundary; ops/block_kernel.gemm_takes_wgmma is the predicate and
 // gemm_bias_epilogue.fallback_launches counts those calls. f32 stays exact
-// (no TF32) on the FMA units (67 TFLOP/s peak) with a register-blocked tiled
-// kernel.
+// (no TF32) on the FMA units (67 TFLOP/s peak; 25.8 GFLOP take 0.39 ms):
+// gemm_f32_kernel, the training GEMM's double-buffered mainloop
+// (fma_gemm.cuh) under the serving epilogues, with no split-k, so that
+// every output is one thread's FMAs in increasing k at every M; a
+// LayerNorm row of any d goes through the row kernel.
 #include <cuda.h>  // CUtensorMap and its encoder's types only: nothing links libcuda
 
 #include <mutex>
 
 #include "common.cuh"
+#include "fma_gemm.cuh"
 
 namespace {
 
 constexpr int kThreads = 256;  // 8 warps
-constexpr int kBK = 16;
-// FMA tile: each warp TM rows, each lane TN columns of a (8 TM) x (32 TN)
-// CTA tile; the 256 columns hold a whole LayerNorm row of every d_model in
-// the repo
-constexpr int TM = 8, TN = 8;
 
 enum Epilogue : int { EPI_NONE = 0, EPI_RELU = 1, EPI_RES_LN = 2,
                       EPI_RES = 3 /* internal: the pre-LN row */ };
 
-template <typename T, int EPI>
-__global__ void __launch_bounds__(kThreads)
-gemm_bias_epilogue_kernel(const T* __restrict__ X, const T* __restrict__ W,
-                          const float* __restrict__ bias,
-                          const T* __restrict__ resid_t,
-                          const float* __restrict__ resid_f,
-                          const float* __restrict__ ln_g,
-                          const float* __restrict__ ln_b,
-                          T* __restrict__ out_t, float* __restrict__ out_f,
-                          int M, int N, int K, int ldx, int ldw, float eps) {
-  constexpr int BM = 8 * TM;
-  constexpr int BN = 32 * TN;
-  // k-major tiles, padded by one column so the transposing stores spread
-  // over the banks
-  __shared__ float Xs[kBK][BM + 1];
-  __shared__ float Ws[kBK][BN + 1];
+// ---------------------------------------------------------------------------
+// f32 on the FMA units, exact (no TF32): fma_gemm.cuh's mainloop, which the
+// training block's bt_gemm shares, over X (M, K) and W (N, K), both
+// K-contiguous: 16-byte loads into registers, stored k-major and transposed
+// under the current tile's FMAs (MODE kVecK), or scalar loads through the
+// same pipeline for operands off 16 bytes (kAny: K or a row stride not a
+// multiple of 4, or a misaligned base; ops/block_kernel.gemm_takes_vec4 is
+// the predicate and gemm_bias_epilogue.fallback_launches counts those
+// calls). 128 x 128 CTAs of 8 x 8 outputs a thread (R 8), or, where that
+// grid leaves SMs idle, 64 x 64 CTAs of 4 x 4 (R 4; ops/block_kernel.
+// gemm_f32_tile picks it from the grid): every output is the same FMAs in
+// the same k order either way, so a row's bits do not depend on M. The
+// epilogue runs on the accumulators: bias, ReLU, or the residual of the
+// pre-LN row (a LayerNorm row always goes through out_f and common.cuh's
+// row kernel, whose arithmetic is the same at every M; it measured faster
+// than a 64 x 256 tile holding the row, at (32, 512) and (8, 256)), four
+// contiguous columns a store. Launch bounds ask for two CTAs an SM (128
+// registers a thread), one for the scalar loads' address arithmetic.
+namespace fg = vs::fma_gemm;
 
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const int m0 = blockIdx.x * BM;
-  const int n0 = blockIdx.y * BN;
+template <int BM, int R, int MODE, int EPI>
+__global__ void __launch_bounds__(kThreads, MODE == fg::kAny ? 1 : 2)
+gemm_f32_kernel(const float* __restrict__ X, const float* __restrict__ W,
+                const float* __restrict__ bias,
+                const float* __restrict__ resid, float* __restrict__ out_t,
+                float* __restrict__ out_f, int M, int N, int K, int ldx,
+                int ldw) {
+  constexpr int BN = R * R * kThreads / BM, RB = R / 4;
+  static_assert(EPI != EPI_RES_LN, "LayerNorm rows take the row kernel");
+  __shared__ __align__(16) float As[2][fg::GBK][BM + fg::GPAD];
+  __shared__ __align__(16) float Bs[2][fg::GBK][BN + fg::GPAD];
+  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;  // BN / R 16
+  const int m0 = blockIdx.x * BM, n0 = blockIdx.y * BN;
+  float acc[R][R];
+  fg::mainloop<BM, BN, R, MODE, MODE>(acc, As, Bs, X, ldx, 1, M, m0, W, ldw,
+                                      1, N, n0, 0, K);
 
-  float acc[TM][TN];
+  const bool vec4 = (N & 3) == 0;
 #pragma unroll
-  for (int i = 0; i < TM; ++i)
+  for (int i = 0; i < R; ++i) {
+    const int m = m0 + (i >> 2) * (BM / RB) + 4 * ty + (i & 3);
+    if (m >= M) continue;
 #pragma unroll
-    for (int j = 0; j < TN; ++j) acc[i][j] = 0.f;
-
-  for (int k0 = 0; k0 < K; k0 += kBK) {
-    for (int idx = threadIdx.x; idx < BM * kBK; idx += kThreads) {
-      const int r = idx / kBK, c = idx % kBK;
-      const int gm = m0 + r, gk = k0 + c;
-      Xs[c][r] = (gm < M && gk < K) ? vs::to_f32<T>(X[(size_t)gm * ldx + gk])
-                                    : 0.f;
-    }
-    for (int idx = threadIdx.x; idx < BN * kBK; idx += kThreads) {
-      const int r = idx / kBK, c = idx % kBK;
-      const int gn = n0 + r, gk = k0 + c;
-      Ws[c][r] = (gn < N && gk < K) ? vs::to_f32<T>(W[(size_t)gn * ldw + gk])
-                                    : 0.f;
-    }
-    __syncthreads();
+    for (int jq = 0; jq < RB; ++jq) {
+      const int nq = n0 + jq * (BN / RB) + 4 * tx;
+      if (nq >= N) continue;
+      const size_t o = (size_t)m * N + nq;
+      float y[4];
 #pragma unroll
-    for (int kk = 0; kk < kBK; ++kk) {
-      float a[TM], b[TN];
-#pragma unroll
-      for (int i = 0; i < TM; ++i) a[i] = Xs[kk][warp * TM + i];
-#pragma unroll
-      for (int j = 0; j < TN; ++j) b[j] = Ws[kk][lane + 32 * j];
-#pragma unroll
-      for (int i = 0; i < TM; ++i)
-#pragma unroll
-        for (int j = 0; j < TN; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
-    }
-    __syncthreads();
-  }
-
-#pragma unroll
-  for (int i = 0; i < TM; ++i) {
-    // row is the same for the whole warp, so the shuffles below never diverge
-    const int row = m0 + warp * TM + i;
-    const bool row_ok = row < M;
-    float y[TN];
-#pragma unroll
-    for (int j = 0; j < TN; ++j) {
-      const int col = n0 + lane + 32 * j;
-      y[j] = col < N ? acc[i][j] + bias[col] : 0.f;
-      if (EPI == EPI_RELU) y[j] = fmaxf(y[j], 0.f);
-    }
-    if (EPI == EPI_RES_LN || EPI == EPI_RES) {
-#pragma unroll
-      for (int j = 0; j < TN; ++j) {
-        const int col = n0 + lane + 32 * j;
-        if (col < N && row_ok) {
-          const size_t o = (size_t)row * N + col;
-          y[j] += resid_f != nullptr ? resid_f[o] : vs::to_f32<T>(resid_t[o]);
+      for (int j = 0; j < 4; ++j) {
+        const int n = nq + j;
+        y[j] = acc[i][4 * jq + j];
+        if (n < N) {
+          y[j] += bias[n];
+          if (EPI == EPI_RELU) y[j] = fmaxf(y[j], 0.f);
+          if (EPI == EPI_RES) y[j] += resid[o + j];
         }
       }
-    }
-    if (EPI == EPI_RES_LN) {
-      float s = 0.f;
+      if (vec4 && nq + 4 <= N) {
+        const float4 w4 = make_float4(y[0], y[1], y[2], y[3]);
+        if (out_t != nullptr) *reinterpret_cast<float4*>(out_t + o) = w4;
+        if (out_f != nullptr) *reinterpret_cast<float4*>(out_f + o) = w4;
+      } else {
 #pragma unroll
-      for (int j = 0; j < TN; ++j) s += n0 + lane + 32 * j < N ? y[j] : 0.f;
-      const float mean = vs::group_sum<32>(s) / (float)N;
-      float v = 0.f;
-#pragma unroll
-      for (int j = 0; j < TN; ++j) {
-        const int col = n0 + lane + 32 * j;
-        const float dlt = y[j] - mean;
-        v += col < N ? dlt * dlt : 0.f;
+        for (int j = 0; j < 4; ++j) {
+          if (nq + j >= N) continue;
+          if (out_t != nullptr) out_t[o + j] = y[j];
+          if (out_f != nullptr) out_f[o + j] = y[j];
+        }
       }
-      const float var = vs::group_sum<32>(v) / (float)N;
-      const float inv = 1.f / sqrtf(var + eps);
-#pragma unroll
-      for (int j = 0; j < TN; ++j) {
-        const int col = n0 + lane + 32 * j;
-        if (col < N) y[j] = (y[j] - mean) * inv * ln_g[col] + ln_b[col];
-      }
-    }
-    if (!row_ok) continue;
-#pragma unroll
-    for (int j = 0; j < TN; ++j) {
-      const int col = n0 + lane + 32 * j;
-      if (col >= N) continue;
-      const size_t o = (size_t)row * N + col;
-      if (out_f != nullptr) out_f[o] = y[j];
-      if (out_t != nullptr) out_t[o] = vs::from_f32<T>(y[j]);
     }
   }
 }
@@ -920,34 +882,53 @@ cudaError_t launch_mma(const GemmArgs& g, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
-template <typename T>
-cudaError_t launch_tiles(const GemmArgs& g, cudaStream_t stream) {
-  constexpr int BM = 8 * TM, BN = 32 * TN;
+template <int BM, int R, int MODE, int EPI>
+cudaError_t launch_f32_tile(const GemmArgs& g, cudaStream_t stream) {
+  constexpr int BN = R * R * kThreads / BM;
   const dim3 grid((g.M + BM - 1) / BM, (g.N + BN - 1) / BN);
-  const T* X = static_cast<const T*>(g.x);
-  const T* Wt = static_cast<const T*>(g.w);
-  const T* R = static_cast<const T*>(g.resid_t);
-  T* O = static_cast<T*>(g.out_t);
-#define VS_FMA(E)                                                           \
-  gemm_bias_epilogue_kernel<T, E><<<grid, kThreads, 0, stream>>>(           \
-      X, Wt, g.bias, R, g.resid_f, g.ln_g, g.ln_b, O, g.out_f, g.M, g.N, g.K, \
-      g.ldx, g.ldw, g.eps)
+  const float* resid = g.resid_f != nullptr
+                           ? g.resid_f
+                           : static_cast<const float*>(g.resid_t);
+  gemm_f32_kernel<BM, R, MODE, EPI><<<grid, kThreads, 0, stream>>>(
+      static_cast<const float*>(g.x), static_cast<const float*>(g.w), g.bias,
+      resid, static_cast<float*>(g.out_t), g.out_f, g.M, g.N, g.K, g.ldx,
+      g.ldw);
+  return cudaGetLastError();
+}
+
+template <int BM, int R, int MODE>
+cudaError_t launch_f32_epi(const GemmArgs& g, cudaStream_t stream) {
   switch (g.epi) {
-    case EPI_NONE: VS_FMA(EPI_NONE); break;
-    case EPI_RELU: VS_FMA(EPI_RELU); break;
-    case EPI_RES_LN: VS_FMA(EPI_RES_LN); break;
-    case EPI_RES: VS_FMA(EPI_RES); break;
+    case EPI_NONE: return launch_f32_tile<BM, R, MODE, EPI_NONE>(g, stream);
+    case EPI_RELU: return launch_f32_tile<BM, R, MODE, EPI_RELU>(g, stream);
+    case EPI_RES: return launch_f32_tile<BM, R, MODE, EPI_RES>(g, stream);
     default: return cudaErrorInvalidValue;
   }
-#undef VS_FMA
-  return cudaGetLastError();
+}
+
+// tile 128: 128 x 128 CTAs (R 8); 64: 64 x 64 (R 4)
+cudaError_t launch_f32(const GemmArgs& g, int tile, cudaStream_t stream) {
+  // 16-byte loads need K and the row strides a multiple of 4 floats and
+  // 16-byte aligned bases (ops/block_kernel.gemm_takes_vec4)
+  const bool vec = g.K % 4 == 0 && g.ldx % 4 == 0 && g.ldw % 4 == 0 &&
+                   reinterpret_cast<uintptr_t>(g.x) % 16 == 0 &&
+                   reinterpret_cast<uintptr_t>(g.w) % 16 == 0;
+  if (tile == 128)
+    return vec ? launch_f32_epi<128, 8, fg::kVecK>(g, stream)
+               : launch_f32_epi<128, 8, fg::kAny>(g, stream);
+  if (tile == 64)
+    return vec ? launch_f32_epi<64, 4, fg::kVecK>(g, stream)
+               : launch_f32_epi<64, 4, fg::kAny>(g, stream);
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace
 
 // cta_rows: 128 or 64 takes the wgmma kernel (bf16) with tile_n (128 or
 // 256) columns a CTA; 0 takes the FMA kernel (f32) or the mma.sync fallback
-// (bf16). ldx / ldw: the row strides of x and w in elements.
+// (bf16). In f32, tile_n is the FMA kernel's square tile (128 or 64), and
+// every residual+LayerNorm row goes through the pre-LN f32 buffer and the
+// row kernel. ldx / ldw: the row strides of x and w in elements.
 extern "C" int vs_gemm_bias_epilogue(const void* x, const void* w,
                                      const float* bias, const void* resid_t,
                                      const float* resid_f, const float* ln_g,
@@ -965,10 +946,13 @@ extern "C" int vs_gemm_bias_epilogue(const void* x, const void* w,
   if (wgmma && (dtype != vs::kBF16 || (cta_rows != 64 && cta_rows != 128) ||
                 (tile_n != 128 && tile_n != 256)))
     return (int)cudaErrorInvalidValue;
+  if (dtype == vs::kF32 && tile_n != 128 && tile_n != 64)
+    return (int)cudaErrorInvalidValue;
   // a LayerNorm row wider than one CTA tile (256 columns; the wgmma
-  // kernel's tile_n) goes through out_f (required) and a row kernel
-  const bool wide =
-      epilogue == EPI_RES_LN && N > (wgmma ? tile_n : 256);
+  // kernel's tile_n; in f32 every row) goes through out_f (required) and a
+  // row kernel
+  const int ln_cols = dtype == vs::kF32 ? 0 : (wgmma ? tile_n : 256);
+  const bool wide = epilogue == EPI_RES_LN && N > ln_cols;
   if (wide && (N > 32 * vs::kLnMaxPerLane || out_f == nullptr))
     return (int)cudaErrorInvalidValue;
   const GemmArgs g{x, w, bias, resid_t, resid_f, ln_g, ln_b,
@@ -977,7 +961,7 @@ extern "C" int vs_gemm_bias_epilogue(const void* x, const void* w,
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   if (dtype == vs::kF32 && !wgmma)
-    err = launch_tiles<float>(g, s);
+    err = launch_f32(g, tile_n, s);
   else if (dtype == vs::kBF16)
     err = wgmma ? launch_wgmma(g, cta_rows, tile_n, s) : launch_mma(g, s);
   else

@@ -18,8 +18,10 @@
 // the normalised p = e / sum(e) (attention.py:61-65, block_kernel.py:71-77),
 // the folded kernel the unnormalised e of its online softmax and divides at
 // the end (attention.py:98-115). In f32 the rounding is the identity and the
-// two orders agree up to summation order, so the f32 kernel always folds
-// online. The fold keeps the folded kernel's _DEAD guards: a row that has
+// two orders agree up to summation order, so f32 always folds online, on
+// attention_core.cuh's FMA forward (launch_fma: the f32 training
+// attention's kernel, fma_fwd_kernel, with no dropout and no lse). The fold
+// keeps the folded kernel's _DEAD guards: a row that has
 // seen no unpadded key carries m = -inf and contributes nothing, and a row
 // with no unpadded key at all is written as 0 (the folded kernel's
 // behaviour; the serving path never produces such a row because every
@@ -39,10 +41,11 @@
 // double-buffered by cp.async, only the key tiles that hold an unpadded key
 // walked, 128-query CTAs where the grid fills the card and exp on the MUFU
 // unit (the normalise-first order computes Q.K^T twice: 1.5x the bound's
-// work); f32 stays exact (no TF32) on the FMA units, each thread holding a
-// 4 x 4 score block and a 4 x (Dh/16) output block, with the shared-memory
-// tiles stored transposed and padded so every read is conflict-free or a
-// broadcast, and its K/V loads not overlapped with its products.
+// work); f32 stays exact (no TF32) on the FMA units (67 TFLOP/s: 0.13 ms at
+// B=32, N=512, 3.1 ms at N=16,384 with a ragged mask): fma_fwd_kernel's
+// 8 x 8 score and output blocks a thread (4 x 8 at head_dim 96 and 128)
+// read as float4 from row-major tiles that 16-byte cp.async streams in,
+// over the live key tiles only, in one online pass.
 //
 // The int8 block (vidsum_tpu/ops/block_kernel_int8.py::_block_kernel_int8,
 // ::_block_kernel_int8_grouped) runs this attention with two differences
@@ -51,9 +54,12 @@
 // also writes f32 (OutT); and with qk_int8 the scores are
 // i8dot(q8, k8) * (qs * ks) * scale from int8 Q and K with per-row f32
 // scales (QK8): the bf16 kernel takes them on the int8 tensor cores
-// (mma.sync m16n8k32; head_dim 16 is zero-padded to one k32 step), the f32
-// kernel on its FMA loop, where the dot of int8 values is an exact integer
-// (Dh * 127^2 < 2^24). V, P and P.V are as above.
+// (mma.sync m16n8k32; head_dim 16 is zero-padded to one k32 step, 96 takes
+// three), the f32 route on masked_attention_q8_kernel, the first FMA
+// kernel of this file kept for QK8 alone (4 x 4 score blocks over
+// transposed tiles, K/V loads not overlapped), where the dot of int8 values
+// is an exact integer (Dh * 127^2 < 2^24). V, P and P.V are as above.
+#include "attention_core.cuh"
 #include "mma_tiles.cuh"
 
 namespace {
@@ -71,23 +77,27 @@ constexpr int smem_floats() {
          + kBKey * DH   // Vs  [kBKey][DH]
          + kBKey * kPad // Pt  [kBKey][kPad]
          + kBKey        // key mask as 0/1 floats
-         + kBKey;       // QK8: the keys' int8 scales
+         + kBKey;       // the keys' int8 scales
 }
 
-// Q and K are T, or int8 codes with per-row scales qsc / ksc (QK8), given by
-// the element strides c_b, c_h, c_n.
-template <typename T, int DH, bool QK8>
+// The f32 int8 block's attention with qk_int8 (QK8): Q and K int8 codes with
+// per-row scales qsc / ksc (element strides c_b, c_h, c_n), V and o f32.
+// Each thread holds a 4 x 4 score block and a 4 x (DH / 16) output block
+// over transposed, padded shared tiles; the dot of int8 values is an exact
+// integer in f32 (DH * 127^2 < 2^24), then (dot * (qs * ks)) * scale as
+// the TPU kernel rounds it; the online softmax with the _DEAD guards.
+template <int DH>
 __global__ void __launch_bounds__(kThreads)
-masked_attention_kernel(const void* __restrict__ q_,
-                        const void* __restrict__ k_,
-                        const T* __restrict__ v,
-                        const unsigned char* __restrict__ mask,
-                        const float* __restrict__ qsc,
-                        const float* __restrict__ ksc,
-                        T* __restrict__ o, int N, long long s_b,
-                        long long s_h, long long s_n, long long o_s_b,
-                        long long o_s_h, long long o_s_n, long long c_b,
-                        long long c_h, long long c_n, float scale) {
+masked_attention_q8_kernel(const int8_t* __restrict__ q8,
+                           const int8_t* __restrict__ k8,
+                           const float* __restrict__ v,
+                           const unsigned char* __restrict__ mask,
+                           const float* __restrict__ qsc,
+                           const float* __restrict__ ksc,
+                           float* __restrict__ o, int N, long long s_b,
+                           long long s_h, long long s_n, long long o_s_b,
+                           long long o_s_h, long long o_s_n, long long c_b,
+                           long long c_h, long long c_n, float scale) {
   constexpr int DPT = DH / 16;  // output columns per thread
   extern __shared__ float smem[];
   float* Qt = smem;
@@ -96,10 +106,6 @@ masked_attention_kernel(const void* __restrict__ q_,
   float* Pt = Vs + kBKey * DH;
   float* Km = Pt + kBKey * kPad;
   float* Ksc = Km + kBKey;
-  const T* q = static_cast<const T*>(q_);
-  const T* k = static_cast<const T*>(k_);
-  const int8_t* q8 = static_cast<const int8_t*>(q_);
-  const int8_t* k8 = static_cast<const int8_t*>(k_);
 
   const int tid = threadIdx.x;
   const int rg = tid >> 4;  // row group: rows 4*rg .. 4*rg+3 of the tile
@@ -114,19 +120,13 @@ masked_attention_kernel(const void* __restrict__ q_,
   for (int idx = tid; idx < kBQ * DH; idx += kThreads) {
     const int r = idx / DH, c = idx % DH;
     const int n = q0 + r;
-    float val = 0.f;
-    if (n < N)
-      val = QK8 ? (float)q8[base + n * s_n + c]
-                : vs::to_f32<T>(q[base + n * s_n + c]);
-    Qt[c * kPad + r] = val;
+    Qt[c * kPad + r] = n < N ? (float)q8[base + n * s_n + c] : 0.f;
   }
   float qs[4] = {1.f, 1.f, 1.f, 1.f};
-  if (QK8) {
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int n = q0 + rg * 4 + i;
-      if (n < N) qs[i] = qsc[cbase + n * c_n];
-    }
+  for (int i = 0; i < 4; ++i) {
+    const int n = q0 + rg * 4 + i;
+    if (n < N) qs[i] = qsc[cbase + n * c_n];
   }
 
   float m[4], l[4], acc[4][DPT];
@@ -144,17 +144,13 @@ masked_attention_kernel(const void* __restrict__ q_,
       const int r = idx / DH, c = idx % DH;
       const int n = k0 + r;
       const bool ok = n < N;
-      float kv = 0.f;
-      if (ok)
-        kv = QK8 ? (float)k8[base + n * s_n + c]
-                 : vs::to_f32<T>(k[base + n * s_n + c]);
-      Kt[c * kPad + r] = kv;
-      Vs[r * DH + c] = ok ? vs::to_f32<T>(v[base + n * s_n + c]) : 0.f;
+      Kt[c * kPad + r] = ok ? (float)k8[base + n * s_n + c] : 0.f;
+      Vs[r * DH + c] = ok ? v[base + n * s_n + c] : 0.f;
     }
     if (tid < kBKey) {
       const int n = k0 + tid;
       Km[tid] = (n >= N || mrow[n] != 0) ? 1.f : 0.f;
-      if (QK8) Ksc[tid] = n < N ? ksc[cbase + n * c_n] : 0.f;
+      Ksc[tid] = n < N ? ksc[cbase + n * c_n] : 0.f;
     }
     __syncthreads();
 
@@ -181,12 +177,9 @@ masked_attention_kernel(const void* __restrict__ q_,
       float mx = -INFINITY;
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
-        // QK8: s is the exact integer dot; (dot * (qs * ks)) * scale
-        const float sj =
-            QK8 ? __fmul_rn(__fmul_rn(s[i][j],
-                                      __fmul_rn(qs[i], Ksc[cg + 16 * j])),
-                            scale)
-                : s[i][j] * scale;
+        // s is the exact integer dot; (dot * (qs * ks)) * scale
+        const float sj = __fmul_rn(
+            __fmul_rn(s[i][j], __fmul_rn(qs[i], Ksc[cg + 16 * j])), scale);
         s[i][j] = Km[cg + 16 * j] != 0.f ? -INFINITY : sj;
         mx = fmaxf(mx, s[i][j]);
       }
@@ -200,7 +193,7 @@ masked_attention_kernel(const void* __restrict__ q_,
       for (int j = 0; j < 4; ++j) {
         const float e = dead ? 0.f : expf(s[i][j] - m_safe);
         rs += e;
-        Pt[(cg + 16 * j) * kPad + rg * 4 + i] = vs::round_to<T>(e);
+        Pt[(cg + 16 * j) * kPad + rg * 4 + i] = e;
       }
       rs = vs::group_sum<16>(rs);
       l[i] = l[i] * corr + rs;
@@ -232,7 +225,7 @@ masked_attention_kernel(const void* __restrict__ q_,
     const float inv = l[i] == 0.f ? 0.f : 1.f / l[i];
 #pragma unroll
     for (int d = 0; d < DPT; ++d)
-      o[obase + n * o_s_n + cg + 16 * d] = vs::from_f32<T>(acc[i][d] * inv);
+      o[obase + n * o_s_n + cg + 16 * d] = acc[i][d] * inv;
   }
 }
 
@@ -607,43 +600,99 @@ cudaError_t launch_mma(const Args& a, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
-template <typename T, int DH, bool QK8>
-cudaError_t launch(const Args& a, cudaStream_t stream) {
+template <int DH>
+cudaError_t launch_q8(const Args& a, cudaStream_t stream) {
   constexpr int bytes = smem_floats<DH>() * (int)sizeof(float);
-  auto kernel = masked_attention_kernel<T, DH, QK8>;
+  auto kernel = masked_attention_q8_kernel<DH>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err != cudaSuccess) return err;
   const dim3 grid((a.N + kBQ - 1) / kBQ, a.H, a.B);
   kernel<<<grid, kThreads, bytes, stream>>>(
-      a.q, a.k, static_cast<const T*>(a.v), a.mask, a.qsc, a.ksc,
-      static_cast<T*>(a.o), a.N, a.s_b, a.s_h, a.s_n, a.o_s_b, a.o_s_h,
+      static_cast<const int8_t*>(a.q), static_cast<const int8_t*>(a.k),
+      static_cast<const float*>(a.v), a.mask, a.qsc, a.ksc,
+      static_cast<float*>(a.o), a.N, a.s_b, a.s_h, a.s_n, a.o_s_b, a.o_s_h,
       a.o_s_n, a.c_b, a.c_h, a.c_n, a.scale);
   return cudaGetLastError();
 }
 
 // head_dim 64 is the flagship's, 16 that of the d 64 test configurations,
-// 128 that of d 512 with 4 heads (ops/_cuda.HEAD_DIMS); at 128 the FMA kernel
-// takes 116 KB of shared memory and the mma kernel 85 KB and the live-tile
-// list
-template <typename T, bool QK8>
-cudaError_t launch_dh(const Args& a, int Dh, cudaStream_t stream) {
+// 96 that of d 384 with 4 heads and d 768 with 8, 128 that of d 512 with 4
+// heads (ops/_cuda.HEAD_DIMS); at 128 the QK8 kernel takes 116 KB of
+// shared memory and the mma kernel 85 KB and the live-tile list
+cudaError_t launch_q8_dh(const Args& a, int Dh, cudaStream_t stream) {
   switch (Dh) {
     case 16:
-      return launch<T, 16, QK8>(a, stream);
+      return launch_q8<16>(a, stream);
     case 32:
-      return launch<T, 32, QK8>(a, stream);
+      return launch_q8<32>(a, stream);
     case 64:
-      return launch<T, 64, QK8>(a, stream);
+      return launch_q8<64>(a, stream);
+    case 96:
+      return launch_q8<96>(a, stream);
     case 128:
-      return launch<T, 128, QK8>(a, stream);
+      return launch_q8<128>(a, stream);
     default:
       return cudaErrorInvalidValue;
   }
 }
 
+// f32 without QK8 (TPU kernels 3/4 and the attention of the serving blocks
+// 1/2): attention_core.cuh's FMA forward, the f32 training attention's, at
+// any N over the same strided views, with no dropout (thr 0 hashes
+// nothing, kscale 1 is exact) and no lse, online on both routes (in f32
+// the single pass and the fold differ by summation order only; an element
+// with no unpadded key gives o = 0, as the serving kernels always have),
+// in CTAs of 16 TY: `rows` 128 (8 a thread, head_dim <= 64) where a grid
+// of them fills both CTA slots of every SM, else 64 (4 a thread: twice the
+// warps on a small grid), as the caller picks (ops/attention.mma_cta_rows,
+// the bf16 kernel's rule). A row's bits do not depend on the shape: its key
+// tiles, the split of its columns over its 8 threads and their shuffle
+// reductions are the same in both, so a request scores the same alone and
+// in a batch.
+template <int DH>
+cudaError_t launch_fma_dh(const vs::attn::Args& a, int B, int rows,
+                          cudaStream_t stream) {
+  if (!vs::attn::fma_layout_ok(a, false)) return cudaErrorMisalignedAddress;
+  if constexpr (DH <= 64)
+    if (rows == 128)
+      return vs::attn::launch_fma_fwd<DH, 16, 8, true>(a, B, stream);
+  return rows == 64 ? vs::attn::launch_fma_fwd<DH, 16, 4, true>(a, B, stream)
+                    : cudaErrorInvalidValue;
+}
+
+cudaError_t launch_fma(const Args& m, int Dh, int rows, cudaStream_t stream) {
+  if (!vs::attn::serve_shape_ok(m.B, m.H, m.N, Dh))
+    return cudaErrorInvalidValue;
+  vs::attn::Args a{};
+  a.q = m.q;
+  a.k = m.k;
+  a.v = m.v;
+  a.out = m.o;
+  a.mask = m.mask;
+  a.isb = m.s_b;
+  a.ish = m.s_h;
+  a.isn = m.s_n;
+  a.osb = m.o_s_b;
+  a.osh = m.o_s_h;
+  a.osn = m.o_s_n;
+  a.N = m.N;
+  a.H = m.H;
+  a.scale = m.scale;
+  a.kscale = 1.f;
+  a.online = 1;
+  switch (Dh) {
+    case 16: return launch_fma_dh<16>(a, m.B, rows, stream);
+    case 32: return launch_fma_dh<32>(a, m.B, rows, stream);
+    case 64: return launch_fma_dh<64>(a, m.B, rows, stream);
+    case 96: return launch_fma_dh<96>(a, m.B, rows, stream);
+    case 128: return launch_fma_dh<128>(a, m.B, rows, stream);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
 // rows: the CTA's query rows, 16 per warp (ops/attention.mma_cta_rows):
-// 128 (8 warps) or 64 (4 warps) at head_dim <= 64, 64 at 128
+// 128 (8 warps) or 64 (4 warps) at head_dim <= 64, 64 at 96 and 128
 template <bool NORM_FIRST, typename OutT, bool QK8>
 cudaError_t launch_mma_dh(const Args& a, int Dh, int rows,
                           cudaStream_t stream) {
@@ -663,6 +712,8 @@ cudaError_t launch_mma_dh(const Args& a, int Dh, int rows,
     case 64:
       return w8 ? launch_mma<64, 8, NORM_FIRST, OutT, QK8>(a, stream)
                 : launch_mma<64, 4, NORM_FIRST, OutT, QK8>(a, stream);
+    case 96:
+      return launch_mma<96, 4, NORM_FIRST, OutT, QK8>(a, stream);
     case 128:
       return launch_mma<128, 4, NORM_FIRST, OutT, QK8>(a, stream);
     default:
@@ -676,7 +727,7 @@ cudaError_t launch_mma_dh(const Args& a, int Dh, int rows,
 // or, with qsc / ksc given, q and k int8 codes at the same strides and
 // qsc / ksc their per-row f32 scales at strides c_b, c_h, c_n (qk_int8). o in
 // out_dtype: dtype, or f32 for bf16 inputs with norm_first (the int8 block).
-// cta_rows: the query rows of a bf16 CTA (the f32 kernel's are 64).
+// cta_rows: the query rows of a CTA (the f32 QK8 kernel's are 64).
 extern "C" int vs_masked_attention(const void* q, const void* k,
                                    const void* v, const unsigned char* mask,
                                    void* o, const float* qsc,
@@ -698,8 +749,7 @@ extern "C" int vs_masked_attention(const void* q, const void* k,
   cudaError_t err = cudaErrorInvalidValue;
   if (dtype == vs::kF32 && out_dtype == vs::kF32) {
     // rounding P to f32 is the identity: one pass
-    err = qk8 ? launch_dh<float, true>(a, Dh, s)
-              : launch_dh<float, false>(a, Dh, s);
+    err = qk8 ? launch_q8_dh(a, Dh, s) : launch_fma(a, Dh, cta_rows, s);
   } else if (dtype == vs::kBF16 && out_dtype == vs::kBF16 && !qk8) {
     err = norm_first
               ? launch_mma_dh<true, __nv_bfloat16, false>(a, Dh, cta_rows, s)

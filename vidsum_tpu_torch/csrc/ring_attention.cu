@@ -452,13 +452,14 @@ cudaError_t launch_bwd(const RingArgs& a, int B, cudaStream_t s) {
   return cudaGetLastError();
 }
 
-// Dispatch on head_dim (16, 32, 64 or 128)
+// Dispatch on head_dim (16, 32, 64, 96 or 128)
 template <typename KV, bool DROP>
 cudaError_t launch_fwd_dh(const RingArgs& a, int B, int Dh, cudaStream_t s) {
   switch (Dh) {
     case 16: return launch_fwd<KV, 16, DROP>(a, B, s);
     case 32: return launch_fwd<KV, 32, DROP>(a, B, s);
     case 64: return launch_fwd<KV, 64, DROP>(a, B, s);
+    case 96: return launch_fwd<KV, 96, DROP>(a, B, s);
     case 128: return launch_fwd<KV, 128, DROP>(a, B, s);
     default: return cudaErrorInvalidValue;
   }
@@ -469,6 +470,7 @@ cudaError_t launch_bwd_dh(const RingArgs& a, int B, int Dh, cudaStream_t s) {
     case 16: return launch_bwd<16>(a, B, s);
     case 32: return launch_bwd<32>(a, B, s);
     case 64: return launch_bwd<64>(a, B, s);
+    case 96: return launch_bwd<96>(a, B, s);
     case 128: return launch_bwd<128>(a, B, s);
     default: return cudaErrorInvalidValue;
   }

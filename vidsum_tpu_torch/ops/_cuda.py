@@ -28,15 +28,16 @@ BUILD_DIR = os.path.join(PKG_DIR, "_build")
 KERNELS = ("gemm_bias_epilogue", "masked_attention", "block_train",
            "attention_train", "int8_gemm", "ring_attention")
 HEADERS = ("common.cuh", "attention_core.cuh", "attention_train_mma.cuh",
-           "mma_tiles.cuh")
+           "mma_tiles.cuh", "fma_gemm.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 
 # The shapes every kernel family takes: head_dim (the attention kernels are
-# instantiated for these) and d_model (d % 32 == 0; the row kernels hold a
-# row of up to 512 in a warp). Every wrapper's guard reads these.
-HEAD_DIMS = (16, 32, 64, 128)
-MAX_D_MODEL = 512
+# instantiated for these; 96 is d_model 384 with 4 heads and 768 with 8)
+# and d_model (d % 32 == 0; the row kernels hold a row of up to 768 in a
+# warp). Every wrapper's guard reads these.
+HEAD_DIMS = (16, 32, 64, 96, 128)
+MAX_D_MODEL = 768
 
 _vp, _int, _uint, _ll, _f32 = (ctypes.c_void_p, ctypes.c_int, ctypes.c_uint,
                                ctypes.c_longlong, ctypes.c_float)
@@ -182,7 +183,7 @@ def check_d_model(d: int, what: str) -> None:
 
 # The GEMMs' residual+LayerNorm epilogue holds a row of up to LN_TILE
 # columns in one CTA tile; wider rows, up to MAX_D_MODEL, go through an f32
-# buffer and a row kernel.
+# buffer and a row kernel (in f32 every row).
 LN_TILE = 256
 
 

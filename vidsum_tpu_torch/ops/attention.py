@@ -5,11 +5,12 @@ inference path and its hand-written CUDA kernel.
 The JAX package has two Pallas kernels here: ``_attention_kernel`` (a
 single pass over all keys per 128-query tile) and
 ``_attention_kernel_folded`` (an online softmax over key blocks, for long
-N). Both map onto one CUDA kernel, ``csrc/masked_attention.cu``, which
-streams K/V through shared memory in 64-key tiles at every length; the
-single-pass/folded split is a TPU VMEM matter, apart from where bf16 P is
-rounded (after normalising in the single pass, before it in the fold),
-which the kernel follows. The two entry points
+N). Both map onto ``csrc/masked_attention.cu``, which streams K/V through
+shared memory in 64-key tiles at every length (bf16 on the tensor cores;
+f32 on ``csrc/attention_core.cuh``'s FMA forward, the f32 training
+attention's); the single-pass/folded split is a TPU VMEM matter, apart from
+where bf16 P is rounded (after normalising in the single pass, before it in
+the fold), which the kernels follow. The two entry points
 :func:`_flash_attention` and :func:`_flash_attention_folded` stay, with the
 JAX package's dispatch arithmetic in :func:`flash_attention`, so that the
 route a request takes maps one to one onto the TPU kernel it replaces.
@@ -93,14 +94,27 @@ def attention_q8_reference(q8, k8, v, qs, ks, pad_mask, scale: float,
     return torch.matmul(p.to(v.dtype).float(), v.float()).to(out_dtype)
 
 
+def attention_layout_ok(*tensors) -> bool:
+    """True when every given tensor (None skipped) can be an operand of the
+    f32 attention kernels (``csrc/attention_core.cuh``), which copy and
+    store 16-byte chunks: data on a 16-byte boundary, a unit last stride
+    and every other stride a multiple of 4 elements. The training kernels
+    refuse the rest; :func:`masked_attention` stages it (a counted
+    fallback)."""
+    return all(t is None or (
+        t.data_ptr() % 16 == 0 and t.stride(-1) == 1
+        and all(st % 4 == 0 for st in t.stride()[:-1])) for t in tensors)
+
+
 def mma_cta_rows(B: int, H: int, N: int, Dh: int, sms: int) -> int:
-    """Query rows of a CTA of the bf16 kernel: 128 (8 warps, each K/V tile
-    read from L2 feeding twice the rows) where a grid of 128-row CTAs fills
-    the card once, that is both CTA slots of each of its ``sms`` SMs (the
-    kernel's launch bounds hold two), else 64 (4 warps: twice the CTAs on
-    a smaller grid); 64 at head_dim 128, whose accumulators take the
-    registers of 8 warps. The rule follows the two shapes' device times at
-    the serving path's shapes (``chip_smoke.py``'s
+    """Query rows of a CTA: 128 (bf16: 8 warps; f32: 8 rows a thread; each
+    K/V tile read from L2 feeding twice the rows) where a grid of 128-row
+    CTAs fills the card once, that is both CTA slots of each of its ``sms``
+    SMs (the kernels' launch bounds hold two), else 64 (bf16: 4 warps,
+    twice the CTAs on a smaller grid; f32: 4 rows a thread, twice the warps
+    a CTA); 64 at head_dim 96 and 128, whose accumulators take the
+    registers. The rule follows the two shapes' device times at the serving
+    path's shapes in both dtypes (``chip_smoke.py``'s
     ``attention_cta_variants`` line)."""
     if Dh > 64:
         return 64
@@ -123,8 +137,12 @@ def masked_attention(q, k, v, pad_mask, scale: float,
     are rounded, as the folded TPU kernel does. ``qk_scales=(qs, ks)``,
     (B, H, N) f32 views, make ``q`` and ``k`` int8 codes with those per-row
     scales (the int8 block's ``qk_int8``). :func:`mma_cta_rows` picks the
-    query rows of a bf16 CTA; every row's arithmetic is the same in both
-    shapes. On CPU tensors this is
+    query rows of a CTA; every row's arithmetic is the same in both
+    shapes. f32 takes the FMA forward, whose 16-byte copies need
+    :func:`attention_layout_ok` views: others are staged into aligned
+    contiguous copies first, counted by ``masked_attention.
+    fallback_launches`` (the same kernel, the same bits). On CPU tensors
+    this is
     :func:`attention_reference`, :func:`attention_folded_reference` over
     64-key blocks or :func:`attention_q8_reference`."""
     if v.device.type == "cpu":
@@ -177,6 +195,11 @@ def masked_attention(q, k, v, pad_mask, scale: float,
                          "inputs with norm_first)")
     if qk_scales is not None and v.dtype == torch.bfloat16 and not f32_out:
         raise ValueError("int8 Q.K^T with bfloat16 v writes a float32 out")
+    staged = None
+    if (v.dtype == torch.float32 and qk_scales is None
+            and not attention_layout_ok(q, k, v, out)):
+        q, k, v = (_cuda.aligned16(t.contiguous()) for t in (q, k, v))
+        staged, out = out, torch.empty_like(v)
     lib = _cuda.load("masked_attention")
     sb, sh, sn, _ = v.stride()
     ob, oh, on, _ = out.stride()
@@ -190,10 +213,14 @@ def masked_attention(q, k, v, pad_mask, scale: float,
         _cuda.stream_of(v))
     _cuda.check(lib, err, "masked_attention")
     masked_attention.launches += 1
+    if staged is not None:
+        masked_attention.fallback_launches += 1
+        return staged.copy_(out)
     return out
 
 
 masked_attention.launches = 0
+masked_attention.fallback_launches = 0
 
 
 # ------------------------------------------------ the two TPU entry points

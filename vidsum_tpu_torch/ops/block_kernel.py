@@ -159,6 +159,9 @@ def encoder_block_reference(w: BlockWeights, x: torch.Tensor, pad_mask,
 # -------------------------------------------------------------- the kernel
 # The bf16 products run csrc/gemm_bias_epilogue.cu's wgmma kernel, whose
 # operand ring TMA fills; what TMA cannot take goes to its mma.sync fallback.
+# The f32 products run its FMA kernel on csrc/fma_gemm.cuh's mainloop (the
+# training GEMM's), by 16-byte loads, or by scalar loads where those cannot
+# take the operands; their LayerNorm rows always take the row kernel.
 
 def gemm_takes_wgmma(x: torch.Tensor, w: torch.Tensor) -> bool:
     """True when the bf16 product ``x . w^T`` can take the wgmma kernel:
@@ -168,6 +171,27 @@ def gemm_takes_wgmma(x: torch.Tensor, w: torch.Tensor) -> bool:
     return (x.dtype == torch.bfloat16 and x.shape[1] % 8 == 0
             and x.stride(0) % 8 == 0 and w.stride(0) % 8 == 0
             and x.data_ptr() % 16 == 0 and w.data_ptr() % 16 == 0)
+
+
+def gemm_takes_vec4(x: torch.Tensor, w: torch.Tensor) -> bool:
+    """True when the f32 product ``x . w^T`` can take the FMA kernel's
+    16-byte loads: K and both row strides a multiple of 4 elements and both
+    data pointers on a 16-byte boundary. Else it takes the same kernel's
+    scalar loads (the same bits, slower), counted as a fallback."""
+    return (x.dtype == torch.float32 and x.shape[1] % 4 == 0
+            and x.stride(0) % 4 == 0 and w.stride(0) % 4 == 0
+            and x.data_ptr() % 16 == 0 and w.data_ptr() % 16 == 0)
+
+
+def gemm_f32_tile(M: int, N: int, sms: int) -> int:
+    """The f32 FMA kernel's square CTA tile: 128 (8 x 8 outputs a thread)
+    where that grid gives at least three in four of the ``sms`` SMs a CTA,
+    else 64 (4 x 4 a thread: four times the CTAs, for small grids such as
+    (8, 256)'s d -> 3d and LayerNorm products). Every output is the same
+    FMAs in the same k order in both, so a row's bits do not depend on the
+    choice. The rule follows both tiles' device times at (32, 512) and
+    (8, 256) (``chip_smoke.py``'s gemm lines)."""
+    return 128 if 4 * -(-M // 128) * -(-N // 128) >= 3 * sms else 64
 
 
 def gemm_tile_n(N: int) -> int:
@@ -199,12 +223,15 @@ def gemm_bias_epilogue(x, w, bias, epilogue: str = "none", residual=None,
 
     x (M, K) and w (N, K) in one dtype, each with a unit column stride (rows
     may be strided); bias (N,) f32; ``residual`` (M, N) in x's dtype or f32,
-    with ``ln_g``/``ln_b`` (N,) f32, for ``"residual_ln"`` (N <= 512; past
-    256 the kernel normalises an f32 buffer in a second launch). Returns
+    with ``ln_g``/``ln_b`` (N,) f32, for ``"residual_ln"`` (N <= 768; past
+    256, and in f32 always, the kernel normalises an f32 buffer in a
+    second launch). Returns
     ``(y in x's dtype or None, y in f32 or None)`` as ``want_t`` /
     ``want_f32`` ask. bf16 takes the wgmma kernel where
     :func:`gemm_takes_wgmma` holds, in :func:`gemm_cta_rows` x
-    :func:`gemm_tile_n` CTAs, else the ``mma.sync`` fallback, counted by
+    :func:`gemm_tile_n` CTAs, else the ``mma.sync`` fallback; f32 the FMA
+    kernel's 16-byte loads where :func:`gemm_takes_vec4` holds, else its
+    scalar loads, in :func:`gemm_f32_tile` CTAs. Fallbacks are counted by
     ``gemm_bias_epilogue.fallback_launches`` (``launches`` counts every
     call). On CPU tensors this is :func:`gemm_bias_epilogue_reference`."""
     if x.device.type == "cpu":
@@ -235,26 +262,31 @@ def gemm_bias_epilogue(x, w, bias, epilogue: str = "none", residual=None,
         for t in (ln_g, ln_b):
             if t.shape != (N,) or t.dtype != torch.float32:
                 raise ValueError("ln_g and ln_b must be (N,) float32")
-    # a wide LayerNorm row needs the f32 buffer, asked for or not
-    need_f = want_f32 or (epilogue == "residual_ln" and N > _cuda.LN_TILE)
+    f32 = x.dtype == torch.float32
+    # a LayerNorm row the CTA does not hold (all in f32) needs the f32
+    # buffer, asked for or not
+    need_f = want_f32 or (epilogue == "residual_ln"
+                          and (f32 or N > _cuda.LN_TILE))
     # in f32 the two outputs are one tensor, returned in both slots
-    both = x.dtype == torch.float32 and want_t and need_f
+    both = f32 and want_t and need_f
     out_t = torch.empty((M, N), dtype=x.dtype, device=x.device) \
         if want_t and not both else None
     out_f = torch.empty((M, N), dtype=torch.float32, device=x.device) \
         if need_f else None
     wgmma = gemm_takes_wgmma(x, w)
     cta_rows = gemm_cta_rows(M, N, _cuda.sm_count(x.device)) if wgmma else 0
+    tile_n = (gemm_f32_tile(M, N, _cuda.sm_count(x.device)) if f32
+              else gemm_tile_n(N))
     lib = _cuda.load("gemm_bias_epilogue")
     err = lib.vs_gemm_bias_epilogue(
         _cuda.ptr(x), _cuda.ptr(w), _cuda.ptr(bias), _cuda.ptr(res_t),
         _cuda.ptr(res_f), _cuda.ptr(ln_g), _cuda.ptr(ln_b), _cuda.ptr(out_t),
         _cuda.ptr(out_f), M, N, K, x.stride(0), w.stride(0),
-        EPILOGUES[epilogue], _cuda.dtype_code(x), cta_rows, gemm_tile_n(N),
+        EPILOGUES[epilogue], _cuda.dtype_code(x), cta_rows, tile_n,
         LN_EPS, _cuda.stream_of(x))
     _cuda.check(lib, err, "gemm_bias_epilogue")
     gemm_bias_epilogue.launches += 1
-    if x.dtype == torch.bfloat16 and not wgmma:
+    if not (gemm_takes_vec4(x, w) if f32 else wgmma):
         gemm_bias_epilogue.fallback_launches += 1
     return (out_f if both else out_t), (out_f if want_f32 else None)
 

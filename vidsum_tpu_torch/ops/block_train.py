@@ -45,6 +45,7 @@ import numpy as np
 import torch
 
 from vidsum_tpu_torch.ops import _cuda
+from vidsum_tpu_torch.ops.attention import attention_layout_ok
 from vidsum_tpu_torch.ops.block_kernel import (
     _layernorm_f32, _pick_group, _pick_tile,
 )
@@ -319,17 +320,6 @@ def _colsum(a, b=None):
                            _cuda.stream_of(a))
     _cuda.check(lib, err, "block_train colsum")
     return s, sp
-
-
-def attention_layout_ok(*tensors) -> bool:
-    """True when every given tensor (None skipped) can be an operand of the
-    f32 attention kernels (``csrc/attention_core.cuh``), which copy and
-    store 16-byte chunks: data on a 16-byte boundary, a unit last stride
-    and every other stride a multiple of 4 elements. The kernels refuse the
-    rest (no scalar fallback)."""
-    return all(t is None or (
-        t.data_ptr() % 16 == 0 and t.stride(-1) == 1
-        and all(st % 4 == 0 for st in t.stride()[:-1])) for t in tensors)
 
 
 def _check_attention_operands(rows: dict, *others) -> None:
