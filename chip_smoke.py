@@ -15,7 +15,10 @@ caught and passed over):
    stderr, and the registers and spill bytes of every instantiation of the
    bf16 serving attention (``masked_attention_mma_kernel``), the serving
    GEMMs (``gemm_bf16_wgmma_kernel``, with its dynamic shared memory, and
-   the f32 ``gemm_f32_kernel``) and the training GEMM (``bt_gemm_kernel``)
+   the f32 ``gemm_f32_kernel``), the int8 GEMM
+   (``int8_gemm_wgmma_kernel``, with its dynamic shared memory; a
+   warpgroup product in its SASS) and the training GEMM
+   (``bt_gemm_kernel``)
    and the f32 FMA attention (``fma_fwd_kernel``, ``fma_dq_kernel``,
    ``fma_dkdv_kernel`` in both training libraries, the forward in the
    serving one) to the build line, with the count of ``HGMMA``
@@ -55,7 +58,14 @@ caught and passed over):
    ``torch.matmul`` in f64 at the summation-order bound, two runs
    bit-equal), ``torch.matmul`` on the same operands (timed only), the
    two CTA shapes of the bf16 kernel in turns (bit-equal), and the dW
-   products at half and twice their split.
+   products at half and twice their split. Then the int8 GEMM alone
+   (``int8_gemm_lines``): kernel 13's four products at (32, 512) and (8,
+   256) and the probe's shift product (18b) at 2048^3 and 8192^3, each
+   with its tile, device ms, TOP/s and bound, bit-equal to the plain
+   version (LayerNorm rows within 1e-5 in f32, one step in bf16, their
+   codes the quantizer's), both CTA row counts in turns (bit-equal), a
+   request's rows alone bit-equal to the batch's, a zeroed K tile failing
+   the check, and ``torch._int_mm`` on the same codes (timed only).
    Then the serving attention alone at the shapes the serving path gives
    it, bf16 and f32, in both CTA shapes (64 and 128 query rows, timed in
    turns; both must give the same bits): the comparison behind
@@ -72,7 +82,9 @@ caught and passed over):
    of the kernel, its plain version and the lossless bf16 (f32) block at
    the same shape (timed only), and the bound (the int8 products at the
    int8 peak, Q.K^T and P.V at the input type's peak, Q.K^T at the int8
-   peak with ``qk_int8``, or the bytes).
+   peak with ``qk_int8``, or the bytes); in bf16 with ``qk_int8`` off (the
+   serving default) a ``block_profile`` line: the block's device time by
+   kernel beside the lossless bf16 block's.
    int8 probe: TPU kernel 18 (``tools/probe_int8_mma.py``) at 2048^3, the
    probe's own measurement (ms, TOPS, ``torch.matmul`` / ``torch._int_mm``
    yardsticks; again at 8192^3, timed only), then 18b bit for bit and 18a
@@ -125,13 +137,17 @@ caught and passed over):
    sequence (timed only). Then the same checks of one step past the TPU
    kernels' VMEM envelope, where the CUDA routes take the kernels all the
    same: kernel 15 at Nl 8,192, kernels 16/17 at Nl 4,096.
-   d 512, d 384, d 768: d_model 512 with 4 heads (head_dim 128), 384 with
-   4 and 768 with 8 (head_dim 96) through every family against its plain
+   d 512, d 384, d 768, d 192, d 320, d 896, d 1024: d_model 512 with 4
+   heads (head_dim 128), 384 with 4 and 768 with 8 (head_dim 96), 192 with
+   4 (48), 320 with 4 (80) and 896 with 8 (112) (the kernels run those
+   head_dims zero-padded to 64, 96 and 128) and 1,024 with 8 (the widest
+   rows the row kernels take) through every family against its plain
    version at small shapes (the block routes, the int8 block routes, the
    training block routes, the four training attention routes in bf16 and
    f32, the ring steps), then a 2-layer model of that shape: bf16 and f32
    scores card against CPU, int8 scores within the lossy budget of the
-   bf16 ones, one fused-block finetune step card against CPU.
+   bf16 ones, one finetune step card against CPU (the fused block; past
+   its training envelope, at d 896 and 1,024, the flash route).
 6. serve: ``ScoringService`` with seeded flagship weights (d 256, 4 heads,
    4 layers, bf16) takes 13 requests: 320/480/512 frames with auto-KTS,
    1,200 frames, 6,000 frames (past the block envelope: flash) and 16,384
@@ -375,6 +391,18 @@ FMA_ATTENTION_DESIGN = (
     "online forward pass on both routes, D = rowsum(dO o) given o, two "
     "thread groups a backward CTA, 128-row CTAs where the grid fills the "
     "card else 64")
+# what the kernels line says of the int8 GEMM (the products of TPU kernels
+# 13/14 and the probe's 18b)
+INT8_GEMM_DESIGN = (
+    "int8_gemm_wgmma_kernel: wgmma.mma_async m64nNk32 s32.s8.s8 (N 128 or "
+    "256) from a 4-stage ring of 128-deep 128-byte-swizzled tiles filled by "
+    "TMA (one producer warp, mbarriers, setmaxnreg 40/232), 128- or 64-row "
+    "CTAs x 256 or 128 columns by ops/quant.int8_gemm_tile; epilogues on "
+    "the accumulator fragments (dequantise, bias, ReLU, residual, the "
+    "probe's shift), a LayerNorm row of <= 256 columns staged through the "
+    "idle ring and finished by one warp with its int8 codes, wider rows by "
+    "the row kernel; "
+    "operands off 16 bytes copied onto them (int8_gemm.fallback_launches)")
 TRAIN_GEMM_DESIGN = (
     "bt_gemm_kernel on fma_gemm.cuh's mainloop (shared with the f32 serving "
     "GEMM): exact f32 FMAs, 128 x 128 CTAs, 8 x 8 a thread read "
@@ -626,17 +654,32 @@ def phase_build() -> tuple:
     # the f32 serving GEMM on csrc/fma_gemm.cuh's mainloop: two tiles x two
     # load modes x three epilogues
     f32_gemm = ptxas_report(logs["gemm_bias_epilogue"], "gemm_f32_kernel")
-    if len(gemm) != 16 or len(bt_gemm) != 4 or len(f32_gemm) != 12:
+    # the int8 GEMM: four tiles x five epilogues
+    lib8 = _cuda.load("int8_gemm")
+    int8 = ptxas_report(logs["int8_gemm"], "int8_gemm_wgmma_kernel")
+    for r in int8:
+        import re
+
+        m = re.search(r"<(\d+), (\d+)|ILi(\d+)ELi(\d+)", r["kernel"])
+        rows, cols = (int(v) for v in m.groups() if v is not None)
+        r["dynamic_smem"] = lib8.vs_int8_gemm_smem(rows, cols)
+    if (len(gemm) != 16 or len(bt_gemm) != 4 or len(f32_gemm) != 12
+            or len(int8) != 20):
         raise RuntimeError(f"ptxas reported {len(gemm)} wgmma, "
-                           f"{len(bt_gemm)} bt_gemm and {len(f32_gemm)} "
-                           f"gemm_f32 instantiations")
-    spilled = [r["kernel"] for r in gemm + bt_gemm + f32_gemm
+                           f"{len(bt_gemm)} bt_gemm, {len(f32_gemm)} "
+                           f"gemm_f32 and {len(int8)} int8 wgmma "
+                           f"instantiations")
+    spilled = [r["kernel"] for r in gemm + bt_gemm + f32_gemm + int8
                if any(r.get("spill", []))]
     if spilled:
         raise RuntimeError(f"GEMM instantiations spill: {spilled}")
     hgmma = sass_count(_cuda.lib_path("gemm_bias_epilogue"), "HGMMA")
     if hgmma == 0:
         raise RuntimeError("no HGMMA in the serving GEMM's SASS")
+    # the int8 library's warpgroup products (IGMMA in the SASS)
+    igmma = sass_count(_cuda.lib_path("int8_gemm"), "GMMA")
+    if igmma == 0:
+        raise RuntimeError("no warpgroup product in the int8 GEMM's SASS")
     # the f32 FMA attention (csrc/attention_core.cuh): per head_dim two
     # forwards, two dQ and two dK/dV (the CTA depths; dK/dV keeps the
     # 8-deep one at 128), the same in both training libraries; the serving
@@ -672,10 +715,11 @@ def phase_build() -> tuple:
                           for n in _cuda.KERNELS),
          masked_attention_mma_ptxas=regs, gemm_wgmma_ptxas=gemm,
          bt_gemm_ptxas=bt_gemm, gemm_f32_ptxas=f32_gemm,
-         gemm_sass_hgmma=hgmma, fma_attention_ptxas=fma,
+         int8_gemm_wgmma_ptxas=int8, gemm_sass_hgmma=hgmma,
+         int8_gemm_sass_gmma=igmma, fma_attention_ptxas=fma,
          serving_fma_attention_ptxas=fma_serve,
          fma_attention_sass_ldgsts=ldgsts)
-    return regs, gemm, bt_gemm, fma, f32_gemm, fma_serve
+    return regs, gemm, bt_gemm, fma, f32_gemm, fma_serve, int8
 
 
 def library_block(block, d: int, H: int, dtype, dropout: float = 0.0):
@@ -1244,6 +1288,175 @@ def phase_gemm(dev: dict, seed: int) -> None:
              bit_equal_repeat=True, split_variants_device_ms=variants,
              library_ms=lib, library_clock=lib_clock,
              library_tflops=flops / lib / 1e9)
+    int8_gemm_lines(dev, seed)
+
+
+def int8_gemm_lines(dev: dict, seed: int) -> None:
+    """The int8 GEMM (``csrc/int8_gemm.cu``'s wgmma kernel) alone at the
+    shapes its paths give it: kernel 13's four products (the bf16 serving
+    chain's QKV, proj + LN1 with its row codes, fc1 + ReLU in f32, fc2 +
+    LN2) at (32, 512) and (8, 256), and the probe's shift product (18b) at
+    2048^3 and 8192^3. Each line: the tile ``ops/quant.int8_gemm_tile``
+    took, device ms (torch.profiler, 10 calls), TOP/s and the bound
+    (operations at the int8 peak against the bytes moved), the outputs
+    against ``int8_gemm_reference`` (bit for bit but for the LayerNorm
+    rows, which are held at 1e-5 with their row codes equal to the plain
+    quantizer's codes of the kernel's own rows, and give their bit-equal
+    share), both CTA row counts (64 and 128, timed in turns, bit-equal), a
+    request's 512 rows alone bit-equal to the same rows in the batch, the
+    product with one 128-deep K tile of x zeroed (a planted fault) failing
+    the check, no operand staged (``int8_gemm.fallback_launches``), and
+    ``torch._int_mm`` on the same codes (int32 out; timed only, never
+    called by the port)."""
+    import numpy as np
+    import torch
+
+    from vidsum_tpu_torch.config import ModelConfig
+    from vidsum_tpu_torch.models.simnet import SimNet
+    from vidsum_tpu_torch.ops import quant
+    from vidsum_tpu_torch.tools import probe_int8_mma as probe
+
+    peaks = peaks_for(dev["name"])
+    cuda = torch.device("cuda")
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    d = ModelConfig().d_model
+    block = SimNet(ModelConfig(num_layers=1), device=cuda,
+                   generator=torch.Generator().manual_seed(seed + 32)
+                   ).encoder.module_list[0]
+    qb = quant.quantize_block(block)
+    rng = np.random.default_rng(seed + 33)
+    fn = quant.int8_gemm
+    bf16 = torch.bfloat16
+
+    def rand(*shape):
+        return torch.from_numpy(rng.normal(size=shape).astype(
+            np.float32)).to(cuda)
+
+    def codes(t):
+        q, sc = quant.quantize_rows(t)
+        return q, sc.view(-1)
+
+    def device_ms(call):
+        return device_profile(call, reps=10)["device_ms"]
+
+    def held(got, want, epi, what):
+        """Raises unless ``got`` passes the check against ``want``;
+        returns the LayerNorm rows' bit-equal share (1.0 elsewhere)."""
+        if epi != "residual_ln":
+            for a, b in zip(got, want):
+                if (a is None) != (b is None) or (
+                        a is not None and not torch.equal(a, b)):
+                    raise AssertionError(f"int8 {what}: not bit-equal to "
+                                         f"its plain version")
+            return 1.0
+        y = got[1] if got[1] is not None else got[0]
+        wy = want[1] if want[1] is not None else want[0]
+        # f32 rows at summation-order level; bf16 rows one bf16 step
+        tol = (dict(atol=1e-5, rtol=1e-5) if y.dtype == torch.float32
+               else dict(atol=1e-2, rtol=8e-3))
+        if not torch.allclose(y.float(), wy.float(), **tol):
+            raise AssertionError(f"int8 {what}: LayerNorm rows off their "
+                                 f"plain version past {tol}: "
+                                 f"{errors(y, wy)}")
+        if got[2] is not None:
+            wq, ws = quant.quantize_rows_reference(got[1])
+            if not (torch.equal(got[2], wq) and torch.equal(got[3],
+                                                            ws[:, 0])):
+                raise AssertionError(f"int8 {what}: row codes differ from "
+                                     f"the quantizer's")
+        return float((y == wy).float().mean())
+
+    cases = []
+    for B, N in ((32, 512), (8, 256)):
+        M = B * N
+        x = rand(M, d).to(bf16)
+        h1 = rand(M, d)
+        ln1 = dict(ln_g=qb.ln1_g, ln_b=qb.ln1_b)
+        ln2 = dict(ln_g=qb.ln2_g, ln_b=qb.ln2_b)
+        cases += [
+            (13, f"({B}, {N})", "qkv", *codes(x), qb.wqkv, qb.sqkv, qb.bqkv,
+             "none", dict(out_dtype=bf16)),
+            (13, f"({B}, {N})", "proj_ln1", *codes(rand(M, d)), qb.wp, qb.sp,
+             qb.bp, "residual_ln", dict(residual=x, want_f32=True,
+                                        want_q=True, **ln1)),
+            (13, f"({B}, {N})", "fc1", *codes(h1), qb.w1, qb.s1, qb.b1,
+             "relu", dict(want_f32=True)),
+            (13, f"({B}, {N})", "fc2_ln2", *codes(rand(M, 4 * d).relu()),
+             qb.w2, qb.s2, qb.b2, "residual_ln",
+             dict(residual=h1, out_dtype=bf16, **ln2))]
+    for n in (2048, 8192):
+        _, _, xi, wi = probe.inputs(n, n, n)
+        cases.append(("18b", f"{n}^3", "shift", xi, None, wi, None, None,
+                      "shift", {}))
+    pick = quant.int8_gemm_tile
+    for kernel, shape, name, x8, sx, w8, sw, b, epi, kw in cases:
+        M, K = x8.shape
+        Nn = w8.shape[0]
+        what = f"{shape} {name}"
+
+        def call(x8=x8, sx=sx, kw=kw):
+            out = fn(x8, sx, w8, sw, b, epi, **kw)
+            return out if epi != "shift" else (out,)
+
+        before = (fn.launches, fn.fallback_launches)
+        got = call()
+        torch.cuda.synchronize()
+        if (fn.launches, fn.fallback_launches) != (before[0] + 1, before[1]):
+            raise AssertionError(f"int8 {what}: did not launch once, or "
+                                 f"staged its operands")
+        want = quant.int8_gemm_reference(x8, sx, w8, sw, b, epi, **kw)
+        want = want if epi != "shift" else (want,)
+        equal_share = held(got, want, epi, what)
+        # a request's 512 rows alone, at another grid
+        sub = {k: (v[:512] if k == "residual" else v) for k, v in kw.items()}
+        alone = call(x8[:512], None if sx is None else sx[:512], sub)
+        for a, c in zip(alone, got):
+            if a is not None and not torch.equal(a, c[:512]):
+                raise AssertionError(f"int8 {what}: rows differ alone and "
+                                     f"in the batch")
+        # the planted fault: one 128-deep K tile of x zeroed
+        bad_x = x8.clone()
+        bad_x[:, :128] = 0
+        try:
+            held(call(bad_x), want, epi, what)
+        except AssertionError as e:
+            fault = str(e)[:80]
+        else:
+            raise AssertionError(f"int8 {what}: a zeroed K tile passes")
+        tile = pick(M, Nn, sms, epi == "residual_ln")
+        ms = device_ms(call)
+        variants, bits = {64: [], 128: []}, {}
+        try:
+            for r in (64, 128, 128, 64):
+                quant.int8_gemm_tile = lambda *_, r=r: (r, tile[1])
+                variants[r].append(device_ms(call))
+                bits[r] = call()
+        finally:
+            quant.int8_gemm_tile = pick
+        for a, c in zip(bits[64], bits[128]):
+            if a is not None and not torch.equal(a, c):
+                raise AssertionError(f"int8 {what}: the two CTA row counts "
+                                     f"give different bits")
+        lib = device_ms(lambda: torch._int_mm(x8, w8.t()))
+        ops = 2 * M * Nn * K
+        out_bytes = sum(t.numel() * t.element_size() for t in got
+                        if t is not None)
+        nbytes = (M * K + Nn * K + out_bytes
+                  + (4 * M + 8 * Nn if epi != "shift" else 0)
+                  + (kw["residual"].numel() * kw["residual"].element_size()
+                     + 8 * Nn if epi == "residual_ln" else 0))
+        t_ops = ops / peaks["int8"] * 1e3
+        t_bytes = nbytes / peaks["bytes"] * 1e3
+        emit("gemm", kernel=kernel, shape=shape, product=name, dtype="int8",
+             M=M, N_out=Nn, K=K, epilogue=epi, path="int8_wgmma",
+             cta_rows=tile[0], tile_n=tile[1], device_ms=ms,
+             tops=ops / ms / 1e9, bound_ms=max(t_ops, t_bytes),
+             bound_by="operations" if t_ops >= t_bytes else "bytes",
+             bytes=nbytes, bit_equal_share=equal_share,
+             rows_alone_equal=True, zeroed_k_tile=fault,
+             cta_variants_device_ms={str(r): v for r, v in variants.items()},
+             library_ms=lib, library="torch._int_mm",
+             library_tops=ops / lib / 1e9)
 
 
 def diff_stats(got, want) -> dict:
@@ -1307,9 +1520,11 @@ def phase_int8_kernels(dev: dict, seed: int) -> dict:
             dn = str(dtype).split(".")[1]
             x = torch.from_numpy(rng.normal(size=(B, N, d)).astype(
                 np.float32)).to(cuda, dtype)
+            def lossless():
+                return bk.fused_encoder_block(block, x, mask, H, scale)
+
             with torch.inference_mode():
-                lossless_ms = cuda_ms(lambda: bk.fused_encoder_block(
-                    block, x, mask, H, scale), reps=20)
+                lossless_ms = cuda_ms(lossless, reps=20)
             for qk in (False, True):
                 def run(q=qb):
                     return bk8.fused_encoder_block_int8(q, x, mask, H, scale,
@@ -1356,9 +1571,24 @@ def phase_int8_kernels(dev: dict, seed: int) -> dict:
                      int8_ops=24 * B * N * d * d, attn_flops=2 * attn_half,
                      bytes=nbytes)
                 if dtype == torch.bfloat16 and not qk:
+                    # the serving default's device time by kernel, beside
+                    # the lossless block's on the same inputs
+                    with torch.inference_mode():
+                        prof = device_profile(run, reps=10, top=12)
+                        base = device_profile(lossless, reps=10)
+                    products = sum(ms_ for name, ms_, _ in prof["top"]
+                                   if "int8_gemm_wgmma" in name)
+                    emit("block_profile", route=route, B=B, N=N, dtype=dn,
+                         qk_int8=False, device_ms=prof["device_ms"],
+                         wall_ms=prof["wall_ms"], products_ms=products,
+                         kernels=prof["top"],
+                         lossless_device_ms=base["device_ms"],
+                         lossless_kernels=base["top"])
+                if dtype == torch.bfloat16 and not qk:
                     out[route] = dict(max_abs_err=st["max"], ms=ms,
                                       plain_ms=plain_ms, bound_ms=b_ms,
-                                      bound_by=b_by, library_ms=None)
+                                      bound_by=b_by, library_ms=None,
+                                      device_ms=prof["device_ms"])
     return out
 
 
@@ -1894,6 +2124,12 @@ D512 = dict(d_model=512, num_heads=4)
 # heads, the widest row the row kernels take
 D384 = dict(d_model=384, num_heads=4)
 D768 = dict(d_model=768, num_heads=8)
+# head_dims the kernels run zero-padded (48 -> 64, 80 -> 96, 112 -> 128) and
+# the widest d_model the row kernels take (1,024 with 8 heads: 128)
+D192 = dict(d_model=192, num_heads=4)
+D320 = dict(d_model=320, num_heads=4)
+D896 = dict(d_model=896, num_heads=8)
+D1024 = dict(d_model=1024, num_heads=8)
 # a wide model's bf16 scores on the card against the CPU's plain bf16 path
 # (sigmoid scores, two layers): the int8 block's limits, a wiring check; each
 # kernel family's precision is held by its own bound above
@@ -1903,14 +2139,19 @@ WIDE_SCORES = dict(median=5e-3, max=5e-2)
 def phase_wide(seed: int, shape: dict) -> dict:
     """A model shape past the flagship's (``shape``: d_model 512 with 4
     heads, head_dim 128; d_model 384 with 4 heads and 768 with 8, head_dim
-    96) through every kernel family against its plain version at small
-    shapes: the serving block (1-2; its LayerNorm rows past the GEMM's
-    256-column tile), the int8 block (13-14), the training block (9-12,
+    96; 192 and 320 with 4 and 896 with 8, head_dims 48, 80 and 112, which
+    the kernels run zero-padded; 1,024 with 8) through every kernel family
+    against its plain version at small shapes: the serving block (1-2;
+    its LayerNorm rows past the GEMM's 256-column tile), the int8 block
+    (13-14), the training block (9-12,
     forward, dx and grads), the training attention (5-8, bf16 and f32) and
     the ring steps (15-17). Then a 2-layer model of that shape scores in
     bf16 and in f32 (card against the CPU's plain path), int8-scores
-    (within the lossy budget of its bf16 scores) and takes one fused-block
-    finetune step (card against CPU, the step bound). The launches here are
+    (within the lossy budget of its bf16 scores) and takes one finetune
+    step on the JAX package's route for the shape (the fused block, or
+    past its training envelope, as at d 896 and 1,024, the flash route
+    with the same dropout masks on both sides; card against CPU, the step
+    bound). The launches here are
     checks, not the main path's."""
     import copy
 
@@ -2123,16 +2364,25 @@ def phase_wide(seed: int, shape: dict) -> dict:
     tcfg = ModelConfig(num_layers=2, **shape)
     model = SimNet(tcfg, generator=torch.Generator().manual_seed(seed + 22))
     t = torch.from_numpy(rng.random((2, 512)).astype(np.float32))
-    seeds = [int(s) for s in rng.integers(0, 2**31 - 1, tcfg.num_layers)]
-    results = []
-    for dev in ("cuda", "cpu"):
-        m = copy.deepcopy(model).to(dev)
-        loss = make_finetune_step(tcfg, "fused_block", device=dev)(
-            m, make_optimizer(m, 1e-3, 1e-4), x, t, mask, None,
-            block_seeds=seeds)
-        results.append((float(loss), {k: p.grad.detach().float().cpu()
-                                      for k, p in m.named_parameters()}))
-    step = compare_steps(results, f"d {d} fused_block step")
+    if bt.fused_block_train_supported(2, 512, d, H):
+        seeds = [int(s) for s in rng.integers(0, 2**31 - 1,
+                                              tcfg.num_layers)]
+        results = []
+        for dev in ("cuda", "cpu"):
+            m = copy.deepcopy(model).to(dev)
+            loss = make_finetune_step(tcfg, "fused_block", device=dev)(
+                m, make_optimizer(m, 1e-3, 1e-4), x, t, mask, None,
+                block_seeds=seeds)
+            results.append((float(loss), {k: p.grad.detach().float().cpu()
+                                          for k, p in
+                                          m.named_parameters()}))
+        step = compare_steps(results, f"d {d} fused_block step")
+    else:
+        # past the fused block's training envelope the JAX package's route
+        # (and so the step's) is the flash one: TPU kernels 5/6 at N 512
+        step = flash_card_vs_cpu(model, tcfg, x.numpy(), t.numpy(),
+                                 mask.numpy(), rng, f"d {d} flash step",
+                                 ("_fwd_kernel", "_bwd_kernel"))
     emit(f"d{d}", d_model=d, num_heads=H, head_dim=Dh, kernels=rep,
          scores_bf16_card_vs_cpu=vs_cpu, scores_int8_vs_bf16=vs_bf16,
          scores_f32_card_vs_cpu=vs_cpu32, step_card_vs_cpu=step)
@@ -3278,16 +3528,20 @@ def _counted():
 def check_no_gemm_fallback(what: str) -> None:
     """Fails if any product so far took a serving GEMM fallback (bf16: the
     mma.sync kernel; f32: the FMA kernel's scalar loads) or any f32
-    attention staged its operands: every path's shapes must take the wgmma
-    kernel, the 16-byte loads and the FMA attention's 16-byte copies."""
+    attention or int8 product staged its operands: every path's shapes must
+    take the wgmma kernels straight from their operands, the 16-byte loads
+    and the FMA attention's 16-byte copies."""
     from vidsum_tpu_torch.ops import attention as at
     from vidsum_tpu_torch.ops import block_kernel as bk
+    from vidsum_tpu_torch.ops import quant
 
     n = bk.gemm_bias_epilogue.fallback_launches
     na = at.masked_attention.fallback_launches
-    if n or na:
+    n8 = quant.int8_gemm.fallback_launches
+    if n or na or n8:
         raise AssertionError(f"{what}: {n} products took the GEMM fallback, "
-                             f"{na} attention calls staged their operands")
+                             f"{na} attention calls and {n8} int8 products "
+                             f"staged their operands")
 
 
 def reset_counters() -> None:
@@ -3632,7 +3886,7 @@ def main() -> int:
 
     dev = phase_device()
     (mma_regs, gemm_regs, bt_regs, fma_regs, f32_gemm_regs,
-     fma_serve_regs) = phase_build()
+     fma_serve_regs, int8_regs) = phase_build()
     timings = phase_kernels(dev, args.seed)
     phase_gemm(dev, args.seed)
     timings.update(phase_int8_kernels(dev, args.seed))
@@ -3641,7 +3895,7 @@ def main() -> int:
     timings.update(phase_train_kernels(dev, args.seed))
     timings.update(phase_train_attention(dev, args.seed, fma_regs))
     timings.update(phase_ring_kernels(dev, args.seed))
-    for shape in (D512, D384, D768):
+    for shape in (D512, D384, D768, D192, D320, D896, D1024):
         phase_wide(args.seed, shape)
     counts = phase_serve(args.seed)
     counts.update({r + ".f32": n for r, n in phase_serve(
@@ -3707,8 +3961,8 @@ def main() -> int:
     mma_routes = {attn_train_name(r) for r in ("_fwd_kernel", "_bwd_kernel")
                   } | {attn_train_name(r) + ".bf16"
                        for r in ("_fwd_kernel_folded", "_bwd_kernel_folded")}
-    int8_src = [csrc + "int8_gemm.cu", csrc + "masked_attention.cu",
-                csrc + "mma_tiles.cuh"]
+    int8_src = [csrc + "int8_gemm.cu", csrc + "tma_ring.cuh",
+                csrc + "masked_attention.cu", csrc + "mma_tiles.cuh"]
     ring_src = [csrc + "ring_attention.cu", csrc + "attention_core.cuh"]
     f32_block_src = [csrc + "gemm_bias_epilogue.cu", csrc + "fma_gemm.cuh",
                      csrc + "masked_attention.cu", csrc + "attention_core.cuh"]
@@ -3729,7 +3983,8 @@ def main() -> int:
                 else train_src if route in TRAIN_ROUTES
                 else int8_src if route in INT8_ROUTES
                 else [csrc + "gemm_bias_epilogue.cu"] if route == "mm_bf16"
-                else [csrc + "int8_gemm.cu"] if route == "mm_int8"
+                else [csrc + "int8_gemm.cu", csrc + "tma_ring.cuh"]
+                if route == "mm_int8"
                 else block_src if "block" in route else attn_src)
         entry = {"name": names.get(route, route.lstrip("_")),
                  "route": "cuda", "source": srcs[0], "sources": srcs,
@@ -3750,6 +4005,9 @@ def main() -> int:
         elif route in ("_fused_block", "_fused_block_grouped", "mm_bf16"):
             entry["design"] = SERVING_GEMM_DESIGN
             entry["ptxas"] = gemm_regs
+        elif route in INT8_ROUTES or route == "mm_int8":
+            entry["design"] = INT8_GEMM_DESIGN
+            entry["ptxas"] = int8_regs
         elif route in TRAIN_ROUTES:
             entry["design"] = TRAIN_GEMM_DESIGN
             entry["ptxas"] = bt_regs

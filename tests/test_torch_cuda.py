@@ -100,16 +100,22 @@ def test_gemm_bias_epilogue_matches_plain(cuda, dtype, epilogue, N, K):
 
 
 def test_kernels_refuse_shapes_no_configuration_has(cuda):
-    """The LayerNorm epilogue takes rows of up to 768 (d_model 768), the
-    attention kernel head_dim 16, 32, 64, 96 and 128."""
+    """The LayerNorm epilogue takes rows of up to 1,024 (d_model 1,024; 800
+    runs, 1,056 raises), the attention kernel any head_dim up to 128 (48
+    runs zero-padded to 64; 160 raises)."""
     x = torch.zeros(8, 32, device=cuda)
-    w = torch.zeros(800, 32, device=cuda)
-    b = torch.zeros(800, device=cuda)
-    with pytest.raises(ValueError, match="N <= 768"):
-        bk.gemm_bias_epilogue(x, w, b, "residual_ln",
-                              residual=torch.zeros(8, 800, device=cuda),
-                              ln_g=b, ln_b=b)
+    for n, ok in ((800, True), (1056, False)):
+        w = torch.zeros(n, 32, device=cuda)
+        b = torch.zeros(n, device=cuda)
+        kw = dict(residual=torch.zeros(8, n, device=cuda), ln_g=b, ln_b=b)
+        if ok:
+            bk.gemm_bias_epilogue(x, w, b, "residual_ln", **kw)
+        else:
+            with pytest.raises(ValueError, match="N <= 1024"):
+                bk.gemm_bias_epilogue(x, w, b, "residual_ln", **kw)
     q = torch.zeros(1, 1, 64, 48, device=cuda)
+    assert attn_mod.masked_attention(q, q, q, None, 0.1).shape == q.shape
+    q = torch.zeros(1, 1, 64, 160, device=cuda)
     with pytest.raises(ValueError, match="head_dim"):
         attn_mod.masked_attention(q, q, q, None, 0.1)
 
@@ -228,7 +234,9 @@ def test_gemm_row_bits_do_not_depend_on_m_or_the_cta_shape(
 @pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("norm_first", [True, False])
 @pytest.mark.parametrize("Dh,aligned", [(16, True), (32, True), (64, True),
-                                        (64, False), (96, True), (128, True)])
+                                        (64, False), (96, True), (128, True),
+                                        (48, True), (80, False),
+                                        (112, True)])
 @pytest.mark.parametrize("N,valid", [(200, None), (520, (70, 455))])
 def test_masked_attention_matches_plain(cuda, dtype, norm_first, Dh,
                                         aligned, N, valid):
@@ -525,7 +533,7 @@ def test_f32_gemm_row_bits_do_not_depend_on_the_batch(cuda, monkeypatch,
 
 
 @pytest.mark.parametrize("norm_first", [True, False])
-@pytest.mark.parametrize("Dh", [16, 32, 64, 96, 128])
+@pytest.mark.parametrize("Dh", [16, 32, 64, 96, 128, 48, 112])
 @pytest.mark.parametrize("B,H,N", [(1, 4, 1280), (1, 4, 6016),
                                    (1, 4, 16384), (2, 3, 1000), (3, 2, 77)])
 def test_f32_attention_matches_plain(cuda, norm_first, Dh, B, H, N):
@@ -858,7 +866,7 @@ def _at_within(got, want, tol, relative_atol=True):
 
 @pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("folded", [False, True])
-@pytest.mark.parametrize("Dh", [16, 32, 64, 96, 128])
+@pytest.mark.parametrize("Dh", [16, 32, 64, 96, 128, 48, 80, 112])
 def test_attention_train_routes_match_plain(cuda, dtype, folded, Dh):
     """Each training attention route's o, lse, dq, dk and dv against its
     plain version on the card with the same dropout bits (the folded one
@@ -1416,6 +1424,131 @@ def test_int8_residual_ln_epilogue_and_its_codes(cuda, N):
     assert torch.equal(q, wq) and torch.equal(s, ws[:, 0])
 
 
+def _int8_epilogues(cuda, M, N, K, seed):
+    """Operands on the card and the keyword arguments of each epilogue
+    (residual + LayerNorm with the row codes; bf16 and f32 residuals)."""
+    host = _int8_inputs(M, N, K, seed=seed)
+    ops = tuple(t.to(cuda) for t in host)
+    g = torch.Generator().manual_seed(seed)
+    ln = dict(ln_g=(torch.rand(N, generator=g) + 0.5).to(cuda),
+              ln_b=torch.randn(N, generator=g).to(cuda))
+    res = torch.randn(M, N, generator=g)
+    return ops, {
+        "none": dict(out_dtype=torch.bfloat16, want_f32=True),
+        "relu": dict(out_dtype=torch.float32),
+        "residual_ln": dict(residual=res.to(cuda, torch.bfloat16),
+                            out_dtype=torch.bfloat16, want_f32=True,
+                            want_q=True, **ln),
+        "residual_ln_f32": dict(residual=res.to(cuda), out_dtype=None,
+                                want_f32=True, want_q=True, **ln)}
+
+
+def _force_int8_tile(monkeypatch, tile):
+    from vidsum_tpu_torch.ops import quant
+
+    monkeypatch.setattr(quant, "int8_gemm_tile", lambda *a: tile)
+
+
+@pytest.mark.parametrize("tile", [(128, 256), (128, 128), (64, 256),
+                                  (64, 128)])
+@pytest.mark.parametrize("M,N,K", [(200, 256, 32), (77, 512, 256),
+                                   (300, 768, 1024), (130, 1024, 2048)])
+def test_int8_wgmma_every_epilogue_matches_plain(cuda, monkeypatch, tile, M,
+                                                 N, K):
+    """The wgmma kernel in each CTA tile, ragged M (not a multiple of 64)
+    and N 256-1,024, K 32 (one partial 128-deep stage) to 2,048 (16
+    stages): the dequantised and ReLU products and the shift epilogue bit
+    for bit against the plain version (exact s32 sums, the glue rounded as
+    the tensor ops round it); residual + LayerNorm (bf16 and f32 residual;
+    past 256 columns, or past a 128-column tile, through the row kernel)
+    within summation-order error, its row codes equal to the plain
+    quantizer's codes of the kernel's own output. One launch each, never
+    the operand-staging fallback."""
+    from vidsum_tpu_torch.ops import quant
+
+    _force_int8_tile(monkeypatch, tile)
+    (x8, sx, w8, sw, b), cases = _int8_epilogues(cuda, M, N, K, seed=M + K)
+    fn = quant.int8_gemm
+    before = (fn.launches, fn.fallback_launches)
+    for name, kw in cases.items():
+        epi = "residual_ln" if name.startswith("residual_ln") else name
+        got = fn(x8, sx, w8, sw, b, epi, **kw)
+        want = quant.int8_gemm_reference(x8, sx, w8, sw, b, epi, **kw)
+        if epi != "residual_ln":
+            for g_, w_ in zip(got, want):
+                assert (g_ is None) == (w_ is None)
+                if g_ is not None:
+                    assert torch.equal(g_, w_), name
+            continue
+        torch.testing.assert_close(got[1], want[1], atol=1e-5, rtol=1e-5)
+        if got[0] is not None:
+            assert torch.equal(got[0], got[1].to(got[0].dtype))
+        wq, ws = quant.quantize_rows_reference(got[1])
+        assert torch.equal(got[2], wq) and torch.equal(got[3], ws[:, 0])
+    shifted = fn(x8, None, w8, None, None, "shift")
+    assert torch.equal(shifted, quant.int8_gemm_reference(
+        x8, None, w8, None, None, "shift"))
+    torch.cuda.synchronize()
+    assert (fn.launches, fn.fallback_launches) == (before[0] + 5, before[1])
+
+
+def test_int8_wgmma_tiles_and_batches_give_the_same_bits(cuda, monkeypatch):
+    """Every output, LayerNorm rows and their codes included, is the same
+    bits in 64- and 128-row CTAs, at 256 columns (the row in one tile) and
+    at 128 (a 256-column row then goes through the row kernel); the other
+    epilogues are the same bits in all four tiles. A request's rows alone
+    equal the same rows in a batch of 2,125 (served scores equal solo
+    scores)."""
+    from vidsum_tpu_torch.ops import quant
+
+    M, N, K = 2125, 256, 256
+    (x8, sx, w8, sw, b), cases = _int8_epilogues(cuda, M, N, K, seed=7)
+    runs = {}
+    for tile in ((128, 256), (128, 128), (64, 256), (64, 128)):
+        _force_int8_tile(monkeypatch, tile)
+        for name, kw in cases.items():
+            epi = "residual_ln" if name.startswith("residual_ln") else name
+            runs.setdefault(name, []).append(
+                quant.int8_gemm(x8, sx, w8, sw, b, epi, **kw))
+    monkeypatch.undo()
+    for name, outs in runs.items():
+        # tiles (128, 256), (128, 128), (64, 256), (64, 128)
+        pairs = ((0, 2), (1, 3)) if name.startswith("residual_ln") else \
+            ((0, 1), (0, 2), (0, 3))
+        for i, j in pairs:
+            for a, c in zip(outs[i], outs[j]):
+                assert (a is None and c is None) or torch.equal(a, c), name
+    rows = slice(300, 812)
+    for name, kw in cases.items():
+        epi = "residual_ln" if name.startswith("residual_ln") else name
+        sub = {k: (v[rows] if k == "residual" else v) for k, v in kw.items()}
+        alone = quant.int8_gemm(x8[rows], sx[rows], w8, sw, b, epi, **sub)
+        for a, c in zip(alone, runs[name][0]):
+            assert (a is None and c is None) or torch.equal(a, c[rows]), name
+
+
+def test_int8_gemm_misaligned_base_is_staged(cuda):
+    """An operand off a 16-byte boundary (TMA reads from one) is copied
+    onto one first: the same kernel, the same bits, counted in
+    ``int8_gemm.fallback_launches``."""
+    from vidsum_tpu_torch.ops import quant
+
+    (x8, sx, w8, sw, b), _ = _int8_epilogues(cuda, 96, 256, 64, seed=9)
+    buf = torch.empty(96 * 64 + 1, dtype=torch.int8, device=cuda)
+    off = buf[1:].view(96, 64)
+    off.copy_(x8)
+    assert off.data_ptr() % 16 != 0
+    fn = quant.int8_gemm
+    before = (fn.launches, fn.fallback_launches)
+    got = fn(off, sx, w8, sw, b, "relu", want_f32=True)[1]
+    torch.cuda.synchronize()
+    assert (fn.launches, fn.fallback_launches) == (before[0] + 1,
+                                                   before[1] + 1)
+    assert torch.equal(got, fn(x8, sx, w8, sw, b, "relu",
+                               want_f32=True)[1])
+    assert fn.fallback_launches == before[1] + 1
+
+
 # the chip-smoke bound of the int8 block (tests/test_quant.py's limits)
 INT8_BOUND = dict(median=5e-3, max=5e-2)
 
@@ -1508,7 +1641,7 @@ def _ring_carries_close(got, want):
 
 
 @pytest.mark.parametrize("kv_dtype", DTYPES)
-@pytest.mark.parametrize("Dh", [16, 32, 64, 96, 128])
+@pytest.mark.parametrize("Dh", [16, 32, 64, 96, 128, 48, 80])
 def test_ring_block_step_matches_plain(cuda, kv_dtype, Dh):
     import importlib
 
@@ -1530,7 +1663,7 @@ def test_ring_block_step_matches_plain(cuda, kv_dtype, Dh):
 
 
 @pytest.mark.parametrize("rate", [0.0, 0.3])
-@pytest.mark.parametrize("Dh", [64, 96, 128])
+@pytest.mark.parametrize("Dh", [64, 96, 128, 80, 112])
 def test_ring_train_steps_match_plain(cuda, rate, Dh):
     import importlib
 
@@ -1589,7 +1722,8 @@ def test_ring_past_the_tpu_envelope_takes_the_kernels(cuda):
     """On the card ``"auto"`` takes kernels 15-17 at lengths past the TPU
     kernels' VMEM envelope (Nl 7,040 > 6,912 forward, 3,072 > 2,944 in
     training), where the JAX package would take its XLA step, and matches
-    the plain rings there; a head_dim the kernels lack raises."""
+    the plain rings there; a head_dim past the kernels' 128 raises (one
+    below it runs zero-padded)."""
     import importlib
 
     ra = importlib.import_module("vidsum_tpu_torch.parallel.ring_attention")
@@ -1636,6 +1770,6 @@ def test_ring_past_the_tpu_envelope_takes_the_kernels(cuda):
         torch.testing.assert_close(a, b, atol=1e-4 * float(b.abs().max()),
                                    rtol=1e-4)
 
-    q32 = torch.randn(1, 1, 128, 48, generator=g).to(cuda)
+    q32 = torch.randn(1, 1, 256, 160, generator=g).to(cuda)
     with pytest.raises(ValueError, match="head_dim"):
         ra.ring_attention(split(q32), split(q32), split(q32), None, 0.1)

@@ -401,3 +401,27 @@ def test_probe_plain_versions_match_the_pallas_kernels():
     b = np.asarray(jnp.asarray(bb, jnp.bfloat16), np.float64)
     tol = np.abs(want) * 2.0 ** -7 + K * 2.0 ** -24 * (np.abs(a) @ np.abs(b))
     assert np.all(np.abs(got.float().numpy() - want) <= tol)
+
+
+@pytest.mark.parametrize("M,N,ln_rows,want", [
+    (16384, 768, False, (128, 256)),   # (32, 512): QKV
+    (16384, 256, True, (128, 256)),    # proj + LN1, fc2 + LN2
+    (16384, 1024, False, (128, 256)),  # fc1
+    (2048, 768, False, (128, 128)),    # (8, 256): QKV
+    (2048, 1024, False, (128, 128)),   # fc1
+    (2048, 256, True, (64, 256)),      # LayerNorm rows in one tile
+    (2048, 2048, False, (128, 256)),   # the probe (kernel 18b)
+    (8192, 8192, False, (128, 256)),
+    (200, 100, True, (64, 128)),       # a short row fits 128 columns
+    (2048, 768, True, (128, 128)),     # a row past 256: the row kernel
+])
+def test_int8_gemm_tile_rule(M, N, ln_rows, want):
+    """The int8 wgmma kernel's CTA tile is a pure function of the grid on
+    an H100's 132 SMs: a smaller tile only where its waves of tile area
+    save more than an eighth (8192^3's wave tail does not), and a LayerNorm
+    row of up to 256 columns always inside one tile."""
+    bm, bn = quant.int8_gemm_tile(M, N, 132, ln_rows)
+    assert (bm, bn) == want
+    assert (bm, bn) in quant.INT8_TILES
+    if ln_rows and N <= 256:
+        assert bn >= N

@@ -417,7 +417,8 @@ def _guards():
     return {
         "attention_train": lambda Dh, d: att._cuda_inputs(*qkv(Dh), 0),
         "ring": lambda Dh, d: ra._cuda_inputs(*qkv(Dh), (torch.float32,)),
-        "masked_attention": lambda Dh, d: _cuda.check_head_dim(Dh, "kernels"),
+        "masked_attention": lambda Dh, d: _cuda.kernel_head_dim(Dh,
+                                                                "kernels"),
         "block_train": lambda Dh, d: bt._check_cuda_inputs(
             torch.zeros(1, 128, d), (), d // Dh),
         "ln_rows": lambda Dh, d: _cuda.check_ln_rows(d),
@@ -439,12 +440,95 @@ def test_guards_accept_the_repos_shapes(guard):
 
 @pytest.mark.parametrize("guard", GUARDS)
 def test_guards_refuse_other_shapes(guard):
-    """head_dim 48 and d_model 800 (past the row kernels' 768) raise; the
-    LayerNorm rows read d only, the attention guards head_dim only."""
+    """Any head_dim up to 128 (48: run zero-padded to 64) and d_model up
+    to 1,024 (800) are taken; head_dim 160 and d_model 1,056 (past the row
+    kernels' 1,024) raise. The LayerNorm rows read d only, the attention
+    guards head_dim only."""
     fn = _guards()[guard]
+    fn(48, 192)
+    fn(100, 800)
     if guard != "ln_rows":
         with pytest.raises(ValueError, match="head_dim"):
-            fn(48, 192)
+            fn(160, 640)
     if guard in ("block_train", "ln_rows"):
-        with pytest.raises(ValueError, match="768"):
-            fn(200, 800)
+        with pytest.raises(ValueError, match="1024"):
+            fn(88, 1056)
+
+
+# ------------------------------------------ head_dims off the kernels' own
+
+def _dyadic(rng, *shape):
+    """Multiples of 1/16 in [-1/2, 1/2]: every product and sum of a few
+    hundred of them is exact in f32, so Q.K^T, dp and D are the same values
+    at any width and in any order."""
+    return torch.from_numpy(rng.integers(-8, 9, shape).astype(np.float32)
+                            / 16)
+
+
+@pytest.mark.parametrize("Dh", [48, 80])
+def test_head_dim_padding_is_exact(Dh):
+    """What the CUDA wrappers do with a head_dim off ``_cuda.HEAD_DIMS``:
+    q, k, v (and o, dO) zero-padded to ``_cuda.kernel_head_dim`` (48 -> 64,
+    80 -> 96), the kernel run at that width with the caller's scale, the
+    results sliced back. Run here through the kernels' plain versions (the
+    serving attention, its fold, the training attention's forward and
+    backward with dropout): padded and unpadded give the same bits in
+    output, lse and grads, and the padded columns of o, dq, dk and dv are
+    zero."""
+    from vidsum_tpu_torch.ops import _cuda
+    from vidsum_tpu_torch.ops import attention_train as att
+
+    Dp = _cuda.kernel_head_dim(Dh, "kernels")
+    assert Dp == {48: 64, 80: 96}[Dh]
+    rng = np.random.default_rng(Dh)
+    B, Hh, N = 2, 2, 256
+    q, k, v, do = (_dyadic(rng, B, Hh, N, Dh) for _ in range(4))
+    mask = torch.zeros(B, N, dtype=torch.bool)
+    mask[1, 200:] = True
+    scale = Dh ** -0.5  # the caller's, never recomputed from Dp
+
+    def pad(t):
+        return _cuda.pad_head_dim(t, Dp)
+
+    for fn in (lambda *a: attn_mod.attention_reference(*a, mask, scale),
+               lambda *a: attn_mod.attention_folded_reference(
+                   *a, mask, scale, attn_mod.KEY_TILE)):
+        got = fn(pad(q), pad(k), pad(v))
+        assert torch.equal(got[..., :Dh], fn(q, k, v))
+        assert not got[..., Dh:].any()
+    o, lse = att.attention_train_fwd_reference(q, k, v, mask, 7, 0.3, scale)
+    po, plse = att.attention_train_fwd_reference(pad(q), pad(k), pad(v),
+                                                 mask, 7, 0.3, scale)
+    assert torch.equal(po[..., :Dh], o) and torch.equal(plse, lse)
+    assert not po[..., Dh:].any()
+    grads = att.attention_train_bwd_reference(q, k, v, mask, 7, lse, do, 0.3,
+                                              scale)
+    pgrads = att.attention_train_bwd_reference(pad(q), pad(k), pad(v), mask,
+                                               7, lse, pad(do), 0.3, scale)
+    for a, b in zip(pgrads, grads):
+        assert torch.equal(a[..., :Dh], b) and not a[..., Dh:].any()
+
+
+def test_head_dim_padding_helpers():
+    """``kernel_head_dim`` maps each head_dim up to 128 onto the smallest
+    kernel width that holds it and refuses the rest; ``pad_head_dim`` is
+    the identity at that width; the training block's per-head padding of
+    its fused (rows, heads * Dh) buffers round-trips."""
+    from vidsum_tpu_torch.ops import _cuda
+    from vidsum_tpu_torch.ops import block_train as bt
+
+    want = {1: 16, 16: 16, 17: 32, 48: 64, 64: 64, 80: 96, 96: 96, 112: 128,
+            128: 128}
+    assert {dh: _cuda.kernel_head_dim(dh, "x") for dh in want} == want
+    for dh in (0, 129, 160):
+        with pytest.raises(ValueError, match="head_dim"):
+            _cuda.kernel_head_dim(dh, "x")
+    t = torch.randn(3, 2, 5, 64)
+    assert _cuda.pad_head_dim(t, 64) is t
+    qkv = torch.randn(10, 3 * 4 * 48)
+    padded = bt._pad_heads(qkv, 12, 48, 64)
+    assert padded.shape == (10, 12 * 64)
+    assert torch.equal(padded.view(10, 12, 64)[..., :48],
+                       qkv.view(10, 12, 48))
+    assert not padded.view(10, 12, 64)[..., 48:].any()
+    assert torch.equal(bt._unpad_heads(padded, 12, 48, 64), qkv)

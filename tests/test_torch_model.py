@@ -125,6 +125,31 @@ def test_simnet_head96_matches_jax(attn_impl, d, heads, layers):
 
 
 @pytest.mark.parametrize("attn_impl", ["dense", "flash", "fused_block"])
+@pytest.mark.parametrize("d,heads,layers", [(192, 4, 2), (320, 4, 1)])
+def test_simnet_padded_head_dims_match_jax(attn_impl, d, heads, layers):
+    """head_dim 48 (d_model 192 with 4 heads, two layers) and 80 (d_model
+    320 with 4 heads, one layer), which the CUDA kernels run zero-padded to
+    64 and 96, at N = 128 against ``simnet_apply(attn_impl="xla")`` on
+    every route, 1e-5."""
+    kw = dict(KW, d_model=d, num_heads=heads, num_layers=layers)
+    jcfg = JaxModelConfig(dropout=0.0, **kw)
+    params = init_simnet(jax.random.PRNGKey(d + heads), jcfg)
+    model = SimNet(ModelConfig(**kw), device="cpu")
+    model.load_state_dict(params_from_jax(
+        jax.tree_util.tree_map(np.asarray, params)))
+    x, mask = _inputs(128, d + 1)
+    want, _ = simnet_apply(params, jcfg, jnp.asarray(x), jnp.asarray(mask),
+                           attn_impl="xla")
+    with torch.inference_mode():
+        got, hidden = model.eval()(torch.from_numpy(x),
+                                   torch.from_numpy(mask),
+                                   attn_impl=attn_impl)
+    assert hidden.shape == (2, 128, d)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5,
+                               atol=1e-5)
+
+
+@pytest.mark.parametrize("attn_impl", ["dense", "flash", "fused_block"])
 def test_make_eval_forward_matches_jax(attn_impl):
     jcfg, params, cfg, model = _pair(False, seed=3)
     x, mask = _inputs(256, 5)

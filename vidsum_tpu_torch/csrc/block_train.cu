@@ -205,11 +205,12 @@ __global__ void bt_splitk_reduce_kernel(const float* __restrict__ partial,
 }
 
 // ------------------------------------------------------------ row kernels
-// One warp per row of d <= 768 columns (d % 32 == 0): lane l holds columns
-// l + 32 t, t < d / 32 <= PER (16 up to d 512, else 24: a row's registers
-// sized to the widths in use; the wider arrays slowed d 256's rows).
+// One warp per row of d <= 1,024 columns (d % 32 == 0): lane l holds
+// columns l + 32 t, t < d / 32 <= PER (16 up to d 512, 24 up to d 768, else
+// 32: a row's registers sized to the widths in use, each width its own
+// instantiation; the wider arrays slowed d 256's rows).
 constexpr int kRowsPerBlock = kThreads / 32;
-constexpr int kMaxPerLane = 24;
+constexpr int kMaxPerLane = 32;
 
 template <int PER>
 __global__ void __launch_bounds__(kThreads)
@@ -413,6 +414,9 @@ extern "C" int vs_bt_drop_res_ln(const float* p, const float* resid,
   if (d <= 512)
     bt_drop_res_ln_kernel<16><<<grid, kThreads, 0, s>>>(
         p, resid, g, beta, out, xhat, inv, M, d, eps, dr);
+  else if (d <= 768)
+    bt_drop_res_ln_kernel<24><<<grid, kThreads, 0, s>>>(
+        p, resid, g, beta, out, xhat, inv, M, d, eps, dr);
   else
     bt_drop_res_ln_kernel<kMaxPerLane><<<grid, kThreads, 0, s>>>(
         p, resid, g, beta, out, xhat, inv, M, d, eps, dr);
@@ -431,6 +435,9 @@ extern "C" int vs_bt_ln_bwd_drop(const float* dy, const float* xhat,
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (d <= 512)
     bt_ln_bwd_drop_kernel<16><<<grid, kThreads, 0, s>>>(
+        dy, xhat, inv, g, dz, dmask, M, d, dr);
+  else if (d <= 768)
+    bt_ln_bwd_drop_kernel<24><<<grid, kThreads, 0, s>>>(
         dy, xhat, inv, g, dz, dmask, M, d, dr);
   else
     bt_ln_bwd_drop_kernel<kMaxPerLane><<<grid, kThreads, 0, s>>>(

@@ -151,7 +151,7 @@ __device__ __forceinline__ float dequant(int acc, float sx, float sw,
 
 
 // The residual + LayerNorm epilogue of rows that do not lie in one GEMM CTA
-// tile (256 < d <= 768: d_model 384, 512 and 768; any d in the f32 GEMM): the
+// tile (256 < d <= 1024: d_model 384 to 1,024; any d in the f32 GEMM): the
 // GEMM writes the f32 pre-LN rows z = acc (+ dequantised) + bias + residual
 // into y, then one warp per row takes the f32 LayerNorm (mean, biased variance,
 // eps; block_kernel.py::_layernorm_f32) in place, each operation IEEE-rounded
@@ -159,10 +159,12 @@ __device__ __forceinline__ float dequant(int acc, float sx, float sw,
 // scale (out_q, out_s, optional; quantize_rows' scheme). A row's sums run in a
 // fixed order, so its result does not depend on M.
 constexpr int kLnRowsPerBlock = 8;
-constexpr int kLnMaxPerLane = 24;  // d <= 768
+constexpr int kLnMaxPerLane = 32;  // d <= 1024
 
-// PER values a lane: 16 up to d 512, else 24 (a row's registers sized to
-// the widths in use)
+// PER values a lane: 16 up to d 512, 24 up to d 768, else 32 (a row's
+// registers sized to the widths in use: each width keeps its own
+// instantiation, so the narrower rows compile as they did before the wider
+// ones were added)
 template <typename T, int PER>
 __global__ void __launch_bounds__(32 * kLnRowsPerBlock)
 layernorm_rows_kernel(float* __restrict__ y, const float* __restrict__ g,
@@ -221,6 +223,9 @@ cudaError_t launch_layernorm_rows(float* y, const float* g, const float* beta,
   const dim3 grid((M + kLnRowsPerBlock - 1) / kLnRowsPerBlock);
   if (N <= 512)
     layernorm_rows_kernel<T, 16><<<grid, 32 * kLnRowsPerBlock, 0, stream>>>(
+        y, g, beta, static_cast<T*>(out_t), out_q, out_s, M, N, eps);
+  else if (N <= 768)
+    layernorm_rows_kernel<T, 24><<<grid, 32 * kLnRowsPerBlock, 0, stream>>>(
         y, g, beta, static_cast<T*>(out_t), out_q, out_s, M, N, eps);
   else
     layernorm_rows_kernel<T, kLnMaxPerLane>

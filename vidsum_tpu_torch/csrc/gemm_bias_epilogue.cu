@@ -13,7 +13,7 @@
 // The LayerNorm runs in f32 with eps and biased variance, as
 // block_kernel.py::_layernorm_f32 does. In bf16 a row of d <= 256 lies in
 // one CTA tile, so its statistics never leave the CTA; a wider row (d
-// 384-768), and in f32 every row, is written pre-LN in f32 by the GEMM
+// 384-1,024), and in f32 every row, is written pre-LN in f32 by the GEMM
 // (EPI_RES, y = acc + b + residual, into out_f) and normalised in place by
 // common.cuh's layernorm_rows_kernel, the same f32 math in a second launch.
 //
@@ -56,14 +56,13 @@
 // (fma_gemm.cuh) under the serving epilogues, with no split-k, so that
 // every output is one thread's FMAs in increasing k at every M; a
 // LayerNorm row of any d goes through the row kernel.
-#include <cuda.h>  // CUtensorMap and its encoder's types only: nothing links libcuda
-
-#include <mutex>
-
 #include "common.cuh"
 #include "fma_gemm.cuh"
+#include "tma_ring.cuh"
 
 namespace {
+
+using namespace vs::tma;
 
 constexpr int kThreads = 256;  // 8 warps
 
@@ -362,74 +361,6 @@ struct WgTiles {
   static constexpr int kSmem = kStages * kStage + 2 * kStages * 8 + 1024;
 };
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(bar),
-               "r"(count));
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(bar)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(
-                   bar),
-               "r"(bytes)
-               : "memory");
-}
-
-// Waits for the completion of the barrier's phase of the given parity. A
-// phase that never completes (a load that never lands) traps after 2^28
-// polls (seconds), so that the launch fails instead of holding the card.
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done = 0;
-  for (uint32_t polls = 0;; ++polls) {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-    if (done) return;
-    if (polls == (1u << 28)) __trap();
-  }
-}
-
-// One box of a 2-D tensor map (coordinates: column c0, row c1) into shared
-// memory; its bytes complete on the barrier's transaction count.
-__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
-                                         int c0, int c1, uint32_t bar) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::"
-      "bytes [%0], [%1, {%2, %3}], [%4];" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(bar)
-      : "memory");
-}
-
-// wgmma shared-memory descriptor of a K-major tile in the 128-byte swizzle:
-// start address >> 4, leading byte offset unused (1), stride byte offset
-// 1024 >> 4 between 8-row groups, layout type 1 (SWIZZLE_128B)
-__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr) {
-  return (uint64_t)((addr >> 4) & 0x3FFF) | ((uint64_t)1 << 16) |
-         ((uint64_t)64 << 32) | ((uint64_t)1 << 62);
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;" ::"n"(N) : "memory");
-}
 // keeps the compiler from moving accesses of an accumulator register across
 // the asynchronous products that write it
 __device__ __forceinline__ void reg_fence(float& r) {
@@ -536,10 +467,6 @@ __device__ __forceinline__ void wgmma_tile(float (&d)[BN / 2], uint64_t da,
     wgmma_n256(d, da, db);
   else
     wgmma_n128(d, da, db);
-}
-
-__device__ __forceinline__ void named_bar_sync(int id, int threads) {
-  asm volatile("bar.sync %0, %1;" ::"r"(id), "r"(threads) : "memory");
 }
 
 // A CTA of BM / 64 consumer warpgroups (warps 0 .. BM/16 - 1; warpgroup c
@@ -711,80 +638,6 @@ gemm_bf16_wgmma_kernel(const __grid_constant__ CUtensorMap tmx,
   }
 }
 
-// ------------------------------------------------------- host: tensor maps
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
-                                 cuuint32_t, void*, const cuuint64_t*,
-                                 const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave,
-                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
-                                 CUtensorMapFloatOOBfill);
-
-EncodeTiled encoder() {
-  static const EncodeTiled fn = [] {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult q;
-#if CUDART_VERSION >= 12050
-    const cudaError_t e = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &q);
-#else
-    const cudaError_t e = cudaGetDriverEntryPoint(
-        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q);
-#endif
-    return e == cudaSuccess && q == cudaDriverEntryPointSuccess
-               ? reinterpret_cast<EncodeTiled>(p)
-               : nullptr;
-  }();
-  return fn;
-}
-
-// The map of a (rows, cols) bf16 matrix with row stride ld (elements), in
-// boxes of box_rows x 64 in the 128-byte swizzle; out-of-range elements load
-// as 0. Encoded into `out` (64-byte aligned, as the encoder requires) and
-// cached process-wide by (pointer, shape, stride, box) in statically aligned
-// storage under a mutex: serving threads launch too, and thread-local storage
-// of a dlopen'ed library need not keep a map's 64-byte alignment.
-struct MapEntry {
-  CUtensorMap map;
-  const void* p;
-  int rows, cols, ld, box_rows;
-};
-constexpr int kMapCache = 16;
-alignas(64) MapEntry g_maps[kMapCache];
-int g_next_map = 0;
-std::mutex g_maps_mu;
-
-bool tensor_map(CUtensorMap* out, const void* p, int rows, int cols, int ld,
-                int box_rows) {
-  if (reinterpret_cast<uintptr_t>(out) % 64) return false;
-  std::lock_guard<std::mutex> lock(g_maps_mu);
-  for (const MapEntry& e : g_maps)
-    if (e.p == p && e.rows == rows && e.cols == cols && e.ld == ld &&
-        e.box_rows == box_rows) {
-      *out = e.map;
-      return true;
-    }
-  const EncodeTiled encode = encoder();
-  if (encode == nullptr) return false;
-  const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
-  const cuuint64_t strides[1] = {(cuuint64_t)ld * 2};
-  const cuuint32_t box[2] = {(cuuint32_t)kWgBK, (cuuint32_t)box_rows};
-  const cuuint32_t elem[2] = {1, 1};
-  if (encode(out, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(p),
-             dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
-             CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
-    return false;
-  MapEntry& e = g_maps[g_next_map];
-  g_next_map = (g_next_map + 1) % kMapCache;
-  e.map = *out;
-  e.p = p;
-  e.rows = rows;
-  e.cols = cols;
-  e.ld = ld;
-  e.box_rows = box_rows;
-  return true;
-}
-
 // ------------------------------------------------------------------ launch
 struct GemmArgs {
   const void* x;
@@ -841,8 +694,9 @@ cudaError_t launch_wgmma(const GemmArgs& g, int bm, int bn,
       reinterpret_cast<uintptr_t>(g.w) % 16)
     return cudaErrorInvalidValue;
   alignas(64) CUtensorMap tx, tw;
-  if (!tensor_map(&tx, g.x, g.M, g.K, g.ldx, bm) ||
-      !tensor_map(&tw, g.w, g.N, g.K, g.ldw, bn))
+  constexpr CUtensorMapDataType bf16 = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+  if (!tensor_map(&tx, bf16, 2, g.x, g.M, g.K, g.ldx, bm) ||
+      !tensor_map(&tw, bf16, 2, g.w, g.N, g.K, g.ldw, bn))
     return cudaErrorInvalidValue;
   if (bm == 128 && bn == 256)
     return launch_wgmma_epi<128, 256>(g, tx, tw, stream);

@@ -28,16 +28,17 @@ BUILD_DIR = os.path.join(PKG_DIR, "_build")
 KERNELS = ("gemm_bias_epilogue", "masked_attention", "block_train",
            "attention_train", "int8_gemm", "ring_attention")
 HEADERS = ("common.cuh", "attention_core.cuh", "attention_train_mma.cuh",
-           "mma_tiles.cuh", "fma_gemm.cuh")
+           "mma_tiles.cuh", "fma_gemm.cuh", "tma_ring.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 
 # The shapes every kernel family takes: head_dim (the attention kernels are
-# instantiated for these; 96 is d_model 384 with 4 heads and 768 with 8)
-# and d_model (d % 32 == 0; the row kernels hold a row of up to 768 in a
-# warp). Every wrapper's guard reads these.
+# instantiated for these; 96 is d_model 384 with 4 heads and 768 with 8;
+# any other head_dim up to 128 runs zero-padded to the next of them, see
+# kernel_head_dim) and d_model (d % 32 == 0; the row kernels hold a row of
+# up to 1,024 in a warp). Every wrapper's guard reads these.
 HEAD_DIMS = (16, 32, 64, 96, 128)
-MAX_D_MODEL = 768
+MAX_D_MODEL = 1024
 
 _vp, _int, _uint, _ll, _f32 = (ctypes.c_void_p, ctypes.c_int, ctypes.c_uint,
                                ctypes.c_longlong, ctypes.c_float)
@@ -67,7 +68,8 @@ _SIGNATURES = {
         "vs_at_bwd": [_vp] * 11 + [_int] * 4
         + [_f32, _uint, _uint, _f32, _int, _int, _vp]},
     "int8_gemm": {
-        "vs_int8_gemm": [_vp] * 13 + [_int] * 5 + [_f32, _vp],
+        "vs_int8_gemm": [_vp] * 13 + [_int] * 7 + [_f32, _vp],
+        "vs_int8_gemm_smem": [_int, _int],
         "vs_quantize_rows": [_vp] * 3 + [_int] * 3 + [_vp]},
     "ring_attention": {
         "vs_ring_fwd": [_vp] * 10 + [_int] * 7 + [_uint] + [_int] * 3
@@ -170,9 +172,30 @@ def ptr(t) -> Optional[int]:
     return None if t is None else t.data_ptr()
 
 
-def check_head_dim(Dh: int, what: str) -> None:
-    if Dh not in HEAD_DIMS:
-        raise ValueError(f"{what} take head_dim in {HEAD_DIMS}, got {Dh}")
+def kernel_head_dim(Dh: int, what: str) -> int:
+    """The head_dim the attention kernels run a head of ``Dh`` at: the
+    smallest entry of ``HEAD_DIMS`` that holds it. The wrappers zero-pad q,
+    k and v (and o and its cotangent) along head_dim to that width and
+    slice the results back, which is exact: zero columns add nothing to
+    Q.K^T (so the scores, the softmax and the caller's scale are those of
+    the unpadded head), V's zero columns give zero output columns, and the
+    padded columns of dQ, dK and dV are zero. Raises ``ValueError`` past
+    the widest (the kernels' register tiles end at 128)."""
+    for dp in HEAD_DIMS:
+        if 0 < Dh <= dp:
+            return dp
+    raise ValueError(f"{what} take head_dim up to {HEAD_DIMS[-1]} (run "
+                     f"zero-padded to one of {HEAD_DIMS}), got {Dh}")
+
+
+def pad_head_dim(t, dp: int):
+    """``t`` zero-padded along its last dim to ``dp`` columns (a new
+    contiguous tensor), or ``t`` itself where it has them."""
+    import torch
+
+    if t.shape[-1] == dp:
+        return t
+    return torch.nn.functional.pad(t, (0, dp - t.shape[-1]))
 
 
 def check_d_model(d: int, what: str) -> None:
@@ -183,7 +206,8 @@ def check_d_model(d: int, what: str) -> None:
 
 # The GEMMs' residual+LayerNorm epilogue holds a row of up to LN_TILE
 # columns in one CTA tile; wider rows, up to MAX_D_MODEL, go through an f32
-# buffer and a row kernel (in f32 every row).
+# buffer and a row kernel (in f32 every row; the row kernel holds 16 values
+# a lane up to d 512, 24 up to 768 and 32 past it).
 LN_TILE = 256
 
 

@@ -127,8 +127,11 @@ def masked_attention(q, k, v, pad_mask, scale: float,
     """Launch ``csrc/masked_attention.cu`` on CUDA tensors.
 
     ``q``/``k``/``v`` are (B, H, N, Dh) views with equal strides and a
-    contiguous last dim (they may be slices of one fused QKV buffer), Dh in
-    ``_cuda.HEAD_DIMS``; ``pad_mask`` is (B, N) bool, True at padded keys;
+    contiguous last dim (they may be slices of one fused QKV buffer), Dh up
+    to 128 (a head_dim off ``_cuda.HEAD_DIMS`` runs zero-padded to the next
+    entry, ``_cuda.kernel_head_dim``; with ``qk_scales`` the int8 codes
+    are padded with zero codes, so the scales stay the unpadded rows');
+    ``pad_mask`` is (B, N) bool, True at padded keys;
     ``out``, if given, is a (B, H, N, Dh) view to write into, in v's dtype
     or, for bf16 inputs with ``norm_first``, in f32 (the int8 block's attn).
     ``norm_first`` rounds the normalised probabilities to the input dtype,
@@ -179,7 +182,18 @@ def masked_attention(q, k, v, pad_mask, scale: float,
                 or qsc.dtype != torch.float32 or ksc.dtype != torch.float32):
             raise ValueError("qk_scales must be two (B, H, N) float32 views "
                              "with equal strides")
-    _cuda.check_head_dim(Dh, "masked_attention's kernels")
+    Dp = _cuda.kernel_head_dim(Dh, "masked_attention's kernels")
+    given = None
+    if Dp != Dh:
+        # the kernels run the head zero-padded to Dp; the result is sliced
+        # back into ``out`` (or a new tensor)
+        q, k, v = (_cuda.pad_head_dim(t, Dp) for t in (q, k, v))
+        given = out
+        if given is not None and given.shape != (B, H, N, Dh):
+            raise ValueError(f"out must be {(B, H, N, Dh)}, got "
+                             f"{tuple(given.shape)}")
+        out = None if given is None else torch.empty(
+            v.shape, dtype=given.dtype, device=v.device)
     if pad_mask is None:
         pad_mask = torch.zeros((B, N), dtype=torch.bool, device=v.device)
     mask = pad_mask.to(device=v.device, dtype=torch.bool).contiguous()
@@ -204,10 +218,10 @@ def masked_attention(q, k, v, pad_mask, scale: float,
     sb, sh, sn, _ = v.stride()
     ob, oh, on, _ = out.stride()
     cb, ch, cn = qsc.stride() if qsc is not None else (0, 0, 0)
-    cta_rows = mma_cta_rows(B, H, N, Dh, _cuda.sm_count(v.device))
+    cta_rows = mma_cta_rows(B, H, N, Dp, _cuda.sm_count(v.device))
     err = lib.vs_masked_attention(
         _cuda.ptr(q), _cuda.ptr(k), _cuda.ptr(v), _cuda.ptr(mask),
-        _cuda.ptr(out), _cuda.ptr(qsc), _cuda.ptr(ksc), B, H, N, Dh, sb, sh,
+        _cuda.ptr(out), _cuda.ptr(qsc), _cuda.ptr(ksc), B, H, N, Dp, sb, sh,
         sn, ob, oh, on, cb, ch, cn, float(scale), _cuda.dtype_code(v),
         _cuda.dtype_code(out), int(norm_first), cta_rows,
         _cuda.stream_of(v))
@@ -216,6 +230,9 @@ def masked_attention(q, k, v, pad_mask, scale: float,
     if staged is not None:
         masked_attention.fallback_launches += 1
         return staged.copy_(out)
+    if Dp != Dh:
+        out = out[..., :Dh]
+        return out.contiguous() if given is None else given.copy_(out)
     return out
 
 

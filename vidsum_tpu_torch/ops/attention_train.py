@@ -285,12 +285,15 @@ def attention_train_bwd_folded_reference(q, k, v, pad_mask, seed: int, lse,
 # ----------------------------------------------------- the kernel launches
 
 def _cuda_inputs(q, k, v, pad_mask, seed: int):
+    """q, k, v as the kernels take them (contiguous, on 16 bytes, zero-padded
+    along head_dim to ``_cuda.kernel_head_dim``), the mask as bytes and the
+    dtype code."""
     B, H, N, Dh = q.shape
     if k.shape != q.shape or v.shape != q.shape:
         raise ValueError("q, k and v must have one shape")
     if not q.dtype == k.dtype == v.dtype:
         raise ValueError("q, k and v must have one dtype")
-    _cuda.check_head_dim(Dh, "the training attention kernels")
+    Dp = _cuda.kernel_head_dim(Dh, "the training attention kernels")
     if N % KEY_TILE:
         raise ValueError(f"N={N} must be a multiple of {KEY_TILE}")
     if not 0 <= int(seed) < 2**31:
@@ -299,24 +302,26 @@ def _cuda_inputs(q, k, v, pad_mask, seed: int):
     if mask8.shape != (B, N):
         raise ValueError(f"pad_mask must be {(B, N)}, got "
                          f"{tuple(mask8.shape)}")
+    q, k, v = (_cuda.pad_head_dim(t, Dp) for t in (q, k, v))
     return (*(_cuda.aligned16(t.contiguous()) for t in (q, k, v, mask8)),
             _cuda.dtype_code(q))
 
 
 def _launch_fwd(q, k, v, pad_mask, seed: int, rate: float, scale: float,
                 online: bool):
+    Dh = q.shape[-1]
     q, k, v, mask8, code = _cuda_inputs(q, k, v, pad_mask, seed)
-    B, H, N, Dh = q.shape
+    B, H, N, Dp = q.shape
     o = torch.empty_like(q)
     lse = torch.empty((B, H, N), dtype=torch.float32, device=q.device)
     lib = _cuda.load("attention_train")
     err = lib.vs_at_fwd(
         _cuda.ptr(q), _cuda.ptr(k), _cuda.ptr(v), _cuda.ptr(mask8),
-        _cuda.ptr(o), _cuda.ptr(lse), B, H, N, Dh, float(scale), int(seed),
+        _cuda.ptr(o), _cuda.ptr(lse), B, H, N, Dp, float(scale), int(seed),
         _threshold(rate), _keep_scale(rate), code, int(online),
         _cuda.stream_of(q))
     _cuda.check(lib, err, "attention_train forward")
-    return o, lse
+    return (o if Dp == Dh else o[..., :Dh].contiguous()), lse
 
 
 def _launch_bwd(q, k, v, pad_mask, seed: int, lse, do, o, rate: float,
@@ -324,26 +329,31 @@ def _launch_bwd(q, k, v, pad_mask, seed: int, lse, do, o, rate: float,
     """``folded``: the folded backward (D = rowsum(do * o), lse guard; ``o``
     required); else the single-pass one (D = rowsum(dp * p), or in f32
     rowsum(do * o) where ``o`` is given)."""
+    Dh = q.shape[-1]
+    if do.shape != q.shape or (o is not None and o.shape != q.shape):
+        raise ValueError("do (and o) must be (B, H, N, Dh) like q")
     q, k, v, mask8, code = _cuda_inputs(q, k, v, pad_mask, seed)
-    B, H, N, Dh = q.shape
-    do = _cuda.aligned16(do.to(q.dtype).contiguous())
+    B, H, N, Dp = q.shape
+    do = _cuda.aligned16(_cuda.pad_head_dim(do.to(q.dtype), Dp).contiguous())
     lse = _cuda.aligned16(lse.float().contiguous())
     if o is not None:
-        o = _cuda.aligned16(o.to(q.dtype).contiguous())
-    if do.shape != q.shape or lse.shape != (B, H, N) or (
-            o is not None and o.shape != q.shape):
-        raise ValueError("do (and o) must be (B, H, N, Dh), lse (B, H, N)")
+        o = _cuda.aligned16(
+            _cuda.pad_head_dim(o.to(q.dtype), Dp).contiguous())
+    if lse.shape != (B, H, N):
+        raise ValueError("lse must be (B, H, N)")
     d_row = torch.empty((B, H, N), dtype=torch.float32, device=q.device)
     dq, dk, dv = (torch.empty_like(q) for _ in range(3))
     lib = _cuda.load("attention_train")
     err = lib.vs_at_bwd(
         _cuda.ptr(q), _cuda.ptr(k), _cuda.ptr(v), _cuda.ptr(do),
         _cuda.ptr(o), _cuda.ptr(lse), _cuda.ptr(mask8), _cuda.ptr(d_row),
-        _cuda.ptr(dq), _cuda.ptr(dk), _cuda.ptr(dv), B, H, N, Dh,
+        _cuda.ptr(dq), _cuda.ptr(dk), _cuda.ptr(dv), B, H, N, Dp,
         float(scale), int(seed), _threshold(rate), _keep_scale(rate), code,
         int(folded), _cuda.stream_of(q))
     _cuda.check(lib, err, "attention_train backward")
-    return dq, dk, dv
+    if Dp == Dh:
+        return dq, dk, dv
+    return tuple(t[..., :Dh].contiguous() for t in (dq, dk, dv))
 
 
 # ------------------------------------------------ the four TPU entry points

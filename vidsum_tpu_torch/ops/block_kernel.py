@@ -223,7 +223,7 @@ def gemm_bias_epilogue(x, w, bias, epilogue: str = "none", residual=None,
 
     x (M, K) and w (N, K) in one dtype, each with a unit column stride (rows
     may be strided); bias (N,) f32; ``residual`` (M, N) in x's dtype or f32,
-    with ``ln_g``/``ln_b`` (N,) f32, for ``"residual_ln"`` (N <= 768; past
+    with ``ln_g``/``ln_b`` (N,) f32, for ``"residual_ln"`` (N <= 1,024; past
     256, and in f32 always, the kernel normalises an f32 buffer in a
     second launch). Returns
     ``(y in x's dtype or None, y in f32 or None)`` as ``want_t`` /

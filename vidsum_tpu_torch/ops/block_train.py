@@ -340,35 +340,62 @@ def _check_attention_operands(rows: dict, *others) -> None:
                          "with strides a multiple of 4 elements")
 
 
+def _pad_heads(t, heads: int, Dh: int, Dp: int):
+    """(rows, heads * Dh) row-major buffer -> (rows, heads * Dp) with each
+    head's columns zero-padded to Dp (``t`` itself where Dp == Dh)."""
+    if Dp == Dh:
+        return t
+    return _cuda.pad_head_dim(t.view(t.shape[0], heads, Dh), Dp).view(
+        t.shape[0], heads * Dp)
+
+
+def _unpad_heads(t, heads: int, Dh: int, Dp: int):
+    """The inverse of :func:`_pad_heads`: each head's first Dh columns, as
+    a new contiguous (rows, heads * Dh) buffer."""
+    if Dp == Dh:
+        return t
+    return t.view(t.shape[0], heads, Dp)[..., :Dh].reshape(t.shape[0],
+                                                           heads * Dh)
+
+
 def _attention_fwd(qkv, mask8, B, H, N, scale, dr: _Drop, keep: bool):
     """(o, lse, kept only with ``keep``) of the attention over the fused QKV
-    buffer."""
+    buffer. A head_dim off ``_cuda.HEAD_DIMS`` runs on a copy of the buffer
+    with every head zero-padded to ``_cuda.kernel_head_dim`` (exact; the
+    output is sliced back)."""
     d = qkv.shape[1] // 3
-    o = torch.empty((B * N, d), dtype=torch.float32, device=qkv.device)
+    Dh = d // H
+    Dp = _cuda.kernel_head_dim(Dh, "the training kernels")
+    qkv = _pad_heads(qkv, 3 * H, Dh, Dp)
+    o = torch.empty((B * N, H * Dp), dtype=torch.float32, device=qkv.device)
     lse = (torch.empty((B, H, N), dtype=torch.float32, device=qkv.device)
            if keep else None)
-    _check_attention_operands({"qkv": (qkv, 3 * d)}, mask8)
+    _check_attention_operands({"qkv": (qkv, 3 * H * Dp)}, mask8)
     lib = _cuda.load("block_train")
     err = lib.vs_bt_attention_fwd(
         _cuda.ptr(qkv), _cuda.ptr(mask8), _cuda.ptr(o), _cuda.ptr(lse), B,
-        H, N, d // H, scale, dr.seed, dr.thr, dr.kscale, _cuda.stream_of(qkv))
+        H, N, Dp, scale, dr.seed, dr.thr, dr.kscale, _cuda.stream_of(qkv))
     _cuda.check(lib, err, "block_train attention_fwd")
-    return o, lse
+    return _unpad_heads(o, H, Dh, Dp), lse
 
 
 def _attention_bwd(qkv, o, do, lse, mask8, B, H, N, scale, dr: _Drop):
     d = o.shape[1]
+    Dh = d // H
+    Dp = _cuda.kernel_head_dim(Dh, "the training kernels")
+    qkv = _pad_heads(qkv, 3 * H, Dh, Dp)
+    o, do = (_pad_heads(t, H, Dh, Dp) for t in (o, do))
     D = torch.empty_like(lse)
     dqkv = torch.empty_like(qkv)
-    _check_attention_operands({"qkv": (qkv, 3 * d), "o": (o, d),
-                               "do": (do, d)}, mask8, lse)
+    _check_attention_operands({"qkv": (qkv, 3 * H * Dp), "o": (o, H * Dp),
+                               "do": (do, H * Dp)}, mask8, lse)
     lib = _cuda.load("block_train")
     err = lib.vs_bt_attention_bwd(
         _cuda.ptr(qkv), _cuda.ptr(o), _cuda.ptr(do), _cuda.ptr(lse),
-        _cuda.ptr(mask8), _cuda.ptr(D), _cuda.ptr(dqkv), B, H, N, d // H,
+        _cuda.ptr(mask8), _cuda.ptr(D), _cuda.ptr(dqkv), B, H, N, Dp,
         scale, dr.seed, dr.thr, dr.kscale, _cuda.stream_of(qkv))
     _cuda.check(lib, err, "block_train attention_bwd")
-    return dqkv
+    return _unpad_heads(dqkv, 3 * H, Dh, Dp)
 
 
 def _check_cuda_inputs(x, w: TrainWeights, num_heads: int) -> None:
@@ -378,7 +405,7 @@ def _check_cuda_inputs(x, w: TrainWeights, num_heads: int) -> None:
     if d % num_heads:
         raise ValueError(f"d_model {d} does not split over {num_heads} heads")
     _cuda.check_d_model(d, "the training kernels")
-    _cuda.check_head_dim(d // num_heads, "the training kernels")
+    _cuda.kernel_head_dim(d // num_heads, "the training kernels")
     for t in w:
         if t.dtype != torch.float32 or not t.is_contiguous() \
                 or t.device != x.device:

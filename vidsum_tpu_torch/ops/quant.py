@@ -23,7 +23,8 @@ and inference only. Every function here takes tensors on any device: on CPU
 tensors the plain PyTorch versions run (integer products summed exactly in
 f64: K * 127^2 < 2^53; f32 is not exact past 2^24, which K = 1,024 reaches),
 on CUDA tensors :func:`quantize_rows` and :func:`int8_gemm` launch
-``csrc/int8_gemm.cu`` and count their launches.
+``csrc/int8_gemm.cu`` (the product on ``wgmma`` from a TMA-filled ring, in
+:func:`int8_gemm_tile` CTAs) and count their launches.
 """
 
 from __future__ import annotations
@@ -124,21 +125,57 @@ def quantize_rows(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
 quantize_rows.launches = 0
 
 
+# the int8 wgmma kernel's CTA tiles (rows, columns), larger first
+INT8_TILES = ((128, 256), (128, 128), (64, 256), (64, 128))
+
+
+def int8_gemm_tile(M: int, N: int, sms: int,
+                   ln_rows: bool = False) -> Tuple[int, int]:
+    """The int8 ``wgmma`` kernel's CTA tile (rows, columns) for an (M, N)
+    output on ``sms`` SMs: of :data:`INT8_TILES`, larger first, a smaller
+    tile replaces the one taken so far only where its grid takes less than
+    7/8 of its time if each SM runs one CTA at a time and a CTA's time
+    scales with its area (waves ``ceil(tiles / sms)`` x rows x columns):
+    a larger tile reads fewer operand bytes a product, so a wave's tail
+    alone does not buy a smaller one. Rows are one or two consumer
+    warpgroups (64 or 128), columns one ``wgmma`` (128 or 256).
+    ``ln_rows``: a residual + LayerNorm product, whose row of up to 256
+    columns must lie in one tile
+    (N 129-256 takes 256 columns; wider rows go through the row kernel at
+    any tile). At (32, 512) every product takes 128 x 256; at (8, 256)
+    (M 2,048) the d -> 3d and d -> 4d products take 128 x 128 and the
+    LayerNorm ones 64 x 256, twice the CTAs of 128 rows. Every output is an
+    exact s32 sum and a LayerNorm row reduces in one order in every tile,
+    so a row's bits do not depend on the choice."""
+    best = None
+    for bm, bn in INT8_TILES:
+        if ln_rows and bn < N <= 256:
+            continue
+        cost = -(-(-(-M // bm) * -(-N // bn)) // sms) * bm * bn
+        if best is None or 8 * cost < 7 * best[0]:
+            best = (cost, bm, bn)
+    return best[1], best[2]
+
+
 def int8_gemm(xq, sx, wq, sw, bias, epilogue: str = "none", residual=None,
               ln_g=None, ln_b=None, out_dtype: Optional[torch.dtype] = None,
               want_f32: bool = False, want_q: bool = False):
     """``Y = dequant(Xq . Wq^T) + b`` with an epilogue, launched as
-    ``vs_int8_gemm`` (``csrc/int8_gemm.cu``, int8 tensor cores).
+    ``vs_int8_gemm`` (``csrc/int8_gemm.cu``: ``wgmma`` s8 from a TMA-filled
+    ring, in :func:`int8_gemm_tile` CTAs).
 
-    xq (M, K) and wq (N, K) int8, K % 32 == 0; sx (M,) or (M, 1) and sw (N,)
-    f32 scales; bias (N,) f32. ``epilogue``: ``"none"``, ``"relu"``,
-    ``"residual_ln"`` (``residual`` (M, N) in f32 or ``out_dtype``, with
-    ``ln_g``/``ln_b`` (N,) f32; N <= 512) or ``"shift"`` (returns the int8
-    ``(acc >> 8)``, the probe's epilogue; the scales and bias are not read).
-    Returns ``(y in out_dtype or None, y f32 or None, codes or None,
-    scales (M,) or None)``: ``want_q`` asks for the int8 codes of the
-    residual + LayerNorm output, for the next product. On CPU tensors this
-    is :func:`int8_gemm_reference`."""
+    xq (M, K) and wq (N, K) int8, contiguous, K % 32 == 0; sx (M,) or (M, 1)
+    and sw (N,) f32 scales; bias (N,) f32. ``epilogue``: ``"none"``,
+    ``"relu"``, ``"residual_ln"`` (``residual`` (M, N) in f32 or
+    ``out_dtype``, with ``ln_g``/``ln_b`` (N,) f32; N <= 1,024) or
+    ``"shift"`` (returns the int8 ``(acc >> 8)``, the probe's epilogue; the
+    scales and bias are not read). Returns ``(y in out_dtype or None, y f32
+    or None, codes or None, scales (M,) or None)``: ``want_q`` asks for the
+    int8 codes of the residual + LayerNorm output, for the next product.
+    TMA reads xq and wq from 16-byte boundaries: an operand off one is
+    copied onto one first (the same kernel, the same bits), counted by
+    ``int8_gemm.fallback_launches``. On CPU tensors this is
+    :func:`int8_gemm_reference`."""
     if xq.device.type == "cpu":
         return int8_gemm_reference(xq, sx, wq, sw, bias, epilogue, residual,
                                    ln_g, ln_b, out_dtype, want_f32, want_q)
@@ -154,15 +191,20 @@ def int8_gemm(xq, sx, wq, sw, bias, epilogue: str = "none", residual=None,
     if K % 32:
         raise ValueError(f"the int8 GEMM takes K % 32 == 0, got K={K}")
     dev = xq.device
+    staged = xq.data_ptr() % 16 or wq.data_ptr() % 16
+    xq, wq = _cuda.aligned16(xq), _cuda.aligned16(wq)
+    bm, bn = int8_gemm_tile(M, N, _cuda.sm_count(dev),
+                            epilogue == "residual_ln")
     if epilogue == "shift":
         out = torch.empty((M, N), dtype=torch.int8, device=dev)
         lib = _cuda.load("int8_gemm")
         err = lib.vs_int8_gemm(
             _cuda.ptr(xq), None, _cuda.ptr(wq), None, None, None, None, None,
             None, None, None, _cuda.ptr(out), None, M, N, K,
-            EPILOGUES[epilogue], 0, LN_EPS, _cuda.stream_of(xq))
+            EPILOGUES[epilogue], 0, bm, bn, LN_EPS, _cuda.stream_of(xq))
         _cuda.check(lib, err, "int8_gemm")
         int8_gemm.launches += 1
+        int8_gemm.fallback_launches += bool(staged)
         return out
     sx = sx.reshape(M)
     for name, t, n in (("sx", sx, M), ("sw", sw, N), ("bias", bias, N)):
@@ -177,6 +219,8 @@ def int8_gemm(xq, sx, wq, sw, bias, epilogue: str = "none", residual=None,
         _cuda.check_ln_rows(N)
         if residual.shape != (M, N) or not residual.is_contiguous():
             raise ValueError("residual must be a contiguous (M, N) tensor")
+        # the epilogue reads it in 16-byte row segments
+        residual = _cuda.aligned16(residual)
         if residual.dtype == torch.float32:
             res_f = residual
         elif residual.dtype == dtype:
@@ -206,15 +250,17 @@ def int8_gemm(xq, sx, wq, sw, bias, epilogue: str = "none", residual=None,
         _cuda.ptr(bias), _cuda.ptr(res_t), _cuda.ptr(res_f), _cuda.ptr(ln_g),
         _cuda.ptr(ln_b), _cuda.ptr(out_t), _cuda.ptr(out_f), _cuda.ptr(out_q),
         _cuda.ptr(out_s), M, N, K, EPILOGUES[epilogue],
-        _cuda.DTYPE_CODES[str(dtype).replace("torch.", "")], LN_EPS,
+        _cuda.DTYPE_CODES[str(dtype).replace("torch.", "")], bm, bn, LN_EPS,
         _cuda.stream_of(xq))
     _cuda.check(lib, err, "int8_gemm")
     int8_gemm.launches += 1
+    int8_gemm.fallback_launches += bool(staged)
     return ((out_f if both else out_t), (out_f if want_f32 else None),
             out_q, out_s)
 
 
 int8_gemm.launches = 0
+int8_gemm.fallback_launches = 0
 
 
 # ------------------------------------------------------------ the scheme

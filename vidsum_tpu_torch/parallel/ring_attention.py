@@ -30,8 +30,9 @@ CUDA tensors (no fallback), and counts its launches in ``launches``.
 autograd in training. On CUDA tensors ``"auto"`` and ``"kernel"`` take the
 kernels at every length: they stream K/V in 64-key tiles, so their only
 constraints are Nl a multiple of 64 (the sequence-parallel forward and step
-pad the global length to make it one) and head_dim in ``_cuda.HEAD_DIMS``,
-outside which the wrappers raise. On CPU tensors ``"kernel"`` (JAX
+pad the global length to make it one) and head_dim up to 128 (run
+zero-padded to the next of ``_cuda.HEAD_DIMS``), past which the wrappers
+raise. On CPU tensors ``"kernel"`` (JAX
 ``"pallas"``) takes the wrappers' plain versions inside the TPU kernels'
 VMEM envelope (copied, so that a shape takes the same route as in the JAX
 package, which the parity tests hold) and ``"auto"`` the plain steps, as
@@ -169,6 +170,9 @@ def ring_train_step_bwd_reference(q32, kb, vb, g, d, m, l, mb, info: Info,
 # ----------------------------------------------------- the kernel launches
 
 def _cuda_inputs(q32, kb, vb, mb, kv_dtypes):
+    """q, k, v as the kernels take them (contiguous, zero-padded along
+    head_dim to ``_cuda.kernel_head_dim``), the key mask as bytes, and B,
+    H, Nq, Nk and the padded head_dim."""
     B, H, Nq, Dh = q32.shape
     Nk = kb.shape[2]
     if q32.dtype != torch.float32:
@@ -179,7 +183,7 @@ def _cuda_inputs(q32, kb, vb, mb, kv_dtypes):
     if kb.dtype != vb.dtype or kb.dtype not in kv_dtypes:
         raise ValueError(f"k and v must share one of {kv_dtypes}, got "
                          f"{kb.dtype}, {vb.dtype}")
-    _cuda.check_head_dim(Dh, "the ring kernels")
+    Dp = _cuda.kernel_head_dim(Dh, "the ring kernels")
     if Nq % KEY_TILE or Nk % KEY_TILE:
         raise ValueError(f"Nq={Nq} and Nk={Nk} must be multiples of "
                          f"{KEY_TILE}")
@@ -187,15 +191,18 @@ def _cuda_inputs(q32, kb, vb, mb, kv_dtypes):
     if mask8.shape != (B, Nk):
         raise ValueError(f"the key mask must be {(B, Nk)}, got "
                          f"{tuple(mask8.shape)}")
-    return (q32.contiguous(), kb.contiguous(), vb.contiguous(), mask8,
-            B, H, Nq, Nk, Dh)
+    return (*(_cuda.pad_head_dim(t, Dp).contiguous() for t in (q32, kb, vb)),
+            mask8, B, H, Nq, Nk, Dp)
 
 
 def _carry(t, shape):
-    t = t.float().contiguous()
-    if t.shape != shape:
+    """A carry as the kernels take it: f32, contiguous, its last dim
+    zero-padded to ``shape``'s (the padded head_dim; zero columns stay
+    zero through every step)."""
+    t = t.float()
+    if t.shape[:-1] != shape[:-1] or not 0 < t.shape[-1] <= shape[-1]:
         raise ValueError(f"carry of shape {tuple(t.shape)}, expected {shape}")
-    return t
+    return _cuda.pad_head_dim(t, shape[-1]).contiguous()
 
 
 def _launch_fwd(q32, kb, vb, mb, o, m, l, info: Optional[Info], rate: float):
@@ -204,8 +211,12 @@ def _launch_fwd(q32, kb, vb, mb, o, m, l, info: Optional[Info], rate: float):
     own output, and never writes its inputs)."""
     kv = (torch.float32,) if info is not None else (torch.float32,
                                                     torch.bfloat16)
-    q32, kb, vb, mask8, B, H, Nq, Nk, Dh = _cuda_inputs(q32, kb, vb, mb, kv)
-    o = _carry(o, (B, H, Nq, Dh))
+    Dh = q32.shape[-1]
+    if o.shape != q32.shape:
+        raise ValueError(f"carry of shape {tuple(o.shape)}, expected "
+                         f"{tuple(q32.shape)}")
+    q32, kb, vb, mask8, B, H, Nq, Nk, Dp = _cuda_inputs(q32, kb, vb, mb, kv)
+    o = _carry(o, (B, H, Nq, Dp))
     m, l = (_carry(t, (B, H, Nq, 1)) for t in (m, l))
     o_out, m_out, l_out = (torch.empty_like(t) for t in (o, m, l))
     seed, b0, q0, k0 = info if info is not None else (0, 0, 0, 0)
@@ -214,21 +225,28 @@ def _launch_fwd(q32, kb, vb, mb, o, m, l, info: Optional[Info], rate: float):
         err = lib.vs_ring_fwd(
             _cuda.ptr(q32), _cuda.ptr(kb), _cuda.ptr(vb), _cuda.ptr(mask8),
             _cuda.ptr(o), _cuda.ptr(m), _cuda.ptr(l), _cuda.ptr(o_out),
-            _cuda.ptr(m_out), _cuda.ptr(l_out), B, H, Nq, Nk, Dh,
+            _cuda.ptr(m_out), _cuda.ptr(l_out), B, H, Nq, Nk, Dp,
             _cuda.dtype_code(kb), int(info is not None), int(seed), int(b0),
             int(q0), int(k0), _threshold(rate), _keep_scale(rate),
             _cuda.stream_of(q32))
     _cuda.check(lib, err, "ring_attention forward step")
+    if Dp != Dh:
+        o_out = o_out[..., :Dh].contiguous()
     return o_out, m_out, l_out
 
 
 def _launch_bwd(q32, kb, vb, g, d, m, l, mb, info: Info, dq, dk, dv,
                 rate: float):
-    q32, kb, vb, mask8, B, H, Nq, Nk, Dh = _cuda_inputs(
+    Dh = q32.shape[-1]
+    for t, like in ((g, q32), (dq, q32), (dk, kb), (dv, kb)):
+        if t.shape != like.shape:
+            raise ValueError(f"carry of shape {tuple(t.shape)}, expected "
+                             f"{tuple(like.shape)}")
+    q32, kb, vb, mask8, B, H, Nq, Nk, Dp = _cuda_inputs(
         q32, kb, vb, mb, (torch.float32,))
-    g, dq = (_carry(t, (B, H, Nq, Dh)) for t in (g, dq))
+    g, dq = (_carry(t, (B, H, Nq, Dp)) for t in (g, dq))
     d, m, l = (_carry(t, (B, H, Nq, 1)) for t in (d, m, l))
-    dk, dv = (_carry(t, (B, H, Nk, Dh)) for t in (dk, dv))
+    dk, dv = (_carry(t, (B, H, Nk, Dp)) for t in (dk, dv))
     dq_out, dk_out, dv_out = (torch.empty_like(t) for t in (dq, dk, dv))
     seed, b0, q0, k0 = info
     lib = _cuda.load("ring_attention")
@@ -237,11 +255,13 @@ def _launch_bwd(q32, kb, vb, g, d, m, l, mb, info: Info, dq, dk, dv,
             _cuda.ptr(q32), _cuda.ptr(kb), _cuda.ptr(vb), _cuda.ptr(g),
             _cuda.ptr(d), _cuda.ptr(m), _cuda.ptr(l), _cuda.ptr(mask8),
             _cuda.ptr(dq), _cuda.ptr(dk), _cuda.ptr(dv), _cuda.ptr(dq_out),
-            _cuda.ptr(dk_out), _cuda.ptr(dv_out), B, H, Nq, Nk, Dh,
+            _cuda.ptr(dk_out), _cuda.ptr(dv_out), B, H, Nq, Nk, Dp,
             int(seed), int(b0), int(q0), int(k0), _threshold(rate),
             _keep_scale(rate), _cuda.stream_of(q32))
     _cuda.check(lib, err, "ring_attention backward step")
-    return dq_out, dk_out, dv_out
+    if Dp == Dh:
+        return dq_out, dk_out, dv_out
+    return tuple(t[..., :Dh].contiguous() for t in (dq_out, dk_out, dv_out))
 
 
 # ------------------------------------------------ the three TPU entry points

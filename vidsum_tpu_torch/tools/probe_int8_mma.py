@@ -13,15 +13,16 @@ points here run the port's own hand-written kernels on the card:
   ring) with a zero f32 bias, which adds nothing;
 - :func:`mm_int8` (18b): ``dot(x, w)`` with s32 accumulation, then
   ``(acc >> 8)`` truncated to int8 (arithmetic shift, then the low 8 bits):
-  ``ops/quant.int8_gemm`` with its shift epilogue (``mma.sync`` m16n8k32).
+  ``ops/quant.int8_gemm`` with its shift epilogue (``wgmma`` m64nNk32 s8
+  from a TMA-filled ring, the bf16 kernel's design at twice its depth a
+  stage).
 
 W is passed as (N, K), K-contiguous, the layout both kernels take. Each
 entry point counts its launches and runs its plain PyTorch version on CPU
 tensors. :func:`main` prints one JSON line: ms, TOPS and the speed-up over
 ``torch.matmul`` in bf16 for both, with ``torch.matmul`` and
-``torch._int_mm`` timed as yardsticks only. The answer (int8 on
-``mma.sync`` against bf16 on ``wgmma``, since the bf16 GEMM's redesign)
-says whether making the int8 scoring path fast is worth a later PR on this
+``torch._int_mm`` timed as yardsticks only. The answer (both on ``wgmma``
+since the int8 GEMM's redesign) says whether int8 products pay on this
 card.
 """
 
