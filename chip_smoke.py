@@ -23,9 +23,11 @@ caught and passed over):
    ``fma_dkdv_kernel`` in both training libraries, the forward in the
    serving one) to the build line, with the count of ``HGMMA``
    instructions in the serving GEMM's SASS and of ``LDGSTS`` (cp.async) in
-   the FMA attention kernels' (``cuobjdump``). A GEMM or FMA attention
-   instantiation that spills, no ``HGMMA`` or no ``LDGSTS`` fails the
-   run.
+   the FMA attention kernels' (``cuobjdump``), and those of the ring
+   kernels (``ring_fwd_kernel``, ``ring_dq_kernel``, ``ring_dkdv_kernel``,
+   the FMA attention's tiles) with their ``LDGSTS`` count. A GEMM, FMA
+   attention or ring instantiation that spills, no ``HGMMA`` or no
+   ``LDGSTS`` fails the run.
 3. kernels: each route of the two hand-written kernels against its plain
    PyTorch version on the card, in bf16 and f32 (TF32 off), at the shapes
    the serving path gives it: the fused block at (B, N) = (32, 512) (the
@@ -128,15 +130,27 @@ caught and passed over):
    (B, H, Nl, Dh) = (1, 4, 4,096, 64) (a 16,384-frame request over 4
    shards, bf16 K/V), kernels 16/17 at (4, 4, 2,048, 64) (batch 4 x 8,192
    frames, dropout 0.3), one shard partly padded: the o, m, l carries and
-   dq, dk, dv within their bounds, an all-padded block leaving the carry
-   bit for bit; planted faults fail them (a dropped key tile for 15, seed +
-   1 and the neighbouring shard's k0 for 16/17); two backward runs give
-   identical bits. Prints each kernel's median CUDA-event ms, its plain
-   step's and its bound (4 (17: 10) B H Nq Nk Dh at the f32 peak), and the
+   dq, dk, dv within their bounds, also on shard 3's partly padded block
+   (whole padded key tiles, which the kernels skip); an all-padded block
+   leaves the carry (15, 16) and dq, dk, dv (17) bit for bit; planted
+   faults fail them (a dropped key tile for 15, seed + 1 and the
+   neighbouring shard's k0 for 16/17); two backward runs give identical
+   bits; every CTA shape of each kernel gives identical bits. Prints each
+   kernel's median CUDA-event ms, its plain step's, its bound (4 (17: 10)
+   B H Nq Nk Dh at the f32 peak), its TFLOP/s and share of the bound, its
+   CTA shape and ``ptxas`` registers and spills at head_dim 64, and the
    whole ring (16 launches each way) beside SDPA over the unsharded f32
-   sequence (timed only). Then the same checks of one step past the TPU
-   kernels' VMEM envelope, where the CUDA routes take the kernels all the
-   same: kernel 15 at Nl 8,192, kernels 16/17 at Nl 4,096.
+   sequence (timed only); kernel 15's line also times the call with K/V
+   already f32 (``ms_kv_f32``: the wrapper's widening is the difference).
+   A ``ring_cta_variants`` line times each kernel in each of its CTA
+   shapes (device ms, in turns) at kernel 15's grids for a 16,384- and a
+   140,000-frame request and 16/17's here and in the seq step, at head_dim
+   64, 96 and 128, beside the shape ``ring_cta_shape`` picks, and the device ms of every call
+   (``device_ms``; ``ring_kernel_ms`` for the ring kernels alone) goes on
+   the ``ring_kernel`` lines. Then the same checks of one
+   step past the TPU kernels' VMEM envelope, where the CUDA routes take
+   the kernels all the same: kernel 15 at Nl 8,192, kernels 16/17 at Nl
+   4,096.
    d 512, d 384, d 768, d 192, d 320, d 896, d 1024: d_model 512 with 4
    heads (head_dim 128), 384 with 4 and 768 with 8 (head_dim 96), 192 with
    4 (48), 320 with 4 (80) and 896 with 8 (112) (the kernels run those
@@ -245,15 +259,17 @@ caught and passed over):
     python3 chip_smoke.py --compare PARENT_DIR
 
 runs the kernel phases (kernels, gemm, int8 kernels, int8 probe, train
-kernels, train attention kernels) and the train phase of the checkout at
-PARENT_DIR and of this one in turns (parent, change, change, parent), each
-from its own tree and build, and prints their lines after a
-``compare_turn`` line per turn.
+kernels, train attention kernels, ring kernels), the train phase, mesh
+serving and the sequence-parallel step of the checkout at PARENT_DIR and
+of this one in turns (parent, change, change, parent), each from its own
+tree and build, and prints their lines after a ``compare_turn`` line per
+turn.
 """
 
 from __future__ import annotations
 
 import argparse
+import itertools
 import json
 import os
 import statistics
@@ -403,6 +419,18 @@ INT8_GEMM_DESIGN = (
     "idle ring and finished by one warp with its int8 codes, wider rows by "
     "the row kernel; "
     "operands off 16 bytes copied onto them (int8_gemm.fallback_launches)")
+# what the kernels line says of the ring (TPU kernels 15-17)
+RING_DESIGN = (
+    "ring_fwd_kernel / ring_dq_kernel / ring_dkdv_kernel on attention_core."
+    "cuh's FMA tiles: exact f32 FMAs, 8 x 8 a thread (4 x 8 at head_dim 96 "
+    "and 128) read as float4 from row-major shared tiles that 16-byte "
+    "cp.async streams in (dQ, dK/dV double buffered), only the 64-key tiles "
+    "that hold an unpadded key walked (a block with none passes its carry "
+    "or dq/dk/dv through), the carry m in natural units, ex2 per score, "
+    "two thread groups a backward CTA; at head_dim <= 64 CTAs 16 threads "
+    "deep of 8 or 4 rows a thread, whichever grid ends soonest at the "
+    "card's occupancy (parallel/ring_attention.ring_cta_shape), past it one "
+    "shape; bf16 K/V widened to f32 before kernel 15")
 TRAIN_GEMM_DESIGN = (
     "bt_gemm_kernel on fma_gemm.cuh's mainloop (shared with the f32 serving "
     "GEMM): exact f32 FMAs, 128 x 128 CTAs, 8 x 8 a thread read "
@@ -619,11 +647,11 @@ def phase_build() -> tuple:
     """Builds every kernel; returns ptxas's registers and spills of the
     bf16 serving attention's instantiations, of the GEMMs' (the wgmma
     kernel with its dynamic shared memory, the training block's bt_gemm,
-    the f32 serving GEMM) and of the FMA attention kernels (training, and
-    the serving forward). Fails if a GEMM or FMA attention instantiation
-    spills, if the serving GEMM's library holds no ``HGMMA``, or if the FMA
-    attention kernels' SASS holds no ``LDGSTS`` (cp.async) in a library
-    that launches them."""
+    the f32 serving GEMM), of the FMA attention kernels (training, and
+    the serving forward) and of the ring kernels. Fails if a GEMM, FMA
+    attention or ring instantiation spills, if the serving GEMM's library
+    holds no ``HGMMA``, or if the FMA attention or ring kernels' SASS holds
+    no ``LDGSTS`` (cp.async) in a library that launches them."""
     from vidsum_tpu_torch import native
     from vidsum_tpu_torch.native import build as native_build
     from vidsum_tpu_torch.ops import _cuda
@@ -702,10 +730,23 @@ def phase_build() -> tuple:
                if any(r.get("spill", []))]
     if spilled:
         raise RuntimeError(f"FMA attention instantiations spill: {spilled}")
+    # the ring kernels (csrc/ring_attention.cu, on the same FMA tiles): per
+    # head_dim a forward, a dQ and a dK/dV in each CTA shape
+    ra = ring_module()
+    n_ring = sum(len(ra.ring_shapes(k, dh)) for k in ra.RING_KERNELS
+                 for dh in _cuda.HEAD_DIMS)
+    ring = ptxas_report(logs["ring_attention"], "ring_")
+    if len(ring) != n_ring:
+        raise RuntimeError(f"ptxas reported {len(ring)} ring kernel "
+                           f"instantiations, expected {n_ring}")
+    spilled = [r["kernel"] for r in ring if any(r.get("spill", []))]
+    if spilled:
+        raise RuntimeError(f"ring kernel instantiations spill: {spilled}")
     ldgsts = {n: sass_count(_cuda.lib_path(n), "LDGSTS", f)
               for n, f in (("attention_train", "fma_"),
                            ("block_train", "fma_"),
-                           ("masked_attention", "fma_fwd"))}
+                           ("masked_attention", "fma_fwd"),
+                           ("ring_attention", "ring_"))}
     if not all(ldgsts.values()):
         raise RuntimeError(f"no LDGSTS (cp.async) in the FMA attention "
                            f"kernels' SASS: {ldgsts}")
@@ -717,9 +758,9 @@ def phase_build() -> tuple:
          bt_gemm_ptxas=bt_gemm, gemm_f32_ptxas=f32_gemm,
          int8_gemm_wgmma_ptxas=int8, gemm_sass_hgmma=hgmma,
          int8_gemm_sass_gmma=igmma, fma_attention_ptxas=fma,
-         serving_fma_attention_ptxas=fma_serve,
+         serving_fma_attention_ptxas=fma_serve, ring_ptxas=ring,
          fma_attention_sass_ldgsts=ldgsts)
-    return regs, gemm, bt_gemm, fma, f32_gemm, fma_serve, int8
+    return regs, gemm, bt_gemm, fma, f32_gemm, fma_serve, int8, ring
 
 
 def library_block(block, d: int, H: int, dtype, dropout: float = 0.0):
@@ -2842,11 +2883,71 @@ def carries_within(got, want) -> bool:
             and within(got[1], want[1], tol) and within(got[2], want[2], tol))
 
 
-def phase_ring_kernels(dev: dict, seed: int) -> dict:
+def ring_shapes_agree(ra, call, what: str) -> None:
+    """Runs ``call`` (a ring kernel wrapper's call, returning tensors) with
+    every ring kernel in each of its CTA shapes in turn (``ring_shapes``:
+    128- and 64-row at head_dim <= 64) and fails unless every output is
+    bit-equal."""
+    import torch
+
+    pick = ra.ring_cta_shape
+    outs = []
+    try:
+        for i in range(2):  # no ring kernel has more than two shapes
+            ra.ring_cta_shape = (
+                lambda kernel, B, H, N, Dh, sms, slots, i=i:
+                ra.ring_shapes(kernel, Dh)[
+                    min(i, len(ra.ring_shapes(kernel, Dh)) - 1)])
+            outs.append([t.clone() for t in call()])
+    finally:
+        ra.ring_cta_shape = pick
+    torch.cuda.synchronize()
+    if not all(torch.equal(a, b)
+               for o in outs[1:] for a, b in zip(outs[0], o)):
+        raise AssertionError(f"{what}: the CTA shapes give different bits")
+
+
+def ring_rates(flops: int, ms: float, b_ms: float, device: dict) -> dict:
+    """A ring kernel's achieved f32 rate and its share of the bound's, from
+    the wrapper call's CUDA-event time ``ms`` (host work between launches
+    included: the GPU idles while the wrapper prepares its operands) and
+    from ``device`` (a ``ring_device`` profile): the ring kernels' own
+    device time."""
+    kern = device["ring_kernel_ms"]
+    return {"tflops": flops / ms / 1e9, "share_of_bound": b_ms / ms,
+            "device_ms": device["device_ms"], "ring_kernel_ms": kern,
+            "kernel_tflops": flops / kern / 1e9,
+            "kernel_share_of_bound": b_ms / kern}
+
+
+def ring_device(fn) -> dict:
+    """``fn`` (one ring wrapper call) under ``torch.profiler``: device ms
+    per call of every kernel it launches, and of the ring kernels alone."""
+    prof = device_profile(fn, reps=10)
+    return {"device_ms": prof["device_ms"],
+            "ring_kernel_ms": sum(ms for name, ms, _ in prof["top"]
+                                  if "ring_" in name)}
+
+
+def ring_kernel_ms(fn) -> dict:
+    """``fn`` (one ring wrapper call) under ``torch.profiler``: device ms
+    per call of each ring kernel it launches, by ``RING_KERNELS`` name."""
+    top = device_profile(fn, reps=10)["top"]
+    return {kk: sum(ms for name, ms, _ in top
+                    if f"ring_{kk}_kernel" in name)
+            for kk in ("fwd", "dq", "dkdv")}
+
+
+def phase_ring_kernels(dev: dict, seed: int, ring_ptxas=()) -> dict:
     """TPU kernels 15-17 (``parallel/ring_attention.py``,
     ``csrc/ring_attention.cu``) against their plain steps on the card, at
-    the shapes the main paths give them; returns the numbers per route for
-    the kernels line."""
+    the shapes the main paths give them: carries and grads within their
+    bounds, planted faults failing them, a block whose keys are all padded
+    passing the carry and dq/dk/dv through bit for bit, shard 3's partly
+    padded block (whole padded key tiles: the live-tile path), every CTA
+    shape bit-equal; ``ring_ptxas`` (the build's ptxas report of the ring
+    kernels) goes on the lines at head_dim 64. Returns the numbers per route
+    for the kernels line."""
     import numpy as np
     import torch
     import torch.nn.functional as F
@@ -2859,6 +2960,11 @@ def phase_ring_kernels(dev: dict, seed: int) -> dict:
     cfg = ModelConfig()
     H, Dh, scale, P = cfg.num_heads, cfg.head_dim, cfg.attn_scale, RING_SHARDS
     cuda = torch.device("cuda")
+
+    def ptxas(*kernels):
+        return [r for r in ring_ptxas if r["kernel"].startswith(kernels)
+                and f"<{Dh}," in r["kernel"]]
+
     rng = np.random.default_rng(seed + 7)
     mesh = make_mesh((1, P), "cuda:0")
     out = {}
@@ -2910,6 +3016,9 @@ def phase_ring_kernels(dev: dict, seed: int) -> dict:
                                torch.ones_like(ms[0]), *t0)
     if not all(torch.equal(a, b) for a, b in zip(kept, t0)):
         raise AssertionError("kernel 15: an all-padded block moved the carry")
+    for name in ("t1_block_0", "t2_padded_block_3"):
+        ring_shapes_agree(ra, lambda: ra._ring_block_step(*cases[name]),
+                          f"kernel 15 {name}")
     # planted fault: one key tile dropped
     args = cases["t1_block_0"]
     want = ra.ring_block_step_reference(*args)
@@ -2920,6 +3029,11 @@ def phase_ring_kernels(dev: dict, seed: int) -> dict:
         raise AssertionError("kernel 15: a dropped key tile passes the bound")
     fault = errors(bad[0], want[0])
     ms15 = cuda_ms(lambda: ra._ring_block_step(*args), reps=20)
+    # the same call with K/V already f32: the wrapper's widening is the
+    # difference (a ring on one device widens once a layer, not a step)
+    args32 = (args[0], args[1].float(), args[2].float(), *args[3:])
+    ms15_kv32 = cuda_ms(lambda: ra._ring_block_step(*args32), reps=20)
+    dev15 = ring_device(lambda: ra._ring_block_step(*args))
     plain15 = cuda_ms(lambda: ra.ring_block_step_reference(*args), reps=5)
     # the whole ring (P x P = 16 launches) against SDPA over the unsharded
     # f32 sequence (timed only), and against the plain ring (checked)
@@ -2940,15 +3054,20 @@ def phase_ring_kernels(dev: dict, seed: int) -> dict:
     emit("ring_kernel", route="ring_block", B=B, H=H, Nl=Nl, Dh=Dh,
          shards=P, kv_dtype="bfloat16", valid=15000, errors=errs,
          dropped_tile_o_err=list(fault), ring_vs_plain_err=list(ring_err),
-         ms=ms15, plain_ms=plain15, bound_ms=b_ms, bound_by=b_by,
-         flops=flops, bytes=nbytes, ring_ms=ring_ms,
-         sdpa_f32_unsharded_ms=sdpa_ms)
+         all_padded_block_kept=True, shapes_bit_equal=True,
+         cta_shape=ra._shape("fwd", B, H, Nl, Nl, Dh, cuda),
+         ms=ms15, ms_kv_f32=ms15_kv32, plain_ms=plain15, bound_ms=b_ms,
+         bound_by=b_by, **ring_rates(flops, ms15, b_ms, dev15), flops=flops,
+         bytes=nbytes,
+         ring_ms=ring_ms, sdpa_f32_unsharded_ms=sdpa_ms,
+         ptxas=ptxas("ring_fwd_kernel"))
     out["_ring_block_step"] = dict(
         max_abs_err=max(e[0] for c in errs.values() for e in c.values()),
         ms=ms15, plain_ms=plain15, bound_ms=b_ms, bound_by=b_by,
-        library_ms=None, yardstick={"ring_16_launches_ms": ring_ms,
-                                    "sdpa_f32_unsharded_ms": sdpa_ms})
-    del q, k, v, qf, kf, vf, ring, ring_plain, cases, args
+        library_ms=None, **dev15,
+        yardstick={"ring_16_launches_ms": ring_ms,
+                   "sdpa_f32_unsharded_ms": sdpa_ms})
+    del q, k, v, qf, kf, vf, ring, ring_plain, cases, args, args32
     torch.cuda.empty_cache()
 
     # -- kernels 16/17: batch 4 x 8,192 frames (valid 8,192, 8,100, 7,950,
@@ -2978,7 +3097,7 @@ def phase_ring_kernels(dev: dict, seed: int) -> dict:
     torch.cuda.synchronize()
     if ra._ring_train_step.launches != before + 1:
         raise AssertionError("kernel 16 did not launch")
-    err16 = check_carries(got, want, "kernel 16")
+    err16 = {"t1_block_0": check_carries(got, want, "kernel 16")}
     faults16 = {}
     for fname, finfo in (("seed_plus_one", info(1, sd=dseed + 1)),
                          ("k0_neighbour", info(0))):
@@ -2986,8 +3105,27 @@ def phase_ring_kernels(dev: dict, seed: int) -> dict:
         if carries_within(bad, want):
             raise AssertionError(f"kernel 16: the {fname} fault passes")
         faults16[fname] = errors(bad[0], want[0])[1]
+    # a block whose keys are all padded passes the carry through
+    kept = ra._ring_train_step(*fargs[:3], torch.ones_like(ms[0]), info(1),
+                               *carry, rate)
+    if not all(torch.equal(a, b) for a, b in zip(kept, carry)):
+        raise AssertionError("kernel 16: an all-padded block moved the carry")
+    # shard 3's block (t = 2 on shard 1): whole padded key tiles at the end
+    # of three of its rows, skipped
+    fargs3 = (q32[1], ks[3], vs[3], ms[3])
+    err16["t2_padded_block_3"] = check_carries(
+        ra._ring_train_step(*fargs3, info(2), *carry, rate),
+        ra.ring_train_step_reference(*fargs3, info(2), *carry, rate),
+        "kernel 16 t2_padded_block_3")
+    for name, fa, i in (("t1_block_0", fargs, info(1)),
+                        ("t2_padded_block_3", fargs3, info(2))):
+        ring_shapes_agree(ra, lambda: ra._ring_train_step(*fa, i, *carry,
+                                                          rate),
+                          f"kernel 16 {name}")
     ms16 = cuda_ms(lambda: ra._ring_train_step(*fargs, info(1), *carry,
                                                rate), reps=20)
+    dev16 = ring_device(lambda: ra._ring_train_step(*fargs, info(1), *carry,
+                                                    rate))
     plain16 = cuda_ms(lambda: ra.ring_train_step_reference(
         *fargs, info(1), *carry, rate), reps=5)
     # the backward step: final (m, l) of shard 1 from the whole plain ring
@@ -3022,8 +3160,26 @@ def phase_ring_kernels(dev: dict, seed: int) -> dict:
         if any(within(a, b, scaled(gtol, b)) for a, b in zip(bad, want_g)):
             raise AssertionError(f"kernel 17: the {fname} fault passes")
         faults17[fname] = errors(bad[0], want_g[0])[1]
+    # a block whose keys are all padded passes dq, dk, dv through
+    kept = ra._ring_train_step_bwd(*bargs(info(1))[:7],
+                                   torch.ones_like(ms[0]), info(1),
+                                   *partial, rate)
+    if not all(torch.equal(a, b) for a, b in zip(kept, partial)):
+        raise AssertionError("kernel 17: an all-padded block moved dq/dk/dv")
+    bargs3 = (q32[1], ks[3], vs[3], g1, d1, c[1], c[2], ms[3], info(2),
+              *partial, rate)
+    err17 = {"t1_block_0": err17, "t2_padded_block_3": {
+        n: check_close(a, b, scaled(gtol, b),
+                       f" (kernel 17 t2_padded_block_3: d{n})")
+        for n, a, b in zip("qkv", ra._ring_train_step_bwd(*bargs3),
+                           ra.ring_train_step_bwd_reference(*bargs3))}}
+    for name, ba in (("t1_block_0", bargs(info(1))),
+                     ("t2_padded_block_3", bargs3)):
+        ring_shapes_agree(ra, lambda: ra._ring_train_step_bwd(*ba),
+                          f"kernel 17 {name}")
     ms17 = cuda_ms(lambda: ra._ring_train_step_bwd(*bargs(info(1))),
                    reps=20)
+    dev17 = ring_device(lambda: ra._ring_train_step_bwd(*bargs(info(1))))
     plain17 = cuda_ms(lambda: ra.ring_train_step_bwd_reference(
         *bargs(info(1))), reps=3, warmup=1)
     # the whole training ring (16 + 16 launches) against SDPA(dropout 0.3)
@@ -3049,33 +3205,118 @@ def phase_ring_kernels(dev: dict, seed: int) -> dict:
         scale=scale).backward(g), reps=5)
     del ql, kl, vl
     row = B * H * Nl
-    for route, ms_, plain_, flops, nbytes, errs_, faults_, ring_ms_, sd_ms in (
+    for (route, ms_, plain_, flops, nbytes, errs_, faults_, ring_ms_, sd_ms,
+         kernels, shape, dev_) in (
             ("_ring_train_step", ms16, plain16, 4 * row * Nl * Dh,
              row * Dh * 20 + row * 16 + B * Nl, err16, faults16,
-             train_ring_ms, sdpa_f),
+             train_ring_ms, sdpa_f, ("ring_fwd_kernel",),
+             {"fwd": ra._shape("fwd", B, H, Nl, Nl, Dh, cuda)}, dev16),
             ("_ring_train_step_bwd", ms17, plain17, 10 * row * Nl * Dh,
              row * Dh * 40 + row * 12 + B * Nl, err17, faults17,
-             train_ring_fb_ms, sdpa_fb)):
+             train_ring_fb_ms, sdpa_fb, ("ring_dq_kernel",
+                                         "ring_dkdv_kernel"),
+             {k: ra._shape(k, B, H, Nl, Nl, Dh, cuda)
+              for k in ("dq", "dkdv")}, dev17)):
         b_ms, b_by = bound(flops, nbytes)
         emit("ring_kernel", route=RING_NAMES[route], B=B, H=H, Nl=Nl, Dh=Dh,
              shards=P, rate=rate, valid=[8192, 8100, 7950, 7000],
              errors=errs_, faults_rel_rms=faults_,
-             deterministic=route.endswith("bwd") or None, ms=ms_,
-             plain_ms=plain_, bound_ms=b_ms, bound_by=b_by, flops=flops,
-             bytes=nbytes, ring_ms=ring_ms_, sdpa_f32_unsharded_ms=sd_ms)
+             deterministic=route.endswith("bwd") or None,
+             all_padded_block_kept=True, shapes_bit_equal=True,
+             cta_shape=shape, ms=ms_, plain_ms=plain_, bound_ms=b_ms,
+             bound_by=b_by, **ring_rates(flops, ms_, b_ms, dev_), flops=flops,
+             bytes=nbytes, ring_ms=ring_ms_, sdpa_f32_unsharded_ms=sd_ms,
+             ptxas=ptxas(*kernels))
         out[route] = dict(
-            max_abs_err=max(e[0] for e in errs_.values()),
+            max_abs_err=max(e[0] for c in errs_.values()
+                            for e in c.values()),
             ms=ms_, plain_ms=plain_, bound_ms=b_ms, bound_by=b_by,
-            library_ms=None,
+            library_ms=None, **dev_,
             yardstick={("ring_fwd_bwd_32_launches_ms" if route.endswith(
                 "bwd") else "ring_fwd_16_launches_ms"): ring_ms_,
                 "sdpa_f32_unsharded_ms": sd_ms})
     del q, k, v, g
     torch.cuda.empty_cache()
+    emit("ring_cta_variants", grids=ring_cta_variants(ra))
     emit("ring_past_tpu_envelope",
          **ring_past_envelope(ra, rand, shard, scale))
     torch.cuda.empty_cache()
     return out
+
+
+def ring_cta_variants(ra) -> list:
+    """Each ring kernel in each of its CTA shapes (``ring_shapes``) at the
+    grids the main paths give it, no key padded: kernel 15 at a 16,384- and
+    a 140,000-frame request's shards (1, 4, 4,096 / 35,072; bf16 K/V), 16
+    and 17 at (4, 4, 2,048) (this phase's) and (4, 4, 2,304) (the seq
+    step's over 9,216 frames), f32, rate 0.3; at head_dim 64 (the
+    flagship's), 96 and 128 (the heads of the d 384 / 768 and d 512
+    models; one shape a kernel there, timed all the same). Per grid: each
+    ring kernel's device ms (``torch.profiler``) in each of its shapes,
+    timed in turns (the shapes in order, then reversed; the backward's dQ
+    and dK/dV both in their i-th shape, or their last), the CTAs of each
+    shape an SM holds and the shape ``ring_cta_shape`` picks: the
+    comparison behind that rule. The carries and grads are random (every
+    shape does the same work on any values)."""
+    import torch
+
+    cuda = torch.device("cuda")
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    H = 4
+    pick = ra.ring_cta_shape
+    nth = lambda kernel, Dh, i: ra.ring_shapes(kernel, Dh)[  # noqa: E731
+        min(i, len(ra.ring_shapes(kernel, Dh)) - 1)]
+    lines = []
+    for Dh, (route, B, N) in itertools.product(
+            (64, 96, 128), (("_ring_block_step", 1, 4096),
+                            ("_ring_block_step", 1, 35072),
+                            ("_ring_train_step", 4, 2048),
+                            ("_ring_train_step", 4, 2304),
+                            ("_ring_train_step_bwd", 4, 2048),
+                            ("_ring_train_step_bwd", 4, 2304))):
+        kernels = ("dq", "dkdv") if route.endswith("bwd") else ("fwd",)
+        n = max(len(ra.ring_shapes(kk, Dh)) for kk in kernels)
+        q, k, v, o = (torch.randn(B, H, N, Dh, device=cuda, generator=gen)
+                      for _ in range(4))
+        m, d = (torch.randn(B, H, N, 1, device=cuda, generator=gen)
+                for _ in range(2))
+        l = torch.rand(B, H, N, 1, device=cuda, generator=gen) + 1.0
+        mask = torch.zeros(B, N, dtype=torch.bool, device=cuda)
+        info = (7, 0, N, 0)
+        if route == "_ring_block_step":
+            kb, vb = k.bfloat16(), v.bfloat16()
+            call = lambda: ra._ring_block_step(  # noqa: E731
+                q, kb, vb, mask, o, m, l)
+        elif route == "_ring_train_step":
+            call = lambda: ra._ring_train_step(  # noqa: E731
+                q, k, v, mask, info, o, m, l, 0.3)
+        else:
+            call = lambda: ra._ring_train_step_bwd(  # noqa: E731
+                q, k, v, o, d, m, l, mask, info, o, k, v, 0.3)
+        times = {kk: {} for kk in kernels}
+        try:
+            for order in (range(n), reversed(range(n))):
+                for i in order:
+                    ra.ring_cta_shape = (
+                        lambda kernel, B, H, N, Dh, sms, slots, i=i:
+                        nth(kernel, Dh, i))
+                    got = ring_kernel_ms(call)
+                    for kk in kernels:
+                        times[kk].setdefault(str(nth(kk, Dh, i)),
+                                             []).append(got[kk])
+        finally:
+            ra.ring_cta_shape = pick
+        lines.append({
+            "route": RING_NAMES[route], "B": B, "H": H, "N": N, "Dh": Dh,
+            "kernel_ms": times,
+            "picked": {kk: ra._shape(kk, B, H, N, N, Dh, cuda)
+                       for kk in kernels},
+            "slots": {kk: {str(sh): ra._card_slots(kk, Dh, N)(*sh)
+                           for sh in ra.ring_shapes(kk, Dh)}
+                      for kk in kernels}})
+        del q, k, v, o, m, d, l, call
+        torch.cuda.empty_cache()
+    return lines
 
 
 def ring_past_envelope(ra, rand, shard, scale: float) -> dict:
@@ -3837,13 +4078,22 @@ cs.phase_int8_probe(dev)
 cs.phase_train_kernels(dev, {seed})
 cs.phase_train_attention(dev, {seed})
 cs.phase_train({seed})
+cs.phase_ring_kernels(dev, {seed})
+cs.phase_serve_mesh({seed})
+import numpy as np
+from vidsum_tpu_torch.config import finetune_recipe
+rng = np.random.default_rng({seed} + 6)
+cs.phase_seq_train({seed}, cs.synthetic_videos(
+    rng, rng.integers(7950, 9001, 8), finetune_recipe().model.in_features))
 """
 
 
 def compare_trees(parent: str, seed: int) -> int:
     """The kernel phases (kernels, gemm, int8 kernels, int8 probe, train
-    kernels, train attention kernels) and the train phase of the checkout
-    at ``parent`` and of this one, each
+    kernels, train attention kernels), the train phase, the ring kernels,
+    mesh serving and the sequence-parallel step (over 8 videos of
+    7,950-9,000 frames drawn here) of the checkout at ``parent`` and of
+    this one, each
     in its own process from its own tree (its own build), in turns: parent,
     change, change, parent. Each turn's lines follow a ``compare_turn``
     line naming its tree."""
@@ -3865,8 +4115,9 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--compare", metavar="PARENT_DIR",
-                    help="run the kernel and train phases of the checkout "
-                         "at PARENT_DIR and of this one in turns (parent, "
+                    help="run the kernel, train, mesh serving and "
+                         "sequence-parallel phases of the checkout at "
+                         "PARENT_DIR and of this one in turns (parent, "
                          "change, change, parent) instead of the full run")
     args = ap.parse_args()
     if not os.path.isdir(os.path.join(HERE, "vidsum_tpu_torch")):
@@ -3886,7 +4137,7 @@ def main() -> int:
 
     dev = phase_device()
     (mma_regs, gemm_regs, bt_regs, fma_regs, f32_gemm_regs,
-     fma_serve_regs, int8_regs) = phase_build()
+     fma_serve_regs, int8_regs, ring_regs) = phase_build()
     timings = phase_kernels(dev, args.seed)
     phase_gemm(dev, args.seed)
     timings.update(phase_int8_kernels(dev, args.seed))
@@ -3894,7 +4145,7 @@ def main() -> int:
     timings.update(probe_timings)
     timings.update(phase_train_kernels(dev, args.seed))
     timings.update(phase_train_attention(dev, args.seed, fma_regs))
-    timings.update(phase_ring_kernels(dev, args.seed))
+    timings.update(phase_ring_kernels(dev, args.seed, ring_regs))
     for shape in (D512, D384, D768, D192, D320, D896, D1024):
         phase_wide(args.seed, shape)
     counts = phase_serve(args.seed)
@@ -3963,7 +4214,8 @@ def main() -> int:
                        for r in ("_fwd_kernel_folded", "_bwd_kernel_folded")}
     int8_src = [csrc + "int8_gemm.cu", csrc + "tma_ring.cuh",
                 csrc + "masked_attention.cu", csrc + "mma_tiles.cuh"]
-    ring_src = [csrc + "ring_attention.cu", csrc + "attention_core.cuh"]
+    ring_src = [csrc + "ring_attention.cu", csrc + "attention_core.cuh",
+                csrc + "mma_tiles.cuh"]
     f32_block_src = [csrc + "gemm_bias_epilogue.cu", csrc + "fma_gemm.cuh",
                      csrc + "masked_attention.cu", csrc + "attention_core.cuh"]
     f32_attn_src = [csrc + "masked_attention.cu", csrc + "attention_core.cuh"]
@@ -4015,6 +4267,12 @@ def main() -> int:
               and route not in mma_routes):
             entry["design"] = FMA_ATTENTION_DESIGN
             entry["ptxas"] = [r for r in fma_regs if "<64," in r["kernel"]]
+        elif route in RING_ROUTES:
+            entry["design"] = RING_DESIGN
+            kinds = (("ring_dq", "ring_dkdv") if route.endswith("bwd")
+                     else ("ring_fwd",))
+            entry["ptxas"] = [r for r in ring_regs if "<64," in r["kernel"]
+                              and r["kernel"].startswith(kinds)]
         kernels.append(entry)
     print(dev["smi"], flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

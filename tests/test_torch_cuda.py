@@ -1693,6 +1693,108 @@ def test_ring_train_steps_match_plain(cuda, rate, Dh):
         assert not torch.allclose(bad[0], want[0], atol=1e-3, rtol=1e-3)
 
 
+@pytest.mark.parametrize("Dh", [16, 32, 64, 96, 128, 48])
+def test_ring_kernels_pass_an_all_padded_block_through(cuda, Dh):
+    """Kernels 15-17 on a block whose keys are all padded walk no key tile:
+    the carry, and dq, dk, dv, come out as they went in, bit for bit (rows
+    with m = -inf and l = 0 included), as from the plain steps."""
+    import importlib
+
+    ra = importlib.import_module("vidsum_tpu_torch.parallel.ring_attention")
+    q32, k, v, go, mask = _ring_inputs(cuda, Dh=Dh, seed=5)
+    carry = _ring_carry(ra, q32, k, v, mask)
+    padded = torch.ones_like(mask)
+    info = (2024, 1, 256, 512)
+    kept = ra._ring_block_step(q32, k.bfloat16(), v.bfloat16(), padded,
+                               *carry)
+    assert all(torch.equal(a, b) for a, b in zip(kept, carry))
+    kept = ra._ring_train_step(q32, k, v, padded, info, *carry, 0.3)
+    assert all(torch.equal(a, b) for a, b in zip(kept, carry))
+    o, m, l = ra.ring_train_step_reference(q32, k, v, mask, info, *carry,
+                                           0.3)
+    d = (go * ra._normalize(o, l, torch.float32)).sum(-1, keepdim=True)
+    acc = tuple(torch.randn_like(t) for t in (q32, k, v))
+    before = ra._ring_train_step_bwd.launches
+    grads = ra._ring_train_step_bwd(q32, k, v, go, d, m, l, padded, info,
+                                    *acc, 0.3)
+    torch.cuda.synchronize()
+    assert ra._ring_train_step_bwd.launches == before + 1
+    assert all(torch.equal(a, b) for a, b in zip(grads, acc))
+
+
+@pytest.mark.parametrize("Dh", [16, 32, 64, 96, 128, 48])
+def test_ring_kernels_bits_do_not_depend_on_the_cta_shape(cuda, monkeypatch,
+                                                          Dh):
+    """Every CTA shape of every ring kernel (128- and 64-row at head_dim
+    <= 64; one shape past it) gives the same bits (Nl 320: the 128-row
+    CTAs end ragged), and the kernels hold their plain steps in each."""
+    import importlib
+
+    from vidsum_tpu_torch.ops import _cuda
+
+    ra = importlib.import_module("vidsum_tpu_torch.parallel.ring_attention")
+    q32, k, v, go, mask = _ring_inputs(cuda, Nl=320, Dh=Dh, seed=6)
+    mask[0, 150:] = True  # whole padded key tiles at the end of row 0
+    info = (31, 0, 320, 0)
+    carry = _ring_carry(ra, q32, k, v, mask)
+    o, m, l = ra.ring_train_step_reference(q32, k, v, mask, info, *carry,
+                                           0.3)
+    d = (go * ra._normalize(o, l, torch.float32)).sum(-1, keepdim=True)
+    acc = tuple(torch.randn_like(t) for t in (q32, k, v))
+    bargs = (q32, k, v, go, d, m, l, mask, info, *acc, 0.3)
+    Dp = _cuda.kernel_head_dim(Dh, "ring")
+    results = []
+    for i in range(max(len(ra.ring_shapes(kk, Dp)) for kk in ra.RING_KERNELS)):
+        # the i-th shape of each kernel (its last where it has fewer)
+        monkeypatch.setattr(
+            ra, "ring_cta_shape",
+            lambda kernel, *a, i=i: ra.ring_shapes(kernel, Dp)[
+                min(i, len(ra.ring_shapes(kernel, Dp)) - 1)])
+        fwd15 = ra._ring_block_step(q32, k.bfloat16(), v.bfloat16(), mask,
+                                    *carry)
+        fwd16 = ra._ring_train_step(q32, k, v, mask, info, *carry, 0.3)
+        _ring_carries_close(fwd16, (o, m, l))
+        grads = ra._ring_train_step_bwd(*bargs)
+        for a, b in zip(grads, ra.ring_train_step_bwd_reference(*bargs)):
+            torch.testing.assert_close(a, b, atol=1e-4 * float(b.abs().max()),
+                                       rtol=1e-4)
+        results.append((*fwd15, *fwd16, *grads))
+    torch.cuda.synchronize()
+    for other in results[1:]:
+        assert all(torch.equal(a, b) for a, b in zip(results[0], other))
+
+
+def test_ring_cta_shapes_on_the_card(cuda):
+    """The card's occupancy report gives every shape of the ring kernels at
+    least one CTA an SM, the wrappers' picks are shapes the kernels have,
+    and a shape they do not have is refused."""
+    import ctypes
+    import importlib
+
+    from vidsum_tpu_torch.ops import _cuda
+
+    ra = importlib.import_module("vidsum_tpu_torch.parallel.ring_attention")
+    lib = _cuda.load("ring_attention")
+    for kernel in ra.RING_KERNELS:
+        for Dh in _cuda.HEAD_DIMS:
+            for ty, ri in ra.ring_shapes(kernel, Dh):
+                assert ra._card_slots(kernel, Dh, 2048)(ty, ri) >= 1
+            assert ra._shape(kernel, 4, 4, 2048, 2048, Dh, cuda) in \
+                ra.ring_shapes(kernel, Dh)
+    out = ctypes.c_int(0)
+    assert lib.vs_ring_slots(2, 128, 16, 4, 2048, ctypes.byref(out)) != 0
+    q32, k, v, _, mask = _ring_inputs(cuda, Dh=128, seed=7)
+    carry = _ring_carry(ra, q32, k, v, mask)
+    o_out, m_out, l_out = (torch.empty_like(t) for t in carry)
+    mask8 = mask.to(torch.uint8)
+    err = lib.vs_ring_fwd(
+        *(_cuda.ptr(t) for t in (q32, k, v, mask8, *carry, o_out, m_out,
+                                  l_out)),
+        2, 2, 256, 256, 128, 12, 0, 0, 0, 0, 0, 0, 1.0,
+        _cuda.stream_of(q32))
+    assert err != 0  # depth 12
+
+
 def test_ring_forward_on_one_card_mesh(cuda):
     """make_ring_forward on a 4-entry mesh of one card launches kernel 15
     P x P times and matches the plain ring and dense attention."""

@@ -145,6 +145,100 @@ def test_block_step_padded_block_leaves_carry():
     assert torch.isneginf(m).all() and (l == 0).all() and (o == 0).all()
 
 
+@pytest.mark.parametrize("rate", [0.0, 0.3])
+@pytest.mark.parametrize("fresh", [False, True])
+def test_train_step_padded_block_leaves_carry(rate, fresh):
+    """Kernel 16's plain step and its Pallas kernel on a block whose keys
+    are all padded leave the carry as it was, bit for bit (a fresh one
+    keeps m = -inf, l = 0, o = 0): the contract the CUDA kernels meet by
+    walking no key tile."""
+    q, k, v, _, _ = _inputs(14)
+    q32 = q[:, :, :NL] * 0.177
+    arrays = (q32, k[:, :, :NL], v[:, :, :NL], np.ones((B, NL), bool))
+    info = (1234, 1, 128, 384)
+    carry = _carry(15, fresh)
+    got = ra._ring_train_step(*map(torch.from_numpy, arrays), info,
+                              *map(torch.from_numpy, carry), rate)
+    want = jra._ring_train_step(
+        *map(jnp.asarray, arrays), jnp.asarray([info], jnp.int32),
+        *map(jnp.asarray, carry), rate=rate, interpret=True)
+    for g, w, c in zip(got, want, carry):
+        assert torch.equal(g, torch.from_numpy(c))
+        np.testing.assert_array_equal(np.asarray(w), c)
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.3])
+def test_train_step_bwd_padded_block_leaves_grads(rate):
+    """Kernel 17's plain step and its Pallas kernel on a block whose keys
+    are all padded return dq, dk and dv as they came in, bit for bit, rows
+    with m = -inf and l = 0 included."""
+    q, k, v, g, _ = _inputs(16)
+    rng = np.random.default_rng(17)
+    q32 = q[:, :, :NL] * 0.177
+    _, m, l = _carry(18, False)
+    m[:, :, :5] = -np.inf
+    l[:, :, :5] = 0.0
+    d = rng.normal(size=(B, H, NL, 1)).astype(np.float32)
+    acc = tuple(rng.normal(size=(B, H, NL, DH)).astype(np.float32)
+                for _ in range(3))
+    arrays = (q32, k[:, :, :NL], v[:, :, :NL], g[:, :, :NL], d, m, l,
+              np.ones((B, NL), bool))
+    info = (5, 2, 384, 256)
+    got = ra._ring_train_step_bwd(*map(torch.from_numpy, arrays), info,
+                                  *map(torch.from_numpy, acc), rate)
+    want = jra._ring_train_step_bwd(
+        *map(jnp.asarray, arrays), jnp.asarray([info], jnp.int32),
+        *map(jnp.asarray, acc), rate=rate, interpret=True)
+    for a, w, c in zip(got, want, acc):
+        assert torch.equal(a, torch.from_numpy(c))
+        np.testing.assert_array_equal(np.asarray(w), c)
+
+
+# CTAs of each ring kernel shape an H100 SM holds at head_dim 64 (the
+# library's occupancy report, vs_ring_slots: chip_smoke.py's
+# ring_cta_variants line)
+H100_SLOTS = {"fwd": {(16, 8): 2, (16, 4): 3},
+              "dq": {(16, 8): 1, (16, 4): 1},
+              "dkdv": {(16, 8): 1, (16, 4): 1}}
+
+
+@pytest.mark.parametrize("kernel,B,N,shape", [
+    ("fwd", 1, 4096, (16, 4)),    # kernel 15 at a 16,384-frame request
+    ("fwd", 1, 35072, (16, 4)),   # a 140,000-frame request
+    ("fwd", 4, 2048, (16, 8)),    # kernel 16 at chip_smoke.py's shape
+    ("fwd", 4, 2304, (16, 4)),    # the seq step over 9,216 frames
+    ("fwd", 2, 2048, (16, 4)),
+    ("fwd", 1, 8192, (16, 8)),
+    ("fwd", 2, 8192, (16, 8)),
+    ("dq", 4, 2048, (16, 8)),     # kernel 17 at chip_smoke.py's shape
+    ("dkdv", 4, 2048, (16, 8)),
+    ("dq", 4, 2304, (16, 4)),
+    ("dkdv", 4, 2304, (16, 4)),
+    ("dq", 2, 8192, (16, 8))])
+def test_ring_cta_shape(kernel, B, N, shape):
+    """The CTA shape the ring kernels take on an H100's 132 SMs (4 heads,
+    head_dim 64): at the grids chip_smoke.py's ring_cta_variants line
+    times, the fastest of the kernel's shapes there (PERF.md, PR 13)."""
+    slots = H100_SLOTS[kernel]
+    assert ra.ring_cta_shape(kernel, B, 4, N, 64, 132,
+                             lambda ty, ri: slots[(ty, ri)]) == shape
+
+
+def test_ring_shapes():
+    assert ra.ring_shapes("fwd", 64) == [(16, 8), (16, 4)]
+    assert ra.ring_shapes("dq", 96) == [(16, 4)]
+    assert ra.ring_shapes("fwd", 128) == [(16, 4)]
+    assert ra.ring_shapes("dkdv", 128) == [(8, 4)]
+    # one shape only: no choice to make
+    assert ra.ring_cta_shape("dkdv", 4, 4, 2048, 128, 132,
+                             lambda ty, ri: 1) == (8, 4)
+    # a shape no SM can hold is not taken
+    assert ra.ring_cta_shape("fwd", 4, 4, 2048, 64, 132,
+                             lambda ty, ri: 0 if ri == 8 else 3) == (16, 4)
+    with pytest.raises(ValueError, match="ring kernel"):
+        ra.ring_shapes("bwd", 64)
+
+
 @pytest.mark.parametrize("rate,info", [
     (0.0, (1234, 0, 0, 0)), (0.3, (1234, 0, 128, 384)),
     (0.3, (99, 4, 256, 0))])

@@ -12,9 +12,8 @@
 // the f32 serving attention: vidsum_tpu/ops/
 // attention.py:40 _attention_kernel, :76 _attention_kernel_folded and the
 // attention inside ops/block_kernel.py:39 _block_kernel and :98
-// _block_kernel_grouped (masked_attention.cu's launch_fma).
-// ring_attention.cu keeps the first family's tile helpers (stage_t,
-// stage_rows, tile_dot).
+// _block_kernel_grouped (masked_attention.cu's launch_fma). The ring's
+// kernels (ring_attention.cu) are built from its tiles too.
 //
 // Bound on the card: the products, 4 d N sum(valid keys) operations forward
 // and 8 d N sum(valid) backward (d = H Dh), at the f32 FMA peak of 67
@@ -87,9 +86,7 @@
 namespace vs {
 namespace attn {
 
-constexpr int kThreads = 256;
 constexpr int kT = 64;     // query and key tile
-constexpr int kPad = 65;   // padded row of a transposed tile
 constexpr float kDead = -1e37f;  // ops/attention._DEAD
 
 // The two counter-hash families of the JAX package's dropout, bit for bit
@@ -144,51 +141,6 @@ struct Args {
   int d_from_o;     // backward: D = rowsum(dO * o) (1) or rowsum(dp * p)
   int guard;        // backward: p = 0 where lse < kDead
 };
-
-// The first family's tile helpers, which ring_attention.cu's kernels use:
-// rows r0..r0+63 of one head's (rows, DH) matrix with row stride sn,
-// widened to f32, into a transposed tile dst[c * kPad + r]
-template <typename T, int DH>
-__device__ __forceinline__ void stage_t(float* dst, const T* head,
-                                        long long sn, int r0) {
-  for (int e = threadIdx.x; e < kT * DH; e += kThreads) {
-    const int r = e / DH, c = e % DH;
-    dst[c * kPad + r] = to_f32<T>(head[(long long)(r0 + r) * sn + c]);
-  }
-}
-
-// the same rows kept row-major, dst[r * DH + c]
-template <typename T, int DH>
-__device__ __forceinline__ void stage_rows(float* dst, const T* head,
-                                           long long sn, int r0) {
-  for (int e = threadIdx.x; e < kT * DH; e += kThreads) {
-    const int r = e / DH, c = e % DH;
-    dst[e] = to_f32<T>(head[(long long)(r0 + r) * sn + c]);
-  }
-}
-
-// s[i][j] = sum_c A[c][4 rg + i] * B[c][cg + 16 j] over transposed tiles,
-// the product a . b in the order every kernel here uses
-template <int DH>
-__device__ __forceinline__ void tile_dot(float (&s)[4][4], const float* A,
-                                         const float* Bt, int rg, int cg) {
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
-#pragma unroll 8
-  for (int c = 0; c < DH; ++c) {
-    float x[4], y[4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) x[i] = A[c * kPad + rg * 4 + i];
-#pragma unroll
-    for (int j = 0; j < 4; ++j) y[j] = Bt[c * kPad + cg + 16 * j];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = fmaf(x[i], y[j], s[i][j]);
-  }
-}
 
 // ------------------------------------------------------------- FMA tiles
 // What the f32 family (fma_fwd_kernel, fma_dq_kernel, fma_dkdv_kernel) is

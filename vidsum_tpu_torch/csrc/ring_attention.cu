@@ -2,66 +2,125 @@
 // folding one K/V block into an online-softmax carry, forward and backward.
 //
 // Replaces the TPU kernels of vidsum_tpu/parallel/ring_attention.py:
-//   _ring_block_kernel      -> vs_ring_fwd, dropout 0 (inference; K/V float
-//                              or bf16, widened exactly as the JAX step
-//                              upcasts them)
-//   _ring_train_fwd_kernel  -> vs_ring_fwd, dropout 1 (all float)
-//   _ring_train_bwd_kernel  -> vs_ring_bwd (all float)
-// Layouts: q (B, H, Nq, DH) float, pre-scaled; k, v (B, H, Nk, DH); the key
-// mask (B, Nk) bytes, nonzero = padded; the carries o (B, H, Nq, DH) float,
-// unnormalised, and m, l (B, H, Nq, 1) float; the backward's g, dq (B, H, Nq,
-// DH), dk, dv (B, H, Nk, DH) and D (B, H, Nq, 1), all float.
+//   _ring_block_kernel      -> vs_ring_fwd at rate 0 (inference; the
+//                              wrapper widens bf16 K/V to f32 first, as the
+//                              JAX step upcasts them at its call)
+//   _ring_train_fwd_kernel  -> vs_ring_fwd with the dropout bits
+//   _ring_train_bwd_kernel  -> vs_ring_bwd (ring_dq_kernel, ring_dkdv_kernel)
+// Layouts: q (B, H, Nq, DH) f32, pre-scaled; k, v (B, H, Nk, DH) f32; the key
+// mask (B, Nk) bytes, nonzero = padded; the carries o (B, H, Nq, DH) f32,
+// unnormalised, and m, l (B, H, Nq, 1) f32; the backward's g, dq (B, H, Nq,
+// DH), dk, dv (B, H, Nk, DH) and D (B, H, Nq, 1), all f32, contiguous, every
+// base on 16 bytes (the wrappers see to it). Nq and Nk are multiples of the
+// 64-key tile.
 //
-// Carry mode. The forward reads (o, m, l), folds the block in 64-key tiles
-//   m_new = max(m, rowmax s); dead = m_new < _DEAD; corr = 0 where m < _DEAD
-//   p = dead ? 0 : exp(s - m_new); l = l corr + sum p; o = o corr + p~ . v
+// Carry mode. The forward reads (o, m, l), folds the block's live 64-key
+// tiles in order
+//   m_new = max(m, rowmax s); dead = m_new < _DEAD; m_safe = dead ? 0 : m_new
+//   corr = m < _DEAD ? 0 : 2^((m - m_safe) log2 e)
+//   p = dead ? 0 : 2^((s - m_safe) log2 e); l = l corr + sum p
+//   o = o corr + p~ . v
 // with p~ = p dropped (keep * 1/(1-rate)) for the o accumulation only, and
-// writes the unnormalised (o, m, l) to separate outputs: each CTA owns 64
+// writes the unnormalised (o, m, l) to separate outputs: each CTA owns its
 // query rows, reads their carry before its loop and writes it after, so no
-// launch touches another shard's carry. A block whose keys are all padded
-// leaves the carry unchanged bit for bit (corr = 1, p = 0). The fold over
-// 64-key tiles rescales per tile where the TPU kernel rescales once per
-// block: the same operations in another order of rounding.
-// The backward recomputes s from q and the block, w = exp(s - m) / l from
-// the saved m and l (not exp(s - lse): the TPU kernel's rounding), and adds
+// launch writes its inputs. m stays in natural units (the scores are not
+// pre-scaled by log2 e; only the exponent's argument is), so a CTA of a
+// block with no unpadded key, which walks no tile, copies its carry through
+// bit for bit. The fold rescales per tile where the TPU kernel rescales once
+// per block: the same operations in another order of rounding.
+// The backward recomputes s and dp from q, g and the block, w = e / l as
+// e * (1 / l) from the saved m and l (e = 2^((s - m) log2 e); not
+// exp(s - lse)), and adds
 //   dv += w~^T g, ds = w (keep inv dp - D), dq += ds . k, dk += ds^T . q
-// to dq_in, dk_in, dv_in: ring_dq_kernel per 64-query tile (dq), ring_dkdv
-// per 64-key tile, looping over the query tiles (dk, dv). No atomics: two
-// runs give identical bits. D = rowsum(g * out), the q pre-scale and the
-// final dq * scale stay outside, as in the JAX package.
+// to dq_in, dk_in, dv_in: ring_dq_kernel per query rows over the live key
+// tiles (dq), ring_dkdv_kernel per keys over every query tile (dk, dv). A
+// block with no unpadded key leaves dq_in, and a CTA whose keys are all
+// padded dk_in and dv_in, unchanged. No atomics: two runs give identical
+// bits. D = rowsum(g * out), the q pre-scale and the final dq * scale stay
+// outside, as in the JAX package.
 //
 // Dropout bits: attention_core.cuh's kHashBlock family (the fused training
 // block's _hash_keep, site = head) at global coordinates: batch b0 + b, row
 // q0 + query, column k0 + key, with (b0, q0, k0) the shard's offsets from
-// the TPU kernel's info operand; uint32 arithmetic that wraps.
+// the TPU kernel's info operand; uint32 arithmetic that wraps. At rate 0
+// keep_bit returns before hashing, so kernel 15 hashes nothing.
 //
 // Bound on the card: 4 * B*H*Nq*Nk*DH operations forward, 10 * ... backward
-// (recompute included), against a few (B, H, N, DH) tensors read and
-// written: operation-bound. Everything is f32 FMA (no TF32), so the bound is
-// the card's 67 TFLOP/s f32 peak outside the tensor cores: 0.26 ms for one
-// forward step at (B, H, Nl, DH) = (1, 4, 4096, 64). Design: attention_core's
-// tiles, 64 x 64 scores per CTA of 256 threads in 4 x 4 register blocks over
-// transposed, padded shared-memory tiles (conflict-free reads); nothing of
-// size Nq x Nk reaches device memory; no load overlaps compute yet.
+// (recompute included; the kernels issue 7 FMAs a (query, key) pair per
+// column against the bound's 5: dq and dk/dv each recompute s and dp),
+// against a few (B, H, N, DH) tensors read and written: operation-bound.
+// Everything is f32 FMA (no TF32: the TPU kernels compute in f32), so the
+// bound is the card's 67 TFLOP/s f32 peak outside the tensor cores: 0.26 ms
+// for one forward step at (B, H, Nl, DH) = (1, 4, 4096, 64).
+//
+// Design: attention_core.cuh's FMA tiles (fma_stage, fma_scores,
+// fma_rows_mul, PR 10's f32 training attention), in kernels of their own:
+// 1. Shared-memory issue. A thread holds RI x 8 scores (8 x 8; 4 x 8 at
+//    head_dim 96 and 128) read as float4 from row-major tiles of DH + 4
+//    floats a row: per 4 columns, 8 + RI vector reads feed 32 RI FMAs, and
+//    P.V, dS.K, pd^T.g and dS^T.q likewise (the first family's transposed
+//    tiles fed 16 FMAs with 8 scalar reads).
+// 2. Loads overlapped with compute. Tiles arrive by 16-byte cp.async: the
+//    forward's K tile loads during the fold and P.V, its V tile during the
+//    next scores; dQ double-buffers K/V with their mask bytes, dK/dV q/g with
+//    their rows' m, l and D.
+// 3. Live key tiles only. The forward and dQ walk the 64-key tiles of their
+//    element that hold an unpadded key (mma_tiles.cuh's live_tiles): a
+//    padded key adds exact zeros to every sum and nothing to any max. A
+//    block with none walks no tile and passes its inputs through; so does a
+//    dK/dV CTA whose keys are all padded, and a padded key's dk/dv rows.
+// 4. Per score one ex2 (the MUFU unit) of (s - m_safe) log2 e, and one
+//    multiply by the row's 1 / l in the backward, for expf and a division.
+// 5. Two thread groups a backward CTA: in dQ group 0 computes s and w,
+//    group 1 dp and ds, each half of dQ's columns; in dK/dV group 0 w, the
+//    dropped w and dV, group 1 dp, ds and dK; each thread keeps one set of
+//    accumulators.
+// 6. CTA shapes for the ring's grids. A CTA holds RI rows a thread in 8 TY
+//    threads a group. At head_dim <= 64 two shapes: (16, 8), 128 rows, two
+//    forward CTAs an SM, and (16, 4), 64 rows at 156-168 registers, three;
+//    the caller picks the one whose grid ends soonest on the card
+//    (parallel/ring_attention.ring_cta_shape, with the occupancy that
+//    vs_ring_slots reports): a 16,384-frame request's 4,096-row shards
+//    fill a card only as 64-row CTAs. At 96 and 128 one: (16, 4), but
+//    (8, 4) for dK/dV at 128.
+// A row's operations, and so its bits, depend on neither the CTA shape nor
+// the grid.
+#include <initializer_list>
+
 #include "attention_core.cuh"
 
 namespace {
 
+using vs::cp_async16;
+using vs::cp_async_commit;
+using vs::cp_async_wait;
+using vs::ex2;
+using vs::group_max;
+using vs::group_sum;
+using vs::kLog2e;
+using vs::live_tiles;
+using vs::attn::fma_col;
+using vs::attn::fma_rows_mul;
+using vs::attn::fma_scores;
+using vs::attn::fma_stage;
 using vs::attn::hash_base;
 using vs::attn::kDead;
 using vs::attn::keep_bit;
+using vs::attn::kFmaCw;
+using vs::attn::kFmaLd;
+using vs::attn::kFmaRi;
 using vs::attn::kHashBlock;
-using vs::attn::kPad;
+using vs::attn::kSj;
+using vs::attn::kSLd;
 using vs::attn::kT;
-using vs::attn::kThreads;
-using vs::attn::stage_rows;
-using vs::attn::stage_t;
-using vs::attn::tile_dot;
+using vs::attn::kTx;
+using vs::attn::ld_vec;
+using vs::attn::st_vec;
 
 struct RingArgs {
   const float* q;
-  const void* k;
-  const void* v;
+  const float* k;
+  const float* v;
   const unsigned char* mask;
   const float* o_in;   // forward carry in
   const float* m_in;   // forward carry in; the backward's saved m
@@ -83,337 +142,471 @@ struct RingArgs {
   int b0, q0, k0;      // the shard's global batch, query and key offsets
 };
 
-// ------------------------------------------------------------------ forward
-template <int DH>
-constexpr int fwd_smem_floats() {
-  return 2 * DH * kPad + kT * DH + kT * kPad + kT;
+// rows r0 .. r0 + rows - 1 (those below N) of a (N, DH) matrix, copied
+template <int DH, int THREADS>
+__device__ __forceinline__ void copy_rows(float* dst, const float* src, int r0,
+                                          int rows, int N) {
+  constexpr int CH = DH / 4;
+  const int n = min(rows, N - r0) * CH;
+  for (int c = threadIdx.x; c < n; c += THREADS) {
+    const long long e = (long long)(r0 + c / CH) * DH + (c % CH) * 4;
+    *reinterpret_cast<float4*>(dst + e) =
+        *reinterpret_cast<const float4*>(src + e);
+  }
 }
 
-template <typename KV, int DH, bool DROP>
-__global__ void __launch_bounds__(kThreads) ring_fwd_kernel(const RingArgs a) {
-  constexpr int DPT = DH / 16;
-  extern __shared__ float smem[];
-  float* Qt = smem;               // [DH][kPad]
-  float* Kt = Qt + DH * kPad;     // [DH][kPad]
-  float* Vs = Kt + DH * kPad;     // [kT][DH]
-  float* Pt = Vs + kT * DH;       // [key][query], kPad
-  float* Km = Pt + kT * kPad;     // key mask as 0/1
-
-  const int tid = threadIdx.x, rg = tid >> 4, cg = tid & 15;
-  const int q0 = blockIdx.x * kT, h = blockIdx.y, b = blockIdx.z;
-  const long long rq = ((long long)b * a.H + h) * a.Nq;  // first row of q
-  const long long rk = ((long long)b * a.H + h) * a.Nk;
-  const KV* kh = static_cast<const KV*>(a.k) + rk * DH;
-  const KV* vh = static_cast<const KV*>(a.v) + rk * DH;
-  const unsigned char* mrow = a.mask + (long long)b * a.Nk;
-  const unsigned base = DROP ? hash_base(kHashBlock, a.seed, a.b0 + b, h) : 0u;
-
-  stage_t<float, DH>(Qt, a.q + rq * DH, DH, q0);
-  float m[4], l[4], acc[4][DPT];
+// in + acc (in where pass) into out at row `row`, the columns c0 +
+// fma_col(tx, n) of a thread's accumulators
+template <int DH, int COLS>
+__device__ __forceinline__ void add_row(float* out, const float* in,
+                                        const float (&acc)[COLS],
+                                        long long row, int c0, int tx,
+                                        bool pass) {
+  constexpr int CW = kFmaCw<COLS>;
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const long long row = rq + q0 + rg * 4 + i;
-    m[i] = a.m_in[row];
-    l[i] = a.l_in[row];
+  for (int n = 0; n < COLS; n += CW) {
+    const long long e = row * DH + c0 + fma_col<COLS>(tx, n);
+    float x[CW];
+    ld_vec<CW>(x, in + e);
+    if (!pass) {
 #pragma unroll
-    for (int t = 0; t < DPT; ++t) acc[i][t] = a.o_in[row * DH + cg + 16 * t];
+      for (int j = 0; j < CW; ++j) x[j] += acc[n + j];
+    }
+    st_vec<CW>(out + e, x);
   }
+}
 
-  for (int k0 = 0; k0 < a.Nk; k0 += kT) {
-    __syncthreads();  // the previous tile's readers are done
-    stage_t<KV, DH>(Kt, kh, DH, k0);
-    stage_rows<KV, DH>(Vs, vh, DH, k0);
-    if (tid < kT) Km[tid] = mrow[k0 + tid] != 0 ? 1.f : 0.f;
-    __syncthreads();
-    float s[4][4];
-    tile_dot<DH>(s, Qt, Kt, rg, cg);
+// ------------------------------------------------------------------ forward
+template <int DH, int TY, int RI>
+constexpr int fwd_floats() {
+  constexpr int ROWS = RI * TY;
+  // Q; K and V (one tile each, staggered); P; the K tile's mask bytes
+  return ROWS * kFmaLd<DH> + 2 * kT * kFmaLd<DH> + ROWS * kSLd + kT / 4;
+}
+
+// RI TY query rows of one (b, h): their carry into registers, the fold over
+// the block's live key tiles, the carry out
+template <int DH, int TY, int RI>
+__global__ void __launch_bounds__(kTx * TY, 2)
+    ring_fwd_kernel(const RingArgs a) {
+  constexpr int ROWS = RI * TY, THREADS = kTx * TY;
+  constexpr int LD = kFmaLd<DH>, COLS = DH / kTx, CW = kFmaCw<COLS>;
+  extern __shared__ __align__(16) float smem[];
+  float* Qs = smem;            // [ROWS][LD]
+  float* Ks = Qs + ROWS * LD;  // [kT][LD]
+  float* Vs = Ks + kT * LD;    // [kT][LD]
+  float* Ps = Vs + kT * LD;    // [ROWS][kSLd], dropped p
+  unsigned char* Ms = reinterpret_cast<unsigned char*>(Ps + ROWS * kSLd);
+  int* tiles = reinterpret_cast<int*>(Ms + kT);
+  int* count = tiles + a.Nk / kT;
+
+  const int tid = threadIdx.x, ty = tid / kTx, tx = tid % kTx;
+  const int q0 = blockIdx.x * ROWS, h = blockIdx.y, b = blockIdx.z;
+  const int Nq = a.Nq, Nk = a.Nk;
+  const long long rq = ((long long)b * a.H + h) * Nq;  // row (b, h, 0) of q
+  const long long rk = ((long long)b * a.H + h) * Nk;
+  const float* kh = a.k + rk * DH;
+  const float* vh = a.v + rk * DH;
+  const unsigned char* mrow = a.mask + (long long)b * Nk;
+  const unsigned base = hash_base(kHashBlock, a.seed, a.b0 + b, h);
+
+  live_tiles(mrow, Nk, tiles, count, false);
+  fma_stage<DH, THREADS>(Qs, a.q + rq * DH, DH, q0, ROWS, Nq);
+  cp_async_commit();
+  __syncthreads();  // the tile list
+  const int nlive = *count;
+  if (nlive == 0) {  // no unpadded key: the carry passes through
+    cp_async_wait<0>();
+    copy_rows<DH, THREADS>(a.o_out + rq * DH, a.o_in + rq * DH, q0, ROWS, Nq);
+    for (int r = tid; r < ROWS && q0 + r < Nq; r += THREADS) {
+      a.m_out[rq + q0 + r] = a.m_in[rq + q0 + r];
+      a.l_out[rq + q0 + r] = a.l_in[rq + q0 + r];
+    }
+    return;
+  }
+  auto load_k = [&](int it) {
+    if (it < nlive) {
+      const int k0 = tiles[it] * kT;
+      fma_stage<DH, THREADS>(Ks, kh, DH, k0, kT, Nk);
+      if (tid < kT / 16) cp_async16(Ms + 16 * tid, mrow + k0 + 16 * tid);
+    }
+    cp_async_commit();
+  };
+  auto load_v = [&](int it) {
+    if (it < nlive) fma_stage<DH, THREADS>(Vs, vh, DH, tiles[it] * kT, kT, Nk);
+    cp_async_commit();
+  };
+  load_k(0);
+  load_v(0);
+
+  float m[RI], l[RI], acc[RI][COLS];
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int qi = a.q0 + q0 + rg * 4 + i;
+  for (int i = 0; i < RI; ++i) {
+    const int row = q0 + ty + TY * i;
+    m[i] = -INFINITY;
+    l[i] = 0.f;
+#pragma unroll
+    for (int n = 0; n < COLS; ++n) acc[i][n] = 0.f;
+    if (row < Nq) {
+      m[i] = a.m_in[rq + row];
+      l[i] = a.l_in[rq + row];
+#pragma unroll
+      for (int n = 0; n < COLS; n += CW)
+        ld_vec<CW>(&acc[i][n],
+                   a.o_in + (rq + row) * DH + fma_col<COLS>(tx, n));
+    }
+  }
+  for (int it = 0; it < nlive; ++it) {
+    cp_async_wait<1>();  // Q and this K tile; this V tile may be in flight
+    __syncthreads();
+    float s[RI][kSj];
+    fma_scores<DH, RI, TY>(s, Qs, Ks, ty, tx);
+    bool km[kSj];
+#pragma unroll
+    for (int j = 0; j < kSj; ++j) km[j] = Ms[tx + kTx * j] != 0;
+    __syncthreads();  // Ks and Ms are free
+    load_k(it + 1);
+    const int k0 = a.k0 + tiles[it] * kT;
+#pragma unroll
+    for (int i = 0; i < RI; ++i) {
+      const int qi = a.q0 + q0 + ty + TY * i;
       float mx = -INFINITY;
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        if (Km[cg + 16 * j] != 0.f) s[i][j] = -INFINITY;
+      for (int j = 0; j < kSj; ++j) {
+        if (km[j]) s[i][j] = -INFINITY;
         mx = fmaxf(mx, s[i][j]);
       }
-      const float m_new = fmaxf(m[i], vs::group_max<16>(mx));
+      const float m_new = fmaxf(m[i], group_max<kTx>(mx));
       const bool dead = m_new < kDead;
       const float m_safe = dead ? 0.f : m_new;
-      const float corr = m[i] < kDead ? 0.f : expf(m[i] - m_safe);
+      const float corr = m[i] < kDead ? 0.f : ex2((m[i] - m_safe) * kLog2e);
       float rs = 0.f;
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int kj = cg + 16 * j;
-        const float p = dead ? 0.f : expf(s[i][j] - m_safe);
+      for (int j = 0; j < kSj; ++j) {
+        const int kj = tx + kTx * j;
+        const float p = dead ? 0.f : ex2((s[i][j] - m_safe) * kLog2e);
         rs += p;
-        float pu = p;
-        if (DROP)
-          pu = keep_bit(base, qi, a.k0 + k0 + kj, a.thr) ? p * a.kscale : 0.f;
-        Pt[kj * kPad + rg * 4 + i] = pu;
+        Ps[(ty + TY * i) * kSLd + kj] =
+            keep_bit(base, qi, k0 + kj, a.thr) ? p * a.kscale : 0.f;
       }
-      l[i] = l[i] * corr + vs::group_sum<16>(rs);
+      l[i] = l[i] * corr + group_sum<kTx>(rs);
       m[i] = m_new;
 #pragma unroll
-      for (int t = 0; t < DPT; ++t) acc[i][t] *= corr;
+      for (int n = 0; n < COLS; ++n) acc[i][n] *= corr;
     }
-    __syncthreads();
-#pragma unroll 8
-    for (int kk = 0; kk < kT; ++kk) {  // acc += Pt . V
-      float pa[4], vb[DPT];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) pa[i] = Pt[kk * kPad + rg * 4 + i];
-#pragma unroll
-      for (int t = 0; t < DPT; ++t) vb[t] = Vs[kk * DH + cg + 16 * t];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int t = 0; t < DPT; ++t) acc[i][t] = fmaf(pa[i], vb[t], acc[i][t]);
-    }
+    cp_async_wait<1>();  // this V tile; the next K tile may be in flight
+    __syncthreads();     // P written, V landed
+    fma_rows_mul<DH, RI, TY, COLS>(acc, Ps, Vs, 0, ty, tx);
+    __syncthreads();     // Vs and Ps are free
+    load_v(it + 1);
   }
+  cp_async_wait<0>();
 
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const long long row = rq + q0 + rg * 4 + i;
+  for (int i = 0; i < RI; ++i) {
+    const int row = q0 + ty + TY * i;
+    if (row >= Nq) continue;
 #pragma unroll
-    for (int t = 0; t < DPT; ++t) a.o_out[row * DH + cg + 16 * t] = acc[i][t];
-    if (cg == 0) {
-      a.m_out[row] = m[i];
-      a.l_out[row] = l[i];
+    for (int n = 0; n < COLS; n += CW)
+      st_vec<CW>(a.o_out + (rq + row) * DH + fma_col<COLS>(tx, n), &acc[i][n]);
+    if (tx == 0) {
+      a.m_out[rq + row] = m[i];
+      a.l_out[rq + row] = l[i];
     }
   }
 }
 
 // ----------------------------------------------------------------- backward
-// The per-row statistics of the backward: m_safe, the live flag, 1 / l_safe
-// is not used (w = e / l is a division, as on the TPU).
-__device__ __forceinline__ void row_stats(const RingArgs& a, long long row,
-                                          float& m_safe, bool& dead,
-                                          float& l_safe, float& d) {
-  const float m = a.m_in[row], l = a.l_in[row];
-  dead = m < kDead;
-  m_safe = dead ? 0.f : m;
-  l_safe = l == 0.f ? 1.f : l;
-  d = a.D[row];
+template <int DH, int TY, int RI>
+constexpr int dq_floats() {
+  constexpr int ROWS = RI * TY;
+  // Q, g; K and V double-buffered; w then ds; the K tiles' mask bytes
+  return 2 * ROWS * kFmaLd<DH> + 4 * kT * kFmaLd<DH> + ROWS * kSLd +
+         2 * kT / 4;
 }
 
-template <int DH>
-constexpr int dq_smem_floats() {
-  return 4 * DH * kPad + kT * kPad + kT;
-}
+// RI TY query rows over the block's live key tiles: group 0 computes s and
+// w, group 1 dp and ds = w (keep inv dp - D); both add ds . k into half of
+// dq's columns. dq_out = dq_in + the block's terms.
+template <int DH, int TY, int RI>
+__global__ void __launch_bounds__(2 * kTx * TY, 1)
+    ring_dq_kernel(const RingArgs a) {
+  constexpr int ROWS = RI * TY, GROUP = kTx * TY;
+  constexpr int THREADS = 2 * GROUP, LD = kFmaLd<DH>;
+  constexpr int COLS = DH / (2 * kTx);
+  extern __shared__ __align__(16) float smem[];
+  float* Qs = smem;              // [ROWS][LD]
+  float* Gs = Qs + ROWS * LD;    // [ROWS][LD]
+  float* Ks = Gs + ROWS * LD;    // [2][kT][LD]
+  float* Vs = Ks + 2 * kT * LD;  // [2][kT][LD]
+  float* Ss = Vs + 2 * kT * LD;  // [ROWS][kSLd]: w, then ds
+  unsigned char* Ms = reinterpret_cast<unsigned char*>(Ss + ROWS * kSLd);
+  int* tiles = reinterpret_cast<int*>(Ms + 2 * kT);
+  int* count = tiles + a.Nk / kT;
 
-template <int DH>
-__global__ void __launch_bounds__(kThreads) ring_dq_kernel(const RingArgs a) {
-  constexpr int DPT = DH / 16;
-  extern __shared__ float smem[];
-  float* Qt = smem;               // [DH][kPad]
-  float* Gt = Qt + DH * kPad;
-  float* Kt = Gt + DH * kPad;
-  float* Vt = Kt + DH * kPad;
-  float* dSs = Vt + DH * kPad;    // [query][key], kPad
-  float* Km = dSs + kT * kPad;
-
-  const int tid = threadIdx.x, rg = tid >> 4, cg = tid & 15;
-  const int q0 = blockIdx.x * kT, h = blockIdx.y, b = blockIdx.z;
-  const long long rq = ((long long)b * a.H + h) * a.Nq;
-  const long long rk = ((long long)b * a.H + h) * a.Nk;
-  const float* kh = static_cast<const float*>(a.k) + rk * DH;
-  const float* vh = static_cast<const float*>(a.v) + rk * DH;
-  const unsigned char* mrow = a.mask + (long long)b * a.Nk;
+  const int tid = threadIdx.x, grp = tid / GROUP, gt = tid % GROUP;
+  const int ty = gt / kTx, tx = gt % kTx;
+  const int q0 = blockIdx.x * ROWS, h = blockIdx.y, b = blockIdx.z;
+  const int Nq = a.Nq, Nk = a.Nk;
+  const long long rq = ((long long)b * a.H + h) * Nq;
+  const long long rk = ((long long)b * a.H + h) * Nk;
+  const float* kh = a.k + rk * DH;
+  const float* vh = a.v + rk * DH;
+  const unsigned char* mrow = a.mask + (long long)b * Nk;
   const unsigned base = hash_base(kHashBlock, a.seed, a.b0 + b, h);
 
-  stage_t<float, DH>(Qt, a.q + rq * DH, DH, q0);
-  stage_t<float, DH>(Gt, a.g + rq * DH, DH, q0);
-  float ms[4], ls[4], dr[4];
-  bool dead[4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-    row_stats(a, rq + q0 + rg * 4 + i, ms[i], dead[i], ls[i], dr[i]);
-
-  float acc[4][DPT];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int t = 0; t < DPT; ++t) acc[i][t] = 0.f;
-  for (int k0 = 0; k0 < a.Nk; k0 += kT) {
-    __syncthreads();
-    stage_t<float, DH>(Kt, kh, DH, k0);
-    stage_t<float, DH>(Vt, vh, DH, k0);
-    if (tid < kT) Km[tid] = mrow[k0 + tid] != 0 ? 1.f : 0.f;
-    __syncthreads();
-    float s[4][4], dp[4][4];
-    tile_dot<DH>(s, Qt, Kt, rg, cg);
-    tile_dot<DH>(dp, Gt, Vt, rg, cg);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int qi = a.q0 + q0 + rg * 4 + i;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int kj = cg + 16 * j;
-        const float e =
-            (Km[kj] != 0.f || dead[i]) ? 0.f : expf(s[i][j] - ms[i]);
-        const float w = e / ls[i];
-        const float kp =
-            keep_bit(base, qi, a.k0 + k0 + kj, a.thr) ? a.kscale : 0.f;
-        dSs[(rg * 4 + i) * kPad + kj] = w * (kp * dp[i][j] - dr[i]);
-      }
+  live_tiles(mrow, Nk, tiles, count, false);
+  fma_stage<DH, THREADS>(Qs, a.q + rq * DH, DH, q0, ROWS, Nq);
+  fma_stage<DH, THREADS>(Gs, a.g + rq * DH, DH, q0, ROWS, Nq);
+  cp_async_commit();
+  __syncthreads();  // the tile list
+  const int nlive = *count;
+  if (nlive == 0) {  // no unpadded key: dq passes through
+    cp_async_wait<0>();
+    copy_rows<DH, THREADS>(a.dq_out + rq * DH, a.dq_in + rq * DH, q0, ROWS,
+                           Nq);
+    return;
+  }
+  auto load_kv = [&](int v) {
+    if (v < nlive) {
+      const int buf = v & 1, k0 = tiles[v] * kT;
+      fma_stage<DH, THREADS>(Ks + buf * kT * LD, kh, DH, k0, kT, Nk);
+      fma_stage<DH, THREADS>(Vs + buf * kT * LD, vh, DH, k0, kT, Nk);
+      if (tid < kT / 16)
+        cp_async16(Ms + buf * kT + 16 * tid, mrow + k0 + 16 * tid);
     }
-    __syncthreads();
-#pragma unroll 8
-    for (int kk = 0; kk < kT; ++kk) {  // acc += dS . K
-      float sa[4], kb[DPT];
+    cp_async_commit();
+  };
+  load_kv(0);
+
+  // group 0: the row's m (+inf where dead: its weights are 0) and 1 / l;
+  // group 1: D
+  float ra[RI], rb[RI];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) sa[i] = dSs[(rg * 4 + i) * kPad + kk];
-#pragma unroll
-      for (int t = 0; t < DPT; ++t) kb[t] = Kt[(cg + 16 * t) * kPad + kk];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int t = 0; t < DPT; ++t) acc[i][t] = fmaf(sa[i], kb[t], acc[i][t]);
+  for (int i = 0; i < RI; ++i) {
+    const int row = q0 + ty + TY * i;
+    ra[i] = grp == 0 ? INFINITY : 0.f;
+    rb[i] = 0.f;
+    if (row >= Nq) continue;
+    if (grp == 0) {
+      const float mi = a.m_in[rq + row], li = a.l_in[rq + row];
+      ra[i] = mi < kDead ? INFINITY : mi;
+      rb[i] = 1.f / (li == 0.f ? 1.f : li);
+    } else {
+      ra[i] = a.D[rq + row];
     }
   }
 
+  float acc[RI][COLS];
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const long long row = (rq + q0 + rg * 4 + i) * DH;
+  for (int i = 0; i < RI; ++i)
 #pragma unroll
-    for (int t = 0; t < DPT; ++t) {
-      const int c = cg + 16 * t;
-      a.dq_out[row + c] = a.dq_in[row + c] + acc[i][t];
+    for (int n = 0; n < COLS; ++n) acc[i][n] = 0.f;
+  for (int v = 0; v < nlive; ++v) {
+    const int buf = v & 1;
+    if (v + 1 < nlive) {
+      load_kv(v + 1);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
     }
+    __syncthreads();  // this K/V tile
+    const int k0 = a.k0 + tiles[v] * kT;
+    const float* Kt = Ks + buf * kT * LD;
+    const unsigned char* Mb = Ms + buf * kT;
+    float s[RI][kSj];
+    if (grp == 0) {
+      fma_scores<DH, RI, TY>(s, Qs, Kt, ty, tx);
+#pragma unroll
+      for (int i = 0; i < RI; ++i)
+#pragma unroll
+        for (int j = 0; j < kSj; ++j) {
+          const float sv = Mb[tx + kTx * j] != 0 ? -INFINITY : s[i][j];
+          Ss[(ty + TY * i) * kSLd + tx + kTx * j] =
+              ex2((sv - ra[i]) * kLog2e) * rb[i];
+        }
+    } else {
+      fma_scores<DH, RI, TY>(s, Gs, Vs + buf * kT * LD, ty, tx);
+#pragma unroll
+      for (int i = 0; i < RI; ++i)
+#pragma unroll
+        for (int j = 0; j < kSj; ++j)
+          s[i][j] = keep_bit(base, a.q0 + q0 + ty + TY * i, k0 + tx + kTx * j,
+                             a.thr) ? s[i][j] * a.kscale : 0.f;
+    }
+    __syncthreads();  // w
+    if (grp == 1) {
+#pragma unroll
+      for (int i = 0; i < RI; ++i)
+#pragma unroll
+        for (int j = 0; j < kSj; ++j) {
+          float* sp = Ss + (ty + TY * i) * kSLd + tx + kTx * j;
+          *sp = *sp * (s[i][j] - ra[i]);
+        }
+    }
+    __syncthreads();  // ds
+    fma_rows_mul<DH, RI, TY, COLS>(acc, Ss, Kt, grp * (DH / 2), ty, tx);
+    __syncthreads();  // this buffer and Ss are free
+  }
+
+#pragma unroll
+  for (int i = 0; i < RI; ++i) {
+    const int row = q0 + ty + TY * i;
+    if (row < Nq)
+      add_row<DH, COLS>(a.dq_out, a.dq_in, acc[i], rq + row, grp * (DH / 2),
+                        tx, false);
   }
 }
 
-// thread (rg, cg) holds keys 4 rg + i and queries cg + 16 j of each
-// transposed score tile
-template <int DH>
-constexpr int dkdv_smem_floats() {
-  return 4 * DH * kPad + 2 * kT * kPad + 4 * kT;
+template <int DH, int TY, int RI>
+constexpr int dkdv_floats() {
+  constexpr int ROWS = RI * TY;
+  // K, V; q and g double-buffered; the dropped w; w then ds; each query
+  // tile's m, 1 / l and D, double-buffered
+  return 2 * ROWS * kFmaLd<DH> + 4 * kT * kFmaLd<DH> + 2 * ROWS * kSLd +
+         6 * kT;
 }
 
-template <int DH>
-__global__ void __launch_bounds__(kThreads) ring_dkdv_kernel(const RingArgs a) {
-  constexpr int DPT = DH / 16;
-  extern __shared__ float smem[];
-  float* Kt = smem;               // [DH][kPad]
-  float* Vt = Kt + DH * kPad;
-  float* Qt = Vt + DH * kPad;
-  float* Gt = Qt + DH * kPad;
-  float* WdT = Gt + DH * kPad;    // [key][query], kPad
-  float* dST = WdT + kT * kPad;   // [key][query], kPad
-  float* Mq = dST + kT * kPad;    // m_safe of each query row
-  float* Dd = Mq + kT;            // 1 where the row is dead
-  float* Lq = Dd + kT;            // l_safe
-  float* Dq = Lq + kT;            // D
+// RI TY keys over every 64-query tile: w^T and dp^T, then dv += w~^T . g
+// (group 0) and dk += ds^T . q (group 1). A CTA whose keys are all padded
+// copies dk_in and dv_in through; so does each padded key's row.
+template <int DH, int TY, int RI>
+__global__ void __launch_bounds__(2 * kTx * TY, 1)
+    ring_dkdv_kernel(const RingArgs a) {
+  constexpr int ROWS = RI * TY, GROUP = kTx * TY;
+  constexpr int THREADS = 2 * GROUP, LD = kFmaLd<DH>;
+  constexpr int COLS = DH / kTx, TILE = kT * LD;
+  extern __shared__ __align__(16) float smem[];
+  float* Ks = smem;                // [ROWS][LD]
+  float* Vs = Ks + ROWS * LD;      // [ROWS][LD]
+  float* Qs = Vs + ROWS * LD;      // [2][kT][LD]
+  float* Gs = Qs + 2 * TILE;       // [2][kT][LD]
+  float* Pd = Gs + 2 * TILE;       // [ROWS][kSLd], keys x queries
+  float* Ss = Pd + ROWS * kSLd;    // [ROWS][kSLd]: w, then ds
+  float* St = Ss + ROWS * kSLd;    // [2][3][kT]: m, 1 / l, D
 
-  const int tid = threadIdx.x, rg = tid >> 4, cg = tid & 15;
-  const int k0 = blockIdx.x * kT, h = blockIdx.y, b = blockIdx.z;
-  const long long rq = ((long long)b * a.H + h) * a.Nq;
-  const long long rk = ((long long)b * a.H + h) * a.Nk;
+  const int tid = threadIdx.x, grp = tid / GROUP, gt = tid % GROUP;
+  const int ty = gt / kTx, tx = gt % kTx;
+  const int k0 = blockIdx.x * ROWS, h = blockIdx.y, b = blockIdx.z;
+  const int Nq = a.Nq, Nk = a.Nk;
+  const long long rq = ((long long)b * a.H + h) * Nq;
+  const long long rk = ((long long)b * a.H + h) * Nk;
+  const unsigned char* mrow = a.mask + (long long)b * Nk;
+
+  // does this CTA hold an unpadded key?
+  bool live = false;
+  if (tid < ROWS / 16 && k0 + 16 * tid < Nk)
+    live = vs::any_live16(mrow + k0 + 16 * tid);
+  if (!__syncthreads_or(live)) {
+    copy_rows<DH, THREADS>(a.dk_out + rk * DH, a.dk_in + rk * DH, k0, ROWS,
+                           Nk);
+    copy_rows<DH, THREADS>(a.dv_out + rk * DH, a.dv_in + rk * DH, k0, ROWS,
+                           Nk);
+    return;
+  }
+
+  fma_stage<DH, THREADS>(Ks, a.k + rk * DH, DH, k0, ROWS, Nk);
+  fma_stage<DH, THREADS>(Vs, a.v + rk * DH, DH, k0, ROWS, Nk);
+  auto load_q = [&](int qt) {
+    const int q0 = qt * kT, buf = qt & 1;
+    fma_stage<DH, THREADS>(Qs + buf * TILE, a.q + rq * DH, DH, q0, kT, Nq);
+    fma_stage<DH, THREADS>(Gs + buf * TILE, a.g + rq * DH, DH, q0, kT, Nq);
+    if (tid < 3 * kT / 4) {
+      const int w = tid / (kT / 4), c = 4 * (tid % (kT / 4));
+      const float* src = w == 0 ? a.m_in : w == 1 ? a.l_in : a.D;
+      cp_async16(St + (buf * 3 + w) * kT + c, src + rq + q0 + c);
+    }
+    cp_async_commit();
+  };
+  load_q(0);  // one group with K and V
+
   const unsigned base = hash_base(kHashBlock, a.seed, a.b0 + b, h);
-
-  stage_t<float, DH>(Kt, static_cast<const float*>(a.k) + rk * DH, DH, k0);
-  stage_t<float, DH>(Vt, static_cast<const float*>(a.v) + rk * DH, DH, k0);
-  bool km[4];
-  float dka[4][DPT], dva[4][DPT];
+  bool km[RI];
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const long long row = rk + k0 + rg * 4 + i;
-    km[i] = a.mask[(long long)b * a.Nk + k0 + rg * 4 + i] != 0;
-#pragma unroll
-    for (int t = 0; t < DPT; ++t) {
-      dka[i][t] = a.dk_in[row * DH + cg + 16 * t];
-      dva[i][t] = a.dv_in[row * DH + cg + 16 * t];
-    }
+  for (int i = 0; i < RI; ++i) {
+    const int key = k0 + ty + TY * i;
+    km[i] = key >= Nk || mrow[key] != 0;
   }
+  float acc[RI][COLS];  // dV in group 0, dK in group 1
+#pragma unroll
+  for (int i = 0; i < RI; ++i)
+#pragma unroll
+    for (int n = 0; n < COLS; ++n) acc[i][n] = 0.f;
 
-  for (int q0 = 0; q0 < a.Nq; q0 += kT) {
-    __syncthreads();
-    stage_t<float, DH>(Qt, a.q + rq * DH, DH, q0);
-    stage_t<float, DH>(Gt, a.g + rq * DH, DH, q0);
-    if (tid < kT) {
-      float ms, ls, dr;
-      bool dead;
-      row_stats(a, rq + q0 + tid, ms, dead, ls, dr);
-      Mq[tid] = ms;
-      Dd[tid] = dead ? 1.f : 0.f;
-      Lq[tid] = ls;
-      Dq[tid] = dr;
+  const int ntq = Nq / kT;
+  for (int qt = 0; qt < ntq; ++qt) {
+    const int buf = qt & 1, q0 = qt * kT;
+    if (qt + 1 < ntq) {
+      load_q(qt + 1);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
     }
-    __syncthreads();
-    float s[4][4], dp[4][4];
+    if (tid < kT / 2) {
+      // the m or l whose copy this thread issued: m -> +inf on a row below
+      // _DEAD (its weights are 0), l -> 1 / l (1 where l is 0)
+      float* x = St + (buf * 3 + tid / (kT / 4)) * kT + 4 * (tid % (kT / 4));
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+      for (int j = 0; j < 4; ++j)
+        x[j] = tid < kT / 4 ? (x[j] < kDead ? INFINITY : x[j])
+                            : 1.f / (x[j] == 0.f ? 1.f : x[j]);
+    }
+    __syncthreads();  // this q/g tile and its rows' m, 1 / l, D
+    const float* Qt = Qs + buf * TILE;
+    const float* Gt = Gs + buf * TILE;
+    const float* Mt = St + buf * 3 * kT;
+    const float* Lt = Mt + kT;
+    const float* Dt = Lt + kT;
+    float s[RI][kSj];
+    if (grp == 0) {
+      fma_scores<DH, RI, TY>(s, Ks, Qt, ty, tx);  // s^T
 #pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = dp[i][j] = 0.f;
-#pragma unroll 8
-    for (int c = 0; c < DH; ++c) {
-      float ka[4], va[4], qb[4], gb[4];
+      for (int i = 0; i < RI; ++i)
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        ka[i] = Kt[c * kPad + rg * 4 + i];
-        va[i] = Vt[c * kPad + rg * 4 + i];
-      }
+        for (int j = 0; j < kSj; ++j) {
+          const int qj = tx + kTx * j, o = (ty + TY * i) * kSLd + qj;
+          const float sv = km[i] ? -INFINITY : s[i][j];
+          const float w = ex2((sv - Mt[qj]) * kLog2e) * Lt[qj];
+          Ss[o] = w;
+          Pd[o] = keep_bit(base, a.q0 + q0 + qj, a.k0 + k0 + ty + TY * i,
+                           a.thr) ? w * a.kscale : 0.f;
+        }
+    } else {
+      fma_scores<DH, RI, TY>(s, Vs, Gt, ty, tx);  // dp^T
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        qb[j] = Qt[c * kPad + cg + 16 * j];
-        gb[j] = Gt[c * kPad + cg + 16 * j];
-      }
-      // q . k and g . v in the operand order of ring_dq_kernel
+      for (int i = 0; i < RI; ++i)
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+        for (int j = 0; j < kSj; ++j)
+          s[i][j] = keep_bit(base, a.q0 + q0 + tx + kTx * j,
+                             a.k0 + k0 + ty + TY * i, a.thr)
+                        ? s[i][j] * a.kscale : 0.f;
+    }
+    __syncthreads();  // w
+    if (grp == 1) {
 #pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          s[i][j] = fmaf(qb[j], ka[i], s[i][j]);
-          dp[i][j] = fmaf(gb[j], va[i], dp[i][j]);
+      for (int i = 0; i < RI; ++i)
+#pragma unroll
+        for (int j = 0; j < kSj; ++j) {
+          const int qj = tx + kTx * j;
+          float* sp = Ss + (ty + TY * i) * kSLd + qj;
+          *sp = *sp * (s[i][j] - Dt[qj]);
         }
     }
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int key = a.k0 + k0 + rg * 4 + i;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int qj = cg + 16 * j;
-        const float e =
-            (km[i] || Dd[qj] != 0.f) ? 0.f : expf(s[i][j] - Mq[qj]);
-        const float w = e / Lq[qj];
-        const float kp =
-            keep_bit(base, a.q0 + q0 + qj, key, a.thr) ? a.kscale : 0.f;
-        WdT[(rg * 4 + i) * kPad + qj] = w * kp;
-        dST[(rg * 4 + i) * kPad + qj] = w * (kp * dp[i][j] - Dq[qj]);
-      }
-    }
-    __syncthreads();
-#pragma unroll 4
-    for (int qq = 0; qq < kT; ++qq) {  // dv += Wd^T . g, dk += dS^T . q
-      float pa[4], sa[4], gb[DPT], qb[DPT];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        pa[i] = WdT[(rg * 4 + i) * kPad + qq];
-        sa[i] = dST[(rg * 4 + i) * kPad + qq];
-      }
-#pragma unroll
-      for (int t = 0; t < DPT; ++t) {
-        gb[t] = Gt[(cg + 16 * t) * kPad + qq];
-        qb[t] = Qt[(cg + 16 * t) * kPad + qq];
-      }
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int t = 0; t < DPT; ++t) {
-          dva[i][t] = fmaf(pa[i], gb[t], dva[i][t]);
-          dka[i][t] = fmaf(sa[i], qb[t], dka[i][t]);
-        }
-    }
+    __syncthreads();  // ds
+    if (grp == 0)
+      fma_rows_mul<DH, RI, TY, COLS>(acc, Pd, Gt, 0, ty, tx);
+    else
+      fma_rows_mul<DH, RI, TY, COLS>(acc, Ss, Qt, 0, ty, tx);
+    __syncthreads();  // this buffer, Pd and Ss are free
   }
 
+  float* dst = grp == 0 ? a.dv_out : a.dk_out;
+  const float* src = grp == 0 ? a.dv_in : a.dk_in;
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const long long row = (rk + k0 + rg * 4 + i) * DH;
-#pragma unroll
-    for (int t = 0; t < DPT; ++t) {
-      a.dk_out[row + cg + 16 * t] = dka[i][t];
-      a.dv_out[row + cg + 16 * t] = dva[i][t];
-    }
+  for (int i = 0; i < RI; ++i) {
+    const int key = k0 + ty + TY * i;
+    if (key < Nk)
+      add_row<DH, COLS>(dst, src, acc[i], rk + key, 0, tx, km[i]);
   }
 }
 
@@ -424,73 +617,88 @@ bool shape_ok(int B, int H, int Nq, int Nk, int Dh) {
          vs::attn::head_dim_ok(Dh);
 }
 
-
-
-template <typename KV, int DH, bool DROP>
-cudaError_t launch_fwd(const RingArgs& a, int B, cudaStream_t s) {
-  const int bytes = fwd_smem_floats<DH>() * (int)sizeof(float);
-  cudaError_t err =
-      vs::attn::allow_smem(ring_fwd_kernel<KV, DH, DROP>, bytes);
-  if (err != cudaSuccess) return err;
-  ring_fwd_kernel<KV, DH, DROP>
-      <<<dim3(a.Nq / kT, a.H, B), kThreads, bytes, s>>>(a);
-  return cudaGetLastError();
+bool aligned(std::initializer_list<const void*> ptrs) {
+  for (const void* p : ptrs)
+    if (!vs::aligned16(p)) return false;
+  return true;
 }
 
-template <int DH>
-cudaError_t launch_bwd(const RingArgs& a, int B, cudaStream_t s) {
-  const int dq_bytes = dq_smem_floats<DH>() * (int)sizeof(float);
-  const int kv_bytes = dkdv_smem_floats<DH>() * (int)sizeof(float);
-  cudaError_t err = vs::attn::allow_smem(ring_dq_kernel<DH>, dq_bytes);
-  if (err == cudaSuccess)
-    err = vs::attn::allow_smem(ring_dkdv_kernel<DH>, kv_bytes);
-  if (err != cudaSuccess) return err;
-  ring_dq_kernel<DH><<<dim3(a.Nq / kT, a.H, B), kThreads, dq_bytes, s>>>(a);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  ring_dkdv_kernel<DH><<<dim3(a.Nk / kT, a.H, B), kThreads, kv_bytes, s>>>(a);
-  return cudaGetLastError();
-}
-
-// Dispatch on head_dim (16, 32, 64, 96 or 128)
-template <typename KV, bool DROP>
-cudaError_t launch_fwd_dh(const RingArgs& a, int B, int Dh, cudaStream_t s) {
-  switch (Dh) {
-    case 16: return launch_fwd<KV, 16, DROP>(a, B, s);
-    case 32: return launch_fwd<KV, 32, DROP>(a, B, s);
-    case 64: return launch_fwd<KV, 64, DROP>(a, B, s);
-    case 96: return launch_fwd<KV, 96, DROP>(a, B, s);
-    case 128: return launch_fwd<KV, 128, DROP>(a, B, s);
-    default: return cudaErrorInvalidValue;
+// One launch of kernel K (0 forward, 1 dQ, 2 dK/dV) in the CTA shape
+// (TY, RI), or with slots given, the CTAs of that shape an SM holds
+template <int K, int DH, int TY, int RI>
+cudaError_t run(const RingArgs& a, int B, cudaStream_t s, int* slots) {
+  constexpr int ROWS = RI * TY, THREADS = (K == 0 ? 1 : 2) * kTx * TY;
+  void (*kernel)(const RingArgs);
+  int floats, rows;
+  if constexpr (K == 0) {
+    kernel = ring_fwd_kernel<DH, TY, RI>;
+    floats = fwd_floats<DH, TY, RI>() + a.Nk / kT + 1;
+    rows = a.Nq;
+  } else if constexpr (K == 1) {
+    kernel = ring_dq_kernel<DH, TY, RI>;
+    floats = dq_floats<DH, TY, RI>() + a.Nk / kT + 1;
+    rows = a.Nq;
+  } else {
+    kernel = ring_dkdv_kernel<DH, TY, RI>;
+    floats = dkdv_floats<DH, TY, RI>();
+    rows = a.Nk;
   }
+  const int bytes = floats * (int)sizeof(float);
+  cudaError_t err = vs::attn::allow_smem(kernel, bytes);
+  if (err != cudaSuccess) return err;
+  if (slots != nullptr)
+    return cudaOccupancyMaxActiveBlocksPerMultiprocessor(slots, kernel,
+                                                         THREADS, bytes);
+  kernel<<<dim3((rows + ROWS - 1) / ROWS, a.H, B), THREADS, bytes, s>>>(a);
+  return cudaGetLastError();
 }
 
-cudaError_t launch_bwd_dh(const RingArgs& a, int B, int Dh, cudaStream_t s) {
+// The CTA shapes (TY, RI) of every kernel: (16, 8) and (16, 4) at head_dim
+// <= 64; (16, 4) alone at 96 and 128 ((8, 4) was slower at every grid
+// timed), but (8, 4) for dK/dV at 128 (a 16-deep CTA would need 240 KB of
+// shared memory)
+template <int K, int DH>
+cudaError_t run_shape(const RingArgs& a, int B, int depth, int ri,
+                      cudaStream_t s, int* slots) {
+  if constexpr (kFmaRi<DH> == 8) {
+    if (depth == 16 && ri == 8) return run<K, DH, 16, 8>(a, B, s, slots);
+  }
+  if constexpr (K == 2 && DH == 128) {
+    if (depth == 8 && ri == 4) return run<K, DH, 8, 4>(a, B, s, slots);
+  } else {
+    if (depth == 16 && ri == 4) return run<K, DH, 16, 4>(a, B, s, slots);
+  }
+  return cudaErrorInvalidValue;
+}
+
+template <int K>
+cudaError_t launch(const RingArgs& a, int B, int Dh, int depth, int ri,
+                   cudaStream_t s, int* slots = nullptr) {
   switch (Dh) {
-    case 16: return launch_bwd<16>(a, B, s);
-    case 32: return launch_bwd<32>(a, B, s);
-    case 64: return launch_bwd<64>(a, B, s);
-    case 96: return launch_bwd<96>(a, B, s);
-    case 128: return launch_bwd<128>(a, B, s);
+    case 16: return run_shape<K, 16>(a, B, depth, ri, s, slots);
+    case 32: return run_shape<K, 32>(a, B, depth, ri, s, slots);
+    case 64: return run_shape<K, 64>(a, B, depth, ri, s, slots);
+    case 96: return run_shape<K, 96>(a, B, depth, ri, s, slots);
+    case 128: return run_shape<K, 128>(a, B, depth, ri, s, slots);
     default: return cudaErrorInvalidValue;
   }
 }
 
 }  // namespace
 
-// kv_dtype: 0 float, 1 bf16 (ops/_cuda.DTYPE_CODES; dropout takes float
-// only); dropout 0 is _ring_block_kernel, 1 _ring_train_fwd_kernel with the
-// bits of (seed, b0, q0, k0) at threshold thr (0 keeps every weight)
-extern "C" int vs_ring_fwd(const float* q, const void* k, const void* v,
+// One forward step: _ring_block_kernel at thr 0 (rate 0: keep_bit keeps
+// every weight and hashes nothing), _ring_train_fwd_kernel with the bits of
+// (seed, b0, q0, k0) at threshold thr. (depth, ri): the CTA shape (TY, RI).
+extern "C" int vs_ring_fwd(const float* q, const float* k, const float* v,
                            const unsigned char* mask, const float* o_in,
                            const float* m_in, const float* l_in, float* o_out,
                            float* m_out, float* l_out, int B, int H, int Nq,
-                           int Nk, int Dh, int kv_dtype, int dropout,
-                           unsigned seed, int b0, int q0, int k0,
-                           unsigned thr, float kscale, void* stream) {
-  if (!shape_ok(B, H, Nq, Nk, Dh) ||
-      !(kv_dtype == vs::kF32 || (kv_dtype == vs::kBF16 && !dropout)))
-    return (int)cudaErrorInvalidValue;
+                           int Nk, int Dh, int depth, int ri, unsigned seed,
+                           int b0, int q0, int k0, unsigned thr, float kscale,
+                           void* stream) {
+  if (!shape_ok(B, H, Nq, Nk, Dh)) return (int)cudaErrorInvalidValue;
+  if (!aligned({q, k, v, mask, o_in, m_in, l_in, o_out, m_out, l_out}))
+    return (int)cudaErrorMisalignedAddress;
   RingArgs a{};
   a.q = q;
   a.k = k;
@@ -511,28 +719,26 @@ extern "C" int vs_ring_fwd(const float* q, const void* k, const void* v,
   a.b0 = b0;
   a.q0 = q0;
   a.k0 = k0;
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t err;
-  if (dropout)
-    err = launch_fwd_dh<float, true>(a, B, Dh, s);
-  else if (kv_dtype == vs::kF32)
-    err = launch_fwd_dh<float, false>(a, B, Dh, s);
-  else
-    err = launch_fwd_dh<__nv_bfloat16, false>(a, B, Dh, s);
-  return (int)err;
+  return (int)launch<0>(a, B, Dh, depth, ri,
+                        static_cast<cudaStream_t>(stream));
 }
 
-// the backward of one ring step: (dq, dk, dv)_out = (dq, dk, dv)_in + this
-// block's terms
+// The backward of one ring step: (dq, dk, dv)_out = (dq, dk, dv)_in + this
+// block's terms; (depth_q, ri_q) and (depth_k, ri_k): the dQ and dK/dV
+// CTA shapes
 extern "C" int vs_ring_bwd(const float* q, const float* k, const float* v,
                            const float* g, const float* D, const float* m,
                            const float* l, const unsigned char* mask,
                            const float* dq_in, const float* dk_in,
                            const float* dv_in, float* dq_out, float* dk_out,
                            float* dv_out, int B, int H, int Nq, int Nk, int Dh,
-                           unsigned seed, int b0, int q0, int k0,
-                           unsigned thr, float kscale, void* stream) {
+                           int depth_q, int ri_q, int depth_k, int ri_k,
+                           unsigned seed, int b0, int q0, int k0, unsigned thr,
+                           float kscale, void* stream) {
   if (!shape_ok(B, H, Nq, Nk, Dh)) return (int)cudaErrorInvalidValue;
+  if (!aligned({q, k, v, g, D, m, l, mask, dq_in, dk_in, dv_in, dq_out,
+                dk_out, dv_out}))
+    return (int)cudaErrorMisalignedAddress;
   RingArgs a{};
   a.q = q;
   a.k = k;
@@ -558,5 +764,24 @@ extern "C" int vs_ring_bwd(const float* q, const float* k, const float* v,
   a.q0 = q0;
   a.k0 = k0;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return (int)launch_bwd_dh(a, B, Dh, s);
+  const cudaError_t err = launch<1>(a, B, Dh, depth_q, ri_q, s);
+  if (err != cudaSuccess) return (int)err;
+  return (int)launch<2>(a, B, Dh, depth_k, ri_k, s);
+}
+
+// The CTAs of kernel `kernel` (0 forward, 1 dQ, 2 dK/dV) in the shape
+// (depth, ri) that an SM holds at once, for Nk keys, into *slots
+extern "C" int vs_ring_slots(int kernel, int Dh, int depth, int ri, int Nk,
+                             int* slots) {
+  if (!vs::attn::head_dim_ok(Dh) || Nk <= 0 || Nk % kT != 0)
+    return (int)cudaErrorInvalidValue;
+  RingArgs a{};
+  a.Nk = Nk;
+  *slots = 0;
+  switch (kernel) {
+    case 0: return (int)launch<0>(a, 1, Dh, depth, ri, nullptr, slots);
+    case 1: return (int)launch<1>(a, 1, Dh, depth, ri, nullptr, slots);
+    case 2: return (int)launch<2>(a, 1, Dh, depth, ri, nullptr, slots);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }

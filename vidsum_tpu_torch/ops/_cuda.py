@@ -74,8 +74,9 @@ _SIGNATURES = {
     "ring_attention": {
         "vs_ring_fwd": [_vp] * 10 + [_int] * 7 + [_uint] + [_int] * 3
         + [_uint, _f32, _vp],
-        "vs_ring_bwd": [_vp] * 14 + [_int] * 5 + [_uint] + [_int] * 3
-        + [_uint, _f32, _vp]},
+        "vs_ring_bwd": [_vp] * 14 + [_int] * 9 + [_uint] + [_int] * 3
+        + [_uint, _f32, _vp],
+        "vs_ring_slots": [_int] * 5 + [_vp]},
 }
 
 _lock = threading.Lock()

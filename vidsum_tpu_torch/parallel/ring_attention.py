@@ -14,10 +14,12 @@ per-shard tensors, q/k/v (B, H, Nl, Dh) and key masks (B, Nl) bool, True at
 padded keys.
 
 Three TPU kernels fold one block into a carry and map onto
-``csrc/ring_attention.cu`` (all f32, exact FMA, no atomics):
+``csrc/ring_attention.cu`` (all f32, exact FMA in the FMA attention family's
+register tiles, live key tiles only, no atomics):
 
 - ``_ring_block_kernel`` -> :func:`_ring_block_step` (inference; K/V may
-  arrive in bf16 and are widened exactly, as the JAX step upcasts them);
+  arrive in bf16 and are widened exactly to f32 before the launch, as the
+  JAX step upcasts them at its kernel call);
 - ``_ring_train_fwd_kernel`` -> :func:`_ring_train_step` (plus dropout on
   the weights of the output accumulation only, bits at global coordinates);
 - ``_ring_train_bwd_kernel`` -> :func:`_ring_train_step_bwd` (one step of
@@ -25,7 +27,10 @@ Three TPU kernels fold one block into a carry and map onto
   dk += ds^T q, with w = exp(s - m) / l from the saved m and l).
 
 Each wrapper runs its plain PyTorch version on CPU tensors and its kernel on
-CUDA tensors (no fallback), and counts its launches in ``launches``.
+CUDA tensors (no fallback), and counts its launches in ``launches``. A block
+whose keys are all padded leaves the carry (forward) and dq, dk, dv
+(backward) unchanged bit for bit, in the kernels as in the plain steps. The
+kernels' CTA shape is :func:`ring_cta_shape`'s; it moves no bit.
 ``block_impl``: ``"plain"`` (JAX ``"xla"``) takes the plain steps, with
 autograd in training. On CUDA tensors ``"auto"`` and ``"kernel"`` take the
 kernels at every length: they stream K/V in 64-key tiles, so their only
@@ -48,6 +53,7 @@ same mask, and the backward regenerates it instead of storing it.
 
 from __future__ import annotations
 
+import ctypes
 from typing import Optional, Sequence, Tuple
 
 import torch
@@ -169,6 +175,80 @@ def ring_train_step_bwd_reference(q32, kb, vb, g, d, m, l, mb, info: Info,
 
 # ----------------------------------------------------- the kernel launches
 
+RING_KERNELS = ("fwd", "dq", "dkdv")  # vs_ring_slots's kernel codes
+
+
+def ring_shapes(kernel: str, Dh: int) -> list:
+    """The CTA shapes (depth TY, rows a thread RI) ring kernel ``kernel``
+    (``"fwd"``, ``"dq"`` or ``"dkdv"``) is built in at kernel head_dim Dh,
+    in order of preference: a CTA holds TY * RI rows (queries; keys in
+    dK/dV) in 8 TY threads (twice that in the backward's two groups).
+    (16, 8) and (16, 4) at head_dim <= 64; (16, 4) alone past it, but
+    (8, 4) for dK/dV at head_dim 128 ((16, 4) would need 240 KB of shared
+    memory). Every shape gives the same bits."""
+    if kernel not in RING_KERNELS:
+        raise ValueError(f"no ring kernel {kernel!r}")
+    if Dh <= 64:
+        return [(16, 8), (16, 4)]
+    return [(8, 4)] if kernel == "dkdv" and Dh >= 128 else [(16, 4)]
+
+
+def ring_cta_shape(kernel: str, B: int, H: int, N: int, Dh: int, sms: int,
+                   slots) -> tuple:
+    """The CTA shape (TY, RI) of ring kernel ``kernel`` over N rows
+    (queries; keys for dK/dV) of B * H heads at kernel head_dim Dh on a card
+    of ``sms`` SMs, where ``slots(TY, RI)`` is how many CTAs of that shape
+    an SM holds at once: of :func:`ring_shapes`, the one whose grid ends
+    soonest if every SM runs its slots at one rate, ceil(CTAs / (slots *
+    sms)) waves of slots * rows rows an SM; ties go to the earlier shape
+    (the taller tile: more FMAs a shared-memory read). A shape of no slot
+    (its shared memory past the card's) is not taken. On an H100 this picks
+    (16, 4), 64-row CTAs three an SM, for kernel 15 at 4,096 rows a head
+    and (16, 8) for 16 at (4, 4, 2,048), the faster shape at every grid
+    timed (PERF.md, PR 13)."""
+    shapes = ring_shapes(kernel, Dh)
+    if len(shapes) == 1:
+        return shapes[0]
+    best = (None, shapes[0])  # no shape fits: its launch reports the error
+    for ty, ri in shapes:
+        s = slots(ty, ri)
+        if s < 1:
+            continue
+        rows = ty * ri
+        ctas = -(-N // rows) * B * H
+        cost = -(-ctas // (s * sms)) * s * rows
+        if best[0] is None or cost < best[0]:
+            best = (cost, (ty, ri))
+    return best[1]
+
+
+_slots_cache: dict = {}
+
+
+def _card_slots(kernel: str, Dh: int, Nk: int):
+    """``slots(TY, RI)`` of ring kernel ``kernel`` on the current card (the
+    CUDA occupancy calculator, through the library; cached)."""
+    lib = _cuda.load("ring_attention")
+
+    def slots(ty: int, ri: int) -> int:
+        key = (kernel, Dh, ty, ri, Nk)
+        if key not in _slots_cache:
+            out = ctypes.c_int(0)
+            err = lib.vs_ring_slots(RING_KERNELS.index(kernel), Dh, ty, ri,
+                                    Nk, ctypes.byref(out))
+            _cuda.check(lib, err, "ring_attention occupancy")
+            _slots_cache[key] = out.value
+        return _slots_cache[key]
+
+    return slots
+
+
+def _shape(kernel: str, B: int, H: int, Nq: int, Nk: int, Dh: int,
+           device) -> tuple:
+    return ring_cta_shape(kernel, B, H, Nk if kernel == "dkdv" else Nq, Dh,
+                          _cuda.sm_count(device), _card_slots(kernel, Dh, Nk))
+
+
 def _cuda_inputs(q32, kb, vb, mb, kv_dtypes):
     """q, k, v as the kernels take them (contiguous, zero-padded along
     head_dim to ``_cuda.kernel_head_dim``), the key mask as bytes, and B,
@@ -191,18 +271,20 @@ def _cuda_inputs(q32, kb, vb, mb, kv_dtypes):
     if mask8.shape != (B, Nk):
         raise ValueError(f"the key mask must be {(B, Nk)}, got "
                          f"{tuple(mask8.shape)}")
-    return (*(_cuda.pad_head_dim(t, Dp).contiguous() for t in (q32, kb, vb)),
-            mask8, B, H, Nq, Nk, Dp)
+    # bf16 K/V widen here: the kernels stream f32 tiles by 16-byte copies
+    return (*(_cuda.aligned16(_cuda.pad_head_dim(t.float(), Dp).contiguous())
+              for t in (q32, kb, vb)),
+            _cuda.aligned16(mask8), B, H, Nq, Nk, Dp)
 
 
 def _carry(t, shape):
-    """A carry as the kernels take it: f32, contiguous, its last dim
-    zero-padded to ``shape``'s (the padded head_dim; zero columns stay
-    zero through every step)."""
+    """A carry as the kernels take it: f32, contiguous, on 16 bytes, its
+    last dim zero-padded to ``shape``'s (the padded head_dim; zero columns
+    stay zero through every step)."""
     t = t.float()
     if t.shape[:-1] != shape[:-1] or not 0 < t.shape[-1] <= shape[-1]:
         raise ValueError(f"carry of shape {tuple(t.shape)}, expected {shape}")
-    return _cuda.pad_head_dim(t, shape[-1]).contiguous()
+    return _cuda.aligned16(_cuda.pad_head_dim(t, shape[-1]).contiguous())
 
 
 def _launch_fwd(q32, kb, vb, mb, o, m, l, info: Optional[Info], rate: float):
@@ -222,13 +304,13 @@ def _launch_fwd(q32, kb, vb, mb, o, m, l, info: Optional[Info], rate: float):
     seed, b0, q0, k0 = info if info is not None else (0, 0, 0, 0)
     lib = _cuda.load("ring_attention")
     with torch.cuda.device(q32.device):  # a shard may sit on another card
+        shape = _shape("fwd", B, H, Nq, Nk, Dp, q32.device)
         err = lib.vs_ring_fwd(
             _cuda.ptr(q32), _cuda.ptr(kb), _cuda.ptr(vb), _cuda.ptr(mask8),
             _cuda.ptr(o), _cuda.ptr(m), _cuda.ptr(l), _cuda.ptr(o_out),
-            _cuda.ptr(m_out), _cuda.ptr(l_out), B, H, Nq, Nk, Dp,
-            _cuda.dtype_code(kb), int(info is not None), int(seed), int(b0),
-            int(q0), int(k0), _threshold(rate), _keep_scale(rate),
-            _cuda.stream_of(q32))
+            _cuda.ptr(m_out), _cuda.ptr(l_out), B, H, Nq, Nk, Dp, *shape,
+            int(seed), int(b0), int(q0), int(k0), _threshold(rate),
+            _keep_scale(rate), _cuda.stream_of(q32))
     _cuda.check(lib, err, "ring_attention forward step")
     if Dp != Dh:
         o_out = o_out[..., :Dh].contiguous()
@@ -251,13 +333,15 @@ def _launch_bwd(q32, kb, vb, g, d, m, l, mb, info: Info, dq, dk, dv,
     seed, b0, q0, k0 = info
     lib = _cuda.load("ring_attention")
     with torch.cuda.device(q32.device):
+        sq, sk = (_shape(k, B, H, Nq, Nk, Dp, q32.device)
+                  for k in ("dq", "dkdv"))
         err = lib.vs_ring_bwd(
             _cuda.ptr(q32), _cuda.ptr(kb), _cuda.ptr(vb), _cuda.ptr(g),
             _cuda.ptr(d), _cuda.ptr(m), _cuda.ptr(l), _cuda.ptr(mask8),
             _cuda.ptr(dq), _cuda.ptr(dk), _cuda.ptr(dv), _cuda.ptr(dq_out),
             _cuda.ptr(dk_out), _cuda.ptr(dv_out), B, H, Nq, Nk, Dp,
-            int(seed), int(b0), int(q0), int(k0), _threshold(rate),
-            _keep_scale(rate), _cuda.stream_of(q32))
+            *sq, *sk, int(seed), int(b0), int(q0), int(k0),
+            _threshold(rate), _keep_scale(rate), _cuda.stream_of(q32))
     _cuda.check(lib, err, "ring_attention backward step")
     if Dp == Dh:
         return dq_out, dk_out, dv_out
@@ -381,6 +465,11 @@ def ring_attention(qs: Sequence[torch.Tensor], ks: Sequence[torch.Tensor],
     Nl, Dh = qs[0].shape[2:]
     devs = [q.device for q in qs]
     kb, vb, mb = list(ks), list(vs), _masks(qs, pms)
+    if len(set(devs)) == 1:
+        # on one device the rotation is a re-index: widen K/V once here
+        # rather than in each of the P x P steps (exact either way); across
+        # devices the blocks travel in their own dtype and each step widens
+        kb, vb = [k.float() for k in kb], [v.float() for v in vb]
     q32 = [q.float() * scale for q in qs]
     # itemsize 4: the step kernel widens K/V to f32 whatever the wire dtype
     step = (_ring_block_step
