@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's serving (bf16 and int8, direct, over HTTP
-and on a device mesh), finetune, long-video finetune and sequence-parallel
-finetune paths on one NVIDIA GPU.
+and on a device mesh), finetune, the finetune protocol (``cli.train``,
+checkpoints, ``cli.serve --ckpt``), long-video finetune and
+sequence-parallel finetune paths on one NVIDIA GPU.
 
     python3 chip_smoke.py [--seed 0]
 
@@ -217,6 +218,30 @@ caught and passed over):
    5/6): each step launches both once per layer, with D from the
    forward's o (no first pass), and nothing else of the training
    kernels; step ms and a profile of one step.
+7b. finetune: the finetune protocol through its entry points at the
+   recipe's width (d 256, 4 heads, 4 layers, dropout 0.3, f32, batch 4),
+   on 20 numpy-made videos in the DSNet schema (``video_1`` ...
+   ``video_20``: 12 of 100-380 frames, 8 of 520-1,100) that a stand-in for
+   ``train.finetune.fold_datasets`` serves in place of the h5 files (the
+   card's machine has no h5py). (1) ``cli.train.main`` with a split file
+   of 2 folds (16 train / 4 val keys each), 3 epochs, ``--metrics`` and
+   ``--profile_dir``: the printed F in [0, 100] and finite tau/rho, 6
+   metric records and the final one, ``model_mae.ckpt``,
+   ``train_state.ckpt`` and ``summary.json`` written, the trace naming
+   ``bt_gemm_kernel`` and an FMA attention kernel, all four block training
+   counters and a serving block counter moved (counters zeroed just
+   before), the training attention ones not. (2) Exact resume: fold 0
+   three epochs straight and two then ``resume=True`` to three through
+   ``train.finetune.finetune``: both checkpoint files bit-equal (parameters
+   and Adam moments) and the epoch-2 metric records equal but ``ts``. (3)
+   ``cli.serve``'s ``load_model`` and ``make_service`` from ``--ckpt`` on
+   step 1's ``model_mae.ckpt`` score the last fold's 4 val videos (with
+   their shots) bit-equal to a service over the trained model, with equal
+   picks. The line gives the epoch and fold walls, each epoch's train, val
+   and checkpoint-copy seconds (host clocks around the loop's stages) and
+   their median shares, the checkpoint writes' seconds on the writer's
+   thread, ``count_params``, the counters and the checks, beside the card
+   and its power limit.
 8. long train: (b) the ``"flash"`` route on one 8,100-frame video (bucket
    8,192, f32: the folded route, TPU kernels 7/8), card against CPU as in
    (a); (c) with the counters zeroed before each, 5 recipe epochs on the
@@ -2705,6 +2730,313 @@ def hold_folded_at_bucket(cfg, batch_shapes, lengths, rng) -> dict:
     return out
 
 
+# the fold loop's protocol (phase 7b): 2 folds of 16 train / 4 val videos
+FT_FOLDS = 2
+FT_EPOCHS = 3
+FT_KEY = "eccv16_dataset_tvsum_google_pool5.h5/"
+
+
+def finetune_videos(rng, in_features: int) -> dict:
+    """20 videos named video_1 ... video_20 in the DSNet schema
+    (``synthetic_videos``): 12 of 100-380 frames and 8 of 520-1,100 in a
+    shuffled order, so that batches of 4 fall on both fused-block training
+    routes (grouped below a 512 bucket, per-element from it)."""
+    import dataclasses
+
+    import numpy as np
+
+    lengths = np.concatenate([rng.integers(100, 381, 12),
+                              rng.integers(520, 1101, 8)])
+    rng.shuffle(lengths)
+    return {f"video_{i + 1}": (f, t, dataclasses.replace(
+        u, name=f"video_{i + 1}"))
+        for i, (f, t, u) in enumerate(synthetic_videos(rng, lengths,
+                                                       in_features))}
+
+
+def memory_fold_datasets(videos: dict):
+    """A stand-in for ``train.finetune.fold_datasets`` serving ``videos``
+    (the card's machine has no h5py): a fold's train items ``(features,
+    gtscore)`` past ``min_train_frames`` and val items ``(features, gtscore,
+    UserSummaries)``, by the split's keys as ``TSDataset`` reads them."""
+    from vidsum_tpu_torch.data.splits import split_keys_to_names
+
+    def fold_datasets(cfg, split):
+        train = [videos[n][:2]
+                 for n in split_keys_to_names(split["train_keys"])
+                 if videos[n][0].shape[0] > cfg.data.min_train_frames]
+        val = [videos[n] for n in split_keys_to_names(split["test_keys"])]
+        return train, val
+
+    return fold_datasets
+
+
+class FoldLoopClock:
+    """Host clocks on the stages of ``train.finetune.finetune``, wrapped in
+    place (module attributes) while the ``with`` block runs: the fold's data
+    (``fold_datasets``), each epoch's ``_train_epoch`` and ``_val_epoch``
+    (both end on a host fetch, so they include their device time) and,
+    inside them, the batches' collation (``pad_batch``) and the val pass's
+    summaries and metrics on the host (``eval_metrics``), the checkpoint
+    copy to the host on the caller thread (``host_snapshot``) and each
+    checkpoint write on the checkpointer's thread
+    (``train.checkpoint._write``). Also keeps every model the loop trains
+    (by ``make_optimizer``)."""
+
+    def __init__(self, fold_datasets) -> None:
+        from vidsum_tpu_torch.train import checkpoint as ck
+        from vidsum_tpu_torch.train import finetune as ft
+
+        self.events, self.models, self._saved = [], [], []
+        self._targets = [(ft, "fold_datasets", "fold", fold_datasets),
+                         (ft, "_train_epoch", "train", None),
+                         (ft, "_val_epoch", "val", None),
+                         (ft, "pad_batch", "collate", None),
+                         (ft, "eval_metrics", "metrics", None),
+                         (ft, "host_snapshot", "fetch", None),
+                         (ck, "_write", "write", None)]
+        self._ft = ft
+
+    def _timed(self, stage, fn):
+        def run(*args, **kw):
+            t0 = time.perf_counter()
+            try:
+                return fn(*args, **kw)
+            finally:
+                self.events.append((stage, t0, time.perf_counter()))
+        return run
+
+    def __enter__(self) -> "FoldLoopClock":
+        for mod, name, stage, fn in self._targets:
+            self._saved.append((mod, name, getattr(mod, name)))
+            setattr(mod, name, self._timed(stage, fn or getattr(mod, name)))
+        make_optimizer = self._ft.make_optimizer
+        self._saved.append((self._ft, "make_optimizer", make_optimizer))
+
+        def recording(model, *args):
+            self.models.append(model)
+            return make_optimizer(model, *args)
+
+        self._ft.make_optimizer = recording
+        return self
+
+    def __exit__(self, *exc) -> None:
+        for mod, name, fn in reversed(self._saved):
+            setattr(mod, name, fn)
+        self._saved = []
+
+    def summary(self) -> dict:
+        """Per epoch: the wall from its train pass to the end of its last
+        checkpoint copy, and the train / val / copy seconds in it (the rest,
+        ``other_s``, is metric logging and queueing the writes), with the
+        collation seconds inside train and val and the host metrics' inside
+        val; per fold: the wall from reading its data (the summary export
+        included) to its last epoch's end; the medians of the four shares;
+        the writes' seconds."""
+        import statistics
+
+        epochs, folds = [], []
+        for stage, t0, t1 in sorted((e for e in self.events
+                                     if e[0] != "write"),
+                                    key=lambda e: e[1]):
+            if stage == "fold":
+                folds.append([t0, t1])
+                continue
+            if stage == "train":
+                epochs.append({"start": t0, "end": t1, "train_s": 0.0,
+                               "val_s": 0.0, "fetch_s": 0.0,
+                               "collate_s": 0.0, "metrics_s": 0.0})
+            epochs[-1][stage + "_s"] += t1 - t0
+            epochs[-1]["end"] = max(epochs[-1]["end"], t1)
+            if folds:
+                folds[-1][1] = max(folds[-1][1], epochs[-1]["end"])
+        for e in epochs:
+            e["wall_s"] = e.pop("end") - e.pop("start")
+            e["other_s"] = e["wall_s"] - e["train_s"] - e["val_s"] - e[
+                "fetch_s"]
+        shares = {k: statistics.median(e[k + "_s"] / e["wall_s"]
+                                       for e in epochs)
+                  for k in ("train", "val", "fetch", "other")}
+        return {"epochs": epochs, "fold_wall_s": [b - a for a, b in folds],
+                "median_share": shares,
+                "write_s": [t1 - t0 for s, t0, t1 in self.events
+                            if s == "write"]}
+
+
+def trace_kernel_names(trace_dir: str) -> dict:
+    """Whether the Chrome trace in ``trace_dir`` names the training block's
+    GEMM and its f32 FMA attention kernels."""
+    import re
+
+    with open(os.path.join(trace_dir, "trace.json")) as f:
+        text = f.read()
+    return {"bt_gemm_kernel": "bt_gemm_kernel" in text,
+            "fma_attention": sorted(set(re.findall(
+                r"fma_(?:fwd|dq|dkdv)_kernel", text)))}
+
+
+def phase_finetune(dev: dict, seed: int) -> None:
+    """7b. The finetune protocol through its entry points at the recipe's
+    width (module docstring, phase 7b)."""
+    import contextlib
+    import dataclasses
+    import io
+    import math
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from vidsum_tpu_torch.cli import serve as serve_cli
+    from vidsum_tpu_torch.cli import train as train_cli
+    from vidsum_tpu_torch.config import ModelConfig, finetune_recipe
+    from vidsum_tpu_torch.models.simnet import count_params
+    from vidsum_tpu_torch.train import finetune as ft
+    from vidsum_tpu_torch.train.checkpoint import load_checkpoint
+
+    conf = finetune_recipe()
+    rng = np.random.default_rng(seed + 14)
+    videos = finetune_videos(rng, conf.model.in_features)
+    names = list(videos)
+    order = rng.permutation(len(names))
+    folds = []
+    for k in range(FT_FOLDS):
+        test = [names[i] for i in order[4 * k:4 * k + 4]]
+        folds.append({"train_keys": [FT_KEY + n for n in names
+                                     if n not in test],
+                      "test_keys": [FT_KEY + n for n in test]})
+    fold_datasets = memory_fold_datasets(videos)
+
+    with tempfile.TemporaryDirectory() as tmp:
+        # 1. the protocol through the CLI (the recipe is its defaults)
+        wd, data = os.path.join(tmp, "run"), os.path.join(tmp, "data")
+        os.makedirs(data)
+        split_path = os.path.join(tmp, "splits.json")
+        with open(split_path, "w") as f:
+            json.dump(folds, f)
+        argv = ["--data", data, "--split_path", split_path, "--max_epoch",
+                str(FT_EPOCHS), "--workdir", wd,
+                "--metrics", os.path.join(wd, "metrics.jsonl"),
+                "--profile_dir", os.path.join(tmp, "trace")]
+        out = io.StringIO()
+        reset_counters()
+        t0 = time.monotonic()
+        with FoldLoopClock(fold_datasets) as clock, \
+                contextlib.redirect_stdout(out):
+            train_cli.main(argv)
+        torch.cuda.synchronize()
+        cli_wall = time.monotonic() - t0
+        counts = read_counters()
+        printed = json.loads(out.getvalue().strip().splitlines()[-1])
+        if not (0.0 <= printed["fscore"] <= 100.0
+                and math.isfinite(printed["kendall_tau"])
+                and math.isfinite(printed["spearman_rho"])):
+            raise AssertionError(f"cli.train printed {printed}")
+        with open(os.path.join(wd, "metrics.jsonl")) as f:
+            records = [json.loads(line) for line in f]
+        if ([(r.get("split"), r.get("epoch")) for r in records]
+                != [(s, e) for s in range(FT_FOLDS)
+                    for e in range(FT_EPOCHS)] + [(None, None)]):
+            raise AssertionError(f"metric records: {records}")
+        files = {n: os.path.exists(os.path.join(wd, n)) for n in (
+            "model_mae.ckpt", "train_state.ckpt", "summary.json")}
+        if not all(files.values()):
+            raise AssertionError(f"files written: {files}")
+        traced = trace_kernel_names(os.path.join(tmp, "trace"))
+        if not (traced["bt_gemm_kernel"] and traced["fma_attention"]):
+            raise AssertionError(f"the trace names {traced}")
+        missing = [r for r in TRAIN_ROUTES if counts[r] == 0]
+        serving = {r: counts[r] for r in SERVE_ROUTES}
+        attn_train = {attn_train_name(r): counts[attn_train_name(r)]
+                      for r in ATTN_TRAIN_ROUTES}
+        if missing or not any(serving.values()) or any(attn_train.values()):
+            raise AssertionError(
+                f"training routes never launched: {missing}; serving "
+                f"routes {serving}; training attention {attn_train} (must "
+                f"stay 0: every bucket fits the fused block)")
+        check_no_gemm_fallback("the finetune protocol")
+        timeline = clock.summary()
+
+        # 2. exact resume: fold 0 three epochs straight, and two + one
+        one = folds[:1]
+        tc = dataclasses.replace(conf.train, use_pretrained=False)
+        runs = {"straight": (FT_EPOCHS,), "resumed": (FT_EPOCHS - 1,
+                                                      FT_EPOCHS)}
+        resume_walls = {}
+        with FoldLoopClock(fold_datasets) as clock2:
+            for run, epochs in runs.items():
+                rd = os.path.join(tmp, run)
+                t0 = time.monotonic()
+                for i, n in enumerate(epochs):
+                    ft.finetune(dataclasses.replace(conf, train=dataclasses
+                                                    .replace(tc, max_epoch=n)),
+                                one, workdir=rd, export_summary=False,
+                                resume=i > 0,
+                                metrics_path=os.path.join(rd, "m.jsonl"))
+                resume_walls[run] = time.monotonic() - t0
+        trees = {}
+        for run in runs:
+            rd = os.path.join(tmp, run)
+            trees[run] = {n: load_checkpoint(os.path.join(rd, n))[0]
+                          for n in ("model_mae.ckpt", "train_state.ckpt")}
+            with open(os.path.join(rd, "m.jsonl")) as f:
+                trees[run]["epoch_2"] = [
+                    {k: v for k, v in r.items() if k != "ts"}
+                    for r in map(json.loads, f) if r.get("epoch") == 2]
+        a, b = trees["straight"], trees["resumed"]
+        bad = [k for k, v in a["model_mae.ckpt"].items()
+               if not torch.equal(v, b["model_mae.ckpt"][k])]
+        sa, sb = (t["train_state.ckpt"]["opt_state"]["state"]
+                  for t in (a, b))
+        bad += [f"adam {i}.{k}" for i in sa for k in sa[i]
+                if not torch.equal(sa[i][k], sb[i][k])]
+        if bad or a["epoch_2"] != b["epoch_2"] or len(a["epoch_2"]) != 1:
+            raise AssertionError(
+                f"resume is not exact: tensors {bad[:8]}; epoch-2 records "
+                f"{a['epoch_2']} / {b['epoch_2']}")
+
+        # 3. serve the CLI run's checkpoint: cli.serve's model and service
+        args = serve_cli.build_parser().parse_args(
+            ["--ckpt", os.path.join(wd, "model_mae.ckpt")])
+        scfg = ModelConfig(d_model=args.d_model, num_heads=args.num_heads,
+                           num_layers=args.num_layers)
+        served = []
+        val = [videos[n] for n in
+               (k.split("/")[-1] for k in folds[-1]["test_keys"])]
+        for model in (clock.models[-1], serve_cli.load_model(args, scfg)):
+            with serve_cli.make_service(args, scfg, model) as svc:
+                futs = [svc.submit(f, picks=u.picks, n_frames=u.n_frames,
+                                   change_points=u.change_points)
+                        for f, _, u in val]
+                served.append([fu.result(timeout=300) for fu in futs])
+        for r_mem, r_ckpt in zip(*served):
+            if not (np.array_equal(r_mem.scores, r_ckpt.scores)
+                    and np.array_equal(r_mem.summary, r_ckpt.summary)):
+                raise AssertionError("the --ckpt service disagrees with the "
+                                     "trained model's")
+
+    epochs = [{k: round(v, 6) for k, v in e.items()}
+              for e in timeline["epochs"]]
+    emit("finetune", card=dev["smi"],
+         data=("numpy-made videos in the DSNet schema (synthetic_videos), "
+               "served by a stand-in for train.finetune.fold_datasets (no "
+               "h5 file is read)"),
+         lengths={n: int(v[0].shape[0]) for n, v in videos.items()},
+         folds=[[k.split("/")[-1] for k in f["test_keys"]] for f in folds],
+         cli_argv=argv[2:], cli_wall_s=cli_wall, printed=printed,
+         metric_records=len(records), files=files, trace=traced,
+         launches=counts, epochs=epochs, fold_wall_s=timeline["fold_wall_s"],
+         median_share=timeline["median_share"],
+         ckpt_fetch_s=[e["fetch_s"] for e in epochs],
+         ckpt_write_s=timeline["write_s"],
+         resume_epochs=[{k: round(v, 6) for k, v in e.items()}
+                        for e in clock2.summary()["epochs"]],
+         resume_wall_s=resume_walls,
+         count_params=count_params(clock.models[-1]),
+         resume_bit_equal=True, resume_epoch_2_records_equal=True,
+         ckpt_service_bit_equal=True, ckpt_service_picks_equal=True)
+
+
 def phase_long_train(seed: int) -> dict:
     """Finetuning on videos past the block-train envelope (N > 7,936 at
     d 256): (b) the flash route on one 8,100-frame video (bucket 8,192; f32
@@ -4160,6 +4492,7 @@ def main() -> int:
     counts.update(probe_launches)
     counts.update({r: n for r, n in phase_train(args.seed).items()
                    if r in TRAIN_ROUTES or r.endswith(".f32")})
+    phase_finetune(dev, args.seed)
     long_launches, long_videos, bucket_err = phase_long_train(args.seed)
     counts.update(long_launches)
     # the bf16 fold's max_abs_err: the larger of its two checks, at

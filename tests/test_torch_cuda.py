@@ -1875,3 +1875,87 @@ def test_ring_past_the_tpu_envelope_takes_the_kernels(cuda):
     q32 = torch.randn(1, 1, 256, 160, generator=g).to(cuda)
     with pytest.raises(ValueError, match="head_dim"):
         ra.ring_attention(split(q32), split(q32), split(q32), None, 0.1)
+
+
+def _fold_items(n_videos, in_features, seed):
+    """In-memory finetune items in the DSNet schema (the fold loop's
+    ``fold_datasets`` reads h5 files; the card's machine has no h5py)."""
+    from vidsum_tpu_torch.data.datasets import UserSummaries
+
+    rng = np.random.default_rng(seed)
+    items = {}
+    for vi in range(n_videos):
+        n = int(rng.integers(60, 300))
+        picks = np.arange(n) * 15
+        n_frames = int(picks[-1] + 8)
+        feats = rng.normal(size=(n, in_features)).astype(np.float32)
+        gt = rng.random(n).astype(np.float32)
+        cuts = np.sort(rng.choice(np.arange(1, n_frames), 5, replace=False))
+        bounds = np.concatenate([[0], cuts, [n_frames]])
+        cps = np.stack([bounds[:-1], bounds[1:] - 1], axis=1)
+        users = (rng.random((3, n_frames)) < 0.15).astype(np.int8)
+        items[f"video_{vi}"] = (feats, gt, UserSummaries(
+            user_summary=users, user_scores=rng.random((3, n_frames)),
+            change_points=cps, n_frames=n_frames, picks=picks,
+            name=f"video_{vi}"))
+    return items
+
+
+def test_finetune_resume_and_ckpt_service_on_the_card(cuda, monkeypatch,
+                                                      tmp_path):
+    """``finetune()`` on the card (the training block kernels, the f32
+    serving chain in the val pass): two epochs and a resume to three give
+    the bits of three straight epochs in model_mae.ckpt; ``cli.serve``'s
+    ``load_model`` on that file serves the trained model's scores bit for
+    bit."""
+    from vidsum_tpu_torch.cli import serve as serve_cli
+    from vidsum_tpu_torch.config import Config, TrainConfig
+    from vidsum_tpu_torch.ops import block_train as bt
+    from vidsum_tpu_torch.serve import ScoringService
+    from vidsum_tpu_torch.train import checkpoint as ck
+    from vidsum_tpu_torch.train import finetune as ft
+
+    cfg = ModelConfig(in_features=64, d_model=64, num_heads=2, num_layers=2,
+                      dropout=0.3)
+    items = _fold_items(10, cfg.in_features, 5)
+    split = {"train_keys": [f"x.h5/video_{i}" for i in range(8)],
+             "test_keys": ["x.h5/video_8", "x.h5/video_9"]}
+    monkeypatch.setattr(ft, "fold_datasets", lambda c, s: (
+        [items[k.split("/")[-1]][:2] for k in s["train_keys"]],
+        [items[k.split("/")[-1]] for k in s["test_keys"]]))
+    models = []
+    real = ft.make_optimizer
+
+    def recording(model, *args):
+        models.append(model)
+        return real(model, *args)
+
+    monkeypatch.setattr(ft, "make_optimizer", recording)
+
+    def conf(epochs):
+        return Config(model=cfg, train=TrainConfig(batch_size=4,
+                                                   max_epoch=epochs))
+
+    bt._fwd_kernel_grouped.launches = 0
+    a, b = str(tmp_path / "a"), str(tmp_path / "b")
+    ft.finetune(conf(3), [split], workdir=a, export_summary=False)
+    ft.finetune(conf(2), [split], workdir=b, export_summary=False)
+    ft.finetune(conf(3), [split], workdir=b, export_summary=False,
+                resume=True)
+    assert bt._fwd_kernel_grouped.launches > 0
+    sa, _ = ck.load_checkpoint(f"{a}/model_mae.ckpt")
+    sb, _ = ck.load_checkpoint(f"{b}/model_mae.ckpt")
+    for k in sa:
+        assert torch.equal(sa[k], sb[k]), k
+
+    args = serve_cli.build_parser().parse_args(["--ckpt",
+                                                f"{a}/model_mae.ckpt"])
+    loaded = serve_cli.load_model(args, cfg)
+    feats = [items["video_8"][0], items["video_9"][0]]
+    scores = []
+    for m in (models[0], loaded):
+        with ScoringService(m, cfg, max_delay_ms=0.0) as svc:
+            scores.append([svc.submit(f).result(timeout=120).scores
+                           for f in feats])
+    for x, y in zip(*scores):
+        np.testing.assert_array_equal(x, y)

@@ -14,6 +14,7 @@ import urllib.request
 import jax
 import numpy as np
 import pytest
+import torch
 
 from vidsum_tpu.cli import serve as jax_cli
 from vidsum_tpu.config import ModelConfig as JaxModelConfig
@@ -167,14 +168,45 @@ def test_cli_parser_matches_jax():
 
 
 @pytest.mark.parametrize("argv,match", [
-    (["--ckpt", "model.ckpt"], "checkpoint module"),
     (["--devices", "2"], "multi-GPU slice"),
-    (["--recycle_after_mb", "4000"], "slice 5"),
-    (["--recycle_after_requests", "100"], "slice 5"),
+    (["--recycle_after_mb", "4000"], "later slice"),
+    (["--recycle_after_requests", "100"], "later slice"),
 ])
 def test_cli_later_slices_raise(argv, match):
     with pytest.raises(NotImplementedError, match=match):
         cli.main(argv)
+
+
+@pytest.mark.parametrize("fmt", ["flax", "torch"])
+def test_cli_load_model_reads_both_checkpoint_formats(tmp_path, model, fmt):
+    """``--ckpt`` takes the JAX package's msgpack file and the port's
+    torch.save file of the same weights to the same state_dict, and the
+    CLI's service over it scores as one over the original model; without a
+    checkpoint the model keeps its seeded random weights."""
+    from vidsum_tpu.train import save_checkpoint as jax_save_checkpoint
+    from vidsum_tpu_torch.models.convert import params_to_jax
+    from vidsum_tpu_torch.train.checkpoint import save_checkpoint
+
+    path = str(tmp_path / "model_mae.ckpt")
+    if fmt == "flax":
+        jax_save_checkpoint(path, params_to_jax(model.state_dict()))
+    else:
+        save_checkpoint(path, model.state_dict(), meta={"epoch": 0})
+    args = cli.build_parser().parse_args(["--ckpt", path])
+    loaded = cli.load_model(args, CFG, device="cpu")
+    for k, v in model.state_dict().items():
+        assert torch.equal(loaded.state_dict()[k], v), k
+    feats = np.random.default_rng(2).normal(size=(200, KW["in_features"]))
+    scores = []
+    for m in (model, loaded):
+        with cli.make_service(args, CFG, m, device="cpu") as svc:
+            scores.append(svc.submit(feats.astype(np.float32)).result(
+                timeout=60).scores)
+    np.testing.assert_array_equal(*scores)
+    fresh = cli.load_model(cli.build_parser().parse_args([]), CFG,
+                           device="cpu")
+    assert not torch.equal(fresh.final_layer.weight,
+                           model.final_layer.weight)
 
 
 def test_cli_runs_on_the_card_only(tmp_path, model):

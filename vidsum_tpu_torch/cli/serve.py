@@ -1,20 +1,23 @@
-# ported from vidsum_tpu/cli/serve.py (one card; the msgpack checkpoint,
-# multi-GPU serving and the recycling supervisor arrive with later slices)
+# ported from vidsum_tpu/cli/serve.py (one card; multi-GPU serving and the
+# recycling supervisor arrive with later slices)
 """Serving CLI: a micro-batching scoring service behind a local HTTP API.
 
 Usage:
-    python -m vidsum_tpu_torch.cli.serve --torch_ckpt model_mae.pth \
+    python -m vidsum_tpu_torch.cli.serve --ckpt model_mae.ckpt \
         --port 8080 [--max_batch 8] [--max_delay_ms 3] \
         [--attn int8_block --wire_dtype int8]
 
 Clients POST ``.npz`` feature payloads to ``/summarize`` (see
 ``vidsum_tpu_torch/serve_http.py`` for the protocol). The service runs on
-the CUDA card. The flags and their defaults are the JAX package's; three
-of its options arrive with later slices and raise ``NotImplementedError``
-naming them: ``--ckpt`` (the JAX package's msgpack checkpoint, whose reader
-comes with the checkpoint module, slice 5), ``--devices`` > 1 (the
-multi-GPU slice) and the worker-recycling supervisor
-(``--recycle_after_mb`` / ``--recycle_after_requests``, slice 5).
+the CUDA card (head_dim = d_model / num_heads at most 128, d_model at most
+1,024 there). ``--ckpt`` takes a model checkpoint of either package (the
+port's ``torch.save`` file, as ``cli.train`` writes it, or the JAX
+package's msgpack file), ``--torch_ckpt`` a reference-trained ``.pth``. The
+flags and their defaults are the JAX package's; two of its options arrive
+with later slices and raise ``NotImplementedError`` naming them:
+``--devices`` > 1 (the multi-GPU slice) and the worker-recycling supervisor
+(``--recycle_after_mb`` / ``--recycle_after_requests``, a later slice:
+ROADMAP Queue A).
 """
 
 from __future__ import annotations
@@ -27,12 +30,15 @@ import time
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser("vidsum_tpu_torch serve")
     p.add_argument("--ckpt", default=None,
-                   help="vidsum_tpu scorer checkpoint (msgpack; arrives "
-                        "with the checkpoint module)")
+                   help="model checkpoint of either package (the port's "
+                        "torch.save file or the JAX package's msgpack)")
     p.add_argument("--torch_ckpt", default=None,
                    help="reference-trained SimNet .pth (loaded as is)")
-    p.add_argument("--d_model", type=int, default=256)
-    p.add_argument("--num_heads", type=int, default=4)
+    p.add_argument("--d_model", type=int, default=256,
+                   help="model width (at most 1,024 on the CUDA card)")
+    p.add_argument("--num_heads", type=int, default=4,
+                   help="attention heads (head_dim = d_model / num_heads "
+                        "at most 128 on the CUDA card)")
     p.add_argument("--num_layers", type=int, default=4)
     p.add_argument("--host", default="127.0.0.1")
     p.add_argument("--port", type=int, default=8080)
@@ -78,10 +84,10 @@ def build_parser() -> argparse.ArgumentParser:
                         "submits 503 with a (rate-limited) log")
     p.add_argument("--recycle_after_mb", type=float, default=None,
                    help="supervise and recycle the serving worker past this "
-                        "RSS (arrives with the CLIs slice)")
+                        "RSS (arrives with a later slice)")
     p.add_argument("--recycle_after_requests", type=int, default=None,
                    help="recycle the supervised worker after this many "
-                        "admitted requests (arrives with the CLIs slice)")
+                        "admitted requests (arrives with a later slice)")
     p.add_argument("--_worker_fd", type=int, default=None,
                    help=argparse.SUPPRESS)   # internal: supervised worker
     p.add_argument("--verbose", action="store_true")
@@ -95,14 +101,48 @@ def check_slice(args) -> None:
             or args._worker_fd is not None):
         raise NotImplementedError(
             "worker recycling (--recycle_after_mb / --recycle_after_requests)"
-            " arrives with slice 5 (the CLIs)")
-    if args.ckpt:
-        raise NotImplementedError(
-            "--ckpt (the JAX package's msgpack checkpoint) arrives with the "
-            "checkpoint module in slice 5; pass --torch_ckpt")
+            " arrives with a later slice (ROADMAP Queue A)")
     if args.devices > 1:
         raise NotImplementedError(
             "--devices > 1 arrives with the multi-GPU slice")
+
+
+def load_model(args, cfg, device=None):
+    """The scorer ``main`` serves: ``SimNet(cfg)`` on ``device`` (default:
+    the CUDA card) with the weights of ``--torch_ckpt`` or ``--ckpt``
+    (either package's format), or seeded random weights with a warning."""
+    import torch
+
+    from vidsum_tpu_torch.models.convert import load_torch_checkpoint
+    from vidsum_tpu_torch.models.simnet import SimNet
+    from vidsum_tpu_torch.train.checkpoint import load_model_state
+
+    model = SimNet(cfg, device=device,
+                   generator=torch.Generator().manual_seed(0))
+    if args.torch_ckpt:
+        model.load_state_dict(load_torch_checkpoint(args.torch_ckpt))
+    elif args.ckpt:
+        model.load_state_dict(load_model_state(args.ckpt)[0])
+    else:
+        logging.warning("no checkpoint given — serving random weights")
+    return model
+
+
+def make_service(args, cfg, model, device=None):
+    """The ``ScoringService`` ``main`` serves, over ``model`` with the
+    command line's batching, admission and wire options."""
+    from vidsum_tpu_torch.serve import ScoringService
+
+    return ScoringService(model, cfg, attn_impl=args.attn,
+                          max_batch=args.max_batch,
+                          max_delay_ms=args.max_delay_ms,
+                          budget_ratio=args.budget,
+                          max_queue_depth=args.max_queue_depth,
+                          max_request_len=args.max_request_len,
+                          rss_watermark_mb=args.rss_watermark_mb,
+                          wire_dtype=args.wire_dtype,
+                          wire_mode=args.wire_mode,
+                          long_threshold=args.long_threshold, device=device)
 
 
 def main(argv=None) -> None:
@@ -113,31 +153,12 @@ def main(argv=None) -> None:
     logging.basicConfig(format="[%(levelname)s] %(module)s - %(message)s",
                         level=logging.INFO)
     check_slice(args)
-    import torch
-
     from vidsum_tpu_torch.config import ModelConfig
-    from vidsum_tpu_torch.models.convert import load_torch_checkpoint
-    from vidsum_tpu_torch.models.simnet import SimNet
-    from vidsum_tpu_torch.serve import ScoringService
     from vidsum_tpu_torch.serve_http import make_server
 
     cfg = ModelConfig(d_model=args.d_model, num_heads=args.num_heads,
                       num_layers=args.num_layers)
-    model = SimNet(cfg, generator=torch.Generator().manual_seed(0))
-    if args.torch_ckpt:
-        model.load_state_dict(load_torch_checkpoint(args.torch_ckpt))
-    else:
-        logging.warning("no checkpoint given — serving random weights")
-    service = ScoringService(model, cfg, attn_impl=args.attn,
-                             max_batch=args.max_batch,
-                             max_delay_ms=args.max_delay_ms,
-                             budget_ratio=args.budget,
-                             max_queue_depth=args.max_queue_depth,
-                             max_request_len=args.max_request_len,
-                             rss_watermark_mb=args.rss_watermark_mb,
-                             wire_dtype=args.wire_dtype,
-                             wire_mode=args.wire_mode,
-                             long_threshold=args.long_threshold)
+    service = make_service(args, cfg, load_model(args, cfg))
     if args.warmup:
         lengths = [int(s) for s in args.warmup.split(",") if s]
         logging.info("warming up %s x batch grid...", lengths)

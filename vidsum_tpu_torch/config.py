@@ -42,10 +42,18 @@ class ModelConfig:
 
 @dataclasses.dataclass(frozen=True)
 class DataConfig:
-    """The data-layout fields serving and training read."""
+    """Data layout (reference: ``src/data/dataset.py``, ``src/data/path.py``).
+    ``path_scheme`` ``"summarizer"`` names the ``summarizer_dataset_*`` h5
+    files (which carry ``user_scores``), ``"eccv16"`` the eval modules'
+    ``eccv16_dataset_*`` names (``data/paths.py``)."""
 
+    root: str = "data"
+    ex_dataset: str = "tvsum"        # dataset to evaluate on (train.py:183)
+    datasets: str = "tvsum"          # "+"-joined training datasets
+    min_train_frames: int = 50       # drop train videos with <= 50 frames
     pad_value: float = 1000.0        # padding sentinel (dataset.py:141)
     length_bucket: int = 128         # pad lengths to multiples of this
+    path_scheme: str = "summarizer"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -63,15 +71,26 @@ class TrainConfig:
     """Finetune protocol (reference: ``src/train.py``, ``run_finetune.sh``).
     ``attn_impl="auto"`` means ``"fused_block"`` on CUDA and ``"dense"`` on
     the CPU (``make_finetune_step`` resolves it). The JAX package's
-    ``rng_impl`` (a JAX PRNG knob) has no counterpart; ``max_epoch`` and the
-    checkpoint and warm-start fields arrive with ``finetune()`` in the data
-    slice."""
+    ``rng_impl`` (a JAX PRNG knob) has no counterpart.
+
+    ``warm_start_from_save`` loads ``save_ckpt`` before each fold (the
+    reference loads ``model_mae.pth`` unconditionally, train.py:76, and
+    fails without it). ``state_save_every`` / ``model_save_every`` save the
+    resume state (parameters and Adam moments) and the weight-only model
+    every K epochs; the last epoch of a fold always saves both."""
 
     lr: float = 1e-3
     weight_decay: float = 1e-4
     batch_size: int = 4
+    max_epoch: int = 100
     seed: int = 1234                 # train.py:29
+    use_pretrained: bool = False     # --use_model (train.py:40-44)
+    pretrain_ckpt: str = "pretrain.ckpt"
+    save_ckpt: str = "model_mae.ckpt"
+    warm_start_from_save: bool = False
     attn_impl: str = "auto"
+    state_save_every: int = 1
+    model_save_every: int = 1
 
 
 @dataclasses.dataclass(frozen=True)
@@ -84,7 +103,8 @@ class Config:
 
 def finetune_recipe() -> Config:
     """The ``run_finetune.sh`` recipe: d256/h4/L4, dropout 0.3, lr 1e-3,
-    wd 1e-4, batch 4."""
+    wd 1e-4, batch 4, 100 epochs from the pretrained encoder."""
     return Config(
         model=ModelConfig(d_model=256, num_heads=4, num_layers=4, dropout=0.3),
-        train=TrainConfig(lr=1e-3, weight_decay=1e-4, batch_size=4))
+        train=TrainConfig(lr=1e-3, weight_decay=1e-4, batch_size=4,
+                          max_epoch=100, use_pretrained=True))

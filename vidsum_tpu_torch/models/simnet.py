@@ -516,3 +516,9 @@ class SimNet(nn.Module):
         B, H, N, Dh = out.shape
         return _linear(sa.feature_projection,
                        out.transpose(1, 2).reshape(B, N, H * Dh))
+
+
+def count_params(model: nn.Module) -> int:
+    """The number of parameters (``simnet.py:396``'s count of the JAX
+    tree: the positional encoding is computed, not a parameter)."""
+    return sum(p.numel() for p in model.parameters())
