@@ -1959,3 +1959,64 @@ def test_finetune_resume_and_ckpt_service_on_the_card(cuda, monkeypatch,
                            for f in feats])
     for x, y in zip(*scores):
         np.testing.assert_array_equal(x, y)
+
+
+def test_supervised_recycle_on_the_card(cuda, tmp_path):
+    """``cli.serve --recycle_after_requests 4`` as a supervisor spawning
+    workers on the card: 12 requests paced 0.6 s apart (past the workers'
+    0.5 s monitor poll) all succeed across at least two recycles, no worker
+    crashes, and SIGINT ends the supervisor with 0."""
+    import io
+    import json
+    import os
+    import signal
+    import socket
+    import subprocess
+    import sys
+    import time
+    import urllib.error
+    import urllib.request
+
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    cmd = [sys.executable, "-m", "vidsum_tpu_torch.cli.serve", "--host",
+           "127.0.0.1", "--port", str(port), "--max_delay_ms", "0",
+           "--warmup", "", "--recycle_after_requests", "4"]
+    log_path = tmp_path / "serve.log"
+    with open(log_path, "w") as log:
+        proc = subprocess.Popen(cmd, cwd=repo, stdout=log,
+                                stderr=subprocess.STDOUT)
+    feats = np.random.default_rng(2).normal(size=(200, 1024)).astype(
+        np.float32)
+    buf = io.BytesIO()
+    np.savez(buf, features=feats)
+    try:
+        deadline = time.monotonic() + 300
+        while True:
+            try:
+                with urllib.request.urlopen(
+                        f"http://127.0.0.1:{port}/healthz", timeout=10):
+                    break
+            except (urllib.error.URLError, OSError):
+                assert time.monotonic() < deadline, log_path.read_text()
+                time.sleep(1.0)
+        for _ in range(12):
+            req = urllib.request.Request(
+                f"http://127.0.0.1:{port}/summarize?summary=0",
+                data=buf.getvalue(), method="POST")
+            with urllib.request.urlopen(req, timeout=300) as resp:
+                assert len(json.loads(resp.read())["scores"]) == 200
+            time.sleep(0.6)
+    finally:
+        proc.send_signal(signal.SIGINT)
+        try:
+            proc.wait(timeout=180)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait()
+    log = log_path.read_text()
+    assert proc.returncode == 0, log[-3000:]
+    assert log.count("recycled after") >= 2, log[-3000:]
+    assert "died rc=" not in log, log[-3000:]

@@ -4,7 +4,8 @@ asynchronous writer, and the plain-Python reader of the JAX msgpack files
 held against ``flax.serialization``), ``finetune()`` over two folds from the
 same JAX-written ``pretrain.ckpt`` at dropout 0 (results, per-epoch metric
 records, ``summary.json``, the warm start of fold 2 from fold 1's saved
-file), exact resume, the tracer, and the train / evaluate CLIs (parsers and
+file), exact resume, resume from a JAX-written ``train_state.ckpt``, the
+tracer, and the train / evaluate CLIs (parsers and
 printed JSON)."""
 
 import dataclasses
@@ -196,6 +197,36 @@ def test_resume_is_exact(data_root, tmp_path):
     assert (strip([r for r in recs_b if "epoch" in r])
             == strip([r for r in recs_a if "epoch" in r]))
     assert strip(recs_b[-1:]) == strip(recs_a[-1:])
+
+
+def test_resume_from_a_jax_state_file_matches_jax(data_root, tmp_path):
+    """The JAX package finetunes one epoch and writes train_state.ckpt (its
+    optax Adam state); both packages resume from that file to two epochs
+    (dropout 0): the results, the per-fold metrics and the model file agree
+    within rtol 1e-5."""
+    import shutil
+
+    jconf, conf = _configs(data_root, max_epoch=2)
+    jdir, pdir = str(tmp_path / "jax"), str(tmp_path / "port")
+    kw = dict(export_summary=False)
+    jax_finetune(dataclasses.replace(jconf, train=dataclasses.replace(
+        jconf.train, max_epoch=1)), SPLITS[:1], workdir=jdir, **kw)
+    shutil.copytree(jdir, pdir)
+    assert ck.checkpoint_format(os.path.join(pdir, "train_state.ckpt")) \
+        == "flax"
+    jres = jax_finetune(jconf, SPLITS[:1], workdir=jdir, resume=True, **kw)
+    res = ft.finetune(conf, SPLITS[:1], workdir=pdir, resume=True,
+                      device="cpu", **kw)
+    np.testing.assert_allclose(
+        [res.fscore, res.kendall_tau, res.spearman_rho],
+        [jres.fscore, jres.kendall_tau, jres.spearman_rho], rtol=1e-5,
+        atol=1e-5)
+    got, meta = ck.load_model_state(os.path.join(pdir, "model_mae.ckpt"))
+    want, jmeta = ck.load_model_state(os.path.join(jdir, "model_mae.ckpt"))
+    assert meta == jmeta == {"epoch": 1, "split": 0}
+    for k in want:
+        np.testing.assert_allclose(got[k].numpy(), want[k].numpy(),
+                                   rtol=1e-5, atol=1e-7, err_msg=k)
 
 
 def test_save_cadence_and_resume_from_a_gate(data_root, tmp_path):

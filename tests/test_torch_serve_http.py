@@ -169,8 +169,6 @@ def test_cli_parser_matches_jax():
 
 @pytest.mark.parametrize("argv,match", [
     (["--devices", "2"], "multi-GPU slice"),
-    (["--recycle_after_mb", "4000"], "later slice"),
-    (["--recycle_after_requests", "100"], "later slice"),
 ])
 def test_cli_later_slices_raise(argv, match):
     with pytest.raises(NotImplementedError, match=match):

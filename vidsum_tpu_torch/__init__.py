@@ -13,8 +13,12 @@ finetune step and long-video training (``train.steps.make_finetune_step``,
 HTTP (``cli.serve`` -> ``serve_http`` -> the int8 wire and ``SimNet``'s
 int8 route, ``ops.quant`` and ``ops.block_kernel_int8``), with the
 int8-against-bf16 product probe ``tools.probe_int8_mma``; sequence-parallel
-long videos (``parallel``); and the finetune protocol (``cli.train`` ->
+long videos (``parallel``); the finetune protocol (``cli.train`` ->
 ``train.finetune.finetune`` over ``data.datasets.TSDataset``, checkpoints in
-``train.checkpoint`` that also read the JAX package's msgpack files,
-``cli.evaluate`` and ``cli.serve --ckpt``).
+``train.checkpoint`` that also read the JAX package's msgpack files and
+resume from its state files, ``cli.evaluate`` and ``cli.serve --ckpt``);
+self-supervised pretraining (``cli.pretrain`` -> ``train.pretraining.
+pretrain`` -> ``models.pretrain.PretrainModel`` and the pretrain losses of
+``ops.losses``); and the serving CLI's worker-recycling supervisor
+(``cli.serve --recycle_after_mb / --recycle_after_requests``).
 """

@@ -1,23 +1,34 @@
-# ported from vidsum_tpu/cli/serve.py (one card; multi-GPU serving and the
-# recycling supervisor arrive with later slices)
+# ported from vidsum_tpu/cli/serve.py (one card; multi-GPU serving arrives
+# with a later slice)
 """Serving CLI: a micro-batching scoring service behind a local HTTP API.
 
 Usage:
     python -m vidsum_tpu_torch.cli.serve --ckpt model_mae.ckpt \
         --port 8080 [--max_batch 8] [--max_delay_ms 3] \
-        [--attn int8_block --wire_dtype int8]
+        [--attn int8_block --wire_dtype int8] [--recycle_after_mb 4000]
 
 Clients POST ``.npz`` feature payloads to ``/summarize`` (see
 ``vidsum_tpu_torch/serve_http.py`` for the protocol). The service runs on
 the CUDA card (head_dim = d_model / num_heads at most 128, d_model at most
-1,024 there). ``--ckpt`` takes a model checkpoint of either package (the
-port's ``torch.save`` file, as ``cli.train`` writes it, or the JAX
-package's msgpack file), ``--torch_ckpt`` a reference-trained ``.pth``. The
-flags and their defaults are the JAX package's; two of its options arrive
-with later slices and raise ``NotImplementedError`` naming them:
-``--devices`` > 1 (the multi-GPU slice) and the worker-recycling supervisor
-(``--recycle_after_mb`` / ``--recycle_after_requests``, a later slice:
-ROADMAP Queue A).
+1,024 there); ``main(argv, device="cpu")`` serves the plain PyTorch path
+(a keyword of the function, not a flag). ``--ckpt`` takes a model
+checkpoint of either package (the port's ``torch.save`` file, as
+``cli.train`` writes it, or the JAX package's msgpack file), ``--torch_ckpt``
+a reference-trained ``.pth``. The flags and their defaults are the JAX
+package's; ``--devices`` > 1 arrives with the multi-GPU slice and raises
+``NotImplementedError`` naming it.
+
+**Worker recycling** (``--recycle_after_mb`` / ``--recycle_after_requests``):
+the CLI runs as a supervisor that owns the listening socket and spawns the
+serving worker (this module with ``--_worker_fd``) as a subprocess that
+inherits it. When the worker crosses a threshold (its RSS, or the requests
+its service admitted) it drains: it stops accepting, finishes every request
+in flight, closes the service and exits with ``EXIT_RECYCLE``; the
+supervisor then spawns a fresh worker on the same socket. Connections that
+arrive during the handoff wait in the TCP backlog instead of being refused,
+so no request is dropped. The supervisor imports no ``torch``, so only one
+generation at a time holds the card's memory. ``--rss_watermark_mb`` arms
+in-process load shedding (503s) besides.
 """
 
 from __future__ import annotations
@@ -25,6 +36,11 @@ from __future__ import annotations
 import argparse
 import logging
 import time
+
+EXIT_RECYCLE = 42       # worker -> supervisor: drained for recycling
+MAX_CRASHES = 5         # the supervisor gives up after this many in a row
+CRASH_BACKOFF_S = 2.0   # pause before respawning a crashed worker
+DRAIN_TIMEOUT_S = 120   # SIGINT drain of the worker before terminate()
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -83,11 +99,13 @@ def build_parser() -> argparse.ArgumentParser:
                    help="in-process load shedding: past this host RSS, "
                         "submits 503 with a (rate-limited) log")
     p.add_argument("--recycle_after_mb", type=float, default=None,
-                   help="supervise and recycle the serving worker past this "
-                        "RSS (arrives with a later slice)")
+                   help="supervise a serving worker subprocess and recycle "
+                        "it (drain in-flight requests, respawn on the same "
+                        "listening socket) once its RSS passes this")
     p.add_argument("--recycle_after_requests", type=int, default=None,
                    help="recycle the supervised worker after this many "
-                        "admitted requests (arrives with a later slice)")
+                        "admitted requests (composable with "
+                        "--recycle_after_mb; the first threshold wins)")
     p.add_argument("--_worker_fd", type=int, default=None,
                    help=argparse.SUPPRESS)   # internal: supervised worker
     p.add_argument("--verbose", action="store_true")
@@ -96,12 +114,6 @@ def build_parser() -> argparse.ArgumentParser:
 
 def check_slice(args) -> None:
     """Raise ``NotImplementedError`` for the options later slices bring."""
-    if (args.recycle_after_mb is not None
-            or args.recycle_after_requests is not None
-            or args._worker_fd is not None):
-        raise NotImplementedError(
-            "worker recycling (--recycle_after_mb / --recycle_after_requests)"
-            " arrives with a later slice (ROADMAP Queue A)")
     if args.devices > 1:
         raise NotImplementedError(
             "--devices > 1 arrives with the multi-GPU slice")
@@ -145,7 +157,109 @@ def make_service(args, cfg, model, device=None):
                           long_threshold=args.long_threshold, device=device)
 
 
-def main(argv=None) -> None:
+def recycling(args) -> bool:
+    return (args.recycle_after_mb is not None
+            or args.recycle_after_requests is not None)
+
+
+def run_supervisor(args, argv) -> None:
+    """Own the listening socket; spawn and respawn serving workers.
+
+    The socket (``SO_REUSEADDR``, a backlog of 128) is inherited by every
+    worker generation, so connections made during a handoff queue instead
+    of being refused. A worker's ``EXIT_RECYCLE`` respawns it, 0 ends the
+    supervisor, any other code counts as a crash: after ``MAX_CRASHES`` in a
+    row the supervisor exits with the last code. On SIGINT it drains the
+    worker (SIGINT, ``DRAIN_TIMEOUT_S``, then terminate). It never imports
+    ``torch``: only the worker touches the card."""
+    import signal
+    import socket
+    import subprocess
+    import sys
+
+    sock = socket.socket(socket.AF_INET, socket.SOCK_STREAM)
+    sock.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEADDR, 1)
+    sock.bind((args.host, args.port))
+    sock.listen(128)   # deep backlog: it rides out the recycle handoff
+    sock.set_inheritable(True)
+    host, port = sock.getsockname()
+    logging.info("supervisor: listening on http://%s:%d; recycling after "
+                 "%s MB RSS / %s requests", host, port,
+                 args.recycle_after_mb, args.recycle_after_requests)
+    crashes = 0
+    gen = 0
+    try:
+        while True:
+            gen += 1
+            cmd = ([sys.executable, "-m", "vidsum_tpu_torch.cli.serve"]
+                   + list(argv) + ["--_worker_fd", str(sock.fileno())])
+            t0 = time.monotonic()
+            proc = subprocess.Popen(cmd, pass_fds=(sock.fileno(),))
+            try:
+                rc = proc.wait()
+            except KeyboardInterrupt:
+                proc.send_signal(signal.SIGINT)   # drain, then exit 0
+                try:
+                    proc.wait(timeout=DRAIN_TIMEOUT_S)
+                except subprocess.TimeoutExpired:
+                    proc.terminate()
+                    proc.wait(timeout=30)
+                break
+            if rc == EXIT_RECYCLE:
+                logging.info("supervisor: worker generation %d recycled "
+                             "after %.1fs; respawning", gen,
+                             time.monotonic() - t0)
+                crashes = 0
+                continue
+            if rc == 0:
+                logging.info("supervisor: worker exited cleanly; done")
+                break
+            crashes += 1
+            logging.error("supervisor: worker generation %d died rc=%d "
+                          "(crash %d/%d)", gen, rc, crashes, MAX_CRASHES)
+            if crashes >= MAX_CRASHES:
+                raise SystemExit(rc)
+            time.sleep(CRASH_BACKOFF_S)
+    finally:
+        sock.close()
+
+
+def start_recycle_monitor(args, service, server):
+    """In a supervised worker: a thread that polls the service's admitted
+    requests and the process's RSS every 0.5 s and, at the first threshold,
+    shuts the server down (the handlers in flight finish). Returns the
+    event it sets then."""
+    import threading
+
+    from vidsum_tpu_torch.serve.admission import process_rss_mb
+
+    recycled = threading.Event()
+
+    def monitor():
+        while not recycled.is_set():
+            n = service.stats().requests
+            rss = process_rss_mb()
+            if ((args.recycle_after_requests is not None
+                 and n >= args.recycle_after_requests)
+                    or (args.recycle_after_mb is not None
+                        and rss >= args.recycle_after_mb)):
+                logging.warning("worker: draining for recycle (%d requests, "
+                                "RSS %.0f MB)", n, rss)
+                recycled.set()
+                server.shutdown()   # stop accepting; handlers finish
+                return
+            time.sleep(0.5)
+
+    threading.Thread(target=monitor, daemon=True,
+                     name="vidsum-recycle").start()
+    return recycled
+
+
+def main(argv=None, *, device=None) -> None:
+    """Serve on ``device`` (default: the CUDA card). With a recycle
+    threshold and no ``--_worker_fd`` this process is the supervisor
+    (``run_supervisor``); with ``--_worker_fd`` it is a worker on the
+    supervisor's socket and exits with ``EXIT_RECYCLE`` after a drain."""
     import sys
 
     argv = list(sys.argv[1:]) if argv is None else list(argv)
@@ -153,12 +267,15 @@ def main(argv=None) -> None:
     logging.basicConfig(format="[%(levelname)s] %(module)s - %(message)s",
                         level=logging.INFO)
     check_slice(args)
+    if recycling(args) and args._worker_fd is None:
+        run_supervisor(args, argv)
+        return
     from vidsum_tpu_torch.config import ModelConfig
     from vidsum_tpu_torch.serve_http import make_server
 
     cfg = ModelConfig(d_model=args.d_model, num_heads=args.num_heads,
                       num_layers=args.num_layers)
-    service = make_service(args, cfg, load_model(args, cfg))
+    service = make_service(args, cfg, load_model(args, cfg, device), device)
     if args.warmup:
         lengths = [int(s) for s in args.warmup.split(",") if s]
         logging.info("warming up %s x batch grid...", lengths)
@@ -169,9 +286,20 @@ def main(argv=None) -> None:
                          dt)
         logging.info("warmup: %d shapes in %.1fs", len(warmed),
                      time.monotonic() - t0)
+    bound = None
+    if args._worker_fd is not None:
+        import socket
+
+        # the supervisor's listening socket; handler threads are not
+        # daemons, so server_close() joins every request in flight
+        bound = socket.socket(fileno=args._worker_fd)
     server = make_server(service, host=args.host, port=args.port,
-                         max_body_bytes=args.max_body_bytes)
+                         max_body_bytes=args.max_body_bytes,
+                         bound_socket=bound,
+                         daemon_threads=args._worker_fd is None)
     server.verbose = args.verbose
+    recycled = (start_recycle_monitor(args, service, server)
+                if bound is not None and recycling(args) else None)
     logging.info("serving on http://%s:%d (POST /summarize, GET /stats)",
                  *server.server_address)
     try:
@@ -180,8 +308,10 @@ def main(argv=None) -> None:
         pass
     finally:
         server.shutdown()
-        server.server_close()
+        server.server_close()   # supervised: joins the handlers in flight
         service.close()
+    if recycled is not None and recycled.is_set():
+        raise SystemExit(EXIT_RECYCLE)
 
 
 if __name__ == "__main__":

@@ -1,7 +1,8 @@
 # ported from vidsum_tpu/config.py
 """Configuration: the SimNet architecture, the data layout fields serving
-and training read, the eval protocol and the finetune protocol. Defaults are
-the JAX package's, so one config describes the same run in both packages."""
+and training read, the eval protocol, the finetune protocol and
+self-supervised pretraining. Defaults are the JAX package's, so one config
+describes the same run in both packages."""
 
 from __future__ import annotations
 
@@ -94,11 +95,40 @@ class TrainConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class PretrainConfig:
+    """Self-supervised pretraining (reference: ``src/pretrain.py``,
+    ``src/model/simnet_pretrain.py``, ``run_pretrain.sh``).
+
+    ``scheduler_samples``: the scheduler's steps per epoch come from a
+    hardcoded 13,000-sample numerator (pretrain.py:37), not the dataset's
+    length. ``freeze_video_transform``: the reference's Adam holds the
+    encoder's parameters only (pretrain.py:35-36), so ``video_transform``
+    keeps its initial values. ``save_every``: the encoder checkpoint's
+    cadence in epochs (the reference saves every epoch; the last epoch
+    always saves). The JAX package's ``rng_impl`` has no counterpart."""
+
+    lr: float = 1e-3
+    weight_decay: float = 5e-4
+    batch_size: int = 256
+    epochs: int = 200
+    warmup_epochs: int = 50          # pretrain.py:38
+    scheduler_samples: int = 13000   # pretrain.py:37
+    sharpening_t: float = 0.4        # simnet_pretrain.py:18
+    center_weight: float = 0.5       # pretrain.py:63
+    repel_weight: float = 1.0        # pretrain.py:63
+    freeze_video_transform: bool = True
+    save_every: int = 1
+    seed: int = 1234
+
+
+@dataclasses.dataclass(frozen=True)
 class Config:
     model: ModelConfig = dataclasses.field(default_factory=ModelConfig)
     data: DataConfig = dataclasses.field(default_factory=DataConfig)
     eval: EvalConfig = dataclasses.field(default_factory=EvalConfig)
     train: TrainConfig = dataclasses.field(default_factory=TrainConfig)
+    pretrain: PretrainConfig = dataclasses.field(
+        default_factory=PretrainConfig)
 
 
 def finetune_recipe() -> Config:
@@ -108,3 +138,11 @@ def finetune_recipe() -> Config:
         model=ModelConfig(d_model=256, num_heads=4, num_layers=4, dropout=0.3),
         train=TrainConfig(lr=1e-3, weight_decay=1e-4, batch_size=4,
                           max_epoch=100, use_pretrained=True))
+
+
+def pretrain_recipe() -> Config:
+    """The ``run_pretrain.sh`` recipe: d256/h4/L4, dropout 0.2, lr 1e-3,
+    batch 256, 200 epochs."""
+    return Config(
+        model=ModelConfig(d_model=256, num_heads=4, num_layers=4, dropout=0.2),
+        pretrain=PretrainConfig(lr=1e-3, batch_size=256, epochs=200))

@@ -1,5 +1,4 @@
-# ported from vidsum_tpu/data/collate.py (the training collate; the pretrain
-# collate arrives with the pretrain slice)
+# ported from vidsum_tpu/data/collate.py
 """Batch collation with length buckets: sequences are padded up to a
 multiple of ``DataConfig.length_bucket`` (128) with the sentinel 1000
 (reference ``src/data/dataset.py:139-161`` pads to the batch max), so a run
@@ -42,14 +41,39 @@ def pad_batch(features: Sequence[np.ndarray], targets: Sequence[np.ndarray],
     return out_f, out_t, mask
 
 
+def pad_batch_pretrain(features: Sequence[np.ndarray],
+                       video_reps: Sequence[np.ndarray],
+                       pad_value: float = 1000.0, bucket: int = 128,
+                       ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """The pretrain collate (reference ``collate_fn_pretrain``,
+    dataset.py:157-161): frame features padded to a shared bucketed length
+    with ``pad_value``, the (B, 512) video reps stacked, and the pad mask
+    (B, N) bool, True at padding."""
+    B = len(features)
+    max_n = max(f.shape[0] for f in features)
+    N = bucket_length(max_n, bucket)
+    D = features[0].shape[1]
+    out_f = np.full((B, N, D), pad_value, dtype=np.float32)
+    mask = np.ones((B, N), dtype=bool)
+    for i, f in enumerate(features):
+        out_f[i, :f.shape[0]] = f
+        mask[i, :f.shape[0]] = False
+    reps = np.stack([np.asarray(v, dtype=np.float32) for v in video_reps])
+    return out_f, reps, mask
+
+
 def make_batches(n_items: int, batch_size: int, *, shuffle: bool,
-                 rng: Optional[np.random.Generator] = None
-                 ) -> Iterator[List[int]]:
-    """Yield index batches; the last may be smaller. (The JAX package's
-    ``drop_last``, for pretraining, and ``pad_to_batch`` with
-    ``item_weights``, for its device mesh, arrive with those slices.)"""
+                 rng: Optional[np.random.Generator] = None,
+                 drop_last: bool = False) -> Iterator[List[int]]:
+    """Yield index batches; the last may be smaller, or with ``drop_last``
+    (pretraining, the reference's ``DataLoader(drop_last=True)``) is left
+    out. (The JAX package's ``pad_to_batch`` with ``item_weights``, for its
+    device mesh, arrives with the multi-GPU slice.)"""
     idx = np.arange(n_items)
     if shuffle:
         (rng or np.random.default_rng()).shuffle(idx)
     for start in range(0, n_items, batch_size):
-        yield idx[start:start + batch_size].tolist()
+        chunk = idx[start:start + batch_size].tolist()
+        if drop_last and len(chunk) < batch_size:
+            return
+        yield chunk

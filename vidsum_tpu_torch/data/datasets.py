@@ -1,7 +1,6 @@
-# ported from vidsum_tpu/data/datasets.py (TSDataset and UserSummaries; the
-# pretraining datasets arrive with the pretrain slice)
-"""The finetune datasets over the DSNet h5 files, and per-video eval
-metadata.
+# ported from vidsum_tpu/data/datasets.py
+"""The finetune datasets over the DSNet h5 files, per-video eval metadata,
+and the pretraining datasets.
 
 Behaviour (reference: ``src/data/dataset.py``): a ``val`` split of
 :class:`TSDataset` loads ``features, gtscore, user_summary, user_scores,
@@ -12,11 +11,17 @@ experiment dataset to the fold's keys, and drops videos with <=
 ``min_frames`` frames (dataset.py:105-119). Everything is loaded eagerly
 into numpy arrays (a whole dataset's features fit in memory); ``h5py`` is
 imported when a dataset is built, never by importing this module.
+
+The pretraining datasets hold ``(frame features (n, D) f32, video rep (512,)
+f32)`` pairs: :class:`PreTrainDataset` from a ``frames/*.npy`` +
+``video/<name>.npy`` tree (numpy only), :class:`PreTrainDatasetReady` from
+the DSNet h5 files' features with ``video/<dataset>/<key>.npy`` reps.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import glob
 import os
 from typing import List, Optional, Sequence
 
@@ -97,3 +102,49 @@ class TSDataset:
         if self.split == "train":
             return self.features[idx], self.targets[idx]
         return self.features[idx], self.targets[idx], self.user_summaries[idx]
+
+
+class PreTrainDataset:
+    """Frame-feature + video-embedding pairs from a ``.npy`` tree: every
+    ``frames/<name>.*`` file in sorted order, with ``video/<name>.npy``
+    (``<name>`` is the file name up to its first dot)."""
+
+    def __init__(self, root: str):
+        self.items = []
+        for frame_path in sorted(glob.glob(os.path.join(root, "frames", "*"))):
+            video_name = os.path.basename(frame_path).split(".")[0]
+            feats = np.load(frame_path).astype(np.float32)
+            rep = np.load(os.path.join(root, "video", f"{video_name}.npy"))
+            self.items.append((feats, rep.astype(np.float32)))
+
+    def __len__(self) -> int:
+        return len(self.items)
+
+    def __getitem__(self, idx: int):
+        return self.items[idx]
+
+
+class PreTrainDatasetReady:
+    """Frame features straight from the DSNet h5 files of each
+    ``"+"``-joined dataset (keys in file order) with the per-key video reps
+    ``video/<dataset>/<key>.npy``."""
+
+    def __init__(self, root: str, datasets: str,
+                 path_scheme: str = "summarizer"):
+        import h5py
+
+        self.items = []
+        for dataset in datasets.split("+"):
+            rep_dir = os.path.join(root, "video", dataset)
+            with h5py.File(os.path.join(root, h5_name(dataset, path_scheme)),
+                           "r") as f:
+                for key in f.keys():
+                    feats = f[key]["features"][...].astype(np.float32)
+                    rep = np.load(os.path.join(rep_dir, f"{key}.npy"))
+                    self.items.append((feats, rep.astype(np.float32)))
+
+    def __len__(self) -> int:
+        return len(self.items)
+
+    def __getitem__(self, idx: int):
+        return self.items[idx]

@@ -7,7 +7,11 @@ SimNet`, keyed like the reference's checkpoints
 (``embedding_layer.feature_transform.*``, ``encoder.module_list.{i}.*``,
 ``final_layer.*``). Linear weights transpose from the JAX (in, out) layout to
 nn.Linear's (out, in). :func:`params_to_jax` is its inverse, for tests.
-:func:`load_torch_checkpoint` reads a reference-trained ``.pth``.
+:func:`pretrain_params_from_jax` / :func:`pretrain_params_to_jax` do the
+same for the pretraining model (``{"encoder", "video_transform"}`` <->
+``encoder.*``, ``video_transform.*``, the reference ``PretrainModel``'s
+keys). :func:`load_torch_checkpoint` reads a reference-trained ``.pth``
+(``model_mae.pth`` or ``pretrain.pth``).
 """
 
 from __future__ import annotations
@@ -87,9 +91,30 @@ def params_to_jax(state: Dict[str, torch.Tensor]) -> Params:
     return params
 
 
+def pretrain_params_from_jax(params: Params) -> Dict[str, torch.Tensor]:
+    """JAX pretraining parameter tree ``{"encoder", "video_transform"}`` ->
+    a state dict for :class:`~vidsum_tpu_torch.models.pretrain.
+    PretrainModel`."""
+    out = {f"encoder.{k}": v
+           for k, v in params_from_jax(params["encoder"]).items()}
+    _put_linear(out, "video_transform", params["video_transform"])
+    return out
+
+
+def pretrain_params_to_jax(state: Dict[str, torch.Tensor]) -> Params:
+    """Inverse of :func:`pretrain_params_from_jax`."""
+    enc = {k[len("encoder."):]: v for k, v in state.items()
+           if k.startswith("encoder.")}
+    w, b = (state[f"video_transform.{n}"].detach().cpu().float().numpy()
+            for n in ("weight", "bias"))
+    return {"encoder": params_to_jax(enc),
+            "video_transform": {"w": np.ascontiguousarray(w.T), "b": b}}
+
+
 def load_torch_checkpoint(path: str) -> Dict[str, torch.Tensor]:
-    """A reference-trained SimNet ``.pth`` (``model_mae.pth``) as a state
-    dict for :class:`~vidsum_tpu_torch.models.simnet.SimNet`: its keys are
+    """A reference-trained ``.pth`` as a state dict: ``model_mae.pth`` for
+    :class:`~vidsum_tpu_torch.models.simnet.SimNet`, ``pretrain.pth`` for
+    :class:`~vidsum_tpu_torch.models.pretrain.PretrainModel`. Its keys are
     the port's module names already; the positional-encoding buffer (a key
     ending in ``pe``, recomputed in closed form here) is dropped."""
     state = torch.load(path, map_location="cpu", weights_only=True)

@@ -1,20 +1,34 @@
-# ported from vidsum_tpu/ops/losses.py (the finetune loss; the pretrain
-# losses arrive with the pretrain slice)
-"""The finetune objective: masked MSE over raw logits (reference
-``src/utils/utils.py:45-56``). Padded positions are zeroed in both prediction
-and target, and the mean divides by ``B * reference_pad_len``: the max true
+# ported from vidsum_tpu/ops/losses.py
+"""Training objectives.
+
+- :func:`mse_with_mask_loss`, the finetune loss (reference
+  ``src/utils/utils.py:45-56``): masked MSE over raw logits; padded positions
+  are zeroed in both prediction and target.
+- The pretrain losses (reference ``src/model/simnet_pretrain.py:35-69``):
+  soft cross-entropy between the score-weighted frame-feature mixture and the
+  frozen video embedding, the entropy of the sharpened scores, and the mean
+  off-diagonal cosine similarity between frame features.
+
+Every mean over padded length divides by ``reference_pad_len``: the max true
 length in the batch, which is what the reference's max-in-batch padding
-divides by, not the 128-bucket width this package pads to, so the loss does
-not depend on how far a bucket pads."""
+divides by, not the 128-bucket width this package pads to, so a loss does
+not depend on how far a bucket pads.
+"""
 
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 
 
-def reference_pad_len(pad_mask: torch.Tensor) -> torch.Tensor:
+def reference_pad_len(pad_mask: Optional[torch.Tensor],
+                      n: Optional[int] = None) -> torch.Tensor:
     """The length the reference's ``pad_sequence`` would have padded this
-    batch to: the max true length over the batch."""
+    batch to: the max true length over the batch (dataset.py:139-143). With
+    no mask, the padded width ``n``."""
+    if pad_mask is None:
+        return torch.tensor(float(n), dtype=torch.float32)
     return (~pad_mask).sum(dim=1).max().float()
 
 
@@ -38,3 +52,57 @@ def mse_with_mask_loss(output: torch.Tensor, targets: torch.Tensor,
         return loss.sum()
     denom_len = reference_pad_len(pad_mask).to(loss.dtype)
     return loss.sum() / (loss.shape[0] * denom_len)
+
+
+def soft_cross_entropy(x1: torch.Tensor, x2: torch.Tensor) -> torch.Tensor:
+    """-softmax(x2) . log(softmax(x1)), the mean over all elements
+    (simnet_pretrain.py:35-41)."""
+    p1 = torch.softmax(x1, dim=1)
+    p2 = torch.softmax(x2, dim=1)
+    return (-p2 * torch.log(p1)).mean()
+
+
+def _denom(denom_len, pad_mask, n: int, like: torch.Tensor) -> torch.Tensor:
+    if denom_len is None:
+        denom_len = reference_pad_len(pad_mask, n)
+    return torch.as_tensor(denom_len).to(device=like.device, dtype=like.dtype)
+
+
+def entropy_centering(mixture: torch.Tensor,
+                      pad_mask: Optional[torch.Tensor],
+                      denom_len: Optional[torch.Tensor] = None
+                      ) -> torch.Tensor:
+    """The entropy term of the sharpened frame-score distribution, padded
+    frames zeroed (simnet_pretrain.py:43-47). ``mixture`` (B, N, 1), already
+    shifted by +1e-9. The reference's ``x.mean(dim=1).mean()`` divides by
+    ``B * N_padded``; here by ``B * denom_len`` (default
+    ``reference_pad_len``)."""
+    x = mixture * torch.log(mixture)
+    if pad_mask is not None:
+        x = torch.where(pad_mask[..., None], 0.0, x)
+    denom = _denom(denom_len, pad_mask, x.shape[1], x)
+    return x.sum() / (x.shape[0] * x.shape[2] * denom)
+
+
+def repelling_loss(x: torch.Tensor, pad_mask: Optional[torch.Tensor],
+                   denom_len: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The mean off-diagonal cosine similarity between frame features
+    (simnet_pretrain.py:49-69). ``x`` (B, N, D). Padded rows and columns add
+    0, so the reference's ``sim.mean(dim=1).mean()`` over ``B * N_padded^2``
+    becomes a sum over ``B * denom_len^2`` (default ``reference_pad_len``).
+
+    The norm is safe at all-zero (padded) rows: d||x||/dx = x/||x|| is 0/0
+    there, so those rows go round the sqrt and their gradients stay finite;
+    the forward value equals the reference's ``x / (norm + 1e-9)``."""
+    n_frames = x.shape[1]
+    if pad_mask is not None:
+        x = x * (~pad_mask)[..., None].to(x.dtype)
+    sq = (x * x).sum(dim=2, keepdim=True)
+    zero = sq == 0.0
+    norm = torch.where(zero, 0.0, torch.sqrt(torch.where(zero, 1.0, sq)))
+    x = x / (norm + 1e-9)
+    sim = torch.einsum("bnd,bmd->bnm", x, x)
+    off_diag = ~torch.eye(n_frames, dtype=torch.bool, device=x.device)
+    sim = sim * off_diag.to(sim.dtype)[None]
+    denom = _denom(denom_len, pad_mask, n_frames, sim)
+    return sim.sum() / (sim.shape[0] * denom * denom)

@@ -19,10 +19,10 @@ starts from ``SimNet`` seeded with ``cfg.train.seed`` (the JAX package's
 initial weights differ; a pretrained or saved checkpoint replaces them).
 
 Checkpoints (``train/checkpoint.py``) are ``torch.save`` files; the
-pretrained and warm-start files may also be the JAX package's msgpack
-files. The copy of parameters and Adam state to the host runs on the caller
-thread after the val pass; encoding and writing run on the checkpointer's
-thread, overlapping the next epoch.
+pretrained and warm-start files, and the resume state, may also be the JAX
+package's msgpack files. The copy of parameters and Adam state to the host
+runs on the caller thread after the val pass; encoding and writing run on
+the checkpointer's thread, overlapping the next epoch.
 """
 
 from __future__ import annotations
@@ -48,7 +48,7 @@ from vidsum_tpu_torch.export.summary_json import write_summary_json
 from vidsum_tpu_torch.models.simnet import SimNet, count_params
 from vidsum_tpu_torch.ops.metrics import eval_metrics
 from vidsum_tpu_torch.train.checkpoint import (
-    AsyncCheckpointer, host_snapshot, load_checkpoint, load_model_state,
+    AsyncCheckpointer, host_snapshot, load_model_state, restore_train_state,
 )
 from vidsum_tpu_torch.train.steps import (
     make_eval_forward, make_finetune_step, make_optimizer,
@@ -68,13 +68,12 @@ class FinetuneResult:
     per_split: List[Dict[str, float]]
 
 
-def epoch_streams(seed: int, split: int, epoch: int
-                  ) -> Tuple[np.random.Generator, torch.Generator]:
-    """The shuffle and dropout streams of one (split, epoch)."""
-    words = np.random.SeedSequence((seed, split, epoch)).generate_state(
-        1, np.uint64)
+def epoch_streams(*key: int) -> Tuple[np.random.Generator, torch.Generator]:
+    """The shuffle and dropout streams of one epoch, keyed ``(seed, split,
+    epoch)`` here and ``(seed, epoch)`` in pretraining."""
+    words = np.random.SeedSequence(key).generate_state(1, np.uint64)
     gen = torch.Generator().manual_seed(int(words[0]) & (2 ** 63 - 1))
-    return np.random.default_rng((seed, split, epoch)), gen
+    return np.random.default_rng(key), gen
 
 
 def _train_epoch(step_fn, model, optimizer, dataset, cfg: Config,
@@ -167,8 +166,9 @@ def finetune(cfg: Config, splits: Sequence[Dict[str, List[str]]],
     - ``profile_dir``: trace the first epoch of the first fold
       (``utils.profiling.trace``, a Chrome trace).
     - ``resume``: restart from ``workdir/train_state.ckpt`` (parameters,
-      Adam state, epoch and the per-fold metric history); the streams are
-      per (split, epoch), so a resumed run gives the bits of a straight one.
+      Adam state, epoch and the per-fold metric history), written by either
+      package; the streams are per (split, epoch), so a resumed run gives
+      the bits of a straight one.
     - ``metrics_path``: append one JSON line per epoch and a final one.
     - ``batch_order(split_idx, epoch) -> [[i, ...], ...]``: the exact train
       batch order of each epoch in place of the shuffle.
@@ -230,9 +230,7 @@ def finetune(cfg: Config, splits: Sequence[Dict[str, List[str]]],
         fs, ks, ss = [], [], []
         start_epoch = 0
         if resume_meta and split_idx == resume_meta["split"]:
-            state, _ = load_checkpoint(state_path)
-            model.load_state_dict(state["params"])
-            optimizer.load_state_dict(state["opt_state"])
+            restore_train_state(state_path, model, optimizer)
             fs = list(resume_meta["fs"])
             ks = list(resume_meta["ks"])
             ss = list(resume_meta["ss"])

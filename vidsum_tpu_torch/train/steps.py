@@ -1,6 +1,5 @@
-# ported from vidsum_tpu/train/steps.py (make_optimizer, make_finetune_step
-# and make_eval_forward; the pretrain step arrives with the pretrain slice)
-"""The finetune step and the eval forward.
+# ported from vidsum_tpu/train/steps.py
+"""The finetune step, the eval forward and the pretrain step.
 
 - finetune step (reference ``src/train.py:111-131``): masked MSE over raw
   logits, Adam with torch-style coupled weight decay (``train.py:35-36``).
@@ -8,25 +7,47 @@
   state; here the step updates the model's parameters and the optimizer's
   state in place, which is what donation buys there.
 - eval forward (reference ``src/train.py:134-152``): sigmoid scores.
+- pretrain step (reference ``src/pretrain.py:54-70``): the three-loss
+  objective with the config's weights, Adam over the encoder's parameters
+  only when ``video_transform`` is frozen (``pretrain.py:35``), the learning
+  rate of each update from the reference's schedule.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Optional, Sequence
+from typing import Callable, Iterable, Optional, Sequence, Tuple, Union
 
 import torch
 
-from vidsum_tpu_torch.config import ModelConfig
+from vidsum_tpu_torch.config import ModelConfig, PretrainConfig
 from vidsum_tpu_torch.device import resolve_device
 from vidsum_tpu_torch.ops.losses import mse_with_mask_loss
 
 
-def make_optimizer(model: torch.nn.Module, lr: float,
-                   weight_decay: float = 0.0) -> torch.optim.Adam:
+def make_optimizer(params: Union[torch.nn.Module,
+                                 Iterable[Tuple[str, torch.Tensor]]],
+                   lr: float, weight_decay: float = 0.0) -> torch.optim.Adam:
     """Adam with coupled weight decay (grad += wd * param before the moment
-    updates): the JAX package's ``optax.add_decayed_weights`` + ``adam``."""
-    return torch.optim.Adam(model.parameters(), lr=lr, betas=(0.9, 0.999),
+    updates): the JAX package's ``optax.add_decayed_weights`` + ``adam``.
+    ``params`` is a module (all its parameters) or a list of ``(name,
+    parameter)`` pairs; the optimizer keeps the names (its state dict's
+    ``param_names``), which ``train.checkpoint.adam_state_from_jax`` maps the
+    JAX package's Adam state by."""
+    named = (params.named_parameters() if isinstance(params, torch.nn.Module)
+             else params)
+    return torch.optim.Adam(list(named), lr=lr, betas=(0.9, 0.999),
                             eps=1e-8, weight_decay=weight_decay)
+
+
+def update_count(optimizer: torch.optim.Optimizer) -> int:
+    """The number of updates ``optimizer`` has taken: its ``step`` (0 before
+    the first), read from the state (a CPU tensor: no device sync)."""
+    for group in optimizer.param_groups:
+        for p in group["params"]:
+            state = optimizer.state.get(p)
+            if state and "step" in state:
+                return int(state["step"])
+    return 0
 
 
 def make_finetune_step(cfg: ModelConfig, attn_impl: Optional[str] = None, *,
@@ -87,3 +108,46 @@ def make_eval_forward(cfg: ModelConfig, attn_impl: Optional[str] = None, *,
 
     fwd.attn_impl = attn_impl
     return fwd
+
+
+def make_pretrain_step(model_cfg: ModelConfig, pretrain_cfg: PretrainConfig,
+                       schedule: Callable[[int], float],
+                       attn_impl: Optional[str] = None, *,
+                       device=None) -> Callable:
+    """Returns ``step(model, optimizer, x, video_rep, pad_mask, generator,
+    block_seeds=None) -> tensor([total, main, center, repel])`` (on
+    ``device``, not synchronised) for a
+    :class:`~vidsum_tpu_torch.models.pretrain.PretrainModel`. Inputs may be
+    numpy arrays or tensors and move to ``device`` (default: the CUDA card,
+    which must exist). ``attn_impl`` ``None`` means ``"fused_block"`` on CUDA
+    (TPU kernels 9-12 in every block, demoting to ``"flash"`` past their
+    envelope) and ``"dense"`` on the CPU. Before ``optimizer.step()`` every
+    parameter group's ``lr`` is set to ``schedule(update_count(optimizer))``,
+    so a resumed optimizer continues the sequence. The optimizer holds only
+    the parameters that train (``make_optimizer`` over the encoder's when
+    ``video_transform`` is frozen), so the frozen ones keep their bits, weight
+    decay included (the JAX step zeroes their updates instead)."""
+    dev = resolve_device(device)
+    if attn_impl in (None, "auto"):
+        attn_impl = "fused_block" if dev.type == "cuda" else "dense"
+    cw, rw = pretrain_cfg.center_weight, pretrain_cfg.repel_weight
+
+    def step(model, optimizer, x, video_rep, pad_mask, generator,
+             block_seeds: Optional[Sequence[int]] = None):
+        x, video_rep, pad_mask = (torch.as_tensor(a).to(dev)
+                                  for a in (x, video_rep, pad_mask))
+        optimizer.zero_grad(set_to_none=True)
+        main, center, repel = model(x, video_rep, pad_mask,
+                                    attn_impl=attn_impl, deterministic=False,
+                                    generator=generator,
+                                    block_seeds=block_seeds)
+        total = main + cw * center + rw * repel
+        total.backward()
+        lr = schedule(update_count(optimizer))
+        for group in optimizer.param_groups:
+            group["lr"] = lr
+        optimizer.step()
+        return torch.stack([total, main, center, repel]).detach()
+
+    step.attn_impl = attn_impl
+    return step
