@@ -1,9 +1,11 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's serving (bf16 and int8, direct, over HTTP,
 on a device mesh and under the recycling supervisor), finetune, the finetune
-protocol (``cli.train``, checkpoints, ``cli.serve --ckpt``), self-supervised
-pretraining (``cli.pretrain``), long-video finetune and sequence-parallel
-finetune paths on one NVIDIA GPU.
+protocol (``cli.train``, checkpoints, ``cli.serve --ckpt``, the val pass's
+summaries on the card), self-supervised pretraining (``cli.pretrain``), the
+raw-video path (``cli.summarize``, the extractors, on-device shot
+selection), long-video finetune and sequence-parallel finetune paths on one
+NVIDIA GPU.
 
     python3 chip_smoke.py [--seed 0]
 
@@ -266,12 +268,47 @@ caught and passed over):
    steps' CUDA-event ms, each epoch's host clocks (collation, step calls,
    checkpoint copy, the rest), the load and write seconds, peak memory,
    the launches and the card-vs-CPU figures.
+   (1b) ``cli.train`` again on the same folds with ``--eval_impl device``:
+   every metric record (F, tau, rho, the losses), the printed result and
+   the trained model equal the host run's bit for bit; the line gives each
+   epoch's val pass and its summaries-and-metrics seconds on both routes.
 7d. recycle: ``python -m vidsum_tpu_torch.cli.serve --recycle_after_requests
    4 --warmup ""`` started as a supervisor from the repo root (the f32
    ``ModelConfig()`` service, random weights); 12 requests of 60-512 frames
    posted 0.6 s apart all answered 200 with one finite score a frame; the
    log shows at least 2 recycles and no worker crash; SIGINT ends it with
    0. The line gives requests, recycles, worker generations and wall.
+7e. summarize: ``cli.summarize.main`` at its defaults (``ModelConfig()``,
+   f32, GoogLeNet pool5 at 224, budget 0.15) with seeded scorer weights in a
+   port checkpoint and seeded GoogLeNet weights in a torchvision-layout
+   ``.pth``, over three numpy-made videos fed through the decoder seam
+   (``preprocess.reduce_fps.iter_reduced_frames``; the card's machine has no
+   cv2 or PIL): 480, 2,400 and 7,200 samples at 2 fps of 30-fps videos (4,
+   20 and 60 minutes), 224 x 398 frames in scenes of 8-31 s with per-frame
+   noise (``SyntheticVideos``), under PyTorch's default cuDNN flags (TF32
+   allowed: the backbones turn it off for their own calls). At 480 and
+   2,400 with ``--kts_impl host`` and ``device``: equal change points and
+   selected frames; at 7,200 the device KTS only. Each run: binary summary
+   within budget, finite scores, its wall, the decode stand-in's seconds,
+   peak memory and launches (zeroed before each run): the fused block
+   (rows 1/2) at 480, the flash route (rows 3/4) at 7,200. Then the 7,200
+   video through ``summarize_video(mesh=make_mesh((1, 4), cuda:0))``:
+   kernel 15 launches and its scores lie within 2e-4 of the single-device
+   route's. Then the 480 video's features and scores on the card against
+   the port's CPU run of the same path (``FEATURE_TOL``, ``SCORE_TOL``; one
+   inception branch's weights rolled by one output channel must fail), and
+   each stage alone per video (``breakdown``: backbone and scorer CUDA-event
+   ms, each KTS route's ms, the selection's).
+7f. extract: ``FeatureExtractor("google")`` on 64 frames at 224 and
+   ``("r3d18")`` on a 16-frame clip at 112, card against CPU (the same
+   bound and planted fault), their ms; ``device_normalize`` on the card
+   against the host normalisation over every uint8 value (max ULP); then
+   ``entry_from_features`` of the 480 video from card and CPU features: the
+   same change points, user summaries and gtscore.
+7g. device eval: ``device_generate_summary`` in one call on the card over
+   1,000 videos of the JAX fuzz's flavours and seed
+   (``eval_fuzz_video``), against the host oracle ``generate_summary``:
+   zero mismatches; both calls' ms and the host's.
 8. long train: (b) the ``"flash"`` route on one 8,100-frame video (bucket
    8,192, f32: the folded route, TPU kernels 7/8), card against CPU as in
    (a); (c) with the counters zeroed before each, 5 recipe epochs on the
@@ -290,7 +327,7 @@ caught and passed over):
    memory and a ``torch.profiler`` breakdown of one step per run.
    seq train: ``make_seq_sharded_finetune_step`` on a (1, 4) mesh of
    cuda:0: one step on one 8,100-frame video (f32, dropout 0.3, the
-   flagship cut to 2 layers for the CPU's sake) against the CPU's plain
+   flagship cut to 1 layer for the CPU's sake) against the CPU's plain
    path with the same seeds (per parameter, the step bound), one step at
    N 8,320 (an odd multiple of 128: shards of 2,080 frames, padded to
    2,112 for the kernels' 64-key tiles) against the plain ring on the card,
@@ -298,7 +335,8 @@ caught and passed over):
    Nl <= 2,304): kernels 16 and 17 launch 16 times per layer per step, the
    flash and block training kernels never; finite losses; step ms, peak
    memory and a ``torch.profiler`` breakdown of one step.
-9. the ``kernels`` line (27 routes, the f32 serving ones named
+9. a ``timeline`` line (each phase's wall seconds), then the ``kernels``
+   line (27 routes, the f32 serving ones named
    ``<route>.f32`` with their launches from the f32 serve pass, the
    training attention ones named
    ``attention_train.<route>``, the folded ones also in bf16 as
@@ -306,7 +344,9 @@ caught and passed over):
    ``attention_train.<route>.f32``, the int8 ones ``block_int8``,
    ``block_int8_grouped``, ``probe_mm_bf16`` and ``probe_mm_int8``, the
    ring ones ``ring_block``, ``ring_train_fwd``, ``ring_train_bwd``; the
-   GEMM routes with their design and ``ptxas`` report), the card's name
+   GEMM routes with their design and ``ptxas`` report; the f32 serving
+   routes and the ring also ``launches_summarize``, phase 7e's launches),
+   the card's name
    and power limit, and last ``{"ok": true, "device": {...}}``. No
    product of any phase may take a serving GEMM fallback, and no f32
    attention may stage its operands.
@@ -3043,6 +3083,41 @@ def phase_finetune(dev: dict, seed: int) -> None:
         check_no_gemm_fallback("the finetune protocol")
         timeline = clock.summary()
 
+        # 1b. the same CLI run with --eval_impl device: the same training,
+        # the val pass's summaries on the card; every record's F, tau and
+        # rho (and the losses) must be the host run's bit for bit
+        wd_dev = os.path.join(tmp, "run_device_eval")
+        argv_dev = ["--data", data, "--split_path", split_path,
+                    "--max_epoch", str(FT_EPOCHS), "--workdir", wd_dev,
+                    "--metrics", os.path.join(wd_dev, "metrics.jsonl"),
+                    "--eval_impl", "device"]
+        out_dev = io.StringIO()
+        with FoldLoopClock(fold_datasets) as clock_dev, \
+                contextlib.redirect_stdout(out_dev):
+            train_cli.main(argv_dev)
+        torch.cuda.synchronize()
+        printed_dev = json.loads(out_dev.getvalue().strip().splitlines()[-1])
+        with open(os.path.join(wd_dev, "metrics.jsonl")) as f:
+            records_dev = [json.loads(line) for line in f]
+        strip = [[{k: v for k, v in r.items() if k != "ts"} for r in rs]
+                 for rs in (records, records_dev)]
+        model_equal = all(
+            torch.equal(v, load_checkpoint(os.path.join(
+                wd_dev, "model_mae.ckpt"))[0][k])
+            for k, v in load_checkpoint(os.path.join(
+                wd, "model_mae.ckpt"))[0].items())
+        if strip[0] != strip[1] or printed_dev != printed or not model_equal:
+            raise AssertionError(
+                f"--eval_impl device: records {strip[1]} against the host "
+                f"run's {strip[0]}; printed {printed_dev} / {printed}; "
+                f"trained models equal: {model_equal}")
+        timeline_dev = clock_dev.summary()
+        eval_routes = {
+            impl: {"val_s": [round(e["val_s"], 6) for e in t["epochs"]],
+                   "metrics_s": [round(e["metrics_s"], 6)
+                                 for e in t["epochs"]]}
+            for impl, t in (("host", timeline), ("device", timeline_dev))}
+
         # 2. exact resume: fold 0 three epochs straight, and two + one
         one = folds[:1]
         tc = dataclasses.replace(conf.train, use_pretrained=False)
@@ -3120,7 +3195,10 @@ def phase_finetune(dev: dict, seed: int) -> None:
          resume_wall_s=resume_walls,
          count_params=count_params(clock.models[-1]),
          resume_bit_equal=True, resume_epoch_2_records_equal=True,
-         ckpt_service_bit_equal=True, ckpt_service_picks_equal=True)
+         ckpt_service_bit_equal=True, ckpt_service_picks_equal=True,
+         eval_impl_device={"records_equal_to_host": True,
+                           "trained_models_equal": True,
+                           "printed": printed_dev, "by_route": eval_routes})
 
 
 # clips of the pretrain phase's numpy-made tree (60-380 frames each: two
@@ -3485,6 +3563,493 @@ def phase_pretrain(dev: dict, seed: int) -> None:
 
 
 # requests of the recycle phase and the supervisor's threshold
+# ---------------------------------------------------------------------------
+# 7e-7g. the raw-video path: summarize, extract, device eval
+# ---------------------------------------------------------------------------
+
+# sampled frames of the summarize phase's three videos: 4, 20 and 60 minutes
+# at 30 fps, sampled at 2 fps (every 15th frame)
+SUM_PICKS = (480, 2400, 7200)
+SUM_STEP = 15
+# a 16:9 frame already at GoogLeNet's 224 shorter side (no resize, no PIL)
+SUM_FRAME = (224, 398)
+# card against the CPU: pool5 features and sigmoid scores, each entry within
+# atol + rtol |want| and the relative RMS within rel (set from the readings
+# with headroom; a weight rolled by one output channel must fail them)
+FEATURE_TOL = {"atol": 1e-4, "rtol": 1e-4, "rel": 1e-5}
+SCORE_TOL = {"atol": 1e-5, "rtol": 1e-5, "rel": 1e-5}
+# the seq forward's bound against the single-device route (the JAX test's)
+MESH_SCORE_TOL = {"atol": 2e-5, "rtol": 2e-4, "rel": 2e-4}
+
+
+class SyntheticVideos:
+    """Numpy-made videos in place of decoded files (the card's machine has
+    no cv2): ``stream("synthetic_<n>")`` is a ``ReducedStream`` of n sampled
+    frames (``SUM_FRAME`` uint8) in scenes of 16-63 samples (8-31 s), each
+    scene a random base frame plus per-frame noise in [-8, 8) from a pool of
+    8 patterns, so KTS has cuts to find and variance inside a scene. The
+    stream is the ``reduce_fps.iter_reduced_frames`` seam; ``decode_s``
+    sums the seconds spent making frames (the decoder's stand-in)."""
+
+    def __init__(self, seed: int) -> None:
+        import numpy as np
+
+        self.seed = seed
+        self.decode_s = 0.0
+        rng = np.random.default_rng(seed + 160)
+        self.noise = rng.integers(0, 16, (8, *SUM_FRAME, 3), dtype=np.uint8)
+
+    def scenes(self, n: int) -> list:
+        """The scene lengths of the n-sample video (seeded by n)."""
+        import numpy as np
+
+        rng = np.random.default_rng(self.seed + n)
+        lens = []
+        while sum(lens) < n:
+            lens.append(int(rng.integers(16, 64)))
+        lens[-1] -= sum(lens) - n
+        return [x for x in lens if x > 0]
+
+    def cuts(self, n: int) -> list:
+        """The planted cuts, in sample indices."""
+        import itertools
+
+        return list(itertools.accumulate(self.scenes(n)))[:-1]
+
+    def frames(self, n: int):
+        import numpy as np
+
+        rng = np.random.default_rng(self.seed + 7 * n)
+        i = 0
+        for length in self.scenes(n):
+            t0 = time.perf_counter()
+            base = rng.integers(0, 240, (*SUM_FRAME, 3), dtype=np.uint8)
+            self.decode_s += time.perf_counter() - t0
+            for _ in range(length):
+                t0 = time.perf_counter()
+                frame = base + self.noise[i % 8]   # <= 254: no wrap
+                self.decode_s += time.perf_counter() - t0
+                i += 1
+                yield frame
+
+    def stream(self, path: str, fps: int = 2):
+        from vidsum_tpu_torch.preprocess.reduce_fps import ReducedStream
+
+        n = int(path.rsplit("_", 1)[1])
+        return ReducedStream(frames=self.frames(n), n_frames=n * SUM_STEP,
+                             step=SUM_STEP, final_count=n,
+                             height=SUM_FRAME[0], width=SUM_FRAME[1])
+
+
+def tol_report(got, want, tol: dict) -> dict:
+    """Max abs error, relative RMS and whether ``got`` is within ``tol``."""
+    err, rel = errors(got, want)
+    return {"max_abs_err": err, "rel_rms": rel,
+            "within": within(got, want, tol)}
+
+
+def rolled_branch(net):
+    """A copy of a GoogLeNet or R3D-18 with one conv's weights rolled by one
+    output channel (a planted fault)."""
+    import copy
+
+    import torch
+
+    bad = copy.deepcopy(net)
+    conv = (bad.inception4a.branch2[1].conv if hasattr(bad, "inception4a")
+            else bad.layer3[0].conv1[0])
+    with torch.no_grad():
+        conv.weight.copy_(torch.roll(conv.weight, 1, dims=0))
+    return bad
+
+
+def summarize_breakdown(pl, cfg, scorer, google, videos, n: int,
+                        kts_impls) -> dict:
+    """Each stage of the path on the n-sample video, alone: making the
+    frames (host), the backbone over the stream's chunks with the frames
+    already on the card (CUDA events), the scorer (CUDA events), each KTS
+    route (host clock, the change points fetched) and the selection
+    (host)."""
+    import numpy as np
+    import torch
+
+    from vidsum_tpu_torch.device import resolve_device
+    from vidsum_tpu_torch.preprocess.extract import embed
+
+    videos.decode_s = 0.0
+    frames = torch.from_numpy(np.stack(list(videos.frames(n)))).to(
+        resolve_device(None))
+    decode_s = videos.decode_s
+    chunk = 256
+
+    def backbone():
+        return torch.cat([embed(google, "google", frames[i:i + chunk])
+                          for i in range(0, n, chunk)])
+
+    feats = backbone()
+    backbone_ms = cuda_ms(backbone, reps=2, warmup=0)
+    scorer_ms = cuda_ms(lambda: pl.score_features(scorer, cfg, feats),
+                        reps=3, warmup=1)
+    scores = pl.score_features(scorer, cfg, feats)[:n].float().cpu().numpy()
+    kts = {}
+    for impl in kts_impls:
+        t0 = time.perf_counter()
+        cps = pl.shot_bounds(feats, impl)
+        kts[impl + "_ms"] = (time.perf_counter() - t0) * 1e3
+    from vidsum_tpu_torch.ops.kts import change_points_from_cps
+    from vidsum_tpu_torch.ops.summary import generate_summary
+
+    b = change_points_from_cps(cps, n)
+    starts = b[:, 0] * SUM_STEP
+    cp = np.stack([starts, np.concatenate([starts[1:] - 1,
+                                           [n * SUM_STEP - 1]])], axis=1)
+    t0 = time.perf_counter()
+    generate_summary([cp], [scores], [n * SUM_STEP],
+                     [np.arange(n) * SUM_STEP])
+    select_ms = (time.perf_counter() - t0) * 1e3
+    del frames
+    return {"frames": n, "decode_stand_in_s": decode_s,
+            "backbone_ms": backbone_ms, "scorer_ms": scorer_ms,
+            "kts_ms": kts, "selection_ms": select_ms}
+
+
+def phase_summarize(dev: dict, seed: int) -> dict:
+    """7e. ``cli.summarize`` at its defaults on three numpy-made videos
+    (module docstring, phase 7e). Returns the launches of its runs and the
+    480-sample video's card and CPU features for the extract phase."""
+    import contextlib
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from vidsum_tpu_torch import pipeline as pl
+    from vidsum_tpu_torch.cli import summarize as sum_cli
+    from vidsum_tpu_torch.config import ModelConfig
+    from vidsum_tpu_torch.models.simnet import SimNet
+    from vidsum_tpu_torch.parallel.mesh import make_mesh
+    from vidsum_tpu_torch.preprocess import GoogLeNet
+    from vidsum_tpu_torch.preprocess import reduce_fps as rf
+    from vidsum_tpu_torch.train.checkpoint import save_checkpoint
+
+    from vidsum_tpu_torch.device import resolve_device
+
+    gpu = resolve_device(None)
+    first, longest = SUM_PICKS[0], SUM_PICKS[-1]
+    videos = SyntheticVideos(seed)
+    recorded = {}
+    real_summarize = pl.summarize_video
+
+    def recording(path, *args, **kw):
+        out = real_summarize(path, *args, **kw)
+        recorded[(path, kw.get("kts_impl", "host"),
+                  kw.get("mesh") is not None)] = out
+        return out
+
+    runs, launches = [], {}
+    with tempfile.TemporaryDirectory() as tmp, contextlib.ExitStack() as st:
+        st.callback(setattr, rf, "iter_reduced_frames",
+                    rf.iter_reduced_frames)
+        st.callback(setattr, pl, "summarize_video", real_summarize)
+        rf.iter_reduced_frames = videos.stream
+        pl.summarize_video = recording
+        # PyTorch's default (cuDNN may use TF32 for f32 convolutions), which
+        # main() turns off for the kernel checks: the backbones must turn it
+        # off for their own calls, and the card-vs-CPU check below shows it
+        st.enter_context(torch.backends.cudnn.flags(enabled=True,
+                                                    allow_tf32=True))
+        ckpt = os.path.join(tmp, "scorer.ckpt")
+        gweights = os.path.join(tmp, "googlenet.pth")
+        save_checkpoint(ckpt, SimNet(
+            ModelConfig(), device="cpu",
+            generator=torch.Generator().manual_seed(seed + 16)).state_dict())
+        torch.save(GoogLeNet(generator=torch.Generator().manual_seed(
+            seed + 17)).state_dict(), gweights)
+        base = ["--ckpt", ckpt, "--google_weights", gweights]
+
+        # 1. the CLI on every video and KTS route
+        for n in SUM_PICKS:
+            for impl in (("host", "device") if n < longest else ("device",)):
+                out = os.path.join(tmp, f"{n}_{impl}.json")
+                reset_counters()
+                torch.cuda.reset_peak_memory_stats()
+                videos.decode_s = 0.0
+                t0 = time.monotonic()
+                sum_cli.main(base + ["--video", f"synthetic_{n}",
+                                     "--kts_impl", impl, "--out", out])
+                torch.cuda.synchronize()
+                wall = time.monotonic() - t0
+                counts = {k: v for k, v in read_counters().items() if v}
+                with open(out) as f:
+                    printed = json.load(f)
+                r = recorded[(f"synthetic_{n}", impl, False)]
+                sel = printed["selected_frames"]
+                if not (printed["n_frames"] == n * SUM_STEP
+                        and r.summary.shape == (n * SUM_STEP,)
+                        and set(np.unique(r.summary)) <= {0, 1}
+                        and len(sel) <= int(n * SUM_STEP * 0.15)
+                        and np.isfinite(r.scores).all()
+                        and r.scores.shape == (n,)):
+                    raise AssertionError(f"summarize {n} {impl}: bad output")
+                runs.append({"frames": n, "kts_impl": impl, "wall_s": wall,
+                             "decode_stand_in_s": videos.decode_s,
+                             "peak_memory_gib":
+                                 torch.cuda.max_memory_allocated() / 2**30,
+                             "shots": len(r.change_points),
+                             "selected": len(sel), "launches": counts})
+                launches[(n, impl)] = counts
+        planted = {}
+        for n in SUM_PICKS[:2]:
+            h = recorded[(f"synthetic_{n}", "host", False)]
+            d = recorded[(f"synthetic_{n}", "device", False)]
+            if not (np.array_equal(h.change_points, d.change_points)
+                    and np.array_equal(h.summary, d.summary)):
+                raise AssertionError(
+                    f"{n} samples: device KTS {len(d.change_points)} shots "
+                    f"against the host's {len(h.change_points)}")
+            found = set((h.change_points[:, 0] // SUM_STEP).tolist())
+            planted[n] = [sum(c in found for c in videos.cuts(n)),
+                          len(videos.cuts(n))]
+        block = sum(launches[(first, i)].get(r, 0)
+                    for i in ("host", "device")
+                    for r in ("_fused_block", "_fused_block_grouped"))
+        flash = sum(launches[(longest, "device")].get(r, 0) for r in (
+            "_flash_attention", "_flash_attention_folded"))
+        if not block or not flash:
+            raise AssertionError(f"the block route launched {block} times at "
+                                 f"{first} samples, the flash route {flash} "
+                                 f"times at {longest}: {launches}")
+
+        # 2. the 7,200-sample video over a (1, 4) mesh of this card
+        args = sum_cli.build_parser().parse_args(base + ["--video", "x"])
+        cfg, scorer, google = sum_cli.load_models(args)
+        mesh = make_mesh((1, 4), gpu)
+        reset_counters()
+        t0 = time.monotonic()
+        sharded = pl.summarize_video(f"synthetic_{longest}", scorer, cfg,
+                                     google, mesh=mesh, kts_impl="device")
+        torch.cuda.synchronize()
+        mesh_wall = time.monotonic() - t0
+        mesh_counts = {k: v for k, v in read_counters().items() if v}
+        single = recorded[(f"synthetic_{longest}", "device", False)]
+        mesh_check = tol_report(torch.from_numpy(sharded.scores),
+                                torch.from_numpy(single.scores),
+                                MESH_SCORE_TOL)
+        if not mesh_check["within"] or not mesh_counts.get(
+                "_ring_block_step"):
+            raise AssertionError(f"mesh route: {mesh_check}, launches "
+                                 f"{mesh_counts}")
+        launches["mesh"] = mesh_counts
+
+        # 3. the 480-sample video: card against the port's CPU run
+        dev_cpu = torch.device("cpu")
+        cfg_c, scorer_c, google_c = sum_cli.load_models(args, "cpu")
+        t0 = time.monotonic()
+        p_cpu = pl._begin_video(f"synthetic_{first}", scorer_c, cfg_c,
+                                google_c, 2, 224, 64, None, 256, dev_cpu)
+        cpu_s = time.monotonic() - t0
+        p_gpu = pl._begin_video(f"synthetic_{first}", scorer, cfg, google, 2,
+                                224, 64, None, 256, gpu)
+        feats_g, feats_c = p_gpu.feats.cpu(), p_cpu.feats
+        feat_check = tol_report(feats_g, feats_c, scaled(FEATURE_TOL,
+                                                         feats_c))
+        score_check = tol_report(p_gpu.scores[:first].cpu(),
+                                 p_cpu.scores[:first], SCORE_TOL)
+        p_bad = pl._begin_video(f"synthetic_{first}", scorer, cfg,
+                                rolled_branch(google), 2, 224, 64, None,
+                                256, gpu)
+        fault = tol_report(p_bad.feats.cpu(), feats_c,
+                           scaled(FEATURE_TOL, feats_c))
+        if not (feat_check["within"] and score_check["within"]) \
+                or fault["within"]:
+            raise AssertionError(f"card against CPU at {first} samples: "
+                                 f"features {feat_check}, scores "
+                                 f"{score_check}, planted fault {fault}")
+
+        # 4. each stage alone
+        breakdown = [summarize_breakdown(
+            pl, cfg, scorer, google, videos, n,
+            ("host", "device") if n < longest else ("device",))
+            for n in SUM_PICKS]
+
+    emit("summarize", card=dev["smi"],
+         config=("ModelConfig() (d 256, 4 heads, 4 layers, f32), GoogLeNet "
+                 "pool5 at 224, budget 0.15, the CLI's defaults; seeded "
+                 "weights from a port checkpoint and a torchvision-layout "
+                 ".pth"),
+         videos={n: {"samples": n, "frames": n * SUM_STEP,
+                     "scenes": len(videos.scenes(n))} for n in SUM_PICKS},
+         runs=runs, planted_cuts_found_by_host=planted,
+         host_equals_device_kts=True,
+         mesh={"wall_s": mesh_wall, "launches": mesh_counts,
+               "scores_vs_single": mesh_check,
+               "padded_length": pl.score_length(longest, 64, mesh)},
+         card_vs_cpu={"features": feat_check, "scores": score_check,
+                      "planted_fault": fault, "cpu_begin_s": cpu_s,
+                      "tolerance": {"features": FEATURE_TOL,
+                                    "scores": SCORE_TOL}},
+         breakdown=breakdown)
+    return {"launches": launches, "feats_480": (feats_g.numpy(),
+                                                feats_c.numpy())}
+
+
+def phase_extract(dev: dict, seed: int, feats_480) -> None:
+    """7f. The offline extractors on the card against their CPU run, and
+    the dataset entry of one video (module docstring, phase 7f)."""
+    import numpy as np
+    import torch
+
+    from vidsum_tpu_torch.device import resolve_device
+    from vidsum_tpu_torch.preprocess import FeatureExtractor
+    from vidsum_tpu_torch.preprocess.annotations import VideoAnnotation
+    from vidsum_tpu_torch.preprocess.build_dataset import entry_from_features
+    from vidsum_tpu_torch.preprocess.transforms import (
+        device_normalize, imagenet_normalize, video_normalize,
+    )
+
+    rng = np.random.default_rng(seed + 170)
+    lines = {}
+    for kind, shape, size in (("google", (64, 224, 398, 3), 224),
+                              ("r3d18", (16, 112, 149, 3), 112)):
+        video = rng.integers(0, 256, shape, dtype=np.uint8)
+        ex, ex_c = (FeatureExtractor(kind, device=d) for d in (None, "cpu"))
+        run = ((lambda e: e.frames(video, size)) if kind == "google"
+               else (lambda e: e.clip(video, size)))
+        got, want = (torch.from_numpy(run(e)) for e in (ex, ex_c))
+        check = tol_report(got, want, scaled(FEATURE_TOL, want))
+        good, ex.net = ex.net, rolled_branch(ex.net)
+        fault = tol_report(torch.from_numpy(run(ex)), want,
+                           scaled(FEATURE_TOL, want))
+        ex.net = good
+        if not check["within"] or fault["within"]:
+            raise AssertionError(f"{kind} extractor, card against CPU: "
+                                 f"{check}; planted fault {fault}")
+        ms = cuda_ms(lambda: run(ex), reps=3)
+        lines[kind] = {"input": list(shape), "size": size,
+                       "out": list(got.shape), "ms": ms,
+                       "frames_per_s": shape[0] / ms * 1e3,
+                       "batch_size": ex.batch_size, "check": check,
+                       "planted_fault": fault}
+
+    allv = np.broadcast_to(np.arange(256, dtype=np.uint8)[None, :, None],
+                           (1, 256, 3)).copy()
+    ulp = {}
+    for kind, host in (("google", imagenet_normalize),
+                       ("r3d18", video_normalize)):
+        want = host(allv)
+        got = device_normalize(torch.from_numpy(allv).to(
+            resolve_device(None)), kind).cpu()
+        ulp[kind] = float((np.abs(got.numpy() - want)
+                           / np.spacing(np.abs(want))).max())
+
+    feats_g, feats_c = feats_480
+    n = feats_g.shape[0]
+    picks = np.arange(n) * SUM_STEP
+    arng = np.random.default_rng(seed + 171)
+    gt = arng.random(n * SUM_STEP).astype(np.float32)
+    anno = VideoAnnotation(video_id=f"synthetic_{n}", gt_score=gt,
+                           n_frames=n * SUM_STEP,
+                           user_anno=(gt[None] * 4 + arng.random(
+                               (5, n * SUM_STEP))).astype(np.float32))
+    entries = [entry_from_features(f, None, picks, n * SUM_STEP, anno)
+               for f in (feats_g, feats_c)]
+    same = {k: bool(np.array_equal(entries[0][k], entries[1][k]))
+            for k in ("change_points", "user_summary", "gtscore", "picks")}
+    if not all(same.values()):
+        raise AssertionError(f"entry_from_features, card against CPU "
+                             f"features: {same}")
+    emit("extract", card=dev["smi"], extractors=lines,
+         device_normalize_max_ulp=ulp, entry_equal_to_cpu=same,
+         entry_shots=len(entries[0]["change_points"]))
+
+
+EVAL_FLAVORS = ("plain", "ties", "tiny_shots", "exact_end", "overhang",
+                "nonmono", "short_scores", "int32_picks", "float_picks")
+EVAL_VIDEOS = 1000
+
+
+def eval_fuzz_video(rng, flavor: str):
+    """One randomized DSNet-shaped video of a JAX fuzz flavour (the JAX
+    package's ``tests/test_reference_differential._random_video``, drawn in
+    the same order): (picks, n_frames, scores, change points)."""
+    import numpy as np
+
+    n_picks = int(rng.integers(8, 140))
+    step = int(rng.integers(1, 20))
+    picks = np.arange(n_picks) * step
+    n_frames = int(picks[-1] + rng.integers(1, step + 1))
+    if flavor == "exact_end":
+        n_frames = int(picks[-1]) if picks[-1] > 0 else 1
+    elif flavor == "overhang":
+        n_frames = max(1, int(picks[-1] - rng.integers(0, step + 1)))
+    elif flavor == "nonmono":
+        picks = picks.copy()
+        rng.shuffle(picks[:-1])
+    scores = rng.random(n_picks).astype(np.float32)
+    if flavor == "ties":
+        scores = (rng.integers(0, 4, size=n_picks) / 4.0).astype(np.float32)
+    elif flavor == "short_scores":
+        scores = scores[: max(1, n_picks - 1)]
+    if flavor == "tiny_shots":
+        seg = rng.integers(1, 4)
+        bounds = np.concatenate([np.arange(0, n_frames, seg), [n_frames]])
+    else:
+        n_shots = int(rng.integers(1, 16))
+        n_cuts = min(n_shots - 1, max(0, n_frames - 1))
+        cuts = (np.sort(rng.choice(np.arange(1, n_frames), n_cuts,
+                                   replace=False)) if n_cuts
+                else np.array([], int))
+        bounds = np.concatenate([[0], cuts, [n_frames]])
+    cp = np.stack([bounds[:-1], bounds[1:] - 1], axis=1).astype(np.int64)
+    if flavor == "int32_picks":
+        picks = picks.astype(np.int32)
+    elif flavor == "float_picks":
+        picks = picks.astype(np.float64)
+    return picks, n_frames, scores, cp
+
+
+def phase_device_eval(dev: dict) -> None:
+    """7g. ``device_generate_summary`` on the card against the host oracle
+    over 1,000 fuzz videos (module docstring, phase 7g)."""
+    import numpy as np
+    import torch
+
+    from vidsum_tpu_torch.ops.device_eval import (
+        device_eligible, device_generate_summary,
+    )
+    from vidsum_tpu_torch.ops.summary import generate_summary
+
+    rng = np.random.default_rng(0)   # the JAX fuzz's default seed
+    videos = [eval_fuzz_video(rng, EVAL_FLAVORS[i % len(EVAL_FLAVORS)])
+              for i in range(EVAL_VIDEOS)]
+    args = ([v[3] for v in videos], [v[2] for v in videos],
+            [v[1] for v in videos], [v[0] for v in videos])
+    eligible = sum(device_eligible(v[0], v[2], v[1]) for v in videos)
+    t0 = time.perf_counter()
+    host = generate_summary(*args)
+    host_ms = (time.perf_counter() - t0) * 1e3
+    calls = []
+    torch.cuda.reset_peak_memory_stats()
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = device_generate_summary(*args)
+        calls.append((time.perf_counter() - t0) * 1e3)
+    bad = [i for i, (h, g) in enumerate(zip(host, got))
+           if not np.array_equal(h, g)]
+    if bad:
+        raise AssertionError(f"device summaries differ from the host "
+                             f"oracle's for {len(bad)} of {EVAL_VIDEOS} "
+                             f"videos: {bad[:10]}")
+    emit("device_eval", card=dev["smi"], videos=EVAL_VIDEOS,
+         flavors=EVAL_FLAVORS, seed=0, on_device=eligible,
+         to_host=EVAL_VIDEOS - eligible, mismatches=0,
+         device_call_ms=calls, host_ms=host_ms,
+         peak_memory_gib=torch.cuda.max_memory_allocated() / 2**30,
+         max_shots=max(len(v[3]) for v in videos),
+         max_frames=max(v[1] for v in videos))
+
+
 RECYCLE_REQUESTS = 12
 RECYCLE_EVERY = 4
 
@@ -4447,10 +5012,11 @@ def phase_ring_multi_card(seed: int) -> None:
 
 # layers of the seq-train step's card-against-CPU check: the CPU's plain
 # ring at 8,192 frames (the hash masks and the recompute over (1, 4, 2,048,
-# 2,048) blocks) takes 55-60 s for the 2-layer step on an H100 host's 8
-# cores, so it runs 2 of the flagship's 4 (the line says so in "layers",
-# and its time in "wall_s")
-SEQ_CPU_LAYERS = 2
+# 2,048) blocks) took 55-80 s for a 2-layer step on an H100 host's 8
+# cores, so it runs 1 of the flagship's 4 (every layer runs the same code;
+# the line says so in "layers", and its time in "wall_s"), which keeps the
+# run short
+SEQ_CPU_LAYERS = 1
 
 
 def phase_seq_train(seed: int, long_videos: list) -> dict:
@@ -4978,6 +5544,23 @@ def compare_trees(parent: str, seed: int) -> int:
     return 0
 
 
+class PhaseClock:
+    """Wall seconds of the run's phases, for the ``timeline`` line: each
+    ``mark(name)`` closes the phase since the previous mark."""
+
+    def __init__(self) -> None:
+        self.start = self.last = time.monotonic()
+        self.seconds = {}
+
+    def mark(self, name: str) -> None:
+        now = time.monotonic()
+        self.seconds[name] = round(now - self.last, 3)
+        self.last = now
+
+    def total(self) -> float:
+        return round(time.monotonic() - self.start, 3)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -5002,19 +5585,26 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
+    clock = PhaseClock()
     dev = phase_device()
     (mma_regs, gemm_regs, bt_regs, fma_regs, f32_gemm_regs,
      fma_serve_regs, int8_regs, ring_regs) = phase_build()
+    clock.mark("build")
     timings = phase_kernels(dev, args.seed)
     phase_gemm(dev, args.seed)
+    clock.mark("kernels_gemm")
     timings.update(phase_int8_kernels(dev, args.seed))
     probe_timings, probe_launches = phase_int8_probe(dev)
     timings.update(probe_timings)
+    clock.mark("int8")
     timings.update(phase_train_kernels(dev, args.seed))
     timings.update(phase_train_attention(dev, args.seed, fma_regs))
+    clock.mark("train_kernels")
     timings.update(phase_ring_kernels(dev, args.seed, ring_regs))
+    clock.mark("ring_kernels")
     for shape in (D512, D384, D768, D192, D320, D896, D1024):
         phase_wide(args.seed, shape)
+    clock.mark("wide")
     counts = phase_serve(args.seed)
     counts.update({r + ".f32": n for r, n in phase_serve(
         args.seed, "float32").items() if r in SERVE_ROUTES})
@@ -5025,18 +5615,31 @@ def main() -> int:
         "_ring_block_step"]
     phase_ring_multi_card(args.seed)
     counts.update(probe_launches)
+    clock.mark("serve")
     counts.update({r: n for r, n in phase_train(args.seed).items()
                    if r in TRAIN_ROUTES or r.endswith(".f32")})
+    clock.mark("train")
     phase_finetune(dev, args.seed)
+    clock.mark("finetune")
     phase_pretrain(dev, args.seed)
+    clock.mark("pretrain")
     phase_recycle(args.seed)
+    clock.mark("recycle")
+    summarized = phase_summarize(dev, args.seed)
+    clock.mark("summarize")
+    phase_extract(dev, args.seed, summarized["feats_480"])
+    clock.mark("extract")
+    phase_device_eval(dev)
+    clock.mark("device_eval")
     long_launches, long_videos, bucket_err = phase_long_train(args.seed)
     counts.update(long_launches)
     # the bf16 fold's max_abs_err: the larger of its two checks, at
     # (2, 4, 8192, 64) and at the long-video run's largest bucket
     for name, err in bucket_err.items():
         timings[name]["max_abs_err"] = max(timings[name]["max_abs_err"], err)
+    clock.mark("long_train")
     counts.update(phase_seq_train(args.seed, long_videos))
+    clock.mark("seq_train")
     check_no_gemm_fallback("the run")
 
     replaces = {
@@ -5070,6 +5673,10 @@ def main() -> int:
         "_ring_train_step": "vidsum_tpu/parallel/ring_attention.py:422",
         "_ring_train_step_bwd": "vidsum_tpu/parallel/ring_attention.py:478",
     }
+    summarize_launches = {}
+    for run_counts in summarized["launches"].values():
+        for r, n in run_counts.items():
+            summarize_launches[r] = summarize_launches.get(r, 0) + n
     csrc = "vidsum_tpu_torch/csrc/"
     block_src = [csrc + "gemm_bias_epilogue.cu", csrc + "masked_attention.cu",
                  csrc + "mma_tiles.cuh"]
@@ -5112,6 +5719,11 @@ def main() -> int:
                  "route": "cuda", "source": srcs[0], "sources": srcs,
                  "replaces": rep, "launches": counts[route],
                  **timings[route]}
+        if route.split(".")[0] in summarize_launches and (
+                route.endswith(".f32") or route in RING_ROUTES):
+            # the summarize phase's f32 scorer (its CLI runs and the mesh)
+            entry["launches_summarize"] = summarize_launches[
+                route.split(".")[0]]
         if route in ("_fused_block.f32", "_fused_block_grouped.f32"):
             entry["design"] = SERVING_F32_DESIGN
             entry["ptxas"] = f32_gemm_regs + [
@@ -5144,6 +5756,7 @@ def main() -> int:
             entry["ptxas"] = [r for r in ring_regs if "<64," in r["kernel"]
                               and r["kernel"].startswith(kinds)]
         kernels.append(entry)
+    emit("timeline", seconds=clock.seconds, total_s=clock.total())
     print(dev["smi"], flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -487,8 +487,7 @@ def test_entry_points_run_on_the_card_only(data_root, tmp_path):
     _, conf = _configs(data_root)
     argv = ["--data", data_root, "--split_path", "x.json"]
     for bad, match in ((["--dp"], "multi-GPU slice"),
-                       (["--tp", "2"], "multi-GPU slice"),
-                       (["--eval_impl", "device"], "device-eval slice")):
+                       (["--tp", "2"], "multi-GPU slice")):
         with pytest.raises(NotImplementedError, match=match):
             train_cli.main(argv + bad, device="cpu")
     with pytest.raises(NotImplementedError, match="multi-GPU slice"):

@@ -198,16 +198,18 @@ def test_submit_validation_and_later_slices(pair):
 def test_port_imports_neither_jax_nor_the_jax_package():
     """Importing every module of the port in a fresh interpreter leaves jax
     and vidsum_tpu out of sys.modules, and the packages the card's machine
-    does not have (h5py, yaml, flax, optax, msgpack) too. The int8 slice's
-    modules, the sequence-parallel ones and the finetune protocol's (data,
-    checkpoints, the msgpack reader, the CLIs) are among those imported."""
+    does not have (h5py, yaml, flax, optax, msgpack, cv2, PIL) too. The
+    int8 slice's modules, the sequence-parallel ones, the finetune
+    protocol's (data, checkpoints, the msgpack reader, the CLIs) and the
+    raw-video path's (preprocess, pipeline, device eval, the exports, the
+    summarize and build_dataset CLIs) are among those imported."""
     code = (
         "import pkgutil, importlib, sys\n"
         "import vidsum_tpu_torch as p\n"
         "for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.'):\n"
         "    importlib.import_module(m.name)\n"
         "roots = ('jax', 'vidsum_tpu', 'h5py', 'yaml', 'flax', 'optax',\n"
-        "         'msgpack')\n"
+        "         'msgpack', 'cv2', 'PIL')\n"
         "bad = sorted(k for k in sys.modules if k.split('.')[0] in roots)\n"
         "n = sum(k.startswith('vidsum_tpu_torch') for k in sys.modules)\n"
         "new = ['ops.quant', 'ops.block_kernel_int8', 'serve_http',\n"
@@ -217,7 +219,12 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "       'train.checkpoint', 'train.flax_msgpack', 'train.finetune',\n"
         "       'cli.train', 'cli.evaluate', 'export.summary_json',\n"
         "       'ops.segmentation', 'ops.legacy_eval', 'utils.profiling',\n"
-        "       'utils.metrics_log']\n"
+        "       'utils.metrics_log', 'ops.device_eval', 'pipeline',\n"
+        "       'preprocess.nn', 'preprocess.googlenet', 'preprocess.r3d',\n"
+        "       'preprocess.transforms', 'preprocess.reduce_fps',\n"
+        "       'preprocess.extract', 'preprocess.annotations',\n"
+        "       'preprocess.build_dataset', 'export.attention',\n"
+        "       'export.frames', 'cli.summarize', 'cli.build_dataset']\n"
         "missing = [m for m in new if 'vidsum_tpu_torch.' + m\n"
         "           not in sys.modules]\n"
         "print(n, bad, missing)\n"

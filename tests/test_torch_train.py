@@ -367,8 +367,12 @@ def test_eval_metrics_equal_jax():
     want = jax_eval_metrics(scores, users)
     assert got[0] == want[0]
     np.testing.assert_array_equal(np.asarray(got[1:]), np.asarray(want[1:]))
-    with pytest.raises(NotImplementedError, match="device-eval slice"):
-        eval_metrics(scores, users, impl="device")
+    # the device route gives the same numbers; it runs on the card unless
+    # asked for the CPU
+    assert eval_metrics(scores, users, impl="device", device="cpu") == got
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            eval_metrics(scores, users, impl="device")
 
 
 def test_two_epochs_match_jax():

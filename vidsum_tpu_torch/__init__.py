@@ -19,6 +19,12 @@ long videos (``parallel``); the finetune protocol (``cli.train`` ->
 resume from its state files, ``cli.evaluate`` and ``cli.serve --ckpt``);
 self-supervised pretraining (``cli.pretrain`` -> ``train.pretraining.
 pretrain`` -> ``models.pretrain.PretrainModel`` and the pretrain losses of
-``ops.losses``); and the serving CLI's worker-recycling supervisor
-(``cli.serve --recycle_after_mb / --recycle_after_requests``).
+``ops.losses``); the serving CLI's worker-recycling supervisor
+(``cli.serve --recycle_after_mb / --recycle_after_requests``); and the
+raw-video path (``cli.summarize`` -> ``pipeline.summarize_video``: frames
+decoded by ``preprocess.reduce_fps``, GoogLeNet pool5 from
+``preprocess.googlenet``, the scorer, KTS and the knapsack; the offline
+``preprocess`` stage and ``cli.build_dataset``) with shot selection on the
+card (``ops.kts.kts_segmentation_device``, ``ops.knapsack.knapsack_device``,
+``ops.device_eval``, ``eval_impl="device"``).
 """

@@ -7,9 +7,10 @@ package's (its ``--lr`` default is the launch recipe's 1e-3, not the
 reference's literal 1e5). Training runs on the CUDA card; ``main(argv,
 device="cpu")`` runs the plain PyTorch path (a keyword of the function, not
 a flag). On the card, head_dim (d_model / num_heads) must be at most 128
-and d_model at most 1,024. Options of later slices raise
-``NotImplementedError`` naming them: ``--dp`` and ``--tp`` > 1 (the
-multi-GPU slice) and ``--eval_impl device`` (the device-eval slice).
+and d_model at most 1,024. ``--eval_impl device`` builds the val pass's
+summaries on the card (``ops/device_eval.py``; the same frames as the host
+oracle). ``--dp`` and ``--tp`` > 1 arrive with the multi-GPU slice and raise
+``NotImplementedError`` naming it.
 
 Usage:
     python -m vidsum_tpu_torch.cli.train --data data --datasets tvsum \\
@@ -85,8 +86,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--eval_impl", type=str, default="host",
                    choices=("host", "device"),
                    help="summary pipeline for val epochs: 'host' = the "
-                        "NumPy/C++ pipeline (default); 'device' arrives "
-                        "with the device-eval slice")
+                        "NumPy/C++ pipeline (default), 'device' = one "
+                        "batched pass on the card (the same frames)")
     p.add_argument("--state_save_every", type=int, default=1,
                    help="save the full resume state every K epochs; the "
                         "last epoch of a split always saves")
@@ -121,9 +122,6 @@ def main(argv=None, *, device=None) -> None:
         raise NotImplementedError(
             "--dp / --tp > 1 (data/tensor-parallel training) arrive with "
             "the multi-GPU slice")
-    if args.eval_impl == "device":
-        raise NotImplementedError(
-            "--eval_impl device arrives with the device-eval slice")
     logging.basicConfig(format="[%(levelname)s] %(module)s - %(message)s",
                         level=logging.INFO)
     if args.split_path:

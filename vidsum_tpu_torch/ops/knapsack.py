@@ -1,5 +1,4 @@
-# ported from vidsum_tpu/ops/knapsack.py (NumPy and native paths; the
-# on-device knapsack arrives with the device-eval slice)
+# ported from vidsum_tpu/ops/knapsack.py
 """0/1 knapsack shot selection.
 
 Behaviour (reference: ``src/evaluation/knapsack_implementation.py:1-30``):
@@ -9,6 +8,9 @@ backtrack with the strict inequality ``K[i][w] != K[i-1][w]``, emitting
 selected shot indices in ascending order. Every table entry is the same
 float64 add/compare as the reference's Python-float loop, so the selected
 set is bit-for-bit the reference's.
+
+:func:`knapsack_device` is the same DP on tensors, batched over videos, on
+their device (the ``eval_impl="device"`` path; the JAX ``knapsack_jax``).
 """
 
 from __future__ import annotations
@@ -16,6 +18,7 @@ from __future__ import annotations
 from typing import List, Sequence
 
 import numpy as np
+import torch
 
 from vidsum_tpu_torch import native
 
@@ -62,3 +65,47 @@ def knapsack(W: int, wt: Sequence[int], val: Sequence[float],
             selected.insert(0, i - 1)
             w -= int(wt_arr[i - 1])
     return selected
+
+
+def knapsack_device(W: int, wt: torch.Tensor, val: torch.Tensor,
+                    budget=None) -> torch.Tensor:
+    """The DP of :func:`knapsack` on ``wt`` / ``val`` (V, S), batched over
+    the V videos, on their device (the JAX ``knapsack_jax``, vmapped).
+    Returns the selection mask (V, S) bool.
+
+    ``W`` is the table's width (a static bound); ``budget`` (V,) is each
+    video's capacity, clipped to [0, W] (default W). The table is float64,
+    as the host DP's: the JAX package accumulates double-float pairs only
+    because the TPU has no float64. Each entry is the host DP's add and
+    compare (include wins a tie, ``>=``), and the backtrack keeps the host's
+    strict ``K[i][w] != K[i-1][w]``, so the picks are the host oracle's by
+    construction for equal ``val``. That comparison is all the backtrack
+    reads, so the forward keeps it per entry as a bool (S, V, W+1) instead
+    of the rows. Padded shots (weight 0, value 0) never change a row, so
+    they are never taken."""
+    dev = val.device
+    wt = wt.to(device=dev, dtype=torch.int64)
+    val = val.to(torch.float64)
+    V, S = wt.shape
+    Wp1 = int(W) + 1
+    cols = torch.arange(Wp1, device=dev)
+    prev = torch.zeros((V, Wp1), dtype=torch.float64, device=dev)
+    changed = torch.empty((S, V, Wp1), dtype=torch.bool, device=dev)
+    for i in range(S):
+        w_i = wt[:, i:i + 1]
+        inc = val[:, i:i + 1] + torch.gather(
+            prev, 1, (cols[None, :] - w_i).clamp(0, Wp1 - 1))
+        use = (cols[None, :] >= w_i) & (inc >= prev)
+        row = torch.where(use, inc, prev)
+        torch.ne(row, prev, out=changed[i])
+        prev = row
+    w = (torch.full((V,), Wp1 - 1, device=dev) if budget is None
+         else torch.as_tensor(budget, device=dev).to(torch.int64)
+         .clamp(0, Wp1 - 1))
+    taken = torch.zeros((V, S), dtype=torch.bool, device=dev)
+    v_idx = torch.arange(V, device=dev)
+    for i in range(S - 1, -1, -1):
+        take = changed[i, v_idx, w]
+        taken[:, i] = take
+        w = torch.where(take, w - wt[:, i], w)
+    return taken

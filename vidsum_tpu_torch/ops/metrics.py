@@ -1,5 +1,4 @@
-# ported from vidsum_tpu/ops/metrics.py (the host pipeline; the device eval
-# arrives with the device-eval slice)
+# ported from vidsum_tpu/ops/metrics.py
 """Summary-quality metrics: F-score vs user summaries, Kendall-tau /
 Spearman-rho vs per-annotator scores, and the per-epoch eval entry point.
 
@@ -19,6 +18,7 @@ from typing import Dict, Tuple
 import numpy as np
 from scipy import stats
 
+from vidsum_tpu_torch.ops.device_eval import device_generate_summary
 from vidsum_tpu_torch.ops.summary import generate_summary, upsample
 
 
@@ -72,20 +72,29 @@ def evaluate_scores(predicted_scores: np.ndarray,
 def eval_metrics(score_dict: Dict[str, np.ndarray], user_dict: Dict[str, object],
                  eval_method: str = "avg",
                  budget_ratio: float = 0.15,
-                 impl: str = "host") -> Tuple[float, float, float]:
+                 impl: str = "host", *,
+                 device=None) -> Tuple[float, float, float]:
     """Mean (F-score, Kendall-tau, Spearman-rho) over the videos of
     ``score_dict``; ``user_dict`` values are
-    :class:`~vidsum_tpu_torch.data.datasets.UserSummaries`."""
-    if impl != "host":
-        raise NotImplementedError(f"eval impl {impl!r} arrives with the "
-                                  f"device-eval slice; use 'host'")
+    :class:`~vidsum_tpu_torch.data.datasets.UserSummaries`.
+
+    ``impl`` ``"host"`` builds the summaries with the float64 NumPy / C++
+    pipeline (the oracle), ``"device"`` with one batched pass on ``device``
+    (default: the CUDA card) through
+    :func:`~vidsum_tpu_torch.ops.device_eval.device_generate_summary`, which
+    selects the same frames. The correlations run on the host either way."""
+    if impl not in ("host", "device"):
+        raise ValueError(f"eval impl must be 'host' or 'device', got {impl!r}")
     keys = list(score_dict.keys())
     all_scores = [score_dict[k] for k in keys]
     users = [user_dict[k] for k in keys]
-    all_summaries = generate_summary(
-        [u.change_points for u in users], all_scores,
-        [u.n_frames for u in users], [u.picks for u in users],
-        budget_ratio=budget_ratio)
+    args = ([u.change_points for u in users], all_scores,
+            [u.n_frames for u in users], [u.picks for u in users])
+    if impl == "device":
+        all_summaries = device_generate_summary(
+            *args, budget_ratio=budget_ratio, device=device)
+    else:
+        all_summaries = generate_summary(*args, budget_ratio=budget_ratio)
 
     all_f, all_kendall, all_spearman = [], [], []
     for summary, scores, user in zip(all_summaries, all_scores, users):

@@ -134,7 +134,8 @@ def _val_epoch(fwd, model, dataset, cfg: Config, val_batch: int = 8):
     f, k, s = eval_metrics(score_dict, user_dict,
                            eval_method=cfg.eval.eval_method,
                            budget_ratio=cfg.eval.budget_ratio,
-                           impl=cfg.eval.impl)
+                           impl=cfg.eval.impl,
+                           device=next(model.parameters()).device)
     return loss_avg.avg(), f, k, s
 
 
