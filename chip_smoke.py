@@ -296,9 +296,15 @@ caught and passed over):
    kernel 15 launches and its scores lie within 2e-4 of the single-device
    route's. Then the 480 video's features and scores on the card against
    the port's CPU run of the same path (``FEATURE_TOL``, ``SCORE_TOL``; one
-   inception branch's weights rolled by one output channel must fail), and
-   each stage alone per video (``breakdown``: backbone and scorer CUDA-event
-   ms, each KTS route's ms, the selection's).
+   inception branch's weights rolled by one output channel must fail);
+   each stage of the real path per video (``breakdown``: ``_begin_video``
+   and ``_finish_video`` with ``embed`` and ``score_features`` timed in
+   CUDA events, each KTS route and the selection in the host clock); and
+   the 2,400 and 7,200 videos' card scores (the fused block at T 2,432,
+   the flash single pass at 7,296, the mesh's ring) against the plain
+   dense route on the CPU over the same features (``scores_vs_plain``:
+   ``SCORE_TOL``, the mesh ``MESH_SCORE_TOL``; a scorer with one layer's
+   value weights rolled by one channel must fail each).
 7f. extract: ``FeatureExtractor("google")`` on 64 frames at 224 and
    ``("r3d18")`` on a 16-frame clip at 112, card against CPU (the same
    bound and planted fault), their ms; ``device_normalize`` on the card
@@ -1077,6 +1083,26 @@ def phase_kernels(dev: dict, seed: int) -> dict:
                 out[key]["at_n1280"] = point
             else:
                 out[key] = point
+    # on the card the kernels take a length off the 128-row tile (the CPU
+    # takes the plain path there, as JAX): N 1,000 launches kernel 3 and
+    # agrees with the plain version at its bound
+    N = 1000
+    mask = pad_mask(1, N, rng, cuda)
+    for dtype in (torch.bfloat16, torch.float32):
+        dn = str(dtype).split(".")[1]
+        q, k, v = (torch.from_numpy(rng.normal(size=(1, H, N, Dh)).astype(
+            np.float32)).to(cuda, dtype) for _ in range(3))
+        before = at._flash_attention.launches
+        with torch.inference_mode():
+            got = at.flash_attention(q, k, v, mask, cfg.attn_scale)
+            torch.cuda.synchronize()
+            if at._flash_attention.launches != before + 1:
+                raise AssertionError(f"N={N} {dn} did not take the kernel")
+            err, rel = check_close(got, at.attention_reference(
+                q, k, v, mask, cfg.attn_scale), TOL[("attention", dn)],
+                f" at N {N}")
+        emit("flash_off_tile", N=N, dtype=dn, max_abs_err=err,
+             rel_rms_err=rel, tolerance=TOL[("attention", dn)])
     attention_cta_variants(rng)
     return out
 
@@ -3663,54 +3689,75 @@ def rolled_branch(net):
     return bad
 
 
-def summarize_breakdown(pl, cfg, scorer, google, videos, n: int,
-                        kts_impls) -> dict:
-    """Each stage of the path on the n-sample video, alone: making the
-    frames (host), the backbone over the stream's chunks with the frames
-    already on the card (CUDA events), the scorer (CUDA events), each KTS
-    route (host clock, the change points fetched) and the selection
-    (host)."""
-    import numpy as np
+def rolled_scorer(scorer):
+    """A copy of a SimNet with its second layer's value weights rolled by
+    one output channel (a planted fault in what the attention carries)."""
+    import copy
+
     import torch
 
-    from vidsum_tpu_torch.device import resolve_device
-    from vidsum_tpu_torch.preprocess.extract import embed
+    bad = copy.deepcopy(scorer)
+    v = bad.encoder.module_list[1].sa.v.weight
+    with torch.no_grad():
+        v.copy_(torch.roll(v, 1, dims=0))
+    return bad
 
-    videos.decode_s = 0.0
-    frames = torch.from_numpy(np.stack(list(videos.frames(n)))).to(
-        resolve_device(None))
-    decode_s = videos.decode_s
-    chunk = 256
 
-    def backbone():
-        return torch.cat([embed(google, "google", frames[i:i + chunk])
-                          for i in range(0, n, chunk)])
+def timed_stages(pl, videos, n: int, kts_impls, begin) -> tuple:
+    """The stages of the real path on the n-sample video: ``begin(n)``
+    (``pipeline._begin_video``) then ``pipeline._finish_video`` once per
+    KTS route, with the names that pipeline.py looks up at call time
+    wrapped: ``embed`` (each chunk) and ``score_features`` in CUDA events,
+    ``shot_bounds`` and ``generate_summary`` in the host clock. Returns
+    (the stage times, the pending video)."""
+    import torch
 
-    feats = backbone()
-    backbone_ms = cuda_ms(backbone, reps=2, warmup=0)
-    scorer_ms = cuda_ms(lambda: pl.score_features(scorer, cfg, feats),
-                        reps=3, warmup=1)
-    scores = pl.score_features(scorer, cfg, feats)[:n].float().cpu().numpy()
-    kts = {}
-    for impl in kts_impls:
-        t0 = time.perf_counter()
-        cps = pl.shot_bounds(feats, impl)
-        kts[impl + "_ms"] = (time.perf_counter() - t0) * 1e3
-    from vidsum_tpu_torch.ops.kts import change_points_from_cps
-    from vidsum_tpu_torch.ops.summary import generate_summary
+    events = {"backbone": [], "scorer": []}
+    host = {}
+    real = {name: getattr(pl, name) for name in (
+        "embed", "score_features", "shot_bounds", "generate_summary")}
 
-    b = change_points_from_cps(cps, n)
-    starts = b[:, 0] * SUM_STEP
-    cp = np.stack([starts, np.concatenate([starts[1:] - 1,
-                                           [n * SUM_STEP - 1]])], axis=1)
-    t0 = time.perf_counter()
-    generate_summary([cp], [scores], [n * SUM_STEP],
-                     [np.arange(n) * SUM_STEP])
-    select_ms = (time.perf_counter() - t0) * 1e3
-    del frames
-    return {"frames": n, "decode_stand_in_s": decode_s,
-            "backbone_ms": backbone_ms, "scorer_ms": scorer_ms,
-            "kts_ms": kts, "selection_ms": select_ms}
+    def on_card(stage, fn):
+        def wrapped(*args, **kw):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = fn(*args, **kw)
+            end.record()
+            events[stage].append((start, end))
+            return out
+        return wrapped
+
+    def on_host(stage, fn):
+        def wrapped(*args, **kw):
+            t0 = time.perf_counter()
+            out = fn(*args, **kw)
+            host[stage] = (time.perf_counter() - t0) * 1e3
+            return out
+        return wrapped
+
+    try:
+        pl.embed = on_card("backbone", real["embed"])
+        pl.score_features = on_card("scorer", real["score_features"])
+        pl.shot_bounds = on_host("kts", real["shot_bounds"])
+        pl.generate_summary = on_host("selection", real["generate_summary"])
+        videos.decode_s = 0.0
+        pending = begin(n)
+        torch.cuda.synchronize()
+        kts = {}
+        for impl in kts_impls:
+            pl._finish_video(pending, 0.15, impl)
+            kts[impl + "_ms"] = host["kts"]
+    finally:
+        for name, fn in real.items():
+            setattr(pl, name, fn)
+    card = {stage: sum(s.elapsed_time(e) for s, e in pairs)
+            for stage, pairs in events.items()}
+    return {"frames": n, "decode_stand_in_s": videos.decode_s,
+            "backbone_ms": card["backbone"],
+            "backbone_chunks": len(events["backbone"]),
+            "scorer_ms": card["scorer"], "kts_ms": kts,
+            "selection_ms": host["selection"]}, pending
 
 
 def phase_summarize(dev: dict, seed: int) -> dict:
@@ -3866,11 +3913,46 @@ def phase_summarize(dev: dict, seed: int) -> dict:
                                  f"features {feat_check}, scores "
                                  f"{score_check}, planted fault {fault}")
 
-        # 4. each stage alone
-        breakdown = [summarize_breakdown(
-            pl, cfg, scorer, google, videos, n,
-            ("host", "device") if n < longest else ("device",))
-            for n in SUM_PICKS]
+        # 4. each stage of the real path, timed where it runs
+        breakdown, pending = [], {}
+        for n in SUM_PICKS:
+            stages, pending[n] = timed_stages(
+                pl, videos, n,
+                ("host", "device") if n < longest else ("device",),
+                lambda n: pl._begin_video(f"synthetic_{n}", scorer, cfg,
+                                          google, 2, 224, 64, None, 256,
+                                          gpu))
+            breakdown.append(stages)
+
+        # 5. the kernels' scores at 2,400 (the fused block, T 2,432) and
+        # 7,200 (the flash single pass, T 7,296), and the mesh's (the ring,
+        # 7,232 over 4 shards), against the plain dense route on the CPU
+        # over the same card features; a scorer with one weight rolled
+        # must fail each bound
+        bad = rolled_scorer(scorer)
+        against_plain = {}
+        for n in SUM_PICKS[1:]:
+            feats = pending[n].feats
+            t0 = time.monotonic()
+            plain = pl.score_features(scorer_c, cfg_c, feats.cpu())[:n]
+            plain_s = time.monotonic() - t0
+            routes = {"single": (pending[n].scores[:n].cpu(), SCORE_TOL,
+                                 pl.score_features(bad, cfg, feats))}
+            if n == longest:
+                routes["mesh"] = (
+                    torch.from_numpy(sharded.scores), MESH_SCORE_TOL,
+                    pl.score_features(bad, cfg, feats, mesh=mesh))
+            for route, (got, tol, faulty) in routes.items():
+                check = tol_report(got, plain, tol)
+                missed = tol_report(faulty[:n].cpu(), plain, tol)
+                if not check["within"] or missed["within"]:
+                    raise AssertionError(
+                        f"{route} scores at {n} samples against the plain "
+                        f"route: {check}, planted fault {missed}")
+                against_plain[f"{n}_{route}"] = dict(
+                    check, planted_fault=missed, tolerance=tol,
+                    plain_cpu_s=plain_s)
+        del pending, bad
 
     emit("summarize", card=dev["smi"],
          config=("ModelConfig() (d 256, 4 heads, 4 layers, f32), GoogLeNet "
@@ -3888,7 +3970,7 @@ def phase_summarize(dev: dict, seed: int) -> dict:
                       "planted_fault": fault, "cpu_begin_s": cpu_s,
                       "tolerance": {"features": FEATURE_TOL,
                                     "scores": SCORE_TOL}},
-         breakdown=breakdown)
+         scores_vs_plain=against_plain, breakdown=breakdown)
     return {"launches": launches, "feats_480": (feats_g.numpy(),
                                                 feats_c.numpy())}
 
@@ -5013,9 +5095,11 @@ def phase_ring_multi_card(seed: int) -> None:
 # layers of the seq-train step's card-against-CPU check: the CPU's plain
 # ring at 8,192 frames (the hash masks and the recompute over (1, 4, 2,048,
 # 2,048) blocks) took 55-80 s for a 2-layer step on an H100 host's 8
-# cores, so it runs 1 of the flagship's 4 (every layer runs the same code;
-# the line says so in "layers", and its time in "wall_s"), which keeps the
-# run short
+# cores, so it runs 1 of the flagship's 4 (the line says so in "layers",
+# and its time in "wall_s"), which keeps the run short. The N 8,320 check
+# against the plain ring on the card runs all 4: the later layers' dropout
+# seeds, the residual gradients fed into an earlier layer's ring backward
+# and the dx that kernel 17 hands up the stack are held there
 SEQ_CPU_LAYERS = 1
 
 
@@ -5084,30 +5168,32 @@ def phase_seq_train(seed: int, long_videos: list) -> dict:
     # a bucket that is an odd multiple of 128: N 8,320 gives shards of
     # 2,080 frames, not a multiple of the ring kernels' 64-key tile; the
     # step pads them to 2,112. The kernels against the plain ring on the
-    # card, same seeds (the step bound)
+    # card, the flagship's 4 layers, same seeds (the step bound)
     [item] = synthetic_videos(rng, [8200], cfg.in_features)
     xo, to_, mo = pad_batch([item[0]], [item[1]])
     if xo.shape[1] != 8320:
         raise AssertionError(f"an 8,200-frame video buckets to "
                              f"{xo.shape[1]} frames")
+    model = SimNet(cfg, generator=torch.Generator().manual_seed(seed + 3))
+    seeds = [int(s) for s in rng.integers(0, 2**31 - 1, cfg.num_layers)]
     results = []
     for impl in ("auto", "plain"):
         m = copy.deepcopy(model).to("cuda")
-        step = make_seq_sharded_finetune_step(ccfg, mesh, block_impl=impl)
+        step = make_seq_sharded_finetune_step(cfg, mesh, block_impl=impl)
         reset_counters()
         loss = step(m, make_optimizer(m, tc.lr, tc.weight_decay), xo, to_,
                     mo, seeds=seeds)
         results.append((float(loss), {k: p.grad.detach().float().cpu()
                                       for k, p in m.named_parameters()}))
         counts = read_counters()
-        want = [P * P * ccfg.num_layers if impl == "auto" else 0] * 2
+        want = [P * P * cfg.num_layers if impl == "auto" else 0] * 2
         if [counts[r] for r in routes] != want:
             raise AssertionError(f"seq step at N 8,320 ({impl}): launches "
                                  f"{[counts[r] for r in routes]}, expected "
                                  f"{want}")
     odd_bucket = dict(B=1, N=int(mo.shape[1]), Nl=int(mo.shape[1]) // P,
                       Nl_padded=-(-int(mo.shape[1]) // (64 * P)) * 64,
-                      layers=ccfg.num_layers,
+                      layers=cfg.num_layers,
                       **compare_steps(results, "seq step at N 8,320, "
                                                "kernels against the plain "
                                                "ring"))

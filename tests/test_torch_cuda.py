@@ -391,6 +391,23 @@ def test_flash_routes_match_plain(cuda, dtype, folded):
     _close(got, want, "attention", dtype)
 
 
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("N", [200, 1000])
+def test_flash_attention_takes_the_kernel_off_the_128_tile(cuda, dtype, N):
+    """A CUDA tensor whose length is not a multiple of 128 still launches
+    the single-pass kernel (the CPU takes the plain path there, as JAX)."""
+    g = torch.Generator(device="cpu").manual_seed(6)
+    q, k, v = (torch.randn(1, 4, N, 64, generator=g).to(cuda, dtype)
+               for _ in range(3))
+    mask = _mask(1, N, cuda, seed=6)
+    before = attn_mod._flash_attention.launches
+    got = attn_mod.flash_attention(q, k, v, mask, 0.1)
+    torch.cuda.synchronize()
+    assert attn_mod._flash_attention.launches == before + 1
+    _close(got, attn_mod.attention_reference(q, k, v, mask, 0.1),
+           "attention", dtype)
+
+
 def test_model_fused_block_matches_dense_on_card(cuda):
     cfg = ModelConfig(in_features=64, d_model=64, num_heads=4, num_layers=2)
     model = SimNet(cfg, device=cuda)

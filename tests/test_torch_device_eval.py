@@ -121,6 +121,39 @@ def test_kts_device_f32_matches_jax_and_host(segs, ncp):
                                atol=2 * scale)
 
 
+def test_pipeline_device_kts_keeps_the_scenes_of_pool5_scale_features():
+    """A deliberate divergence from the JAX pipeline: pool5 features share
+    a large common component (norm 184 here, scene means ~3.5 apart), and
+    the f32 cumulative sums of their raw Gram lose the scenes to rounding.
+    JAX's device route (``vidsum_tpu/pipeline.py:_finish_video``, the raw
+    f32 Gram) then takes the most change points it may; the port's
+    ``shot_bounds(kts_impl="device")`` centres the features first, which
+    leaves every scatter as it is in exact arithmetic, and finds the
+    planted cuts that the f64 host oracle finds."""
+    from vidsum_tpu_torch.pipeline import shot_bounds
+
+    rng = np.random.default_rng(0)
+    n, lens = 240, []
+    while sum(lens) < n:
+        lens.append(int(rng.integers(16, 64)))
+    lens[-1] -= sum(lens) - n
+    lens = [x for x in lens if x > 0]
+    common = np.abs(rng.normal(size=1024))
+    common *= 184 / np.linalg.norm(common)
+    f = np.concatenate([common + 0.077 * rng.normal(size=1024)
+                        + 0.02 * rng.normal(size=(x, 1024))
+                        for x in lens]).astype(np.float32)
+    planted = np.cumsum(lens)[:-1]
+    host = shot_bounds(torch.from_numpy(f), "host")
+    np.testing.assert_array_equal(host, planted)
+    np.testing.assert_array_equal(shot_bounds(torch.from_numpy(f), "device"),
+                                  host)
+    ncp = n // 25
+    _, m_j, _ = jax_kts(jax.numpy.asarray(f) @ jax.numpy.asarray(f).T,
+                        ncp=ncp, vmax=1.0)
+    assert int(m_j) == ncp > len(planted)
+
+
 def test_kts_device_f64_matches_host():
     """The f64 route is the host's arithmetic: change points equal, costs
     within 1e-12 (measured: bit-equal)."""

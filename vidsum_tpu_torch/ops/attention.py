@@ -299,10 +299,12 @@ def flash_forward_supported(N: int, Dh: int, itemsize: int = 4) -> bool:
 
 def flash_attention(q, k, v, pad_mask, scale: float) -> torch.Tensor:
     """Fused attention. q/k/v: (B, H, N, Dh); pad_mask: (B, N) bool, True at
-    padded keys (or None); returns (B, H, N, Dh) in q's dtype. N that is not
-    a multiple of 128 takes the dense plain path, as in the JAX package."""
+    padded keys (or None); returns (B, H, N, Dh) in q's dtype. On the CPU, N
+    that is not a multiple of 128 takes the dense plain path, as in the JAX
+    package; on the card the kernels take any N (they mask their last key
+    tile), so a CUDA tensor never leaves them for the plain path."""
     B, H, N, Dh = q.shape
-    if N % TILE_Q != 0:
+    if N % TILE_Q != 0 and q.device.type == "cpu":
         return attention_reference(q, k, v, pad_mask, scale)
     if pad_mask is None:
         pad_mask = torch.zeros((B, N), dtype=torch.bool, device=q.device)

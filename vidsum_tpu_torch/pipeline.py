@@ -46,9 +46,9 @@ from vidsum_tpu_torch.train.steps import make_eval_forward
 # default sequence-padding granularity, shared by summarize_video and
 # summarize_directory (the JAX package's)
 _PAD_MULTIPLE = 64
-# the fused block and flash kernels take lengths in multiples of their
-# 128-row tile; SimNet gives other lengths the plain attention, so the
-# single-device scorer's length also rounds up to it
+# the fused block kernels take lengths in multiples of their 128-row tile
+# (SimNet demotes other lengths to the flash kernels), so the single-device
+# scorer's length also rounds up to it
 _KERNEL_TILE = 128
 
 
