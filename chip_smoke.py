@@ -4,8 +4,9 @@ on a device mesh and under the recycling supervisor), finetune, the finetune
 protocol (``cli.train``, checkpoints, ``cli.serve --ckpt``, the val pass's
 summaries on the card), self-supervised pretraining (``cli.pretrain``), the
 raw-video path (``cli.summarize``, the extractors, on-device shot
-selection), long-video finetune and sequence-parallel finetune paths on one
-NVIDIA GPU.
+selection), long-video finetune, sequence-parallel finetune and the
+multi-GPU modes (data, tensor and pipeline parallelism, multi-process runs,
+the int8 wire on a mesh) on one NVIDIA GPU.
 
     python3 chip_smoke.py [--seed 0]
 
@@ -257,7 +258,8 @@ caught and passed over):
    ``video_transform`` equal to its initial bits; both checkpoint files
    written. Then ``--epochs 1`` and ``--resume --epochs 2`` in a second
    directory: history, parameters, Adam state and the encoder file bit for
-   bit those of the straight run. Then one step at the recipe width on
+   bit those of the straight run. Then one step at the recipe width cut to
+   ``CPU_CHECK_LAYERS`` (2) layers on
    batches of 16, card against the CPU's plain path with the same dropout
    seeds (the four losses within 1e-4 relative, each grad by the step
    bound with at most 0.1 % of a tensor's entries past its elementwise
@@ -317,7 +319,7 @@ caught and passed over):
    zero mismatches; both calls' ms and the host's.
 8. long train: (b) the ``"flash"`` route on one 8,100-frame video (bucket
    8,192, f32: the folded route, TPU kernels 7/8), card against CPU as in
-   (a); (c) with the counters zeroed before each, 5 recipe epochs on the
+   (a), the flagship cut to ``CPU_CHECK_LAYERS`` (2) layers; (c) with the counters zeroed before each, 5 recipe epochs on the
    auto route over 8 videos of 7,950-9,000 frames (10 steps at batch 4),
    once in f32 (demoted to the folded route) and once in bf16 (the
    single-pass route), then 5 in bf16 over 8 videos of 11,000-14,000
@@ -341,6 +343,25 @@ caught and passed over):
    Nl <= 2,304): kernels 16 and 17 launch 16 times per layer per step, the
    flash and block training kernels never; finite losses; step ms, peak
    memory and a ``torch.profiler`` breakdown of one step.
+8b. the multi-GPU modes, every mesh's entries cuda:0 (the machine has one
+   card): ``dp_train`` (the kernels' data-parallel step on (4, 1) at
+   (32, 512) against the one-device fused step, a dropped shard failing;
+   at dropout 0.3 against its shards' replay, two runs bit-equal; a
+   padded final batch on (2, 1) against the smaller batch; step ms and a
+   profile beside the one-device step's), ``tp_train`` (dp x tp on (2, 2)
+   and (1, 4) against the one-device dense step, dropped partials failing;
+   the (2, 2) pretrain step at (256, 384) against the one-device one),
+   ``pp_train`` (the pipeline on 2 and 4 stages against the dense forward
+   and step, a wrong owner failing), ``finetune_mesh`` (``cli.train --dp``
+   bit-equal to the plain CLI run; ``finetune(mesh=)`` on (4, 1) with its
+   epoch walls), ``distributed`` (two gloo processes of 2 entries, spawned
+   as ``chip_smoke.py --dist-worker ...``, bit-equal to one process of 4;
+   coordinator-only files; a killed coordinator and a resume bit-equal to
+   the straight run) and ``serve_mesh_int8`` (the 13 requests on the int8
+   wire over (1, 4): shorts bit-equal to the single-device int8 service,
+   the long one to the lossless ring; ``make_replica_forward_int8`` over
+   four entries; ``cli.serve --devices 2``). Every step comparison is the
+   step bound per parameter (``compare_steps``).
 9. a ``timeline`` line (each phase's wall seconds), then the ``kernels``
    line (27 routes, the f32 serving ones named
    ``<route>.f32`` with their launches from the f32 serve pass, the
@@ -351,7 +372,9 @@ caught and passed over):
    ``block_int8_grouped``, ``probe_mm_bf16`` and ``probe_mm_int8``, the
    ring ones ``ring_block``, ``ring_train_fwd``, ``ring_train_bwd``; the
    GEMM routes with their design and ``ptxas`` report; the f32 serving
-   routes and the ring also ``launches_summarize``, phase 7e's launches),
+   routes and the ring also ``launches_summarize``, phase 7e's launches;
+   rows 9-12 ``launches_dp_train`` and ``launches_finetune_mesh``, the int8
+   wire's routes ``launches_serve_mesh_int8``, phase 8b's),
    the card's name
    and power limit, and last ``{"ok": true, "device": {...}}``. No
    product of any phase may take a serving GEMM fallback, and no f32
@@ -3381,8 +3404,8 @@ def pretrain_card_vs_cpu(cfg, pcfg, feats, reps, rng, what: str,
         if not abs(a - b) <= 1e-4 * abs(b):
             raise AssertionError(f"{what}: {name} loss on the card {a} != "
                                  f"CPU {b}")
-    return dict(B=int(x.shape[0]), N=int(x.shape[1]), routes=list(routes),
-                losses=losses, wall_s=t_s,
+    return dict(B=int(x.shape[0]), N=int(x.shape[1]), layers=cfg.num_layers,
+                routes=list(routes), losses=losses, wall_s=t_s,
                 **compare_steps(results, what, STEP_SPARE, STEP_CAP))
 
 
@@ -3397,6 +3420,12 @@ def pretrain_card_vs_cpu(cfg, pcfg, feats, reps, rng, what: str,
 # entries past. A wiring fault moves whole tensors
 STEP_SPARE = 1e-3
 STEP_CAP = 1e-3
+# The card-vs-CPU checks of phases 7c (the pretrain steps) and 8 (b) (the
+# flash step on an 8,100-frame video) run the flagship cut to this many
+# layers, to make room for phase 8b in the run's time (every layer runs the
+# same code; the kernels are held at 4 layers on the card's own runs): at 4
+# layers the CPU took 21.7 + 11.5 s and 35.1 s of the run
+CPU_CHECK_LAYERS = 2
 
 
 # what names the block training kernels (TPU kernels 9-12) in a profile:
@@ -3551,12 +3580,13 @@ def phase_pretrain(dev: dict, seed: int) -> None:
 
     check_cfg = dataclasses.replace(pcfg, batch_size=16)
     profile = pretrain_step_profile(cfg, pcfg, *clips(lengths[:256]), seed)
+    ccfg = dataclasses.replace(cfg, num_layers=CPU_CHECK_LAYERS)
     card_vs_cpu = {
         "bucket_640": pretrain_card_vs_cpu(
-            cfg, check_cfg, *clips([600] + lengths[:15]), rng,
+            ccfg, check_cfg, *clips([600] + lengths[:15]), rng,
             "pretrain step, bucket 640", ("_fwd_kernel", "_bwd_kernel")),
         "bucket_384": pretrain_card_vs_cpu(
-            cfg, check_cfg, *clips(lengths[15:31]), rng,
+            ccfg, check_cfg, *clips(lengths[15:31]), rng,
             "pretrain step, bucket 384", grouped)}
     line(pretrain=dict(
         card=dev["smi"],
@@ -3565,6 +3595,8 @@ def phase_pretrain(dev: dict, seed: int) -> None:
                     lr=pcfg.lr, weight_decay=pcfg.weight_decay,
                     batch_size=pcfg.batch_size, epochs=PT_EPOCHS),
         reduced=[f"epochs {pcfg.epochs} -> {PT_EPOCHS}",
+                 f"card_vs_cpu: layers {cfg.num_layers} -> "
+                 f"{CPU_CHECK_LAYERS}",
                  f"data {pcfg.scheduler_samples:,} samples (the schedule's "
                  f"scheduler_samples, kept) -> {PT_CLIPS} clips, so an epoch "
                  f"is {PT_CLIPS // pcfg.batch_size} steps, not "
@@ -4250,18 +4282,19 @@ def phase_long_train(seed: int) -> dict:
     conf = finetune_recipe()
     cfg, tc = conf.model, conf.train
     rng = np.random.default_rng(seed + 6)
-    model = SimNet(cfg, generator=torch.Generator().manual_seed(seed + 1))
 
-    # (b)
+    # (b), at CPU_CHECK_LAYERS layers
     [item] = synthetic_videos(rng, [8100], cfg.in_features)
     xb, tb, mb = pad_batch([item[0]], [item[1]])
     if xb.shape[1] != 8192 or at._single_pass_ok(8192, cfg.head_dim, 4):
         raise AssertionError(f"an 8,100-frame video buckets to "
                              f"{xb.shape[1]} frames")
+    ccfg = dataclasses.replace(cfg, num_layers=CPU_CHECK_LAYERS)
+    cmodel = SimNet(ccfg, generator=torch.Generator().manual_seed(seed + 1))
     folded_vs_cpu = flash_card_vs_cpu(
-        model, cfg, xb, tb, mb, rng, "flash route, one 8,100-frame video",
+        cmodel, ccfg, xb, tb, mb, rng, "flash route, one 8,100-frame video",
         ("_fwd_kernel_folded", "_bwd_kernel_folded"))
-    del model
+    del cmodel
 
     # (c)
     videos = synthetic_videos(rng, rng.integers(7950, 9001, 8),
@@ -5257,6 +5290,787 @@ def phase_seq_train(seed: int, long_videos: list) -> dict:
     return {r: counts[r] for r in routes}
 
 
+# ------------------------------------------------------- the multi-GPU modes
+# Every mode runs over a mesh whose entries all name cuda:0 (the machine
+# has one card): the arithmetic, the kernels and their launch counts are
+# those of D cards, and the moves between entries are the tensors themselves.
+DP_ENTRIES = 4
+MESH_REPS = 5        # timed steps per mode (CUDA events, after 2 warm-ups)
+DIST_EPOCHS = 2
+
+
+def grads_of(model) -> dict:
+    return {k: p.grad.detach().float().cpu()
+            for k, p in model.named_parameters()}
+
+
+def stepped(step, model, *args, lr=1e-3, wd=1e-4, **kw) -> tuple:
+    """One step of ``step`` on a copy of ``model`` with a fresh optimizer:
+    ``(loss, grads, the stepped copy)``."""
+    import copy
+
+    from vidsum_tpu_torch.train.steps import make_optimizer
+
+    m = copy.deepcopy(model)
+    loss = step(m, make_optimizer(m, lr, wd), *args, **kw)
+    return float(loss), grads_of(m), m
+
+
+def must_fail(check, what: str) -> str:
+    """Run ``check`` (a comparison with a planted fault); it must raise
+    ``AssertionError``. Returns the head of its message."""
+    try:
+        check()
+    except AssertionError as e:
+        return str(e)[:240]
+    raise AssertionError(f"the planted fault ({what}) passed the check")
+
+
+class patched:
+    """``setattr(mod, name, fn)`` while the ``with`` block runs."""
+
+    def __init__(self, mod, name: str, fn) -> None:
+        self.mod, self.name, self.fn = mod, name, fn
+
+    def __enter__(self):
+        self.saved = getattr(self.mod, self.name)
+        setattr(self.mod, self.name, self.fn)
+
+    def __exit__(self, *exc) -> None:
+        setattr(self.mod, self.name, self.saved)
+
+
+def ragged_batch(rng, B: int, N: int, in_features: int, low: int):
+    """(x, target, pad_mask) numpy with video lengths in [low, N) and the
+    first video N long, so a data shard's longest video differs from the
+    batch's (a denominator taken per shard shows)."""
+    import numpy as np
+
+    x = rng.normal(size=(B, N, in_features)).astype(np.float32)
+    t = rng.random((B, N)).astype(np.float32)
+    lengths = rng.integers(low, N, B)
+    lengths[0] = N
+    mask = np.arange(N)[None] >= lengths[:, None]
+    return x, t, mask
+
+
+def step_ms(step, model, *args, profile: bool = False, **kw) -> dict:
+    """CUDA-event ms of ``MESH_REPS`` steps (two warm-ups) on a copy; with
+    ``profile`` also ``device_profile`` of 3 more (wall, device ms, busy
+    share, the top kernels)."""
+    import copy
+
+    from vidsum_tpu_torch.train.steps import make_optimizer
+
+    m = copy.deepcopy(model)
+    opt = make_optimizer(m, 1e-3, 1e-4)
+    out = spread(cuda_times(lambda: step(m, opt, *args, **kw),
+                            reps=MESH_REPS))
+    if profile:
+        out["profile"] = device_profile(lambda: step(m, opt, *args, **kw),
+                                        reps=3, groups={
+                                            "bt_gemm": ("bt_gemm",)})
+    return out
+
+
+def phase_dp_train(seed: int) -> dict:
+    """``parallel.dp_shardmap.make_dp_shardmap_finetune_step`` on a (4, 1)
+    mesh of cuda:0 at the flagship width: each shard's forward and backward
+    on the fused block's training kernels (TPU kernels 9-12). (a) At dropout
+    0 one step at (32, 512) against the one-device fused-block step (the
+    step bound per parameter), with a planted fault (the last shard's
+    gradients dropped from the sum) that must fail it; (b) at dropout 0.3
+    against a replay of the four shards' single-device forwards on the same
+    seeds, two runs bit-equal; (c) a padded final batch (5 videos at batch
+    4 on a (2, 1) mesh, the repeats weighed 0) against the one-video step;
+    step ms beside the one-device step's. Returns the launches of rows
+    9-12 in the dp steps."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from vidsum_tpu_torch.config import MeshConfig, ModelConfig
+    from vidsum_tpu_torch.data.collate import (
+        item_weights, make_batches, pad_batch,
+    )
+    from vidsum_tpu_torch.models.simnet import SimNet
+    from vidsum_tpu_torch.ops.losses import mse_with_mask_loss
+    from vidsum_tpu_torch.parallel import dp_shardmap, make_mesh
+    from vidsum_tpu_torch.train.steps import make_finetune_step
+
+    cfg = ModelConfig()
+    cfg0 = dataclasses.replace(cfg, dropout=0.0)
+    rng = np.random.default_rng(seed + 21)
+    x, t, m = ragged_batch(rng, 32, 512, cfg.in_features, 384)
+    model = SimNet(cfg0, generator=torch.Generator().manual_seed(seed))
+    mesh = make_mesh(MeshConfig(data=DP_ENTRIES), ["cuda:0"] * DP_ENTRIES)
+    dp0 = dp_shardmap.make_dp_shardmap_finetune_step(cfg0, mesh,
+                                                     "fused_block")
+    one = make_finetune_step(cfg0, "fused_block")
+    gen = torch.Generator().manual_seed(seed)
+    launches = {r: 0 for r in TRAIN_ROUTES}
+
+    def counted(fn):
+        reset_counters()
+        out = fn()
+        torch.cuda.synchronize()
+        for r, n in read_counters().items():
+            if r in launches:
+                launches[r] += n
+        return out
+
+    got = counted(lambda: stepped(dp0, model, x, t, m, gen))
+    want = stepped(one, model, x, t, m, gen)
+    vs_one = compare_steps([got[:2], want[:2]], "dp step against the "
+                           "one-device step")
+    real = dp_shardmap.sum_shards
+
+    def drop_last(per_shard):
+        return real(per_shard[:-1] if len(per_shard) == DP_ENTRIES
+                    else per_shard)
+
+    with patched(dp_shardmap, "sum_shards", drop_last):
+        bad = stepped(dp0, model, x, t, m, gen)
+    fault = must_fail(lambda: compare_steps([bad[:2], want[:2]], "fault"),
+                      "the last shard's grads dropped")
+
+    # (b) dropout 0.3: the replay of the four shards on the same seeds
+    model3 = SimNet(cfg, generator=torch.Generator().manual_seed(seed))
+    seeds = [[int(s) for s in rng.integers(0, 2**31 - 1, cfg.num_layers)]
+             for _ in range(DP_ENTRIES)]
+    dp3 = dp_shardmap.make_dp_shardmap_finetune_step(cfg, mesh,
+                                                     "fused_block")
+    a = counted(lambda: stepped(dp3, model3, x, t, m, seeds=seeds))
+    b = stepped(dp3, model3, x, t, m, seeds=seeds)
+    twice = all(torch.equal(a[1][k], b[1][k]) for k in a[1]) and all(
+        torch.equal(v, b[2].state_dict()[k])
+        for k, v in a[2].state_dict().items())
+    if not twice or a[0] != b[0]:
+        raise AssertionError("two dp steps on the same seeds differ")
+    rep = SimNet(cfg, device="cuda")
+    rep.load_state_dict(model3.state_dict())
+    Bl = x.shape[0] // DP_ENTRIES
+    denom = float((~m).sum(1).max())
+    total = 0.0
+    for i in range(DP_ENTRIES):
+        rows = slice(i * Bl, (i + 1) * Bl)
+        scores, _ = rep(torch.from_numpy(x[rows]).cuda(),
+                        torch.from_numpy(m[rows]).cuda(),
+                        attn_impl="fused_block", deterministic=False,
+                        generator=dp_shardmap.shard_generator(seeds[i]),
+                        block_seeds=seeds[i])
+        loss = mse_with_mask_loss(scores, torch.from_numpy(t[rows]).cuda(),
+                                  torch.from_numpy(m[rows]).cuda(),
+                                  denom_len=denom) / DP_ENTRIES
+        loss.backward()
+        total += float(loss.detach())
+    vs_replay = compare_steps([a[:2], (total, grads_of(rep))],
+                              "dp step at dropout 0.3 against its replay")
+
+    # (c) the padded final batch: 5 videos at batch 4 on a (2, 1) mesh
+    videos = [(rng.normal(size=(n, cfg.in_features)).astype(np.float32),
+               rng.random(n).astype(np.float32))
+              for n in rng.integers(100, 381, 5)]
+    last = list(make_batches(5, 4, shuffle=False, pad_to_batch=True))[-1]
+    xp, tp, mp = pad_batch([videos[i][0] for i in last],
+                           [videos[i][1] for i in last])
+    x1, t1, m1 = pad_batch([videos[4][0]], [videos[4][1]])
+    mesh2 = make_mesh(MeshConfig(data=2), ["cuda:0"] * 2)
+    dp2 = dp_shardmap.make_dp_shardmap_finetune_step(cfg0, mesh2,
+                                                     "fused_block")
+    padded_got = counted(lambda: stepped(dp2, model, xp, tp, mp, gen,
+                                         item_weight=item_weights(last)))
+    padded_want = stepped(one, model, x1, t1, m1, gen)
+    vs_smaller = compare_steps([padded_got[:2], padded_want[:2]],
+                               "padded final batch against the smaller "
+                               "batch")
+    missing = [r for r in TRAIN_ROUTES if launches[r] == 0]
+    if missing:
+        raise AssertionError(f"dp steps never launched {missing}")
+    xc, tc_, mc = (torch.from_numpy(a_).cuda() for a_ in (x, t, m))
+    ms = {"dp_4x1": step_ms(dp0, model, xc, tc_, mc, gen, profile=True),
+          "one_device": step_ms(one, model, xc, tc_, mc, gen,
+                                profile=True)}
+    emit("dp_train", mesh=[DP_ENTRIES, 1], devices=["cuda:0"] * DP_ENTRIES,
+         shape=[32, 512], width=dataclasses.asdict(cfg),
+         vs_one_device=vs_one, planted_fault=fault,
+         dropout_03_vs_replay=vs_replay, two_runs_bit_equal=True,
+         padded_final_batch={"videos": [int(v[0].shape[0]) for v in videos],
+                             "batch": last,
+                             "weights": item_weights(last).tolist(),
+                             "vs_smaller_batch": vs_smaller},
+         step_ms=ms, launches=launches)
+    return launches
+
+
+def phase_tp_train(seed: int) -> None:
+    """``parallel.train_parallel.make_sharded_finetune_step`` (dp x tp, the
+    dense route: the JAX package's own for this mode) on (2, 2) and (1, 4)
+    meshes of cuda:0 at (32, 512), dropout 0, against the one-device dense
+    step (the step bound), with a planted fault (the last model shard's
+    partial sums dropped) that must fail it; then
+    ``make_sharded_pretrain_step`` on (2, 2) at the pretrain batch (256,
+    384) against the one-device pretrain step (the fused block's kernels),
+    by ``STEP_SPARE`` / ``STEP_CAP``; ``video_transform`` keeps its bits."""
+    import copy
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from vidsum_tpu_torch.config import (
+        MeshConfig, ModelConfig, pretrain_recipe,
+    )
+    from vidsum_tpu_torch.models.pretrain import PretrainModel
+    from vidsum_tpu_torch.models.simnet import SimNet
+    from vidsum_tpu_torch.parallel import make_mesh, train_parallel
+    from vidsum_tpu_torch.train.schedule import reference_pretrain_schedule
+    from vidsum_tpu_torch.train.steps import (
+        make_finetune_step, make_optimizer, make_pretrain_step,
+    )
+
+    cfg0 = ModelConfig(dropout=0.0)
+    rng = np.random.default_rng(seed + 22)
+    x, t, m = ragged_batch(rng, 32, 512, cfg0.in_features, 384)
+    model = SimNet(cfg0, generator=torch.Generator().manual_seed(seed))
+    gen = torch.Generator().manual_seed(seed)
+    dense = make_finetune_step(cfg0, "dense")
+    want = stepped(dense, model, x, t, m, gen)
+    out = {}
+    xc, tc_, mc = (torch.from_numpy(a).cuda() for a in (x, t, m))
+    ms = {"one_device_dense": step_ms(dense, model, xc, tc_, mc, gen)}
+    for shape in ((2, 2), (1, 4)):
+        mesh = make_mesh(MeshConfig(*shape), ["cuda:0"] * 4)
+        step = train_parallel.make_sharded_finetune_step(cfg0, mesh)
+        got = stepped(step, model, x, t, m, gen)
+        out[f"{shape[0]}x{shape[1]}"] = compare_steps(
+            [got[:2], want[:2]], f"dp x tp step {shape}")
+        ms[f"{shape[0]}x{shape[1]}"] = step_ms(step, model, xc, tc_, mc, gen)
+        if shape == (2, 2):
+            real = train_parallel.sum_partials
+            with patched(train_parallel, "sum_partials",
+                         lambda parts, dev: real(parts[:-1], dev)):
+                bad = stepped(step, model, x, t, m, gen)
+            fault = must_fail(lambda: compare_steps([bad[:2], want[:2]],
+                                                    "fault"),
+                              "the last model shard's partials dropped")
+
+    # the pretrain step at the pretrain batch, against the one-device step
+    conf = pretrain_recipe()
+    pcfg = conf.pretrain
+    mcfg = dataclasses.replace(conf.model, dropout=0.0)
+    lengths = rng.integers(60, 385, pcfg.batch_size)
+    lengths[0] = 384
+    xp = rng.normal(size=(pcfg.batch_size, 384, mcfg.in_features)).astype(
+        np.float32)
+    mp = np.arange(384)[None] >= lengths[:, None]
+    xp[mp] = 1000.0
+    vp = rng.normal(size=(pcfg.batch_size, 512)).astype(np.float32)
+    schedule = reference_pretrain_schedule(
+        pcfg.lr, max(pcfg.scheduler_samples // pcfg.batch_size, 1),
+        pcfg.warmup_epochs, pcfg.epochs)
+    pmodel = PretrainModel(mcfg, pcfg, generator=torch.Generator()
+                           .manual_seed(pcfg.seed))
+    vt = {k: v.clone() for k, v in pmodel.video_transform.state_dict()
+          .items()}
+    res, losses, pt_ms = [], [], {}
+    mesh = make_mesh(MeshConfig(2, 2), ["cuda:0"] * 4)
+    for name, step in (
+            ("2x2", train_parallel.make_sharded_pretrain_step(
+                mcfg, pcfg, schedule, mesh)),
+            ("one_device", make_pretrain_step(mcfg, pcfg, schedule))):
+        pm = copy.deepcopy(pmodel)
+        opt = make_optimizer([("encoder." + n, p) for n, p in
+                              pm.encoder.named_parameters()], pcfg.lr,
+                             pcfg.weight_decay)
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        got = step(pm, opt, xp, vp, mp, gen)
+        losses.append([float(v) for v in got.cpu()])
+        pt_ms[name] = (time.monotonic() - t0) * 1e3
+        res.append((losses[-1][0], grads_of(pm.encoder)))
+        if any(not torch.equal(v, vt[k]) for k, v in
+               pm.video_transform.state_dict().items()):
+            raise AssertionError(f"video_transform moved on the {name} step")
+    for what, a, b in zip(("total", "main", "center", "repel"), *losses):
+        if not abs(a - b) <= 1e-4 * abs(b):
+            raise AssertionError(f"sharded pretrain {what} loss {a} != {b}")
+    pretrain_cmp = compare_steps(res, "sharded pretrain step against the "
+                                 "one-device step", STEP_SPARE, STEP_CAP)
+    emit("tp_train", shape=[32, 512], route="dense", meshes=out,
+         planted_fault=fault, step_ms=ms,
+         pretrain={"mesh": [2, 2], "shape": [pcfg.batch_size, 384],
+                   "losses": losses, "step_wall_ms": pt_ms,
+                   "video_transform_bit_equal": True, **pretrain_cmp})
+
+
+def phase_pp_train(seed: int) -> None:
+    """``parallel.pipeline``: the forward and one train step on 2 and 4
+    stages of cuda:0 at (32, 512), dropout 0, against the one-device dense
+    forward (``SCORE_TOL``) and step (the step bound), with a planted fault
+    (each layer streamed from the wrong owner) that must fail it."""
+    import copy
+
+    import numpy as np
+    import torch
+
+    from vidsum_tpu_torch.config import ModelConfig
+    from vidsum_tpu_torch.models.simnet import SimNet
+    from vidsum_tpu_torch.parallel import make_mesh, pipeline
+    from vidsum_tpu_torch.train.steps import make_finetune_step, make_optimizer
+
+    cfg0 = ModelConfig(dropout=0.0)
+    rng = np.random.default_rng(seed + 23)
+    x, t, m = ragged_batch(rng, 32, 512, cfg0.in_features, 384)
+    model = SimNet(cfg0, generator=torch.Generator().manual_seed(seed))
+    gen = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        ref_scores, _ = model(torch.from_numpy(x).cuda(),
+                              torch.from_numpy(m).cuda(), attn_impl="dense")
+    want = stepped(make_finetune_step(cfg0, "dense"), model, x, t, m, gen)
+    out = {}
+    for stages in (2, 4):
+        mesh = make_mesh((stages,), "cuda:0", ("stage",))
+        fwd = pipeline.make_pp_forward(cfg0, mesh)(model, x, m)
+        fwd_err = check_close(fwd, ref_scores, SCORE_TOL,
+                              f" (pipeline forward, {stages} stages)")
+        init, step = pipeline.make_pp_train_step(cfg0, mesh)
+
+        def pp_step(net, *args, **kw):
+            net = init(copy.deepcopy(net))
+            loss = step(net, make_optimizer(net, 1e-3, 1e-4), *args, **kw)
+            return float(loss), grads_of(net)
+
+        got = pp_step(model, x, t, m, gen)
+        out[stages] = {"forward": fwd_err,
+                       **compare_steps([got, want[:2]],
+                                       f"pipeline step, {stages} stages")}
+        if stages == 4:
+            real = pipeline.owner
+
+            def wrong(layer, per_stage):
+                stage, local = real(layer, per_stage)
+                return (stage + 1) % stages, local
+
+            with patched(pipeline, "owner", wrong):
+                bad = pp_step(model, x, t, m, gen)
+            fault = must_fail(lambda: compare_steps([bad, want[:2]],
+                                                    "fault"),
+                              "layers streamed from the wrong owner")
+    emit("pp_train", shape=[32, 512], route="dense", stages=out,
+         planted_fault=fault)
+
+
+def dist_folds(seed: int):
+    """The folds and the in-memory data of the distributed phase (and of
+    its worker processes): ``finetune_videos`` under the seed of phase 7b,
+    one fold of 16 train and 4 val videos."""
+    import numpy as np
+
+    conf_rng = np.random.default_rng(seed + 14)
+    videos = finetune_videos(conf_rng, 1024)
+    names = list(videos)
+    test = names[:4]
+    folds = [{"train_keys": [FT_KEY + n for n in names if n not in test],
+              "test_keys": [FT_KEY + n for n in test]}]
+    return folds, memory_fold_datasets(videos)
+
+
+def dist_run(seed: int, workdir: str, mesh, max_epoch: int,
+             resume: bool = False):
+    """``finetune(mesh=)`` at the recipe's width over ``dist_folds``."""
+    import dataclasses
+
+    from vidsum_tpu_torch.config import finetune_recipe
+    from vidsum_tpu_torch.train import finetune as ft
+
+    conf = finetune_recipe()
+    conf = dataclasses.replace(conf, train=dataclasses.replace(
+        conf.train, max_epoch=max_epoch, use_pretrained=False))
+    folds, fold_datasets = dist_folds(seed)
+    with patched(ft, "fold_datasets", fold_datasets):
+        return ft.finetune(conf, folds, workdir=workdir,
+                           export_summary=False, resume=resume,
+                           metrics_path=os.path.join(workdir, "m.jsonl"),
+                           mesh=mesh)
+
+
+def dist_worker(argv) -> int:
+    """One process of the distributed phase (``chip_smoke.py --dist-worker
+    PID PORT WORKDIR MAX_EPOCH RESUME KILL_AFTER SEED``): two processes on
+    cuda:0 under gloo, each a 2-entry data mesh of it. With KILL_AFTER k > 0
+    the coordinator exits hard (``os._exit(137)``) once its k-th state file
+    is on disk. Prints one JSON line."""
+    import torch
+
+    from vidsum_tpu_torch.config import MeshConfig
+    from vidsum_tpu_torch.parallel.distributed import (
+        DistributedConfig, global_mesh, init_distributed, is_coordinator,
+    )
+    from vidsum_tpu_torch.train import checkpoint as ck
+
+    pid, port, workdir, max_epoch, resume, kill_after, seed = argv
+    kill_after = int(kill_after)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    t0 = time.monotonic()
+    backend = init_distributed(DistributedConfig(
+        coordinator_address=f"127.0.0.1:{port}", num_processes=2,
+        process_id=int(pid)))
+    t_init = time.monotonic()
+    if kill_after > 0 and is_coordinator():
+        real = ck.AsyncCheckpointer.save
+        saves = []
+
+        def save_then_die(self, path, tree, meta=None):
+            real(self, path, tree, meta)
+            if os.path.basename(path) == "train_state.ckpt":
+                saves.append(path)
+                if len(saves) >= kill_after:
+                    self.flush()
+                    os._exit(137)
+        ck.AsyncCheckpointer.save = save_then_die
+    mesh = global_mesh(MeshConfig(data=4), ["cuda:0", "cuda:0"])
+    res = dist_run(int(seed), workdir, mesh, int(max_epoch), resume == "1")
+    torch.cuda.synchronize()
+    t_done = time.monotonic()
+    print(json.dumps({"rank": int(pid), "backend": backend,
+                      "coordinator": is_coordinator(),
+                      "mesh": mesh.shape, "fscore": res.fscore,
+                      "wall_s": t_done - t0, "t_start": t0,
+                      "t_init": t_init, "t_done": t_done}), flush=True)
+    torch.distributed.destroy_process_group()
+    return 0
+
+
+def dist_pair(seed: int, workdir: str, max_epoch: int, resume: str = "0",
+              kill_after: str = "0") -> list:
+    """Start two ``--dist-worker`` processes; ``dist_wait`` collects them."""
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    return [subprocess.Popen(
+        [sys.executable, os.path.join(HERE, "chip_smoke.py"), "--dist-worker",
+         str(pid), str(port), workdir, str(max_epoch), resume, kill_after,
+         str(seed)], stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+        text=True) for pid in range(2)]
+
+
+def dist_wait(procs: list, crash: bool = False) -> list:
+    """The two workers' JSON lines (none where the coordinator is to crash:
+    it must exit 137, and its partner is stopped); every process ends."""
+    try:
+        out0, err0 = procs[0].communicate(timeout=300)
+        if crash:
+            if procs[0].returncode != 137:
+                raise AssertionError(f"the coordinator did not crash: "
+                                     f"{err0[-2000:]}")
+            try:
+                procs[1].wait(timeout=60)
+            except subprocess.TimeoutExpired:
+                procs[1].kill()
+            return []
+        out1, err1 = procs[1].communicate(timeout=300)
+        lines = []
+        for p, out, err in zip(procs, (out0, out1), (err0, err1)):
+            if p.returncode != 0:
+                raise AssertionError(f"a worker failed ({p.returncode}): "
+                                     f"{err[-3000:]}")
+            lines.append(json.loads(out.strip().splitlines()[-1]))
+        return lines
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait(timeout=30)
+
+
+def dist_state(workdir: str) -> tuple:
+    """(model state, epoch records without timestamps) of a workdir."""
+    from vidsum_tpu_torch.train.checkpoint import load_checkpoint
+
+    with open(os.path.join(workdir, "m.jsonl")) as f:
+        recs = [{k: v for k, v in json.loads(line).items() if k != "ts"}
+                for line in f if line.strip()]
+    return load_checkpoint(os.path.join(workdir, "model_mae.ckpt"))[0], recs
+
+
+def phase_distributed(seed: int) -> None:
+    """Multi-process finetuning (``parallel/distributed.py``): two
+    processes on cuda:0 under gloo (NCCL will not give one card to two
+    ranks), each a 2-entry data mesh, run ``DIST_EPOCHS`` epochs of
+    ``finetune`` at the recipe's width; their records and final parameters
+    equal the one-process 4-entry run's bit for bit (the shards' grads sum
+    as one pairwise tree either way: ``dp_shardmap.sum_shards``), and only
+    the coordinator writes files. Then the coordinator is killed after its
+    first state file and both restart with ``resume``: parameters and
+    records bit-equal to the straight two-process run."""
+    import tempfile
+
+    import torch
+
+    from vidsum_tpu_torch.config import MeshConfig
+    from vidsum_tpu_torch.parallel import make_mesh
+
+    with tempfile.TemporaryDirectory() as tmp:
+        one, two, res = (os.path.join(tmp, n) for n in ("one", "two", "res"))
+        t0 = time.monotonic()
+        dist_run(seed, one, make_mesh(MeshConfig(data=4), ["cuda:0"] * 4),
+                 DIST_EPOCHS)
+        torch.cuda.synchronize()
+        one_wall = time.monotonic() - t0
+        # the straight pair and the pair whose coordinator is killed after
+        # its first state file start at once; the resumed pair starts as
+        # soon as the crash is collected (at most four processes on the
+        # card)
+        started = []
+        try:
+            t0 = time.monotonic()
+            started.append(dist_pair(seed, two, DIST_EPOCHS))
+            started.append(dist_pair(seed, res, DIST_EPOCHS,
+                                     kill_after="1"))
+            dist_wait(started[1], crash=True)
+            with open(os.path.join(res, "train_state.ckpt.meta.json")) as f:
+                meta = json.load(f)
+            if meta["epoch"] != 0:
+                raise AssertionError(f"the crash left epoch "
+                                     f"{meta['epoch']}")
+            t1 = time.monotonic()
+            started.append(dist_pair(seed, res, DIST_EPOCHS, resume="1"))
+            lines = dist_wait(started[0])
+            two_wall = time.monotonic() - t0
+            dist_wait(started[2])
+            resume_wall = time.monotonic() - t1
+        finally:
+            for p in (p for pair in started for p in pair):
+                if p.poll() is None:
+                    p.kill()
+                    p.wait(timeout=30)
+        if ({ln["backend"] for ln in lines} != {"gloo"}
+                or [ln["coordinator"] for ln in lines] != [True, False]):
+            raise AssertionError(f"the workers said {lines}")
+        files = sorted(os.listdir(two))
+        if files != sorted(["m.jsonl", "model_mae.ckpt",
+                            "model_mae.ckpt.meta.json", "train_state.ckpt",
+                            "train_state.ckpt.meta.json"]):
+            raise AssertionError(f"the two-process run wrote {files}")
+        (p1, r1), (p2, r2) = dist_state(one), dist_state(two)
+        bad = [k for k in p1 if not torch.equal(p1[k], p2[k])]
+        if bad or r2 != r1:
+            raise AssertionError(f"two processes against one: tensors "
+                                 f"{bad[:6]} differ; records {r2} / {r1}")
+        p3, r3 = dist_state(res)
+        bad = [k for k in p2 if not torch.equal(p2[k], p3[k])]
+        if bad or r3 != r2:
+            raise AssertionError(f"kill and resume is not exact: {bad[:6]}; "
+                                 f"records {r3} / {r2}")
+    emit("distributed", processes=2, backend="gloo",
+         mesh_per_process=[2, 1], devices=["cuda:0"] * 2,
+         epochs=DIST_EPOCHS, one_process_wall_s=one_wall,
+         two_process_wall_s=two_wall,
+         worker_walls_s=[ln["wall_s"] for ln in lines],
+         # per worker of the straight pair: seconds from the launch to its
+         # code running (interpreter, torch, the card), in the process
+         # group's rendezvous, and in finetune
+         worker_stages_s=[{"start": ln["t_start"] - t0,
+                           "init": ln["t_init"] - ln["t_start"],
+                           "run": ln["t_done"] - ln["t_init"]}
+                          for ln in lines],
+         records_and_params_equal_to_one_process=True,
+         coordinator_only_files=files, kill_and_resume_bit_equal=True,
+         resume_wall_s=resume_wall)
+
+
+def phase_finetune_mesh(seed: int) -> dict:
+    """``finetune(mesh=)`` through its entry points: ``cli.train --dp`` (a
+    (1, 1) mesh of the one card; 16 train videos at batch 4, so no batch is
+    padded) at the recipe's dropout against the same CLI run without
+    ``--dp``: every record bit for bit (phase 7b's rule for its second CLI
+    run; one shard draws its (1, 4) seed table from the epoch's generator
+    as the single-device step draws its four layer seeds); then
+    ``finetune(mesh=<(4, 1) of cuda:0>)`` over 2 folds x 2 epochs at the
+    recipe's dropout (rows 9-12 on every shard), with its epoch walls.
+    Returns the launches of that run."""
+    import contextlib
+    import dataclasses
+    import io
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from vidsum_tpu_torch.cli import train as train_cli
+    from vidsum_tpu_torch.config import MeshConfig, finetune_recipe
+    from vidsum_tpu_torch.parallel import make_mesh
+    from vidsum_tpu_torch.train import finetune as ft
+
+    rng = np.random.default_rng(seed + 14)
+    videos = finetune_videos(rng, 1024)
+    names = list(videos)
+    folds = [{"train_keys": [FT_KEY + n for n in names
+                             if n not in names[4 * k:4 * k + 4]],
+              "test_keys": [FT_KEY + n for n in names[4 * k:4 * k + 4]]}
+             for k in range(2)]
+    fold_datasets = memory_fold_datasets(videos)
+    with tempfile.TemporaryDirectory() as tmp:
+        split_path = os.path.join(tmp, "splits.json")
+        with open(split_path, "w") as f:
+            json.dump(folds[:1], f)
+        recs, printed = {}, {}
+        for name, extra in (("plain", []), ("dp", ["--dp"])):
+            wd = os.path.join(tmp, name)
+            argv = ["--data", tmp, "--split_path", split_path,
+                    "--max_epoch", "2", "--workdir", wd,
+                    "--metrics", os.path.join(wd, "m.jsonl")] + extra
+            out = io.StringIO()
+            with patched(ft, "fold_datasets", fold_datasets), \
+                    contextlib.redirect_stdout(out):
+                train_cli.main(argv)
+            printed[name] = json.loads(out.getvalue().strip()
+                                       .splitlines()[-1])
+            with open(os.path.join(wd, "m.jsonl")) as f:
+                recs[name] = [{k: v for k, v in json.loads(line).items()
+                               if k != "ts"} for line in f]
+        if recs["dp"] != recs["plain"] or printed["dp"] != printed["plain"]:
+            raise AssertionError(f"cli.train --dp records {recs['dp']} != "
+                                 f"{recs['plain']}")
+        conf = finetune_recipe()
+        conf = dataclasses.replace(conf, train=dataclasses.replace(
+            conf.train, max_epoch=2, use_pretrained=False))
+        mesh = make_mesh(MeshConfig(data=4), ["cuda:0"] * 4)
+        reset_counters()
+        with FoldLoopClock(fold_datasets) as clock:
+            res = ft.finetune(conf, folds, workdir=os.path.join(tmp, "mesh"),
+                              export_summary=False, mesh=mesh,
+                              metrics_path=os.path.join(tmp, "mesh.jsonl"))
+        torch.cuda.synchronize()
+        counts = read_counters()
+        with open(os.path.join(tmp, "mesh.jsonl")) as f:
+            mesh_recs = [json.loads(line) for line in f]
+    # 4 shards of a batch of 4: one video a shard, the per-element route
+    if not (counts["_fwd_kernel"] and counts["_bwd_kernel"]
+            and 0.0 <= res.fscore <= 100.0):
+        raise AssertionError(f"finetune(mesh=) launched {counts}, F "
+                             f"{res.fscore}")
+    if len(mesh_recs) != 2 * 2 + 1 or not all(
+            np.isfinite(r["train_loss"]) for r in mesh_recs[:-1]):
+        raise AssertionError(f"finetune(mesh=) records {mesh_recs}")
+    summary = clock.summary()
+    emit("finetune_mesh", cli_dp={"mesh": [1, 1], "records": len(recs["dp"]),
+                                  "records_bit_equal_to_no_mesh": True,
+                                  "printed": printed["dp"]},
+         mesh={"shape": [4, 1], "devices": ["cuda:0"] * 4, "folds": 2,
+               "epochs": 2, "fscore": res.fscore,
+               "epoch_wall_s": [round(e["wall_s"], 6)
+                                for e in summary["epochs"]],
+               "train_s": [round(e["train_s"], 6)
+                           for e in summary["epochs"]],
+               "fold_wall_s": summary["fold_wall_s"]},
+         launches=counts)
+    return {r: counts[r] for r in TRAIN_ROUTES}
+
+
+def phase_serve_mesh_int8(seed: int) -> dict:
+    """The int8 wire on a mesh: ``ScoringService(mesh=<(1, 4) of cuda:0>,
+    attn_impl="int8_block", wire_dtype="int8", long_threshold=8,192)`` over
+    the serve phase's 13 requests. The entries repeat one card, so short
+    requests take the single-device int8 route (TPU kernels 13/14): their
+    scores equal the single-device int8 service's bit for bit; the
+    16,384-frame request takes the ring on the lossless wire and equals the
+    lossless mesh service's. ``make_replica_forward_int8`` called over four
+    entries of cuda:0 equals dequantise-then-score bit for bit. ``cli.serve
+    --devices 2`` exits with the JAX message on a one-card machine; on two
+    or more cards a (1, 2) mesh serves (a stated skip here otherwise).
+    Returns the launches of the mesh service's pass."""
+    import numpy as np
+    import torch
+
+    from vidsum_tpu_torch.cli import serve as serve_cli
+    from vidsum_tpu_torch.parallel import make_mesh
+    from vidsum_tpu_torch.serve import ScoringService
+    from vidsum_tpu_torch.serve import mesh as serve_mesh
+    from vidsum_tpu_torch.serve.transport import quantize_frames
+
+    cfg, model = serve_model(seed)
+    rng = np.random.default_rng(seed + 1)
+    videos = [rng.random((n, cfg.in_features), dtype=np.float32)
+              for n in SERVE_LENGTHS]
+    mesh = make_mesh((1, 4), "cuda:0")
+
+    def serve(**kw):
+        with ScoringService(model, cfg, max_batch=8, max_delay_ms=50.0,
+                            **kw) as svc:
+            futs = [svc.submit(v, want_summary=False) for v in videos]
+            return [f.result(timeout=600).scores for f in futs], svc.stats()
+
+    single, _ = serve(attn_impl="int8_block", wire_dtype="int8")
+    reset_counters()
+    t0 = time.monotonic()
+    got, st = serve(attn_impl="int8_block", wire_dtype="int8", mesh=mesh,
+                    long_threshold=8192)
+    wall = time.monotonic() - t0
+    counts = read_counters()
+    lossless, _ = serve(mesh=mesh, long_threshold=8192)
+    if st.long_requests != 1 or st.failed:
+        raise AssertionError(f"mesh int8 serving stats: {st}")
+    for n, a, b, c in zip(SERVE_LENGTHS, got, single, lossless):
+        want = c if n > 8192 else b
+        if not np.array_equal(a, want):
+            other = ("the lossless ring" if n > 8192
+                     else "the single-device int8 service")
+            raise AssertionError(f"a {n}-frame request on the int8 mesh "
+                                 f"service != {other}")
+    if not all(counts[r] for r in INT8_ROUTES) or not counts[
+            "_ring_block_step"]:
+        raise AssertionError(f"int8 mesh serving launched {counts}")
+
+    # make_replica_forward_int8 over four entries of cuda:0
+    devs = mesh.devices
+    rep = serve_mesh._make_replica_forward(cfg, model, devs, "int8_block")
+    fwd8 = serve_mesh.make_replica_forward_int8(cfg, rep)
+    pairs, deq = [], []
+    for _ in range(4):
+        q, s = zip(*[quantize_frames(rng.random((512, cfg.in_features),
+                                                dtype=np.float32))
+                     for _ in range(2)])
+        qt = torch.from_numpy(np.stack(q)).cuda()
+        st_ = torch.from_numpy(np.stack(s)).cuda()
+        pairs.append((qt, st_))
+        deq.append(qt.float() * st_[..., None])
+    mask = np.zeros((8, 512), bool)
+    mask[:, 480:] = True
+    replica_equal = np.array_equal(fwd8(pairs, mask), rep(deq, mask))
+    if not replica_equal:
+        raise AssertionError("make_replica_forward_int8 != dequantise then "
+                             "score")
+    if torch.cuda.device_count() < 2:
+        try:
+            serve_cli.main(["--devices", "2", "--warmup", ""])
+        except SystemExit as e:
+            msg = str(e)
+        else:
+            raise AssertionError("cli.serve --devices 2 served on one card")
+        if msg != "--devices 2 but only 1 present":
+            raise AssertionError(f"cli.serve --devices 2 said {msg!r}")
+        two_cards = {"skipped": "one card: --devices 2 exits with "
+                                f"{msg!r}"}
+    else:
+        m2 = serve_cli.serve_mesh(2)
+        with ScoringService(model, cfg, mesh=m2, max_delay_ms=5.0) as svc:
+            r = svc.submit(videos[0], want_summary=False).result(timeout=300)
+        two_cards = {"mesh": [1, 2], "devices": [str(d) for d in m2.devices],
+                     "served": bool(np.array_equal(r.scores, lossless[0]))}
+    emit("serve_mesh_int8", mesh=[1, 4], devices=["cuda:0"] * 4,
+         lengths=SERVE_LENGTHS, wall_s=wall, batches=st.batches,
+         long_requests=st.long_requests, launches=counts,
+         shorts_equal_single_device_int8=True,
+         long_equals_lossless_ring=True,
+         replica_forward_int8_equal=replica_equal, cli_devices_2=two_cards)
+    return counts
+
+
 def _counted():
     """(name, function) of every launch counter on the paths."""
     from vidsum_tpu_torch.ops import attention as at
@@ -5655,6 +6469,8 @@ def main() -> int:
                          "sequence-parallel phases of the checkout at "
                          "PARENT_DIR and of this one in turns (parent, "
                          "change, change, parent) instead of the full run")
+    ap.add_argument("--dist-worker", nargs=7, metavar="ARG",
+                    help=argparse.SUPPRESS)   # a process of phase 8b
     args = ap.parse_args()
     if not os.path.isdir(os.path.join(HERE, "vidsum_tpu_torch")):
         print("chip_smoke.py: the vidsum_tpu_torch package is not beside "
@@ -5666,6 +6482,8 @@ def main() -> int:
         print("chip_smoke.py: CUDA is not available", file=sys.stderr)
         return 2
     sys.path.insert(0, HERE)
+    if args.dist_worker:
+        return dist_worker(args.dist_worker)
     if args.compare:
         return compare_trees(args.compare, args.seed)
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -5726,6 +6544,19 @@ def main() -> int:
     clock.mark("long_train")
     counts.update(phase_seq_train(args.seed, long_videos))
     clock.mark("seq_train")
+    mgpu = {"dp_train": phase_dp_train(args.seed)}
+    clock.mark("dp_train")
+    phase_tp_train(args.seed)
+    clock.mark("tp_train")
+    phase_pp_train(args.seed)
+    clock.mark("pp_train")
+    mgpu["finetune_mesh"] = phase_finetune_mesh(args.seed)
+    clock.mark("finetune_mesh")
+    phase_distributed(args.seed)
+    clock.mark("distributed")
+    mgpu["serve_mesh_int8"] = {r: n for r, n in phase_serve_mesh_int8(
+        args.seed).items() if n}
+    clock.mark("serve_mesh_int8")
     check_no_gemm_fallback("the run")
 
     replaces = {
@@ -5805,6 +6636,11 @@ def main() -> int:
                  "route": "cuda", "source": srcs[0], "sources": srcs,
                  "replaces": rep, "launches": counts[route],
                  **timings[route]}
+        for ph, run_counts in mgpu.items():
+            if route in run_counts:
+                # the multi-GPU phases' main paths (rows 9-12 on every dp
+                # shard; the int8 mesh wire's single-device int8 route)
+                entry["launches_" + ph] = run_counts[route]
         if route.split(".")[0] in summarize_launches and (
                 route.endswith(".f32") or route in RING_ROUTES):
             # the summarize phase's f32 scorer (its CLI runs and the mesh)

@@ -483,20 +483,24 @@ def test_cli_evaluate_matches_jax(data_root, jax_params, tmp_path, capsys):
 
 def test_entry_points_run_on_the_card_only(data_root, tmp_path):
     """Without ``device`` the entry points run on the card and raise where
-    there is none; the options of later slices raise naming them."""
+    there is none; ``--dp`` builds its mesh there too, and a mesh whose
+    first entry is not ``device`` is refused."""
+    from vidsum_tpu_torch.parallel import make_mesh
+
     _, conf = _configs(data_root)
-    argv = ["--data", data_root, "--split_path", "x.json"]
-    for bad, match in ((["--dp"], "multi-GPU slice"),
-                       (["--tp", "2"], "multi-GPU slice")):
-        with pytest.raises(NotImplementedError, match=match):
-            train_cli.main(argv + bad, device="cpu")
-    with pytest.raises(NotImplementedError, match="multi-GPU slice"):
-        ft.finetune(conf, SPLITS, workdir=str(tmp_path), mesh=object(),
-                    device="cpu")
-    if torch.cuda.is_available():
-        pytest.skip("a CUDA card is present")
     split_file = tmp_path / "splits.json"
     split_file.write_text(json.dumps(SPLITS[:1]))
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            train_cli.main(["--data", data_root, "--split_path",
+                            str(split_file), "--workdir", str(tmp_path),
+                            "--dp"])
+    with pytest.raises(ValueError, match="not the mesh's first entry"):
+        ft.finetune(conf, SPLITS, workdir=str(tmp_path),
+                    mesh=make_mesh((2, 1), "cpu", ("data", "model")),
+                    device="meta")
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present")
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         ft.finetune(conf, SPLITS, workdir=str(tmp_path))
     with pytest.raises(RuntimeError, match="CUDA is not available"):

@@ -460,13 +460,17 @@ def test_cli_main_on_the_cpu(tree_root, tmp_path, source):
 
 
 def test_entry_points_run_on_the_card_only(tree_root, tmp_path):
-    """pretrain(mesh=) raises naming the multi-GPU slice; without
-    ``device`` pretrain() and the CLI raise where there is no card."""
+    """pretrain(mesh=) refuses a batch its data axis does not split (the
+    JAX error); without ``device`` pretrain() and the CLI raise where there
+    is no card."""
+    from vidsum_tpu_torch.parallel import make_mesh
+
     _, conf = _configs(tree_root)
     ds = datasets.PreTrainDataset(tree_root)
-    with pytest.raises(NotImplementedError, match="multi-GPU slice"):
-        pretrain(conf, ds, workdir=str(tmp_path), mesh=object(),
-                 device="cpu")
+    data = conf.pretrain.batch_size + 1
+    with pytest.raises(ValueError, match="not divisible by the data axis"):
+        pretrain(conf, ds, workdir=str(tmp_path),
+                 mesh=make_mesh((data, 1), "cpu", ("data", "model")))
     if torch.cuda.is_available():
         pytest.skip("a CUDA card is present")
     with pytest.raises(RuntimeError, match="CUDA is not available"):

@@ -356,9 +356,12 @@ def test_mesh_service_use_cls_warns_and_refuses(served):
 def test_mesh_service_wire_refusals(served):
     cfg, model = served
     mesh = make_mesh((1, 2), "cpu")
-    with pytest.raises(NotImplementedError, match="multi-GPU slice"):
-        ScoringService(model, cfg, device="cpu", mesh=mesh,
-                       wire_dtype="int8")
+    # the int8 wire on a mesh is no longer refused: it scores
+    with ScoringService(model, cfg, device="cpu", mesh=mesh,
+                        wire_dtype="int8", max_delay_ms=0.0) as svc:
+        r = svc.submit(np.zeros((200, 32), np.float32),
+                       want_summary=False).result(timeout=120)
+        assert r.scores.shape == (200,)
     with pytest.raises(ValueError, match="single-chip only"):
         ScoringService(model, cfg, device="cpu", mesh=mesh,
                        wire_mode="coalesced")

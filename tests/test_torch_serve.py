@@ -183,12 +183,15 @@ def test_submit_validation_and_later_slices(pair):
                        n_frames=100)
     with pytest.raises(RuntimeError, match="closed"):
         svc.submit(np.zeros((4, CFG.in_features), np.float32))
-    # mesh serving came with the sequence-parallel slice; the int8 wire on
-    # a mesh is still the multi-GPU slice's
+    # the int8 wire on a mesh scores (tests/test_torch_parallel.py holds
+    # its scores); the coalesced wire stays single-device only
     from vidsum_tpu_torch.parallel import make_mesh
 
-    with pytest.raises(NotImplementedError, match="multi-GPU slice"):
-        _service(model, mesh=make_mesh((1, 2), "cpu"), wire_dtype="int8")
+    with _service(model, mesh=make_mesh((1, 2), "cpu"), wire_dtype="int8",
+                  max_delay_ms=0.0) as svc:
+        r = svc.submit(np.zeros((4, CFG.in_features), np.float32),
+                       want_summary=False).result(timeout=60)
+        assert r.scores.shape == (4,) and np.all(np.isfinite(r.scores))
     with pytest.raises(ValueError, match="single-chip only"):
         _service(model, mesh=make_mesh((2, 1), "cpu"), wire_mode="coalesced")
     with pytest.raises(ValueError, match="wire_dtype must be"):
@@ -202,7 +205,9 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     int8 slice's modules, the sequence-parallel ones, the finetune
     protocol's (data, checkpoints, the msgpack reader, the CLIs) and the
     raw-video path's (preprocess, pipeline, device eval, the exports, the
-    summarize and build_dataset CLIs) are among those imported."""
+    summarize and build_dataset CLIs) and the multi-device modes'
+    (data, tensor and pipeline parallelism, multi-process runs) are among
+    those imported."""
     code = (
         "import pkgutil, importlib, sys\n"
         "import vidsum_tpu_torch as p\n"
@@ -224,7 +229,10 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "       'preprocess.transforms', 'preprocess.reduce_fps',\n"
         "       'preprocess.extract', 'preprocess.annotations',\n"
         "       'preprocess.build_dataset', 'export.attention',\n"
-        "       'export.frames', 'cli.summarize', 'cli.build_dataset']\n"
+        "       'export.frames', 'cli.summarize', 'cli.build_dataset',\n"
+        "       'parallel.dp_shardmap', 'parallel.train_parallel',\n"
+        "       'parallel.sharding', 'parallel.pipeline',\n"
+        "       'parallel.distributed']\n"
         "missing = [m for m in new if 'vidsum_tpu_torch.' + m\n"
         "           not in sys.modules]\n"
         "print(n, bad, missing)\n"

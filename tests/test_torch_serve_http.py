@@ -168,11 +168,18 @@ def test_cli_parser_matches_jax():
 
 
 @pytest.mark.parametrize("argv,match", [
-    (["--devices", "2"], "multi-GPU slice"),
+    (["--devices", "2"], "--devices 2 but only 1 present"),
 ])
-def test_cli_later_slices_raise(argv, match):
-    with pytest.raises(NotImplementedError, match=match):
+def test_cli_later_slices_raise(argv, match, monkeypatch):
+    """``--devices N`` exits with the JAX message where fewer than N cards
+    are present (one here, as on the card's machine); it never repeats a
+    card."""
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    with pytest.raises(SystemExit, match=match):
         cli.main(argv)
+    mesh = cli.serve_mesh(3, "cpu")
+    assert mesh.shape == {"data": 1, "seq": 3}
+    assert cli.serve_mesh(1) is None
 
 
 @pytest.mark.parametrize("fmt", ["flax", "torch"])

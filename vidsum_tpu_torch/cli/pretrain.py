@@ -91,6 +91,11 @@ def main(argv=None, *, device=None) -> dict:
     """Parse ``argv``, load the dataset and run ``train.pretraining.
     pretrain`` on ``device`` (default: the CUDA card). Returns its result."""
     args = build_parser().parse_args(argv)
+    # a multi-process launch joins its process group first (a no-op
+    # otherwise; parallel/distributed.py)
+    from vidsum_tpu_torch.parallel.distributed import init_distributed
+
+    init_distributed()
     logging.basicConfig(format="[%(levelname)s] %(module)s - %(message)s",
                         level=logging.INFO)
     import torch

@@ -1,5 +1,4 @@
-# ported from vidsum_tpu/cli/serve.py (one card; multi-GPU serving arrives
-# with a later slice)
+# ported from vidsum_tpu/cli/serve.py
 """Serving CLI: a micro-batching scoring service behind a local HTTP API.
 
 Usage:
@@ -15,8 +14,10 @@ the CUDA card (head_dim = d_model / num_heads at most 128, d_model at most
 checkpoint of either package (the port's ``torch.save`` file, as
 ``cli.train`` writes it, or the JAX package's msgpack file), ``--torch_ckpt``
 a reference-trained ``.pth``. The flags and their defaults are the JAX
-package's; ``--devices`` > 1 arrives with the multi-GPU slice and raises
-``NotImplementedError`` naming it.
+package's. ``--devices N`` serves over a (1, N) ``DeviceMesh`` of the first
+N visible cards (``ScoringService(mesh=)``: replica batches for short
+requests, the sequence-parallel ring past ``--long_threshold``) and exits
+with the JAX message where fewer cards are present; it never repeats a card.
 
 **Worker recycling** (``--recycle_after_mb`` / ``--recycle_after_requests``):
 the CLI runs as a supervisor that owns the listening socket and spawns the
@@ -66,11 +67,12 @@ def build_parser() -> argparse.ArgumentParser:
                         "kernels; 'int8_block' / 'int8_dense' score on the "
                         "lossy int8 route)")
     p.add_argument("--devices", type=int, default=1,
-                   help="serve over the first N local cards (N > 1 arrives "
-                        "with the multi-GPU slice)")
+                   help="serve over the first N local cards (replica "
+                        "batches + the sequence-parallel ring for long "
+                        "requests)")
     p.add_argument("--long_threshold", type=int, default=None,
                    help="feature-row count above which a request takes the "
-                        "sequence-parallel route (multi-GPU slice)")
+                        "sequence-parallel route (with --devices > 1)")
     p.add_argument("--warmup", default="128,256,512",
                    help="comma-separated lengths to run once before "
                         "serving — the (bucket x batch) grid of each (empty "
@@ -112,11 +114,23 @@ def build_parser() -> argparse.ArgumentParser:
     return p
 
 
-def check_slice(args) -> None:
-    """Raise ``NotImplementedError`` for the options later slices bring."""
-    if args.devices > 1:
-        raise NotImplementedError(
-            "--devices > 1 arrives with the multi-GPU slice")
+def serve_mesh(n: int, device=None):
+    """The (1, n) mesh ``--devices n`` serves over: the first n visible
+    cards, or exit with the JAX message where fewer are present; None for
+    one device. With ``device="cpu"`` (the plain path) n entries of the
+    CPU."""
+    if n <= 1:
+        return None
+    import torch
+
+    from vidsum_tpu_torch.parallel.mesh import make_mesh
+
+    if device is not None and torch.device(device).type == "cpu":
+        return make_mesh((1, n), "cpu")
+    present = torch.cuda.device_count()
+    if present < n:
+        raise SystemExit(f"--devices {n} but only {present} present")
+    return make_mesh((1, n), [f"cuda:{i}" for i in range(n)])
 
 
 def load_model(args, cfg, device=None):
@@ -140,9 +154,10 @@ def load_model(args, cfg, device=None):
     return model
 
 
-def make_service(args, cfg, model, device=None):
+def make_service(args, cfg, model, device=None, mesh=None):
     """The ``ScoringService`` ``main`` serves, over ``model`` with the
-    command line's batching, admission and wire options."""
+    command line's batching, admission and wire options (and ``mesh``,
+    :func:`serve_mesh`'s)."""
     from vidsum_tpu_torch.serve import ScoringService
 
     return ScoringService(model, cfg, attn_impl=args.attn,
@@ -154,7 +169,8 @@ def make_service(args, cfg, model, device=None):
                           rss_watermark_mb=args.rss_watermark_mb,
                           wire_dtype=args.wire_dtype,
                           wire_mode=args.wire_mode,
-                          long_threshold=args.long_threshold, device=device)
+                          mesh=mesh, long_threshold=args.long_threshold,
+                          device=None if mesh is not None else device)
 
 
 def recycling(args) -> bool:
@@ -266,16 +282,17 @@ def main(argv=None, *, device=None) -> None:
     args = build_parser().parse_args(argv)
     logging.basicConfig(format="[%(levelname)s] %(module)s - %(message)s",
                         level=logging.INFO)
-    check_slice(args)
     if recycling(args) and args._worker_fd is None:
         run_supervisor(args, argv)
         return
     from vidsum_tpu_torch.config import ModelConfig
     from vidsum_tpu_torch.serve_http import make_server
 
+    mesh = serve_mesh(args.devices, device)
     cfg = ModelConfig(d_model=args.d_model, num_heads=args.num_heads,
                       num_layers=args.num_layers)
-    service = make_service(args, cfg, load_model(args, cfg, device), device)
+    model = load_model(args, cfg, mesh.devices[0] if mesh else device)
+    service = make_service(args, cfg, model, device, mesh)
     if args.warmup:
         lengths = [int(s) for s in args.warmup.split(",") if s]
         logging.info("warming up %s x batch grid...", lengths)

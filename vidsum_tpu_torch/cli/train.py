@@ -9,8 +9,12 @@ device="cpu")`` runs the plain PyTorch path (a keyword of the function, not
 a flag). On the card, head_dim (d_model / num_heads) must be at most 128
 and d_model at most 1,024. ``--eval_impl device`` builds the val pass's
 summaries on the card (``ops/device_eval.py``; the same frames as the host
-oracle). ``--dp`` and ``--tp`` > 1 arrive with the multi-GPU slice and raise
-``NotImplementedError`` naming it.
+oracle). ``--dp`` trains over a ``MeshConfig(data=-1, model=--tp)`` mesh
+of the visible cards (``train.finetune.finetune(mesh=)``; on a one-card
+machine a (1, 1) mesh, where ``--tp 2`` raises the JAX divisibility error).
+A multi-process run sets ``VIDSUM_COORDINATOR`` (process 0's host:port),
+``VIDSUM_NUM_PROCESSES`` and ``VIDSUM_PROCESS_ID`` in each process's
+environment (``parallel/distributed.py``).
 
 Usage:
     python -m vidsum_tpu_torch.cli.train --data data --datasets tvsum \\
@@ -75,11 +79,9 @@ def build_parser() -> argparse.ArgumentParser:
                    help="torch.profiler trace (trace.json) of the first "
                         "epoch")
     p.add_argument("--dp", action="store_true",
-                   help="data-parallel training over the local cards "
-                        "(arrives with the multi-GPU slice)")
+                   help="train dp(xtp) over all visible cards")
     p.add_argument("--tp", type=int, default=1,
-                   help="tensor-parallel degree (> 1 arrives with the "
-                        "multi-GPU slice)")
+                   help="tensor-parallel degree within the mesh (with --dp)")
     p.add_argument("--debug_nans", action="store_true",
                    help="torch.autograd anomaly detection: raise at the "
                         "first backward that makes a NaN")
@@ -117,11 +119,15 @@ def config_from_args(args) -> Config:
 
 
 def main(argv=None, *, device=None) -> None:
+    """Parse ``argv`` and finetune on ``device`` (default: the CUDA card;
+    with ``--dp`` the mesh's entries are the visible cards, or ``device``
+    itself where one is given)."""
     args = build_parser().parse_args(argv)
-    if args.dp or args.tp > 1:
-        raise NotImplementedError(
-            "--dp / --tp > 1 (data/tensor-parallel training) arrive with "
-            "the multi-GPU slice")
+    # a multi-process launch (VIDSUM_NUM_PROCESSES > 1) joins its process
+    # group first; a no-op otherwise (parallel/distributed.py)
+    from vidsum_tpu_torch.parallel.distributed import init_distributed
+
+    init_distributed()
     logging.basicConfig(format="[%(levelname)s] %(module)s - %(message)s",
                         level=logging.INFO)
     if args.split_path:
@@ -137,10 +143,18 @@ def main(argv=None, *, device=None) -> None:
 
     from vidsum_tpu_torch.train.finetune import finetune
 
+    mesh = None
+    if args.dp:
+        from vidsum_tpu_torch.config import MeshConfig
+        from vidsum_tpu_torch.parallel.distributed import global_mesh
+
+        mesh = global_mesh(MeshConfig(data=-1, model=args.tp), device)
+        device = None
     with torch.autograd.set_detect_anomaly(args.debug_nans):
         result = finetune(cfg, splits, workdir=args.workdir,
                           resume=args.resume, metrics_path=args.metrics,
-                          profile_dir=args.profile_dir, device=device)
+                          profile_dir=args.profile_dir, mesh=mesh,
+                          device=device)
     print(json.dumps({"fscore": result.fscore,
                       "kendall_tau": result.kendall_tau,
                       "spearman_rho": result.spearman_rho}))

@@ -7,6 +7,7 @@ describes the same run in both packages."""
 from __future__ import annotations
 
 import dataclasses
+from typing import Tuple
 
 
 @dataclasses.dataclass(frozen=True)
@@ -119,6 +120,16 @@ class PretrainConfig:
     freeze_video_transform: bool = True
     save_every: int = 1
     seed: int = 1234
+
+
+@dataclasses.dataclass(frozen=True)
+class MeshConfig:
+    """A device mesh's layout (``parallel.mesh.make_mesh``): ``data`` -1
+    takes every entry the ``model`` (tensor-parallel) axis does not."""
+
+    data: int = -1
+    model: int = 1
+    axis_names: Tuple[str, str] = ("data", "model")
 
 
 @dataclasses.dataclass(frozen=True)

@@ -6,6 +6,7 @@ touches a handful of shapes and the kernels see 128-multiple lengths."""
 
 from __future__ import annotations
 
+import itertools
 from typing import Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -64,16 +65,36 @@ def pad_batch_pretrain(features: Sequence[np.ndarray],
 
 def make_batches(n_items: int, batch_size: int, *, shuffle: bool,
                  rng: Optional[np.random.Generator] = None,
-                 drop_last: bool = False) -> Iterator[List[int]]:
+                 drop_last: bool = False,
+                 pad_to_batch: bool = False) -> Iterator[List[int]]:
     """Yield index batches; the last may be smaller, or with ``drop_last``
     (pretraining, the reference's ``DataLoader(drop_last=True)``) is left
-    out. (The JAX package's ``pad_to_batch`` with ``item_weights``, for its
-    device mesh, arrives with the multi-GPU slice.)"""
+    out. With ``pad_to_batch`` (a device mesh, whose shards need equal
+    rows) the last partial batch is filled by cycling its own indices:
+    its length bucket stays the reference's smaller final batch's, and the
+    repeats are exact duplicates that :func:`item_weights` weighs 0."""
     idx = np.arange(n_items)
     if shuffle:
         (rng or np.random.default_rng()).shuffle(idx)
     for start in range(0, n_items, batch_size):
         chunk = idx[start:start + batch_size].tolist()
-        if drop_last and len(chunk) < batch_size:
-            return
+        if len(chunk) < batch_size:
+            if drop_last:
+                return
+            if pad_to_batch:
+                chunk = chunk + list(itertools.islice(
+                    itertools.cycle(chunk), batch_size - len(chunk)))
         yield chunk
+
+
+def item_weights(batch_idx: List[int]) -> np.ndarray:
+    """(B,) f32: 1.0 at the first occurrence of each index, 0.0 at repeats.
+    An epoch's order is a permutation, so a repeat can only be
+    ``pad_to_batch``'s fill; weighing it 0 makes the padded batch's loss
+    and gradients the unpadded smaller batch's."""
+    seen: set = set()
+    w = np.empty(len(batch_idx), dtype=np.float32)
+    for j, i in enumerate(batch_idx):
+        w[j] = 0.0 if i in seen else 1.0
+        seen.add(i)
+    return w

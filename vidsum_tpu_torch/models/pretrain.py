@@ -82,20 +82,23 @@ class PretrainModel(nn.Module):
 
     def objective(self, scores: torch.Tensor, hidden: torch.Tensor,
                   video_rep: torch.Tensor,
-                  pad_mask: Optional[torch.Tensor] = None
+                  pad_mask: Optional[torch.Tensor] = None,
+                  denom_len: Optional[torch.Tensor] = None
                   ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
         """The three losses from the encoder's scores (B, N, 1) and hidden
         states (B, N, d): ``video_transform`` on the hidden states (cast to
         its dtype), the sharpened softmax of the scores with -inf at pads,
-        and the reference pad length as the denominator."""
+        and the reference pad length as the denominator (``denom_len``: the
+        global batch's, which a step over one shard of the batch passes)."""
         vt = self.video_transform
-        feats = (torch.matmul(hidden.to(vt.weight.dtype), vt.weight.t())
-                 + vt.bias)
+        dev = hidden.device
+        feats = (torch.matmul(hidden.to(vt.weight.dtype),
+                              vt.weight.to(dev).t()) + vt.bias.to(dev))
 
         # center and repel divide by the reference pad length (the max true
         # length in the batch), not the bucket width: ops/losses.py
-        ref_len = reference_pad_len(pad_mask, hidden.shape[1]).to(
-            feats.device)
+        ref_len = (reference_pad_len(pad_mask, hidden.shape[1])
+                   if denom_len is None else denom_len).to(feats.device)
         repel = repelling_loss(feats, pad_mask, denom_len=ref_len)
 
         if pad_mask is not None:

@@ -170,12 +170,19 @@ def positional_encoding_table(max_len: int, d_model: int,
     return pe
 
 
+def _affine(w: torch.Tensor, b: Optional[torch.Tensor],
+            x: torch.Tensor) -> torch.Tensor:
+    """``x @ w^T (+ b)`` in x's dtype on x's device, one product per batch
+    element so a row's result does not depend on the rest of the batch (the
+    JAX ``_linear``). ``w`` may be a slice of a weight on another device
+    (the tensor-parallel steps' shards)."""
+    wt = w.to(x.device, x.dtype).t()
+    out = torch.stack([torch.matmul(xi, wt) for xi in x.unbind(0)])
+    return out if b is None else out + b.to(x.device, x.dtype)
+
+
 def _linear(lin: nn.Linear, x: torch.Tensor) -> torch.Tensor:
-    """``x @ W^T + b`` in x's dtype, one product per batch element so a row's
-    result does not depend on the rest of the batch (the JAX ``_linear``)."""
-    w = lin.weight.to(x.dtype).t()
-    b = lin.bias.to(x.dtype)
-    return torch.stack([torch.matmul(xi, w) for xi in x.unbind(0)]) + b
+    return _affine(lin.weight, lin.bias, x)
 
 
 def _kernel_linear(lin: nn.Linear, x: torch.Tensor) -> torch.Tensor:
@@ -188,7 +195,8 @@ def _kernel_linear(lin: nn.Linear, x: torch.Tensor) -> torch.Tensor:
 
 
 def _layernorm(ln: nn.LayerNorm, x: torch.Tensor) -> torch.Tensor:
-    return F.layer_norm(x.float(), ln.normalized_shape, ln.weight, ln.bias,
+    return F.layer_norm(x.float(), ln.normalized_shape,
+                        ln.weight.to(x.device), ln.bias.to(x.device),
                         ln.eps).to(x.dtype)
 
 

@@ -33,14 +33,21 @@ def reference_pad_len(pad_mask: Optional[torch.Tensor],
 
 
 def mse_with_mask_loss(output: torch.Tensor, targets: torch.Tensor,
-                       pad_mask: torch.Tensor, reduction: str = "avg"
+                       pad_mask: torch.Tensor, reduction: str = "avg",
+                       item_weight: Optional[torch.Tensor] = None,
+                       denom_len: Optional[torch.Tensor] = None
                        ) -> torch.Tensor:
     """Masked MSE. ``output`` (B, N, 1), ``targets`` (B, N), ``pad_mask``
     (B, N) True at padded frames. ``reduction="avg"`` divides the sum by
-    ``B * reference_pad_len``; ``"sum"`` returns the sum, which the
-    sequence-parallel step divides by the global batch and length. (The JAX
-    package's ``item_weight`` and ``denom_len``, for batches padded to a
-    static size on a device mesh, arrive with the multi-GPU slice.)"""
+    ``B * denom_len``; ``"sum"`` returns the sum. ``denom_len`` defaults to
+    ``reference_pad_len``; a step that sees one shard of the batch passes
+    the global batch's (the max over the shards).
+
+    ``item_weight`` (B,): per-video weights of a batch padded to a static
+    size by repeating videos (``collate.make_batches(pad_to_batch=True)``):
+    repeats weigh 0 and the mean divides by ``sum(weight) * denom_len``, so
+    the loss and its gradient equal the reference's smaller final batch's
+    (``src/train.py:58-64``, ``src/utils/utils.py:45-56``)."""
     if reduction not in ("avg", "sum"):
         raise ValueError(f"reduction must be 'avg' or 'sum', got "
                          f"{reduction!r}")
@@ -48,9 +55,19 @@ def mse_with_mask_loss(output: torch.Tensor, targets: torch.Tensor,
     keep = torch.where(pad_mask, 0.0, 1.0).to(output.dtype)
     diff = output * keep - targets * keep
     loss = diff * diff
+    if denom_len is None:
+        denom_len = reference_pad_len(pad_mask, loss.shape[1])
+    denom_len = torch.as_tensor(denom_len).to(device=loss.device,
+                                              dtype=loss.dtype)
+    if item_weight is not None:
+        item_weight = torch.as_tensor(item_weight).to(device=loss.device,
+                                                      dtype=loss.dtype)
+        loss = loss * item_weight[:, None]
+        if reduction == "avg":
+            return loss.sum() / (item_weight.sum() * denom_len)
+        return loss.sum()
     if reduction == "sum":
         return loss.sum()
-    denom_len = reference_pad_len(pad_mask).to(loss.dtype)
     return loss.sum() / (loss.shape[0] * denom_len)
 
 

@@ -81,12 +81,13 @@ def _arange(n: int, start: int, device) -> torch.Tensor:
 
 
 def ring_hash_keep(seed: int, b0: int, q0: int, k0: int, shape,
-                   rate: float, device=None) -> torch.Tensor:
+                   rate: float, device=None, h0: int = 0) -> torch.Tensor:
     """(B, H, Nq, Nk) keep mask over GLOBAL coordinates (batch offset
-    ``b0``, query offset ``q0``, key offset ``k0``), equal bit for bit to
+    ``b0``, query offset ``q0``, key offset ``k0``, head offset ``h0`` for a
+    tensor-parallel shard's heads), equal bit for bit to
     ``vidsum_tpu/parallel/ring_attention.py::ring_hash_keep``."""
     B, H, Nq, Nk = shape
-    return _keep_bits(seed, _arange(H, 0, device)[None, :, None, None],
+    return _keep_bits(seed, _arange(H, h0, device)[None, :, None, None],
                       _arange(B, b0, device)[:, None, None, None],
                       _arange(Nq, q0, device)[None, None, :, None],
                       _arange(Nk, k0, device)[None, None, None, :], rate)
@@ -103,14 +104,15 @@ def _ring_keep_tile(seed: int, b_global: int, h: int, q_start: int, k0: int,
 
 
 def hash_keep3d(seed: int, site: int, b0: int, row0: int, shape,
-                rate: float, device=None) -> torch.Tensor:
+                rate: float, device=None, c0: int = 0) -> torch.Tensor:
     """(B, N, C) keep mask of a position-local dropout site (``S_RES1``,
-    ``S_MLP``, ``S_RES2``) over global batch and row offsets, equal bit for
-    bit to the JAX ``hash_keep3d``."""
+    ``S_MLP``, ``S_RES2``) over global batch, row and column offsets (``c0``
+    for a tensor-parallel shard's MLP channels), equal bit for bit to the
+    JAX ``hash_keep3d``."""
     B, N, C = shape
     return _keep_bits(seed, int(site), _arange(B, b0, device)[:, None, None],
                       _arange(N, row0, device)[None, :, None],
-                      _arange(C, 0, device)[None, None, :], rate)
+                      _arange(C, c0, device)[None, None, :], rate)
 
 
 # ---------------------------------------------------------- plain versions

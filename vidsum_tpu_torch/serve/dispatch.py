@@ -112,7 +112,8 @@ def _run_batch_replica(svc, n_bucket: int, items: list) -> None:
     try:
         xs, mask, real_slots, moved = mesh_mod.assemble_replica_batch(
             items, svc._mesh_devices, k, n_bucket)
-        out = svc._rep_fwd(xs, mask)
+        out = (svc._rep_fwd_i8 if svc._wire.int8 else svc._rep_fwd)(xs,
+                                                                    mask)
     except Exception as e:  # noqa: BLE001 — fail every rider, keep serving
         for r in items:
             svc._fail(r, e)

@@ -1,5 +1,4 @@
-# ported from vidsum_tpu/serve/mesh.py (the int8 wire on a mesh,
-# make_replica_forward_int8, arrives with the multi-GPU slice)
+# ported from vidsum_tpu/serve/mesh.py
 """Mesh serving: replica batches for short requests and the sequence-
 parallel ring for long ones.
 
@@ -14,7 +13,10 @@ is ignored; an entry may repeat a device):
   rows, so a request's scores equal its solo scores bit for bit. Where every
   entry repeats one device, short requests take the single-device batch
   path (one batch there gives the same scores as R replica batches), and
-  the entries only shard the ring;
+  the entries only shard the ring. On the int8 wire each replica
+  dequantises its own int8 rows and f32 scales on its device
+  (:func:`make_replica_forward_int8`), so no dequantised row crosses a
+  device;
 - **long requests** (past ``long_threshold``, by default the single-device
   kernel ladder's envelope): the request is padded to ``bucket x entries``,
   shipped seq-sharded at submit time, always on the lossless wire, and
@@ -74,6 +76,30 @@ def _make_replica_forward(cfg: ModelConfig, model, devs: list,
         return torch.cat([o.float().cpu() for o in outs]).numpy()
 
     return fwd
+
+
+def make_replica_forward_int8(cfg: ModelConfig, rep_fwd):
+    """The int8-wire replica forward: ``fwd(pairs, mask)`` takes each
+    replica's ``(int8 rows (k, N, D), f32 scales (k, N))`` on its device,
+    dequantises there (``x_i8 * scale``, the single-device int8 wire's
+    arithmetic) and runs ``rep_fwd``'s scorer on the result."""
+
+    def fwd(pairs: list, mask: np.ndarray) -> np.ndarray:
+        xs = []
+        for x_i8, scales in pairs:
+            with on(x_i8.device):
+                xs.append(x_i8.float() * scales[..., None])
+        return rep_fwd(xs, mask)
+
+    return fwd
+
+
+def move_row(row, device: torch.device):
+    """A request's row (or int8 ``(rows, scales)`` pair) copied to
+    ``device`` (the tensor itself where it is there already)."""
+    if isinstance(row, tuple):
+        return tuple(t.to(device, non_blocking=True) for t in row)
+    return row.to(device, non_blocking=True)
 
 
 def _make_long_forward(cfg: ModelConfig, model, devs: list):
@@ -163,14 +189,16 @@ def build_long_row(feats: np.ndarray, n_bucket: int, in_features: int,
 
 def assemble_replica_batch(items: list, devs: list, k: int, n_bucket: int):
     """A balanced batch of ``k`` rows per replica from device-resident
-    rows. Rows landed round-robin at submit, so a batch drawn from
-    consecutive submits is near-balanced; stragglers are re-committed to a
+    rows (int8 ``(rows, scales)`` pairs on the int8 wire). Rows landed
+    round-robin at submit, so a batch drawn from consecutive submits is
+    near-balanced; stragglers are re-committed to a
     replica holding fewer (a copy between cards, a re-index on one card),
     which updates their ``row_dev``/``dev_idx``; an empty replica borrows a
     row. Returns ``(xs, mask, real_slots, moved)``: the per-replica (k,
     n_bucket, D) batches, the (R * k, n_bucket) bool pad mask, the
     ``(batch_index, request)`` pairs of real rows, and the re-commit
-    count."""
+    count. On the int8 wire a replica's batch is a ``(rows, scales)``
+    pair."""
     R = len(devs)
     by_dev: list = [[] for _ in range(R)]
     for r in items:
@@ -182,7 +210,7 @@ def assemble_replica_batch(items: list, devs: list, k: int, n_bucket: int):
     for d in range(R):
         while len(by_dev[d]) < k and overflow:
             r = overflow.pop()
-            r.row_dev = r.row_dev.to(devs[d], non_blocking=True)
+            r.row_dev = move_row(r.row_dev, devs[d])
             r.dev_idx = d
             by_dev[d].append(r)
             moved += 1
@@ -202,10 +230,11 @@ def assemble_replica_batch(items: list, devs: list, k: int, n_bucket: int):
                 rows.append(r.row_dev)
             else:    # empty replica: borrow one row
                 if borrowed is None:
-                    borrowed = donor.row_dev.to(devs[d], non_blocking=True)
+                    borrowed = move_row(donor.row_dev, devs[d])
                     moved += 1
                 r = donor
                 rows.append(borrowed)
             mask[i, : r.feats.shape[0]] = False
-        xs.append(torch.stack(rows))
+        xs.append(tuple(torch.stack(p) for p in zip(*rows))
+                  if isinstance(rows[0], tuple) else torch.stack(rows))
     return xs, mask, real_slots, moved

@@ -1,5 +1,4 @@
-# ported from vidsum_tpu/serve/service.py (the int8 wire on a mesh arrives
-# with the multi-GPU slice)
+# ported from vidsum_tpu/serve/service.py
 """The micro-batching scoring service: admission, dispatch, selection.
 
 Requests enter through :meth:`ScoringService.submit` (admission control +
@@ -26,6 +25,7 @@ from concurrent.futures import Future, ThreadPoolExecutor
 from typing import Dict, Optional, Sequence
 
 import numpy as np
+import torch
 
 from vidsum_tpu_torch.config import ModelConfig
 from vidsum_tpu_torch.data.collate import bucket_length
@@ -71,8 +71,10 @@ class ScoringService:
         ``long_threshold`` run over the sequence-parallel ring, one shard
         per entry; where the entries name more than one device, short
         requests are committed round-robin to them and run as replica
-        batches. Entries may repeat a device. The int8 wire on a mesh
-        arrives with the multi-GPU slice.
+        batches. Entries may repeat a device. On the int8 wire, replica
+        batches dequantise on each replica's device
+        (``serve.mesh.make_replica_forward_int8``); long requests ship on
+        the lossless f32 wire.
     :param long_threshold: feature-row count above which a request takes
         the ring (mesh mode only); default the largest length the single-
         device kernel ladder carries.
@@ -94,10 +96,6 @@ class ScoringService:
         from vidsum_tpu_torch.train.steps import make_eval_forward
 
         if mesh is not None and mesh.size > 1:
-            if wire_dtype == "int8":
-                raise NotImplementedError(
-                    "the int8 wire on a mesh (make_replica_forward_int8) "
-                    "arrives with the multi-GPU slice")
             if device is not None and mesh.devices[0] != resolve_device(
                     device):
                 raise ValueError(f"device {device} is not the mesh's first "
@@ -125,6 +123,9 @@ class ScoringService:
         self._wire = transport.resolve_wire(cfg, wire_dtype, wire_mode,
                                             self.device, self._fwd,
                                             mesh_active=routing is not None)
+        self._rep_fwd_i8 = (mesh_mod.make_replica_forward_int8(
+            cfg, self._rep_fwd) if self._wire.int8
+            and self._rep_fwd is not None else None)
         self.max_batch = int(max_batch)
         self.max_delay_s = float(max_delay_ms) / 1e3
         self.bucket = int(bucket)
@@ -213,11 +214,13 @@ class ScoringService:
         dev_idx = -1
         if long:
             # the ring needs equal shards: pad to bucket x entries and ship
-            # seq-sharded, on the lossless wire
+            # seq-sharded, on the lossless wire (f32 where the short
+            # requests ride the int8 one)
             n_bucket = bucket_length(n, self.bucket * len(self._mesh_devices))
             row_dev, row_host = mesh_mod.build_long_row(
                 feats, n_bucket, self._cfg.in_features, self.pad_value,
-                self._wire.dtype, self._mesh_devices)
+                torch.float32 if self._wire.int8 else self._wire.dtype,
+                self._mesh_devices)
         else:
             n_bucket = bucket_length(n, self.bucket)
             row = transport.build_short_row(self._wire, feats, n_bucket,
@@ -233,8 +236,8 @@ class ScoringService:
                 with self._lock:
                     dev_idx = self._rr % len(self._mesh_devices)
                     self._rr += 1
-                row_dev = row.to(self._mesh_devices[dev_idx],
-                                 non_blocking=True)
+                row_dev = mesh_mod.move_row(row,
+                                            self._mesh_devices[dev_idx])
                 row_host = row
         now = time.monotonic()
         req = _Request(feats=feats, row_dev=row_dev, row_host=row_host,

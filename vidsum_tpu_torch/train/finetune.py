@@ -40,13 +40,22 @@ import torch
 
 from vidsum_tpu_torch.config import Config
 from vidsum_tpu_torch.data.collate import (
-    bucket_length, make_batches, pad_batch,
+    bucket_length, item_weights, make_batches, pad_batch,
 )
 from vidsum_tpu_torch.data.datasets import TSDataset
 from vidsum_tpu_torch.device import resolve_device
 from vidsum_tpu_torch.export.summary_json import write_summary_json
 from vidsum_tpu_torch.models.simnet import SimNet, count_params
 from vidsum_tpu_torch.ops.metrics import eval_metrics
+from vidsum_tpu_torch.parallel.distributed import (
+    is_coordinator, process_count,
+)
+from vidsum_tpu_torch.parallel.dp_shardmap import (
+    make_dp_shardmap_finetune_step,
+)
+from vidsum_tpu_torch.parallel.train_parallel import (
+    make_sharded_finetune_step,
+)
 from vidsum_tpu_torch.train.checkpoint import (
     AsyncCheckpointer, host_snapshot, load_model_state, restore_train_state,
 )
@@ -78,18 +87,21 @@ def epoch_streams(*key: int) -> Tuple[np.random.Generator, torch.Generator]:
 
 def _train_epoch(step_fn, model, optimizer, dataset, cfg: Config,
                  rng_np: np.random.Generator,
-                 generator: torch.Generator, epoch_batches=None) -> float:
-    """One epoch of ``step_fn`` (``train.steps.make_finetune_step``) over
-    shuffled batches; the model and optimizer update in place. Returns the
-    mean step loss. The step losses stay on the device until the end of the
-    epoch: one host fetch per epoch, not per step. ``epoch_batches`` (lists
-    of indices) replaces the shuffled order, e.g. with the realised
-    permutation of the reference's ``DataLoader(shuffle=True)``. (The JAX
-    loop's ``pad_to_batch``, for its device mesh, arrives with the
-    multi-GPU slice.)"""
+                 generator: torch.Generator, epoch_batches=None,
+                 pad_to_batch: bool = False) -> float:
+    """One epoch of ``step_fn`` (``train.steps.make_finetune_step``, or a
+    mesh step of ``parallel/``) over shuffled batches; the model and
+    optimizer update in place. Returns the mean step loss. The step losses
+    stay on the device until the end of the epoch: one host fetch per
+    epoch, not per step. ``epoch_batches`` (lists of indices) replaces the
+    shuffled order, e.g. with the realised permutation of the reference's
+    ``DataLoader(shuffle=True)``. ``pad_to_batch`` (a mesh, whose shards
+    need equal rows) fills the last batch by repeating its own videos and
+    passes their ``item_weights`` (1, or 0 at a repeat), so the padded step
+    is the smaller batch's."""
     batches = (epoch_batches if epoch_batches is not None else
                make_batches(len(dataset), cfg.train.batch_size, shuffle=True,
-                            rng=rng_np))
+                            rng=rng_np, pad_to_batch=pad_to_batch))
     step_losses = []
     for batch_idx in batches:
         items = [dataset[i] for i in batch_idx]
@@ -97,7 +109,10 @@ def _train_epoch(step_fn, model, optimizer, dataset, cfg: Config,
                                [it[1] for it in items],
                                pad_value=cfg.data.pad_value,
                                bucket=cfg.data.length_bucket)
-        step_losses.append(step_fn(model, optimizer, x, t, mask, generator))
+        weights = ({"item_weight": item_weights(batch_idx)}
+                   if pad_to_batch else {})
+        step_losses.append(step_fn(model, optimizer, x, t, mask, generator,
+                                   **weights))
     loss_avg = AverageMeter()
     if step_losses:
         for loss in torch.stack(step_losses).cpu().tolist():
@@ -154,6 +169,20 @@ def fold_datasets(cfg: Config, split: Dict[str, List[str]]
     return train_set, val_set
 
 
+def mesh_step(cfg: Config, mesh, dev: torch.device):
+    """The train step over ``mesh`` (the JAX ``finetune.py:202-221``, with
+    the card for the TPU): the kernels' data-parallel step where ``model``
+    is 1 on CUDA, else the dp x tp step. Raises the JAX ``ValueError`` where
+    ``batch_size`` does not split over the run's data axis."""
+    data = mesh.shape["data"] * process_count()
+    if cfg.train.batch_size % data:
+        raise ValueError(f"batch_size {cfg.train.batch_size} not divisible "
+                         f"by the data axis ({data})")
+    if mesh.shape.get("model", 1) == 1 and dev.type == "cuda":
+        return make_dp_shardmap_finetune_step(cfg.model, mesh)
+    return make_sharded_finetune_step(cfg.model, mesh)
+
+
 def finetune(cfg: Config, splits: Sequence[Dict[str, List[str]]],
              workdir: str = ".", export_summary: bool = True,
              profile_dir: Optional[str] = None, resume: bool = False,
@@ -173,17 +202,28 @@ def finetune(cfg: Config, splits: Sequence[Dict[str, List[str]]],
     - ``metrics_path``: append one JSON line per epoch and a final one.
     - ``batch_order(split_idx, epoch) -> [[i, ...], ...]``: the exact train
       batch order of each epoch in place of the shuffle.
-    - ``mesh``: data-parallel training arrives with the multi-GPU slice.
-    - ``device``: ``None`` is the CUDA card; ``"cpu"`` runs the plain path.
+    - ``mesh``: a ``parallel.mesh.DeviceMesh`` with ``("data", "model")``
+      axes (``make_mesh(MeshConfig(...))``): the step runs over it, chosen
+      as the JAX package chooses (:func:`mesh_step`). Batches are padded to
+      ``batch_size`` with weighted repeats. The model lives on the mesh's
+      first entry.
+    - ``device``: ``None`` is the CUDA card (with a mesh: its first entry);
+      ``"cpu"`` runs the plain path.
+
+    In a multi-process run (``parallel.distributed.init_distributed``) every
+    process runs this loop over its part of the mesh and only the
+    coordinator writes files.
     """
     if mesh is not None:
-        raise NotImplementedError(
-            "finetune(mesh=...) (data/tensor-parallel training) arrives with "
-            "the multi-GPU slice")
+        if device is not None and mesh.devices[0] != resolve_device(device):
+            raise ValueError(f"device {device} is not the mesh's first "
+                             f"entry {mesh.devices[0]}")
+        device = mesh.devices[0]
     dev = resolve_device(device)
-    if workdir:
+    coord = is_coordinator()
+    if workdir and coord:
         os.makedirs(workdir, exist_ok=True)
-    metrics = MetricsLogger(metrics_path)
+    metrics = MetricsLogger(metrics_path if coord else None)
     ckpt = AsyncCheckpointer()
     state_path = os.path.join(workdir, "train_state.ckpt")
     resume_meta = None
@@ -202,7 +242,8 @@ def finetune(cfg: Config, splits: Sequence[Dict[str, List[str]]],
             avg_s.update(sb["spearman_rho"], 1)
 
     tc = cfg.train
-    step_fn = make_finetune_step(cfg.model, tc.attn_impl, device=dev)
+    step_fn = (make_finetune_step(cfg.model, tc.attn_impl, device=dev)
+               if mesh is None else mesh_step(cfg, mesh, dev))
     fwd = make_eval_forward(cfg.model, device=dev)
 
     start_split = resume_meta["split"] if resume_meta else 0
@@ -224,7 +265,7 @@ def finetune(cfg: Config, splits: Sequence[Dict[str, List[str]]],
         logger.info("model has %d parameters", count_params(model))
 
         train_set, val_set = fold_datasets(cfg, split)
-        if export_summary:
+        if export_summary and coord:
             write_summary_json(fwd, model, val_set, cfg,
                                os.path.join(workdir, "summary.json"))
 
@@ -245,12 +286,13 @@ def finetune(cfg: Config, splits: Sequence[Dict[str, List[str]]],
                 train_loss = _train_epoch(
                     step_fn, model, optimizer, train_set, cfg, rng_np, gen,
                     epoch_batches=(batch_order(split_idx, epoch)
-                                   if batch_order is not None else None))
+                                   if batch_order is not None else None),
+                    pad_to_batch=mesh is not None)
             last_epoch = epoch == tc.max_epoch - 1
-            save_state = ((epoch + 1) % max(tc.state_save_every, 1) == 0
-                          or last_epoch)
-            save_model = ((epoch + 1) % max(tc.model_save_every, 1) == 0
-                          or last_epoch)
+            save_state = coord and (
+                (epoch + 1) % max(tc.state_save_every, 1) == 0 or last_epoch)
+            save_model = coord and (
+                (epoch + 1) % max(tc.model_save_every, 1) == 0 or last_epoch)
             val_loss, f, k, s = _val_epoch(fwd, model, val_set, cfg)
             fs.append(f)
             if not (np.isnan(k) or np.isnan(s)):

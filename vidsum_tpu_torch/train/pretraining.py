@@ -41,6 +41,12 @@ from vidsum_tpu_torch.device import resolve_device
 from vidsum_tpu_torch.models.convert import pretrain_params_from_jax
 from vidsum_tpu_torch.models.pretrain import PretrainModel
 from vidsum_tpu_torch.models.simnet import count_params
+from vidsum_tpu_torch.parallel.distributed import (
+    is_coordinator, process_count,
+)
+from vidsum_tpu_torch.parallel.train_parallel import (
+    make_sharded_pretrain_step,
+)
 from vidsum_tpu_torch.train.checkpoint import (
     AsyncCheckpointer, host_snapshot, restore_train_state,
 )
@@ -74,22 +80,37 @@ def pretrain(cfg: Config, dataset, workdir: str = ".", log_every: int = 4,
       ``train.checkpoint.adam_state_from_jax``).
     - ``batch_order(epoch) -> [[i, ...], ...]``: the exact batches of each
       epoch in place of the shuffle (the caller drops the last partial one).
-    - ``mesh``: data-parallel pretraining arrives with the multi-GPU slice.
-    - ``device``: ``None`` is the CUDA card; ``"cpu"`` runs the plain path.
-    """
-    if mesh is not None:
-        raise NotImplementedError(
-            "pretrain(mesh=...) (data/tensor-parallel pretraining) arrives "
-            "with the multi-GPU slice")
-    dev = resolve_device(device)
-    if workdir:
-        os.makedirs(workdir, exist_ok=True)
+    - ``mesh``: a ``parallel.mesh.DeviceMesh`` with ``("data", "model")``
+      axes: every step is the dp x tp step
+      (``parallel.train_parallel.make_sharded_pretrain_step``, dense
+      route, as ``pretrain_apply``'s default is in the JAX package);
+      ``batch_size`` must split over ``data`` (over every process's, in a
+      multi-process run). The model lives on the mesh's first entry.
+    - ``device``: ``None`` is the CUDA card (with a mesh: its first entry);
+      ``"cpu"`` runs the plain path.
 
+    In a multi-process run only the coordinator writes files.
+    """
     pcfg = cfg.pretrain
     steps_per_epoch = max(pcfg.scheduler_samples // pcfg.batch_size, 1)
     schedule = reference_pretrain_schedule(pcfg.lr, steps_per_epoch,
                                            pcfg.warmup_epochs, pcfg.epochs)
-    step_fn = make_pretrain_step(cfg.model, pcfg, schedule, device=dev)
+    if mesh is not None:
+        data = mesh.shape["data"] * process_count()
+        if pcfg.batch_size % data:
+            raise ValueError(f"batch_size {pcfg.batch_size} not divisible "
+                             f"by the data axis ({data})")
+        if device is not None and mesh.devices[0] != resolve_device(device):
+            raise ValueError(f"device {device} is not the mesh's first "
+                             f"entry {mesh.devices[0]}")
+        device = mesh.devices[0]
+    dev = resolve_device(device)
+    coord = is_coordinator()
+    if workdir and coord:
+        os.makedirs(workdir, exist_ok=True)
+    step_fn = (make_pretrain_step(cfg.model, pcfg, schedule, device=dev)
+               if mesh is None else
+               make_sharded_pretrain_step(cfg.model, pcfg, schedule, mesh))
     model = PretrainModel(cfg.model, pcfg, device=dev,
                           generator=torch.Generator().manual_seed(pcfg.seed))
     trained = ([("encoder." + n, p)
@@ -133,8 +154,8 @@ def pretrain(cfg: Config, dataset, workdir: str = ".", log_every: int = 4,
                 epoch_loss.update(total, 1)
             history.append(epoch_loss.avg())
             logger.info("Total Loss %f", epoch_loss.avg())
-        if ((epoch + 1) % max(pcfg.save_every, 1) == 0
-                or epoch == pcfg.epochs - 1):
+        if coord and ((epoch + 1) % max(pcfg.save_every, 1) == 0
+                      or epoch == pcfg.epochs - 1):
             params = host_snapshot(model.state_dict())
             encoder = {k[len("encoder."):]: v for k, v in params.items()
                        if k.startswith("encoder.")}

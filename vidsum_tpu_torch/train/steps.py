@@ -53,7 +53,8 @@ def update_count(optimizer: torch.optim.Optimizer) -> int:
 def make_finetune_step(cfg: ModelConfig, attn_impl: Optional[str] = None, *,
                        device=None) -> Callable:
     """Returns ``step(model, optimizer, x, target, pad_mask, generator,
-    block_seeds=None) -> loss`` (a 0-d tensor on ``device``, not
+    block_seeds=None, item_weight=None) -> loss`` (a 0-d tensor on
+    ``device``, not
     synchronised). Inputs may be numpy arrays or tensors and move to
     ``device`` (default: the CUDA card, which must exist). ``attn_impl``
     ``None`` or ``"auto"`` (``TrainConfig.attn_impl``) means
@@ -63,20 +64,24 @@ def make_finetune_step(cfg: ModelConfig, attn_impl: Optional[str] = None, *,
     ``ops/attention_train.flash_attention_dropout`` at every length up to
     that route's envelope (``flash_train_supported``), past which it raises
     ``ValueError``. ``generator`` draws the dropout (see ``SimNet.forward``
-    for ``block_seeds``). The step leaves the gradients in ``.grad``."""
+    for ``block_seeds``). ``item_weight`` (B,) weighs the videos of a
+    padded batch (``ops.losses.mse_with_mask_loss``). The step leaves the
+    gradients in ``.grad``."""
     dev = resolve_device(device)
     if attn_impl in (None, "auto"):
         attn_impl = "fused_block" if dev.type == "cuda" else "dense"
 
     def step(model, optimizer, x, target, pad_mask, generator,
-             block_seeds: Optional[Sequence[int]] = None):
+             block_seeds: Optional[Sequence[int]] = None,
+             item_weight=None):
         x, target, pad_mask = (torch.as_tensor(a).to(dev)
                                for a in (x, target, pad_mask))
         optimizer.zero_grad(set_to_none=True)
         scores, _ = model(x, pad_mask, attn_impl=attn_impl,
                           deterministic=False, generator=generator,
                           block_seeds=block_seeds)
-        loss = mse_with_mask_loss(scores, target, pad_mask)
+        loss = mse_with_mask_loss(scores, target, pad_mask,
+                                  item_weight=item_weight)
         loss.backward()
         optimizer.step()
         return loss.detach()
