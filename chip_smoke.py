@@ -32,7 +32,9 @@ caught and passed over):
    kernels (``ring_fwd_kernel``, ``ring_dq_kernel``, ``ring_dkdv_kernel``,
    the FMA attention's tiles) with their ``LDGSTS`` count. A GEMM, FMA
    attention or ring instantiation that spills, no ``HGMMA`` or no
-   ``LDGSTS`` fails the run.
+   ``LDGSTS`` fails the run. ``sliced_ptxas``: the registers, spills and
+   fixed dynamic shared memory of every head_dim-sliced instantiation
+   (heads past 128 columns in 128-column slices), by library.
 3. kernels: each route of the two hand-written kernels against its plain
    PyTorch version on the card, in bf16 and f32 (TF32 off), at the shapes
    the serving path gives it: the fused block at (B, N) = (32, 512) (the
@@ -161,13 +163,28 @@ caught and passed over):
    heads (head_dim 128), 384 with 4 and 768 with 8 (head_dim 96), 192 with
    4 (48), 320 with 4 (80) and 896 with 8 (112) (the kernels run those
    head_dims zero-padded to 64, 96 and 128) and 1,024 with 8 (the widest
-   rows the row kernels take) through every family against its plain
-   version at small shapes (the block routes, the int8 block routes, the
-   training block routes, the four training attention routes in bf16 and
-   f32, the ring steps), then a 2-layer model of that shape: bf16 and f32
-   scores card against CPU, int8 scores within the lossy budget of the
+   rows the row kernels hold in registers) through every family against
+   its plain version at small shapes (the block routes, the int8 block
+   routes, the training block routes, the four training attention routes
+   in bf16 and f32, the ring steps), then a WIDE_LAYERS-layer model of
+   that shape: bf16 and f32 scores card against CPU, int8 scores within the lossy budget of the
    bf16 ones, one finetune step card against CPU (the fused block; past
    its training envelope, at d 896 and 1,024, the flash route).
+   d640_h4, d1024_h4, d1280_h4, d1056_h8, d2048_h8, d200_h4 (WIDE_SLICED):
+   the same checks of head_dims 160, 256 and 320 (two and three
+   128-column slices in every attention family), of LayerNorm rows past
+   1,024 columns and of a d_model off the 32-column grid, past head_dim
+   128 also the int8 block with ``qk_int8``; the model part at 1 layer and
+   256 frames, its step under STEP_SPARE / STEP_CAP. Planted faults, every
+   run: attention on Q and K with their second slice zeroed must fail the
+   attention bound, rows normalised over their first 1,024 columns only
+   must fail the block bound.
+   wide_path: the slice's main paths at d_model 1,024 with 4 heads
+   (head_dim 256), 4 layers: the 13 serving requests in bf16, f32 and on
+   the int8 wire (served == solo; the shorter ones against the CPU; int8
+   within its budget of bf16), a finetune step and a pretrain step card
+   against CPU, the pretrain batch (256, 384) on the card, and a
+   16,384-frame request over the ring of a (1, 4) mesh of cuda:0.
 6. serve: ``ScoringService`` with seeded flagship weights (d 256, 4 heads,
    4 layers, bf16) takes 13 requests: 320/480/512 frames with auto-KTS,
    1,200 frames, 6,000 frames (past the block envelope: flash) and 16,384
@@ -374,7 +391,9 @@ caught and passed over):
    GEMM routes with their design and ``ptxas`` report; the f32 serving
    routes and the ring also ``launches_summarize``, phase 7e's launches;
    rows 9-12 ``launches_dp_train`` and ``launches_finetune_mesh``, the int8
-   wire's routes ``launches_serve_mesh_int8``, phase 8b's),
+   wire's routes ``launches_serve_mesh_int8``, phase 8b's; every route
+   run at the widths past the old limits ``launches_wide`` (the
+   WIDE_SLICED checks) and ``launches_wide_path``),
    the card's name
    and power limit, and last ``{"ok": true, "device": {...}}``. No
    product of any phase may take a serving GEMM fallback, and no f32
@@ -778,6 +797,45 @@ def sass_count(lib: str, op: str, function: str = "") -> int:
     return n
 
 
+# The fixed dynamic shared memory of the head_dim-sliced instantiations
+# (bytes, without the live-tile list that follows it), by the formulas of
+# the sources (the unsliced kernels' at head_dim 128 in the same CTA
+# shapes; each launcher's note states them)
+SLICED_SMEM = {
+    "masked_attention_mma_sliced_kernel": 87168,   # 63,104 with QK8
+    "masked_attention_q8_sliced_kernel": 116480,
+    "fma_fwd_sliced_kernel": 119872,
+    "fma_dq_sliced_kernel": 178304,
+    "fma_dkdv_sliced_kernel": 188416,
+    "fwd_mma_sliced_kernel": 87168,
+    "dq_mma_sliced_kernel": 104576,
+    "dkdv_mma_sliced_kernel": 105472,
+    "ring_fwd_sliced_kernel": 119872,
+    "ring_dq_sliced_kernel": 221312,
+    "ring_dkdv_sliced_kernel": 188928,
+}
+
+
+def sliced_report(logs: dict) -> dict:
+    """ptxas's registers and spills of every head_dim-sliced instantiation
+    (the kernels that run a head past 128 columns in 128-column slices), by
+    library, with each one's fixed dynamic shared memory (SLICED_SMEM).
+    Fails if a library that launches them compiled none."""
+    out = {}
+    for name in ("masked_attention", "attention_train", "block_train",
+                 "ring_attention"):
+        regs = ptxas_report(logs[name], "sliced")
+        for r in regs:
+            base = r["kernel"].split("<")[0].split("::")[-1]
+            r["dynamic_smem"] = (63104 if base.startswith(
+                "masked_attention_mma") and r["kernel"].rstrip(
+                    " >").endswith("true") else SLICED_SMEM.get(base))
+        if not regs:
+            raise RuntimeError(f"ptxas reported no sliced kernel in {name}")
+        out[name] = regs
+    return out
+
+
 def phase_build() -> tuple:
     """Builds every kernel; returns ptxas's registers and spills of the
     bf16 serving attention's instantiations, of the GEMMs' (the wgmma
@@ -849,8 +907,10 @@ def phase_build() -> tuple:
     # library launches its forwards only (the header's dispatchers compile
     # the rest there too)
     n_dh = len(_cuda.HEAD_DIMS)
-    fma = ptxas_report(logs["attention_train"], "fma_")
-    fma_bt = ptxas_report(logs["block_train"], "fma_")
+    fma = [r for r in ptxas_report(logs["attention_train"], "fma_")
+           if "sliced" not in r["kernel"]]
+    fma_bt = [r for r in ptxas_report(logs["block_train"], "fma_")
+              if "sliced" not in r["kernel"]]
     fma_serve = ptxas_report(logs["masked_attention"], "fma_fwd_kernel")
     # (and there its own, at any N: 64-row CTAs of 4 rows a thread, and
     # 128-row ones of 8 at head_dim <= 64)
@@ -870,7 +930,8 @@ def phase_build() -> tuple:
     ra = ring_module()
     n_ring = sum(len(ra.ring_shapes(k, dh)) for k in ra.RING_KERNELS
                  for dh in _cuda.HEAD_DIMS)
-    ring = ptxas_report(logs["ring_attention"], "ring_")
+    ring = [r for r in ptxas_report(logs["ring_attention"], "ring_")
+            if "sliced" not in r["kernel"]]
     if len(ring) != n_ring:
         raise RuntimeError(f"ptxas reported {len(ring)} ring kernel "
                            f"instantiations, expected {n_ring}")
@@ -885,6 +946,7 @@ def phase_build() -> tuple:
     if not all(ldgsts.values()):
         raise RuntimeError(f"no LDGSTS (cp.async) in the FMA attention "
                            f"kernels' SASS: {ldgsts}")
+    sliced = sliced_report(logs)
     emit("build", cuda_s=round(t_cuda, 3),
          native_s=round(time.monotonic() - t1, 3),
          libraries=sorted(os.path.basename(_cuda.lib_path(n))
@@ -894,7 +956,7 @@ def phase_build() -> tuple:
          int8_gemm_wgmma_ptxas=int8, gemm_sass_hgmma=hgmma,
          int8_gemm_sass_gmma=igmma, fma_attention_ptxas=fma,
          serving_fma_attention_ptxas=fma_serve, ring_ptxas=ring,
-         fma_attention_sass_ldgsts=ldgsts)
+         fma_attention_sass_ldgsts=ldgsts, sliced_ptxas=sliced)
     return regs, gemm, bt_gemm, fma, f32_gemm, fma_serve, int8, ring
 
 
@@ -2055,13 +2117,15 @@ def compare_steps(results, what: str, spare: float = 0.0,
 
 
 def flash_card_vs_cpu(model, cfg, xb, tb, mb, rng, what: str,
-                      routes) -> dict:
+                      routes, spare: float = 0.0,
+                      cap: float | None = None) -> dict:
     """The flash training route's forward, masked-MSE loss and backward on
     the card and on the CPU, with the same numpy-made residual and MLP keep
     masks (``dropout_masks``) and per-layer attention seeds
     (``block_seeds``): the card draws other dropout bits than the CPU from
     a generator, and ``make_finetune_step`` takes no masks. ``routes`` are
-    the training attention routes the card's run must launch."""
+    the training attention routes the card's run must launch; ``spare`` and
+    ``cap`` go to ``compare_steps``."""
     import copy
 
     import torch
@@ -2095,7 +2159,7 @@ def flash_card_vs_cpu(model, cfg, xb, tb, mb, rng, what: str,
                                  f"expected {L} each")
     return dict(B=B, N=N, layers=L, routes=[attn_train_name(r)
                                             for r in routes],
-                wall_s=t_s, **compare_steps(results, what))
+                wall_s=t_s, **compare_steps(results, what, spare, cap))
 
 
 ATTN_TRAIN_ROUTES = ("_fwd_kernel", "_bwd_kernel", "_fwd_kernel_folded",
@@ -2360,25 +2424,49 @@ D1024 = dict(d_model=1024, num_heads=8)
 # (sigmoid scores, two layers): the int8 block's limits, a wiring check; each
 # kernel family's precision is held by its own bound above
 WIDE_SCORES = dict(median=5e-3, max=5e-2)
+# the depth of the model part of phase_wide's shapes (a wiring check: each
+# family is held at its own shapes before it), 1 so that the run keeps to
+# its time
+WIDE_LAYERS = 1
+# widths the kernels refused before head_dim slices and the looping row
+# kernels: head_dim 160 (d 640 with 4 heads: two slices, the second 32
+# columns wide, zero-padded), 256 (1,024 with 4; 2,048 with 8), 320 (1,280
+# with 4: three slices, the last 64 wide), 132 (1,056 with 8: LayerNorm
+# rows past 1,024 columns, heads padded to two slices) and 50 (200 with 4:
+# d_model off the 32-column grid); their model part at 1 layer and 256
+# frames
+WIDE_SLICED = [dict(d_model=640, num_heads=4), dict(d_model=1024, num_heads=4),
+               dict(d_model=1280, num_heads=4), dict(d_model=1056, num_heads=8),
+               dict(d_model=2048, num_heads=8), dict(d_model=200, num_heads=4)]
 
 
-def phase_wide(seed: int, shape: dict) -> dict:
+def phase_wide(seed: int, shape: dict, layers: int = WIDE_LAYERS,
+               n_model: int = 512) -> dict:
     """A model shape past the flagship's (``shape``: d_model 512 with 4
     heads, head_dim 128; d_model 384 with 4 heads and 768 with 8, head_dim
     96; 192 and 320 with 4 and 896 with 8, head_dims 48, 80 and 112, which
-    the kernels run zero-padded; 1,024 with 8) through every kernel family
+    the kernels run zero-padded; 1,024 with 8; and the shapes of
+    WIDE_SLICED: head_dims past 128, which every attention family runs in
+    128-column slices, LayerNorm rows past 1,024 columns and a d_model off
+    the 32-column grid) through every kernel family
     against its plain version at small shapes: the serving block (1-2;
     its LayerNorm rows past the GEMM's 256-column tile), the int8 block
     (13-14), the training block (9-12,
     forward, dx and grads), the training attention (5-8, bf16 and f32) and
-    the ring steps (15-17). Then a 2-layer model of that shape scores in
+    the ring steps (15-17). Past head_dim 128, the serving attention run
+    with the second slice of Q and K zeroed (a kernel that skips that
+    slice of Q.K^T) must fail the attention bound, and past d 1,024 a
+    LayerNorm whose statistics take the first 1,024 columns only must fail
+    the block bound. Then a ``layers``-layer model of that shape scores
+    (batch 2 x ``n_model`` frames) in
     bf16 and in f32 (card against the CPU's plain path), int8-scores
     (within the lossy budget of its bf16 scores) and takes one finetune
     step on the JAX package's route for the shape (the fused block, or
     past its training envelope, as at d 896 and 1,024, the flash route
     with the same dropout masks on both sides; card against CPU, the step
-    bound). The launches here are
-    checks, not the main path's."""
+    bound). Returns the checks' report and the launches of the routes it
+    ran (the kernels line's ``launches_wide``); they are checks, not the
+    main path's."""
     import copy
 
     import numpy as np
@@ -2386,6 +2474,7 @@ def phase_wide(seed: int, shape: dict) -> dict:
 
     from vidsum_tpu_torch.config import ModelConfig
     from vidsum_tpu_torch.models.simnet import SimNet
+    from vidsum_tpu_torch.ops import _cuda
     from vidsum_tpu_torch.ops import attention_train as at
     from vidsum_tpu_torch.ops import block_kernel as bk
     from vidsum_tpu_torch.ops import block_kernel_int8 as bk8
@@ -2394,6 +2483,7 @@ def phase_wide(seed: int, shape: dict) -> dict:
     from vidsum_tpu_torch.train.steps import make_finetune_step, make_optimizer
 
     cuda = torch.device("cuda")
+    reset_counters()
     cfg = ModelConfig(num_layers=1, **shape)
     d, H, Dh, scale, rate = cfg.d_model, cfg.num_heads, cfg.head_dim, \
         cfg.attn_scale, 0.3
@@ -2431,19 +2521,23 @@ def phase_wide(seed: int, shape: dict) -> dict:
                                                f" (d {d} {route})")
         # 13-14, each entry point (d 768 is past the copied TPU envelope)
         qb = quantize_block(block)
-        for B, N, route in ((1, 512, "_fused_block_int8"),
-                            (2, 256, "_fused_block_int8_grouped")):
+        # past head_dim 128 also with qk_int8: the sliced kernels' int8
+        # scores, summed over the slices in s32
+        for B, N, route, qk8 in ((1, 512, "_fused_block_int8", False),
+                                 (2, 256, "_fused_block_int8_grouped", False),
+                                 *(((2, 256, "_fused_block_int8_grouped",
+                                     True),) if Dh > 128 else ())):
             x, mask = randn(B, N, d, dtype=dtype), pad_mask(B, N, rng, cuda)
             with torch.inference_mode():
                 fn = getattr(bk8, route)
-                got = launched(lambda: fn(qb, x, mask, H, scale, False), fn,
+                got = launched(lambda: fn(qb, x, mask, H, scale, qk8), fn,
                                route)
-                want = bk8.int8_block_reference(qb, x, mask, H, scale, False)
+                want = bk8.int8_block_reference(qb, x, mask, H, scale, qk8)
             st = diff_stats(got, want)
             if not int8_within(st):
-                raise AssertionError(f"d {d} {route} {dn}: {st} past "
-                                     f"{INT8_BOUND}")
-            rep[f"{route}.{dn}"] = st
+                raise AssertionError(f"d {d} {route} {dn} qk_int8={qk8}: "
+                                     f"{st} past {INT8_BOUND}")
+            rep[f"{route}.{dn}" + (".qk_int8" if qk8 else "")] = st
         # 5-8 at head_dim 128, valid lengths 2,000 and 1,100 of 2,048
         B, N = 2, 2048
         mask = torch.ones(B, N, dtype=torch.bool, device=cuda)
@@ -2556,13 +2650,16 @@ def phase_wide(seed: int, shape: dict) -> dict:
                              f" (d {d} ring d{n})")
         for n, a, b in zip("qkv", grads, ref)}
     del q32, k, v, g
+    faults = wide_faults(cfg, rng) if Dh > 128 or d > 1024 else {}
+    launches = read_counters()
 
-    # a 2-layer model: bf16 and int8 scores, f32 scores, one finetune step
-    mcfg = ModelConfig(num_layers=2, compute_dtype="bfloat16", **shape)
+    # a ``layers``-layer model: bf16 and int8 scores, f32 scores, one
+    # finetune step
+    mcfg = ModelConfig(num_layers=layers, compute_dtype="bfloat16", **shape)
     model = SimNet(mcfg, generator=torch.Generator().manual_seed(seed + 21))
-    x = torch.from_numpy(rng.normal(size=(2, 512, mcfg.in_features)).astype(
-        np.float32))
-    mask = pad_mask(2, 512, rng, "cpu")
+    x = torch.from_numpy(rng.normal(
+        size=(2, n_model, mcfg.in_features)).astype(np.float32))
+    mask = pad_mask(2, n_model, rng, "cpu")
     with torch.inference_mode():
         card, _ = model.to(cuda)(x.to(cuda), mask.to(cuda))
         card8, _ = model(x.to(cuda), mask.to(cuda), attn_impl="int8_block")
@@ -2580,17 +2677,22 @@ def phase_wide(seed: int, shape: dict) -> dict:
             and vs_bf16["max"] < INT8_VS_BF16["max"]):
         raise AssertionError(f"d {d} int8 scores against bf16: {vs_bf16}")
     # f32 scores (the default dtype's service), card against CPU
-    fcfg = ModelConfig(num_layers=2, **shape)
+    fcfg = ModelConfig(num_layers=layers, **shape)
     model = SimNet(fcfg, generator=torch.Generator().manual_seed(seed + 23))
     with torch.inference_mode():
         card, _ = model.to(cuda)(x.to(cuda), mask.to(cuda))
         cpu, _ = copy.deepcopy(model).to("cpu")(x, mask)
     vs_cpu32 = check_close(card.cpu(), cpu, TOL[("block", "float32")],
                            f" (d {d} f32 scores, card against CPU)")
-    tcfg = ModelConfig(num_layers=2, **shape)
+    tcfg = ModelConfig(num_layers=layers, **shape)
     model = SimNet(tcfg, generator=torch.Generator().manual_seed(seed + 22))
-    t = torch.from_numpy(rng.random((2, 512)).astype(np.float32))
-    if bt.fused_block_train_supported(2, 512, d, H):
+    # the widths of WIDE_SLICED take the pretrain step's rule: at d 1,280 a
+    # ReLU flip moved fc1's grads past the elementwise part (max 1.7e-4 of
+    # the largest grad, relative RMS 8.9e-4 within its bound) while every
+    # kernel held its own bound at 1e-5
+    spare = (STEP_SPARE, STEP_CAP) if shape in WIDE_SLICED else ()
+    t = torch.from_numpy(rng.random((2, n_model)).astype(np.float32))
+    if bt.fused_block_train_supported(2, n_model, d, H):
         seeds = [int(s) for s in rng.integers(0, 2**31 - 1,
                                               tcfg.num_layers)]
         results = []
@@ -2602,17 +2704,609 @@ def phase_wide(seed: int, shape: dict) -> dict:
             results.append((float(loss), {k: p.grad.detach().float().cpu()
                                           for k, p in
                                           m.named_parameters()}))
-        step = compare_steps(results, f"d {d} fused_block step")
+        step = compare_steps(results, f"d {d} fused_block step", *spare)
     else:
         # past the fused block's training envelope the JAX package's route
-        # (and so the step's) is the flash one: TPU kernels 5/6 at N 512
+        # (and so the step's) is the flash one: TPU kernels 5/6
         step = flash_card_vs_cpu(model, tcfg, x.numpy(), t.numpy(),
                                  mask.numpy(), rng, f"d {d} flash step",
-                                 ("_fwd_kernel", "_bwd_kernel"))
-    emit(f"d{d}", d_model=d, num_heads=H, head_dim=Dh, kernels=rep,
+                                 ("_fwd_kernel", "_bwd_kernel"), *spare)
+    emit(f"d{d}_h{H}" if shape in WIDE_SLICED else f"d{d}", d_model=d,
+         num_heads=H, head_dim=Dh,
+         kernel_head_dim=_cuda.kernel_head_dim(Dh, "kernels"),
+         head_slices=_cuda.head_slices(Dh),
+         ln_rows=_cuda.ln_rows_path(d, False), layers=layers,
+         model_frames=n_model, kernels=rep, planted_faults=faults,
          scores_bf16_card_vs_cpu=vs_cpu, scores_int8_vs_bf16=vs_bf16,
          scores_f32_card_vs_cpu=vs_cpu32, step_card_vs_cpu=step)
-    return rep
+    return rep, launches
+
+
+def wide_faults(cfg, rng) -> dict:
+    """The planted faults of a wide shape. Past head_dim 128: the serving
+    attention (both dtypes) on Q and K whose second 128-column slice is
+    zeroed, which is what a kernel that skips that slice of Q.K^T computes,
+    held against the plain version of the whole head, must fail the
+    attention bound. Past d 1,024: the residual+LayerNorm epilogue's rows
+    as a row kernel that holds 1,024 columns would leave them (the old
+    32-a-lane one, unguarded): the first 1,024 columns normalised with
+    their own mean and variance, the rest left pre-LN, held against the
+    plain version, must fail the block bound (the kernel's own rows pass
+    it)."""
+    import torch
+
+    from vidsum_tpu_torch.ops import attention as attn_mod
+    from vidsum_tpu_torch.ops import block_kernel as bk
+
+    cuda = torch.device("cuda")
+    d, H, Dh = cfg.d_model, cfg.num_heads, cfg.head_dim
+    out = {}
+
+    def randn(*shape):
+        return torch.from_numpy(rng.normal(size=shape).astype(
+            "float32")).to(cuda)
+
+    for dtype in (torch.bfloat16, torch.float32):
+        dn = str(dtype).split(".")[1]
+        if Dh > 128:
+            q, k, v = (randn(2, H, 512, Dh).to(dtype) for _ in range(3))
+            mask = pad_mask(2, 512, rng, cuda)
+            want = attn_mod.attention_reference(q, k, v, mask, cfg.attn_scale)
+            got = attn_mod.masked_attention(q, k, v, mask, cfg.attn_scale)
+            check_close(got, want, TOL[("attention", dn)],
+                        f" (d {d} sliced attention)")
+            qz, kz = q.clone(), k.clone()
+            qz[..., 128:256] = 0
+            kz[..., 128:256] = 0
+            skipped = attn_mod.masked_attention(qz, kz, v, mask,
+                                                cfg.attn_scale)
+            torch.cuda.synchronize()
+            out[f"skip_slice_1.{dn}"] = must_fail(
+                lambda: check_close(skipped, want, TOL[("attention", dn)],
+                                    " (a kernel skipping slice 1)"),
+                f"d {d} attention without head_dim slice 1")
+        if d > 1024:
+            M = 64
+            x = randn(M, d).to(dtype)
+            w = (randn(d, d) / d ** 0.5).to(dtype)
+            b, res = randn(d), randn(M, d)
+            g = torch.from_numpy(rng.random(d).astype("float32")).to(
+                cuda) + 0.5
+            got, _ = bk.gemm_bias_epilogue(x, w, b, "residual_ln",
+                                           residual=res, ln_g=g, ln_b=b)
+            want, _ = bk.gemm_bias_epilogue_reference(
+                x, w, b, "residual_ln", residual=res, ln_g=g, ln_b=b)
+            check_close(got, want, TOL[("block", dn)], f" (d {d} LN rows)")
+            z = x.float() @ w.float().t() + b + res
+            head = z[:, :1024]
+            mean = head.mean(-1, keepdim=True)
+            var = head.var(-1, unbiased=False, keepdim=True)
+            short = z.clone()
+            short[:, :1024] = ((head - mean) / torch.sqrt(var + 1e-5)
+                               * g[:1024] + b[:1024])
+            short = short.to(dtype)
+            out[f"ln_first_1024.{dn}"] = must_fail(
+                lambda: check_close(short, want, TOL[("block", dn)],
+                                    " (a LayerNorm over 1,024 columns)"),
+                f"d {d} LayerNorm over the first 1,024 columns")
+    return out
+
+
+# the slice's main paths at full width (phase_wide_path): d_model 1,024
+# with 4 heads (head_dim 256, two 128-column slices in every attention
+# family), 4 layers, the flagship ModelConfig otherwise
+WIDE_PATH = dict(d_model=1024, num_heads=4)
+WIDE_PATH_LAYERS = 4
+# its requests held against the CPU's plain path (every layer at d 1,024
+# costs the CPU 16 times the flagship's: the 6,000- and 16,384-frame ones
+# would take it minutes), and the batch of its pretrain step's card-vs-CPU
+# check (the card's own step runs the pretrain batch, (256, 384); at batch
+# 4 and 2 layers the CPU took 1.5 s)
+WIDE_PATH_CPU_LENGTHS = (320, 512, 1200)
+# the f32 scores of the WIDE_PATH_LAYERS-layer model, card against CPU: the
+# f32 block bound once per layer (summation-order differences compound
+# through the layers: the 1,200-frame request's relative RMS read 1.08e-5
+# at 4 layers, past the one-block 1e-5)
+WIDE_PATH_F32 = {k: v * WIDE_PATH_LAYERS
+                 for k, v in TOL[("block", "float32")].items()}
+WIDE_PATH_PT_CHECK_BATCH = 16
+
+
+def serve_requests(model, cfg, videos, **kw) -> tuple:
+    """``videos`` through one ``ScoringService(model, cfg, **kw)``, the long
+    ones with given shot bounds: (results, launch counts, stats, wall s)."""
+    from vidsum_tpu_torch.serve import ScoringService
+
+    with ScoringService(model, cfg, max_batch=8, max_delay_ms=50.0,
+                        **kw) as svc:
+        reset_counters()
+        t0 = time.monotonic()
+        futs = [svc.submit(v, change_points=(shot_bounds(v.shape[0])
+                                             if v.shape[0] >= 6000 else None))
+                for v in videos]
+        results = [f.result(timeout=900) for f in futs]
+        wall = time.monotonic() - t0
+        counts = read_counters()
+        st = svc.stats()
+    if st.completed != len(videos) or st.failed:
+        raise AssertionError(f"serving stats: {st}")
+    return results, counts, st, wall
+
+
+def phase_wide_path(seed: int) -> dict:
+    """The slice's main paths at WIDE_PATH (d_model 1,024, 4 heads: head_dim
+    256), WIDE_PATH_LAYERS layers, where every attention kernel runs its
+    head in two 128-column slices. (a) The 13 serving requests through
+    ``ScoringService`` in bf16, in f32 and on the int8 wire
+    (``attn_impl="int8_block"``; past the int8 block's envelope at this
+    width the JAX predicates send every bucket to the flash route, as they
+    send the bf16 and f32 ones): served == solo bit for bit; the requests of
+    WIDE_PATH_CPU_LENGTHS against the CPU's plain path (bf16 sigmoid
+    scores within WIDE_SCORES, f32 raw scores at the f32 block bound); the
+    int8 wire's scores within INT8_VS_BF16 of the bf16 route's. (b) One
+    finetune step on the JAX package's route for the shape (past the fused
+    block's training envelope: the flash route, TPU kernels 5/6) card
+    against CPU at the step bound. (c) One
+    pretrain step at the pretrain batch (256, 384) on the card at full
+    depth (finite losses, the flash kernels once a layer), and one at
+    (WIDE_PATH_PT_CHECK_BATCH, 384) card against CPU under STEP_SPARE /
+    STEP_CAP at dropout 0. (d) A 16,384-frame f32 request
+    over the ring of a (1, 4) mesh of cuda:0 (kernel 15 over 4,096-row
+    shards): served == ``make_seq_sharded_forward``, within 2e-4 of the
+    single-device route. Returns the launches of every route the phase
+    ran (the kernels line's ``launches_wide_path``)."""
+    import copy
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from vidsum_tpu_torch.config import ModelConfig, pretrain_recipe
+    from vidsum_tpu_torch.models.simnet import SimNet
+    from vidsum_tpu_torch.ops import attention_train as att
+    from vidsum_tpu_torch.parallel import make_mesh, make_seq_sharded_forward
+    from vidsum_tpu_torch.serve.transport import quantize_frames
+    from vidsum_tpu_torch.train.steps import make_eval_forward
+
+    t_phase = time.monotonic()
+    rng = np.random.default_rng(seed + 40)
+    launches, report, t_s = {}, {}, {}
+
+    def add(counts):
+        for r, n in counts.items():
+            launches[r] = launches.get(r, 0) + n
+
+    def cfg_of(dtype="float32", layers=WIDE_PATH_LAYERS):
+        return ModelConfig(compute_dtype=dtype, num_layers=layers,
+                           **WIDE_PATH)
+
+    videos = [rng.random((n, cfg_of().in_features), dtype=np.float32)
+              for n in SERVE_LENGTHS]
+    lossless = None
+    for tag, dtype, kw in (("bf16", "bfloat16", {}), ("f32", "float32", {}),
+                           ("int8", "bfloat16",
+                            dict(attn_impl="int8_block",
+                                 wire_dtype="int8"))):
+        t0 = time.monotonic()
+        cfg = cfg_of(dtype)
+        model = SimNet(cfg, generator=torch.Generator().manual_seed(
+            seed + 41))
+        results, counts, st, wall = serve_requests(model, cfg, videos, **kw)
+        add(counts)
+        if not (counts["_flash_attention"] + counts["_flash_attention_folded"]
+                and counts["masked_attention"]):
+            raise AssertionError(f"wide path {tag}: the attention kernels "
+                                 f"never launched ({counts})")
+        check_no_gemm_fallback(f"wide path {tag}")
+        fwd = make_eval_forward(cfg, kw.get("attn_impl"))
+        solos = []
+        for v, r in zip(videos, results):
+            n = v.shape[0]
+            check_summary(r, n)
+            x, mask = padded(cfg, v)
+            if tag == "int8":
+                q, sc = quantize_frames(x[0])
+                x = (torch.from_numpy(q).cuda().float()
+                     * torch.from_numpy(sc).cuda()[:, None])[None]
+            solo = fwd(model, x, mask)[0, :n].float().cpu().numpy()
+            if not np.array_equal(solo, r.scores):
+                raise AssertionError(
+                    f"wide path {tag}: served != solo for a {n}-frame "
+                    f"request (max diff "
+                    f"{float(np.abs(solo - r.scores).max())})")
+            solos.append(solo)
+        rep = dict(requests=len(videos), wall_s=wall,
+                   latency_p50_s=st.latency_p50_s,
+                   latency_p95_s=st.latency_p95_s, batches=st.batches,
+                   frames_per_s=sum(SERVE_LENGTHS) / wall, launches={
+                       r: n for r, n in counts.items() if n},
+                   served_equals_solo=True)
+        if tag == "bf16":
+            lossless = solos
+        if tag == "int8":
+            d = np.concatenate([np.abs(a - b)
+                                for a, b in zip(solos, lossless)])
+            rep["vs_bf16"] = {"median": float(np.median(d)),
+                              "max": float(d.max())}
+            if not (rep["vs_bf16"]["median"] < INT8_VS_BF16["median"]
+                    and rep["vs_bf16"]["max"] < INT8_VS_BF16["max"]):
+                raise AssertionError(f"wide path int8 scores off the bf16 "
+                                     f"route by {rep['vs_bf16']}")
+        else:
+            cpu = copy.deepcopy(model).to("cpu")
+            vs_cpu = {}
+            for n in WIDE_PATH_CPU_LENGTHS:
+                v = videos[SERVE_LENGTHS.index(n)]
+                x, mask = padded(cfg, v)
+                with torch.inference_mode():
+                    card, _ = model(torch.from_numpy(x).cuda(),
+                                    torch.from_numpy(mask).cuda())
+                    ref, _ = cpu(torch.from_numpy(x), torch.from_numpy(mask))
+                card, ref = card[0, :n, 0].float().cpu(), ref[0, :n, 0].float()
+                if tag == "f32":
+                    vs_cpu[n] = check_close(card, ref, WIDE_PATH_F32,
+                                            f" (wide path f32, {n} frames)")
+                else:
+                    vs_cpu[n] = diff_stats(torch.sigmoid(card),
+                                           torch.sigmoid(ref))
+                    if not (vs_cpu[n]["median"] <= WIDE_SCORES["median"]
+                            and vs_cpu[n]["max"] <= WIDE_SCORES["max"]):
+                        raise AssertionError(f"wide path bf16 scores, card "
+                                             f"against CPU: {vs_cpu[n]}")
+            rep["card_vs_cpu"] = vs_cpu
+            del cpu
+        report[f"serve_{tag}"] = rep
+        t_s[f"serve_{tag}"] = time.monotonic() - t0
+        del model
+        torch.cuda.empty_cache()
+
+    # (b) one finetune step, card against CPU (the flash route past the
+    # fused block's training envelope at d 1,024)
+    t0 = time.monotonic()
+    tcfg = cfg_of()
+    model = SimNet(tcfg, generator=torch.Generator().manual_seed(seed + 42))
+    x = rng.normal(size=(2, 512, tcfg.in_features)).astype(np.float32)
+    t = rng.random((2, 512)).astype(np.float32)
+    mask = pad_mask(2, 512, rng, "cpu").numpy()
+    reset_counters()
+    report["finetune_step"] = flash_card_vs_cpu(
+        model, tcfg, x, t, mask, rng, "wide path flash step",
+        ("_fwd_kernel", "_bwd_kernel"))
+    add(read_counters())
+    t_s["finetune_step"] = time.monotonic() - t0
+
+    # (c) pretrain: the card's step at the pretrain batch, full depth; the
+    # card against the CPU at a cut batch and depth
+    t0 = time.monotonic()
+    recipe = pretrain_recipe()
+    pcfg = recipe.pretrain
+    proj = rng.normal(size=(tcfg.in_features, 512)).astype(np.float32)
+
+    def clips(ns):
+        feats = [rng.standard_normal((n, tcfg.in_features), dtype=np.float32)
+                 for n in ns]
+        return feats, [(f.mean(0) @ proj).astype(np.float32) for f in feats]
+
+    lengths = [int(n) for n in rng.integers(300, 385, pcfg.batch_size)]
+    reset_counters()
+    report["pretrain_card"] = wide_pretrain_step(
+        cfg_of(), pcfg, *clips(lengths))
+    add(read_counters())
+    # at dropout 0: past the fused block's envelope the step takes the
+    # flash route, whose residual and MLP dropout draws from a generator
+    # (other bits on the card than on the CPU), and the pretrain step takes
+    # no masks
+    reset_counters()
+    report["pretrain_card_vs_cpu"] = pretrain_card_vs_cpu(
+        dataclasses.replace(tcfg, dropout=0.0),
+        dataclasses.replace(pcfg, batch_size=WIDE_PATH_PT_CHECK_BATCH),
+        *clips(lengths[:WIDE_PATH_PT_CHECK_BATCH]), rng,
+        "wide path pretrain step", ("_fwd_kernel", "_bwd_kernel"), mod=att)
+    add(read_counters())
+    t_s["pretrain"] = time.monotonic() - t0
+
+    # (d) one long request over the ring of a (1, 4) mesh of cuda:0
+    t0 = time.monotonic()
+    cfg = cfg_of()
+    model = SimNet(cfg, generator=torch.Generator().manual_seed(seed + 43))
+    mesh = make_mesh((1, RING_SHARDS), "cuda:0")
+    v = rng.random((16384, cfg.in_features), dtype=np.float32)
+    results, counts, st, _ = serve_requests(model, cfg, [v], mesh=mesh,
+                                            long_threshold=8192)
+    add(counts)
+    if not counts["_ring_block_step"] or st.long_requests != 1:
+        raise AssertionError(f"wide path: the long request did not take the "
+                             f"ring ({counts})")
+    granule = 128 * RING_SHARDS
+    xl, ml = padded(cfg, v, granule)
+    seq = make_seq_sharded_forward(cfg, mesh)
+    direct = torch.sigmoid(seq(model, xl, ml)[0][0, :16384, 0]).float(
+    ).cpu().numpy()
+    if not np.array_equal(direct, results[0].scores):
+        raise AssertionError("wide path: ring served != direct")
+    x, mask = padded(cfg, v)
+    single = make_eval_forward(cfg)(model, x, mask)[0, :16384].float(
+    ).cpu().numpy()
+    ring_err = float(np.abs(results[0].scores - single).max())
+    if not ring_err <= 2e-4:
+        raise AssertionError(f"wide path: the ring off the single-device "
+                             f"route by {ring_err} (bound 2e-4)")
+    report["ring"] = dict(frames=16384, mesh=[1, RING_SHARDS],
+                          launches={r: n for r, n in counts.items() if n},
+                          served_equals_direct=True,
+                          vs_single_device_max_abs=ring_err)
+    t_s["ring"] = time.monotonic() - t0
+    del model
+    torch.cuda.empty_cache()
+    emit("wide_path", d_model=WIDE_PATH["d_model"],
+         num_heads=WIDE_PATH["num_heads"], head_dim=256, head_slices=2,
+         num_layers=WIDE_PATH_LAYERS,
+         reduced=[f"serving card_vs_cpu: the {WIDE_PATH_CPU_LENGTHS}-frame "
+                  f"requests",
+                  f"pretrain card_vs_cpu: batch {pcfg.batch_size} -> "
+                  f"{WIDE_PATH_PT_CHECK_BATCH}, dropout {tcfg.dropout} -> "
+                  f"0"],
+         seconds=t_s, wall_s=time.monotonic() - t_phase, **report,
+         launches=launches)
+    return launches
+
+def phase_wide_timings(dev: dict, seed: int) -> None:
+    """One ``wide_kernel`` line per point: every attention row (TPU kernels
+    3-8 and 15-17) at head_dim 256 with 4 heads (two 128-column slices,
+    each slice's CTAs recomputing the scores over the whole head: the
+    kernels do ``head_slices`` times the score products the bound counts
+    once) at its table shape, and rows 1/2 and 9-12 at d_model 1,056 with 8
+    heads (LayerNorm rows past 1,024 columns: the row kernels' looping
+    variant; head_dim 132 runs padded to two slices), in bf16 and f32 where
+    the row takes both: the CUDA-event ms, the plain version's ms, the
+    bound from these inputs and the library call's ms (SDPA for 3-8,
+    ``nn.TransformerEncoderLayer`` for 1/2 and 9-12, none for the ring)."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    from vidsum_tpu_torch.config import ModelConfig
+    from vidsum_tpu_torch.models.simnet import SimNet
+    from vidsum_tpu_torch.ops import _cuda
+    from vidsum_tpu_torch.ops import attention as at
+    from vidsum_tpu_torch.ops import attention_train as att
+    from vidsum_tpu_torch.ops import block_kernel as bk
+    from vidsum_tpu_torch.ops import block_train as bt
+
+    peaks = peaks_for(dev["name"])
+    cuda = torch.device("cuda")
+    rng = np.random.default_rng(seed + 50)
+    smi = dev["smi"]
+
+    def randn(*shape, dtype=torch.float32):
+        return torch.from_numpy(rng.normal(size=shape).astype(
+            np.float32)).to(cuda, dtype)
+
+    def point(row, shape, dn, fn, plain, lib, flops, nbytes, **kw):
+        t_ops = flops / peaks[dn] * 1e3
+        t_bytes = nbytes / peaks["bytes"] * 1e3
+        # the plain versions once; the fold's over 64-key tiles at N 8,192
+        # not at all (~4.5 s a call; rows 7/8's plain times stand in the
+        # table at head_dim 64)
+        ms = cuda_ms(fn, reps=5)
+        emit("wide_kernel", row=row, shape=shape, dtype=dn, card=smi, ms=ms,
+             plain_ms=None if plain is None else cuda_ms(plain, reps=1,
+                                                         warmup=0),
+             library_ms=None if lib is None else cuda_ms(lib, reps=5),
+             bound_ms=max(t_ops, t_bytes),
+             bound_by="operations" if t_ops >= t_bytes else "bytes",
+             flops=flops, bytes=nbytes, **kw)
+
+    # 3 and 4: (1, 4, 6,016, 256) single pass, (1, 4, 16,384, 256) folded
+    H, Dh = 4, 256
+    sl = _cuda.head_slices(Dh)
+    scale = Dh ** -0.5
+    for N, row, folded in ((6016, 3, False), (16384, 4, True)):
+        mask = pad_mask(1, N, rng, cuda)
+        valid = int((~mask).sum())
+        keep = ~mask[:, None, None, :]
+        for dtype in (torch.bfloat16, torch.float32):
+            dn = str(dtype).split(".")[1]
+            q, k, v = (randn(1, H, N, Dh, dtype=dtype) for _ in range(3))
+            with torch.inference_mode():
+                point(row, [1, H, N, Dh], dn,
+                      lambda: at.flash_attention(q, k, v, mask, scale),
+                      (lambda: at.attention_folded_reference(
+                          q, k, v, mask, scale, at.KEY_TILE)) if folded
+                      else (lambda: at.attention_reference(q, k, v, mask,
+                                                           scale)),
+                      lambda: F.scaled_dot_product_attention(
+                          q, k, v, attn_mask=keep, scale=scale),
+                      4 * H * Dh * N * valid,
+                      4 * H * N * Dh * q.element_size() + N, head_slices=sl)
+            del q, k, v
+    # 5-8: (2, 4, 8,192, 256), valid 8,100 and 5,000, dropout 0.3
+    B, N, rate = 2, 8192, 0.3
+    mask = torch.ones(B, N, dtype=torch.bool, device=cuda)
+    mask[0, :8100] = False
+    mask[1, :5000] = False
+    valid = 8100 + 5000
+    dseed = int(rng.integers(0, 2**31 - 2))
+    keep = ~mask[:, None, None, :]
+    for dtype in (torch.bfloat16, torch.float32):
+        dn = str(dtype).split(".")[1]
+        q, k, v, do = (randn(B, H, N, Dh, dtype=dtype) for _ in range(4))
+        qg, kg, vg = (t.detach().clone().requires_grad_() for t in (q, k, v))
+
+        def sdpa_bwd():
+            o = F.scaled_dot_product_attention(qg, kg, vg, attn_mask=keep,
+                                               dropout_p=rate, scale=scale)
+            o.backward(do)
+
+        nbytes = 4 * B * H * N * Dh * q.element_size() + B * N
+        for folded in (False, True):
+            kb = att.KEY_TILE
+            if folded:
+                o, lse = att._fwd_kernel_folded(q, k, v, mask, dseed, rate,
+                                                scale, kb)
+                fwd = lambda: att._fwd_kernel_folded(  # noqa: E731
+                    q, k, v, mask, dseed, rate, scale, kb)
+                bwd = lambda: att._bwd_kernel_folded(  # noqa: E731
+                    q, k, v, mask, dseed, lse, do, o, rate, scale, kb)
+                pfwd = pbwd = None
+            else:
+                o, lse = att._fwd_kernel(q, k, v, mask, dseed, rate, scale)
+                fwd = lambda: att._fwd_kernel(  # noqa: E731
+                    q, k, v, mask, dseed, rate, scale)
+                pfwd = lambda: att.attention_train_fwd_reference(  # noqa
+                    q, k, v, mask, dseed, rate, scale, rows=512)
+                bwd = lambda: att._bwd_kernel(  # noqa: E731
+                    q, k, v, mask, dseed, lse, do, rate, scale)
+                pbwd = lambda: att.attention_train_bwd_reference(  # noqa
+                    q, k, v, mask, dseed, lse, do, rate, scale, rows=512)
+            rows = (7, 8) if folded else (5, 6)
+            point(rows[0], [B, H, N, Dh], dn, fwd, pfwd,
+                  lambda: F.scaled_dot_product_attention(
+                      q, k, v, attn_mask=keep, dropout_p=rate, scale=scale),
+                  4 * H * Dh * N * valid, nbytes, head_slices=sl)
+            point(rows[1], [B, H, N, Dh], dn, bwd, pbwd, sdpa_bwd,
+                  8 * H * Dh * N * valid, 2 * nbytes, head_slices=sl)
+        del q, k, v, do, qg, kg, vg, o, lse
+        torch.cuda.empty_cache()
+    # 15: (1, 4, 4,096, 256), K/V bf16; 16/17: (4, 4, 2,048, 256), rate 0.3
+    ra = ring_module()
+    for B, Nl, rows in ((1, 4096, (15,)), (4, 2048, (16, 17))):
+        q32 = randn(B, H, Nl, Dh) * scale
+        k, v, g = (randn(B, H, Nl, Dh) for _ in range(3))
+        mask = torch.zeros(B, Nl, dtype=torch.bool, device=cuda)
+        carry = ra._init_carries(q32)
+        flops = 4 * B * H * Nl * Nl * Dh
+        nbytes = 6 * B * H * Nl * Dh * 4 + B * Nl
+        if rows == (15,):
+            kd, vd = k.bfloat16(), v.bfloat16()
+            point(15, [B, H, Nl, Dh], "float32",
+                  lambda: ra._ring_block_step(q32, kd, vd, mask, *carry),
+                  lambda: ra.ring_block_step_reference(q32, kd, vd, mask,
+                                                       *carry),
+                  None, flops, nbytes, head_slices=sl, kv="bfloat16")
+        else:
+            info = (int(rng.integers(0, 2**31 - 2)), 0, Nl, 2 * Nl)
+            point(16, [B, H, Nl, Dh], "float32",
+                  lambda: ra._ring_train_step(q32, k, v, mask, info, *carry,
+                                              0.3),
+                  lambda: ra.ring_train_step_reference(q32, k, v, mask, info,
+                                                       *carry, 0.3),
+                  None, flops, nbytes, head_slices=sl)
+            o, m, l = ra.ring_train_step_reference(q32, k, v, mask, info,
+                                                   *carry, 0.3)
+            dr = (g * o / l).sum(-1, keepdim=True)
+            acc = tuple(torch.zeros_like(t) for t in (q32, k, v))
+            args = (q32, k, v, g, dr, m, l, mask, info, *acc, 0.3)
+            point(17, [B, H, Nl, Dh], "float32",
+                  lambda: ra._ring_train_step_bwd(*args),
+                  lambda: ra.ring_train_step_bwd_reference(*args),
+                  None, 10 * B * H * Nl * Nl * Dh, 2 * nbytes,
+                  head_slices=sl)
+        del q32, k, v, g
+        torch.cuda.empty_cache()
+    # 1/2 and 9-12 at d 1,056 with 8 heads
+    cfg = ModelConfig(num_layers=1, d_model=1056, num_heads=8)
+    d, H = cfg.d_model, cfg.num_heads
+    block = SimNet(cfg, device=cuda, generator=torch.Generator().manual_seed(
+        seed + 51)).encoder.module_list[0]
+    with torch.no_grad():
+        tw = bt.train_weights(block)
+    ln = _cuda.ln_rows_path(d, False)
+    for B, N, route in ((32, 512, "_fused_block"),
+                        (8, 256, "_fused_block_grouped")):
+        mask = pad_mask(B, N, rng, cuda)
+        valid = int((~mask).sum())
+        for dtype in (torch.bfloat16, torch.float32):
+            dn = str(dtype).split(".")[1]
+            x = randn(B, N, d, dtype=dtype)
+            w = bk.block_weights(block, dtype)
+            layer = library_block(block, d, H, dtype)
+            fn = getattr(bk, route)
+            itm = x.element_size()
+            with torch.inference_mode():
+                point(1 if route == "_fused_block" else 2, [B, N, d], dn,
+                      lambda: fn(w, x, mask, H, cfg.attn_scale),
+                      lambda: bk.encoder_block_reference(w, x, mask, H,
+                                                         cfg.attn_scale),
+                      lambda: layer(x, src_key_padding_mask=mask),
+                      B * N * 24 * d * d + 4 * N * valid * d,
+                      2 * B * N * d * itm + 12 * d * d * itm + 13 * d * 4
+                      + B * N, ln_rows=ln)
+        x, do = randn(B, N, d), randn(B, N, d)
+        flops = B * N * 24 * d * d + 4 * N * valid * d
+        nbytes = 2 * B * N * d * 4 + 12 * d * d * 4 + 13 * d * 4 + B * N
+        grouped = route == "_fused_block_grouped"
+        fwd = bt._fwd_kernel_grouped if grouped else bt._fwd_kernel
+        bwd = bt._bwd_kernel_grouped if grouped else bt._bwd_kernel
+        layer = library_block(block, d, H, torch.float32, dropout=0.3)
+        xg = x.detach().clone().requires_grad_()
+
+        def lib_bwd():
+            layer(xg, src_key_padding_mask=mask).backward(do)
+
+        point(11 if grouped else 9, [B, N, d], "float32",
+              lambda: fwd(x, mask, 7, tw, H, cfg.attn_scale, 0.3),
+              lambda: bt.block_reference_with_masks(x, tw, mask, 7, H,
+                                                    cfg.attn_scale, 0.3),
+              lambda: layer(x, src_key_padding_mask=mask), flops, nbytes,
+              ln_rows="wide")
+        point(12 if grouped else 10, [B, N, d], "float32",
+              lambda: bwd(x, mask, 7, tw, do, H, cfg.attn_scale, 0.3),
+              lambda: bt.block_reference_backward(x, tw, mask, 7, do, H,
+                                                  cfg.attn_scale, 0.3),
+              lib_bwd, 2 * flops, 2 * nbytes, ln_rows="wide")
+        del x, do, xg
+        torch.cuda.empty_cache()
+
+
+def wide_pretrain_step(cfg, pcfg, feats, reps) -> dict:
+    """One pretrain step (``make_pretrain_step``, frozen
+    ``video_transform``) on the card at ``cfg``'s depth and the batch given:
+    finite losses, each training attention route once a layer, the step's
+    wall and device time."""
+    import math
+
+    import torch
+
+    from vidsum_tpu_torch.data.collate import pad_batch_pretrain
+    from vidsum_tpu_torch.models.pretrain import PretrainModel
+    from vidsum_tpu_torch.ops import attention_train as att
+    from vidsum_tpu_torch.train.schedule import reference_pretrain_schedule
+    from vidsum_tpu_torch.train.steps import (
+        make_optimizer, make_pretrain_step,
+    )
+
+    x, v, m = pad_batch_pretrain(feats, reps)
+    model = PretrainModel(cfg, pcfg, device="cuda",
+                          generator=torch.Generator().manual_seed(pcfg.seed))
+    schedule = reference_pretrain_schedule(
+        pcfg.lr, max(pcfg.scheduler_samples // pcfg.batch_size, 1),
+        pcfg.warmup_epochs, pcfg.epochs)
+    opt = make_optimizer([("encoder." + n, p) for n, p in
+                          model.encoder.named_parameters()], pcfg.lr,
+                         pcfg.weight_decay)
+    step = make_pretrain_step(cfg, pcfg, schedule, device="cuda")
+    before = {r: getattr(att, r).launches for r in ("_fwd_kernel",
+                                                    "_bwd_kernel")}
+    torch.cuda.synchronize()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    t0 = time.monotonic()
+    start.record()
+    out = step(model, opt, x, v, m, torch.Generator().manual_seed(1))
+    end.record()
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    losses = [float(t) for t in out.cpu()]
+    moved = {r: getattr(att, r).launches - b for r, b in before.items()}
+    if not all(math.isfinite(v) for v in losses) or set(moved.values()) != {
+            cfg.num_layers}:
+        raise AssertionError(f"wide pretrain step: losses {losses}, "
+                             f"launches {moved}")
+    del model, opt
+    torch.cuda.empty_cache()
+    return dict(B=int(x.shape[0]), N=int(x.shape[1]), layers=cfg.num_layers,
+                losses=losses, launches=moved, wall_s=wall,
+                device_ms=start.elapsed_time(end))
 
 
 def synthetic_videos(rng, lengths, in_features: int) -> list:
@@ -3347,7 +4041,7 @@ class PretrainClock(StageClock):
 
 
 def pretrain_card_vs_cpu(cfg, pcfg, feats, reps, rng, what: str,
-                         routes) -> dict:
+                         routes, mod=None) -> dict:
     """One pretrain step (``make_pretrain_step`` on ``"fused_block"``,
     frozen ``video_transform``) from the same seeded model on the card and
     on the CPU's plain path with the same per-layer dropout seeds: the four
@@ -3355,7 +4049,8 @@ def pretrain_card_vs_cpu(cfg, pcfg, feats, reps, rng, what: str,
     (``compare_steps`` with STEP_SPARE and STEP_CAP; the grads, since
     Adam's first update moves every parameter by about lr whatever its grad and amplifies the
     difference of a grad near 0 past eps); ``video_transform`` keeps its
-    bits on both; the card launches each of ``routes`` once a layer."""
+    bits on both; the card launches each of ``routes`` (counters of
+    ``mod``, by default ``ops.block_train``) once a layer."""
     import copy
 
     import torch
@@ -3375,9 +4070,10 @@ def pretrain_card_vs_cpu(cfg, pcfg, feats, reps, rng, what: str,
         pcfg.lr, max(pcfg.scheduler_samples // pcfg.batch_size, 1),
         pcfg.warmup_epochs, pcfg.epochs)
     seeds = [int(s) for s in rng.integers(0, 2**31 - 1, cfg.num_layers)]
+    mod = mod or bt
     results, losses, t_s = [], [], {}
     for dev in ("cuda", "cpu"):
-        before = [getattr(bt, r).launches for r in routes]
+        before = [getattr(mod, r).launches for r in routes]
         t0 = time.monotonic()
         md = copy.deepcopy(model).to(dev)
         vt = {k: t.clone() for k, t in md.video_transform.state_dict()
@@ -3396,7 +4092,8 @@ def pretrain_card_vs_cpu(cfg, pcfg, feats, reps, rng, what: str,
         if any(not torch.equal(t, vt[k]) for k, t in
                md.video_transform.state_dict().items()):
             raise AssertionError(f"{what}: video_transform moved on {dev}")
-        moved = [getattr(bt, r).launches - b for r, b in zip(routes, before)]
+        moved = [getattr(mod, r).launches - b
+                 for r, b in zip(routes, before)]
         if dev == "cuda" and moved != [cfg.num_layers] * len(routes):
             raise AssertionError(f"{what}: launches {moved} of {routes}, "
                                  f"expected {cfg.num_layers} each")
@@ -6508,7 +7205,15 @@ def main() -> int:
     clock.mark("ring_kernels")
     for shape in (D512, D384, D768, D192, D320, D896, D1024):
         phase_wide(args.seed, shape)
+    wide_launches = {}
+    for shape in WIDE_SLICED:
+        for r, n in phase_wide(args.seed, shape, layers=1,
+                               n_model=256)[1].items():
+            wide_launches[r] = wide_launches.get(r, 0) + n
     clock.mark("wide")
+    wide_path_launches = phase_wide_path(args.seed)
+    phase_wide_timings(dev, args.seed)
+    clock.mark("wide_path")
     counts = phase_serve(args.seed)
     counts.update({r + ".f32": n for r, n in phase_serve(
         args.seed, "float32").items() if r in SERVE_ROUTES})
@@ -6636,6 +7341,14 @@ def main() -> int:
                  "route": "cuda", "source": srcs[0], "sources": srcs,
                  "replaces": rep, "launches": counts[route],
                  **timings[route]}
+        # the launches at the widths past the old limits: phase_wide's
+        # checks of WIDE_SLICED (both dtypes where the route serves both)
+        # and the wide_path phase's main paths at d 1,024 / head_dim 256
+        wide_name = route.removesuffix(".f32").removesuffix(".bf16")
+        for key, got in (("launches_wide", wide_launches),
+                         ("launches_wide_path", wide_path_launches)):
+            if got.get(wide_name):
+                entry[key] = got[wide_name]
         for ph, run_counts in mgpu.items():
             if route in run_counts:
                 # the multi-GPU phases' main paths (rows 9-12 on every dp

@@ -44,9 +44,10 @@ CASES = [(False, 0.3, "float32"), (False, 0.0, "float32"),
          (False, 0.3, "bfloat16"), (True, 0.3, "float32"),
          (True, 0.0, "float32"), (True, 0.3, "bfloat16"),
          (True, 0.0, "bfloat16")]
-# the other head_dims the kernels take (d 512 with 4 heads: 128), valid
+# the other head_dims the kernels take (d 512 with 4 heads: 128; d 640
+# with 4: 160, which the kernels run in two 128-column slices), valid
 # length 200 of 256 (on the folded route two 128-key blocks)
-HEAD_DIM_SHAPES = [(1, 2, 256, 128), (1, 2, 256, 32)]
+HEAD_DIM_SHAPES = [(1, 2, 256, 128), (1, 2, 256, 32), (1, 2, 256, 160)]
 
 
 def _inputs(folded: bool, shape=None, dead=False, holes=False):
@@ -188,7 +189,7 @@ def test_plain_versions_match_jax_kernels(jax_results, folded, rate, dtype):
 @pytest.mark.parametrize("shape", HEAD_DIM_SHAPES)
 def test_plain_versions_match_jax_kernels_at_head_dims(jax_results, shape,
                                                        dtype):
-    """head_dim 128 (d 512, 4 heads) and 32 on the single-pass route at
+    """head_dim 128 (d 512, 4 heads), 32 and 160 on the single-pass route at
     rate 0.3: the plain forward and backward against the Pallas kernels in
     interpret mode, at the bounds of the head_dim 16 cases."""
     want = jax_results(False, 0.3, dtype, shape)
@@ -213,9 +214,10 @@ def test_plain_versions_match_jax_kernels_at_head_dims(jax_results, shape,
 @pytest.mark.parametrize("shape", HEAD_DIM_SHAPES)
 def test_folded_plain_versions_match_jax_kernels_at_head_dims(
         jax_results, shape, dtype):
-    """head_dim 128 and 32 on the forced key-folded route (kb = 128) at rate
-    0.3: the plain folded forward and backward against the Pallas kernels
-    in interpret mode, at the folded bounds of the head_dim 64 cases."""
+    """head_dim 128, 32 and 160 on the forced key-folded route (kb = 128)
+    at rate 0.3: the plain folded forward and backward against the Pallas
+    kernels in interpret mode, at the folded bounds of the head_dim 64
+    cases."""
     want = jax_results(True, 0.3, dtype, shape)
     q, k, v, co, mask, scale = _inputs(True, shape)
     tq, tk, tv, tco = (_torch(a, dtype) for a in (q, k, v, co))

@@ -100,24 +100,43 @@ def test_gemm_bias_epilogue_matches_plain(cuda, dtype, epilogue, N, K):
 
 
 def test_kernels_refuse_shapes_no_configuration_has(cuda):
-    """The LayerNorm epilogue takes rows of up to 1,024 (d_model 1,024; 800
-    runs, 1,056 raises), the attention kernel any head_dim up to 128 (48
-    runs zero-padded to 64; 160 raises)."""
-    x = torch.zeros(8, 32, device=cuda)
-    for n, ok in ((800, True), (1056, False)):
-        w = torch.zeros(n, 32, device=cuda)
-        b = torch.zeros(n, device=cuda)
-        kw = dict(residual=torch.zeros(8, n, device=cuda), ln_g=b, ln_b=b)
-        if ok:
-            bk.gemm_bias_epilogue(x, w, b, "residual_ln", **kw)
-        else:
-            with pytest.raises(ValueError, match="N <= 1024"):
-                bk.gemm_bias_epilogue(x, w, b, "residual_ln", **kw)
-    q = torch.zeros(1, 1, 64, 48, device=cuda)
-    assert attn_mod.masked_attention(q, q, q, None, 0.1).shape == q.shape
-    q = torch.zeros(1, 1, 64, 160, device=cuda)
-    with pytest.raises(ValueError, match="head_dim"):
-        attn_mod.masked_attention(q, q, q, None, 0.1)
+    """No kernel refuses a width the JAX package takes: the LayerNorm
+    epilogue's rows of 800 and 1,056 columns (past 1,024 the looping row
+    kernel) and d 200 (off the 32-column grid) in both dtypes, and the
+    serving attention at head_dim 48 (zero-padded to 64), 160, 256 and 320
+    (128-column slices) in both dtypes. Each launch moves its counter and
+    matches the plain version at its bound."""
+    g = torch.Generator(device="cpu").manual_seed(3)
+    for dtype in DTYPES:
+        for n in (200, 800, 1056):
+            x = torch.randn(8, 64, generator=g).to(cuda, dtype)
+            w = (torch.randn(n, 64, generator=g) / 8).to(cuda, dtype)
+            b = torch.randn(n, generator=g).to(cuda)
+            kw = dict(residual=torch.randn(8, n, generator=g).to(cuda),
+                      ln_g=torch.rand(n, generator=g).to(cuda) + 0.5,
+                      ln_b=b)
+            before = bk.gemm_bias_epilogue.launches
+            got_t, got_f = bk.gemm_bias_epilogue(x, w, b, "residual_ln",
+                                                 want_f32=True, **kw)
+            torch.cuda.synchronize()
+            assert bk.gemm_bias_epilogue.launches == before + 1
+            want_t, want_f = bk.gemm_bias_epilogue_reference(
+                x, w, b, "residual_ln", want_f32=True, **kw)
+            _close(got_f, want_f, "gemm", torch.float32)
+            _close(got_t, want_t, "gemm", dtype)
+    for Dh in (48, 160, 256, 320):
+        for dtype in DTYPES:
+            q, k, v = (torch.randn(2, 2, 192, Dh, generator=g).to(cuda, dtype)
+                       for _ in range(3))
+            mask = _mask(2, 192, cuda, seed=Dh)
+            before = attn_mod.masked_attention.launches
+            got = attn_mod.masked_attention(q, k, v, mask, Dh ** -0.5)
+            torch.cuda.synchronize()
+            assert attn_mod.masked_attention.launches == before + 1
+            assert got.shape == q.shape
+            _close(got, attn_mod.attention_reference(q, k, v, mask,
+                                                     Dh ** -0.5),
+                   "attention", dtype)
 
 
 # ------------------------------- the serving block's bf16 GEMM on wgmma
@@ -236,7 +255,8 @@ def test_gemm_row_bits_do_not_depend_on_m_or_the_cta_shape(
 @pytest.mark.parametrize("Dh,aligned", [(16, True), (32, True), (64, True),
                                         (64, False), (96, True), (128, True),
                                         (48, True), (80, False),
-                                        (112, True)])
+                                        (112, True), (160, True),
+                                        (256, False), (320, True)])
 @pytest.mark.parametrize("N,valid", [(200, None), (520, (70, 455))])
 def test_masked_attention_matches_plain(cuda, dtype, norm_first, Dh,
                                         aligned, N, valid):
@@ -550,7 +570,7 @@ def test_f32_gemm_row_bits_do_not_depend_on_the_batch(cuda, monkeypatch,
 
 
 @pytest.mark.parametrize("norm_first", [True, False])
-@pytest.mark.parametrize("Dh", [16, 32, 64, 96, 128, 48, 112])
+@pytest.mark.parametrize("Dh", [16, 32, 64, 96, 128, 48, 112, 160, 256])
 @pytest.mark.parametrize("B,H,N", [(1, 4, 1280), (1, 4, 6016),
                                    (1, 4, 16384), (2, 3, 1000), (3, 2, 77)])
 def test_f32_attention_matches_plain(cuda, norm_first, Dh, B, H, N):
@@ -883,7 +903,8 @@ def _at_within(got, want, tol, relative_atol=True):
 
 @pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("folded", [False, True])
-@pytest.mark.parametrize("Dh", [16, 32, 64, 96, 128, 48, 80, 112])
+@pytest.mark.parametrize("Dh", [16, 32, 64, 96, 128, 48, 80, 112, 160, 256,
+                                320])
 def test_attention_train_routes_match_plain(cuda, dtype, folded, Dh):
     """Each training attention route's o, lse, dq, dk and dv against its
     plain version on the card with the same dropout bits (the folded one
@@ -1603,6 +1624,43 @@ def test_int8_block_routes_match_plain(cuda, qk_int8, dtype, d, B, N, route):
     assert float(diff.max()) <= INT8_BOUND["max"]
 
 
+@pytest.mark.parametrize("qk_int8", [False, True])
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("d,heads,B,N,route", [
+    (640, 4, 2, 256, "_fused_block_int8_grouped"),
+    (1056, 8, 1, 512, "_fused_block_int8"),
+    (200, 4, 2, 256, "_fused_block_int8_grouped")])
+def test_int8_block_routes_match_plain_at_wide_shapes(cuda, qk_int8, dtype,
+                                                      d, heads, B, N, route):
+    """Each int8 route, past the copied TPU envelope, at head_dim 160 (two
+    128-column slices; with ``qk_int8`` the int8 scores summed over the
+    slices in s32 and scaled once with the whole head's row scales), at d
+    1,056 (LayerNorm rows past 1,024 columns, head_dim 132) and at d 200
+    (off the 32-column grid: the int8 GEMM's K zero-padded to 224) against
+    its plain version at the int8 block bound."""
+    from vidsum_tpu_torch.ops import block_kernel_int8 as bk8
+    from vidsum_tpu_torch.ops.quant import quantize_block
+
+    cfg = ModelConfig(d_model=d, num_heads=heads, num_layers=1)
+    block = SimNet(cfg, device=cuda,
+                   generator=torch.Generator().manual_seed(d + N)
+                   ).encoder.module_list[0]
+    qb = quantize_block(block)
+    x = torch.randn(B, N, d, generator=torch.Generator().manual_seed(N))
+    x = x.to(cuda, dtype)
+    mask = _mask(B, N, cuda, seed=N)
+    fn = getattr(bk8, route)
+    before = fn.launches
+    got = fn(qb, x, mask, heads, cfg.attn_scale, qk_int8)
+    torch.cuda.synchronize()
+    assert fn.launches == before + 1
+    want = bk8.int8_block_reference(qb, x, mask, heads, cfg.attn_scale,
+                                    qk_int8)
+    diff = (got.float() - want.float()).abs()
+    assert float(diff.median()) <= INT8_BOUND["median"]
+    assert float(diff.max()) <= INT8_BOUND["max"]
+
+
 def test_int8_route_scores_do_not_depend_on_the_batch(cuda):
     cfg = ModelConfig(compute_dtype="bfloat16", num_layers=2)
     model = SimNet(cfg, device=cuda)
@@ -1658,7 +1716,7 @@ def _ring_carries_close(got, want):
 
 
 @pytest.mark.parametrize("kv_dtype", DTYPES)
-@pytest.mark.parametrize("Dh", [16, 32, 64, 96, 128, 48, 80])
+@pytest.mark.parametrize("Dh", [16, 32, 64, 96, 128, 48, 80, 160, 256])
 def test_ring_block_step_matches_plain(cuda, kv_dtype, Dh):
     import importlib
 
@@ -1680,7 +1738,7 @@ def test_ring_block_step_matches_plain(cuda, kv_dtype, Dh):
 
 
 @pytest.mark.parametrize("rate", [0.0, 0.3])
-@pytest.mark.parametrize("Dh", [64, 96, 128, 80, 112])
+@pytest.mark.parametrize("Dh", [64, 96, 128, 80, 112, 160, 320])
 def test_ring_train_steps_match_plain(cuda, rate, Dh):
     import importlib
 
@@ -1710,7 +1768,7 @@ def test_ring_train_steps_match_plain(cuda, rate, Dh):
         assert not torch.allclose(bad[0], want[0], atol=1e-3, rtol=1e-3)
 
 
-@pytest.mark.parametrize("Dh", [16, 32, 64, 96, 128, 48])
+@pytest.mark.parametrize("Dh", [16, 32, 64, 96, 128, 48, 256])
 def test_ring_kernels_pass_an_all_padded_block_through(cuda, Dh):
     """Kernels 15-17 on a block whose keys are all padded walk no key tile:
     the carry, and dq, dk, dv, come out as they went in, bit for bit (rows
@@ -1739,7 +1797,7 @@ def test_ring_kernels_pass_an_all_padded_block_through(cuda, Dh):
     assert all(torch.equal(a, b) for a, b in zip(grads, acc))
 
 
-@pytest.mark.parametrize("Dh", [16, 32, 64, 96, 128, 48])
+@pytest.mark.parametrize("Dh", [16, 32, 64, 96, 128, 48, 256])
 def test_ring_kernels_bits_do_not_depend_on_the_cta_shape(cuda, monkeypatch,
                                                           Dh):
     """Every CTA shape of every ring kernel (128- and 64-row at head_dim

@@ -399,7 +399,8 @@ def _guards():
     """Every CUDA wrapper's shape guard, called on CPU tensors, by the
     shape it reads: the training attention's and the ring's (head_dim), the
     serving attention's head_dim check, the training block's (d_model, and
-    head_dim at 4 heads) and the LayerNorm epilogue's rows (both GEMMs)."""
+    head_dim at 4 heads) and the LayerNorm epilogue's row path (both
+    GEMMs)."""
     import importlib
 
     from vidsum_tpu_torch.ops import _cuda
@@ -421,7 +422,7 @@ def _guards():
                                                                 "kernels"),
         "block_train": lambda Dh, d: bt._check_cuda_inputs(
             torch.zeros(1, 128, d), (), d // Dh),
-        "ln_rows": lambda Dh, d: _cuda.check_ln_rows(d),
+        "ln_rows": lambda Dh, d: _cuda.ln_rows_path(d, False),
     }
 
 
@@ -440,19 +441,18 @@ def test_guards_accept_the_repos_shapes(guard):
 
 @pytest.mark.parametrize("guard", GUARDS)
 def test_guards_refuse_other_shapes(guard):
-    """Any head_dim up to 128 (48: run zero-padded to 64) and d_model up
-    to 1,024 (800) are taken; head_dim 160 and d_model 1,056 (past the row
-    kernels' 1,024) raise. The LayerNorm rows read d only, the attention
-    guards head_dim only."""
+    """No guard refuses a width: head_dim 48 (run zero-padded to
+    64), 160, 256 and 320 (run in 128-column slices), d_model 800, 1,056
+    (LayerNorm rows past 1,024) and 200 (off the 32-column grid) are all
+    taken; only a head_dim below 1 raises, in the head_dim guards. The
+    LayerNorm rows read d only, the attention guards head_dim only."""
     fn = _guards()[guard]
-    fn(48, 192)
-    fn(100, 800)
-    if guard != "ln_rows":
+    for Dh, d in ((48, 192), (100, 800), (160, 640), (256, 1024),
+                  (320, 1280), (132, 1056), (50, 200)):
+        fn(Dh, d)
+    if guard in ("masked_attention", "attention_train", "ring"):
         with pytest.raises(ValueError, match="head_dim"):
-            fn(160, 640)
-    if guard in ("block_train", "ln_rows"):
-        with pytest.raises(ValueError, match="1024"):
-            fn(88, 1056)
+            fn(0, 0)
 
 
 # ------------------------------------------ head_dims off the kernels' own
@@ -465,21 +465,22 @@ def _dyadic(rng, *shape):
                             / 16)
 
 
-@pytest.mark.parametrize("Dh", [48, 80])
+@pytest.mark.parametrize("Dh", [48, 80, 160, 320])
 def test_head_dim_padding_is_exact(Dh):
     """What the CUDA wrappers do with a head_dim off ``_cuda.HEAD_DIMS``:
     q, k, v (and o, dO) zero-padded to ``_cuda.kernel_head_dim`` (48 -> 64,
-    80 -> 96), the kernel run at that width with the caller's scale, the
-    results sliced back. Run here through the kernels' plain versions (the
-    serving attention, its fold, the training attention's forward and
-    backward with dropout): padded and unpadded give the same bits in
-    output, lse and grads, and the padded columns of o, dq, dk and dv are
-    zero."""
+    80 -> 96, 160 -> 256 and 320 -> 384, the widths the kernels run in
+    128-column slices), the kernel run at that width with the caller's
+    scale, the results sliced back. Run here through the kernels' plain
+    versions (the serving attention, its fold, the training attention's
+    forward and backward with dropout): padded and unpadded give the same
+    bits in output, lse and grads, and the padded columns of o, dq, dk and
+    dv are zero."""
     from vidsum_tpu_torch.ops import _cuda
     from vidsum_tpu_torch.ops import attention_train as att
 
     Dp = _cuda.kernel_head_dim(Dh, "kernels")
-    assert Dp == {48: 64, 80: 96}[Dh]
+    assert Dp == {48: 64, 80: 96, 160: 256, 320: 384}[Dh]
     rng = np.random.default_rng(Dh)
     B, Hh, N = 2, 2, 256
     q, k, v, do = (_dyadic(rng, B, Hh, N, Dh) for _ in range(4))
@@ -511,18 +512,27 @@ def test_head_dim_padding_is_exact(Dh):
 
 def test_head_dim_padding_helpers():
     """``kernel_head_dim`` maps each head_dim up to 128 onto the smallest
-    kernel width that holds it and refuses the rest; ``pad_head_dim`` is
-    the identity at that width; the training block's per-head padding of
-    its fused (rows, heads * Dh) buffers round-trips."""
+    kernel width that holds it and a wider one onto the multiple of 128
+    that holds it (its ``head_slices``), and refuses only a head_dim below
+    1; ``ln_rows_path`` names the LayerNorm row kernel of a width;
+    ``pad_head_dim`` is the identity at that width; the training block's
+    per-head padding of its fused (rows, heads * Dh) buffers round-trips."""
     from vidsum_tpu_torch.ops import _cuda
     from vidsum_tpu_torch.ops import block_train as bt
 
     want = {1: 16, 16: 16, 17: 32, 48: 64, 64: 64, 80: 96, 96: 96, 112: 128,
-            128: 128}
+            128: 128, 129: 256, 132: 256, 160: 256, 256: 256, 320: 384,
+            512: 512}
     assert {dh: _cuda.kernel_head_dim(dh, "x") for dh in want} == want
-    for dh in (0, 129, 160):
+    assert {dh: _cuda.head_slices(dh) for dh in (50, 128, 160, 320, 512)} \
+        == {50: 1, 128: 1, 160: 2, 320: 3, 512: 4}
+    for dh in (0, -1):
         with pytest.raises(ValueError, match="head_dim"):
             _cuda.kernel_head_dim(dh, "x")
+    assert [_cuda.ln_rows_path(n, f32) for n, f32 in (
+        (200, False), (256, False), (384, False), (1024, False), (1056, False),
+        (200, True), (2048, True))] == ["tile", "tile", "rows", "rows",
+                                        "wide", "rows", "wide"]
     t = torch.randn(3, 2, 5, 64)
     assert _cuda.pad_head_dim(t, 64) is t
     qkv = torch.randn(10, 3 * 4 * 48)

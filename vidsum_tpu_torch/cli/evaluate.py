@@ -8,8 +8,8 @@ package's msgpack file, told apart by their first bytes), ``--torch_ckpt`` a
 reference-trained ``.pth``. ``--attn`` keeps the JAX package's choices and
 maps them to the port's routes: ``xla`` -> ``dense``, ``pallas`` ->
 ``flash``, ``pallas_block`` -> ``fused_block``. Scoring runs on the CUDA
-card (head_dim = d_model / num_heads at most 128, d_model at most 1,024
-there); ``main(argv, device="cpu")`` runs the plain path. Reading the
+card, at every d_model and head_dim the JAX package takes; ``main(argv,
+device="cpu")`` runs the plain path. Reading the
 ``.h5`` files needs ``h5py``.
 
 Usage:
@@ -24,8 +24,6 @@ import argparse
 import json
 import logging
 
-from vidsum_tpu_torch.cli.train import CARD_LIMITS
-
 ATTN_ROUTES = {"xla": "dense", "pallas": "flash",
                "pallas_block": "fused_block"}
 
@@ -39,11 +37,8 @@ def build_parser() -> argparse.ArgumentParser:
                    help="model checkpoint of either package")
     p.add_argument("--torch_ckpt", default=None,
                    help="reference-trained SimNet .pth")
-    p.add_argument("--d_model", type=int, default=256,
-                   help=f"model width (at most 1,024 on the CUDA card; "
-                        f"{CARD_LIMITS})")
-    p.add_argument("--num_heads", type=int, default=4,
-                   help=f"attention heads ({CARD_LIMITS})")
+    p.add_argument("--d_model", type=int, default=256)
+    p.add_argument("--num_heads", type=int, default=4)
     p.add_argument("--num_layers", type=int, default=4)
     p.add_argument("--split_path", default=None,
                    help="evaluate only the fold's test_keys")

@@ -5,8 +5,8 @@ and the JAX package's CLI.
 Reference: ``src/pretrain.py:90-131``. The flags and defaults are the JAX
 package's; ``--momentum`` is accepted and unused, as there. Pretraining runs
 on the CUDA card; ``main(argv, device="cpu")`` runs the plain PyTorch path
-(a keyword of the function, not a flag). On the card, head_dim (d_model /
-num_heads) must be at most 128 and d_model at most 1,024.
+(a keyword of the function, not a flag). The card takes every d_model and
+head_dim the JAX package takes.
 
 Usage (the ``run_pretrain.sh`` recipe):
     python -m vidsum_tpu_torch.cli.pretrain --data data/features \\
@@ -27,21 +27,16 @@ from vidsum_tpu_torch.config import (
     Config, DataConfig, ModelConfig, PretrainConfig,
 )
 
-CARD_LIMITS = "on the CUDA card head_dim = d_model / num_heads <= 128"
-
 
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser("vidsum_tpu_torch pretrain")
     p.add_argument("--data", required=True, type=str)
     p.add_argument("--datasets", default="tvsum+summe+ovp+youtube", type=str)
     p.add_argument("--batch_size", default=4, type=int)
-    p.add_argument("--d_model", type=int, default=512,
-                   help=f"model width (at most 1,024 on the CUDA card; "
-                        f"{CARD_LIMITS})")
+    p.add_argument("--d_model", type=int, default=512)
     p.add_argument("--use_pos", type=bool, default=True)
     p.add_argument("--num_layers", type=int, default=3)
-    p.add_argument("--num_heads", type=int, default=8,
-                   help=f"attention heads ({CARD_LIMITS})")
+    p.add_argument("--num_heads", type=int, default=8)
     p.add_argument("--dropout", type=float, default=0.2)
     p.add_argument("--sparsity", type=float, default=0.0,
                    help="positional-encoding dropout (the reference wires "

@@ -8,8 +8,8 @@ Usage:
 
 Clients POST ``.npz`` feature payloads to ``/summarize`` (see
 ``vidsum_tpu_torch/serve_http.py`` for the protocol). The service runs on
-the CUDA card (head_dim = d_model / num_heads at most 128, d_model at most
-1,024 there); ``main(argv, device="cpu")`` serves the plain PyTorch path
+the CUDA card, at every d_model and head_dim the JAX package takes;
+``main(argv, device="cpu")`` serves the plain PyTorch path
 (a keyword of the function, not a flag). ``--ckpt`` takes a model
 checkpoint of either package (the port's ``torch.save`` file, as
 ``cli.train`` writes it, or the JAX package's msgpack file), ``--torch_ckpt``
@@ -51,11 +51,8 @@ def build_parser() -> argparse.ArgumentParser:
                         "torch.save file or the JAX package's msgpack)")
     p.add_argument("--torch_ckpt", default=None,
                    help="reference-trained SimNet .pth (loaded as is)")
-    p.add_argument("--d_model", type=int, default=256,
-                   help="model width (at most 1,024 on the CUDA card)")
-    p.add_argument("--num_heads", type=int, default=4,
-                   help="attention heads (head_dim = d_model / num_heads "
-                        "at most 128 on the CUDA card)")
+    p.add_argument("--d_model", type=int, default=256)
+    p.add_argument("--num_heads", type=int, default=4)
     p.add_argument("--num_layers", type=int, default=4)
     p.add_argument("--host", default="127.0.0.1")
     p.add_argument("--port", type=int, default=8080)

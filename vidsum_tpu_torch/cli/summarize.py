@@ -7,8 +7,8 @@ Usage:
         --ckpt model_mae.ckpt [--torch_ckpt model_mae.pth] \\
         --google_weights googlenet.pth --out summary.json
 
-It runs on the CUDA card (head_dim = d_model / num_heads at most 128,
-d_model at most 1,024 there); ``main(argv, device="cpu")`` runs the plain
+It runs on the CUDA card, at every d_model and head_dim the JAX package
+takes; ``main(argv, device="cpu")`` runs the plain
 PyTorch path (a keyword of the function, not a flag). The flags and their
 defaults are the JAX package's. ``--ckpt`` takes a scorer checkpoint of
 either package (the port's ``torch.save`` file or the JAX package's
@@ -36,11 +36,8 @@ def build_parser() -> argparse.ArgumentParser:
                    help="reference-trained SimNet .pth (loaded as is)")
     p.add_argument("--google_weights", default=None,
                    help="torchvision googlenet state dict (.pth/.npz)")
-    p.add_argument("--d_model", type=int, default=256,
-                   help="model width (at most 1,024 on the CUDA card)")
-    p.add_argument("--num_heads", type=int, default=4,
-                   help="attention heads (head_dim = d_model / num_heads "
-                        "at most 128 on the CUDA card)")
+    p.add_argument("--d_model", type=int, default=256)
+    p.add_argument("--num_heads", type=int, default=4)
     p.add_argument("--num_layers", type=int, default=4)
     p.add_argument("--fps", type=int, default=2)
     p.add_argument("--size", type=int, default=224,

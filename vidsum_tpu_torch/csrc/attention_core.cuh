@@ -140,6 +140,7 @@ struct Args {
   int online;       // forward: the folded route (1) or the single pass (0)
   int d_from_o;     // backward: D = rowsum(dO * o) (1) or rowsum(dp * p)
   int guard;        // backward: p = 0 where lse < kDead
+  int nsl;          // the sliced kernels: 128-column slices of a head
 };
 
 // ------------------------------------------------------------- FMA tiles
@@ -219,16 +220,19 @@ __device__ __forceinline__ void fma_stage(float* dst, const float* head,
 }
 
 // s[i][j] = sum_c A[ty + TY i][c] B[tx + 8 j][c] over c in increasing order,
-// A and B staged tiles: per 4 c, 8 + RI float4 reads feed 32 RI FMAs
-template <int DH, int RI, int TY>
+// A and B staged tiles: per 4 c, 8 + RI float4 reads feed 32 RI FMAs. ZERO
+// false adds the products to s (the next head_dim slice of the same sum).
+template <int DH, int RI, int TY, bool ZERO = true>
 __device__ __forceinline__ void fma_scores(float (&s)[RI][kSj],
                                            const float* A, const float* B,
                                            int ty, int tx) {
   constexpr int LD = kFmaLd<DH>;
+  if constexpr (ZERO) {
 #pragma unroll
-  for (int i = 0; i < RI; ++i)
+    for (int i = 0; i < RI; ++i)
 #pragma unroll
-    for (int j = 0; j < kSj; ++j) s[i][j] = 0.f;
+      for (int j = 0; j < kSj; ++j) s[i][j] = 0.f;
+  }
   const float* a0 = A + ty * LD;
   const float* b0 = B + tx * LD;
   // two steps of 4 at a time (one at head_dim 16, where a whole unrolled
@@ -787,6 +791,466 @@ __global__ void __launch_bounds__(2 * kTx * TY, 1)
   }
 }
 
+// --------------------------------------------------------- head_dim slices
+// A head wider than the widest instantiation (kSliceDh = 128 columns: the
+// register tiles above end there) runs in slices of it. The wrappers
+// zero-pad the head to nsl * 128 columns (ops/_cuda.kernel_head_dim: 160 ->
+// 256, the second slice 32 columns wide and zero-padded), and each (row
+// tile, head, element) gets nsl CTAs, blockIdx.y = h * nsl + sl. Every
+// slice CTA accumulates its scores (and, backward, dp) over all nsl slices
+// of the operands, staging one 128-column slice of each at a time through
+// the tiles the unsliced kernel uses, in slice order 0, 1, ...: each score
+// is the FMAs of its columns in increasing order, as one full-width sum
+// would be, so every slice CTA of a row holds the same scores, maxima,
+// sums and lse, whatever the slice count, the CTA or the batch. Each CTA
+// then multiplies by, and writes, its own slice of V, O, dQ, dK and dV;
+// the slice-0 CTA writes lse and D (the others hold the same bits). The
+// dropout bits hash (b, h, row, column) as before. The scores are
+// recomputed nsl times and nothing is double-buffered (the staging waits
+// before each product): the simple form, which the bound counts once.
+constexpr int kSliceDh = 128;
+
+// nsl for a kernel head_dim past kSliceDh, else 0
+inline int head_slices(int Dh) {
+  return Dh > kSliceDh && Dh % kSliceDh == 0 ? Dh / kSliceDh : 0;
+}
+
+// Sliced forward: fma_fwd_kernel's fold on scores summed over the slices
+template <int TY, int RI, bool ANY_N>
+__global__ void __launch_bounds__(kTx * TY, 2)
+    fma_fwd_sliced_kernel(const Args a) {
+  constexpr int DH = kSliceDh, ROWS = RI * TY, THREADS = kTx * TY;
+  constexpr int LD = kFmaLd<DH>, COLS = DH / kTx, CW = kFmaCw<COLS>;
+  extern __shared__ __align__(16) float smem[];
+  float* Qs = smem;              // [ROWS][LD], slice j of the query rows
+  float* Ks = Qs + ROWS * LD;    // [kT][LD], slice j of the key tile
+  float* Vs = Ks + kT * LD;      // [kT][LD], the own slice of V
+  float* Ps = Vs + kT * LD;      // [ROWS][kSLd], dropped e
+  unsigned char* Ms = reinterpret_cast<unsigned char*>(Ps + ROWS * kSLd);
+  int* tiles = reinterpret_cast<int*>(Ms + kT);
+  const int N = a.N, ntiles = ANY_N ? (N + kT - 1) / kT : N / kT;
+  int* count = tiles + ntiles;
+
+  const int nsl = a.nsl, tid = threadIdx.x, ty = tid / kTx, tx = tid % kTx;
+  const int q0 = blockIdx.x * ROWS, h = blockIdx.y / nsl;
+  const int sl = blockIdx.y % nsl, b = blockIdx.z;
+  const long long ih = b * a.isb + h * a.ish;
+  const float* qh = static_cast<const float*>(a.q) + ih;
+  const float* kh = static_cast<const float*>(a.k) + ih;
+  const float* vh = static_cast<const float*>(a.v) + ih + sl * DH;
+  const unsigned char* mrow = a.mask + (long long)b * N;
+  const unsigned base = hash_base(a.hash, a.seed, b, h);
+  const float sc2 = a.scale * kLog2e;
+  const bool mvec =
+      !ANY_N ||
+      (N % 16 == 0 && reinterpret_cast<uintptr_t>(a.mask) % 16 == 0);
+
+  live_tiles(mrow, N, tiles, count, !a.online, mvec);
+  __syncthreads();  // the tile list
+  const int nlive = *count;
+
+  float m[RI], l[RI], acc[RI][COLS];
+#pragma unroll
+  for (int i = 0; i < RI; ++i) {
+    m[i] = -INFINITY;
+    l[i] = 0.f;
+#pragma unroll
+    for (int n = 0; n < COLS; ++n) acc[i][n] = 0.f;
+  }
+  for (int it = 0; it < nlive; ++it) {
+    const int k0 = tiles[it] * kT;
+    float s[RI][kSj];
+    for (int j = 0; j < nsl; ++j) {
+      __syncthreads();  // the last readers of Qs, Ks, Ms, Vs and Ps are done
+      fma_stage<DH, THREADS>(Qs, qh + j * DH, a.isn, q0, ROWS, N);
+      fma_stage<DH, THREADS>(Ks, kh + j * DH, a.isn, k0, kT, N);
+      if (j == 0) {
+        if (!ANY_N || (mvec && k0 + kT <= N)) {
+          if (tid < kT / 16) cp_async16(Ms + 16 * tid, mrow + k0 + 16 * tid);
+        } else if (tid < kT) {
+          Ms[tid] = k0 + tid < N ? mrow[k0 + tid] : 1;  // past N: padded
+        }
+      }
+      if (j == nsl - 1) fma_stage<DH, THREADS>(Vs, vh, a.isn, k0, kT, N);
+      cp_async_commit();
+      cp_async_wait<0>();
+      __syncthreads();
+      if (j == 0)
+        fma_scores<DH, RI, TY>(s, Qs, Ks, ty, tx);
+      else
+        fma_scores<DH, RI, TY, false>(s, Qs, Ks, ty, tx);
+    }
+    bool km[kSj];
+#pragma unroll
+    for (int j = 0; j < kSj; ++j) km[j] = Ms[tx + kTx * j] != 0;
+#pragma unroll
+    for (int i = 0; i < RI; ++i) {
+      const int qi = q0 + ty + TY * i;
+      float mx = -INFINITY;
+#pragma unroll
+      for (int j = 0; j < kSj; ++j) {
+        s[i][j] = km[j] ? -INFINITY : s[i][j] * sc2;
+        mx = fmaxf(mx, s[i][j]);
+      }
+      const float m_new = fmaxf(m[i], group_max<kTx>(mx));
+      const bool dead = m_new < kDead;
+      const float m_safe = dead ? 0.f : m_new;
+      const float corr = m[i] < kDead ? 0.f : ex2(m[i] - m_safe);
+      float rs = 0.f;
+#pragma unroll
+      for (int j = 0; j < kSj; ++j) {
+        const int kj = tx + kTx * j;
+        const float e = dead ? 0.f : ex2(s[i][j] - m_safe);
+        rs += e;
+        Ps[(ty + TY * i) * kSLd + kj] =
+            keep_bit(base, qi, k0 + kj, a.thr) ? e * a.kscale : 0.f;
+      }
+      l[i] = l[i] * corr + group_sum<kTx>(rs);
+      m[i] = m_new;
+#pragma unroll
+      for (int n = 0; n < COLS; ++n) acc[i][n] *= corr;
+    }
+    __syncthreads();  // P written
+    fma_rows_mul<DH, RI, TY, COLS>(acc, Ps, Vs, 0, ty, tx);
+  }
+
+  const long long oh = b * a.osb + h * a.osh + sl * DH;
+  const long long sh = ((long long)b * a.H + h) * N;
+  float* out = static_cast<float*>(a.out) + oh;
+#pragma unroll
+  for (int i = 0; i < RI; ++i) {
+    const int qi = q0 + ty + TY * i;
+    if (qi >= N) continue;
+    const bool empty = a.online && l[i] == 0.f;
+    const float f = empty ? 0.f : 1.f / l[i];
+    float* orow = out + (long long)qi * a.osn;
+#pragma unroll
+    for (int n = 0; n < COLS; n += CW) {
+      float v[CW];
+#pragma unroll
+      for (int e = 0; e < CW; ++e) v[e] = acc[i][n + e] * f;
+      st_vec<CW>(orow + fma_col<COLS>(tx, n), v);
+    }
+    if (sl == 0 && tx == 0 && a.lse != nullptr)
+      a.lse[sh + qi] = empty ? -INFINITY : (m[i] + log2f(l[i])) * kLn2;
+  }
+}
+
+// Sliced dQ: fma_dq_kernel's arithmetic with s and dp summed over the
+// slices; D = rowsum(dO * o) over the whole head from device memory (the
+// columns of each of a row's 8 threads in increasing order, as unsliced);
+// the own slice of K for dS.K in the second K buffer
+template <int TY>
+__global__ void __launch_bounds__(2 * kTx * TY, 1)
+    fma_dq_sliced_kernel(const Args a) {
+  constexpr int DH = kSliceDh, RI = kFmaRi<DH>, ROWS = RI * TY;
+  constexpr int GROUP = kTx * TY, THREADS = 2 * GROUP, LD = kFmaLd<DH>;
+  constexpr int COLS = DH / (2 * kTx), CW = kFmaCw<COLS>;
+  extern __shared__ __align__(16) float smem[];
+  float* Qs = smem;                // [ROWS][LD], slice j
+  float* dOs = Qs + ROWS * LD;     // [ROWS][LD], slice j
+  float* Ks = dOs + ROWS * LD;     // [2][kT][LD]: slice j, the own slice
+  float* Vs = Ks + 2 * kT * LD;    // [kT][LD], slice j
+  float* Ss = Vs + 2 * kT * LD;    // [ROWS][kSLd]: p, then ds
+  unsigned char* Ms = reinterpret_cast<unsigned char*>(Ss + ROWS * kSLd);
+  int* tiles = reinterpret_cast<int*>(Ms + 2 * kT);
+  const int N = a.N, ntiles = N / kT;
+  int* count = tiles + ntiles;
+
+  const int nsl = a.nsl, tid = threadIdx.x, grp = tid / GROUP;
+  const int gt = tid % GROUP, ty = gt / kTx, tx = gt % kTx;
+  const int q0 = blockIdx.x * ROWS, h = blockIdx.y / nsl;
+  const int sl = blockIdx.y % nsl, b = blockIdx.z;
+  const long long ih = b * a.isb + h * a.ish;
+  const long long oh = b * a.osb + h * a.osh;
+  const long long sh = ((long long)b * a.H + h) * N;
+  const float* qh = static_cast<const float*>(a.q) + ih;
+  const float* kh = static_cast<const float*>(a.k) + ih;
+  const float* vh = static_cast<const float*>(a.v) + ih;
+  const float* dOh = static_cast<const float*>(a.dO) + oh;
+  const unsigned char* mrow = a.mask + (long long)b * N;
+  const unsigned base = hash_base(a.hash, a.seed, b, h);
+  const float sc2 = a.scale * kLog2e;
+
+  live_tiles(mrow, N, tiles, count, !a.guard);
+  __syncthreads();  // the tile list
+  const int nlive = *count;
+  const int total = (a.d_from_o ? 1 : 2) * nlive;  // the D pass first
+  auto tile_of = [&](int v) { return tiles[v < nlive ? v : v - nlive]; };
+
+  float lr[RI], Dr[RI], part[RI];
+  bool live[RI];
+#pragma unroll
+  for (int i = 0; i < RI; ++i) {
+    const int row = q0 + ty + TY * i;
+    const float x = row < N ? a.lse[sh + row] : 0.f;
+    live[i] = !a.guard || x >= kDead;
+    lr[i] = live[i] ? x * kLog2e : 0.f;
+    Dr[i] = part[i] = 0.f;
+  }
+  if (grp == 1 && (a.d_from_o || nlive == 0)) {
+    const float* o = static_cast<const float*>(a.o) + oh;
+#pragma unroll
+    for (int i = 0; i < RI; ++i) {
+      const int r = ty + TY * i;
+      float p = 0.f;
+      if (a.d_from_o && q0 + r < N) {
+        const long long row = (long long)(q0 + r) * a.osn;
+        for (int c = tx; c < nsl * DH; c += kTx)
+          p += dOh[row + c] * o[row + c];
+      }
+      Dr[i] = group_sum<kTx>(p);
+      if (sl == 0 && tx == 0 && q0 + r < N) a.D[sh + q0 + r] = Dr[i];
+    }
+  }
+
+  float acc[RI][COLS];
+#pragma unroll
+  for (int i = 0; i < RI; ++i)
+#pragma unroll
+    for (int n = 0; n < COLS; ++n) acc[i][n] = 0.f;
+  for (int v = 0; v < total; ++v) {
+    const bool dpass = v < total - nlive;
+    const int k0 = tile_of(v) * kT;
+    float s[RI][kSj];
+    for (int j = 0; j < nsl; ++j) {
+      __syncthreads();  // the last readers of every tile and of Ss are done
+      fma_stage<DH, THREADS>(Qs, qh + j * DH, a.isn, q0, ROWS, N);
+      fma_stage<DH, THREADS>(dOs, dOh + j * DH, a.osn, q0, ROWS, N);
+      fma_stage<DH, THREADS>(Ks, kh + j * DH, a.isn, k0, kT, N);
+      fma_stage<DH, THREADS>(Vs, vh + j * DH, a.isn, k0, kT, N);
+      if (j == 0 && tid < kT / 16)
+        cp_async16(Ms + 16 * tid, mrow + k0 + 16 * tid);
+      if (j == nsl - 1 && !dpass)
+        fma_stage<DH, THREADS>(Ks + kT * LD, kh + sl * DH, a.isn, k0, kT, N);
+      cp_async_commit();
+      cp_async_wait<0>();
+      __syncthreads();
+      const float* A = grp == 0 ? Qs : dOs;
+      const float* Bt = grp == 0 ? Ks : Vs;
+      if (j == 0)
+        fma_scores<DH, RI, TY>(s, A, Bt, ty, tx);
+      else
+        fma_scores<DH, RI, TY, false>(s, A, Bt, ty, tx);
+    }
+    if (grp == 0) {
+#pragma unroll
+      for (int i = 0; i < RI; ++i)
+#pragma unroll
+        for (int j = 0; j < kSj; ++j) {
+          const float sv = Ms[tx + kTx * j] != 0 ? -INFINITY : s[i][j] * sc2;
+          Ss[(ty + TY * i) * kSLd + tx + kTx * j] =
+              live[i] ? ex2(sv - lr[i]) : 0.f;
+        }
+    } else {
+#pragma unroll
+      for (int i = 0; i < RI; ++i)
+#pragma unroll
+        for (int j = 0; j < kSj; ++j)
+          s[i][j] = keep_bit(base, q0 + ty + TY * i, k0 + tx + kTx * j,
+                             a.thr) ? s[i][j] * a.kscale : 0.f;
+    }
+    __syncthreads();  // p
+    if (grp == 1) {
+#pragma unroll
+      for (int i = 0; i < RI; ++i) {
+#pragma unroll
+        for (int j = 0; j < kSj; ++j) {
+          float* sp = Ss + (ty + TY * i) * kSLd + tx + kTx * j;
+          if (dpass)
+            part[i] += s[i][j] * *sp;
+          else
+            *sp = *sp * (s[i][j] - Dr[i]);
+        }
+        if (dpass && v == nlive - 1) {
+          const int r = q0 + ty + TY * i;
+          Dr[i] = group_sum<kTx>(part[i]);
+          if (sl == 0 && tx == 0 && r < N) a.D[sh + r] = Dr[i];
+        }
+      }
+    }
+    __syncthreads();  // ds
+    if (!dpass)
+      fma_rows_mul<DH, RI, TY, COLS>(acc, Ss, Ks + kT * LD, grp * (DH / 2),
+                                     ty, tx);
+  }
+
+  float* dqh = static_cast<float*>(a.dq) + ih + sl * DH + grp * (DH / 2);
+#pragma unroll
+  for (int i = 0; i < RI; ++i) {
+    const int row = q0 + ty + TY * i;
+    if (row >= N) continue;
+#pragma unroll
+    for (int n = 0; n < COLS; n += CW) {
+      float v[CW];
+#pragma unroll
+      for (int e = 0; e < CW; ++e) v[e] = acc[i][n + e] * a.scale;
+      st_vec<CW>(dqh + (long long)row * a.isn + fma_col<COLS>(tx, n), v);
+    }
+  }
+}
+
+// Sliced dK/dV: fma_dkdv_kernel's arithmetic with s^T and dp^T summed over
+// the slices (K, V and the query tile's Q, dO restaged per slice); the own
+// slices of Q and dO for the two products in the second buffers
+template <int TY>
+__global__ void __launch_bounds__(2 * kTx * TY, 1)
+    fma_dkdv_sliced_kernel(const Args a) {
+  constexpr int DH = kSliceDh, RI = kFmaRi<DH>, ROWS = RI * TY;
+  constexpr int GROUP = kTx * TY, THREADS = 2 * GROUP, LD = kFmaLd<DH>;
+  constexpr int COLS = DH / kTx, CW = kFmaCw<COLS>, TILE = kT * LD;
+  extern __shared__ __align__(16) float smem[];
+  float* Ks = smem;                // [ROWS][LD], slice j
+  float* Vs = Ks + ROWS * LD;      // [ROWS][LD], slice j
+  float* Qs = Vs + ROWS * LD;      // [2][kT][LD]: slice j, the own slice
+  float* dOs = Qs + 2 * TILE;      // [2][kT][LD]: slice j, the own slice
+  float* Pd = dOs + 2 * TILE;      // [ROWS][kSLd], keys x queries
+  float* Ss = Pd + ROWS * kSLd;    // [ROWS][kSLd]: p, then ds
+  float* Ls = Ss + ROWS * kSLd;    // [kT] lse in log2 units
+  float* Dq = Ls + 2 * kT;         // [kT] D
+
+  const int nsl = a.nsl, tid = threadIdx.x, grp = tid / GROUP;
+  const int gt = tid % GROUP, ty = gt / kTx, tx = gt % kTx;
+  const int k0 = blockIdx.x * ROWS, h = blockIdx.y / nsl;
+  const int sl = blockIdx.y % nsl, b = blockIdx.z;
+  const int N = a.N;
+  const long long ih = b * a.isb + h * a.ish;
+  const long long oh = b * a.osb + h * a.osh;
+  const long long sh = ((long long)b * a.H + h) * N;
+  const unsigned char* mrow = a.mask + (long long)b * N;
+  float* dkh = static_cast<float*>(a.dk) + ih + sl * DH;
+  float* dvh = static_cast<float*>(a.dv) + ih + sl * DH;
+
+  bool mine = false, any = false;
+  for (int c = tid * 16; c < N; c += THREADS * 16) {
+    const bool live = any_live16(mrow + c);
+    any |= live;
+    mine |= live && c >= k0 && c < k0 + ROWS;
+  }
+  any = __syncthreads_or(any);
+  mine = __syncthreads_or(mine);
+  if ((any || a.guard) && !mine) {
+    const float4 z = make_float4(0.f, 0.f, 0.f, 0.f);
+    for (int e = tid; e < ROWS * (DH / 4); e += THREADS) {
+      const int r = e / (DH / 4), c = (e % (DH / 4)) * 4;
+      if (k0 + r >= N) continue;
+      *reinterpret_cast<float4*>(dkh + (long long)(k0 + r) * a.isn + c) = z;
+      *reinterpret_cast<float4*>(dvh + (long long)(k0 + r) * a.isn + c) = z;
+    }
+    return;
+  }
+
+  const float* kh = static_cast<const float*>(a.k) + ih;
+  const float* vh = static_cast<const float*>(a.v) + ih;
+  const float* qh = static_cast<const float*>(a.q) + ih;
+  const float* dOh = static_cast<const float*>(a.dO) + oh;
+  const unsigned base = hash_base(a.hash, a.seed, b, h);
+  const float sc2 = a.scale * kLog2e;
+  bool km[RI];
+#pragma unroll
+  for (int i = 0; i < RI; ++i) {
+    const int key = k0 + ty + TY * i;
+    km[i] = key >= N || mrow[key] != 0;
+  }
+  float acc[RI][COLS];  // dV in group 0, dK in group 1
+#pragma unroll
+  for (int i = 0; i < RI; ++i)
+#pragma unroll
+    for (int n = 0; n < COLS; ++n) acc[i][n] = 0.f;
+
+  const int ntq = N / kT;
+  for (int qt = 0; qt < ntq; ++qt) {
+    const int q0 = qt * kT;
+    float s[RI][kSj];
+    for (int j = 0; j < nsl; ++j) {
+      __syncthreads();  // the last readers of every tile, Pd and Ss are done
+      fma_stage<DH, THREADS>(Ks, kh + j * DH, a.isn, k0, ROWS, N);
+      fma_stage<DH, THREADS>(Vs, vh + j * DH, a.isn, k0, ROWS, N);
+      fma_stage<DH, THREADS>(Qs, qh + j * DH, a.isn, q0, kT, N);
+      fma_stage<DH, THREADS>(dOs, dOh + j * DH, a.osn, q0, kT, N);
+      if (j == 0) {
+        if (tid < kT / 4)
+          cp_async16(Ls + 4 * tid, a.lse + sh + q0 + 4 * tid);
+        else if (tid < kT / 2)
+          cp_async16(Dq + 4 * (tid - kT / 4),
+                     a.D + sh + q0 + 4 * (tid - kT / 4));
+      }
+      if (j == nsl - 1) {
+        fma_stage<DH, THREADS>(Qs + TILE, qh + sl * DH, a.isn, q0, kT, N);
+        fma_stage<DH, THREADS>(dOs + TILE, dOh + sl * DH, a.osn, q0, kT, N);
+      }
+      cp_async_commit();
+      cp_async_wait<0>();
+      if (j == 0 && tid < kT / 4) {
+        // the lse whose copy this thread issued, in log2 units; +inf on a
+        // row below _DEAD when guarded, so that its p = exp2(s - inf) = 0
+        float* x = Ls + 4 * tid;
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          x[e] = a.guard && !(x[e] >= kDead) ? INFINITY : x[e] * kLog2e;
+      }
+      __syncthreads();
+      const float* A = grp == 0 ? Ks : Vs;
+      const float* Bt = grp == 0 ? Qs : dOs;
+      if (j == 0)
+        fma_scores<DH, RI, TY>(s, A, Bt, ty, tx);
+      else
+        fma_scores<DH, RI, TY, false>(s, A, Bt, ty, tx);
+    }
+    if (grp == 0) {
+#pragma unroll
+      for (int i = 0; i < RI; ++i)
+#pragma unroll
+        for (int j = 0; j < kSj; ++j) {
+          const int qj = tx + kTx * j, o = (ty + TY * i) * kSLd + qj;
+          const float sv = km[i] ? -INFINITY : s[i][j] * sc2;
+          const float p = ex2(sv - Ls[qj]);
+          Ss[o] = p;
+          Pd[o] = keep_bit(base, q0 + qj, k0 + ty + TY * i, a.thr)
+                      ? p * a.kscale : 0.f;
+        }
+    } else {
+#pragma unroll
+      for (int i = 0; i < RI; ++i)
+#pragma unroll
+        for (int j = 0; j < kSj; ++j)
+          s[i][j] = keep_bit(base, q0 + tx + kTx * j, k0 + ty + TY * i,
+                             a.thr) ? s[i][j] * a.kscale : 0.f;
+    }
+    __syncthreads();  // p
+    if (grp == 1) {
+#pragma unroll
+      for (int i = 0; i < RI; ++i)
+#pragma unroll
+        for (int j = 0; j < kSj; ++j) {
+          const int qj = tx + kTx * j;
+          float* sp = Ss + (ty + TY * i) * kSLd + qj;
+          *sp = *sp * (s[i][j] - Dq[qj]);
+        }
+    }
+    __syncthreads();  // ds
+    if (grp == 0)
+      fma_rows_mul<DH, RI, TY, COLS>(acc, Pd, dOs + TILE, 0, ty, tx);
+    else
+      fma_rows_mul<DH, RI, TY, COLS>(acc, Ss, Qs + TILE, 0, ty, tx);
+  }
+
+  float* dst = grp == 0 ? dvh : dkh;
+  const float f = grp == 0 ? 1.f : a.scale;
+#pragma unroll
+  for (int i = 0; i < RI; ++i) {
+    const int key = k0 + ty + TY * i;
+    if (key >= N) continue;
+#pragma unroll
+    for (int n = 0; n < COLS; n += CW) {
+      float v[CW];
+#pragma unroll
+      for (int e = 0; e < CW; ++e) v[e] = acc[i][n + e] * f;
+      st_vec<CW>(dst + (long long)key * a.isn + fma_col<COLS>(tx, n), v);
+    }
+  }
+}
+
 // ------------------------------------------------------------------ launches
 template <typename Kernel>
 cudaError_t allow_smem(Kernel kern, int bytes) {
@@ -794,9 +1258,11 @@ cudaError_t allow_smem(Kernel kern, int bytes) {
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
 }
 
-// head_dim 16, 32, 64, 96 or 128 (ops/_cuda.HEAD_DIMS)
+// head_dim 16, 32, 64, 96 or 128 (ops/_cuda.HEAD_DIMS), or a multiple of
+// 128 past it (the sliced kernels)
 inline bool head_dim_ok(int Dh) {
-  return Dh == 16 || Dh == 32 || Dh == 64 || Dh == 96 || Dh == 128;
+  return Dh == 16 || Dh == 32 || Dh == 64 || Dh == 96 || Dh == 128 ||
+         head_slices(Dh) > 0;
 }
 
 // the serving forward's shapes (masked_attention.cu, f32): any N
@@ -895,6 +1361,49 @@ cudaError_t launch_bwd(const Args& a, int B, cudaStream_t s) {
              : launch_fma_bwd<DH, 8, 8>(a, B, s);
 }
 
+// The sliced kernels over a head of nsl * 128 columns: 64-row CTAs (16 TY,
+// 4 rows a thread) forward, 32-row ones (8 TY) in dQ and dK/dV, in the
+// shared memory of the unsliced kernels at head_dim 128 in the same shapes
+// (119,872 bytes forward, 178,304 dQ, 188,416 dK/dV, plus the live-tile
+// list)
+inline bool sliced_grid_ok(const Args& a) {
+  return a.nsl > 0 && (long long)a.H * a.nsl <= 65535;
+}
+
+template <bool ANY_N>
+cudaError_t launch_fwd_sliced(const Args& a, int B, cudaStream_t s) {
+  constexpr int TY = 16, RI = kFmaRi<kSliceDh>, ROWS = RI * TY;
+  if (!sliced_grid_ok(a)) return cudaErrorInvalidValue;
+  if (!fma_layout_ok(a, false)) return cudaErrorMisalignedAddress;
+  const int bytes =
+      (fma_fwd_floats<kSliceDh, TY, RI>() + (a.N + kT - 1) / kT + 1) * 4;
+  auto kernel = fma_fwd_sliced_kernel<TY, RI, ANY_N>;
+  cudaError_t err = allow_smem(kernel, bytes);
+  if (err != cudaSuccess) return err;
+  kernel<<<dim3((a.N + ROWS - 1) / ROWS, a.H * a.nsl, B), kTx * TY, bytes,
+           s>>>(a);
+  return cudaGetLastError();
+}
+
+inline cudaError_t launch_bwd_sliced(const Args& a, int B, cudaStream_t s) {
+  constexpr int TY = 8, ROWS = kFmaRi<kSliceDh> * TY;
+  if (!sliced_grid_ok(a)) return cudaErrorInvalidValue;
+  if (a.d_from_o && a.o == nullptr) return cudaErrorInvalidValue;
+  if (!fma_layout_ok(a, true)) return cudaErrorMisalignedAddress;
+  const int dq_bytes = (fma_dq_floats<kSliceDh, TY>() + a.N / kT + 1) * 4;
+  const int kv_bytes = fma_dkdv_floats<kSliceDh, TY>() * 4;
+  cudaError_t err = allow_smem(fma_dq_sliced_kernel<TY>, dq_bytes);
+  if (err == cudaSuccess)
+    err = allow_smem(fma_dkdv_sliced_kernel<TY>, kv_bytes);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((a.N + ROWS - 1) / ROWS, a.H * a.nsl, B);
+  fma_dq_sliced_kernel<TY><<<grid, 2 * kTx * TY, dq_bytes, s>>>(a);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  fma_dkdv_sliced_kernel<TY><<<grid, 2 * kTx * TY, kv_bytes, s>>>(a);
+  return cudaGetLastError();
+}
+
 // Dispatch on head_dim (shape_ok's)
 inline cudaError_t launch_fwd_dh(const Args& a, int B, int Dh,
                                  cudaStream_t s) {
@@ -904,7 +1413,11 @@ inline cudaError_t launch_fwd_dh(const Args& a, int B, int Dh,
     case 64: return launch_fwd<64>(a, B, s);
     case 96: return launch_fwd<96>(a, B, s);
     case 128: return launch_fwd<128>(a, B, s);
-    default: return cudaErrorInvalidValue;
+    default: {
+      Args b = a;
+      b.nsl = head_slices(Dh);
+      return launch_fwd_sliced<false>(b, B, s);
+    }
   }
 }
 
@@ -916,7 +1429,11 @@ inline cudaError_t launch_bwd_dh(const Args& a, int B, int Dh,
     case 64: return launch_bwd<64>(a, B, s);
     case 96: return launch_bwd<96>(a, B, s);
     case 128: return launch_bwd<128>(a, B, s);
-    default: return cudaErrorInvalidValue;
+    default: {
+      Args b = a;
+      b.nsl = head_slices(Dh);
+      return launch_bwd_sliced(b, B, s);
+    }
   }
 }
 

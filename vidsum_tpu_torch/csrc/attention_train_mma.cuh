@@ -750,6 +750,573 @@ __global__ void __launch_bounds__(32 * W, DH > 64 ? 1 : 12 / W)
   }
 }
 
+// --------------------------------------------------------- head_dim slices
+// The three kernels over a head of nsl * 128 columns (attention_core.cuh's
+// head_dim slices), 4 warps each, grid.y over (head, slice): every product
+// that contracts over head_dim (s = Q.K^T and dp = dO.V^T, or their
+// transposes) is summed over the slices, one 128-column slice of each
+// operand staged at a time into the unsliced kernel's buffer 0 (cp.async,
+// then a wait: nothing double-buffered), its fragments loaded per slice and
+// each element's k16 steps in increasing order over the whole head, so every
+// slice CTA of a row holds the same s, dp, max, sum, lse and D. The products
+// that keep head_dim (P.V, dS.K, dS^T.Q, pd^T.dO) take the CTA's own slice,
+// staged into buffer 1 where the kernel streams two tiles. The slice-0 CTA
+// writes lse and D. The shared memory is the unsliced kernels' at 128
+// (fwd_smem_fixed, dq_smem_fixed, dkdv_smem_bytes: 87,168, 104,576 and
+// 105,472 bytes, plus the live-tile lists).
+template <bool ONLINE>
+__global__ void __launch_bounds__(128, 2) fwd_mma_sliced_kernel(const Args a) {
+  constexpr int DH = attn::kSliceDh, W = 4;
+  constexpr int LD = DH + kLdsPad, KS = DH / 16, ND = DH / 8;
+  constexpr int TILE = kT * LD, THREADS = 32 * W, ROWS = 16 * W;
+  extern __shared__ __align__(16) unsigned char smem[];
+  bf* Qs = reinterpret_cast<bf*>(smem);  // [ROWS][LD], slice j
+  bf* Ks = Qs + ROWS * LD;               // [kT][LD] of [2], slice j
+  bf* Vs = Ks + 2 * TILE;                // [kT][LD] of [2], own slice
+  unsigned char* Ms = reinterpret_cast<unsigned char*>(Vs + 2 * TILE);
+  int* tiles = reinterpret_cast<int*>(Ms + 2 * kT);
+  const int N = a.N, ntiles = N / kT, nsl = a.nsl;
+  int* count = tiles + ntiles;
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int q0 = blockIdx.x * ROWS, h = blockIdx.y / nsl;
+  const int sl = blockIdx.y % nsl, b = blockIdx.z;
+  const long long ih = b * a.isb + h * a.ish;
+  const bf* qh = static_cast<const bf*>(a.q) + ih;
+  const bf* kh = static_cast<const bf*>(a.k) + ih;
+  const bf* vh = static_cast<const bf*>(a.v) + ih + sl * DH;
+  const unsigned char* mrow = a.mask + (long long)b * N;
+  const unsigned base = attn::hash_base(a.hash, a.seed, b, h);
+  const bool drop = a.thr != 0u;
+  const int r = warp * 16 + g;
+
+  live_tiles(mrow, N, tiles, count, !ONLINE);
+  __syncthreads();  // the tile list
+  const int nlive = *count;
+
+  unsigned rowx[2], tcol[2];
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    rowx[hh] = base ^ ((unsigned)(q0 + r + 8 * hh) * kRowMul);
+    tcol[hh] = (unsigned)(2 * t + hh) * kColMul;
+  }
+
+  // S of live tile i summed over the slices, scaled, -inf at padded keys;
+  // with_v also stages the tile's rows of the own slice of V
+  auto scores = [&](int i, bool with_v, float (&s)[8][4]) {
+    const int k0 = tiles[i] * kT;
+#pragma unroll
+    for (int ni = 0; ni < 8; ++ni)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[ni][e] = 0.f;
+    for (int j = 0; j < nsl; ++j) {
+      __syncthreads();  // the last readers of every tile are done
+      stage_rows<DH, THREADS>(Qs, qh + j * DH, a.isn, q0, ROWS, N);
+      stage_rows<DH, THREADS>(Ks, kh + j * DH, a.isn, k0, kT, N);
+      if (j == 0 && tid < kT / 16)
+        cp_async16(Ms + 16 * tid, mrow + k0 + 16 * tid);
+      if (with_v && j == nsl - 1)
+        stage_rows<DH, THREADS>(Vs, vh, a.isn, k0, kT, N);
+      cp_async_commit();
+      cp_async_wait<0>();
+      __syncthreads();
+#pragma unroll
+      for (int ks = 0; ks < KS; ++ks) {
+        uint32_t qa[4];
+        load_a<LD>(qa, Qs, r, ks, t);
+#pragma unroll
+        for (int ni = 0; ni < 8; ++ni)
+          mma_rows(s[ni], qa, Ks + (ni * 8 + g) * LD, ks, t);
+      }
+    }
+#pragma unroll
+    for (int ni = 0; ni < 8; ++ni)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        s[ni][e] = Ms[ni * 8 + 2 * t + (e & 1)] != 0 ? -INFINITY
+                                                      : s[ni][e] * a.scale;
+  };
+  auto accumulate = [&](const float (&w)[8][4], float (&o)[ND][4]) {
+#pragma unroll
+    for (int kc = 0; kc < 4; ++kc) {
+      uint32_t pa[4];
+      pack_a<8>(pa, w, kc);
+      mma_cols<DH>(o, pa, Vs + kc * 16 * LD, lane);
+    }
+  };
+  auto keep = [&](unsigned cbase, int ni, int e) {
+    const unsigned col = cbase + (unsigned)(ni * 8) * kColMul + tcol[e & 1];
+    return keep_mix(rowx[e >> 1] ^ col, a.thr);
+  };
+
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+  float acc[ND][4];
+#pragma unroll
+  for (int nd = 0; nd < ND; ++nd)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[nd][e] = 0.f;
+
+  if constexpr (ONLINE) {
+    for (int i = 0; i < nlive; ++i) {
+      float s[8][4];
+      scores(i, true, s);
+      const unsigned cbase = (unsigned)(tiles[i] * kT) * kColMul;
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        float mx = -INFINITY;
+#pragma unroll
+        for (int ni = 0; ni < 8; ++ni)
+          mx = fmaxf(mx, fmaxf(s[ni][2 * hh], s[ni][2 * hh + 1]));
+        const float m_new = fmaxf(m[hh], vs::group_max<4>(mx));
+        const bool dead = m_new < attn::kDead;
+        const float m_safe = dead ? 0.f : m_new;
+        const float ml = m_safe * kLog2e;
+        const float corr =
+            m[hh] < attn::kDead ? 0.f : ex2((m[hh] - m_safe) * kLog2e);
+        float rs = 0.f;
+#pragma unroll
+        for (int ni = 0; ni < 8; ++ni)
+#pragma unroll
+          for (int c = 0; c < 2; ++c) {
+            const int e = 2 * hh + c;
+            float ev = dead ? 0.f : ex2(fmaf(s[ni][e], kLog2e, -ml));
+            rs += ev;
+            if (drop) ev = keep(cbase, ni, e) ? ev * a.kscale : 0.f;
+            s[ni][e] = ev;
+          }
+        l[hh] = l[hh] * corr + vs::group_sum<4>(rs);
+        m[hh] = m_new;
+#pragma unroll
+        for (int nd = 0; nd < ND; ++nd) {
+          acc[nd][2 * hh] *= corr;
+          acc[nd][2 * hh + 1] *= corr;
+        }
+      }
+      accumulate(s, acc);
+    }
+  } else {
+    for (int i = 0; i < nlive; ++i) {
+      float s[8][4];
+      scores(i, false, s);
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        float mx = -INFINITY;
+#pragma unroll
+        for (int ni = 0; ni < 8; ++ni)
+          mx = fmaxf(mx, fmaxf(s[ni][2 * hh], s[ni][2 * hh + 1]));
+        const float m_new = fmaxf(m[hh], vs::group_max<4>(mx));
+        const bool none = m_new == -INFINITY;
+        const float ml = m_new * kLog2e;
+        float rs = 0.f;
+#pragma unroll
+        for (int ni = 0; ni < 8; ++ni)
+#pragma unroll
+          for (int c = 0; c < 2; ++c)
+            rs += none ? 0.f : ex2(fmaf(s[ni][2 * hh + c], kLog2e, -ml));
+        const float corr =
+            m[hh] == -INFINITY ? 0.f : ex2((m[hh] - m_new) * kLog2e);
+        l[hh] = l[hh] * corr + vs::group_sum<4>(rs);
+        m[hh] = m_new;
+      }
+    }
+    float ml[2], inv_l[2];
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      ml[hh] = m[hh] * kLog2e;
+      inv_l[hh] = 1.f / l[hh];
+    }
+    for (int i = 0; i < nlive; ++i) {
+      float s[8][4];
+      scores(i, true, s);
+      const unsigned cbase = (unsigned)(tiles[i] * kT) * kColMul;
+#pragma unroll
+      for (int ni = 0; ni < 8; ++ni)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int hh = e >> 1;
+          float p = ex2(fmaf(s[ni][e], kLog2e, -ml[hh])) * inv_l[hh];
+          if (drop) p = keep(cbase, ni, e) ? p * a.kscale : 0.f;
+          s[ni][e] = p;
+        }
+      accumulate(s, acc);
+    }
+  }
+
+  const long long oh = b * a.osb + h * a.osh + sl * DH;
+  const long long sh = ((long long)b * a.H + h) * N;
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    const int n = q0 + r + 8 * hh;
+    if (n >= N) continue;
+    float f = 1.f, ls = m[hh] + logf(l[hh]);
+    if (ONLINE) {  // a row with no unpadded key: o = 0, lse = -inf
+      const bool empty = l[hh] == 0.f;
+      f = empty ? 0.f : 1.f / l[hh];
+      ls = empty ? -INFINITY : ls;
+    }
+    bf* orow = static_cast<bf*>(a.out) + oh + (long long)n * a.osn;
+#pragma unroll
+    for (int nd = 0; nd < ND; ++nd)
+      *reinterpret_cast<__nv_bfloat162*>(orow + nd * 8 + 2 * t) =
+          __floats2bfloat162_rn(acc[nd][2 * hh] * f,
+                                acc[nd][2 * hh + 1] * f);
+    if (sl == 0 && t == 0 && a.lse != nullptr) a.lse[sh + n] = ls;
+  }
+}
+
+template <bool FOLDED>
+__global__ void __launch_bounds__(128, 1) dq_mma_sliced_kernel(const Args a) {
+  constexpr int DH = attn::kSliceDh, W = 4;
+  constexpr int LD = DH + kLdsPad, KS = DH / 16, ND = DH / 8;
+  constexpr int TILE = kT * LD, THREADS = 32 * W, ROWS = 16 * W;
+  extern __shared__ __align__(16) unsigned char smem[];
+  bf* Qs = reinterpret_cast<bf*>(smem);  // [ROWS][LD], slice j
+  bf* dOs = Qs + ROWS * LD;              // [ROWS][LD], slice j
+  bf* Ks = dOs + ROWS * LD;              // [2][kT][LD]: slice j, own slice
+  bf* Vs = Ks + 2 * TILE;                // [kT][LD] of [2], slice j
+  unsigned char* Ms = reinterpret_cast<unsigned char*>(Vs + 2 * TILE);
+  int* tiles = reinterpret_cast<int*>(Ms + 2 * kT);
+  const int N = a.N, ntiles = N / kT, nsl = a.nsl;
+  int* count = tiles + ntiles;
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int q0 = blockIdx.x * ROWS, h = blockIdx.y / nsl;
+  const int sl = blockIdx.y % nsl, b = blockIdx.z;
+  const long long ih = b * a.isb + h * a.ish;
+  const long long oh = b * a.osb + h * a.osh;
+  const long long sh = ((long long)b * a.H + h) * N;
+  const bf* qh = static_cast<const bf*>(a.q) + ih;
+  const bf* kh = static_cast<const bf*>(a.k) + ih;
+  const bf* vh = static_cast<const bf*>(a.v) + ih;
+  const bf* dOh = static_cast<const bf*>(a.dO) + oh;
+  const unsigned char* mrow = a.mask + (long long)b * N;
+  const unsigned base = attn::hash_base(a.hash, a.seed, b, h);
+  const bool drop = a.thr != 0u;
+  const int r = warp * 16 + g;
+
+  live_tiles(mrow, N, tiles, count, !FOLDED);
+  float ll[2];
+  unsigned rowx[2], tcol[2];
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    const int n = q0 + r + 8 * hh;
+    const float x = n < N ? a.lse[sh + n] : 0.f;
+    ll[hh] = FOLDED && !(x >= attn::kDead) ? INFINITY : x * kLog2e;
+    rowx[hh] = base ^ ((unsigned)(q0 + r + 8 * hh) * kRowMul);
+    tcol[hh] = (unsigned)(2 * t + hh) * kColMul;
+  }
+  __syncthreads();  // the tile list
+  const int nlive = *count;
+
+  // p = exp(s - lse) into s and the dropped dp into dp for live tile i, s
+  // and dp summed over the slices; own_k also stages the tile's rows of the
+  // own slice of K into buffer 1
+  auto probs = [&](int i, bool own_k, float (&s)[8][4], float (&dp)[8][4]) {
+    const int k0 = tiles[i] * kT;
+#pragma unroll
+    for (int ni = 0; ni < 8; ++ni)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[ni][e] = dp[ni][e] = 0.f;
+    for (int j = 0; j < nsl; ++j) {
+      __syncthreads();  // the last readers of every tile are done
+      stage_rows<DH, THREADS>(Qs, qh + j * DH, a.isn, q0, ROWS, N);
+      stage_rows<DH, THREADS>(dOs, dOh + j * DH, a.osn, q0, ROWS, N);
+      stage_rows<DH, THREADS>(Ks, kh + j * DH, a.isn, k0, kT, N);
+      stage_rows<DH, THREADS>(Vs, vh + j * DH, a.isn, k0, kT, N);
+      if (j == 0 && tid < kT / 16)
+        cp_async16(Ms + 16 * tid, mrow + k0 + 16 * tid);
+      if (own_k && j == nsl - 1)
+        stage_rows<DH, THREADS>(Ks + TILE, kh + sl * DH, a.isn, k0, kT, N);
+      cp_async_commit();
+      cp_async_wait<0>();
+      __syncthreads();
+#pragma unroll
+      for (int ks = 0; ks < KS; ++ks) {
+        uint32_t qa[4], da[4];
+        load_a<LD>(qa, Qs, r, ks, t);
+        load_a<LD>(da, dOs, r, ks, t);
+#pragma unroll
+        for (int ni = 0; ni < 8; ++ni) {
+          mma_rows(s[ni], qa, Ks + (ni * 8 + g) * LD, ks, t);
+          mma_rows(dp[ni], da, Vs + (ni * 8 + g) * LD, ks, t);
+        }
+      }
+    }
+    const unsigned cbase = (unsigned)(k0)*kColMul;
+#pragma unroll
+    for (int ni = 0; ni < 8; ++ni)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int hh = e >> 1;
+        const float sv = Ms[ni * 8 + 2 * t + (e & 1)] != 0
+                             ? -INFINITY
+                             : s[ni][e] * a.scale;
+        s[ni][e] = ex2(fmaf(sv, kLog2e, -ll[hh]));
+        if (drop) {
+          const unsigned col = cbase + (unsigned)(ni * 8) * kColMul +
+                               tcol[e & 1];
+          dp[ni][e] =
+              keep_mix(rowx[hh] ^ col, a.thr) ? dp[ni][e] * a.kscale : 0.f;
+        }
+      }
+  };
+
+  float Dr[2];
+  if constexpr (FOLDED) {
+    // D = rowsum(dO * o) over the whole head, both from device memory,
+    // pairs at columns 8 j + 2 t
+    const bf* o_h = static_cast<const bf*>(a.o) + oh;
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      const int n = q0 + r + 8 * hh;
+      float part = 0.f;
+      if (n < N) {
+        const bf* orow = o_h + (long long)n * a.osn;
+        const bf* drow = dOh + (long long)n * a.osn;
+        for (int c = 2 * t; c < nsl * DH; c += 8) {
+          const float2 ov = __bfloat1622float2(
+              *reinterpret_cast<const __nv_bfloat162*>(orow + c));
+          const float2 dv = __bfloat1622float2(
+              *reinterpret_cast<const __nv_bfloat162*>(drow + c));
+          part += dv.x * ov.x + dv.y * ov.y;
+        }
+      }
+      Dr[hh] = vs::group_sum<4>(part);
+      if (sl == 0 && t == 0 && n < N) a.D[sh + n] = Dr[hh];
+    }
+  } else {
+    float part[2] = {0.f, 0.f};
+    for (int i = 0; i < nlive; ++i) {
+      float p[8][4], dp[8][4];
+      probs(i, false, p, dp);
+#pragma unroll
+      for (int ni = 0; ni < 8; ++ni)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) part[e >> 1] += dp[ni][e] * p[ni][e];
+    }
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      Dr[hh] = vs::group_sum<4>(part[hh]);
+      if (sl == 0 && t == 0 && q0 + r + 8 * hh < N)
+        a.D[sh + q0 + r + 8 * hh] = Dr[hh];
+    }
+  }
+
+  float acc[ND][4];
+#pragma unroll
+  for (int nd = 0; nd < ND; ++nd)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[nd][e] = 0.f;
+  for (int i = 0; i < nlive; ++i) {
+    float p[8][4], dp[8][4];
+    probs(i, true, p, dp);
+#pragma unroll
+    for (int ni = 0; ni < 8; ++ni)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        p[ni][e] = p[ni][e] * (dp[ni][e] - Dr[e >> 1]);
+#pragma unroll
+    for (int kc = 0; kc < 4; ++kc) {
+      uint32_t sa[4];
+      pack_a<8>(sa, p, kc);
+      mma_cols<DH>(acc, sa, Ks + TILE + kc * 16 * LD, lane);
+    }
+  }
+
+  bf* dqh = static_cast<bf*>(a.dq) + ih + sl * DH;
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    if (q0 + r + 8 * hh >= N) continue;
+    bf* row = dqh + (long long)(q0 + r + 8 * hh) * a.isn;
+#pragma unroll
+    for (int nd = 0; nd < ND; ++nd)
+      *reinterpret_cast<__nv_bfloat162*>(row + nd * 8 + 2 * t) =
+          __floats2bfloat162_rn(acc[nd][2 * hh] * a.scale,
+                                acc[nd][2 * hh + 1] * a.scale);
+  }
+}
+
+template <bool FOLDED>
+__global__ void __launch_bounds__(128, 1)
+    dkdv_mma_sliced_kernel(const Args a) {
+  constexpr int DH = attn::kSliceDh, W = 4;
+  constexpr int LD = DH + kLdsPad, KS = DH / 16, ND = DH / 8;
+  constexpr int TILE = kT * LD, QC = 32, NI = QC / 8;
+  constexpr int THREADS = 32 * W, ROWS = 16 * W;
+  extern __shared__ __align__(16) unsigned char smem[];
+  bf* Ks = reinterpret_cast<bf*>(smem);  // [ROWS][LD], slice j
+  bf* Vs = Ks + ROWS * LD;               // [ROWS][LD], slice j
+  bf* Qs = Vs + ROWS * LD;               // [2][kT][LD]: slice j, own slice
+  bf* dOs = Qs + 2 * TILE;               // [2][kT][LD]: slice j, own slice
+  float* Ls = reinterpret_cast<float*>(dOs + 2 * TILE);  // [kT] lse
+  float* Dq = Ls + 2 * kT;                               // [kT] D
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int nsl = a.nsl, k0 = blockIdx.x * ROWS, h = blockIdx.y / nsl;
+  const int sl = blockIdx.y % nsl, b = blockIdx.z;
+  const int N = a.N, ntiles = N / kT;
+  const long long ih = b * a.isb + h * a.ish;
+  const long long oh = b * a.osb + h * a.osh;
+  const long long sh = ((long long)b * a.H + h) * N;
+  const unsigned char* mrow = a.mask + (long long)b * N;
+  const int r = warp * 16 + g;
+  bf* dkh = static_cast<bf*>(a.dk) + ih + sl * DH;
+  bf* dvh = static_cast<bf*>(a.dv) + ih + sl * DH;
+
+  bool mine = false, any = false;
+  for (int c = tid * 16; c < N; c += THREADS * 16) {
+    const bool live = any_live16(mrow + c);
+    any |= live;
+    mine |= live && c >= k0 && c < k0 + ROWS;
+  }
+  any = __syncthreads_or(any);
+  mine = __syncthreads_or(mine);
+  if ((any || FOLDED) && !mine) {
+    const __nv_bfloat162 z = __floats2bfloat162_rn(0.f, 0.f);
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      if (k0 + r + 8 * hh >= N) continue;
+      const long long row = (long long)(k0 + r + 8 * hh) * a.isn;
+#pragma unroll
+      for (int nd = 0; nd < ND; ++nd) {
+        *reinterpret_cast<__nv_bfloat162*>(dkh + row + nd * 8 + 2 * t) = z;
+        *reinterpret_cast<__nv_bfloat162*>(dvh + row + nd * 8 + 2 * t) = z;
+      }
+    }
+    return;
+  }
+
+  const bf* kh = static_cast<const bf*>(a.k) + ih;
+  const bf* vh = static_cast<const bf*>(a.v) + ih;
+  const bf* qh = static_cast<const bf*>(a.q) + ih;
+  const bf* dOh = static_cast<const bf*>(a.dO) + oh;
+  const unsigned base = attn::hash_base(a.hash, a.seed, b, h);
+  const bool drop = a.thr != 0u;
+  bool km[2];
+  unsigned keyx[2], tq[2];
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    const int key = k0 + r + 8 * hh;
+    km[hh] = key >= N || mrow[key] != 0;
+    keyx[hh] = base ^ ((unsigned)(k0 + r + 8 * hh) * kColMul);
+    tq[hh] = (unsigned)(2 * t + hh) * kRowMul;
+  }
+  float dka[ND][4], dva[ND][4];
+#pragma unroll
+  for (int nd = 0; nd < ND; ++nd)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dka[nd][e] = dva[nd][e] = 0.f;
+
+  for (int qt = 0; qt < ntiles; ++qt) {
+    const int q0 = qt * kT;
+    const unsigned qbase = (unsigned)(qt * kT) * kRowMul;
+#pragma unroll 1
+    for (int qc0 = 0; qc0 < kT; qc0 += QC) {
+      // s^T = K . Q^T and dp^T = V . dO^T over the slices: element (ni, e)
+      // is key r + 8 (e >> 1), query qc0 + ni*8 + 2t + (e & 1)
+      float s[NI][4], dp[NI][4];
+#pragma unroll
+      for (int ni = 0; ni < NI; ++ni)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[ni][e] = dp[ni][e] = 0.f;
+      for (int j = 0; j < nsl; ++j) {
+        __syncthreads();  // the last readers of every tile are done
+        stage_rows<DH, THREADS>(Ks, kh + j * DH, a.isn, k0, ROWS, N);
+        stage_rows<DH, THREADS>(Vs, vh + j * DH, a.isn, k0, ROWS, N);
+        stage_rows<DH, THREADS>(Qs, qh + j * DH, a.isn, q0, kT, N);
+        stage_rows<DH, THREADS>(dOs, dOh + j * DH, a.osn, q0, kT, N);
+        if (qc0 == 0 && j == 0) {
+          if (tid < kT / 4)
+            cp_async16(Ls + 4 * tid, a.lse + sh + q0 + 4 * tid);
+          else if (tid < kT / 2)
+            cp_async16(Dq + 4 * (tid - kT / 4),
+                       a.D + sh + q0 + 4 * (tid - kT / 4));
+        }
+        if (qc0 == 0 && j == nsl - 1) {
+          stage_rows<DH, THREADS>(Qs + TILE, qh + sl * DH, a.isn, q0, kT, N);
+          stage_rows<DH, THREADS>(dOs + TILE, dOh + sl * DH, a.osn, q0, kT,
+                                  N);
+        }
+        cp_async_commit();
+        cp_async_wait<0>();
+        if (FOLDED && qc0 == 0 && j == 0 && tid < kT / 4) {
+          // the lse guard, by the thread whose copy just landed
+          float* x = Ls + 4 * tid;
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            if (!(x[e] >= attn::kDead)) x[e] = INFINITY;
+        }
+        __syncthreads();
+#pragma unroll
+        for (int ks = 0; ks < KS; ++ks) {
+          uint32_t ka[4], va[4];
+          load_a<LD>(ka, Ks, r, ks, t);
+          load_a<LD>(va, Vs, r, ks, t);
+#pragma unroll
+          for (int ni = 0; ni < NI; ++ni) {
+            mma_rows(s[ni], ka, Qs + (qc0 + ni * 8 + g) * LD, ks, t);
+            mma_rows(dp[ni], va, dOs + (qc0 + ni * 8 + g) * LD, ks, t);
+          }
+        }
+      }
+      float ds[NI][4];
+#pragma unroll
+      for (int ni = 0; ni < NI; ++ni)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int hh = e >> 1, qj = qc0 + ni * 8 + 2 * t + (e & 1);
+          const float sv = km[hh] ? -INFINITY : s[ni][e] * a.scale;
+          const float p = ex2(fmaf(sv, kLog2e, -Ls[qj] * kLog2e));
+          bool keep = true;
+          if (drop) {
+            const unsigned row = qbase + (unsigned)(qc0 + ni * 8) * kRowMul +
+                                 tq[e & 1];
+            keep = keep_mix(keyx[hh] ^ row, a.thr);
+          }
+          const float gd = keep ? dp[ni][e] * a.kscale : 0.f;
+          ds[ni][e] = p * (gd - Dq[qj]);
+          dp[ni][e] = keep ? p * a.kscale : 0.f;  // pd
+        }
+#pragma unroll
+      for (int kc = 0; kc < QC / 16; ++kc) {
+        const bf* qrows = Qs + TILE + (qc0 + kc * 16) * LD;
+        const bf* drows = dOs + TILE + (qc0 + kc * 16) * LD;
+        uint32_t fa[4];
+        pack_a<NI>(fa, ds, kc);
+        mma_cols<DH>(dka, fa, qrows, lane);
+#pragma unroll
+        for (int term = 0; term < 3; ++term) {
+          pack_a<NI>(fa, dp, kc);
+#pragma unroll
+          for (int jj = 0; jj < 2; ++jj)
+#pragma unroll
+            for (int e = 0; e < 4; ++e)
+              dp[2 * kc + jj][e] -=
+                  __bfloat162float(__float2bfloat16(dp[2 * kc + jj][e]));
+          mma_cols<DH>(dva, fa, drows, lane);
+        }
+      }
+    }
+  }
+
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    if (k0 + r + 8 * hh >= N) continue;
+    const long long row = (long long)(k0 + r + 8 * hh) * a.isn;
+#pragma unroll
+    for (int nd = 0; nd < ND; ++nd) {
+      *reinterpret_cast<__nv_bfloat162*>(dkh + row + nd * 8 + 2 * t) =
+          __floats2bfloat162_rn(dka[nd][2 * hh] * a.scale,
+                                dka[nd][2 * hh + 1] * a.scale);
+      *reinterpret_cast<__nv_bfloat162*>(dvh + row + nd * 8 + 2 * t) =
+          __floats2bfloat162_rn(dva[nd][2 * hh], dva[nd][2 * hh + 1]);
+    }
+  }
+}
+
 // ------------------------------------------------------------------ launches
 // The mma route reads 16-byte chunks of q, k, v, dO, the mask, lse and D
 // (and, folded, o by pairs: the wrapper gives it aligned too)
@@ -799,6 +1366,40 @@ cudaError_t launch_bwd(const Args& a, int B, cudaStream_t s) {
   return cudaGetLastError();
 }
 
+template <bool ONLINE>
+cudaError_t launch_mma_fwd_sliced(const Args& a, int B, cudaStream_t s) {
+  constexpr int DH = attn::kSliceDh, W = 4;
+  if (!layout_ok(a)) return cudaErrorMisalignedAddress;
+  if (!attn::sliced_grid_ok(a)) return cudaErrorInvalidValue;
+  const int bytes = fwd_smem_fixed<DH, W>() + (a.N / kT + 1) * 4;
+  cudaError_t err = attn::allow_smem(fwd_mma_sliced_kernel<ONLINE>, bytes);
+  if (err != cudaSuccess) return err;
+  fwd_mma_sliced_kernel<ONLINE>
+      <<<dim3(ctas(a.N, W), a.H * a.nsl, B), 32 * W, bytes, s>>>(a);
+  return cudaGetLastError();
+}
+
+template <bool FOLDED>
+cudaError_t launch_mma_bwd_sliced(const Args& a, int B, cudaStream_t s) {
+  constexpr int DH = attn::kSliceDh, W = 4;
+  if (!layout_ok(a) || !aligned16(a.dO) || !aligned16(a.lse) ||
+      !aligned16(a.D) || (FOLDED && !aligned16(a.o)))
+    return cudaErrorMisalignedAddress;
+  if (!attn::sliced_grid_ok(a)) return cudaErrorInvalidValue;
+  const int dq_bytes = dq_smem_fixed<DH, W>() + (a.N / kT + 1) * 4;
+  const int kv_bytes = dkdv_smem_bytes<DH, W>();
+  cudaError_t err = attn::allow_smem(dq_mma_sliced_kernel<FOLDED>, dq_bytes);
+  if (err == cudaSuccess)
+    err = attn::allow_smem(dkdv_mma_sliced_kernel<FOLDED>, kv_bytes);
+  if (err != cudaSuccess) return err;
+  const dim3 grid(ctas(a.N, W), a.H * a.nsl, B);
+  dq_mma_sliced_kernel<FOLDED><<<grid, 32 * W, dq_bytes, s>>>(a);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  dkdv_mma_sliced_kernel<FOLDED><<<grid, 32 * W, kv_bytes, s>>>(a);
+  return cudaGetLastError();
+}
+
 template <int DH>
 cudaError_t launch_fwd_route(const Args& a, int B, cudaStream_t s) {
   return a.online ? launch_fwd<DH, true>(a, B, s)
@@ -823,7 +1424,12 @@ inline cudaError_t launch_fwd_dh(const Args& a, int B, int Dh,
     case 64: return launch_fwd_route<64>(a, B, s);
     case 96: return launch_fwd_route<96>(a, B, s);
     case 128: return launch_fwd_route<128>(a, B, s);
-    default: return cudaErrorInvalidValue;
+    default: {
+      Args b = a;
+      b.nsl = attn::head_slices(Dh);
+      return b.online ? launch_mma_fwd_sliced<true>(b, B, s)
+                      : launch_mma_fwd_sliced<false>(b, B, s);
+    }
   }
 }
 
@@ -835,7 +1441,13 @@ inline cudaError_t launch_bwd_dh(const Args& a, int B, int Dh,
     case 64: return launch_bwd_route<64>(a, B, s);
     case 96: return launch_bwd_route<96>(a, B, s);
     case 128: return launch_bwd_route<128>(a, B, s);
-    default: return cudaErrorInvalidValue;
+    default: {
+      if (a.d_from_o != a.guard) return cudaErrorInvalidValue;
+      Args b = a;
+      b.nsl = attn::head_slices(Dh);
+      return b.d_from_o ? launch_mma_bwd_sliced<true>(b, B, s)
+                        : launch_mma_bwd_sliced<false>(b, B, s);
+    }
   }
 }
 

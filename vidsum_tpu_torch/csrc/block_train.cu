@@ -205,7 +205,7 @@ __global__ void bt_splitk_reduce_kernel(const float* __restrict__ partial,
 }
 
 // ------------------------------------------------------------ row kernels
-// One warp per row of d <= 1,024 columns (d % 32 == 0): lane l holds
+// One warp per row. Of d <= 1,024 columns, d % 32 == 0: lane l holds
 // columns l + 32 t, t < d / 32 <= PER (16 up to d 512, 24 up to d 768, else
 // 32: a row's registers sized to the widths in use, each width its own
 // instantiation; the wider arrays slowed d 256's rows).
@@ -258,6 +258,47 @@ bt_drop_res_ln_kernel(const float* __restrict__ p,
   if (inv_out != nullptr && lane == 0) inv_out[m] = inv;
 }
 
+// Rows of any other d (past 1,024, or off the 32-column grid): the same
+// arithmetic in the same order, a warp per row walking it from device memory
+// in each pass (lane l takes columns l + 32 t, t increasing, c < d); the
+// pre-LN row z is kept in out between the passes.
+__global__ void __launch_bounds__(kThreads)
+bt_drop_res_ln_wide_kernel(const float* __restrict__ p,
+                           const float* __restrict__ resid,
+                           const float* __restrict__ g,
+                           const float* __restrict__ beta, float* out,
+                           float* __restrict__ xhat,
+                           float* __restrict__ inv_out, int M, int d,
+                           float eps, Drop dr) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int m = blockIdx.x * kRowsPerBlock + warp;
+  if (m >= M) return;  // the whole warp leaves together
+  const unsigned base = hash_base(dr.seed, dr.site, m / dr.rows);
+  const int row = m % dr.rows;
+  const size_t r0 = (size_t)m * d;
+  float s = 0.f;
+  for (int c = lane; c < d; c += 32) {
+    const float v = p[r0 + c];
+    const float z = (keep_bit(base, row, c, dr.thr) ? v * dr.kscale : 0.f) +
+                    resid[r0 + c];
+    out[r0 + c] = z;
+    s += z;
+  }
+  const float mean = vs::group_sum<32>(s) / (float)d;
+  float q = 0.f;
+  for (int c = lane; c < d; c += 32) {
+    const float dv = out[r0 + c] - mean;
+    q += dv * dv;
+  }
+  const float inv = rsqrtf(vs::group_sum<32>(q) / (float)d + eps);
+  for (int c = lane; c < d; c += 32) {
+    const float xh = (out[r0 + c] - mean) * inv;
+    out[r0 + c] = xh * g[c] + beta[c];
+    if (xhat != nullptr) xhat[r0 + c] = xh;
+  }
+  if (inv_out != nullptr && lane == 0) inv_out[m] = inv;
+}
+
 // dz = inv * (gg - mean(gg) - xhat * mean(gg * xhat)), gg = dy * g; dmask =
 // the site's dropout of dz.
 template <int PER>
@@ -293,6 +334,36 @@ bt_ln_bwd_drop_kernel(const float* __restrict__ dy,
     if (t >= per) break;
     const int c = lane + 32 * t;
     const float v = iv * (gg[t] - mean_g - xh[t] * mean_gx);
+    dz[r0 + c] = v;
+    dmask[r0 + c] = keep_bit(base, row, c, dr.thr) ? v * dr.kscale : 0.f;
+  }
+}
+
+// bt_ln_bwd_drop_kernel for rows of any other d, as
+// bt_drop_res_ln_wide_kernel walks them
+__global__ void __launch_bounds__(kThreads)
+bt_ln_bwd_drop_wide_kernel(const float* dy, const float* __restrict__ xhat,
+                           const float* __restrict__ inv,
+                           const float* __restrict__ g, float* dz,
+                           float* __restrict__ dmask, int M, int d, Drop dr) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int m = blockIdx.x * kRowsPerBlock + warp;
+  if (m >= M) return;
+  const unsigned base = hash_base(dr.seed, dr.site, m / dr.rows);
+  const int row = m % dr.rows;
+  const size_t r0 = (size_t)m * d;
+  float s = 0.f, sx = 0.f;
+  for (int c = lane; c < d; c += 32) {
+    const float gg = dy[r0 + c] * g[c];
+    s += gg;
+    sx += gg * xhat[r0 + c];
+  }
+  const float mean_g = vs::group_sum<32>(s) / (float)d;
+  const float mean_gx = vs::group_sum<32>(sx) / (float)d;
+  const float iv = inv[m];
+  for (int c = lane; c < d; c += 32) {
+    const float gg = dy[r0 + c] * g[c];
+    const float v = iv * (gg - mean_g - xhat[r0 + c] * mean_gx);
     dz[r0 + c] = v;
     dmask[r0 + c] = keep_bit(base, row, c, dr.thr) ? v * dr.kscale : 0.f;
   }
@@ -406,12 +477,14 @@ extern "C" int vs_bt_drop_res_ln(const float* p, const float* resid,
                                  int d, int rows, unsigned seed, int site,
                                  unsigned thr, float kscale, float eps,
                                  void* stream) {
-  if (M <= 0 || rows <= 0 || d <= 0 || d % 32 || d > 32 * kMaxPerLane)
-    return (int)cudaErrorInvalidValue;
+  if (M <= 0 || rows <= 0 || d <= 0) return (int)cudaErrorInvalidValue;
   const Drop dr{seed, site, rows, thr, kscale};
   const dim3 grid((M + kRowsPerBlock - 1) / kRowsPerBlock);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (d <= 512)
+  if (d % 32 || d > 32 * kMaxPerLane)
+    bt_drop_res_ln_wide_kernel<<<grid, kThreads, 0, s>>>(
+        p, resid, g, beta, out, xhat, inv, M, d, eps, dr);
+  else if (d <= 512)
     bt_drop_res_ln_kernel<16><<<grid, kThreads, 0, s>>>(
         p, resid, g, beta, out, xhat, inv, M, d, eps, dr);
   else if (d <= 768)
@@ -428,12 +501,14 @@ extern "C" int vs_bt_ln_bwd_drop(const float* dy, const float* xhat,
                                  float* dmask, int M, int d, int rows,
                                  unsigned seed, int site, unsigned thr,
                                  float kscale, void* stream) {
-  if (M <= 0 || rows <= 0 || d <= 0 || d % 32 || d > 32 * kMaxPerLane)
-    return (int)cudaErrorInvalidValue;
+  if (M <= 0 || rows <= 0 || d <= 0) return (int)cudaErrorInvalidValue;
   const Drop dr{seed, site, rows, thr, kscale};
   const dim3 grid((M + kRowsPerBlock - 1) / kRowsPerBlock);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (d <= 512)
+  if (d % 32 || d > 32 * kMaxPerLane)
+    bt_ln_bwd_drop_wide_kernel<<<grid, kThreads, 0, s>>>(
+        dy, xhat, inv, g, dz, dmask, M, d, dr);
+  else if (d <= 512)
     bt_ln_bwd_drop_kernel<16><<<grid, kThreads, 0, s>>>(
         dy, xhat, inv, g, dz, dmask, M, d, dr);
   else if (d <= 768)

@@ -151,7 +151,7 @@ __device__ __forceinline__ float dequant(int acc, float sx, float sw,
 
 
 // The residual + LayerNorm epilogue of rows that do not lie in one GEMM CTA
-// tile (256 < d <= 1024: d_model 384 to 1,024; any d in the f32 GEMM): the
+// tile (d > 256: d_model 384 and up; any d in the f32 GEMM): the
 // GEMM writes the f32 pre-LN rows z = acc (+ dequantised) + bias + residual
 // into y, then one warp per row takes the f32 LayerNorm (mean, biased variance,
 // eps; block_kernel.py::_layernorm_f32) in place, each operation IEEE-rounded
@@ -159,7 +159,7 @@ __device__ __forceinline__ float dequant(int acc, float sx, float sw,
 // scale (out_q, out_s, optional; quantize_rows' scheme). A row's sums run in a
 // fixed order, so its result does not depend on M.
 constexpr int kLnRowsPerBlock = 8;
-constexpr int kLnMaxPerLane = 32;  // d <= 1024
+constexpr int kLnMaxPerLane = 32;  // d <= 1024; wider rows loop
 
 // PER values a lane: 16 up to d 512, 24 up to d 768, else 32 (a row's
 // registers sized to the widths in use: each width keeps its own
@@ -214,14 +214,59 @@ layernorm_rows_kernel(float* __restrict__ y, const float* __restrict__ g,
   if (lane == 0) out_s[row] = scale;
 }
 
+// Rows past 32 * kLnMaxPerLane columns: the same operations in the same
+// order, a warp per row, each pass walking the row from device memory (the
+// pre-LN row is in y, normalised in place by the third pass): lane l takes
+// columns l + 32 j in increasing j in every pass (sum, squared deviations,
+// normalise and write, codes), then the lanes' sums meet in the same
+// butterfly, so a row's result does not depend on M.
+template <typename T>
+__global__ void __launch_bounds__(32 * kLnRowsPerBlock)
+layernorm_rows_wide_kernel(float* __restrict__ y, const float* __restrict__ g,
+                           const float* __restrict__ beta,
+                           T* __restrict__ out_t, int8_t* __restrict__ out_q,
+                           float* __restrict__ out_s, int M, int N,
+                           float eps) {
+  const int row = blockIdx.x * kLnRowsPerBlock + (threadIdx.x >> 5);
+  const int lane = threadIdx.x & 31;
+  if (row >= M) return;  // whole warps leave together
+  float* yr = y + (size_t)row * N;
+  float s = 0.f;
+  for (int c = lane; c < N; c += 32) s = __fadd_rn(s, yr[c]);
+  const float mean = __fdiv_rn(group_sum<32>(s), (float)N);
+  float v = 0.f;
+  for (int c = lane; c < N; c += 32) {
+    const float d = __fsub_rn(yr[c], mean);
+    v = __fadd_rn(v, __fmul_rn(d, d));
+  }
+  const float inv = __fdiv_rn(
+      1.f, __fsqrt_rn(__fadd_rn(__fdiv_rn(group_sum<32>(v), (float)N), eps)));
+  float mx = 0.f;
+  for (int c = lane; c < N; c += 32) {
+    const float z = __fadd_rn(
+        __fmul_rn(__fmul_rn(__fsub_rn(yr[c], mean), inv), g[c]), beta[c]);
+    yr[c] = z;
+    if (out_t != nullptr) out_t[(size_t)row * N + c] = from_f32<T>(z);
+    mx = fmaxf(mx, fabsf(z));
+  }
+  if (out_q == nullptr) return;
+  const float scale = quant_scale(group_max<32>(mx));
+  const float qinv = __fdiv_rn(1.f, scale);
+  for (int c = lane; c < N; c += 32)
+    out_q[(size_t)row * N + c] = quant_code(yr[c], qinv);
+  if (lane == 0) out_s[row] = scale;
+}
+
 template <typename T>
 cudaError_t launch_layernorm_rows(float* y, const float* g, const float* beta,
                                   void* out_t, int8_t* out_q, float* out_s,
                                   int M, int N, float eps,
                                   cudaStream_t stream) {
-  if (N > 32 * kLnMaxPerLane) return cudaErrorInvalidValue;
   const dim3 grid((M + kLnRowsPerBlock - 1) / kLnRowsPerBlock);
-  if (N <= 512)
+  if (N > 32 * kLnMaxPerLane)
+    layernorm_rows_wide_kernel<T><<<grid, 32 * kLnRowsPerBlock, 0, stream>>>(
+        y, g, beta, static_cast<T*>(out_t), out_q, out_s, M, N, eps);
+  else if (N <= 512)
     layernorm_rows_kernel<T, 16><<<grid, 32 * kLnRowsPerBlock, 0, stream>>>(
         y, g, beta, static_cast<T*>(out_t), out_q, out_s, M, N, eps);
   else if (N <= 768)

@@ -12,10 +12,11 @@
 //   EPI_RES_LN  y = LN(acc + b + residual)        (proj + LN1, fc2 + LN2)
 // The LayerNorm runs in f32 with eps and biased variance, as
 // block_kernel.py::_layernorm_f32 does. In bf16 a row of d <= 256 lies in
-// one CTA tile, so its statistics never leave the CTA; a wider row (d
-// 384-1,024), and in f32 every row, is written pre-LN in f32 by the GEMM
+// one CTA tile, so its statistics never leave the CTA; a wider row (d 384
+// and up), and in f32 every row, is written pre-LN in f32 by the GEMM
 // (EPI_RES, y = acc + b + residual, into out_f) and normalised in place by
-// common.cuh's layernorm_rows_kernel, the same f32 math in a second launch.
+// common.cuh's layernorm_rows_kernel (past d 1,024 its looping
+// layernorm_rows_wide_kernel), the same f32 math in a second launch.
 //
 // Layouts: X (M, K) with row stride ldx and W (N, K) with row stride ldw
 // (nn.Linear's weight layout), both K-contiguous, in T; bias, LN scale/shift
@@ -807,8 +808,7 @@ extern "C" int vs_gemm_bias_epilogue(const void* x, const void* w,
   // row kernel
   const int ln_cols = dtype == vs::kF32 ? 0 : (wgmma ? tile_n : 256);
   const bool wide = epilogue == EPI_RES_LN && N > ln_cols;
-  if (wide && (N > 32 * vs::kLnMaxPerLane || out_f == nullptr))
-    return (int)cudaErrorInvalidValue;
+  if (wide && out_f == nullptr) return (int)cudaErrorInvalidValue;
   const GemmArgs g{x, w, bias, resid_t, resid_f, ln_g, ln_b,
                    wide ? nullptr : out_t, out_f, M, N, K, ldx, ldw,
                    wide ? (int)EPI_RES : epilogue, eps};

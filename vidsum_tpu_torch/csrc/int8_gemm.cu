@@ -12,14 +12,16 @@
 //   EPI_RELU    y = max(acc * (sx sw) + b, 0)         (fc1)
 //   EPI_RES_LN  y = LN(acc * (sx sw) + b + residual)  (proj + LN1, fc2 + LN2),
 //               optionally also the row's int8 codes and scale (LN1 -> fc1);
-//               a row wider than the CTA tile (d 384-1,024) is written pre-LN
-//               in f32 (EPI_RES, into out_f) and normalised, quantised and
-//               rounded by common.cuh's layernorm_rows_kernel, with the same
+//               a row wider than the CTA tile (d 384 and up) is written
+//               pre-LN in f32 (EPI_RES, into out_f) and normalised,
+//               quantised and rounded by common.cuh's layernorm_rows_kernel
+//               (past d 1,024 layernorm_rows_wide_kernel), with the same
 //               IEEE-rounded operations
 //   EPI_SHIFT   y = int8(acc >> 8)                    (the probe, kernel 18b)
 // X (M, K) and W (N, K) are int8 codes, both K-contiguous (W in nn.Linear's
 // (out, in) layout) on 16-byte boundaries, sx (M,) and sw (N,) their f32
-// scales; K % 32 == 0. Accumulation is exact s32 (K * 127^2 < 2^31 for K <
+// scales; K % 32 == 0 (ops/quant.int8_gemm pads other K with zero codes,
+// which add nothing). Accumulation is exact s32 (K * 127^2 < 2^31 for K <
 // 133,000). The f32 glue is rounded after every operation (common.cuh:
 // dequant, quant_code), as the plain PyTorch version's separate tensor ops
 // round it, so the int8 codes a kernel emits equal the plain version's; what
@@ -671,8 +673,7 @@ extern "C" int vs_int8_gemm(const int8_t* x, const float* sx,
   // a LayerNorm row wider than the CTA tile goes through out_f (required)
   // and the row kernel
   const bool wide = epilogue == EPI_RES_LN && N > tile_n;
-  if (wide && (N > 32 * vs::kLnMaxPerLane || out_f == nullptr))
-    return (int)cudaErrorInvalidValue;
+  if (wide && out_f == nullptr) return (int)cudaErrorInvalidValue;
   if (epilogue == EPI_SHIFT && out_q == nullptr)
     return (int)cudaErrorInvalidValue;
   if (epilogue != EPI_SHIFT && (sx == nullptr || sw == nullptr ||

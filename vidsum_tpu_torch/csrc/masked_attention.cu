@@ -229,6 +229,173 @@ masked_attention_q8_kernel(const int8_t* __restrict__ q8,
   }
 }
 
+// The f32 QK8 kernel over a head of nsl * 128 columns (attention_core.cuh's
+// head_dim slices): grid.y runs over (head, slice); per key tile the int8
+// dot is summed over the slices, staging one 128-column slice of Q and K at
+// a time through Qt and Kt in slice order, each slice's dot an exact integer
+// in f32 (128 * 127^2 < 2^24) added to an int32 sum (exact at any width);
+// then (dot * (qs * ks)) * scale with the whole head's row scales, the
+// online softmax, and P.V on the CTA's own slice of V.
+__global__ void __launch_bounds__(kThreads)
+masked_attention_q8_sliced_kernel(const int8_t* __restrict__ q8,
+                                  const int8_t* __restrict__ k8,
+                                  const float* __restrict__ v,
+                                  const unsigned char* __restrict__ mask,
+                                  const float* __restrict__ qsc,
+                                  const float* __restrict__ ksc,
+                                  float* __restrict__ o, int N, int nsl,
+                                  long long s_b, long long s_h, long long s_n,
+                                  long long o_s_b, long long o_s_h,
+                                  long long o_s_n, long long c_b,
+                                  long long c_h, long long c_n, float scale) {
+  constexpr int DH = vs::attn::kSliceDh, DPT = DH / 16;
+  extern __shared__ float smem[];
+  float* Qt = smem;
+  float* Kt = Qt + DH * kPad;
+  float* Vs = Kt + DH * kPad;
+  float* Pt = Vs + kBKey * DH;
+  float* Km = Pt + kBKey * kPad;
+  float* Ksc = Km + kBKey;
+
+  const int tid = threadIdx.x;
+  const int rg = tid >> 4;
+  const int cg = tid & 15;
+  const int q0 = blockIdx.x * kBQ;
+  const int h = blockIdx.y / nsl, sl = blockIdx.y % nsl;
+  const int b = blockIdx.z;
+  const long long base = (long long)b * s_b + (long long)h * s_h;
+  const long long cbase = (long long)b * c_b + (long long)h * c_h;
+  const unsigned char* mrow = mask + (long long)b * N;
+
+  float qs[4] = {1.f, 1.f, 1.f, 1.f};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int n = q0 + rg * 4 + i;
+    if (n < N) qs[i] = qsc[cbase + n * c_n];
+  }
+
+  float m[4], l[4], acc[4][DPT];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    m[i] = -INFINITY;
+    l[i] = 0.f;
+#pragma unroll
+    for (int d = 0; d < DPT; ++d) acc[i][d] = 0.f;
+  }
+
+  for (int k0 = 0; k0 < N; k0 += kBKey) {
+    int si[4][4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) si[i][j] = 0;
+    for (int sj = 0; sj < nsl; ++sj) {
+      __syncthreads();  // the previous readers of Qt, Kt, Vs, Km, Ksc, Pt
+      const long long c0 = (long long)sj * DH;
+      for (int idx = tid; idx < kBQ * DH; idx += kThreads) {
+        const int r = idx / DH, c = idx % DH;
+        const int n = q0 + r;
+        Qt[c * kPad + r] = n < N ? (float)q8[base + n * s_n + c0 + c] : 0.f;
+      }
+      for (int idx = tid; idx < kBKey * DH; idx += kThreads) {
+        const int r = idx / DH, c = idx % DH;
+        const int n = k0 + r;
+        const bool ok = n < N;
+        Kt[c * kPad + r] = ok ? (float)k8[base + n * s_n + c0 + c] : 0.f;
+        if (sj == nsl - 1)
+          Vs[r * DH + c] = ok ? v[base + n * s_n + sl * DH + c] : 0.f;
+      }
+      if (sj == 0 && tid < kBKey) {
+        const int n = k0 + tid;
+        Km[tid] = (n >= N || mrow[n] != 0) ? 1.f : 0.f;
+        Ksc[tid] = n < N ? ksc[cbase + n * c_n] : 0.f;
+      }
+      __syncthreads();
+
+      float s[4][4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
+#pragma unroll 8
+      for (int dd = 0; dd < DH; ++dd) {
+        float qa[4], kb[4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) qa[i] = Qt[dd * kPad + rg * 4 + i];
+#pragma unroll
+        for (int j = 0; j < 4; ++j) kb[j] = Kt[dd * kPad + cg + 16 * j];
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int j = 0; j < 4; ++j) s[i][j] = fmaf(qa[i], kb[j], s[i][j]);
+      }
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) si[i][j] += __float2int_rn(s[i][j]);
+    }
+
+    float s[4][4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      float mx = -INFINITY;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        // (dot * (qs * ks)) * scale
+        const float sv = __fmul_rn(
+            __fmul_rn(__int2float_rn(si[i][j]),
+                      __fmul_rn(qs[i], Ksc[cg + 16 * j])),
+            scale);
+        s[i][j] = Km[cg + 16 * j] != 0.f ? -INFINITY : sv;
+        mx = fmaxf(mx, s[i][j]);
+      }
+      mx = vs::group_max<16>(mx);
+      const float m_new = fmaxf(m[i], mx);
+      const bool dead = m_new < kDead;
+      const float m_safe = dead ? 0.f : m_new;
+      const float corr = m[i] < kDead ? 0.f : expf(m[i] - m_safe);
+      float rs = 0.f;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const float e = dead ? 0.f : expf(s[i][j] - m_safe);
+        rs += e;
+        Pt[(cg + 16 * j) * kPad + rg * 4 + i] = e;
+      }
+      rs = vs::group_sum<16>(rs);
+      l[i] = l[i] * corr + rs;
+      m[i] = m_new;
+#pragma unroll
+      for (int d = 0; d < DPT; ++d) acc[i][d] *= corr;
+    }
+    __syncthreads();
+
+#pragma unroll 8
+    for (int kk = 0; kk < kBKey; ++kk) {
+      float pa[4], vb[DPT];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) pa[i] = Pt[kk * kPad + rg * 4 + i];
+#pragma unroll
+      for (int d = 0; d < DPT; ++d) vb[d] = Vs[kk * DH + cg + 16 * d];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int d = 0; d < DPT; ++d) acc[i][d] = fmaf(pa[i], vb[d], acc[i][d]);
+    }
+  }
+
+  const long long obase =
+      (long long)b * o_s_b + (long long)h * o_s_h + sl * DH;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int n = q0 + rg * 4 + i;
+    if (n >= N) continue;
+    const float inv = l[i] == 0.f ? 0.f : 1.f / l[i];
+#pragma unroll
+    for (int d = 0; d < DPT; ++d)
+      o[obase + n * o_s_n + cg + 16 * d] = acc[i][d] * inv;
+  }
+}
+
 // The arguments every launch passes through.
 struct Args {
   const void* q;
@@ -241,6 +408,7 @@ struct Args {
   int B, H, N;
   long long s_b, s_h, s_n, o_s_b, o_s_h, o_s_n, c_b, c_h, c_n;
   float scale;
+  int nsl;  // the sliced kernels: 128-column slices of a head
 };
 
 // ---------------------------------------------------------------------------
@@ -577,6 +745,266 @@ masked_attention_mma_kernel(const Args a, bool vec, bool vec8, bool mvec) {
   }
 }
 
+// The bf16 kernel over a head of nsl * 128 columns (attention_core.cuh's
+// head_dim slices), 4 warps (64 query rows), grid.y over (head, slice): per
+// live key tile, S is summed over the slices on the tensor cores, one
+// 128-column slice of the Q rows and of the K tile staged at a time into
+// buffer 0 of the unsliced kernel's tiles (cp.async, then a wait: nothing
+// double-buffered) and Q's fragments loaded from it per slice, each score's
+// k16 steps in increasing order over the whole head; with QK8 the int8
+// products sum in s32 over the slices and are scaled once with the whole
+// head's row scales. The softmax, both NORM_FIRST orders and P.V on the
+// CTA's own slice of V are the unsliced kernel's (mma_smem_fixed<128, 4,
+// QK8>: 87,168 bytes bf16, 63,104 with QK8, plus the live-tile list).
+template <bool NORM_FIRST, typename OutT, bool QK8>
+__global__ void __launch_bounds__(128, 2)
+masked_attention_mma_sliced_kernel(const Args a, bool vec, bool vec8,
+                                   bool mvec) {
+  using bf = __nv_bfloat16;
+  constexpr int DH = vs::attn::kSliceDh, W = 4, T = vs::kKeyTile;
+  constexpr int LQ = DH + vs::kLdsPad, LQ8 = DH + 16;
+  constexpr int KS = DH / 16, KS8 = DH / 32, ND = DH / 8;
+  constexpr int THREADS = 32 * W, ROWS = 16 * W;
+  constexpr int KTILE = QK8 ? T * LQ8 : T * LQ * 2;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf* Qs = reinterpret_cast<bf*>(smem_raw);
+  int8_t* Q8s = reinterpret_cast<int8_t*>(smem_raw);
+  unsigned char* Kraw = smem_raw + (QK8 ? ROWS * LQ8 : ROWS * LQ * 2);
+  bf* Vs = reinterpret_cast<bf*>(Kraw + 2 * KTILE);
+  float* Ksc = reinterpret_cast<float*>(Vs + 2 * T * LQ);
+  unsigned char* Ms =
+      reinterpret_cast<unsigned char*>(Ksc + (QK8 ? 2 * T : 0));
+  int* tiles = reinterpret_cast<int*>(Ms + 2 * T);
+  const int N = a.N, nsl = a.nsl;
+  int* count = tiles + (N + T - 1) / T;
+
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int q0 = blockIdx.x * ROWS;
+  const int r = warp * 16 + g;
+  const int h = blockIdx.y / nsl, sl = blockIdx.y % nsl;
+  const long long base =
+      (long long)blockIdx.z * a.s_b + (long long)h * a.s_h;
+  const long long cbase =
+      (long long)blockIdx.z * a.c_b + (long long)h * a.c_h;
+  const unsigned char* mrow = a.mask + (long long)blockIdx.z * N;
+  const bf* qh = static_cast<const bf*>(a.q) + base;
+  const int8_t* q8h = static_cast<const int8_t*>(a.q) + base;
+  const bf* kh = static_cast<const bf*>(a.k) + base;
+  const int8_t* k8h = static_cast<const int8_t*>(a.k) + base;
+  const bf* vh = static_cast<const bf*>(a.v) + base + sl * DH;
+  const float f = QK8 ? vs::kLog2e : a.scale * vs::kLog2e;
+
+  vs::live_tiles(mrow, N, tiles, count, false, mvec);
+  float qs_row[2] = {1.f, 1.f};
+  if constexpr (QK8) {
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      const int n = q0 + r + 8 * hh;
+      if (n < N) qs_row[hh] = a.qsc[cbase + (long long)n * a.c_n];
+    }
+  }
+  __syncthreads();  // the tile list
+  const int nlive = *count;
+
+  // S of live tile i in the units of f (the raw dot, or QK8's rounded
+  // score) summed over the slices, -inf at padded keys; element (ni, e) is
+  // row g + 8*(e >> 1) of the warp, key ni*8 + 2t + (e & 1). with_v also
+  // stages the tile's rows of the CTA's own slice of V into Vs.
+  auto scores = [&](int i, bool with_v, float (&s)[8][4]) {
+    const int k0 = tiles[i] * T;
+    int d8[QK8 ? 8 : 1][4];
+#pragma unroll
+    for (int ni = 0; ni < 8; ++ni)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        s[ni][e] = 0.f;
+        if constexpr (QK8) d8[ni][e] = 0;
+      }
+    for (int j = 0; j < nsl; ++j) {
+      __syncthreads();  // the last readers of every tile are done
+      if constexpr (QK8) {
+        vs::stage_rows<DH, THREADS, int8_t>(Q8s, q8h + j * DH, a.s_n, q0,
+                                            ROWS, N, vec8);
+        vs::stage_rows<DH, THREADS, int8_t>(reinterpret_cast<int8_t*>(Kraw),
+                                            k8h + j * DH, a.s_n, k0, T, N,
+                                            vec8);
+      } else {
+        vs::stage_rows<DH, THREADS>(Qs, qh + j * DH, a.s_n, q0, ROWS, N,
+                                    vec);
+        vs::stage_rows<DH, THREADS>(reinterpret_cast<bf*>(Kraw),
+                                    kh + j * DH, a.s_n, k0, T, N, vec);
+      }
+      if (j == 0) {
+        if (mvec && k0 + T <= N) {
+          if (tid < T / 16) vs::cp_async16(Ms + 16 * tid, mrow + k0 + 16 * tid);
+        } else if (tid < T) {
+          Ms[tid] = k0 + tid < N ? mrow[k0 + tid] : 1;  // past N: padded
+        }
+        if (QK8 && tid < T) {
+          if (k0 + tid < N)
+            vs::cp_async4(Ksc + tid,
+                          a.ksc + cbase + (long long)(k0 + tid) * a.c_n);
+          else
+            Ksc[tid] = 0.f;
+        }
+      }
+      if (with_v && j == nsl - 1)
+        vs::stage_rows<DH, THREADS>(Vs, vh, a.s_n, k0, T, N, vec);
+      vs::cp_async_commit();
+      vs::cp_async_wait<0>();
+      __syncthreads();
+      if constexpr (QK8) {
+#pragma unroll
+        for (int ks = 0; ks < KS8; ++ks) {
+          const int c = ks * 32 + 4 * t;
+          const uint32_t a0 = vs::ld_u32(&Q8s[r * LQ8 + c]);
+          const uint32_t a1 = vs::ld_u32(&Q8s[(r + 8) * LQ8 + c]);
+          const uint32_t a2 = vs::ld_u32(&Q8s[r * LQ8 + c + 16]);
+          const uint32_t a3 = vs::ld_u32(&Q8s[(r + 8) * LQ8 + c + 16]);
+#pragma unroll
+          for (int ni = 0; ni < 8; ++ni) {
+            const int8_t* krow =
+                reinterpret_cast<const int8_t*>(Kraw) + (ni * 8 + g) * LQ8;
+            vs::mma_s8_16832(d8[ni], a0, a1, a2, a3, vs::ld_u32(krow + c),
+                             vs::ld_u32(krow + c + 16));
+          }
+        }
+      } else {
+#pragma unroll
+        for (int ks = 0; ks < KS; ++ks) {
+          uint32_t qa[4];
+          vs::load_a<LQ>(qa, Qs, r, ks, t);
+#pragma unroll
+          for (int ni = 0; ni < 8; ++ni)
+            vs::mma_rows(s[ni], qa,
+                         reinterpret_cast<const bf*>(Kraw) + (ni * 8 + g) * LQ,
+                         ks, t);
+        }
+      }
+    }
+#pragma unroll
+    for (int ni = 0; ni < 8; ++ni)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int key = ni * 8 + 2 * t + (e & 1);
+        if constexpr (QK8)
+          // (i8dot * (qs * ks)) * scale, block_kernel_int8.py:105-108
+          s[ni][e] = Ms[key] != 0
+                         ? -INFINITY
+                         : __fmul_rn(__fmul_rn(__int2float_rn(d8[ni][e]),
+                                               __fmul_rn(qs_row[e >> 1],
+                                                         Ksc[key])),
+                                     a.scale);
+        else if (Ms[key] != 0)
+          s[ni][e] = -INFINITY;
+      }
+  };
+
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+  float acc[ND][4];
+#pragma unroll
+  for (int nd = 0; nd < ND; ++nd)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[nd][e] = 0.f;
+
+  // the unsliced kernel's fold of row half hh with the _DEAD guards
+  auto fold = [&](float (&s)[8][4], int hh) -> float {
+    float mx = -INFINITY;
+#pragma unroll
+    for (int ni = 0; ni < 8; ++ni)
+      mx = fmaxf(mx, fmaxf(s[ni][2 * hh], s[ni][2 * hh + 1]));
+    const float m_new = fmaxf(m[hh], vs::group_max<4>(mx));
+    const bool dead = m_new < kDead;
+    const float m_safe = dead ? 0.f : m_new;
+    const float ml = m_safe * f;
+    const float corr = m[hh] < kDead ? 0.f : vs::ex2((m[hh] - m_safe) * f);
+    float rs = 0.f;
+#pragma unroll
+    for (int ni = 0; ni < 8; ++ni)
+#pragma unroll
+      for (int c = 0; c < 2; ++c) {
+        const float e =
+            dead ? 0.f : vs::ex2(fmaf(s[ni][2 * hh + c], f, -ml));
+        s[ni][2 * hh + c] = e;
+        rs += e;
+      }
+    l[hh] = l[hh] * corr + vs::group_sum<4>(rs);
+    m[hh] = m_new;
+    return corr;
+  };
+  auto accumulate = [&](const float (&w)[8][4]) {
+#pragma unroll
+    for (int kc = 0; kc < 4; ++kc) {
+      uint32_t pa[4];
+      vs::pack_a<8>(pa, w, kc);
+      vs::mma_cols<DH>(acc, pa, Vs + kc * 16 * LQ, lane);
+    }
+  };
+
+  if constexpr (NORM_FIRST) {
+    for (int i = 0; i < nlive; ++i) {
+      float s[8][4];
+      scores(i, false, s);
+      fold(s, 0);
+      fold(s, 1);
+    }
+    float ml[2], inv_l[2];
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      ml[hh] = (m[hh] < kDead ? 0.f : m[hh]) * f;
+      inv_l[hh] = l[hh] == 0.f ? 0.f : 1.f / l[hh];
+    }
+    for (int i = 0; i < nlive; ++i) {
+      float s[8][4];
+      scores(i, true, s);
+#pragma unroll
+      for (int ni = 0; ni < 8; ++ni)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          s[ni][e] =
+              vs::ex2(fmaf(s[ni][e], f, -ml[e >> 1])) * inv_l[e >> 1];
+      accumulate(s);
+    }
+  } else {
+    for (int i = 0; i < nlive; ++i) {
+      float s[8][4];
+      scores(i, true, s);
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        const float corr = fold(s, hh);
+#pragma unroll
+        for (int nd = 0; nd < ND; ++nd) {
+          acc[nd][2 * hh] *= corr;
+          acc[nd][2 * hh + 1] *= corr;
+        }
+      }
+      accumulate(s);
+    }
+  }
+
+  const long long obase = (long long)blockIdx.z * a.o_s_b +
+                          (long long)h * a.o_s_h + sl * DH;
+  OutT* o = static_cast<OutT*>(a.o);
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    const int n = q0 + r + 8 * hh;
+    if (n >= N) continue;
+    const float inv = NORM_FIRST ? 1.f : (l[hh] == 0.f ? 0.f : 1.f / l[hh]);
+#pragma unroll
+    for (int nd = 0; nd < ND; ++nd) {
+      OutT* dst = &o[obase + n * a.o_s_n + nd * 8 + 2 * t];
+      if constexpr (sizeof(OutT) == 4)
+        *reinterpret_cast<float2*>(dst) =
+            make_float2(acc[nd][2 * hh] * inv, acc[nd][2 * hh + 1] * inv);
+      else
+        *reinterpret_cast<__nv_bfloat162*>(dst) = __floats2bfloat162_rn(
+            acc[nd][2 * hh] * inv, acc[nd][2 * hh + 1] * inv);
+    }
+  }
+}
+
 template <int DH, int W, bool NORM_FIRST, typename OutT, bool QK8>
 cudaError_t launch_mma(const Args& a, cudaStream_t stream) {
   // the fixed tiles, then the list of live key tiles and its count
@@ -600,6 +1028,29 @@ cudaError_t launch_mma(const Args& a, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
+template <bool NORM_FIRST, typename OutT, bool QK8>
+cudaError_t launch_mma_sliced(const Args& a, cudaStream_t stream) {
+  constexpr int DH = vs::attn::kSliceDh, W = 4;
+  if ((long long)a.H * a.nsl > 65535) return cudaErrorInvalidValue;
+  const int bytes = mma_smem_fixed<DH, W, QK8>() +
+                    ((a.N + vs::kKeyTile - 1) / vs::kKeyTile + 1) * 4;
+  auto kernel = masked_attention_mma_sliced_kernel<NORM_FIRST, OutT, QK8>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err != cudaSuccess) return err;
+  const bool strided8 = a.s_b % 8 == 0 && a.s_h % 8 == 0 && a.s_n % 8 == 0;
+  const bool strided16 =
+      a.s_b % 16 == 0 && a.s_h % 16 == 0 && a.s_n % 16 == 0;
+  const bool vec = strided8 && vs::aligned16(a.v) &&
+                   (QK8 || (vs::aligned16(a.q) && vs::aligned16(a.k)));
+  const bool vec8 =
+      QK8 && strided16 && vs::aligned16(a.q) && vs::aligned16(a.k);
+  const bool mvec = a.N % 16 == 0 && vs::aligned16(a.mask);
+  const dim3 grid((a.N + 16 * W - 1) / (16 * W), a.H * a.nsl, a.B);
+  kernel<<<grid, 32 * W, bytes, stream>>>(a, vec, vec8, mvec);
+  return cudaGetLastError();
+}
+
 template <int DH>
 cudaError_t launch_q8(const Args& a, cudaStream_t stream) {
   constexpr int bytes = smem_floats<DH>() * (int)sizeof(float);
@@ -616,10 +1067,28 @@ cudaError_t launch_q8(const Args& a, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
+cudaError_t launch_q8_sliced(const Args& a, int nsl, cudaStream_t stream) {
+  constexpr int bytes = smem_floats<vs::attn::kSliceDh>() * (int)sizeof(float);
+  if (nsl <= 0 || (long long)a.H * nsl > 65535) return cudaErrorInvalidValue;
+  auto kernel = masked_attention_q8_sliced_kernel;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((a.N + kBQ - 1) / kBQ, a.H * nsl, a.B);
+  kernel<<<grid, kThreads, bytes, stream>>>(
+      static_cast<const int8_t*>(a.q), static_cast<const int8_t*>(a.k),
+      static_cast<const float*>(a.v), a.mask, a.qsc, a.ksc,
+      static_cast<float*>(a.o), a.N, nsl, a.s_b, a.s_h, a.s_n, a.o_s_b,
+      a.o_s_h, a.o_s_n, a.c_b, a.c_h, a.c_n, a.scale);
+  return cudaGetLastError();
+}
+
 // head_dim 64 is the flagship's, 16 that of the d 64 test configurations,
 // 96 that of d 384 with 4 heads and d 768 with 8, 128 that of d 512 with 4
 // heads (ops/_cuda.HEAD_DIMS); at 128 the QK8 kernel takes 116 KB of
-// shared memory and the mma kernel 85 KB and the live-tile list
+// shared memory and the mma kernel 85 KB and the live-tile list; a multiple
+// of 128 past it runs the sliced kernels (the same tiles at 128: 116 KB and
+// 85 KB, 62 KB with QK8)
 cudaError_t launch_q8_dh(const Args& a, int Dh, cudaStream_t stream) {
   switch (Dh) {
     case 16:
@@ -633,7 +1102,7 @@ cudaError_t launch_q8_dh(const Args& a, int Dh, cudaStream_t stream) {
     case 128:
       return launch_q8<128>(a, stream);
     default:
-      return cudaErrorInvalidValue;
+      return launch_q8_sliced(a, vs::attn::head_slices(Dh), stream);
   }
 }
 
@@ -687,7 +1156,11 @@ cudaError_t launch_fma(const Args& m, int Dh, int rows, cudaStream_t stream) {
     case 64: return launch_fma_dh<64>(a, m.B, rows, stream);
     case 96: return launch_fma_dh<96>(a, m.B, rows, stream);
     case 128: return launch_fma_dh<128>(a, m.B, rows, stream);
-    default: return cudaErrorInvalidValue;
+    default:
+      // past 128: attention_core.cuh's sliced forward, 64-row CTAs
+      if (rows != 64) return cudaErrorInvalidValue;
+      a.nsl = vs::attn::head_slices(Dh);
+      return vs::attn::launch_fwd_sliced<true>(a, m.B, stream);
   }
 }
 
@@ -716,8 +1189,13 @@ cudaError_t launch_mma_dh(const Args& a, int Dh, int rows,
       return launch_mma<96, 4, NORM_FIRST, OutT, QK8>(a, stream);
     case 128:
       return launch_mma<128, 4, NORM_FIRST, OutT, QK8>(a, stream);
-    default:
-      return cudaErrorInvalidValue;
+    default: {
+      if (rows != 64) return cudaErrorInvalidValue;
+      Args b = a;
+      b.nsl = vs::attn::head_slices(Dh);
+      return b.nsl > 0 ? launch_mma_sliced<NORM_FIRST, OutT, QK8>(b, stream)
+                       : cudaErrorInvalidValue;
+    }
   }
 }
 

@@ -140,6 +140,7 @@ struct RingArgs {
   unsigned seed, thr;
   float kscale;        // 1 / (1 - rate) rounded to f32
   int b0, q0, k0;      // the shard's global batch, query and key offsets
+  int nsl;             // the sliced kernels: 128-column slices of a head
 };
 
 // rows r0 .. r0 + rows - 1 (those below N) of a (N, DH) matrix, copied
@@ -610,6 +611,451 @@ __global__ void __launch_bounds__(2 * kTx * TY, 1)
   }
 }
 
+// --------------------------------------------------------- head_dim slices
+// The three kernels over a head of nsl * 128 columns (attention_core.cuh's
+// head_dim slices): the tensors are (B, H, N, nsl * 128), grid.y runs over
+// (head, slice). s and dp are summed over the slices, one 128-column slice
+// of each operand staged at a time (cp.async, then a wait), each score's
+// FMAs in increasing column order over the whole head, so every slice CTA
+// of a row folds the same scores into the same m and l; the products that
+// keep head_dim take the CTA's own slice of v, o, dq, dk and dv, and the
+// slice-0 CTA writes m and l (the others hold the same bits). The carries
+// of a block with no unpadded key, and the dk, dv rows of a CTA whose keys
+// are all padded, pass through slice by slice. CTA shapes: (16, 4) forward
+// and dQ, (8, 4) dK/dV (ring_shapes past head_dim 64 and 128); the shared
+// memory of the unsliced kernels at 128 (fwd_floats, dq_floats,
+// dkdv_floats: 119,872, 221,312 and 188,928 bytes, plus the tile lists).
+
+// rows r0 .. r0 + rows - 1 (those below N) of the own 128-column slice c0
+// of a matrix at row stride ld, copied
+template <int THREADS>
+__device__ __forceinline__ void copy_slice_rows(float* dst, const float* src,
+                                                int r0, int rows, int N,
+                                                long long ld, int c0) {
+  constexpr int CH = vs::attn::kSliceDh / 4;
+  const int n = min(rows, N - r0) * CH;
+  for (int c = threadIdx.x; c < n; c += THREADS) {
+    const long long e = (long long)(r0 + c / CH) * ld + c0 + (c % CH) * 4;
+    *reinterpret_cast<float4*>(dst + e) =
+        *reinterpret_cast<const float4*>(src + e);
+  }
+}
+
+// add_row at row stride ld
+template <int COLS>
+__device__ __forceinline__ void add_slice_row(float* out, const float* in,
+                                              const float (&acc)[COLS],
+                                              long long row, long long ld,
+                                              int c0, int tx, bool pass) {
+  constexpr int CW = kFmaCw<COLS>;
+#pragma unroll
+  for (int n = 0; n < COLS; n += CW) {
+    const long long e = row * ld + c0 + fma_col<COLS>(tx, n);
+    float x[CW];
+    ld_vec<CW>(x, in + e);
+    if (!pass) {
+#pragma unroll
+      for (int j = 0; j < CW; ++j) x[j] += acc[n + j];
+    }
+    st_vec<CW>(out + e, x);
+  }
+}
+
+template <int TY, int RI>
+__global__ void __launch_bounds__(kTx * TY, 2)
+    ring_fwd_sliced_kernel(const RingArgs a) {
+  constexpr int DH = vs::attn::kSliceDh, ROWS = RI * TY, THREADS = kTx * TY;
+  constexpr int LD = kFmaLd<DH>, COLS = DH / kTx, CW = kFmaCw<COLS>;
+  extern __shared__ __align__(16) float smem[];
+  float* Qs = smem;            // [ROWS][LD], slice j
+  float* Ks = Qs + ROWS * LD;  // [kT][LD], slice j
+  float* Vs = Ks + kT * LD;    // [kT][LD], own slice
+  float* Ps = Vs + kT * LD;    // [ROWS][kSLd], dropped p
+  unsigned char* Ms = reinterpret_cast<unsigned char*>(Ps + ROWS * kSLd);
+  int* tiles = reinterpret_cast<int*>(Ms + kT);
+  int* count = tiles + a.Nk / kT;
+
+  const int nsl = a.nsl, tid = threadIdx.x, ty = tid / kTx, tx = tid % kTx;
+  const int q0 = blockIdx.x * ROWS, h = blockIdx.y / nsl;
+  const int sl = blockIdx.y % nsl, b = blockIdx.z;
+  const int Nq = a.Nq, Nk = a.Nk;
+  const long long RS = (long long)nsl * DH;  // row stride
+  const long long rq = ((long long)b * a.H + h) * Nq;
+  const long long rk = ((long long)b * a.H + h) * Nk;
+  const float* qh = a.q + rq * RS;
+  const float* kh = a.k + rk * RS;
+  const float* vh = a.v + rk * RS + sl * DH;
+  const unsigned char* mrow = a.mask + (long long)b * Nk;
+  const unsigned base = hash_base(kHashBlock, a.seed, a.b0 + b, h);
+
+  live_tiles(mrow, Nk, tiles, count, false);
+  __syncthreads();  // the tile list
+  const int nlive = *count;
+  if (nlive == 0) {  // no unpadded key: the carry passes through
+    copy_slice_rows<THREADS>(a.o_out + rq * RS, a.o_in + rq * RS, q0, ROWS,
+                             Nq, RS, sl * DH);
+    if (sl == 0)
+      for (int r = tid; r < ROWS && q0 + r < Nq; r += THREADS) {
+        a.m_out[rq + q0 + r] = a.m_in[rq + q0 + r];
+        a.l_out[rq + q0 + r] = a.l_in[rq + q0 + r];
+      }
+    return;
+  }
+
+  float m[RI], l[RI], acc[RI][COLS];
+#pragma unroll
+  for (int i = 0; i < RI; ++i) {
+    const int row = q0 + ty + TY * i;
+    m[i] = -INFINITY;
+    l[i] = 0.f;
+#pragma unroll
+    for (int n = 0; n < COLS; ++n) acc[i][n] = 0.f;
+    if (row < Nq) {
+      m[i] = a.m_in[rq + row];
+      l[i] = a.l_in[rq + row];
+#pragma unroll
+      for (int n = 0; n < COLS; n += CW)
+        ld_vec<CW>(&acc[i][n],
+                   a.o_in + (rq + row) * RS + sl * DH + fma_col<COLS>(tx, n));
+    }
+  }
+  for (int it = 0; it < nlive; ++it) {
+    const int kt = tiles[it] * kT;
+    float s[RI][kSj];
+    for (int j = 0; j < nsl; ++j) {
+      __syncthreads();  // the last readers of every tile and of Ps are done
+      fma_stage<DH, THREADS>(Qs, qh + j * DH, RS, q0, ROWS, Nq);
+      fma_stage<DH, THREADS>(Ks, kh + j * DH, RS, kt, kT, Nk);
+      if (j == 0 && tid < kT / 16)
+        cp_async16(Ms + 16 * tid, mrow + kt + 16 * tid);
+      if (j == nsl - 1) fma_stage<DH, THREADS>(Vs, vh, RS, kt, kT, Nk);
+      cp_async_commit();
+      cp_async_wait<0>();
+      __syncthreads();
+      if (j == 0)
+        fma_scores<DH, RI, TY>(s, Qs, Ks, ty, tx);
+      else
+        fma_scores<DH, RI, TY, false>(s, Qs, Ks, ty, tx);
+    }
+    bool km[kSj];
+#pragma unroll
+    for (int j = 0; j < kSj; ++j) km[j] = Ms[tx + kTx * j] != 0;
+    const int k0 = a.k0 + kt;
+#pragma unroll
+    for (int i = 0; i < RI; ++i) {
+      const int qi = a.q0 + q0 + ty + TY * i;
+      float mx = -INFINITY;
+#pragma unroll
+      for (int j = 0; j < kSj; ++j) {
+        if (km[j]) s[i][j] = -INFINITY;
+        mx = fmaxf(mx, s[i][j]);
+      }
+      const float m_new = fmaxf(m[i], group_max<kTx>(mx));
+      const bool dead = m_new < kDead;
+      const float m_safe = dead ? 0.f : m_new;
+      const float corr = m[i] < kDead ? 0.f : ex2((m[i] - m_safe) * kLog2e);
+      float rs = 0.f;
+#pragma unroll
+      for (int j = 0; j < kSj; ++j) {
+        const int kj = tx + kTx * j;
+        const float p = dead ? 0.f : ex2((s[i][j] - m_safe) * kLog2e);
+        rs += p;
+        Ps[(ty + TY * i) * kSLd + kj] =
+            keep_bit(base, qi, k0 + kj, a.thr) ? p * a.kscale : 0.f;
+      }
+      l[i] = l[i] * corr + group_sum<kTx>(rs);
+      m[i] = m_new;
+#pragma unroll
+      for (int n = 0; n < COLS; ++n) acc[i][n] *= corr;
+    }
+    __syncthreads();  // P written
+    fma_rows_mul<DH, RI, TY, COLS>(acc, Ps, Vs, 0, ty, tx);
+  }
+
+#pragma unroll
+  for (int i = 0; i < RI; ++i) {
+    const int row = q0 + ty + TY * i;
+    if (row >= Nq) continue;
+#pragma unroll
+    for (int n = 0; n < COLS; n += CW)
+      st_vec<CW>(a.o_out + (rq + row) * RS + sl * DH + fma_col<COLS>(tx, n),
+                 &acc[i][n]);
+    if (sl == 0 && tx == 0) {
+      a.m_out[rq + row] = m[i];
+      a.l_out[rq + row] = l[i];
+    }
+  }
+}
+
+template <int TY, int RI>
+__global__ void __launch_bounds__(2 * kTx * TY, 1)
+    ring_dq_sliced_kernel(const RingArgs a) {
+  constexpr int DH = vs::attn::kSliceDh, ROWS = RI * TY, GROUP = kTx * TY;
+  constexpr int THREADS = 2 * GROUP, LD = kFmaLd<DH>;
+  constexpr int COLS = DH / (2 * kTx);
+  extern __shared__ __align__(16) float smem[];
+  float* Qs = smem;              // [ROWS][LD], slice j
+  float* Gs = Qs + ROWS * LD;    // [ROWS][LD], slice j
+  float* Ks = Gs + ROWS * LD;    // [2][kT][LD]: slice j, own slice
+  float* Vs = Ks + 2 * kT * LD;  // [kT][LD], slice j
+  float* Ss = Vs + 2 * kT * LD;  // [ROWS][kSLd]: w, then ds
+  unsigned char* Ms = reinterpret_cast<unsigned char*>(Ss + ROWS * kSLd);
+  int* tiles = reinterpret_cast<int*>(Ms + 2 * kT);
+  int* count = tiles + a.Nk / kT;
+
+  const int nsl = a.nsl, tid = threadIdx.x, grp = tid / GROUP;
+  const int gt = tid % GROUP, ty = gt / kTx, tx = gt % kTx;
+  const int q0 = blockIdx.x * ROWS, h = blockIdx.y / nsl;
+  const int sl = blockIdx.y % nsl, b = blockIdx.z;
+  const int Nq = a.Nq, Nk = a.Nk;
+  const long long RS = (long long)nsl * DH;
+  const long long rq = ((long long)b * a.H + h) * Nq;
+  const long long rk = ((long long)b * a.H + h) * Nk;
+  const float* qh = a.q + rq * RS;
+  const float* gh = a.g + rq * RS;
+  const float* kh = a.k + rk * RS;
+  const float* vh = a.v + rk * RS;
+  const unsigned char* mrow = a.mask + (long long)b * Nk;
+  const unsigned base = hash_base(kHashBlock, a.seed, a.b0 + b, h);
+
+  live_tiles(mrow, Nk, tiles, count, false);
+  __syncthreads();  // the tile list
+  const int nlive = *count;
+  if (nlive == 0) {  // no unpadded key: dq passes through
+    copy_slice_rows<THREADS>(a.dq_out + rq * RS, a.dq_in + rq * RS, q0, ROWS,
+                             Nq, RS, sl * DH);
+    return;
+  }
+
+  float ra[RI], rb[RI];
+#pragma unroll
+  for (int i = 0; i < RI; ++i) {
+    const int row = q0 + ty + TY * i;
+    ra[i] = grp == 0 ? INFINITY : 0.f;
+    rb[i] = 0.f;
+    if (row >= Nq) continue;
+    if (grp == 0) {
+      const float mi = a.m_in[rq + row], li = a.l_in[rq + row];
+      ra[i] = mi < kDead ? INFINITY : mi;
+      rb[i] = 1.f / (li == 0.f ? 1.f : li);
+    } else {
+      ra[i] = a.D[rq + row];
+    }
+  }
+
+  float acc[RI][COLS];
+#pragma unroll
+  for (int i = 0; i < RI; ++i)
+#pragma unroll
+    for (int n = 0; n < COLS; ++n) acc[i][n] = 0.f;
+  for (int v = 0; v < nlive; ++v) {
+    const int kt = tiles[v] * kT;
+    float s[RI][kSj];
+    for (int j = 0; j < nsl; ++j) {
+      __syncthreads();  // the last readers of every tile and of Ss are done
+      fma_stage<DH, THREADS>(Qs, qh + j * DH, RS, q0, ROWS, Nq);
+      fma_stage<DH, THREADS>(Gs, gh + j * DH, RS, q0, ROWS, Nq);
+      fma_stage<DH, THREADS>(Ks, kh + j * DH, RS, kt, kT, Nk);
+      fma_stage<DH, THREADS>(Vs, vh + j * DH, RS, kt, kT, Nk);
+      if (j == 0 && tid < kT / 16)
+        cp_async16(Ms + 16 * tid, mrow + kt + 16 * tid);
+      if (j == nsl - 1)
+        fma_stage<DH, THREADS>(Ks + kT * LD, kh + sl * DH, RS, kt, kT, Nk);
+      cp_async_commit();
+      cp_async_wait<0>();
+      __syncthreads();
+      const float* A = grp == 0 ? Qs : Gs;
+      const float* Bt = grp == 0 ? Ks : Vs;
+      if (j == 0)
+        fma_scores<DH, RI, TY>(s, A, Bt, ty, tx);
+      else
+        fma_scores<DH, RI, TY, false>(s, A, Bt, ty, tx);
+    }
+    const int k0 = a.k0 + kt;
+    if (grp == 0) {
+#pragma unroll
+      for (int i = 0; i < RI; ++i)
+#pragma unroll
+        for (int j = 0; j < kSj; ++j) {
+          const float sv = Ms[tx + kTx * j] != 0 ? -INFINITY : s[i][j];
+          Ss[(ty + TY * i) * kSLd + tx + kTx * j] =
+              ex2((sv - ra[i]) * kLog2e) * rb[i];
+        }
+    } else {
+#pragma unroll
+      for (int i = 0; i < RI; ++i)
+#pragma unroll
+        for (int j = 0; j < kSj; ++j)
+          s[i][j] = keep_bit(base, a.q0 + q0 + ty + TY * i, k0 + tx + kTx * j,
+                             a.thr) ? s[i][j] * a.kscale : 0.f;
+    }
+    __syncthreads();  // w
+    if (grp == 1) {
+#pragma unroll
+      for (int i = 0; i < RI; ++i)
+#pragma unroll
+        for (int j = 0; j < kSj; ++j) {
+          float* sp = Ss + (ty + TY * i) * kSLd + tx + kTx * j;
+          *sp = *sp * (s[i][j] - ra[i]);
+        }
+    }
+    __syncthreads();  // ds
+    fma_rows_mul<DH, RI, TY, COLS>(acc, Ss, Ks + kT * LD, grp * (DH / 2), ty,
+                                   tx);
+  }
+
+#pragma unroll
+  for (int i = 0; i < RI; ++i) {
+    const int row = q0 + ty + TY * i;
+    if (row < Nq)
+      add_slice_row<COLS>(a.dq_out, a.dq_in, acc[i], rq + row, RS,
+                          sl * DH + grp * (DH / 2), tx, false);
+  }
+}
+
+template <int TY, int RI>
+__global__ void __launch_bounds__(2 * kTx * TY, 1)
+    ring_dkdv_sliced_kernel(const RingArgs a) {
+  constexpr int DH = vs::attn::kSliceDh, ROWS = RI * TY, GROUP = kTx * TY;
+  constexpr int THREADS = 2 * GROUP, LD = kFmaLd<DH>;
+  constexpr int COLS = DH / kTx, TILE = kT * LD;
+  extern __shared__ __align__(16) float smem[];
+  float* Ks = smem;                // [ROWS][LD], slice j
+  float* Vs = Ks + ROWS * LD;      // [ROWS][LD], slice j
+  float* Qs = Vs + ROWS * LD;      // [2][kT][LD]: slice j, own slice
+  float* Gs = Qs + 2 * TILE;       // [2][kT][LD]: slice j, own slice
+  float* Pd = Gs + 2 * TILE;       // [ROWS][kSLd], keys x queries
+  float* Ss = Pd + ROWS * kSLd;    // [ROWS][kSLd]: w, then ds
+  float* St = Ss + ROWS * kSLd;    // [3][kT]: m, 1 / l, D
+
+  const int nsl = a.nsl, tid = threadIdx.x, grp = tid / GROUP;
+  const int gt = tid % GROUP, ty = gt / kTx, tx = gt % kTx;
+  const int k0 = blockIdx.x * ROWS, h = blockIdx.y / nsl;
+  const int sl = blockIdx.y % nsl, b = blockIdx.z;
+  const int Nq = a.Nq, Nk = a.Nk;
+  const long long RS = (long long)nsl * DH;
+  const long long rq = ((long long)b * a.H + h) * Nq;
+  const long long rk = ((long long)b * a.H + h) * Nk;
+  const unsigned char* mrow = a.mask + (long long)b * Nk;
+
+  bool live = false;
+  if (tid < ROWS / 16 && k0 + 16 * tid < Nk)
+    live = vs::any_live16(mrow + k0 + 16 * tid);
+  if (!__syncthreads_or(live)) {
+    copy_slice_rows<THREADS>(a.dk_out + rk * RS, a.dk_in + rk * RS, k0, ROWS,
+                             Nk, RS, sl * DH);
+    copy_slice_rows<THREADS>(a.dv_out + rk * RS, a.dv_in + rk * RS, k0, ROWS,
+                             Nk, RS, sl * DH);
+    return;
+  }
+
+  const float* kh = a.k + rk * RS;
+  const float* vh = a.v + rk * RS;
+  const float* qh = a.q + rq * RS;
+  const float* gh = a.g + rq * RS;
+  const unsigned base = hash_base(kHashBlock, a.seed, a.b0 + b, h);
+  bool km[RI];
+#pragma unroll
+  for (int i = 0; i < RI; ++i) {
+    const int key = k0 + ty + TY * i;
+    km[i] = key >= Nk || mrow[key] != 0;
+  }
+  float acc[RI][COLS];  // dV in group 0, dK in group 1
+#pragma unroll
+  for (int i = 0; i < RI; ++i)
+#pragma unroll
+    for (int n = 0; n < COLS; ++n) acc[i][n] = 0.f;
+
+  const int ntq = Nq / kT;
+  for (int qt = 0; qt < ntq; ++qt) {
+    const int q0 = qt * kT;
+    float s[RI][kSj];
+    for (int j = 0; j < nsl; ++j) {
+      __syncthreads();  // the last readers of every tile, Pd and Ss are done
+      fma_stage<DH, THREADS>(Ks, kh + j * DH, RS, k0, ROWS, Nk);
+      fma_stage<DH, THREADS>(Vs, vh + j * DH, RS, k0, ROWS, Nk);
+      fma_stage<DH, THREADS>(Qs, qh + j * DH, RS, q0, kT, Nq);
+      fma_stage<DH, THREADS>(Gs, gh + j * DH, RS, q0, kT, Nq);
+      if (j == 0 && tid < 3 * kT / 4) {
+        const int w = tid / (kT / 4), c = 4 * (tid % (kT / 4));
+        const float* src = w == 0 ? a.m_in : w == 1 ? a.l_in : a.D;
+        cp_async16(St + w * kT + c, src + rq + q0 + c);
+      }
+      if (j == nsl - 1) {
+        fma_stage<DH, THREADS>(Qs + TILE, qh + sl * DH, RS, q0, kT, Nq);
+        fma_stage<DH, THREADS>(Gs + TILE, gh + sl * DH, RS, q0, kT, Nq);
+      }
+      cp_async_commit();
+      cp_async_wait<0>();
+      if (j == 0 && tid < kT / 2) {
+        // the m or l whose copy this thread issued: m -> +inf on a row
+        // below _DEAD, l -> 1 / l (1 where l is 0)
+        float* x = St + (tid / (kT / 4)) * kT + 4 * (tid % (kT / 4));
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          x[e] = tid < kT / 4 ? (x[e] < kDead ? INFINITY : x[e])
+                              : 1.f / (x[e] == 0.f ? 1.f : x[e]);
+      }
+      __syncthreads();
+      const float* A = grp == 0 ? Ks : Vs;
+      const float* Bt = grp == 0 ? Qs : Gs;
+      if (j == 0)
+        fma_scores<DH, RI, TY>(s, A, Bt, ty, tx);
+      else
+        fma_scores<DH, RI, TY, false>(s, A, Bt, ty, tx);
+    }
+    const float* Mt = St;
+    const float* Lt = Mt + kT;
+    const float* Dt = Lt + kT;
+    if (grp == 0) {
+#pragma unroll
+      for (int i = 0; i < RI; ++i)
+#pragma unroll
+        for (int j = 0; j < kSj; ++j) {
+          const int qj = tx + kTx * j, o = (ty + TY * i) * kSLd + qj;
+          const float sv = km[i] ? -INFINITY : s[i][j];
+          const float w = ex2((sv - Mt[qj]) * kLog2e) * Lt[qj];
+          Ss[o] = w;
+          Pd[o] = keep_bit(base, a.q0 + q0 + qj, a.k0 + k0 + ty + TY * i,
+                           a.thr) ? w * a.kscale : 0.f;
+        }
+    } else {
+#pragma unroll
+      for (int i = 0; i < RI; ++i)
+#pragma unroll
+        for (int j = 0; j < kSj; ++j)
+          s[i][j] = keep_bit(base, a.q0 + q0 + tx + kTx * j,
+                             a.k0 + k0 + ty + TY * i, a.thr)
+                        ? s[i][j] * a.kscale : 0.f;
+    }
+    __syncthreads();  // w
+    if (grp == 1) {
+#pragma unroll
+      for (int i = 0; i < RI; ++i)
+#pragma unroll
+        for (int j = 0; j < kSj; ++j) {
+          const int qj = tx + kTx * j;
+          float* sp = Ss + (ty + TY * i) * kSLd + qj;
+          *sp = *sp * (s[i][j] - Dt[qj]);
+        }
+    }
+    __syncthreads();  // ds
+    if (grp == 0)
+      fma_rows_mul<DH, RI, TY, COLS>(acc, Pd, Gs + TILE, 0, ty, tx);
+    else
+      fma_rows_mul<DH, RI, TY, COLS>(acc, Ss, Qs + TILE, 0, ty, tx);
+  }
+
+  float* dst = grp == 0 ? a.dv_out : a.dk_out;
+  const float* src = grp == 0 ? a.dv_in : a.dk_in;
+#pragma unroll
+  for (int i = 0; i < RI; ++i) {
+    const int key = k0 + ty + TY * i;
+    if (key < Nk)
+      add_slice_row<COLS>(dst, src, acc[i], rk + key, RS, sl * DH, tx, km[i]);
+  }
+}
+
 // ------------------------------------------------------------------ launches
 bool shape_ok(int B, int H, int Nq, int Nk, int Dh) {
   return B > 0 && H > 0 && Nq > 0 && Nk > 0 && Nq % kT == 0 &&
@@ -671,6 +1117,44 @@ cudaError_t run_shape(const RingArgs& a, int B, int depth, int ri,
   return cudaErrorInvalidValue;
 }
 
+// One launch of sliced kernel K over nsl slices, in its one CTA shape
+// ((16, 4) forward and dQ, (8, 4) dK/dV), or with slots given, the CTAs of
+// it an SM holds
+template <int K>
+cudaError_t run_sliced(const RingArgs& a, int B, int nsl, int depth, int ri,
+                       cudaStream_t s, int* slots) {
+  constexpr int DH = vs::attn::kSliceDh, TY = K == 2 ? 8 : 16, RI = 4;
+  constexpr int ROWS = RI * TY, THREADS = (K == 0 ? 1 : 2) * kTx * TY;
+  if (depth != TY || ri != RI || nsl <= 0 || (long long)a.H * nsl > 65535)
+    return cudaErrorInvalidValue;
+  void (*kernel)(const RingArgs);
+  int floats, rows;
+  if constexpr (K == 0) {
+    kernel = ring_fwd_sliced_kernel<TY, RI>;
+    floats = fwd_floats<DH, TY, RI>() + a.Nk / kT + 1;
+    rows = a.Nq;
+  } else if constexpr (K == 1) {
+    kernel = ring_dq_sliced_kernel<TY, RI>;
+    floats = dq_floats<DH, TY, RI>() + a.Nk / kT + 1;
+    rows = a.Nq;
+  } else {
+    kernel = ring_dkdv_sliced_kernel<TY, RI>;
+    floats = dkdv_floats<DH, TY, RI>();
+    rows = a.Nk;
+  }
+  const int bytes = floats * (int)sizeof(float);
+  cudaError_t err = vs::attn::allow_smem(kernel, bytes);
+  if (err != cudaSuccess) return err;
+  if (slots != nullptr)
+    return cudaOccupancyMaxActiveBlocksPerMultiprocessor(slots, kernel,
+                                                         THREADS, bytes);
+  RingArgs b = a;
+  b.nsl = nsl;
+  kernel<<<dim3((rows + ROWS - 1) / ROWS, a.H * nsl, B), THREADS, bytes, s>>>(
+      b);
+  return cudaGetLastError();
+}
+
 template <int K>
 cudaError_t launch(const RingArgs& a, int B, int Dh, int depth, int ri,
                    cudaStream_t s, int* slots = nullptr) {
@@ -680,7 +1164,9 @@ cudaError_t launch(const RingArgs& a, int B, int Dh, int depth, int ri,
     case 64: return run_shape<K, 64>(a, B, depth, ri, s, slots);
     case 96: return run_shape<K, 96>(a, B, depth, ri, s, slots);
     case 128: return run_shape<K, 128>(a, B, depth, ri, s, slots);
-    default: return cudaErrorInvalidValue;
+    default:
+      return run_sliced<K>(a, B, vs::attn::head_slices(Dh), depth, ri, s,
+                           slots);
   }
 }
 

@@ -32,13 +32,15 @@ HEADERS = ("common.cuh", "attention_core.cuh", "attention_train_mma.cuh",
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 
-# The shapes every kernel family takes: head_dim (the attention kernels are
-# instantiated for these; 96 is d_model 384 with 4 heads and 768 with 8;
-# any other head_dim up to 128 runs zero-padded to the next of them, see
-# kernel_head_dim) and d_model (d % 32 == 0; the row kernels hold a row of
-# up to 1,024 in a warp). Every wrapper's guard reads these.
+# The head_dims the attention kernels are instantiated for (96 is d_model
+# 384 with 4 heads and 768 with 8): any other head_dim up to 128 runs
+# zero-padded to the next of them, and a wider one in slices of the widest,
+# SLICE_DH (see kernel_head_dim). d_model takes any width: LayerNorm rows
+# past 1,024 columns, or off the 32-column grid, take the row kernels'
+# looping variants (ln_rows_path), and the int8 GEMM pads K to its 32-deep
+# steps. The only limit left is the card's memory.
 HEAD_DIMS = (16, 32, 64, 96, 128)
-MAX_D_MODEL = 1024
+SLICE_DH = HEAD_DIMS[-1]
 
 _vp, _int, _uint, _ll, _f32 = (ctypes.c_void_p, ctypes.c_int, ctypes.c_uint,
                                ctypes.c_longlong, ctypes.c_float)
@@ -175,18 +177,30 @@ def ptr(t) -> Optional[int]:
 
 def kernel_head_dim(Dh: int, what: str) -> int:
     """The head_dim the attention kernels run a head of ``Dh`` at: the
-    smallest entry of ``HEAD_DIMS`` that holds it. The wrappers zero-pad q,
-    k and v (and o and its cotangent) along head_dim to that width and
-    slice the results back, which is exact: zero columns add nothing to
-    Q.K^T (so the scores, the softmax and the caller's scale are those of
-    the unpadded head), V's zero columns give zero output columns, and the
-    padded columns of dQ, dK and dV are zero. Raises ``ValueError`` past
-    the widest (the kernels' register tiles end at 128)."""
+    smallest entry of ``HEAD_DIMS`` that holds it, or past the widest a
+    multiple of it, ``head_slices(Dh) * SLICE_DH`` (160 -> 256, 320 ->
+    384), which every kernel family runs in slices of ``SLICE_DH`` columns
+    (one CTA a slice; the scores summed over all of them). The wrappers
+    zero-pad q, k and v (and o and its cotangent) along head_dim to that
+    width and slice the results back, which is exact: zero columns add
+    nothing to Q.K^T (so the scores, the softmax and the caller's scale are
+    those of the unpadded head), V's zero columns give zero output
+    columns, and the padded columns of dQ, dK and dV are zero. Raises
+    ``ValueError`` only for a head_dim below 1."""
+    if Dh <= 0:
+        raise ValueError(f"{what} take head_dim >= 1, got {Dh}")
     for dp in HEAD_DIMS:
-        if 0 < Dh <= dp:
+        if Dh <= dp:
             return dp
-    raise ValueError(f"{what} take head_dim up to {HEAD_DIMS[-1]} (run "
-                     f"zero-padded to one of {HEAD_DIMS}), got {Dh}")
+    return head_slices(Dh) * SLICE_DH
+
+
+def head_slices(Dh: int) -> int:
+    """The ``SLICE_DH``-column slices the kernels run a head of ``Dh`` in:
+    1 up to ``SLICE_DH``, else ceil(Dh / SLICE_DH). Each slice's CTAs
+    recompute the head's scores, so the attention's products past the
+    output cost this factor over the bound."""
+    return max(1, -(-Dh // SLICE_DH))
 
 
 def pad_head_dim(t, dp: int):
@@ -199,23 +213,28 @@ def pad_head_dim(t, dp: int):
     return torch.nn.functional.pad(t, (0, dp - t.shape[-1]))
 
 
-def check_d_model(d: int, what: str) -> None:
-    if d % 32 or not 0 < d <= MAX_D_MODEL:
-        raise ValueError(f"{what} take d_model a multiple of 32 up to "
-                         f"{MAX_D_MODEL}, got {d}")
-
-
 # The GEMMs' residual+LayerNorm epilogue holds a row of up to LN_TILE
-# columns in one CTA tile; wider rows, up to MAX_D_MODEL, go through an f32
-# buffer and a row kernel (in f32 every row; the row kernel holds 16 values
-# a lane up to d 512, 24 up to 768 and 32 past it).
+# columns in one CTA tile; wider rows go through an f32 buffer and a row
+# kernel (in f32 every row; the row kernel holds 16 values a lane up to d
+# 512, 24 up to 768 and 32 up to LN_ROWS_MAX; past it the row kernel's
+# looping variant walks the row from device memory).
 LN_TILE = 256
+LN_ROWS_MAX = 1024
 
 
-def check_ln_rows(N: int) -> None:
-    if N > MAX_D_MODEL:
-        raise ValueError(f"the residual+LayerNorm epilogue takes rows of "
-                         f"N <= {MAX_D_MODEL}, got N={N}")
+def ln_rows_path(N: int, f32: bool) -> str:
+    """Which kernel normalises a residual+LayerNorm row of ``N`` columns
+    after a serving GEMM: ``"tile"`` (bf16 and int8 rows of up to
+    ``LN_TILE``, in the GEMM's CTA), ``"rows"`` (``common.cuh``'s
+    ``layernorm_rows_kernel``, a row held in a warp's registers) or
+    ``"wide"`` (``layernorm_rows_wide_kernel``, past ``LN_ROWS_MAX``). The
+    training block's row kernels (``block_train.cu``) take ``"wide"`` also
+    for d off the 32-column grid."""
+    if N <= 0:
+        raise ValueError(f"a LayerNorm row needs N >= 1, got {N}")
+    if N > LN_ROWS_MAX:
+        return "wide"
+    return "rows" if f32 or N > LN_TILE else "tile"
 
 
 def aligned16(t):

@@ -127,10 +127,12 @@ def masked_attention(q, k, v, pad_mask, scale: float,
     """Launch ``csrc/masked_attention.cu`` on CUDA tensors.
 
     ``q``/``k``/``v`` are (B, H, N, Dh) views with equal strides and a
-    contiguous last dim (they may be slices of one fused QKV buffer), Dh up
-    to 128 (a head_dim off ``_cuda.HEAD_DIMS`` runs zero-padded to the next
-    entry, ``_cuda.kernel_head_dim``; with ``qk_scales`` the int8 codes
-    are padded with zero codes, so the scales stay the unpadded rows');
+    contiguous last dim (they may be slices of one fused QKV buffer), any
+    Dh (a head_dim off ``_cuda.HEAD_DIMS`` runs zero-padded to the next
+    entry, one past 128 to a multiple of 128 that the kernels run in
+    128-column slices: ``_cuda.kernel_head_dim``; with ``qk_scales`` the
+    int8 codes are padded with zero codes, so the scales stay the unpadded
+    rows');
     ``pad_mask`` is (B, N) bool, True at padded keys;
     ``out``, if given, is a (B, H, N, Dh) view to write into, in v's dtype
     or, for bf16 inputs with ``norm_first``, in f32 (the int8 block's attn).

@@ -223,9 +223,10 @@ def gemm_bias_epilogue(x, w, bias, epilogue: str = "none", residual=None,
 
     x (M, K) and w (N, K) in one dtype, each with a unit column stride (rows
     may be strided); bias (N,) f32; ``residual`` (M, N) in x's dtype or f32,
-    with ``ln_g``/``ln_b`` (N,) f32, for ``"residual_ln"`` (N <= 1,024; past
-    256, and in f32 always, the kernel normalises an f32 buffer in a
-    second launch). Returns
+    with ``ln_g``/``ln_b`` (N,) f32, for ``"residual_ln"`` (past 256
+    columns, and in f32 always, the kernel normalises an f32 buffer in a
+    second launch: :func:`~vidsum_tpu_torch.ops._cuda.ln_rows_path`).
+    Returns
     ``(y in x's dtype or None, y in f32 or None)`` as ``want_t`` /
     ``want_f32`` ask. bf16 takes the wgmma kernel where
     :func:`gemm_takes_wgmma` holds, in :func:`gemm_cta_rows` x
@@ -250,7 +251,6 @@ def gemm_bias_epilogue(x, w, bias, epilogue: str = "none", residual=None,
         raise ValueError(f"unknown epilogue {epilogue!r}")
     res_t = res_f = None
     if epilogue == "residual_ln":
-        _cuda.check_ln_rows(N)
         if residual.shape != (M, N) or not residual.is_contiguous():
             raise ValueError("residual must be a contiguous (M, N) tensor")
         if residual.dtype == torch.float32:
@@ -266,7 +266,7 @@ def gemm_bias_epilogue(x, w, bias, epilogue: str = "none", residual=None,
     # a LayerNorm row the CTA does not hold (all in f32) needs the f32
     # buffer, asked for or not
     need_f = want_f32 or (epilogue == "residual_ln"
-                          and (f32 or N > _cuda.LN_TILE))
+                          and _cuda.ln_rows_path(N, f32) != "tile")
     # in f32 the two outputs are one tensor, returned in both slots
     both = f32 and want_t and need_f
     out_t = torch.empty((M, N), dtype=x.dtype, device=x.device) \

@@ -360,7 +360,8 @@ def _unpad_heads(t, heads: int, Dh: int, Dp: int):
 
 def _attention_fwd(qkv, mask8, B, H, N, scale, dr: _Drop, keep: bool):
     """(o, lse, kept only with ``keep``) of the attention over the fused QKV
-    buffer. A head_dim off ``_cuda.HEAD_DIMS`` runs on a copy of the buffer
+    buffer. A head_dim off ``_cuda.HEAD_DIMS`` (one past 128 included: the
+    kernels run it in 128-column slices) runs on a copy of the buffer
     with every head zero-padded to ``_cuda.kernel_head_dim`` (exact; the
     output is sliced back)."""
     d = qkv.shape[1] // 3
@@ -404,7 +405,6 @@ def _check_cuda_inputs(x, w: TrainWeights, num_heads: int) -> None:
         raise ValueError(f"N={N} must be a multiple of {TILE}")
     if d % num_heads:
         raise ValueError(f"d_model {d} does not split over {num_heads} heads")
-    _cuda.check_d_model(d, "the training kernels")
     _cuda.kernel_head_dim(d // num_heads, "the training kernels")
     for t in w:
         if t.dtype != torch.float32 or not t.is_contiguous() \

@@ -164,10 +164,13 @@ def int8_gemm(xq, sx, wq, sw, bias, epilogue: str = "none", residual=None,
     ``vs_int8_gemm`` (``csrc/int8_gemm.cu``: ``wgmma`` s8 from a TMA-filled
     ring, in :func:`int8_gemm_tile` CTAs).
 
-    xq (M, K) and wq (N, K) int8, contiguous, K % 32 == 0; sx (M,) or (M, 1)
+    xq (M, K) and wq (N, K) int8, contiguous (K off the kernel's 32-deep
+    steps is zero-padded to them: zero codes add nothing, and the scales
+    stay those of the real columns); sx (M,) or (M, 1)
     and sw (N,) f32 scales; bias (N,) f32. ``epilogue``: ``"none"``,
     ``"relu"``, ``"residual_ln"`` (``residual`` (M, N) in f32 or
-    ``out_dtype``, with ``ln_g``/``ln_b`` (N,) f32; N <= 1,024) or
+    ``out_dtype``, with ``ln_g``/``ln_b`` (N,) f32; rows of any width,
+    :func:`~vidsum_tpu_torch.ops._cuda.ln_rows_path`) or
     ``"shift"`` (returns the int8 ``(acc >> 8)``, the probe's epilogue; the
     scales and bias are not read). Returns ``(y in out_dtype or None, y f32
     or None, codes or None, scales (M,) or None)``: ``want_q`` asks for the
@@ -189,7 +192,10 @@ def int8_gemm(xq, sx, wq, sw, bias, epilogue: str = "none", residual=None,
     if not (xq.is_contiguous() and wq.is_contiguous()):
         raise ValueError("xq and wq must be contiguous")
     if K % 32:
-        raise ValueError(f"the int8 GEMM takes K % 32 == 0, got K={K}")
+        pad = (0, -K % 32)
+        xq = torch.nn.functional.pad(xq, pad)
+        wq = torch.nn.functional.pad(wq, pad)
+        K = xq.shape[1]
     dev = xq.device
     staged = xq.data_ptr() % 16 or wq.data_ptr() % 16
     xq, wq = _cuda.aligned16(xq), _cuda.aligned16(wq)
@@ -216,7 +222,6 @@ def int8_gemm(xq, sx, wq, sw, bias, epilogue: str = "none", residual=None,
                           else torch.float32)
     res_t = res_f = None
     if epilogue == "residual_ln":
-        _cuda.check_ln_rows(N)
         if residual.shape != (M, N) or not residual.is_contiguous():
             raise ValueError("residual must be a contiguous (M, N) tensor")
         # the epilogue reads it in 16-byte row segments
@@ -234,7 +239,8 @@ def int8_gemm(xq, sx, wq, sw, bias, epilogue: str = "none", residual=None,
     elif want_q:
         raise ValueError("want_q needs the residual_ln epilogue")
     # a wide LayerNorm row needs the f32 buffer, asked for or not
-    need_f = want_f32 or (epilogue == "residual_ln" and N > _cuda.LN_TILE)
+    need_f = want_f32 or (epilogue == "residual_ln"
+                          and _cuda.ln_rows_path(N, False) != "tile")
     both = out_dtype == torch.float32 and need_f
     out_t = (torch.empty((M, N), dtype=dtype, device=dev)
              if out_dtype is not None and not both else None)

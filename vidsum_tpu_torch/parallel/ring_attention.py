@@ -34,10 +34,11 @@ kernels' CTA shape is :func:`ring_cta_shape`'s; it moves no bit.
 ``block_impl``: ``"plain"`` (JAX ``"xla"``) takes the plain steps, with
 autograd in training. On CUDA tensors ``"auto"`` and ``"kernel"`` take the
 kernels at every length: they stream K/V in 64-key tiles, so their only
-constraints are Nl a multiple of 64 (the sequence-parallel forward and step
-pad the global length to make it one) and head_dim up to 128 (run
-zero-padded to the next of ``_cuda.HEAD_DIMS``), past which the wrappers
-raise. On CPU tensors ``"kernel"`` (JAX
+constraint is Nl a multiple of 64 (the sequence-parallel forward and step
+pad the global length to make it one); a head_dim off ``_cuda.HEAD_DIMS``
+runs zero-padded to the next of them, one past 128 to a multiple of 128
+that the kernels run in 128-column slices (``_cuda.kernel_head_dim``). On
+CPU tensors ``"kernel"`` (JAX
 ``"pallas"``) takes the wrappers' plain versions inside the TPU kernels'
 VMEM envelope (copied, so that a shape takes the same route as in the JAX
 package, which the parity tests hold) and ``"auto"`` the plain steps, as
