@@ -41,7 +41,7 @@ from vidsum_tpu_torch.train import finetune as ft
 from vidsum_tpu_torch.train import flax_msgpack
 from vidsum_tpu_torch.train.steps import make_optimizer
 from vidsum_tpu_torch.utils.metrics_log import MetricsLogger
-from vidsum_tpu_torch.utils.profiling import StepTimer, trace
+from vidsum_tpu_torch.utils.profiling import trace
 
 # the CLIs build ModelConfig(in_features=1024), so the data has 1024 features
 KW = dict(d_model=32, num_heads=4, num_layers=1)
@@ -530,9 +530,3 @@ def test_metrics_logger_trace_and_step_timer(tmp_path):
     with trace(str(tmp_path / "t")):
         torch.ones(8).sum()
     assert os.path.getsize(tmp_path / "t" / "trace.json") > 0
-    timer = StepTimer()
-    for _ in range(3):
-        with timer:
-            pass
-    s = timer.summary()
-    assert s["steps"] == 3 and s["max_s"] >= s["p50_s"] >= 0.0

@@ -26,12 +26,15 @@ from vidsum_tpu_torch.serve import transport
 from vidsum_tpu_torch.serve.types import (
     _CLOSE, ServeResult, _next_pow2, _Request,
 )
+from vidsum_tpu_torch.utils import profiling
 
 
 def dispatcher_loop(svc) -> None:
     closing = False
     while not closing:
+        t_idle = profiling.stamp()
         req = svc._q.get()
+        profiling.record_span("serve.idle", t_idle, profiling.stamp())
         if req is _CLOSE:
             break
         if svc._expire_if_late(req):
@@ -80,6 +83,7 @@ def _dispatch_window(svc, window: list) -> None:
 def _run_batch(svc, n_bucket: int, items: list) -> None:
     if svc._rep_fwd is not None:
         return _run_batch_replica(svc, n_bucket, items)
+    t_batch = _open_batch(items)
     b_real = len(items)
     b = _next_pow2(b_real)
     mask = np.ones((b, n_bucket), dtype=bool)
@@ -94,6 +98,7 @@ def _run_batch(svc, n_bucket: int, items: list) -> None:
         for r in items:
             svc._fail(r, e)
         return
+    _close_batch(items, t_batch)
     for r in items:
         r.row_host = None   # the batch ran, so every copy has landed
     svc._account_batch(b_real, b)
@@ -106,6 +111,7 @@ def _run_batch_replica(svc, n_bucket: int, items: list) -> None:
     """Mesh-mode batch: ``k`` rows per replica, k the next power of two of
     ceil(b_real / R) (``serve/mesh.py`` owns the balanced assembly and the
     straggler re-commits), each replica on the single-device forward."""
+    t_batch = _open_batch(items)
     R = len(svc._mesh_devices)
     b_real = len(items)
     k = _next_pow2(-(-b_real // R))
@@ -118,6 +124,7 @@ def _run_batch_replica(svc, n_bucket: int, items: list) -> None:
         for r in items:
             svc._fail(r, e)
         return
+    _close_batch(items, t_batch)
     for r in items:
         r.row_host = None
     svc._account_batch(b_real, R * k, moved)
@@ -132,6 +139,7 @@ def _run_long(svc, r: _Request) -> None:
     launches the ring; the host fetch, which waits for the device, runs on
     the selection pool, so a long pass never holds up the short batches
     behind it on a card (on the CPU the launch computes)."""
+    t_batch = _open_batch([r])
     n = r.feats.shape[0]
     mask = np.ones((1, r.n_bucket), dtype=bool)
     mask[0, :n] = False
@@ -152,10 +160,35 @@ def _run_long(svc, r: _Request) -> None:
         except Exception as e:  # noqa: BLE001 — device-side failure
             svc._fail(r, e)
             return
+        _close_batch([r], t_batch)
         r.row_host = None
         finish_request(svc, r, out[0, :n].copy())
 
     svc._pool.submit(fetch_and_finish)
+
+
+def _open_batch(items: list):
+    """A batch's start, where its requests' ``serve.queue`` spans close
+    (None while spans are not kept)."""
+    t = profiling.stamp()
+    if t is not None:
+        batch_id = profiling.new_id()
+        for r in items:
+            profiling.record_span("serve.queue", r.t_enq_ns, t, r.span_id,
+                                  batch_id)
+            r.batch_id = batch_id
+    return t
+
+
+def _close_batch(items: list, t_batch) -> None:
+    """The batch's scores are on the host: its ``serve.batch`` span closes
+    and its requests' ``serve.select_wait`` spans open."""
+    if t_batch is None:
+        return
+    t = profiling.stamp()
+    profiling.record_span("serve.batch", t_batch, t, items[0].batch_id)
+    for r in items:
+        r.t_scored_ns = t
 
 
 # ------------------------------------------------------- shot selection
@@ -163,6 +196,9 @@ def _run_long(svc, r: _Request) -> None:
 def finish_request(svc, r: _Request, scores: np.ndarray) -> None:
     """Host-side completion: optional shot selection (bit-parity pipeline)
     then future resolution. Runs on the selection pool."""
+    t_select = profiling.stamp()
+    profiling.record_span("serve.select_wait", r.t_scored_ns, t_select,
+                          r.span_id, r.batch_id)
     try:
         summary = cps = None
         if r.want_summary:
@@ -172,10 +208,14 @@ def finish_request(svc, r: _Request, scores: np.ndarray) -> None:
             [summary] = generate_summary([cps], [scores], [r.n_frames],
                                          [r.picks],
                                          budget_ratio=r.budget_ratio)
+        # the span ends where the latency is read, as the future is set
+        t_done = profiling.stamp()
         res = ServeResult(scores=scores, summary=summary,
                           change_points=cps, n_frames=r.n_frames,
                           latency_s=time.monotonic() - r.t_enq)
         svc._complete(r, res)
+        profiling.record_span("serve.select", t_select, t_done, r.span_id,
+                              r.batch_id)
     except Exception as e:  # noqa: BLE001 — propagate into the future
         svc._fail(r, e)
 

@@ -36,6 +36,7 @@ from vidsum_tpu_torch.serve.mesh import _single_chip_max_len
 from vidsum_tpu_torch.serve.types import (
     _CLOSE, ServeResult, ServeStats, _Request, normalize_request,
 )
+from vidsum_tpu_torch.utils import profiling
 
 
 class ScoringService:
@@ -192,6 +193,7 @@ class ScoringService:
         :raises RequestTooLong: no path on this service carries a sequence
             this long.
         """
+        t_stage = profiling.stamp()
         feats, n, picks, n_frames, change_points = normalize_request(
             features, picks, n_frames, change_points, self._cfg.in_features)
         long = self._long_fwd is not None and n > self._long_threshold
@@ -199,14 +201,14 @@ class ScoringService:
         try:
             return self._submit_admitted(
                 feats, n, picks, n_frames, change_points, want_summary,
-                budget_ratio, deadline_s, long)
+                budget_ratio, deadline_s, long, t_stage)
         except BaseException:
             admission.release_failed_submit(self)
             raise
 
     def _submit_admitted(self, feats, n, picks, n_frames, change_points,
                          want_summary, budget_ratio, deadline_s,
-                         long) -> Future:
+                         long, t_stage) -> Future:
         fut: Future = Future()
         # pad to the length bucket on the host and start the copy NOW, so
         # it runs under earlier batches' compute (an (int8 rows, scales) pair
@@ -240,6 +242,7 @@ class ScoringService:
                                             self._mesh_devices[dev_idx])
                 row_host = row
         now = time.monotonic()
+        t_enq = profiling.stamp()
         req = _Request(feats=feats, row_dev=row_dev, row_host=row_host,
                        n_bucket=n_bucket, picks=picks, n_frames=n_frames,
                        change_points=change_points,
@@ -249,13 +252,15 @@ class ScoringService:
                        future=fut, t_enq=now,
                        deadline=(None if deadline_s is None
                                  else now + float(deadline_s)),
-                       dev_idx=dev_idx, long=long)
+                       dev_idx=dev_idx, long=long, t_enq_ns=t_enq,
+                       span_id=None if t_enq is None else profiling.new_id())
         # check-and-enqueue under the same lock close() uses, so a request
         # is either enqueued ahead of the sentinel or rejected
         with self._lock:
             if self._closed:
                 raise RuntimeError("service is closed")
             self._q.put(req)
+        profiling.record_span("serve.stage", t_stage, t_enq, req.span_id)
         return fut
 
     def summarize(self, features: np.ndarray, **kw) -> ServeResult:

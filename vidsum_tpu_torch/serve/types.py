@@ -113,6 +113,12 @@ class _Request:
     dev_idx: int = -1          # mesh mode: the replica holding row_dev
     long: bool = False         # mesh mode: takes the ring (row_dev is then
                                # the list of seq shards)
+    # traced requests (``utils.profiling``): the id its spans share, its
+    # batch's, and the stamps of its enqueue and of its scores on the host
+    span_id: Optional[int] = None
+    batch_id: Optional[int] = None
+    t_enq_ns: Optional[int] = None
+    t_scored_ns: Optional[int] = None
 
 
 _CLOSE = object()

@@ -11,6 +11,11 @@
   objective with the config's weights, Adam over the encoder's parameters
   only when ``video_transform`` is frozen (``pretrain.py:35``), the learning
   rate of each update from the reference's schedule.
+
+While a profiler runs, each training step records a ``train.step`` span
+tiled by ``train.transfer`` (the batch's move to the device) and
+``train.compute`` (zero_grad, forward, losses, backward, Adam)
+(``utils.profiling``).
 """
 
 from __future__ import annotations
@@ -22,6 +27,7 @@ import torch
 from vidsum_tpu_torch.config import ModelConfig, PretrainConfig
 from vidsum_tpu_torch.device import resolve_device
 from vidsum_tpu_torch.ops.losses import mse_with_mask_loss
+from vidsum_tpu_torch.utils import profiling
 
 
 def make_optimizer(params: Union[torch.nn.Module,
@@ -74,17 +80,20 @@ def make_finetune_step(cfg: ModelConfig, attn_impl: Optional[str] = None, *,
     def step(model, optimizer, x, target, pad_mask, generator,
              block_seeds: Optional[Sequence[int]] = None,
              item_weight=None):
-        x, target, pad_mask = (torch.as_tensor(a).to(dev)
-                               for a in (x, target, pad_mask))
-        optimizer.zero_grad(set_to_none=True)
-        scores, _ = model(x, pad_mask, attn_impl=attn_impl,
-                          deterministic=False, generator=generator,
-                          block_seeds=block_seeds)
-        loss = mse_with_mask_loss(scores, target, pad_mask,
-                                  item_weight=item_weight)
-        loss.backward()
-        optimizer.step()
-        return loss.detach()
+        with profiling.span("train.step") as st:
+            with profiling.span("train.transfer", st.id, st.id):
+                x, target, pad_mask = (torch.as_tensor(a).to(dev)
+                                       for a in (x, target, pad_mask))
+            with profiling.span("train.compute", st.id, st.id):
+                optimizer.zero_grad(set_to_none=True)
+                scores, _ = model(x, pad_mask, attn_impl=attn_impl,
+                                  deterministic=False, generator=generator,
+                                  block_seeds=block_seeds)
+                loss = mse_with_mask_loss(scores, target, pad_mask,
+                                          item_weight=item_weight)
+                loss.backward()
+                optimizer.step()
+                return loss.detach()
 
     step.attn_impl = attn_impl
     return step
@@ -139,20 +148,24 @@ def make_pretrain_step(model_cfg: ModelConfig, pretrain_cfg: PretrainConfig,
 
     def step(model, optimizer, x, video_rep, pad_mask, generator,
              block_seeds: Optional[Sequence[int]] = None):
-        x, video_rep, pad_mask = (torch.as_tensor(a).to(dev)
-                                  for a in (x, video_rep, pad_mask))
-        optimizer.zero_grad(set_to_none=True)
-        main, center, repel = model(x, video_rep, pad_mask,
-                                    attn_impl=attn_impl, deterministic=False,
-                                    generator=generator,
-                                    block_seeds=block_seeds)
-        total = main + cw * center + rw * repel
-        total.backward()
-        lr = schedule(update_count(optimizer))
-        for group in optimizer.param_groups:
-            group["lr"] = lr
-        optimizer.step()
-        return torch.stack([total, main, center, repel]).detach()
+        with profiling.span("train.step") as st:
+            with profiling.span("train.transfer", st.id, st.id):
+                x, video_rep, pad_mask = (torch.as_tensor(a).to(dev)
+                                          for a in (x, video_rep, pad_mask))
+            with profiling.span("train.compute", st.id, st.id):
+                optimizer.zero_grad(set_to_none=True)
+                main, center, repel = model(x, video_rep, pad_mask,
+                                            attn_impl=attn_impl,
+                                            deterministic=False,
+                                            generator=generator,
+                                            block_seeds=block_seeds)
+                total = main + cw * center + rw * repel
+                total.backward()
+                lr = schedule(update_count(optimizer))
+                for group in optimizer.param_groups:
+                    group["lr"] = lr
+                optimizer.step()
+                return torch.stack([total, main, center, repel]).detach()
 
     step.attn_impl = attn_impl
     return step
