@@ -884,6 +884,183 @@ def test_train_step_on_card_matches_cpu(cuda):
             assert _rel(got, want) <= tol["rel"], k
 
 
+# ------------------------------- the training batch's staging and its copy
+# Each step's host batch reaches the card through a two-slot ring of pinned
+# buffers and a copy that does not block (train.steps.move_batch)
+STAGE_CFG = ModelConfig(in_features=64, d_model=64, num_heads=4, num_layers=2)
+
+
+def _stage_batch(kind, B, N, seed):
+    from vidsum_tpu_torch.models.pretrain import VIDEO_REP_DIM
+
+    rng = np.random.default_rng(seed)
+    x = rng.normal(size=(B, N, STAGE_CFG.in_features)).astype(np.float32)
+    mask = np.arange(N)[None, :] >= rng.integers(1, N + 1, size=B)[:, None]
+    x[mask] = 1000.0
+    y = (rng.random((B, N)) if kind == "finetune" else
+         rng.normal(size=(B, VIDEO_REP_DIM))).astype(np.float32)
+    return x, y, mask
+
+
+def _stage_setup(kind, dev, batch):
+    """A fresh model (the same weights every call), its optimizer and its
+    step on the fused-block route."""
+    from vidsum_tpu_torch.config import PretrainConfig
+    from vidsum_tpu_torch.models.pretrain import PretrainModel
+    from vidsum_tpu_torch.train.steps import (make_finetune_step,
+                                              make_optimizer,
+                                              make_pretrain_step)
+
+    if kind == "finetune":
+        model = SimNet(STAGE_CFG, device=dev)
+        return (model, make_optimizer(model, 1e-3, 1e-4),
+                make_finetune_step(STAGE_CFG, "fused_block", device=dev))
+    pcfg = PretrainConfig(batch_size=batch)
+    model = PretrainModel(STAGE_CFG, pcfg, device=dev)
+    opt = make_optimizer([("encoder." + n, p) for n, p in
+                          model.encoder.named_parameters()], 1e-3, 5e-4)
+    return model, opt, make_pretrain_step(
+        STAGE_CFG, pcfg, lambda n: 1e-3 / (n + 1), "fused_block", device=dev)
+
+
+def _stage_run(kind, dev, shapes, feed, trace_dir=None):
+    """``len(shapes)`` steps of :func:`_stage_setup`'s model, fed each batch
+    as numpy arrays (``"numpy"``), as numpy arrays overwritten as soon as
+    the step returns (``"overwritten"``) or as tensors already on the card
+    (``"device"``); the steps alone under ``utils.profiling.trace(
+    trace_dir)``. Returns (step outputs, model, optimizer), synchronised."""
+    from vidsum_tpu_torch.utils import profiling
+
+    model, opt, step = _stage_setup(kind, dev, shapes[0][0])
+    gen = torch.Generator().manual_seed(17)
+    batches = [_stage_batch(kind, B, N, seed=i)
+               for i, (B, N) in enumerate(shapes)]
+    if feed == "device":
+        batches = [tuple(torch.from_numpy(a).to(dev) for a in arrays)
+                   for arrays in batches]
+    torch.cuda.synchronize()
+    outs = []
+    with profiling.trace(trace_dir):
+        for arrays in batches:
+            outs.append(step(model, opt, *arrays, gen))
+            if feed == "overwritten":
+                for a in arrays:
+                    a[...] = True if a.dtype == bool else np.nan
+    torch.cuda.synchronize()
+    return outs, model, opt
+
+
+def _assert_same_training_state(got, want):
+    """Outputs, parameters, gradients and Adam state bit for bit."""
+    for a, b in zip(got[0], want[0]):
+        assert torch.equal(a, b), (a, b)
+    for (n, p), (_, q) in zip(got[1].named_parameters(),
+                              want[1].named_parameters()):
+        assert torch.equal(p, q), n
+        assert (p.grad is None) == (q.grad is None), n
+        assert p.grad is None or torch.equal(p.grad, q.grad), n
+    sa, sb = got[2].state_dict()["state"], want[2].state_dict()["state"]
+    assert sa.keys() == sb.keys() and sa
+    for k in sa:
+        for key, v in sa[k].items():
+            assert torch.equal(v, sb[k][key]), (k, key)
+
+
+STAGE_SHAPES = [(4, 256), (4, 128), (4, 384)]
+
+
+@pytest.mark.parametrize("kind", ["finetune", "pretrain"])
+def test_staged_steps_equal_steps_fed_on_the_card(cuda, kind):
+    """Numpy batches, staged through the ring, train bit for bit as the same
+    batches handed over already on the card."""
+    from vidsum_tpu_torch.train.steps import move_batch
+
+    before = move_batch.staged, move_batch.direct
+    staged = _stage_run(kind, cuda, STAGE_SHAPES, "numpy")
+    mid = move_batch.staged, move_batch.direct
+    _assert_same_training_state(
+        staged, _stage_run(kind, cuda, STAGE_SHAPES, "device"))
+    n = 3 * len(STAGE_SHAPES)
+    assert mid == (before[0] + n, before[1])
+    assert (move_batch.staged, move_batch.direct) == (mid[0], mid[1] + n)
+
+
+@pytest.mark.parametrize("kind", ["finetune", "pretrain"])
+def test_staged_step_ignores_the_callers_later_writes(cuda, kind):
+    """The caller overwrites its numpy arrays as soon as each step returns,
+    before any synchronise, and the steps train as on untouched arrays."""
+    _assert_same_training_state(
+        _stage_run(kind, cuda, STAGE_SHAPES, "overwritten"),
+        _stage_run(kind, cuda, STAGE_SHAPES, "device"))
+
+
+def test_staging_ring_holds_two_steps_of_batches(cuda):
+    """Six steps over three shapes in turn: after each, the ring's pinned
+    bytes are those of the largest batch each slot has taken (at most two
+    steps' worth), and the counters move by the arrays and bytes staged."""
+    from vidsum_tpu_torch.train.steps import StagingRing, move_batch
+
+    shapes = [(2, 128), (2, 256), (3, 256)] * 2
+
+    def nbytes(B, N):   # x, target, mask
+        return B * N * (STAGE_CFG.in_features * 4 + 4 + 1)
+
+    staged, staged_bytes = move_batch.staged, move_batch.staged_bytes
+    model, opt, step = _stage_setup("finetune", cuda, shapes[0][0])
+    gen = torch.Generator().manual_seed(3)
+    held = []
+    for i, (B, N) in enumerate(shapes):
+        step(model, opt, *_stage_batch("finetune", B, N, seed=i), gen)
+        held.append(step.staging.held_bytes())
+    torch.cuda.synchronize()
+    want = []
+    for i in range(len(shapes)):
+        slots = [shapes[j] for j in range(i + 1)]
+        want.append(sum(max(nbytes(*sh) for sh in slots[s::StagingRing.SLOTS])
+                        for s in range(StagingRing.SLOTS)
+                        if slots[s::StagingRing.SLOTS]))
+    assert held == want
+    assert max(held) <= StagingRing.SLOTS * max(nbytes(*sh) for sh in shapes)
+    assert move_batch.staged == staged + 3 * len(shapes)
+    assert move_batch.staged_bytes == staged_bytes + sum(
+        nbytes(*sh) for sh in shapes)
+
+
+def test_move_batch_passes_pinned_and_card_tensors_through(cuda):
+    """A pinned host tensor is copied directly and a tensor on the card is
+    itself; only the numpy array is staged."""
+    from vidsum_tpu_torch.train.steps import StagingRing, move_batch
+
+    x, y, mask = _stage_batch("finetune", 2, 128, seed=0)
+    pinned = torch.from_numpy(x).pin_memory()
+    on_card = torch.from_numpy(y).to(cuda)
+    ring = StagingRing()
+    before = move_batch.staged, move_batch.direct
+    got = move_batch((pinned, on_card, mask), cuda, ring)
+    torch.cuda.synchronize()
+    assert got[1] is on_card
+    assert torch.equal(got[0].cpu(), pinned)
+    assert torch.equal(got[2].cpu(), torch.from_numpy(mask))
+    assert (move_batch.staged, move_batch.direct) == (before[0] + 1,
+                                                      before[1] + 2)
+    assert ring.held_bytes() == mask.nbytes
+
+
+@pytest.mark.parametrize("kind", ["finetune", "pretrain"])
+def test_staged_step_copies_from_pinned_memory(cuda, kind, tmp_path):
+    """Under ``utils.profiling.trace`` every host-to-device copy of the
+    steps (set-up left out: the model's own move is pageable) reads pinned
+    memory, none pageable."""
+    import json
+
+    _stage_run(kind, cuda, STAGE_SHAPES, "numpy", trace_dir=str(tmp_path))
+    with open(tmp_path / "trace.json") as f:
+        events = json.load(f)["traceEvents"]
+    h2d = [(e["name"], e.get("args", {}).get("bytes")) for e in events
+           if e.get("name", "").startswith("Memcpy HtoD")]
+    assert sum("Pinned" in n for n, _ in h2d) >= 3 * len(STAGE_SHAPES), h2d
+    assert not [c for c in h2d if "Pageable" in c[0]], sorted(set(h2d))
+
 # --------------------------------------- the flash-attention training route
 # o at the attention bounds above; lse at f32 summation-order level; grads
 # atol relative to the tensor's largest entry: f32 at summation-order level,

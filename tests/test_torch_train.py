@@ -34,7 +34,8 @@ from vidsum_tpu_torch.ops.losses import mse_with_mask_loss
 from vidsum_tpu_torch.ops.metrics import eval_metrics
 from vidsum_tpu_torch.train import finetune as ft
 from vidsum_tpu_torch.train.steps import (
-    make_eval_forward, make_finetune_step, make_optimizer,
+    StagingRing, make_eval_forward, make_finetune_step, make_optimizer,
+    move_batch,
 )
 
 KW = dict(in_features=48, d_model=64, num_heads=4, num_layers=2, max_len=256)
@@ -417,3 +418,43 @@ def test_epoch_streams_are_per_split_and_epoch():
     assert not torch.equal(torch.rand(4, generator=c_gen),
                            torch.rand(4, generator=ft.epoch_streams(
                                1234, 0, 1)[1]))
+
+
+# ------------------------------------------- the batch's move to the device
+
+def _counts():
+    return move_batch.staged, move_batch.staged_bytes, move_batch.direct
+
+
+@pytest.mark.parametrize("inputs", ["numpy", "tensors", "finetune_step"])
+def test_move_batch_on_the_cpu_stages_nothing(inputs):
+    """To the CPU every array passes through: numpy arrays as tensors over
+    their own memory, tensors already there as themselves, each counted in
+    ``move_batch.direct``; nothing is staged and the ring stays empty (the
+    staged path needs a card: ``tests/test_torch_cuda.py``)."""
+    x, t, mask = _batch(2, 128, seed=5)
+    before = _counts()
+    dev = torch.device("cpu")
+    if inputs == "finetune_step":
+        cfg, model = _pair(0.3)[2:]
+        step = make_finetune_step(cfg, "dense", device=dev)
+        opt = make_optimizer(model, LR, WD)
+        loss = step(model, opt, x, t, mask, torch.Generator().manual_seed(1))
+        assert bool(torch.isfinite(loss))
+        ring = step.staging
+    else:
+        ring = StagingRing()
+        arrays = ((x, t, mask) if inputs == "numpy" else
+                  tuple(torch.from_numpy(a) for a in (x, t, mask)))
+        out = move_batch(arrays, dev, ring)
+        for got, a in zip(out, arrays):
+            if inputs == "numpy":
+                assert got.data_ptr() == a.ctypes.data
+                assert got.dtype == torch.from_numpy(a).dtype
+                assert got.shape == a.shape
+            else:
+                assert got is a
+    staged, staged_bytes, direct = _counts()
+    assert (staged, staged_bytes) == before[:2]
+    assert direct == before[2] + 3
+    assert ring.held_bytes() == 0
