@@ -185,6 +185,21 @@ caught and passed over):
    within its budget of bf16), a finetune step and a pretrain step card
    against CPU, the pretrain batch (256, 384) on the card, and a
    16,384-frame request over the ring of a (1, 4) mesh of cuda:0.
+5c. pglsum: PGL-SUM's kernels at the shapes of the ``serve-pglsum-long``
+   cell (eight videos of 2,401-14,400 rows, odd lengths among them, in
+   their 14,464-row bucket): ``fma_fwd_posbias_kernel`` on the global
+   branch's (8, 8, 14,464, 128) and the local branch's (32, 4, 3,616, 64)
+   elements against the plain version over the valid rows at the f32
+   attention tolerance (the attention without the bias must fail it), the
+   fusion and both LayerNorms (``l2_fuse_kernel``, ``layernorm_rows_kernel``)
+   at 14,400 and 115,712 rows of 1,024 against theirs at the f32 block
+   tolerance (an L1 norm in the fusion and a LayerNorm that keeps the mean
+   must fail it), each with its CUDA-event ms, its plain version's and its
+   bound; then one ``PGLSum`` forward of the batch through
+   ``make_eval_forward`` at the published widths with PGL-SUM's counters
+   set to 0 before it: 17 launches (12 GEMMs, 2 attention, 3 row launches),
+   32 segments, no staged operand or GEMM fallback, every video within
+   1e-5 of ``benchmark/reference/pglsum.py``; its ms and peak bytes.
 6. serve: ``ScoringService`` with seeded flagship weights (d 256, 4 heads,
    4 layers, bf16) takes 13 requests: 320/480/512 frames with auto-KTS,
    1,200 frames, 6,000 frames (past the block envelope: flash) and 16,384
@@ -380,14 +395,16 @@ caught and passed over):
    four entries; ``cli.serve --devices 2``). Every step comparison is the
    step bound per parameter (``compare_steps``).
 9. a ``timeline`` line (each phase's wall seconds), then the ``kernels``
-   line (27 routes, the f32 serving ones named
+   line (29 routes, the f32 serving ones named
    ``<route>.f32`` with their launches from the f32 serve pass, the
    training attention ones named
    ``attention_train.<route>``, the folded ones also in bf16 as
    ``attention_train.<route>.bf16``, the single-pass ones also in f32 as
    ``attention_train.<route>.f32``, the int8 ones ``block_int8``,
    ``block_int8_grouped``, ``probe_mm_bf16`` and ``probe_mm_int8``, the
-   ring ones ``ring_block``, ``ring_train_fwd``, ``ring_train_bwd``; the
+   ring ones ``ring_block``, ``ring_train_fwd``, ``ring_train_bwd``,
+   PGL-SUM's ``attention_posbias`` and ``row_norms`` (phase 5c's numbers;
+   PGL-SUM has no TPU kernel); the
    GEMM routes with their design and ``ptxas`` report; the f32 serving
    routes and the ring also ``launches_summarize``, phase 7e's launches;
    rows 9-12 ``launches_dp_train`` and ``launches_finetune_mesh``, the int8
@@ -946,6 +963,16 @@ def phase_build() -> tuple:
     if not all(ldgsts.values()):
         raise RuntimeError(f"no LDGSTS (cp.async) in the FMA attention "
                            f"kernels' SASS: {ldgsts}")
+    # PGL-SUM's position-biased forward (its two head_dims) and fusion
+    posbias = (ptxas_report(logs["masked_attention"],
+                            "fma_fwd_posbias_kernel")
+               + ptxas_report(logs["row_norms"], "l2_fuse_kernel"))
+    if len(posbias) != 3:
+        raise RuntimeError(f"ptxas reported {len(posbias)} PGL-SUM kernel "
+                           f"instantiations, expected 3")
+    spilled = [r["kernel"] for r in posbias if any(r.get("spill", []))]
+    if spilled:
+        raise RuntimeError(f"PGL-SUM kernels spill: {spilled}")
     sliced = sliced_report(logs)
     emit("build", cuda_s=round(t_cuda, 3),
          native_s=round(time.monotonic() - t1, 3),
@@ -956,8 +983,9 @@ def phase_build() -> tuple:
          int8_gemm_wgmma_ptxas=int8, gemm_sass_hgmma=hgmma,
          int8_gemm_sass_gmma=igmma, fma_attention_ptxas=fma,
          serving_fma_attention_ptxas=fma_serve, ring_ptxas=ring,
-         fma_attention_sass_ldgsts=ldgsts, sliced_ptxas=sliced)
-    return regs, gemm, bt_gemm, fma, f32_gemm, fma_serve, int8, ring
+         fma_attention_sass_ldgsts=ldgsts, sliced_ptxas=sliced,
+         pglsum_ptxas=posbias)
+    return regs, gemm, bt_gemm, fma, f32_gemm, fma_serve, int8, ring, posbias
 
 
 def library_block(block, d: int, H: int, dtype, dropout: float = 0.0):
@@ -7118,6 +7146,221 @@ cs.phase_seq_train({seed}, cs.synthetic_videos(
 """
 
 
+# PGL-SUM at the shapes of the serve-pglsum-long cell: 2,400-14,400-row
+# videos in 128-row buckets, batches of up to 8 (odd lengths among them,
+# whose last bias column is 0, and unequal last segments)
+PGL_LENGTHS = (14400, 14399, 2401, 6703, 9999, 12001, 3000, 14273)
+POSBIAS_DESIGN = (
+    "fma_fwd_posbias_kernel on attention_core.cuh's FMA forward tile "
+    "(fma_fwd_tile, shared with fma_fwd_kernel, inlined): exact f32 FMAs, "
+    "scale 1, each key tile's position bias added to its scores from the "
+    "element's own length, one IEEE division and sincosf a row and column "
+    "pair from torch's float32 den table, 64-row CTAs at head_dim 64 and "
+    "128; no T x T tensor; PGL-SUM's local segments run as batch elements")
+ROW_NORMS_DESIGN = (
+    "l2_fuse_kernel (row_norms.cu): one warp a row, its 1,024 values in "
+    "registers, both L2 norms and n(a) + n(b) + x IEEE-rounded in a fixed "
+    "order; then common.cuh's layernorm_rows_kernel in place (the fusion's "
+    "norm_y and, alone, norm_linear)")
+
+
+def phase_pglsum(dev: dict, seed: int, lengths=PGL_LENGTHS,
+                 in_features: int = 1024) -> dict:
+    """PGL-SUM's kernels at the serving cell's shapes (``pglsum`` lines):
+    ``masked_attention_posbias`` on the global branch's (8, 8, N, 128) and
+    the local branch's (32, 4, ceil(N / 4), 64) elements of ``lengths``
+    (N their 128-row bucket), against ``attention_posbias_reference`` over
+    the valid rows at the f32 attention tolerance, which the plain
+    attention without the bias must fail; ``fuse_layernorm`` and
+    ``layernorm_`` at 14,400 rows and at the batch's B N rows against their
+    plain versions at the f32 block tolerance, which an L1 norm in the
+    fusion and a LayerNorm that keeps the mean must fail; each kernel's
+    CUDA-event ms, its plain version's, and the bound (valid queries x keys
+    at the f32 peak, or the bytes). Then one ``PGLSum`` forward of the
+    batch through ``make_eval_forward`` at the published widths, with
+    PGL-SUM's counters set to 0 just before it: 17 launches (12 GEMMs, 2
+    attention, 3 row launches), no staged operand or GEMM fallback, every
+    video's scores within 1e-5 of the plain reference (``benchmark/
+    reference/pglsum.py``), its ms and peak device bytes. Returns the
+    kernels line's PGL-SUM entries' numbers."""
+    import torch
+    import torch.nn.functional as F
+
+    from benchmark.reference import pglsum as ref
+    from vidsum_tpu_torch.config import pglsum_config
+    from vidsum_tpu_torch.data.collate import bucket_length
+    from vidsum_tpu_torch.models.pglsum import PGLSum
+    from vidsum_tpu_torch.ops import attention as at
+    from vidsum_tpu_torch.ops import block_kernel as bk
+    from vidsum_tpu_torch.ops import row_norms as rn
+    from vidsum_tpu_torch.train.steps import make_eval_forward
+
+    peaks = peaks_for(dev["name"])
+    cuda = torch.device("cuda")
+    gen = torch.Generator(device=cuda).manual_seed(seed + 230)
+    cfg = pglsum_config(in_features=in_features, d_model=in_features)
+    d, S = cfg.in_features, cfg.num_segments
+    B, N = len(lengths), bucket_length(max(lengths))
+    den = at.position_bias_den(max(8192, N), d, cfg.pos_freq, cuda)
+
+    def randn(*shape, scale=1.0):
+        return torch.randn(shape, generator=gen, device=cuda) * scale
+
+    def bound(flops, nbytes):
+        t_ops = flops / peaks["float32"] * 1e3
+        t_bytes = nbytes / peaks["bytes"] * 1e3
+        return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
+                                     else "bytes")
+
+    # the local branch's elements: segment m of video b is element m B + b
+    size = [-(-T // S) for T in lengths]
+    local = [max(0, min(size[b], T - m * size[b]))
+             for m in range(S) for b, T in enumerate(lengths)]
+    out = {}
+    tol = TOL[("attention", "float32")]
+    for branch, lens, heads, dh, n in (
+            ("global", list(lengths), cfg.num_heads, d // cfg.num_heads, N),
+            ("local", local, cfg.local_heads, d // S // cfg.local_heads,
+             -(-N // S))):
+        E = len(lens)
+        q, k, v = (randn(E, heads, n, dh, scale=dh ** -0.25)
+                   for _ in range(3))
+        lt = torch.tensor(lens, device=cuda)
+        valid = torch.arange(n, device=cuda)[None, :] < lt[:, None]
+        rows = lambda t: t.transpose(1, 2)[valid]  # noqa: E731
+        got = at.masked_attention_posbias(q, k, v, lt, den)
+        want = at.attention_posbias_reference(q, k, v, lt, den)
+        err, rel = check_close(rows(got), rows(want), tol,
+                               f" ({branch} {tuple(q.shape)})")
+        # the plain attention without the bias must fail the tolerance
+        plain = torch.zeros_like(want)
+        for e, T in enumerate(lens):
+            if T:
+                plain[e:e + 1, :, :T] = at.attention_reference(
+                    q[e:e + 1, :, :T], k[e:e + 1, :, :T], v[e:e + 1, :, :T],
+                    None, 1.0)
+        fault_err, fault_rel = errors(rows(plain), rows(want))
+        if within(rows(plain), rows(want), tol):
+            raise AssertionError(f"{branch}: the attention without the "
+                                 f"position bias passes the tolerance {tol}")
+        del plain
+        ms = cuda_ms(lambda: at.masked_attention_posbias(q, k, v, lt, den),
+                     reps=5)
+        plain_ms = cuda_ms(lambda: at.attention_posbias_reference(
+            q, k, v, lt, den), reps=1, warmup=0)
+        flops = sum(4 * heads * dh * T * T for T in lens)
+        nbytes = 4 * q.numel() * 4
+        b_ms, b_by = bound(flops, nbytes)
+        emit("pglsum", kernel="attention_posbias", branch=branch,
+             shape=list(q.shape), lengths=lens, max_abs_err=err,
+             rel_rms_err=rel, tolerance=tol,
+             no_bias_err=[fault_err, fault_rel], ms=ms, plain_ms=plain_ms,
+             tflops=flops / ms / 1e9, bound_ms=b_ms, bound_by=b_by,
+             flops=flops, bytes=nbytes, card=dev["smi"])
+        out[branch] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                           bound_ms=b_ms, bound_by=b_by, shape=list(q.shape))
+        del q, k, v, got, want
+
+    tol = TOL[("block", "float32")]
+    for M in (14400, B * N):
+        a, b, x = randn(M, d, scale=3.0), randn(M, d, scale=0.5), randn(M, d)
+        g, beta = randn(d).abs() + 0.5, randn(d)
+        got = rn.fuse_layernorm(a, b, x, g, beta, 1e-6)
+        want = rn.fuse_layernorm_reference(a, b, x, g, beta, 1e-6)
+        err, rel = check_close(got, want, tol, f" (fuse_layernorm, {M} rows)")
+        z = (F.normalize(a, dim=-1) + F.normalize(b, p=1, dim=-1)) + x
+        if within(F.layer_norm(z, (d,), g, beta, 1e-6), want, tol):
+            raise AssertionError("an L1 norm in the fusion passes the "
+                                 f"tolerance {tol}")
+        r = torch.relu(randn(M, d, scale=3.0))   # the regressor's ReLU rows
+        got_ln = rn.layernorm_(r.clone(), g, beta, 1e-6)
+        want_ln = rn.layernorm_reference(r, g, beta, 1e-6)
+        err_ln, rel_ln = check_close(got_ln, want_ln, tol,
+                                     f" (layernorm_, {M} rows)")
+        rms = r * torch.rsqrt(r.pow(2).mean(-1, keepdim=True) + 1e-6)
+        if within(rms * g + beta, want_ln, tol):
+            raise AssertionError("a LayerNorm that keeps the mean passes "
+                                 f"the tolerance {tol}")
+        ms = cuda_ms(lambda: rn.fuse_layernorm(a, b, x, g, beta, 1e-6),
+                     reps=10)
+        plain_ms = cuda_ms(lambda: rn.fuse_layernorm_reference(
+            a, b, x, g, beta, 1e-6), reps=3, warmup=1)
+        scratch = r.clone()
+        ms_ln = cuda_ms(lambda: rn.layernorm_(scratch, g, beta, 1e-6),
+                        reps=10)
+        b_ms, b_by = bound(0, 4 * M * d * 4)
+        b_ln, _ = bound(0, 2 * M * d * 4)
+        emit("pglsum", kernel="row_norms", rows=M, cols=d,
+             fuse_err=[err, rel], layernorm_err=[err_ln, rel_ln],
+             tolerance=tol, fuse_ms=ms, fuse_plain_ms=plain_ms,
+             fuse_bound_ms=b_ms, layernorm_ms=ms_ln, layernorm_bound_ms=b_ln,
+             bound_by=b_by, card=dev["smi"])
+        out["row_norms" if M == 14400 else "row_norms_batch"] = dict(max_abs_err=max(err, err_ln), ms=ms,
+                                     plain_ms=plain_ms, bound_ms=b_ms,
+                                     bound_by=b_by, layernorm_ms=ms_ln,
+                                     layernorm_bound_ms=b_ln)
+        del a, b, x, r, got, want, got_ln, want_ln, scratch
+
+    # one forward of the batch at the published widths
+    model = PGLSum(cfg, device=cuda,
+                   generator=torch.Generator().manual_seed(seed + 231))
+    reference = ref.build({"in_features": d, "num_heads": cfg.num_heads,
+                           "num_segments": S,
+                           "local_heads": cfg.local_heads,
+                           "pos_freq": cfg.pos_freq},
+                          model.state_dict(), cuda)
+    x = torch.full((B, N, d), 1000.0, device=cuda)
+    mask = torch.ones((B, N), dtype=torch.bool, device=cuda)
+    for i, T in enumerate(lengths):
+        x[i, :T] = randn(T, d)
+        mask[i, :T] = False
+    fwd = make_eval_forward(cfg)
+    fwd(model, x, mask)            # the den table and the packed weights
+    torch.cuda.synchronize()
+    gemms = bk.gemm_bias_epilogue.launches
+    gemm_fallback = bk.gemm_bias_epilogue.fallback_launches
+    segments = PGLSum.segments()
+    PGLSum.launches = 0
+    at.masked_attention_posbias.launches = 0
+    at.masked_attention_posbias.fallback_launches = 0
+    rn.fuse_layernorm.launches = 0
+    rn.layernorm_.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    scores = fwd(model, x, mask)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    counts = {"PGLSum.launches": PGLSum.launches,
+              "gemm_bias_epilogue": bk.gemm_bias_epilogue.launches - gemms,
+              "gemm_fallback": (bk.gemm_bias_epilogue.fallback_launches
+                                - gemm_fallback),
+              "masked_attention_posbias":
+              at.masked_attention_posbias.launches,
+              "posbias_staged": at.masked_attention_posbias.fallback_launches,
+              "fuse_layernorm": rn.fuse_layernorm.launches,
+              "layernorm_": rn.layernorm_.launches,
+              "segments": PGLSum.segments() - segments}
+    want_counts = {"PGLSum.launches": 17, "gemm_bias_epilogue": 12,
+                   "gemm_fallback": 0, "masked_attention_posbias": 2,
+                   "posbias_staged": 0, "fuse_layernorm": 2, "layernorm_": 1,
+                   "segments": sum(t > 0 for t in local)}
+    if counts != want_counts:
+        raise AssertionError(f"PGL-SUM forward counts {counts}, expected "
+                             f"{want_counts}")
+    gaps = []
+    for i, T in enumerate(lengths):
+        want = ref.scores(reference, x[i, :T])
+        gaps.append(float((scores[i, :T] - want).abs().max()))
+    if not max(gaps) < 1e-5:
+        raise AssertionError(f"PGL-SUM scores off the reference by {gaps}")
+    ms = cuda_ms(lambda: fwd(model, x, mask), reps=3)
+    emit("pglsum", kernel="forward", shape=[B, N, d], lengths=list(lengths),
+         counts=counts, max_abs_score_err=gaps, ms=ms,
+         peak_bytes_over_inputs=peak, card=dev["smi"])
+    out["launches"] = counts
+    return out
+
+
 def compare_trees(parent: str, seed: int) -> int:
     """The kernel phases (kernels, gemm, int8 kernels, int8 probe, train
     kernels, train attention kernels), the train phase, the ring kernels,
@@ -7189,7 +7432,7 @@ def main() -> int:
     clock = PhaseClock()
     dev = phase_device()
     (mma_regs, gemm_regs, bt_regs, fma_regs, f32_gemm_regs,
-     fma_serve_regs, int8_regs, ring_regs) = phase_build()
+     fma_serve_regs, int8_regs, ring_regs, pgl_regs) = phase_build()
     clock.mark("build")
     timings = phase_kernels(dev, args.seed)
     phase_gemm(dev, args.seed)
@@ -7214,6 +7457,8 @@ def main() -> int:
     wide_path_launches = phase_wide_path(args.seed)
     phase_wide_timings(dev, args.seed)
     clock.mark("wide_path")
+    pgl = phase_pglsum(dev, args.seed)
+    clock.mark("pglsum")
     counts = phase_serve(args.seed)
     counts.update({r + ".f32": n for r, n in phase_serve(
         args.seed, "float32").items() if r in SERVE_ROUTES})
@@ -7391,6 +7636,22 @@ def main() -> int:
             entry["ptxas"] = [r for r in ring_regs if "<64," in r["kernel"]
                               and r["kernel"].startswith(kinds)]
         kernels.append(entry)
+    # PGL-SUM's kernels (phase 5c): the JAX package has no PGL-SUM, so they
+    # replace no TPU kernel; launches are one forward's
+    for name, srcs, parts, regs, n, design in (
+            ("attention_posbias", f32_attn_src, ("global", "local"),
+             [r for r in pgl_regs if "posbias" in r["kernel"]],
+             pgl["launches"]["masked_attention_posbias"], POSBIAS_DESIGN),
+            ("row_norms", [csrc + "row_norms.cu", csrc + "common.cuh"],
+             ("row_norms", "row_norms_batch"),
+             [r for r in pgl_regs if "l2_fuse" in r["kernel"]],
+             pgl["launches"]["fuse_layernorm"]
+             + pgl["launches"]["layernorm_"], ROW_NORMS_DESIGN)):
+        kernels.append({"name": name, "route": "cuda", "source": srcs[0],
+                        "sources": srcs, "replaces": None,
+                        "launches": n, **pgl[parts[0]],
+                        "at_" + parts[1]: pgl[parts[1]],
+                        "design": design, "ptxas": regs})
     emit("timeline", seconds=clock.seconds, total_s=clock.total())
     print(dev["smi"], flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -2272,3 +2272,180 @@ def test_supervised_recycle_on_the_card(cuda, tmp_path):
     assert proc.returncode == 0, log[-3000:]
     assert log.count("recycled after") >= 2, log[-3000:]
     assert "died rc=" not in log, log[-3000:]
+
+
+# ------------------------------------------------------------ PGL-SUM
+def _posbias_case(dev, B, H, N, Dh, lens, seed, zero_qk=False):
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    q, k, v = (torch.randn(B, H, N, Dh, generator=g).to(dev) / Dh ** 0.25
+               for _ in range(3))
+    if zero_qk:
+        q, k = torch.zeros_like(q), torch.zeros_like(k)
+    den = attn_mod.position_bias_den(8192, 1024, 10000, dev)
+    return q, k, v, torch.tensor(lens, device=dev), den
+
+
+@pytest.mark.parametrize("Dh", [128, 64])
+@pytest.mark.parametrize("N,lens", [(1001, [1000, 1001]),
+                                    (1024, [1000, 1001])])
+@pytest.mark.parametrize("zero_qk", [False, True])
+def test_posbias_attention_matches_plain(cuda, Dh, N, lens, zero_qk):
+    """(B, H) = (2, 8) elements of 1,000 and 1,001 valid rows (an odd T's
+    zero last bias column), unpadded and padded to 1,024, at PGL-SUM's two
+    head_dims: ``fma_fwd_posbias_kernel`` against the plain version on the
+    card (f32, TF32 off). With Q = K = 0 the scores are the bias alone, so
+    the kernel's sincosf is held to torch's sin and cos. Rows past a
+    length are padding and not compared; lengths a key tile short fail."""
+    q, k, v, lt, den = _posbias_case(cuda, 2, 8, N, Dh, lens, 31 + Dh,
+                                     zero_qk)
+    got = attn_mod.masked_attention_posbias(q, k, v, lt, den)
+    want = attn_mod.attention_posbias_reference(q, k, v, lt, den)
+    for b, T in enumerate(lens):
+        _close(got[b, :, :T], want[b, :, :T], "attention", torch.float32)
+    bad = attn_mod.masked_attention_posbias(q, k, v, lt - 64, den)
+    assert not _within(bad[0, :, :100], want[0, :, :100], "attention",
+                       torch.float32)
+
+
+def test_posbias_attention_rows_do_not_depend_on_the_batch(cuda):
+    """An element's rows are bit-equal alone and in a batch of eight of
+    other lengths."""
+    lens = [3000, 17, 2999, 1, 2048, 640, 1500, 2901]
+    for Dh in (64, 128):
+        q, k, v, lt, den = _posbias_case(cuda, 8, 4, 3072, Dh, lens, 40)
+        both = attn_mod.masked_attention_posbias(q, k, v, lt, den)
+        for i in (0, 2, 3):
+            T = lens[i]
+            solo = attn_mod.masked_attention_posbias(
+                q[i:i + 1, :, :T], k[i:i + 1, :, :T], v[i:i + 1, :, :T],
+                lt[i:i + 1], den)
+            assert torch.equal(both[i, :, :T], solo[0])
+
+
+def test_row_norms_match_plain(cuda):
+    from vidsum_tpu_torch.ops import row_norms
+
+    g = torch.Generator(device="cpu").manual_seed(8)
+    a, b, x = (torch.randn(300, 1024, generator=g).to(cuda) * s
+               for s in (3.0, 0.5, 1.0))
+    w, beta = (torch.rand(1024, generator=g).to(cuda) + 0.5,
+               torch.randn(1024, generator=g).to(cuda))
+    got = row_norms.fuse_layernorm(a, b, x, w, beta, 1e-6)
+    want = row_norms.fuse_layernorm_reference(a, b, x, w, beta, 1e-6)
+    torch.testing.assert_close(got, want, atol=1e-5, rtol=1e-5)
+    got = row_norms.layernorm_(a.clone(), w, beta, 1e-6)
+    torch.testing.assert_close(
+        got, row_norms.layernorm_reference(a, w, beta, 1e-6),
+        atol=1e-5, rtol=1e-5)
+    assert torch.equal(row_norms.layernorm_(a[7:9].clone(), w, beta, 1e-6),
+                       got[7:9])
+
+
+def test_pglsum_served_equals_solo_and_the_reference_on_card(cuda):
+    """PGL-SUM at its published widths (1,024; 8 global heads of 128; 4
+    segments of 4 heads of 64) through ``ScoringService`` on the kernel
+    route: each video's served scores equal its solo forward bit for bit,
+    and the plain reference's (f32, TF32 off) within 1e-5."""
+    from benchmark.reference import pglsum as ref
+    from vidsum_tpu_torch.config import pglsum_config
+    from vidsum_tpu_torch.data.collate import bucket_length
+    from vidsum_tpu_torch.models.pglsum import PGLSum
+    from vidsum_tpu_torch.serve import ScoringService
+    from vidsum_tpu_torch.train.steps import make_eval_forward
+
+    cfg = pglsum_config()
+    model = PGLSum(cfg, device=cuda,
+                   generator=torch.Generator().manual_seed(11))
+    reference = ref.build({"in_features": 1024, "num_heads": 8,
+                           "num_segments": 4, "local_heads": 4,
+                           "pos_freq": 10000}, model.state_dict(), cuda)
+    rng = np.random.default_rng(7)
+    videos = [rng.normal(size=(n, 1024)).astype(np.float32)
+              for n in (3, 130, 701, 1001, 2403)]
+    launches = PGLSum.launches
+    with ScoringService(model, cfg, max_batch=8, max_delay_ms=300.0) as svc:
+        results = [f.result(timeout=300) for f in
+                   [svc.submit(v, want_summary=False) for v in videos]]
+    assert PGLSum.launches > launches
+    fwd = make_eval_forward(cfg)
+    for v, r in zip(videos, results):
+        n = v.shape[0]
+        nb = bucket_length(n)
+        x = np.full((1, nb, 1024), 1000.0, np.float32)
+        x[0, :n] = v
+        mask = np.ones((1, nb), bool)
+        mask[0, :n] = False
+        solo = fwd(model, x, mask)[0, :n].float().cpu().numpy()
+        np.testing.assert_array_equal(r.scores, solo)
+        want = ref.scores(reference, torch.from_numpy(v).to(cuda))
+        np.testing.assert_allclose(r.scores, want.cpu().numpy(), atol=1e-5,
+                                   rtol=0)
+
+
+def test_pglsum_forward_does_not_synchronise(cuda):
+    """A kernel-route forward, its counters included, waits for nothing on
+    the card (torch's sync debug mode raises at a synchronising call); the
+    read of ``PGLSum.segments()`` then gives its segments."""
+    from vidsum_tpu_torch.config import pglsum_config
+    from vidsum_tpu_torch.models.pglsum import PGLSum
+
+    model = PGLSum(pglsum_config(), device=cuda)
+    x = torch.randn(2, 384, 1024, device=cuda)
+    mask = torch.zeros((2, 384), dtype=torch.bool, device=cuda)
+    mask[1, 301:] = True
+    with torch.inference_mode():
+        model(x, mask)                # the bias table, the packed weights
+        torch.cuda.synchronize()
+        before = PGLSum.segments()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            model(x, mask)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    assert PGLSum.segments() - before == 8
+
+
+# registers and spill bytes (stores, loads) of masked_attention.cu's f32
+# FMA forward instantiations (ANY_N: the serving chain's), as ptxas reports
+# them for sm_90a before the position bias (fma_fwd_posbias_kernel) came to
+# share their body, inlined: they must stay as they were
+FMA_FWD_SASS = {
+    f"_ZN2vs4attn14fma_fwd_kernelILi{dh}ELi{ty}ELi{ri}ELb{any_n}EEEvNS0_4ArgsE":
+    (regs, (0, 0)) for dh, ty, ri, any_n, regs in [
+        (128, 16, 4, 1, 252), (96, 16, 4, 1, 168), (64, 16, 4, 1, 168),
+        (64, 16, 8, 1, 252), (32, 16, 4, 1, 142), (32, 16, 8, 1, 219),
+        (16, 16, 4, 1, 126), (16, 16, 8, 1, 244), (128, 8, 4, 0, 254),
+        (128, 16, 4, 0, 248), (96, 8, 4, 0, 208), (96, 16, 4, 0, 168),
+        (64, 8, 8, 0, 254), (64, 16, 8, 0, 254), (32, 8, 8, 0, 218),
+        (32, 16, 8, 0, 254), (16, 8, 8, 0, 242), (16, 16, 8, 0, 242)]}
+
+
+def _ptxas_functions(log: str) -> dict:
+    import re
+
+    out, name = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            name = m.group(1)
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m and name:
+            out.setdefault(name, {})["spill"] = (int(m.group(1)),
+                                                 int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            out.setdefault(name, {})["registers"] = int(m.group(1))
+    return out
+
+
+def test_simnet_fma_forward_instantiations_are_unchanged(cuda):
+    from vidsum_tpu_torch.ops import _cuda
+
+    funcs = _ptxas_functions(_cuda.build(["masked_attention"],
+                                         ptxas_verbose=True)
+                             ["masked_attention"])
+    fwd = {n: f for n, f in funcs.items() if "14fma_fwd_kernel" in n}
+    assert fwd and any("fma_fwd_posbias_kernel" in n for n in funcs)
+    assert {n: (f["registers"], f["spill"]) for n, f in fwd.items()} \
+        == FMA_FWD_SASS

@@ -414,11 +414,27 @@ def _actions(parser):
             for a in parser._actions}
 
 
+# the scoring CLIs' one flag of the port's own (cli/__init__.py): the scorer
+ARCH_ACTION = (("--arch",), "simnet", None, ("simnet", "pglsum"), None,
+               "_StoreAction")
+
+
+def port_actions(parser):
+    """A scoring CLI's actions without ``--arch``, which must be there."""
+    acts = _actions(parser)
+    assert acts.pop("arch") == ARCH_ACTION
+    return acts
+
+
 @pytest.mark.parametrize("port,jax_cli", [(train_cli, jax_train_cli),
                                           (evaluate_cli, jax_evaluate_cli)],
                          ids=["train", "evaluate"])
 def test_cli_parser_matches_jax(port, jax_cli):
-    assert _actions(port.build_parser()) == _actions(jax_cli.build_parser())
+    """The port's parser is the JAX CLI's, and for ``evaluate`` also
+    ``--arch``."""
+    acts = (port_actions if port is evaluate_cli else _actions)(
+        port.build_parser())
+    assert acts == _actions(jax_cli.build_parser())
     # the card takes every width the JAX package takes: the port's help of
     # the width flags reads as the JAX CLI's
     helps = [{a.dest: a.help for a in p._actions if a.dest in (

@@ -43,7 +43,7 @@ from vidsum_tpu_torch.parallel.mesh import make_mesh
 from vidsum_tpu_torch.preprocess import GoogLeNet
 from vidsum_tpu_torch.preprocess import reduce_fps as port_rf
 from vidsum_tpu_torch.train.checkpoint import save_checkpoint
-from tests.test_torch_finetune import _actions
+from tests.test_torch_finetune import _actions, port_actions
 
 cv2 = pytest.importorskip("cv2")
 
@@ -217,11 +217,12 @@ def test_seq_sharded_route_through_the_decoder_seam(models, monkeypatch):
 
 
 def test_cli_summarize(video_path, models, tmp_path):
-    """``cli.summarize`` on the CPU: its parser equals the JAX one; a JAX
-    msgpack ``--ckpt`` and the port's own checkpoint of the same weights
+    """``cli.summarize`` on the CPU: its parser equals the JAX one (with
+    the port's ``--arch``); a JAX msgpack ``--ckpt`` and the port's own
+    checkpoint of the same weights
     select the same frames; ``--seq_shards 2 --kts_impl device`` selects
     the default run's frames."""
-    assert _actions(summarize_cli.build_parser()) == _actions(
+    assert port_actions(summarize_cli.build_parser()) == _actions(
         jax_summarize_cli.build_parser())
     cfg, scorer = models[:2]
     jpath, ppath = str(tmp_path / "j.ckpt"), str(tmp_path / "p.ckpt")
@@ -256,7 +257,7 @@ def test_cli_help_states_the_card_limits(cli_mod):
 
 
 def test_serve_parser_still_matches_jax():
-    assert _actions(serve_cli.build_parser()) == _actions(
+    assert port_actions(serve_cli.build_parser()) == _actions(
         jax_serve_cli.build_parser())
 
 

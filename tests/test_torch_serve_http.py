@@ -160,7 +160,11 @@ def _actions(parser):
 
 
 def test_cli_parser_matches_jax():
-    assert _actions(cli.build_parser()) == _actions(jax_cli.build_parser())
+    """The JAX CLI's flags, and the port's own ``--arch``."""
+    acts = _actions(cli.build_parser())
+    assert acts.pop("arch") == (("--arch",), "simnet", None,
+                                ("simnet", "pglsum"), None, "_StoreAction")
+    assert acts == _actions(jax_cli.build_parser())
     args = cli.build_parser().parse_args(["--attn", "int8_block",
                                           "--wire_dtype", "int8"])
     assert (args.attn, args.wire_dtype, args.port) == ("int8_block", "int8",

@@ -15,7 +15,8 @@ import pytest
 import torch
 from torch.profiler import ProfilerActivity, profile
 
-from vidsum_tpu_torch.config import ModelConfig, PretrainConfig
+from vidsum_tpu_torch.config import ModelConfig, PretrainConfig, pglsum_config
+from vidsum_tpu_torch.models.pglsum import PGLSum
 from vidsum_tpu_torch.models.pretrain import VIDEO_REP_DIM, PretrainModel
 from vidsum_tpu_torch.models.simnet import SimNet
 from vidsum_tpu_torch.serve import ScoringService
@@ -196,6 +197,33 @@ def test_training_steps_give_transfer_and_compute():
     with profile(activities=[ProfilerActivity.CPU]):
         pstep(pmodel, popt, x, reps, mask, torch.Generator().manual_seed(2))
     _tiles(profiling.spans())
+
+
+def test_pglsum_forward_span_and_counters():
+    """A PGL-SUM forward under the profiler keeps one ``pglsum.forward``
+    span (also in the profiler's own trace: this thread runs it) and
+    advances ``PGLSum.launches`` (the kernel route's 17 launches) and
+    ``PGLSum.segments()`` (two videos of four non-empty segments); without
+    the profiler no span is kept."""
+    cfg = pglsum_config(in_features=32, d_model=32, num_heads=2,
+                        local_heads=2)
+    model = PGLSum(cfg, device="cpu")
+    x = torch.randn(2, 128, 32)
+    mask = torch.zeros((2, 128), dtype=torch.bool)
+    mask[1, 70:] = True
+    launches, segments = PGLSum.launches, PGLSum.segments()
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        model(x, mask, attn_impl="flash")
+    got = _by_name(profiling.spans())
+    assert len(got["pglsum.forward"]) == 1
+    assert got["pglsum.forward"][0].dur_ns > 0
+    names = {e.name() for e in prof.profiler.kineto_results.events()}
+    assert "pglsum.forward" in names
+    assert PGLSum.launches - launches == 17
+    assert PGLSum.segments() - segments == 8
+    profiling.clear()
+    model(x, mask, attn_impl="flash")
+    assert not profiling.spans()
 
 
 @pytest.mark.cuda

@@ -15,7 +15,8 @@ device="cpu")`` runs the plain path. Reading the
 Usage:
     python -m vidsum_tpu_torch.cli.evaluate --data data --ex_dataset tvsum \\
         --ckpt model_mae.ckpt [--torch_ckpt model_mae.pth] \\
-        [--split_path splits.json --fold 0] [--attn pallas_block]
+        [--split_path splits.json --fold 0] [--attn pallas_block] \
+        [--arch pglsum]
 """
 
 from __future__ import annotations
@@ -23,6 +24,8 @@ from __future__ import annotations
 import argparse
 import json
 import logging
+
+from vidsum_tpu_torch.cli import add_arch_argument, scorer_config
 
 ATTN_ROUTES = {"xla": "dense", "pallas": "flash",
                "pallas_block": "fused_block"}
@@ -50,6 +53,7 @@ def build_parser() -> argparse.ArgumentParser:
                         "pallas_block -> fused_block")
     p.add_argument("--compute_dtype", default="float32",
                    choices=["float32", "bfloat16"])
+    add_arch_argument(p)
     return p
 
 
@@ -57,22 +61,18 @@ def main(argv=None, *, device=None) -> None:
     args = build_parser().parse_args(argv)
     logging.basicConfig(format="[%(levelname)s] %(module)s - %(message)s",
                         level=logging.INFO)
-    from vidsum_tpu_torch.config import (
-        Config, DataConfig, EvalConfig, ModelConfig,
-    )
+    from vidsum_tpu_torch.config import Config, DataConfig, EvalConfig
     from vidsum_tpu_torch.data.datasets import TSDataset
     from vidsum_tpu_torch.data.splits import load_splits
     from vidsum_tpu_torch.device import resolve_device
+    from vidsum_tpu_torch.models import build_scorer
     from vidsum_tpu_torch.models.convert import load_torch_checkpoint
-    from vidsum_tpu_torch.models.simnet import SimNet
     from vidsum_tpu_torch.train.checkpoint import load_model_state
     from vidsum_tpu_torch.train.finetune import _val_epoch
     from vidsum_tpu_torch.train.steps import make_eval_forward
 
     dev = resolve_device(device)
-    mcfg = ModelConfig(d_model=args.d_model, num_heads=args.num_heads,
-                       num_layers=args.num_layers,
-                       compute_dtype=args.compute_dtype)
+    mcfg = scorer_config(args, compute_dtype=args.compute_dtype)
     cfg = Config(model=mcfg, data=DataConfig(root=args.data,
                                              ex_dataset=args.ex_dataset),
                  eval=EvalConfig(eval_method=args.eval_method))
@@ -82,7 +82,7 @@ def main(argv=None, *, device=None) -> None:
         state, _ = load_model_state(args.ckpt)
     else:
         raise SystemExit("provide --ckpt or --torch_ckpt")
-    model = SimNet(mcfg, device=dev)
+    model = build_scorer(mcfg, device=dev)
     model.load_state_dict(state)
 
     keys = None

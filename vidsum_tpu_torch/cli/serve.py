@@ -4,7 +4,8 @@
 Usage:
     python -m vidsum_tpu_torch.cli.serve --ckpt model_mae.ckpt \
         --port 8080 [--max_batch 8] [--max_delay_ms 3] \
-        [--attn int8_block --wire_dtype int8] [--recycle_after_mb 4000]
+        [--attn int8_block --wire_dtype int8] [--recycle_after_mb 4000] \
+        [--arch pglsum]
 
 Clients POST ``.npz`` feature payloads to ``/summarize`` (see
 ``vidsum_tpu_torch/serve_http.py`` for the protocol). The service runs on
@@ -37,6 +38,8 @@ from __future__ import annotations
 import argparse
 import logging
 import time
+
+from vidsum_tpu_torch.cli import add_arch_argument, scorer_config
 
 EXIT_RECYCLE = 42       # worker -> supervisor: drained for recycling
 MAX_CRASHES = 5         # the supervisor gives up after this many in a row
@@ -108,6 +111,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--_worker_fd", type=int, default=None,
                    help=argparse.SUPPRESS)   # internal: supervised worker
     p.add_argument("--verbose", action="store_true")
+    add_arch_argument(p)
     return p
 
 
@@ -131,17 +135,16 @@ def serve_mesh(n: int, device=None):
 
 
 def load_model(args, cfg, device=None):
-    """The scorer ``main`` serves: ``SimNet(cfg)`` on ``device`` (default:
-    the CUDA card) with the weights of ``--torch_ckpt`` or ``--ckpt``
-    (either package's format), or seeded random weights with a warning."""
-    import torch
-
+    """The scorer ``main`` serves: ``build_scorer(cfg)`` (``SimNet``, or
+    ``PGLSum`` with ``--arch pglsum``) on ``device`` (default: the CUDA
+    card) with the weights of ``--torch_ckpt`` or ``--ckpt`` (either
+    package's format; a PGL-SUM state dict by its public names), or seeded
+    random weights with a warning."""
+    from vidsum_tpu_torch.models import build_scorer
     from vidsum_tpu_torch.models.convert import load_torch_checkpoint
-    from vidsum_tpu_torch.models.simnet import SimNet
     from vidsum_tpu_torch.train.checkpoint import load_model_state
 
-    model = SimNet(cfg, device=device,
-                   generator=torch.Generator().manual_seed(0))
+    model = build_scorer(cfg, device=device)
     if args.torch_ckpt:
         model.load_state_dict(load_torch_checkpoint(args.torch_ckpt))
     elif args.ckpt:
@@ -282,12 +285,10 @@ def main(argv=None, *, device=None) -> None:
     if recycling(args) and args._worker_fd is None:
         run_supervisor(args, argv)
         return
-    from vidsum_tpu_torch.config import ModelConfig
     from vidsum_tpu_torch.serve_http import make_server
 
     mesh = serve_mesh(args.devices, device)
-    cfg = ModelConfig(d_model=args.d_model, num_heads=args.num_heads,
-                      num_layers=args.num_layers)
+    cfg = scorer_config(args)
     model = load_model(args, cfg, mesh.devices[0] if mesh else device)
     service = make_service(args, cfg, model, device, mesh)
     if args.warmup:

@@ -25,6 +25,8 @@ import argparse
 import json
 import logging
 
+from vidsum_tpu_torch.cli import add_arch_argument, scorer_config
+
 
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser("vidsum_tpu_torch summarize")
@@ -55,26 +57,25 @@ def build_parser() -> argparse.ArgumentParser:
                    help="frames per host->device chunk; each chunk ships "
                         "while later frames still decode (result is "
                         "chunk-invariant)")
+    add_arch_argument(p)
     return p
 
 
 def load_models(args, device=None):
     """(cfg, scorer, google) for ``args`` on ``device`` (default: the CUDA
-    card): ``SimNet`` with the checkpoint's weights (or seeded random ones,
-    with a warning) and the BN-folded ``GoogLeNet`` with ``--google_weights``
-    (or seeded random ones: features are then random projections)."""
+    card): ``build_scorer(cfg)`` (``SimNet``, or ``PGLSum`` with ``--arch
+    pglsum``) with the checkpoint's weights (or seeded random ones, with a
+    warning) and the BN-folded ``GoogLeNet`` with ``--google_weights`` (or
+    seeded random ones: features are then random projections)."""
     import torch
 
-    from vidsum_tpu_torch.config import ModelConfig
+    from vidsum_tpu_torch.models import build_scorer
     from vidsum_tpu_torch.models.convert import load_torch_checkpoint
-    from vidsum_tpu_torch.models.simnet import SimNet
     from vidsum_tpu_torch.preprocess.extract import load_backbone
     from vidsum_tpu_torch.train.checkpoint import load_model_state
 
-    cfg = ModelConfig(d_model=args.d_model, num_heads=args.num_heads,
-                      num_layers=args.num_layers)
-    scorer = SimNet(cfg, device=device,
-                    generator=torch.Generator().manual_seed(0))
+    cfg = scorer_config(args)
+    scorer = build_scorer(cfg, device=device)
     if args.torch_ckpt:
         scorer.load_state_dict(load_torch_checkpoint(args.torch_ckpt))
     elif args.ckpt:
@@ -114,6 +115,9 @@ def main(argv=None, *, device=None) -> None:
 
     from vidsum_tpu_torch.pipeline import summarize_video
 
+    if args.arch == "pglsum" and args.seq_shards > 1:
+        raise SystemExit("--seq_shards runs SimNet's ring: PGL-SUM scores "
+                         "on one device")
     mesh = make_seq_mesh(args.seq_shards, device) if args.seq_shards > 1 \
         else None
     cfg, scorer, google = load_models(args, device)

@@ -10,10 +10,20 @@ import dataclasses
 from typing import Tuple
 
 
+ARCHS = ("simnet", "pglsum")
+
+
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
-    """SimNet architecture (reference: ``src/model/simnet.py:10-30``); the
-    defaults are the flagship recipe (d_model 256, 4 heads, 4 layers)."""
+    """The scorer's architecture. ``arch`` ``"simnet"`` (the default): SimNet
+    (reference: ``src/model/simnet.py:10-30``); the defaults are the
+    flagship recipe (d_model 256, 4 heads, 4 layers). ``"pglsum"``: PGL-SUM
+    (``models/pglsum.py``), which reads ``in_features`` (its width),
+    ``num_heads`` (global heads), ``num_segments``, ``local_heads``,
+    ``pos_enc``, ``pos_freq``, ``fusion`` and ``compute_dtype``; the
+    published model is :func:`pglsum_config`'s."""
+
+    arch: str = "simnet"
 
     in_features: int = 1024          # GoogLeNet pool5 dim
     d_model: int = 256
@@ -30,6 +40,14 @@ class ModelConfig:
     scale_by_d_model: bool = True
     norm_first: bool = False         # pre-LN blocks (dense and flash routes)
     compute_dtype: str = "float32"   # or "bfloat16"
+    # PGL-SUM (arch "pglsum"): segments of the local attention, heads of
+    # each segment's attention, the position encoding and its base, the
+    # fusion of the global and local branches
+    num_segments: int = 4
+    local_heads: int = 4
+    pos_enc: str = "absolute"
+    pos_freq: int = 10000
+    fusion: str = "add"
 
     @property
     def head_dim(self) -> int:
@@ -149,6 +167,17 @@ def finetune_recipe() -> Config:
         model=ModelConfig(d_model=256, num_heads=4, num_layers=4, dropout=0.3),
         train=TrainConfig(lr=1e-3, weight_decay=1e-4, batch_size=4,
                           max_epoch=100, use_pretrained=True))
+
+
+def pglsum_config(**overrides) -> ModelConfig:
+    """PGL-SUM as published (e-apostolidis/PGL-SUM, ``model/configs.py``):
+    1,024 wide, 8 global heads of 128, 4 segments of 4 heads of 64, the
+    absolute position bias at base 10,000, fusion ``add``."""
+    fields = dict(arch="pglsum", in_features=1024, d_model=1024,
+                  num_heads=8, num_segments=4, local_heads=4,
+                  pos_enc="absolute", pos_freq=10000, fusion="add")
+    fields.update(overrides)
+    return ModelConfig(**fields)
 
 
 def pretrain_recipe() -> Config:

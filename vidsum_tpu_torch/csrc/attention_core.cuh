@@ -299,6 +299,30 @@ constexpr int fma_fwd_floats() {
   return ROWS * kFmaLd<DH> + 2 * kT * kFmaLd<DH> + ROWS * kSLd + kT / 4;
 }
 
+// PGL-SUM's absolute position bias (models/pglsum.py, the public code's
+// getAbsolutePosition) of the ROWS x kT score tile at query row q0 and key
+// column k0, into P (kSLd floats a row), in an element with `pairs` = 2 (T
+// / 2) sin / cos columns: P[p][2j] = sin(p / den[j]), P[p][2j + 1] =
+// cos(p / den[j]), 0 at and past `pairs`. den is the float32 table torch
+// computes as the public code does (inf past its overflow: sin 0, cos 0).
+// Each (row, pair) takes one IEEE division and one sincosf (the IEEE sinf
+// and cosf of one range reduction; no fast math, no __sinf), the THREADS
+// threads sharing the tile's ROWS kT / 2 pairs: half the transcendentals
+// of a division and a sincosf a score.
+template <int ROWS, int THREADS>
+__device__ __forceinline__ void pos_bias_tile(float* P, int q0, int k0,
+                                              int pairs, const float* den) {
+  constexpr int PAIRS = kT / 2;
+  for (int e = threadIdx.x; e < ROWS * PAIRS; e += THREADS) {
+    const int r = e / PAIRS, c = 2 * (e % PAIRS);
+    float2 v = make_float2(0.f, 0.f);
+    if (k0 + c < pairs)
+      sincosf(__fdiv_rn((float)(q0 + r), __ldg(den + ((k0 + c) >> 1))), &v.x,
+              &v.y);
+    *reinterpret_cast<float2*>(P + r * kSLd + c) = v;
+  }
+}
+
 // One pass over the live key tiles of RI TY query rows in both modes (f32
 // rounds nothing between the passes of a normalise-first order, so the fold
 // computes the same function): scores in log2 units, the online fold with
@@ -313,9 +337,17 @@ constexpr int fma_fwd_floats() {
 // mask row off 16 bytes is read byte by byte; without, the training
 // shapes' N % 64 == 0 and a 16-byte aligned mask are taken as given. RI,
 // the rows a thread holds, is 4 in the serving entries' 64-row CTAs of 16
-// TY at every head_dim.
-template <int DH, int TY, int RI = kFmaRi<DH>, bool ANY_N = false>
-__global__ void __launch_bounds__(kTx * TY, 2) fma_fwd_kernel(const Args a) {
+// TY at every head_dim. POS (fma_fwd_posbias_kernel, PGL-SUM): each score
+// s[p][c] of element b gains the absolute position bias of the element's
+// valid length T = lens[b] before the softmax, at scale 1: pos_bias_tile
+// writes the key tile's bias into P (free until the weights), the barrier
+// after the scores publishes it, and each thread adds its own scores' and
+// then overwrites them with their weights.
+// fma_fwd_kernel and fma_fwd_posbias_kernel are this body inlined, so the
+// former's code is what it was before the bias.
+template <int DH, int TY, int RI, bool ANY_N, bool POS>
+__device__ __forceinline__ void fma_fwd_tile(const Args& a, const int* lens,
+                                             const float* den) {
   constexpr int ROWS = RI * TY, THREADS = kTx * TY;
   constexpr int LD = kFmaLd<DH>, COLS = DH / kTx, CW = kFmaCw<COLS>;
   extern __shared__ __align__(16) float smem[];
@@ -366,6 +398,9 @@ __global__ void __launch_bounds__(kTx * TY, 2) fma_fwd_kernel(const Args a) {
   };
   load_k(0);
   load_v(0);
+  // POS: the element's length, and the columns whose bias is a sin / cos
+  // pair (below 2 (T / 2); the last column of an odd T has none)
+  const int pairs = POS ? 2 * (lens[b] / 2) : 0;
 
   float m[RI], l[RI], acc[RI][COLS];
 #pragma unroll
@@ -378,12 +413,14 @@ __global__ void __launch_bounds__(kTx * TY, 2) fma_fwd_kernel(const Args a) {
   for (int it = 0; it < nlive; ++it) {
     cp_async_wait<1>();  // Q and this K tile; this V tile may be in flight
     __syncthreads();
+    if constexpr (POS)
+      pos_bias_tile<ROWS, THREADS>(Ps, q0, tiles[it] * kT, pairs, den);
     float s[RI][kSj];
     fma_scores<DH, RI, TY>(s, Qs, Ks, ty, tx);
     bool km[kSj];
 #pragma unroll
     for (int j = 0; j < kSj; ++j) km[j] = Ms[tx + kTx * j] != 0;
-    __syncthreads();  // Ks and Ms are free
+    __syncthreads();  // Ks and Ms are free (POS: the bias is in Ps)
     load_k(it + 1);
     const int k0 = tiles[it] * kT;
 #pragma unroll
@@ -392,6 +429,7 @@ __global__ void __launch_bounds__(kTx * TY, 2) fma_fwd_kernel(const Args a) {
       float mx = -INFINITY;
 #pragma unroll
       for (int j = 0; j < kSj; ++j) {
+        if constexpr (POS) s[i][j] += Ps[(ty + TY * i) * kSLd + tx + kTx * j];
         s[i][j] = km[j] ? -INFINITY : s[i][j] * sc2;
         mx = fmaxf(mx, s[i][j]);
       }
@@ -441,6 +479,23 @@ __global__ void __launch_bounds__(kTx * TY, 2) fma_fwd_kernel(const Args a) {
     if (tx == 0 && a.lse != nullptr)
       a.lse[sh + qi] = empty ? -INFINITY : (m[i] + log2f(l[i])) * kLn2;
   }
+}
+
+template <int DH, int TY, int RI = kFmaRi<DH>, bool ANY_N = false>
+__global__ void __launch_bounds__(kTx * TY, 2) fma_fwd_kernel(const Args a) {
+  fma_fwd_tile<DH, TY, RI, ANY_N, false>(a, nullptr, nullptr);
+}
+
+// softmax(Q K^T + P_T) V of PGL-SUM (scale 1: a.scale is 1), on the serving
+// forward's tiles (ANY_N, online): lens (B,) the elements' valid lengths,
+// den the bias's table. Its own name, so that traces tell it from the
+// unbiased forward. Bound: the products, 4 Dh N sum(valid) operations at
+// the f32 FMA peak; the bias adds a division and a sincosf a score, not
+// counted as work.
+template <int DH, int TY, int RI>
+__global__ void __launch_bounds__(kTx * TY, 2)
+    fma_fwd_posbias_kernel(const Args a, const int* lens, const float* den) {
+  fma_fwd_tile<DH, TY, RI, true, true>(a, lens, den);
 }
 
 // ----------------------------------------------------------------- backward
@@ -1318,6 +1373,20 @@ cudaError_t launch_fma_fwd(const Args& a, int B, cudaStream_t s) {
   cudaError_t err = allow_smem(kernel, bytes);
   if (err != cudaSuccess) return err;
   kernel<<<dim3((a.N + ROWS - 1) / ROWS, a.H, B), kTx * TY, bytes, s>>>(a);
+  return cudaGetLastError();
+}
+
+template <int DH, int TY, int RI>
+cudaError_t launch_fma_fwd_posbias(const Args& a, int B, const int* lens,
+                                   const float* den, cudaStream_t s) {
+  constexpr int ROWS = RI * TY;
+  const int bytes =
+      (fma_fwd_floats<DH, TY, RI>() + (a.N + kT - 1) / kT + 1) * 4;
+  auto kernel = fma_fwd_posbias_kernel<DH, TY, RI>;
+  cudaError_t err = allow_smem(kernel, bytes);
+  if (err != cudaSuccess) return err;
+  kernel<<<dim3((a.N + ROWS - 1) / ROWS, a.H, B), kTx * TY, bytes, s>>>(
+      a, lens, den);
   return cudaGetLastError();
 }
 

@@ -1164,6 +1164,42 @@ cudaError_t launch_fma(const Args& m, int Dh, int rows, cudaStream_t stream) {
   }
 }
 
+// PGL-SUM's attention, softmax(Q K^T + P_T) V at scale 1 with each
+// element's own position bias (attention_core.cuh's fma_fwd_posbias_kernel,
+// online, any N): head_dim 64 (the local heads) or 128 (the global heads),
+// in 64-row CTAs of 4 rows a thread at both.
+cudaError_t launch_fma_posbias(const Args& m, int Dh, const int* lens,
+                               const float* den, cudaStream_t stream) {
+  if (!vs::attn::serve_shape_ok(m.B, m.H, m.N, Dh))
+    return cudaErrorInvalidValue;
+  if (lens == nullptr || den == nullptr) return cudaErrorInvalidValue;
+  vs::attn::Args a{};
+  a.q = m.q;
+  a.k = m.k;
+  a.v = m.v;
+  a.out = m.o;
+  a.mask = m.mask;
+  a.isb = m.s_b;
+  a.ish = m.s_h;
+  a.isn = m.s_n;
+  a.osb = m.o_s_b;
+  a.osh = m.o_s_h;
+  a.osn = m.o_s_n;
+  a.N = m.N;
+  a.H = m.H;
+  a.scale = 1.f;
+  a.kscale = 1.f;
+  a.online = 1;
+  if (!vs::attn::fma_layout_ok(a, false)) return cudaErrorMisalignedAddress;
+  if (Dh == 64)
+    return vs::attn::launch_fma_fwd_posbias<64, 16, 4>(a, m.B, lens, den,
+                                                      stream);
+  if (Dh == 128)
+    return vs::attn::launch_fma_fwd_posbias<128, 16, 4>(a, m.B, lens, den,
+                                                       stream);
+  return cudaErrorInvalidValue;
+}
+
 // rows: the CTA's query rows, 16 per warp (ops/attention.mma_cta_rows):
 // 128 (8 warps) or 64 (4 warps) at head_dim <= 64, 64 at 96 and 128
 template <bool NORM_FIRST, typename OutT, bool QK8>
@@ -1238,4 +1274,21 @@ extern "C" int vs_masked_attention(const void* q, const void* k,
               : launch_mma_dh<true, float, false>(a, Dh, cta_rows, s);
   }
   return (int)err;
+}
+
+// PGL-SUM's attention (launch_fma_posbias): q, k, v, o f32 (B, H, N, Dh)
+// views as vs_masked_attention's; lens (B,) int32 valid lengths, den the
+// position bias's f32 table (at least ceil(N / 2) entries), mask (B, N)
+// bytes, nonzero at and past each element's length.
+extern "C" int vs_masked_attention_posbias(
+    const void* q, const void* k, const void* v, const int* lens,
+    const float* den, const unsigned char* mask, void* o, int B, int H,
+    int N, int Dh, long long s_b, long long s_h, long long s_n,
+    long long o_s_b, long long o_s_h, long long o_s_n, void* stream) {
+  if (B <= 0 || H <= 0 || N <= 0 || B > 65535 || H > 65535)
+    return (int)cudaErrorInvalidValue;
+  const Args a{q, k, v, mask, o, nullptr, nullptr, B, H, N, s_b, s_h, s_n,
+               o_s_b, o_s_h, o_s_n, 0, 0, 0, 1.f};
+  return (int)launch_fma_posbias(a, Dh, lens, den,
+                                 static_cast<cudaStream_t>(stream));
 }

@@ -26,7 +26,7 @@ PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(PKG_DIR, "_build")
 KERNELS = ("gemm_bias_epilogue", "masked_attention", "block_train",
-           "attention_train", "int8_gemm", "ring_attention")
+           "attention_train", "int8_gemm", "ring_attention", "row_norms")
 HEADERS = ("common.cuh", "attention_core.cuh", "attention_train_mma.cuh",
            "mma_tiles.cuh", "fma_gemm.cuh", "tma_ring.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -51,7 +51,9 @@ _SIGNATURES = {
         "vs_gemm_wgmma_smem": [_int, _int]},
     "masked_attention": {
         "vs_masked_attention": [_vp] * 7 + [_int] * 4 + [_ll] * 9
-        + [_f32, _int, _int, _int, _int, _vp]},
+        + [_f32, _int, _int, _int, _int, _vp],
+        "vs_masked_attention_posbias": [_vp] * 7 + [_int] * 4 + [_ll] * 6
+        + [_vp]},
     "block_train": {
         "vs_bt_gemm": [_vp] * 8 + [_int] * 3 + [_ll] * 4 + [_int] * 2
         + [_uint, _int, _int, _uint, _f32, _vp],
@@ -79,6 +81,8 @@ _SIGNATURES = {
         "vs_ring_bwd": [_vp] * 14 + [_int] * 9 + [_uint] + [_int] * 3
         + [_uint, _f32, _vp],
         "vs_ring_slots": [_int] * 5 + [_vp]},
+    "row_norms": {
+        "vs_row_norms": [_vp] * 6 + [_int] * 3 + [_f32, _vp]},
 }
 
 _lock = threading.Lock()

@@ -242,6 +242,125 @@ masked_attention.launches = 0
 masked_attention.fallback_launches = 0
 
 
+# ------------------------------------------- the position-biased attention
+# PGL-SUM's attention (models/pglsum.py): softmax(Q K^T + P_T) V, unscaled,
+# with P_T the absolute position bias of each batch element's own valid
+# length T. It has no TPU kernel: the JAX package has no PGL-SUM.
+
+POSBIAS_HEAD_DIMS = (64, 128)
+
+
+def position_bias_den(count: int, d: int, freq: int, device) -> torch.Tensor:
+    """``den[j] = freq ** ((2 j) / d)`` for ``j < count``, float32, computed
+    as PGL-SUM's public code computes it (an int64 ``j``, true division,
+    then the power in float32; past ``2j`` ~ 9,860 at d 1,024 it is inf)."""
+    j = torch.arange(count, device=device)
+    return (freq ** ((2 * j) / d)).float()
+
+
+def position_bias(T: int, den: torch.Tensor, rows: Optional[int] = None
+                  ) -> torch.Tensor:
+    """The (rows, T) position bias of a length-``T`` sequence (``rows``
+    defaults to T): ``P[p, 2j] = sin(p / den[j])``, ``P[p, 2j + 1] =
+    cos(p / den[j])`` for ``j < T // 2``, every other entry 0 (the last
+    column of an odd T)."""
+    rows = T if rows is None else rows
+    half = T // 2
+    p = torch.zeros((rows, T), dtype=torch.float32, device=den.device)
+    if half:
+        ang = (torch.arange(rows, device=den.device).float()[:, None]
+               / den[None, :half])
+        p[:, 0:2 * half:2] = torch.sin(ang)
+        p[:, 1:2 * half:2] = torch.cos(ang)
+    return p
+
+
+def attention_posbias_reference(q, k, v, lens, den) -> torch.Tensor:
+    """Plain version of :func:`masked_attention_posbias`: per batch element
+    b of valid length ``T = lens[b]``, ``softmax(q k^T + P_T)`` over its
+    first T keys (the bias given for every query row), times v; an element
+    with T = 0 gives zeros. f32."""
+    B, H, N, Dh = q.shape
+    out = torch.zeros((B, H, N, Dh), dtype=torch.float32, device=q.device)
+    for b, T in enumerate(int(t) for t in lens):
+        if T == 0:
+            continue
+        s = torch.matmul(q[b].float(), k[b, :, :T].float().transpose(-1, -2))
+        s = s + position_bias(T, den, rows=N)
+        out[b] = torch.matmul(torch.softmax(s, dim=-1), v[b, :, :T].float())
+    return out
+
+
+def masked_attention_posbias(q, k, v, lens, den,
+                             out: Optional[torch.Tensor] = None
+                             ) -> torch.Tensor:
+    """``softmax(Q K^T + P_T) V`` with no scaling, PGL-SUM's attention, on
+    ``csrc/masked_attention.cu``'s ``vs_masked_attention_posbias``
+    (``attention_core.cuh``'s ``fma_fwd_posbias_kernel``).
+
+    ``q``/``k``/``v`` are f32 (B, H, N, Dh) views with equal strides and a
+    contiguous last dim, Dh in ``POSBIAS_HEAD_DIMS``; ``lens`` (B,) int the
+    valid length of each element: keys at and past it are padded, and its
+    bias is ``P_{lens[b]}`` (:func:`position_bias`), computed in the kernel
+    tile by tile: one IEEE ``sincosf`` of ``row / den[j]`` for each row and
+    column pair (2j, 2j + 1) below ``2 (lens[b] // 2)``; ``den`` is
+    :func:`position_bias_den`'s table, at least ``ceil(N / 2)`` long.
+    Nothing of size N x N is allocated. An element with length 0 gives
+    zeros. ``out``, if given, is a (B, H, N, Dh) f32 view to write into.
+    CTAs hold 64 query rows at both head_dims; a row's bits do not depend
+    on the batch. On CPU tensors this is
+    :func:`attention_posbias_reference`."""
+    if v.device.type == "cpu":
+        ref = attention_posbias_reference(q, k, v, lens, den)
+        return ref if out is None else out.copy_(ref)
+    B, H, N, Dh = v.shape
+    if k.shape != q.shape or v.shape != q.shape:
+        raise ValueError("q, k and v must have one shape")
+    if k.stride() != q.stride() or v.stride() != q.stride():
+        raise ValueError("q, k and v must have equal strides")
+    if not (q.dtype == k.dtype == v.dtype == torch.float32):
+        raise ValueError("the position-biased attention takes float32")
+    if Dh not in POSBIAS_HEAD_DIMS:
+        raise ValueError(f"the position-biased attention takes head_dim "
+                         f"{POSBIAS_HEAD_DIMS}, got {Dh}")
+    if den.dtype != torch.float32 or den.numel() < (N + 1) // 2:
+        raise ValueError("den must be a float32 table of ceil(N / 2) or "
+                         "more entries")
+    lens_t = lens.to(device=v.device, dtype=torch.int32).contiguous()
+    if lens_t.shape != (B,):
+        raise ValueError(f"lens must be ({B},), got {tuple(lens_t.shape)}")
+    mask = (torch.arange(N, device=v.device)[None, :]
+            >= lens_t[:, None]).contiguous()
+    if out is None:
+        out = torch.empty_like(v)
+    if (out.shape != v.shape or out.dtype != torch.float32
+            or out.stride(-1) != 1):
+        raise ValueError("out must be a (B, H, N, Dh) float32 view with a "
+                         "contiguous last dim")
+    staged = None
+    if not attention_layout_ok(q, k, v, out):
+        q, k, v = (_cuda.aligned16(t.contiguous()) for t in (q, k, v))
+        staged, out = out, torch.empty_like(v)
+    den = _cuda.aligned16(den.contiguous())
+    lib = _cuda.load("masked_attention")
+    sb, sh, sn, _ = v.stride()
+    ob, oh, on, _ = out.stride()
+    err = lib.vs_masked_attention_posbias(
+        _cuda.ptr(q), _cuda.ptr(k), _cuda.ptr(v), _cuda.ptr(lens_t),
+        _cuda.ptr(den), _cuda.ptr(mask), _cuda.ptr(out), B, H, N, Dh, sb, sh,
+        sn, ob, oh, on, _cuda.stream_of(v))
+    _cuda.check(lib, err, "masked_attention_posbias")
+    masked_attention_posbias.launches += 1
+    if staged is not None:
+        masked_attention_posbias.fallback_launches += 1
+        return staged.copy_(out)
+    return out
+
+
+masked_attention_posbias.launches = 0
+masked_attention_posbias.fallback_launches = 0
+
+
 # ------------------------------------------------ the two TPU entry points
 
 def _flash_attention(q, k, v, pad_mask, scale: float) -> torch.Tensor:

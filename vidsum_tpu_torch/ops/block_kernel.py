@@ -215,7 +215,8 @@ def gemm_cta_rows(M: int, N: int, sms: int) -> int:
 
 def gemm_bias_epilogue(x, w, bias, epilogue: str = "none", residual=None,
                        ln_g=None, ln_b=None, want_t: bool = True,
-                       want_f32: bool = False
+                       want_f32: bool = False,
+                       out: Optional[torch.Tensor] = None
                        ) -> Tuple[Optional[torch.Tensor],
                                   Optional[torch.Tensor]]:
     """``Y = X . W^T + b`` with an epilogue (``"none"``, ``"relu"`` or
@@ -234,12 +235,22 @@ def gemm_bias_epilogue(x, w, bias, epilogue: str = "none", residual=None,
     kernel's 16-byte loads where :func:`gemm_takes_vec4` holds, else its
     scalar loads, in :func:`gemm_f32_tile` CTAs. Fallbacks are counted by
     ``gemm_bias_epilogue.fallback_launches`` (``launches`` counts every
-    call). On CPU tensors this is :func:`gemm_bias_epilogue_reference`."""
-    if x.device.type == "cpu":
-        return gemm_bias_epilogue_reference(x, w, bias, epilogue, residual,
-                                            ln_g, ln_b, want_t, want_f32)
+    call). ``out``, for the epilogues ``"none"`` and ``"relu"`` with
+    ``want_t`` and not ``want_f32``, is a contiguous (M, N) tensor in x's
+    dtype that receives y (and is returned). On CPU tensors this is
+    :func:`gemm_bias_epilogue_reference`."""
     M, K = x.shape
     N = w.shape[0]
+    if out is not None and (epilogue == "residual_ln" or not want_t
+                            or want_f32 or out.shape != (M, N)
+                            or out.dtype != x.dtype
+                            or not out.is_contiguous()):
+        raise ValueError(f"out takes y alone, without a LayerNorm: a "
+                         f"contiguous ({M}, {N}) tensor in {x.dtype}")
+    if x.device.type == "cpu":
+        y, yf = gemm_bias_epilogue_reference(x, w, bias, epilogue, residual,
+                                             ln_g, ln_b, want_t, want_f32)
+        return (y, yf) if out is None else (out.copy_(y), yf)
     if w.shape != (N, K) or w.dtype != x.dtype:
         raise ValueError(f"w must be ({N}, {K}) in {x.dtype}")
     if x.stride(1) != 1 or w.stride(1) != 1 or x.stride(0) < K \
@@ -269,7 +280,8 @@ def gemm_bias_epilogue(x, w, bias, epilogue: str = "none", residual=None,
                           and _cuda.ln_rows_path(N, f32) != "tile")
     # in f32 the two outputs are one tensor, returned in both slots
     both = f32 and want_t and need_f
-    out_t = torch.empty((M, N), dtype=x.dtype, device=x.device) \
+    out_t = (out if out is not None else
+             torch.empty((M, N), dtype=x.dtype, device=x.device)) \
         if want_t and not both else None
     out_f = torch.empty((M, N), dtype=torch.float32, device=x.device) \
         if need_f else None

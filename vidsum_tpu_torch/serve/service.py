@@ -44,8 +44,10 @@ class ScoringService:
     futures. One dispatcher thread owns the device dispatch; a small pool
     runs host-side shot selection.
 
-    :param model: a :class:`~vidsum_tpu_torch.models.simnet.SimNet`; it is
-        moved to ``device`` and put in eval mode.
+    :param model: the scorer ``cfg.arch`` names
+        (:func:`~vidsum_tpu_torch.models.build_scorer`: ``SimNet`` or
+        ``PGLSum``, which serves in float32 on one device); it is moved to
+        ``device`` and put in eval mode.
     :param device: ``None`` (default) = the CUDA card, which must exist
         (with a ``mesh``: its first entry); pass ``"cpu"`` to serve on the
         plain PyTorch path.
@@ -105,6 +107,13 @@ class ScoringService:
         self.device = resolve_device(device)
         if attn_impl is None:
             attn_impl = "fused_block" if self.device.type == "cuda" else "dense"
+        if cfg.arch == "pglsum" and (
+                attn_impl.startswith("int8") or wire_dtype not in (
+                    "auto", "float32") or (mesh is not None
+                                           and mesh.size > 1)):
+            raise ValueError("a PGL-SUM scorer serves in float32 on one "
+                             "device: no int8 route, no bfloat16 or int8 "
+                             "wire, no mesh")
         self._cfg = cfg
         self._model = model.to(self.device).eval()
         routing = mesh_mod.build_mesh_routing(cfg, mesh, self._model,

@@ -206,7 +206,9 @@ def make_eval_forward(cfg: ModelConfig, attn_impl: Optional[str] = None, *,
     they move to ``device`` (default: the CUDA card, which must exist).
     ``attn_impl`` defaults to ``"fused_block"`` on CUDA and ``"dense"`` on
     the CPU; ``"int8_block"`` and ``"int8_dense"`` score on ``SimNet``'s
-    lossy int8 route."""
+    lossy int8 route. ``model`` is either scorer (``models.build_scorer``):
+    ``PGLSum`` maps ``"flash"`` and ``"fused_block"`` to its kernel
+    route."""
     dev = resolve_device(device)
     if attn_impl is None:
         attn_impl = "fused_block" if dev.type == "cuda" else "dense"
